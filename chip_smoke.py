@@ -9,19 +9,24 @@ outside a checkout of the repository. Phases, each fatal on failure:
   1. environment: card name and power limit, torch / CUDA / nvcc
      versions, SM count;
   2. build every kernel of the port from csrc/ with nvcc (in parallel);
-  3. each kernel against its plain PyTorch version on the card: edge
-     cases, the Qwen3-8B engine-prefill and serve-step shapes and a long
-     prefill, in f32 and bf16;
-  4. the main path: Qwen3-8B at full width and depth, bf16, random
-     weights from a seed, through Engine.serve and the continuous-
+  3. each kernel against its plain PyTorch version on the card: flash
+     prefill at edge cases, the Qwen3-8B engine-prefill and serve-step
+     shapes and a long prefill; one-shot AllReduce, ring AllGather and
+     gemm_rs at n = 2 and 4 (gemm_rs also n = 1, force_kernel), ragged
+     sizes, M = 1 and the world-4 main-path shapes; f32 and bf16;
+  4. the main path, twice: Qwen3-8B at full width and depth, bf16,
+     random weights from a seed, at world 1 and then, on the same
+     weights sharded by shard_params, at world 4 on the virtual world in
+     the `ar` mode; each through Engine.serve and the continuous-
      batching Scheduler, with every kernel's launch count read around
-     it and the kernel's inputs recorded; then the kernel path's logits
-     against the plain attention's, and a small model on the card
-     against the CPU reference;
-  5. the kernel against its plain version on the inputs recorded in
-     phase 4, and its timing there (the busiest scheduler step) and at
-     the two synthetic Qwen3-8B shapes, beside its bound, its plain
-     version and one PyTorch library call (a yardstick only);
+     it and the inputs of each kernel's first- and last-layer calls
+     recorded; then the kernel path's logits against the plain
+     versions', and a small f32 model on the card against the CPU at
+     world 1 and 4;
+  5. every kernel against its plain version on the inputs recorded in
+     phase 4, and its timing there (flash prefill also at two synthetic
+     Qwen3-8B shapes), beside its bound over the work of all ranks, its
+     plain version and one PyTorch library call (a yardstick only);
   6. the kernels line (JSON), the card line, and the result line.
 """
 
@@ -230,47 +235,215 @@ def time_flash_prefill(fp, extra=()):
     return rows
 
 
+# -- the collective kernels of the virtual world ---------------------------
+
+
+def rand(shape, dtype, seed, scale=1.0):
+    """Seeded normal values on the card, rounded to dtype."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+def gemm_rs_atol(a, b, want) -> float:
+    """Kernel and plain both round each rank's partial to the output
+    dtype and fold in rank order; their f32 products differ only in the
+    order of the K sums. bf16: one bf16 ulp (2^-7 relative) of every
+    partial and of the output; f32: 1e-5 relative to the larger of the
+    partials and the output."""
+    import torch
+
+    n = a.shape[0]
+    part = torch.matmul(a.float(), b.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    if a.dtype == torch.bfloat16:
+        return 2.0 ** -7 * (n * part + top)
+    return 1e-5 * max(1.0, part, top)
+
+
+def check_ar(kernels, x) -> None:
+    """AllReduce kernel against plain: bitwise, every rank's copy alike."""
+    import torch
+
+    got = kernels.one_shot_all_reduce(x)
+    want = kernels.one_shot_all_reduce_plain(x)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want)) and bool((got == got[:1]).all())
+    if not same:
+        err = (got.float() - want.float()).abs().max().item()
+        raise AssertionError(f"one_shot_all_reduce {tuple(x.shape)} "
+                             f"{x.dtype}: not bitwise (max abs err {err})")
+
+
+def check_ag(kernels, x) -> None:
+    """AllGather kernel against plain: bitwise."""
+    import torch
+
+    got = kernels.ring_all_gather(x)
+    want = kernels.ring_all_gather_plain(x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"ring_all_gather {tuple(x.shape)} {x.dtype}: "
+                             "not bitwise")
+
+
+def check_rs(kernels, a, b, force_kernel=False):
+    """gemm_rs kernel against plain, within gemm_rs_atol. Returns the
+    max abs error and its share of the atol."""
+    import torch
+
+    got = kernels.gemm_rs(a, b, force_kernel=force_kernel)
+    want = kernels.gemm_rs_plain(a, b)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    atol = gemm_rs_atol(a, b, want)
+    if not bool(torch.isfinite(got).all()) or not err <= atol:
+        raise AssertionError(f"gemm_rs a {tuple(a.shape)} b "
+                             f"{tuple(b.shape)} {a.dtype}: err {err}, atol "
+                             f"{atol}")
+    return err, err / atol
+
+
+def check_collectives(kernels):
+    """Each collective kernel against its plain version on the card at
+    n = 2 and 4 (gemm_rs also at n = 1 with force_kernel), f32 and bf16:
+    ragged sizes, M = 1, sizes whose rows are not 16-byte multiples, and
+    the Qwen3-8B main-path shapes at world 4."""
+    import torch
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        for n in (2, 4):
+            for m, w in ((1, 4096), (3, 1000), (5, 7), (4, 4096),
+                         (256, 4096)):
+                check_ar(kernels, rand((n, m, w), dtype, m + w, 0.5))
+            log(f"  one_shot_all_reduce n={n} {dn}: M x N in (1, 4096), "
+                "(3, 1000), (5, 7), (4, 4096), (256, 4096): bitwise, "
+                "every rank's copy alike")
+            for m, w in ((1, 4096), (3, 1000), (5, 7), (128, 4096)):
+                check_ag(kernels, rand((n, m, w), dtype, m * w, 0.5))
+            log(f"  ring_all_gather n={n} {dn}: m x W in (1, 4096), "
+                "(3, 1000), (5, 7), (128, 4096): bitwise")
+        shapes = [(1, 1, 64, 64, True), (1, 200, 136, 200, True),
+                  (2, 8, 64, 128, False), (2, 6, 136, 200, False),
+                  (4, 12, 128, 264, False), (4, 1024, 64, 72, False),
+                  (4, 512, 1024, 4096, False), (4, 512, 3072, 4096, False)]
+        for n, M, K, N, force in shapes:
+            a = rand((n, M, K), dtype, M + K, 1.0)
+            b = rand((n, K, N), dtype, K + N, 0.02)
+            _, ratio = check_rs(kernels, a, b, force_kernel=force)
+            worst = max(worst, ratio)
+            log(f"  gemm_rs n={n} M={M} K={K} N={N} {dn}"
+                f"{' force_kernel' if force else ''}: at most {ratio:.3f} "
+                "of its atol")
+    return worst
+
+
 # -- the main path --------------------------------------------------------
 
 
-def recorder(fp, every: int):
-    """Wrap fp.flash_prefill_local so that the first and the last call
-    of each run of `every` calls (the first and last layer of one
-    forward) keeps a copy of its inputs. Returns (wrapper, records);
-    the wrapper calls the kernel's wrapper, which counts the launch."""
+def main_path_kernels():
+    """kernel name -> (module, attribute) through which the main path
+    calls it (attention.py and gemm_allreduce.py call the kernels
+    through their modules, so a wrapper installed here sees every
+    call)."""
+    from triton_dist_tpu_torch.kernels import (
+        allgather,
+        allreduce,
+        flash_prefill,
+        gemm_reduce_scatter,
+    )
+
+    return {"flash_prefill_local": (flash_prefill, "flash_prefill_local"),
+            "one_shot_all_reduce": (allreduce, "one_shot_all_reduce"),
+            "ring_all_gather": (allgather, "ring_all_gather"),
+            "gemm_rs": (gemm_reduce_scatter, "gemm_rs")}
+
+
+def plain_versions():
+    from triton_dist_tpu_torch import kernels
+
+    return {"flash_prefill_local": kernels.flash_prefill_plain,
+            "one_shot_all_reduce": kernels.one_shot_all_reduce_plain,
+            "ring_all_gather": kernels.ring_all_gather_plain,
+            "gemm_rs": kernels.gemm_rs_plain}
+
+
+class Swapped:
+    """Within the block, the main path calls fns[name] in place of the
+    kernel `name`; restored on exit."""
+
+    def __init__(self, fns):
+        self.fns = fns
+        self.saved = {}
+
+    def __enter__(self):
+        for name, fn in self.fns.items():
+            mod, attr = main_path_kernels()[name]
+            self.saved[name] = getattr(mod, attr)
+            setattr(mod, attr, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            mod, attr = main_path_kernels()[name]
+            setattr(mod, attr, fn)
+
+
+def _copy_fp(q, k, v, q_positions=None, q_offset=0, kv_len=None,
+             causal=True, scale=None):
     import torch
 
-    kernel_fn = fp.flash_prefill_local
-    records = []
-    calls = [0]
-
-    def recording(q, k, v, q_positions=None, q_offset=0, kv_len=None,
-                  causal=True, scale=None):
-        i = calls[0]
-        calls[0] += 1
-        if i % every in (0, every - 1):
-            b, s = q.shape[:2]
-            if q_positions is None:
-                q_positions = (torch.arange(s, device=q.device)[None]
-                               + q_offset).expand(b, s)
-            if kv_len is None:
-                kv_len = torch.full((b,), k.shape[1], device=q.device)
-            records.append(dict(
-                forward=i // every, layer=i % every, q=q.clone(),
-                k=k.clone(), v=v.clone(),
+    b, s = q.shape[:2]
+    if q_positions is None:
+        q_positions = (torch.arange(s, device=q.device)[None]
+                       + q_offset).expand(b, s)
+    if kv_len is None:
+        kv_len = torch.full((b,), k.shape[1], device=q.device)
+    return dict(q=q.clone(), k=k.clone(), v=v.clone(),
                 q_positions=q_positions.clone().contiguous(),
-                kv_len=kv_len.clone(), causal=causal, scale=scale))
-        return kernel_fn(q, k, v, q_positions=q_positions,
-                         q_offset=q_offset, kv_len=kv_len, causal=causal,
-                         scale=scale)
-
-    return recording, records
+                kv_len=kv_len.clone(), causal=causal, scale=scale)
 
 
-def check_recorded(fp, records):
-    """The kernel against its plain version on the inputs the main path
-    gave it. Returns the max abs error and the scheduler step (a record)
-    with the most live work, for timing."""
+# how a recorder copies a kernel's inputs, and its calls per layer
+COPY = {"flash_prefill_local": (_copy_fp, 1),
+        "one_shot_all_reduce": (lambda x: dict(x=x.clone()), 2),
+        "ring_all_gather": (lambda x: dict(x=x.clone()), 2),
+        # b is a weight, never written: kept by reference
+        "gemm_rs": (lambda a, b, **kw: dict(a=a.clone(), b=b), 2)}
+
+
+class Recorder:
+    """Wraps a kernel's wrapper so that the calls at the first and the
+    last layer of each forward that reaches the kernel keep a copy of
+    their inputs (flash prefill: one call a layer; the collectives: the
+    O and the down projection's, two a layer). Calls the kernel's
+    wrapper, which counts the launch."""
+
+    def __init__(self, name, num_layers):
+        mod, attr = main_path_kernels()[name]
+        self.fn = getattr(mod, attr)
+        self.copy, self.per_layer = COPY[name]
+        self.layers = num_layers
+        self.calls = 0
+        self.records = []
+
+    def __call__(self, *a, **kw):
+        every = self.per_layer * self.layers
+        layer = self.calls % every // self.per_layer
+        if layer in (0, self.layers - 1):
+            self.records.append(dict(forward=self.calls // every,
+                                     layer=layer, **self.copy(*a, **kw)))
+        self.calls += 1
+        return self.fn(*a, **kw)
+
+
+def check_recorded_fp(fp, records):
+    """The flash kernel against its plain version on the inputs the main
+    path gave it. Returns the max abs error and the scheduler step (a
+    record) with the most live work, for timing."""
     import torch
 
     err_max, ratio_max, busiest = 0.0, 0.0, None
@@ -299,7 +472,41 @@ def check_recorded(fp, records):
     return err_max, busiest
 
 
-def run_model(kernels, cfg, device="cuda"):
+def check_recorded_collectives(kernels, records):
+    """Each collective kernel against its plain version on the inputs
+    the world-4 main path gave it: AR and AG bitwise, gemm_rs within
+    gemm_rs_atol. Returns name -> max abs error."""
+    import torch
+
+    errs = {}
+    for rec in records["one_shot_all_reduce"]:
+        check_ar(kernels, rec["x"])
+    for rec in records["ring_all_gather"]:
+        check_ag(kernels, rec["x"])
+    errs["one_shot_all_reduce"] = errs["ring_all_gather"] = 0.0
+    err_max, ratio_max = 0.0, 0.0
+    for rec in records["gemm_rs"]:
+        err, ratio = check_rs(kernels, rec["a"], rec["b"])
+        err_max, ratio_max = max(err_max, err), max(ratio_max, ratio)
+    errs["gemm_rs"] = err_max
+    torch.cuda.synchronize()
+    for name in ("one_shot_all_reduce", "ring_all_gather", "gemm_rs"):
+        shapes = sorted({tuple(v.shape) for r in records[name]
+                         for k, v in r.items() if k in ("x", "a", "b")})
+        log(f"  {name} on {len(records[name])} recorded main-path calls, "
+            f"shapes {shapes}: max_abs_err={errs[name]:.3e}"
+            + (f", at most {ratio_max:.3f} of its atol"
+               if name == "gemm_rs" else " (bitwise)"))
+    return errs
+
+
+def run_model(kernels, cfg, params, world: int, device="cuda"):
+    """The main path at `world`: Engine.serve of 4 x 128 prompts and a
+    Scheduler with 6 requests over `params`, every kernel's launches
+    read around each, the kernels' inputs recorded; then the timed
+    prefill and decode, and the kernel path's logits against the plain
+    versions'. Returns (launches of the whole path, records, model
+    numbers)."""
     import numpy as np
     import torch
 
@@ -307,14 +514,13 @@ def run_model(kernels, cfg, device="cuda"):
     from triton_dist_tpu_torch.models import Engine
     from triton_dist_tpu_torch.serve import Scheduler
 
-    t0 = time.perf_counter()
-    eng = Engine(cfg, device=device, seed=0, max_len=MAX_LEN)
-    torch.cuda.synchronize()
+    L = cfg.num_layers
+    eng = Engine(cfg, device=device, params=params, max_len=MAX_LEN,
+                 world=world, prefill_mode="ar", decode_mode="ar")
     n_params = sum(p.numel() for p in (eng.params.embed, eng.params.lm_head,
                                        *eng.params.layers))
-    log(f"  model: {cfg.num_layers} layers, hidden {cfg.hidden_size}, "
-        f"{n_params / 1e9:.3f} B params bf16, init "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"  model: {L} layers, hidden {cfg.hidden_size}, world {world}, "
+        f"{n_params / 1e9:.3f} B params bf16")
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (4, 128))
     sched_prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
@@ -323,12 +529,8 @@ def run_model(kernels, cfg, device="cuda"):
 
     # (a) Engine.serve, (b) Scheduler: counts zeroed just before, read
     # just after; the serve-step wrapper below only reads the logits, and
-    # the recorder keeps the kernel's inputs of the first and last layer
-    # of each multi-token forward (forward 0: Engine.serve's prefill,
-    # then one per scheduler step)
+    # the recorders keep the kernels' inputs at the first and last layer
     finite = []
-    kernel_fn = fp.flash_prefill_local
-    fp.flash_prefill_local, records = recorder(fp, cfg.num_layers)
 
     def watch(fn):
         def step(*a):
@@ -337,43 +539,54 @@ def run_model(kernels, cfg, device="cuda"):
             return tok, last
         return step
 
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = eng.serve(prompts, gen)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    serve_launches = kernels.launches()
-    sch = Scheduler(eng, slots=4, chunk=64, page=64)
-    sch.worker._fn = watch(sch.worker._fn)
-    reqs = [sch.submit(p, gen) for p in sched_prompts]
-    t0 = time.perf_counter()
-    sch.run()
-    torch.cuda.synchronize()
-    sched_s = time.perf_counter() - t0
-    main_launches = kernels.launches()
-    fp.flash_prefill_local = kernel_fn
+    wrappers = {name: Recorder(name, L) for name in main_path_kernels()}
+    with Swapped(wrappers):
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.serve(prompts, gen)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        serve_n = kernels.launches()
+        sch = Scheduler(eng, slots=4, chunk=64, page=64)
+        sch.worker._fn = watch(sch.worker._fn)
+        reqs = [sch.submit(p, gen) for p in sched_prompts]
+        t0 = time.perf_counter()
+        sch.run()
+        torch.cuda.synchronize()
+        sched_s = time.perf_counter() - t0
+        main_n = kernels.launches()
     steps = sch.worker.n_steps
+    records = {name: w.records for name, w in wrappers.items()}
 
     assert out.shape == (4, gen)
     assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size
     assert all(len(r.out_tokens) == gen and r.finish_reason == "length"
                for r in reqs), "a scheduler request was not answered"
     assert all(finite), "non-finite serve-step logits"
-    n_fp = main_launches["flash_prefill_local"]
-    n_fp_serve = serve_launches["flash_prefill_local"]
-    # Engine.serve runs one multi-token forward (the prefill); every
-    # scheduler step is a (slots, chunk) multi-token forward
-    assert n_fp_serve >= cfg.num_layers, n_fp_serve
-    assert n_fp - n_fp_serve >= cfg.num_layers * steps, (n_fp, steps)
+    sched_n = {k: main_n[k] - serve_n[k] for k in main_n}
+    # Engine.serve runs one multi-token forward (the prefill, M = 512
+    # rows at world > 1: gemm_rs + ring AG), then gen - 1 decode steps
+    # (M = 4: one-shot AR); every scheduler step is a (slots, chunk)
+    # multi-token forward of M = 256 rows (one-shot AR)
+    want_serve = {"flash_prefill_local": L, "gemm_rs": 0,
+                  "ring_all_gather": 0, "one_shot_all_reduce": 0}
+    want_sched = {"flash_prefill_local": L * steps, "gemm_rs": 0,
+                  "ring_all_gather": 0, "one_shot_all_reduce": 0}
+    if world > 1:
+        want_serve.update(gemm_rs=2 * L, ring_all_gather=2 * L,
+                          one_shot_all_reduce=2 * L * (gen - 1))
+        want_sched.update(one_shot_all_reduce=2 * L * steps)
+    assert serve_n == want_serve, (serve_n, want_serve)
+    assert sched_n == want_sched, (sched_n, want_sched)
     m = sch.metrics()
     log(f"  Engine.serve 4x128 +{gen}: {serve_s:.3f} s, tokens "
         f"{out[0, :8].tolist()}...")
     log(f"  Scheduler slots=4 chunk=64 page=64, 6 requests: {steps} steps, "
         f"{sched_s:.3f} s, {m['tokens_per_s']:.2f} tok/s, ttft p50 "
         f"{m['ttft_p50_us'] / 1e3:.1f} ms, evicted {m['evicted']}")
-    log(f"  launches on the main path: {main_launches}")
+    log(f"  launches: Engine.serve {serve_n}, Scheduler {sched_n}")
 
     # timed prefill and decode, outside the counted window
     def prefill():
@@ -391,14 +604,15 @@ def run_model(kernels, cfg, device="cuda"):
     log(f"  prefill 4x128: {pre_ms:.3f} ms; decode: {decode_ms:.3f} "
         f"ms/token (batch 4, host clock); peak memory {peak_gb:.2f} GB")
 
-    # the kernel path's logits against the plain attention's, swapped
-    # in here and only here; the bound is calibrated in the same run by
-    # the drift that a one-ulp bf16 perturbation of every attention
-    # output (the size of the kernel's own error) causes through the
-    # 36 layers of this random-weight model. The kernel's own evidence
-    # is check_recorded above; this bound only shows nothing else on the
-    # path (layout, cache, routing) differs. Random weights leave the
-    # top logits near-tied, so argmax agreement is printed, not held.
+    # the kernel path's logits against the plain versions', swapped in
+    # here and only here; the bound is calibrated in the same run by the
+    # drift that a one-ulp bf16 perturbation of every attention output
+    # (the size of the kernels' own error) causes through the layers of
+    # this random-weight model. The kernels' own evidence is the check
+    # on their recorded inputs; this bound only shows nothing else on the
+    # path (layout, cache, routing, rank order) differs. Random weights
+    # leave the top logits near-tied, so argmax agreement is printed,
+    # not held.
     assert torch.isfinite(logits).all(), "non-finite prefill logits"
     noise = torch.Generator(device=device).manual_seed(1)
 
@@ -408,11 +622,11 @@ def run_model(kernels, cfg, device="cuda"):
                              device=out.device) * 2 - 1
         return (out.float() * (1 + sign * 2.0 ** -8)).to(out.dtype)
 
-    fp.flash_prefill_local = fp.flash_prefill_plain
-    plain_logits, _ = prefill()
-    fp.flash_prefill_local = perturbed_plain
-    floor_logits, _ = prefill()
-    fp.flash_prefill_local = kernel_fn
+    plain = plain_versions()
+    with Swapped(plain):
+        plain_logits, _ = prefill()
+    with Swapped({**plain, "flash_prefill_local": perturbed_plain}):
+        floor_logits, _ = prefill()
     torch.cuda.synchronize()
 
     def rel(a):
@@ -424,14 +638,14 @@ def run_model(kernels, cfg, device="cuda"):
     diff = (logits - plain_logits).abs().max().item()
     top2 = plain_logits.float().topk(2, dim=-1).values
     gap = (top2[:, 0] - top2[:, 1]).tolist()
-    log(f"  prefill logits kernel vs plain attention: relative L2 "
+    log(f"  prefill logits kernels vs plain versions: relative L2 "
         f"{rel(logits):.4e} (one-ulp perturbed plain: "
         f"{rel(floor_logits):.4e}), max abs diff {diff:.4e} of max "
         f"|logit| {plain_logits.abs().max().item():.4e}; argmax agree "
         f"{agree(logits):.2f} (one-ulp perturbed plain: "
         f"{agree(floor_logits):.2f}); plain top-1 minus top-2 logit per "
         f"prompt {[round(x, 4) for x in gap]}")
-    model = dict(prefill_ms=pre_ms, decode_ms=decode_ms,
+    model = dict(world=world, prefill_ms=pre_ms, decode_ms=decode_ms,
                  tokens_per_s=m["tokens_per_s"], peak_gb=peak_gb,
                  logits_rel_l2=rel(logits),
                  logits_rel_l2_ulp=rel(floor_logits),
@@ -442,36 +656,164 @@ def run_model(kernels, cfg, device="cuda"):
                              "one-ulp perturbation's")
     del eng, cache, logits, plain_logits, floor_logits
     torch.cuda.empty_cache()
-    return n_fp, records, model
+    return main_n, records, model
 
 
-def check_small_model():
-    """A small config with head_dim 128 in f32 on the card (the kernel)
+def check_small_model(world: int):
+    """A small config with head_dim 128 in f32 on the card (the kernels)
     against the same weights on the CPU (the plain versions): logits of
-    a prefill and two decode steps within 1e-3, greedy tokens equal."""
+    a prefill and three decode steps, and greedy tokens equal. World 1:
+    a 3 x 37 prefill, within 1e-3. World 4: an 8 x 40 prefill (320 rows,
+    so gemm_ar takes gemm_rs + ring AG; decode takes the one-shot AR),
+    within 1e-4."""
     import torch
 
     from triton_dist_tpu_torch.models import Engine, ModelConfig
     from triton_dist_tpu_torch.models.dense import init_params
 
-    cfg = ModelConfig.tiny(head_dim=128, num_q_heads=8, num_kv_heads=2,
+    cfg = ModelConfig.tiny(head_dim=128, num_q_heads=8, num_kv_heads=4,
                            max_positions=128)
-    params = init_params(cfg, device="cpu", seed=3)
-    cpu = Engine(cfg, device="cpu", params=params)
-    gpu = Engine(cfg, device="cuda", params=params.to("cuda"))
-    ids = torch.randint(0, cfg.vocab_size, (3, 37),
+    params = init_params(cfg, device="cpu", seed=3, world=world)
+    kw = dict(params=params, world=world, prefill_mode="ar")
+    cpu = Engine(cfg, device="cpu", **kw)
+    gpu = Engine(cfg, device="cuda", **{**kw, "params": params.to("cuda")})
+    b, s, tol = (3, 37, 1e-3) if world == 1 else (8, 40, 1e-4)
+    ids = torch.randint(0, cfg.vocab_size, (b, s),
                         generator=torch.Generator().manual_seed(0))
+    kernels_before = _launch_total()
     err = 0.0
     (lc, cc), (lg, cg) = cpu.prefill(ids), gpu.prefill(ids)
-    for _ in range(3):
+    for _ in range(4):
         err = max(err, (lg.cpu() - lc).abs().max().item())
         tok = lc.argmax(-1)
         (lc, cc), (lg, cg) = cpu.decode_step(tok, cc), gpu.decode_step(tok, cg)
     want = cpu.serve(ids, 6).tolist()
     got = gpu.serve(ids, 6).cpu().tolist()
-    log(f"  small model (f32, head_dim 128) card vs CPU: max abs logit "
-        f"diff {err:.3e}, greedy tokens equal {got == want}")
-    assert err <= 1e-3 and got == want
+    launched = _launch_total() - kernels_before
+    log(f"  small model (f32, head_dim 128, world {world}) card vs CPU: "
+        f"max abs logit diff {err:.3e} (atol {tol:g}), greedy tokens equal "
+        f"{got == want}, {launched} kernel launches")
+    assert err <= tol and got == want and launched > 0
+
+
+def _launch_total() -> int:
+    from triton_dist_tpu_torch import kernels
+
+    return sum(kernels.launches().values())
+
+
+def time_collective(label, fn, plain, library, ops, nbytes, dtype):
+    """Kernel, plain and library times of one call, beside the bound."""
+    bnd, by = bound_ms(ops, nbytes, str(dtype)[6:])
+    row = dict(ms=time_ms(fn), plain_ms=time_ms(plain), bound_ms=bnd,
+               bound_by=by, library_ms=time_ms(library),
+               gflop=ops / 1e9, mbytes=nbytes / 1e6)
+    log(f"  {label}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+        f"ms, library {row['library_ms']:.4f} ms, bound {bnd:.4f} ms ({by}; "
+        f"{row['gflop']:.3f} GFLOP, {row['mbytes']:.2f} MB)")
+    return row
+
+
+def time_collectives(kernels, records):
+    """Each collective kernel timed on inputs the world-4 main path gave
+    it. AR: a scheduler step's (4, 256, 4096) and a decode step's
+    (4, 4, 4096); AG: the prefill's (4, 128, 4096); gemm_rs: the
+    prefill's down projection (K 3072) and O projection (K 1024), and
+    the down projection at n = 1 (force_kernel, K 12288). The
+    bound counts the work of all n ranks on the one card: AR n inputs
+    read and n outputs written (its n(n-1) adds per element at the f32
+    rate), AG n shards read and n*n written, gemm_rs 2nMKN operations at
+    the bf16 peak against n(MK + KN) read and n(M/n)N written. Library
+    yardsticks (never called by the port): x.sum(0) broadcast, one copy,
+    one einsum. Returns name -> {label: row} and each kernel's main row
+    label."""
+    import torch
+
+    def biggest(name, key, pick):
+        return max(records[name], key=lambda r: pick(r[key].shape))
+
+    ar_sched = biggest("one_shot_all_reduce", "x", lambda s: s[1])["x"]
+    ar_dec = min(records["one_shot_all_reduce"],
+                 key=lambda r: r["x"].shape[1])["x"]
+    ag_x = records["ring_all_gather"][0]["x"]
+    rs_down = biggest("gemm_rs", "a", lambda s: s[2])
+    rs_o = min(records["gemm_rs"], key=lambda r: r["a"].shape[2])
+    rows = {"one_shot_all_reduce": {}, "ring_all_gather": {}, "gemm_rs": {}}
+    for x, step in ((ar_sched, "scheduler step"), (ar_dec, "decode step")):
+        n, e = x.shape[0], x[0].numel()
+        label = f"{step} x {tuple(x.shape)} bf16"
+        rows["one_shot_all_reduce"][label] = time_collective(
+            f"one_shot_all_reduce {label}",
+            lambda x=x: kernels.one_shot_all_reduce(x),
+            lambda x=x: kernels.one_shot_all_reduce_plain(x),
+            lambda x=x: x.sum(0).expand_as(x),
+            n * (n - 1) * e, 2 * n * e * x.element_size(), x.dtype)
+    n, m = ag_x.shape[:2]
+    out = torch.empty((n, n * m, *ag_x.shape[2:]), dtype=ag_x.dtype,
+                      device=ag_x.device)
+    label = f"prefill x {tuple(ag_x.shape)} bf16"
+    chunk = ag_x[0].numel() * ag_x.element_size()
+    rows["ring_all_gather"][label] = time_collective(
+        f"ring_all_gather {label}", lambda: kernels.ring_all_gather(ag_x),
+        lambda: kernels.ring_all_gather_plain(ag_x),
+        lambda: out.copy_(ag_x.reshape(1, n * m, *ag_x.shape[2:])
+                          .expand(out.shape)),
+        0, n * chunk + n * n * chunk, ag_x.dtype)
+    for rec, proj in ((rs_down, "down"), (rs_o, "O")):
+        a, b = rec["a"], rec["b"]
+        n, M, K = a.shape
+        N = b.shape[2]
+        label = f"prefill {proj} projection a {tuple(a.shape)} b {tuple(b.shape)} bf16"
+        rows["gemm_rs"][label] = time_collective(
+            f"gemm_rs {label}", lambda a=a, b=b: kernels.gemm_rs(a, b),
+            lambda a=a, b=b: kernels.gemm_rs_plain(a, b),
+            lambda a=a, b=b: torch.einsum("rmk,rkn->mn", a, b),
+            2 * n * M * K * N,
+            (n * (M * K + K * N) + n * (M // n) * N) * a.element_size(),
+            a.dtype)
+    # the same kernel at n = 1 (force_kernel; the JAX _local_mm_kernel's
+    # place): the world-1 down projection, these ranks' K blocks joined
+    a, b = rs_down["a"], rs_down["b"]
+    n, M, K = a.shape
+    a1 = a.permute(1, 0, 2).reshape(1, M, n * K).contiguous()
+    b1 = b.reshape(1, n * K, -1)
+    N = b1.shape[2]
+    label = f"n = 1 force_kernel a {tuple(a1.shape)} b {tuple(b1.shape)} bf16"
+    _, ratio = check_rs(kernels, a1, b1, force_kernel=True)
+    log(f"  gemm_rs {label}: at most {ratio:.3f} of its atol")
+    rows["gemm_rs"][label] = time_collective(
+        f"gemm_rs {label}",
+        lambda: kernels.gemm_rs(a1, b1, force_kernel=True),
+        lambda: kernels.gemm_rs_plain(a1, b1),
+        lambda: torch.matmul(a1, b1), 2 * M * n * K * N,
+        (M * n * K + n * K * N + M * N) * a1.element_size(), a1.dtype)
+    main = {"one_shot_all_reduce": next(iter(rows["one_shot_all_reduce"])),
+            "ring_all_gather": next(iter(rows["ring_all_gather"])),
+            "gemm_rs": next(iter(rows["gemm_rs"]))}
+    return rows, main
+
+
+SOURCES = {
+    "flash_prefill_local": ("triton_dist_tpu_torch/csrc/flash_prefill.cu",
+                            "triton_dist_tpu/kernels/flash_prefill.py:231"),
+    "one_shot_all_reduce": ("triton_dist_tpu_torch/csrc/allreduce.cu",
+                            "triton_dist_tpu/kernels/allreduce.py:75"),
+    "ring_all_gather": ("triton_dist_tpu_torch/csrc/allgather.cu",
+                        "triton_dist_tpu/kernels/allgather.py:71"),
+    "gemm_rs": ("triton_dist_tpu_torch/csrc/gemm_reduce_scatter.cu",
+                "triton_dist_tpu/kernels/gemm_reduce_scatter.py:261"),
+}
+
+
+def entry(name, launches, by_path, err, rows, main_label, **extra):
+    source, replaces = SOURCES[name]
+    t = rows[main_label]
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=err, ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=t["library_ms"],
+                shape=main_label, launches_by_path=by_path, timings=rows,
+                **extra)
 
 
 def main() -> int:
@@ -491,7 +833,10 @@ def main() -> int:
     from triton_dist_tpu_torch import kernels
     from triton_dist_tpu_torch.kernels import _build
     from triton_dist_tpu_torch.kernels import flash_prefill as fp
+    from triton_dist_tpu_torch.models import ModelConfig, shard_params
+    from triton_dist_tpu_torch.models.dense import init_params
 
+    t_start = time.perf_counter()
     log("== 1. environment")
     card = card_line()
     props = torch.cuda.get_device_properties(0)
@@ -514,36 +859,53 @@ def main() -> int:
 
     log("== 3. kernels against their plain versions")
     fp_err = check_flash_prefill(fp)
+    rs_ratio = check_collectives(kernels)
 
-    log("== 4. main path: Qwen3-8B, Engine.serve and Scheduler")
-    from triton_dist_tpu_torch.models import ModelConfig
+    log("== 4. main path: Qwen3-8B, Engine.serve and Scheduler, world 1 "
+        "and world 4 (ar)")
+    cfg = ModelConfig.qwen3_8b()
+    params = init_params(cfg, device="cuda", seed=0)
+    n1, rec1, model1 = run_model(kernels, cfg, params, world=1)
+    # the same weights laid out for 4 ranks; the world-1 engine is gone
+    params = shard_params(params, 4)
+    torch.cuda.empty_cache()
+    n4, rec4, model4 = run_model(kernels, cfg, params, world=4)
+    del params
+    torch.cuda.empty_cache()
+    check_small_model(world=1)
+    check_small_model(world=4)
 
-    n_fp, records, model = run_model(kernels, ModelConfig.qwen3_8b())
-    check_small_model()
+    log("== 5. the kernels on the main path's inputs, and timing (bf16)")
+    err1, _ = check_recorded_fp(fp, rec1["flash_prefill_local"])
+    err4, (busy_rec, busy_inp) = check_recorded_fp(
+        fp, rec4["flash_prefill_local"])
+    errs = check_recorded_collectives(kernels, rec4)
+    b, s = busy_inp["q"].shape[:2]
+    busy = (f"world-4 recorded scheduler step {busy_rec['forward']} layer "
+            f"{busy_rec['layer']} B=4x4 rank rows S={s} T={MAX_LEN}, Hq=8 "
+            f"Hkv=2 a rank, kv_len {busy_inp['kv_len'][:4].tolist()}")
+    del rec1
+    fp_rows = time_flash_prefill(fp, [(busy, busy_inp)])
+    coll_rows, coll_main = time_collectives(kernels, rec4)
+    del rec4
 
-    log("== 5. the kernel on the main path's inputs, and timing (bf16)")
-    rec_err, (busy_rec, busy_inp) = check_recorded(fp, records)
-    busy = (f"recorded scheduler step {busy_rec['forward']} layer "
-            f"{busy_rec['layer']} B=4 S=64 T={MAX_LEN}, kv_len "
-            f"{busy_inp['kv_len'].tolist()}")
-    del records
-    timing = time_flash_prefill(fp, [(busy, busy_inp)])
-
-    main_t = timing[busy]
-    entry = dict(
-        name="flash_prefill_local", route="cuda",
-        source="triton_dist_tpu_torch/csrc/flash_prefill.cu",
-        replaces="triton_dist_tpu/kernels/flash_prefill.py:231",
-        launches=n_fp, max_abs_err=rec_err, ms=main_t["ms"],
-        plain_ms=main_t["plain_ms"], bound_ms=main_t["bound_ms"],
-        bound_by=main_t["bound_by"], library_ms=main_t["library_ms"],
-        shape=f"bf16 {busy}, Hq=32 Hkv=8 D=128, causal",
-        max_abs_err_synthetic=fp_err, timings=timing)
-    missing = set(kernels.KERNELS) - {entry["name"]}
+    lines = [entry("flash_prefill_local", n4["flash_prefill_local"],
+                   {"world1": n1["flash_prefill_local"],
+                    "world4": n4["flash_prefill_local"]},
+                   max(err1, err4), fp_rows, busy,
+                   max_abs_err_synthetic=fp_err)]
+    for name in ("one_shot_all_reduce", "ring_all_gather", "gemm_rs"):
+        lines.append(entry(name, n4[name], {"world1": n1[name],
+                                            "world4": n4[name]},
+                           errs[name], coll_rows[name], coll_main[name]))
+    lines[-1]["atol_ratio_synthetic"] = rs_ratio
+    missing = set(kernels.KERNELS) - {e["name"] for e in lines}
     assert not missing, f"kernels without a line: {missing}"
+    assert all(e["launches"] > 0 for e in lines), "a kernel never launched"
     log("== 6. summary")
-    log(json.dumps({"model": model}))
-    print(json.dumps({"kernels": [entry]}))
+    log(f"  wall {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"model": [model1, model4]}))
+    print(json.dumps({"kernels": lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,232 @@
+"""The port's collective kernels (triton_dist_tpu_torch.kernels:
+one_shot_all_reduce, ring_all_gather, gemm_rs, gemm_ar) against the JAX
+package's, and the build's header hashing.
+
+On the CPU each wrapper runs its plain version. The JAX functions run
+under `jax.shard_map` on a mesh of n in {2, 4} devices cut from the 12
+virtual CPU devices, as tests/test_overlap_gemm.py runs them; with the
+spare devices the real interpret-mode protocols run. The port's tensors
+are rank-stacked: rank r's shard is [r]. Same numpy inputs for both.
+
+Tolerances: AllReduce and AllGather bitwise in f32 (the port folds over
+ranks 0..n-1 in f32, as the JAX body does in x.dtype; a gather moves
+data only). gemm_rs 1e-5 in f32: the JAX ring folds the partials in
+ring order, the port in rank order. The CUDA kernels themselves run
+only on the card: tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from triton_dist_tpu.kernels import gemm_ar as jax_gemm_ar
+from triton_dist_tpu.kernels import gemm_rs as jax_gemm_rs
+from triton_dist_tpu.kernels.allgather import (
+    ring_all_gather as jax_ring_all_gather,
+)
+from triton_dist_tpu.kernels.allreduce import (
+    one_shot_all_reduce as jax_one_shot_all_reduce,
+)
+from triton_dist_tpu.lang.core import pallas_call_count
+from triton_dist_tpu.runtime import make_mesh
+from triton_dist_tpu_torch.kernels import (
+    _build,
+    gemm_ar,
+    gemm_rs,
+    gemm_rs_plain,
+    launches,
+    one_shot_all_reduce,
+    reset_launches,
+    ring_all_gather,
+)
+from triton_dist_tpu_torch.kernels import allgather as ag
+from triton_dist_tpu_torch.kernels import allreduce as ar
+from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
+from triton_dist_tpu_torch.runtime import VirtualWorld
+
+RS_ATOL = 1e-5
+
+
+def _rand(seed, *shape, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _mesh(n):
+    return make_mesh(mesh_shape=(n,), axis_names=("tp",))
+
+
+def _jax_stacked(fn, n, *args, in_specs, out_specs=P("tp")):
+    """fn per device under shard_map on an n-device mesh; the global
+    result as numpy. Asserts that the JAX side ran its Pallas kernel
+    (interpret mode), not an XLA-collective fallback."""
+    before = pallas_call_count()
+    out = np.asarray(jax.jit(jax.shard_map(
+        fn, mesh=_mesh(n), in_specs=in_specs, out_specs=out_specs,
+        check_vma=False))(*args))
+    assert pallas_call_count() > before, "the JAX kernel did not run"
+    return out
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_one_shot_all_reduce_matches_jax_bitwise(n):
+    m, w = 8, 128
+    x = _rand(n, n, m, w)
+    want = _jax_stacked(functools.partial(jax_one_shot_all_reduce,
+                                          axis="tp"), n,
+                        x.reshape(n * m, w), in_specs=P("tp"))
+    got = one_shot_all_reduce(torch.from_numpy(x))
+    np.testing.assert_array_equal(got.numpy().reshape(n * m, w), want)
+    assert torch.equal(got, got[:1].expand_as(got))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_all_gather_matches_jax_bitwise(n):
+    m, w = 8, 128
+    x = _rand(10 + n, n, m, w)
+    # every rank's gathered copy, stacked: (n * n*m, w)
+    want = _jax_stacked(functools.partial(jax_ring_all_gather, axis="tp"),
+                        n, x.reshape(n * m, w), in_specs=P("tp"))
+    got = ring_all_gather(torch.from_numpy(x))
+    assert got.shape == (n, n * m, w)
+    np.testing.assert_array_equal(got.numpy().reshape(n * n * m, w), want)
+
+
+def _jax_gemm_rs(a, b, n):
+    """a (n, M, K), b (n, K, N) rank-stacked -> JAX gemm_rs (n, M/n, N)."""
+    _, m, k = a.shape
+    a_cat = np.concatenate(list(a), axis=1)  # (M, n*K): rank r's K block
+    b_cat = b.reshape(n * k, -1)
+    out = _jax_stacked(functools.partial(jax_gemm_rs, axis="tp"), n, a_cat,
+                       b_cat, in_specs=(P(None, "tp"), P("tp", None)))
+    return out.reshape(n, m // n, -1)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_gemm_rs_matches_jax(n):
+    """The fold order differs (JAX: ring order; port: ranks 0..n-1), so
+    agreement is to f32 rounding, 1e-5."""
+    m, k, w = 16, 32, 128
+    a, b = _rand(20 + n, n, m, k), _rand(30 + n, n, k, w, scale=0.1)
+    want = _jax_gemm_rs(a, b, n)
+    got = gemm_rs(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.shape == (n, m // n, w)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=RS_ATOL)
+    dense = np.einsum("rmk,rkn->mn", a.astype(np.float64), b)
+    np.testing.assert_allclose(got.numpy().reshape(m, w), dense, atol=1e-5)
+
+
+@pytest.mark.parametrize("m", [8, 264], ids=["one_shot_ar", "gemm_rs_ag"])
+def test_gemm_ar_matches_jax_in_both_regimes(m):
+    """M <= 256: local product + one-shot AR; M > 256 (divisible by n):
+    gemm_rs + ring AG. n = 4."""
+    n, k, w = 4, 16, 128
+    a, b = _rand(m, n, m, k), _rand(m + 1, n, k, w, scale=0.1)
+    a_cat = np.concatenate(list(a), axis=1)
+    want = _jax_stacked(functools.partial(jax_gemm_ar, axis="tp"), n, a_cat,
+                        b.reshape(n * k, w),
+                        in_specs=(P(None, "tp"), P("tp", None)),
+                        out_specs=P())
+    got = gemm_ar(torch.from_numpy(a), torch.from_numpy(b),
+                  VirtualWorld(n, "cpu"))
+    assert got.shape == (n, m, w)
+    for r in range(n):
+        np.testing.assert_allclose(got[r].numpy(), want, rtol=0,
+                                   atol=RS_ATOL)
+
+
+def test_gemm_ar_world_one_is_the_local_product():
+    a, b = _rand(1, 1, 5, 16), _rand(2, 1, 16, 24)
+    got = gemm_ar(torch.from_numpy(a), torch.from_numpy(b),
+                  VirtualWorld(1, "cpu"))
+    assert torch.equal(got, torch.from_numpy(a) @ torch.from_numpy(b))
+
+
+def test_gemm_rs_world_one():
+    """n = 1: the local product; force_kernel takes the kernel's path,
+    whose plain version on the CPU is the same product (one rank, one
+    chunk)."""
+    a, b = (torch.from_numpy(_rand(3, 1, 6, 16)),
+            torch.from_numpy(_rand(4, 1, 16, 8)))
+    local = gemm_rs(a, b)
+    forced = gemm_rs(a, b, force_kernel=True)
+    assert torch.equal(local, a @ b)
+    torch.testing.assert_close(forced, local, rtol=0, atol=1e-6)
+
+
+def test_gemm_rs_options_not_ported_raise():
+    a, b = torch.zeros(2, 4, 8), torch.zeros(2, 8, 8)
+    with pytest.raises(NotImplementedError, match="ag_gemm"):
+        gemm_rs(a, b, a_order="arrival")
+    with pytest.raises(NotImplementedError, match="wire"):
+        gemm_rs(a, b, wire_format="fp8")
+    with pytest.raises(NotImplementedError, match="out_dtype"):
+        gemm_rs(a, b, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="divisible"):
+        gemm_rs(torch.zeros(2, 3, 8), b)
+
+
+def test_plain_versions_fold_in_rank_order():
+    """bf16 inputs: the sum is taken in f32 in rank order and rounded
+    once, so every rank's copy has the same bits; gemm_rs rounds each
+    partial to bf16 first, as its heap slots hold them."""
+    x = torch.from_numpy(_rand(5, 4, 3, 16)).bfloat16()
+    got = one_shot_all_reduce(x)
+    want = (((x[0].float() + x[1].float()) + x[2].float())
+            + x[3].float()).bfloat16()
+    assert all(torch.equal(got[r], want) for r in range(4))
+    a = torch.from_numpy(_rand(6, 2, 4, 16)).bfloat16()
+    b = torch.from_numpy(_rand(7, 2, 16, 8)).bfloat16()
+    part = [(a[r].float() @ b[r].float()).bfloat16() for r in range(2)]
+    want = torch.stack([(part[0][2 * c:2 * c + 2].float()
+                         + part[1][2 * c:2 * c + 2].float()).bfloat16()
+                        for c in range(2)])
+    assert torch.equal(gemm_rs_plain(a, b), want)
+
+
+def test_cpu_wrappers_count_no_launch_and_launchers_refuse_cpu():
+    """On a CPU tensor every wrapper takes its plain version and counts
+    nothing; the launchers raise rather than give way to it."""
+    reset_launches()
+    x = torch.ones(2, 4, 8)
+    one_shot_all_reduce(x)
+    ring_all_gather(x)
+    gemm_rs(x, torch.ones(2, 8, 8))
+    assert set(launches().values()) == {0}
+    for launch, args in ((ar._launch, (x,)), (ag._launch, (x,)),
+                         (rs._launch, (x, torch.ones(2, 8, 8)))):
+        with pytest.raises(ValueError, match="CUDA"):
+            launch(*args)
+    assert set(launches().values()) == {0}
+
+
+def test_virtual_world_heap_and_flags():
+    w = VirtualWorld(4, "cpu")
+    assert w.heap((3, 5), torch.bfloat16).shape == (4, 3, 5)
+    f = w.flags(7)
+    assert f.shape == (4, 7) and f.dtype == torch.int32 and not f.any()
+    assert VirtualWorld.of(torch.zeros(2, 3)).n == 2
+    with pytest.raises(ValueError):
+        VirtualWorld(0, "cpu")
+
+
+def test_library_name_hashes_every_header(tmp_path, monkeypatch):
+    """A kernel's library is named by its .cu and every csrc/*.cuh: an
+    edited shared header gives a new name (a rebuild), not a stale
+    library."""
+    (tmp_path / "k.cu").write_text('#include "shmem.cuh"\n')
+    (tmp_path / "shmem.cuh").write_text("// v1\n")
+    (tmp_path / "other.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    first = _build._lib_path("k")
+    assert first == _build._lib_path("k")
+    (tmp_path / "shmem.cuh").write_text("// v2\n")
+    second = _build._lib_path("k")
+    (tmp_path / "other.cuh").write_text("// v2\n")
+    third = _build._lib_path("k")
+    (tmp_path / "k.cu").write_text('#include "shmem.cuh"\n// edit\n')
+    assert len({first, second, third, _build._lib_path("k")}) == 4

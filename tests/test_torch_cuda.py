@@ -13,8 +13,14 @@ import torch
 from triton_dist_tpu_torch.kernels import (
     flash_prefill_local,
     flash_prefill_plain,
+    gemm_rs,
+    gemm_rs_plain,
     launches,
+    one_shot_all_reduce,
+    one_shot_all_reduce_plain,
     reset_launches,
+    ring_all_gather,
+    ring_all_gather_plain,
 )
 
 
@@ -53,4 +59,96 @@ def test_flash_prefill_kernel_matches_plain(cuda, dtype, atol):
         torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                    atol=atol)
         assert torch.all(got[1] == 0)
-    assert launches() == {"flash_prefill_local": 2}
+    assert launches()["flash_prefill_local"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_collective_kernels_match_plain(cuda, n, dtype):
+    """The virtual-world kernels against their plain versions: AllReduce
+    and AllGather bitwise (every rank's AR copy alike), gemm_rs within
+    one ulp of the output dtype on every rounded partial and on the
+    output (f32: 1e-5 relative). Ragged sizes, not tile multiples."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal((n, 33, 264))).to("cuda",
+                                                                dtype)
+    a = torch.from_numpy(rng.standard_normal((n, 20 * n, 136))).to("cuda",
+                                                                   dtype)
+    b = (torch.from_numpy(rng.standard_normal((n, 136, 200))) * 0.05).to(
+        "cuda", dtype)
+    reset_launches()
+    got = one_shot_all_reduce(x)
+    assert torch.equal(got, one_shot_all_reduce_plain(x))
+    assert torch.equal(got, got[:1].expand_as(got))
+    assert torch.equal(ring_all_gather(x), ring_all_gather_plain(x))
+    got = gemm_rs(a, b)
+    want = gemm_rs_plain(a, b)
+    torch.cuda.synchronize()
+    part = torch.matmul(a.float(), b.float()).abs().max().item()
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    atol = ulp * (n * part + want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    counts = launches()
+    assert [counts[k] for k in ("one_shot_all_reduce", "ring_all_gather",
+                                "gemm_rs")] == [1, 1, 1]
+
+
+@pytest.mark.cuda
+def test_gemm_rs_kernel_at_world_one(cuda):
+    """force_kernel at n = 1: the same kernel with one rank (the JAX
+    _local_mm_kernel's place), M = 1."""
+    a = torch.ones((1, 1, 64), device="cuda", dtype=torch.bfloat16)
+    b = torch.full((1, 64, 64), 0.5, device="cuda", dtype=torch.bfloat16)
+    reset_launches()
+    got = gemm_rs(a, b, force_kernel=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.full_like(got, 32.0))
+    assert launches()["gemm_rs"] == 1
+
+
+_FAULT = r"""
+import ctypes, sys, torch
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
+lib = _build.load("gemm_reduce_scatter", rs._SIGNATURES)
+n, M, K, N = 2, 16, 64, 64
+a = torch.ones((n, M, K), device="cuda", dtype=torch.bfloat16)
+b = torch.ones((n, K, N), device="cuda", dtype=torch.bfloat16)
+heap = torch.empty((n, n, M // n, N), device="cuda", dtype=torch.bfloat16)
+out = torch.empty((n, M // n, N), device="cuda", dtype=torch.bfloat16)
+# a flag pool that was not zeroed: no tile counter can reach n
+flags = torch.full((n, lib.gemm_rs_flag_count(M // n, N, 1)), 7,
+                   device="cuda", dtype=torch.int32)
+grid = _build.GridInfo()
+err = lib.gemm_rs_launch(a.data_ptr(), b.data_ptr(), heap.data_ptr(),
+                         out.data_ptr(), flags.data_ptr(), n, M, K, N, 1,
+                         grid.ptr(), torch.cuda.current_stream().cuda_stream)
+assert err == 0, err
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(3)
+sys.exit(0)
+"""
+
+
+@pytest.mark.cuda
+def test_protocol_fault_traps_instead_of_hanging(cuda, tmp_path):
+    """A wait that can never be satisfied (flags left non-zero) ends in
+    the bounded spin's printf and __trap(): the launch fails and the
+    next synchronisation raises, within the spin bound, instead of
+    hanging. Run in a child process, since the trap leaves its CUDA
+    context unusable."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _FAULT], cwd=repo,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": repo})
+    assert proc.returncode == 3, (proc.returncode, proc.stdout, proc.stderr)
+    assert "raised:" in proc.stdout
+    assert "shmem wait timed out: kernel gemm_rs, rank" in proc.stdout

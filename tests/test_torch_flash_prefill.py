@@ -84,7 +84,7 @@ def test_cpu_wrapper_runs_plain_and_counts_no_launch():
     got = flash_prefill_local(q, k, v, q_offset=4, kv_len=kv_len)
     want = flash_prefill_plain(q, k, v, q_offset=4, kv_len=kv_len)
     assert torch.equal(got, want)
-    assert launches() == {"flash_prefill_local": 0}
+    assert set(launches().values()) == {0}
     assert KERNELS["flash_prefill_local"] is flash_prefill_local
 
 
@@ -95,7 +95,7 @@ def test_cuda_wrapper_raises_on_cpu_tensor():
     reset_launches()
     with pytest.raises(ValueError, match="CUDA"):
         fp._launch(q, k, v, None, 0, None, True, None)
-    assert launches() == {"flash_prefill_local": 0}
+    assert set(launches().values()) == {0}
 
 
 def test_supported_shapes():

@@ -1,21 +1,37 @@
 """The port's layers (triton_dist_tpu_torch.layers) against the JAX
-package's, on the same numpy inputs in f32 on the CPU."""
+package's, on the same numpy inputs in f32 on the CPU. The tensor-
+parallel blocks run at world 4: the JAX `ar` forms under shard_map on a
+4-device mesh (collectives in interpret mode), the port's on the
+virtual world (rank-stacked tensors, plain collectives on the CPU)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import PartitionSpec as P
 
 from triton_dist_tpu.layers import attention as jax_attention
 from triton_dist_tpu.layers import norm as jax_norm
 from triton_dist_tpu.layers import rope as jax_rope
+from triton_dist_tpu.layers import tp_attn as jax_tp_attn
+from triton_dist_tpu.layers import tp_mlp as jax_tp_mlp
+from triton_dist_tpu.runtime import make_mesh
 from triton_dist_tpu_torch.layers import (
+    TPAttnParams,
+    TPAttnSpec,
+    TPMLPParams,
     apply_rope,
     gqa_attention,
     rms_norm,
     rope_table,
+    tp_attn_fwd,
+    tp_mlp_fwd,
 )
 from triton_dist_tpu_torch.layers.tp_attn import KVWrite, _scatter_kv
+from triton_dist_tpu_torch.runtime import VirtualWorld
+
+N = 4  # ranks of the tensor-parallel tests
 
 
 def _rand(rng, *shape, scale=1.0):
@@ -92,3 +108,87 @@ def test_scatter_kv_drops_rows_past_the_horizon():
     assert torch.equal(cache[0, 1:3], kv[0])
     assert torch.equal(cache[1, 5], kv[1, 0])
     assert int((cache != 0).sum()) == 6
+
+
+def _mesh4():
+    return make_mesh(mesh_shape=(N,), axis_names=("tp",))
+
+
+@pytest.mark.parametrize("m", [8, 264], ids=["one_shot_ar", "gemm_rs_ag"])
+def test_tp_mlp_ar_world4_matches_jax(m):
+    """Gate/up per rank, silu_mul, gemm_ar on down, in both gemm_ar
+    regimes; every rank's replica against the JAX block's output."""
+    rng = np.random.default_rng(4)
+    h, i_l = 32, 16
+    x = _rand(rng, m, h)
+    wg, wu = _rand(rng, N, h, i_l, scale=0.2), _rand(rng, N, h, i_l, scale=0.2)
+    wd = _rand(rng, N, i_l, h, scale=0.2)
+
+    def per_rank(x, wg, wu, wd):
+        return jax_tp_mlp.tp_mlp_ar_fwd(
+            x, jax_tp_mlp.TPMLPParams(wg[0], wu[0], wd[0]), axis="tp")
+
+    want = np.asarray(jax.jit(jax.shard_map(
+        per_rank, mesh=_mesh4(), in_specs=(P(), P("tp"), P("tp"), P("tp")),
+        out_specs=P(), check_vma=False))(x, wg, wu, wd))
+    got = tp_mlp_fwd(torch.from_numpy(x).expand(N, m, h),
+                     TPMLPParams(*(torch.from_numpy(w) for w in (wg, wu, wd))),
+                     VirtualWorld(N, "cpu"))
+    for r in range(N):
+        np.testing.assert_allclose(got[r].numpy(), want, rtol=0, atol=1e-5)
+
+
+def test_tp_attn_ar_world4_matches_jax():
+    """Per-rank QKV, qk-norm, rope, attention over the rank's kv heads
+    with a cache (ranks as extra batch rows), gemm_ar on O; the output of
+    every rank and the cache, in the JAX layout, against the JAX block."""
+    rng = np.random.default_rng(5)
+    b, s, t, h, d = 2, 6, 16, 64, 16
+    hq_l, hkv_l = 2, 1  # per rank: 8 q heads, 4 kv heads in all
+    x = _rand(rng, b * s, h)
+    w_qkv = _rand(rng, N, h, (hq_l + 2 * hkv_l) * d, scale=0.2)
+    w_o = _rand(rng, N, hq_l * d, h, scale=0.2)
+    qn, kn = 1 + _rand(rng, d, scale=0.1), 1 + _rand(rng, d, scale=0.1)
+    k0 = _rand(rng, b, t, N * hkv_l, d)
+    v0 = _rand(rng, b, t, N * hkv_l, d)
+    start = np.asarray([0, 5])
+    pos = start[:, None] + np.arange(s)[None]
+    kv_len = start + s
+    cos, sin = jax_rope.rope_table(d, t, 1e6)
+    spec = TPAttnSpec(hq_l, hkv_l, d)
+
+    def per_rank(x, wq, wo, k, v):
+        return jax_tp_attn.tp_attn_ar_fwd(
+            x, jax_tp_attn.TPAttnParams(wq[0], wo[0], jnp.asarray(qn),
+                                        jnp.asarray(kn)),
+            jax_tp_attn.TPAttnSpec(*spec), cos, sin, jnp.asarray(pos), b,
+            axis="tp", kv_cache=(k, v), kv_len=jnp.asarray(kv_len))
+
+    heads = P(None, None, "tp")
+    want, (wk, wv) = jax.jit(jax.shard_map(
+        per_rank, mesh=_mesh4(), in_specs=(P(), P("tp"), P("tp"), heads,
+                                           heads),
+        out_specs=(P(), (heads, heads)), check_vma=False))(x, w_qkv, w_o,
+                                                           k0, v0)
+
+    def rank_rows(c):  # (B, T, N*hkv_l, D) -> (N*B, T, hkv_l, D)
+        c = torch.from_numpy(np.array(c)).reshape(b, t, N, hkv_l, d)
+        return c.permute(2, 0, 1, 3, 4).reshape(N * b, t, hkv_l, d)
+
+    kc, vc = rank_rows(k0), rank_rows(v0)
+    rank_pos = torch.from_numpy(pos).repeat(N, 1)
+    tcos, tsin = rope_table(d, t, 1e6)
+    got = tp_attn_fwd(
+        torch.from_numpy(x).expand(N, b * s, h),
+        TPAttnParams(torch.from_numpy(w_qkv), torch.from_numpy(w_o),
+                     torch.from_numpy(qn), torch.from_numpy(kn)),
+        spec, tcos, tsin, rank_pos, b, VirtualWorld(N, "cpu"),
+        kv_cache=(kc, vc), kv_len=torch.from_numpy(kv_len).repeat(N),
+        kv_write=KVWrite.at(rank_pos, t))
+    for r in range(N):
+        np.testing.assert_allclose(got[r].numpy(), np.asarray(want),
+                                   rtol=0, atol=2e-5)
+    for mine, theirs in ((kc, wk), (vc, wv)):
+        np.testing.assert_allclose(mine.numpy(),
+                                   rank_rows(np.asarray(theirs)).numpy(),
+                                   rtol=0, atol=1e-5)

@@ -1,11 +1,16 @@
 """The port's dense model and Engine (triton_dist_tpu_torch.models)
 against the JAX package's, with the JAX weights carried across.
 
-Tiny config in f32 on the CPU, the JAX Engine on a 1-device tp mesh.
-The port keeps the JAX cast points, so the logits agree to f32
-rounding: 1e-4 absolute on logits of magnitude ~1 (the sums run in
-another order in the two libraries, over two layers)."""
+Tiny config in f32 on the CPU, the JAX Engine on a 1-device tp mesh and,
+for tensor parallelism, on a 4-device mesh in the `ar` mode (its
+collectives in interpret mode) against the port's Engine at world 4 (the
+virtual world, plain collectives on the CPU). The port keeps the JAX
+cast points, so the logits agree to f32 rounding: 1e-4 absolute on
+logits of magnitude ~1 (the sums run in another order in the two
+libraries, over two layers)."""
 
+import json
+import os
 import types
 
 import jax
@@ -16,17 +21,21 @@ import torch
 
 from triton_dist_tpu.models import Engine as JaxEngine
 from triton_dist_tpu.models import ModelConfig as JaxModelConfig
+from triton_dist_tpu.models import load_hf
 from triton_dist_tpu.models.dense import init_params as jax_init_params
 from triton_dist_tpu.runtime import make_mesh
 from triton_dist_tpu_torch.models import (
     Engine,
+    KVCache,
     ModelConfig,
     forward,
     params_from_jax,
+    shard_params,
 )
 from triton_dist_tpu_torch.models.dense import init_params
 
 CFG = dict(num_q_heads=4, num_kv_heads=2, max_positions=64)
+CFG4 = dict(max_positions=64)  # 16 q / 8 kv heads: 4 and 2 a rank
 LOGIT_ATOL = 1e-4
 
 
@@ -46,18 +55,22 @@ def prompts():
     return np.random.default_rng(7).integers(0, 256, (2, 11)).astype(np.int32)
 
 
+def _assert_params_equal(got, want):
+    """Every array of the port's params equals the JAX (numpy) one
+    bitwise, rank dims included."""
+    for name in ("embed", "final_ln", "lm_head"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      getattr(want, name))
+    for name in ("w_qkv", "w_o", "w_gate", "w_up", "w_down", "input_ln",
+                 "post_attn_ln", "q_norm", "k_norm"):
+        np.testing.assert_array_equal(getattr(got.layers, name).numpy(),
+                                      getattr(want.layers, name))
+
+
 def test_params_from_jax_round_trip(engines):
     _, eng, p = engines
-    got = eng.params
-    np.testing.assert_array_equal(got.embed.numpy(), p.embed)
-    np.testing.assert_array_equal(got.lm_head.numpy(), p.lm_head[0])
-    np.testing.assert_array_equal(got.final_ln.numpy(), p.final_ln)
-    for name in ("w_qkv", "w_o", "w_gate", "w_up", "w_down"):
-        np.testing.assert_array_equal(getattr(got.layers, name).numpy(),
-                                      getattr(p.layers, name)[:, 0])
-    for name in ("input_ln", "post_attn_ln", "q_norm", "k_norm"):
-        np.testing.assert_array_equal(getattr(got.layers, name).numpy(),
-                                      getattr(p.layers, name))
+    assert eng.params.world_size == 1
+    _assert_params_equal(eng.params, p)
 
 
 def test_params_from_jax_carries_bf16_bits():
@@ -78,9 +91,13 @@ def test_init_params_shapes_and_seed():
     a = init_params(cfg, device="cpu", seed=1)
     b = init_params(cfg, device="cpu",
                     generator=torch.Generator().manual_seed(1))
-    assert a.layers.w_qkv.shape == (2, 128, (4 + 2 * 2) * 32)
-    assert a.lm_head.shape == (128, 256)
+    assert a.layers.w_qkv.shape == (2, 1, 128, (4 + 2 * 2) * 32)
+    assert a.lm_head.shape == (1, 128, 256)
     assert torch.equal(a.layers.w_down, b.layers.w_down)
+    c = init_params(ModelConfig.tiny(), device="cpu", seed=1, world=4)
+    assert c.layers.w_qkv.shape == (2, 4, 128, (4 + 2 * 2) * 32)
+    assert c.layers.w_down.shape == (2, 4, 64, 128)
+    assert c.lm_head.shape == (4, 128, 64)
 
 
 def test_prefill_and_decode_logits_match_jax(engines, prompts):
@@ -128,5 +145,130 @@ def test_serve_sampled_is_seeded(engines, prompts):
 
 
 def test_world_above_one_names_missing_kernels():
-    with pytest.raises(NotImplementedError, match="gemm_rs"):
-        Engine(ModelConfig.tiny(**CFG), device="cpu", world=2)
+    """World > 1 runs the `ar` mode; the sequence-sharded `dist` (the
+    JAX default prefill mode) and `xla` modes name what they still
+    need."""
+    with pytest.raises(NotImplementedError, match="ag_gemm"):
+        Engine(ModelConfig.tiny(**CFG), device="cpu", world=2,
+               prefill_mode="dist")
+    with pytest.raises(NotImplementedError, match="ag_gemm"):
+        Engine(ModelConfig.tiny(**CFG), device="cpu", world=2,
+               prefill_mode="ar", decode_mode="xla")
+    with pytest.raises(ValueError, match="divide"):
+        Engine(ModelConfig.tiny(**CFG), device="cpu", world=4,
+               prefill_mode="ar")
+
+
+# ---------- tensor parallelism: world 4, `ar` mode ----------
+
+
+@pytest.fixture(scope="module")
+def engines4():
+    mesh = make_mesh(mesh_shape=(4,), axis_names=("tp",))
+    jeng = JaxEngine(JaxModelConfig.tiny(**CFG4), mesh, prefill_mode="ar",
+                     decode_mode="ar", max_len=64, donate_cache=False)
+    np_params = jax.tree.map(np.asarray, jeng.params)
+    eng = Engine(ModelConfig.tiny(**CFG4), device="cpu", max_len=64, world=4,
+                 prefill_mode="ar", params=params_from_jax(np_params, "cpu"))
+    return jeng, eng, np_params
+
+
+def test_params_from_jax_round_trip_world4(engines4):
+    _, eng, p = engines4
+    assert eng.params.world_size == 4
+    assert eng.params.layers.w_qkv.shape == (2, 4, 128, (4 + 2 * 2) * 32)
+    _assert_params_equal(eng.params, p)
+
+
+def test_world4_prefill_and_decode_logits_match_jax(engines4):
+    """One prefill of 8 x 40 = 320 rows (> 256 and divisible by 4, so
+    gemm_ar takes gemm_rs + ring AG), then three greedy decode steps (8
+    rows: local product + one-shot AR), each step's logits against the
+    JAX Engine's on a 4-device mesh; the caches agree in the JAX
+    layout."""
+    jeng, eng, _ = engines4
+    ids = np.random.default_rng(8).integers(0, 256, (8, 40)).astype(np.int32)
+    jl, jcache = jeng.prefill(jnp.asarray(ids))
+    tl, tcache = eng.prefill(ids)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=LOGIT_ATOL)
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    for _ in range(3):
+        jl, jcache = jeng.decode_step(jnp.asarray(tok), jcache)
+        tl, tcache = eng.decode_step(tok, tcache)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                                   atol=LOGIT_ATOL)
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    k, v = tcache.jax_layout()
+    live = ids.shape[1] + 3
+    np.testing.assert_allclose(k[:, :, :live].numpy(),
+                               np.asarray(jcache.k)[:, :, :live], atol=1e-5)
+    np.testing.assert_allclose(v[:, :, :live].numpy(),
+                               np.asarray(jcache.v)[:, :, :live], atol=1e-5)
+
+
+def test_world4_serve_greedy_tokens_match_jax(engines4):
+    jeng, eng, _ = engines4
+    ids = np.random.default_rng(9).integers(0, 256, (2, 11)).astype(np.int32)
+    want = np.asarray(jeng.serve(jnp.asarray(ids), 6))
+    assert eng.serve(ids, 6).tolist() == want.tolist()
+
+
+def test_world4_kv_cache_layout():
+    """Rank r's kv heads are rows r*B..r*B+B-1 of the port's cache; the
+    JAX layout puts them at heads r*Hkv/n.."""
+    c = KVCache.create(2, 3, 5, 8, 4, torch.float32, "cpu", world=4)
+    assert c.k.shape == (2, 12, 5, 2, 4) and c.length.shape == (3,)
+    c.k.copy_(torch.arange(c.k.numel(), dtype=torch.float32).reshape(
+        c.k.shape))
+    k, _ = c.jax_layout()
+    assert k.shape == (2, 3, 5, 8, 4)
+    assert torch.equal(k[:, 1, :, 6:8], c.k[:, 3 * 3 + 1])
+
+
+def _params_to_hf(cfg, p):
+    """HF-layout tensors (torch (out, in) Linear weights) of world-1
+    JAX params, as tests/test_load_hf.py writes them."""
+    lp = p.layers
+    d, hq, hkv = cfg.head_dim, cfg.num_q_heads, cfg.num_kv_heads
+    t = {"model.embed_tokens.weight": p.embed,
+         "model.norm.weight": p.final_ln, "lm_head.weight": p.lm_head[0].T}
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        qkv = lp.w_qkv[i, 0]
+        t.update({
+            pre + "input_layernorm.weight": lp.input_ln[i],
+            pre + "post_attention_layernorm.weight": lp.post_attn_ln[i],
+            pre + "self_attn.q_proj.weight": qkv[:, :hq * d].T,
+            pre + "self_attn.k_proj.weight": qkv[:, hq * d:(hq + hkv) * d].T,
+            pre + "self_attn.v_proj.weight": qkv[:, (hq + hkv) * d:].T,
+            pre + "self_attn.o_proj.weight": lp.w_o[i, 0].T,
+            pre + "self_attn.q_norm.weight": lp.q_norm[i],
+            pre + "self_attn.k_norm.weight": lp.k_norm[i],
+            pre + "mlp.gate_proj.weight": lp.w_gate[i, 0].T,
+            pre + "mlp.up_proj.weight": lp.w_up[i, 0].T,
+            pre + "mlp.down_proj.weight": lp.w_down[i, 0].T,
+        })
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in t.items()}
+
+
+def test_shard_params_matches_jax_load_hf_sharding(tmp_path):
+    """One synthetic checkpoint written locally, loaded by the JAX
+    load_hf at mesh 1 and mesh 4: the port's shard_params of the first
+    equals the second bitwise (the JAX package's own sharding rule)."""
+    from safetensors.numpy import save_file
+
+    cfg = JaxModelConfig.tiny(**CFG4)
+    mesh1 = make_mesh(mesh_shape=(1,), axis_names=("tp",))
+    mesh4 = make_mesh(mesh_shape=(4,), axis_names=("tp",))
+    src = jax.tree.map(np.asarray, jax_init_params(cfg, mesh1, seed=6))
+    save_file(_params_to_hf(cfg, src),
+              os.path.join(tmp_path, "model.safetensors"))
+    with open(os.path.join(tmp_path, "config.json"), "w") as f:
+        json.dump({"architectures": ["Qwen3ForCausalLM"]}, f)
+    p1 = jax.tree.map(np.asarray, load_hf(str(tmp_path), mesh1, cfg))
+    p4 = jax.tree.map(np.asarray, load_hf(str(tmp_path), mesh4, cfg))
+    got = shard_params(params_from_jax(p1, "cpu"), 4)
+    _assert_params_equal(got, p4)
+    with pytest.raises(ValueError, match="already"):
+        shard_params(got, 2)

@@ -1,7 +1,10 @@
 """The port's serving plane (triton_dist_tpu_torch.serve) against its own
 sequential Engine.serve and against the JAX package's Scheduler.
 
-Tiny f32 config on the CPU with the JAX weights carried across. Greedy
+Tiny f32 config on the CPU with the JAX weights carried across, at world
+1 and at world 4 (the JAX Engine on a 4-device mesh in the `ar` mode,
+the port's on the virtual world, each pool holding every rank's kv
+heads). Greedy
 tokens are compared for equality: both packages keep the same cast
 points, and the tiny model's logits are far enough apart that f32
 rounding in another order does not move an argmax."""
@@ -76,6 +79,42 @@ def test_scheduler_matches_sequential_and_jax(engines, prompts):
     m = sch.metrics()
     assert m["n"] == len(prompts) and m["tokens_out"] == GEN * len(prompts)
     assert m["pool_used_pages"] == 0
+    sch.pool.check()
+
+
+@pytest.fixture(scope="module")
+def engines4():
+    mesh = make_mesh(mesh_shape=(4,), axis_names=("tp",))
+    jeng = JaxEngine(JaxModelConfig.tiny(max_positions=32), mesh,
+                     prefill_mode="ar", decode_mode="ar", max_len=32,
+                     donate_cache=False)
+    eng = Engine(ModelConfig.tiny(max_positions=32), device="cpu",
+                 max_len=32, world=4, prefill_mode="ar",
+                 params=params_from_jax(jax.tree.map(np.asarray,
+                                                     jeng.params),
+                                        device="cpu"))
+    return jeng, eng
+
+
+def test_world4_scheduler_matches_sequential_and_jax(engines4):
+    """As tests/test_serve.py's distributed serve: two requests through
+    the Scheduler at world 4 give the port's sequential serve tokens and
+    the JAX Scheduler's on its 4-device engine."""
+    jeng, eng = engines4
+    rng = np.random.default_rng(2)
+    ps = [list(map(int, rng.integers(0, 256, n))) for n in (6, 9)]
+    geo = dict(slots=2, chunk=4, page=8)
+    sch = Scheduler(eng, **geo)
+    reqs = [sch.submit(p, max_new_tokens=4) for p in ps]
+    sch.run()
+    got = [r.out_tokens for r in reqs]
+    assert got == [eng.serve(np.asarray([p]), 4, **geo)[0].tolist()
+                   for p in ps]
+    assert sch.pool.k.shape[1] == 8  # every rank's 2 kv heads
+    jsch = JaxScheduler(jeng, **geo)
+    jreqs = [jsch.submit(p, max_new_tokens=4) for p in ps]
+    jsch.run()
+    assert got == [r.out_tokens for r in jreqs]
     sch.pool.check()
 
 

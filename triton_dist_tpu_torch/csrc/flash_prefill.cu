@@ -43,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile.cuh"
+
 namespace {
 
 // ---- f32 body: FMA on the CUDA cores ------------------------------------
@@ -239,7 +241,6 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
 
 // ---- bf16 body: mma.sync on the tensor cores ----------------------------
 
-typedef __nv_bfloat16 bf16;
 constexpr int kTcRows = 64;  // query rows per block: one m16 tile per warp
 constexpr int kTcKeys = 64;  // keys per K/V tile
 constexpr float kLog2e = 1.4426950408889634f;
@@ -255,59 +256,8 @@ constexpr size_t tc_smem_bytes() {
   return sizeof(bf16) * size_t(kTcStride<D>) * (kTcRows + 4 * kTcKeys);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy global -> shared; zero-fills when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane l holds rows l/4 and
-// l/4 + 8 of a 16-row tile and columns 2*(l%4) + {0, 1} of each 8-column
-// group. A row is a query row; a column is a key (scores) or a head-dim
-// element (output).
+// Fragment layouts as in tile.cuh: a row is a query row; a column is a
+// key (scores) or a head-dim element (output).
 template <int D>
 __global__ void __launch_bounds__(128)
 fp_local_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,

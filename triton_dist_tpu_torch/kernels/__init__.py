@@ -10,12 +10,30 @@ from triton_dist_tpu_torch.kernels._build import (  # noqa: F401
     launches,
     reset_launches,
 )
+from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
+    ring_all_gather,
+    ring_all_gather_plain,
+)
+from triton_dist_tpu_torch.kernels.allreduce import (  # noqa: F401
+    one_shot_all_reduce,
+    one_shot_all_reduce_plain,
+)
 from triton_dist_tpu_torch.kernels.flash_prefill import (  # noqa: F401
     fit_block,
     flash_prefill_local,
     flash_prefill_plain,
     supports_flash_prefill,
 )
+from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar  # noqa: F401
+from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (  # noqa: F401
+    gemm_rs,
+    gemm_rs_plain,
+)
 
 # kernel name -> its csrc/ source stem, for building all of them at once
-SOURCES = {"flash_prefill_local": "flash_prefill"}
+SOURCES = {
+    "flash_prefill_local": "flash_prefill",
+    "one_shot_all_reduce": "allreduce",
+    "ring_all_gather": "allgather",
+    "gemm_rs": "gemm_reduce_scatter",
+}

@@ -4,7 +4,8 @@ The port's counterpart of the launch wrapper in triton_dist_tpu.lang.core
 (`tpu_call` plus its `pallas_call_count`): each kernel is a `.cu` file
 under `csrc/` with a plain C entry point. At first use it is compiled
 with nvcc for sm_90a into `csrc/build/` (git-ignored), named by a hash
-of its source so an edited source is rebuilt, and loaded with ctypes.
+of its source and of every shared header (`csrc/*.cuh`) so an edited
+source or header is rebuilt, and loaded with ctypes.
 Nothing is compiled when a module is imported: the CPU tests import
 every module, and the CPU path never needs nvcc.
 
@@ -75,9 +76,16 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """csrc/build/lib<name>-<hash>.so, the hash taken over <name>.cu and
+    every csrc/*.cuh: a kernel may include any shared header, so an
+    edited header must rebuild every library rather than load a stale
+    one."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read() + b"\0")
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start_build(name: str):
@@ -114,6 +122,31 @@ def build(names: Iterable[str]) -> List[str]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return [_lib_path(n) for n in names]
+
+
+class GridInfo(ctypes.Structure):
+    """What a virtual-world launch (csrc/shmem.cuh launch_world) reports
+    back: the resident blocks per SM, the SMs, and the blocks per rank it
+    launched."""
+
+    _fields_ = [("per_sm", ctypes.c_int), ("sms", ctypes.c_int),
+                ("per_rank", ctypes.c_int)]
+
+    def ptr(self) -> int:
+        return ctypes.addressof(self)
+
+
+def check(kernel: str, err: int, error_string, grid: GridInfo = None) -> None:
+    """Raise when a launcher returned a CUDA error (a refused launch never
+    runs, and no synchronisation would report it); a virtual-world
+    launch names the grid it tried to fit."""
+    if err == 0:
+        return
+    msg = f"{kernel} launch failed: {error_string(err).decode()}"
+    if grid is not None:
+        msg += (f" (n ranks need co-resident blocks: {grid.per_sm} blocks "
+                f"per SM x {grid.sms} SMs gave {grid.per_rank} per rank)")
+    raise RuntimeError(msg)
 
 
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:

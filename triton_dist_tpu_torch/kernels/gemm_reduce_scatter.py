@@ -1,0 +1,135 @@
+"""GEMM + ReduceScatter — port of triton_dist_tpu.kernels.
+gemm_reduce_scatter (`gemm_rs`: the Pallas kernels `_gemm_rs_kernel`,
+`_gemm_rs_kernel_streamed` and their ring `_rs_ring`; at world 1 with
+`force_kernel`, `_local_mm_kernel`).
+
+Rank-stacked: a (n, M, K_loc), b (n, K_loc, N) hold every rank's operands
+of the virtual world (runtime/symm_mem.py); the result (n, M/n, N) holds
+rank c's reduced chunk, sum over r of (a[r] @ b[r])[c*M/n : (c+1)*M/n].
+Two implementations of one contract:
+
+  gemm_rs — the hand-written CUDA kernel (csrc/gemm_reduce_scatter.cu),
+      which computes the products inside the kernel. Launches on a CUDA
+      tensor, or raises; on a CPU tensor it computes the plain version.
+  gemm_rs_plain — the same function in plain torch: each rank's partial
+      in f32, rounded to the output dtype (the kernel's heap slots hold
+      rounded partials, as the JAX ring's do), folded over ranks 0..n-1
+      in f32, rounded once.
+
+The JAX ring folds in ring order, so in f32 the port agrees with it to
+rounding (1e-5 at the tests' sizes), not bitwise. At world 1 without
+`force_kernel` the product is a plain local matmul, as the JAX function
+leaves it to XLA; with `force_kernel` the kernel runs with n = 1. The
+TPU's VMEM-budget and interpret-mode fallbacks do not carry over: on the
+card the kernel always runs. `a_order="arrival"`, quantized wire formats
+and an `out_dtype` other than the input's are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SIGNATURES = {
+    "gemm_rs_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p]),
+    "gemm_rs_flag_count": (ctypes.c_int, [ctypes.c_int] * 3),
+    "gemm_rs_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+def _check(a, b, out_dtype, a_order, wire_format):
+    if a_order != "rank":
+        raise NotImplementedError(
+            f"a_order={a_order!r}: A in ag_gemm's ring-arrival order comes "
+            "with the dist slice, ag_gemm (_ag_gemm_kernel)")
+    if wire_format is not None:
+        raise NotImplementedError(
+            f"wire_format={wire_format!r}: quantized wire images come with "
+            "the wire/ slice (_ring_rs_wire_kernel)")
+    if out_dtype is not None and out_dtype != a.dtype:
+        raise NotImplementedError(
+            f"out_dtype={out_dtype}: an accumulation dtype other than the "
+            "input's is not ported")
+    if a.dim() != 3 or b.dim() != 3 or b.shape[:2] != (a.shape[0],
+                                                        a.shape[2]):
+        raise ValueError(f"a (n, M, K) and b (n, K, N) expected, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if a.shape[1] % a.shape[0]:
+        raise ValueError(f"M={a.shape[1]} not divisible by world size "
+                         f"{a.shape[0]}")
+
+
+def local_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Each rank's a @ b, f32 accumulation rounded once to a.dtype (the
+    JAX jnp.dot(preferred_element_type=f32).astype outside a kernel)."""
+    return torch.matmul(a, b)
+
+
+def gemm_rs_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Rounded f32 partials folded over ranks in order, one rounding."""
+    n, M, _ = a.shape
+    part = torch.matmul(a.float(), b.float()).to(a.dtype)
+    part = part.reshape(n, n, M // n, b.shape[2])  # [rank r][chunk c]
+    acc = part[0].float()
+    for r in range(1, n):
+        acc = acc + part[r].float()
+    return acc.to(a.dtype)
+
+
+@_build.counted("gemm_rs")
+def gemm_rs(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
+            force_kernel: bool = False, a_order: str = "rank",
+            wire_format=None) -> torch.Tensor:
+    """a (n, M, K), b (n, K, N) rank-stacked -> (n, M/n, N): the CUDA
+    kernel on CUDA tensors (launched or raising, never replaced), the
+    plain version on CPU tensors; at n = 1 a local product unless
+    force_kernel."""
+    _check(a, b, out_dtype, a_order, wire_format)
+    if a.shape[0] == 1 and not force_kernel:
+        return local_product(a, b)
+    if a.device.type == "cpu":
+        return gemm_rs_plain(a, b)
+    return _launch(a, b)
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"the gemm_rs kernel needs CUDA tensors on one "
+                         f"device, got {a.device} and {b.device}")
+    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
+        raise ValueError(f"dtypes {a.dtype}/{b.dtype}: the kernel takes "
+                         "float32 or bfloat16, both alike")
+    n, M, K = a.shape
+    N = b.shape[2]
+    per = 16 // a.element_size()
+    if K % per or N % per:
+        raise ValueError(f"K={K} and N={N} must be multiples of {per}: the "
+                         "kernel moves 16-byte rows")
+    for name, x in (("a", a), ("b", b)):
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             "aligned")
+    world = VirtualWorld.of(a)
+    m = M // n
+    out = torch.empty((n, m, N), dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    lib = _build.load("gemm_reduce_scatter", _SIGNATURES)
+    code = _DTYPE_CODE[a.dtype]
+    heap = world.heap((n, m, N), a.dtype)  # [owner c][producer r]
+    flags = world.flags(lib.gemm_rs_flag_count(m, N, code))
+    grid = _build.GridInfo()
+    with torch.cuda.device(a.device):
+        err = lib.gemm_rs_launch(
+            a.data_ptr(), b.data_ptr(), heap.data_ptr(), out.data_ptr(),
+            flags.data_ptr(), n, M, K, N, code, grid.ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check("gemm_rs", err, lib.gemm_rs_error_string, grid)
+    _build.count_launch("gemm_rs")
+    return out

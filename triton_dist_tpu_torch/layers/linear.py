@@ -14,12 +14,15 @@ import torch
 
 
 def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(..., K) @ (K, N) -> (..., N) in float32, without an f32 copy of
-    b: for bf16 on the card `torch.mm(..., out_dtype=torch.float32)`
-    writes the f32 accumulator as it is."""
+    """(..., K) @ (K, N) -> (..., N), or rank-stacked (n, M, K) @
+    (n, K, N) -> (n, M, N), in float32 without an f32 copy of b: for bf16
+    on the card `torch.mm` / `torch.bmm` with out_dtype=float32 write the
+    f32 accumulator as it is."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.matmul(a, b)
     if a.device.type == "cuda":
+        if b.dim() == 3:
+            return torch.bmm(a, b, out_dtype=torch.float32)
         lead = a.shape[:-1]
         out = torch.mm(a.reshape(-1, a.shape[-1]), b,
                        out_dtype=torch.float32)

@@ -1,10 +1,12 @@
-"""MLP block — port of triton_dist_tpu.layers.tp_mlp at world 1.
+"""MLP block — port of triton_dist_tpu.layers.tp_mlp, the `ar` form
+(`tp_mlp_ar_fwd`) over the virtual world.
 
-Gate and up products kept in f32, silu(g) * u in f32, cast to the
-activation dtype, down product cast to the activation dtype: the JAX
-`ar` mode (tp_mlp.py:102-114) with the all-reduce gone.
+Per rank: gate and up products kept in f32, silu(g) * u in f32, cast to
+the activation dtype, then the down projection through `gemm_ar`, which
+all-reduces the ranks' partial sums (a local product at world 1).
 
-Weight layout: w_gate / w_up (hidden, I), w_down (I, hidden).
+Weight layout (rank dim kept): w_gate / w_up (n, hidden, I/n), w_down
+(n, I/n, hidden); activations x (n, M, hidden), one replica a rank.
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ from typing import NamedTuple
 
 import torch
 
+from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar
 from triton_dist_tpu_torch.layers.linear import dot_f32
+from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
 
 class TPMLPParams(NamedTuple):
@@ -28,9 +32,10 @@ def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return g * torch.sigmoid(g) * u.float()
 
 
-def tp_mlp_fwd(x: torch.Tensor, params: TPMLPParams) -> torch.Tensor:
-    """x (M, hidden) -> (M, hidden)."""
+def tp_mlp_fwd(x: torch.Tensor, params: TPMLPParams,
+               world: VirtualWorld) -> torch.Tensor:
+    """x (n, M, hidden) -> (n, M, hidden)."""
     g = dot_f32(x, params.w_gate)
     u = dot_f32(x, params.w_up)
     act = silu_mul(g, u).to(x.dtype)
-    return act @ params.w_down
+    return gemm_ar(act, params.w_down, world)

@@ -8,5 +8,6 @@ from triton_dist_tpu_torch.models.dense import (  # noqa: F401
     forward,
     init_params,
     params_from_jax,
+    shard_params,
 )
 from triton_dist_tpu_torch.models.engine import Engine, sample_token  # noqa: F401

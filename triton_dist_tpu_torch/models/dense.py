@@ -1,16 +1,21 @@
-"""Dense Qwen3 model — port of triton_dist_tpu.models.dense at world 1.
+"""Dense Qwen3 model — port of triton_dist_tpu.models.dense, the `ar`
+mode over the virtual world of n ranks (runtime/symm_mem.py).
 
-Parameters keep the JAX package's layout (`DenseLLMParams`,
-dense.py:20-24) with its tp dim of size 1 dropped, and `(in, out)`
-weights so `x @ W` needs no transpose:
+Parameters keep the JAX package's layout (`DenseLLMParams`, dense.py:
+20-24) with its rank dim n, and `(in, out)` weights so `x @ W` needs no
+transpose:
 
   embed (V, H) · input_ln / post_attn_ln (L, H) · q_norm / k_norm (L, D)
-  w_qkv (L, H, (Hq + 2*Hkv) * D) · w_o (L, Hq * D, H)
-  w_gate / w_up (L, H, I) · w_down (L, I, H)
-  final_ln (H,) · lm_head (H, V)
+  w_qkv (L, n, H, (Hq + 2*Hkv)/n * D) · w_o (L, n, Hq/n * D, H)
+  w_gate / w_up (L, n, H, I/n) · w_down (L, n, I/n, H)
+  final_ln (H,) · lm_head (n, H, V/n)
 
-`forward` is a Python loop over the layers where the JAX package runs a
-`lax.scan`, and writes each step's K/V into the cache in place.
+`forward` keeps the residual stream per rank, x (n, M, H), as shard_map
+does (the all-reduces keep the replicas bitwise equal); it is a Python
+loop over the layers where the JAX package runs a `lax.scan`, and it
+writes each step's K/V into the cache in place. The logits are each
+rank's vocab slice, gathered along the vocab with a torch op (the JAX
+`lax.all_gather` there is XLA's).
 """
 
 from __future__ import annotations
@@ -33,10 +38,11 @@ from triton_dist_tpu_torch.layers.tp_mlp import TPMLPParams, tp_mlp_fwd
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.kv_cache import KVCache
 from triton_dist_tpu_torch.runtime.device import resolve_device
+from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
 
 class DenseLayerParams(NamedTuple):
-    """Stacked per-layer weights, leading dim L."""
+    """Stacked per-layer weights, leading dim L; sharded ones then n."""
 
     input_ln: torch.Tensor
     post_attn_ln: torch.Tensor
@@ -55,6 +61,11 @@ class DenseLLMParams(NamedTuple):
     final_ln: torch.Tensor
     lm_head: torch.Tensor
 
+    @property
+    def world_size(self) -> int:
+        """n, the ranks the weights are sharded over."""
+        return self.lm_head.shape[0]
+
     def to(self, device) -> "DenseLLMParams":
         """A copy of every tensor on `device`."""
         return DenseLLMParams(
@@ -63,22 +74,37 @@ class DenseLLMParams(NamedTuple):
             self.final_ln.to(device), self.lm_head.to(device))
 
 
+def check_world(cfg: ModelConfig, n: int) -> None:
+    """Raise unless n ranks divide the heads, the vocab and the MLP."""
+    if n < 1:
+        raise ValueError(f"world size {n} must be at least 1")
+    sizes = dict(num_q_heads=cfg.num_q_heads, num_kv_heads=cfg.num_kv_heads,
+                 vocab_size=cfg.vocab_size,
+                 intermediate_size=cfg.intermediate_size)
+    bad = {k: v for k, v in sizes.items() if v % n}
+    if bad:
+        raise ValueError(f"world size {n} must divide {bad}")
+
+
 def init_params(cfg: ModelConfig, device=None,
                 generator: Optional[torch.Generator] = None,
-                seed: int = 0) -> DenseLLMParams:
-    """Random weights drawn on `device` from `generator` (a new one
-    seeded with `seed` when none is given): N(0, 0.02) matrices, unit
-    norms, as the JAX package's init. The two packages draw different
-    numbers from one seed; tests carry the JAX weights across with
-    `params_from_jax`."""
+                seed: int = 0, world: int = 1) -> DenseLLMParams:
+    """Random weights for `world` ranks drawn on `device` from
+    `generator` (a new one seeded with `seed` when none is given):
+    N(0, 0.02) matrices, unit norms, as the JAX package's init. The two
+    packages draw different numbers from one seed; tests carry the JAX
+    weights across with `params_from_jax`. The same model at another
+    world size is `shard_params` of these."""
     if cfg.is_moe:
         raise NotImplementedError("the port serves dense models only")
+    check_world(cfg, world)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.torch_dtype
+    n = world
     h, d, L = cfg.hidden_size, cfg.head_dim, cfg.num_layers
-    hq, hkv, inter = cfg.num_q_heads, cfg.num_kv_heads, cfg.intermediate_size
+    hq, hkv = cfg.num_q_heads // n, cfg.num_kv_heads // n
 
     def mk(*shape):
         return torch.empty(shape, dtype=dt, device=dev).normal_(
@@ -87,14 +113,17 @@ def init_params(cfg: ModelConfig, device=None,
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=dev)
 
+    i_l = cfg.intermediate_size // n
     layers = DenseLayerParams(
         input_ln=ones(L, h), post_attn_ln=ones(L, h),
-        w_qkv=mk(L, h, (hq + 2 * hkv) * d), w_o=mk(L, hq * d, h),
+        w_qkv=mk(L, n, h, (hq + 2 * hkv) * d), w_o=mk(L, n, hq * d, h),
         q_norm=ones(L, d), k_norm=ones(L, d),
-        w_down=mk(L, inter, h), w_gate=mk(L, h, inter), w_up=mk(L, h, inter),
+        w_down=mk(L, n, i_l, h), w_gate=mk(L, n, h, i_l),
+        w_up=mk(L, n, h, i_l),
     )
     return DenseLLMParams(embed=mk(cfg.vocab_size, h), layers=layers,
-                          final_ln=ones(h), lm_head=mk(h, cfg.vocab_size))
+                          final_ln=ones(h),
+                          lm_head=mk(n, h, cfg.vocab_size // n))
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -108,37 +137,59 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_jax(p, device=None) -> DenseLLMParams:
     """The port's parameters from the JAX package's `DenseLLMParams` as
     numpy arrays (any object with its attribute names, such as
-    `jax.tree.map(np.asarray, params)`), built for a tp size of 1: the
-    size-1 tp dim of the sharded weights is dropped, nothing else moves."""
+    `jax.tree.map(np.asarray, params)`) at any tp size n: the layout is
+    the same, rank dim included, so every array crosses as it is."""
     dev = resolve_device(device)
     lay = p.layers
     if lay.w_gate is None:
         raise NotImplementedError("the port serves dense models only")
-
-    def shard(a):
-        if a.shape[1] != 1:
-            raise ValueError(f"tp dim of size {a.shape[1]}: the port runs "
-                             "at world 1")
-        return _tensor(a[:, 0], dev)
-
-    layers = DenseLayerParams(
-        input_ln=_tensor(lay.input_ln, dev),
-        post_attn_ln=_tensor(lay.post_attn_ln, dev),
-        w_qkv=shard(lay.w_qkv), w_o=shard(lay.w_o),
-        q_norm=_tensor(lay.q_norm, dev), k_norm=_tensor(lay.k_norm, dev),
-        w_down=shard(lay.w_down), w_gate=shard(lay.w_gate),
-        w_up=shard(lay.w_up),
-    )
-    if p.lm_head.shape[0] != 1:
-        raise ValueError("lm_head sharded over more than one rank")
-    return DenseLLMParams(embed=_tensor(p.embed, dev), layers=layers,
-                          final_ln=_tensor(p.final_ln, dev),
-                          lm_head=_tensor(p.lm_head[0], dev))
+    n = p.lm_head.shape[0]
+    for name in ("w_qkv", "w_o", "w_down", "w_gate", "w_up"):
+        if getattr(lay, name).shape[1] != n:
+            raise ValueError(f"{name} is sharded over "
+                             f"{getattr(lay, name).shape[1]} ranks, lm_head "
+                             f"over {n}")
+    return DenseLLMParams(
+        embed=_tensor(p.embed, dev),
+        layers=DenseLayerParams(*(_tensor(getattr(lay, f), dev)
+                                  for f in DenseLayerParams._fields)),
+        final_ln=_tensor(p.final_ln, dev), lm_head=_tensor(p.lm_head, dev))
 
 
-def _layer_fwd(cfg: ModelConfig, spec: TPAttnSpec, cos, sin, positions,
-               kv_len, write: KVWrite, batch: int, x, lp: DenseLayerParams,
-               kv):
+def shard_params(p: DenseLLMParams, n: int) -> DenseLLMParams:
+    """World-1 parameters laid out for n ranks by the JAX package's own
+    unsharded -> sharded rule (models/load_hf.py:176-203): w_qkv takes
+    each rank's block of q, k and v columns and concatenates them per
+    rank; w_o and w_down are split by rows, w_gate, w_up and lm_head by
+    columns; norms and the embedding stay replicated (shared)."""
+    if p.world_size != 1:
+        raise ValueError(f"params are sharded over {p.world_size} ranks "
+                         "already")
+    lay = p.layers
+    d = lay.q_norm.shape[-1]
+    hq_d = lay.w_o.shape[2]
+    kv_d = (lay.w_qkv.shape[3] - hq_d) // 2
+    if hq_d % (n * d) or kv_d % (n * d):
+        raise ValueError(f"{n} ranks do not divide the heads")
+
+    def cols(w):  # (..., 1, in, out) -> (..., n, in, out / n)
+        *lead, _, i, o = w.shape
+        return w.reshape(*lead, i, n, o // n).transpose(-3, -2).contiguous()
+
+    def rows(w):  # (L, 1, in, out) -> (L, n, in / n, out), a view
+        return w.reshape(w.shape[0], n, -1, w.shape[3])
+
+    q, k, v = torch.split(lay.w_qkv, [hq_d, kv_d, kv_d], dim=-1)
+    layers = lay._replace(
+        w_qkv=torch.cat([cols(q), cols(k), cols(v)], dim=-1),
+        w_o=rows(lay.w_o), w_down=rows(lay.w_down),
+        w_gate=cols(lay.w_gate), w_up=cols(lay.w_up))
+    return p._replace(layers=layers, lm_head=cols(p.lm_head))
+
+
+def _layer_fwd(cfg: ModelConfig, spec: TPAttnSpec, world: VirtualWorld,
+               cos, sin, positions, kv_len, write: KVWrite, batch: int, x,
+               lp: DenseLayerParams, kv):
     """One transformer block: x + attn(norm(x)), then + mlp(norm(x))."""
     attn_params = TPAttnParams(
         w_qkv=lp.w_qkv, w_o=lp.w_o,
@@ -146,39 +197,53 @@ def _layer_fwd(cfg: ModelConfig, spec: TPAttnSpec, cos, sin, positions,
         k_norm=lp.k_norm if cfg.use_qk_norm else None)
     h = rms_norm(x, lp.input_ln, cfg.rms_eps)
     x = x + tp_attn_fwd(h, attn_params, spec, cos, sin, positions, batch,
-                        kv_cache=kv, kv_len=kv_len, kv_write=write)
+                        world, kv_cache=kv, kv_len=kv_len, kv_write=write)
     h = rms_norm(x, lp.post_attn_ln, cfg.rms_eps)
-    return x + tp_mlp_fwd(h, TPMLPParams(lp.w_gate, lp.w_up, lp.w_down))
+    return x + tp_mlp_fwd(h, TPMLPParams(lp.w_gate, lp.w_up, lp.w_down),
+                          world)
 
 
 def forward(cfg: ModelConfig, params: DenseLLMParams, tokens: torch.Tensor,
             cache: KVCache, return_full_logits: bool = False):
     """tokens (B, S) -> (logits, cache): logits (B, V) f32 for the last
-    position, or (B, S, V) with return_full_logits. The tokens sit at
-    positions cache.length + [0, S); their K/V rows are written into the
-    cache in place and the returned cache has length + S."""
+    position, or (B, S, V) with return_full_logits. The world is the
+    params' rank dim n; the cache holds n * B rank rows (KVCache). The
+    tokens sit at positions cache.length + [0, S); their K/V rows are
+    written into the cache in place and the returned cache has length
+    + S."""
     if cache is None:
         raise ValueError("forward requires a KVCache (create one per serve)")
     b, s = tokens.shape
     dev = tokens.device
-    spec = TPAttnSpec(cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim)
+    n = params.world_size
+    world = VirtualWorld(n, dev)
+    spec = TPAttnSpec(cfg.num_q_heads // n, cfg.num_kv_heads // n,
+                      cfg.head_dim)
     cos, sin = rope_table(cfg.head_dim, cfg.max_positions, cfg.rope_theta,
                           device=dev)
     start = cache.length
     positions = start[:, None] + torch.arange(s, device=dev)[None, :]
     kv_len = start + s
-    write = KVWrite.at(positions, cache.k.shape[2])
+    # the ranks are extra batch rows of the attention: row r * B + b
+    rank_pos, rank_len = positions.repeat(n, 1), kv_len.repeat(n)
+    write = KVWrite.at(rank_pos, cache.k.shape[2])
 
     x = params.embed[tokens].reshape(b * s, cfg.hidden_size)
+    x = x.expand(n, b * s, cfg.hidden_size)  # one replica a rank
     lay = params.layers
     for i in range(cfg.num_layers):
         lp = DenseLayerParams(*(w[i] for w in lay))
-        x = _layer_fwd(cfg, spec, cos, sin, positions, kv_len, write, b,
-                       x, lp, (cache.k[i], cache.v[i]))
+        x = _layer_fwd(cfg, spec, world, cos, sin, rank_pos, rank_len, write,
+                       b, x, lp, (cache.k[i], cache.v[i]))
 
-    x = rms_norm(x, params.final_ln, cfg.rms_eps).reshape(b, s, -1)
+    x = rms_norm(x, params.final_ln, cfg.rms_eps).reshape(n, b, s, -1)
     if not return_full_logits:
-        x = x[:, -1]
-    # bf16 operands, f32 result: no f32 copy of the (H, V) head
-    logits = dot_f32(x, params.lm_head)
+        x = x[:, :, -1:]
+    # bf16 operands, f32 result: no f32 copy of the (H, V/n) head; then
+    # rank r's vocab slice of every row, gathered along the vocab
+    logits = dot_f32(x.reshape(n, -1, cfg.hidden_size), params.lm_head)
+    logits = logits.reshape(n, b, -1, logits.shape[-1]).permute(1, 2, 0, 3)
+    logits = logits.reshape(b, -1, n * logits.shape[-1])
+    if not return_full_logits:
+        logits = logits[:, 0]
     return logits, KVCache(cache.k, cache.v, kv_len)

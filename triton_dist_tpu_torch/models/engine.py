@@ -1,7 +1,12 @@
 """Inference engine — port of triton_dist_tpu.models.engine (host loop).
 
 Prefill, single-token decode and a serve loop over `dense.forward`, plus
-the fixed-geometry serve step the continuous-batching Scheduler replays.
+the fixed-geometry serve step the continuous-batching Scheduler replays,
+at world n on the virtual world of one card (runtime/symm_mem.py): the
+weights carry a rank dim, the cache and the serve pool each rank's kv
+heads. At world 1 every JAX mode is the same computation; at world > 1
+the `ar` mode runs (gemm_ar: one-shot all-reduce, or gemm_rs + ring
+all-gather), and `dist` / `xla` raise until their kernels are ported.
 PyTorch runs eagerly, so there is nothing to compile: `generate` is a
 Python loop of decode steps (a CUDA graph of the step is later work) and
 `make_serve_step` returns a plain function.
@@ -28,7 +33,8 @@ from triton_dist_tpu_torch.models.dense import (
     init_params,
 )
 from triton_dist_tpu_torch.models.kv_cache import KVCache
-from triton_dist_tpu_torch.runtime.device import check_world, resolve_device
+from triton_dist_tpu_torch.runtime.device import check_modes, resolve_device
+from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
 
 def sample_token(logits: torch.Tensor,
@@ -56,7 +62,8 @@ def _serve_step_math(cfg: ModelConfig, slots: int, chunk: int, page: int,
     arrays. pool_k / pool_v are updated in place.
     Returns (next_token (K,), last_logits (K, V) f32)."""
     dev = tokens.device
-    cache = KVCache.dense_view(pool_k, pool_v, table, lengths)
+    n = params.world_size
+    cache = KVCache.dense_view(pool_k, pool_v, table, lengths, n)
     logits, new_cache = forward(cfg, params, tokens, cache,
                                 return_full_logits=True)  # (K, C, V)
     bidx = torch.arange(slots, device=dev)
@@ -70,15 +77,19 @@ def _serve_step_math(cfg: ModelConfig, slots: int, chunk: int, page: int,
     # this step's K/V rows back into the pool: valid columns land on
     # their table pages; padding columns go to the null page 0 (their
     # positions may lie past the slot's pages, where the table still
-    # maps live pages of other slots)
+    # maps live pages of other slots). Rank r's rows hold its heads.
     col = torch.arange(chunk, device=dev)
     posc = (lengths[:, None] + col[None, :]).clamp(max=t_pool - 1)
     valid = col[None, :] < n_valid[:, None]
     pg = torch.where(valid, table[bidx[:, None], posc // page], 0)
     off = posc % page
     for pool, dense in ((pool_k, new_cache.k), (pool_v, new_cache.v)):
-        rows = dense[:, bidx[:, None], posc]  # (L, K, C, Hkv, D)
-        pool[:, :, pg, off] = rows.permute(0, 3, 1, 2, 4).to(pool.dtype)
+        L, _, t, h, d = dense.shape
+        rows = dense.reshape(L, n, slots, t, h, d)[:, :, bidx[:, None], posc]
+        # (L, n, K, C, Hkv/n, D) -> (L, Hkv, K, C, D)
+        rows = rows.permute(0, 1, 4, 2, 3, 5).reshape(L, n * h, slots,
+                                                       chunk, d)
+        pool[:, :, pg, off] = rows.to(pool.dtype)
     return tok, last
 
 
@@ -86,20 +97,29 @@ class Engine:
     """Parameters on one card plus prefill / decode / serve entry points.
 
     device: "cuda" by default; "cpu" runs every kernel's plain version.
-    world: tensor-parallel size; only 1 is ported."""
+    world: tensor-parallel size n, run as a virtual world of n ranks on
+    the one device. prefill_mode / decode_mode: the JAX package's mode
+    strings (same defaults); at world > 1 only "ar" is ported."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  params: Optional[DenseLLMParams] = None, seed: int = 0,
-                 max_len: Optional[int] = None, world: int = 1):
-        check_world(world)
+                 max_len: Optional[int] = None, world: int = 1,
+                 prefill_mode: str = "dist", decode_mode: str = "ar"):
+        check_modes(world, prefill_mode, decode_mode)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.world = VirtualWorld(world, self.device)
         self.max_len = max_len or cfg.max_positions
         if self.max_len > cfg.max_positions:
             raise ValueError(f"max_len {self.max_len} exceeds the rope "
                              f"table's {cfg.max_positions} positions")
         self.params = (params if params is not None
-                       else init_params(cfg, self.device, seed=seed))
+                       else init_params(cfg, self.device, seed=seed,
+                                        world=world))
+        if self.params.world_size != world:
+            raise ValueError(f"params are sharded over "
+                             f"{self.params.world_size} ranks, the engine "
+                             f"runs {world}: see dense.shard_params")
 
     def _ids(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -111,7 +131,7 @@ class Engine:
         cfg = self.cfg
         return KVCache.create(cfg.num_layers, batch, self.max_len,
                               cfg.num_kv_heads, cfg.head_dim,
-                              cfg.torch_dtype, self.device)
+                              cfg.torch_dtype, self.device, self.world.n)
 
     def prefill(self, input_ids, cache: Optional[KVCache] = None):
         """input_ids (B, S) -> (last-token logits (B, V) f32, cache)."""
@@ -175,7 +195,8 @@ class Engine:
                         max_pages: int):
         """The step function the serve Worker calls every step:
 
-          fn(tokens (K, C), pool_k, pool_v (L, Hkv, P, page, D),
+          fn(tokens (K, C), pool_k, pool_v (L, Hkv, P, page, D) with
+             rank r's heads at [r*Hkv/n, (r+1)*Hkv/n),
              table (K, MAXP), lengths (K,), n_valid (K,), temps (K,),
              seeds (K,)) -> (next_token (K,), last_logits (K, V) f32)
 

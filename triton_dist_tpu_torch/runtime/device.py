@@ -3,7 +3,8 @@
 The JAX package builds a named mesh over whatever backend JAX found.
 The port runs on one CUDA card: every entry point takes a `device`
 argument, defaults to "cuda", and raises when CUDA is absent instead of
-carrying on on the CPU. Tests pass device="cpu" explicitly.
+carrying on on the CPU. Tests pass device="cpu" explicitly. Ranks are a
+virtual world on that device (runtime/symm_mem.py).
 """
 
 from __future__ import annotations
@@ -12,15 +13,7 @@ from typing import Optional, Union
 
 import torch
 
-# kernels of the JAX package that a world > 1 port needs and this
-# package does not have yet (ROADMAP.md, queue 2)
-_MISSING_COLLECTIVES = (
-    "ag_gemm (_ag_gemm_kernel)",
-    "gemm_rs (_gemm_rs_kernel, _gemm_rs_kernel_streamed)",
-    "one_shot_all_reduce (_one_shot_ar_kernel)",
-    "ring_all_gather (_ring_ag_kernel)",
-    "ring_reduce_scatter (_ring_rs_kernel)",
-)
+_MODES = ("xla", "dist", "ar")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -37,9 +30,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
-def check_world(world: int) -> None:
-    """The port runs at world 1 only; say which kernels are missing."""
-    if world != 1:
-        raise NotImplementedError(
-            f"world={world}: tensor parallelism needs the collective "
-            "kernels still to be ported: " + ", ".join(_MISSING_COLLECTIVES))
+def check_modes(world: int, prefill_mode: str, decode_mode: str) -> None:
+    """The JAX Engine's modes: at world 1 all three are the same
+    computation; at world > 1 the port runs "ar" and names what the
+    sequence-sharded modes still need."""
+    for kind, mode in (("prefill", prefill_mode), ("decode", decode_mode)):
+        if mode not in _MODES:
+            raise ValueError(f"{kind}_mode={mode!r}: one of {_MODES}")
+        if world > 1 and mode != "ar":
+            raise NotImplementedError(
+                f"world={world}, {kind}_mode={mode!r}: the sequence-sharded "
+                "legs are not ported yet (ag_gemm (_ag_gemm_kernel) with "
+                "its silu_pair epilogue, gemm_rs(a_order='arrival'), the "
+                "token all-gather and reduce-scatter); use mode 'ar'")

@@ -1,17 +1,21 @@
 """Where the time of Qwen3-8B serving goes on one card.
 
-    python -m triton_dist_tpu_torch.tools.profile_serve
+    python -m triton_dist_tpu_torch.tools.profile_serve [--world N]
 
 Builds Qwen3-8B at full width and depth (bf16, random weights from seed
-0), warms up, then traces under torch.profiler: one scheduler step of
-the (slots=4, chunk=64) serve geometry with every slot prefilling, and
-one batch-4 decode step. For each it prints the host wall time, the
-device time summed over kernels, the device busy share, and the kernels
-that took the most device time. Needs a CUDA card.
+0) at world N (default 1; N > 1 runs the virtual world of N ranks in
+the `ar` mode), warms up, then traces under torch.profiler: one
+scheduler step of the (slots=4, chunk=64) serve geometry with every
+slot prefilling, one batch-4 decode step, and one 4 x 128 prefill (at
+world > 1 the gemm_rs + ring all-gather path). For each it prints the
+host wall time, the device time summed over kernels, the device busy
+share, and the kernels that took the most device time. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
 
+import argparse
 import time
 
 import numpy as np
@@ -23,6 +27,8 @@ from triton_dist_tpu_torch.serve import Scheduler
 
 REPS = 2  # traced repetitions of each step
 TOP = 12  # kernels listed per step
+# name fragments of the port's hand-written kernels (csrc/*.cu)
+OWN = ("fp_local", "one_shot_ar_kernel", "ring_ag_kernel", "gemm_rs_kernel")
 
 
 def _self_device_us(evt) -> float:
@@ -41,8 +47,12 @@ def _report(label: str, prof, wall_ms: float) -> None:
     dev_ms = sum(r[1] for r in rows) / 1e3
     print(f"== {label}: wall {wall_ms:.3f} ms, kernels {dev_ms:.3f} ms, "
           f"busy {dev_ms / wall_ms:.3f}, {sum(r[2] for r in rows)} launches")
-    for key, us, n in sorted(rows, key=lambda r: -r[1])[:TOP]:
-        print(f"  {us / 1e3:9.3f} ms  {n:5d}x  {key[:90]}")
+    rows.sort(key=lambda r: -r[1])
+    # the largest rows, then the port's own kernels wherever they rank
+    for key, us, n in rows[:TOP] + [r for r in rows[TOP:]
+                                    if any(k in r[0] for k in OWN)]:
+        print(f"  {us / 1e3:9.3f} ms  {n:5d}x  {us / n:8.1f} us/call  "
+              f"{key[:80]}")
     print("  (wall: host clock over all traced repetitions, profiler on)")
 
 
@@ -59,12 +69,18 @@ def _traced(fn):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--world", type=int, default=1,
+                    help="tensor-parallel ranks on the one card")
+    world = ap.parse_args().world
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA card")
 
     cfg = ModelConfig.qwen3_8b()
-    eng = Engine(cfg, device="cuda", seed=0, max_len=512)
+    eng = Engine(cfg, device="cuda", seed=0, max_len=512, world=world,
+                 prefill_mode="ar")
     rng = np.random.default_rng(0)
+    print(f"world {world}")
 
     # a scheduler step with all four slots prefilling 64-token chunks
     sch = Scheduler(eng, slots=4, chunk=64, page=64)
@@ -86,6 +102,12 @@ def main() -> None:
 
     prof, wall = _traced(decode)
     _report("decode step (batch 4, 36 layers)", prof, wall)
+
+    # a 4 x 128 prefill (M = 512 rows: gemm_rs + ring AG at world > 1)
+    ids = rng.integers(0, cfg.vocab_size, (4, 128))
+    eng.prefill(ids)  # warm-up
+    prof, wall = _traced(lambda: eng.prefill(ids))
+    _report("prefill (4 x 128 tokens, 36 layers)", prof, wall)
 
 
 if __name__ == "__main__":
