@@ -13,20 +13,26 @@ outside a checkout of the repository. Phases, each fatal on failure:
      prefill at edge cases, the Qwen3-8B engine-prefill and serve-step
      shapes and a long prefill; one-shot AllReduce, ring AllGather and
      gemm_rs at n = 2 and 4 (gemm_rs also n = 1, force_kernel), ragged
-     sizes, M = 1 and the world-4 main-path shapes; f32 and bf16;
-  4. the main path, twice: Qwen3-8B at full width and depth, bf16,
-     random weights from a seed, at world 1 and then, on the same
+     sizes, M = 1 and the world-4 main-path shapes; ag_gemm at n = 1
+     (force_kernel), 2 and 4, both C orders, plain and silu_pair,
+     return_gathered, m = 1, 64, 128 and ragged, N not a tile multiple;
+     gemm_rs with A in arrival order at n = 2 and 4; f32 and bf16;
+  4. the main path, three times: Qwen3-8B at full width and depth,
+     bf16, random weights from a seed, at world 1; then, on the same
      weights sharded by shard_params, at world 4 on the virtual world in
-     the `ar` mode; each through Engine.serve and the continuous-
-     batching Scheduler, with every kernel's launch count read around
-     it and the inputs of each kernel's first- and last-layer calls
-     recorded; then the kernel path's logits against the plain
-     versions', and a small f32 model on the card against the CPU at
-     world 1 and 4;
+     the `ar` mode; then at world 4 with the Engine's default modes (a
+     `dist` prefill, an `ar` decode) and a `dist` Scheduler; each
+     through Engine.serve and the continuous-batching Scheduler, with
+     every kernel's launch count read around it and the inputs of each
+     kernel's first- and last-layer calls recorded; then the kernel
+     path's logits against the plain versions' (and, for `dist`, the
+     `xla` prefill's), and a small f32 model on the card against the CPU
+     at world 1 and 4 (`ar` and `dist`);
   5. every kernel against its plain version on the inputs recorded in
      phase 4, and its timing there (flash prefill also at two synthetic
      Qwen3-8B shapes), beside its bound over the work of all ranks, its
-     plain version and one PyTorch library call (a yardstick only);
+     plain version and one PyTorch library call (a yardstick only); the
+     device time of the virtual-world kernels from torch.profiler;
   6. the kernels line (JSON), the card line, and the result line.
 """
 
@@ -288,13 +294,13 @@ def check_ag(kernels, x) -> None:
                              "not bitwise")
 
 
-def check_rs(kernels, a, b, force_kernel=False):
+def check_rs(kernels, a, b, force_kernel=False, a_order="rank"):
     """gemm_rs kernel against plain, within gemm_rs_atol. Returns the
     max abs error and its share of the atol."""
     import torch
 
-    got = kernels.gemm_rs(a, b, force_kernel=force_kernel)
-    want = kernels.gemm_rs_plain(a, b)
+    got = kernels.gemm_rs(a, b, force_kernel=force_kernel, a_order=a_order)
+    want = kernels.gemm_rs_plain(a, b, a_order)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     atol = gemm_rs_atol(a, b, want)
@@ -341,6 +347,86 @@ def check_collectives(kernels):
     return worst
 
 
+def ag_gemm_atol(a, b, want) -> float:
+    """Kernel and plain both accumulate in f32 and round once; their f32
+    sums run in another order. bf16: one ulp (2^-7 relative) of the
+    largest output, plus the f32 term; f32: 1e-5 relative to the
+    products (for silu_pair, to max|gate| x max|up|)."""
+    import torch
+
+    full = a.reshape(-1, a.shape[-1]).float()
+    ws = b if isinstance(b, tuple) else (b,)
+    prods = [torch.matmul(full, w.float()).abs().max().item() for w in ws]
+    scale = max(1.0, prods[0]) * (max(1.0, prods[1]) if len(ws) == 2 else 1)
+    ulp = 2.0 ** -7 * want.float().abs().max().item()
+    return (ulp if a.dtype == torch.bfloat16 else 0.0) + 1e-5 * scale
+
+
+def check_ag_gemm_call(kernels, a, b, force_kernel=False, **kw):
+    """ag_gemm kernel against plain, within ag_gemm_atol (the gathered A
+    of return_gathered bitwise). Returns the max abs error and its share
+    of the atol."""
+    import torch
+
+    got = kernels.ag_gemm(a, b, force_kernel=force_kernel, **kw)
+    want = kernels.ag_gemm_plain(a, b, **kw)
+    torch.cuda.synchronize()
+    if kw.get("return_gathered"):
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"ag_gemm {tuple(a.shape)}: the gathered "
+                                 "A is not bitwise")
+        got, want = got[0], want[0]
+    err = (got.float() - want.float()).abs().max().item()
+    atol = ag_gemm_atol(a, b, want)
+    if not bool(torch.isfinite(got).all()) or not err <= atol:
+        raise AssertionError(f"ag_gemm a {tuple(a.shape)} {kw} {a.dtype}: "
+                             f"err {err}, atol {atol}")
+    return err, err / atol
+
+
+def check_ag_gemm(kernels):
+    """ag_gemm kernel against its plain version on the card at n = 1
+    (force_kernel), 2 and 4, f32 and bf16: both C orders, plain and
+    silu_pair, return_gathered; m = 1, 64, 128 and a ragged 37, N not a
+    multiple of the tile; then gemm_rs with A in ring-arrival order at
+    n = 2 and 4 (n = 4 tells a wrong slot that n = 2's self-inverse
+    permutation hides). Returns the largest share of an atol."""
+    import torch
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        for n in (1, 2, 4):
+            for m, K, N in ((1, 512, 200), (37, 256, 200), (64, 512, 264),
+                            (128, 512, 1536)):
+                a = rand((n, m, K), dtype, n + m + K, 1.0)
+                wg = rand((n, K, N), dtype, K + N, 0.05)
+                wu = rand((n, K, N), dtype, K + N + 1, 0.05)
+                ratio = 0.0
+                for b, ep in ((wg, None), ((wg, wu), "silu_pair")):
+                    for order in ("rank", "arrival"):
+                        _, r = check_ag_gemm_call(
+                            kernels, a, b, force_kernel=True, epilogue=ep,
+                            c_order=order)
+                        ratio = max(ratio, r)
+                _, r = check_ag_gemm_call(kernels, a, wg, force_kernel=True,
+                                          return_gathered=True)
+                ratio = max(ratio, r)
+                worst = max(worst, ratio)
+                log(f"  ag_gemm n={n} m={m} K={K} N={N} {dn}: both orders, "
+                    f"plain and silu_pair, return_gathered: at most "
+                    f"{ratio:.3f} of its atol")
+        for n in (2, 4):
+            for M, K, N in ((8 * n, 136, 200), (128 * n, 512, 264)):
+                a = rand((n, M, K), dtype, M + K + 7, 1.0)
+                b = rand((n, K, N), dtype, K + N + 7, 0.02)
+                _, ratio = check_rs(kernels, a, b, a_order="arrival")
+                worst = max(worst, ratio)
+                log(f"  gemm_rs a_order=arrival n={n} M={M} K={K} N={N} "
+                    f"{dn}: at most {ratio:.3f} of its atol")
+    return worst
+
+
 # -- the main path --------------------------------------------------------
 
 
@@ -351,6 +437,7 @@ def main_path_kernels():
     call)."""
     from triton_dist_tpu_torch.kernels import (
         allgather,
+        allgather_gemm,
         allreduce,
         flash_prefill,
         gemm_reduce_scatter,
@@ -359,7 +446,8 @@ def main_path_kernels():
     return {"flash_prefill_local": (flash_prefill, "flash_prefill_local"),
             "one_shot_all_reduce": (allreduce, "one_shot_all_reduce"),
             "ring_all_gather": (allgather, "ring_all_gather"),
-            "gemm_rs": (gemm_reduce_scatter, "gemm_rs")}
+            "gemm_rs": (gemm_reduce_scatter, "gemm_rs"),
+            "ag_gemm": (allgather_gemm, "ag_gemm")}
 
 
 def plain_versions():
@@ -368,7 +456,8 @@ def plain_versions():
     return {"flash_prefill_local": kernels.flash_prefill_plain,
             "one_shot_all_reduce": kernels.one_shot_all_reduce_plain,
             "ring_all_gather": kernels.ring_all_gather_plain,
-            "gemm_rs": kernels.gemm_rs_plain}
+            "gemm_rs": kernels.gemm_rs_plain,
+            "ag_gemm": kernels.ag_gemm_plain}
 
 
 class Swapped:
@@ -411,16 +500,18 @@ def _copy_fp(q, k, v, q_positions=None, q_offset=0, kv_len=None,
 COPY = {"flash_prefill_local": (_copy_fp, 1),
         "one_shot_all_reduce": (lambda x: dict(x=x.clone()), 2),
         "ring_all_gather": (lambda x: dict(x=x.clone()), 2),
-        # b is a weight, never written: kept by reference
-        "gemm_rs": (lambda a, b, **kw: dict(a=a.clone(), b=b), 2)}
+        # b is a weight (or a pair), never written: kept by reference;
+        # the keyword options (a_order, epilogue, c_order) kept with it
+        "gemm_rs": (lambda a, b, **kw: dict(a=a.clone(), b=b, **kw), 2),
+        "ag_gemm": (lambda a, b, **kw: dict(a=a.clone(), b=b, **kw), 2)}
 
 
 class Recorder:
     """Wraps a kernel's wrapper so that the calls at the first and the
     last layer of each forward that reaches the kernel keep a copy of
     their inputs (flash prefill: one call a layer; the collectives: the
-    O and the down projection's, two a layer). Calls the kernel's
-    wrapper, which counts the launch."""
+    O and the down projection's, two a layer; ag_gemm: QKV and gate|up,
+    two a layer). Calls the kernel's wrapper, which counts the launch."""
 
     def __init__(self, name, num_layers):
         mod, attr = main_path_kernels()[name]
@@ -500,13 +591,40 @@ def check_recorded_collectives(kernels, records):
     return errs
 
 
-def run_model(kernels, cfg, params, world: int, device="cuda"):
-    """The main path at `world`: Engine.serve of 4 x 128 prompts and a
-    Scheduler with 6 requests over `params`, every kernel's launches
-    read around each, the kernels' inputs recorded; then the timed
-    prefill and decode, and the kernel path's logits against the plain
-    versions'. Returns (launches of the whole path, records, model
-    numbers)."""
+def want_launches(L, world, prefill_mode, sched_mode, gen, steps):
+    """The launch counts the main path must show: Engine.serve runs one
+    multi-token forward (the prefill, M = 512 rows) and gen - 1 `ar`
+    decode steps (M = 4: local product + one-shot AR); every scheduler
+    step is a (slots, chunk) forward of M = 256 rows. At world > 1 an
+    `ar` prefill takes gemm_rs + ring AG on O and down (M > 256), an `ar`
+    scheduler step the one-shot AR; a `dist` forward takes ag_gemm on
+    QKV and gate|up and gemm_rs on O and down, and no AR or AG."""
+    serve = {name: 0 for name in main_path_kernels()}
+    sched = dict(serve, flash_prefill_local=L * steps)
+    serve["flash_prefill_local"] = L
+    if world > 1:
+        if prefill_mode == "dist":
+            serve.update(ag_gemm=2 * L, gemm_rs=2 * L)
+        else:
+            serve.update(gemm_rs=2 * L, ring_all_gather=2 * L)
+        serve["one_shot_all_reduce"] = 2 * L * (gen - 1)
+        if sched_mode == "dist":
+            sched.update(ag_gemm=2 * L * steps, gemm_rs=2 * L * steps)
+        else:
+            sched.update(one_shot_all_reduce=2 * L * steps)
+    return serve, sched
+
+
+def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
+              sched_mode="ar", device="cuda"):
+    """The main path at `world`: Engine.serve of 4 x 128 prompts (a
+    `prefill_mode` prefill, `ar` decode steps) and a Scheduler with 6
+    requests whose steps run `sched_mode`, over `params`, every kernel's
+    launches read around each, the kernels' inputs recorded; then the
+    timed prefill and decode, and the kernel path's logits against the
+    plain versions' (and, for a sequence-sharded prefill, against the
+    `xla` prefill's). Returns (launches of the whole path, records,
+    model numbers)."""
     import numpy as np
     import torch
 
@@ -516,11 +634,15 @@ def run_model(kernels, cfg, params, world: int, device="cuda"):
 
     L = cfg.num_layers
     eng = Engine(cfg, device=device, params=params, max_len=MAX_LEN,
-                 world=world, prefill_mode="ar", decode_mode="ar")
+                 world=world, prefill_mode=prefill_mode, decode_mode="ar")
+    sched_eng = Engine(cfg, device=device, params=params, max_len=MAX_LEN,
+                       world=world, prefill_mode=prefill_mode,
+                       decode_mode=sched_mode)
     n_params = sum(p.numel() for p in (eng.params.embed, eng.params.lm_head,
                                        *eng.params.layers))
     log(f"  model: {L} layers, hidden {cfg.hidden_size}, world {world}, "
-        f"{n_params / 1e9:.3f} B params bf16")
+        f"{n_params / 1e9:.3f} B params bf16; Engine.serve prefill "
+        f"{prefill_mode}, decode ar; Scheduler steps {sched_mode}")
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (4, 128))
     sched_prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
@@ -549,7 +671,7 @@ def run_model(kernels, cfg, params, world: int, device="cuda"):
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         serve_n = kernels.launches()
-        sch = Scheduler(eng, slots=4, chunk=64, page=64)
+        sch = Scheduler(sched_eng, slots=4, chunk=64, page=64)
         sch.worker._fn = watch(sch.worker._fn)
         reqs = [sch.submit(p, gen) for p in sched_prompts]
         t0 = time.perf_counter()
@@ -566,18 +688,8 @@ def run_model(kernels, cfg, params, world: int, device="cuda"):
                for r in reqs), "a scheduler request was not answered"
     assert all(finite), "non-finite serve-step logits"
     sched_n = {k: main_n[k] - serve_n[k] for k in main_n}
-    # Engine.serve runs one multi-token forward (the prefill, M = 512
-    # rows at world > 1: gemm_rs + ring AG), then gen - 1 decode steps
-    # (M = 4: one-shot AR); every scheduler step is a (slots, chunk)
-    # multi-token forward of M = 256 rows (one-shot AR)
-    want_serve = {"flash_prefill_local": L, "gemm_rs": 0,
-                  "ring_all_gather": 0, "one_shot_all_reduce": 0}
-    want_sched = {"flash_prefill_local": L * steps, "gemm_rs": 0,
-                  "ring_all_gather": 0, "one_shot_all_reduce": 0}
-    if world > 1:
-        want_serve.update(gemm_rs=2 * L, ring_all_gather=2 * L,
-                          one_shot_all_reduce=2 * L * (gen - 1))
-        want_sched.update(one_shot_all_reduce=2 * L * steps)
+    want_serve, want_sched = want_launches(L, world, prefill_mode,
+                                           sched_mode, gen, steps)
     assert serve_n == want_serve, (serve_n, want_serve)
     assert sched_n == want_sched, (sched_n, want_sched)
     m = sch.metrics()
@@ -645,7 +757,9 @@ def run_model(kernels, cfg, params, world: int, device="cuda"):
         f"{agree(logits):.2f} (one-ulp perturbed plain: "
         f"{agree(floor_logits):.2f}); plain top-1 minus top-2 logit per "
         f"prompt {[round(x, 4) for x in gap]}")
-    model = dict(world=world, prefill_ms=pre_ms, decode_ms=decode_ms,
+    model = dict(world=world, prefill_mode=prefill_mode,
+                 sched_mode=sched_mode, prefill_ms=pre_ms,
+                 decode_ms=decode_ms,
                  tokens_per_s=m["tokens_per_s"], peak_gb=peak_gb,
                  logits_rel_l2=rel(logits),
                  logits_rel_l2_ulp=rel(floor_logits),
@@ -654,18 +768,36 @@ def run_model(kernels, cfg, params, world: int, device="cuda"):
     if not model["logits_rel_l2"] <= 2 * model["logits_rel_l2_ulp"]:
         raise AssertionError("kernel path logits drift more than twice the "
                              "one-ulp perturbation's")
-    del eng, cache, logits, plain_logits, floor_logits
+    if prefill_mode == "dist":
+        # the xla prefill on the same weights, torch ops only: its
+        # collectives and dots are torch's, its attention the plain one
+        xla = Engine(cfg, device=device, params=params, max_len=MAX_LEN,
+                     world=world, prefill_mode="xla")
+        with Swapped(plain):
+            xla_logits, _ = xla.prefill(prompts)
+        torch.cuda.synchronize()
+
+        def rel_xla(a):
+            return ((a - xla_logits).norm() / xla_logits.norm()).item()
+
+        model.update(logits_rel_l2_xla=rel_xla(logits),
+                     plain_rel_l2_xla=rel_xla(plain_logits))
+        log(f"  prefill logits against the world-{world} xla prefill (torch "
+            f"ops, no kernel): relative L2 {rel_xla(logits):.4e} (kernels), "
+            f"{rel_xla(plain_logits):.4e} (plain versions)")
+        del xla, xla_logits
+    del eng, sched_eng, cache, logits, plain_logits, floor_logits
     torch.cuda.empty_cache()
     return main_n, records, model
 
 
-def check_small_model(world: int):
+def check_small_model(world: int, prefill_mode: str = "ar"):
     """A small config with head_dim 128 in f32 on the card (the kernels)
     against the same weights on the CPU (the plain versions): logits of
     a prefill and three decode steps, and greedy tokens equal. World 1:
-    a 3 x 37 prefill, within 1e-3. World 4: an 8 x 40 prefill (320 rows,
-    so gemm_ar takes gemm_rs + ring AG; decode takes the one-shot AR),
-    within 1e-4."""
+    a 3 x 37 prefill, within 1e-3. World 4: an 8 x 40 prefill (320 rows;
+    `ar`: gemm_ar takes gemm_rs + ring AG; `dist`: ag_gemm and gemm_rs,
+    80 rows a rank; decode takes the one-shot AR), within 1e-4."""
     import torch
 
     from triton_dist_tpu_torch.models import Engine, ModelConfig
@@ -674,7 +806,7 @@ def check_small_model(world: int):
     cfg = ModelConfig.tiny(head_dim=128, num_q_heads=8, num_kv_heads=4,
                            max_positions=128)
     params = init_params(cfg, device="cpu", seed=3, world=world)
-    kw = dict(params=params, world=world, prefill_mode="ar")
+    kw = dict(params=params, world=world, prefill_mode=prefill_mode)
     cpu = Engine(cfg, device="cpu", **kw)
     gpu = Engine(cfg, device="cuda", **{**kw, "params": params.to("cuda")})
     b, s, tol = (3, 37, 1e-3) if world == 1 else (8, 40, 1e-4)
@@ -690,7 +822,8 @@ def check_small_model(world: int):
     want = cpu.serve(ids, 6).tolist()
     got = gpu.serve(ids, 6).cpu().tolist()
     launched = _launch_total() - kernels_before
-    log(f"  small model (f32, head_dim 128, world {world}) card vs CPU: "
+    log(f"  small model (f32, head_dim 128, world {world}, prefill "
+        f"{prefill_mode}) card vs CPU: "
         f"max abs logit diff {err:.3e} (atol {tol:g}), greedy tokens equal "
         f"{got == want}, {launched} kernel launches")
     assert err <= tol and got == want and launched > 0
@@ -702,15 +835,44 @@ def _launch_total() -> int:
     return sum(kernels.launches().values())
 
 
-def time_collective(label, fn, plain, library, ops, nbytes, dtype):
-    """Kernel, plain and library times of one call, beside the bound."""
+def device_us(fn, key, reps=10):
+    """Mean device time in µs of the kernels whose name holds `key` over
+    `reps` calls of fn traced by torch.profiler; None when the profiler
+    reports no such kernel time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if key in e.key]
+    calls = sum(e.count for e in hits)
+    total = sum(float(getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0)))
+                for e in hits)
+    return total / calls if calls and total > 0 else None
+
+
+def time_collective(label, fn, plain, library, ops, nbytes, dtype,
+                    kernel_key=None):
+    """Kernel, plain and library times of one call, beside the bound;
+    with kernel_key, the kernel's device time from the profiler too."""
     bnd, by = bound_ms(ops, nbytes, str(dtype)[6:])
     row = dict(ms=time_ms(fn), plain_ms=time_ms(plain), bound_ms=bnd,
                bound_by=by, library_ms=time_ms(library),
                gflop=ops / 1e9, mbytes=nbytes / 1e6)
-    log(f"  {label}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-        f"ms, library {row['library_ms']:.4f} ms, bound {bnd:.4f} ms ({by}; "
-        f"{row['gflop']:.3f} GFLOP, {row['mbytes']:.2f} MB)")
+    if kernel_key is not None:
+        row["device_us"] = device_us(fn, kernel_key)
+    dev = ("" if kernel_key is None else
+           f", device {row['device_us']} us" if row["device_us"] is None else
+           f", device {row['device_us']:.1f} us")
+    log(f"  {label}: kernel {row['ms']:.4f} ms{dev}, plain "
+        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+        f"bound {bnd:.4f} ms ({by}; {row['gflop']:.3f} GFLOP, "
+        f"{row['mbytes']:.2f} MB)")
     return row
 
 
@@ -747,7 +909,8 @@ def time_collectives(kernels, records):
             lambda x=x: kernels.one_shot_all_reduce(x),
             lambda x=x: kernels.one_shot_all_reduce_plain(x),
             lambda x=x: x.sum(0).expand_as(x),
-            n * (n - 1) * e, 2 * n * e * x.element_size(), x.dtype)
+            n * (n - 1) * e, 2 * n * e * x.element_size(), x.dtype,
+            kernel_key="one_shot_ar_kernel")
     n, m = ag_x.shape[:2]
     out = torch.empty((n, n * m, *ag_x.shape[2:]), dtype=ag_x.dtype,
                       device=ag_x.device)
@@ -758,7 +921,8 @@ def time_collectives(kernels, records):
         lambda: kernels.ring_all_gather_plain(ag_x),
         lambda: out.copy_(ag_x.reshape(1, n * m, *ag_x.shape[2:])
                           .expand(out.shape)),
-        0, n * chunk + n * n * chunk, ag_x.dtype)
+        0, n * chunk + n * n * chunk, ag_x.dtype,
+        kernel_key="ring_ag_kernel")
     for rec, proj in ((rs_down, "down"), (rs_o, "O")):
         a, b = rec["a"], rec["b"]
         n, M, K = a.shape
@@ -770,7 +934,7 @@ def time_collectives(kernels, records):
             lambda a=a, b=b: torch.einsum("rmk,rkn->mn", a, b),
             2 * n * M * K * N,
             (n * (M * K + K * N) + n * (M // n) * N) * a.element_size(),
-            a.dtype)
+            a.dtype, kernel_key="gemm_rs_kernel")
     # the same kernel at n = 1 (force_kernel; the JAX _local_mm_kernel's
     # place): the world-1 down projection, these ranks' K blocks joined
     a, b = rs_down["a"], rs_down["b"]
@@ -786,14 +950,103 @@ def time_collectives(kernels, records):
         lambda: kernels.gemm_rs(a1, b1, force_kernel=True),
         lambda: kernels.gemm_rs_plain(a1, b1),
         lambda: torch.matmul(a1, b1), 2 * M * n * K * N,
-        (M * n * K + n * K * N + M * N) * a1.element_size(), a1.dtype)
+        (M * n * K + n * K * N + M * N) * a1.element_size(), a1.dtype,
+        kernel_key="gemm_rs_kernel")
     main = {"one_shot_all_reduce": next(iter(rows["one_shot_all_reduce"])),
             "ring_all_gather": next(iter(rows["ring_all_gather"])),
             "gemm_rs": next(iter(rows["gemm_rs"]))}
     return rows, main
 
 
+def check_recorded_dist(kernels, records):
+    """ag_gemm and gemm_rs against their plain versions on the inputs
+    the world-4 `dist` path gave them (QKV in rank order, gate|up
+    silu_pair in arrival order; O in rank order, down in arrival order).
+    Returns name -> max abs error."""
+    errs = {}
+    for name, check, opts in (
+            ("ag_gemm", check_ag_gemm_call, ("epilogue", "c_order")),
+            ("gemm_rs", check_rs, ("a_order",))):
+        err_max, ratio_max = 0.0, 0.0
+        for rec in records[name]:
+            kw = {k: rec[k] for k in opts if k in rec}
+            err, ratio = check(kernels, rec["a"], rec["b"], **kw)
+            err_max, ratio_max = max(err_max, err), max(ratio_max, ratio)
+        errs[name] = err_max
+        shapes = sorted({(tuple(r["a"].shape),
+                          tuple(r["b"][0].shape if isinstance(r["b"], tuple)
+                                else r["b"].shape),
+                          tuple(sorted((k, r[k]) for k in opts if k in r)))
+                         for r in records[name]})
+        log(f"  {name} on {len(records[name])} recorded dist-path calls, "
+            f"(a, b, options) {shapes}: max_abs_err={err_max:.3e}, at most "
+            f"{ratio_max:.3f} of its atol")
+    return errs
+
+
+def time_dist(kernels, records):
+    """ag_gemm and gemm_rs timed on inputs the world-4 `dist` path gave
+    them: QKV (rank order) and gate|up (silu_pair, arrival order) at the
+    prefill (m 128 a rank) and at a scheduler step (m 64), and the down
+    projection in arrival order at the prefill. Bound over all n ranks:
+    ag_gemm 2 n (n m) K N operations (twice that for the pair) at the
+    bf16 peak against n m K + n K N (per weight) read and n (n m) N
+    written; gemm_rs as time_collectives. Library yardsticks (never
+    called by the port): one einsum of the gathered A with b (for the
+    pair, with [w_gate | w_up] joined: the product only, no silu), and
+    one einsum for gemm_rs. Returns {label: row} for each, and ag_gemm's
+    main label."""
+    import torch
+
+    ag_rows, rs_rows = {}, {}
+
+    def pick(name, test):
+        return next(r for r in records[name] if test(r))
+
+    for m, when in ((128, "prefill"), (64, "scheduler step")):
+        for pair in (False, True):
+            rec = pick("ag_gemm", lambda r: r["a"].shape[1] == m
+                       and isinstance(r["b"], tuple) == pair)
+            a, b = rec["a"], rec["b"]
+            kw = {k: rec[k] for k in ("epilogue", "c_order") if k in rec}
+            ws = b if pair else (b,)
+            n, _, K = a.shape
+            N = ws[0].shape[2]
+            full = a.reshape(n * m, K)
+            wcat = torch.cat(ws, dim=2) if pair else b
+            what = "gate|up silu_pair arrival" if pair else "QKV rank"
+            label = (f"{when} {what} a {tuple(a.shape)} b {len(ws)} x "
+                     f"{tuple(ws[0].shape)} bf16")
+            ag_rows[label] = time_collective(
+                f"ag_gemm {label}",
+                lambda a=a, b=b, kw=kw: kernels.ag_gemm(a, b, **kw),
+                lambda a=a, b=b, kw=kw: kernels.ag_gemm_plain(a, b, **kw),
+                lambda full=full, wcat=wcat: torch.einsum("mk,rkn->rmn",
+                                                          full, wcat),
+                2 * n * (n * m) * K * N * len(ws),
+                (n * m * K + len(ws) * n * K * N + n * n * m * N)
+                * a.element_size(), a.dtype, kernel_key="ag_gemm_kernel")
+    rec = pick("gemm_rs", lambda r: r.get("a_order") == "arrival"
+               and r["a"].shape[1] == 512)
+    a, b = rec["a"], rec["b"]
+    n, M, K = a.shape
+    N = b.shape[2]
+    label = (f"prefill down projection, A in arrival order, a {tuple(a.shape)}"
+             f" b {tuple(b.shape)} bf16")
+    rs_rows[label] = time_collective(
+        f"gemm_rs {label}",
+        lambda: kernels.gemm_rs(a, b, a_order="arrival"),
+        lambda: kernels.gemm_rs_plain(a, b, "arrival"),
+        lambda: torch.einsum("rmk,rkn->mn", a, b), 2 * n * M * K * N,
+        (n * (M * K + K * N) + n * (M // n) * N) * a.element_size(), a.dtype,
+        kernel_key="gemm_rs_kernel")
+    main = next(k for k in ag_rows if k.startswith("prefill gate|up"))
+    return ag_rows, rs_rows, main
+
+
 SOURCES = {
+    "ag_gemm": ("triton_dist_tpu_torch/csrc/allgather_gemm.cu",
+                "triton_dist_tpu/kernels/allgather_gemm.py:116"),
     "flash_prefill_local": ("triton_dist_tpu_torch/csrc/flash_prefill.cu",
                             "triton_dist_tpu/kernels/flash_prefill.py:231"),
     "one_shot_all_reduce": ("triton_dist_tpu_torch/csrc/allreduce.cu",
@@ -860,9 +1113,11 @@ def main() -> int:
     log("== 3. kernels against their plain versions")
     fp_err = check_flash_prefill(fp)
     rs_ratio = check_collectives(kernels)
+    ag_ratio = check_ag_gemm(kernels)
 
-    log("== 4. main path: Qwen3-8B, Engine.serve and Scheduler, world 1 "
-        "and world 4 (ar)")
+    log("== 4. main path: Qwen3-8B, Engine.serve and Scheduler, world 1, "
+        "world 4 (ar), world 4 (default modes: dist prefill, ar decode; "
+        "dist scheduler)")
     cfg = ModelConfig.qwen3_8b()
     params = init_params(cfg, device="cuda", seed=0)
     n1, rec1, model1 = run_model(kernels, cfg, params, world=1)
@@ -870,16 +1125,22 @@ def main() -> int:
     params = shard_params(params, 4)
     torch.cuda.empty_cache()
     n4, rec4, model4 = run_model(kernels, cfg, params, world=4)
+    torch.cuda.empty_cache()
+    nd, recd, modeld = run_model(kernels, cfg, params, world=4,
+                                 prefill_mode="dist", sched_mode="dist")
     del params
     torch.cuda.empty_cache()
     check_small_model(world=1)
     check_small_model(world=4)
+    check_small_model(world=4, prefill_mode="dist")
 
     log("== 5. the kernels on the main path's inputs, and timing (bf16)")
     err1, _ = check_recorded_fp(fp, rec1["flash_prefill_local"])
     err4, (busy_rec, busy_inp) = check_recorded_fp(
         fp, rec4["flash_prefill_local"])
+    errd, _ = check_recorded_fp(fp, recd["flash_prefill_local"])
     errs = check_recorded_collectives(kernels, rec4)
+    errs_dist = check_recorded_dist(kernels, recd)
     b, s = busy_inp["q"].shape[:2]
     busy = (f"world-4 recorded scheduler step {busy_rec['forward']} layer "
             f"{busy_rec['layer']} B=4x4 rank rows S={s} T={MAX_LEN}, Hq=8 "
@@ -888,23 +1149,36 @@ def main() -> int:
     fp_rows = time_flash_prefill(fp, [(busy, busy_inp)])
     coll_rows, coll_main = time_collectives(kernels, rec4)
     del rec4
+    ag_rows, rs_dist_rows, ag_main = time_dist(kernels, recd)
+    del recd
+    coll_rows["gemm_rs"].update(rs_dist_rows)
+    errs["gemm_rs"] = max(errs["gemm_rs"], errs_dist["gemm_rs"])
 
-    lines = [entry("flash_prefill_local", n4["flash_prefill_local"],
-                   {"world1": n1["flash_prefill_local"],
-                    "world4": n4["flash_prefill_local"]},
-                   max(err1, err4), fp_rows, busy,
-                   max_abs_err_synthetic=fp_err)]
+    # launches: the three main-path runs, each counted from 0
+    paths = {"world1": n1, "world4_ar": n4, "world4_dist": nd}
+
+    def by_path(name):
+        return {k: v[name] for k, v in paths.items()}
+
+    def total(name):
+        return sum(by_path(name).values())
+
+    lines = [entry("flash_prefill_local", total("flash_prefill_local"),
+                   by_path("flash_prefill_local"), max(err1, err4, errd),
+                   fp_rows, busy, max_abs_err_synthetic=fp_err)]
     for name in ("one_shot_all_reduce", "ring_all_gather", "gemm_rs"):
-        lines.append(entry(name, n4[name], {"world1": n1[name],
-                                            "world4": n4[name]},
-                           errs[name], coll_rows[name], coll_main[name]))
+        lines.append(entry(name, total(name), by_path(name), errs[name],
+                           coll_rows[name], coll_main[name]))
     lines[-1]["atol_ratio_synthetic"] = rs_ratio
+    lines.append(entry("ag_gemm", total("ag_gemm"), by_path("ag_gemm"),
+                       errs_dist["ag_gemm"], ag_rows, ag_main,
+                       atol_ratio_synthetic=ag_ratio))
     missing = set(kernels.KERNELS) - {e["name"] for e in lines}
     assert not missing, f"kernels without a line: {missing}"
     assert all(e["launches"] > 0 for e in lines), "a kernel never launched"
     log("== 6. summary")
     log(f"  wall {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"model": [model1, model4]}))
+    log(json.dumps({"model": [model1, model4, modeld]}))
     print(json.dumps({"kernels": lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

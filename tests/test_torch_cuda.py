@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from triton_dist_tpu_torch.kernels import (
+    ag_gemm,
+    ag_gemm_plain,
     flash_prefill_local,
     flash_prefill_plain,
     gemm_rs,
@@ -107,6 +109,70 @@ def test_gemm_rs_kernel_at_world_one(cuda):
     assert launches()["gemm_rs"] == 1
 
 
+def _ag_gemm_atol(a, bs, want):
+    """Kernel and plain both accumulate in f32 and round once; the f32
+    sums run in another order. bf16: one ulp (2^-7 relative) of the
+    largest output, plus the f32 term; f32: 1e-5 relative to the
+    products (for silu_pair, to gate times up)."""
+    full = a.reshape(-1, a.shape[-1]).float()
+    prods = [torch.matmul(full, w.float()).abs().max().item() for w in bs]
+    scale = max(1.0, prods[0]) * (max(1.0, prods[1]) if len(bs) == 2 else 1)
+    ulp = 2.0 ** -7 * want.float().abs().max().item()
+    return (ulp if a.dtype == torch.bfloat16 else 0.0) + 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ag_gemm_kernel_matches_plain(cuda, n, dtype):
+    """The fused AG+GEMM against its plain version: both C orders, plain
+    and silu_pair, return_gathered (bitwise), m = 1 and a ragged m,
+    N not a multiple of the tile; n = 1 with force_kernel."""
+    rng = np.random.default_rng(10 + n)
+    reset_launches()
+    calls = 0
+    for m, N in ((1, 200), (37, 136), (128, 264)):
+        a = torch.from_numpy(rng.standard_normal((n, m, 128))).to(
+            "cuda", dtype)
+        bs = tuple((torch.from_numpy(rng.standard_normal((n, 128, N)))
+                    * 0.1).to("cuda", dtype) for _ in range(2))
+        for epilogue, b in ((None, bs[0]), ("silu_pair", bs)):
+            for c_order in ("rank", "arrival"):
+                got = ag_gemm(a, b, epilogue=epilogue, c_order=c_order,
+                              force_kernel=True)
+                want = ag_gemm_plain(a, b, epilogue, c_order)
+                calls += 1
+                torch.cuda.synchronize()
+                atol = _ag_gemm_atol(a, bs[:1 + (epilogue is not None)], want)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=0, atol=atol)
+        c, full = ag_gemm(a, bs[0], return_gathered=True, force_kernel=True)
+        calls += 1
+        assert torch.equal(full, ag_gemm_plain(a, bs[0],
+                                               return_gathered=True)[1])
+    assert launches()["ag_gemm"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_gemm_rs_arrival_kernel_matches_plain(cuda, n):
+    """A in ring-arrival order (as ag_gemm leaves the MLP's act): the
+    kernel remaps the source block, within the gemm_rs atol; n = 4 tells
+    a wrong slot that n = 2's self-inverse permutation hides."""
+    rng = np.random.default_rng(20 + n)
+    a = torch.from_numpy(rng.standard_normal((n, 24 * n, 136))).to(
+        "cuda", torch.bfloat16)
+    b = (torch.from_numpy(rng.standard_normal((n, 136, 200))) * 0.05).to(
+        "cuda", torch.bfloat16)
+    got = gemm_rs(a, b, a_order="arrival")
+    want = gemm_rs_plain(a, b, "arrival")
+    torch.cuda.synchronize()
+    part = torch.matmul(a.float(), b.float()).abs().max().item()
+    atol = 2.0 ** -7 * (n * part + want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    assert not torch.equal(want, gemm_rs_plain(a, b))
+
+
 _FAULT = r"""
 import ctypes, sys, torch
 from triton_dist_tpu_torch.kernels import _build
@@ -122,8 +188,36 @@ flags = torch.full((n, lib.gemm_rs_flag_count(M // n, N, 1)), 7,
                    device="cuda", dtype=torch.int32)
 grid = _build.GridInfo()
 err = lib.gemm_rs_launch(a.data_ptr(), b.data_ptr(), heap.data_ptr(),
-                         out.data_ptr(), flags.data_ptr(), n, M, K, N, 1,
+                         out.data_ptr(), flags.data_ptr(), n, M, K, N, 1, 0,
                          grid.ptr(), torch.cuda.current_stream().cuda_stream)
+assert err == 0, err
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(3)
+sys.exit(0)
+"""
+
+# ag_gemm over a flag pool that was not zeroed: no arrival counter can
+# equal the producer count, so the ring's step-1 wait must trap
+_AG_FAULT = r"""
+import sys, torch
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels import allgather_gemm as ag
+lib = _build.load("allgather_gemm", ag._SIGNATURES)
+n, m, K, N = 4, 16, 64, 64
+a = torch.ones((n, m, K), device="cuda", dtype=torch.bfloat16)
+b = torch.ones((n, K, N), device="cuda", dtype=torch.bfloat16)
+ws = torch.empty((n, n * m, K), device="cuda", dtype=torch.bfloat16)
+c = torch.empty((n, n * m, N), device="cuda", dtype=torch.bfloat16)
+flags = torch.full((n, lib.ag_gemm_flag_count(n)), 7, device="cuda",
+                   dtype=torch.int32)
+grid = _build.GridInfo()
+err = lib.ag_gemm_launch(a.data_ptr(), b.data_ptr(), b.data_ptr(),
+                         ws.data_ptr(), c.data_ptr(), flags.data_ptr(), n, m,
+                         K, N, 1, 0, 0, grid.ptr(),
+                         torch.cuda.current_stream().cuda_stream)
 assert err == 0, err
 try:
     torch.cuda.synchronize()
@@ -135,7 +229,9 @@ sys.exit(0)
 
 
 @pytest.mark.cuda
-def test_protocol_fault_traps_instead_of_hanging(cuda, tmp_path):
+@pytest.mark.parametrize("kernel,script", [("gemm_rs", _FAULT),
+                                           ("ag_gemm", _AG_FAULT)])
+def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script):
     """A wait that can never be satisfied (flags left non-zero) ends in
     the bounded spin's printf and __trap(): the launch fails and the
     next synchronisation raises, within the spin bound, instead of
@@ -146,9 +242,9 @@ def test_protocol_fault_traps_instead_of_hanging(cuda, tmp_path):
     import sys
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    proc = subprocess.run([sys.executable, "-c", _FAULT], cwd=repo,
+    proc = subprocess.run([sys.executable, "-c", script], cwd=repo,
                           capture_output=True, text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": repo})
     assert proc.returncode == 3, (proc.returncode, proc.stdout, proc.stderr)
     assert "raised:" in proc.stdout
-    assert "shmem wait timed out: kernel gemm_rs, rank" in proc.stdout
+    assert f"shmem wait timed out: kernel {kernel}, rank" in proc.stdout

@@ -16,6 +16,7 @@ from triton_dist_tpu.layers import norm as jax_norm
 from triton_dist_tpu.layers import rope as jax_rope
 from triton_dist_tpu.layers import tp_attn as jax_tp_attn
 from triton_dist_tpu.layers import tp_mlp as jax_tp_mlp
+from triton_dist_tpu.lang.core import pallas_call_count
 from triton_dist_tpu.runtime import make_mesh
 from triton_dist_tpu_torch.layers import (
     TPAttnParams,
@@ -133,7 +134,7 @@ def test_tp_mlp_ar_world4_matches_jax(m):
         out_specs=P(), check_vma=False))(x, wg, wu, wd))
     got = tp_mlp_fwd(torch.from_numpy(x).expand(N, m, h),
                      TPMLPParams(*(torch.from_numpy(w) for w in (wg, wu, wd))),
-                     VirtualWorld(N, "cpu"))
+                     VirtualWorld(N, "cpu"), mode="ar")
     for r in range(N):
         np.testing.assert_allclose(got[r].numpy(), want, rtol=0, atol=1e-5)
 
@@ -184,10 +185,102 @@ def test_tp_attn_ar_world4_matches_jax():
                      torch.from_numpy(qn), torch.from_numpy(kn)),
         spec, tcos, tsin, rank_pos, b, VirtualWorld(N, "cpu"),
         kv_cache=(kc, vc), kv_len=torch.from_numpy(kv_len).repeat(N),
-        kv_write=KVWrite.at(rank_pos, t))
+        kv_write=KVWrite.at(rank_pos, t), mode="ar")
     for r in range(N):
         np.testing.assert_allclose(got[r].numpy(), np.asarray(want),
                                    rtol=0, atol=2e-5)
+    for mine, theirs in ((kc, wk), (vc, wv)):
+        np.testing.assert_allclose(mine.numpy(),
+                                   rank_rows(np.asarray(theirs)).numpy(),
+                                   rtol=0, atol=1e-5)
+
+
+# ---------- the sequence-sharded modes: dist and xla ----------
+
+
+@pytest.mark.parametrize("mode", ["dist", "xla"])
+def test_tp_mlp_seq_sharded_world4_matches_jax(mode):
+    """x sharded over the ranks by rows; dist: ag_gemm(silu_pair,
+    arrival) -> gemm_rs(arrival); xla: all-gather, dots, psum_scatter.
+    Against the JAX block of the same mode (its kernels in interpret
+    mode for dist), 1e-5."""
+    rng = np.random.default_rng(6)
+    m, h, i_l = 16, 32, 16
+    x = _rand(rng, m, h)
+    wg, wu = _rand(rng, N, h, i_l, scale=0.2), _rand(rng, N, h, i_l, scale=0.2)
+    wd = _rand(rng, N, i_l, h, scale=0.2)
+
+    def per_rank(x, wg, wu, wd):
+        return jax_tp_mlp.MODES[mode](
+            x, jax_tp_mlp.TPMLPParams(wg[0], wu[0], wd[0]), axis="tp")
+
+    before = pallas_call_count()
+    want = np.asarray(jax.jit(jax.shard_map(
+        per_rank, mesh=_mesh4(), in_specs=(P("tp"),) * 4,
+        out_specs=P("tp"), check_vma=False))(x, wg, wu, wd))
+    assert (pallas_call_count() > before) == (mode == "dist")
+    got = tp_mlp_fwd(torch.from_numpy(x).reshape(N, m // N, h),
+                     TPMLPParams(*(torch.from_numpy(w) for w in (wg, wu, wd))),
+                     VirtualWorld(N, "cpu"), mode=mode)
+    assert got.shape == (N, m // N, h)
+    np.testing.assert_allclose(got.numpy().reshape(m, h), want, rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["dist", "xla"])
+def test_tp_attn_seq_sharded_world4_matches_jax(mode):
+    """x sharded by rows; dist: ag_gemm QKV (rank order) -> attention
+    over every rank's heads with a cache -> gemm_rs O; xla: the same on
+    torch ops. Output and cache (JAX layout) against the JAX block of
+    the same mode, 2e-5 (cache 1e-5), as the `ar` test."""
+    rng = np.random.default_rng(7)
+    b, s, t, h, d = 2, 6, 16, 64, 16
+    hq_l, hkv_l = 2, 1
+    x = _rand(rng, b * s, h)
+    w_qkv = _rand(rng, N, h, (hq_l + 2 * hkv_l) * d, scale=0.2)
+    w_o = _rand(rng, N, hq_l * d, h, scale=0.2)
+    qn, kn = 1 + _rand(rng, d, scale=0.1), 1 + _rand(rng, d, scale=0.1)
+    k0 = _rand(rng, b, t, N * hkv_l, d)
+    v0 = _rand(rng, b, t, N * hkv_l, d)
+    start = np.asarray([0, 5])
+    pos = start[:, None] + np.arange(s)[None]
+    kv_len = start + s
+    cos, sin = jax_rope.rope_table(d, t, 1e6)
+    spec = TPAttnSpec(hq_l, hkv_l, d)
+
+    def per_rank(x, wq, wo, k, v):
+        return jax_tp_attn.MODES[mode](
+            x, jax_tp_attn.TPAttnParams(wq[0], wo[0], jnp.asarray(qn),
+                                        jnp.asarray(kn)),
+            jax_tp_attn.TPAttnSpec(*spec), cos, sin, jnp.asarray(pos), b,
+            axis="tp", kv_cache=(k, v), kv_len=jnp.asarray(kv_len))
+
+    heads = P(None, None, "tp")
+    before = pallas_call_count()
+    want, (wk, wv) = jax.jit(jax.shard_map(
+        per_rank, mesh=_mesh4(), in_specs=(P("tp"), P("tp"), P("tp"), heads,
+                                           heads),
+        out_specs=(P("tp"), (heads, heads)), check_vma=False))(x, w_qkv, w_o,
+                                                               k0, v0)
+    if mode == "dist":
+        assert pallas_call_count() > before, "the JAX kernels did not run"
+
+    def rank_rows(c):  # (B, T, N*hkv_l, D) -> (N*B, T, hkv_l, D)
+        c = torch.from_numpy(np.array(c)).reshape(b, t, N, hkv_l, d)
+        return c.permute(2, 0, 1, 3, 4).reshape(N * b, t, hkv_l, d)
+
+    kc, vc = rank_rows(k0), rank_rows(v0)
+    rank_pos = torch.from_numpy(pos).repeat(N, 1)
+    tcos, tsin = rope_table(d, t, 1e6)
+    got = tp_attn_fwd(
+        torch.from_numpy(x).reshape(N, b * s // N, h),
+        TPAttnParams(torch.from_numpy(w_qkv), torch.from_numpy(w_o),
+                     torch.from_numpy(qn), torch.from_numpy(kn)),
+        spec, tcos, tsin, rank_pos, b, VirtualWorld(N, "cpu"),
+        kv_cache=(kc, vc), kv_len=torch.from_numpy(kv_len).repeat(N),
+        kv_write=KVWrite.at(rank_pos, t), mode=mode)
+    np.testing.assert_allclose(got.numpy().reshape(b * s, h),
+                               np.asarray(want), rtol=0, atol=2e-5)
     for mine, theirs in ((kc, wk), (vc, wv)):
         np.testing.assert_allclose(mine.numpy(),
                                    rank_rows(np.asarray(theirs)).numpy(),

@@ -145,15 +145,20 @@ def test_serve_sampled_is_seeded(engines, prompts):
 
 
 def test_world_above_one_names_missing_kernels():
-    """World > 1 runs the `ar` mode; the sequence-sharded `dist` (the
-    JAX default prefill mode) and `xla` modes name what they still
-    need."""
-    with pytest.raises(NotImplementedError, match="ag_gemm"):
-        Engine(ModelConfig.tiny(**CFG), device="cpu", world=2,
-               prefill_mode="dist")
-    with pytest.raises(NotImplementedError, match="ag_gemm"):
-        Engine(ModelConfig.tiny(**CFG), device="cpu", world=2,
-               prefill_mode="ar", decode_mode="xla")
+    """What world > 1 refuses, now that every mode runs there: a
+    sequence-sharded forward whose B*S rows n does not divide, a `dist`
+    serve step whose slots*chunk rows n does not divide, an unknown mode,
+    and a world that does not divide the heads."""
+    cfg = ModelConfig.tiny(**CFG)
+    eng = Engine(cfg, device="cpu", world=2, max_len=64)
+    assert (eng.prefill_mode, eng.decode_mode) == ("dist", "ar")
+    with pytest.raises(ValueError, match="divide"):
+        eng.prefill(np.zeros((1, 3), np.int64))
+    with pytest.raises(ValueError, match="divide"):
+        Engine(cfg, device="cpu", world=2, max_len=64,
+               decode_mode="dist").make_serve_step(3, 3, 8, 8)
+    with pytest.raises(ValueError, match="mode"):
+        Engine(cfg, device="cpu", world=2, prefill_mode="ring")
     with pytest.raises(ValueError, match="divide"):
         Engine(ModelConfig.tiny(**CFG), device="cpu", world=4,
                prefill_mode="ar")
@@ -272,3 +277,78 @@ def test_shard_params_matches_jax_load_hf_sharding(tmp_path):
     _assert_params_equal(got, p4)
     with pytest.raises(ValueError, match="already"):
         shard_params(got, 2)
+
+
+# ---------- world 4 with the JAX defaults: dist prefill, ar decode ----------
+
+
+@pytest.fixture(scope="module")
+def engines4_default():
+    """Both Engines with their default modes on the same weights."""
+    mesh = make_mesh(mesh_shape=(4,), axis_names=("tp",))
+    jeng = JaxEngine(JaxModelConfig.tiny(**CFG4), mesh, max_len=64,
+                     donate_cache=False)
+    np_params = jax.tree.map(np.asarray, jeng.params)
+    eng = Engine(ModelConfig.tiny(**CFG4), device="cpu", max_len=64, world=4,
+                 params=params_from_jax(np_params, "cpu"))
+    assert (jeng.prefill_mode, jeng.decode_mode) == ("dist", "ar")
+    assert (eng.prefill_mode, eng.decode_mode) == ("dist", "ar")
+    return jeng, eng, np_params
+
+
+def test_world4_default_modes_prefill_and_decode_match_jax(engines4_default):
+    """A `dist` prefill of 8 x 40 = 320 rows (80 a rank: ag_gemm on QKV
+    and gate|up, gemm_rs on O and down, the JAX kernels in interpret
+    mode), then three `ar` decode steps, each step's logits against the
+    JAX Engine's; the caches agree in the JAX layout."""
+    from triton_dist_tpu.lang.core import pallas_call_count
+
+    jeng, eng, _ = engines4_default
+    ids = np.random.default_rng(10).integers(0, 256, (8, 40)).astype(np.int32)
+    before = pallas_call_count()
+    jl, jcache = jeng.prefill(jnp.asarray(ids))
+    assert pallas_call_count() > before, "the JAX kernels did not run"
+    tl, tcache = eng.prefill(ids)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=LOGIT_ATOL)
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    for _ in range(3):
+        jl, jcache = jeng.decode_step(jnp.asarray(tok), jcache)
+        tl, tcache = eng.decode_step(tok, tcache)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                                   atol=LOGIT_ATOL)
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    k, v = tcache.jax_layout()
+    live = ids.shape[1] + 3
+    np.testing.assert_allclose(k[:, :, :live].numpy(),
+                               np.asarray(jcache.k)[:, :, :live], atol=1e-5)
+    np.testing.assert_allclose(v[:, :, :live].numpy(),
+                               np.asarray(jcache.v)[:, :, :live], atol=1e-5)
+
+
+def test_world4_default_modes_serve_greedy_tokens_match_jax(
+        engines4_default):
+    jeng, eng, _ = engines4_default
+    ids = np.random.default_rng(11).integers(0, 256, (2, 8)).astype(np.int32)
+    want = np.asarray(jeng.serve(jnp.asarray(ids), 4))
+    assert eng.serve(ids, 4).tolist() == want.tolist()
+
+
+def test_world4_xla_prefill_matches_jax(engines4_default):
+    """The `xla` mode (torch ops where the JAX package leaves the
+    collectives and dots to XLA) against the JAX `xla` prefill, and
+    against the `dist` prefill of the same weights."""
+    jeng, eng, p = engines4_default
+    mesh = make_mesh(mesh_shape=(4,), axis_names=("tp",))
+    jx = JaxEngine(JaxModelConfig.tiny(**CFG4), mesh, prefill_mode="xla",
+                   params=jeng.params, max_len=64, donate_cache=False)
+    ex = Engine(ModelConfig.tiny(**CFG4), device="cpu", max_len=64, world=4,
+                prefill_mode="xla", params=eng.params)
+    ids = np.random.default_rng(12).integers(0, 256, (4, 10)).astype(np.int32)
+    jl, _ = jx.prefill(jnp.asarray(ids))
+    tl, _ = ex.prefill(ids)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=LOGIT_ATOL)
+    dl, _ = eng.prefill(ids)
+    np.testing.assert_allclose(tl.numpy(), dl.numpy(), rtol=0,
+                               atol=LOGIT_ATOL)

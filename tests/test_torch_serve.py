@@ -169,3 +169,33 @@ def test_pool_allocator(engines):
     pool.release(0)
     assert pool.free_pages() == 3 and pool.table[0].tolist() == [0] * 8
     pool.check()
+
+
+def test_world4_dist_scheduler_matches_sequential_and_jax():
+    """decode_mode="dist": every serve step is a sequence-sharded forward
+    of slots*chunk = 8 rows, 2 a rank (ag_gemm on QKV and gate|up,
+    gemm_rs on O and down). Two requests through the port's Scheduler
+    give its sequential serve tokens and the JAX Scheduler's on its
+    4-device engine in the same mode (its kernels in interpret mode)."""
+    mesh = make_mesh(mesh_shape=(4,), axis_names=("tp",))
+    jeng = JaxEngine(JaxModelConfig.tiny(max_positions=32), mesh,
+                     decode_mode="dist", max_len=32, donate_cache=False)
+    eng = Engine(ModelConfig.tiny(max_positions=32), device="cpu",
+                 max_len=32, world=4, decode_mode="dist",
+                 params=params_from_jax(jax.tree.map(np.asarray,
+                                                     jeng.params),
+                                        device="cpu"))
+    rng = np.random.default_rng(3)
+    ps = [list(map(int, rng.integers(0, 256, n))) for n in (6, 3)]
+    geo = dict(slots=2, chunk=4, page=8)
+    sch = Scheduler(eng, **geo)
+    reqs = [sch.submit(p, max_new_tokens=2) for p in ps]
+    sch.run()
+    got = [r.out_tokens for r in reqs]
+    assert got == [eng.serve(np.asarray([p]), 2, **geo)[0].tolist()
+                   for p in ps]
+    jsch = JaxScheduler(jeng, **geo)
+    jreqs = [jsch.submit(p, max_new_tokens=2) for p in ps]
+    jsch.run()
+    assert got == [r.out_tokens for r in jreqs]
+    sch.pool.check()

@@ -9,8 +9,9 @@ module has an obvious counterpart:
   models/   ModelConfig, KVCache, the dense Qwen3 forward, Engine
   layers/   rms_norm, rope, GQA attention, the TP attention/MLP blocks
   kernels/  hand-written CUDA kernels, their wrappers and plain versions
-            (flash prefill; one-shot AllReduce, ring AllGather and
-            GEMM+ReduceScatter over the virtual world; gemm_ar over them)
+            (flash prefill; one-shot AllReduce, ring AllGather,
+            GEMM+ReduceScatter and the fused AllGather+GEMM over the
+            virtual world; gemm_ar over them)
   csrc/     the .cu sources and shared headers (shmem.cuh: put, signal,
             wait, barrier on the virtual heap), built with nvcc at first
             use
@@ -18,8 +19,8 @@ module has an obvious counterpart:
   tools/    measurement scripts that run on a CUDA card
 
 Scope: one card; tensor parallelism at world n runs as a virtual world
-of n ranks on it, in the JAX package's "ar" mode (at world 1 every JAX
-mode is the same computation, so there is no planner).
+of n ranks on it, in the JAX package's "dist", "xla" and "ar" modes.
+There is no planner: the caller's mode string is the plan.
 The package never imports jax or triton_dist_tpu; the tests import both
 and hold this package against the JAX one on the same numpy inputs.
 """

@@ -6,7 +6,11 @@
 // shared ring `_rs_ring`, and, at n = 1, `_local_mm_kernel` (the same
 // kernel with one rank). Same function: a (n, M, K) and b (n, K, N)
 // rank-stacked; rank c keeps out[c] = sum over r of
-// (a[r] @ b[r])[c*m : (c+1)*m], m = M / n.
+// (a[r] @ b[r])[c*m : (c+1)*m], m = M / n. With a_order "arrival", a[r]
+// holds its row blocks in ag_gemm's ring-arrival order (block s = chunk
+// (r - s) mod n, allgather_gemm.cu), and the producer reads chunk c from
+// block (r - c) mod n: the JAX kernel's `_src_slot` remap, an index
+// change and no copy.
 //
 // Design: producer GEMM -> tile counter -> consumer reduce, the form of
 // the reference's GEMM+RS (SURVEY.md). Each rank computes its partial
@@ -217,7 +221,7 @@ template <class Body>
 __global__ void __launch_bounds__(Body::kThreads, 2)
 gemm_rs_kernel(const typename Body::S* a, const typename Body::S* b,
                typename Body::S* heap, typename Body::S* out, int* flags,
-               int M, int K, int N) {
+               int M, int K, int N, int arrival) {
   typedef typename Body::S S;
   constexpr int BM = Body::BM, BN = Body::BN;
   constexpr int kPer = 16 / sizeof(S);  // elements of a 16-byte word
@@ -232,7 +236,8 @@ gemm_rs_kernel(const typename Body::S* a, const typename Body::S* b,
   // the owner's partition, one counter add per tile
   for (int t = blockIdx.x; t < n * per_chunk; t += gridDim.x) {
     const int c = t / per_chunk, i = (t % per_chunk) / tn, j = t % tn;
-    Body::tile(a_me + (size_t(c) * m + size_t(i) * BM) * K, min(BM, m - i * BM),
+    const int src = arrival ? (me - c + n) % n : c;  // chunk c's row block
+    Body::tile(a_me + (size_t(src) * m + size_t(i) * BM) * K, min(BM, m - i * BM),
                b_me + size_t(j) * BN, min(BN, N - j * BN), K, N,
                heap + ((size_t(c) * n + me) * m + size_t(i) * BM) * N +
                    size_t(j) * BN,
@@ -275,14 +280,14 @@ int tiles_per_chunk(int m, int N) {
 
 template <class Body>
 cudaError_t launch(const void* a, const void* b, void* heap, void* out,
-                   int* flags, int n, int M, int K, int N, int* info,
-                   cudaStream_t st) {
+                   int* flags, int n, int M, int K, int N, int arrival,
+                   int* info, cudaStream_t st) {
   typedef typename Body::S S;
   return shmem::launch_world(
       gemm_rs_kernel<Body>, n, n * tiles_per_chunk<Body>(M / n, N),
       Body::kThreads, Body::kSmem, st, info, static_cast<const S*>(a),
       static_cast<const S*>(b), static_cast<S*>(heap), static_cast<S*>(out),
-      flags, M, K, N);
+      flags, M, K, N, arrival);
 }
 
 }  // namespace
@@ -296,10 +301,12 @@ extern "C" int gemm_rs_flag_count(int m, int N, int dtype) {
 // a (n, M, K), b (n, K, N), heap (n, n, M/n, N), out (n, M/n, N), all of
 // one dtype; flags (n, gemm_rs_flag_count) zeroed. M % n == 0; K and N
 // multiples of 16 bytes' worth of elements. dtype: 0 = float32,
-// 1 = bfloat16. info: 3 ints (see launch_world). Returns a cudaError_t.
+// 1 = bfloat16. arrival: a's row blocks in ring-arrival order. info: 3
+// ints (see launch_world). Returns a cudaError_t.
 extern "C" int gemm_rs_launch(const void* a, const void* b, void* heap,
                               void* out, void* flags, int n, int M, int K,
-                              int N, int dtype, void* info, void* stream) {
+                              int N, int dtype, int arrival, void* info,
+                              void* stream) {
   const int per = dtype == 1 ? 8 : 4;
   if (n < 1 || M < n || M % n || K < 1 || N < 1 || K % per || N % per)
     return int(cudaErrorInvalidValue);
@@ -307,9 +314,11 @@ extern "C" int gemm_rs_launch(const void* a, const void* b, void* heap,
   int* fl = static_cast<int*>(flags);
   int* inf = static_cast<int*>(info);
   if (dtype == 0)
-    return int(launch<F32Body>(a, b, heap, out, fl, n, M, K, N, inf, st));
+    return int(launch<F32Body>(a, b, heap, out, fl, n, M, K, N, arrival,
+                               inf, st));
   if (dtype == 1)
-    return int(launch<Bf16Body>(a, b, heap, out, fl, n, M, K, N, inf, st));
+    return int(launch<Bf16Body>(a, b, heap, out, fl, n, M, K, N, arrival,
+                                inf, st));
   return int(cudaErrorInvalidValue);
 }
 

@@ -14,6 +14,12 @@ from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
     ring_all_gather,
     ring_all_gather_plain,
 )
+from triton_dist_tpu_torch.kernels.allgather_gemm import (  # noqa: F401
+    ag_gemm,
+    ag_gemm_plain,
+    arrival_to_rank_order,
+    silu_mul,
+)
 from triton_dist_tpu_torch.kernels.allreduce import (  # noqa: F401
     one_shot_all_reduce,
     one_shot_all_reduce_plain,
@@ -36,4 +42,5 @@ SOURCES = {
     "one_shot_all_reduce": "allreduce",
     "ring_all_gather": "allgather",
     "gemm_rs": "gemm_reduce_scatter",
+    "ag_gemm": "allgather_gemm",
 }

@@ -6,7 +6,11 @@ gemm_reduce_scatter (`gemm_rs`: the Pallas kernels `_gemm_rs_kernel`,
 Rank-stacked: a (n, M, K_loc), b (n, K_loc, N) hold every rank's operands
 of the virtual world (runtime/symm_mem.py); the result (n, M/n, N) holds
 rank c's reduced chunk, sum over r of (a[r] @ b[r])[c*M/n : (c+1)*M/n].
-Two implementations of one contract:
+With a_order="arrival", a[r]'s row blocks come in ag_gemm's ring-arrival
+order (block s = chunk (r - s) mod n, `arrival_to_rank_order`), as the
+`dist` MLP's gate|up product leaves them; the kernel reads each chunk
+from its arrival block, the JAX `_src_slot` remap. Two implementations
+of one contract:
 
   gemm_rs — the hand-written CUDA kernel (csrc/gemm_reduce_scatter.cu),
       which computes the products inside the kernel. Launches on a CUDA
@@ -21,8 +25,8 @@ rounding (1e-5 at the tests' sizes), not bitwise. At world 1 without
 `force_kernel` the product is a plain local matmul, as the JAX function
 leaves it to XLA; with `force_kernel` the kernel runs with n = 1. The
 TPU's VMEM-budget and interpret-mode fallbacks do not carry over: on the
-card the kernel always runs. `a_order="arrival"`, quantized wire formats
-and an `out_dtype` other than the input's are not ported yet and raise.
+card the kernel always runs. Quantized wire formats and an `out_dtype`
+other than the input's are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -32,22 +36,21 @@ import ctypes
 import torch
 
 from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels.allgather_gemm import arrival_to_rank_order
 from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "gemm_rs_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p]),
     "gemm_rs_flag_count": (ctypes.c_int, [ctypes.c_int] * 3),
     "gemm_rs_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
 
 def _check(a, b, out_dtype, a_order, wire_format):
-    if a_order != "rank":
-        raise NotImplementedError(
-            f"a_order={a_order!r}: A in ag_gemm's ring-arrival order comes "
-            "with the dist slice, ag_gemm (_ag_gemm_kernel)")
+    if a_order not in ("rank", "arrival"):
+        raise ValueError(f"a_order={a_order!r}: 'rank' or 'arrival'")
     if wire_format is not None:
         raise NotImplementedError(
             f"wire_format={wire_format!r}: quantized wire images come with "
@@ -71,15 +74,26 @@ def local_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a, b)
 
 
-def gemm_rs_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Rounded f32 partials folded over ranks in order, one rounding."""
-    n, M, _ = a.shape
-    part = torch.matmul(a.float(), b.float()).to(a.dtype)
-    part = part.reshape(n, n, M // n, b.shape[2])  # [rank r][chunk c]
+def reduce_scatter_plain(partial: torch.Tensor) -> torch.Tensor:
+    """Rank-stacked partial sums (n, n*m, ...) -> (n, m, ...): rank c
+    keeps the sum over ranks r of partial[r]'s row block c, folded in f32
+    in rank order and rounded once (the JAX `lax.psum_scatter` of the
+    `xla` mode, and gemm_rs's fold of its slots)."""
+    n = partial.shape[0]
+    part = partial.reshape(n, n, partial.shape[1] // n, *partial.shape[2:])
     acc = part[0].float()
     for r in range(1, n):
         acc = acc + part[r].float()
-    return acc.to(a.dtype)
+    return acc.to(partial.dtype)
+
+
+def gemm_rs_plain(a: torch.Tensor, b: torch.Tensor,
+                  a_order: str = "rank") -> torch.Tensor:
+    """Rounded f32 partials folded over ranks in order, one rounding.
+    An arrival-order a is first put back in rank order."""
+    if a_order == "arrival":
+        a = arrival_to_rank_order(a)
+    return reduce_scatter_plain(torch.matmul(a.float(), b.float()).to(a.dtype))
 
 
 @_build.counted("gemm_rs")
@@ -94,11 +108,12 @@ def gemm_rs(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
     if a.shape[0] == 1 and not force_kernel:
         return local_product(a, b)
     if a.device.type == "cpu":
-        return gemm_rs_plain(a, b)
-    return _launch(a, b)
+        return gemm_rs_plain(a, b, a_order)
+    return _launch(a, b, a_order == "arrival")
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _launch(a: torch.Tensor, b: torch.Tensor,
+            arrival: bool = False) -> torch.Tensor:
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"the gemm_rs kernel needs CUDA tensors on one "
                          f"device, got {a.device} and {b.device}")
@@ -128,7 +143,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(a.device):
         err = lib.gemm_rs_launch(
             a.data_ptr(), b.data_ptr(), heap.data_ptr(), out.data_ptr(),
-            flags.data_ptr(), n, M, K, N, code, grid.ptr(),
+            flags.data_ptr(), n, M, K, N, code, int(arrival), grid.ptr(),
             torch.cuda.current_stream().cuda_stream)
     _build.check("gemm_rs", err, lib.gemm_rs_error_string, grid)
     _build.count_launch("gemm_rs")

@@ -1,5 +1,6 @@
 """Layers of the dense model: norms, rope, GQA attention, and the
-attention and MLP blocks at world 1."""
+tensor-parallel attention and MLP blocks in the `ar`, `dist` and `xla`
+modes."""
 
 from triton_dist_tpu_torch.layers.attention import gqa_attention  # noqa: F401
 from triton_dist_tpu_torch.layers.norm import rms_norm  # noqa: F401

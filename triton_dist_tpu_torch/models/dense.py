@@ -1,5 +1,6 @@
-"""Dense Qwen3 model — port of triton_dist_tpu.models.dense, the `ar`
-mode over the virtual world of n ranks (runtime/symm_mem.py).
+"""Dense Qwen3 model — port of triton_dist_tpu.models.dense over the
+virtual world of n ranks (runtime/symm_mem.py), in the JAX package's
+three modes.
 
 Parameters keep the JAX package's layout (`DenseLLMParams`, dense.py:
 20-24) with its rank dim n, and `(in, out)` weights so `x @ W` needs no
@@ -10,8 +11,14 @@ transpose:
   w_gate / w_up (L, n, H, I/n) · w_down (L, n, I/n, H)
   final_ln (H,) · lm_head (n, H, V/n)
 
-`forward` keeps the residual stream per rank, x (n, M, H), as shard_map
-does (the all-reduces keep the replicas bitwise equal); it is a Python
+`forward` keeps the residual stream per rank, as shard_map does: in
+the `ar` mode every rank holds all M = B*S rows, x (n, M, H) (the
+all-reduces keep the replicas bitwise equal); in the sequence-sharded
+`dist` and `xla` modes rank r holds rows [r*M/n, (r+1)*M/n), x (n, M/n,
+H), split on entry by `shard_tokens` and regathered before the final
+norm by `gather_tokens`, the port's copy of plan/execute.py:40-58.
+There is no planner: the mode string is the plan. At world 1 the three
+modes are one computation, and `forward` runs it as `ar`. It is a Python
 loop over the layers where the JAX package runs a `lax.scan`, and it
 writes each step's K/V into the cache in place. The logits are each
 rank's vocab slice, gathered along the vocab with a torch op (the JAX
@@ -35,9 +42,10 @@ from triton_dist_tpu_torch.layers.tp_attn import (
     tp_attn_fwd,
 )
 from triton_dist_tpu_torch.layers.tp_mlp import TPMLPParams, tp_mlp_fwd
+from triton_dist_tpu_torch.kernels.allgather import ring_all_gather_plain
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.kv_cache import KVCache
-from triton_dist_tpu_torch.runtime.device import resolve_device
+from triton_dist_tpu_torch.runtime.device import MODES, resolve_device
 from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
 
@@ -187,9 +195,33 @@ def shard_params(p: DenseLLMParams, n: int) -> DenseLLMParams:
     return p._replace(layers=layers, lm_head=cols(p.lm_head))
 
 
+SEQ_SHARDED_MODES = ("dist", "xla")
+
+
+def shard_tokens(x: torch.Tensor, n: int, mode: str) -> torch.Tensor:
+    """x (M, H) -> every rank's rows: (n, M/n, H) in a sequence-sharded
+    mode, rank r holding rows [r*M/n, (r+1)*M/n) (a view), else the
+    replicas (n, M, H). The JAX function slices with XLA ops, so a torch
+    reshape does it here."""
+    m = x.shape[0]
+    if mode not in SEQ_SHARDED_MODES:
+        return x.expand(n, *x.shape)
+    if m % n:
+        raise ValueError(f"B*S={m} must divide by tp={n} in {mode} mode")
+    return x.reshape(n, m // n, *x.shape[1:])
+
+
+def gather_tokens(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """Every rank's copy of all M rows before the head: the shards
+    gathered in a sequence-sharded mode (the JAX `lax.all_gather` is
+    XLA's, so the torch op of the ring all-gather's plain version does
+    it here), the replicas unchanged else."""
+    return ring_all_gather_plain(x) if mode in SEQ_SHARDED_MODES else x
+
+
 def _layer_fwd(cfg: ModelConfig, spec: TPAttnSpec, world: VirtualWorld,
-               cos, sin, positions, kv_len, write: KVWrite, batch: int, x,
-               lp: DenseLayerParams, kv):
+               mode: str, cos, sin, positions, kv_len, write: KVWrite,
+               batch: int, x, lp: DenseLayerParams, kv):
     """One transformer block: x + attn(norm(x)), then + mlp(norm(x))."""
     attn_params = TPAttnParams(
         w_qkv=lp.w_qkv, w_o=lp.w_o,
@@ -197,22 +229,27 @@ def _layer_fwd(cfg: ModelConfig, spec: TPAttnSpec, world: VirtualWorld,
         k_norm=lp.k_norm if cfg.use_qk_norm else None)
     h = rms_norm(x, lp.input_ln, cfg.rms_eps)
     x = x + tp_attn_fwd(h, attn_params, spec, cos, sin, positions, batch,
-                        world, kv_cache=kv, kv_len=kv_len, kv_write=write)
+                        world, kv_cache=kv, kv_len=kv_len, kv_write=write,
+                        mode=mode)
     h = rms_norm(x, lp.post_attn_ln, cfg.rms_eps)
     return x + tp_mlp_fwd(h, TPMLPParams(lp.w_gate, lp.w_up, lp.w_down),
-                          world)
+                          world, mode=mode)
 
 
 def forward(cfg: ModelConfig, params: DenseLLMParams, tokens: torch.Tensor,
-            cache: KVCache, return_full_logits: bool = False):
+            cache: KVCache, mode: str = "dist",
+            return_full_logits: bool = False):
     """tokens (B, S) -> (logits, cache): logits (B, V) f32 for the last
     position, or (B, S, V) with return_full_logits. The world is the
-    params' rank dim n; the cache holds n * B rank rows (KVCache). The
-    tokens sit at positions cache.length + [0, S); their K/V rows are
-    written into the cache in place and the returned cache has length
-    + S."""
+    params' rank dim n; mode is "dist" (the JAX default), "xla" or "ar";
+    a sequence-sharded mode needs n to divide B*S. The cache holds n * B
+    rank rows (KVCache). The tokens sit at positions cache.length + [0,
+    S); their K/V rows are written into the cache in place and the
+    returned cache has length + S."""
     if cache is None:
         raise ValueError("forward requires a KVCache (create one per serve)")
+    if mode not in MODES:
+        raise ValueError(f"mode={mode!r}: one of {MODES}")
     b, s = tokens.shape
     dev = tokens.device
     n = params.world_size
@@ -228,14 +265,17 @@ def forward(cfg: ModelConfig, params: DenseLLMParams, tokens: torch.Tensor,
     rank_pos, rank_len = positions.repeat(n, 1), kv_len.repeat(n)
     write = KVWrite.at(rank_pos, cache.k.shape[2])
 
+    if n == 1:
+        mode = "ar"  # one computation at world 1
     x = params.embed[tokens].reshape(b * s, cfg.hidden_size)
-    x = x.expand(n, b * s, cfg.hidden_size)  # one replica a rank
+    x = shard_tokens(x, n, mode)
     lay = params.layers
     for i in range(cfg.num_layers):
         lp = DenseLayerParams(*(w[i] for w in lay))
-        x = _layer_fwd(cfg, spec, world, cos, sin, rank_pos, rank_len, write,
-                       b, x, lp, (cache.k[i], cache.v[i]))
+        x = _layer_fwd(cfg, spec, world, mode, cos, sin, rank_pos, rank_len,
+                       write, b, x, lp, (cache.k[i], cache.v[i]))
 
+    x = gather_tokens(x, mode)  # (n, M, H)
     x = rms_norm(x, params.final_ln, cfg.rms_eps).reshape(n, b, s, -1)
     if not return_full_logits:
         x = x[:, :, -1:]

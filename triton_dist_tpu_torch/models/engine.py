@@ -4,9 +4,12 @@ Prefill, single-token decode and a serve loop over `dense.forward`, plus
 the fixed-geometry serve step the continuous-batching Scheduler replays,
 at world n on the virtual world of one card (runtime/symm_mem.py): the
 weights carry a rank dim, the cache and the serve pool each rank's kv
-heads. At world 1 every JAX mode is the same computation; at world > 1
-the `ar` mode runs (gemm_ar: one-shot all-reduce, or gemm_rs + ring
-all-gather), and `dist` / `xla` raise until their kernels are ported.
+heads. As in the JAX Engine, `prefill` runs `prefill_mode` (default
+"dist": the sequence-sharded stream, ag_gemm on QKV and gate|up, gemm_rs
+on O and down) and `decode_step`, `generate` and the serve step run
+`decode_mode` (default "ar": gemm_ar, a one-shot all-reduce or gemm_rs +
+ring all-gather); "xla" runs the sequence-sharded stream on torch ops.
+At world 1 every mode is the same computation.
 PyTorch runs eagerly, so there is nothing to compile: `generate` is a
 Python loop of decode steps (a CUDA graph of the step is later work) and
 `make_serve_step` returns a plain function.
@@ -28,6 +31,7 @@ import torch
 
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.dense import (
+    SEQ_SHARDED_MODES,
     DenseLLMParams,
     forward,
     init_params,
@@ -50,10 +54,10 @@ def sample_token(logits: torch.Tensor,
     return torch.argmax(logits.float() / temperature - torch.log(e), dim=-1)
 
 
-def _serve_step_math(cfg: ModelConfig, slots: int, chunk: int, page: int,
-                     t_pool: int, params: DenseLLMParams, tokens, pool_k,
-                     pool_v, table, lengths, n_valid, temps: np.ndarray,
-                     seeds: np.ndarray):
+def _serve_step_math(cfg: ModelConfig, mode: str, slots: int, chunk: int,
+                     page: int, t_pool: int, params: DenseLLMParams, tokens,
+                     pool_k, pool_v, table, lengths, n_valid,
+                     temps: np.ndarray, seeds: np.ndarray):
     """One fixed-geometry (slots, chunk) forward over the paged pool's
     dense view, per-slot sampling at column n_valid - 1, and the KV
     scatter back into the pool with padding columns routed to the null
@@ -64,7 +68,7 @@ def _serve_step_math(cfg: ModelConfig, slots: int, chunk: int, page: int,
     dev = tokens.device
     n = params.world_size
     cache = KVCache.dense_view(pool_k, pool_v, table, lengths, n)
-    logits, new_cache = forward(cfg, params, tokens, cache,
+    logits, new_cache = forward(cfg, params, tokens, cache, mode=mode,
                                 return_full_logits=True)  # (K, C, V)
     bidx = torch.arange(slots, device=dev)
     last = logits[bidx, (n_valid - 1).clamp(min=0)]  # (K, V)
@@ -99,14 +103,16 @@ class Engine:
     device: "cuda" by default; "cpu" runs every kernel's plain version.
     world: tensor-parallel size n, run as a virtual world of n ranks on
     the one device. prefill_mode / decode_mode: the JAX package's mode
-    strings (same defaults); at world > 1 only "ar" is ported."""
+    strings, "dist", "xla" or "ar", with its defaults."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  params: Optional[DenseLLMParams] = None, seed: int = 0,
                  max_len: Optional[int] = None, world: int = 1,
                  prefill_mode: str = "dist", decode_mode: str = "ar"):
-        check_modes(world, prefill_mode, decode_mode)
+        check_modes(prefill_mode, decode_mode)
         self.cfg = cfg
+        self.prefill_mode = prefill_mode
+        self.decode_mode = decode_mode
         self.device = resolve_device(device)
         self.world = VirtualWorld(world, self.device)
         self.max_len = max_len or cfg.max_positions
@@ -138,12 +144,13 @@ class Engine:
         ids = self._ids(input_ids)
         if cache is None:
             cache = self.new_cache(ids.shape[0])
-        return forward(self.cfg, self.params, ids, cache)
+        return forward(self.cfg, self.params, ids, cache,
+                       mode=self.prefill_mode)
 
     def decode_step(self, tokens, cache: KVCache):
         """tokens (B,) -> (logits (B, V) f32, cache)."""
         return forward(self.cfg, self.params, self._ids(tokens)[:, None],
-                       cache)
+                       cache, mode=self.decode_mode)
 
     def generate(self, tokens, cache: KVCache, steps: int,
                  temperature: float = 0.0,
@@ -204,17 +211,31 @@ class Engine:
         whatever mix of prefill chunks and decode tokens it carries; a
         slot's row holds n_valid real tokens from its current length on,
         the rest is padding whose outputs are dropped and whose KV lands
-        on the null page. The pools are updated in place."""
+        on the null page. The step runs `decode_mode`. The pools are
+        updated in place."""
+        self._check_serve_geometry(slots, chunk, page, max_pages)
+        t_pool = max_pages * page
+        cfg, params, mode = self.cfg, self.params, self.decode_mode
+
+        def step(tokens, pool_k, pool_v, table, lengths, n_valid, temps,
+                 seeds):
+            return _serve_step_math(cfg, mode, slots, chunk, page, t_pool,
+                                    params, tokens, pool_k, pool_v, table,
+                                    lengths, n_valid, temps, seeds)
+
+        return step
+
+    def _check_serve_geometry(self, slots: int, chunk: int, page: int,
+                              max_pages: int) -> None:
+        """The JAX Engine's check (engine.py:353-367): the pool horizon
+        within the rope table, and a sequence-sharded decode_mode's
+        slots * chunk rows divisible by the world."""
         t_pool = max_pages * page
         if t_pool > self.cfg.max_positions:
             raise ValueError(f"pool horizon {t_pool} exceeds max_positions "
                              f"{self.cfg.max_positions} (rope table)")
-        cfg, params = self.cfg, self.params
-
-        def step(tokens, pool_k, pool_v, table, lengths, n_valid, temps,
-                 seeds):
-            return _serve_step_math(cfg, slots, chunk, page, t_pool, params,
-                                    tokens, pool_k, pool_v, table, lengths,
-                                    n_valid, temps, seeds)
-
-        return step
+        n = self.world.n
+        if self.decode_mode in SEQ_SHARDED_MODES and (slots * chunk) % n:
+            raise ValueError(f"sequence-sharded mode {self.decode_mode!r} "
+                             f"needs slots*chunk ({slots}*{chunk}) to divide "
+                             f"by tp={n}")

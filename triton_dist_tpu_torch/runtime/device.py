@@ -13,7 +13,7 @@ from typing import Optional, Union
 
 import torch
 
-_MODES = ("xla", "dist", "ar")
+MODES = ("xla", "dist", "ar")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -30,16 +30,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
-def check_modes(world: int, prefill_mode: str, decode_mode: str) -> None:
-    """The JAX Engine's modes: at world 1 all three are the same
-    computation; at world > 1 the port runs "ar" and names what the
-    sequence-sharded modes still need."""
+def check_modes(prefill_mode: str, decode_mode: str) -> None:
+    """The JAX Engine's mode strings, each one of MODES at any world (at
+    world 1 all three are the same computation)."""
     for kind, mode in (("prefill", prefill_mode), ("decode", decode_mode)):
-        if mode not in _MODES:
-            raise ValueError(f"{kind}_mode={mode!r}: one of {_MODES}")
-        if world > 1 and mode != "ar":
-            raise NotImplementedError(
-                f"world={world}, {kind}_mode={mode!r}: the sequence-sharded "
-                "legs are not ported yet (ag_gemm (_ag_gemm_kernel) with "
-                "its silu_pair epilogue, gemm_rs(a_order='arrival'), the "
-                "token all-gather and reduce-scatter); use mode 'ar'")
+        if mode not in MODES:
+            raise ValueError(f"{kind}_mode={mode!r}: one of {MODES}")

@@ -18,7 +18,9 @@ running batch to drain. Policies, as in the JAX version:
   completion — eos_id or max_new_tokens; slot and pages free at once.
 
 `chunk` and `page` are plain arguments (the JAX version prices the
-chunk with its perf model). Not ported: the resident loop, speculative
+chunk with its perf model). Every step runs in the engine's
+`decode_mode`, as the JAX serve step does: in "dist" or "xla" the world
+must divide slots * chunk (`Engine.make_serve_step` checks). Not ported: the resident loop, speculative
 decoding, the prefix cache, disaggregated roles and migration, the
 retry/quarantine ladder (a failed step raises), cancellation and the
 background serving thread, the obs registry, the flight recorder and

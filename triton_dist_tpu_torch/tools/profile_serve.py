@@ -1,16 +1,19 @@
 """Where the time of Qwen3-8B serving goes on one card.
 
     python -m triton_dist_tpu_torch.tools.profile_serve [--world N]
+        [--prefill-mode M] [--decode-mode M]
 
 Builds Qwen3-8B at full width and depth (bf16, random weights from seed
-0) at world N (default 1; N > 1 runs the virtual world of N ranks in
-the `ar` mode), warms up, then traces under torch.profiler: one
-scheduler step of the (slots=4, chunk=64) serve geometry with every
-slot prefilling, one batch-4 decode step, and one 4 x 128 prefill (at
-world > 1 the gemm_rs + ring all-gather path). For each it prints the
-host wall time, the device time summed over kernels, the device busy
-share, and the kernels that took the most device time. Needs a CUDA
-card.
+0) at world N (default 1; N > 1 runs the virtual world of N ranks) with
+the Engine's prefill and decode modes (default "ar" for both: at world
+> 1 the prefill takes gemm_rs + ring all-gather; "dist" takes ag_gemm
+and gemm_rs), warms up, then traces under torch.profiler: one scheduler
+step of the (slots=4, chunk=64) serve geometry with every slot
+prefilling and one batch-4 decode step (both in the decode mode; a
+sequence-sharded decode mode needs N to divide the batch of 4), and one
+4 x 128 prefill (the prefill mode). For each it prints the host wall
+time, the device time summed over kernels, the device busy share, and
+the kernels that took the most device time. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from triton_dist_tpu_torch.serve import Scheduler
 REPS = 2  # traced repetitions of each step
 TOP = 12  # kernels listed per step
 # name fragments of the port's hand-written kernels (csrc/*.cu)
-OWN = ("fp_local", "one_shot_ar_kernel", "ring_ag_kernel", "gemm_rs_kernel")
+OWN = ("fp_local", "one_shot_ar_kernel", "ring_ag_kernel", "gemm_rs_kernel",
+       "ag_gemm_kernel")
 
 
 def _self_device_us(evt) -> float:
@@ -72,15 +76,24 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--world", type=int, default=1,
                     help="tensor-parallel ranks on the one card")
-    world = ap.parse_args().world
+    ap.add_argument("--prefill-mode", default="ar",
+                    choices=("ar", "dist", "xla"),
+                    help="the Engine's prefill_mode")
+    ap.add_argument("--decode-mode", default="ar",
+                    choices=("ar", "dist", "xla"),
+                    help="the Engine's decode_mode (decode and serve steps)")
+    args = ap.parse_args()
+    world = args.world
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA card")
 
     cfg = ModelConfig.qwen3_8b()
     eng = Engine(cfg, device="cuda", seed=0, max_len=512, world=world,
-                 prefill_mode="ar")
+                 prefill_mode=args.prefill_mode,
+                 decode_mode=args.decode_mode)
     rng = np.random.default_rng(0)
-    print(f"world {world}")
+    print(f"world {world}, prefill mode {args.prefill_mode}, decode mode "
+          f"{args.decode_mode}")
 
     # a scheduler step with all four slots prefilling 64-token chunks
     sch = Scheduler(eng, slots=4, chunk=64, page=64)
@@ -103,7 +116,8 @@ def main() -> None:
     prof, wall = _traced(decode)
     _report("decode step (batch 4, 36 layers)", prof, wall)
 
-    # a 4 x 128 prefill (M = 512 rows: gemm_rs + ring AG at world > 1)
+    # a 4 x 128 prefill (M = 512 rows; at world > 1 in `ar`: gemm_rs +
+    # ring AG, in `dist`: ag_gemm and gemm_rs)
     ids = rng.integers(0, cfg.vocab_size, (4, 128))
     eng.prefill(ids)  # warm-up
     prof, wall = _traced(lambda: eng.prefill(ids))
