@@ -16,7 +16,12 @@ outside a checkout of the repository. Phases, each fatal on failure:
      sizes, M = 1 and the world-4 main-path shapes; ag_gemm at n = 1
      (force_kernel), 2 and 4, both C orders, plain and silu_pair,
      return_gathered, m = 1, 64, 128 and ragged, N not a tile multiple;
-     gemm_rs with A in arrival order at n = 2 and 4; f32 and bf16;
+     gemm_rs with A in arrival order at n = 2 and 4; f32 and bf16; the
+     ring ReduceScatter bitwise at n = 1 (force_kernel), 2 and 4 in f32,
+     bf16 and bf16 with f32 accumulation; the grouped ag_gemm (silu_pair,
+     gate and up as views of one stack) at n = 2 and 4, cap 16, 64 and
+     256, both orders; grouped_gemm's card route (torch._grouped_mm) at
+     the Qwen3-30B-A3B shapes, with empty groups and trailing rows;
   4. the main path, three times: Qwen3-8B at full width and depth,
      bf16, random weights from a seed, at world 1; then, on the same
      weights sharded by shard_params, at world 4 on the virtual world in
@@ -33,6 +38,18 @@ outside a checkout of the repository. Phases, each fatal on failure:
      Qwen3-8B shapes), beside its bound over the work of all ranks, its
      plain version and one PyTorch library call (a yardstick only); the
      device time of the virtual-world kernels from torch.profiler;
+  4b. the fourth path, after the Qwen3-8B weights are freed: Qwen3-30B-
+     A3B (TP-MoE, 128 experts, top-8) at full width and depth, bf16,
+     random weights drawn on the card at world 4 (one copy, ~61 GB), with
+     the Engine's default modes (Engine.serve 4 x 128, +16 tokens), a
+     `dist` Scheduler, and a `fused` prefill of 4 x 32 (the longest
+     prompt whose capacity-padded transients fit beside the weights),
+     launch counts pinned; the same logits checks, the fused prefill's
+     too; a small f32 MoE model on the card against the CPU in `dist`
+     and `fused`;
+  5b. the ring ReduceScatter (bitwise), the grouped ag_gemm and
+     grouped_gemm against their plain versions on the inputs recorded in
+     4b (the other kernels too), and the kernels' timing there;
   6. the kernels line (JSON), the card line, and the result line.
 """
 
@@ -60,6 +77,11 @@ BF16_ATOL = 2e-2  # both outputs rounded to bf16 (8 mantissa bits), |out| < 2
 # the engine's horizon: the paged pool and the dense cache hold this many
 # positions, so every multi-token attention on the main path has T = 1024
 MAX_LEN = 1024
+# the fused MoE prefill's prompt length (4 prompts): exact capacity pads
+# every expert block to 4 ranks' worth of m_tok * 8 rows, so 4 x 128
+# (~29 GB of transients) does not fit beside Qwen3-30B-A3B's ~61 GB of
+# weights and 4 x 32 (cap 256, ~7-11 GB) does (PERF.md)
+FUSED_LEN = 32
 
 
 def log(*a):
@@ -347,6 +369,19 @@ def check_collectives(kernels):
     return worst
 
 
+def products(a, w):
+    """The gathered A times every rank's b in f32; for a grouped b (n, E,
+    K, N), each chunk's expert block e times b[r][e]."""
+    import torch
+
+    full = a.reshape(-1, a.shape[-1]).float()
+    if w.dim() == 3:
+        return torch.matmul(full, w.float())
+    n, e, k, _ = w.shape
+    return torch.einsum("sepk,rekn->rsepn", full.reshape(n, e, -1, k),
+                        w.float())
+
+
 def ag_gemm_atol(a, b, want) -> float:
     """Kernel and plain both accumulate in f32 and round once; their f32
     sums run in another order. bf16: one ulp (2^-7 relative) of the
@@ -354,9 +389,8 @@ def ag_gemm_atol(a, b, want) -> float:
     products (for silu_pair, to max|gate| x max|up|)."""
     import torch
 
-    full = a.reshape(-1, a.shape[-1]).float()
     ws = b if isinstance(b, tuple) else (b,)
-    prods = [torch.matmul(full, w.float()).abs().max().item() for w in ws]
+    prods = [products(a, w).abs().max().item() for w in ws]
     scale = max(1.0, prods[0]) * (max(1.0, prods[1]) if len(ws) == 2 else 1)
     ulp = 2.0 ** -7 * want.float().abs().max().item()
     return (ulp if a.dtype == torch.bfloat16 else 0.0) + 1e-5 * scale
@@ -427,6 +461,142 @@ def check_ag_gemm(kernels):
     return worst
 
 
+def check_ring_rs(kernels):
+    """The ring ReduceScatter against its plain version on the card:
+    bitwise, at n = 1 (force_kernel: no ring step), 2 and 4, in f32, bf16
+    and bf16 with f32 accumulation; a 3-element chunk, a ragged one of
+    several tiles, and the Qwen3-30B-A3B main-path chunks (64 and 128
+    rows of 2048)."""
+    import torch
+
+    for n in (1, 2, 4):
+        for dtype, acc in ((torch.float32, None), (torch.bfloat16, None),
+                           (torch.bfloat16, torch.float32)):
+            for m, w in ((1, 3), (40, 1000), (64, 2048), (128, 2048)):
+                x = rand((n, n * m, w), dtype, n + m + w, 1.0)
+                got = kernels.ring_reduce_scatter(x, accum_dtype=acc,
+                                                  force_kernel=n == 1)
+                want = kernels.ring_reduce_scatter_plain(x, acc)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    err = (got.float() - want.float()).abs().max().item()
+                    raise AssertionError(
+                        f"ring_reduce_scatter n={n} m={m} W={w} {dtype} "
+                        f"accum {acc}: not bitwise (max abs err {err})")
+            log(f"  ring_reduce_scatter n={n} {str(dtype)[6:]} accum "
+                f"{str(acc)[6:] if acc else 'input dtype'}: m x W in (1, 3), "
+                "(40, 1000), (64, 2048), (128, 2048): bitwise")
+
+
+def check_grouped_ag_gemm(kernels):
+    """The grouped ag_gemm (bf16, silu_pair; w_gate / w_up views of one
+    [gate | up] stack, rows 2N apart) against its plain version at n = 2
+    and 4, cap 16, 64 and 256 rows an expert block, both C orders, within
+    ag_gemm_atol. Returns the largest share of an atol."""
+    import torch
+
+    worst = 0.0
+    e, k, i_loc = 8, 512, 192
+    for n in (2, 4):
+        for cap in (16, 64, 256):
+            a = rand((n, e * cap, k), torch.bfloat16, n + cap, 1.0)
+            gu = rand((n, e, k, 2 * i_loc), torch.bfloat16, n + cap + 1, 0.05)
+            ws = (gu[..., :i_loc], gu[..., i_loc:])
+            ratio = 0.0
+            for order in ("rank", "arrival"):
+                _, r = check_ag_gemm_call(kernels, a, ws,
+                                          epilogue="silu_pair",
+                                          c_order=order)
+                ratio = max(ratio, r)
+            worst = max(worst, ratio)
+            log(f"  ag_gemm grouped n={n} E={e} cap={cap} K={k} "
+                f"I={i_loc} bf16 silu_pair, both orders: at most "
+                f"{ratio:.3f} of its atol")
+    return worst
+
+
+def grouped_gemm_atol(want) -> float:
+    """The card route rounds every product to bf16 (for an f32 out_dtype
+    too) after an f32 sum in another order: one bf16 ulp (2^-7 relative)
+    of the largest output, plus 1e-5 of it."""
+    top = want.float().abs().max().item()
+    return 2.0 ** -7 * top + 1e-5 * max(1.0, top)
+
+
+def check_grouped_gemm_call(x, w, sizes, out_dtype, label):
+    """grouped_gemm's card route (torch._grouped_mm, the rank dim folded
+    into the groups) against its loop over experts, within
+    grouped_gemm_atol; rows past the last group exactly zero. Returns the
+    max abs error."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import grouped_gemm as gg
+
+    got = gg.grouped_gemm(x, w, sizes, out_dtype=out_dtype)
+    want = gg.grouped_gemm_plain(x, w, sizes, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    atol = grouped_gemm_atol(want)
+    used = int(sizes.sum())
+    tail_zero = not bool(got[..., used:, :].any())
+    if (got.shape != want.shape or got.dtype != want.dtype
+            or not bool(torch.isfinite(got).all()) or not err <= atol
+            or not tail_zero):
+        raise AssertionError(f"grouped_gemm {label}: err {err}, atol {atol}, "
+                             f"rows past the last group zero {tail_zero}")
+    return err
+
+
+def check_grouped_gemm():
+    """grouped_gemm's card route at the Qwen3-30B-A3B world-4 shapes
+    (E 128; gate|up K 2048 N 384, down K 192 N 2048): routed group sizes
+    with empty groups, and the same with 100 rows past the last group;
+    x shared by the ranks and one per rank; bf16 and f32 out; an
+    unstacked weight."""
+    import torch
+
+    # why the route's f32 out_dtype is a widened bf16 result: what this
+    # torch does with out_dtype=float32, held to no host sync
+    x, w = rand((64, 64), torch.bfloat16, 1), rand((2, 64, 64),
+                                                   torch.bfloat16, 2)
+    offs = torch.tensor([32, 64], dtype=torch.int32).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = torch._grouped_mm(x, w, offs=offs, out_dtype=torch.float32)
+        what = f"runs with no host sync, out {y.dtype}"
+    except RuntimeError as exc:
+        what = f"raises (host syncs refused): {str(exc).splitlines()[0]}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"  torch._grouped_mm bf16 with out_dtype=float32: {what}")
+
+    e, t = 128, 1024
+    g = torch.Generator().manual_seed(5)
+
+    def routed(rows):  # every odd expert empty
+        ids = torch.randint(0, e // 2, (rows,), generator=g) * 2
+        return torch.bincount(ids, minlength=e).to(torch.int32).cuda()
+
+    cases = (("routed", routed(t)), ("100 trailing rows", routed(t - 100)))
+    for k, nn in ((2048, 384), (192, 2048)):
+        w = rand((4, e, k, nn), torch.bfloat16, k + nn, 0.05)
+        for kind, x in (("shared x", rand((t, k), torch.bfloat16, k)),
+                        ("x a rank", rand((4, t, k), torch.bfloat16, k + 1))):
+            for name, gs in cases:
+                err = max(check_grouped_gemm_call(
+                    x, w, gs, od, f"{kind} {name} K={k} N={nn} {od}")
+                    for od in (torch.bfloat16, torch.float32))
+                log(f"  grouped_gemm n=4 E={e} T={t} K={k} N={nn} {kind}, "
+                    f"{name}, {int((gs == 0).sum())} empty groups, bf16 "
+                    f"and f32 out: max_abs_err={err:.3e}")
+        x1 = rand((t, k), torch.bfloat16, k + 2)
+        check_grouped_gemm_call(x1, w[0], cases[1][1], torch.float32,
+                                f"unstacked K={k} N={nn}")
+    log("  grouped_gemm unstacked (T, K) x (E, K, N), 100 trailing rows: "
+        "within its atol")
+
+
 # -- the main path --------------------------------------------------------
 
 
@@ -441,23 +611,29 @@ def main_path_kernels():
         allreduce,
         flash_prefill,
         gemm_reduce_scatter,
+        reduce_scatter,
     )
 
     return {"flash_prefill_local": (flash_prefill, "flash_prefill_local"),
             "one_shot_all_reduce": (allreduce, "one_shot_all_reduce"),
             "ring_all_gather": (allgather, "ring_all_gather"),
             "gemm_rs": (gemm_reduce_scatter, "gemm_rs"),
-            "ag_gemm": (allgather_gemm, "ag_gemm")}
+            "ag_gemm": (allgather_gemm, "ag_gemm"),
+            "ring_reduce_scatter": (reduce_scatter, "ring_reduce_scatter")}
 
 
 def plain_versions():
     from triton_dist_tpu_torch import kernels
 
+    def ag_gemm_plain(a, b, force_kernel=False, **kw):
+        return kernels.ag_gemm_plain(a, b, **kw)
+
     return {"flash_prefill_local": kernels.flash_prefill_plain,
             "one_shot_all_reduce": kernels.one_shot_all_reduce_plain,
             "ring_all_gather": kernels.ring_all_gather_plain,
             "gemm_rs": kernels.gemm_rs_plain,
-            "ag_gemm": kernels.ag_gemm_plain}
+            "ag_gemm": ag_gemm_plain,
+            "ring_reduce_scatter": kernels.ring_reduce_scatter_plain}
 
 
 class Swapped:
@@ -496,32 +672,85 @@ def _copy_fp(q, k, v, q_positions=None, q_offset=0, kv_len=None,
                 kv_len=kv_len.clone(), causal=causal, scale=scale)
 
 
-# how a recorder copies a kernel's inputs, and its calls per layer
-COPY = {"flash_prefill_local": (_copy_fp, 1),
-        "one_shot_all_reduce": (lambda x: dict(x=x.clone()), 2),
-        "ring_all_gather": (lambda x: dict(x=x.clone()), 2),
+# how a recorder copies a kernel's inputs
+COPY = {"flash_prefill_local": _copy_fp,
+        "one_shot_all_reduce": lambda x: dict(x=x.clone()),
+        "ring_all_gather": lambda x: dict(x=x.clone()),
         # b is a weight (or a pair), never written: kept by reference;
         # the keyword options (a_order, epilogue, c_order) kept with it
-        "gemm_rs": (lambda a, b, **kw: dict(a=a.clone(), b=b, **kw), 2),
-        "ag_gemm": (lambda a, b, **kw: dict(a=a.clone(), b=b, **kw), 2)}
+        "gemm_rs": lambda a, b, **kw: dict(a=a.clone(), b=b, **kw),
+        "ag_gemm": lambda a, b, **kw: dict(a=a.clone(), b=b, **kw),
+        "ring_reduce_scatter": lambda x, **kw: dict(x=x.clone(), **kw)}
+# a kernel's calls per layer in a forward that reaches it: the dense
+# model (flash once; AR, AG and gemm_rs on O and down; ag_gemm on QKV
+# and gate|up), the MoE model (the MLP's legs leave for the MoE block's
+# ring AG and ring RS) and its fused prefill (ag_gemm on QKV and the
+# grouped gate|up)
+PER_LAYER = {
+    "dense": dict(flash_prefill_local=1, one_shot_all_reduce=2,
+                  ring_all_gather=2, gemm_rs=2, ag_gemm=2,
+                  ring_reduce_scatter=1),
+    "moe": dict(flash_prefill_local=1, one_shot_all_reduce=1,
+                ring_all_gather=1, gemm_rs=1, ag_gemm=1,
+                ring_reduce_scatter=1),
+    "fused": dict(flash_prefill_local=1, one_shot_all_reduce=1,
+                  ring_all_gather=1, gemm_rs=1, ag_gemm=2,
+                  ring_reduce_scatter=1),
+}
+
+
+class GroupedRecorder:
+    """Within the block, every grouped_gemm call of the MoE path (two a
+    layer in every `dist`, `ar` and `xla` forward: gate|up and down)
+    runs as before; the first call of each (layer, shape, out dtype) at
+    the first and the last layer keeps a copy of its inputs (the weight
+    by reference)."""
+
+    def __init__(self, num_layers):
+        from triton_dist_tpu_torch.kernels import grouped_gemm as gg
+
+        self.mod, self.fn = gg, gg.grouped_gemm
+        self.layers = num_layers
+        self.calls = 0
+        self.records = {}
+
+    def __call__(self, x, w, sizes, out_dtype=None):
+        layer = self.calls % (2 * self.layers) // 2
+        key = (layer, tuple(x.shape), out_dtype)
+        if layer in (0, self.layers - 1) and key not in self.records:
+            self.records[key] = dict(x=x.clone(), w=w, sizes=sizes.clone(),
+                                     out_dtype=out_dtype)
+        self.calls += 1
+        return self.fn(x, w, sizes, out_dtype)
+
+    def __enter__(self):
+        self.mod.grouped_gemm = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.grouped_gemm = self.fn
 
 
 class Recorder:
     """Wraps a kernel's wrapper so that the calls at the first and the
     last layer of each forward that reaches the kernel keep a copy of
-    their inputs (flash prefill: one call a layer; the collectives: the
-    O and the down projection's, two a layer; ag_gemm: QKV and gate|up,
-    two a layer). Calls the kernel's wrapper, which counts the launch."""
+    their inputs (PER_LAYER calls a layer, by the model's kind). Calls
+    the kernel's wrapper, which counts the launch."""
 
-    def __init__(self, name, num_layers):
+    def __init__(self, name, num_layers, kind="dense"):
         mod, attr = main_path_kernels()[name]
         self.fn = getattr(mod, attr)
-        self.copy, self.per_layer = COPY[name]
+        self.copy = COPY[name]
+        self.per_layer = PER_LAYER[kind][name]
         self.layers = num_layers
         self.calls = 0
+        self.grouped = 0  # ag_gemm calls in the grouped (MoE) form
         self.records = []
 
     def __call__(self, *a, **kw):
+        b = a[1] if len(a) > 1 else kw.get("b")
+        if isinstance(b, tuple) and b[0].dim() == 4:
+            self.grouped += 1
         every = self.per_layer * self.layers
         layer = self.calls % every // self.per_layer
         if layer in (0, self.layers - 1):
@@ -591,17 +820,27 @@ def check_recorded_collectives(kernels, records):
     return errs
 
 
-def want_launches(L, world, prefill_mode, sched_mode, gen, steps):
+def want_launches(L, world, prefill_mode, sched_mode, gen, steps,
+                  moe=False):
     """The launch counts the main path must show: Engine.serve runs one
     multi-token forward (the prefill, M = 512 rows) and gen - 1 `ar`
     decode steps (M = 4: local product + one-shot AR); every scheduler
     step is a (slots, chunk) forward of M = 256 rows. At world > 1 an
     `ar` prefill takes gemm_rs + ring AG on O and down (M > 256), an `ar`
     scheduler step the one-shot AR; a `dist` forward takes ag_gemm on
-    QKV and gate|up and gemm_rs on O and down, and no AR or AG."""
+    QKV and gate|up and gemm_rs on O and down, and no AR or AG. The MoE
+    model (world 4, `dist` prefill and scheduler) keeps ag_gemm on QKV
+    and gemm_rs on O, and its MoE block takes the ring AG and the ring
+    RS once a layer; its `ar` decode the one-shot AR on O only."""
     serve = {name: 0 for name in main_path_kernels()}
     sched = dict(serve, flash_prefill_local=L * steps)
     serve["flash_prefill_local"] = L
+    if moe:
+        per = dict(ag_gemm=L, gemm_rs=L, ring_all_gather=L,
+                   ring_reduce_scatter=L)
+        serve.update(per, one_shot_all_reduce=L * (gen - 1))
+        sched.update({k: v * steps for k, v in per.items()})
+        return serve, sched
     if world > 1:
         if prefill_mode == "dist":
             serve.update(ag_gemm=2 * L, gemm_rs=2 * L)
@@ -620,11 +859,12 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
     """The main path at `world`: Engine.serve of 4 x 128 prompts (a
     `prefill_mode` prefill, `ar` decode steps) and a Scheduler with 6
     requests whose steps run `sched_mode`, over `params`, every kernel's
-    launches read around each, the kernels' inputs recorded; then the
-    timed prefill and decode, and the kernel path's logits against the
-    plain versions' (and, for a sequence-sharded prefill, against the
-    `xla` prefill's). Returns (launches of the whole path, records,
-    model numbers)."""
+    launches read around each, the kernels' inputs recorded; for an MoE
+    config also a `fused` prefill of 4 x FUSED_LEN; then the timed
+    prefill and decode, and the kernel path's logits against the plain
+    versions' (and, for a sequence-sharded prefill, against the `xla`
+    prefill's). Returns (launches of the whole path, records, model
+    numbers)."""
     import numpy as np
     import torch
 
@@ -633,13 +873,13 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
     from triton_dist_tpu_torch.serve import Scheduler
 
     L = cfg.num_layers
+    moe = cfg.is_moe
     eng = Engine(cfg, device=device, params=params, max_len=MAX_LEN,
                  world=world, prefill_mode=prefill_mode, decode_mode="ar")
     sched_eng = Engine(cfg, device=device, params=params, max_len=MAX_LEN,
                        world=world, prefill_mode=prefill_mode,
                        decode_mode=sched_mode)
-    n_params = sum(p.numel() for p in (eng.params.embed, eng.params.lm_head,
-                                       *eng.params.layers))
+    n_params = sum(p.numel() for p in eng.params.tensors())
     log(f"  model: {L} layers, hidden {cfg.hidden_size}, world {world}, "
         f"{n_params / 1e9:.3f} B params bf16; Engine.serve prefill "
         f"{prefill_mode}, decode ar; Scheduler steps {sched_mode}")
@@ -661,8 +901,10 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
             return tok, last
         return step
 
-    wrappers = {name: Recorder(name, L) for name in main_path_kernels()}
-    with Swapped(wrappers):
+    kind = "moe" if moe else "dense"
+    wrappers = {name: Recorder(name, L, kind) for name in main_path_kernels()}
+    grouped = GroupedRecorder(L)
+    with Swapped(wrappers), grouped:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
         torch.cuda.synchronize()
@@ -681,6 +923,9 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
         main_n = kernels.launches()
     steps = sch.worker.n_steps
     records = {name: w.records for name, w in wrappers.items()}
+    if moe:
+        records["grouped_gemm"] = list(grouped.records.values())
+    del grouped
 
     assert out.shape == (4, gen)
     assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size
@@ -689,9 +934,102 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
     assert all(finite), "non-finite serve-step logits"
     sched_n = {k: main_n[k] - serve_n[k] for k in main_n}
     want_serve, want_sched = want_launches(L, world, prefill_mode,
-                                           sched_mode, gen, steps)
+                                           sched_mode, gen, steps, moe)
     assert serve_n == want_serve, (serve_n, want_serve)
     assert sched_n == want_sched, (sched_n, want_sched)
+    model = {}
+
+    # the kernel path's logits against the plain versions', swapped in
+    # only for these comparisons; the bound is calibrated in the same run
+    # by the drift that a one-ulp bf16 perturbation of every attention
+    # output (the size of the kernels' own error) causes through the
+    # layers of this random-weight model. The kernels' own evidence is
+    # the check on their recorded inputs; this bound only shows nothing
+    # else on the path (layout, cache, routing, packing, rank order)
+    # differs. Random weights leave the top logits near-tied, so argmax
+    # agreement is printed, not held.
+    plain = plain_versions()
+
+    def perturbed(seed):
+        noise = torch.Generator(device=device).manual_seed(seed)
+
+        def perturbed_plain(*a, **kw):
+            out = fp.flash_prefill_plain(*a, **kw)
+            sign = torch.randint(0, 2, out.shape, generator=noise,
+                                 device=out.device) * 2 - 1
+            return (out.float() * (1 + sign * 2.0 ** -8)).to(out.dtype)
+
+        return {**plain, "flash_prefill_local": perturbed_plain}
+
+    def against_plain(logits, run, seed):
+        """(relative L2 of logits and of the one-ulp perturbed plain run
+        against the plain run, argmax agreement of each, plain logits)."""
+        with Swapped(plain):
+            base, _ = run()
+        with Swapped(perturbed(seed)):
+            floor, _ = run()
+        torch.cuda.synchronize()
+
+        def rel(a):
+            return ((a - base).norm() / base.norm()).item()
+
+        def agree(a):
+            return (a.argmax(-1) == base.argmax(-1)).float().mean().item()
+
+        return (rel(logits), rel(floor), agree(logits), agree(floor), base)
+
+    if moe:  # the fused prefill: its launches counted from 0 too
+        fused = Engine(cfg, device=device, params=params, max_len=MAX_LEN,
+                       world=world, prefill_mode="fused")
+        fused_prompts = rng.integers(0, cfg.vocab_size, (4, FUSED_LEN))
+        fwrap = {name: Recorder(name, L, "fused")
+                 for name in main_path_kernels()}
+        with Swapped(fwrap):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            fused_logits, _ = fused.prefill(fused_prompts)
+            torch.cuda.synchronize()
+            fused_n = kernels.launches()
+        want_fused = {name: 0 for name in main_path_kernels()}
+        want_fused.update(flash_prefill_local=L, ag_gemm=2 * L, gemm_rs=L,
+                          ring_reduce_scatter=L)
+        assert fused_n == want_fused, (fused_n, want_fused)
+        assert fwrap["ag_gemm"].grouped == L, fwrap["ag_gemm"].grouped
+        assert bool(torch.isfinite(fused_logits).all()), "fused logits"
+        assert fused_logits.shape == (4, cfg.vocab_size)
+        for name, w in fwrap.items():
+            wrappers[name].records.extend(w.records)
+        main_n = {k: main_n[k] + fused_n[k] for k in main_n}
+        model["grouped_launches"] = fwrap["ag_gemm"].grouped
+        log(f"  fused prefill 4x{FUSED_LEN}: launches {fused_n}, grouped "
+            f"ag_gemm {fwrap['ag_gemm'].grouped}")
+        model["fused_prefill_ms"] = time_ms(
+            lambda: fused.prefill(fused_prompts), iters=3, warmup=1)
+        f_rel, f_floor, f_agree, f_agree_floor, _ = against_plain(
+            fused_logits, lambda: fused.prefill(fused_prompts), seed=2)
+        model.update(fused_logits_rel_l2=f_rel,
+                     fused_logits_rel_l2_ulp=f_floor,
+                     fused_argmax_agree=f_agree,
+                     fused_argmax_agree_ulp=f_agree_floor)
+        log(f"  fused prefill 4x{FUSED_LEN} logits kernels vs plain "
+            f"versions: relative L2 {f_rel:.4e} (one-ulp perturbed plain: "
+            f"{f_floor:.4e}); argmax agree {f_agree:.2f} (one-ulp "
+            f"perturbed plain: {f_agree_floor:.2f})")
+        if not f_rel <= 2 * f_floor:
+            raise AssertionError("fused prefill logits drift more than twice "
+                                 "the one-ulp perturbation's")
+        dist_logits, _ = eng.prefill(fused_prompts)
+        torch.cuda.synchronize()
+        model["fused_rel_l2_dist"] = ((fused_logits - dist_logits).norm()
+                                      / dist_logits.norm()).item()
+        model["fused_argmax_agree_dist"] = (
+            fused_logits.argmax(-1) == dist_logits.argmax(-1)).float().mean(
+            ).item()
+        log(f"  fused prefill 4x{FUSED_LEN}: {model['fused_prefill_ms']:.3f} "
+            f"ms; logits against the dist prefill of the same prompts: "
+            f"relative L2 {model['fused_rel_l2_dist']:.4e}, argmax agree "
+            f"{model['fused_argmax_agree_dist']:.2f}")
+        del fused, fused_logits, dist_logits
     m = sch.metrics()
     log(f"  Engine.serve 4x128 +{gen}: {serve_s:.3f} s, tokens "
         f"{out[0, :8].tolist()}...")
@@ -716,55 +1054,26 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
     log(f"  prefill 4x128: {pre_ms:.3f} ms; decode: {decode_ms:.3f} "
         f"ms/token (batch 4, host clock); peak memory {peak_gb:.2f} GB")
 
-    # the kernel path's logits against the plain versions', swapped in
-    # here and only here; the bound is calibrated in the same run by the
-    # drift that a one-ulp bf16 perturbation of every attention output
-    # (the size of the kernels' own error) causes through the layers of
-    # this random-weight model. The kernels' own evidence is the check
-    # on their recorded inputs; this bound only shows nothing else on the
-    # path (layout, cache, routing, rank order) differs. Random weights
-    # leave the top logits near-tied, so argmax agreement is printed,
-    # not held.
     assert torch.isfinite(logits).all(), "non-finite prefill logits"
-    noise = torch.Generator(device=device).manual_seed(1)
-
-    def perturbed_plain(*a, **kw):
-        out = fp.flash_prefill_plain(*a, **kw)
-        sign = torch.randint(0, 2, out.shape, generator=noise,
-                             device=out.device) * 2 - 1
-        return (out.float() * (1 + sign * 2.0 ** -8)).to(out.dtype)
-
-    plain = plain_versions()
-    with Swapped(plain):
-        plain_logits, _ = prefill()
-    with Swapped({**plain, "flash_prefill_local": perturbed_plain}):
-        floor_logits, _ = prefill()
-    torch.cuda.synchronize()
-
-    def rel(a):
-        return ((a - plain_logits).norm() / plain_logits.norm()).item()
-
-    def agree(a):
-        return (a.argmax(-1) == plain_logits.argmax(-1)).float().mean().item()
-
+    k_rel, k_floor, k_agree, k_agree_floor, plain_logits = against_plain(
+        logits, prefill, seed=1)
     diff = (logits - plain_logits).abs().max().item()
     top2 = plain_logits.float().topk(2, dim=-1).values
     gap = (top2[:, 0] - top2[:, 1]).tolist()
     log(f"  prefill logits kernels vs plain versions: relative L2 "
-        f"{rel(logits):.4e} (one-ulp perturbed plain: "
-        f"{rel(floor_logits):.4e}), max abs diff {diff:.4e} of max "
-        f"|logit| {plain_logits.abs().max().item():.4e}; argmax agree "
-        f"{agree(logits):.2f} (one-ulp perturbed plain: "
-        f"{agree(floor_logits):.2f}); plain top-1 minus top-2 logit per "
-        f"prompt {[round(x, 4) for x in gap]}")
-    model = dict(world=world, prefill_mode=prefill_mode,
+        f"{k_rel:.4e} (one-ulp perturbed plain: {k_floor:.4e}), max abs "
+        f"diff {diff:.4e} of max |logit| "
+        f"{plain_logits.abs().max().item():.4e}; argmax agree "
+        f"{k_agree:.2f} (one-ulp perturbed plain: {k_agree_floor:.2f}); "
+        f"plain top-1 minus top-2 logit per prompt "
+        f"{[round(x, 4) for x in gap]}")
+    model.update(model=("qwen3-30b-a3b" if moe else "qwen3-8b"),
+                 world=world, prefill_mode=prefill_mode,
                  sched_mode=sched_mode, prefill_ms=pre_ms,
                  decode_ms=decode_ms,
                  tokens_per_s=m["tokens_per_s"], peak_gb=peak_gb,
-                 logits_rel_l2=rel(logits),
-                 logits_rel_l2_ulp=rel(floor_logits),
-                 argmax_agree=agree(logits),
-                 argmax_agree_ulp=agree(floor_logits))
+                 logits_rel_l2=k_rel, logits_rel_l2_ulp=k_floor,
+                 argmax_agree=k_agree, argmax_agree_ulp=k_agree_floor)
     if not model["logits_rel_l2"] <= 2 * model["logits_rel_l2_ulp"]:
         raise AssertionError("kernel path logits drift more than twice the "
                              "one-ulp perturbation's")
@@ -786,25 +1095,30 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
             f"ops, no kernel): relative L2 {rel_xla(logits):.4e} (kernels), "
             f"{rel_xla(plain_logits):.4e} (plain versions)")
         del xla, xla_logits
-    del eng, sched_eng, cache, logits, plain_logits, floor_logits
+    del eng, sched_eng, cache, logits, plain_logits
     torch.cuda.empty_cache()
     return main_n, records, model
 
 
-def check_small_model(world: int, prefill_mode: str = "ar"):
+def check_small_model(world: int, prefill_mode: str = "ar",
+                      moe: bool = False):
     """A small config with head_dim 128 in f32 on the card (the kernels)
     against the same weights on the CPU (the plain versions): logits of
     a prefill and three decode steps, and greedy tokens equal. World 1:
     a 3 x 37 prefill, within 1e-3. World 4: an 8 x 40 prefill (320 rows;
     `ar`: gemm_ar takes gemm_rs + ring AG; `dist`: ag_gemm and gemm_rs,
-    80 rows a rank; decode takes the one-shot AR), within 1e-4."""
+    80 rows a rank; decode takes the one-shot AR), within 1e-4. With
+    moe, the tiny MoE config (4 experts, top-2): `dist` takes the ring
+    AG and the ring RS around the block, `fused` the grouped ag_gemm and
+    the ring RS."""
     import torch
 
     from triton_dist_tpu_torch.models import Engine, ModelConfig
     from triton_dist_tpu_torch.models.dense import init_params
 
-    cfg = ModelConfig.tiny(head_dim=128, num_q_heads=8, num_kv_heads=4,
-                           max_positions=128)
+    preset = ModelConfig.tiny_moe if moe else ModelConfig.tiny
+    cfg = preset(head_dim=128, num_q_heads=8, num_kv_heads=4,
+                 max_positions=128)
     params = init_params(cfg, device="cpu", seed=3, world=world)
     kw = dict(params=params, world=world, prefill_mode=prefill_mode)
     cpu = Engine(cfg, device="cpu", **kw)
@@ -822,8 +1136,8 @@ def check_small_model(world: int, prefill_mode: str = "ar"):
     want = cpu.serve(ids, 6).tolist()
     got = gpu.serve(ids, 6).cpu().tolist()
     launched = _launch_total() - kernels_before
-    log(f"  small model (f32, head_dim 128, world {world}, prefill "
-        f"{prefill_mode}) card vs CPU: "
+    log(f"  small {'MoE ' if moe else ''}model (f32, head_dim 128, world "
+        f"{world}, prefill {prefill_mode}) card vs CPU: "
         f"max abs logit diff {err:.3e} (atol {tol:g}), greedy tokens equal "
         f"{got == want}, {launched} kernel launches")
     assert err <= tol and got == want and launched > 0
@@ -1055,7 +1369,107 @@ SOURCES = {
                         "triton_dist_tpu/kernels/allgather.py:71"),
     "gemm_rs": ("triton_dist_tpu_torch/csrc/gemm_reduce_scatter.cu",
                 "triton_dist_tpu/kernels/gemm_reduce_scatter.py:261"),
+    "ring_reduce_scatter": ("triton_dist_tpu_torch/csrc/reduce_scatter.cu",
+                            "triton_dist_tpu/kernels/reduce_scatter.py:77"),
 }
+
+
+def check_recorded_rs(kernels, records):
+    """The ring ReduceScatter against its plain version on the inputs the
+    MoE path gave it: bitwise. Returns the max abs error (0)."""
+    import torch
+
+    for rec in records:
+        x = rec["x"]
+        acc = rec.get("accum_dtype")
+        got = kernels.ring_reduce_scatter(x, accum_dtype=acc)
+        want = kernels.ring_reduce_scatter_plain(x, acc)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            err = (got.float() - want.float()).abs().max().item()
+            raise AssertionError(f"ring_reduce_scatter on the main path's "
+                                 f"input {tuple(x.shape)} (forward "
+                                 f"{rec['forward']}, layer {rec['layer']}): "
+                                 f"not bitwise, max abs err {err}")
+    shapes = sorted({tuple(r["x"].shape) for r in records})
+    log(f"  ring_reduce_scatter on {len(records)} recorded MoE-path calls, "
+        f"shapes {shapes}: bitwise")
+    return 0.0
+
+
+def check_recorded_grouped_gemm(records):
+    """grouped_gemm's card route against its loop over experts on the
+    inputs the MoE path gave it (gate|up with bf16 out, down with f32
+    out; the `dist` prefill, `ar` decode and `dist` scheduler steps, at
+    the first and the last layer). Returns the max abs error."""
+    err = max(check_grouped_gemm_call(
+        r["x"], r["w"], r["sizes"], r["out_dtype"],
+        f"recorded x {tuple(r['x'].shape)} out {r['out_dtype']}")
+        for r in records)
+    shapes = sorted({(tuple(r["x"].shape), tuple(r["w"].shape),
+                      str(r["out_dtype"])) for r in records})
+    log(f"  grouped_gemm on {len(records)} recorded MoE-path calls, (x, w, "
+        f"out dtype) {shapes}: max_abs_err={err:.3e}, within "
+        "grouped_gemm_atol")
+    return err
+
+
+def time_moe(kernels, records):
+    """The ring ReduceScatter at the `dist` prefill's (4, 512, 2048) and a
+    `dist` scheduler step's (4, 256, 2048), and the grouped ag_gemm at the
+    fused prefill's shapes, on inputs the MoE path gave them. RS bound:
+    n chunks read and one written a rank (its adds at the f32 rate);
+    library: one sum over the rank dim of the chunked input. Grouped
+    ag_gemm bound: the work this run's routing needs, the live (token,
+    choice) rows times the gate and up slices of the experts they reach
+    (2 x 2 x rows x K x I_loc operations a rank; those experts' B, the
+    live A rows and C rows read or written once), not the capacity
+    padding the kernel computes; library: one batched matmul of the
+    gathered packed blocks against [w_gate | w_up]. Returns {label: row}
+    for each and their main labels."""
+    import torch
+
+    rs_rows, ag_rows = {}, {}
+    for rows, when in ((512, "dist prefill"), (256, "dist scheduler step")):
+        rec = next(r for r in records["ring_reduce_scatter"]
+                   if r["x"].shape[1] == rows)
+        x = rec["x"]
+        n, nm, w = x.shape
+        m = nm // n
+        label = f"{when} x {tuple(x.shape)} bf16"
+        rs_rows[label] = time_collective(
+            f"ring_reduce_scatter {label}",
+            lambda x=x: kernels.ring_reduce_scatter(x),
+            lambda x=x: kernels.ring_reduce_scatter_plain(x),
+            lambda x=x, n=n, m=m, w=w: x.view(n, n, m, w).sum(0),
+            n * (n - 1) * m * w,
+            (n * nm * w + n * m * w) * x.element_size(), torch.float32,
+            kernel_key="ring_rs_kernel")
+    rec = next(r for r in records["ag_gemm"]
+               if isinstance(r["b"], tuple) and r["b"][0].dim() == 4)
+    a, (wg, wu) = rec["a"], rec["b"]
+    kw = {k: rec[k] for k in ("epilogue", "c_order") if k in rec}
+    n, m, k = a.shape
+    e, i_loc = wg.shape[1], wg.shape[3]
+    cap = m // e
+    blocks = a.reshape(n, e, cap, k)
+    live = blocks.abs().amax(-1) > 0  # (n source ranks, E, cap)
+    live_rows = int(live.sum())
+    live_e = int(live.any(2).any(0).sum())
+    gu = wg.as_strided((n, e, k, 2 * i_loc), wg.stride())  # [gate | up]
+    xe = blocks.permute(1, 0, 2, 3).reshape(e, n * cap, k).contiguous()
+    label = (f"fused prefill 4x{FUSED_LEN} a {tuple(a.shape)} b 2 x "
+             f"{tuple(wg.shape)} (E {e}, cap {cap}; {live_rows} live rows, "
+             f"{live_e} experts reached) bf16")
+    ag_rows[label] = time_collective(
+        f"ag_gemm grouped {label}",
+        lambda: kernels.ag_gemm(a, (wg, wu), **kw),
+        lambda: kernels.ag_gemm_plain(a, (wg, wu), **kw),
+        lambda: torch.matmul(xe[None], gu),
+        2 * 2 * n * live_rows * k * i_loc,
+        (live_rows * k + n * live_e * k * 2 * i_loc + n * live_rows * i_loc)
+        * a.element_size(), a.dtype, kernel_key="ag_gemm_kernel")
+    return rs_rows, ag_rows, next(iter(rs_rows)), label
 
 
 def entry(name, launches, by_path, err, rows, main_label, **extra):
@@ -1114,6 +1528,9 @@ def main() -> int:
     fp_err = check_flash_prefill(fp)
     rs_ratio = check_collectives(kernels)
     ag_ratio = check_ag_gemm(kernels)
+    check_ring_rs(kernels)
+    grouped_ratio = check_grouped_ag_gemm(kernels)
+    check_grouped_gemm()
 
     log("== 4. main path: Qwen3-8B, Engine.serve and Scheduler, world 1, "
         "world 4 (ar), world 4 (default modes: dist prefill, ar decode; "
@@ -1153,9 +1570,44 @@ def main() -> int:
     del recd
     coll_rows["gemm_rs"].update(rs_dist_rows)
     errs["gemm_rs"] = max(errs["gemm_rs"], errs_dist["gemm_rs"])
+    torch.cuda.empty_cache()
 
-    # launches: the three main-path runs, each counted from 0
-    paths = {"world1": n1, "world4_ar": n4, "world4_dist": nd}
+    log("== 4b. main path, fourth: Qwen3-30B-A3B (TP-MoE) at world 4, "
+        "default modes (dist prefill, ar decode), dist scheduler, fused "
+        "prefill")
+    cfg = ModelConfig.qwen3_30b_a3b()
+    free, total = torch.cuda.mem_get_info()
+    log(f"  before the draw: {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB")
+    params = init_params(cfg, device="cuda", seed=0, world=4)
+    torch.cuda.synchronize()
+    free, _ = torch.cuda.mem_get_info()
+    n_w = sum(p.numel() * p.element_size() for p in params.tensors())
+    log(f"  drawn at world 4 on the card: {n_w / 1e9:.2f} GB of weights, "
+        f"{free / 1e9:.2f} GB free after")
+    nm, recm, modelm = run_model(kernels, cfg, params, world=4,
+                                 prefill_mode="dist", sched_mode="dist")
+    check_small_model(world=4, prefill_mode="dist", moe=True)
+    check_small_model(world=4, prefill_mode="fused", moe=True)
+
+    log("== 5b. the kernels on the fourth path's inputs, and timing (bf16)")
+    errm, _ = check_recorded_fp(fp, recm["flash_prefill_local"])
+    errs_m = check_recorded_collectives(kernels, recm)
+    errs_md = check_recorded_dist(kernels, recm)
+    err_rs = check_recorded_rs(kernels, recm["ring_reduce_scatter"])
+    modelm["grouped_gemm_max_abs_err"] = check_recorded_grouped_gemm(
+        recm["grouped_gemm"])
+    moe_rs_rows, moe_ag_rows, rs_main, grouped_main = time_moe(kernels, recm)
+    del recm, params
+    torch.cuda.empty_cache()
+    ag_rows.update(moe_ag_rows)
+    for name in ("one_shot_all_reduce", "ring_all_gather"):
+        errs[name] = max(errs[name], errs_m[name])
+    errs["gemm_rs"] = max(errs["gemm_rs"], errs_m["gemm_rs"],
+                          errs_md["gemm_rs"])
+
+    # launches: the four main-path runs, each counted from 0
+    paths = {"world1": n1, "world4_ar": n4, "world4_dist": nd,
+             "world4_moe": nm}
 
     def by_path(name):
         return {k: v[name] for k, v in paths.items()}
@@ -1164,21 +1616,32 @@ def main() -> int:
         return sum(by_path(name).values())
 
     lines = [entry("flash_prefill_local", total("flash_prefill_local"),
-                   by_path("flash_prefill_local"), max(err1, err4, errd),
-                   fp_rows, busy, max_abs_err_synthetic=fp_err)]
+                   by_path("flash_prefill_local"),
+                   max(err1, err4, errd, errm), fp_rows, busy,
+                   max_abs_err_synthetic=fp_err)]
     for name in ("one_shot_all_reduce", "ring_all_gather", "gemm_rs"):
         lines.append(entry(name, total(name), by_path(name), errs[name],
                            coll_rows[name], coll_main[name]))
     lines[-1]["atol_ratio_synthetic"] = rs_ratio
     lines.append(entry("ag_gemm", total("ag_gemm"), by_path("ag_gemm"),
-                       errs_dist["ag_gemm"], ag_rows, ag_main,
-                       atol_ratio_synthetic=ag_ratio))
+                       max(errs_dist["ag_gemm"], errs_md["ag_gemm"]),
+                       ag_rows, ag_main, atol_ratio_synthetic=ag_ratio,
+                       grouped=dict(launches=modelm["grouped_launches"],
+                                    shape=grouped_main,
+                                    **{k: ag_rows[grouped_main][k] for k in (
+                                        "ms", "device_us", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+                                    atol_ratio_synthetic=grouped_ratio)))
+    lines.append(entry("ring_reduce_scatter", total("ring_reduce_scatter"),
+                       by_path("ring_reduce_scatter"), err_rs, moe_rs_rows,
+                       rs_main))
     missing = set(kernels.KERNELS) - {e["name"] for e in lines}
     assert not missing, f"kernels without a line: {missing}"
     assert all(e["launches"] > 0 for e in lines), "a kernel never launched"
     log("== 6. summary")
     log(f"  wall {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"model": [model1, model4, modeld]}))
+    log(json.dumps({"model": [model1, model4, modeld, modelm]}))
     print(json.dumps({"kernels": lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -205,8 +205,8 @@ def test_ag_gemm_refusals_and_cpu_launcher():
         ag_gemm(a, b, wire_format="fp8")
     with pytest.raises(NotImplementedError, match="out_dtype"):
         ag_gemm(a, b, out_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ag_gemm(a, torch.zeros(2, 3, 8, 8))
+    with pytest.raises(ValueError, match="equal blocks"):
+        ag_gemm(a, torch.zeros(2, 3, 8, 8))  # grouped: 4 rows, 3 experts
     with pytest.raises(ValueError, match="silu_pair"):
         ag_gemm(a, b, epilogue="silu_pair")
     with pytest.raises(ValueError, match="gathered"):

@@ -23,7 +23,10 @@ from triton_dist_tpu_torch.kernels import (
     reset_launches,
     ring_all_gather,
     ring_all_gather_plain,
+    ring_reduce_scatter,
+    ring_reduce_scatter_plain,
 )
+from triton_dist_tpu_torch.kernels import grouped_gemm as gg
 
 
 def _inputs(seed, b, s, t, hq, hkv, d, scale=0.5):
@@ -173,6 +176,99 @@ def test_gemm_rs_arrival_kernel_matches_plain(cuda, n):
     assert not torch.equal(want, gemm_rs_plain(a, b))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("dtype,accum", [
+    (torch.float32, None), (torch.bfloat16, None),
+    (torch.bfloat16, torch.float32)], ids=["f32", "bf16", "bf16-acc-f32"])
+def test_ring_reduce_scatter_kernel_matches_plain_bitwise(cuda, n, dtype,
+                                                          accum):
+    """The credit-flow ring against its plain version: bitwise (the same
+    fold order, each add rounded to the accumulation dtype), at chunks of
+    several tiles with a ragged last one, and one of 3 elements; n = 1
+    with force_kernel runs no ring step."""
+    rng = np.random.default_rng(30 + n)
+    reset_launches()
+    calls = 0
+    for m, w in ((40, 1000), (1, 3), (64, 2048)):
+        x = torch.from_numpy(rng.standard_normal((n, n * m, w))).to(
+            "cuda", dtype)
+        got = ring_reduce_scatter(x, accum_dtype=accum, force_kernel=True)
+        calls += 1
+        want = ring_reduce_scatter_plain(x, accum)
+        torch.cuda.synchronize()
+        assert got.shape == (n, m, w) and got.dtype == dtype
+        assert torch.equal(got, want), (m, w)
+    assert launches()["ring_reduce_scatter"] == calls
+
+
+def _grouped_atol(full, ws, want):
+    """ag_gemm's band for the grouped form: one bf16 ulp of the largest
+    output plus 1e-5 of max|gate| x max|up| over every expert block."""
+    prods = [torch.einsum("sepk,rekn->rsepn", full.float(),
+                          w.float()).abs().max().item() for w in ws]
+    ulp = 2.0 ** -7 * want.float().abs().max().item()
+    return ulp + 1e-5 * max(1.0, prods[0]) * max(1.0, prods[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("cap", [16, 64, 256])
+def test_grouped_ag_gemm_kernel_matches_plain(cuda, n, cap):
+    """The grouped form (bf16, silu_pair, both C orders) against its
+    plain version, w_gate / w_up as views of one [gate | up] stack (rows
+    2N apart, read in place); cap below, at and above the 128-row tile,
+    so tiles never span two experts."""
+    rng = np.random.default_rng(40 + n + cap)
+    e, k, i_loc = 6, 256, 192
+    a = torch.from_numpy(rng.standard_normal((n, e * cap, k))).to(
+        "cuda", torch.bfloat16)
+    gu = (torch.from_numpy(rng.standard_normal((n, e, k, 2 * i_loc)))
+          * 0.05).to("cuda", torch.bfloat16)
+    ws = (gu[..., :i_loc], gu[..., i_loc:])
+    reset_launches()
+    for c_order in ("arrival", "rank"):
+        got = ag_gemm(a, ws, epilogue="silu_pair", c_order=c_order)
+        want = ag_gemm_plain(a, ws, "silu_pair", c_order)
+        torch.cuda.synchronize()
+        full = a.reshape(n, e, cap, k)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=_grouped_atol(full, ws, want))
+    assert launches()["ag_gemm"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gs", [[5, 0, 7, 4], [0, 0, 16, 0], [3, 2, 1, 0]],
+                         ids=["empty-middle", "one-group", "trailing-rows"])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_grouped_gemm_card_route_matches_plain(cuda, gs, out_dtype):
+    """torch._grouped_mm with the rank dim folded into the groups against
+    the loop over experts: empty groups, one group, and rows past the
+    last group (exactly zero on every rank, the last one included); x
+    shared by the ranks, one per rank, and an unstacked weight. Band: one
+    bf16 ulp of the largest output (every product is rounded to bf16,
+    for an f32 out_dtype too) plus 1e-5 of it."""
+    rng = np.random.default_rng(50 + sum(gs[:2]))
+    n, t, k, nn = 4, 16, 64, 48
+    sizes = torch.tensor(gs, dtype=torch.int32, device="cuda")
+    w = (torch.from_numpy(rng.standard_normal((n, 4, k, nn))) * 0.2).to(
+        "cuda", torch.bfloat16)
+    shared = torch.from_numpy(rng.standard_normal((t, k))).to(
+        "cuda", torch.bfloat16)
+    per_rank = torch.from_numpy(rng.standard_normal((n, t, k))).to(
+        "cuda", torch.bfloat16)
+    for x, ws in ((shared, w), (per_rank, w), (shared, w[1])):
+        got = gg.grouped_gemm(x, ws, sizes, out_dtype=out_dtype)
+        want = gg.grouped_gemm_plain(x, ws, sizes, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == out_dtype
+        top = want.float().abs().max().item()
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=0,
+            atol=2.0 ** -7 * top + 1e-5 * max(1.0, top))
+        assert not got[..., sum(gs):, :].any()
+
+
 _FAULT = r"""
 import ctypes, sys, torch
 from triton_dist_tpu_torch.kernels import _build
@@ -228,9 +324,37 @@ sys.exit(0)
 """
 
 
+# a ring ReduceScatter whose credit can never arrive: the credit counters
+# start far below zero, so the step-0 credit wait must trap
+_RS_FAULT = r"""
+import sys, torch
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+lib = _build.load("reduce_scatter", rs._SIGNATURES)
+n, E = 4, 4096
+x = torch.ones((n, n * E), device="cuda", dtype=torch.bfloat16)
+acc = torch.empty((n, 2, E), device="cuda", dtype=torch.bfloat16)
+out = torch.empty((n, E), device="cuda", dtype=torch.bfloat16)
+flags = torch.full((n, 3 * lib.rs_tile_count(E, 1024)), -1000,
+                   device="cuda", dtype=torch.int32)
+grid = _build.GridInfo()
+err = lib.rs_launch(x.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                    flags.data_ptr(), n, E, 1024, 1, 1, grid.ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+assert err == 0, err
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(3)
+sys.exit(0)
+"""
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,script", [("gemm_rs", _FAULT),
-                                           ("ag_gemm", _AG_FAULT)])
+@pytest.mark.parametrize("kernel,script", [
+    ("gemm_rs", _FAULT), ("ag_gemm", _AG_FAULT),
+    ("ring_reduce_scatter", _RS_FAULT)])
 def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script):
     """A wait that can never be satisfied (flags left non-zero) ends in
     the bounded spin's printf and __trap(): the launch fails and the

@@ -352,3 +352,167 @@ def test_world4_xla_prefill_matches_jax(engines4_default):
     dl, _ = eng.prefill(ids)
     np.testing.assert_allclose(tl.numpy(), dl.numpy(), rtol=0,
                                atol=LOGIT_ATOL)
+
+
+# ---------- the MoE model (Qwen3MoE), tiny, world 4 ----------
+
+MOE4 = dict(max_positions=64)  # 16 q / 8 kv heads, 4 experts of 64, top-2
+MOE_FIELDS = ("w_qkv", "w_o", "w_gate_up", "w_down", "w_router", "input_ln",
+              "post_attn_ln", "q_norm", "k_norm")
+
+
+def _assert_moe_params_equal(got, want):
+    for name in ("embed", "final_ln", "lm_head"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      getattr(want, name))
+    for name in MOE_FIELDS:
+        np.testing.assert_array_equal(getattr(got.layers, name).numpy(),
+                                      getattr(want.layers, name))
+    assert got.layers.w_gate is None and got.layers.w_up is None
+
+
+@pytest.fixture(scope="module")
+def moe_engines4():
+    """The JAX and the port's Engine on tiny_moe at world 4 with their
+    default modes (dist prefill, ar decode), the JAX weights carried
+    across."""
+    mesh = make_mesh(mesh_shape=(4,), axis_names=("tp",))
+    jeng = JaxEngine(JaxModelConfig.tiny_moe(**MOE4), mesh, max_len=64,
+                     donate_cache=False)
+    np_params = jax.tree.map(np.asarray, jeng.params)
+    eng = Engine(ModelConfig.tiny_moe(**MOE4), device="cpu", max_len=64,
+                 world=4, params=params_from_jax(np_params, "cpu"))
+    return jeng, eng, np_params
+
+
+def test_moe_params_from_jax_round_trip_world4(moe_engines4):
+    _, eng, p = moe_engines4
+    assert eng.params.world_size == 4
+    assert eng.params.layers.w_gate_up.shape == (2, 4, 4, 128, 2 * 16)
+    assert eng.params.layers.w_down.shape == (2, 4, 4, 16, 128)
+    _assert_moe_params_equal(eng.params, p)
+
+
+def test_moe_init_params_shapes():
+    p = init_params(ModelConfig.tiny_moe(), device="cpu", seed=2, world=4)
+    assert p.layers.w_gate_up.shape == (2, 4, 4, 128, 32)
+    assert p.layers.w_router.shape == (2, 128, 4)
+    assert p.layers.w_gate is None
+    with pytest.raises(ValueError, match="moe_intermediate_size"):
+        init_params(ModelConfig.tiny_moe(moe_intermediate_size=66),
+                    device="cpu", world=4)
+
+
+def test_moe_default_modes_prefill_decode_and_serve_match_jax(moe_engines4):
+    """A `dist` prefill of 8 x 12 = 96 rows (24 a rank: the ring AG and
+    the ring RS around the MoE block, the JAX kernels in interpret mode),
+    then three `ar` decode steps, each step's logits within 1e-4 of the
+    JAX Engine's; Engine.serve's greedy tokens identical."""
+    from triton_dist_tpu.lang.core import pallas_call_count
+
+    jeng, eng, _ = moe_engines4
+    ids = np.random.default_rng(20).integers(0, 256, (8, 12)).astype(np.int32)
+    before = pallas_call_count()
+    jl, jcache = jeng.prefill(jnp.asarray(ids))
+    assert pallas_call_count() > before, "the JAX kernels did not run"
+    tl, tcache = eng.prefill(ids)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=LOGIT_ATOL)
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    for _ in range(3):
+        jl, jcache = jeng.decode_step(jnp.asarray(tok), jcache)
+        tl, tcache = eng.decode_step(tok, tcache)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                                   atol=LOGIT_ATOL)
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    small = ids[:2, :8]
+    want = np.asarray(jeng.serve(jnp.asarray(small), 4))
+    assert eng.serve(small, 4).tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("mode", ["xla", "fused"])
+def test_moe_prefill_modes_match_jax(moe_engines4, mode):
+    """The `xla` and the one-kernel `fused` prefill (attention `dist`,
+    the MoE block capacity-packed through the grouped ag_gemm) against
+    the JAX Engine in the same mode, within 1e-4, and against the port's
+    own `dist` prefill."""
+    jeng, eng, _ = moe_engines4
+    mesh = make_mesh(mesh_shape=(4,), axis_names=("tp",))
+    jm = JaxEngine(JaxModelConfig.tiny_moe(**MOE4), mesh, prefill_mode=mode,
+                   params=jeng.params, max_len=64, donate_cache=False)
+    em = Engine(ModelConfig.tiny_moe(**MOE4), device="cpu", max_len=64,
+                world=4, prefill_mode=mode, params=eng.params)
+    ids = np.random.default_rng(21).integers(0, 256, (4, 8)).astype(np.int32)
+    jl, _ = jm.prefill(jnp.asarray(ids))
+    tl, _ = em.prefill(ids)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=LOGIT_ATOL)
+    dl, _ = eng.prefill(ids)
+    np.testing.assert_allclose(tl.numpy(), dl.numpy(), rtol=0,
+                               atol=LOGIT_ATOL)
+
+
+def test_fused_mode_is_moe_only():
+    """`fused` names the MoE pipeline: a dense config refuses it in the
+    Engine and in forward, as the JAX planner does."""
+    cfg = ModelConfig.tiny(**CFG4)
+    with pytest.raises(ValueError, match="fused"):
+        Engine(cfg, device="cpu", world=4, prefill_mode="fused")
+    eng = Engine(cfg, device="cpu", world=4, max_len=64)
+    with pytest.raises(ValueError, match="fused"):
+        forward(cfg, eng.params, torch.zeros(1, 4, dtype=torch.long),
+                eng.new_cache(1), mode="fused")
+    Engine(ModelConfig.tiny_moe(**MOE4), device="cpu", world=4, max_len=64,
+           prefill_mode="fused", decode_mode="fused")
+
+
+def _moe_params_to_hf(cfg, p):
+    """HF-layout tensors of world-1 JAX MoE params (Qwen3MoE names)."""
+    lp = p.layers
+    d, hq, hkv = cfg.head_dim, cfg.num_q_heads, cfg.num_kv_heads
+    mi = cfg.moe_intermediate_size
+    t = {"model.embed_tokens.weight": p.embed,
+         "model.norm.weight": p.final_ln, "lm_head.weight": p.lm_head[0].T}
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}."
+        qkv = lp.w_qkv[i, 0]
+        t.update({
+            pre + "input_layernorm.weight": lp.input_ln[i],
+            pre + "post_attention_layernorm.weight": lp.post_attn_ln[i],
+            pre + "self_attn.q_proj.weight": qkv[:, :hq * d].T,
+            pre + "self_attn.k_proj.weight": qkv[:, hq * d:(hq + hkv) * d].T,
+            pre + "self_attn.v_proj.weight": qkv[:, (hq + hkv) * d:].T,
+            pre + "self_attn.o_proj.weight": lp.w_o[i, 0].T,
+            pre + "self_attn.q_norm.weight": lp.q_norm[i],
+            pre + "self_attn.k_norm.weight": lp.k_norm[i],
+            pre + "mlp.gate.weight": lp.w_router[i].T,
+        })
+        for e in range(cfg.num_experts):
+            ep = f"{pre}mlp.experts.{e}."
+            gu = lp.w_gate_up[i, 0, e]
+            t.update({ep + "gate_proj.weight": gu[:, :mi].T,
+                      ep + "up_proj.weight": gu[:, mi:].T,
+                      ep + "down_proj.weight": lp.w_down[i, 0, e].T})
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in t.items()}
+
+
+def test_moe_shard_params_matches_jax_load_hf_sharding(tmp_path):
+    """A synthetic Qwen3MoE checkpoint written locally, loaded by the JAX
+    load_hf at mesh 1 and mesh 4: the port's shard_params of the first
+    equals the second bitwise (per-rank [gate_r | up_r] per expert, the
+    down projection split by rows, the router replicated)."""
+    from safetensors.numpy import save_file
+
+    cfg = JaxModelConfig.tiny_moe(**MOE4)
+    mesh1 = make_mesh(mesh_shape=(1,), axis_names=("tp",))
+    mesh4 = make_mesh(mesh_shape=(4,), axis_names=("tp",))
+    src = jax.tree.map(np.asarray, jax_init_params(cfg, mesh1, seed=7))
+    save_file(_moe_params_to_hf(cfg, src),
+              os.path.join(tmp_path, "model.safetensors"))
+    with open(os.path.join(tmp_path, "config.json"), "w") as f:
+        json.dump({"architectures": ["Qwen3MoeForCausalLM"]}, f)
+    p1 = jax.tree.map(np.asarray, load_hf(str(tmp_path), mesh1, cfg))
+    p4 = jax.tree.map(np.asarray, load_hf(str(tmp_path), mesh4, cfg))
+    got = shard_params(params_from_jax(p1, "cpu"), 4)
+    _assert_moe_params_equal(got, p4)
+    assert got.layers.w_down.is_contiguous()

@@ -199,3 +199,33 @@ def test_world4_dist_scheduler_matches_sequential_and_jax():
     jsch.run()
     assert got == [r.out_tokens for r in jreqs]
     sch.pool.check()
+
+
+def test_world4_moe_dist_scheduler_matches_sequential_and_jax():
+    """Qwen3MoE (tiny_moe) at world 4 with decode_mode="dist": every
+    serve step is a sequence-sharded forward of slots*chunk = 8 rows, the
+    MoE block between the ring AG and the ring RS. Two requests through
+    the port's Scheduler give its sequential serve tokens and the JAX
+    Scheduler's on its 4-device engine in the same mode."""
+    mesh = make_mesh(mesh_shape=(4,), axis_names=("tp",))
+    jeng = JaxEngine(JaxModelConfig.tiny_moe(max_positions=32), mesh,
+                     decode_mode="dist", max_len=32, donate_cache=False)
+    eng = Engine(ModelConfig.tiny_moe(max_positions=32), device="cpu",
+                 max_len=32, world=4, decode_mode="dist",
+                 params=params_from_jax(jax.tree.map(np.asarray,
+                                                     jeng.params),
+                                        device="cpu"))
+    rng = np.random.default_rng(4)
+    ps = [list(map(int, rng.integers(0, 256, n))) for n in (6, 3)]
+    geo = dict(slots=2, chunk=4, page=8)
+    sch = Scheduler(eng, **geo)
+    reqs = [sch.submit(p, max_new_tokens=3) for p in ps]
+    sch.run()
+    got = [r.out_tokens for r in reqs]
+    assert got == [eng.serve(np.asarray([p]), 3, **geo)[0].tolist()
+                   for p in ps]
+    jsch = JaxScheduler(jeng, **geo)
+    jreqs = [jsch.submit(p, max_new_tokens=3) for p in ps]
+    jsch.run()
+    assert got == [r.out_tokens for r in jreqs]
+    sch.pool.check()

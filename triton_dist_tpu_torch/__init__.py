@@ -6,12 +6,16 @@ module has an obvious counterpart:
   runtime/  device selection (cuda unless the caller asks for cpu), and
             the virtual world: n ranks on one card, a symmetric heap
             with a rank dim and a flag pool
-  models/   ModelConfig, KVCache, the dense Qwen3 forward, Engine
-  layers/   rms_norm, rope, GQA attention, the TP attention/MLP blocks
+  models/   ModelConfig, KVCache, the Qwen3 forward (dense and MoE),
+            Engine, the Qwen3MoE entry points
+  layers/   rms_norm, rope, GQA attention, the TP attention/MLP/MoE
+            blocks
   kernels/  hand-written CUDA kernels, their wrappers and plain versions
-            (flash prefill; one-shot AllReduce, ring AllGather,
-            GEMM+ReduceScatter and the fused AllGather+GEMM over the
-            virtual world; gemm_ar over them)
+            (flash prefill; one-shot AllReduce, ring AllGather, ring
+            ReduceScatter, GEMM+ReduceScatter and the fused
+            AllGather+GEMM, dense and grouped, over the virtual world;
+            gemm_ar over them), and the MoE routing and grouped
+            products in torch ops
   csrc/     the .cu sources and shared headers (shmem.cuh: put, signal,
             wait, barrier on the virtual heap), built with nvcc at first
             use
@@ -19,7 +23,8 @@ module has an obvious counterpart:
   tools/    measurement scripts that run on a CUDA card
 
 Scope: one card; tensor parallelism at world n runs as a virtual world
-of n ranks on it, in the JAX package's "dist", "xla" and "ar" modes.
+of n ranks on it, in the JAX package's "dist", "xla" and "ar" modes
+(and "fused" for an MoE model).
 There is no planner: the caller's mode string is the plan.
 The package never imports jax or triton_dist_tpu; the tests import both
 and hold this package against the JAX one on the same numpy inputs.

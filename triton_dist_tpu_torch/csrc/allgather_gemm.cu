@@ -1,13 +1,25 @@
 // Fused AllGather + GEMM over the virtual world of one card, sm_90a.
 //
 // Replaces the Pallas TPU kernel `_ag_gemm_kernel` reached through
-// `ag_gemm` in triton_dist_tpu/kernels/allgather_gemm.py (dense form,
-// native wire; the plain and the silu_pair epilogues; rank and arrival
-// order of C). Same function, rank-stacked: a (n, m, K) holds rank r's
-// shard at [r], b (n, K, N) rank r's weight; rank r's result is
-// C[r] = AllGather(a) @ b[r], (n*m, N). With silu_pair, b is a pair
-// (gate, up) of that shape and C[r] = silu(A @ gate[r]) * (A @ up[r]),
-// f32 math on the f32 accumulators, rounded once to the output dtype.
+// `ag_gemm` in triton_dist_tpu/kernels/allgather_gemm.py (dense and
+// grouped forms, native wire; the plain and the silu_pair epilogues;
+// rank and arrival order of C). Same function, rank-stacked: a (n, m, K)
+// holds rank r's shard at [r], b (n, K, N) rank r's weight; rank r's
+// result is C[r] = AllGather(a) @ b[r], (n*m, N). With silu_pair, b is a
+// pair (gate, up) of that shape and C[r] = silu(A @ gate[r]) *
+// (A @ up[r]), f32 math on the f32 accumulators, rounded once to the
+// output dtype.
+//
+// The grouped (MoE) form: each rank's m rows are E blocks of cap rows
+// (moe_utils.pack_by_expert), b is (n, E, K, N) and row block e of every
+// gathered chunk multiplies b[r][e]. B is read through strides (a row
+// stride ldb >= N, an expert and a rank stride), so the gate and up
+// halves are views of one [w_gate | w_up] stack (ldb = 2N) and no
+// weight is copied. Row tiles are cut per block of cap rows, so a tile
+// never spans two experts (nor two ring steps): a block of cap < 128 rows
+// is one tile with its rows past cap predicated off, and the tile's
+// expert e = block % E picks its B. The dense form is the grouped form
+// with E = 1 and cap = n*m, the same tiles and the same addresses.
 //
 // The gather. Each rank's gathered A lives in the workspace, heap((n*m,
 // K)) of every rank: partition [r], row block c = chunk c. It travels
@@ -81,6 +93,7 @@ struct Gathered {
   const S* ws;  // my workspace partition (n*m, K), chunk c at rows c*m
   S* c;         // my C (n*m, N)
   int n, me, m, K, N, arrival;
+  int ldb;      // B's row stride (elements)
 
   __device__ __forceinline__ const S* a_row(int R) const {
     const int s = R / m, lr = R - s * m;
@@ -113,7 +126,7 @@ struct Bf16Body {
   static __device__ __forceinline__ void tile(const Gathered<S>& g, int R0,
                                               int rows, int j0, int cols,
                                               const S* const* b, void* smem) {
-    const int K = g.K, N = g.N;
+    const int K = g.K;
     bf16* sm = static_cast<bf16*>(smem);
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int wm = (warp >> 2) * 64, wn = (warp & 3) * WN;
@@ -147,8 +160,8 @@ struct Bf16Body {
           const int idx = tid + q * kThreads;
           const int r = idx / (BN / 8), nc = (idx % (BN / 8)) * 8;
           const bool ok = k0 + r < K && nc < cols;
-          cp_async16(bs + r * BST + nc, ok ? B + size_t(k0 + r) * N + nc : base,
-                     ok);
+          cp_async16(bs + r * BST + nc,
+                     ok ? B + size_t(k0 + r) * g.ldb + nc : base, ok);
         }
       }
     };
@@ -235,7 +248,7 @@ struct F32Body {
   static __device__ __forceinline__ void tile(const Gathered<S>& g, int R0,
                                               int rows, int j0, int cols,
                                               const S* const* b, void* smem) {
-    const int K = g.K, N = g.N;
+    const int K = g.K;
     float* as = static_cast<float*>(smem);  // [BK][BM], A transposed
     float* bs = as + BK * BM;               // [H][BK][BN]
     const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15, ak = tid & 15;
@@ -268,8 +281,9 @@ struct F32Body {
           const int idx = tid + q * kThreads;
           const int bk = idx >> 6, bc = idx & 63;  // B element (k0 + bk, bc)
           bs[(h * BK + bk) * BN + bc] =
-              k0 + bk < K && bc < cols ? b[h][size_t(k0 + bk) * N + j0 + bc]
-                                       : 0.f;
+              k0 + bk < K && bc < cols
+                  ? b[h][size_t(k0 + bk) * g.ldb + j0 + bc]
+                  : 0.f;
         }
       __syncthreads();
 #pragma unroll
@@ -325,13 +339,17 @@ __device__ __forceinline__ void copy_words(uint4* dst, const uint4* src,
 
 // ---- the kernel: ring producers, then tiles in arrival order --------------
 
-// flags of a rank: [0] the tile counter, [1 + s] arrivals of step s
+// flags of a rank: [0] the tile counter, [1 + s] arrivals of step s.
+// Row blocks of cap rows (cap divides m; E blocks a chunk, block q
+// multiplies expert q % E); B of rank r, expert e at b + r * b_rs +
+// e * b_es, rows ldb apart.
 template <class Body>
 __global__ void __launch_bounds__(kThreads, 2)
 ag_gemm_kernel(const typename Body::S* a, const typename Body::S* b0,
                const typename Body::S* b1, typename Body::S* ws,
                typename Body::S* c, int* flags, int m, int K, int N,
-               int arrival) {
+               int arrival, int cap, int E, int ldb, long long b_es,
+               long long b_rs) {
   typedef typename Body::S S;
   constexpr int BM = Body::BM, BN = Body::BN;
   extern __shared__ uint4 smem[];
@@ -363,18 +381,22 @@ ag_gemm_kernel(const typename Body::S* a, const typename Body::S* b0,
   }
 
   const Gathered<S> g{a + me * chunk, ws + size_t(me) * n * chunk,
-                      c + size_t(me) * n * m * N, n, me, m, K, N, arrival};
-  const S* b[2] = {b0 + size_t(me) * K * N, b1 + size_t(me) * K * N};
+                      c + size_t(me) * n * m * N, n, me, m, K, N, arrival,
+                      ldb};
   const int M = n * m, nt = (N + BN - 1) / BN;
-  const int total = ((M + BM - 1) / BM) * nt;
+  const int tpb = (cap + BM - 1) / BM;  // row tiles a block of cap rows
+  const int total = (M / cap) * tpb * nt;
   for (;;) {
     if (threadIdx.x == 0) next_tile = atomicAdd(mine, 1);
     __syncthreads();
     const int t = next_tile;
     __syncthreads();
     if (t >= total) break;
-    const int R0 = (t / nt) * BM, j0 = (t % nt) * BN;
-    const int rows = min(BM, M - R0);
+    const int rt = t / nt, q = rt / tpb, w = rt - q * tpb;
+    const int R0 = q * cap + w * BM, j0 = (t % nt) * BN;
+    const int rows = min(BM, cap - w * BM);
+    const int e = q % E;
+    const S* b[2] = {b0 + me * b_rs + e * b_es, b1 + me * b_rs + e * b_es};
     // the steps this tile's rows come from; step s >= 1 arrived with
     // flag 1 + (s - 1)
     for (int s = max(1, R0 / m); s <= (R0 + rows - 1) / m; ++s)
@@ -384,18 +406,45 @@ ag_gemm_kernel(const typename Body::S* a, const typename Body::S* b0,
   }
 }
 
+struct Geometry {  // the row blocks and B's strides
+  int cap, E, ldb;
+  long long b_es, b_rs;
+};
+
 template <class Body>
 cudaError_t launch(const void* a, const void* b0, const void* b1, void* ws,
                    void* c, int* flags, int n, int m, int K, int N,
-                   int arrival, int* info, cudaStream_t st) {
+                   int arrival, Geometry geo, int* info, cudaStream_t st) {
   typedef typename Body::S S;
-  const int tiles = ((n * m + Body::BM - 1) / Body::BM) *
+  const int tiles = (n * m / geo.cap) *
+                    ((geo.cap + Body::BM - 1) / Body::BM) *
                     ((N + Body::BN - 1) / Body::BN);
   return shmem::launch_world(
       ag_gemm_kernel<Body>, n, tiles > kProducers ? tiles : kProducers,
       kThreads, Body::kSmem, st, info, static_cast<const S*>(a),
       static_cast<const S*>(b0), static_cast<const S*>(b1),
-      static_cast<S*>(ws), static_cast<S*>(c), flags, m, K, N, arrival);
+      static_cast<S*>(ws), static_cast<S*>(c), flags, m, K, N, arrival,
+      geo.cap, geo.E, geo.ldb, geo.b_es, geo.b_rs);
+}
+
+int launch_any(const void* a, const void* b0, const void* b1, void* ws,
+               void* c, void* flags, int n, int m, int K, int N, int dtype,
+               int pair, int arrival, Geometry geo, void* info,
+               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* fl = static_cast<int*>(flags);
+  int* inf = static_cast<int*>(info);
+  if (dtype == 0)
+    return int(pair ? launch<F32Body<2>>(a, b0, b1, ws, c, fl, n, m, K, N,
+                                         arrival, geo, inf, st)
+                    : launch<F32Body<1>>(a, b0, b1, ws, c, fl, n, m, K, N,
+                                         arrival, geo, inf, st));
+  if (dtype == 1)
+    return int(pair ? launch<Bf16Body<2>>(a, b0, b1, ws, c, fl, n, m, K, N,
+                                          arrival, geo, inf, st)
+                    : launch<Bf16Body<1>>(a, b0, b1, ws, c, fl, n, m, K, N,
+                                          arrival, geo, inf, st));
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -417,20 +466,28 @@ extern "C" int ag_gemm_launch(const void* a, const void* b0, const void* b1,
   const int per = dtype == 1 ? 8 : 4;
   if (n < 1 || m < 1 || K < 1 || N < 1 || K % per || N % per)
     return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* fl = static_cast<int*>(flags);
-  int* inf = static_cast<int*>(info);
-  if (dtype == 0)
-    return int(pair ? launch<F32Body<2>>(a, b0, b1, ws, c, fl, n, m, K, N,
-                                         arrival, inf, st)
-                    : launch<F32Body<1>>(a, b0, b1, ws, c, fl, n, m, K, N,
-                                         arrival, inf, st));
-  if (dtype == 1)
-    return int(pair ? launch<Bf16Body<2>>(a, b0, b1, ws, c, fl, n, m, K, N,
-                                          arrival, inf, st)
-                    : launch<Bf16Body<1>>(a, b0, b1, ws, c, fl, n, m, K, N,
-                                          arrival, inf, st));
-  return int(cudaErrorInvalidValue);
+  const Geometry dense{n * m, 1, N, 0, (long long)K * N};
+  return launch_any(a, b0, b1, ws, c, flags, n, m, K, N, dtype, pair,
+                    arrival, dense, info, stream);
+}
+
+// The grouped form: a (n, m, K) with m = E * cap rows a rank (cap rows an
+// expert block); b0, b1 of rank r and expert e at b + r * b_rs + e * b_es,
+// K rows ldb elements apart (N <= ldb); c (n, n*m, N). ldb, b_es, b_rs
+// and both B base addresses multiples of 16 bytes' worth of elements.
+extern "C" int ag_gemm_grouped_launch(const void* a, const void* b0,
+                                      const void* b1, void* ws, void* c,
+                                      void* flags, int n, int m, int K, int N,
+                                      int dtype, int pair, int arrival, int E,
+                                      int ldb, long long b_es, long long b_rs,
+                                      void* info, void* stream) {
+  const int per = dtype == 1 ? 8 : 4;
+  if (n < 1 || m < 1 || K < 1 || N < 1 || K % per || N % per || E < 1 ||
+      m % E || ldb < N || ldb % per || b_es % per || b_rs % per)
+    return int(cudaErrorInvalidValue);
+  const Geometry grouped{m / E, E, ldb, b_es, b_rs};
+  return launch_any(a, b0, b1, ws, c, flags, n, m, K, N, dtype, pair,
+                    arrival, grouped, info, stream);
 }
 
 extern "C" const char* ag_gemm_error_string(int err) {

@@ -35,6 +35,11 @@ from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (  # noqa: F401
     gemm_rs,
     gemm_rs_plain,
 )
+from triton_dist_tpu_torch.kernels.reduce_scatter import (  # noqa: F401
+    ReduceScatterMethod,
+    ring_reduce_scatter,
+    ring_reduce_scatter_plain,
+)
 
 # kernel name -> its csrc/ source stem, for building all of them at once
 SOURCES = {
@@ -43,4 +48,5 @@ SOURCES = {
     "ring_all_gather": "allgather",
     "gemm_rs": "gemm_reduce_scatter",
     "ag_gemm": "allgather_gemm",
+    "ring_reduce_scatter": "reduce_scatter",
 }

@@ -1,6 +1,6 @@
 """Fused AllGather + GEMM — port of triton_dist_tpu.kernels.
 allgather_gemm (`ag_gemm`: the Pallas kernel `_ag_gemm_kernel`, dense
-form, native wire; and `arrival_to_rank_order`).
+and grouped forms, native wire; and `arrival_to_rank_order`).
 
 Rank-stacked: a (n, m, K) holds every rank's shard of the virtual world
 (runtime/symm_mem.py), b (n, K, N) every rank's weight (or, with
@@ -12,7 +12,15 @@ c_order="rank" gives C's row blocks in rank order; c_order="arrival" in
 ring-arrival order, row block s of rank r holding chunk (r - s) mod n,
 which gemm_rs(a_order="arrival") reads as it is. return_gathered=True
 also returns the gathered A (n, n*m, K) in rank order, the kernel's
-workspace. Two implementations of one contract:
+workspace.
+
+The grouped (MoE) form: b is (n, E, K, N) (or a pair of such), each
+rank's m rows are E equal blocks of cap = m / E rows (pack_by_expert),
+and row block e of every gathered chunk multiplies b[r][e]: rank r's C
+is (n*m, N), chunk c's block e = A[c][e] @ b[r][e]. b is read through
+its strides, so w_gate / w_up may be the two halves of one
+[w_gate | w_up] stack (views, rows 2N apart); nothing is copied. Two
+implementations of one contract:
 
   ag_gemm — the hand-written CUDA kernel (csrc/allgather_gemm.cu), which
       gathers over the ring and computes the product inside one launch.
@@ -26,8 +34,8 @@ At n = 1 without `force_kernel` the call is a local product (plus
 silu_mul for the pair), as the JAX function short-circuits to XLA; with
 `force_kernel` the kernel runs with n = 1. The TPU's VMEM-budget and
 interpret-mode fallbacks do not carry over: on the card the kernel
-always runs. The grouped (MoE) form, quantized wire formats and an
-`out_dtype` other than the input's are not ported yet and raise.
+always runs. Quantized wire formats and an `out_dtype` other than the
+input's are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -43,6 +51,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "ag_gemm_launch": (ctypes.c_int, [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]),
+    "ag_gemm_grouped_launch": (ctypes.c_int, [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 9 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_void_p, ctypes.c_void_p]),
     "ag_gemm_flag_count": (ctypes.c_int, [ctypes.c_int]),
     "ag_gemm_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -92,15 +103,27 @@ def _check(a, b, out_dtype, epilogue, c_order, return_gathered,
                              f"{tuple(bs[1].shape)} differ")
     else:
         bs = (b,)
-    if any(w.dim() == 4 for w in bs):
-        raise NotImplementedError(
-            "a per-expert (n, E, K, N) b is the grouped MoE form: it comes "
-            "with the MoE/EP slice")
-    if a.dim() != 3 or bs[0].dim() != 3 or bs[0].shape[:2] != (a.shape[0],
-                                                               a.shape[2]):
-        raise ValueError(f"a (n, m, K) and b (n, K, N) expected, got "
-                         f"{tuple(a.shape)} and {tuple(bs[0].shape)}")
+    w = bs[0]
+    if a.dim() != 3 or w.dim() not in (3, 4) or (
+            w.shape[0], w.shape[-2]) != (a.shape[0], a.shape[2]):
+        raise ValueError(f"a (n, m, K) and b (n, K, N) or (n, E, K, N) "
+                         f"expected, got {tuple(a.shape)} and "
+                         f"{tuple(w.shape)}")
+    if w.dim() == 4 and a.shape[1] % w.shape[1]:
+        raise ValueError(f"packed rows {a.shape[1]} must be E={w.shape[1]} "
+                         "equal blocks")
     return bs
+
+
+def _product(full: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The gathered A (n*m, K) times every rank's b in f32: (n, n*m, N).
+    Grouped b (n, E, K, N): block e of each chunk times b[r][e]."""
+    if w.dim() == 3:
+        return torch.matmul(full.float(), w.float())
+    n, e, k, nn = w.shape
+    blocks = full.reshape(n, e, -1, k).float()  # [chunk][expert][row]
+    c = torch.einsum("sepk,rekn->rsepn", blocks, w.float())
+    return c.reshape(n, -1, nn)
 
 
 def ag_gemm_plain(a: torch.Tensor, b, epilogue=None, c_order: str = "rank",
@@ -110,10 +133,10 @@ def ag_gemm_plain(a: torch.Tensor, b, epilogue=None, c_order: str = "rank",
     n, m, k = a.shape
     full = a.reshape(n * m, k)
     if epilogue == "silu_pair":
-        g, u = (torch.matmul(full.float(), w.float()) for w in b)
+        g, u = (_product(full, w) for w in b)
         c = silu_mul(g, u).to(a.dtype)
     else:
-        c = torch.matmul(full.float(), b.float()).to(a.dtype)
+        c = _product(full, b).to(a.dtype)
     if c_order == "arrival":
         c = arrival_to_rank_order(c)
     if return_gathered:
@@ -123,7 +146,13 @@ def ag_gemm_plain(a: torch.Tensor, b, epilogue=None, c_order: str = "rank",
 
 def _local(a, bs, return_gathered):
     """n = 1: the local product, f32 accumulation rounded once to
-    a.dtype; for the pair, gate and up kept in f32 through silu_mul."""
+    a.dtype; for the pair, gate and up kept in f32 through silu_mul. The
+    grouped form is the plain per-expert product (torch, as the JAX
+    function leaves it to XLA)."""
+    if bs[0].dim() == 4:
+        return ag_gemm_plain(a, bs if len(bs) == 2 else bs[0],
+                             "silu_pair" if len(bs) == 2 else None,
+                             return_gathered=return_gathered)
     if len(bs) == 2:
         from triton_dist_tpu_torch.layers.linear import dot_f32
 
@@ -137,11 +166,12 @@ def _local(a, bs, return_gathered):
 def ag_gemm(a: torch.Tensor, b, return_gathered: bool = False,
             out_dtype=None, force_kernel: bool = False, epilogue=None,
             c_order: str = "rank", wire_format=None):
-    """a (n, m, K), b (n, K, N) or (w_gate, w_up) rank-stacked ->
-    C (n, n*m, N) (and the gathered A (n, n*m, K) with
-    return_gathered): the CUDA kernel on CUDA tensors (launched or
-    raising, never replaced), the plain version on CPU tensors; at n = 1
-    a local product unless force_kernel."""
+    """a (n, m, K), b (n, K, N), grouped (n, E, K, N), or a pair
+    (w_gate, w_up) of either, rank-stacked -> C (n, n*m, N) (and the
+    gathered A (n, n*m, K) with return_gathered): the CUDA kernel on
+    CUDA tensors (launched or raising, never replaced), the plain
+    version on CPU tensors; at n = 1 a local product unless
+    force_kernel."""
     bs = _check(a, b, out_dtype, epilogue, c_order, return_gathered,
                 wire_format)
     if a.shape[0] == 1 and not force_kernel:
@@ -149,6 +179,25 @@ def ag_gemm(a: torch.Tensor, b, return_gathered: bool = False,
     if a.device.type == "cpu":
         return ag_gemm_plain(a, b, epilogue, c_order, return_gathered)
     return _launch(a, bs, c_order == "arrival", return_gathered)
+
+
+def _grouped_strides(bs, per: int):
+    """B's (row, expert, rank) strides of a grouped b (or pair), in
+    elements; raises unless the kernel can read it in place."""
+    w = bs[0]
+    st = w.stride()
+    for x in bs:
+        if x.stride() != st or x.stride(-1) != 1:
+            raise ValueError(f"grouped b strides {[x.stride() for x in bs]}: "
+                             "the kernel reads rows of unit-stride columns, "
+                             "one stride pattern for both halves")
+        if x.data_ptr() % 16:
+            raise ValueError("grouped b must be 16-byte aligned")
+    ldb, b_es, b_rs = st[2], st[1], st[0]
+    if ldb < w.shape[3] or ldb % per or b_es % per or b_rs % per:
+        raise ValueError(f"grouped b strides {st}: rows must not overlap "
+                         f"and be multiples of {per} elements")
+    return ldb, b_es, b_rs
 
 
 def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool):
@@ -160,15 +209,18 @@ def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool):
         raise ValueError(f"dtypes {a.dtype}/{[w.dtype for w in bs]}: the "
                          "kernel takes float32 or bfloat16, all alike")
     n, m, K = a.shape
-    N = bs[0].shape[2]
+    grouped = bs[0].dim() == 4
+    N = bs[0].shape[-1]
     per = 16 // a.element_size()
     if K % per or N % per:
         raise ValueError(f"K={K} and N={N} must be multiples of {per}: the "
                          "kernel moves 16-byte rows")
-    for name, x in (("a", a), *(("b", w) for w in bs)):
+    for name, x in (("a", a), *(() if grouped else (("b", w) for w in bs))):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
+    if grouped:
+        strides = _grouped_strides(bs, per)
     world = VirtualWorld.of(a)
     c = torch.empty((n, n * m, N), dtype=a.dtype, device=a.device)
     ws = world.heap((n * m, K), a.dtype)  # [rank][chunk c's rows]
@@ -177,12 +229,16 @@ def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool):
     lib = _build.load("allgather_gemm", _SIGNATURES)
     flags = world.flags(lib.ag_gemm_flag_count(n))
     grid = _build.GridInfo()
-    with torch.cuda.device(a.device):
-        err = lib.ag_gemm_launch(
-            a.data_ptr(), bs[0].data_ptr(), bs[-1].data_ptr(),
+    ptrs = (a.data_ptr(), bs[0].data_ptr(), bs[-1].data_ptr(),
             ws.data_ptr(), c.data_ptr(), flags.data_ptr(), n, m, K, N,
-            _DTYPE_CODE[a.dtype], int(len(bs) == 2), int(arrival),
-            grid.ptr(), torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODE[a.dtype], int(len(bs) == 2), int(arrival))
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if grouped:
+            err = lib.ag_gemm_grouped_launch(
+                *ptrs, bs[0].shape[1], *strides, grid.ptr(), stream)
+        else:
+            err = lib.ag_gemm_launch(*ptrs, grid.ptr(), stream)
     _build.check("ag_gemm", err, lib.ag_gemm_error_string, grid)
     _build.count_launch("ag_gemm")
     return (c, ws) if return_gathered else c

@@ -1,6 +1,6 @@
-"""Layers of the dense model: norms, rope, GQA attention, and the
+"""Layers of the Qwen3 models: norms, rope, GQA attention, the
 tensor-parallel attention and MLP blocks in the `ar`, `dist` and `xla`
-modes."""
+modes, and the TP-MoE block (those three and `fused`)."""
 
 from triton_dist_tpu_torch.layers.attention import gqa_attention  # noqa: F401
 from triton_dist_tpu_torch.layers.norm import rms_norm  # noqa: F401
@@ -11,3 +11,4 @@ from triton_dist_tpu_torch.layers.tp_attn import (  # noqa: F401
     tp_attn_fwd,
 )
 from triton_dist_tpu_torch.layers.tp_mlp import TPMLPParams, tp_mlp_fwd  # noqa: F401
+from triton_dist_tpu_torch.layers.tp_moe import TPMoEParams, tp_moe_fwd  # noqa: F401

@@ -1,9 +1,10 @@
 """Model configuration — a copy of triton_dist_tpu.models.config.
 
 Copied, not imported: the port never imports the JAX package. The
-geometry presets are the same (Qwen3-8B/32B, the tiny test config); the
-MoE fields are kept so a config round-trips between the packages, but
-this port serves dense models only.
+geometry presets are the same: the dense Qwen3-8B/32B, the MoE
+Qwen3-30B-A3B, and the tiny dense and MoE test configs. A config with
+num_experts > 0 swaps every layer's MLP for the TP-MoE block
+(layers/tp_moe.py).
 """
 
 from __future__ import annotations
@@ -60,6 +61,28 @@ class ModelConfig:
             num_layers=36, num_q_heads=32, num_kv_heads=8, head_dim=128,
             **kw,
         )
+
+    @staticmethod
+    def qwen3_30b_a3b(**kw) -> "ModelConfig":
+        """Qwen3-30B-A3B MoE geometry."""
+        return ModelConfig(
+            vocab_size=151_936, hidden_size=2048, intermediate_size=6144,
+            num_layers=48, num_q_heads=32, num_kv_heads=4, head_dim=128,
+            num_experts=128, num_experts_per_tok=8,
+            moe_intermediate_size=768, **kw,
+        )
+
+    @staticmethod
+    def tiny_moe(**kw) -> "ModelConfig":
+        """Test-scale MoE config (CPU parity tests)."""
+        defaults = dict(
+            vocab_size=256, hidden_size=128, intermediate_size=256,
+            num_layers=2, num_q_heads=16, num_kv_heads=8, head_dim=32,
+            max_positions=64, dtype="float32",
+            num_experts=4, num_experts_per_tok=2, moe_intermediate_size=64,
+        )
+        defaults.update(kw)
+        return ModelConfig(**defaults)
 
     @staticmethod
     def tiny(**kw) -> "ModelConfig":

@@ -1,6 +1,6 @@
-"""Dense Qwen3 model — port of triton_dist_tpu.models.dense over the
-virtual world of n ranks (runtime/symm_mem.py), in the JAX package's
-three modes.
+"""Qwen3 model, dense and MoE — port of triton_dist_tpu.models.dense
+over the virtual world of n ranks (runtime/symm_mem.py), in the JAX
+package's modes.
 
 Parameters keep the JAX package's layout (`DenseLLMParams`, dense.py:
 20-24) with its rank dim n, and `(in, out)` weights so `x @ W` needs no
@@ -8,8 +8,15 @@ transpose:
 
   embed (V, H) · input_ln / post_attn_ln (L, H) · q_norm / k_norm (L, D)
   w_qkv (L, n, H, (Hq + 2*Hkv)/n * D) · w_o (L, n, Hq/n * D, H)
-  w_gate / w_up (L, n, H, I/n) · w_down (L, n, I/n, H)
+  dense: w_gate / w_up (L, n, H, I/n) · w_down (L, n, I/n, H)
+  MoE:   w_gate_up (L, n, E, H, 2*Im/n), rank r's [gate_r | up_r]
+         (load_hf.py:213-229) · w_down (L, n, E, Im/n, H) ·
+         w_router (L, H, E), replicated
   final_ln (H,) · lm_head (n, H, V/n)
+
+The expert stacks stay in that row-major (K, N) layout: the grouped ag_gemm
+kernel reads it through its strides and `torch._grouped_mm` takes it as
+it is, so no weight is copied or transposed at call time.
 
 `forward` keeps the residual stream per rank, as shard_map does: in
 the `ar` mode every rank holds all M = B*S rows, x (n, M, H) (the
@@ -17,8 +24,10 @@ all-reduces keep the replicas bitwise equal); in the sequence-sharded
 `dist` and `xla` modes rank r holds rows [r*M/n, (r+1)*M/n), x (n, M/n,
 H), split on entry by `shard_tokens` and regathered before the final
 norm by `gather_tokens`, the port's copy of plan/execute.py:40-58.
-There is no planner: the mode string is the plan. At world 1 the three
-modes are one computation, and `forward` runs it as `ar`. It is a Python
+There is no planner: the mode string is the plan; "fused" (MoE only,
+planner.py:538-558) runs the attention as `dist` and the MoE block as
+its one-kernel `fused` lowering. At world 1 the modes are one
+computation, and `forward` runs it as `ar`. It is a Python
 loop over the layers where the JAX package runs a `lax.scan`, and it
 writes each step's K/V into the cache in place. The logits are each
 rank's vocab slice, gathered along the vocab with a torch op (the JAX
@@ -42,6 +51,7 @@ from triton_dist_tpu_torch.layers.tp_attn import (
     tp_attn_fwd,
 )
 from triton_dist_tpu_torch.layers.tp_mlp import TPMLPParams, tp_mlp_fwd
+from triton_dist_tpu_torch.layers.tp_moe import TPMoEParams, tp_moe_fwd
 from triton_dist_tpu_torch.kernels.allgather import ring_all_gather_plain
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.kv_cache import KVCache
@@ -50,7 +60,9 @@ from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
 
 class DenseLayerParams(NamedTuple):
-    """Stacked per-layer weights, leading dim L; sharded ones then n."""
+    """Stacked per-layer weights, leading dim L; sharded ones then n. A
+    dense model has w_gate / w_up, an MoE one w_gate_up / w_router; the
+    other pair is None."""
 
     input_ln: torch.Tensor
     post_attn_ln: torch.Tensor
@@ -59,8 +71,14 @@ class DenseLayerParams(NamedTuple):
     q_norm: torch.Tensor
     k_norm: torch.Tensor
     w_down: torch.Tensor
-    w_gate: torch.Tensor
-    w_up: torch.Tensor
+    w_gate: Optional[torch.Tensor] = None
+    w_up: Optional[torch.Tensor] = None
+    w_gate_up: Optional[torch.Tensor] = None
+    w_router: Optional[torch.Tensor] = None
+
+    def layer(self, i: int) -> "DenseLayerParams":
+        """Layer i's weights (None stays None)."""
+        return DenseLayerParams(*(None if w is None else w[i] for w in self))
 
 
 class DenseLLMParams(NamedTuple):
@@ -74,21 +92,31 @@ class DenseLLMParams(NamedTuple):
         """n, the ranks the weights are sharded over."""
         return self.lm_head.shape[0]
 
+    def tensors(self):
+        """Every weight tensor (the absent dense or MoE pair skipped)."""
+        return [w for w in (self.embed, *self.layers, self.final_ln,
+                            self.lm_head) if w is not None]
+
     def to(self, device) -> "DenseLLMParams":
         """A copy of every tensor on `device`."""
         return DenseLLMParams(
             self.embed.to(device),
-            DenseLayerParams(*(w.to(device) for w in self.layers)),
+            DenseLayerParams(*(None if w is None else w.to(device)
+                               for w in self.layers)),
             self.final_ln.to(device), self.lm_head.to(device))
 
 
 def check_world(cfg: ModelConfig, n: int) -> None:
-    """Raise unless n ranks divide the heads, the vocab and the MLP."""
+    """Raise unless n ranks divide the heads, the vocab and the MLP (an
+    MoE model: each expert's FFN dim)."""
     if n < 1:
         raise ValueError(f"world size {n} must be at least 1")
     sizes = dict(num_q_heads=cfg.num_q_heads, num_kv_heads=cfg.num_kv_heads,
-                 vocab_size=cfg.vocab_size,
-                 intermediate_size=cfg.intermediate_size)
+                 vocab_size=cfg.vocab_size)
+    if cfg.is_moe:
+        sizes["moe_intermediate_size"] = cfg.moe_intermediate_size
+    else:
+        sizes["intermediate_size"] = cfg.intermediate_size
     bad = {k: v for k, v in sizes.items() if v % n}
     if bad:
         raise ValueError(f"world size {n} must divide {bad}")
@@ -102,9 +130,8 @@ def init_params(cfg: ModelConfig, device=None,
     N(0, 0.02) matrices, unit norms, as the JAX package's init. The two
     packages draw different numbers from one seed; tests carry the JAX
     weights across with `params_from_jax`. The same model at another
-    world size is `shard_params` of these."""
-    if cfg.is_moe:
-        raise NotImplementedError("the port serves dense models only")
+    world size is `shard_params` of these; draw a model that fills the
+    card straight at its world (one copy of the weights)."""
     check_world(cfg, world)
     dev = resolve_device(device)
     if generator is None:
@@ -121,20 +148,26 @@ def init_params(cfg: ModelConfig, device=None,
     def ones(*shape):
         return torch.ones(shape, dtype=dt, device=dev)
 
-    i_l = cfg.intermediate_size // n
+    if cfg.is_moe:
+        e, mi_l = cfg.num_experts, cfg.moe_intermediate_size // n
+        ffn = dict(w_gate_up=mk(L, n, e, h, 2 * mi_l),
+                   w_down=mk(L, n, e, mi_l, h), w_router=mk(L, h, e))
+    else:
+        i_l = cfg.intermediate_size // n
+        ffn = dict(w_down=mk(L, n, i_l, h), w_gate=mk(L, n, h, i_l),
+                   w_up=mk(L, n, h, i_l))
     layers = DenseLayerParams(
         input_ln=ones(L, h), post_attn_ln=ones(L, h),
         w_qkv=mk(L, n, h, (hq + 2 * hkv) * d), w_o=mk(L, n, hq * d, h),
-        q_norm=ones(L, d), k_norm=ones(L, d),
-        w_down=mk(L, n, i_l, h), w_gate=mk(L, n, h, i_l),
-        w_up=mk(L, n, h, i_l),
-    )
+        q_norm=ones(L, d), k_norm=ones(L, d), **ffn)
     return DenseLLMParams(embed=mk(cfg.vocab_size, h), layers=layers,
                           final_ln=ones(h),
                           lm_head=mk(n, h, cfg.vocab_size // n))
 
 
-def _tensor(a, device) -> torch.Tensor:
+def _tensor(a, device) -> Optional[torch.Tensor]:
+    if a is None:
+        return None
     a = np.array(a, order="C")  # a writable copy: torch shares it
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
         return torch.from_numpy(a.view(np.uint16)).view(
@@ -145,21 +178,22 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_jax(p, device=None) -> DenseLLMParams:
     """The port's parameters from the JAX package's `DenseLLMParams` as
     numpy arrays (any object with its attribute names, such as
-    `jax.tree.map(np.asarray, params)`) at any tp size n: the layout is
-    the same, rank dim included, so every array crosses as it is."""
+    `jax.tree.map(np.asarray, params)`) at any tp size n, dense or MoE:
+    the layout is the same, rank dim included, so every array crosses as
+    it is (the MoE [gate_r | up_r] stack too)."""
     dev = resolve_device(device)
     lay = p.layers
-    if lay.w_gate is None:
-        raise NotImplementedError("the port serves dense models only")
     n = p.lm_head.shape[0]
-    for name in ("w_qkv", "w_o", "w_down", "w_gate", "w_up"):
+    moe = getattr(lay, "w_gate_up", None) is not None
+    ffn = ("w_gate_up",) if moe else ("w_gate", "w_up")
+    for name in ("w_qkv", "w_o", "w_down", *ffn):
         if getattr(lay, name).shape[1] != n:
             raise ValueError(f"{name} is sharded over "
                              f"{getattr(lay, name).shape[1]} ranks, lm_head "
                              f"over {n}")
     return DenseLLMParams(
         embed=_tensor(p.embed, dev),
-        layers=DenseLayerParams(*(_tensor(getattr(lay, f), dev)
+        layers=DenseLayerParams(*(_tensor(getattr(lay, f, None), dev)
                                   for f in DenseLayerParams._fields)),
         final_ln=_tensor(p.final_ln, dev), lm_head=_tensor(p.lm_head, dev))
 
@@ -169,7 +203,10 @@ def shard_params(p: DenseLLMParams, n: int) -> DenseLLMParams:
     unsharded -> sharded rule (models/load_hf.py:176-203): w_qkv takes
     each rank's block of q, k and v columns and concatenates them per
     rank; w_o and w_down are split by rows, w_gate, w_up and lm_head by
-    columns; norms and the embedding stay replicated (shared)."""
+    columns; norms and the embedding stay replicated (shared). An MoE
+    model's w_gate_up takes rank r's gate and up columns as [gate_r |
+    up_r] per expert, its w_down is split by rows, the router stays
+    replicated (load_hf.py:213-229)."""
     if p.world_size != 1:
         raise ValueError(f"params are sharded over {p.world_size} ranks "
                          "already")
@@ -190,12 +227,26 @@ def shard_params(p: DenseLLMParams, n: int) -> DenseLLMParams:
     q, k, v = torch.split(lay.w_qkv, [hq_d, kv_d, kv_d], dim=-1)
     layers = lay._replace(
         w_qkv=torch.cat([cols(q), cols(k), cols(v)], dim=-1),
-        w_o=rows(lay.w_o), w_down=rows(lay.w_down),
-        w_gate=cols(lay.w_gate), w_up=cols(lay.w_up))
+        w_o=rows(lay.w_o))
+    if lay.w_gate_up is not None:
+        L, _, e, h, mi2 = lay.w_gate_up.shape
+        mi = mi2 // 2
+        if mi % n:
+            raise ValueError(f"{n} ranks do not divide the expert FFN {mi}")
+        gu = lay.w_gate_up[:, 0].reshape(L, e, h, 2, n, mi // n)
+        layers = layers._replace(
+            w_gate_up=gu.permute(0, 4, 1, 2, 3, 5).reshape(
+                L, n, e, h, 2 * (mi // n)),
+            w_down=lay.w_down.reshape(L, e, n, mi // n, h).transpose(
+                1, 2).contiguous())
+    else:
+        layers = layers._replace(w_down=rows(lay.w_down),
+                                 w_gate=cols(lay.w_gate),
+                                 w_up=cols(lay.w_up))
     return p._replace(layers=layers, lm_head=cols(p.lm_head))
 
 
-SEQ_SHARDED_MODES = ("dist", "xla")
+SEQ_SHARDED_MODES = ("dist", "xla", "fused")
 
 
 def shard_tokens(x: torch.Tensor, n: int, mode: str) -> torch.Tensor:
@@ -222,7 +273,11 @@ def gather_tokens(x: torch.Tensor, mode: str) -> torch.Tensor:
 def _layer_fwd(cfg: ModelConfig, spec: TPAttnSpec, world: VirtualWorld,
                mode: str, cos, sin, positions, kv_len, write: KVWrite,
                batch: int, x, lp: DenseLayerParams, kv):
-    """One transformer block: x + attn(norm(x)), then + mlp(norm(x))."""
+    """One transformer block: x + attn(norm(x)), then + ffn(norm(x)),
+    the FFN the MLP or, for an MoE config, the TP-MoE block."""
+    ffn_mode = mode
+    if mode == "fused":  # the MoE pipeline beside a dist attention
+        mode = "dist"
     attn_params = TPAttnParams(
         w_qkv=lp.w_qkv, w_o=lp.w_o,
         q_norm=lp.q_norm if cfg.use_qk_norm else None,
@@ -232,6 +287,10 @@ def _layer_fwd(cfg: ModelConfig, spec: TPAttnSpec, world: VirtualWorld,
                         world, kv_cache=kv, kv_len=kv_len, kv_write=write,
                         mode=mode)
     h = rms_norm(x, lp.post_attn_ln, cfg.rms_eps)
+    if cfg.is_moe:
+        return x + tp_moe_fwd(h, TPMoEParams(lp.w_router, lp.w_gate_up,
+                                             lp.w_down),
+                              cfg.num_experts_per_tok, world, mode=ffn_mode)
     return x + tp_mlp_fwd(h, TPMLPParams(lp.w_gate, lp.w_up, lp.w_down),
                           world, mode=mode)
 
@@ -241,8 +300,9 @@ def forward(cfg: ModelConfig, params: DenseLLMParams, tokens: torch.Tensor,
             return_full_logits: bool = False):
     """tokens (B, S) -> (logits, cache): logits (B, V) f32 for the last
     position, or (B, S, V) with return_full_logits. The world is the
-    params' rank dim n; mode is "dist" (the JAX default), "xla" or "ar";
-    a sequence-sharded mode needs n to divide B*S. The cache holds n * B
+    params' rank dim n; mode is "dist" (the JAX default), "xla", "ar" or,
+    for an MoE config, "fused"; a sequence-sharded mode needs n to divide
+    B*S. The cache holds n * B
     rank rows (KVCache). The tokens sit at positions cache.length + [0,
     S); their K/V rows are written into the cache in place and the
     returned cache has length + S."""
@@ -250,6 +310,9 @@ def forward(cfg: ModelConfig, params: DenseLLMParams, tokens: torch.Tensor,
         raise ValueError("forward requires a KVCache (create one per serve)")
     if mode not in MODES:
         raise ValueError(f"mode={mode!r}: one of {MODES}")
+    if mode == "fused" and not cfg.is_moe:
+        raise ValueError("mode='fused' is the MoE one-kernel pipeline; the "
+                         "model is dense")
     b, s = tokens.shape
     dev = tokens.device
     n = params.world_size
@@ -271,7 +334,7 @@ def forward(cfg: ModelConfig, params: DenseLLMParams, tokens: torch.Tensor,
     x = shard_tokens(x, n, mode)
     lay = params.layers
     for i in range(cfg.num_layers):
-        lp = DenseLayerParams(*(w[i] for w in lay))
+        lp = lay.layer(i)
         x = _layer_fwd(cfg, spec, world, mode, cos, sin, rank_pos, rank_len,
                        write, b, x, lp, (cache.k[i], cache.v[i]))
 

@@ -9,6 +9,8 @@ heads. As in the JAX Engine, `prefill` runs `prefill_mode` (default
 on O and down) and `decode_step`, `generate` and the serve step run
 `decode_mode` (default "ar": gemm_ar, a one-shot all-reduce or gemm_rs +
 ring all-gather); "xla" runs the sequence-sharded stream on torch ops.
+An MoE config (Qwen3-30B-A3B) runs the same loop with the TP-MoE block
+in each layer; its "fused" mode is sequence-sharded.
 At world 1 every mode is the same computation.
 PyTorch runs eagerly, so there is nothing to compile: `generate` is a
 Python loop of decode steps (a CUDA graph of the step is later work) and
@@ -103,13 +105,14 @@ class Engine:
     device: "cuda" by default; "cpu" runs every kernel's plain version.
     world: tensor-parallel size n, run as a virtual world of n ranks on
     the one device. prefill_mode / decode_mode: the JAX package's mode
-    strings, "dist", "xla" or "ar", with its defaults."""
+    strings, "dist", "xla" or "ar" (an MoE config also "fused"), with its
+    defaults. Dense and MoE configs share the Engine."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  params: Optional[DenseLLMParams] = None, seed: int = 0,
                  max_len: Optional[int] = None, world: int = 1,
                  prefill_mode: str = "dist", decode_mode: str = "ar"):
-        check_modes(prefill_mode, decode_mode)
+        check_modes(prefill_mode, decode_mode, cfg.is_moe)
         self.cfg = cfg
         self.prefill_mode = prefill_mode
         self.decode_mode = decode_mode

@@ -13,7 +13,7 @@ from typing import Optional, Union
 
 import torch
 
-MODES = ("xla", "dist", "ar")
+MODES = ("xla", "dist", "ar", "fused")
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -30,9 +30,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
-def check_modes(prefill_mode: str, decode_mode: str) -> None:
+def check_modes(prefill_mode: str, decode_mode: str,
+                moe: bool = False) -> None:
     """The JAX Engine's mode strings, each one of MODES at any world (at
-    world 1 all three are the same computation)."""
+    world 1 all of them are the same computation). "fused" is the MoE
+    one-kernel pipeline: a dense model refuses it, as the JAX planner
+    does (planner.py:538-540)."""
     for kind, mode in (("prefill", prefill_mode), ("decode", decode_mode)):
         if mode not in MODES:
             raise ValueError(f"{kind}_mode={mode!r}: one of {MODES}")
+        if mode == "fused" and not moe:
+            raise ValueError(f"{kind}_mode='fused' is the MoE one-kernel "
+                             "pipeline; the model is dense")

@@ -1,19 +1,24 @@
-"""Where the time of Qwen3-8B serving goes on one card.
+"""Where the time of Qwen3 serving goes on one card.
 
     python -m triton_dist_tpu_torch.tools.profile_serve [--world N]
         [--prefill-mode M] [--decode-mode M]
+        [--model qwen3-8b|qwen3-30b-a3b]
 
-Builds Qwen3-8B at full width and depth (bf16, random weights from seed
-0) at world N (default 1; N > 1 runs the virtual world of N ranks) with
-the Engine's prefill and decode modes (default "ar" for both: at world
-> 1 the prefill takes gemm_rs + ring all-gather; "dist" takes ag_gemm
-and gemm_rs), warms up, then traces under torch.profiler: one scheduler
-step of the (slots=4, chunk=64) serve geometry with every slot
-prefilling and one batch-4 decode step (both in the decode mode; a
-sequence-sharded decode mode needs N to divide the batch of 4), and one
-4 x 128 prefill (the prefill mode). For each it prints the host wall
-time, the device time summed over kernels, the device busy share, and
-the kernels that took the most device time. Needs a CUDA card.
+Builds the model (default Qwen3-8B; qwen3-30b-a3b is the TP-MoE
+Qwen3-30B-A3B, whose ~61 GB of bf16 weights are drawn straight at world
+N, one copy) at full width and depth (bf16, random weights from seed 0)
+at world N (default 1; N > 1 runs the virtual world of N ranks) with the
+Engine's prefill and decode modes (default "ar" for both: at world > 1
+the prefill takes gemm_rs + ring all-gather; "dist" takes ag_gemm and
+gemm_rs; an MoE model's "dist" and "fused" MoE blocks take the ring AG
+or the grouped ag_gemm, and the ring RS), warms up, then traces under
+torch.profiler: one scheduler step of the (slots=4, chunk=64) serve
+geometry with every slot prefilling and one batch-4 decode step (both
+in the decode mode; a sequence-sharded decode mode needs N to divide
+the batch of 4; its history a prefill of the prompt length below), and
+one 4 x 128 prefill (the prefill mode; 4 x 32 in `fused`). For each it prints the host wall time, the device time summed
+over kernels, the device busy share, and the kernels that took the
+most device time. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -32,7 +37,9 @@ REPS = 2  # traced repetitions of each step
 TOP = 12  # kernels listed per step
 # name fragments of the port's hand-written kernels (csrc/*.cu)
 OWN = ("fp_local", "one_shot_ar_kernel", "ring_ag_kernel", "gemm_rs_kernel",
-       "ag_gemm_kernel")
+       "ag_gemm_kernel", "ring_rs_kernel")
+MODELS = {"qwen3-8b": ModelConfig.qwen3_8b,
+          "qwen3-30b-a3b": ModelConfig.qwen3_30b_a3b}
 
 
 def _self_device_us(evt) -> float:
@@ -76,9 +83,11 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--world", type=int, default=1,
                     help="tensor-parallel ranks on the one card")
+    ap.add_argument("--model", default="qwen3-8b", choices=tuple(MODELS),
+                    help="the model geometry")
     ap.add_argument("--prefill-mode", default="ar",
-                    choices=("ar", "dist", "xla"),
-                    help="the Engine's prefill_mode")
+                    choices=("ar", "dist", "xla", "fused"),
+                    help="the Engine's prefill_mode (fused: MoE only)")
     ap.add_argument("--decode-mode", default="ar",
                     choices=("ar", "dist", "xla"),
                     help="the Engine's decode_mode (decode and serve steps)")
@@ -87,13 +96,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA card")
 
-    cfg = ModelConfig.qwen3_8b()
+    cfg = MODELS[args.model]()
     eng = Engine(cfg, device="cuda", seed=0, max_len=512, world=world,
                  prefill_mode=args.prefill_mode,
                  decode_mode=args.decode_mode)
     rng = np.random.default_rng(0)
-    print(f"world {world}, prefill mode {args.prefill_mode}, decode mode "
-          f"{args.decode_mode}")
+    print(f"{args.model}, world {world}, prefill mode {args.prefill_mode}, "
+          f"decode mode {args.decode_mode}")
+    L = cfg.num_layers
 
     # a scheduler step with all four slots prefilling 64-token chunks
     sch = Scheduler(eng, slots=4, chunk=64, page=64)
@@ -101,11 +111,17 @@ def main() -> None:
         sch.submit(rng.integers(0, cfg.vocab_size, n).tolist(), 2)
     sch.step()  # warm-up: admission + first chunk
     prof, wall = _traced(sch.step)
-    _report("scheduler step (4 slots x 64-token prefill chunks, 36 layers)",
-            prof, wall)
+    _report(f"scheduler step (4 slots x 64-token prefill chunks, {L} "
+            "layers)", prof, wall)
 
-    # a batch-4 decode step over a 128-token history
-    logits, cache = eng.prefill(rng.integers(0, cfg.vocab_size, (4, 128)))
+    # a 4 x 128 prefill (M = 512 rows; at world > 1 in `ar`: gemm_rs +
+    # ring AG, in `dist`: ag_gemm and gemm_rs); a `fused` MoE prefill 4 x
+    # 32, whose capacity-padded blocks at 4 x 128 do not fit beside the
+    # Qwen3-30B-A3B weights
+    plen = 32 if args.prefill_mode == "fused" else 128
+
+    # a batch-4 decode step over a plen-token history
+    logits, cache = eng.prefill(rng.integers(0, cfg.vocab_size, (4, plen)))
     tok = logits.argmax(-1)
     eng.decode_step(tok, cache)  # warm-up
 
@@ -114,14 +130,12 @@ def main() -> None:
         _, cache = eng.decode_step(tok, cache)
 
     prof, wall = _traced(decode)
-    _report("decode step (batch 4, 36 layers)", prof, wall)
+    _report(f"decode step (batch 4, {L} layers)", prof, wall)
 
-    # a 4 x 128 prefill (M = 512 rows; at world > 1 in `ar`: gemm_rs +
-    # ring AG, in `dist`: ag_gemm and gemm_rs)
-    ids = rng.integers(0, cfg.vocab_size, (4, 128))
+    ids = rng.integers(0, cfg.vocab_size, (4, plen))
     eng.prefill(ids)  # warm-up
     prof, wall = _traced(lambda: eng.prefill(ids))
-    _report("prefill (4 x 128 tokens, 36 layers)", prof, wall)
+    _report(f"prefill (4 x {plen} tokens, {L} layers)", prof, wall)
 
 
 if __name__ == "__main__":
