@@ -33,6 +33,17 @@ outside a checkout of the repository. Phases, each fatal on failure:
      path's logits against the plain versions' (and, for `dist`, the
      `xla` prefill's), and a small f32 model on the card against the CPU
      at world 1 and 4 (`ar` and `dist`);
+  4m. the fifth path, between the world-1 and world-4 Qwen3-8B runs of
+     phase 4, on the same weights: the decode megakernel. The Engine's
+     4 x 128 prefill, then 16 greedy steps of MegaQwen3, one `mega`
+     launch each, at world 1 and at world 4 (a `dist` prefill), launch
+     counts pinned; the kernel against run_plain on the first step's
+     recorded inputs (logits within twice the one-ulp band), the eager
+     Engine's decode of the same prefill beside it; ms a token on CUDA
+     events and the host clock, the launch's device time against its
+     bound; a batch-1, context-512 figure at world 1. (Phase 3 also
+     holds every megakernel branch against run_plain at the Qwen3-8B
+     widths of world 1 and 4, dense and paged KV.)
   5. every kernel against its plain version on the inputs recorded in
      phase 4, and its timing there (flash prefill also at two synthetic
      Qwen3-8B shapes), beside its bound over the work of all ranks, its
@@ -622,6 +633,12 @@ def main_path_kernels():
             "ring_reduce_scatter": (reduce_scatter, "ring_reduce_scatter")}
 
 
+def kernel_names():
+    """Every counted kernel: the ones the main path calls through a module
+    attribute, and the megakernel (MegaQwen3 calls it through its queue)."""
+    return [*main_path_kernels(), "mega"]
+
+
 def plain_versions():
     from triton_dist_tpu_torch import kernels
 
@@ -832,7 +849,7 @@ def want_launches(L, world, prefill_mode, sched_mode, gen, steps,
     model (world 4, `dist` prefill and scheduler) keeps ag_gemm on QKV
     and gemm_rs on O, and its MoE block takes the ring AG and the ring
     RS once a layer; its `ar` decode the one-shot AR on O only."""
-    serve = {name: 0 for name in main_path_kernels()}
+    serve = {name: 0 for name in kernel_names()}
     sched = dict(serve, flash_prefill_local=L * steps)
     serve["flash_prefill_local"] = L
     if moe:
@@ -990,7 +1007,7 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
             fused_logits, _ = fused.prefill(fused_prompts)
             torch.cuda.synchronize()
             fused_n = kernels.launches()
-        want_fused = {name: 0 for name in main_path_kernels()}
+        want_fused = {name: 0 for name in kernel_names()}
         want_fused.update(flash_prefill_local=L, ag_gemm=2 * L, gemm_rs=L,
                           ring_reduce_scatter=L)
         assert fused_n == want_fused, (fused_n, want_fused)
@@ -1358,7 +1375,395 @@ def time_dist(kernels, records):
     return ag_rows, rs_rows, main
 
 
+# -- the decode megakernel (the fifth path) -------------------------------
+
+MEGA_STEPS = 16
+# a layout, position or rank-order fault moves a step's logits by O(1)
+# relative L2; the bf16 roundings that the eager and the megakernel paths
+# take at other points move them by O(1e-2) (PERF.md)
+MEGA_EAGER_REL_L2 = 0.25
+
+
+def mega_atol(want) -> float:
+    """Two bf16 ulps of the largest value of a megakernel output (2 * 2^-7
+    of it): the kernel and run_plain round the same values to bf16 at the
+    same points after f32 sums taken in another order, so one rounding may
+    differ by an ulp and carry into the next."""
+    return 2 * 2.0 ** -7 * want.float().abs().max().item() + 1e-6
+
+
+def mega_row_outputs(row):
+    """(slot, width) of each workspace output a queue row writes
+    (mega/kernel.py lays the rows out)."""
+    from triton_dist_tpu_torch.mega.kernel import OPS
+
+    op, row = OPS[row[0]], [int(v) for v in row]
+    if op == "matmul":
+        return [(row[3], row[10])]
+    if op in ("rms_norm", "add", "allreduce_add"):
+        return [(row[3], row[9])]
+    if op == "silu_mul":
+        return [(row[2], row[9])]
+    if op == "attention":
+        hq_l, hkv_l, d = row[8:11]
+        return [(row[3], hq_l * d), (row[4], hkv_l * d), (row[5], hkv_l * d)]
+    return []
+
+
+def check_mega_rows(cm, pos, table, ws, weights, norms, rope, kp, vp):
+    """Teacher-forced, on one step's inputs: each queue row of `cm` once on
+    the kernel (a queue of that row alone, its producers met) from the
+    workspace run_plain has built up to that row, against run_plain's row.
+    Each output within two bf16 ulps of its largest value (mega_atol), every
+    other workspace value bitwise unchanged. Returns (max abs error, the
+    worst err / atol, the op of its row)."""
+    import dataclasses
+
+    import torch
+
+    from triton_dist_tpu_torch.mega.kernel import _PLAIN, OPS
+
+    ws = ws.clone()
+    err_max, worst, worst_op = 0.0, 0.0, None
+    for i, row in enumerate(cm.queue):
+        alone = row.copy()
+        alone[17] = 0
+        one = dataclasses.replace(cm, queue=alone[None], _dev_queue={})
+        got = one.run(pos, table, ws.clone(), weights, norms, rope, kp, vp)
+        _PLAIN[OPS[row[0]]](cm, row, pos, table, ws, weights, norms, rope, kp,
+                            vp)
+        torch.cuda.synchronize()
+        other = got != ws
+        for slot, width in mega_row_outputs(row):
+            g, w = got[:, slot, :, :width], ws[:, slot, :, :width]
+            err = (g.float() - w.float()).abs().max().item()
+            atol = mega_atol(w)
+            if not bool(torch.isfinite(g).all()) or not err <= atol:
+                raise AssertionError(f"mega row {i} ({OPS[row[0]]}) slot "
+                                     f"{slot}: err {err}, atol {atol}")
+            err_max = max(err_max, err)
+            if err / atol > worst:
+                worst, worst_op = err / atol, OPS[row[0]]
+            other[:, slot, :, :width] = False
+        if bool(other.any()):
+            raise AssertionError(f"mega row {i} ({OPS[row[0]]}) wrote "
+                                 f"{int(other.sum())} workspace values "
+                                 "outside its outputs")
+    return err_max, worst, worst_op
+
+
+def check_mega_branches(world, paged, device="cuda"):
+    """Every branch of the megakernel against run_plain at the Qwen3-8B
+    widths a rank sees at `world` (hidden 4096, intermediate 12288 / n,
+    32 / n q and 8 / n kv heads of 128, s_max MAX_LEN, batch 4; positions
+    0, 127, 512 and 1023; a dense pool or 64-token pages through a
+    shuffled table), bf16, one launch; each branch's output within two
+    bf16 ulps of its largest value (the two round the same values at the
+    same points after f32 sums in another order). Returns the max abs
+    error."""
+    import numpy as np
+    import torch
+
+    from triton_dist_tpu_torch import kernels
+    from triton_dist_tpu_torch.mega.builder import branch_graph
+    from triton_dist_tpu_torch.mega.kernel import blocks_per_rank, compile_graph
+    from triton_dist_tpu_torch.mega.scheduler import (
+        schedule_graph,
+        validate_schedule,
+    )
+
+    b, h, d, s_max = 4, 4096, 128, MAX_LEN
+    inter, hq, hkv = 12288 // world, 32 // world, 8 // world
+    page = 64 if paged else s_max
+    g = branch_graph(world, b, h, inter, hq, hkv, d, s_max,
+                     page if paged else 0)
+    sched = schedule_graph(g)
+    validate_schedule(g, sched)
+    cm = compile_graph(g, sched, torch.bfloat16,
+                       blocks=blocks_per_rank(device, world), world=world)
+    bf = torch.bfloat16
+    shapes = {"w_gu": (h, 2 * inter), "w_dn": (inter, h),
+              "w_qkv": (h, (hq + 2 * hkv) * d), "w_o": (hq * d, h),
+              "w_gu2": (h, 2 * inter), "w_dn2": (inter, h)}
+    weights = {k: rand((2, world, *sh), bf, 50 + i, 0.02)
+               for i, (k, sh) in enumerate(shapes.items())}
+    norms = 1.0 + rand((7, cm.norm_width), torch.float32, 60, 0.1)
+    rope = rand((s_max, d), torch.float32, 61, 0.7)
+    maxp = s_max // page
+    pages = b * maxp + 1
+    kp = rand((2, world * hkv, pages, page, d), bf, 62, 0.5)
+    vp = rand((2, world * hkv, pages, page, d), bf, 63, 0.5)
+    order = (np.random.default_rng(world).permutation(pages - 1)[:b * maxp]
+             + 1) if paged else np.arange(b * maxp)
+    table = torch.as_tensor(order.reshape(b, maxp), dtype=torch.int32,
+                            device=device)
+    pos = torch.tensor([0, 127, s_max // 2, s_max - 1], dtype=torch.int32,
+                       device=device)
+    ws = cm.workspace(device)
+    ws[:, int(sched.buf_slot[0]), :, :h] = rand((b, h), bf, 64)
+    want = cm.run_plain(pos, table, ws.clone(), weights, norms, rope, kp, vp)
+    before = kernels.launches()["mega"]
+    got = cm.run(pos, table, ws, weights, norms, rope, kp, vp)
+    torch.cuda.synchronize()
+    assert kernels.launches()["mega"] == before + 1
+    err_max, worst = 0.0, {}
+    for buf in g.buffers:
+        sl = int(sched.buf_slot[buf.id])
+        gv = got[:, sl, :, :buf.width].float()
+        wv = want[:, sl, :, :buf.width].float()
+        err = (gv - wv).abs().max().item()
+        atol = mega_atol(wv)
+        if not bool(torch.isfinite(gv).all()) or not err <= atol:
+            raise AssertionError(f"mega branch output {buf.name} (world "
+                                 f"{world}, paged {paged}): err {err}, atol "
+                                 f"{atol}")
+        err_max = max(err_max, err)
+        worst[buf.name] = round(err / atol, 3)
+    log(f"  mega branches, Qwen3-8B widths at world {world}, "
+        f"{'paged 64' if paged else 'dense'} KV, bf16: max_abs_err="
+        f"{err_max:.3e}; err / atol per output {worst}")
+    return err_max
+
+
+def mega_work(mega, pos):
+    """(bytes, operations) one mega launch must move and do, over all
+    ranks: every weight of the stack read once, each sequence's cached KV
+    prefix (pos[b] positions of every layer and kv head), the norm rows,
+    the input rows and the workspace rows it writes (the k/v rows, the
+    final hidden); the products' 2 * B * weight elements and the
+    attention's 4 * B * q heads * (pos + 1) * D a layer. And the bytes
+    the whole step adds around it: the embed rows, the lm_head, the f32
+    logits."""
+    cfg = mega.cfg
+    L, h, d = cfg.num_layers, cfg.hidden_size, cfg.head_dim
+    isz = cfg.torch_dtype.itemsize
+    b, n = mega.batch, mega.world
+    w = sum(t.numel() for t in mega._weights.values())
+    live = int(pos.sum())
+    kv = 2 * L * cfg.num_kv_heads * live * d
+    rows = n * b * h + 2 * L * b * cfg.num_kv_heads * d + n * b * h
+    nbytes = (w + kv + rows) * isz + mega._norms.numel() * 4
+    ops = 2 * b * w + 4 * L * cfg.num_q_heads * (live + b) * d
+    around = (b * h + h * cfg.vocab_size) * isz + b * cfg.vocab_size * 4
+    return nbytes, ops, around
+
+
+def mega_decode_timing(mega, tok, cache_fn, steps=MEGA_STEPS):
+    """ms a token of `steps` greedy decode steps from cache_fn(), on CUDA
+    events and on the host clock (the second of two runs)."""
+    import torch
+
+    for _ in range(2):
+        tok_, cache = tok, cache_fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(steps):
+            logits, cache = mega.decode_step(tok_, cache)
+            tok_ = logits.argmax(-1)
+        e.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / steps
+        del cache
+    return a.elapsed_time(e) / steps, host
+
+
+def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
+    """The fifth path at `world`: the Engine's 4 x 128 prefill
+    (`prefill_mode`), then MEGA_STEPS greedy decode steps of MegaQwen3,
+    one mega launch a step, launches counted from 0 around both; the
+    first step's kernel inputs recorded. Then the kernel against
+    run_plain on them (and the logits against the one-ulp band), the
+    eager Engine's greedy decode of the same prefill beside it, and the
+    timing. Returns (launches, numbers)."""
+    import numpy as np
+    import torch
+
+    from triton_dist_tpu_torch.mega import kernel as mk
+    from triton_dist_tpu_torch.models import Engine, MegaKVCache, MegaQwen3
+
+    L = cfg.num_layers
+    eng = Engine(cfg, device=device, params=params, max_len=MAX_LEN,
+                 world=world, prefill_mode=prefill_mode, decode_mode="ar")
+    mega = MegaQwen3(cfg, world=world, batch=4, s_max=MAX_LEN,
+                     params=params, device=device)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 128))
+    real = mega.cm.run
+    rec = []
+
+    def record(*a):
+        if not rec:
+            rec.append([x.clone() if isinstance(x, torch.Tensor) else x
+                        for x in a])
+        return real(*a)
+
+    mega.cm.run = record
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = eng.prefill(prompts)
+    mc = MegaKVCache.from_dense(cache, s_max=MAX_LEN)
+    tok0 = tok = logits.argmax(-1)
+    toks, first = [], None
+    for _ in range(MEGA_STEPS):
+        lm, mc = mega.decode_step(tok, mc)
+        first = lm if first is None else first
+        tok = lm.argmax(-1)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launched = kernels.launches()
+    mega.cm.run = real
+    want = {name: 0 for name in kernel_names()}
+    want.update(flash_prefill_local=L, mega=MEGA_STEPS)
+    if world > 1 and prefill_mode == "dist":
+        want.update(ag_gemm=2 * L, gemm_rs=2 * L)
+    elif world > 1:
+        want.update(gemm_rs=2 * L, ring_all_gather=2 * L)
+    assert launched == want, (launched, want)
+    mega_toks = torch.stack(toks, 1)
+    assert bool(torch.isfinite(first).all()) and first.shape == (
+        4, cfg.vocab_size)
+    assert int(mega_toks.min()) >= 0 and int(mega_toks.max()) < cfg.vocab_size
+
+    # the eager Engine's greedy decode of the same prefill
+    e_toks, e_first, tok = [], None, tok0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MEGA_STEPS):
+        le, cache = eng.decode_step(tok, cache)
+        e_first = le if e_first is None else e_first
+        tok = le.argmax(-1)
+        e_toks.append(tok)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / MEGA_STEPS
+    agree = (mega_toks == torch.stack(e_toks, 1)).float().mean().item()
+    rel_eager = ((first - e_first).norm() / e_first.norm()).item()
+
+    # the kernel against run_plain on the recorded step, and the band
+    pos, table, ws, weights, norms, rope, kp, vp = rec[0]
+    ws_k = real(pos, table, ws.clone(), weights, norms, rope, kp, vp)
+    ws_p = mega.cm.run_plain(pos, table, ws.clone(), weights, norms, rope,
+                             kp, vp)
+    torch.cuda.synchronize()
+    err_ws = (ws_k.float() - ws_p.float()).abs().max().item()
+    mag = ws_p.float().abs().max().item()
+    fin = mega._final_slot  # the final rms-normed hidden rows
+    err = (ws_k[:, fin].float() - ws_p[:, fin].float()).abs().max().item()
+    lk, lp = mega.logits_from(ws_k), mega.logits_from(ws_p)
+    attention = mk._PLAIN["attention"]
+    noise = torch.Generator(device=device).manual_seed(1)
+
+    def perturbed(cm, row, *a):  # the attention output one ulp off
+        attention(cm, row, *a)
+        out = a[2][:, int(row[3]), :, :int(row[8]) * int(row[10])]
+        sign = torch.randint(0, 2, out.shape, generator=noise,
+                             device=out.device) * 2 - 1
+        out.copy_((out.float() * (1 + sign * 2.0 ** -8)).to(out.dtype))
+
+    mk._PLAIN["attention"] = perturbed
+    try:
+        ws_f = mega.cm.run_plain(pos, table, ws.clone(), weights, norms,
+                                 rope, kp, vp)
+    finally:
+        mk._PLAIN["attention"] = attention
+    lf = mega.logits_from(ws_f)
+    rel = ((lk - lp).norm() / lp.norm()).item()
+    floor = ((lf - lp).norm() / lp.norm()).item()
+    log(f"  mega world {world}: Engine prefill ({prefill_mode}) 4x128 + "
+        f"{MEGA_STEPS} MegaQwen3 steps in {serve_s:.3f} s, launches "
+        f"{launched}; tokens {mega_toks[0, :8].tolist()}...")
+    log(f"  mega step vs run_plain on the recorded inputs: max_abs_err "
+        f"{err:.3e} on the final normed hidden, {err_ws:.3e} over the "
+        f"workspace (largest value {mag:.3e}); logits relative L2 {rel:.4e} "
+        f"(one-ulp perturbed plain: {floor:.4e}); against the eager "
+        f"Engine's first step: relative L2 {rel_eager:.4e}, greedy tokens "
+        f"agree {agree:.2f} over {MEGA_STEPS} steps")
+    if not rel <= 2 * floor:
+        raise AssertionError("mega logits drift more than twice the one-ulp "
+                             "perturbation's")
+    if not rel_eager <= MEGA_EAGER_REL_L2:
+        raise AssertionError(f"mega logits {rel_eager:.3e} off the eager "
+                             "Engine's")
+    row_err, row_worst, row_op = check_mega_rows(
+        mega.cm, pos, table, ws, weights, norms, rope, kp, vp)
+    log(f"  mega rows teacher-forced on the recorded inputs: each of "
+        f"{len(mega.cm.queue)} rows within two bf16 ulps of its outputs' "
+        f"largest value, max_abs_err {row_err:.3e}, worst err / atol "
+        f"{row_worst:.3f} ({row_op})")
+
+    # timing: the step, the launch, its bound, the plain walk
+    start = MegaKVCache.from_dense(cache, s_max=MAX_LEN)
+    length0 = start.length.clone()
+    ev_ms, host_ms = mega_decode_timing(
+        mega, tok0, lambda: start._replace(length=length0.clone()))
+    call = lambda: real(pos, table, ws, weights, norms, rope, kp, vp)  # noqa: E731
+    call_ms = time_ms(call)
+    dev_us = device_us(call, "mega_kernel")
+    plain_ms = time_ms(lambda: mega.cm.run_plain(
+        pos, table, ws.clone(), weights, norms, rope, kp, vp), iters=3,
+        warmup=1)
+    nbytes, ops, around = mega_work(mega, pos)
+    bnd, by = bound_ms(ops, nbytes, "bfloat16")
+    step_floor = (nbytes + around) / HBM_BYTES_PER_S * 1e3
+    share = None if dev_us is None else bnd / (dev_us / 1e3)
+    log(f"  mega world {world} timing: {ev_ms:.3f} ms/token (CUDA events), "
+        f"{host_ms:.3f} ms/token (host clock); one launch {call_ms:.4f} ms "
+        f"call, {dev_us} us device; bound {bnd:.4f} ms ({by}; "
+        f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.1f} GFLOP), share "
+        f"{share}; step floor with embed rows, lm_head, logits "
+        f"{step_floor:.4f} ms; plain walk {plain_ms:.3f} ms; eager "
+        f"Engine.decode_step {eager_ms:.3f} ms/token (host clock)")
+    row = dict(ms=call_ms, device_us=dev_us, plain_ms=plain_ms,
+               bound_ms=bnd, bound_by=by, library_ms=None,
+               bound_share=share, gbytes=nbytes / 1e9, gflop=ops / 1e9,
+               step_floor_ms=step_floor, decode_ms_events=ev_ms,
+               decode_ms_host=host_ms, eager_decode_ms_host=eager_ms,
+               max_abs_err=err, max_abs_err_workspace=err_ws,
+               max_abs_err_rows=row_err, rows_err_over_atol=row_worst,
+               workspace_max=mag, logits_rel_l2=rel, logits_rel_l2_ulp=floor,
+               eager_rel_l2=rel_eager, eager_token_agree=agree,
+               tile_cols={k[1]: v for k, v in mega.cm.mm_tiles.items()},
+               blocks_per_rank=mega.cm.blocks)
+    del eng, mega, cache, mc, start, rec, ws_k, ws_p, ws_f
+    torch.cuda.empty_cache()
+    return launched, row
+
+
+def mega_batch1(cfg, params, context=512, device="cuda"):
+    """MegaQwen3 at world 1, batch 1, from a cache holding `context`
+    random positions: ms a token over MEGA_STEPS steps, beside the
+    launch's bound at that context."""
+    import torch
+
+    from triton_dist_tpu_torch.models import MegaQwen3
+
+    mega = MegaQwen3(cfg, world=1, batch=1, s_max=MAX_LEN, params=params,
+                     device=device)
+    cache = mega.new_cache()
+    g = torch.Generator(device=device).manual_seed(5)
+    cache.k.normal_(generator=g)
+    cache.v.normal_(generator=g)
+    cache.length.fill_(context)
+    tok = torch.tensor([7], device=device)
+    ev_ms, host_ms = mega_decode_timing(mega, tok, lambda: cache._replace(
+        length=torch.full_like(cache.length, context)))
+    nbytes, ops, _ = mega_work(mega, cache.length)
+    bnd, _ = bound_ms(ops, nbytes, "bfloat16")
+    log(f"  mega world 1, batch 1, context {context}: {ev_ms:.3f} ms/token "
+        f"(CUDA events), {host_ms:.3f} ms/token (host clock); launch bound "
+        f"{bnd:.4f} ms")
+    del mega, cache
+    torch.cuda.empty_cache()
+    return dict(batch=1, context=context, decode_ms_events=ev_ms,
+                decode_ms_host=host_ms, bound_ms=bnd)
+
+
 SOURCES = {
+    "mega": ("triton_dist_tpu_torch/csrc/mega.cu",
+             "triton_dist_tpu/mega/kernel.py:1192"),
     "ag_gemm": ("triton_dist_tpu_torch/csrc/allgather_gemm.cu",
                 "triton_dist_tpu/kernels/allgather_gemm.py:116"),
     "flash_prefill_local": ("triton_dist_tpu_torch/csrc/flash_prefill.cu",
@@ -1531,6 +1936,8 @@ def main() -> int:
     check_ring_rs(kernels)
     grouped_ratio = check_grouped_ag_gemm(kernels)
     check_grouped_gemm()
+    mega_branch_err = max(check_mega_branches(world, paged)
+                          for world in (1, 4) for paged in (False, True))
 
     log("== 4. main path: Qwen3-8B, Engine.serve and Scheduler, world 1, "
         "world 4 (ar), world 4 (default modes: dist prefill, ar decode; "
@@ -1538,6 +1945,9 @@ def main() -> int:
     cfg = ModelConfig.qwen3_8b()
     params = init_params(cfg, device="cuda", seed=0)
     n1, rec1, model1 = run_model(kernels, cfg, params, world=1)
+    log("== 4m. the fifth path: the decode megakernel (MegaQwen3) at world 1")
+    nm1, mega1 = run_mega(kernels, cfg, params, world=1)
+    mega_b1 = mega_batch1(cfg, params)
     # the same weights laid out for 4 ranks; the world-1 engine is gone
     params = shard_params(params, 4)
     torch.cuda.empty_cache()
@@ -1545,6 +1955,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     nd, recd, modeld = run_model(kernels, cfg, params, world=4,
                                  prefill_mode="dist", sched_mode="dist")
+    log("== 4m. the fifth path at world 4 (default modes' dist prefill)")
+    nm4, mega4 = run_mega(kernels, cfg, params, world=4, prefill_mode="dist")
     del params
     torch.cuda.empty_cache()
     check_small_model(world=1)
@@ -1607,7 +2019,7 @@ def main() -> int:
 
     # launches: the four main-path runs, each counted from 0
     paths = {"world1": n1, "world4_ar": n4, "world4_dist": nd,
-             "world4_moe": nm}
+             "world4_moe": nm, "mega_world1": nm1, "mega_world4": nm4}
 
     def by_path(name):
         return {k: v[name] for k, v in paths.items()}
@@ -1636,12 +2048,21 @@ def main() -> int:
     lines.append(entry("ring_reduce_scatter", total("ring_reduce_scatter"),
                        by_path("ring_reduce_scatter"), err_rs, moe_rs_rows,
                        rs_main))
+    mega_rows = {"world 1, batch 4, Qwen3-8B decode step": mega1,
+                 "world 4, batch 4, Qwen3-8B decode step": mega4}
+    lines.append(entry("mega", total("mega"), by_path("mega"),
+                       max(mega1["max_abs_err"], mega4["max_abs_err"]),
+                       mega_rows, next(iter(mega_rows)),
+                       device_us=mega1["device_us"],
+                       max_abs_err_branches=mega_branch_err,
+                       batch1_context512=mega_b1))
     missing = set(kernels.KERNELS) - {e["name"] for e in lines}
     assert not missing, f"kernels without a line: {missing}"
     assert all(e["launches"] > 0 for e in lines), "a kernel never launched"
     log("== 6. summary")
     log(f"  wall {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"model": [model1, model4, modeld, modelm]}))
+    log(json.dumps({"model": [model1, model4, modeld, modelm],
+                    "mega": dict(mega_rows, batch1=mega_b1)}))
     print(json.dumps({"kernels": lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

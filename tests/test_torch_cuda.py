@@ -372,3 +372,135 @@ def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script):
     assert proc.returncode == 3, (proc.returncode, proc.stdout, proc.stderr)
     assert "raised:" in proc.stdout
     assert f"shmem wait timed out: kernel {kernel}, rank" in proc.stdout
+
+
+def _mega_branch_inputs(cm, world, B, H, I, hq, hkv, D, s_max, page, pos,
+                        paged, dtype, seed):
+    """Random weights, norms, rope table, KV pools, positions and page
+    table for mega.builder.branch_graph, on the card."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, dt=dtype):
+        a = rng.standard_normal(shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to("cuda", dt)
+
+    shapes = {"w_gu": (H, 2 * I), "w_dn": (I, H),
+              "w_qkv": (H, (hq + 2 * hkv) * D), "w_o": (hq * D, H),
+              "w_gu2": (H, 2 * I), "w_dn2": (I, H)}
+    weights = {k: t(2, world, *s, scale=0.05) for k, s in shapes.items()}
+    norms = 1.0 + t(7, cm.norm_width, scale=0.1, dt=torch.float32)
+    rope = t(s_max + 1, D, scale=0.7, dt=torch.float32)
+    maxp = s_max // page
+    pages = B * maxp + 2
+    k_pool = t(2, world * hkv, pages, page, D, scale=0.5)
+    v_pool = t(2, world * hkv, pages, page, D, scale=0.5)
+    if paged:
+        perm = rng.permutation(pages - 2)[:B * maxp] + 1
+        table = perm.reshape(B, maxp)
+    else:
+        table = np.arange(B * maxp).reshape(B, maxp)
+    table = torch.as_tensor(table, dtype=torch.int32, device="cuda")
+    pos = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+    ws = cm.workspace("cuda")
+    ws[:, 0, :, :H] = t(B, H)  # x
+    return pos, table, ws, weights, norms, rope, k_pool, v_pool
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 4])
+@pytest.mark.parametrize("dtype,ulps", [(torch.float32, None),
+                                        (torch.bfloat16, 2)])
+@pytest.mark.parametrize("batch,paged,D", [(4, False, 64), (3, True, 128),
+                                           (9, False, 32), (2, True, 256)])
+def test_mega_branches_match_plain(cuda, world, dtype, ulps, batch, paged,
+                                   D):
+    """Every megakernel branch (matmul with none / rms / silu prologue,
+    rms_norm, silu_mul, add, allreduce_add, attention over a dense or a
+    paged pool, the barrier at world 4) against run_plain on the same
+    inputs, each branch's output in its own slot; one launch. Positions
+    0, mid-page, page edges and s_max - 1; head_dim 32, 64, 128 and 256;
+    batch 2, 3, 4 and 9 (the kernel's 16-row form). f32 within 1e-4
+    (sums in another order); bf16 within two bf16 ulps of each output's
+    largest value (2 * 2^-7 of it): the two round the same values to bf16
+    at the same points after f32 sums taken in another order, so a
+    rounding may differ by one ulp and carry into the next branch."""
+    from triton_dist_tpu_torch.mega.builder import branch_graph
+    from triton_dist_tpu_torch.mega.kernel import compile_graph
+    from triton_dist_tpu_torch.mega.scheduler import (
+        schedule_graph,
+        validate_schedule,
+    )
+
+    H, I, hq, hkv, s_max, page = 256, 512, 4, 2, 64, 16
+    g = branch_graph(world, batch, H, I, hq, hkv, D, s_max,
+                           page if paged else 0)
+    sched = schedule_graph(g)
+    validate_schedule(g, sched)
+    cm = compile_graph(g, sched, dtype, blocks=132 // world, world=world)
+    pos = [0, 7, 16, 63, 31, 1, 48, 15, 33][:batch]
+    inp = _mega_branch_inputs(cm, world, batch, H, I, hq, hkv, D, s_max,
+                              page if paged else s_max, pos, paged, dtype,
+                              seed=world + batch)
+    pos_t, table, ws, weights, norms, rope, kp, vp = inp
+    want = cm.run_plain(pos_t, table, ws.clone(), weights, norms, rope, kp,
+                        vp)
+    reset_launches()
+    got = cm.run(pos_t, table, ws, weights, norms, rope, kp, vp)
+    torch.cuda.synchronize()
+    assert launches()["mega"] == 1
+    for b in g.buffers:
+        s = int(sched.buf_slot[b.id])
+        w = want[:, s, :, :b.width].float()
+        err = (got[:, s, :, :b.width].float() - w).abs().max().item()
+        atol = 1e-4 if ulps is None else ulps * 2.0 ** -7 * w.abs().max()
+        assert err <= atol, (b.name, s, err, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 4])
+def test_mega_decode_step_matches_plain(cuda, world):
+    """A whole tiny bf16 Qwen3 decode step (slots reused by the
+    happens-before plan) on the card, against run_plain on the recorded
+    step inputs (every workspace slot within two bf16 ulps of its largest
+    value), and one mega launch a step for decode_step and for each step
+    of decode_resident."""
+    from triton_dist_tpu_torch.mega import MegaQwen3
+
+    from triton_dist_tpu_torch.models import ModelConfig
+
+    cfg = ModelConfig.tiny(dtype="bfloat16", max_positions=64,
+                           head_dim=64, num_q_heads=8, num_kv_heads=4)
+    mega = MegaQwen3(cfg, world=world, batch=4, s_max=64, device="cuda")
+    cache = mega.new_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cache.k.normal_(generator=gen)
+    cache.v.normal_(generator=gen)
+    cache.length.copy_(torch.tensor([5, 0, 17, 40]))
+    tok = torch.tensor([3, 7, 11, 200], device="cuda")
+    recorded = []
+    real = mega.cm.run
+
+    def record(*a):
+        recorded.append([x.clone() if isinstance(x, torch.Tensor) else x
+                         for x in a])
+        return real(*a)
+
+    mega.cm.run = record
+    reset_launches()
+    logits, cache = mega.decode_step(tok, cache)
+    torch.cuda.synchronize()
+    assert launches()["mega"] == 1
+    pos, table, ws, weights, norms, rope, kp, vp = recorded[0]
+    want = mega.cm.run_plain(pos, table, ws.clone(), weights, norms, rope,
+                             kp, vp)
+    got = real(pos, table, ws, weights, norms, rope, kp, vp)
+    torch.cuda.synchronize()
+    for s in range(got.shape[1]):  # two bf16 ulps of each slot's largest
+        w = want[:, s].float()
+        err = (got[:, s].float() - w).abs().max().item()
+        assert err <= 2 * 2.0 ** -7 * w.abs().max().item(), (s, err)
+    assert torch.isfinite(logits).all()
+    reset_launches()
+    ids, _ = mega.decode_resident(logits.argmax(-1), cache, 3)
+    torch.cuda.synchronize()
+    assert launches()["mega"] == 3 and ids.shape == (4, 3)

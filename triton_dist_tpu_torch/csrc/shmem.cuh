@@ -94,28 +94,34 @@ __device__ __forceinline__ void signal_add(int* flag, int v) {
   }
 }
 
-// One thread spins with an acquire load until `*flag cmp v`, backing off
-// with __nanosleep, bounded by kWaitBoundNs; then the block syncs, and
-// its reads of the guarded data (with __ldcg) follow.
+// One thread's bounded acquire spin until `*flag cmp v`, backing off
+// with __nanosleep: past kWaitBoundNs it prints (kernel, rank, flag
+// index, value) and traps.
+__device__ __forceinline__ void spin_until(const int* flag, Cmp cmp, int v,
+                                           const char* kernel, int rank,
+                                           int index) {
+  const unsigned long long t0 = globaltimer();
+  unsigned ns = 32;
+  for (;;) {
+    const int x = ld_acquire(flag);
+    if (cmp == kEq ? x == v : x >= v) break;
+    if (globaltimer() - t0 > kWaitBoundNs) {
+      printf("shmem wait timed out: kernel %s, rank %d, flag %d, value %d, "
+             "waiting for %s %d\n",
+             kernel, rank, index, x, cmp == kEq ? "==" : ">=", v);
+      __trap();
+    }
+    __nanosleep(ns);
+    if (ns < 1024) ns *= 2;
+  }
+}
+
+// Thread 0 spins (spin_until); then the block syncs, and its reads of the
+// guarded data (with __ldcg) follow.
 __device__ __forceinline__ void signal_wait_until(const int* flag, Cmp cmp,
                                                   int v, const char* kernel,
                                                   int rank, int index) {
-  if (threadIdx.x == 0) {
-    const unsigned long long t0 = globaltimer();
-    unsigned ns = 32;
-    for (;;) {
-      const int x = ld_acquire(flag);
-      if (cmp == kEq ? x == v : x >= v) break;
-      if (globaltimer() - t0 > kWaitBoundNs) {
-        printf("shmem wait timed out: kernel %s, rank %d, flag %d, value %d, "
-               "waiting for %s %d\n",
-               kernel, rank, index, x, cmp == kEq ? "==" : ">=", v);
-        __trap();
-      }
-      __nanosleep(ns);
-      if (ns < 1024) ns *= 2;
-    }
-  }
+  if (threadIdx.x == 0) spin_until(flag, cmp, v, kernel, rank, index);
   __syncthreads();
 }
 

@@ -35,6 +35,7 @@ from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (  # noqa: F401
     gemm_rs,
     gemm_rs_plain,
 )
+from triton_dist_tpu_torch.kernels.mega import mega_step  # noqa: F401
 from triton_dist_tpu_torch.kernels.reduce_scatter import (  # noqa: F401
     ReduceScatterMethod,
     ring_reduce_scatter,
@@ -49,4 +50,5 @@ SOURCES = {
     "gemm_rs": "gemm_reduce_scatter",
     "ag_gemm": "allgather_gemm",
     "ring_reduce_scatter": "reduce_scatter",
+    "mega": "mega",
 }

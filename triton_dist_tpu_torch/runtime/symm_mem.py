@@ -14,6 +14,13 @@ card, the same way: a rank is an index, not a process.
                       kernel launch starts from fresh flags, as the TPU
                       kernels' semaphores are kernel-local.
 
+The decode megakernel's AllReduce mailbox is one heap((AR tasks, n, B,
+W)): each AR task of a step has its own slot of n source ranks in every
+rank's partition (72 x 4 x 4 x 4096 bf16 = 9.4 MB a rank for Qwen3-8B at
+world 4), and its arrival counters are flags. A launch never reuses a
+slot and the next launch is stream-ordered after it, so the JAX kernel's
+parity double-buffering and its flow control are not needed.
+
 One launch runs all n ranks' programs (csrc/shmem.cuh). Rank-stacked
 tensors carry the rank as their leading dim: the activations (n, M, H),
 the weights (L, n, ...), the KV cache's rows. World 1 is the same object
