@@ -44,6 +44,20 @@ outside a checkout of the repository. Phases, each fatal on failure:
      bound; a batch-1, context-512 figure at world 1. (Phase 3 also
      holds every megakernel branch against run_plain at the Qwen3-8B
      widths of world 1 and 4, dense and paged KV.)
+  4s. the sixth path, after 4m at world 1, on layer 0's attention
+     weights of the same Qwen3-8B draw: SP long-context attention on the
+     virtual world of 4. An SP prefill of 4 rows x 32768 positions (8192
+     a rank, a ragged kv_len with one row just under each shard
+     boundary: QKV product, q/k-norm, rope, sp_flash_prefill, O
+     product), whose K/V segments are the cache shards, then 16 SP decode
+     steps threading one low-latency AllGather context; launches pinned
+     (1 sp_flash_prefill, 16 flash_decode_partial, 16 ll_all_gather).
+     The decode partial against its plain version on every step's inputs
+     (epsilon band), the LL AllGather bitwise over all 16 calls, each
+     step bitwise the same step with the partials gathered by a torch
+     copy; SP prefill against its plain version on sampled rows and
+     whole at 4 x 4096 (band), and bitwise itself with rank 0, then rank
+     3, delayed; prefill ms and decode ms/step, and each kernel's time;
   5. every kernel against its plain version on the inputs recorded in
      phase 4, and its timing there (flash prefill also at two synthetic
      Qwen3-8B shapes), beside its bound over the work of all ranks, its
@@ -262,11 +276,14 @@ def time_flash_prefill(fp, extra=()):
         bnd, by = bound_ms(ops, nbytes, "bfloat16")
         row = dict(
             ms=time_ms(lambda: fp.flash_prefill_local(**inp)),
+            device_us=device_us(lambda: fp.flash_prefill_local(**inp),
+                                "fp_local_kernel"),
             plain_ms=time_ms(lambda: fp.flash_prefill_plain(**inp)),
             bound_ms=bnd, bound_by=by,
             library_ms=time_ms(sdpa_call(inp)),
             gflop=ops / 1e9, mbytes=nbytes / 1e6)
-        log(f"  flash_prefill {label}: kernel {row['ms']:.4f} ms, plain "
+        log(f"  flash_prefill {label}: kernel {row['ms']:.4f} ms, device "
+            f"{row['device_us']} us, plain "
             f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
             f"bound {bnd:.4f} ms ({by}; {row['gflop']:.2f} GFLOP, "
             f"{row['mbytes']:.2f} MB)")
@@ -633,10 +650,14 @@ def main_path_kernels():
             "ring_reduce_scatter": (reduce_scatter, "ring_reduce_scatter")}
 
 
+SP_KERNELS = ("sp_flash_prefill", "flash_decode_partial", "ll_all_gather")
+
+
 def kernel_names():
     """Every counted kernel: the ones the main path calls through a module
-    attribute, and the megakernel (MegaQwen3 calls it through its queue)."""
-    return [*main_path_kernels(), "mega"]
+    attribute, the megakernel (MegaQwen3 calls it through its queue) and
+    the SP path's three (the sixth path calls them through its layer)."""
+    return [*main_path_kernels(), "mega", *SP_KERNELS]
 
 
 def plain_versions():
@@ -1190,20 +1211,23 @@ def device_us(fn, key, reps=10):
 def time_collective(label, fn, plain, library, ops, nbytes, dtype,
                     kernel_key=None):
     """Kernel, plain and library times of one call, beside the bound;
-    with kernel_key, the kernel's device time from the profiler too."""
+    with kernel_key, the kernel's device time from the profiler too.
+    library None: timed by the caller."""
     bnd, by = bound_ms(ops, nbytes, str(dtype)[6:])
     row = dict(ms=time_ms(fn), plain_ms=time_ms(plain), bound_ms=bnd,
-               bound_by=by, library_ms=time_ms(library),
+               bound_by=by,
+               library_ms=None if library is None else time_ms(library),
                gflop=ops / 1e9, mbytes=nbytes / 1e6)
     if kernel_key is not None:
         row["device_us"] = device_us(fn, kernel_key)
     dev = ("" if kernel_key is None else
            f", device {row['device_us']} us" if row["device_us"] is None else
            f", device {row['device_us']:.1f} us")
+    lib = ("" if library is None else
+           f", library {row['library_ms']:.4f} ms")
     log(f"  {label}: kernel {row['ms']:.4f} ms{dev}, plain "
-        f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-        f"bound {bnd:.4f} ms ({by}; {row['gflop']:.3f} GFLOP, "
-        f"{row['mbytes']:.2f} MB)")
+        f"{row['plain_ms']:.4f} ms{lib}, bound {bnd:.4f} ms ({by}; "
+        f"{row['gflop']:.3f} GFLOP, {row['mbytes']:.2f} MB)")
     return row
 
 
@@ -1415,16 +1439,20 @@ def check_mega_rows(cm, pos, table, ws, weights, norms, rope, kp, vp):
     the kernel (a queue of that row alone, its producers met) from the
     workspace run_plain has built up to that row, against run_plain's row.
     Each output within two bf16 ulps of its largest value (mega_atol), every
-    other workspace value bitwise unchanged. Returns (max abs error, the
-    worst err / atol, the op of its row)."""
+    other workspace value bitwise unchanged. Also measures (does not
+    judge) each output against the bf16 epsilon band. Returns (max abs
+    error, the worst err / atol, the op of its row, the band's worst
+    (ulp, cos, op) and the rows outside it)."""
     import dataclasses
 
     import torch
 
     from triton_dist_tpu_torch.mega.kernel import _PLAIN, OPS
 
+    parity = torch_parity()
     ws = ws.clone()
     err_max, worst, worst_op = 0.0, 0.0, None
+    band_worst, outside = (0, 0.0, None), 0
     for i, row in enumerate(cm.queue):
         alone = row.copy()
         alone[17] = 0
@@ -1444,12 +1472,18 @@ def check_mega_rows(cm, pos, table, ws, weights, norms, rope, kp, vp):
             err_max = max(err_max, err)
             if err / atol > worst:
                 worst, worst_op = err / atol, OPS[row[0]]
+            rep = parity.check_epsilon(
+                w.float().cpu().numpy(), g.float().cpu().numpy(), "mega",
+                w.dtype)
+            outside += not rep["ok"]
+            if rep["ulp"] > band_worst[0]:
+                band_worst = (rep["ulp"], rep["cos"], OPS[row[0]])
             other[:, slot, :, :width] = False
         if bool(other.any()):
             raise AssertionError(f"mega row {i} ({OPS[row[0]]}) wrote "
                                  f"{int(other.sum())} workspace values "
                                  "outside its outputs")
-    return err_max, worst, worst_op
+    return err_max, worst, worst_op, band_worst, outside
 
 
 def check_mega_branches(world, paged, device="cuda"):
@@ -1687,12 +1721,14 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
     if not rel_eager <= MEGA_EAGER_REL_L2:
         raise AssertionError(f"mega logits {rel_eager:.3e} off the eager "
                              "Engine's")
-    row_err, row_worst, row_op = check_mega_rows(
+    row_err, row_worst, row_op, row_band, row_out = check_mega_rows(
         mega.cm, pos, table, ws, weights, norms, rope, kp, vp)
     log(f"  mega rows teacher-forced on the recorded inputs: each of "
         f"{len(mega.cm.queue)} rows within two bf16 ulps of its outputs' "
         f"largest value, max_abs_err {row_err:.3e}, worst err / atol "
-        f"{row_worst:.3f} ({row_op})")
+        f"{row_worst:.3f} ({row_op}); bf16 epsilon band (measured): "
+        f"{row_out} outputs outside, worst ulp {row_band[0]} cos "
+        f"{row_band[1]:.3e} ({row_band[2]})")
 
     # timing: the step, the launch, its bound, the plain walk
     start = MegaKVCache.from_dense(cache, s_max=MAX_LEN)
@@ -1723,6 +1759,7 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
                decode_ms_host=host_ms, eager_decode_ms_host=eager_ms,
                max_abs_err=err, max_abs_err_workspace=err_ws,
                max_abs_err_rows=row_err, rows_err_over_atol=row_worst,
+               rows_band_worst=row_band, rows_band_outside=row_out,
                workspace_max=mag, logits_rel_l2=rel, logits_rel_l2_ulp=floor,
                eager_rel_l2=rel_eager, eager_token_agree=agree,
                tile_cols={k[1]: v for k, v in mega.cm.mm_tiles.items()},
@@ -1761,9 +1798,445 @@ def mega_batch1(cfg, params, context=512, device="cuda"):
                 decode_ms_host=host_ms, bound_ms=bnd)
 
 
+# -- the sixth path: SP long-context attention at Qwen3-8B widths ---------
+
+SP_WORLD = 4
+SP_BATCH = 4
+SP_S_LOC = 8192  # 4 x 8192 = 32768 positions, Qwen3-8B's native context
+# a ragged batch, one row just under each shard boundary: rows 1-3 cross
+# into the next rank's shard during the decode steps (at 6, 4 and 2),
+# row 0 fills the cache to its last position
+SP_KV_LEN = (32752, 24570, 16380, 8190)
+SP_STEPS = 16
+SP_SAMPLE = 64  # sampled query rows: a rank's first, last, around kv_len
+SP_STRAGGLE_NS = 5_000_000
+# the whole check of SP prefill against its plain version, 4 x 4096
+SP_SMALL_S_LOC = 1024
+SP_SMALL_KV_LEN = (4080, 3070, 2044, 1022)
+
+
+def torch_parity():
+    """tests/torch_parity.py: the JAX package's epsilon bands, numpy
+    only."""
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_parity
+
+    return torch_parity
+
+
+def band(want, got, kernel):
+    """The epsilon band of `kernel` at want's dtype; raises outside it.
+    Returns (cos, ulp)."""
+    rep = torch_parity().check_epsilon(want.float().cpu().numpy(),
+                                     got.float().cpu().numpy(), kernel,
+                                     want.dtype)
+    if not rep["ok"]:
+        raise AssertionError(f"{kernel} outside its epsilon band: {rep}")
+    return rep["cos"], rep["ulp"]
+
+
+def sp_prefill_work(kv_len, n, s, hq, hkv, d, item=2):
+    """(operations, bytes) of causal SP prefill over n*s positions: 4*D a
+    live (query head, key) pair, where a query at p sees min(kv_len, p+1)
+    keys (rows past kv_len attend the keys below it); q read and the
+    output written once, each needed K/V row read once."""
+    tot = n * s
+    live = sum(l * (l + 1) // 2 + l * (tot - l) if l <= tot
+               else tot * (tot + 1) // 2 for l in kv_len)
+    b = len(kv_len)
+    nbytes = (2 * b * tot * hq * d * item
+              + sum(min(l, tot) for l in kv_len) * 2 * hkv * d * item)
+    return 4 * hq * d * live, nbytes
+
+
+def sp_prefill_layer(fp, x, sp, cos, sin, kv_len, hq, hkv, d):
+    """The SP prefill of one Qwen3 attention layer on the virtual world:
+    QKV product, q/k-norm, rope at each rank's positions, SP flash
+    prefill, O product. x (n, B, S, H). Returns (y, q, k, v, att)."""
+    import torch
+
+    from triton_dist_tpu_torch.layers import apply_rope, rms_norm
+
+    n, b, s, _ = x.shape
+    qkv = torch.matmul(x, sp.w_qkv)
+    q, k, v = torch.split(qkv, [hq * d, hkv * d, hkv * d], dim=-1)
+    q = rms_norm(q.reshape(n, b, s, hq, d), sp.q_norm)
+    k = rms_norm(k.reshape(n, b, s, hkv, d), sp.k_norm)
+    v = v.reshape(n, b, s, hkv, d).contiguous()
+    pos = (torch.arange(n, device=x.device)[:, None] * s
+           + torch.arange(s, device=x.device))[:, None].expand(n, b, s)
+    q = apply_rope(q, cos, sin, pos)
+    k = apply_rope(k, cos, sin, pos).contiguous()
+    del qkv
+    att = fp.sp_prefill_attention(q, k, v, kv_len=kv_len, impl="flash")
+    y = torch.matmul(att.reshape(n, b, s, hq * d), sp.w_o)
+    return y, q, k, v, att
+
+
+def sp_sampled_rows(kv_len, n, s, b):
+    """(n, B, 3 * SP_SAMPLE) global positions: each rank's first and last
+    SP_SAMPLE rows, and SP_SAMPLE rows around each row's kv_len clamped
+    into the rank's shard."""
+    import torch
+
+    rows = []
+    for r in range(n):
+        per_b = []
+        for bi in range(b):
+            mid = min(max(kv_len[bi] - SP_SAMPLE // 2, r * s),
+                      (r + 1) * s - SP_SAMPLE)
+            per_b.append(torch.cat([
+                torch.arange(r * s, r * s + SP_SAMPLE),
+                torch.arange((r + 1) * s - SP_SAMPLE, (r + 1) * s),
+                torch.arange(mid, mid + SP_SAMPLE)]))
+        rows.append(torch.stack(per_b))
+    return torch.stack(rows).cuda()
+
+
+def sp_check_prefill(fp, q, k, v, out, kv_len, label):
+    """SP flash prefill against flash_prefill_ref: on the sampled rows of
+    a long prefill (the dense logits of a whole one would not fit), or
+    whole. Two bf16 ulps of the largest output and the flash_prefill
+    epsilon band. Returns (max_abs_err, cos, ulp)."""
+    import torch
+
+    n, b, s = q.shape[:3]
+    kl = torch.tensor(kv_len, device="cuda")
+    if s > SP_SMALL_S_LOC:
+        pos = sp_sampled_rows(kv_len, n, s, b)
+        ri = torch.arange(n, device="cuda")[:, None, None]
+        bi = torch.arange(b, device="cuda")[None, :, None]
+        local = pos - ri * s
+        want = fp.flash_prefill_ref(q[ri, bi, local], k, v, kv_len=kl,
+                                    q_positions=pos)
+        got = out[ri, bi, local]
+    else:
+        want = fp.flash_prefill_ref(q, k, v, kv_len=kl)
+        got = out
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    atol = 2 * 2.0 ** -7 * want.float().abs().max().item()
+    cos, ulp = band(want, got, "flash_prefill")
+    log(f"  sp_flash_prefill {label}: {tuple(got.shape[:3])} rows, "
+        f"max_abs_err {err:.3e} (atol {atol:.3e}), band cos {cos:.3e} "
+        f"ulp {ulp}")
+    if not (bool(torch.isfinite(got).all()) and err <= atol):
+        raise AssertionError(f"sp_flash_prefill {label}: err {err}")
+    return err, cos, ulp
+
+
+def sp_sdpa(q, k, v, kv_len):
+    """One torch call computing SP prefill (a yardstick the port never
+    makes): SDPA of every rank's queries (ranks folded into the batch)
+    over the gathered K/V, each kv head repeated for its query heads, a
+    boolean mask of the live (query, key) pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    n, b, s, hq, d = q.shape
+    hkv = k.shape[3]
+    t = n * s
+    kf = k.permute(1, 0, 2, 3, 4).reshape(b, t, hkv, d)
+    vf = v.permute(1, 0, 2, 3, 4).reshape(b, t, hkv, d)
+
+    def heads(x):
+        x = x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+        return x[None].expand(n, *x.shape).reshape(n * b, hq, t, d)
+
+    kk, vv = heads(kf), heads(vf)
+    qq = q.reshape(n * b, s, hq, d).transpose(1, 2)
+    kpos = torch.arange(t, device="cuda")
+    qpos = (torch.arange(n, device="cuda")[:, None] * s
+            + torch.arange(s, device="cuda"))  # (n, S)
+    kl = torch.tensor(kv_len, device="cuda")
+    live = ((kpos[None, None, None] < kl[None, :, None, None])
+            & (kpos[None, None, None] <= qpos[:, None, :, None]))
+    mask = live.reshape(n * b, 1, s, t)
+    return lambda: F.scaled_dot_product_attention(qq, kk, vv,
+                                                  attn_mask=mask)
+
+
+def sp_decode_library(q, k, v, valid):
+    """One torch call computing the decode partial (a yardstick): the
+    efficient-attention op with its log-sum-exp, kv heads repeated, a
+    -inf bias past each row's valid length. None where the op refuses
+    the shapes (logged)."""
+    import torch
+
+    r, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    qq = q[:, :, None]  # (R, Hq, 1, D)
+    kk = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+    vv = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+    kpos = torch.arange(t, device="cuda")
+    bias = torch.where(kpos[None] < valid[:, None], 0.0, float("-inf")).to(
+        q.dtype)[:, None, None].expand(r, hq, 1, t).contiguous()
+    efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+    try:
+        return time_ms(lambda: efficient(qq, kk, vv, bias, True))
+    except RuntimeError as e:  # a yardstick only: the port never calls it
+        log(f"  decode partial library call refused: {e}")
+        return None
+
+
+def run_sp(kernels, cfg, params):
+    """The sixth path, SP long-context attention at Qwen3-8B widths on the
+    virtual world of 4: layer 0's attention weights of the world-1 draw
+    (sp_params_from_dense), an SP prefill of 4 rows x 32768 positions
+    (8192 a rank; kv_len SP_KV_LEN), whose K/V segments are the cache
+    shards, then SP_STEPS decode steps threading one LL context
+    (call_count 0..15); launches counted from 0 around both. Then each
+    kernel against its plain version: the decode partial on every
+    step's inputs (epsilon band), the LL AllGather bitwise over all its
+    calls, each step's output bitwise the same step with the partials
+    gathered by a torch copy; SP prefill on sampled rows and whole at 4 x
+    4096 (band), and bitwise itself under a straggler on rank 0 and on
+    rank 3. Then the timing. Returns (launches, rows, numbers)."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import flash_decode as fd
+    from triton_dist_tpu_torch.kernels import flash_prefill as fp
+    from triton_dist_tpu_torch.kernels import low_latency_allgather as llag
+    from triton_dist_tpu_torch.layers import rope_table
+    from triton_dist_tpu_torch.layers import sp_flash_decode as spl
+
+    n, b, s = SP_WORLD, SP_BATCH, SP_S_LOC
+    hq, hkv, d, h = (cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim,
+                     cfg.hidden_size)
+    t_max = n * s
+    sp = spl.sp_params_from_dense(params, layer=0)
+    spec = spl.SpDecodeSpec(hq, hkv, d)
+    assert sp.w_qkv.shape == (h, (hq + 2 * hkv) * d)
+    cos, sin = rope_table(d, t_max + SP_STEPS, cfg.rope_theta, device="cuda")
+    x = rand((n, b, s, h), torch.bfloat16, 61)  # a rank's rows of each row
+    xd = rand((SP_STEPS, b, h), torch.bfloat16, 62)
+    kv_len = torch.tensor(SP_KV_LEN, device="cuda")
+    rec_dec, rec_ll = [], []
+    real_dec, real_ll = spl.sp_flash_decode, fd.ll_all_gather
+
+    def dec(q, k, v, kl, **kw):
+        res = real_dec(q, k, v, kl, **kw)
+        rec_dec.append(dict(q=q.clone(), kv_len=kl.clone(),
+                            out=res[0].clone()))
+        return res
+
+    def ll(xp, ctx, cc, **kw):
+        got, ctx = real_ll(xp, ctx, cc, **kw)
+        rec_ll.append(dict(x=xp.clone(), cc=cc, out=got.clone()))
+        return got, ctx
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    spl.sp_flash_decode, fd.ll_all_gather = dec, ll
+    try:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        y, q, k, v, att = sp_prefill_layer(fp, x, sp, cos, sin, kv_len, hq,
+                                           hkv, d)
+        ev[1].record()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ctx = fd.create_sp_decode_buf(b, hq, d, n, device="cuda")
+        cache, ys = (k, v), []
+        for i in range(SP_STEPS):
+            yd, cache, ctx = spl.sp_decode_attn_fwd(
+                xd[i].expand(n, b, h), sp, spec, cos, sin, cache,
+                kv_len + i, ll_buf=ctx, call_count=i)
+            ys.append(yd)
+        ev[2].record()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launched = kernels.launches()
+    finally:
+        spl.sp_flash_decode, fd.ll_all_gather = real_dec, real_ll
+    want = {name: 0 for name in kernel_names()}
+    want.update(sp_flash_prefill=1, flash_decode_partial=SP_STEPS,
+                ll_all_gather=SP_STEPS)
+    assert launched == want, (launched, want)
+    assert y.shape == (n, b, s, h) and bool(torch.isfinite(y).all())
+    yd = torch.stack(ys)
+    assert yd.shape == (SP_STEPS, n, b, h) and bool(torch.isfinite(yd).all())
+    for rd in rec_dec:  # the combine of the same gathered bytes, a rank each
+        assert torch.equal(rd["out"], rd["out"][:1].expand_as(rd["out"]))
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    decode_ms = ev[1].elapsed_time(ev[2]) / SP_STEPS
+    log(f"  SP prefill layer (QKV, q/k-norm, rope, sp_flash_prefill, O) "
+        f"4 x {t_max}: {prefill_ms:.3f} ms (CUDA events), "
+        f"{(t1 - t0) * 1e3:.3f} ms host; {SP_STEPS} SP decode steps (LL "
+        f"context): {decode_ms:.3f} ms/step (CUDA events), "
+        f"{(t2 - t1) * 1e3 / SP_STEPS:.3f} ms/step host; launches "
+        f"{ {k: v for k, v in launched.items() if v} }")
+
+    # row 3 on every step's inputs; row 9 bitwise on every call; the
+    # LL-exchanged step bitwise the torch-gathered one
+    fd_err, fd_cos, fd_ulp = 0.0, 0.0, 0
+    twin = llag.create_ll_ag_buffer(rec_ll[0]["x"].shape[1:], torch.float32,
+                                    n, device="cuda")
+    for i, (rd, rl) in enumerate(zip(rec_dec, rec_ll)):
+        local = (rd["kv_len"][None] - torch.arange(n, device="cuda")[:, None]
+                 * s).clamp(0, s).reshape(-1)
+        qi = rd["q"].reshape(n * b, hq, d)
+        kf, vf = (c.reshape(n * b, s, hkv, d) for c in cache)
+        o, lse = fd.flash_decode_partial_cuda(qi, kf, vf, local)
+        o_p, lse_p = fd.flash_decode_partial(qi, kf, vf, local)
+        torch.cuda.synchronize()
+        err = max((o - o_p).abs().max().item(),
+                  (lse - lse_p).abs().max().item())
+        c1, u1 = band(o_p, o, "flash_decode_partial")
+        c2, u2 = band(lse_p, lse, "flash_decode_partial")
+        if not err <= F32_ATOL:
+            raise AssertionError(f"flash_decode_partial step {i}: {err}")
+        fd_err, fd_cos = max(fd_err, err), max(fd_cos, c1, c2)
+        fd_ulp = max(fd_ulp, u1, u2)
+        want_ll = llag.ll_all_gather_plain(rl["x"], twin, rl["cc"])
+        if not torch.equal(rl["out"], want_ll):
+            raise AssertionError(f"ll_all_gather call {i}: not bitwise")
+        gathered = fd.sp_flash_decode(rd["q"], *cache, rd["kv_len"])
+        if not torch.equal(rd["out"], gathered):
+            raise AssertionError(f"SP decode step {i}: the LL exchange is "
+                                 "not bitwise the torch-gathered one")
+    log(f"  flash_decode_partial on the {SP_STEPS} recorded steps: max_abs_"
+        f"err {fd_err:.3e} (atol {F32_ATOL:g}), band worst cos {fd_cos:.3e} "
+        f"ulp {fd_ulp}; ll_all_gather {len(rec_ll)} calls bitwise its plain "
+        f"version; every step bitwise the torch-gathered exchange")
+
+    # row 2: sampled rows, straggler bitwise, whole at 4 x 4096
+    fp_err, fp_cos, fp_ulp = sp_check_prefill(
+        fp, q, k, v, att, SP_KV_LEN, f"4 x {t_max}, sampled rows")
+    for rank in (0, n - 1):
+        late = fp.sp_flash_prefill(q, k, v, kv_len=kv_len,
+                                   straggler=(rank, SP_STRAGGLE_NS))
+        torch.cuda.synchronize()
+        if not torch.equal(late, att):
+            raise AssertionError(f"sp_flash_prefill straggler on rank "
+                                 f"{rank}: not bitwise")
+        del late
+    log(f"  sp_flash_prefill with rank 0, then rank {n - 1} delayed "
+        f"{SP_STRAGGLE_NS / 1e6:g} ms: bitwise the undelayed output")
+    ss = SP_SMALL_S_LOC
+    qs_, ks_, vs_ = (rand((n, b, ss, hh, d), torch.bfloat16, 63 + i, 0.5)
+                     for i, hh in enumerate((hq, hkv, hkv)))
+    kls = torch.tensor(SP_SMALL_KV_LEN, device="cuda")
+    small = fp.sp_flash_prefill(qs_, ks_, vs_, kv_len=kls)
+    e2, c2, u2 = sp_check_prefill(fp, qs_, ks_, vs_, small, SP_SMALL_KV_LEN,
+                                  f"4 x {n * ss}, whole")
+    fp_err, fp_cos, fp_ulp = max(fp_err, e2), max(fp_cos, c2), max(fp_ulp, u2)
+
+    # the path again, warm (the first run pays the lazy loading of every
+    # kernel it meets); the decode rewrites the same rows with the same
+    # values, the LL context goes on from call SP_STEPS
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    sp_prefill_layer(fp, x, sp, cos, sin, kv_len, hq, hkv, d)
+    ev[1].record()
+    for i in range(SP_STEPS):
+        spl.sp_decode_attn_fwd(xd[i].expand(n, b, h), sp, spec, cos, sin,
+                               cache, kv_len + i, ll_buf=ctx,
+                               call_count=SP_STEPS + i)
+    ev[2].record()
+    torch.cuda.synchronize()
+    prefill_warm = ev[0].elapsed_time(ev[1])
+    decode_warm = ev[1].elapsed_time(ev[2]) / SP_STEPS
+    log(f"  warm: SP prefill layer {prefill_warm:.3f} ms, SP decode "
+        f"{decode_warm:.3f} ms/step (CUDA events)")
+
+    # timing
+    rows = {}
+    ops, nbytes = sp_prefill_work(SP_SMALL_KV_LEN, n, ss, hq, hkv, d)
+    lab_small = (f"4 x {n * ss} (S_loc {ss} a rank), B {b}, kv_len "
+                 f"{list(SP_SMALL_KV_LEN)}, bf16")
+    rows[lab_small] = time_collective(
+        f"sp_flash_prefill {lab_small}",
+        lambda: fp.sp_flash_prefill(qs_, ks_, vs_, kv_len=kls),
+        lambda: fp.flash_prefill_ref(qs_, ks_, vs_, kv_len=kls),
+        sp_sdpa(qs_, ks_, vs_, SP_SMALL_KV_LEN), ops, nbytes, torch.bfloat16,
+        kernel_key="fp_sp_kernel")
+    ops, nbytes = sp_prefill_work(SP_KV_LEN, n, s, hq, hkv, d)
+    bnd, by = bound_ms(ops, nbytes, "bfloat16")
+    fn = lambda: fp.sp_flash_prefill(q, k, v, kv_len=kv_len)  # noqa: E731
+    big = dict(ms=time_ms(fn, iters=5, warmup=1),
+               device_us=device_us(fn, "fp_sp_kernel", reps=3),
+               plain_ms=None, library_ms=None, bound_ms=bnd, bound_by=by,
+               gflop=ops / 1e9, mbytes=nbytes / 1e6)
+    lab_big = (f"main path: 4 x {t_max} (S_loc {s} a rank), B {b}, kv_len "
+               f"{list(SP_KV_LEN)}, bf16 (plain and library: not measured, "
+               "the dense logits do not fit)")
+    rows[lab_big] = big
+    log(f"  sp_flash_prefill {lab_big}: kernel {big['ms']:.4f} ms, device "
+        f"{big['device_us']} us, bound {bnd:.4f} ms ({by}; "
+        f"{ops / 1e12:.2f} TFLOP, {nbytes / 1e9:.3f} GB), share "
+        f"{None if not big['device_us'] else bnd / (big['device_us'] / 1e3)}")
+
+    rd = rec_dec[-1]
+    local = (rd["kv_len"][None] - torch.arange(n, device="cuda")[:, None]
+             * s).clamp(0, s).reshape(-1)
+    qi = rd["q"].reshape(n * b, hq, d)
+    kf, vf = (c.reshape(n * b, s, hkv, d) for c in cache)
+    valid = int(local.sum())
+    lab_dec = (f"decode step {SP_STEPS - 1}: q {tuple(qi.shape)}, shards "
+               f"{tuple(kf.shape)}, {valid} valid rows, bf16")
+    fd_rows = {lab_dec: time_collective(
+        f"flash_decode_partial {lab_dec}",
+        lambda: fd.flash_decode_partial_cuda(qi, kf, vf, local),
+        lambda: fd.flash_decode_partial(qi, kf, vf, local),
+        None, 4 * hq * d * valid,
+        valid * 2 * hkv * d * 2 + qi.numel() * 2 + n * b * hq * (d + 1) * 4,
+        torch.bfloat16, kernel_key="fd_partial_kernel")}
+    fd_rows[lab_dec]["library_ms"] = sp_decode_library(qi, kf, vf, local)
+    log(f"  flash_decode_partial library (efficient attention with lse): "
+        f"{fd_rows[lab_dec]['library_ms']} ms")
+
+    xp = rec_ll[-1]["x"]
+    cc = [2 * SP_STEPS - 1]  # the context's next call
+
+    def ll_call():
+        cc[0] += 1
+        return llag.ll_all_gather(xp, ctx, cc[0])
+
+    twin_cc = [SP_STEPS]
+
+    def ll_plain():
+        twin_cc[0] += 1
+        return llag.ll_all_gather_plain(xp, twin, twin_cc[0])
+
+    lab_ll = (f"payload {tuple(xp.shape)} f32 ({xp[0].numel() * 4} bytes a "
+              "rank), one context, calls past 16")
+    ll_rows = {lab_ll: time_collective(
+        f"ll_all_gather {lab_ll}", ll_call, ll_plain,
+        lambda: xp[None].expand(n, *xp.shape).contiguous(), 0,
+        (n + n * n) * xp[0].numel() * 4, torch.float32,
+        kernel_key="ll_ag_kernel")}
+    numbers = dict(prefill_ms_events=prefill_ms,
+                   prefill_ms_host=(t1 - t0) * 1e3,
+                   decode_ms_per_step_events=decode_ms,
+                   decode_ms_per_step_host=(t2 - t1) * 1e3 / SP_STEPS,
+                   prefill_ms_warm=prefill_warm,
+                   decode_ms_per_step_warm=decode_warm,
+                   context=t_max, batch=b, kv_len=list(SP_KV_LEN),
+                   steps=SP_STEPS)
+    # the line's numbers: the shape where the plain version and the
+    # library call run whole; the main path's kernel time is in `rows`
+    errs = dict(sp_flash_prefill=(fp_err, fp_cos, fp_ulp, lab_small, rows),
+                flash_decode_partial=(fd_err, fd_cos, fd_ulp, lab_dec,
+                                      fd_rows),
+                ll_all_gather=(0.0, 0.0, 0, lab_ll, ll_rows))
+    del x, y, q, k, v, att, cache, ctx, twin, rec_dec, rec_ll, qs_, ks_, vs_
+    torch.cuda.empty_cache()
+    return launched, errs, numbers
+
+
 SOURCES = {
     "mega": ("triton_dist_tpu_torch/csrc/mega.cu",
              "triton_dist_tpu/mega/kernel.py:1192"),
+    "sp_flash_prefill": ("triton_dist_tpu_torch/csrc/flash_prefill.cu",
+                         "triton_dist_tpu/kernels/flash_prefill.py:379"),
+    "flash_decode_partial": ("triton_dist_tpu_torch/csrc/flash_decode.cu",
+                             "triton_dist_tpu/kernels/flash_decode.py:85"),
+    "ll_all_gather": ("triton_dist_tpu_torch/csrc/low_latency_allgather.cu",
+                      "triton_dist_tpu/kernels/low_latency_allgather.py:72"),
     "ag_gemm": ("triton_dist_tpu_torch/csrc/allgather_gemm.cu",
                 "triton_dist_tpu/kernels/allgather_gemm.py:116"),
     "flash_prefill_local": ("triton_dist_tpu_torch/csrc/flash_prefill.cu",
@@ -1948,6 +2421,9 @@ def main() -> int:
     log("== 4m. the fifth path: the decode megakernel (MegaQwen3) at world 1")
     nm1, mega1 = run_mega(kernels, cfg, params, world=1)
     mega_b1 = mega_batch1(cfg, params)
+    log("== 4s. the sixth path: SP long-context attention at Qwen3-8B "
+        "widths, world 4, a 32768-position context (layer 0's weights)")
+    nsp, sp_errs, sp_numbers = run_sp(kernels, cfg, params)
     # the same weights laid out for 4 ranks; the world-1 engine is gone
     params = shard_params(params, 4)
     torch.cuda.empty_cache()
@@ -2019,7 +2495,8 @@ def main() -> int:
 
     # launches: the four main-path runs, each counted from 0
     paths = {"world1": n1, "world4_ar": n4, "world4_dist": nd,
-             "world4_moe": nm, "mega_world1": nm1, "mega_world4": nm4}
+             "world4_moe": nm, "mega_world1": nm1, "mega_world4": nm4,
+             "sp_world4": nsp}
 
     def by_path(name):
         return {k: v[name] for k, v in paths.items()}
@@ -2056,13 +2533,18 @@ def main() -> int:
                        device_us=mega1["device_us"],
                        max_abs_err_branches=mega_branch_err,
                        batch1_context512=mega_b1))
+    for name in SP_KERNELS:
+        err, cos, ulp, main_label, rows = sp_errs[name]
+        lines.append(entry(name, total(name), by_path(name), err, rows,
+                           main_label, band_cos=cos, band_ulp=ulp))
     missing = set(kernels.KERNELS) - {e["name"] for e in lines}
     assert not missing, f"kernels without a line: {missing}"
     assert all(e["launches"] > 0 for e in lines), "a kernel never launched"
     log("== 6. summary")
     log(f"  wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"model": [model1, model4, modeld, modelm],
-                    "mega": dict(mega_rows, batch1=mega_b1)}))
+                    "mega": dict(mega_rows, batch1=mega_b1),
+                    "sp": sp_numbers}))
     print(json.dumps({"kernels": lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

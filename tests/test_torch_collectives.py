@@ -8,16 +8,17 @@ virtual CPU devices, as tests/test_overlap_gemm.py runs them; with the
 spare devices the real interpret-mode protocols run. The port's tensors
 are rank-stacked: rank r's shard is [r]. Same numpy inputs for both.
 
-Tolerances: AllReduce and AllGather bitwise in f32 (the port folds over
-ranks 0..n-1 in f32, as the JAX body does in x.dtype; a gather moves
-data only). gemm_rs 1e-5 in f32: the JAX ring folds the partials in
-ring order, the port in rank order. The CUDA kernels themselves run
+Tolerances: AllReduce and AllGather bitwise (the port folds over ranks
+0..n-1 with each add rounded to x.dtype, as the JAX body does: bitwise in
+f32 and in bf16; a gather moves data only). gemm_rs 1e-5 in f32: the
+JAX ring folds the partials in ring order, the port in rank order. The CUDA kernels themselves run
 only on the card: tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -82,6 +83,27 @@ def test_one_shot_all_reduce_matches_jax_bitwise(n):
     got = one_shot_all_reduce(torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy().reshape(n * m, w), want)
     assert torch.equal(got, got[:1].expand_as(got))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_one_shot_all_reduce_bf16_matches_jax_bitwise(n):
+    """bf16: the JAX body adds into an x.dtype accumulator, one rounding
+    an add; the port's fold rounds at the same points."""
+    m, w = 8, 128
+    x = _rand(20 + n, n, m, w, scale=4.0)
+    xb = torch.from_numpy(x).bfloat16()
+    want = _jax_stacked(functools.partial(jax_one_shot_all_reduce,
+                                          axis="tp"), n,
+                        jnp.asarray(xb.float().numpy(), jnp.bfloat16)
+                        .reshape(n * m, w), in_specs=P("tp"))
+    got = one_shot_all_reduce(xb)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy().reshape(n * m, w),
+                                  want.astype(np.float32))
+    # past one add, the f32 sum rounded once differs: the test sees the
+    # fold
+    once = xb.float().sum(0).bfloat16()
+    assert torch.equal(got[0], once) == (n == 2)
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -171,13 +193,15 @@ def test_gemm_rs_options_not_ported_raise():
 
 
 def test_plain_versions_fold_in_rank_order():
-    """bf16 inputs: the sum is taken in f32 in rank order and rounded
-    once, so every rank's copy has the same bits; gemm_rs rounds each
-    partial to bf16 first, as its heap slots hold them."""
+    """bf16 inputs: the sum is taken in rank order with each add rounded
+    to bf16 (the JAX body's x.dtype accumulator), so every rank's copy
+    has the same bits; gemm_rs rounds each partial to bf16 first, as its
+    heap slots hold them."""
     x = torch.from_numpy(_rand(5, 4, 3, 16)).bfloat16()
     got = one_shot_all_reduce(x)
-    want = (((x[0].float() + x[1].float()) + x[2].float())
-            + x[3].float()).bfloat16()
+    want = x[0]
+    for r in range(1, 4):
+        want = (want.float() + x[r].float()).bfloat16()
     assert all(torch.equal(got[r], want) for r in range(4))
     a = torch.from_numpy(_rand(6, 2, 4, 16)).bfloat16()
     b = torch.from_numpy(_rand(7, 2, 16, 8)).bfloat16()

@@ -3,12 +3,16 @@
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Every test here needs a CUDA card and nvcc (the kernels build at first
-use) and skips without one. The file imports torch and the port only.
+use) and skips without one. The file imports torch, the port and the
+numpy-only epsilon-band oracle (tests/torch_parity.py): every bf16 case
+is also judged by its family's band (`band`), on top of its own
+tolerance, and prints the report (`-s` shows it).
 """
 
 import numpy as np
 import pytest
 import torch
+import torch_parity
 
 from triton_dist_tpu_torch.kernels import (
     ag_gemm,
@@ -26,13 +30,30 @@ from triton_dist_tpu_torch.kernels import (
     ring_reduce_scatter,
     ring_reduce_scatter_plain,
 )
+from triton_dist_tpu_torch.kernels import flash_decode as fd
+from triton_dist_tpu_torch.kernels import flash_prefill as fp
 from triton_dist_tpu_torch.kernels import grouped_gemm as gg
+from triton_dist_tpu_torch.kernels import low_latency_allgather as llag
 
 
 def _inputs(seed, b, s, t, hq, hkv, d, scale=0.5):
     rng = np.random.default_rng(seed)
     return [(rng.standard_normal(shape) * scale).astype(np.float32)
             for shape in ((b, s, hq, d), (b, t, hkv, d), (b, t, hkv, d))]
+
+
+def band(want, got, kernel):
+    """The epsilon band of `kernel` at want's dtype (bf16: 8 bf16 quanta
+    of each element above 2^-12 of the largest), on top of a case's own
+    tolerance; prints the report."""
+    rep = torch_parity.check_epsilon(want.detach().float().cpu().numpy(),
+                                     got.detach().float().cpu().numpy(),
+                                     kernel, want.dtype)
+    print(f"band {kernel} {rep['dtype']} {tuple(want.shape)}: "
+          f"cos={rep['cos']:.3e} ulp={rep['ulp']} "
+          f"(band {rep['band_cos']:.0e}, {rep['band_ulp']})")
+    assert rep["ok"], f"outside the epsilon band: {rep}"
+    return rep
 
 
 @pytest.fixture
@@ -63,6 +84,8 @@ def test_flash_prefill_kernel_matches_plain(cuda, dtype, atol):
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                    atol=atol)
+        if dtype == torch.bfloat16:
+            band(want, got, "flash_prefill")
         assert torch.all(got[1] == 0)
     assert launches()["flash_prefill_local"] == 2
 
@@ -86,6 +109,14 @@ def test_collective_kernels_match_plain(cuda, n, dtype):
     got = one_shot_all_reduce(x)
     assert torch.equal(got, one_shot_all_reduce_plain(x))
     assert torch.equal(got, got[:1].expand_as(got))
+    # the JAX body's fold: ranks 0..n-1 in order, each add rounded to
+    # x.dtype (torch adds bf16 in f32 and rounds, as XLA does)
+    jax_order = x[0]
+    for r in range(1, n):
+        jax_order = jax_order + x[r]
+    assert torch.equal(got, jax_order.expand_as(got))
+    if dtype == torch.bfloat16:
+        band(jax_order.expand_as(got), got, "one_shot_all_reduce")
     assert torch.equal(ring_all_gather(x), ring_all_gather_plain(x))
     got = gemm_rs(a, b)
     want = gemm_rs_plain(a, b)
@@ -94,6 +125,8 @@ def test_collective_kernels_match_plain(cuda, n, dtype):
     ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     atol = ulp * (n * part + want.float().abs().max().item())
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    if dtype == torch.bfloat16:
+        band(want, got, "gemm_rs")
     counts = launches()
     assert [counts[k] for k in ("one_shot_all_reduce", "ring_all_gather",
                                 "gemm_rs")] == [1, 1, 1]
@@ -109,6 +142,7 @@ def test_gemm_rs_kernel_at_world_one(cuda):
     got = gemm_rs(a, b, force_kernel=True)
     torch.cuda.synchronize()
     assert torch.equal(got, torch.full_like(got, 32.0))
+    band(torch.full_like(got, 32.0), got, "gemm_rs")
     assert launches()["gemm_rs"] == 1
 
 
@@ -149,6 +183,8 @@ def test_ag_gemm_kernel_matches_plain(cuda, n, dtype):
                 atol = _ag_gemm_atol(a, bs[:1 + (epilogue is not None)], want)
                 torch.testing.assert_close(got.float(), want.float(),
                                            rtol=0, atol=atol)
+                if dtype == torch.bfloat16:
+                    band(want, got, "ag_gemm")
         c, full = ag_gemm(a, bs[0], return_gathered=True, force_kernel=True)
         calls += 1
         assert torch.equal(full, ag_gemm_plain(a, bs[0],
@@ -173,6 +209,7 @@ def test_gemm_rs_arrival_kernel_matches_plain(cuda, n):
     part = torch.matmul(a.float(), b.float()).abs().max().item()
     atol = 2.0 ** -7 * (n * part + want.float().abs().max().item())
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    band(want, got, "gemm_rs")
     assert not torch.equal(want, gemm_rs_plain(a, b))
 
 
@@ -199,6 +236,8 @@ def test_ring_reduce_scatter_kernel_matches_plain_bitwise(cuda, n, dtype,
         torch.cuda.synchronize()
         assert got.shape == (n, m, w) and got.dtype == dtype
         assert torch.equal(got, want), (m, w)
+        if dtype == torch.bfloat16:
+            band(want, got, "ring_reduce_scatter")
     assert launches()["ring_reduce_scatter"] == calls
 
 
@@ -234,6 +273,7 @@ def test_grouped_ag_gemm_kernel_matches_plain(cuda, n, cap):
         full = a.reshape(n, e, cap, k)
         torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                    atol=_grouped_atol(full, ws, want))
+        band(want, got, "ag_gemm")
     assert launches()["ag_gemm"] == 2
 
 
@@ -246,8 +286,9 @@ def test_grouped_gemm_card_route_matches_plain(cuda, gs, out_dtype):
     the loop over experts: empty groups, one group, and rows past the
     last group (exactly zero on every rank, the last one included); x
     shared by the ranks, one per rank, and an unstacked weight. Band: one
-    bf16 ulp of the largest output (every product is rounded to bf16,
-    for an f32 out_dtype too) plus 1e-5 of it."""
+    bf16 ulp of the largest output plus 1e-5 of it, and the epsilon band
+    of the out dtype (an f32 out_dtype takes each expert's rows in f32:
+    `_grouped_mm`'s bf16 result widened fell outside the f32 band)."""
     rng = np.random.default_rng(50 + sum(gs[:2]))
     n, t, k, nn = 4, 16, 64, 48
     sizes = torch.tensor(gs, dtype=torch.int32, device="cuda")
@@ -266,7 +307,46 @@ def test_grouped_gemm_card_route_matches_plain(cuda, gs, out_dtype):
         torch.testing.assert_close(
             got.float(), want.float(), rtol=0,
             atol=2.0 ** -7 * top + 1e-5 * max(1.0, top))
+        band(want, got, "grouped_gemm")
         assert not got[..., sum(gs):, :].any()
+
+
+@pytest.mark.cuda
+def test_grouped_gemm_f32_out_skewed_routing_bounded_memory(cuda):
+    """The f32-out route at the Qwen3-30B-A3B down product of a 4 x 128
+    prefill at world 4 (4096 routed rows, 128 experts, K 192, N 2048),
+    one expert taking 90% of the rows: against the loop over experts
+    (one bf16 ulp of the largest output plus 1e-5 of it, and the f32
+    band), and the memory the call allocates beyond its inputs within
+    the output, _SCRATCH_BYTES and 32 MiB of indices (blocks padded to
+    the hot expert for every expert would need 15.5 GB)."""
+    n, e, k, nn, t, hot = 4, 128, 192, 2048, 4096, 37
+    rng = np.random.default_rng(77)
+    rest = rng.multinomial(t - 3686, [1 / (e - 1)] * (e - 1))
+    sizes = torch.from_numpy(np.insert(rest, hot, 3686)).to("cuda",
+                                                            torch.int32)
+    x = torch.from_numpy(rng.standard_normal((t, k))).to("cuda",
+                                                         torch.bfloat16)
+    w = (torch.randn((n, e, k, nn), device="cuda") * 0.05).to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = gg.grouped_gemm(x, w, sizes, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    out_bytes = n * (t + 1) * nn * 4
+    print(f"grouped_gemm f32 out, hot expert 3686 of {t} rows: peak "
+          f"{peak / 2**20:.1f} MiB beyond the inputs (output "
+          f"{out_bytes / 2**20:.1f} MiB, budget "
+          f"{gg._SCRATCH_BYTES / 2**20:.0f} MiB)")
+    assert peak <= out_bytes + gg._SCRATCH_BYTES + (32 << 20), peak
+    want = gg.grouped_gemm_plain(x, w, sizes, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    top = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=2.0 ** -7 * top + 1e-5 * max(1.0, top))
+    band(want, got, "grouped_gemm")
 
 
 _FAULT = r"""
@@ -351,10 +431,63 @@ sys.exit(0)
 """
 
 
+# an LL context whose entry-barrier counter was left far below zero: the
+# first call's barrier can never be met
+_LL_FAULT = r"""
+import sys, torch
+from triton_dist_tpu_torch.kernels import low_latency_allgather as llag
+n = 4
+x = torch.ones((n, 8, 128), device="cuda")
+ctx = llag.create_ll_ag_buffer((8, 128), torch.float32, n, device="cuda")
+ctx.flags[:, -1] = -1000
+llag.ll_all_gather(x, ctx, 0)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(3)
+sys.exit(0)
+"""
+
+# SP flash prefill whose segment delivery flags start far below zero: no
+# remote segment ever counts every pushing block, so rank 1's first
+# remote fold must trap
+_SP_FAULT = r"""
+import sys, torch
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels import flash_prefill as fp
+n, B, S, Hq, Hkv, D = 2, 1, 64, 4, 2, 64
+lib = _build.load("flash_prefill", fp._SIGNATURES)
+q = torch.ones((n, B, S, Hq, D), device="cuda", dtype=torch.bfloat16)
+k = torch.ones((n, B, S, Hkv, D), device="cuda", dtype=torch.bfloat16)
+kv_len = torch.full((B,), n * S, device="cuda", dtype=torch.int32)
+out = torch.empty_like(q)
+kbuf = torch.empty((n, n - 1, B, S, Hkv, D), device="cuda",
+                   dtype=torch.bfloat16)
+flags = torch.zeros((n, lib.fp_sp_flag_words(n, B)), device="cuda",
+                    dtype=torch.int32)
+flags[:, :2 * (n - 1) * B] = -1000
+grid = _build.GridInfo()
+err = lib.fp_sp_launch(q.data_ptr(), k.data_ptr(), k.data_ptr(),
+                       kv_len.data_ptr(), out.data_ptr(), kbuf.data_ptr(),
+                       kbuf.data_ptr(), flags.data_ptr(), n, B, S, Hq, Hkv,
+                       D, 1, 1, 0.125, 8, -1, 0, grid.ptr(),
+                       torch.cuda.current_stream().cuda_stream)
+assert err == 0, err
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(3)
+sys.exit(0)
+"""
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,script", [
     ("gemm_rs", _FAULT), ("ag_gemm", _AG_FAULT),
-    ("ring_reduce_scatter", _RS_FAULT)])
+    ("ring_reduce_scatter", _RS_FAULT), ("ll_all_gather", _LL_FAULT),
+    ("sp_flash_prefill", _SP_FAULT)])
 def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script):
     """A wait that can never be satisfied (flags left non-zero) ends in
     the bounded spin's printf and __trap(): the launch fails and the
@@ -454,6 +587,9 @@ def test_mega_branches_match_plain(cuda, world, dtype, ulps, batch, paged,
         err = (got[:, s, :, :b.width].float() - w).abs().max().item()
         atol = 1e-4 if ulps is None else ulps * 2.0 ** -7 * w.abs().max()
         assert err <= atol, (b.name, s, err, atol)
+        if dtype == torch.bfloat16:
+            band(want[:, s, :, :b.width], got[:, s, :, :b.width],
+                 f"mega:{b.name}")
 
 
 @pytest.mark.cuda
@@ -499,8 +635,131 @@ def test_mega_decode_step_matches_plain(cuda, world):
         w = want[:, s].float()
         err = (got[:, s].float() - w).abs().max().item()
         assert err <= 2 * 2.0 ** -7 * w.abs().max().item(), (s, err)
+        band(want[:, s], got[:, s], "mega")
     assert torch.isfinite(logits).all()
     reset_launches()
     ids, _ = mega.decode_resident(logits.argmax(-1), cache, 3)
     torch.cuda.synchronize()
     assert launches()["mega"] == 3 and ids.shape == (4, 3)
+
+
+# -- the SP path: the decode partial, the LL AllGather, SP flash prefill ----
+
+# (Hq, Hkv, D): tiny, and Qwen3-8B's heads
+SP_HEADS = [(4, 2, 64), (32, 8, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", SP_HEADS, ids=["tiny", "qwen3-8b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_partial_kernel_matches_plain(cuda, heads, dtype):
+    """The split-KV decode partial against its plain version: valid
+    lengths empty, inside the first tile, mid-split, across splits and
+    full, T not a multiple of the split (1100 keys: three 512-key splits,
+    merged in the kernel); o and lse within 1e-5 (both f32 sums over the
+    same bf16 or f32 inputs, in another order) and the f32 epsilon band;
+    an empty row gives o = 0, lse = NEG_INF."""
+    hq, hkv, d = heads
+    rng = np.random.default_rng(hq + d)
+    b, t = 6, 1100
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).to("cuda", dtype)
+               for shape in ((b, hq, d), (b, t, hkv, d), (b, t, hkv, d)))
+    valid = torch.tensor([0, 37, 300, 700, 1100, 1], device="cuda")
+    reset_launches()
+    o, lse = fd.flash_decode_partial_cuda(q, k, v, valid)
+    want_o, want_lse = fd.flash_decode_partial(q, k, v, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, want_o, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse[1:], want_lse[1:], rtol=0, atol=1e-5)
+    assert torch.all(o[0] == 0) and torch.all(lse[0] == fd.NEG_INF)
+    band(want_o, o, "flash_decode_partial")
+    band(want_lse[1:], lse[1:], "flash_decode_partial")
+    assert launches()["flash_decode_partial"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partial_impl", ["auto", "pallas"])
+@pytest.mark.parametrize("heads", [(4, 2, 256), (32, 2, 128)],
+                         ids=["head_dim-256", "group-width-1024+"])
+def test_sp_flash_decode_unsupported_shape_raises(cuda, partial_impl,
+                                                  heads):
+    """A shape the decode partial kernel does not take (head_dim 256;
+    G * D > 1024) raises through sp_flash_decode on the card, whichever
+    kernel route is named: never the torch einsum in its place."""
+    n, b, t_loc = 2, 2, 64
+    hq, hkv, d = heads
+    q = torch.zeros((n, b, hq, d), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((n, b, t_loc, hkv, d), device="cuda",
+                    dtype=torch.bfloat16)
+    kv_len = torch.tensor([3, 70], device="cuda")
+    reset_launches()
+    with pytest.raises(ValueError, match="unsupported shape"):
+        fd.sp_flash_decode(q, k, k, kv_len, partial_impl=partial_impl)
+    assert launches().get("flash_decode_partial", 0) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("shape,dtype", [((4, 4224), torch.float32),
+                                         ((3, 5), torch.float32),
+                                         ((8, 136), torch.bfloat16)],
+                         ids=["decode-payload", "ragged", "bf16"])
+def test_ll_all_gather_kernel_matches_plain_bitwise(cuda, n, shape, dtype):
+    """Five calls on one context (calls 2-4 rewrite slots an earlier call
+    of their parity used): every gathered copy, the context's slots and
+    its parity flags bitwise the plain version's on a twin context; one
+    launch a call."""
+    rng = np.random.default_rng(n + shape[0])
+    ctx = llag.create_ll_ag_buffer(shape, dtype, n, device="cuda")
+    twin = llag.create_ll_ag_buffer(shape, dtype, n, device="cuda")
+    reset_launches()
+    for i in range(5):
+        x = torch.from_numpy(rng.standard_normal((n, *shape))).to("cuda",
+                                                                 dtype)
+        got, ctx = llag.ll_all_gather(x, ctx, i)
+        want = llag.ll_all_gather_plain(x, twin, i)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), i
+        assert torch.equal(ctx.data, twin.data), i
+        assert torch.equal(ctx.flags[:, :2 * n], twin.flags[:, :2 * n]), i
+    assert launches()["ll_all_gather"] == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("heads", SP_HEADS, ids=["tiny", "qwen3-8b"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sp_flash_prefill_kernel_matches_plain(cuda, n, heads, dtype):
+    """SP flash prefill against flash_prefill_ref: a ragged batch (one
+    row just under a shard boundary, one empty, one full), causal and
+    not, S not a multiple of the tile; f32 within 2e-5, bf16 within two
+    bf16 ulps of the largest output and inside the flash_prefill band.
+    Then bitwise equal to itself with each rank delayed in turn
+    (straggler, 2 ms): the fold order does not follow arrival."""
+    hq, hkv, d = heads
+    rng = np.random.default_rng(n * hq + d)
+    b, s = 3, 100
+    q = torch.from_numpy(rng.standard_normal((n, b, s, hq, d))).to(
+        "cuda", dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((n, b, s, hkv, d))).to(
+        "cuda", dtype) for _ in range(2))
+    kv_len = torch.tensor([s - 3, 0, n * s], device="cuda")
+    reset_launches()
+    for causal in (True, False):
+        got = fp.sp_flash_prefill(q, k, v, causal=causal, kv_len=kv_len)
+        want = fp.flash_prefill_ref(q, k, v, causal=causal, kv_len=kv_len)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+        else:
+            atol = 2 * 2.0 ** -7 * want.float().abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=atol)
+            band(want, got, "flash_prefill")
+        assert torch.all(got[:, 1] == 0)
+    for rank in range(n):
+        late = fp.sp_flash_prefill(q, k, v, causal=False, kv_len=kv_len,
+                                   straggler=(rank, 2_000_000))
+        torch.cuda.synchronize()
+        assert torch.equal(late, got), rank
+    assert launches()["sp_flash_prefill"] == 2 + n

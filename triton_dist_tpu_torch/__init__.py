@@ -12,22 +12,25 @@ module has an obvious counterpart:
   mega/     the decode megakernel: task graph, builder, scheduler and
             slot plan, the compiled queue, MegaQwen3 and its caches
   layers/   rms_norm, rope, GQA attention, the TP attention/MLP/MoE
-            blocks
+            blocks, the SP decode attention layer
   kernels/  hand-written CUDA kernels, their wrappers and plain versions
-            (flash prefill; one-shot AllReduce, ring AllGather, ring
-            ReduceScatter, GEMM+ReduceScatter and the fused
-            AllGather+GEMM, dense and grouped, over the virtual world;
-            gemm_ar over them; the decode megakernel's launch), and
-            the MoE routing and grouped products in torch ops
+            (flash prefill, local and sequence-parallel; the split-KV
+            decode partial; one-shot AllReduce, ring AllGather, the
+            low-latency AllGather, ring ReduceScatter,
+            GEMM+ReduceScatter and the fused AllGather+GEMM, dense and
+            grouped, over the virtual world; gemm_ar over them; the
+            decode megakernel's launch), the SP ring attention, the MoE
+            routing and grouped products in torch ops
   csrc/     the .cu sources and shared headers (shmem.cuh: put, signal,
-            wait, barrier on the virtual heap), built with nvcc at first
-            use
+            wait, barrier, slot collect, straggler delay on the virtual
+            heap), built with nvcc at first use
   serve/    the continuous-batching host loop (Scheduler, Worker, KVPool)
   tools/    measurement scripts that run on a CUDA card
 
 Scope: one card; tensor parallelism at world n runs as a virtual world
 of n ranks on it, in the JAX package's "dist", "xla" and "ar" modes
-(and "fused" for an MoE model).
+(and "fused" for an MoE model); so does sequence parallelism (the SP
+prefill and the SP decode layer over a sequence-sharded cache).
 There is no planner: the caller's mode string is the plan. A dense
 model's decode can also run as the megakernel: one persistent launch a
 step over every rank (mega/).

@@ -15,11 +15,11 @@
 // all its tiles before it waits on any, so no wait can depend on a
 // block that is itself waiting.
 //
-// Fold order: the sum runs over ranks 0..n-1 in that order in f32 and is
-// rounded once, whatever `me` is, so every rank's copy has the same bits
-// (the replicated residual streams cannot drift apart). The JAX body sums
-// in x.dtype (`acc = acc + ws[r]`); in f32 the two are the same
-// arithmetic, in bf16 they differ by one rounding.
+// Fold order: the JAX body's, `acc = acc + ws[r]` over ranks 0..n-1 in
+// that order with the accumulator in x.dtype: each add is done in f32 and
+// rounded to x.dtype, whatever `me` is. So every rank's copy has the same
+// bits (the replicated residual streams cannot drift apart), and the
+// result is the JAX kernel's, bitwise, in f32 and in bf16.
 //
 // What bounds it on an H100: bytes. Each rank reads its tensor, writes
 // n-1 copies, reads n-1 and writes its sum; the least traffic for the
@@ -44,6 +44,13 @@ __device__ __forceinline__ float to_f32(unsigned short x) {
 __device__ __forceinline__ void from_f32(float v, float& o) { o = v; }
 __device__ __forceinline__ void from_f32(float v, unsigned short& o) {
   o = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+// v rounded to the storage type S and widened back
+template <typename S>
+__device__ __forceinline__ float rounded(float v) {
+  S s;
+  from_f32(v, s);
+  return to_f32(s);
 }
 
 // S: the element's storage type (float, or unsigned short for bf16);
@@ -94,7 +101,7 @@ one_shot_ar_kernel(const S* x, S* ws, S* out, int* flags, long long E,
         const S* e = reinterpret_cast<const S*>(&v);
 #pragma unroll
         for (int j = 0; j < kPer; ++j)
-          acc[j] = r == 0 ? to_f32(e[j]) : acc[j] + to_f32(e[j]);
+          acc[j] = r == 0 ? to_f32(e[j]) : rounded<S>(acc[j] + to_f32(e[j]));
       }
       W o;
       S* oe = reinterpret_cast<S*>(&o);

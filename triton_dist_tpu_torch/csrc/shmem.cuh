@@ -1,6 +1,7 @@
 // Device-side shmem over the virtual world of one card — the port's
 // counterpart of triton_dist_tpu/lang/shmem.py (putmem_nbi, signal,
-// signal_wait_until, barrier_all).
+// signal_wait_until, barrier_all, fcollect_slots, straggler_delay) and
+// of kernels/low_latency_allgather.py's segment_collect_start.
 //
 // The virtual world (runtime/symm_mem.py): n ranks live on one GPU. The
 // symmetric heap is one allocation with a leading rank dimension, so
@@ -117,7 +118,10 @@ __device__ __forceinline__ void spin_until(const int* flag, Cmp cmp, int v,
 }
 
 // Thread 0 spins (spin_until); then the block syncs, and its reads of the
-// guarded data (with __ldcg) follow.
+// guarded data (with __ldcg) follow. With kEq it is the wait on a
+// persistent flag by value that the low-latency AllGather's parity
+// protocol uses: a context flag that call k sets to k + 1 (st.release,
+// signal_set) and that is never reset between calls.
 __device__ __forceinline__ void signal_wait_until(const int* flag, Cmp cmp,
                                                   int v, const char* kernel,
                                                   int rank, int index) {
@@ -139,6 +143,97 @@ __device__ __forceinline__ void barrier_all(int* flags, int stride, int slot,
   }
   signal_wait_until(flags + size_t(rank) * stride + slot, kGe,
                     (n - 1) * int(gridDim.x), kernel, rank, slot);
+}
+
+// Block-wide copy of `bytes` bytes, 16 at a time when both ends are
+// 16-byte aligned, four loads in flight a thread. src is read with
+// __ldcg (it may be data another rank delivered).
+__device__ __forceinline__ void copy_block(void* dst, const void* src,
+                                           long long bytes) {
+  char* d = static_cast<char*>(dst);
+  const char* s = static_cast<const char*>(src);
+  long long head = 0;
+  if (((reinterpret_cast<uintptr_t>(d) | reinterpret_cast<uintptr_t>(s)) &
+       15) == 0) {
+    const long long words = bytes / 16;
+    uint4* dw = reinterpret_cast<uint4*>(d);
+    const uint4* sw = reinterpret_cast<const uint4*>(s);
+    constexpr int U = 4;
+    const long long step = blockDim.x;
+    long long i = threadIdx.x;
+    for (; i + (U - 1) * step < words; i += U * step) {
+      uint4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) v[u] = __ldcg(sw + i + u * step);
+#pragma unroll
+      for (int u = 0; u < U; ++u) dw[i + u * step] = v[u];
+    }
+    for (; i < words; i += step) dw[i] = __ldcg(sw + i);
+    head = words * 16;
+  }
+  for (long long i = head + threadIdx.x; i < bytes; i += blockDim.x)
+    d[i] = __ldcg(s + i);
+}
+
+// The put of fcollect_slots (lang/shmem.py:622) for one destination:
+// this block copies `bytes` of src into dst (slot `me` of a peer's
+// partition, or this block's share of it), then publishes them on the
+// slot's flag: set to `value` (a persistent flag waited on by value) or,
+// with add, adds `value` (several blocks share one slot; the reader
+// waits for their count). A full-mesh collect is one such put per peer
+// (the caller spreads the peers over its blocks); the reader waits on
+// the flag of each slot it reads.
+__device__ __forceinline__ void put_slot(void* dst, const void* src,
+                                         long long bytes, int* flag,
+                                         int value, bool add) {
+  copy_block(dst, src, bytes);
+  if (add)
+    signal_add(flag, value);
+  else
+    signal_set(flag, value);
+}
+
+// segment_collect_start (kernels/low_latency_allgather.py:376): the
+// full-mesh push of a rank's segments with a delivery flag per
+// (tensor, offset, row), so a consumer can gate on exactly one segment
+// while later ones are in flight. For each row b < rows, offset i =
+// 1..n-1 and tensor t < tensors, this block (`block` of the `blocks`
+// pushing blocks of rank me) copies its 16-byte-aligned share of the
+// `bytes` of src_of(t, b) into dst_of(t, i, peer, b), the slot of offset
+// i in peer (me + i) mod n's partition, and adds one to flag_of(t, i,
+// peer, b). The segment has arrived when that flag counts `blocks`.
+// Rows go first, offset 1 first within a row: the order in which SP
+// prefill's consumers read them.
+template <typename SrcOf, typename DstOf, typename FlagOf>
+__device__ __forceinline__ void segment_collect_start(
+    int me, int n, int rows, int tensors, long long bytes, int block,
+    int blocks, SrcOf src_of, DstOf dst_of, FlagOf flag_of) {
+  const long long share = ((bytes + blocks - 1) / blocks + 15) / 16 * 16;
+  const long long lo = min(bytes, share * block);
+  const long long hi = min(bytes, lo + share);
+  for (int b = 0; b < rows; ++b)
+    for (int i = 1; i < n; ++i) {
+      const int peer = (me + i) % n;
+      for (int t = 0; t < tensors; ++t)
+        put_slot(static_cast<char*>(dst_of(t, i, peer, b)) + lo,
+                 static_cast<const char*>(src_of(t, b)) + lo, hi - lo,
+                 flag_of(t, i, peer, b), 1, true);
+    }
+}
+
+// straggler_delay (lang/shmem.py:431): the blocks of rank `rank` stall
+// `nanos` ns on the global timer before going on; other ranks and
+// rank < 0 or nanos <= 0 pass through. A race provocation: a protocol
+// that is right only when ranks run in step shows it under this delay.
+__device__ __forceinline__ void straggler_delay(int rank, int me,
+                                                long long nanos) {
+  if (rank != me || nanos <= 0) return;
+  if (threadIdx.x == 0) {
+    const unsigned long long t0 = globaltimer();
+    while (globaltimer() - t0 < static_cast<unsigned long long>(nanos))
+      __nanosleep(1000);
+  }
+  __syncthreads();
 }
 
 // Launch `kernel` on grid (blocks per rank, n) so that every block is

@@ -24,16 +24,32 @@ from triton_dist_tpu_torch.kernels.allreduce import (  # noqa: F401
     one_shot_all_reduce,
     one_shot_all_reduce_plain,
 )
+from triton_dist_tpu_torch.kernels.flash_decode import (  # noqa: F401
+    create_sp_decode_buf,
+    flash_decode_combine,
+    flash_decode_partial,
+    flash_decode_partial_cuda,
+    partials_buf_shape,
+    sp_flash_decode,
+)
 from triton_dist_tpu_torch.kernels.flash_prefill import (  # noqa: F401
     fit_block,
     flash_prefill_local,
     flash_prefill_plain,
+    flash_prefill_ref,
+    sp_flash_prefill,
+    sp_prefill_attention,
     supports_flash_prefill,
 )
 from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar  # noqa: F401
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (  # noqa: F401
     gemm_rs,
     gemm_rs_plain,
+)
+from triton_dist_tpu_torch.kernels.low_latency_allgather import (  # noqa: F401
+    create_ll_ag_buffer,
+    ll_all_gather,
+    ll_all_gather_plain,
 )
 from triton_dist_tpu_torch.kernels.mega import mega_step  # noqa: F401
 from triton_dist_tpu_torch.kernels.reduce_scatter import (  # noqa: F401
@@ -51,4 +67,7 @@ SOURCES = {
     "ag_gemm": "allgather_gemm",
     "ring_reduce_scatter": "reduce_scatter",
     "mega": "mega",
+    "sp_flash_prefill": "flash_prefill",
+    "flash_decode_partial": "flash_decode",
+    "ll_all_gather": "low_latency_allgather",
 }

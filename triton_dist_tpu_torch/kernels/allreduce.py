@@ -9,12 +9,13 @@ every rank's copy of the sum. Two implementations of one contract:
       (csrc/allreduce.cu). Launches on a CUDA tensor, or raises; on a
       CPU tensor it computes the plain version (no kernel exists there).
   one_shot_all_reduce_plain — the same sum in plain torch: over ranks
-      0..n-1 in that order, in f32, rounded once to x.dtype, broadcast
-      to every rank. The kernel folds in the same order, so the two
-      agree bitwise, and every rank's copy has the same bits.
+      0..n-1 in that order, each add rounded to x.dtype (the JAX body's
+      `acc = acc + ws[r]` with acc in x.dtype), broadcast to every rank.
+      The kernel folds in the same order with the same roundings, so the
+      two and the JAX kernel agree bitwise, in f32 and in bf16, and
+      every rank's copy has the same bits.
 
-The JAX kernel sums in x.dtype; in f32 that is the same arithmetic
-(bitwise), in bf16 it differs by one rounding. At n = 1 both return x,
+At n = 1 both return x,
 as the JAX function does. The TPU's VMEM-budget fallback to lax.psum
 is a rule of the TPU and does not carry over: on the card the kernel
 always runs.
@@ -42,14 +43,14 @@ _SIGNATURES = {
 
 
 def one_shot_all_reduce_plain(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the leading (rank) dim in rank order, f32, one rounding;
-    every rank gets the same copy."""
+    """Sum over the leading (rank) dim in rank order, each add rounded to
+    x.dtype; every rank gets the same copy."""
     if x.shape[0] == 1:
         return x
-    acc = x[0].float()
+    acc = x[0]
     for r in range(1, x.shape[0]):
-        acc = acc + x[r].float()
-    return acc.to(x.dtype).expand_as(x).contiguous()
+        acc = (acc.float() + x[r].float()).to(x.dtype)
+    return acc.expand_as(x).contiguous()
 
 
 @_build.counted("one_shot_all_reduce")

@@ -11,19 +11,30 @@ result (n, T, N). Unstacked (T, K) x (E, K, N) gives (T, N).
 
 Routes, by device and dtype (stated, not a silent fallback):
 
-  CUDA, bfloat16 — one `torch._grouped_mm` call a product, the rank dim
-      folded into the groups: n*E groups over the n-times repeated rows,
+  CUDA, bfloat16 in and out — one `torch._grouped_mm` call a product,
+      the rank dim folded into the groups: n*E groups over the n-times
+      repeated rows,
       the offsets built on the device (no host sync; a `.tolist()` of
       the group sizes would cost a round trip per layer). The weight
       stack is read in place as (n*E, K, N), row-major: the layout the
       JAX package keeps, which `_grouped_mm` takes without a copy. Rows
       past the last group (sum(group_sizes) < T) fall, once the ranks are
       folded, into the next rank's first group, or past the last offset:
-      they are zeroed after the call. `_grouped_mm` refuses an f32
-      `out_dtype` for bf16 operands, so an f32 `out_dtype` (the MoE down
-      product) is its bf16 result widened: one bf16 rounding a row more
-      than `ragged_dot`'s f32 output, a deviation PERF.md's parity table
-      lists.
+      they are zeroed after the call.
+  CUDA, an f32 `out_dtype` (the MoE down product) — `_expert_rows`:
+      the experts in consecutive chunks, each expert's rows in a block
+      padded to its chunk's largest group, one batched product with an
+      f32 output a chunk (a chunk and rank unless the chunk holds every
+      expert), after one host sync for the group sizes. A chunk's blocks
+      stay under _SCRATCH_BYTES (an expert whose rows alone exceed it is
+      a chunk of its own), so a skewed routing costs more products, not
+      memory beyond the output and that budget.
+      `_grouped_mm` refuses an f32 `out_dtype` for bf16 operands,
+      and its bf16 result widened rounds once more than `ragged_dot`'s
+      f32 output: on the card that fell outside the f32 epsilon band
+      (cosine drift 1.3-1.4e-6 against 1e-6, PERF.md's parity table).
+      The loop over every row for every expert (`grouped_gemm_plain`)
+      took the Qwen3-30B-A3B 4 x 128 prefill from 0.2 to 2.8 s.
   anything else (the CPU, float32 on the card) — `grouped_gemm_plain`,
       a loop over the experts: every row times expert e's weight in f32,
       kept where the row lies in segment e (the JAX `grouped_gemm_ref`),
@@ -33,6 +44,10 @@ Routes, by device and dtype (stated, not a silent fallback):
 from __future__ import annotations
 
 import torch
+
+# bytes of one chunk of _expert_rows: its gathered rows and f32 products
+# for every rank
+_SCRATCH_BYTES = 512 << 20
 
 
 def _stacked(x: torch.Tensor, w: torch.Tensor):
@@ -64,6 +79,58 @@ def grouped_gemm_plain(x_sorted: torch.Tensor, w_stack: torch.Tensor,
     return acc if w_stack.dim() == 4 else acc[0]
 
 
+def _expert_chunks(sizes, row_bytes: int):
+    """Consecutive expert ranges (lo, hi, cap), cap the range's largest
+    group, greedily as long as (hi - lo) * cap * row_bytes fits in
+    _SCRATCH_BYTES (a range holds one expert at least); ranges with no
+    rows are left out."""
+    chunks, lo, cap = [], 0, 0
+    for e, size in enumerate(sizes):
+        wide = max(cap, size)
+        if e > lo and (e + 1 - lo) * wide * row_bytes > _SCRATCH_BYTES:
+            chunks.append((lo, e, cap))
+            lo, wide = e, size
+        cap = wide
+    chunks.append((lo, len(sizes), cap))
+    return [c for c in chunks if c[2] > 0]
+
+
+def _expert_rows(x_sorted: torch.Tensor, w_stack: torch.Tensor,
+                 group_sizes: torch.Tensor, out_dtype) -> torch.Tensor:
+    """Each expert's rows times its weight with an f32 output: for each
+    chunk of _expert_chunks, the sorted rows gathered into (E_chunk, cap,
+    K) blocks a rank, `torch.bmm(out_dtype=f32)` (f32 accumulation, no
+    rounding to bf16) over all ranks at once when the chunk holds every
+    expert (the weight stack is then an (n*E, K, N) view), else a rank at
+    a time, and the rows scattered back; rows past the last group are 0.
+    One host sync (the group sizes)."""
+    x, w = _stacked(x_sorted, w_stack)
+    n, e, k, nn = w.shape
+    t = x.shape[-2]
+    sizes = group_sizes.to(x.device, torch.long)
+    starts = torch.cumsum(sizes, 0) - sizes
+    out = torch.zeros((n, t + 1, nn), dtype=torch.float32, device=x.device)
+    row_bytes = n * (k * x.element_size() + nn * 4)
+    for lo, hi, cap in _expert_chunks(group_sizes.tolist(), row_bytes):
+        j = torch.arange(cap, device=x.device)
+        rows = starts[lo:hi, None] + j  # (hi - lo, cap)
+        live = j < sizes[lo:hi, None]
+        xe = x[:, torch.where(live, rows, 0).reshape(-1)].reshape(
+            n, hi - lo, cap, k)
+        # a padding row lands on the spare row t, sliced off below
+        dst = torch.where(live, rows, t).reshape(-1)
+        if hi - lo == e:
+            ye = torch.bmm(xe.reshape(n * e, cap, k), w.reshape(n * e, k, nn),
+                           out_dtype=torch.float32)
+            out[:, dst] = ye.reshape(n, e * cap, nn)
+            continue
+        for r in range(n):
+            out[r, dst] = torch.bmm(xe[r], w[r, lo:hi],
+                                    out_dtype=torch.float32).reshape(-1, nn)
+    out = out[:, :t].to(out_dtype)
+    return out if w_stack.dim() == 4 else out[0]
+
+
 def grouped_gemm(x_sorted: torch.Tensor, w_stack: torch.Tensor,
                  group_sizes: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """y[r, i] = x[r, i] @ w_stack[r, expert_of_segment(i)]; the route
@@ -72,6 +139,8 @@ def grouped_gemm(x_sorted: torch.Tensor, w_stack: torch.Tensor,
     if not (x_sorted.device.type == "cuda"
             and x_sorted.dtype == w_stack.dtype == torch.bfloat16):
         return grouped_gemm_plain(x_sorted, w_stack, group_sizes, out_dtype)
+    if out_dtype != torch.bfloat16:
+        return _expert_rows(x_sorted, w_stack, group_sizes, out_dtype)
     x, w = _stacked(x_sorted, w_stack)
     n, e, k, nn = w.shape
     t = x.shape[1]
@@ -81,8 +150,7 @@ def grouped_gemm(x_sorted: torch.Tensor, w_stack: torch.Tensor,
     y = torch._grouped_mm(x.reshape(n * t, k), w.reshape(n * e, k, nn),
                           offs=offs).reshape(n, t, nn)
     # the tail zeroed by a select (the last rank's rows hold whatever the
-    # allocation held) and widened to out_dtype in the same pass: a
-    # 1-element zero of out_dtype promotes the result to it
+    # allocation held)
     keep = torch.arange(t, device=x.device)[:, None] < ends[-1]
     y = torch.where(keep, y, torch.zeros(1, dtype=out_dtype, device=x.device))
     return y if w_stack.dim() == 4 else y[0]

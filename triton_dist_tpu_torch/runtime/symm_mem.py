@@ -13,6 +13,18 @@ card, the same way: a rank is an index, not a process.
                       the current stream (stream-ordered), so every
                       kernel launch starts from fresh flags, as the TPU
                       kernels' semaphores are kernel-local.
+  context(shape, dtype, flag_words)
+                      a persistent allocation threaded through calls: a
+                      symmetric data array (n, *shape) and an int32
+                      (n, flag_words) flag array, both zeroed once, when
+                      the context is made, and by no launch. A protocol
+                      that carries state from one launch to the next
+                      lives here: the low-latency AllGather's parity
+                      slots and its (parity, source) flags, which call k
+                      sets to k + 1 and waits on by value, so nothing is
+                      reset between calls (kernels/low_latency_
+                      allgather.py). A flag pool from flags() could not
+                      carry that: it starts at zero every launch.
 
 The decode megakernel's AllReduce mailbox is one heap((AR tasks, n, B,
 W)): each AR task of a step has its own slot of n source ranks in every
@@ -55,8 +67,28 @@ class VirtualWorld:
         return torch.zeros((self.n, count), dtype=torch.int32,
                            device=self.device)
 
+    def context(self, shape: Sequence[int], dtype: torch.dtype,
+                flag_words: int) -> "SymmetricContext":
+        """A persistent context: data (n, *shape) and flags (n,
+        flag_words) int32, zeroed here once and never by a launch."""
+        return SymmetricContext(
+            data=torch.zeros((self.n, *shape), dtype=dtype,
+                             device=self.device),
+            flags=torch.zeros((self.n, flag_words), dtype=torch.int32,
+                              device=self.device))
+
     @staticmethod
     def of(x: torch.Tensor) -> "VirtualWorld":
         """The world of a rank-stacked tensor: its leading dim, its
         device."""
         return VirtualWorld(x.shape[0], x.device)
+
+
+@dataclasses.dataclass
+class SymmetricContext:
+    """State that persists across launches (VirtualWorld.context): data
+    [r] and flags [r] are rank r's partitions. Kernels update both in
+    place; the caller threads the object through its calls."""
+
+    data: torch.Tensor
+    flags: torch.Tensor
