@@ -75,6 +75,18 @@ outside a checkout of the repository. Phases, each fatal on failure:
   5b. the ring ReduceScatter (bitwise), the grouped ag_gemm and
      grouped_gemm against their plain versions on the inputs recorded in
      4b (the other kernels too), and the kernels' timing there;
+  4e. the seventh path, after 5b, on layer 0 of the same Qwen3-30B-A3B
+     draw re-laid for EP (32 whole experts a rank): ep_moe_fwd at world
+     4 over the MoE all-to-all kernels, 128 tokens a rank sequential and
+     overlap at n_chunks 1, 2, 4, 1 token a rank, and a tight capacity
+     that drops pairs; launches pinned; every A2A launch bitwise its
+     plain version, every run bitwise over the plain transports,
+     sequential and overlap in the bf16 band of each other with equal
+     drops, each expert-FFN product against grouped_gemm_plain, EP
+     against the TP-MoE `dist` block on the same layer (f32 band; bf16
+     against f32 by the band's cosine), the chunked kernel bitwise under
+     a 5 ms straggler; the
+     layer's ms, the kernels' times, host syncs a call, peak memory;
   6. the kernels line (JSON), the card line, and the result line.
 """
 
@@ -551,22 +563,27 @@ def grouped_gemm_atol(want) -> float:
     return 2.0 ** -7 * top + 1e-5 * max(1.0, top)
 
 
-def check_grouped_gemm_call(x, w, sizes, out_dtype, label):
+def check_grouped_gemm_call(x, w, sizes, out_dtype, label,
+                            host_sizes=None):
     """grouped_gemm's card route (torch._grouped_mm, the rank dim folded
-    into the groups) against its loop over experts, within
-    grouped_gemm_atol; rows past the last group exactly zero. Returns the
-    max abs error."""
+    into the groups; or _expert_rows for an f32 out_dtype) against its
+    loop over experts, within grouped_gemm_atol; rows past each rank's
+    last group exactly zero. sizes (E,) shared or (n, E) a rank;
+    host_sizes as the caller handed them. Returns the max abs error."""
     import torch
 
     from triton_dist_tpu_torch.kernels import grouped_gemm as gg
 
-    got = gg.grouped_gemm(x, w, sizes, out_dtype=out_dtype)
+    got = gg.grouped_gemm(x, w, sizes, out_dtype=out_dtype,
+                          host_sizes=host_sizes)
     want = gg.grouped_gemm_plain(x, w, sizes, out_dtype=out_dtype)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     atol = grouped_gemm_atol(want)
-    used = int(sizes.sum())
-    tail_zero = not bool(got[..., used:, :].any())
+    used = sizes.to(torch.long).sum(-1, keepdim=True)  # (1,) or (n, 1)
+    past = torch.arange(got.shape[-2], device=got.device)[None] >= used
+    past = past.expand(got.shape[:-1]) if got.dim() == 3 else past[0]
+    tail_zero = not bool(got[past].any())
     if (got.shape != want.shape or got.dtype != want.dtype
             or not bool(torch.isfinite(got).all()) or not err <= atol
             or not tail_zero):
@@ -621,6 +638,17 @@ def check_grouped_gemm():
         x1 = rand((t, k), torch.bfloat16, k + 2)
         check_grouped_gemm_call(x1, w[0], cases[1][1], torch.float32,
                                 f"unstacked K={k} N={nn}")
+        # sizes a rank (EP: every rank receives other tokens), the last
+        # rank's rows ending 100 early, with and without host sizes
+        gs = torch.stack([routed(t), routed(t), routed(t), routed(t - 100)])
+        xr = rand((4, t, k), torch.bfloat16, k + 3)
+        err = max(check_grouped_gemm_call(
+            xr, w, gs, od, f"sizes a rank K={k} N={nn} {od} host {hs}",
+            host_sizes=gs.tolist() if hs else None)
+            for od in (torch.bfloat16, torch.float32) for hs in (0, 1))
+        log(f"  grouped_gemm n=4 E={e} T={t} K={k} N={nn}, (n, E) sizes a "
+            f"rank, bf16 and f32 out, host sizes or none: "
+            f"max_abs_err={err:.3e}")
     log("  grouped_gemm unstacked (T, K) x (E, K, N), 100 trailing rows: "
         "within its atol")
 
@@ -655,9 +683,10 @@ SP_KERNELS = ("sp_flash_prefill", "flash_decode_partial", "ll_all_gather")
 
 def kernel_names():
     """Every counted kernel: the ones the main path calls through a module
-    attribute, the megakernel (MegaQwen3 calls it through its queue) and
-    the SP path's three (the sixth path calls them through its layer)."""
-    return [*main_path_kernels(), "mega", *SP_KERNELS]
+    attribute, the megakernel (MegaQwen3 calls it through its queue), the
+    SP path's three (the sixth path calls them through its layer) and the
+    EP path's two (the seventh, through kernels/ep_a2a.py)."""
+    return [*main_path_kernels(), "mega", *SP_KERNELS, *EP_KERNELS]
 
 
 def plain_versions():
@@ -1439,10 +1468,11 @@ def check_mega_rows(cm, pos, table, ws, weights, norms, rope, kp, vp):
     the kernel (a queue of that row alone, its producers met) from the
     workspace run_plain has built up to that row, against run_plain's row.
     Each output within two bf16 ulps of its largest value (mega_atol), every
-    other workspace value bitwise unchanged. Also measures (does not
-    judge) each output against the bf16 epsilon band. Returns (max abs
-    error, the worst err / atol, the op of its row, the band's worst
-    (ulp, cos, op) and the rows outside it)."""
+    other workspace value bitwise unchanged, and inside the epsilon band of
+    its dtype (tests/torch_parity.py); raises naming every output outside
+    it. Shared with tests/test_torch_cuda.py's branch test. Returns (max
+    abs error, the worst err / atol, the op of its row, the band's worst
+    (ulp, cos, op) and the count of outputs outside it, 0)."""
     import dataclasses
 
     import torch
@@ -1452,7 +1482,7 @@ def check_mega_rows(cm, pos, table, ws, weights, norms, rope, kp, vp):
     parity = torch_parity()
     ws = ws.clone()
     err_max, worst, worst_op = 0.0, 0.0, None
-    band_worst, outside = (0, 0.0, None), 0
+    band_worst, outside = (0, 0.0, None), []
     for i, row in enumerate(cm.queue):
         alone = row.copy()
         alone[17] = 0
@@ -1475,7 +1505,9 @@ def check_mega_rows(cm, pos, table, ws, weights, norms, rope, kp, vp):
             rep = parity.check_epsilon(
                 w.float().cpu().numpy(), g.float().cpu().numpy(), "mega",
                 w.dtype)
-            outside += not rep["ok"]
+            if not rep["ok"]:
+                outside.append((i, OPS[row[0]], slot, rep["ulp"],
+                                rep["cos"]))
             if rep["ulp"] > band_worst[0]:
                 band_worst = (rep["ulp"], rep["cos"], OPS[row[0]])
             other[:, slot, :, :width] = False
@@ -1483,7 +1515,10 @@ def check_mega_rows(cm, pos, table, ws, weights, norms, rope, kp, vp):
             raise AssertionError(f"mega row {i} ({OPS[row[0]]}) wrote "
                                  f"{int(other.sum())} workspace values "
                                  "outside its outputs")
-    return err_max, worst, worst_op, band_worst, outside
+    if outside:
+        raise AssertionError(f"mega rows outside the epsilon band, teacher-"
+                             f"forced (row, op, slot, ulp, cos): {outside}")
+    return err_max, worst, worst_op, band_worst, len(outside)
 
 
 def check_mega_branches(world, paged, device="cuda"):
@@ -1726,7 +1761,7 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
     log(f"  mega rows teacher-forced on the recorded inputs: each of "
         f"{len(mega.cm.queue)} rows within two bf16 ulps of its outputs' "
         f"largest value, max_abs_err {row_err:.3e}, worst err / atol "
-        f"{row_worst:.3f} ({row_op}); bf16 epsilon band (measured): "
+        f"{row_worst:.3f} ({row_op}); bf16 epsilon band (judged): "
         f"{row_out} outputs outside, worst ulp {row_band[0]} cos "
         f"{row_band[1]:.3e} ({row_band[2]})")
 
@@ -2228,6 +2263,348 @@ def run_sp(kernels, cfg, params):
     return launched, errs, numbers
 
 
+# -- the seventh path: EP MoE at Qwen3-30B-A3B widths ---------------------
+
+EP_WORLD = 4
+EP_TOKENS = 128  # tokens a rank: the 4 x 128 prefill's 512
+EP_CHUNKS = (1, 2, 4)
+EP_STRAGGLE_NS = 5_000_000
+EP_KERNELS = ("all_to_all", "all_to_all_chunked")
+
+
+class A2ARecorder:
+    """Within the block, every call of the two A2A wrappers that the EP
+    layer makes (through kernels/ep_a2a.py's names) keeps a copy of its
+    inputs and of its outputs, to hold each launch against the plain
+    version afterwards. Calls the wrapper, which counts the launch."""
+
+    def __init__(self):
+        from triton_dist_tpu_torch.kernels import ep_a2a
+
+        self.mod = ep_a2a
+        self.saved = {}
+        self.records = []
+
+    def _wrap(self, name, fn):
+        def call(x, splits, **kw):
+            out, out_sp = fn(x, splits, **kw)
+            self.records.append(dict(
+                name=name, x=x.clone(), splits=splits.clone(), kw=kw,
+                out=out.clone(), out_splits=out_sp.clone()))
+            return out, out_sp
+        return call
+
+    def __enter__(self):
+        for name in EP_KERNELS:
+            self.saved[name] = getattr(self.mod, name)
+            setattr(self.mod, name, self._wrap(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+class FfnRecorder:
+    """Within the block, every grouped_gemm call of the EP expert FFN
+    (kernels/ep_a2a.py through the grouped_gemm module: gate|up and down,
+    sizes a rank) keeps a copy of its inputs (the weight by reference)
+    and runs as before."""
+
+    def __init__(self):
+        from triton_dist_tpu_torch.kernels import grouped_gemm as gg
+
+        self.mod, self.fn = gg, gg.grouped_gemm
+        self.records = []
+
+    def __call__(self, x, w, sizes, out_dtype=None, host_sizes=None):
+        self.records.append(dict(x=x.clone(), w=w, sizes=sizes.clone(),
+                                 out_dtype=out_dtype, host_sizes=host_sizes))
+        return self.fn(x, w, sizes, out_dtype, host_sizes)
+
+    def __enter__(self):
+        self.mod.grouped_gemm = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.grouped_gemm = self.fn
+
+
+def host_syncs(fn) -> int:
+    """Host syncs of one call of fn: the synchronizing CUDA operations
+    that torch.cuda's sync debug mode reports."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def ep_a2a_row(kernels, label, x, sp, chunked, q=1):
+    """One A2A kernel timed at x, beside its plain version, the library
+    yardstick (x.transpose(0, 1).contiguous(), the splits likewise) and
+    its bound: each segment and splits row read once and written once."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels.all_to_all import (
+        all_to_all,
+        all_to_all_chunked,
+    )
+
+    if chunked:
+        fn = lambda: all_to_all_chunked(x, sp, n_chunks=q)  # noqa: E731
+    else:
+        fn = lambda: all_to_all(x, sp)  # noqa: E731
+    nbytes = 2 * (x.numel() * x.element_size() + sp.numel() * 4)
+    return time_collective(
+        label, fn, lambda: kernels.all_to_all_plain(x, sp),
+        lambda: (x.transpose(0, 1).contiguous(),
+                 sp.transpose(0, 1).contiguous()),
+        0, nbytes, torch.bfloat16,
+        kernel_key="a2a_chunked_kernel" if chunked else "a2a_kernel")
+
+
+def run_ep(kernels, cfg, params, device="cuda"):
+    """The seventh path: ep_moe_fwd on layer 0 of the Qwen3-30B-A3B draw
+    at world 4, re-laid by ep_params_from_tp (32 whole experts a rank),
+    on tokens from seed 0 (the layer's post-attention norm of embedded
+    random ids): M = 128 a rank sequential and overlap at n_chunks 1, 2,
+    4 (capacity 1024, lossless); M = 1 sequential and overlap at 1; a
+    tight capacity of 256 at M = 128, sequential and overlap at 2 (drops
+    nonzero). Launches counted from 0 around these runs, each A2A call
+    recorded, and each grouped_gemm call of the expert FFN. Then: each
+    recorded launch bitwise its plain version; each recorded FFN product
+    against grouped_gemm_plain on the same inputs; every run bitwise the
+    same layer over the plain transports; sequential and overlap inside
+    the bf16 band of each other, drops equal (and equal the plain
+    composition's); EP against the TP-MoE `dist` block on the same layer
+    and tokens (f32 judged by the f32 band; the bf16 EP output against
+    the f32 TP output judged by the band's cosine, its ulp measured; bf16
+    against bf16 measured); the chunked kernel with rank 0, then rank 3,
+    delayed 5 ms, bitwise.
+    Timing: the layer's ms (first run and warm), rows 12 and 13, host
+    syncs a call, peak GB. Returns (launches, errs, numbers)."""
+    import numpy as np
+    import torch
+
+    from triton_dist_tpu_torch.kernels.all_to_all import all_to_all_chunked
+    from triton_dist_tpu_torch.layers import rms_norm
+    from triton_dist_tpu_torch.layers.ep_moe import (
+        ep_moe_fwd,
+        ep_params_from_tp,
+    )
+    from triton_dist_tpu_torch.layers.tp_moe import TPMoEParams, tp_moe_fwd
+    from triton_dist_tpu_torch.runtime import VirtualWorld
+
+    n, k = EP_WORLD, cfg.num_experts_per_tok
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lp = params.layers.layer(0)
+    tp = TPMoEParams(lp.w_router, lp.w_gate_up, lp.w_down)
+    ep = ep_params_from_tp(tp)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            (n, EP_TOKENS))
+    ids = torch.as_tensor(ids, device=device)
+    x = rms_norm(params.embed[ids], lp.post_attn_ln, cfg.rms_eps)
+    x1 = x[:, :1].contiguous()
+    tight = EP_TOKENS * k // n
+    runs = {"M128 sequential": dict(x=x),
+            **{f"M128 overlap q{q}": dict(x=x, overlap=True, n_chunks=q)
+               for q in EP_CHUNKS},
+            "M1 sequential": dict(x=x1),
+            "M1 overlap q1": dict(x=x1, overlap=True, n_chunks=1),
+            f"M128 capacity {tight} sequential": dict(x=x, capacity=tight),
+            f"M128 capacity {tight} overlap q2": dict(
+                x=x, capacity=tight, overlap=True, n_chunks=2)}
+
+    def layer(kw, **extra):
+        kw = dict(kw, **extra)
+        return ep_moe_fwd(kw.pop("x"), ep, k, return_drops=True, **kw)
+
+    outs, first_ms = {}, {}
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    with A2ARecorder() as rec, FfnRecorder() as ffn:
+        for label, kw in runs.items():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            outs[label] = layer(kw)
+            b.record()
+            b.synchronize()
+            first_ms[label] = a.elapsed_time(b)
+    launched = kernels.launches()
+    seq = [lab for lab, kw in runs.items() if not kw.get("overlap")]
+    want = {name: 0 for name in kernel_names()}
+    want.update(all_to_all=2 * len(seq),
+                all_to_all_chunked=2 * (len(runs) - len(seq)))
+    assert launched == want, (launched, want)
+    for label, (y, drops) in outs.items():
+        x_in = runs[label]["x"]
+        assert y.shape == x_in.shape and y.dtype == x_in.dtype, label
+        assert bool(torch.isfinite(y).all()), label
+
+    # each A2A launch of the window against its plain version
+    a2a_err = {name: 0.0 for name in EP_KERNELS}
+    for r in rec.records:
+        want_out, want_sp = kernels.all_to_all_plain(r["x"], r["splits"])
+        err = max((r["out"].float() - want_out.float()).abs().max().item(),
+                  (r["out_splits"] - want_sp).abs().max().item())
+        a2a_err[r["name"]] = max(a2a_err[r["name"]], err)
+        if not (torch.equal(r["out"], want_out)
+                and torch.equal(r["out_splits"], want_sp)):
+            raise AssertionError(f"{r['name']} {tuple(r['x'].shape)} "
+                                 f"{r['kw']}: not bitwise its plain "
+                                 f"version, max abs err {err}")
+    shapes = sorted({(r["name"], tuple(r["x"].shape), str(r["x"].dtype))
+                     for r in rec.records})
+    log(f"  ep: {len(rec.records)} recorded A2A launches bitwise their "
+        f"plain version (max abs err {a2a_err}): {shapes}")
+
+    # each product of the expert FFN against the loop over experts
+    ffn_err = max(check_grouped_gemm_call(
+        r["x"], r["w"], r["sizes"], r["out_dtype"],
+        f"ep FFN x {tuple(r['x'].shape)} sizes {tuple(r['sizes'].shape)}",
+        host_sizes=r["host_sizes"]) for r in ffn.records)
+    shapes = sorted({(tuple(r["x"].shape), tuple(r["w"].shape),
+                      str(r["out_dtype"])) for r in ffn.records})
+    log(f"  ep: {len(ffn.records)} recorded expert-FFN grouped_gemm calls "
+        f"(sizes a rank) within grouped_gemm_atol of grouped_gemm_plain: "
+        f"max_abs_err={ffn_err:.3e}; (x, w, out dtype) {shapes}")
+    del ffn
+
+    # (a) the same layer over the plain transports, bitwise
+    for label, kw in runs.items():
+        y, drops = outs[label]
+        others = ("plain", "ref") if kw.get("overlap") else ("ref",)
+        for transport in others:
+            y2, d2 = layer(kw, _transport=transport)
+            if not (torch.equal(y, y2) and torch.equal(drops, d2)):
+                raise AssertionError(f"ep {label}: not bitwise the "
+                                     f"_transport={transport!r} run")
+    log(f"  ep: every run bitwise the same layer over the plain transports "
+        f"(sequential: 'ref'; overlap: 'plain' and 'ref')")
+
+    # sequential against overlap: drops equal, outputs in the bf16 band
+    bands = {}
+    for label, kw in runs.items():
+        if not kw.get("overlap"):
+            continue
+        ref_label = next(lab for lab, kw2 in runs.items()
+                         if not kw2.get("overlap") and kw2["x"] is kw["x"]
+                         and kw2.get("capacity") == kw.get("capacity"))
+        (y_s, d_s), (y_o, d_o) = outs[ref_label], outs[label]
+        if not torch.equal(d_s, d_o):
+            raise AssertionError(f"ep drops {d_o.tolist()} ({label}) != "
+                                 f"{d_s.tolist()} ({ref_label})")
+        bands[label] = band(y_s, y_o, "ep_moe")
+    drops_tight = outs[f"M128 capacity {tight} sequential"][1]
+    assert int(drops_tight.sum()) > 0, "the tight capacity dropped nothing"
+    assert int(outs["M128 sequential"][1].sum()) == 0
+    log(f"  ep: overlap against sequential, bf16 band (cos, ulp): {bands}; "
+        f"drops at capacity {tight}: {drops_tight.tolist()}, equal in both "
+        "paths and in the plain composition")
+
+    # (b) against the TP-MoE dist block on the same layer and tokens
+    world = VirtualWorld(n, device)
+    tp_band = {}
+    for label, xin in (("M128", x), ("M1", x1)):
+        rep = torch_parity().check_epsilon(
+            tp_moe_fwd(xin, tp, k, world, mode="dist").float().cpu().numpy(),
+            outs[f"{label} sequential"][0].float().cpu().numpy(), "ep_moe",
+            torch.bfloat16)
+        tp_band[f"{label} bf16 (measured)"] = (rep["cos"], rep["ulp"])
+    tp32 = TPMoEParams(*(w.float() for w in tp))
+    ep32 = ep_params_from_tp(tp32)
+    for label, xin in (("M128", x), ("M1", x1)):
+        x32 = xin.float()
+        y_tp32 = tp_moe_fwd(x32, tp32, k, world, mode="dist")
+        tp_band[f"{label} f32 (judged)"] = band(
+            y_tp32, ep_moe_fwd(x32, ep32, k), "ep_moe")
+        # the bf16 main path against the f32 TP block: an independent
+        # product of the same function; EP rounds the activation between
+        # the products to bf16, so near-zero outputs keep no ulp bound
+        rep = torch_parity().check_epsilon(
+            y_tp32.cpu().numpy(),
+            outs[f"{label} sequential"][0].float().cpu().numpy(), "ep_moe",
+            torch.bfloat16)
+        if not rep["cos"] <= rep["band_cos"]:
+            raise AssertionError(f"ep {label} bf16 against TP-MoE dist in "
+                                 f"f32: outside the bf16 cosine band {rep}")
+        tp_band[f"{label} bf16 vs f32 TP (cos judged)"] = (rep["cos"],
+                                                           rep["ulp"])
+    del tp32, ep32, y_tp32
+    torch.cuda.empty_cache()
+    log(f"  ep against TP-MoE dist, same layer and tokens (cos, ulp): "
+        f"{tp_band}")
+
+    # the chunked kernel with a straggler, on the main path's dispatch
+    disp = next(r for r in rec.records if r["name"] == "all_to_all_chunked"
+                and r["x"].shape[2] == EP_TOKENS * k)
+    want_out, want_sp = kernels.all_to_all_plain(disp["x"], disp["splits"])
+    for rank in (0, n - 1):
+        got, got_sp = all_to_all_chunked(disp["x"], disp["splits"],
+                                         n_chunks=4,
+                                         straggler=(rank, EP_STRAGGLE_NS))
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want_out) and torch.equal(got_sp, want_sp)):
+            raise AssertionError(f"all_to_all_chunked with rank {rank} "
+                                 "delayed: not bitwise")
+    log(f"  ep: all_to_all_chunked q4 at {tuple(disp['x'].shape)} with rank "
+        f"0, then rank {n - 1}, delayed {EP_STRAGGLE_NS / 1e6:.0f} ms: "
+        "bitwise")
+
+    # timing: the layer, host syncs, the two kernels
+    warm_ms = {label: time_ms(lambda kw=kw: layer(kw), iters=5, warmup=1)
+               for label, kw in runs.items()}
+    syncs = {label: host_syncs(lambda kw=runs[label]: layer(kw))
+             for label in ("M128 sequential", "M128 overlap q4",
+                           "M1 sequential", "M1 overlap q1")}
+    for label in runs:
+        log(f"  ep layer {label}: first run {first_ms[label]:.3f} ms, warm "
+            f"{warm_ms[label]:.3f} ms (CUDA events)")
+    log(f"  ep host syncs a call: {syncs}")
+    a2a_rows, chunk_rows = {}, {}
+    for r in rec.records:  # each (kernel, shape, dtype, q) once
+        x_r, q = r["x"], r["kw"].get("n_chunks", 1)
+        what = "dispatch" if x_r.dtype == torch.bfloat16 else "combine"
+        label = f"{what} x {tuple(x_r.shape)} {str(x_r.dtype)[6:]}"
+        if r["name"] == "all_to_all" and label not in a2a_rows:
+            a2a_rows[label] = ep_a2a_row(kernels, f"all_to_all {label}",
+                                         x_r, r["splits"], False)
+        elif (r["name"] == "all_to_all_chunked"
+              and f"{label} q{q}" not in chunk_rows):
+            chunk_rows[f"{label} q{q}"] = ep_a2a_row(
+                kernels, f"all_to_all_chunked {label} q{q}", x_r,
+                r["splits"], True, q)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ep_gb = sum(w.numel() * w.element_size() for w in ep[1:]) / 1e9
+    log(f"  ep peak {peak:.2f} GB beyond the {base / 1e9:.2f} GB held before "
+        f"(the EP weights {ep_gb:.2f} GB)")
+    main = next(iter(a2a_rows))  # the first launch: M128's dispatch
+    numbers = dict(first_ms=first_ms, warm_ms=warm_ms, host_syncs=syncs,
+                   peak_gb_beyond_weights=peak, bands_seq_overlap=bands,
+                   ep_vs_tp_dist=tp_band,
+                   drops_tight=drops_tight.tolist(),
+                   max_abs_err=a2a_err, ffn_max_abs_err=ffn_err)
+    errs = dict(all_to_all=(a2a_rows, main, a2a_err["all_to_all"]),
+                all_to_all_chunked=(chunk_rows, f"{main} q4",
+                                    a2a_err["all_to_all_chunked"]))
+    del ep, x, x1, outs, rec, disp, want_out
+    torch.cuda.empty_cache()
+    return launched, errs, numbers
+
+
 SOURCES = {
     "mega": ("triton_dist_tpu_torch/csrc/mega.cu",
              "triton_dist_tpu/mega/kernel.py:1192"),
@@ -2249,6 +2626,10 @@ SOURCES = {
                 "triton_dist_tpu/kernels/gemm_reduce_scatter.py:261"),
     "ring_reduce_scatter": ("triton_dist_tpu_torch/csrc/reduce_scatter.cu",
                             "triton_dist_tpu/kernels/reduce_scatter.py:77"),
+    "all_to_all": ("triton_dist_tpu_torch/csrc/all_to_all.cu",
+                   "triton_dist_tpu/kernels/all_to_all.py:46"),
+    "all_to_all_chunked": ("triton_dist_tpu_torch/csrc/all_to_all.cu",
+                           "triton_dist_tpu/kernels/all_to_all.py:144"),
 }
 
 
@@ -2485,7 +2866,12 @@ def main() -> int:
     modelm["grouped_gemm_max_abs_err"] = check_recorded_grouped_gemm(
         recm["grouped_gemm"])
     moe_rs_rows, moe_ag_rows, rs_main, grouped_main = time_moe(kernels, recm)
-    del recm, params
+    del recm
+    torch.cuda.empty_cache()
+    log("== 4e. the seventh path: EP MoE (ep_moe_fwd) on layer 0 of the "
+        "same Qwen3-30B-A3B weights, world 4, 32 experts a rank")
+    nep, ep_errs, ep_numbers = run_ep(kernels, cfg, params)
+    del params
     torch.cuda.empty_cache()
     ag_rows.update(moe_ag_rows)
     for name in ("one_shot_all_reduce", "ring_all_gather"):
@@ -2496,7 +2882,7 @@ def main() -> int:
     # launches: the four main-path runs, each counted from 0
     paths = {"world1": n1, "world4_ar": n4, "world4_dist": nd,
              "world4_moe": nm, "mega_world1": nm1, "mega_world4": nm4,
-             "sp_world4": nsp}
+             "sp_world4": nsp, "ep_world4": nep}
 
     def by_path(name):
         return {k: v[name] for k, v in paths.items()}
@@ -2537,6 +2923,11 @@ def main() -> int:
         err, cos, ulp, main_label, rows = sp_errs[name]
         lines.append(entry(name, total(name), by_path(name), err, rows,
                            main_label, band_cos=cos, band_ulp=ulp))
+    for name in EP_KERNELS:
+        rows, main_label, err = ep_errs[name]
+        lines.append(entry(name, total(name), by_path(name), err, rows,
+                           main_label,
+                           device_us=rows[main_label]["device_us"]))
     missing = set(kernels.KERNELS) - {e["name"] for e in lines}
     assert not missing, f"kernels without a line: {missing}"
     assert all(e["launches"] > 0 for e in lines), "a kernel never launched"
@@ -2544,7 +2935,7 @@ def main() -> int:
     log(f"  wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"model": [model1, model4, modeld, modelm],
                     "mega": dict(mega_rows, batch1=mega_b1),
-                    "sp": sp_numbers}))
+                    "sp": sp_numbers, "ep": ep_numbers}))
     print(json.dumps({"kernels": lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

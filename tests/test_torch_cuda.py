@@ -285,10 +285,12 @@ def test_grouped_gemm_card_route_matches_plain(cuda, gs, out_dtype):
     """torch._grouped_mm with the rank dim folded into the groups against
     the loop over experts: empty groups, one group, and rows past the
     last group (exactly zero on every rank, the last one included); x
-    shared by the ranks, one per rank, and an unstacked weight. Band: one
-    bf16 ulp of the largest output plus 1e-5 of it, and the epsilon band
-    of the out dtype (an f32 out_dtype takes each expert's rows in f32:
-    `_grouped_mm`'s bf16 result widened fell outside the f32 band)."""
+    shared by the ranks, one per rank, and an unstacked weight; and
+    (n, E) sizes, one row a rank (EP), with and without the sizes handed
+    over on the host. Band: one bf16 ulp of the largest output plus 1e-5
+    of it, and the epsilon band of the out dtype (an f32 out_dtype takes
+    each expert's rows in f32: `_grouped_mm`'s bf16 result widened fell
+    outside the f32 band)."""
     rng = np.random.default_rng(50 + sum(gs[:2]))
     n, t, k, nn = 4, 16, 64, 48
     sizes = torch.tensor(gs, dtype=torch.int32, device="cuda")
@@ -309,6 +311,22 @@ def test_grouped_gemm_card_route_matches_plain(cuda, gs, out_dtype):
             atol=2.0 ** -7 * top + 1e-5 * max(1.0, top))
         band(want, got, "grouped_gemm")
         assert not got[..., sum(gs):, :].any()
+    # sizes a rank: gs, reversed, none, rotated
+    per = torch.tensor([gs, gs[::-1], [0] * 4, gs[1:] + gs[:1]],
+                       dtype=torch.int32, device="cuda")
+    want = gg.grouped_gemm_plain(per_rank, w, per, out_dtype=out_dtype)
+    for host in (None, per.tolist()):
+        got = gg.grouped_gemm(per_rank, w, per, out_dtype=out_dtype,
+                              host_sizes=host)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == out_dtype
+        top = want.float().abs().max().item()
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=0,
+            atol=2.0 ** -7 * top + 1e-5 * max(1.0, top))
+        band(want, got, "grouped_gemm")
+        for r, used in enumerate(per.sum(-1).tolist()):
+            assert not got[r, used:].any()
 
 
 @pytest.mark.cuda
@@ -483,11 +501,43 @@ sys.exit(0)
 """
 
 
+# an all-to-all whose delivery flags start far below zero: no segment
+# ever counts every block of its source, so the first delivery wait must
+# trap (the entry barrier's word 0 is left at zero)
+_A2A_FAULT = r"""
+import sys, torch
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels import all_to_all as a2a
+chunked = int(sys.argv[1])
+n, q = 4, 2 if chunked else 1
+lib = _build.load("all_to_all", a2a._SIGNATURES)
+x = torch.ones((n, n, 8, 256), device="cuda", dtype=torch.bfloat16)
+sp = torch.ones((n, n), device="cuda", dtype=torch.int32)
+out, osp = torch.empty_like(x), torch.empty_like(sp)
+flags = torch.full((n, lib.a2a_flag_words(n, q)), -1000, device="cuda",
+                   dtype=torch.int32)
+flags[:, 0] = 0
+grid = _build.GridInfo()
+err = lib.a2a_launch(x.data_ptr(), out.data_ptr(), sp.data_ptr(),
+                     osp.data_ptr(), flags.data_ptr(), n, 8 * 256 * 2, 4, q,
+                     chunked, -1, 0, 2, grid.ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+assert err == 0, err
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(3)
+sys.exit(0)
+"""
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,script", [
     ("gemm_rs", _FAULT), ("ag_gemm", _AG_FAULT),
     ("ring_reduce_scatter", _RS_FAULT), ("ll_all_gather", _LL_FAULT),
-    ("sp_flash_prefill", _SP_FAULT)])
+    ("sp_flash_prefill", _SP_FAULT), ("all_to_all", _A2A_FAULT),
+    ("all_to_all_chunked", _A2A_FAULT)])
 def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script):
     """A wait that can never be satisfied (flags left non-zero) ends in
     the bounded spin's printf and __trap(): the launch fails and the
@@ -499,7 +549,9 @@ def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script):
     import sys
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    proc = subprocess.run([sys.executable, "-c", script], cwd=repo,
+    args = [str(int(kernel == "all_to_all_chunked"))] if (
+        script is _A2A_FAULT) else []
+    proc = subprocess.run([sys.executable, "-c", script, *args], cwd=repo,
                           capture_output=True, text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": repo})
     assert proc.returncode == 3, (proc.returncode, proc.stdout, proc.stderr)
@@ -556,7 +608,12 @@ def test_mega_branches_match_plain(cuda, world, dtype, ulps, batch, paged,
     (sums in another order); bf16 within two bf16 ulps of each output's
     largest value (2 * 2^-7 of it): the two round the same values to bf16
     at the same points after f32 sums taken in another order, so a
-    rounding may differ by one ulp and carry into the next branch."""
+    rounding may differ by one ulp and carry into the next branch.
+    bf16 is also judged by its epsilon band, teacher-forced: each queue
+    row alone on the kernel from run_plain's workspace up to that row
+    (chip_smoke.check_mega_rows, shared with chip_smoke.py phases 3 and
+    4m), so a one-quantum fold-order difference of one branch does not
+    reach the next branch's inputs; the band itself is unchanged."""
     from triton_dist_tpu_torch.mega.builder import branch_graph
     from triton_dist_tpu_torch.mega.kernel import compile_graph
     from triton_dist_tpu_torch.mega.scheduler import (
@@ -577,6 +634,7 @@ def test_mega_branches_match_plain(cuda, world, dtype, ulps, batch, paged,
     pos_t, table, ws, weights, norms, rope, kp, vp = inp
     want = cm.run_plain(pos_t, table, ws.clone(), weights, norms, rope, kp,
                         vp)
+    ws0 = ws.clone()
     reset_launches()
     got = cm.run(pos_t, table, ws, weights, norms, rope, kp, vp)
     torch.cuda.synchronize()
@@ -587,9 +645,13 @@ def test_mega_branches_match_plain(cuda, world, dtype, ulps, batch, paged,
         err = (got[:, s, :, :b.width].float() - w).abs().max().item()
         atol = 1e-4 if ulps is None else ulps * 2.0 ** -7 * w.abs().max()
         assert err <= atol, (b.name, s, err, atol)
-        if dtype == torch.bfloat16:
-            band(want[:, s, :, :b.width], got[:, s, :, :b.width],
-                 f"mega:{b.name}")
+    if dtype == torch.bfloat16:
+        import chip_smoke
+
+        _, _, _, (ulp, cos, op), outside = chip_smoke.check_mega_rows(
+            cm, pos_t, table, ws0, weights, norms, rope, kp, vp)
+        print(f"band mega rows teacher-forced: {outside} outside, worst "
+              f"ulp {ulp} cos {cos:.3e} ({op})")
 
 
 @pytest.mark.cuda
@@ -763,3 +825,150 @@ def test_sp_flash_prefill_kernel_matches_plain(cuda, n, heads, dtype):
         torch.cuda.synchronize()
         assert torch.equal(late, got), rank
     assert launches()["sp_flash_prefill"] == 2 + n
+
+
+# -- the MoE all-to-all and the EP layer (PERF.md rows 12-13) ---------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype,width", [
+    (torch.bfloat16, 2176), (torch.float32, 2048), (torch.bfloat16, 3),
+    (torch.int8, 40)], ids=["bf16-dispatch", "f32-combine", "bf16-ragged",
+                            "int8"])
+@pytest.mark.parametrize("splits_dims", [2, 3])
+def test_a2a_kernels_match_plain_bitwise(cuda, n, dtype, width,
+                                                splits_dims):
+    """Both A2A kernels against the plain version, bitwise, payload and
+    splits: the EP dispatch width (2176 bf16), the combine's f32, rows
+    of 6 bytes (no 16-byte words) and int8 (the kernel moves bytes); the
+    chunked kernel at q = 1, 2, 4 and with rank 0, then rank n - 1,
+    delayed 5 ms; one launch a call."""
+    from triton_dist_tpu_torch.kernels.all_to_all import (
+        all_to_all,
+        all_to_all_chunked,
+        all_to_all_plain,
+    )
+
+    rng = np.random.default_rng(n + width)
+    c = 8
+    x = torch.from_numpy(rng.standard_normal((n, n, c, width)) * 4).to(
+        "cuda", dtype)
+    shape = (n, n) if splits_dims == 2 else (n, n, 5)
+    sp = torch.from_numpy(rng.integers(0, c + 1, shape)).to("cuda",
+                                                            torch.int32)
+    want, want_sp = all_to_all_plain(x, sp)
+    assert torch.equal(want[1, 0], x[0, 1])
+    reset_launches()
+    runs = [all_to_all(x, sp)]
+    runs += [all_to_all_chunked(x, sp, n_chunks=q) for q in (1, 2, 4)]
+    runs += [all_to_all_chunked(x, sp, n_chunks=2, straggler=(r, 5_000_000))
+             for r in (0, n - 1)]
+    torch.cuda.synchronize()
+    for got, got_sp in runs:
+        assert torch.equal(got, want) and torch.equal(got_sp, want_sp)
+        assert got_sp.shape == sp.shape
+    assert launches()["all_to_all"] == 1
+    assert launches()["all_to_all_chunked"] == 5
+    with pytest.raises(ValueError, match="divide"):
+        all_to_all_chunked(x, sp, n_chunks=3)
+
+
+def _ep_case(n, m, h, e, inter, dtype, seed=0):
+    from triton_dist_tpu_torch.layers.ep_moe import EPMoEParams
+
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale):
+        return torch.from_numpy(rng.standard_normal(shape) * scale).to(
+            "cuda", dtype)
+
+    x = t(n, m, h, scale=1.0)
+    params = EPMoEParams(t(h, e, scale=0.3), t(n, e // n, h, 2 * inter,
+                                              scale=0.05),
+                         t(n, e // n, inter, h, scale=0.05))
+    return x, params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [None, 24])
+def test_ep_moe_a2a_kernels_bitwise_plain_transports(cuda, capacity):
+    """ep_moe_fwd on the card, bf16, n = 4, M 32, E 16, top-4: with the
+    kernels, bitwise the same layer with the plain transports
+    (sequential: the single-shot kernel against "ref"; overlap at q = 1,
+    2, 4: the chunked kernel against "plain" and "ref"), bitwise over two
+    calls (the combine adds in slot order, no atomics); overlap and
+    sequential inside the bf16 band of each other, equal drops (a tight
+    capacity of 24 drops pairs)."""
+    from triton_dist_tpu_torch.layers.ep_moe import ep_moe_fwd
+
+    x, p = _ep_case(4, 32, 256, 16, 64, torch.bfloat16)
+    k = 4
+    reset_launches()
+    seq, d_seq = ep_moe_fwd(x, p, k, capacity=capacity, return_drops=True)
+    assert launches()["all_to_all"] == 2
+    again = ep_moe_fwd(x, p, k, capacity=capacity)
+    ref, d_ref = ep_moe_fwd(x, p, k, capacity=capacity, return_drops=True,
+                            _transport="ref")
+    torch.cuda.synchronize()
+    assert torch.equal(seq, again) and torch.equal(seq, ref)
+    assert torch.equal(d_seq, d_ref)
+    assert (int(d_seq.sum()) > 0) == (capacity is not None)
+    for q in (1, 2, 4):
+        reset_launches()
+        ovl, d_ovl = ep_moe_fwd(x, p, k, capacity=capacity, overlap=True,
+                                n_chunks=q, return_drops=True)
+        assert launches()["all_to_all_chunked"] == 2
+        for transport in ("plain", "ref"):
+            other = ep_moe_fwd(x, p, k, capacity=capacity, overlap=True,
+                               n_chunks=q, _transport=transport)
+            assert torch.equal(ovl, other), (q, transport)
+        assert torch.equal(d_ovl, d_seq)
+        band(seq, ovl, "ep_moe")
+
+
+@pytest.mark.cuda
+def test_ep_moe_a2a_matches_tp_moe_dist_on_the_card(cuda):
+    """The same layer's weights as TP-MoE (n, E, H, 2I/n) and re-laid for
+    EP by ep_params_from_tp: EP (the A2A kernels) against the TP-MoE
+    `dist` block (ring AG and ring RS kernels) on the same tokens, in
+    f32, inside the f32 band: the two differ only in fold order there.
+    In bf16 the TP block also rounds the gate|up product, each rank's
+    partial output and each add of the ring RS to bf16, which EP does
+    not (its products have f32 outputs, as the JAX EP FFN's): near-zero
+    outputs then differ by more than the bf16 band's 8 quanta of
+    themselves, so the bf16 report is printed, not judged."""
+    from triton_dist_tpu_torch.layers.ep_moe import (
+        ep_moe_fwd,
+        ep_params_from_tp,
+    )
+    from triton_dist_tpu_torch.layers.tp_moe import TPMoEParams, tp_moe_fwd
+    from triton_dist_tpu_torch.runtime import VirtualWorld
+
+    n, m, h, e, inter, k = 4, 32, 256, 16, 128, 4
+    rng = np.random.default_rng(3)
+
+    def t(*shape, scale):
+        return torch.from_numpy(rng.standard_normal(shape) * scale).to(
+            "cuda", torch.float32)
+
+    tp = TPMoEParams(t(h, e, scale=0.3), t(n, e, h, 2 * inter // n,
+                                           scale=0.05),
+                     t(n, e, inter // n, h, scale=0.05))
+    x = t(n, m, h, scale=1.0)
+    world = VirtualWorld(n, "cuda")
+    reset_launches()
+    want = tp_moe_fwd(x, tp, k, world, mode="dist")
+    got = ep_moe_fwd(x, ep_params_from_tp(tp), k)
+    torch.cuda.synchronize()
+    assert launches()["all_to_all"] == 2
+    band(want, got, "ep_moe")
+    bf = TPMoEParams(*(w.bfloat16() for w in tp))
+    xb = x.bfloat16()
+    rep = torch_parity.check_epsilon(
+        tp_moe_fwd(xb, bf, k, world, mode="dist").float().cpu().numpy(),
+        ep_moe_fwd(xb, ep_params_from_tp(bf), k).float().cpu().numpy(),
+        "ep_moe", torch.bfloat16)
+    print(f"bf16 EP against TP-MoE dist (measured): cos={rep['cos']:.3e} "
+          f"ulp={rep['ulp']} (band {rep['band_cos']:.0e}, "
+          f"{rep['band_ulp']})")

@@ -39,3 +39,19 @@ def test_port_and_chip_smoke_import_without_jax():
     assert proc.returncode == 0, proc.stderr[-4000:]
     n = int(proc.stdout.split()[0])
     assert n >= 40, proc.stdout  # every module was walked
+
+
+def test_all_to_all_name_is_the_module():
+    """`all_to_all` names a submodule of kernels/ and a function in it;
+    kernels/__init__.py does not re-export the function, so importing the
+    name from the package yields the module."""
+    import types
+
+    from triton_dist_tpu_torch import kernels
+    from triton_dist_tpu_torch.kernels import all_to_all
+    from triton_dist_tpu_torch.kernels.all_to_all import all_to_all as fn
+
+    assert isinstance(all_to_all, types.ModuleType)
+    assert all_to_all.all_to_all is fn
+    assert kernels.KERNELS["all_to_all"] is fn
+    assert kernels.SOURCES["all_to_all"] == "all_to_all"

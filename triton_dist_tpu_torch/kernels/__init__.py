@@ -2,6 +2,11 @@
 
 `KERNELS` maps every kernel's name to its counted wrapper;
 `reset_launches()` / `launches()` read and clear the launch counts.
+
+`all_to_all` is a submodule and a function of it: the function is not
+re-exported here, so `from triton_dist_tpu_torch.kernels import
+all_to_all` is the module (import the function from
+`triton_dist_tpu_torch.kernels.all_to_all`).
 """
 
 from triton_dist_tpu_torch.kernels._build import (  # noqa: F401
@@ -9,6 +14,11 @@ from triton_dist_tpu_torch.kernels._build import (  # noqa: F401
     build,
     launches,
     reset_launches,
+)
+from triton_dist_tpu_torch.kernels.all_to_all import (  # noqa: F401
+    all_to_all_chunked,
+    all_to_all_plain,
+    fast_all_to_all,
 )
 from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
     ring_all_gather,
@@ -23,6 +33,19 @@ from triton_dist_tpu_torch.kernels.allgather_gemm import (  # noqa: F401
 from triton_dist_tpu_torch.kernels.allreduce import (  # noqa: F401
     one_shot_all_reduce,
     one_shot_all_reduce_plain,
+)
+from triton_dist_tpu_torch.kernels.ep_a2a import (  # noqa: F401
+    EPChunkDispatch,
+    EPDispatch,
+    EpMoeConfig,
+    ep_combine,
+    ep_combine_chunked,
+    ep_dispatch,
+    ep_dispatch_chunked,
+    ep_expert_ffn,
+    ep_expert_ffn_chunked,
+    ep_moe_pipeline,
+    fit_chunks,
 )
 from triton_dist_tpu_torch.kernels.flash_decode import (  # noqa: F401
     create_sp_decode_buf,
@@ -70,4 +93,6 @@ SOURCES = {
     "sp_flash_prefill": "flash_prefill",
     "flash_decode_partial": "flash_decode",
     "ll_all_gather": "low_latency_allgather",
+    "all_to_all": "all_to_all",
+    "all_to_all_chunked": "all_to_all",
 }

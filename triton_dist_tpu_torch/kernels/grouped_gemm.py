@@ -6,7 +6,8 @@ rounded to `out_dtype`: rows of sorted segment e multiply expert e's
 weight, rows past the last segment are zero. It is not a Pallas kernel,
 so the port computes it with torch ops, and with the rank dim of the
 virtual world kept: x (T, K) shared by every rank or (n, T, K) one per
-rank, w (n, E, K, N), group sizes (E,) shared (the ranks route alike),
+rank, w (n, E, K, N), group sizes (E,) shared (the TP ranks route
+alike) or (n, E) one row a rank (EP: every rank receives other tokens),
 result (n, T, N). Unstacked (T, K) x (E, K, N) gives (T, N).
 
 Routes, by device and dtype (stated, not a silent fallback):
@@ -25,7 +26,10 @@ Routes, by device and dtype (stated, not a silent fallback):
       the experts in consecutive chunks, each expert's rows in a block
       padded to its chunk's largest group, one batched product with an
       f32 output a chunk (a chunk and rank unless the chunk holds every
-      expert), after one host sync for the group sizes. A chunk's blocks
+      expert), after one host sync for the group sizes, or none when the
+      caller holds them on the host (`host_sizes`: the EP FFN reads its
+      sizes once for both products, or once for every chunk). An expert
+      is padded to its largest group over the ranks. A chunk's blocks
       stay under _SCRATCH_BYTES (an expert whose rows alone exceed it is
       a chunk of its own), so a skewed routing costs more products, not
       memory beyond the output and that budget.
@@ -66,15 +70,15 @@ def grouped_gemm_plain(x_sorted: torch.Tensor, w_stack: torch.Tensor,
     out_dtype = out_dtype or x_sorted.dtype
     x, w = _stacked(x_sorted, w_stack)
     t = x.shape[-2]
-    ends = torch.cumsum(group_sizes.long(), 0)
-    starts = ends - group_sizes.long()
+    sizes = group_sizes.to(x.device, torch.long)[..., None, :]
+    ends = torch.cumsum(sizes, -1)
     rows = torch.arange(t, device=x.device)[:, None]
-    member = (rows >= starts[None, :]) & (rows < ends[None, :])  # (T, E)
+    member = (rows >= ends - sizes) & (rows < ends)  # ([n,] T, E)
     xf = x.float()
     acc = torch.zeros((*x.shape[:-1], w.shape[-1]), dtype=torch.float32,
                       device=x.device)
     for e in range(w.shape[1]):
-        acc = torch.where(member[:, e:e + 1], xf @ w[:, e].float(), acc)
+        acc = torch.where(member[..., e:e + 1], xf @ w[:, e].float(), acc)
     acc = acc.to(out_dtype)
     return acc if w_stack.dim() == 4 else acc[0]
 
@@ -96,61 +100,72 @@ def _expert_chunks(sizes, row_bytes: int):
 
 
 def _expert_rows(x_sorted: torch.Tensor, w_stack: torch.Tensor,
-                 group_sizes: torch.Tensor, out_dtype) -> torch.Tensor:
+                 group_sizes: torch.Tensor, out_dtype,
+                 host_sizes=None) -> torch.Tensor:
     """Each expert's rows times its weight with an f32 output: for each
-    chunk of _expert_chunks, the sorted rows gathered into (E_chunk, cap,
-    K) blocks a rank, `torch.bmm(out_dtype=f32)` (f32 accumulation, no
-    rounding to bf16) over all ranks at once when the chunk holds every
-    expert (the weight stack is then an (n*E, K, N) view), else a rank at
-    a time, and the rows scattered back; rows past the last group are 0.
-    One host sync (the group sizes)."""
+    chunk of _expert_chunks (an expert padded to its largest group over
+    the ranks), the sorted rows gathered into (E_chunk, cap, K) blocks a
+    rank, `torch.bmm(out_dtype=f32)` (f32 accumulation, no rounding to
+    bf16) over all ranks at once when the chunk holds every expert (the
+    weight stack is then an (n*E, K, N) view), else a rank at a time,
+    and the rows scattered back; rows past the last group are 0. One
+    host sync (the group sizes), none with host_sizes (the same sizes as
+    nested lists)."""
     x, w = _stacked(x_sorted, w_stack)
     n, e, k, nn = w.shape
     t = x.shape[-2]
-    sizes = group_sizes.to(x.device, torch.long)
-    starts = torch.cumsum(sizes, 0) - sizes
+    sizes = group_sizes.to(x.device, torch.long).expand(n, e)
+    host = group_sizes.tolist() if host_sizes is None else host_sizes
+    widest = ([max(col) for col in zip(*host)] if group_sizes.dim() == 2
+              else host)
+    starts = torch.cumsum(sizes, -1) - sizes
     out = torch.zeros((n, t + 1, nn), dtype=torch.float32, device=x.device)
+    ranks = torch.arange(n, device=x.device)
     row_bytes = n * (k * x.element_size() + nn * 4)
-    for lo, hi, cap in _expert_chunks(group_sizes.tolist(), row_bytes):
+    for lo, hi, cap in _expert_chunks(widest, row_bytes):
         j = torch.arange(cap, device=x.device)
-        rows = starts[lo:hi, None] + j  # (hi - lo, cap)
-        live = j < sizes[lo:hi, None]
-        xe = x[:, torch.where(live, rows, 0).reshape(-1)].reshape(
-            n, hi - lo, cap, k)
+        rows = starts[:, lo:hi, None] + j  # (n, hi - lo, cap)
+        live = j < sizes[:, lo:hi, None]
+        xe = x[ranks[:, None, None], torch.where(live, rows, 0)]
         # a padding row lands on the spare row t, sliced off below
-        dst = torch.where(live, rows, t).reshape(-1)
+        dst = torch.where(live, rows, t).reshape(n, -1)
         if hi - lo == e:
             ye = torch.bmm(xe.reshape(n * e, cap, k), w.reshape(n * e, k, nn),
                            out_dtype=torch.float32)
-            out[:, dst] = ye.reshape(n, e * cap, nn)
+            out[ranks[:, None], dst] = ye.reshape(n, e * cap, nn)
             continue
         for r in range(n):
-            out[r, dst] = torch.bmm(xe[r], w[r, lo:hi],
-                                    out_dtype=torch.float32).reshape(-1, nn)
+            out[r, dst[r]] = torch.bmm(xe[r], w[r, lo:hi],
+                                       out_dtype=torch.float32).reshape(-1, nn)
     out = out[:, :t].to(out_dtype)
     return out if w_stack.dim() == 4 else out[0]
 
 
 def grouped_gemm(x_sorted: torch.Tensor, w_stack: torch.Tensor,
-                 group_sizes: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """y[r, i] = x[r, i] @ w_stack[r, expert_of_segment(i)]; the route
-    per device and dtype is the module docstring's."""
+                 group_sizes: torch.Tensor, out_dtype=None,
+                 host_sizes=None) -> torch.Tensor:
+    """y[r, i] = x[r, i] @ w_stack[r, expert_of_segment(r, i)]; the route
+    per device and dtype is the module docstring's. host_sizes: the
+    group sizes as nested lists, when the caller holds them on the host
+    (the f32-out card route then needs no sync)."""
     out_dtype = out_dtype or x_sorted.dtype
     if not (x_sorted.device.type == "cuda"
             and x_sorted.dtype == w_stack.dtype == torch.bfloat16):
         return grouped_gemm_plain(x_sorted, w_stack, group_sizes, out_dtype)
     if out_dtype != torch.bfloat16:
-        return _expert_rows(x_sorted, w_stack, group_sizes, out_dtype)
+        return _expert_rows(x_sorted, w_stack, group_sizes, out_dtype,
+                            host_sizes)
     x, w = _stacked(x_sorted, w_stack)
     n, e, k, nn = w.shape
     t = x.shape[1]
-    ends = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+    ends = torch.cumsum(group_sizes, -1, dtype=torch.int32).expand(n, e)
     base = torch.arange(n, device=x.device, dtype=torch.int32)[:, None] * t
-    offs = (base + ends[None, :]).reshape(-1)
+    offs = (base + ends).reshape(-1)
     y = torch._grouped_mm(x.reshape(n * t, k), w.reshape(n * e, k, nn),
                           offs=offs).reshape(n, t, nn)
     # the tail zeroed by a select (the last rank's rows hold whatever the
     # allocation held)
-    keep = torch.arange(t, device=x.device)[:, None] < ends[-1]
-    y = torch.where(keep, y, torch.zeros(1, dtype=out_dtype, device=x.device))
+    keep = torch.arange(t, device=x.device)[None, :] < ends[:, -1:]
+    y = torch.where(keep[..., None], y,
+                    torch.zeros(1, dtype=out_dtype, device=x.device))
     return y if w_stack.dim() == 4 else y[0]

@@ -1,6 +1,7 @@
 """MoE routing utilities — port of triton_dist_tpu.kernels.moe_utils
 (`topk_routing`, `silu_mul`, `expert_histogram`, `ExpertSort` /
-`sort_by_expert`, `ExpertPack` / `pack_by_expert`, `combine_topk`).
+`sort_by_expert`, `ExpertPack` / `pack_by_expert`, `chunk_group_sizes`,
+`combine_topk`).
 
 The JAX package leaves all of these to XLA, so they are torch ops here,
 not kernels. Shapes are the JAX per-device ones ((M, E) logits, (M, k)
@@ -103,6 +104,24 @@ def pack_by_expert(x: torch.Tensor, topk_ids: torch.Tensor, n_experts: int,
     return ExpertPack(x=xp, slot_of=slot_of.to(torch.int32).reshape(m, k),
                       counts=torch.clamp(seg_count, max=c).to(torch.int32),
                       drops=drops.to(torch.int32))
+
+
+def chunk_group_sizes(expert_counts: torch.Tensor, capacity: int, lo: int,
+                      rows: int) -> torch.Tensor:
+    """Expert-group sizes of the capacity chunk [lo, lo + rows) of an
+    expert-sorted dispatch buffer (kernels/ep_a2a.py): expert_counts
+    (..., E) valid rows per (segment, expert), each segment's groups in
+    expert order with its invalid slots at the tail. Returns (..., E+1)
+    int32, the rows of each group inside the chunk, summing to `rows`
+    (the last column is the null group of invalid slots). Pure
+    arithmetic: the running sums clipped to the chunk."""
+    counts = expert_counts.to(torch.int32)
+    zero = torch.zeros((*counts.shape[:-1], 1), dtype=torch.int32,
+                       device=counts.device)
+    bounds = torch.cat([zero, torch.cumsum(counts, -1, dtype=torch.int32),
+                        zero + capacity], dim=-1)
+    clipped = torch.clamp(bounds, lo, lo + rows)
+    return (clipped[..., 1:] - clipped[..., :-1]).to(torch.int32)
 
 
 def combine_topk(y_sorted: torch.Tensor, sort: ExpertSort,
