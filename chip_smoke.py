@@ -21,7 +21,10 @@ outside a checkout of the repository. Phases, each fatal on failure:
      bf16 and bf16 with f32 accumulation; the grouped ag_gemm (silu_pair,
      gate and up as views of one stack) at n = 2 and 4, cap 16, 64 and
      256, both orders; grouped_gemm's card route (torch._grouped_mm) at
-     the Qwen3-30B-A3B shapes, with empty groups and trailing rows;
+     the Qwen3-30B-A3B shapes, with empty groups and trailing rows; the
+     full-mesh AllGather, p2p_send / p2p_read and ring_shift bitwise at
+     n = 2 and 4, f32 / bf16 / uint8, ragged and odd sizes, src = dst,
+     shift in {1, -1, 3, n + 1}, and with rank 0 delayed;
   4. the main path, three times: Qwen3-8B at full width and depth,
      bf16, random weights from a seed, at world 1; then, on the same
      weights sharded by shard_params, at world 4 on the virtual world in
@@ -58,6 +61,24 @@ outside a checkout of the repository. Phases, each fatal on failure:
      copy; SP prefill against its plain version on sampled rows and
      whole at 4 x 4096 (band), and bitwise itself with rank 0, then rank
      3, delayed; prefill ms and decode ms/step, and each kernel's time;
+  4p. the eighth path, after 4s, on the same world-1 draw: PP at full
+     width, 4 virtual stages of 9 of the 36 layers (models.pp_stage_fn,
+     no KV cache) over 4 microbatches of 1 x 512 tokens embedded by the
+     model: one pp_schedule_fwd (7 ring_shift launches), one
+     send_backward, a p2p_send (stage 3 -> 0) and a p2p_read; launches
+     pinned; the output bitwise each microbatch alone through the 36
+     layers, every ring_shift / p2p_send launch bitwise its plain
+     version; ms a schedule, the two kernels' times;
+  4c. the ninth path, no weights: the collective library's entry points
+     at Qwen3-8B widths, world 4, on shards of (4, 4096), (128, 4096)
+     (1 MiB: Auto's full mesh), (129, 4096) (Auto's ring), (512, 4096)
+     bf16 and (64, 4096) f32: all_gather by every method and Auto,
+     all_reduce by OneShot, TwoShot, XLA and Auto, reduce_scatter_op and
+     the three *_op wrappers; launches pinned; each bitwise its plain
+     fold, AllReduce methods against the XLA fold by the epsilon band;
+     full mesh against ring AG times, and the one-shot / two-shot
+     AllReduce sweep (4 KiB to 256 KiB a rank, n = 2 and 4) that sets
+     the library's Auto crossover;
   5. every kernel against its plain version on the inputs recorded in
      phase 4, and its timing there (flash prefill also at two synthetic
      Qwen3-8B shapes), beside its bound over the work of all ranks, its
@@ -684,9 +705,11 @@ SP_KERNELS = ("sp_flash_prefill", "flash_decode_partial", "ll_all_gather")
 def kernel_names():
     """Every counted kernel: the ones the main path calls through a module
     attribute, the megakernel (MegaQwen3 calls it through its queue), the
-    SP path's three (the sixth path calls them through its layer) and the
-    EP path's two (the seventh, through kernels/ep_a2a.py)."""
-    return [*main_path_kernels(), "mega", *SP_KERNELS, *EP_KERNELS]
+    SP path's three (the sixth path calls them through its layer), the
+    EP path's two (the seventh, through kernels/ep_a2a.py), the PP
+    transport's two (4p) and the full-mesh AllGather (4c)."""
+    return [*main_path_kernels(), "mega", *SP_KERNELS, *EP_KERNELS,
+            *PP_KERNELS, *COLL_KERNELS]
 
 
 def plain_versions():
@@ -1216,25 +1239,34 @@ def _launch_total() -> int:
     return sum(kernels.launches().values())
 
 
-def device_us(fn, key, reps=10):
+def device_us(fn, key, reps=10, tries=3):
     """Mean device time in µs of the kernels whose name holds `key` over
-    `reps` calls of fn traced by torch.profiler; None when the profiler
-    reports no such kernel time."""
+    `reps` calls of fn traced by torch.profiler. A trace that holds no
+    such kernel time is logged with the kernel names it did hold and
+    taken again, up to `tries` traces; None when every one missed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if key in e.key]
-    calls = sum(e.count for e in hits)
-    total = sum(float(getattr(e, "self_device_time_total",
-                              getattr(e, "self_cuda_time_total", 0.0)))
-                for e in hits)
-    return total / calls if calls and total > 0 else None
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        hits = [e for e in events if key in e.key]
+        calls = sum(e.count for e in hits)
+        total = sum(float(getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0.0)))
+                    for e in hits)
+        if calls and total > 0:
+            return total / calls
+        log(f"  device_us: trace {attempt} of {tries} holds no {key} time "
+            f"({len(hits)} matching keys, {calls} calls; keys "
+            f"{sorted(e.key[:60] for e in events)[:12]})")
+    return None
 
 
 def time_collective(label, fn, plain, library, ops, nbytes, dtype,
@@ -2605,6 +2637,429 @@ def run_ep(kernels, cfg, params, device="cuda"):
     return launched, errs, numbers
 
 
+# -- the collective library and the PP transport (phases 3, 4p, 4c) ---------
+
+PP_KERNELS = ("p2p_send", "ring_shift")
+COLL_KERNELS = ("full_mesh_all_gather",)
+P2P_STRAGGLE_NS = 5_000_000
+PP_STAGES = 4  # 9 of Qwen3-8B's 36 layers a stage
+PP_MICROBATCHES = 4
+PP_TOKENS = 512  # a microbatch: one sequence of 512 tokens
+COLL_WORLD = 4
+# per-rank shards of phase 4c: (rows, width, dtype name, what it is)
+COLL_SHAPES = (
+    (4, 4096, "bfloat16", "decode hidden state, 32 KiB"),
+    (128, 4096, "bfloat16", "1 MiB: Auto takes FullMesh"),
+    (129, 4096, "bfloat16", "1 MiB + 1 row: Auto takes Ring1D"),
+    (512, 4096, "bfloat16", "4 x 128 prefill, 4 MiB: AR TwoShot"),
+    (64, 4096, "float32", "1 MiB f32"),
+)
+# the one-shot / two-shot AllReduce sweep: bytes a rank, rows of 512 bf16
+AR_SWEEP_BYTES = tuple(4096 << i for i in range(7))  # 4 KiB .. 256 KiB
+AR_SWEEP_WIDTH = 512
+
+
+def payload(shape, dtype, seed):
+    """Seeded values on the card; uint8 takes random bytes, so every bit
+    pattern travels."""
+    import torch
+
+    if dtype == torch.uint8:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                             generator=g)
+    return rand(shape, dtype, seed, 2.0)
+
+
+def check_bitwise(label, got, want):
+    """Raises unless got is bitwise want; returns max |got - want|, taken
+    in f64 (0 for an empty tensor)."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError(f"{label}: not bitwise its plain version")
+    if got.numel() == 0:
+        return 0.0
+    return (got.double() - want.double()).abs().max().item()
+
+
+def check_p2p_kernels(kernels):
+    """The full-mesh AllGather, p2p_send (and p2p_read) and ring_shift
+    against their plain versions on the card, bitwise, at n = 2 and 4,
+    f32, bf16 and uint8: M = 1, ragged rows (3 x 1000, 5 x 7), odd byte
+    counts (7 uint8), src = dst, shift in {1, -1, 3, n + 1}; each also
+    with rank 0 delayed P2P_STRAGGLE_NS."""
+    import torch
+
+    late = (0, P2P_STRAGGLE_NS)
+    for n in (2, 4):
+        for dtype in (torch.float32, torch.bfloat16, torch.uint8):
+            dn = str(dtype)[6:]
+            for i, shape in enumerate(((1, 4096), (3, 1000), (5, 7),
+                                       (1, 7))):
+                x = payload((n, *shape), dtype, 100 * n + i)
+                lab = f"n={n} {dn} {shape}"
+                want = kernels.full_mesh_all_gather_plain(x)
+                check_bitwise(f"full_mesh_all_gather {lab}",
+                              kernels.full_mesh_all_gather(x), want)
+                check_bitwise(f"full_mesh_all_gather {lab} straggler",
+                              kernels.full_mesh_all_gather(x, straggler=late),
+                              want)
+                for src, dst in ((0, n - 1), (n - 1, 0), (1, 1)):
+                    want = kernels.p2p_send_plain(x, src, dst)
+                    check_bitwise(f"p2p_send {src}->{dst} {lab}",
+                                  kernels.p2p_send(x, src, dst), want)
+                    check_bitwise(f"p2p_read {dst}<-{src} {lab}",
+                                  kernels.p2p_read(x, dst, src), want)
+                check_bitwise(f"p2p_send straggler {lab}",
+                              kernels.p2p_send(x, n - 1, 0, straggler=late),
+                              kernels.p2p_send_plain(x, n - 1, 0))
+                for shift in (1, -1, 3, n + 1):
+                    want = kernels.ring_shift_plain(x, shift)
+                    check_bitwise(f"ring_shift {shift} {lab}",
+                                  kernels.ring_shift(x, shift), want)
+                check_bitwise(f"ring_shift straggler {lab}",
+                              kernels.ring_shift(x, 1, straggler=late),
+                              kernels.ring_shift_plain(x, 1))
+        log(f"  full_mesh_all_gather, p2p_send / p2p_read (src->dst (0, "
+            f"{n - 1}), ({n - 1}, 0), (1, 1)), ring_shift (1, -1, 3, "
+            f"{n + 1}) n={n}, f32 / bf16 / uint8, m x W in (1, 4096), "
+            "(3, 1000), (5, 7), (1, 7), rank 0 delayed "
+            f"{P2P_STRAGGLE_NS / 1e6:g} ms: bitwise")
+
+
+class P2PRecorder:
+    """Within the block, every ring_shift and p2p_send call made through
+    kernels/p2p.py (the PP layer's route, and p2p_read's) is recorded
+    with its input and output."""
+
+    def __enter__(self):
+        from triton_dist_tpu_torch.kernels import p2p
+
+        self.mod, self.records = p2p, []
+        self.real = {name: getattr(p2p, name) for name in PP_KERNELS}
+
+        def wrap(name):
+            real = self.real[name]
+
+            def fn(x, *args, **kw):
+                out = real(x, *args, **kw)
+                kw.pop("straggler", None)
+                self.records.append(dict(kernel=name, x=x.clone(),
+                                         args=args, kw=kw, out=out.clone()))
+                return out
+            return fn
+
+        for name in PP_KERNELS:
+            setattr(p2p, name, wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.mod, name, fn)
+
+
+def run_pp(kernels, cfg, params, device="cuda"):
+    """Phase 4p, PP at Qwen3-8B full width: PP_STAGES virtual stages of
+    9 of the 36 layers each (models.pp_stage_fn over the world-1 draw,
+    dense.py's layer function with no KV cache), PP_MICROBATCHES
+    microbatches of 1 x PP_TOKENS tokens embedded by the model. Launches
+    counted from 0 around one pp_schedule_fwd (7 ring_shift launches),
+    one send_backward and a p2p_send (stage 3 -> 0) and p2p_read on the
+    output microbatches. Then: the PP output bitwise each microbatch run
+    alone through the 36 layers; every ring_shift / p2p_send launch
+    bitwise its plain version; ms a schedule on CUDA events (first and
+    warm); the two kernels' times on the handoff buffer. Returns
+    (launches, rows, numbers)."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import p2p
+    from triton_dist_tpu_torch.layers import PPCommOp, pp_schedule_fwd
+    from triton_dist_tpu_torch.models import layers_fwd, pp_stage_fn
+
+    n, nmb, s = PP_STAGES, PP_MICROBATCHES, PP_TOKENS
+    L = cfg.num_layers
+    g = torch.Generator(device=device).manual_seed(71)
+    ids = torch.randint(0, cfg.vocab_size, (nmb, s), device=device,
+                        generator=g)
+    x = params.embed[ids]  # (microbatches, 512, 4096) bf16
+    comm = PPCommOp(n)
+    stage_fn = pp_stage_fn(cfg, params, n)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with P2PRecorder() as rec:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        ev[0].record()
+        out = pp_schedule_fwd(comm, stage_fn, x.expand(n, *x.shape), nmb)
+        ev[1].record()
+        # rank r holds output microbatch r: distinct buffers to hand off
+        act = out[0].contiguous()
+        back = comm.send_backward(act)
+        sent = p2p.p2p_send(act, n - 1, 0)
+        read = p2p.p2p_read(act, 0, n - 1)
+        torch.cuda.synchronize()
+        launched = kernels.launches()
+    first_ms = ev[0].elapsed_time(ev[1])
+    want = {name: 0 for name in kernel_names()}
+    want.update(flash_prefill_local=L * (nmb + n - 1), ring_shift=nmb + n,
+                p2p_send=2)
+    assert launched == want, (launched, want)
+    assert out.shape == (n, nmb, s, cfg.hidden_size)
+    assert bool(torch.isfinite(out).all())
+    errs = {name: [] for name in PP_KERNELS}
+    for r in rec.records:
+        plain = (kernels.ring_shift_plain if r["kernel"] == "ring_shift"
+                 else kernels.p2p_send_plain)
+        errs[r["kernel"]].append(check_bitwise(
+            f"{r['kernel']}{r['args']}{r['kw']} on the PP path", r["out"],
+            plain(r["x"], *r["args"], **r["kw"])))
+    assert torch.equal(back, torch.roll(act, -1, 0))
+    assert torch.equal(sent[0], act[n - 1]) and torch.equal(sent, read)
+    assert torch.equal(sent[1:], act[1:])
+    log(f"  {len(rec.records)} ring_shift / p2p_send launches on the PP "
+        "path: bitwise their plain versions; send_backward and p2p_send "
+        "(3 -> 0), p2p_read: as expected")
+    seq_ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    seq_ev[0].record()
+    alone = [layers_fwd(cfg, params, x[i], range(L)) for i in range(nmb)]
+    seq_ev[1].record()
+    torch.cuda.synchronize()
+    for i in range(nmb):
+        if not torch.equal(out[0, i], alone[i]):
+            err = (out[0, i].float() - alone[i].float()).abs().max().item()
+            raise AssertionError(f"PP output microbatch {i}: not bitwise the "
+                                 f"sequential layers (max abs err {err})")
+    warm_ms = time_ms(lambda: pp_schedule_fwd(
+        comm, stage_fn, x.expand(n, *x.shape), nmb), iters=3, warmup=1)
+    numbers = dict(stages=n, microbatches=nmb, tokens=s,
+                   schedule_ms_first=first_ms, schedule_ms_warm=warm_ms,
+                   sequential_ms=seq_ev[0].elapsed_time(seq_ev[1]),
+                   ring_shift_launches=nmb + n - 1)
+    log(f"  PP schedule, {n} stages x {L // n} layers, {nmb} x 1 x {s} "
+        f"tokens: bitwise the sequential {L} layers; {first_ms:.3f} ms "
+        f"(warm {warm_ms:.3f}), the {nmb} microbatches alone "
+        f"{numbers['sequential_ms']:.3f} ms")
+    nbytes = act[0].numel() * act.element_size()
+    label = f"PP handoff {tuple(act.shape)} bf16"
+    rows = {"ring_shift": {label: time_collective(
+        f"ring_shift {label}", lambda: kernels.ring_shift(act, 1),
+        lambda: kernels.ring_shift_plain(act, 1),
+        lambda: torch.roll(act, 1, 0), 0, 2 * n * nbytes, act.dtype,
+        kernel_key="ring_shift_kernel")}}
+    rows["p2p_send"] = {label: time_collective(
+        f"p2p_send 3 -> 0 {label}", lambda: kernels.p2p_send(act, n - 1, 0),
+        lambda: kernels.p2p_send_plain(act, n - 1, 0),
+        lambda: act.clone()[0].copy_(act[n - 1]), 0,
+        (2 * n - 1) * nbytes, act.dtype, kernel_key="p2p_kernel")}
+    del out, act, back, sent, read, alone, rec
+    torch.cuda.empty_cache()
+    return launched, (rows, label, {k: max(v) for k, v in errs.items()}), \
+        numbers
+
+
+def coll_inputs():
+    import torch
+
+    return {f"({rows}, {w}) {dn}: {what}": rand(
+        (COLL_WORLD, rows, w), getattr(torch, dn), 200 + i)
+        for i, (rows, w, dn, what) in enumerate(COLL_SHAPES)}
+
+
+def run_coll(kernels):
+    """Phase 4c, the collective library at Qwen3-8B widths on the virtual
+    world of 4, no weights: on each COLL_SHAPES shard, all_gather by
+    every method and Auto, all_gather_op, all_reduce by OneShot, TwoShot
+    (a leading dim divisible by 4), XLA and Auto, all_reduce_op, and
+    reduce_scatter_op by Auto, Ring1D and XLA (divisible shapes),
+    launches counted from 0 around them. Then: the gathers bitwise each
+    other and the plain concatenation; each AllReduce bitwise its own
+    plain fold (OneShot the rank-order fold, TwoShot the ring RS fold then
+    the gather), Auto bitwise the method it took, and each against the
+    XLA fold by the epsilon band (judged in f32, printed in bf16); the
+    ReduceScatters bitwise their folds. Then the timing: full mesh
+    against ring at each shape, and the one-shot / two-shot sweep at
+    n = 2 and 4. Returns (launches, rows, main label, numbers)."""
+    import torch
+
+    AG, AR, RS = (kernels.AllGatherMethod, kernels.AllReduceMethod,
+                  kernels.ReduceScatterMethod)
+    n = COLL_WORLD
+    xs = coll_inputs()
+    outs, want = {}, {name: 0 for name in kernel_names()}
+
+    def expect(name, k=1):
+        want[name] += k
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    for label, x in xs.items():
+        rows = x.shape[1]
+        chunk = x[0].numel() * x.element_size()
+        auto = kernels.choose_allgather_method(chunk)
+        for m in (AG.FullMesh, AG.Ring1D, AG.XLA, AG.Auto):
+            outs[("ag", label, m)] = kernels.all_gather(x, method=m)
+            route = auto if m == AG.Auto else m
+            if route != AG.XLA:
+                expect("full_mesh_all_gather" if route == AG.FullMesh
+                       else "ring_all_gather")
+        outs[("ag_op", label)] = kernels.all_gather_op(x)
+        expect("full_mesh_all_gather" if auto == AG.FullMesh
+               else "ring_all_gather")
+        ar_auto = kernels.choose_allreduce_method(chunk, n,
+                                                  divisible=rows % n == 0)
+        methods = [AR.OneShot, AR.XLA, AR.Auto]
+        if rows % n == 0:
+            methods.insert(1, AR.TwoShot)
+        for m in methods:
+            outs[("ar", label, m)] = kernels.all_reduce(x, method=m)
+        outs[("ar_op", label)] = kernels.all_reduce_op(x)
+        # each method's call, Auto's and all_reduce_op's by ar_auto
+        for route in [ar_auto if m == AR.Auto else m for m in methods] + [
+                ar_auto]:
+            if route == AR.OneShot:
+                expect("one_shot_all_reduce")
+            elif route == AR.TwoShot:
+                expect("ring_reduce_scatter")
+                expect("ring_all_gather")
+        if rows % n == 0:
+            for m in (RS.Auto, RS.Ring1D, RS.XLA):
+                outs[("rs_op", label, m)] = kernels.reduce_scatter_op(
+                    x, method=m)
+            expect("ring_reduce_scatter", 2)
+    torch.cuda.synchronize()
+    launched = kernels.launches()
+    assert launched == want, (launched, want)
+    # Auto's pinned routes: 1 MiB a rank full mesh, a row more the ring;
+    # the 4 MiB prefill two-shot
+    routes = {label: dict(ag=kernels.choose_allgather_method(
+        x[0].numel() * x.element_size()).value) for label, x in xs.items()}
+    labels = list(xs)
+    assert routes[labels[1]]["ag"] == "full_mesh"
+    assert routes[labels[2]]["ag"] == "ring_1d"
+    assert kernels.choose_allreduce_method(4 << 20, n) == AR.TwoShot
+
+    bands, fm_errs = {}, []
+    for label, x in xs.items():
+        gathered = kernels.ring_all_gather_plain(x)
+        full_mesh = routes[label]["ag"] == AG.FullMesh.value
+        for m in (AG.FullMesh, AG.Ring1D, AG.XLA, AG.Auto):
+            err = check_bitwise(f"all_gather {m.value} {label}",
+                                outs[("ag", label, m)], gathered)
+            if m == AG.FullMesh or (m == AG.Auto and full_mesh):
+                fm_errs.append(err)
+        err = check_bitwise(f"all_gather_op {label}", outs[("ag_op", label)],
+                            gathered[0])
+        if full_mesh:
+            fm_errs.append(err)
+        folds = {AR.OneShot: kernels.one_shot_all_reduce_plain(x),
+                 AR.XLA: kernels.all_reduce_plain(x)}
+        if x.shape[1] % n == 0:
+            folds[AR.TwoShot] = kernels.ring_all_gather_plain(
+                kernels.ring_reduce_scatter_plain(x))
+        for m, fold in folds.items():
+            check_bitwise(f"all_reduce {m.value} {label}",
+                          outs[("ar", label, m)], fold)
+        auto = outs[("ar", label, AR.Auto)]
+        took = [m.value for m in folds if torch.equal(auto, folds[m])]
+        assert took, f"all_reduce auto {label}: no method's result"
+        routes[label]["ar"] = took
+        check_bitwise(f"all_reduce_op {label}", outs[("ar_op", label)],
+                      auto[0])
+        for m in (AR.OneShot, AR.TwoShot):
+            if m not in folds:
+                continue
+            rep = torch_parity().check_epsilon(
+                folds[AR.XLA].float().cpu().numpy(),
+                outs[("ar", label, m)].float().cpu().numpy(), "allreduce",
+                x.dtype)
+            bands[f"{m.value} {label}"] = (rep["cos"], rep["ulp"])
+            if x.dtype == torch.float32 and not rep["ok"]:
+                raise AssertionError(f"all_reduce {m.value} {label} outside "
+                                     f"the f32 band of the XLA fold: {rep}")
+            log(f"  all_reduce {m.value} {label} against the XLA fold: "
+                f"cos={rep['cos']:.3e} ulp={rep['ulp']} (band "
+                f"{rep['band_cos']:.0e}, {rep['band_ulp']}; "
+                f"{'judged' if x.dtype == torch.float32 else 'printed'})")
+        if x.shape[1] % n == 0:
+            ring = kernels.ring_reduce_scatter_plain(x)
+            check_bitwise(f"reduce_scatter_op ring {label}",
+                          outs[("rs_op", label, RS.Ring1D)],
+                          ring.reshape(-1, x.shape[2]))
+            check_bitwise(f"reduce_scatter_op auto {label}",
+                          outs[("rs_op", label, RS.Auto)],
+                          ring.reshape(-1, x.shape[2]))
+            check_bitwise(f"reduce_scatter_op xla {label}",
+                          outs[("rs_op", label, RS.XLA)],
+                          kernels.gemm_reduce_scatter.reduce_scatter_plain(
+                              x).reshape(-1, x.shape[2]))
+    del outs
+    log(f"  all_gather (full_mesh, ring_1d, xla, auto), all_gather_op, "
+        f"all_reduce (one_shot, two_shot, xla, auto), all_reduce_op, "
+        f"reduce_scatter_op (auto, ring_1d, xla) on {len(xs)} shapes: "
+        f"bitwise their folds; routes {routes}")
+
+    fm_rows, ring_rows = {}, {}
+    for label, x in xs.items():
+        chunk = x[0].numel() * x.element_size()
+        out = torch.empty((n, n * x.shape[1], x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+
+        def library(x=x, out=out):
+            full = x.reshape(1, -1, x.shape[2])
+            return out.copy_(full.expand(out.shape))
+
+        nbytes = n * chunk + n * n * chunk
+        fm_rows[label] = time_collective(
+            f"full_mesh_all_gather {label}",
+            lambda x=x: kernels.full_mesh_all_gather(x),
+            lambda x=x: kernels.full_mesh_all_gather_plain(x), library, 0,
+            nbytes, x.dtype, kernel_key="fm_ag_kernel")
+        ring_rows[label] = time_collective(
+            f"ring_all_gather {label}",
+            lambda x=x: kernels.ring_all_gather(x),
+            lambda x=x: kernels.ring_all_gather_plain(x), None, 0, nbytes,
+            x.dtype, kernel_key="ring_ag_kernel")
+        ring_rows[label]["library_ms"] = fm_rows[label]["library_ms"]
+    sweep = {}
+    for nn in (2, 4):
+        for b in AR_SWEEP_BYTES:
+            rows = b // (2 * AR_SWEEP_WIDTH)
+            x = rand((nn, rows, AR_SWEEP_WIDTH), torch.bfloat16, b + nn)
+            one = time_ms(lambda x=x: kernels.one_shot_all_reduce(x))
+            two = time_ms(lambda x=x: kernels.two_shot_all_reduce(x))
+            sweep[f"n={nn} {b // 1024} KiB"] = dict(n=nn, bytes=b,
+                                                    one_shot_ms=one,
+                                                    two_shot_ms=two)
+            log(f"  all_reduce sweep n={nn} {b // 1024:4d} KiB a rank: "
+                f"one_shot {one:.4f} ms, two_shot {two:.4f} ms")
+    crossover = {}
+    for nn in (2, 4):
+        below = 0
+        for b in AR_SWEEP_BYTES:
+            r = sweep[f"n={nn} {b // 1024} KiB"]
+            if r["one_shot_ms"] > r["two_shot_ms"]:
+                break
+            below = b
+        crossover[nn] = below
+    lib_cross = kernels.allreduce._ONE_SHOT_CROSSOVER_BYTES
+    log(f"  one-shot / two-shot crossover (largest size with one-shot no "
+        f"slower, bytes a rank): {crossover}; the library's {lib_cross}")
+    for nn, below in crossover.items():
+        assert below >= lib_cross, (
+            f"n={nn}: one-shot slower than two-shot at or below the "
+            f"library's crossover {lib_cross} (measured {below})")
+    numbers = dict(routes=routes, bands=bands, ar_sweep=sweep,
+                   ar_crossover=crossover,
+                   full_mesh_vs_ring={k: dict(
+                       full_mesh_ms=fm_rows[k]["ms"],
+                       full_mesh_us=fm_rows[k]["device_us"],
+                       ring_ms=ring_rows[k]["ms"],
+                       ring_us=ring_rows[k]["device_us"])
+                       for k in fm_rows})
+    return launched, fm_rows, labels[1], max(fm_errs), numbers
+
+
 SOURCES = {
     "mega": ("triton_dist_tpu_torch/csrc/mega.cu",
              "triton_dist_tpu/mega/kernel.py:1192"),
@@ -2630,6 +3085,12 @@ SOURCES = {
                    "triton_dist_tpu/kernels/all_to_all.py:46"),
     "all_to_all_chunked": ("triton_dist_tpu_torch/csrc/all_to_all.cu",
                            "triton_dist_tpu/kernels/all_to_all.py:144"),
+    "full_mesh_all_gather": ("triton_dist_tpu_torch/csrc/allgather.cu",
+                             "triton_dist_tpu/kernels/allgather.py:116"),
+    "p2p_send": ("triton_dist_tpu_torch/csrc/p2p.cu",
+                 "triton_dist_tpu/kernels/p2p.py:36"),
+    "ring_shift": ("triton_dist_tpu_torch/csrc/p2p.cu",
+                   "triton_dist_tpu/kernels/p2p.py:130"),
 }
 
 
@@ -2734,6 +3195,9 @@ def time_moe(kernels, records):
 def entry(name, launches, by_path, err, rows, main_label, **extra):
     source, replaces = SOURCES[name]
     t = rows[main_label]
+    blind = [label for label, r in rows.items()
+             if "device_us" in r and r["device_us"] is None]
+    assert not blind, f"{name}: no device time from the profiler for {blind}"
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=err, ms=t["ms"],
                 plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
@@ -2786,6 +3250,7 @@ def main() -> int:
     log("== 3. kernels against their plain versions")
     fp_err = check_flash_prefill(fp)
     rs_ratio = check_collectives(kernels)
+    check_p2p_kernels(kernels)
     ag_ratio = check_ag_gemm(kernels)
     check_ring_rs(kernels)
     grouped_ratio = check_grouped_ag_gemm(kernels)
@@ -2805,6 +3270,13 @@ def main() -> int:
     log("== 4s. the sixth path: SP long-context attention at Qwen3-8B "
         "widths, world 4, a 32768-position context (layer 0's weights)")
     nsp, sp_errs, sp_numbers = run_sp(kernels, cfg, params)
+    log("== 4p. the eighth path: PP at Qwen3-8B full width, 4 stages x 9 "
+        "layers of the same draw, 4 microbatches of 1 x 512 tokens")
+    npp, (pp_rows, pp_main, pp_errs), pp_numbers = run_pp(kernels, cfg,
+                                                          params)
+    log("== 4c. the ninth path: the collective library at Qwen3-8B widths, "
+        "world 4 (no weights)")
+    ncoll, fm_rows, fm_main, fm_err, coll_numbers = run_coll(kernels)
     # the same weights laid out for 4 ranks; the world-1 engine is gone
     params = shard_params(params, 4)
     torch.cuda.empty_cache()
@@ -2882,7 +3354,8 @@ def main() -> int:
     # launches: the four main-path runs, each counted from 0
     paths = {"world1": n1, "world4_ar": n4, "world4_dist": nd,
              "world4_moe": nm, "mega_world1": nm1, "mega_world4": nm4,
-             "sp_world4": nsp, "ep_world4": nep}
+             "sp_world4": nsp, "ep_world4": nep, "pp_world4": npp,
+             "coll_world4": ncoll}
 
     def by_path(name):
         return {k: v[name] for k, v in paths.items()}
@@ -2928,6 +3401,13 @@ def main() -> int:
         lines.append(entry(name, total(name), by_path(name), err, rows,
                            main_label,
                            device_us=rows[main_label]["device_us"]))
+    lines.append(entry("full_mesh_all_gather", total("full_mesh_all_gather"),
+                       by_path("full_mesh_all_gather"), fm_err, fm_rows,
+                       fm_main, device_us=fm_rows[fm_main]["device_us"]))
+    for name in PP_KERNELS:
+        lines.append(entry(name, total(name), by_path(name), pp_errs[name],
+                           pp_rows[name], pp_main,
+                           device_us=pp_rows[name][pp_main]["device_us"]))
     missing = set(kernels.KERNELS) - {e["name"] for e in lines}
     assert not missing, f"kernels without a line: {missing}"
     assert all(e["launches"] > 0 for e in lines), "a kernel never launched"
@@ -2935,7 +3415,8 @@ def main() -> int:
     log(f"  wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"model": [model1, model4, modeld, modelm],
                     "mega": dict(mega_rows, batch1=mega_b1),
-                    "sp": sp_numbers, "ep": ep_numbers}))
+                    "sp": sp_numbers, "ep": ep_numbers, "pp": pp_numbers,
+                    "coll": coll_numbers}))
     print(json.dumps({"kernels": lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

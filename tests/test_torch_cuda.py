@@ -972,3 +972,209 @@ def test_ep_moe_a2a_matches_tp_moe_dist_on_the_card(cuda):
     print(f"bf16 EP against TP-MoE dist (measured): cos={rep['cos']:.3e} "
           f"ulp={rep['ulp']} (band {rep['band_cos']:.0e}, "
           f"{rep['band_ulp']})")
+
+
+# -- the collective library and the PP transport (PERF.md rows 8b, 14, 15) --
+
+
+def _payload(rng, n, shape, dtype):
+    """Seeded (n, *shape) values on the card; integer dtypes take random
+    bytes, so every bit pattern travels."""
+    if dtype == torch.uint8:
+        return torch.from_numpy(rng.integers(0, 256, (n, *shape),
+                                             dtype=np.uint8)).to("cuda")
+    return torch.from_numpy(rng.standard_normal((n, *shape)) * 3).to(
+        "cuda", dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.uint8])
+def test_full_mesh_all_gather_kernel_matches_plain_bitwise(cuda, n, dtype):
+    """The full-mesh AllGather against its plain version and the ring
+    kernel, bitwise: M = 1, ragged widths, shards of an odd byte count
+    (uint8, 7 bytes), 1 MiB of bf16 a rank, a zero-size shard (no
+    launch); rank 0, then rank n - 1, delayed 5 ms; one launch a call."""
+    from triton_dist_tpu_torch.kernels import (
+        full_mesh_all_gather,
+        full_mesh_all_gather_plain,
+    )
+
+    rng = np.random.default_rng(n)
+    shapes = [(1, 4096), (3, 1000), (5, 7), (1, 7), (128, 4096)]
+    reset_launches()
+    calls = 0
+    for shape in shapes:
+        x = _payload(rng, n, shape, dtype)
+        want = full_mesh_all_gather_plain(x)
+        runs = [full_mesh_all_gather(x)]
+        runs += [full_mesh_all_gather(x, straggler=(r, 5_000_000))
+                 for r in (0, n - 1)]
+        calls += 3
+        torch.cuda.synchronize()
+        for got in runs:
+            assert torch.equal(got, want), shape
+        if x[0].numel() * x.element_size() % 2 == 0:
+            assert torch.equal(ring_all_gather(x), want)
+    empty = _payload(rng, n, (0, 8), dtype)
+    assert full_mesh_all_gather(empty).shape == (n, 0, 8)
+    assert launches()["full_mesh_all_gather"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.uint8])
+def test_p2p_send_kernel_matches_plain_bitwise(cuda, n, dtype):
+    """p2p_send against its plain version, bitwise: every (src, dst)
+    pair, src == dst included, a 4 MiB microbatch, a ragged (5, 7) and
+    an odd byte count; p2p_read is the reverse send; the sender, then
+    the receiver, delayed 5 ms."""
+    from triton_dist_tpu_torch.kernels import (
+        p2p_read,
+        p2p_send,
+        p2p_send_plain,
+    )
+
+    rng = np.random.default_rng(10 + n)
+    reset_launches()
+    calls = 0
+    for shape in [(512, 4096 // n), (5, 7), (3,)]:
+        x = _payload(rng, n, shape, dtype)
+        for src in range(n):
+            for dst in range(n):
+                want = p2p_send_plain(x, src, dst)
+                assert torch.equal(p2p_send(x, src, dst), want), (src, dst)
+                calls += 1
+        want = p2p_send_plain(x, n - 1, 0)
+        runs = [p2p_read(x, 0, n - 1)]
+        runs += [p2p_send(x, n - 1, 0, straggler=(r, 5_000_000))
+                 for r in (n - 1, 0)]
+        calls += 3
+        torch.cuda.synchronize()
+        for got in runs:
+            assert torch.equal(got, want), shape
+    assert launches()["p2p_send"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.uint8])
+def test_ring_shift_kernel_matches_plain_bitwise(cuda, n, dtype):
+    """ring_shift against torch.roll, bitwise, at shift 1 and -1 (the
+    neighbour barrier, at n = 2 both signals to one peer), 3, n + 1, 0
+    and n (a copy to self under the full barrier); rank 0, then rank
+    n - 1, delayed 5 ms."""
+    from triton_dist_tpu_torch.kernels import ring_shift, ring_shift_plain
+
+    rng = np.random.default_rng(20 + n)
+    reset_launches()
+    calls = 0
+    for shape in [(512, 4096 // n), (5, 7), (3,)]:
+        x = _payload(rng, n, shape, dtype)
+        for shift in (1, -1, 3, n + 1, 0, n):
+            want = ring_shift_plain(x, shift)
+            assert torch.equal(want, torch.roll(x, shift, 0))
+            runs = [ring_shift(x, shift)]
+            runs += [ring_shift(x, shift, straggler=(r, 5_000_000))
+                     for r in (0, n - 1)] if shift in (1, 3) else []
+            calls += len(runs)
+            torch.cuda.synchronize()
+            for got in runs:
+                assert torch.equal(got, want), (shape, shift)
+    assert launches()["ring_shift"] == calls
+
+
+@pytest.mark.cuda
+def test_pp_schedule_on_the_card_matches_sequential_layers(cuda):
+    """pp_schedule_fwd over a tiny bf16 dense model's layers, four
+    stages of one layer each, on the card: bitwise each microbatch run
+    alone through the four layers (the same kernels on the same shapes
+    in the same order), seven ring_shift launches."""
+    from triton_dist_tpu_torch.layers import PPCommOp, pp_schedule_fwd
+    from triton_dist_tpu_torch.models import (
+        ModelConfig,
+        layers_fwd,
+        pp_stage_fn,
+    )
+    from triton_dist_tpu_torch.models.dense import init_params
+
+    cfg = ModelConfig.tiny(num_layers=4, dtype="bfloat16", head_dim=64)
+    params = init_params(cfg, device="cuda", seed=0)
+    ids = torch.randint(0, cfg.vocab_size, (4, 32), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(1))
+    mbs = params.embed[ids]  # (4 microbatches, 32, H)
+    reset_launches()
+    got = pp_schedule_fwd(PPCommOp(4), pp_stage_fn(cfg, params, 4),
+                          mbs.expand(4, *mbs.shape), 4)
+    torch.cuda.synchronize()
+    assert launches()["ring_shift"] == 7
+    for i in range(4):
+        want = layers_fwd(cfg, params, mbs[i], range(4))
+        for r in range(4):
+            assert torch.equal(got[r, i], want), (r, i)
+
+
+# flags of the PP and collective-library kernels that no put ever
+# satisfies: the delivery words start far below zero (the barrier word
+# at zero), so the first wait for an arrival must trap
+_P2P_FAULT = r"""
+import sys, torch
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels import allgather as ag
+from triton_dist_tpu_torch.kernels import p2p
+kernel, n = sys.argv[1], 4
+x = torch.ones((n, 8, 256), device="cuda", dtype=torch.bfloat16)
+nbytes = 8 * 256 * 2
+grid = _build.GridInfo()
+st = torch.cuda.current_stream().cuda_stream
+if kernel == "full_mesh_all_gather":
+    lib = _build.load("allgather", ag._SIGNATURES)
+    out = torch.empty((n, n * 8, 256), device="cuda", dtype=torch.bfloat16)
+    flags = torch.full((n, lib.fm_ag_flag_words(n)), -1000, device="cuda",
+                       dtype=torch.int32)
+    flags[:, 0] = 0
+    err = lib.fm_ag_launch(x.data_ptr(), out.data_ptr(), flags.data_ptr(),
+                           n, nbytes, -1, 0, 2, grid.ptr(), st)
+else:
+    lib = _build.load("p2p", p2p._SIGNATURES)
+    out = torch.empty_like(x)
+    flags = torch.full((n, lib.p2p_flag_words()), -1000, device="cuda",
+                       dtype=torch.int32)
+    flags[:, 0] = 0
+    if kernel == "p2p_send":
+        err = lib.p2p_launch(x.data_ptr(), out.data_ptr(), flags.data_ptr(),
+                             n, nbytes, 0, 3, -1, 0, 2, grid.ptr(), st)
+    else:
+        err = lib.ring_shift_launch(x.data_ptr(), out.data_ptr(),
+                                    flags.data_ptr(), n, nbytes, 1, -1, 0, 2,
+                                    grid.ptr(), st)
+assert err == 0, err
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(3)
+sys.exit(0)
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["full_mesh_all_gather", "p2p_send",
+                                    "ring_shift"])
+def test_p2p_protocol_fault_traps_instead_of_hanging(cuda, kernel):
+    """A delivery wait that can never be met traps within the spin
+    bound, as test_protocol_fault_traps_instead_of_hanging shows for the
+    earlier kernels; in a child process."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _P2P_FAULT, kernel],
+                          cwd=repo, capture_output=True, text=True,
+                          timeout=120, env={**os.environ, "PYTHONPATH": repo})
+    assert proc.returncode == 3, (proc.returncode, proc.stdout, proc.stderr)
+    assert f"shmem wait timed out: kernel {kernel}, rank" in proc.stdout

@@ -52,7 +52,7 @@ def test_rope_matches_jax():
     """Tables and rotation in f32. cos/sin of angles up to ~64 rad: the
     two libraries' pow/cos/sin may differ in the last ulps, so 1e-5."""
     d, n = 32, 64
-    cos, sin = rope_table(d, n, 1e6)
+    cos, sin = rope_table(d, n, 1e6, device="cpu")
     jcos, jsin = jax_rope.rope_table(d, n, 1e6)
     np.testing.assert_allclose(cos.numpy(), np.asarray(jcos), atol=1e-5)
     np.testing.assert_allclose(sin.numpy(), np.asarray(jsin), atol=1e-5)
@@ -178,7 +178,7 @@ def test_tp_attn_ar_world4_matches_jax():
 
     kc, vc = rank_rows(k0), rank_rows(v0)
     rank_pos = torch.from_numpy(pos).repeat(N, 1)
-    tcos, tsin = rope_table(d, t, 1e6)
+    tcos, tsin = rope_table(d, t, 1e6, device="cpu")
     got = tp_attn_fwd(
         torch.from_numpy(x).expand(N, b * s, h),
         TPAttnParams(torch.from_numpy(w_qkv), torch.from_numpy(w_o),
@@ -271,7 +271,7 @@ def test_tp_attn_seq_sharded_world4_matches_jax(mode):
 
     kc, vc = rank_rows(k0), rank_rows(v0)
     rank_pos = torch.from_numpy(pos).repeat(N, 1)
-    tcos, tsin = rope_table(d, t, 1e6)
+    tcos, tsin = rope_table(d, t, 1e6, device="cpu")
     got = tp_attn_fwd(
         torch.from_numpy(x).reshape(N, b * s // N, h),
         TPAttnParams(torch.from_numpy(w_qkv), torch.from_numpy(w_o),

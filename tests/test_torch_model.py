@@ -231,6 +231,47 @@ def test_world4_kv_cache_layout():
     assert torch.equal(k[:, 1, :, 6:8], c.k[:, 3 * 3 + 1])
 
 
+_CONSTRUCTORS = {
+    "KVCache.create": lambda cfg, **kw: KVCache.create(
+        2, 3, 8, cfg.num_kv_heads, cfg.head_dim, cfg.torch_dtype, **kw),
+    "MegaKVCache.create": lambda cfg, **kw: _mega().MegaKVCache.create(
+        cfg, 3, 8, cfg.num_kv_heads, **kw),
+    "PagedMegaKVCache.create": lambda cfg, **kw: (
+        _mega().PagedMegaKVCache.create(cfg, 3, cfg.num_kv_heads, 4, 2, 7,
+                                        **kw)),
+    "rope_table": lambda cfg, **kw: _rope_table(cfg.head_dim, 8, **kw),
+}
+
+
+def _mega():
+    from triton_dist_tpu_torch.mega import qwen3
+
+    return qwen3
+
+
+def _rope_table(*a, **kw):
+    from triton_dist_tpu_torch.layers.rope import rope_table
+
+    return rope_table(*a, **kw)
+
+
+@pytest.mark.parametrize("name", list(_CONSTRUCTORS))
+def test_constructors_default_to_the_card(name):
+    """With no device the public constructors resolve "cuda", as every
+    entry point does (runtime.device.resolve_device): on a host without
+    CUDA they raise instead of allocating on the CPU; with device="cpu"
+    they build there."""
+    cfg = ModelConfig.tiny()
+    make = _CONSTRUCTORS[name]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make(cfg)
+    built = make(cfg, device="cpu")
+    items = built if isinstance(built, tuple) else vars(built).values()
+    tensors = [t for t in items if isinstance(t, torch.Tensor)]
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
 def _params_to_hf(cfg, p):
     """HF-layout tensors (torch (out, in) Linear weights) of world-1
     JAX params, as tests/test_load_hf.py writes them."""

@@ -261,7 +261,7 @@ def test_sp_decode_layer_matches_jax():
         in_specs=(P(), P(None, "tp"), P(None, "tp")),
         out_specs=(P(), P(None, "tp"), P(None, "tp")))
     params = spl.sp_params_from_jax(jp, device="cpu")
-    tcos, tsin = rope_table(D, t_max + 1)
+    tcos, tsin = rope_table(D, t_max + 1, device="cpu")
     cache = (_t(_stack(kc0, n)), _t(_stack(vc0, n)))
     ctx = fd.create_sp_decode_buf(b, HQ, D, n, device="cpu")
     for i in range(steps):
@@ -429,7 +429,7 @@ def test_sp_slice_whole_matches_jax():
         out_specs=(P(None, "tp"), P(), P(None, "tp")))
 
     params = spl.sp_params_from_jax(jp, device="cpu")
-    tcos, tsin = rope_table(D, t_max)
+    tcos, tsin = rope_table(D, t_max, device="cpu")
     xt = _t(_stack(x, n))  # (n, B, S, H)
     qkv = torch.matmul(xt, params.w_qkv)
     q, k, v = torch.split(qkv, [HQ * D, HKV * D, HKV * D], dim=-1)

@@ -56,15 +56,6 @@ namespace {
 
 constexpr int kThreads = 512;
 
-// this block's share [lo, hi) of `bytes`, 16-byte aligned
-__device__ __forceinline__ void block_share(long long bytes, long long* lo,
-                                            long long* hi) {
-  const long long share =
-      ((bytes + gridDim.x - 1) / gridDim.x + 15) / 16 * 16;
-  *lo = min(bytes, share * blockIdx.x);
-  *hi = min(bytes, *lo + share);
-}
-
 // block 0 copies the splits row of (me -> peer) into slot me of peer's
 // out_splits and adds one to `flag`
 __device__ __forceinline__ void put_splits(const char* sp, char* osp, int me,
@@ -83,7 +74,7 @@ a2a_kernel(const char* __restrict__ x, char* out, const char* sp, char* osp,
   int* mine = flags + size_t(me) * words;
   shmem::barrier_all(flags, words, 0, me, n, "all_to_all");
   long long lo, hi;
-  block_share(seg, &lo, &hi);
+  shmem::block_share(seg, gridDim.x, blockIdx.x, &lo, &hi);
   for (int i = 0; i < n; ++i) {
     const int peer = (me + i) % n;
     int* theirs = flags + size_t(peer) * words;
@@ -113,7 +104,7 @@ a2a_chunked_kernel(const char* __restrict__ x, char* out, const char* sp,
   shmem::straggler_delay(straggle_rank, me, straggle_ns);
   const long long chunk = seg / q;
   long long lo, hi;
-  block_share(chunk, &lo, &hi);
+  shmem::block_share(chunk, gridDim.x, blockIdx.x, &lo, &hi);
   for (int c = 0; c < q; ++c)
     for (int i = 0; i < n; ++i) {  // ring step i: peer me + i, slot [i, c]
       const int peer = (me + i) % n;

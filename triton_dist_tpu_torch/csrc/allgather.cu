@@ -1,7 +1,9 @@
-// Ring AllGather over the virtual world of one card, sm_90a.
+// Ring and full-mesh AllGather over the virtual world of one card,
+// sm_90a.
 //
-// Replaces the Pallas TPU kernel `_ring_ag_kernel` reached through
-// `ring_all_gather` in triton_dist_tpu/kernels/allgather.py. Same ring:
+// ring_ag_kernel replaces the Pallas TPU kernel `_ring_ag_kernel` reached
+// through `ring_all_gather` in triton_dist_tpu/kernels/allgather.py. Same
+// ring:
 // each rank publishes its chunk into its own output slot, and at step s
 // puts chunk (me - s) mod n into the same slot of its right neighbour's
 // output. A rank forwards a chunk only after the step that brought it
@@ -23,6 +25,18 @@
 // What bounds it on an H100: bytes, n chunks read and n * n written for
 // the whole world. The ring reads each forwarded chunk once more, from
 // the rank that received it.
+//
+// fm_ag_kernel replaces `_full_mesh_ag_kernel` (allgather.py:116, reached
+// through `full_mesh_all_gather`): barrier_all, then the body of the JAX
+// kernel, shmem::fcollect. Each block of rank me copies its 16-byte share
+// of me's chunk into its own slot and into slot me of every peer, adding
+// one to that peer's arrival flag of source me; then it waits until every
+// peer's flag counts all of that peer's blocks. One put a peer instead of
+// n - 1 ring steps: the latency form for small shards. Same output, same
+// bytes moved as the ring minus the forwards' re-reads. Flags a rank:
+// [0] the barrier, [1 + j] the arrivals from source j. `straggle_rank`
+// stalls that rank's blocks for `straggle_ns` after the barrier
+// (shmem::straggler_delay), so its peers' waits really wait.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,7 +92,38 @@ cudaError_t launch(const void* x, void* out, int* flags, int n,
                              n_tiles);
 }
 
+__global__ void __launch_bounds__(kThreads)
+fm_ag_kernel(const char* __restrict__ x, char* out, int* flags,
+             long long chunk, int straggle_rank, long long straggle_ns) {
+  const int n = gridDim.y, me = blockIdx.y;
+  shmem::barrier_all(flags, 1 + n, 0, me, n, "full_mesh_all_gather");
+  shmem::straggler_delay(straggle_rank, me, straggle_ns);
+  shmem::fcollect(out, x + size_t(me) * chunk, chunk, flags, 1 + n, 1, me, n,
+                  "full_mesh_all_gather");
+}
+
 }  // namespace
+
+// Flag words a rank of the full-mesh launch: the barrier, one a source.
+extern "C" int fm_ag_flag_words(int n) { return 1 + n; }
+
+// x (n, chunk_bytes), out (n, n, chunk_bytes); flags (n,
+// fm_ag_flag_words(n)) zeroed. Any dtype and any byte count: whole
+// 16-byte words where both ends allow, bytes else. straggle_rank < 0
+// for none; want_blocks caps the blocks a rank. Returns a cudaError_t
+// (0 = launched).
+extern "C" int fm_ag_launch(const void* x, void* out, void* flags, int n,
+                            long long chunk_bytes, int straggle_rank,
+                            long long straggle_ns, int want_blocks,
+                            void* info, void* stream) {
+  if (n < 2 || chunk_bytes < 1 || want_blocks < 1)
+    return int(cudaErrorInvalidValue);
+  return int(shmem::launch_world(
+      fm_ag_kernel, n, want_blocks, kThreads, 0,
+      static_cast<cudaStream_t>(stream), static_cast<int*>(info),
+      static_cast<const char*>(x), static_cast<char*>(out),
+      static_cast<int*>(flags), chunk_bytes, straggle_rank, straggle_ns));
+}
 
 // Tiles of a chunk; the launch needs (n - 1) * ag_tile_count flags a rank.
 extern "C" int ag_tile_count(long long chunk_bytes, int tile_bytes) {

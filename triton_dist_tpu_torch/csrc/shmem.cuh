@@ -1,6 +1,7 @@
 // Device-side shmem over the virtual world of one card — the port's
 // counterpart of triton_dist_tpu/lang/shmem.py (putmem_nbi, signal,
-// signal_wait_until, barrier_all, fcollect_slots, straggler_delay) and
+// signal_wait_until, barrier_all, neighbor_barrier, fcollect_slots,
+// fcollect, straggler_delay) and
 // of kernels/low_latency_allgather.py's segment_collect_start.
 //
 // The virtual world (runtime/symm_mem.py): n ranks live on one GPU. The
@@ -145,6 +146,24 @@ __device__ __forceinline__ void barrier_all(int* flags, int stride, int slot,
                     (n - 1) * int(gridDim.x), kernel, rank, slot);
 }
 
+// neighbor_barrier (lang/shmem.py:385): each block adds one to flag
+// `slot` of its left and of its right neighbour, then waits until its
+// own counter holds two arrivals from each block of the neighbours. At
+// n = 2 both signals go to the one peer, which still counts two from
+// each of its blocks, as the JAX barrier's wait for 2 does.
+__device__ __forceinline__ void neighbor_barrier(int* flags, int stride,
+                                                 int slot, int rank, int n,
+                                                 const char* kernel) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atom_add_release(flags + size_t((rank - 1 + n) % n) * stride + slot, 1);
+    atom_add_release(flags + size_t((rank + 1) % n) * stride + slot, 1);
+  }
+  signal_wait_until(flags + size_t(rank) * stride + slot, kGe,
+                    2 * int(gridDim.x), kernel, rank, slot);
+}
+
 // Block-wide copy of `bytes` bytes, 16 at a time when both ends are
 // 16-byte aligned, four loads in flight a thread. src is read with
 // __ldcg (it may be data another rank delivered).
@@ -175,6 +194,16 @@ __device__ __forceinline__ void copy_block(void* dst, const void* src,
     d[i] = __ldcg(s + i);
 }
 
+// The share [lo, hi) of `bytes` that block `block` of `blocks` moves:
+// equal 16-byte-aligned parts (the last ones short or empty).
+__device__ __forceinline__ void block_share(long long bytes, int blocks,
+                                            int block, long long* lo,
+                                            long long* hi) {
+  const long long share = ((bytes + blocks - 1) / blocks + 15) / 16 * 16;
+  *lo = min(bytes, share * block);
+  *hi = min(bytes, *lo + share);
+}
+
 // The put of fcollect_slots (lang/shmem.py:622) for one destination:
 // this block copies `bytes` of src into dst (slot `me` of a peer's
 // partition, or this block's share of it), then publishes them on the
@@ -193,6 +222,34 @@ __device__ __forceinline__ void put_slot(void* dst, const void* src,
     signal_set(flag, value);
 }
 
+// fcollect (lang/shmem.py:661): the flat full-mesh collect. Rank me's
+// `bytes` of src go to slot me of every rank's partition of out (rank
+// p's partition holds n slots: out + (p * n + j) * bytes is its slot j).
+// This block copies its 16-byte-aligned share into its own slot, then
+// into the slot of each peer (me + i) mod n, adding one to the peer's
+// arrival flag of source me (flags + p * stride + first + me); then it
+// waits until each of its own flags from the n - 1 peers counts every
+// block of that peer. A caller barriers the team before (the JAX
+// precondition) and reads its n slots after.
+__device__ __forceinline__ void fcollect(char* out, const char* src,
+                                         long long bytes, int* flags,
+                                         int stride, int first, int me, int n,
+                                         const char* kernel) {
+  long long lo, hi;
+  block_share(bytes, gridDim.x, blockIdx.x, &lo, &hi);
+  copy_block(out + (size_t(me) * n + me) * bytes + lo, src + lo, hi - lo);
+  for (int i = 1; i < n; ++i) {
+    const int peer = (me + i) % n;
+    put_slot(out + (size_t(peer) * n + me) * bytes + lo, src + lo, hi - lo,
+             flags + size_t(peer) * stride + first + me, 1, true);
+  }
+  for (int i = 1; i < n; ++i) {
+    const int j = (me + i) % n;
+    signal_wait_until(flags + size_t(me) * stride + first + j, kGe,
+                      int(gridDim.x), kernel, me, first + j);
+  }
+}
+
 // segment_collect_start (kernels/low_latency_allgather.py:376): the
 // full-mesh push of a rank's segments with a delivery flag per
 // (tensor, offset, row), so a consumer can gate on exactly one segment
@@ -208,9 +265,8 @@ template <typename SrcOf, typename DstOf, typename FlagOf>
 __device__ __forceinline__ void segment_collect_start(
     int me, int n, int rows, int tensors, long long bytes, int block,
     int blocks, SrcOf src_of, DstOf dst_of, FlagOf flag_of) {
-  const long long share = ((bytes + blocks - 1) / blocks + 15) / 16 * 16;
-  const long long lo = min(bytes, share * block);
-  const long long hi = min(bytes, lo + share);
+  long long lo, hi;
+  block_share(bytes, blocks, block, &lo, &hi);
   for (int b = 0; b < rows; ++b)
     for (int i = 1; i < n; ++i) {
       const int peer = (me + i) % n;

@@ -21,6 +21,12 @@ from triton_dist_tpu_torch.kernels.all_to_all import (  # noqa: F401
     fast_all_to_all,
 )
 from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
+    AllGatherMethod,
+    all_gather,
+    all_gather_op,
+    choose_allgather_method,
+    full_mesh_all_gather,
+    full_mesh_all_gather_plain,
     ring_all_gather,
     ring_all_gather_plain,
 )
@@ -31,8 +37,14 @@ from triton_dist_tpu_torch.kernels.allgather_gemm import (  # noqa: F401
     silu_mul,
 )
 from triton_dist_tpu_torch.kernels.allreduce import (  # noqa: F401
+    AllReduceMethod,
+    all_reduce,
+    all_reduce_op,
+    all_reduce_plain,
+    choose_allreduce_method,
     one_shot_all_reduce,
     one_shot_all_reduce_plain,
+    two_shot_all_reduce,
 )
 from triton_dist_tpu_torch.kernels.ep_a2a import (  # noqa: F401
     EPChunkDispatch,
@@ -75,8 +87,16 @@ from triton_dist_tpu_torch.kernels.low_latency_allgather import (  # noqa: F401
     ll_all_gather_plain,
 )
 from triton_dist_tpu_torch.kernels.mega import mega_step  # noqa: F401
+from triton_dist_tpu_torch.kernels.p2p import (  # noqa: F401
+    p2p_read,
+    p2p_send,
+    p2p_send_plain,
+    ring_shift,
+    ring_shift_plain,
+)
 from triton_dist_tpu_torch.kernels.reduce_scatter import (  # noqa: F401
     ReduceScatterMethod,
+    reduce_scatter_op,
     ring_reduce_scatter,
     ring_reduce_scatter_plain,
 )
@@ -95,4 +115,7 @@ SOURCES = {
     "ll_all_gather": "low_latency_allgather",
     "all_to_all": "all_to_all",
     "all_to_all_chunked": "all_to_all",
+    "full_mesh_all_gather": "allgather",
+    "p2p_send": "p2p",
+    "ring_shift": "p2p",
 }

@@ -1,38 +1,92 @@
-"""Ring AllGather — port of triton_dist_tpu.kernels.allgather
-(`ring_all_gather`, the Pallas kernel `_ring_ag_kernel`), native wire.
+"""AllGather — port of triton_dist_tpu.kernels.allgather: the ring
+(`ring_all_gather`, the Pallas kernel `_ring_ag_kernel`), the full mesh
+(`full_mesh_all_gather`, `_full_mesh_ag_kernel`) and the library's
+entry points (`AllGatherMethod`, `choose_allgather_method`,
+`all_gather`, `all_gather_op`), native wire.
 
 Rank-stacked: x (n, m, ...) holds every rank's shard of the virtual
 world (runtime/symm_mem.py); the result (n, n*m, ...) holds every rank's
-gathered copy, chunk c from rank c. Two implementations of one contract:
+gathered copy, chunk c from rank c. Each kernel has two implementations
+of one contract:
 
-  ring_all_gather — the hand-written CUDA kernel (csrc/allgather.cu).
-      Launches on a CUDA tensor, or raises; on a CPU tensor it computes
-      the plain version (no kernel exists there).
-  ring_all_gather_plain — the same concatenation in plain torch.
+  ring_all_gather, full_mesh_all_gather — the hand-written CUDA kernels
+      (csrc/allgather.cu: the ring, and the full-mesh push of
+      shmem::fcollect, one put a peer). Each launches on a CUDA tensor,
+      or raises; on a CPU tensor it computes the plain version (no
+      kernel exists there).
+  ring_all_gather_plain, full_mesh_all_gather_plain — the same
+      concatenation in plain torch.
 
-Data movement only: the two agree bitwise, with each other and with the
-JAX function. At n = 1 both return x, as the JAX function does.
-Quantized wire formats belong to the wire/ slice.
+Data movement only: all agree bitwise, with each other and with the JAX
+functions. At n = 1 each returns x, as the JAX functions do.
+
+`all_gather(x, method)` routes as the JAX function does for one axis:
+`Auto` takes the full mesh for a rank's shard of at most 1 MiB and the
+ring above; `XLA` is the plain concatenation (JAX leaves it to XLA).
+`all_gather_op(arr)` is the host entry: arr is the rank-stacked tensor
+and the world its leading dim; it returns the replicated (n*m, ...).
+Out of scope, raising NotImplementedError: quantized wire formats (the
+wire/ slice, ROADMAP item 12), and axis tuples / `Ring2D`, which need a
+2-D virtual world (item 15).
 """
 
 from __future__ import annotations
 
 import ctypes
+import enum
+from typing import Optional, Tuple
 
 import torch
 
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
+
+class AllGatherMethod(enum.Enum):
+    Auto = "auto"
+    Ring1D = "ring_1d"
+    FullMesh = "full_mesh"
+    Ring2D = "ring_2d"
+    XLA = "xla"
+
+
+# the JAX Auto rule (allgather.py:62-68): a rank's shard of at most this
+# many bytes goes full mesh (one put a peer), a larger one the ring
+_FULL_MESH_MAX_BYTES = 1 << 20
 # bytes per tile: each (step, tile) pair has its own flag
 _TILE_BYTES = 16384
+# bytes a block of the full-mesh launch copies at least
+_FM_BLOCK_BYTES = 32 << 10
 _SIGNATURES = {
     "ag_launch": (ctypes.c_int, [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p]),
     "ag_tile_count": (ctypes.c_int, [ctypes.c_longlong, ctypes.c_int]),
+    "fm_ag_launch": (ctypes.c_int, [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
+    "fm_ag_flag_words": (ctypes.c_int, [ctypes.c_int]),
     "ag_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+
+
+def choose_allgather_method(nbytes_per_rank: int) -> AllGatherMethod:
+    if nbytes_per_rank <= _FULL_MESH_MAX_BYTES:
+        return AllGatherMethod.FullMesh
+    return AllGatherMethod.Ring1D
+
+
+def _native_wire(wire_format) -> None:
+    """The library's wire-format guard (AllGather and AllReduce): only
+    the native wire is ported."""
+    if wire_format == "auto":
+        raise NotImplementedError(
+            "wire_format='auto' asks the perf model's choose_wire_format: "
+            "the wire/ slice, ROADMAP item 12, with item 7's perf model")
+    if wire_format not in (None, "native"):
+        raise NotImplementedError(
+            f"wire_format={wire_format!r}: quantized wire images come with "
+            "the wire/ slice (ROADMAP item 12)")
 
 
 def _check_shape(x: torch.Tensor) -> None:
@@ -62,13 +116,100 @@ def ring_all_gather(x: torch.Tensor) -> torch.Tensor:
     return _launch(x)
 
 
-def _launch(x: torch.Tensor) -> torch.Tensor:
+def full_mesh_all_gather_plain(x: torch.Tensor) -> torch.Tensor:
+    """The full mesh's result: the concatenation of ring_all_gather_plain."""
+    return ring_all_gather_plain(x)
+
+
+@_build.counted("full_mesh_all_gather")
+def full_mesh_all_gather(x: torch.Tensor,
+                         straggler: Optional[Tuple[int, int]] = None
+                         ) -> torch.Tensor:
+    """x (n, m, ...) rank-stacked -> (n, n*m, ...) by the full-mesh push:
+    the CUDA kernel on a CUDA tensor (launched or raising, never
+    replaced), the plain version on a CPU tensor. straggler: (rank,
+    nanos), that rank's blocks stall after the barrier (the card only;
+    the result is the same)."""
+    if x.device.type == "cpu":
+        return full_mesh_all_gather_plain(x)
+    return _launch_fm(x, straggler)
+
+
+def all_gather(x: torch.Tensor, method=AllGatherMethod.Auto,
+               wire_format=None, axis=None) -> torch.Tensor:
+    """x (n, m, ...) -> (n, n*m, ...) by `method`: Auto picks the full
+    mesh for a rank's shard (x[0]) of at most 1 MiB, else the ring; XLA
+    is the plain concatenation. axis: the JAX mesh axis, one name
+    (the world is x's leading dim); a tuple raises."""
+    if axis is not None and not isinstance(axis, str):
+        raise NotImplementedError(
+            f"axis={axis!r}: stage-wise gathers over an axis tuple need a "
+            "2-D virtual world (ROADMAP item 15)")
+    if method == AllGatherMethod.Ring2D:
+        raise NotImplementedError(
+            "Ring2D is the stage-wise gather over an axis tuple, which needs "
+            "a 2-D virtual world (ROADMAP item 15)")
+    _native_wire(wire_format)
+    _check_shape(x)
+    if method == AllGatherMethod.Auto:
+        method = choose_allgather_method(x[0].numel() * x.element_size())
+    if method == AllGatherMethod.XLA:
+        return ring_all_gather_plain(x)
+    if method == AllGatherMethod.Ring1D:
+        return ring_all_gather(x)
+    if method == AllGatherMethod.FullMesh:
+        return full_mesh_all_gather(x)
+    raise ValueError(f"unknown method {method}")
+
+
+def all_gather_op(arr: torch.Tensor, method=AllGatherMethod.Auto,
+                  wire_format=None) -> torch.Tensor:
+    """The host entry: arr (n, m, ...) stacks every rank's shard, the
+    world its leading dim; returns the gathered (n*m, ...), replicated
+    (rank 0's copy)."""
+    return all_gather(arr, method=method, wire_format=wire_format)[0]
+
+
+def _check_launch(x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"the all-gather kernel needs a CUDA tensor, got "
                          f"{x.device}")
     _check_shape(x)
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous and 16-byte aligned")
+
+
+def _launch_fm(x: torch.Tensor, straggler) -> torch.Tensor:
+    _check_launch(x)
+    world = VirtualWorld.of(x)
+    n, m = x.shape[:2]
+    rank, nanos = straggler if straggler is not None else (-1, 0)
+    if straggler is not None and not (0 <= rank < n and nanos >= 0):
+        raise ValueError(f"straggler {straggler}: (rank in [0, {n}), "
+                         "nanos >= 0)")
+    if n == 1:
+        return x
+    out = torch.empty((n, n * m, *x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    chunk = x[0].numel() * x.element_size()
+    if chunk == 0:
+        return out
+    lib = _build.load("allgather", _SIGNATURES)
+    flags = world.flags(lib.fm_ag_flag_words(n))
+    want = max(1, -(-n * chunk // _FM_BLOCK_BYTES))
+    grid = _build.GridInfo()
+    with torch.cuda.device(x.device):
+        err = lib.fm_ag_launch(x.data_ptr(), out.data_ptr(),
+                               flags.data_ptr(), n, chunk, rank, nanos, want,
+                               grid.ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+    _build.check("full_mesh_all_gather", err, lib.ag_error_string, grid)
+    _build.count_launch("full_mesh_all_gather")
+    return out
+
+
+def _launch(x: torch.Tensor) -> torch.Tensor:
+    _check_launch(x)
     world = VirtualWorld.of(x)
     n, m = x.shape[:2]
     if n == 1:

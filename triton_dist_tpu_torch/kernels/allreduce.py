@@ -1,5 +1,8 @@
-"""One-shot AllReduce — port of triton_dist_tpu.kernels.allreduce
-(`one_shot_all_reduce`, the Pallas kernel `_one_shot_ar_kernel`).
+"""AllReduce — port of triton_dist_tpu.kernels.allreduce: the one-shot
+kernel (`one_shot_all_reduce`, the Pallas kernel `_one_shot_ar_kernel`)
+and the library's entry points (`AllReduceMethod`,
+`choose_allreduce_method`, `two_shot_all_reduce`, `all_reduce`,
+`all_reduce_op`).
 
 The tensor is rank-stacked: x (n, ...) holds every rank's contribution
 of the virtual world (runtime/symm_mem.py); the result (n, ...) holds
@@ -19,17 +22,55 @@ At n = 1 both return x,
 as the JAX function does. The TPU's VMEM-budget fallback to lax.psum
 is a rule of the TPU and does not carry over: on the card the kernel
 always runs.
+
+`two_shot_all_reduce` is the JAX host composition of two ported
+kernels: the ring ReduceScatter, then the ring AllGather of the reduced
+chunks (a rank's leading dim divisible by n). `all_reduce(x, method)`
+routes as the JAX function does for one axis; `XLA` is `lax.psum`, left
+to XLA there, and here the plain rank-order f32 fold rounded once
+(`all_reduce_plain`). `Auto` keeps the JAX rule's chip-free parts: a
+leading dim not divisible by n takes OneShot up to 256 KiB a rank and
+XLA above; otherwise TwoShot above 256 KiB. Below that cap JAX asks its
+TPU perf model; here the one-shot / two-shot crossover measured on the
+card (`_ONE_SHOT_CROSSOVER_BYTES`) decides. `all_reduce_op(arr)` is the
+host entry: arr (n, ...) stacks the contributions, the world its
+leading dim; it returns the replicated sum. Out of scope, raising
+NotImplementedError: quantized wire formats and `wire_format="auto"`
+(ROADMAP item 12), `error_budget` (item 7), axis tuples (item 15) and
+`all_reduce_op(fallback="xla")`, the guard ladder (item 8).
 """
 
 from __future__ import annotations
 
 import ctypes
+import enum
 
 import torch
 
 from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels import allgather as _ag
+from triton_dist_tpu_torch.kernels import reduce_scatter as _rsr
 from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
+
+class AllReduceMethod(enum.Enum):
+    Auto = "auto"
+    OneShot = "one_shot"
+    TwoShot = "two_shot"
+    XLA = "xla"
+
+
+# the JAX cap (allreduce.py:51): above it a rank's tensor goes two-shot
+# (or, with a leading dim not divisible by n, XLA)
+_ONE_SHOT_MAX_BYTES = 256 << 10
+# Below the cap, the largest size a rank at which one-shot is no slower
+# than two-shot on the card. chip_smoke.py phase 4c's sweep (4 KiB to
+# 256 KiB a rank, bf16, n = 2 and 4, on an NVIDIA H100 80GB HBM3 at
+# 700 W) found one-shot faster at every size at both world sizes (one
+# launch against two; PERF.md): its largest size. Phase 4c fails if a
+# sweep finds one-shot slower at or below it. It stands until the port
+# has a perf model (ROADMAP item 7).
+_ONE_SHOT_CROSSOVER_BYTES = 256 << 10
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # elements per tile: each tile has its own arrival counter
 _TILE = 8192
@@ -51,6 +92,82 @@ def one_shot_all_reduce_plain(x: torch.Tensor) -> torch.Tensor:
     for r in range(1, x.shape[0]):
         acc = (acc.float() + x[r].float()).to(x.dtype)
     return acc.expand_as(x).contiguous()
+
+
+def all_reduce_plain(x: torch.Tensor) -> torch.Tensor:
+    """The XLA method: the sum over ranks folded in f32 in rank order and
+    rounded once (the stand-in for `lax.psum`), every rank's copy alike."""
+    acc = x[0].float()
+    for r in range(1, x.shape[0]):
+        acc = acc + x[r].float()
+    return acc.to(x.dtype).expand_as(x).contiguous()
+
+
+def choose_allreduce_method(nbytes: int, n: int,
+                            divisible: bool = True) -> AllReduceMethod:
+    """The whole Auto rule for a rank's `nbytes`. A leading dim not
+    divisible by n (`divisible` False): OneShot up to the one-shot cap,
+    XLA above. Otherwise OneShot up to the crossover measured on the card
+    (never above the cap; the same at n = 2 and 4, n kept for the JAX
+    signature), TwoShot above."""
+    if not divisible:
+        return (AllReduceMethod.OneShot if nbytes <= _ONE_SHOT_MAX_BYTES
+                else AllReduceMethod.XLA)
+    if nbytes <= min(_ONE_SHOT_CROSSOVER_BYTES, _ONE_SHOT_MAX_BYTES):
+        return AllReduceMethod.OneShot
+    return AllReduceMethod.TwoShot
+
+
+def two_shot_all_reduce(x: torch.Tensor, wire_format=None) -> torch.Tensor:
+    """x (n, M, ...) -> (n, M, ...), M divisible by n: the ring
+    ReduceScatter kernel, then the ring AllGather kernel."""
+    _ag._native_wire(wire_format)
+    return _ag.ring_all_gather(_rsr.ring_reduce_scatter(x))
+
+
+def all_reduce(x: torch.Tensor, method=AllReduceMethod.Auto,
+               wire_format=None, error_budget=None,
+               axis=None) -> torch.Tensor:
+    """x (n, M, ...) rank-stacked -> (n, M, ...), every rank's copy the
+    sum, by `method` (the JAX routing for one axis; axis: the JAX mesh
+    axis, one name, the world being x's leading dim)."""
+    if axis is not None and not isinstance(axis, str):
+        raise NotImplementedError(
+            f"axis={axis!r}: stage-wise reductions over an axis tuple need "
+            "a 2-D virtual world (ROADMAP item 15)")
+    if error_budget is not None:
+        raise NotImplementedError(
+            "error_budget steers wire_format='auto' through the perf model "
+            "(ROADMAP item 7, with item 12's wire/)")
+    _ag._native_wire(wire_format)
+    if x.dim() < 2:
+        raise ValueError(f"all_reduce needs rank-stacked (n, M, ...) "
+                         f"tensors, got shape {tuple(x.shape)}")
+    n = x.shape[0]
+    if method == AllReduceMethod.Auto:
+        method = choose_allreduce_method(x[0].numel() * x.element_size(), n,
+                                         divisible=x.shape[1] % n == 0)
+    if method == AllReduceMethod.XLA:
+        return x if n == 1 else all_reduce_plain(x)
+    if method == AllReduceMethod.OneShot:
+        return one_shot_all_reduce(x)
+    if method == AllReduceMethod.TwoShot:
+        return two_shot_all_reduce(x)
+    raise ValueError(f"unknown method {method}")
+
+
+def all_reduce_op(arr: torch.Tensor, method=AllReduceMethod.Auto,
+                  wire_format=None, fallback=None) -> torch.Tensor:
+    """The host entry: arr (n, ...) stacks one contribution a rank, the
+    world its leading dim; returns the sum (...), replicated (rank 0's
+    copy)."""
+    if fallback not in (None, "xla"):
+        raise ValueError(f"unknown fallback {fallback!r} (None or 'xla')")
+    if fallback == "xla":
+        raise NotImplementedError(
+            "fallback='xla' is the guard ladder's degradation route "
+            "(ROADMAP item 8)")
+    return all_reduce(arr, method=method, wire_format=wire_format)[0]
 
 
 @_build.counted("one_shot_all_reduce")

@@ -29,8 +29,9 @@ JAX function returns it; with `force_kernel` the kernel runs with no
 ring step. `reduce_scatter(method=Auto)` takes the ring when a chunk is
 at most 4 MiB (the JAX rule, reduce_scatter.py:513-520) and the `XLA`
 method above it; `method=None` takes the ring, as the JAX function does
-for anything but `XLA`. Quantized wire formats (`_ring_rs_wire_kernel`)
-belong to the wire/ slice and raise.
+for anything but `XLA`. `reduce_scatter_op(arr)` is the host entry
+(the world is arr's leading dim). Quantized wire formats
+(`_ring_rs_wire_kernel`) belong to the wire/ slice and raise.
 """
 
 from __future__ import annotations
@@ -134,6 +135,16 @@ def reduce_scatter(x: torch.Tensor, method=ReduceScatterMethod.Auto,
             return reduce_scatter_plain(x.to(accum_dtype)).to(x.dtype)
         return reduce_scatter_plain(x)
     return ring_reduce_scatter(x, accum_dtype=accum_dtype)
+
+
+def reduce_scatter_op(arr: torch.Tensor, method=ReduceScatterMethod.Auto,
+                      wire_format=None) -> torch.Tensor:
+    """The host entry: arr (n, n*m, ...) stacks one contribution a rank,
+    the world its leading dim; rank r keeps chunk r of the sum. Returns
+    (n*m, ...), the chunks in rank order (the JAX result sharded along
+    its leading dim)."""
+    out = reduce_scatter(arr, method=method, wire_format=wire_format)
+    return out.reshape(-1, *out.shape[2:])
 
 
 def _launch(x: torch.Tensor, acc_dtype: torch.dtype) -> torch.Tensor:

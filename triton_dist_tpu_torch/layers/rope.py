@@ -9,10 +9,14 @@ from __future__ import annotations
 
 import torch
 
+from triton_dist_tpu_torch.runtime.device import resolve_device
+
 
 def rope_table(head_dim: int, max_positions: int,
                theta: float = 1_000_000.0, device=None):
-    """(cos, sin), each (max_positions, head_dim // 2) f32."""
+    """(cos, sin), each (max_positions, head_dim // 2) f32, on the card
+    unless `device` names another."""
+    device = resolve_device(device)
     half = head_dim // 2
     exponent = torch.arange(0, half, dtype=torch.float32,
                             device=device) / half

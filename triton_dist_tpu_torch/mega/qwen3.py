@@ -66,6 +66,7 @@ class MegaKVCache(NamedTuple):
     @staticmethod
     def create(cfg: ModelConfig, batch: int, s_max: int, hkv: int,
                device=None) -> "MegaKVCache":
+        device = resolve_device(device)
         shape = (cfg.num_layers, hkv, batch, s_max, cfg.head_dim)
         dt = cfg.torch_dtype
         return MegaKVCache(torch.zeros(shape, dtype=dt, device=device),
@@ -109,6 +110,7 @@ class PagedMegaKVCache(NamedTuple):
     def create(cfg: ModelConfig, batch: int, hkv: int, page: int,
                max_pages: int, total_pages: int,
                device=None) -> "PagedMegaKVCache":
+        device = resolve_device(device)
         shape = (cfg.num_layers, hkv, total_pages, page, cfg.head_dim)
         dt = cfg.torch_dtype
 

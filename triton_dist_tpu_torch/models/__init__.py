@@ -8,7 +8,9 @@ from triton_dist_tpu_torch.models.dense import (  # noqa: F401
     DenseLayerParams,
     forward,
     init_params,
+    layers_fwd,
     params_from_jax,
+    pp_stage_fn,
     shard_params,
 )
 from triton_dist_tpu_torch.models.engine import Engine, sample_token  # noqa: F401

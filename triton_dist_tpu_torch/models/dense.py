@@ -295,6 +295,48 @@ def _layer_fwd(cfg: ModelConfig, spec: TPAttnSpec, world: VirtualWorld,
                           world, mode=mode)
 
 
+def layers_fwd(cfg: ModelConfig, params: DenseLLMParams, x: torch.Tensor,
+               layers, batch: int = 1) -> torch.Tensor:
+    """x (B*S, H) through `layers` (layer indices, in order) at world 1
+    with no KV cache: each of the `batch` sequences of S tokens sits at
+    positions [0, S) and attends causally over itself (the attention's
+    cache-free branch). A pipeline stage's function (`pp_stage_fn`) and
+    its sequential reference both run through here."""
+    if params.world_size != 1:
+        raise ValueError(f"layers_fwd runs at world 1; the params carry "
+                         f"{params.world_size} ranks")
+    m = x.shape[0]
+    if m % batch:
+        raise ValueError(f"{m} rows do not split into {batch} sequences")
+    s = m // batch
+    dev = x.device
+    spec = TPAttnSpec(cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim)
+    cos, sin = rope_table(cfg.head_dim, s, cfg.rope_theta, device=dev)
+    positions = torch.arange(s, device=dev).repeat(batch, 1)
+    world = VirtualWorld(1, dev)
+    x = x[None]
+    for i in layers:
+        x = _layer_fwd(cfg, spec, world, "ar", cos, sin, positions, None,
+                       None, batch, x, params.layers.layer(i), None)
+    return x[0]
+
+
+def pp_stage_fn(cfg: ModelConfig, params: DenseLLMParams, n_stages: int,
+                batch: int = 1):
+    """stage_fn(stage, act) for layers.p2p.pp_schedule_fwd: stage s runs
+    layers [s*L/n, (s+1)*L/n) of the world-1 params on act (B*S, H)."""
+    if cfg.num_layers % n_stages:
+        raise ValueError(f"{cfg.num_layers} layers do not split into "
+                         f"{n_stages} stages")
+    per = cfg.num_layers // n_stages
+
+    def stage_fn(stage: int, act: torch.Tensor) -> torch.Tensor:
+        return layers_fwd(cfg, params, act,
+                          range(stage * per, (stage + 1) * per), batch)
+
+    return stage_fn
+
+
 def forward(cfg: ModelConfig, params: DenseLLMParams, tokens: torch.Tensor,
             cache: KVCache, mode: str = "dist",
             return_full_logits: bool = False):

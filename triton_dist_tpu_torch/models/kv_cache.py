@@ -19,6 +19,8 @@ import dataclasses
 
 import torch
 
+from triton_dist_tpu_torch.runtime.device import resolve_device
+
 
 @dataclasses.dataclass
 class KVCache:
@@ -32,7 +34,9 @@ class KVCache:
                dtype: torch.dtype = torch.bfloat16,
                device=None, world: int = 1) -> "KVCache":
         """An empty cache of `batch` sequences whose num_kv_heads heads
-        are split over `world` ranks."""
+        are split over `world` ranks, on the card unless `device` names
+        another."""
+        device = resolve_device(device)
         shape = (num_layers, world * batch, max_len, num_kv_heads // world,
                  head_dim)
         return KVCache(
