@@ -79,6 +79,19 @@ outside a checkout of the repository. Phases, each fatal on failure:
      full mesh against ring AG times, and the one-shot / two-shot
      AllReduce sweep (4 KiB to 256 KiB a rank, n = 2 and 4) that sets
      the library's Auto crossover;
+  4w. the tenth path, no weights: the quantized wire at Qwen3-8B
+     widths, world 4, bf16, seed 0, on fp8, int8 and int8 block 128:
+     reduce_scatter_op and all_reduce_op on per-rank (512, 4096) and
+     (4, 4096) (ring_rs_wire_kernel), all_gather ring and full mesh on
+     (128, 4096) and three ll_all_gather calls on (4, 4096) (the images
+     through the native kernels), ag_gemm at QKV and gate|up (fp8, int8)
+     and gemm_rs at down and O (the partial GEMM, then the wire ring);
+     launches pinned; RS bitwise its plain version, AR bitwise
+     wire.simulate_allreduce, the gathers bitwise the roundtrip, gemm_rs
+     bitwise the plain fold of its own partials and in the band's cosine
+     end to end, ag_gemm in the bf16 band; every drift against the
+     native fold at most DEFAULT_ERROR_BUDGET; each call's ms, device
+     us and bound beside the native kernel's ms;
   5. every kernel against its plain version on the inputs recorded in
      phase 4, and its timing there (flash prefill also at two synthetic
      Qwen3-8B shapes), beside its bound over the work of all ranks, its
@@ -100,8 +113,11 @@ outside a checkout of the repository. Phases, each fatal on failure:
      draw re-laid for EP (32 whole experts a rank): ep_moe_fwd at world
      4 over the MoE all-to-all kernels, 128 tokens a rank sequential and
      overlap at n_chunks 1, 2, 4, 1 token a rank, and a tight capacity
-     that drops pairs; launches pinned; every A2A launch bitwise its
-     plain version, every run bitwise over the plain transports,
+     that drops pairs, and the fp8 wire (payload_dtype float8_e4m3fn)
+     at 128 tokens a rank sequential and overlap q 2; launches pinned;
+     every A2A launch bitwise its plain version, every run bitwise over
+     the plain transports, the fp8 wire within DEFAULT_ERROR_BUDGET of
+     the bf16 wire with equal drops,
      sequential and overlap in the bf16 band of each other with equal
      drops, each expert-FFN product against grouped_gemm_plain, EP
      against the TP-MoE `dist` block on the same layer (f32 band; bf16
@@ -707,9 +723,10 @@ def kernel_names():
     attribute, the megakernel (MegaQwen3 calls it through its queue), the
     SP path's three (the sixth path calls them through its layer), the
     EP path's two (the seventh, through kernels/ep_a2a.py), the PP
-    transport's two (4p) and the full-mesh AllGather (4c)."""
+    transport's two (4p), the full-mesh AllGather (4c) and the quantized
+    wire's three (4w)."""
     return [*main_path_kernels(), "mega", *SP_KERNELS, *EP_KERNELS,
-            *PP_KERNELS, *COLL_KERNELS]
+            *PP_KERNELS, *COLL_KERNELS, *WIRE_KERNELS]
 
 
 def plain_versions():
@@ -2302,6 +2319,7 @@ EP_TOKENS = 128  # tokens a rank: the 4 x 128 prefill's 512
 EP_CHUNKS = (1, 2, 4)
 EP_STRAGGLE_NS = 5_000_000
 EP_KERNELS = ("all_to_all", "all_to_all_chunked")
+EP_FP8 = "float8_e4m3fn"  # the fp8 wire's payload_dtype (a torch dtype name)
 
 
 class A2ARecorder:
@@ -2457,10 +2475,15 @@ def run_ep(kernels, cfg, params, device="cuda"):
             "M1 overlap q1": dict(x=x1, overlap=True, n_chunks=1),
             f"M128 capacity {tight} sequential": dict(x=x, capacity=tight),
             f"M128 capacity {tight} overlap q2": dict(
-                x=x, capacity=tight, overlap=True, n_chunks=2)}
+                x=x, capacity=tight, overlap=True, n_chunks=2),
+            "M128 fp8 sequential": dict(x=x, payload_dtype=EP_FP8),
+            "M128 fp8 overlap q2": dict(x=x, overlap=True, n_chunks=2,
+                                        payload_dtype=EP_FP8)}
 
     def layer(kw, **extra):
         kw = dict(kw, **extra)
+        if "payload_dtype" in kw:
+            kw["payload_dtype"] = getattr(torch, kw["payload_dtype"])
         return ep_moe_fwd(kw.pop("x"), ep, k, return_drops=True, **kw)
 
     outs, first_ms = {}, {}
@@ -2534,12 +2557,27 @@ def run_ep(kernels, cfg, params, device="cuda"):
             continue
         ref_label = next(lab for lab, kw2 in runs.items()
                          if not kw2.get("overlap") and kw2["x"] is kw["x"]
-                         and kw2.get("capacity") == kw.get("capacity"))
+                         and kw2.get("capacity") == kw.get("capacity")
+                         and kw2.get("payload_dtype") == kw.get(
+                             "payload_dtype"))
         (y_s, d_s), (y_o, d_o) = outs[ref_label], outs[label]
         if not torch.equal(d_s, d_o):
             raise AssertionError(f"ep drops {d_o.tolist()} ({label}) != "
                                  f"{d_s.tolist()} ({ref_label})")
         bands[label] = band(y_s, y_o, "ep_moe")
+    # the fp8 wire against the bf16 wire: drops equal, drift in budget
+    from triton_dist_tpu_torch import wire
+
+    fp8_drift = {}
+    for label in ("M128 fp8 sequential", "M128 fp8 overlap q2"):
+        ref = "M128 sequential" if "sequential" in label else \
+            "M128 overlap q2"
+        if not torch.equal(outs[label][1], outs[ref][1]):
+            raise AssertionError(f"ep {label}: drops differ from {ref}")
+        fp8_drift[label] = wire_drift(f"ep {label}", outs[label][0],
+                                      outs[ref][0])
+    log(f"  ep: the fp8 wire against the bf16 wire, drift (cos, ulp): "
+        f"{fp8_drift}")
     drops_tight = outs[f"M128 capacity {tight} sequential"][1]
     assert int(drops_tight.sum()) > 0, "the tight capacity dropped nothing"
     assert int(outs["M128 sequential"][1].sum()) == 0
@@ -2609,7 +2647,7 @@ def run_ep(kernels, cfg, params, device="cuda"):
     a2a_rows, chunk_rows = {}, {}
     for r in rec.records:  # each (kernel, shape, dtype, q) once
         x_r, q = r["x"], r["kw"].get("n_chunks", 1)
-        what = "dispatch" if x_r.dtype == torch.bfloat16 else "combine"
+        what = "combine" if x_r.dtype == torch.float32 else "dispatch"
         label = f"{what} x {tuple(x_r.shape)} {str(x_r.dtype)[6:]}"
         if r["name"] == "all_to_all" and label not in a2a_rows:
             a2a_rows[label] = ep_a2a_row(kernels, f"all_to_all {label}",
@@ -2627,7 +2665,7 @@ def run_ep(kernels, cfg, params, device="cuda"):
     numbers = dict(first_ms=first_ms, warm_ms=warm_ms, host_syncs=syncs,
                    peak_gb_beyond_weights=peak, bands_seq_overlap=bands,
                    ep_vs_tp_dist=tp_band,
-                   drops_tight=drops_tight.tolist(),
+                   drops_tight=drops_tight.tolist(), fp8_drift=fp8_drift,
                    max_abs_err=a2a_err, ffn_max_abs_err=ffn_err)
     errs = dict(all_to_all=(a2a_rows, main, a2a_err["all_to_all"]),
                 all_to_all_chunked=(chunk_rows, f"{main} q4",
@@ -3060,6 +3098,326 @@ def run_coll(kernels):
     return launched, fm_rows, labels[1], max(fm_errs), numbers
 
 
+# -- the quantized wire (phase 4w) --------------------------------------------
+
+WIRE_KERNELS = ("ring_rs_wire", "gemm_rs_wire", "ag_gemm_wire")
+WIRE_WORLD = 4
+WIRE_SEED = 0
+# the formats of every group (ag_gemm takes per-row scales only)
+WIRE_FORMATS = (("fp8", None), ("int8", None), ("int8", 128))
+# per-rank shapes at Qwen3-8B widths: (rows, width, what)
+WIRE_RS_SHAPES = ((512, 4096, "the 4 x 128 prefill"),
+                  (4, 4096, "a decode step"))
+WIRE_AG_SHAPE = (128, 4096, "1 MiB a rank")
+WIRE_LL_SHAPE = (4, 4096, "a decode step")
+WIRE_LL_CALLS = 3
+# (name, m a rank, K, N): ag_gemm's A shard (m, K) times B (K, N) a rank
+WIRE_AG_GEMM = (("QKV", 128, 4096, 1536), ("gate|up", 128, 4096, 6144))
+# (name, M, K a rank, N): gemm_rs's a (M, K) times b (K, N) a rank
+WIRE_GEMM_RS = (("down", 512, 3072, 4096), ("O", 512, 1024, 4096))
+
+
+def wire_label(fmt) -> str:
+    return fmt.kind + ("" if fmt.block is None else f" block {fmt.block}")
+
+
+def wire_hop_bytes(n, m, k, fmt) -> int:
+    """The wire images a ring moves over all ranks: (n - 1) hops, each
+    rank's m image rows of wire_cols bytes read and written once."""
+    from triton_dist_tpu_torch import wire
+
+    return 2 * (n - 1) * n * m * wire.wire_cols(k, fmt)
+
+
+def wire_drift(label, got, native) -> tuple:
+    """(cos, ulp) of a wire result against the native fold; raises
+    above DEFAULT_ERROR_BUDGET."""
+    from triton_dist_tpu_torch import wire
+
+    cos, ulp = wire.cosine_drift(got, native), wire.max_ulp_f32(got, native)
+    if not cos <= wire.DEFAULT_ERROR_BUDGET:
+        raise AssertionError(f"{label}: drift {cos:.3e} against the native "
+                             f"fold above {wire.DEFAULT_ERROR_BUDGET}")
+    return cos, ulp
+
+
+def wire_row(label, fn, plain, native, ops, nbytes, keys, drift):
+    """A wire call's row: call ms and device µs (the sum over `keys`),
+    plain ms, bound, the native kernel's call ms at the same shape, the
+    drift against the native fold."""
+    import torch
+
+    row = time_collective(label, fn, plain, None, ops, nbytes,
+                          torch.bfloat16)
+    us = [device_us(fn, key) for key in keys]
+    row["device_us"] = None if None in us else sum(us)
+    row["native_ms"] = time_ms(native)
+    row["drift_cos"], row["drift_ulp"] = drift
+    dev = ("None" if row["device_us"] is None
+           else f"{row['device_us']:.1f}")
+    log(f"    device {dev} us ({' + '.join(keys)}); native {row['native_ms']:.4f} "
+        f"ms (wire / native {row['ms'] / row['native_ms']:.2f}); drift "
+        f"cos {drift[0]:.3e} ulp {drift[1]}")
+    return row
+
+
+def run_wire(kernels):
+    """Phase 4w, the quantized wire at Qwen3-8B widths on the virtual
+    world of 4, bf16, seed 0, no weights: reduce_scatter_op and
+    all_reduce_op on per-rank (512, 4096) and (4, 4096); all_gather ring
+    and full mesh on (128, 4096) and ll_all_gather on (4, 4096) (three
+    calls on one context); ag_gemm at QKV and gate|up, gemm_rs at down
+    and O; each on fp8, int8 and int8 block 128 (ag_gemm: fp8 and int8),
+    launches counted from 0 around them. Then: RS bitwise its plain
+    version; AR bitwise wire.simulate_allreduce; the gathers bitwise the
+    roundtrip of the shards; gemm_rs bitwise the plain fold of the
+    kernel's own f32 partials (teacher-forced) and within the bf16 band's
+    cosine of the end-to-end plain version; ag_gemm within the bf16 band
+    of its plain version; every result's drift against the native fold
+    at most DEFAULT_ERROR_BUDGET. Then each call's timing beside the
+    native kernel's. Returns (launches, {kernel: (rows, main label, max
+    abs err)}, numbers)."""
+    import torch
+
+    from triton_dist_tpu_torch import wire
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+    from triton_dist_tpu_torch.kernels import low_latency_allgather as llag
+
+    n, bf = WIRE_WORLD, torch.bfloat16
+    AG = kernels.AllGatherMethod
+    fmts = [wire.WireFormat(kind, block) for kind, block in WIRE_FORMATS]
+    per_row = [f for f in fmts if f.block is None]
+    seed = iter(range(WIRE_SEED, WIRE_SEED + 100))
+    rs_x = {rows: rand((n, rows, w), bf, next(seed))
+            for rows, w, _ in WIRE_RS_SHAPES}
+    ag_x = rand((n, WIRE_AG_SHAPE[0], WIRE_AG_SHAPE[1]), bf, next(seed))
+    ll_x = [rand((n, *WIRE_LL_SHAPE[:2]), bf, next(seed))
+            for _ in range(WIRE_LL_CALLS)]
+    agg = {name: (rand((n, m, k), bf, next(seed), 0.1),
+                  rand((n, k, nn), bf, next(seed), 0.05))
+           for name, m, k, nn in WIRE_AG_GEMM}
+    grs_in = {name: (rand((n, mm, k), bf, next(seed), 0.1),
+                     rand((n, k, nn), bf, next(seed), 0.05))
+              for name, mm, k, nn in WIRE_GEMM_RS}
+    dev = ag_x.device
+    ll_ctx = {wire_label(f): llag.create_ll_ag_buffer(
+        WIRE_LL_SHAPE[:2], bf, n, wire_format=f, device=dev) for f in fmts}
+    outs, want = {}, {name: 0 for name in kernel_names()}
+
+    def expect(name, k=1):
+        want[name] += k
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    for f in fmts:
+        fl = wire_label(f)
+        for rows, x in rs_x.items():
+            outs[("rs", rows, fl)] = kernels.reduce_scatter_op(
+                x, wire_format=f)
+            outs[("ar", rows, fl)] = kernels.all_reduce_op(x, wire_format=f)
+            expect("ring_rs_wire", 2)
+            expect("ring_all_gather")
+        for meth in (AG.Ring1D, AG.FullMesh):
+            outs[("ag", meth.value, fl)] = kernels.all_gather(
+                ag_x, method=meth, wire_format=f)
+            expect("ring_all_gather" if meth == AG.Ring1D
+                   else "full_mesh_all_gather")
+        for i, x in enumerate(ll_x):
+            outs[("ll", i, fl)], _ = kernels.ll_all_gather(
+                x, ll_ctx[fl], i, wire_format=f)
+            expect("ll_all_gather")
+        for name, (a, b) in grs_in.items():
+            outs[("gemm_rs", name, fl)] = kernels.gemm_rs(a, b,
+                                                          wire_format=f)
+            expect("gemm_rs_wire")
+            expect("ring_rs_wire")
+        if f.block is None:
+            for name, (a, b) in agg.items():
+                outs[("ag_gemm", name, fl)] = kernels.ag_gemm(
+                    a, b, wire_format=f)
+                expect("ag_gemm_wire")
+    torch.cuda.synchronize()
+    launched = kernels.launches()
+    assert launched == want, (launched, want)
+    for key, y in outs.items():
+        assert bool(torch.isfinite(y.float()).all()), key
+
+    # each result against its plain version, and its drift against the
+    # native fold
+    drift, errs = {}, {name: 0.0 for name in WIRE_KERNELS}
+    native_rs = {rows: kernels.reduce_scatter_op(x) for rows, x in
+                 rs_x.items()}
+    native_ar = {rows: kernels.all_reduce_op(
+        x, method=kernels.AllReduceMethod.TwoShot) for rows, x in
+        rs_x.items()}
+    for f in fmts:
+        fl = wire_label(f)
+        for rows, x in rs_x.items():
+            got = outs[("rs", rows, fl)]
+            errs["ring_rs_wire"] = max(errs["ring_rs_wire"], check_bitwise(
+                f"reduce_scatter_op {fl} {rows}", got,
+                kernels.ring_reduce_scatter_wire_plain(x, f).reshape(
+                    got.shape)))
+            drift[("reduce_scatter_op", rows, fl)] = wire_drift(
+                f"reduce_scatter_op {fl} {rows}", got, native_rs[rows])
+            got = outs[("ar", rows, fl)]
+            check_bitwise(f"all_reduce_op {fl} {rows}", got,
+                          wire.simulate_allreduce(x, f, n))
+            drift[("all_reduce_op", rows, fl)] = wire_drift(
+                f"all_reduce_op {fl} {rows}", got, native_ar[rows])
+        rt = wire.roundtrip(ag_x.reshape(-1, ag_x.shape[2]), f)
+        for meth in (AG.Ring1D, AG.FullMesh):
+            got = outs[("ag", meth.value, fl)]
+            check_bitwise(f"all_gather {meth.value} {fl}", got,
+                          rt.expand(n, *rt.shape))
+            drift[("all_gather", meth.value, fl)] = wire_drift(
+                f"all_gather {meth.value} {fl}", got,
+                ag_x.reshape(1, -1, ag_x.shape[2]).expand(got.shape))
+        for i, x in enumerate(ll_x):
+            rt = wire.roundtrip(x.reshape(-1, x.shape[2]), f).reshape(
+                x.shape)
+            check_bitwise(f"ll_all_gather {fl} call {i}",
+                          outs[("ll", i, fl)], rt[None].expand(n, *x.shape))
+        drift[("ll_all_gather", fl)] = wire_drift(
+            f"ll_all_gather {fl}", outs[("ll", 0, fl)],
+            ll_x[0][None].expand(n, *ll_x[0].shape))
+        for name, (a, b) in grs_in.items():
+            got = outs[("gemm_rs", name, fl)]
+            partial = grs._launch(a, b, False, torch.float32, partials=True)
+            errs["gemm_rs_wire"] = max(errs["gemm_rs_wire"], check_bitwise(
+                f"gemm_rs {name} {fl} teacher-forced", got,
+                kernels.ring_reduce_scatter_wire_plain(partial, f, bf)))
+            rep = torch_parity().check_epsilon(
+                kernels.gemm_rs_wire_plain(a, b, f).float().cpu().numpy(),
+                got.float().cpu().numpy(), "gemm_rs", bf)
+            if not rep["cos"] <= rep["band_cos"]:
+                raise AssertionError(f"gemm_rs {name} {fl} outside the bf16 "
+                                     f"band's cosine of its plain version: "
+                                     f"{rep}")
+            log(f"  gemm_rs {name} {fl}: bitwise the plain fold of its own "
+                f"partials; end to end cos {rep['cos']:.3e} ulp "
+                f"{rep['ulp']} (band cos {rep['band_cos']:.0e}, judged)")
+            drift[("gemm_rs", name, fl)] = wire_drift(
+                f"gemm_rs {name} {fl}", got, kernels.gemm_rs(a, b))
+        for name, (a, b) in agg.items():
+            if f.block is not None:
+                continue
+            got = outs[("ag_gemm", name, fl)]
+            want_c = kernels.ag_gemm_plain(a, b, wire_format=f)
+            band(want_c, got, "ag_gemm")
+            errs["ag_gemm_wire"] = max(
+                errs["ag_gemm_wire"],
+                (got.float() - want_c.float()).abs().max().item())
+            drift[("ag_gemm", name, fl)] = wire_drift(
+                f"ag_gemm {name} {fl}", got, kernels.ag_gemm(a, b))
+    log(f"  wire: {len(outs)} calls, launches {dict((k, v) for k, v in launched.items() if v)}; "
+        "RS bitwise its plain version, AR bitwise simulate_allreduce, the "
+        "gathers bitwise the roundtrip, gemm_rs teacher-forced bitwise, "
+        "ag_gemm in the bf16 band; drift against the native fold (cos, "
+        f"ulp): {drift}")
+    del outs, native_rs, native_ar
+
+    # timing: each call, its device time, the native kernel's
+    rows = {name: {} for name in WIRE_KERNELS}
+    timings = {}
+    for f in fmts:
+        fl = wire_label(f)
+        for (rows_n, w, what), x in zip(WIRE_RS_SHAPES, rs_x.values()):
+            m = rows_n // n
+            ins, out = n * rows_n * w * 2, n * m * w * 2
+            hops = wire_hop_bytes(n, m, w, f)
+            label = f"({rows_n}, {w}) bf16 a rank, {what}, {fl}"
+            rows["ring_rs_wire"][f"reduce_scatter_op {label}"] = wire_row(
+                f"reduce_scatter_op {label}",
+                lambda x=x, f=f: kernels.reduce_scatter_op(x, wire_format=f),
+                lambda x=x, f=f: kernels.ring_reduce_scatter_wire_plain(x, f),
+                lambda x=x: kernels.reduce_scatter_op(x), n * (n - 1) * m * w,
+                ins + out + hops, ["ring_rs_wire_kernel"],
+                drift[("reduce_scatter_op", rows_n, fl)])
+            timings[f"all_reduce_op {label}"] = wire_row(
+                f"all_reduce_op {label}",
+                lambda x=x, f=f: kernels.all_reduce_op(x, wire_format=f),
+                lambda x=x, f=f: wire.simulate_allreduce(x, f, n),
+                lambda x=x: kernels.all_reduce_op(
+                    x, method=kernels.AllReduceMethod.TwoShot),
+                n * (n - 1) * m * w, ins + n * rows_n * w * 2 + hops
+                + wire_hop_bytes(n, m, w, f),
+                ["ring_rs_wire_kernel", "ring_ag_kernel"],
+                drift[("all_reduce_op", rows_n, fl)])
+        rows_n, w, what = WIRE_AG_SHAPE
+        nbytes = (n * rows_n * w + n * n * rows_n * w) * 2 + \
+            wire_hop_bytes(n, rows_n, w, f)
+        for meth, key in ((AG.Ring1D, "ring_ag_kernel"),
+                          (AG.FullMesh, "fm_ag_kernel")):
+            label = f"all_gather {meth.value} ({rows_n}, {w}) bf16, {what}, {fl}"
+            timings[label] = wire_row(
+                label,
+                lambda f=f, meth=meth: kernels.all_gather(
+                    ag_x, method=meth, wire_format=f),
+                lambda f=f: wire.roundtrip(ag_x.reshape(-1, w), f),
+                lambda meth=meth: kernels.all_gather(ag_x, method=meth), 0,
+                nbytes, [key], drift[("all_gather", meth.value, fl)])
+        rows_n, w, what = WIRE_LL_SHAPE
+        ctx_w = llag.create_ll_ag_buffer((rows_n, w), bf, n, wire_format=f,
+                                         device=dev)
+        ctx_n = llag.create_ll_ag_buffer((rows_n, w), bf, n, device=dev)
+        calls = {"wire": 0, "native": 0}
+
+        def ll_call(which, f=f, ctx_w=ctx_w, ctx_n=ctx_n, calls=calls):
+            i = calls[which]
+            calls[which] += 1
+            if which == "wire":
+                return kernels.ll_all_gather(ll_x[0], ctx_w, i,
+                                             wire_format=f)
+            return kernels.ll_all_gather(ll_x[0], ctx_n, i)
+
+        label = f"ll_all_gather ({rows_n}, {w}) bf16, {what}, {fl}"
+        timings[label] = wire_row(
+            label, lambda: ll_call("wire"),
+            lambda f=f: wire.roundtrip(ll_x[0].reshape(-1, w), f),
+            lambda: ll_call("native"), 0,
+            (n * rows_n * w + n * n * rows_n * w) * 2
+            + wire_hop_bytes(n, rows_n, w, f),
+            ["ll_ag_kernel"], drift[("ll_all_gather", fl)])
+        for name, mm, k, nn in WIRE_GEMM_RS:
+            a, b = grs_in[name]
+            label = (f"gemm_rs {name} ({mm}, {k}) @ ({k}, {nn}) bf16 a "
+                     f"rank, {fl}")
+            rows["gemm_rs_wire"][label] = wire_row(
+                label, lambda a=a, b=b, f=f: kernels.gemm_rs(
+                    a, b, wire_format=f),
+                lambda a=a, b=b, f=f: kernels.gemm_rs_wire_plain(a, b, f),
+                lambda a=a, b=b: kernels.gemm_rs(a, b), 2 * n * mm * k * nn,
+                (n * mm * k + n * k * nn + n * (mm // n) * nn) * 2
+                + wire_hop_bytes(n, mm // n, nn, f),
+                ["gemm_rs_kernel", "ring_rs_wire_kernel"],
+                drift[("gemm_rs", name, fl)])
+        if f.block is not None:
+            continue
+        for name, m, k, nn in WIRE_AG_GEMM:
+            a, b = agg[name]
+            label = (f"ag_gemm {name} ({m}, {k}) @ ({k}, {nn}) bf16 a rank, "
+                     f"{fl}")
+            rows["ag_gemm_wire"][label] = wire_row(
+                label, lambda a=a, b=b, f=f: kernels.ag_gemm(
+                    a, b, wire_format=f),
+                lambda a=a, b=b, f=f: kernels.ag_gemm_plain(
+                    a, b, wire_format=f),
+                lambda a=a, b=b: kernels.ag_gemm(a, b),
+                2 * n * n * m * k * nn,
+                (n * m * k + n * k * nn + n * n * m * nn) * 2
+                + wire_hop_bytes(n, m, k, f), ["ag_gemm_kernel"],
+                drift[("ag_gemm", name, fl)])
+    mains = {"ring_rs_wire": next(iter(rows["ring_rs_wire"])),
+             "gemm_rs_wire": next(iter(rows["gemm_rs_wire"])),
+             "ag_gemm_wire": next(iter(rows["ag_gemm_wire"]))}
+    numbers = dict(drift={" ".join(map(str, k)): v for k, v in
+                          drift.items()},
+                   timings=timings)
+    return launched, {name: (rows[name], mains[name], errs[name])
+                      for name in WIRE_KERNELS}, numbers
+
+
 SOURCES = {
     "mega": ("triton_dist_tpu_torch/csrc/mega.cu",
              "triton_dist_tpu/mega/kernel.py:1192"),
@@ -3091,6 +3449,12 @@ SOURCES = {
                  "triton_dist_tpu/kernels/p2p.py:36"),
     "ring_shift": ("triton_dist_tpu_torch/csrc/p2p.cu",
                    "triton_dist_tpu/kernels/p2p.py:130"),
+    "ring_rs_wire": ("triton_dist_tpu_torch/csrc/reduce_scatter.cu",
+                     "triton_dist_tpu/kernels/reduce_scatter.py:188"),
+    "gemm_rs_wire": ("triton_dist_tpu_torch/csrc/gemm_reduce_scatter.cu",
+                     "triton_dist_tpu/kernels/gemm_reduce_scatter.py:152"),
+    "ag_gemm_wire": ("triton_dist_tpu_torch/csrc/allgather_gemm.cu",
+                     "triton_dist_tpu/kernels/allgather_gemm.py:116"),
 }
 
 
@@ -3277,6 +3641,9 @@ def main() -> int:
     log("== 4c. the ninth path: the collective library at Qwen3-8B widths, "
         "world 4 (no weights)")
     ncoll, fm_rows, fm_main, fm_err, coll_numbers = run_coll(kernels)
+    log("== 4w. the tenth path: the quantized wire at Qwen3-8B widths, world "
+        "4 (no weights): fp8, int8, int8 block 128")
+    nwire, wire_errs, wire_numbers = run_wire(kernels)
     # the same weights laid out for 4 ranks; the world-1 engine is gone
     params = shard_params(params, 4)
     torch.cuda.empty_cache()
@@ -3355,7 +3722,7 @@ def main() -> int:
     paths = {"world1": n1, "world4_ar": n4, "world4_dist": nd,
              "world4_moe": nm, "mega_world1": nm1, "mega_world4": nm4,
              "sp_world4": nsp, "ep_world4": nep, "pp_world4": npp,
-             "coll_world4": ncoll}
+             "coll_world4": ncoll, "wire_world4": nwire}
 
     def by_path(name):
         return {k: v[name] for k, v in paths.items()}
@@ -3408,6 +3775,12 @@ def main() -> int:
         lines.append(entry(name, total(name), by_path(name), pp_errs[name],
                            pp_rows[name], pp_main,
                            device_us=pp_rows[name][pp_main]["device_us"]))
+    for name in WIRE_KERNELS:
+        rows, main_label, err = wire_errs[name]
+        lines.append(entry(name, total(name), by_path(name), err, rows,
+                           main_label,
+                           device_us=rows[main_label]["device_us"],
+                           native_ms=rows[main_label]["native_ms"]))
     missing = set(kernels.KERNELS) - {e["name"] for e in lines}
     assert not missing, f"kernels without a line: {missing}"
     assert all(e["launches"] > 0 for e in lines), "a kernel never launched"
@@ -3416,7 +3789,7 @@ def main() -> int:
     log(json.dumps({"model": [model1, model4, modeld, modelm],
                     "mega": dict(mega_rows, batch1=mega_b1),
                     "sp": sp_numbers, "ep": ep_numbers, "pp": pp_numbers,
-                    "coll": coll_numbers}))
+                    "coll": coll_numbers, "wire": wire_numbers}))
     print(json.dumps({"kernels": lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

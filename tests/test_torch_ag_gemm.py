@@ -198,13 +198,15 @@ def test_ag_gemm_plain_is_the_gathered_product():
 
 
 def test_ag_gemm_refusals_and_cpu_launcher():
-    """What is not ported raises, naming its slice; the launcher refuses
-    a CPU tensor rather than give way; CPU calls count no launch."""
+    """What the JAX function refuses raises (the quantized wire needs K a
+    multiple of 128); out_dtype rounds the f32 product once; the launcher
+    refuses a CPU tensor rather than give way; CPU calls count no
+    launch."""
     a, b = torch.zeros(2, 4, 8), torch.zeros(2, 8, 8)
-    with pytest.raises(NotImplementedError, match="wire"):
+    with pytest.raises(ValueError, match="lane-aligned K"):
         ag_gemm(a, b, wire_format="fp8")
-    with pytest.raises(NotImplementedError, match="out_dtype"):
-        ag_gemm(a, b, out_dtype=torch.bfloat16)
+    assert torch.equal(ag_gemm(a, b, out_dtype=torch.bfloat16),
+                       ag_gemm_plain(a, b).bfloat16())
     with pytest.raises(ValueError, match="equal blocks"):
         ag_gemm(a, torch.zeros(2, 3, 8, 8))  # grouped: 4 rows, 3 experts
     with pytest.raises(ValueError, match="silu_pair"):

@@ -319,22 +319,15 @@ def test_p2p_world_one_returns_the_input():
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda x: kernels.all_gather(x, wire_format="fp8"), "item 12"),
     (lambda x: kernels.all_gather(x, axis=("dcn", "tp")), "item 15"),
     (lambda x: kernels.all_gather(x, method=kernels.AllGatherMethod.Ring2D),
      "item 15"),
-    (lambda x: kernels.all_gather_op(x, wire_format="int8"), "item 12"),
-    (lambda x: kernels.all_reduce(x, wire_format="fp8"), "item 12"),
-    (lambda x: kernels.all_reduce(x, wire_format="auto"), "item 12"),
+    (lambda x: kernels.all_reduce(x, wire_format="auto"), "item 7"),
     (lambda x: kernels.all_reduce(x, error_budget=1e-3), "item 7"),
     (lambda x: kernels.all_reduce(x, axis=("dcn", "tp")), "item 15"),
     (lambda x: kernels.all_reduce_op(x, fallback="xla"), "item 8"),
-    (lambda x: kernels.two_shot_all_reduce(x, wire_format="int8"),
-     "item 12"),
-    (lambda x: kernels.reduce_scatter_op(x, wire_format="fp8"), "wire/"),
-], ids=["ag-wire", "ag-axes", "ag-ring2d", "ag-op-wire", "ar-wire",
-        "ar-auto-wire", "ar-budget", "ar-axes", "ar-op-fallback",
-        "two-shot-wire", "rs-op-wire"])
+], ids=["ag-axes", "ag-ring2d", "ar-auto-wire", "ar-budget", "ar-axes",
+        "ar-op-fallback"])
 def test_out_of_scope_options_raise(call, item):
     with pytest.raises(NotImplementedError, match=item):
         call(torch.ones(4, 8, 16))

@@ -48,6 +48,7 @@ from triton_dist_tpu_torch.kernels import allgather as ag
 from triton_dist_tpu_torch.kernels import allreduce as ar
 from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
 from triton_dist_tpu_torch.runtime import VirtualWorld
+from triton_dist_tpu_torch.wire import WireFormat
 
 RS_ATOL = 1e-5
 
@@ -184,10 +185,10 @@ def test_gemm_rs_options_not_ported_raise():
     a, b = torch.zeros(2, 4, 8), torch.zeros(2, 8, 8)
     with pytest.raises(ValueError, match="a_order"):
         gemm_rs(a, b, a_order="ring")
-    with pytest.raises(NotImplementedError, match="wire"):
-        gemm_rs(a, b, wire_format="fp8")
-    with pytest.raises(NotImplementedError, match="out_dtype"):
-        gemm_rs(a, b, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="does not divide"):
+        gemm_rs(a, b, wire_format=WireFormat("fp8", 3))
+    assert torch.equal(gemm_rs(a, b, out_dtype=torch.bfloat16),
+                       gemm_rs_plain(a, b, out_dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="divisible"):
         gemm_rs(torch.zeros(2, 3, 8), b)
 

@@ -382,8 +382,9 @@ flags = torch.full((n, lib.gemm_rs_flag_count(M // n, N, 1)), 7,
                    device="cuda", dtype=torch.int32)
 grid = _build.GridInfo()
 err = lib.gemm_rs_launch(a.data_ptr(), b.data_ptr(), heap.data_ptr(),
-                         out.data_ptr(), flags.data_ptr(), n, M, K, N, 1, 0,
-                         grid.ptr(), torch.cuda.current_stream().cuda_stream)
+                         out.data_ptr(), flags.data_ptr(), n, M, K, N, 1, 1,
+                         0, 0, grid.ptr(),
+                         torch.cuda.current_stream().cuda_stream)
 assert err == 0, err
 try:
     torch.cuda.synchronize()
@@ -410,7 +411,7 @@ flags = torch.full((n, lib.ag_gemm_flag_count(n)), 7, device="cuda",
 grid = _build.GridInfo()
 err = lib.ag_gemm_launch(a.data_ptr(), b.data_ptr(), b.data_ptr(),
                          ws.data_ptr(), c.data_ptr(), flags.data_ptr(), n, m,
-                         K, N, 1, 0, 0, grid.ptr(),
+                         K, N, 1, 1, 0, 0, grid.ptr(),
                          torch.cuda.current_stream().cuda_stream)
 assert err == 0, err
 try:
@@ -1178,3 +1179,287 @@ def test_p2p_protocol_fault_traps_instead_of_hanging(cuda, kernel):
                           timeout=120, env={**os.environ, "PYTHONPATH": repo})
     assert proc.returncode == 3, (proc.returncode, proc.stdout, proc.stderr)
     assert f"shmem wait timed out: kernel {kernel}, rank" in proc.stdout
+
+
+# -- the quantized wire ---------------------------------------------------------
+
+_WIRE_FORMATS = ["fp8", "int8", ("int8", 128, False), ("fp8", None, True)]
+
+
+def _wire_fmt(spec):
+    from triton_dist_tpu_torch import wire
+
+    return wire.WireFormat(*spec) if isinstance(spec, tuple) else \
+        wire.resolve(spec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spec", _WIRE_FORMATS,
+                         ids=["fp8", "int8", "int8-b128", "fp8-checksum"])
+def test_ring_rs_wire_kernel_matches_plain_bitwise(cuda, n, dtype, spec):
+    """ring_rs_wire_kernel against its plain version, bitwise: rows of
+    4096 (Qwen3-8B's hidden width), an odd row count (37 a chunk, tiles
+    of 2 rows, the last one short), one row a chunk, an f32 fold written
+    to bf16 and to f32; rank 0, then rank n - 1, delayed 5 ms (the fold
+    does not follow arrival); one launch a call."""
+    from triton_dist_tpu_torch import wire
+    from triton_dist_tpu_torch.kernels import (
+        ring_reduce_scatter_wire,
+        ring_reduce_scatter_wire_plain,
+    )
+
+    fmt = _wire_fmt(spec)
+    rng = np.random.default_rng(140 + n)
+    reset_launches()
+    calls = 0
+    for m, k in ((37, 4096), (1, 4096), (4, 384)):
+        x = torch.from_numpy(rng.standard_normal((n, n * m, k))).to(
+            "cuda", dtype)
+        for out in (dtype, torch.float32):
+            want = ring_reduce_scatter_wire_plain(x, fmt, out)
+            runs = [ring_reduce_scatter_wire(x, fmt, out)]
+            if n > 1 and out == dtype:
+                runs += [ring_reduce_scatter_wire(
+                    x, fmt, out, straggler=(r, 5_000_000))
+                    for r in (0, n - 1)]
+            calls += len(runs)
+            torch.cuda.synchronize()
+            for got in runs:
+                assert got.shape == (n, m, k) and got.dtype == out
+                assert torch.equal(got, want), (m, k, out)
+        if n > 1:
+            assert wire.cosine_drift(want, ring_reduce_scatter(x)) <= \
+                wire.DEFAULT_ERROR_BUDGET
+    assert launches()["ring_rs_wire"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_gather_family_wire_kernels_bitwise(cuda, n):
+    """The ring and full-mesh AllGather and the LL AllGather (three calls
+    on one context) moving wire images: bitwise the roundtrip of the
+    shards and the same call on the CPU; the codec on the card bitwise
+    the codec on the CPU."""
+    from triton_dist_tpu_torch import wire
+    from triton_dist_tpu_torch.kernels import all_gather, AllGatherMethod
+
+    rng = np.random.default_rng(150 + n)
+    for spec in _WIRE_FORMATS:
+        fmt = _wire_fmt(spec)
+        x = torch.from_numpy(rng.standard_normal((n, 16, 4096))).to(
+            "cuda", torch.bfloat16)
+        rt = wire.roundtrip(x.reshape(n * 16, 4096), fmt)
+        assert torch.equal(rt.cpu(), wire.roundtrip(
+            x.cpu().reshape(n * 16, 4096), fmt))
+        assert torch.equal(wire.pack(x[0], fmt).cpu(),
+                           wire.pack(x[0].cpu(), fmt))
+        for meth in ("ring_1d", "full_mesh"):
+            got = all_gather(x, method=AllGatherMethod(meth),
+                             wire_format=fmt)
+            torch.cuda.synchronize()
+            assert torch.equal(got, rt.expand(n, n * 16, 4096)), meth
+        ctx = llag.create_ll_ag_buffer((4, 4096), torch.bfloat16, n,
+                                       wire_format=fmt, device="cuda")
+        for i in range(3):
+            y = torch.from_numpy(rng.standard_normal((n, 4, 4096))).to(
+                "cuda", torch.bfloat16)
+            got, ctx = llag.ll_all_gather(y, ctx, i, wire_format=fmt)
+            torch.cuda.synchronize()
+            want = wire.roundtrip(y.reshape(n * 4, 4096), fmt).reshape(
+                n, 4, 4096)
+            assert torch.equal(got, want[None].expand(n, n, 4, 4096))
+
+
+@pytest.mark.cuda
+def test_wire_checksum_trips_on_the_card(cuda):
+    """A flipped payload bit in a gathered checksum image raises
+    WireIntegrityError at the consume edge."""
+    from triton_dist_tpu_torch import wire
+    from triton_dist_tpu_torch.faults.errors import WireIntegrityError
+
+    fmt = wire.WireFormat("int8", checksum=True)
+    x = torch.randn(8, 4096, device="cuda", dtype=torch.bfloat16)
+    img = wire.pack(x, fmt)
+    img[5, 9] ^= 1
+    with pytest.raises(WireIntegrityError) as e:
+        wire.unpack(img, (4096,), fmt, x.dtype)
+    assert e.value.rows == [5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_gemm_rs_wire_kernels_match_plain(cuda, n, out):
+    """gemm_rs on the wire: the partial-GEMM launch, then the wire ring.
+    Teacher-forced, the ring's result is bitwise the plain fold of the
+    kernel's own f32 partials; end to end it is within the epsilon band's
+    cosine of the plain version (the partial GEMM's order may flip a
+    quantization step at a hop: that element moves by one step, beyond
+    the band's ulp bound, which is printed); the native
+    out_dtype=float32 within 1e-5 relative. Arrival order too."""
+    from triton_dist_tpu_torch import wire
+    from triton_dist_tpu_torch.kernels import (
+        arrival_to_rank_order,
+        gemm_rs_wire_plain,
+        ring_reduce_scatter_wire_plain,
+    )
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    rng = np.random.default_rng(160 + n)
+    a = (torch.from_numpy(rng.standard_normal((n, 64 * n, 1024))) * 0.1).to(
+        "cuda", torch.bfloat16)
+    b = (torch.from_numpy(rng.standard_normal((n, 1024, 512))) * 0.05).to(
+        "cuda", torch.bfloat16)
+    reset_launches()
+    for spec in ("fp8", "int8", ("int8", 128, False)):
+        fmt = _wire_fmt(spec)
+        for order in ("rank", "arrival"):
+            got = gemm_rs(a, b, out_dtype=out, wire_format=fmt, a_order=order)
+            partial = grs._launch(a, b, order == "arrival", torch.float32,
+                                  partials=True)
+            torch.cuda.synchronize()
+            want_partial = torch.matmul(
+                (arrival_to_rank_order(a) if order == "arrival" else
+                 a).float(), b.float())
+            torch.testing.assert_close(partial, want_partial, rtol=1e-5,
+                                       atol=1e-5)
+            assert torch.equal(got, ring_reduce_scatter_wire_plain(
+                partial, fmt, out))
+            # end to end: a flipped step moves one element by a whole
+            # fp8 / int8 step, past the band's ulp bound; its cosine holds
+            plain = gemm_rs_wire_plain(a, b, fmt, order, out)
+            rep = torch_parity.check_epsilon(
+                plain.float().cpu().numpy(), got.float().cpu().numpy(),
+                "gemm_rs", out)
+            print(f"band gemm_rs wire {spec} {order} {out}: cos="
+                  f"{rep['cos']:.3e} ulp={rep['ulp']}")
+            assert rep["cos"] <= rep["band_cos"]
+    assert launches()["gemm_rs_wire"] == 2 * 6
+    assert launches()["ring_rs_wire"] == 6
+    got = gemm_rs(a, b, out_dtype=torch.float32)
+    want = grs.gemm_rs_plain(a, b, out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["fp8", "int8"])
+def test_ag_gemm_wire_kernel_matches_plain(cuda, n, kind):
+    """ag_gemm on the wire (force_kernel at n = 1): C within the epsilon
+    band of the plain version (A's dequantized tiles are bitwise the
+    codec's roundtrip; the products differ in order), both orders, bf16
+    and f32 out; return_gathered bitwise the roundtrip of A; m = 1 and a
+    ragged row count; the native out_dtype=float32 too."""
+    from triton_dist_tpu_torch import wire
+
+    rng = np.random.default_rng(170 + n)
+    reset_launches()
+    calls = 0
+    for m, k, nn in ((128, 1024, 384), (1, 512, 256), (37, 256, 128)):
+        a = (torch.from_numpy(rng.standard_normal((n, m, k))) * 0.1).to(
+            "cuda", torch.bfloat16)
+        b = (torch.from_numpy(rng.standard_normal((n, k, nn))) * 0.05).to(
+            "cuda", torch.bfloat16)
+        for order in ("rank", "arrival"):
+            for out in (torch.bfloat16, torch.float32):
+                got, full = ag_gemm(a, b, return_gathered=True,
+                                    force_kernel=True, c_order=order,
+                                    out_dtype=out, wire_format=kind)
+                calls += 1
+                want = ag_gemm_plain(a, b, None, order, out_dtype=out,
+                                     wire_format=kind)
+                torch.cuda.synchronize()
+                rt = wire.roundtrip(a.reshape(n * m, k), kind)
+                assert torch.equal(full, rt.expand(n, n * m, k))
+                if out == torch.bfloat16:
+                    band(want, got, "ag_gemm")
+                else:
+                    torch.testing.assert_close(got, want, rtol=1e-5,
+                                               atol=1e-5)
+        got = ag_gemm(a, b, out_dtype=torch.float32, force_kernel=True)
+        torch.testing.assert_close(got, ag_gemm_plain(
+            a, b, out_dtype=torch.float32), rtol=1e-5, atol=1e-5)
+    assert launches()["ag_gemm_wire"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True])
+def test_ep_moe_fp8_a2a_kernels_bitwise_plain_transports(cuda, overlap):
+    """ep_moe_fwd on the fp8 wire: the all-to-all kernels move the uint8
+    rows bitwise as the plain transport does (the same output and
+    drops), and the fp8 wire is within the default budget of the bf16
+    wire."""
+    from triton_dist_tpu_torch import wire
+    from triton_dist_tpu_torch.layers.ep_moe import (
+        EPMoEParams,
+        ep_moe_fwd,
+    )
+
+    n, m, h, e, inter, k = 4, 32, 512, 16, 128, 4
+    rng = np.random.default_rng(180)
+
+    def t(*shape, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(shape)) * scale).to(
+            "cuda", torch.bfloat16)
+
+    params = EPMoEParams(t(h, e, scale=0.3), t(n, e // n, h, 2 * inter,
+                                                scale=0.05),
+                         t(n, e // n, inter, h, scale=0.05))
+    x = t(n, m, h)
+    kw = dict(overlap=overlap, n_chunks=2 if overlap else None,
+              return_drops=True, payload_dtype=torch.float8_e4m3fn)
+    reset_launches()
+    got, drops = ep_moe_fwd(x, params, k, **kw)
+    want, want_drops = ep_moe_fwd(x, params, k, _transport="ref", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(drops, want_drops)
+    name = "all_to_all_chunked" if overlap else "all_to_all"
+    assert launches()[name] == 2
+    full = ep_moe_fwd(x, params, k, overlap=overlap,
+                      n_chunks=2 if overlap else None)
+    assert wire.cosine_drift(got, full) <= wire.DEFAULT_ERROR_BUDGET
+
+
+# a wire ring whose credit can never arrive: the credit counters start
+# far below zero, so the step-0 credit wait must trap
+_RS_WIRE_FAULT = r"""
+import sys, torch
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+lib = _build.load("reduce_scatter", rs._SIGNATURES)
+n, m, K, kw = 4, 8, 1024, 1152
+x = torch.ones((n, n * m, K), device="cuda", dtype=torch.bfloat16)
+slots = torch.empty((n, 2, m, kw), device="cuda", dtype=torch.int8)
+out = torch.empty((n, m, K), device="cuda", dtype=torch.bfloat16)
+flags = torch.full((n, 3 * 4), -1000, device="cuda", dtype=torch.int32)
+grid = _build.GridInfo()
+err = lib.rs_wire_launch(x.data_ptr(), slots.data_ptr(), out.data_ptr(),
+                         flags.data_ptr(), n, m, K, 1, K, 1, 0, kw, 2, 1, 1,
+                         -1, 0, grid.ptr(),
+                         torch.cuda.current_stream().cuda_stream)
+assert err == 0, err
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(3)
+sys.exit(0)
+"""
+
+
+@pytest.mark.cuda
+def test_ring_rs_wire_protocol_fault_traps_instead_of_hanging(cuda):
+    """A credit wait that can never be met traps within the spin bound,
+    in a child process (the trap leaves its CUDA context unusable)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _RS_WIRE_FAULT], cwd=repo,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": repo})
+    assert proc.returncode == 3, (proc.returncode, proc.stdout, proc.stderr)
+    assert "shmem wait timed out: kernel ring_rs_wire, rank" in proc.stdout

@@ -377,15 +377,16 @@ def test_ep_moe_fwd_matches_jax(n, e, capacity):
 
 
 def test_ep_moe_fwd_raises_what_is_not_ported():
-    """The fp8 wire (wire/) and the planner's chunk count (plan/) raise;
-    a chunk count fits down to a divisor of the capacity."""
+    """The planner's chunk count (plan/) raises, and a payload_dtype not
+    one byte wide, as in JAX; a chunk count fits down to a divisor of
+    the capacity."""
     x, w_router, gu, dn = _layer_case(2, 8, 20)
     params = ep_params_from_jax(w_router, gu, dn, 2, device="cpu")
     xt = torch.from_numpy(_stacked(x, 2))
     with pytest.raises(NotImplementedError, match="plan/"):
         ep_moe_fwd(xt, params, K, overlap=True)
-    with pytest.raises(NotImplementedError, match="wire/"):
-        ep_moe_fwd(xt, params, K, payload_dtype=torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="1-byte dtype"):
+        ep_moe_fwd(xt, params, K, payload_dtype=torch.bfloat16)
     assert ep_a2a.fit_chunks(4, 6) == 3 and ep_a2a.fit_chunks(8, 5) == 5
     assert ep_a2a.EpMoeConfig(capacity_factor=0.5).fit_capacity(8, 2) == 8
     a = ep_moe_fwd(xt, params, K, capacity=6, overlap=True, n_chunks=4)

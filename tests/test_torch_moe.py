@@ -286,13 +286,14 @@ def test_ring_reduce_scatter_fold_order():
 
 def test_ring_reduce_scatter_world_one_and_refusals():
     """n = 1: the input unless force_kernel (no ring step, the value
-    through the accumulation dtype); quantized wire raises naming its
-    slice; the launcher refuses a CPU tensor; CPU calls count nothing."""
+    through the accumulation dtype); a quantized wire with an
+    accumulation dtype other than f32 raises, as in JAX; the launcher
+    refuses a CPU tensor; CPU calls count nothing."""
     x = torch.from_numpy(_rand(31, 1, 4, 8))
     assert ring_reduce_scatter(x) is x
     assert torch.equal(ring_reduce_scatter(x, force_kernel=True), x)
-    with pytest.raises(NotImplementedError, match="wire"):
-        ring_reduce_scatter(x, wire_format="fp8")
+    with pytest.raises(ValueError, match="accumulates in f32"):
+        ring_reduce_scatter(x, accum_dtype=torch.bfloat16, wire_format="fp8")
     with pytest.raises(ValueError, match="divisible"):
         ring_reduce_scatter(torch.zeros(2, 3, 4))
     reset_launches()

@@ -180,7 +180,7 @@ def test_ll_all_gather_matches_jax_bitwise(n):
         assert torch.equal(got, x[None].expand(n, *x.shape))
     np.testing.assert_array_equal(ctx.data.numpy(), want_buf)
     assert ctx.flags[:, :n].eq(3).all() and ctx.flags[:, n:2 * n].eq(2).all()
-    with pytest.raises(NotImplementedError, match="wire"):
+    with pytest.raises(ValueError, match="does not fit"):
         llag.ll_all_gather(x, ctx, 3, wire_format="fp8")
 
 

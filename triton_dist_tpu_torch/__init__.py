@@ -16,7 +16,8 @@ module has an obvious counterpart:
   kernels/  hand-written CUDA kernels, their wrappers and plain versions
             (flash prefill, local and sequence-parallel; the split-KV
             decode partial; one-shot AllReduce, ring AllGather, the
-            low-latency AllGather, ring ReduceScatter,
+            low-latency AllGather, ring ReduceScatter (native and on
+            the quantized wire),
             GEMM+ReduceScatter and the fused AllGather+GEMM, dense and
             grouped, over the virtual world; gemm_ar over them; the
             decode megakernel's launch), the SP ring attention, the MoE
@@ -24,6 +25,10 @@ module has an obvious counterpart:
   csrc/     the .cu sources and shared headers (shmem.cuh: put, signal,
             wait, barrier, slot collect, straggler delay on the virtual
             heap), built with nvcc at first use
+  wire/     the quantized wire: the block-scaled fp8 / int8 codec (the
+            JAX wire image, byte for byte) and the drift harness; the
+            collectives' wire_format= forms use it
+  faults/   WireIntegrityError, which a checksummed image's unpack raises
   serve/    the continuous-batching host loop (Scheduler, Worker, KVPool)
   tools/    measurement scripts that run on a CUDA card
 

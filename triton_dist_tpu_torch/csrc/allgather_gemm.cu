@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas TPU kernel `_ag_gemm_kernel` reached through
 // `ag_gemm` in triton_dist_tpu/kernels/allgather_gemm.py (dense and
-// grouped forms, native wire; the plain and the silu_pair epilogues;
-// rank and arrival order of C). Same function, rank-stacked: a (n, m, K)
+// grouped forms on the native wire, the dense form on the quantized
+// wire; the plain and the silu_pair epilogues; rank and arrival order of
+// C). Same function, rank-stacked: a (n, m, K)
 // holds rank r's shard at [r], b (n, K, N) rank r's weight; rank r's
 // result is C[r] = AllGather(a) @ b[r], (n*m, N). With silu_pair, b is a
 // pair (gate, up) of that shape and C[r] = silu(A @ gate[r]) *
@@ -58,7 +59,21 @@
 // accumulation, A and B staged with cp.async in a three-stage ring, the
 // fragment code of gemm_reduce_scatter.cu (tile.cuh). f32: 64 x 64 tiles
 // on the CUDA cores with FMA, so the kernel can be held to a tight
-// tolerance.
+// tolerance. The output dtype may differ from the input's (the JAX
+// out_dtype): bf16 in, bf16 or f32 out; f32 in, f32 out.
+//
+// The quantized wire (dense form; JAX `a_dequant`, allgather_gemm.py:
+// 273-283): a holds each rank's packed A shard, the wire image of
+// wire/codec.py (K payload bytes, e4m3 or int8, then the row's f32 scale
+// at byte K, padded to kw bytes; per-row scales, K a multiple of 128).
+// The ring forwards (m, kw) image rows on the same protocol, and the
+// workspace is heap((n*m, kw)) int8. Each A tile is dequantized right
+// before its product: the thread that would cp.async 8 elements of a row
+// loads its 8 bytes, multiplies each decoded byte by the row's scale in
+// f32 (__fmul_rn) and rounds to the input dtype, and stores them into
+// the shared tile ldmatrix reads: every row goes through the codec, the
+// own shard included, so A is bitwise the codec's roundtrip (wire.
+// unpack). B keeps its cp.async.
 //
 // What bounds it on an H100: operations, 2 * n * (n*m) * K * N (twice
 // that with silu_pair) at the bf16 tensor-core peak, at the prefill
@@ -66,9 +81,12 @@
 // The TPU kernel's VMEM strip cache, grid-step restructuring and tile
 // fitting are TPU concerns and are not carried over. Not done yet:
 // wgmma, TMA and warp specialisation, which that peak needs; a finer
-// arrival granularity than one counter per step.
+// arrival granularity than one counter per step; an asynchronous A load
+// on the wire.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,23 +102,54 @@ __device__ __forceinline__ float silu_mul(float g, float u) {
   return g * (1.f / (1.f + expf(-g))) * u;
 }
 
+// outputs: one element, or two adjacent ones (8-byte aligned for f32)
+__device__ __forceinline__ void put_one(float v, float* p) { *p = v; }
+__device__ __forceinline__ void put_one(float v, unsigned short* p) {
+  *p = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void put_pair(float v0, float v1,
+                                         unsigned short* p) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
+}
+__device__ __forceinline__ void put_pair(float v0, float v1, float* p) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+// A's wire format (W): 0 native, 1 e4m3, 2 int8. A payload byte decoded
+// to f32 (exact for both), and the row's f32 scale at byte K.
+template <int W>
+__device__ __forceinline__ float wire_dequant(signed char q) {
+  if (W == 1) {
+    const __half_raw h = __nv_cvt_fp8_to_halfraw(
+        static_cast<__nv_fp8_storage_t>(q), __NV_E4M3);
+    return __half2float(__half(h));
+  }
+  return static_cast<float>(q);
+}
+
+__device__ __forceinline__ float wire_scale(const char* row, int K) {
+  return __ldcg(reinterpret_cast<const float*>(row + K));
+}
+
 // One rank's view of the gathered A and of its C. Row R of the
 // arrival-ordered gathered A is row R % m of step s = R / m, which holds
-// chunk (me - s) mod n.
-template <typename S>
+// chunk (me - s) mod n. A rows are row_bytes apart: K elements, or a
+// wire image row of kw bytes.
+template <typename O>
 struct Gathered {
-  const S* a;   // my shard (m, K)
-  const S* ws;  // my workspace partition (n*m, K), chunk c at rows c*m
-  S* c;         // my C (n*m, N)
+  const char* a;   // my shard (m rows)
+  const char* ws;  // my workspace partition (n*m rows), chunk c at rows c*m
+  O* c;            // my C (n*m, N)
   int n, me, m, K, N, arrival;
-  int ldb;      // B's row stride (elements)
+  int ldb;         // B's row stride (elements)
+  int row_bytes;
 
-  __device__ __forceinline__ const S* a_row(int R) const {
+  __device__ __forceinline__ const char* a_row(int R) const {
     const int s = R / m, lr = R - s * m;
-    if (s == 0) return a + size_t(lr) * K;
-    return ws + (size_t((me - s + n) % n) * m + lr) * K;
+    if (s == 0) return a + size_t(lr) * row_bytes;
+    return ws + (size_t((me - s + n) % n) * m + lr) * row_bytes;
   }
-  __device__ __forceinline__ S* c_row(int R) const {
+  __device__ __forceinline__ O* c_row(int R) const {
     if (arrival) return c + size_t(R) * N;
     const int s = R / m, lr = R - s * m;
     return c + (size_t((me - s + n) % n) * m + lr) * N;
@@ -109,9 +158,10 @@ struct Gathered {
 
 // ---- bf16 tile body: mma.sync on the tensor cores ------------------------
 
-template <int H>  // H = 2: silu_pair, one accumulator per half
+template <int H, int W, typename OT>  // H = 2: silu_pair, an accumulator a half
 struct Bf16Body {
   typedef unsigned short S;  // bf16 bits
+  typedef OT O;
   static constexpr int BM = 128, BN = H == 1 ? 128 : 64, BK = 32;
   static constexpr int kStages = 3;
   static constexpr int AST = BK + 8;  // smem row strides (+16 bytes)
@@ -123,7 +173,7 @@ struct Bf16Body {
 
   // C rows [R0, R0 + rows) x columns [j0, j0 + cols) of my C, edges
   // zero-filled on load and masked on store; K, N multiples of 8
-  static __device__ __forceinline__ void tile(const Gathered<S>& g, int R0,
+  static __device__ __forceinline__ void tile(const Gathered<O>& g, int R0,
                                               int rows, int j0, int cols,
                                               const S* const* b, void* smem) {
     const int K = g.K;
@@ -131,14 +181,16 @@ struct Bf16Body {
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int wm = (warp >> 2) * 64, wn = (warp & 3) * WN;
     const int KT = (K + BK - 1) / BK;
-    const bf16* base = reinterpret_cast<const bf16*>(g.a);
-    // the two A rows this thread loads: tid / 4 and tid / 4 + 64
-    const bf16* arow[2];
+    const bf16* base = reinterpret_cast<const bf16*>(b[0]);
+    // the two A rows this thread loads: tid / 4 and tid / 4 + 64 (and,
+    // on the wire, their scales)
+    const char* arow[2];
+    float asc[2] = {0.f, 0.f};
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       const int r = (tid >> 2) + 64 * q;
-      arow[q] = r < rows ? reinterpret_cast<const bf16*>(g.a_row(R0 + r))
-                         : nullptr;
+      arow[q] = r < rows ? g.a_row(R0 + r) : nullptr;
+      if (W != 0 && arow[q] != nullptr) asc[q] = wire_scale(arow[q], K);
     }
     const int kc = (tid & 3) * 8;
 
@@ -149,7 +201,26 @@ struct Bf16Body {
       for (int q = 0; q < 2; ++q) {  // A: 128 rows x 4 chunks of 8
         const int r = (tid >> 2) + 64 * q;
         const bool ok = arow[q] != nullptr && k0 + kc < K;
-        cp_async16(as + r * AST + kc, ok ? arow[q] + k0 + kc : base, ok);
+        if (W == 0) {
+          cp_async16(as + r * AST + kc,
+                     ok ? reinterpret_cast<const bf16*>(arow[q]) + k0 + kc
+                        : base,
+                     ok);
+        } else {  // the consume edge: 8 bytes -> 8 dequantized bf16
+          uint4 pk = make_uint4(0u, 0u, 0u, 0u);
+          if (ok) {
+            const uint2 raw =
+                __ldcg(reinterpret_cast<const uint2*>(arow[q] + k0 + kc));
+            const signed char* qb = reinterpret_cast<const signed char*>(&raw);
+            uint32_t* pw = reinterpret_cast<uint32_t*>(&pk);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              pw[e] = pack_bf16(
+                  __fmul_rn(wire_dequant<W>(qb[2 * e]), asc[q]),
+                  __fmul_rn(wire_dequant<W>(qb[2 * e + 1]), asc[q]));
+          }
+          *reinterpret_cast<uint4*>(as + r * AST + kc) = pk;
+        }
       }
 #pragma unroll
       for (int h = 0; h < H; ++h) {  // B: 32 rows x BN / 8 chunks of 8
@@ -221,7 +292,7 @@ struct Bf16Body {
       for (int hr = 0; hr < 2; ++hr) {
         const int row = wm + mi * 16 + (lane >> 2) + 8 * hr;
         if (row >= rows) continue;
-        bf16* D = reinterpret_cast<bf16*>(g.c_row(R0 + row)) + j0;
+        O* D = g.c_row(R0 + row) + j0;
 #pragma unroll
         for (int ni = 0; ni < NI; ++ni) {
           const int col = wn + ni * 8 + (lane & 3) * 2;
@@ -231,7 +302,7 @@ struct Bf16Body {
             v0 = silu_mul(v0, acc[H - 1][mi][ni][2 * hr]);
             v1 = silu_mul(v1, acc[H - 1][mi][ni][2 * hr + 1]);
           }
-          *reinterpret_cast<uint32_t*>(D + col) = pack_bf16(v0, v1);
+          put_pair(v0, v1, D + col);
         }
       }
   }
@@ -239,24 +310,27 @@ struct Bf16Body {
 
 // ---- f32 tile body: FMA on the CUDA cores --------------------------------
 
-template <int H>
+template <int H, int W, typename OT>
 struct F32Body {
   typedef float S;
+  typedef OT O;
   static constexpr int BM = 64, BN = 64, BK = 16;
   static constexpr size_t kSmem = sizeof(float) * BK * (BM + H * BN);
 
-  static __device__ __forceinline__ void tile(const Gathered<S>& g, int R0,
+  static __device__ __forceinline__ void tile(const Gathered<O>& g, int R0,
                                               int rows, int j0, int cols,
                                               const S* const* b, void* smem) {
     const int K = g.K;
     float* as = static_cast<float*>(smem);  // [BK][BM], A transposed
     float* bs = as + BK * BM;               // [H][BK][BN]
     const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15, ak = tid & 15;
-    const float* arow[4];  // rows tid / 16 + 16 q
+    const char* arow[4];  // rows tid / 16 + 16 q (and their wire scales)
+    float asc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int r = (tid >> 4) + 16 * q;
       arow[q] = r < rows ? g.a_row(R0 + r) : nullptr;
+      if (W != 0 && arow[q] != nullptr) asc[q] = wire_scale(arow[q], K);
     }
     float acc[H][4][4];
 #pragma unroll
@@ -270,9 +344,15 @@ struct F32Body {
       for (int q = 0; q < 4; ++q) {
         const int r = (tid >> 4) + 16 * q;
         // A rows may have been delivered by another rank: __ldcg
-        as[ak * BM + r] = arow[q] != nullptr && k0 + ak < K
-                              ? __ldcg(arow[q] + k0 + ak)
-                              : 0.f;
+        float av = 0.f;
+        if (arow[q] != nullptr && k0 + ak < K)
+          av = W == 0 ? __ldcg(reinterpret_cast<const float*>(arow[q]) + k0 +
+                               ak)
+                      : __fmul_rn(wire_dequant<W>(__ldcg(
+                                      reinterpret_cast<const signed char*>(
+                                          arow[q]) + k0 + ak)),
+                                  asc[q]);
+        as[ak * BM + r] = av;
       }
 #pragma unroll
       for (int h = 0; h < H; ++h)
@@ -309,13 +389,14 @@ struct F32Body {
     for (int i = 0; i < 4; ++i) {
       const int row = ty * 4 + i;
       if (row >= rows) continue;
-      float* D = g.c_row(R0 + row) + j0;
+      O* D = g.c_row(R0 + row) + j0;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = tx * 4 + j;
         if (col < cols)
-          D[col] = H == 2 ? silu_mul(acc[0][i][j], acc[H - 1][i][j])
-                          : acc[0][i][j];
+          put_one(H == 2 ? silu_mul(acc[0][i][j], acc[H - 1][i][j])
+                         : acc[0][i][j],
+                  D + col);
       }
     }
   }
@@ -342,25 +423,26 @@ __device__ __forceinline__ void copy_words(uint4* dst, const uint4* src,
 // flags of a rank: [0] the tile counter, [1 + s] arrivals of step s.
 // Row blocks of cap rows (cap divides m; E blocks a chunk, block q
 // multiplies expert q % E); B of rank r, expert e at b + r * b_rs +
-// e * b_es, rows ldb apart.
+// e * b_es, rows ldb apart. A rows are row_bytes apart (a multiple of
+// 16): a is (n, m) such rows, ws (n, n*m).
 template <class Body>
 __global__ void __launch_bounds__(kThreads, 2)
-ag_gemm_kernel(const typename Body::S* a, const typename Body::S* b0,
-               const typename Body::S* b1, typename Body::S* ws,
-               typename Body::S* c, int* flags, int m, int K, int N,
-               int arrival, int cap, int E, int ldb, long long b_es,
-               long long b_rs) {
+ag_gemm_kernel(const char* a, const typename Body::S* b0,
+               const typename Body::S* b1, char* ws, typename Body::O* c,
+               int* flags, int m, int K, int N, int row_bytes, int arrival,
+               int cap, int E, int ldb, long long b_es, long long b_rs) {
   typedef typename Body::S S;
+  typedef typename Body::O O;
   constexpr int BM = Body::BM, BN = Body::BN;
   extern __shared__ uint4 smem[];
   __shared__ int next_tile;
   const int n = gridDim.y, me = blockIdx.y, right = (me + 1) % n;
   const int producers = min(kProducers, int(gridDim.x));
-  const size_t chunk = size_t(m) * K;  // elements of a shard
+  const size_t chunk = size_t(m) * row_bytes;  // bytes of a shard
   int* mine = flags + size_t(me) * n;
 
   if (int(blockIdx.x) < producers) {
-    const long long words = (long long)(chunk * sizeof(S) / 16);
+    const long long words = (long long)(chunk / 16);
     const long long lo = words * blockIdx.x / producers;
     const long long hi = words * (blockIdx.x + 1) / producers;
     const uint4* own = reinterpret_cast<const uint4*>(a + me * chunk);
@@ -380,9 +462,9 @@ ag_gemm_kernel(const typename Body::S* a, const typename Body::S* b0,
     }
   }
 
-  const Gathered<S> g{a + me * chunk, ws + size_t(me) * n * chunk,
+  const Gathered<O> g{a + me * chunk, ws + size_t(me) * n * chunk,
                       c + size_t(me) * n * m * N, n, me, m, K, N, arrival,
-                      ldb};
+                      ldb, row_bytes};
   const int M = n * m, nt = (N + BN - 1) / BN;
   const int tpb = (cap + BM - 1) / BM;  // row tiles a block of cap rows
   const int total = (M / cap) * tpb * nt;
@@ -406,8 +488,8 @@ ag_gemm_kernel(const typename Body::S* a, const typename Body::S* b0,
   }
 }
 
-struct Geometry {  // the row blocks and B's strides
-  int cap, E, ldb;
+struct Geometry {  // the row blocks, A's row bytes and B's strides
+  int cap, E, ldb, row_bytes;
   long long b_es, b_rs;
 };
 
@@ -416,34 +498,72 @@ cudaError_t launch(const void* a, const void* b0, const void* b1, void* ws,
                    void* c, int* flags, int n, int m, int K, int N,
                    int arrival, Geometry geo, int* info, cudaStream_t st) {
   typedef typename Body::S S;
+  typedef typename Body::O O;
   const int tiles = (n * m / geo.cap) *
                     ((geo.cap + Body::BM - 1) / Body::BM) *
                     ((N + Body::BN - 1) / Body::BN);
   return shmem::launch_world(
       ag_gemm_kernel<Body>, n, tiles > kProducers ? tiles : kProducers,
-      kThreads, Body::kSmem, st, info, static_cast<const S*>(a),
+      kThreads, Body::kSmem, st, info, static_cast<const char*>(a),
       static_cast<const S*>(b0), static_cast<const S*>(b1),
-      static_cast<S*>(ws), static_cast<S*>(c), flags, m, K, N, arrival,
-      geo.cap, geo.E, geo.ldb, geo.b_es, geo.b_rs);
+      static_cast<char*>(ws), static_cast<O*>(c), flags, m, K, N,
+      geo.row_bytes, arrival, geo.cap, geo.E, geo.ldb, geo.b_es, geo.b_rs);
 }
 
+// the bf16 bodies by output dtype (0 = float32, 1 = bfloat16)
+template <int H, int W>
+cudaError_t launch_bf16(int out_dtype, const void* a, const void* b0,
+                        const void* b1, void* ws, void* c, int* fl, int n,
+                        int m, int K, int N, int arrival, Geometry geo,
+                        int* inf, cudaStream_t st) {
+  if (out_dtype == 0)
+    return launch<Bf16Body<H, W, float>>(a, b0, b1, ws, c, fl, n, m, K, N,
+                                         arrival, geo, inf, st);
+  if (out_dtype == 1)
+    return launch<Bf16Body<H, W, unsigned short>>(a, b0, b1, ws, c, fl, n, m,
+                                                  K, N, arrival, geo, inf, st);
+  return cudaErrorInvalidValue;
+}
+
+// dtype / out_dtype: 0 = float32, 1 = bfloat16 (f32 in, f32 out); W: A's
+// wire format (0 native, 1 e4m3, 2 int8; not with pair)
 int launch_any(const void* a, const void* b0, const void* b1, void* ws,
                void* c, void* flags, int n, int m, int K, int N, int dtype,
-               int pair, int arrival, Geometry geo, void* info,
-               void* stream) {
+               int out_dtype, int W, int pair, int arrival, Geometry geo,
+               void* info, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* fl = static_cast<int*>(flags);
   int* inf = static_cast<int*>(info);
-  if (dtype == 0)
-    return int(pair ? launch<F32Body<2>>(a, b0, b1, ws, c, fl, n, m, K, N,
-                                         arrival, geo, inf, st)
-                    : launch<F32Body<1>>(a, b0, b1, ws, c, fl, n, m, K, N,
-                                         arrival, geo, inf, st));
-  if (dtype == 1)
-    return int(pair ? launch<Bf16Body<2>>(a, b0, b1, ws, c, fl, n, m, K, N,
-                                          arrival, geo, inf, st)
-                    : launch<Bf16Body<1>>(a, b0, b1, ws, c, fl, n, m, K, N,
-                                          arrival, geo, inf, st));
+  if (pair && W != 0) return int(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    if (out_dtype != 0) return int(cudaErrorInvalidValue);
+    if (pair)
+      return int(launch<F32Body<2, 0, float>>(a, b0, b1, ws, c, fl, n, m, K,
+                                              N, arrival, geo, inf, st));
+    if (W == 0)
+      return int(launch<F32Body<1, 0, float>>(a, b0, b1, ws, c, fl, n, m, K,
+                                              N, arrival, geo, inf, st));
+    if (W == 1)
+      return int(launch<F32Body<1, 1, float>>(a, b0, b1, ws, c, fl, n, m, K,
+                                              N, arrival, geo, inf, st));
+    if (W == 2)
+      return int(launch<F32Body<1, 2, float>>(a, b0, b1, ws, c, fl, n, m, K,
+                                              N, arrival, geo, inf, st));
+  }
+  if (dtype == 1) {
+    if (pair)
+      return int(launch_bf16<2, 0>(out_dtype, a, b0, b1, ws, c, fl, n, m, K,
+                                   N, arrival, geo, inf, st));
+    if (W == 0)
+      return int(launch_bf16<1, 0>(out_dtype, a, b0, b1, ws, c, fl, n, m, K,
+                                   N, arrival, geo, inf, st));
+    if (W == 1)
+      return int(launch_bf16<1, 1>(out_dtype, a, b0, b1, ws, c, fl, n, m, K,
+                                   N, arrival, geo, inf, st));
+    if (W == 2)
+      return int(launch_bf16<1, 2>(out_dtype, a, b0, b1, ws, c, fl, n, m, K,
+                                   N, arrival, geo, inf, st));
+  }
   return int(cudaErrorInvalidValue);
 }
 
@@ -454,21 +574,43 @@ int launch_any(const void* a, const void* b0, const void* b1, void* ws,
 extern "C" int ag_gemm_flag_count(int n) { return n; }
 
 // a (n, m, K); b0, b1 (n, K, N) (b1 = b0 unless pair: silu_pair's gate
-// and up); ws (n, n*m, K); c (n, n*m, N); all of one dtype; flags (n,
-// ag_gemm_flag_count) zeroed. K and N multiples of 16 bytes' worth of
-// elements. dtype: 0 = float32, 1 = bfloat16. pair: silu_pair epilogue.
-// arrival: C's row blocks in ring-arrival order. info: 3 ints (see
-// launch_world). Returns a cudaError_t.
+// and up); ws (n, n*m, K); all of dtype; c (n, n*m, N) of out_dtype;
+// flags (n, ag_gemm_flag_count) zeroed. K and N multiples of 16 bytes'
+// worth of elements. dtype, out_dtype: 0 = float32, 1 = bfloat16 (f32
+// in: f32 out). pair: silu_pair epilogue. arrival: C's row blocks in
+// ring-arrival order. info: 3 ints (see launch_world). Returns a
+// cudaError_t.
 extern "C" int ag_gemm_launch(const void* a, const void* b0, const void* b1,
                               void* ws, void* c, void* flags, int n, int m,
-                              int K, int N, int dtype, int pair, int arrival,
-                              void* info, void* stream) {
+                              int K, int N, int dtype, int out_dtype,
+                              int pair, int arrival, void* info,
+                              void* stream) {
   const int per = dtype == 1 ? 8 : 4;
   if (n < 1 || m < 1 || K < 1 || N < 1 || K % per || N % per)
     return int(cudaErrorInvalidValue);
-  const Geometry dense{n * m, 1, N, 0, (long long)K * N};
-  return launch_any(a, b0, b1, ws, c, flags, n, m, K, N, dtype, pair,
-                    arrival, dense, info, stream);
+  const int esize = dtype == 1 ? 2 : 4;
+  const Geometry dense{n * m, 1, N, K * esize, 0, (long long)K * N};
+  return launch_any(a, b0, b1, ws, c, flags, n, m, K, N, dtype, out_dtype, 0,
+                    pair, arrival, dense, info, stream);
+}
+
+// The quantized wire (dense form): aw (n, m, kw) int8 wire images of A
+// (K payload bytes, e4m3 when fp8 else int8, the row's f32 scale at byte
+// K; K a multiple of 128, kw a multiple of 16); ws (n, n*m, kw) int8; b
+// (n, K, N) of dtype; c (n, n*m, N) of out_dtype; the rest as
+// ag_gemm_launch. A is dequantized to dtype right before its product.
+extern "C" int ag_gemm_wire_launch(const void* aw, const void* b, void* ws,
+                                   void* c, void* flags, int n, int m, int K,
+                                   int N, int kw, int dtype, int out_dtype,
+                                   int fp8, int arrival, void* info,
+                                   void* stream) {
+  const int per = dtype == 1 ? 8 : 4;
+  if (n < 1 || m < 1 || K < 1 || N < 1 || K % 128 || N % per || kw % 16 ||
+      kw < K + 4)
+    return int(cudaErrorInvalidValue);
+  const Geometry dense{n * m, 1, N, kw, 0, (long long)K * N};
+  return launch_any(aw, b, b, ws, c, flags, n, m, K, N, dtype, out_dtype,
+                    fp8 ? 1 : 2, 0, arrival, dense, info, stream);
 }
 
 // The grouped form: a (n, m, K) with m = E * cap rows a rank (cap rows an
@@ -478,16 +620,18 @@ extern "C" int ag_gemm_launch(const void* a, const void* b0, const void* b1,
 extern "C" int ag_gemm_grouped_launch(const void* a, const void* b0,
                                       const void* b1, void* ws, void* c,
                                       void* flags, int n, int m, int K, int N,
-                                      int dtype, int pair, int arrival, int E,
-                                      int ldb, long long b_es, long long b_rs,
+                                      int dtype, int out_dtype, int pair,
+                                      int arrival, int E, int ldb,
+                                      long long b_es, long long b_rs,
                                       void* info, void* stream) {
   const int per = dtype == 1 ? 8 : 4;
   if (n < 1 || m < 1 || K < 1 || N < 1 || K % per || N % per || E < 1 ||
       m % E || ldb < N || ldb % per || b_es % per || b_rs % per)
     return int(cudaErrorInvalidValue);
-  const Geometry grouped{m / E, E, ldb, b_es, b_rs};
-  return launch_any(a, b0, b1, ws, c, flags, n, m, K, N, dtype, pair,
-                    arrival, grouped, info, stream);
+  const int esize = dtype == 1 ? 2 : 4;
+  const Geometry grouped{m / E, E, ldb, K * esize, b_es, b_rs};
+  return launch_any(a, b0, b1, ws, c, flags, n, m, K, N, dtype, out_dtype, 0,
+                    pair, arrival, grouped, info, stream);
 }
 
 extern "C" const char* ag_gemm_error_string(int err) {

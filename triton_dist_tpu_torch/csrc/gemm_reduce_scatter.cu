@@ -40,6 +40,19 @@
 // inputs read and n * m * N written. Not done yet: wgmma, TMA and warp
 // specialisation, which that peak needs; overlap of a rank's consumer
 // folds with its producer tiles.
+//
+// The output dtype O may differ from the input's (bf16 in, f32 out: the
+// JAX out_dtype, which on the native wire is also the accumulation
+// dtype): the slots hold partials rounded to O, the fold is f32, the
+// output O. The quantized wire (JAX `_rs_ring` with a wire format) is
+// two launches, JAX's own fallback structure (`_wire_rs_xla(partial)`):
+// this kernel in its partials mode, every rank's f32 partial of every
+// chunk written to a plain (n, M, N) buffer with no flags and no fold,
+// then the wire ring of csrc/reduce_scatter.cu (`ring_rs_wire_kernel`)
+// on those partials. The ring order with per-hop requantization is a
+// different function from this kernel's all-slots rank-order fold, so
+// the wire form cannot reuse the fold; fusing the two launches is later
+// work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +71,14 @@ __device__ __forceinline__ void from_f32(float v, float& o) { o = v; }
 __device__ __forceinline__ void from_f32(float v, unsigned short& o) {
   o = __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
+// two adjacent outputs (8-byte aligned for f32, 4 for bf16)
+__device__ __forceinline__ void put_pair(float v0, float v1,
+                                         unsigned short* p) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
+}
+__device__ __forceinline__ void put_pair(float v0, float v1, float* p) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
 
 // ---- bf16 tile body: mma.sync on the tensor cores ------------------------
 
@@ -70,11 +91,13 @@ struct Bf16Body {
   static constexpr int kStage = BM * AST + BK * BST;  // bf16 per stage
   static constexpr size_t kSmem = sizeof(bf16) * kStage * kStages;
 
-  // dst[rows x cols] (leading dim N) = a[rows x K] @ b[K x cols], the
-  // edges zero-filled on load and masked on store; K, N multiples of 8
+  // dst[rows x cols] (leading dim N, dtype O) = a[rows x K] @ b[K x
+  // cols], the edges zero-filled on load and masked on store; K, N
+  // multiples of 8
+  template <typename O>
   static __device__ __forceinline__ void tile(const S* a, int rows,
                                               const S* b, int cols, int K,
-                                              int N, S* dst, void* smem) {
+                                              int N, O* dst, void* smem) {
     bf16* sm = static_cast<bf16*>(smem);
     const bf16* A = reinterpret_cast<const bf16*>(a);
     const bf16* B = reinterpret_cast<const bf16*>(b);
@@ -143,7 +166,6 @@ struct Bf16Body {
     }
     cp_async_wait<0>();
 
-    bf16* D = reinterpret_cast<bf16*>(dst);
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -153,8 +175,8 @@ struct Bf16Body {
         for (int h = 0; h < 2; ++h) {
           const int row = wm + mi * 16 + (lane >> 2) + 8 * h;
           if (row < rows && col < cols)
-            *reinterpret_cast<uint32_t*>(D + size_t(row) * N + col) =
-                pack_bf16(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+            put_pair(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1],
+                     dst + size_t(row) * N + col);
         }
       }
   }
@@ -168,9 +190,10 @@ struct F32Body {
   static constexpr int kThreads = 256;
   static constexpr size_t kSmem = sizeof(float) * BK * (BM + BN);
 
+  template <typename O>
   static __device__ __forceinline__ void tile(const S* a, int rows,
                                               const S* b, int cols, int K,
-                                              int N, S* dst, void* smem) {
+                                              int N, O* dst, void* smem) {
     float* as = static_cast<float*>(smem);  // [BK][BM], A transposed
     float* bs = as + BK * BM;               // [BK][BN]
     const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
@@ -210,21 +233,24 @@ struct F32Body {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int row = ty * 4 + i, col = tx * 4 + j;
-        if (row < rows && col < cols) dst[size_t(row) * N + col] = acc[i][j];
+        if (row < rows && col < cols)
+          from_f32(acc[i][j], dst[size_t(row) * N + col]);
       }
   }
 };
 
 // ---- the kernel: produce every tile, then fold my chunk -------------------
 
-template <class Body>
+// PARTIALS: heap is a plain (n, M, N) f32 buffer, rank me's partial of
+// chunk c at rows [c * m, (c + 1) * m) of [me]; no flags, no fold.
+template <class Body, typename O, bool PARTIALS>
 __global__ void __launch_bounds__(Body::kThreads, 2)
 gemm_rs_kernel(const typename Body::S* a, const typename Body::S* b,
-               typename Body::S* heap, typename Body::S* out, int* flags,
-               int M, int K, int N, int arrival) {
+               O* heap, O* out, int* flags, int M, int K, int N,
+               int arrival) {
   typedef typename Body::S S;
   constexpr int BM = Body::BM, BN = Body::BN;
-  constexpr int kPer = 16 / sizeof(S);  // elements of a 16-byte word
+  constexpr int kPer = 16 / sizeof(O);  // elements of a 16-byte word
   extern __shared__ uint4 smem[];
   const int n = gridDim.y, me = blockIdx.y, m = M / n;
   const int tm = (m + BM - 1) / BM, tn = (N + BN - 1) / BN;
@@ -237,16 +263,18 @@ gemm_rs_kernel(const typename Body::S* a, const typename Body::S* b,
   for (int t = blockIdx.x; t < n * per_chunk; t += gridDim.x) {
     const int c = t / per_chunk, i = (t % per_chunk) / tn, j = t % tn;
     const int src = arrival ? (me - c + n) % n : c;  // chunk c's row block
+    const size_t row0 = PARTIALS ? size_t(me) * M + size_t(c) * m
+                                 : (size_t(c) * n + me) * m;
     Body::tile(a_me + (size_t(src) * m + size_t(i) * BM) * K, min(BM, m - i * BM),
                b_me + size_t(j) * BN, min(BN, N - j * BN), K, N,
-               heap + ((size_t(c) * n + me) * m + size_t(i) * BM) * N +
-                   size_t(j) * BN,
-               smem);
-    shmem::signal_add(flags + size_t(c) * per_chunk + t % per_chunk, 1);
+               heap + (row0 + size_t(i) * BM) * N + size_t(j) * BN, smem);
+    if (!PARTIALS)
+      shmem::signal_add(flags + size_t(c) * per_chunk + t % per_chunk, 1);
   }
+  if (PARTIALS) return;
 
   // consumer: fold the n slots of each tile of my chunk, rank order
-  const S* slots = heap + size_t(me) * n * m * N;
+  const O* slots = heap + size_t(me) * n * m * N;
   for (int t = blockIdx.x; t < per_chunk; t += gridDim.x) {
     shmem::signal_wait_until(flags + size_t(me) * per_chunk + t, shmem::kEq,
                              n, "gemm_rs", me, t);
@@ -259,13 +287,13 @@ gemm_rs_kernel(const typename Body::S* a, const typename Body::S* b,
         // delivered by rank r: __ldcg after the acquire (shmem.cuh)
         const uint4 w = __ldcg(reinterpret_cast<const uint4*>(
             slots + size_t(r) * m * N + off));
-        const S* e = reinterpret_cast<const S*>(&w);
+        const O* e = reinterpret_cast<const O*>(&w);
 #pragma unroll
         for (int q = 0; q < kPer; ++q)
           acc[q] = r == 0 ? to_f32(e[q]) : acc[q] + to_f32(e[q]);
       }
       uint4 o;
-      S* oe = reinterpret_cast<S*>(&o);
+      O* oe = reinterpret_cast<O*>(&o);
 #pragma unroll
       for (int q = 0; q < kPer; ++q) from_f32(acc[q], oe[q]);
       *reinterpret_cast<uint4*>(out + size_t(me) * m * N + off) = o;
@@ -278,16 +306,16 @@ int tiles_per_chunk(int m, int N) {
   return ((m + Body::BM - 1) / Body::BM) * ((N + Body::BN - 1) / Body::BN);
 }
 
-template <class Body>
+template <class Body, typename O, bool PARTIALS>
 cudaError_t launch(const void* a, const void* b, void* heap, void* out,
                    int* flags, int n, int M, int K, int N, int arrival,
                    int* info, cudaStream_t st) {
   typedef typename Body::S S;
   return shmem::launch_world(
-      gemm_rs_kernel<Body>, n, n * tiles_per_chunk<Body>(M / n, N),
-      Body::kThreads, Body::kSmem, st, info, static_cast<const S*>(a),
-      static_cast<const S*>(b), static_cast<S*>(heap), static_cast<S*>(out),
-      flags, M, K, N, arrival);
+      gemm_rs_kernel<Body, O, PARTIALS>, n,
+      n * tiles_per_chunk<Body>(M / n, N), Body::kThreads, Body::kSmem, st,
+      info, static_cast<const S*>(a), static_cast<const S*>(b),
+      static_cast<O*>(heap), static_cast<O*>(out), flags, M, K, N, arrival);
 }
 
 }  // namespace
@@ -298,27 +326,41 @@ extern "C" int gemm_rs_flag_count(int m, int N, int dtype) {
                     : tiles_per_chunk<F32Body>(m, N);
 }
 
-// a (n, M, K), b (n, K, N), heap (n, n, M/n, N), out (n, M/n, N), all of
-// one dtype; flags (n, gemm_rs_flag_count) zeroed. M % n == 0; K and N
-// multiples of 16 bytes' worth of elements. dtype: 0 = float32,
-// 1 = bfloat16. arrival: a's row blocks in ring-arrival order. info: 3
-// ints (see launch_world). Returns a cudaError_t.
+// a (n, M, K), b (n, K, N) of dtype; heap (n, n, M/n, N) and out (n,
+// M/n, N) of out_dtype (partials: heap (n, M, N) f32, out unused and no
+// flags); flags (n, gemm_rs_flag_count) zeroed. M % n == 0; K and N
+// multiples of 16 bytes' worth of elements. dtype, out_dtype: 0 =
+// float32, 1 = bfloat16 (f32 inputs: f32 out). arrival: a's row blocks
+// in ring-arrival order. info: 3 ints (see launch_world). Returns a
+// cudaError_t.
 extern "C" int gemm_rs_launch(const void* a, const void* b, void* heap,
                               void* out, void* flags, int n, int M, int K,
-                              int N, int dtype, int arrival, void* info,
-                              void* stream) {
+                              int N, int dtype, int out_dtype, int partials,
+                              int arrival, void* info, void* stream) {
   const int per = dtype == 1 ? 8 : 4;
-  if (n < 1 || M < n || M % n || K < 1 || N < 1 || K % per || N % per)
+  if (n < 1 || M < n || M % n || K < 1 || N < 1 || K % per || N % per ||
+      (partials && out_dtype != 0))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* fl = static_cast<int*>(flags);
   int* inf = static_cast<int*>(info);
-  if (dtype == 0)
-    return int(launch<F32Body>(a, b, heap, out, fl, n, M, K, N, arrival,
-                               inf, st));
-  if (dtype == 1)
-    return int(launch<Bf16Body>(a, b, heap, out, fl, n, M, K, N, arrival,
-                                inf, st));
+  if (dtype == 0 && out_dtype == 0)
+    return int(partials ? launch<F32Body, float, true>(
+                              a, b, heap, out, fl, n, M, K, N, arrival, inf,
+                              st)
+                        : launch<F32Body, float, false>(
+                              a, b, heap, out, fl, n, M, K, N, arrival, inf,
+                              st));
+  if (dtype == 1 && out_dtype == 0)
+    return int(partials ? launch<Bf16Body, float, true>(
+                              a, b, heap, out, fl, n, M, K, N, arrival, inf,
+                              st)
+                        : launch<Bf16Body, float, false>(
+                              a, b, heap, out, fl, n, M, K, N, arrival, inf,
+                              st));
+  if (dtype == 1 && out_dtype == 1)
+    return int(launch<Bf16Body, unsigned short, false>(
+        a, b, heap, out, fl, n, M, K, N, arrival, inf, st));
   return int(cudaErrorInvalidValue);
 }
 

@@ -33,6 +33,7 @@ from triton_dist_tpu_torch.kernels.allgather import (  # noqa: F401
 from triton_dist_tpu_torch.kernels.allgather_gemm import (  # noqa: F401
     ag_gemm,
     ag_gemm_plain,
+    ag_gemm_wire,
     arrival_to_rank_order,
     silu_mul,
 )
@@ -80,6 +81,8 @@ from triton_dist_tpu_torch.kernels.gemm_allreduce import gemm_ar  # noqa: F401
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (  # noqa: F401
     gemm_rs,
     gemm_rs_plain,
+    gemm_rs_wire,
+    gemm_rs_wire_plain,
 )
 from triton_dist_tpu_torch.kernels.low_latency_allgather import (  # noqa: F401
     create_ll_ag_buffer,
@@ -99,6 +102,8 @@ from triton_dist_tpu_torch.kernels.reduce_scatter import (  # noqa: F401
     reduce_scatter_op,
     ring_reduce_scatter,
     ring_reduce_scatter_plain,
+    ring_reduce_scatter_wire,
+    ring_reduce_scatter_wire_plain,
 )
 
 # kernel name -> its csrc/ source stem, for building all of them at once
@@ -118,4 +123,7 @@ SOURCES = {
     "full_mesh_all_gather": "allgather",
     "p2p_send": "p2p",
     "ring_shift": "p2p",
+    "ring_rs_wire": "reduce_scatter",
+    "gemm_rs_wire": "gemm_reduce_scatter",
+    "ag_gemm_wire": "allgather_gemm",
 }

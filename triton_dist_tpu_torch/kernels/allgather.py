@@ -2,7 +2,7 @@
 (`ring_all_gather`, the Pallas kernel `_ring_ag_kernel`), the full mesh
 (`full_mesh_all_gather`, `_full_mesh_ag_kernel`) and the library's
 entry points (`AllGatherMethod`, `choose_allgather_method`,
-`all_gather`, `all_gather_op`), native wire.
+`all_gather`, `all_gather_op`), on the native and the quantized wire.
 
 Rank-stacked: x (n, m, ...) holds every rank's shard of the virtual
 world (runtime/symm_mem.py); the result (n, n*m, ...) holds every rank's
@@ -25,9 +25,18 @@ functions. At n = 1 each returns x, as the JAX functions do.
 ring above; `XLA` is the plain concatenation (JAX leaves it to XLA).
 `all_gather_op(arr)` is the host entry: arr is the rank-stacked tensor
 and the world its leading dim; it returns the replicated (n*m, ...).
-Out of scope, raising NotImplementedError: quantized wire formats (the
-wire/ slice, ROADMAP item 12), and axis tuples / `Ring2D`, which need a
-2-D virtual world (item 15).
+
+A quantized `wire_format` (the JAX `_wire_ag`): each rank's shard is
+packed once at the send edge (wire.pack, the block-scaled int8 image),
+the same ring or full-mesh kernel moves the image as bytes (a ring
+forward re-sends received bytes: no per-hop requantization), and every
+slot, the rank's own included, is unpacked at the consume edge, which
+raises WireIntegrityError on a checksum format whose image fails. The
+result is bitwise the pack / unpack roundtrip of the shards; at n = 1
+it is that roundtrip. The XLA method gathers the same image. Auto
+decides on the native bytes, as the JAX rule does. Out of scope,
+raising NotImplementedError: axis tuples / `Ring2D`, which need a 2-D
+virtual world (item 15).
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from triton_dist_tpu_torch import wire
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
@@ -76,19 +86,6 @@ def choose_allgather_method(nbytes_per_rank: int) -> AllGatherMethod:
     return AllGatherMethod.Ring1D
 
 
-def _native_wire(wire_format) -> None:
-    """The library's wire-format guard (AllGather and AllReduce): only
-    the native wire is ported."""
-    if wire_format == "auto":
-        raise NotImplementedError(
-            "wire_format='auto' asks the perf model's choose_wire_format: "
-            "the wire/ slice, ROADMAP item 12, with item 7's perf model")
-    if wire_format not in (None, "native"):
-        raise NotImplementedError(
-            f"wire_format={wire_format!r}: quantized wire images come with "
-            "the wire/ slice (ROADMAP item 12)")
-
-
 def _check_shape(x: torch.Tensor) -> None:
     if x.dim() < 3:
         raise ValueError(f"all_gather needs rank-stacked >= 2-D shards "
@@ -106,11 +103,28 @@ def ring_all_gather_plain(x: torch.Tensor) -> torch.Tensor:
     return full.expand(n, *full.shape).contiguous()
 
 
+def _wire_ag(x: torch.Tensor, fmt: wire.WireFormat,
+             transport) -> torch.Tensor:
+    """The quantized gather: pack every shard once, move the images
+    with `transport` ((n, m, kw) int8 -> (n, n*m, kw)), unpack every
+    slot."""
+    _check_shape(x)
+    n, m = x.shape[:2]
+    w = wire.pack(x.reshape(n * m, *x.shape[2:]), fmt).reshape(n, m, -1)
+    gathered = w if n == 1 else transport(w)
+    out = wire.unpack(gathered.reshape(-1, w.shape[-1]), x.shape[2:], fmt,
+                      x.dtype)
+    return out.reshape(n, gathered.shape[1], *x.shape[2:])
+
+
 @_build.counted("ring_all_gather")
-def ring_all_gather(x: torch.Tensor) -> torch.Tensor:
+def ring_all_gather(x: torch.Tensor, wire_format=None) -> torch.Tensor:
     """x (n, m, ...) rank-stacked -> (n, n*m, ...): the CUDA kernel on a
     CUDA tensor (launched or raising, never replaced), the plain version
-    on a CPU tensor."""
+    on a CPU tensor. A quantized wire_format moves the packed images."""
+    fmt = wire.resolve(wire_format)
+    if not wire.is_native(fmt):
+        return _wire_ag(x, fmt, ring_all_gather)
     if x.device.type == "cpu":
         return ring_all_gather_plain(x)
     return _launch(x)
@@ -123,13 +137,18 @@ def full_mesh_all_gather_plain(x: torch.Tensor) -> torch.Tensor:
 
 @_build.counted("full_mesh_all_gather")
 def full_mesh_all_gather(x: torch.Tensor,
-                         straggler: Optional[Tuple[int, int]] = None
-                         ) -> torch.Tensor:
+                         straggler: Optional[Tuple[int, int]] = None,
+                         wire_format=None) -> torch.Tensor:
     """x (n, m, ...) rank-stacked -> (n, n*m, ...) by the full-mesh push:
     the CUDA kernel on a CUDA tensor (launched or raising, never
     replaced), the plain version on a CPU tensor. straggler: (rank,
     nanos), that rank's blocks stall after the barrier (the card only;
-    the result is the same)."""
+    the result is the same). A quantized wire_format moves the packed
+    images."""
+    fmt = wire.resolve(wire_format)
+    if not wire.is_native(fmt):
+        return _wire_ag(x, fmt, lambda w: full_mesh_all_gather(
+            w, straggler=straggler))
     if x.device.type == "cpu":
         return full_mesh_all_gather_plain(x)
     return _launch_fm(x, straggler)
@@ -140,7 +159,8 @@ def all_gather(x: torch.Tensor, method=AllGatherMethod.Auto,
     """x (n, m, ...) -> (n, n*m, ...) by `method`: Auto picks the full
     mesh for a rank's shard (x[0]) of at most 1 MiB, else the ring; XLA
     is the plain concatenation. axis: the JAX mesh axis, one name
-    (the world is x's leading dim); a tuple raises."""
+    (the world is x's leading dim); a tuple raises. A quantized
+    wire_format gathers the packed images by the same method."""
     if axis is not None and not isinstance(axis, str):
         raise NotImplementedError(
             f"axis={axis!r}: stage-wise gathers over an axis tuple need a "
@@ -149,16 +169,18 @@ def all_gather(x: torch.Tensor, method=AllGatherMethod.Auto,
         raise NotImplementedError(
             "Ring2D is the stage-wise gather over an axis tuple, which needs "
             "a 2-D virtual world (ROADMAP item 15)")
-    _native_wire(wire_format)
+    fmt = wire.resolve(wire_format)
     _check_shape(x)
     if method == AllGatherMethod.Auto:
         method = choose_allgather_method(x[0].numel() * x.element_size())
     if method == AllGatherMethod.XLA:
+        if not wire.is_native(fmt):
+            return _wire_ag(x, fmt, ring_all_gather_plain)
         return ring_all_gather_plain(x)
     if method == AllGatherMethod.Ring1D:
-        return ring_all_gather(x)
+        return ring_all_gather(x, wire_format=fmt)
     if method == AllGatherMethod.FullMesh:
-        return full_mesh_all_gather(x)
+        return full_mesh_all_gather(x, wire_format=fmt)
     raise ValueError(f"unknown method {method}")
 
 

@@ -1,6 +1,7 @@
 """Fused AllGather + GEMM — port of triton_dist_tpu.kernels.
 allgather_gemm (`ag_gemm`: the Pallas kernel `_ag_gemm_kernel`, dense
-and grouped forms, native wire; and `arrival_to_rank_order`).
+and grouped forms on the native wire, the dense form on the quantized
+wire; and `arrival_to_rank_order`).
 
 Rank-stacked: a (n, m, K) holds every rank's shard of the virtual world
 (runtime/symm_mem.py), b (n, K, N) every rank's weight (or, with
@@ -34,8 +35,20 @@ At n = 1 without `force_kernel` the call is a local product (plus
 silu_mul for the pair), as the JAX function short-circuits to XLA; with
 `force_kernel` the kernel runs with n = 1. The TPU's VMEM-budget and
 interpret-mode fallbacks do not carry over: on the card the kernel
-always runs. Quantized wire formats and an `out_dtype` other than the
-input's are not ported yet and raise.
+always runs. `out_dtype` (default a.dtype) is the dtype C is rounded
+to once from the f32 accumulators; on the card bf16 inputs give bf16 or
+f32, f32 inputs f32.
+
+A quantized `wire_format` (dense form only; per-row scales; K a multiple
+of 128; the JAX checks, allgather_gemm.py:586-601): each rank's A shard
+is packed once (wire.pack), the ring forwards the (m, wire_cols) int8
+image rows, and each A tile is dequantized right before its product
+(float(q) * scale in f32, rounded to a.dtype: `a_dequant`). Every row
+goes through the codec, the own shard included, so the product is that
+of the roundtrip of A; return_gathered returns the decoded A. At n = 1
+without `force_kernel` the call is the local product of the roundtrip.
+`ag_gemm_wire` is the wire form's counted wrapper; ag_gemm dispatches
+to it.
 """
 
 from __future__ import annotations
@@ -44,16 +57,19 @@ import ctypes
 
 import torch
 
+from triton_dist_tpu_torch import wire
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "ag_gemm_launch": (ctypes.c_int, [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_void_p]),
     "ag_gemm_grouped_launch": (ctypes.c_int, [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 9 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_int] * 10 + [ctypes.c_longlong] * 2 + [
         ctypes.c_void_p, ctypes.c_void_p]),
+    "ag_gemm_wire_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 9 + [ctypes.c_void_p, ctypes.c_void_p]),
     "ag_gemm_flag_count": (ctypes.c_int, [ctypes.c_int]),
     "ag_gemm_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -76,18 +92,9 @@ def arrival_to_rank_order(c: torch.Tensor) -> torch.Tensor:
     return blocks[r, (r - s) % n].reshape(c.shape)
 
 
-def _check(a, b, out_dtype, epilogue, c_order, return_gathered,
-           wire_format):
-    """Raise on what is not ported or not a valid call; returns the
-    weights as a tuple (one, or the silu_pair's two)."""
-    if wire_format is not None:
-        raise NotImplementedError(
-            f"wire_format={wire_format!r}: quantized wire images come with "
-            "the wire/ slice")
-    if out_dtype is not None and out_dtype != a.dtype:
-        raise NotImplementedError(
-            f"out_dtype={out_dtype}: an output dtype other than the "
-            "input's is not ported")
+def _check(a, b, epilogue, c_order, return_gathered, fmt):
+    """Raise on what is not a valid call; returns the weights as a tuple
+    (one, or the silu_pair's two)."""
     if epilogue not in (None, "silu_pair"):
         raise ValueError(f"unknown epilogue {epilogue!r}")
     if c_order not in ("rank", "arrival"):
@@ -112,6 +119,18 @@ def _check(a, b, out_dtype, epilogue, c_order, return_gathered,
     if w.dim() == 4 and a.shape[1] % w.shape[1]:
         raise ValueError(f"packed rows {a.shape[1]} must be E={w.shape[1]} "
                          "equal blocks")
+    if not wire.is_native(fmt):
+        if len(bs) == 2 or w.dim() == 4:
+            raise ValueError(
+                "quantized wire supports the dense ag_gemm form only "
+                f"(silu_pair={len(bs) == 2}, grouped={w.dim() == 4})")
+        if fmt.block is not None:
+            raise ValueError(
+                "ag_gemm wire uses per-row scales (block=None): the "
+                "consumer loads one f32 scale per A row")
+        if a.shape[2] % wire.LANE:
+            raise ValueError(
+                f"ag_gemm wire needs lane-aligned K (got {a.shape[2]})")
     return bs
 
 
@@ -126,17 +145,28 @@ def _product(full: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return c.reshape(n, -1, nn)
 
 
+def _roundtrip(a: torch.Tensor, fmt) -> torch.Tensor:
+    """Every rank's shard through the codec: pack, unpack (n, m, K)."""
+    n, m, k = a.shape
+    return wire.roundtrip(a.reshape(n * m, k), fmt).reshape(n, m, k)
+
+
 def ag_gemm_plain(a: torch.Tensor, b, epilogue=None, c_order: str = "rank",
-                  return_gathered: bool = False):
-    """Every rank's gathered A times its b in f32, one rounding; row
+                  return_gathered: bool = False, out_dtype=None,
+                  wire_format=None):
+    """Every rank's gathered A (through the codec on a quantized wire)
+    times its b in f32, one rounding to out_dtype (default a.dtype); row
     blocks permuted for c_order="arrival"."""
+    out_dtype = out_dtype or a.dtype
+    if not wire.is_native(wire_format):
+        a = _roundtrip(a, wire_format)
     n, m, k = a.shape
     full = a.reshape(n * m, k)
     if epilogue == "silu_pair":
         g, u = (_product(full, w) for w in b)
-        c = silu_mul(g, u).to(a.dtype)
+        c = silu_mul(g, u).to(out_dtype)
     else:
-        c = _product(full, b).to(a.dtype)
+        c = _product(full, b).to(out_dtype)
     if c_order == "arrival":
         c = arrival_to_rank_order(c)
     if return_gathered:
@@ -144,21 +174,26 @@ def ag_gemm_plain(a: torch.Tensor, b, epilogue=None, c_order: str = "rank",
     return c
 
 
-def _local(a, bs, return_gathered):
-    """n = 1: the local product, f32 accumulation rounded once to
-    a.dtype; for the pair, gate and up kept in f32 through silu_mul. The
-    grouped form is the plain per-expert product (torch, as the JAX
-    function leaves it to XLA)."""
+def _local(a, bs, return_gathered, out_dtype, fmt):
+    """n = 1: the local product (of A's roundtrip on a quantized wire),
+    f32 accumulation rounded once to out_dtype; for the pair, gate and
+    up kept in f32 through silu_mul. The grouped form is the plain
+    per-expert product (torch, as the JAX function leaves it to XLA)."""
+    from triton_dist_tpu_torch.layers.linear import dot_f32
+
     if bs[0].dim() == 4:
         return ag_gemm_plain(a, bs if len(bs) == 2 else bs[0],
                              "silu_pair" if len(bs) == 2 else None,
-                             return_gathered=return_gathered)
+                             return_gathered=return_gathered,
+                             out_dtype=out_dtype)
+    if not wire.is_native(fmt):
+        a = _roundtrip(a, fmt)
     if len(bs) == 2:
-        from triton_dist_tpu_torch.layers.linear import dot_f32
-
-        c = silu_mul(dot_f32(a, bs[0]), dot_f32(a, bs[1])).to(a.dtype)
-    else:
+        c = silu_mul(dot_f32(a, bs[0]), dot_f32(a, bs[1])).to(out_dtype)
+    elif out_dtype == a.dtype:
         c = torch.matmul(a, bs[0])
+    else:
+        c = dot_f32(a, bs[0]).to(out_dtype)
     return (c, a) if return_gathered else c
 
 
@@ -167,18 +202,43 @@ def ag_gemm(a: torch.Tensor, b, return_gathered: bool = False,
             out_dtype=None, force_kernel: bool = False, epilogue=None,
             c_order: str = "rank", wire_format=None):
     """a (n, m, K), b (n, K, N), grouped (n, E, K, N), or a pair
-    (w_gate, w_up) of either, rank-stacked -> C (n, n*m, N) (and the
-    gathered A (n, n*m, K) with return_gathered): the CUDA kernel on
-    CUDA tensors (launched or raising, never replaced), the plain
-    version on CPU tensors; at n = 1 a local product unless
-    force_kernel."""
-    bs = _check(a, b, out_dtype, epilogue, c_order, return_gathered,
-                wire_format)
+    (w_gate, w_up) of either, rank-stacked -> C (n, n*m, N) in out_dtype
+    (default a.dtype) (and the gathered A (n, n*m, K) with
+    return_gathered): the CUDA kernel on CUDA tensors (launched or
+    raising, never replaced), the plain version on CPU tensors; at n = 1
+    a local product unless force_kernel. A quantized wire_format takes
+    ag_gemm_wire."""
+    fmt = wire.resolve(wire_format)
+    bs = _check(a, b, epilogue, c_order, return_gathered, fmt)
+    out_dtype = out_dtype or a.dtype
     if a.shape[0] == 1 and not force_kernel:
-        return _local(a, bs, return_gathered)
+        return _local(a, bs, return_gathered, out_dtype, fmt)
+    if not wire.is_native(fmt):
+        return ag_gemm_wire(a, bs[0], fmt, return_gathered, out_dtype,
+                            c_order)
     if a.device.type == "cpu":
-        return ag_gemm_plain(a, b, epilogue, c_order, return_gathered)
-    return _launch(a, bs, c_order == "arrival", return_gathered)
+        return ag_gemm_plain(a, b, epilogue, c_order, return_gathered,
+                             out_dtype)
+    return _launch(a, bs, c_order == "arrival", return_gathered, out_dtype)
+
+
+@_build.counted("ag_gemm_wire")
+def ag_gemm_wire(a: torch.Tensor, b: torch.Tensor, wire_format,
+                 return_gathered: bool = False, out_dtype=None,
+                 c_order: str = "rank"):
+    """The dense ag_gemm on a quantized wire at every n: the kernel on
+    CUDA tensors (A packed, the images gathered, each tile dequantized
+    before its product), ag_gemm_plain on CPU tensors."""
+    fmt = wire.resolve(wire_format)
+    if wire.is_native(fmt):
+        raise ValueError("ag_gemm_wire takes a quantized wire format")
+    _check(a, b, None, c_order, return_gathered, fmt)
+    out_dtype = out_dtype or a.dtype
+    if a.device.type == "cpu":
+        return ag_gemm_plain(a, b, None, c_order, return_gathered,
+                             out_dtype, fmt)
+    return _launch_wire(a, b, fmt, c_order == "arrival", return_gathered,
+                        out_dtype)
 
 
 def _grouped_strides(bs, per: int):
@@ -200,7 +260,7 @@ def _grouped_strides(bs, per: int):
     return ldb, b_es, b_rs
 
 
-def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool):
+def _check_launch(a: torch.Tensor, bs, out_dtype) -> None:
     if a.device.type != "cuda" or any(w.device != a.device for w in bs):
         raise ValueError(f"the ag_gemm kernel needs CUDA tensors on one "
                          f"device, got {a.device} and "
@@ -208,6 +268,50 @@ def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool):
     if a.dtype not in _DTYPE_CODE or any(w.dtype != a.dtype for w in bs):
         raise ValueError(f"dtypes {a.dtype}/{[w.dtype for w in bs]}: the "
                          "kernel takes float32 or bfloat16, all alike")
+    if out_dtype not in _DTYPE_CODE or (a.dtype == torch.float32
+                                        and out_dtype != torch.float32):
+        raise ValueError(f"out_dtype {out_dtype} of {a.dtype} inputs: the "
+                         "kernel writes bf16 or f32 out of bf16, f32 out "
+                         "of f32")
+
+
+def _launch_wire(a: torch.Tensor, b: torch.Tensor, fmt, arrival: bool,
+                 return_gathered: bool, out_dtype):
+    _check_launch(a, (b,), out_dtype)
+    n, m, K = a.shape
+    N = b.shape[-1]
+    per = 16 // a.element_size()
+    if N % per:
+        raise ValueError(f"N={N} must be a multiple of {per}: the kernel "
+                         "moves 16-byte rows")
+    if not b.is_contiguous() or b.data_ptr() % 16:
+        raise ValueError("b must be contiguous and 16-byte aligned")
+    aw = wire.pack(a.reshape(n * m, K), fmt).reshape(n, m, -1)
+    kw = aw.shape[-1]
+    world = VirtualWorld.of(a)
+    c = torch.empty((n, n * m, N), dtype=out_dtype, device=a.device)
+    ws = world.heap((n * m, kw), torch.int8)  # [rank][chunk c's images]
+    lib = _build.load("allgather_gemm", _SIGNATURES)
+    flags = world.flags(lib.ag_gemm_flag_count(n))
+    grid = _build.GridInfo()
+    with torch.cuda.device(a.device):
+        err = lib.ag_gemm_wire_launch(
+            aw.data_ptr(), b.data_ptr(), ws.data_ptr(), c.data_ptr(),
+            flags.data_ptr(), n, m, K, N, kw, _DTYPE_CODE[a.dtype],
+            _DTYPE_CODE[out_dtype], int(fmt.kind == "fp8"), int(arrival),
+            grid.ptr(), torch.cuda.current_stream().cuda_stream)
+    _build.check("ag_gemm_wire", err, lib.ag_gemm_error_string, grid)
+    _build.count_launch("ag_gemm_wire")
+    if return_gathered:
+        full = wire.unpack(ws.reshape(n * n * m, kw), (K,), fmt, a.dtype)
+        return c, full.reshape(n, n * m, K)
+    return c
+
+
+def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool,
+            out_dtype=None):
+    out_dtype = out_dtype or a.dtype
+    _check_launch(a, bs, out_dtype)
     n, m, K = a.shape
     grouped = bs[0].dim() == 4
     N = bs[0].shape[-1]
@@ -222,7 +326,7 @@ def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool):
     if grouped:
         strides = _grouped_strides(bs, per)
     world = VirtualWorld.of(a)
-    c = torch.empty((n, n * m, N), dtype=a.dtype, device=a.device)
+    c = torch.empty((n, n * m, N), dtype=out_dtype, device=a.device)
     ws = world.heap((n * m, K), a.dtype)  # [rank][chunk c's rows]
     if c.numel() == 0:
         return (c, ws) if return_gathered else c
@@ -231,7 +335,8 @@ def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool):
     grid = _build.GridInfo()
     ptrs = (a.data_ptr(), bs[0].data_ptr(), bs[-1].data_ptr(),
             ws.data_ptr(), c.data_ptr(), flags.data_ptr(), n, m, K, N,
-            _DTYPE_CODE[a.dtype], int(len(bs) == 2), int(arrival))
+            _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype], int(len(bs) == 2),
+            int(arrival))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         if grouped:

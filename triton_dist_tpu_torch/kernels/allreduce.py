@@ -34,9 +34,16 @@ XLA above; otherwise TwoShot above 256 KiB. Below that cap JAX asks its
 TPU perf model; here the one-shot / two-shot crossover measured on the
 card (`_ONE_SHOT_CROSSOVER_BYTES`) decides. `all_reduce_op(arr)` is the
 host entry: arr (n, ...) stacks the contributions, the world its
-leading dim; it returns the replicated sum. Out of scope, raising
-NotImplementedError: quantized wire formats and `wire_format="auto"`
-(ROADMAP item 12), `error_budget` (item 7), axis tuples (item 15) and
+leading dim; it returns the replicated sum.
+
+A quantized `wire_format` is a two-shot construct, as in JAX: it forces
+TwoShot, whose ReduceScatter leg is the wire ring (`ring_rs_wire_kernel`:
+requantized at every hop, f32 at each consume edge) and whose
+AllGather leg encodes each reduced chunk once (the gather forwards
+bytes); a leading dim not divisible by n raises. The result is bitwise
+`wire.simulate_allreduce`. Out of scope, raising NotImplementedError:
+`wire_format="auto"` and `error_budget`, which need the perf model's
+choose_wire_format (ROADMAP item 7), axis tuples (item 15) and
 `all_reduce_op(fallback="xla")`, the guard ladder (item 8).
 """
 
@@ -47,6 +54,7 @@ import enum
 
 import torch
 
+from triton_dist_tpu_torch import wire
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels import allgather as _ag
 from triton_dist_tpu_torch.kernels import reduce_scatter as _rsr
@@ -118,11 +126,21 @@ def choose_allreduce_method(nbytes: int, n: int,
     return AllReduceMethod.TwoShot
 
 
+def _auto_wire(wire_format, error_budget) -> None:
+    if wire_format == "auto" or error_budget is not None:
+        raise NotImplementedError(
+            "wire_format='auto' and error_budget ask the perf model's "
+            "choose_wire_format (ROADMAP item 7)")
+
+
 def two_shot_all_reduce(x: torch.Tensor, wire_format=None) -> torch.Tensor:
     """x (n, M, ...) -> (n, M, ...), M divisible by n: the ring
-    ReduceScatter kernel, then the ring AllGather kernel."""
-    _ag._native_wire(wire_format)
-    return _ag.ring_all_gather(_rsr.ring_reduce_scatter(x))
+    ReduceScatter kernel, then the ring AllGather kernel; both legs on
+    the quantized wire when wire_format asks for it."""
+    _auto_wire(wire_format, None)
+    fmt = wire.resolve(wire_format)
+    return _ag.ring_all_gather(
+        _rsr.ring_reduce_scatter(x, wire_format=fmt), wire_format=fmt)
 
 
 def all_reduce(x: torch.Tensor, method=AllReduceMethod.Auto,
@@ -135,15 +153,17 @@ def all_reduce(x: torch.Tensor, method=AllReduceMethod.Auto,
         raise NotImplementedError(
             f"axis={axis!r}: stage-wise reductions over an axis tuple need "
             "a 2-D virtual world (ROADMAP item 15)")
-    if error_budget is not None:
-        raise NotImplementedError(
-            "error_budget steers wire_format='auto' through the perf model "
-            "(ROADMAP item 7, with item 12's wire/)")
-    _ag._native_wire(wire_format)
+    _auto_wire(wire_format, error_budget)
     if x.dim() < 2:
         raise ValueError(f"all_reduce needs rank-stacked (n, M, ...) "
                          f"tensors, got shape {tuple(x.shape)}")
     n = x.shape[0]
+    if not wire.is_native(wire_format):
+        if x.shape[1] % n:
+            raise ValueError(
+                f"quantized wire AR needs leading dim divisible by the "
+                f"axis size (two-shot construct): {x.shape[1]} % {n}")
+        return two_shot_all_reduce(x, wire_format=wire_format)
     if method == AllReduceMethod.Auto:
         method = choose_allreduce_method(x[0].numel() * x.element_size(), n,
                                          divisible=x.shape[1] % n == 0)

@@ -43,8 +43,17 @@ Where the port differs, the result the same:
     order and adds them in that order (`_combine_scatter`), on every
     device, so two calls, and the chunked and single-shot transports,
     agree bitwise;
-  - payload_dtype (the fp8 wire) raises until the wire/ slice; the trace
-    outputs under `trace.building` are not ported.
+  - the trace outputs under `trace.building` are not ported.
+
+payload_dtype=torch.float8_e4m3fn is the fp8 wire (the JAX `_byte_wire`
+pack): each token is quantized with one scale a row (wire.quantize at
+FP8, the codec's one definition), and its row of round_up(H + 8, 128)
+bytes holds the e4m3 payload, then the f32 scale and the int32 local
+expert id bitcast little-endian, then zeros. The pack keeps the bytes as
+uint8 (the all-to-all kernels move bytes, whatever the dtype); the
+receiver decodes payload times scale in f32, rounded to x.dtype. A
+payload_dtype that is not one byte wide raises, as in JAX; None is the
+x.dtype wire.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from triton_dist_tpu_torch import wire
 from triton_dist_tpu_torch.kernels import grouped_gemm as _gg
 from triton_dist_tpu_torch.kernels.all_to_all import (
     all_to_all,
@@ -82,11 +92,21 @@ class EPDispatch(NamedTuple):
     drops: torch.Tensor         # (n,) int32 pairs beyond capacity a rank
 
 
-def _native_wire(payload_dtype, dtype) -> None:
-    if payload_dtype is not None and payload_dtype != dtype:
-        raise NotImplementedError(
-            f"payload_dtype={payload_dtype}: the quantized fp8 wire comes "
-            "with the wire/ slice; None dispatches x.dtype")
+def _byte_wire(payload_dtype) -> bool:
+    """True for the fp8 wire; a payload_dtype that is not one byte wide
+    raises (a silently ignored one would ship the full-width wire)."""
+    if payload_dtype is None:
+        return False
+    if payload_dtype.itemsize != 1:
+        raise ValueError(
+            f"payload_dtype {payload_dtype} unsupported: the quantized wire "
+            "format requires a 1-byte dtype (torch.float8_e4m3fn) or None "
+            "for the full-width x.dtype wire")
+    if payload_dtype != torch.float8_e4m3fn:
+        raise ValueError(
+            f"payload_dtype {payload_dtype}: the one-byte wire is e4m3 "
+            "(torch.float8_e4m3fn)")
+    return True
 
 
 class _Pack(NamedTuple):
@@ -110,14 +130,16 @@ def _bins(idx: torch.Tensor, length: int) -> torch.Tensor:
 
 
 def _pack_by_dest(x, ids, weights, n_ranks, experts_per_rank, capacity,
-                  expert_sorted=False) -> _Pack:
+                  payload_dtype=None, expert_sorted=False) -> _Pack:
     """Fixed-capacity per-destination send buffers for every rank: x (n,
     M, H), ids / weights (n, M, k). Slot (d, p) takes the p-th pair
     routed to rank d in stable token order (a stable sort by
     destination), the local expert id in payload column H. With
     expert_sorted, each destination block's kept slots are re-ordered by
     local expert (invalid slots at the tail) after the capacity cut, and
-    the per-(destination, expert) counts come back in exp_counts."""
+    the per-(destination, expert) counts come back in exp_counts. The
+    fp8 wire (payload_dtype) packs uint8 rows of round_up(H + 8, 128)
+    bytes: payload, f32 scale, int32 expert id, zeros."""
     n, m, k = ids.shape
     c = capacity
     dev = x.device
@@ -153,15 +175,30 @@ def _pack_by_dest(x, ids, weights, n_ranks, experts_per_rank, capacity,
             n, n_ranks, experts_per_rank).to(torch.int32)
 
     h = x.shape[-1]
-    # the expert id travels in lane padding: exact in bf16 up to 256
-    assert experts_per_rank <= 256 or x.element_size() >= 4, (
-        "expert id not exactly representable in bf16 lane padding")
-    h_pad = -(-(h + 1) // 128) * 128
-    rows = torch.gather(x, 1, src_rows[..., None].expand(n, n_ranks * c, h))
-    send_x = torch.zeros((n, n_ranks * c, h_pad), dtype=x.dtype, device=dev)
-    send_x[..., :h] = torch.where(valid[..., None], rows,
-                                  torch.zeros((), dtype=x.dtype, device=dev))
-    send_x[..., h] = local_exp.to(x.dtype)
+    idx = src_rows[..., None].expand(n, n_ranks * c, h)
+    if _byte_wire(payload_dtype):
+        q, scale = wire.quantize(x, wire.FP8)
+        h_pad = -(-(h + 8) // 128) * 128
+        send_x = torch.zeros((n, n_ranks * c, h_pad), dtype=torch.uint8,
+                             device=dev)
+        send_x[..., :h] = torch.where(
+            valid[..., None],
+            torch.gather(q.view(torch.uint8), 1, idx), 0)
+        sc = torch.where(valid, torch.gather(scale[..., 0], 1, src_rows), 0.0)
+        send_x[..., h:h + 4] = sc[..., None].contiguous().view(torch.uint8)
+        send_x[..., h + 4:h + 8] = local_exp.to(torch.int32)[..., None] \
+            .contiguous().view(torch.uint8)
+    else:
+        # the expert id travels in lane padding: exact in bf16 up to 256
+        assert experts_per_rank <= 256 or x.element_size() >= 4, (
+            "expert id not exactly representable in bf16 lane padding")
+        h_pad = -(-(h + 1) // 128) * 128
+        send_x = torch.zeros((n, n_ranks * c, h_pad), dtype=x.dtype,
+                             device=dev)
+        send_x[..., :h] = torch.where(
+            valid[..., None], torch.gather(x, 1, idx),
+            torch.zeros((), dtype=x.dtype, device=dev))
+        send_x[..., h] = local_exp.to(x.dtype)
     return _Pack(
         send_x=send_x.reshape(n, n_ranks, c, h_pad),
         src_rows=src_rows.reshape(n, n_ranks, c),
@@ -178,15 +215,15 @@ def ep_dispatch(x: torch.Tensor, topk_ids: torch.Tensor,
                 payload_dtype=None, transport: str = "plain") -> EPDispatch:
     """Route every rank's tokens (n, M, H) to their experts' owner ranks
     over the single-shot all-to-all (transport "plain", the kernel) or
-    its plain version ("ref")."""
-    _native_wire(payload_dtype, x.dtype)
+    its plain version ("ref"). payload_dtype=torch.float8_e4m3fn: the
+    fp8 wire, tokens dequantized to x.dtype on arrival."""
     n, _, h = x.shape
     pack = _pack_by_dest(x, topk_ids, topk_weights, n, n_experts // n,
-                         capacity)
+                         capacity, payload_dtype)
     recv, recv_counts = _a2a_select(transport, 1, None)(pack.send_x,
                                                          pack.counts)
     slot = torch.arange(capacity, device=x.device)
-    tokens, local_expert = _decode_payload(recv, h)
+    tokens, local_expert = _decode_payload(recv, h, x.dtype)
     return EPDispatch(
         x=tokens, local_expert=local_expert,
         valid=slot < recv_counts[..., None], counts=recv_counts,
@@ -194,10 +231,18 @@ def ep_dispatch(x: torch.Tensor, topk_ids: torch.Tensor,
         send_valid=pack.valid, send_counts=pack.counts, drops=pack.drops)
 
 
-def _decode_payload(recv: torch.Tensor, h: int):
-    """(tokens (..., C, H), local_expert (..., C) int32): the payload's
-    first H columns and the expert id in column H."""
-    return recv[..., :h], recv[..., h].to(torch.int32)
+def _decode_payload(recv: torch.Tensor, h: int, out_dtype):
+    """(tokens (..., C, H) in out_dtype, local_expert (..., C) int32):
+    the payload's first H columns and the expert id in column H, or, on
+    the fp8 wire (uint8 rows), the dequantized payload and the id from
+    its metadata bytes."""
+    if recv.dtype != torch.uint8:
+        return recv[..., :h], recv[..., h].to(torch.int32)
+    scale = recv[..., h:h + 4].contiguous().view(torch.float32)
+    local_expert = recv[..., h + 4:h + 8].contiguous().view(torch.int32)
+    q = recv[..., :h].contiguous().view(torch.float8_e4m3fn)
+    return (wire.dequantize(q, scale, wire.FP8, out_dtype),
+            local_expert[..., 0])
 
 
 def ep_expert_ffn(disp: EPDispatch, w_gate_up: torch.Tensor,
@@ -327,17 +372,17 @@ def ep_dispatch_chunked(x: torch.Tensor, topk_ids: torch.Tensor,
                         ) -> EPChunkDispatch:
     """Expert-sorted pack and the chunked all-to-all: the routing and
     drops of ep_dispatch (the capacity cut comes before the sort); the
-    splits row [count, per-expert counts] travels with each segment."""
-    _native_wire(payload_dtype, x.dtype)
+    splits row [count, per-expert counts] travels with each segment;
+    payload_dtype as in ep_dispatch."""
     n, _, h = x.shape
     pack = _pack_by_dest(x, topk_ids, topk_weights, n, n_experts // n,
-                         capacity, expert_sorted=True)
+                         capacity, payload_dtype, expert_sorted=True)
     meta = torch.cat([pack.counts[..., None], pack.exp_counts], -1)
     recv, recv_meta = _a2a_select(transport, n_chunks, straggler)(
         pack.send_x, meta)
     slot = torch.arange(capacity, device=x.device)
     recv_counts = recv_meta[..., 0]
-    tokens, _ = _decode_payload(recv, h)
+    tokens, _ = _decode_payload(recv, h, x.dtype)
     return EPChunkDispatch(
         x=tokens, expert_counts=recv_meta[..., 1:],
         valid=slot < recv_counts[..., None], counts=recv_counts,

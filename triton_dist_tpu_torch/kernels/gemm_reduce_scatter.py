@@ -25,8 +25,23 @@ rounding (1e-5 at the tests' sizes), not bitwise. At world 1 without
 `force_kernel` the product is a plain local matmul, as the JAX function
 leaves it to XLA; with `force_kernel` the kernel runs with n = 1. The
 TPU's VMEM-budget and interpret-mode fallbacks do not carry over: on the
-card the kernel always runs. Quantized wire formats and an `out_dtype`
-other than the input's are not ported yet and raise.
+card the kernel always runs.
+
+`out_dtype` (default a.dtype) is also the native wire's accumulation
+dtype, as in JAX: the partials are rounded to it, folded in f32 and
+rounded to it once (float32 out of bf16 inputs: the f32-accumulation
+option). On the card the kernel takes bf16 in with bf16 or f32 out, and
+f32 in with f32 out.
+
+A quantized `wire_format` (JAX `_rs_ring` with a wire format): each
+rank's partials are f32, and the cross-rank fold is the ring order with
+a requantization at every hop (`reduce_scatter.ring_reduce_scatter_
+wire`), not the native all-slots rank-order fold, which computes a
+different, more accurate function; the result is rounded once to
+out_dtype. `gemm_rs_wire` launches the partial GEMM (this kernel in its
+partials mode, counted as `gemm_rs_wire`), then the wire ring kernel
+(`ring_rs_wire`): two launches, JAX's own fallback structure. At n = 1
+without `force_kernel` the call is the plain product.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ import ctypes
 
 import torch
 
+from triton_dist_tpu_torch import wire
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels.allgather_gemm import arrival_to_rank_order
 from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
@@ -42,23 +58,15 @@ from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "gemm_rs_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_void_p]),
     "gemm_rs_flag_count": (ctypes.c_int, [ctypes.c_int] * 3),
     "gemm_rs_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
 
-def _check(a, b, out_dtype, a_order, wire_format):
+def _check(a, b, a_order):
     if a_order not in ("rank", "arrival"):
         raise ValueError(f"a_order={a_order!r}: 'rank' or 'arrival'")
-    if wire_format is not None:
-        raise NotImplementedError(
-            f"wire_format={wire_format!r}: quantized wire images come with "
-            "the wire/ slice (_ring_rs_wire_kernel)")
-    if out_dtype is not None and out_dtype != a.dtype:
-        raise NotImplementedError(
-            f"out_dtype={out_dtype}: an accumulation dtype other than the "
-            "input's is not ported")
     if a.dim() != 3 or b.dim() != 3 or b.shape[:2] != (a.shape[0],
                                                         a.shape[2]):
         raise ValueError(f"a (n, M, K) and b (n, K, N) expected, got "
@@ -68,10 +76,16 @@ def _check(a, b, out_dtype, a_order, wire_format):
                          f"{a.shape[0]}")
 
 
-def local_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Each rank's a @ b, f32 accumulation rounded once to a.dtype (the
-    JAX jnp.dot(preferred_element_type=f32).astype outside a kernel)."""
-    return torch.matmul(a, b)
+def local_product(a: torch.Tensor, b: torch.Tensor,
+                  out_dtype=None) -> torch.Tensor:
+    """Each rank's a @ b, f32 accumulation rounded once to out_dtype
+    (default a.dtype; the JAX jnp.dot(preferred_element_type=f32).astype
+    outside a kernel)."""
+    if out_dtype is None or out_dtype == a.dtype:
+        return torch.matmul(a, b)
+    from triton_dist_tpu_torch.layers.linear import dot_f32
+
+    return dot_f32(a, b).to(out_dtype)
 
 
 def reduce_scatter_plain(partial: torch.Tensor) -> torch.Tensor:
@@ -87,39 +101,94 @@ def reduce_scatter_plain(partial: torch.Tensor) -> torch.Tensor:
     return acc.to(partial.dtype)
 
 
-def gemm_rs_plain(a: torch.Tensor, b: torch.Tensor,
-                  a_order: str = "rank") -> torch.Tensor:
-    """Rounded f32 partials folded over ranks in order, one rounding.
-    An arrival-order a is first put back in rank order."""
+def _partials(a: torch.Tensor, b: torch.Tensor,
+              a_order: str) -> torch.Tensor:
+    """Every rank's f32 partial (n, M, N), chunks in rank order."""
     if a_order == "arrival":
         a = arrival_to_rank_order(a)
-    return reduce_scatter_plain(torch.matmul(a.float(), b.float()).to(a.dtype))
+    return torch.matmul(a.float(), b.float())
+
+
+def gemm_rs_plain(a: torch.Tensor, b: torch.Tensor,
+                  a_order: str = "rank", out_dtype=None) -> torch.Tensor:
+    """Partials rounded to out_dtype (default a.dtype), folded over
+    ranks in order in f32, one rounding. An arrival-order a is first put
+    back in rank order."""
+    return reduce_scatter_plain(
+        _partials(a, b, a_order).to(out_dtype or a.dtype))
+
+
+def gemm_rs_wire_plain(a: torch.Tensor, b: torch.Tensor, wire_format,
+                       a_order: str = "rank",
+                       out_dtype=None) -> torch.Tensor:
+    """The f32 partials through the quantized ring's fold
+    (reduce_scatter.ring_reduce_scatter_wire_plain), rounded once to
+    out_dtype (default a.dtype)."""
+    from triton_dist_tpu_torch.kernels.reduce_scatter import (
+        ring_reduce_scatter_wire_plain,
+    )
+
+    return ring_reduce_scatter_wire_plain(
+        _partials(a, b, a_order), wire_format, out_dtype or a.dtype)
 
 
 @_build.counted("gemm_rs")
 def gemm_rs(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
             force_kernel: bool = False, a_order: str = "rank",
             wire_format=None) -> torch.Tensor:
-    """a (n, M, K), b (n, K, N) rank-stacked -> (n, M/n, N): the CUDA
-    kernel on CUDA tensors (launched or raising, never replaced), the
-    plain version on CPU tensors; at n = 1 a local product unless
-    force_kernel."""
-    _check(a, b, out_dtype, a_order, wire_format)
+    """a (n, M, K), b (n, K, N) rank-stacked -> (n, M/n, N) in out_dtype
+    (default a.dtype): the CUDA kernel on CUDA tensors (launched or
+    raising, never replaced), the plain version on CPU tensors; at n = 1
+    a local product unless force_kernel. A quantized wire_format takes
+    gemm_rs_wire."""
+    _check(a, b, a_order)
+    out_dtype = out_dtype or a.dtype
     if a.shape[0] == 1 and not force_kernel:
-        return local_product(a, b)
+        return local_product(a, b, out_dtype)
+    if not wire.is_native(wire_format):
+        return gemm_rs_wire(a, b, wire_format, out_dtype, a_order)
     if a.device.type == "cpu":
-        return gemm_rs_plain(a, b, a_order)
-    return _launch(a, b, a_order == "arrival")
+        return gemm_rs_plain(a, b, a_order, out_dtype)
+    return _launch(a, b, a_order == "arrival", out_dtype)
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor,
-            arrival: bool = False) -> torch.Tensor:
+@_build.counted("gemm_rs_wire")
+def gemm_rs_wire(a: torch.Tensor, b: torch.Tensor, wire_format,
+                 out_dtype=None, a_order: str = "rank") -> torch.Tensor:
+    """The quantized-wire gemm_rs at every n: the partial-GEMM launch
+    (counted here) and the wire ring (counted as ring_rs_wire) on CUDA
+    tensors, gemm_rs_wire_plain on CPU tensors."""
+    from triton_dist_tpu_torch.kernels.reduce_scatter import (
+        ring_reduce_scatter_wire,
+    )
+
+    _check(a, b, a_order)
+    fmt = wire.resolve(wire_format)
+    if wire.is_native(fmt):
+        raise ValueError("gemm_rs_wire takes a quantized wire format")
+    wire.wire_cols(b.shape[-1], fmt)  # a block that does not divide N
+    out_dtype = out_dtype or a.dtype
+    if a.device.type == "cpu":
+        return gemm_rs_wire_plain(a, b, fmt, a_order, out_dtype)
+    partial = _launch(a, b, a_order == "arrival", torch.float32,
+                      partials=True)
+    return ring_reduce_scatter_wire(partial, fmt, out_dtype)
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, arrival: bool = False,
+            out_dtype=None, partials: bool = False) -> torch.Tensor:
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"the gemm_rs kernel needs CUDA tensors on one "
                          f"device, got {a.device} and {b.device}")
+    out_dtype = out_dtype or a.dtype
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
         raise ValueError(f"dtypes {a.dtype}/{b.dtype}: the kernel takes "
                          "float32 or bfloat16, both alike")
+    if out_dtype not in _DTYPE_CODE or (a.dtype == torch.float32
+                                        and out_dtype != torch.float32):
+        raise ValueError(f"out_dtype {out_dtype} of {a.dtype} inputs: the "
+                         "kernel writes bf16 or f32 out of bf16, f32 out "
+                         "of f32")
     n, M, K = a.shape
     N = b.shape[2]
     per = 16 // a.element_size()
@@ -132,19 +201,26 @@ def _launch(a: torch.Tensor, b: torch.Tensor,
                              "aligned")
     world = VirtualWorld.of(a)
     m = M // n
-    out = torch.empty((n, m, N), dtype=a.dtype, device=a.device)
+    name = "gemm_rs_wire" if partials else "gemm_rs"
+    if partials:  # every rank's f32 partial, no fold
+        out = heap = torch.empty((n, M, N), dtype=torch.float32,
+                                 device=a.device)
+    else:
+        out = torch.empty((n, m, N), dtype=out_dtype, device=a.device)
+        heap = world.heap((n, m, N), out_dtype)  # [owner c][producer r]
     if out.numel() == 0:
         return out
     lib = _build.load("gemm_reduce_scatter", _SIGNATURES)
     code = _DTYPE_CODE[a.dtype]
-    heap = world.heap((n, m, N), a.dtype)  # [owner c][producer r]
-    flags = world.flags(lib.gemm_rs_flag_count(m, N, code))
+    flags = world.flags(0 if partials else
+                        lib.gemm_rs_flag_count(m, N, code))
     grid = _build.GridInfo()
     with torch.cuda.device(a.device):
         err = lib.gemm_rs_launch(
             a.data_ptr(), b.data_ptr(), heap.data_ptr(), out.data_ptr(),
-            flags.data_ptr(), n, M, K, N, code, int(arrival), grid.ptr(),
+            flags.data_ptr(), n, M, K, N, code, _DTYPE_CODE[out_dtype],
+            int(partials), int(arrival), grid.ptr(),
             torch.cuda.current_stream().cuda_stream)
-    _build.check("gemm_rs", err, lib.gemm_rs_error_string, grid)
-    _build.count_launch("gemm_rs")
+    _build.check(name, err, lib.gemm_rs_error_string, grid)
+    _build.count_launch(name)
     return out

@@ -1,6 +1,6 @@
 """Low-latency AllGather — port of triton_dist_tpu.kernels.
 low_latency_allgather (`create_ll_ag_buffer`, `ll_all_gather`, the
-Pallas kernel `_ll_ag_kernel`), native wire.
+Pallas kernel `_ll_ag_kernel`), on the native and the quantized wire.
 
 A small-message AllGather whose steady state needs no barrier: the
 destination is a persistent context (2 parities x n slots a rank) that
@@ -29,8 +29,16 @@ word). The JAX package's `segment_collect_start`, the per-segment form
 of the same full-mesh push, is the device helper of that name in
 csrc/shmem.cuh, which SP flash prefill's kernel calls
 (csrc/flash_prefill.cu).
-Quantized wire formats belong to the wire/ slice; `ll_all_gather_op`
-and its fallback ladder are not ported.
+
+A quantized `wire_format`: the context made with it holds int8 slots of
+the packed image, (n, 2, n, rows, wire_cols) (`create_ll_ag_buffer(...,
+wire_format=)`); each call packs every rank's payload once, pushes the
+images through the same kernel and parity protocol, and unpacks every
+slot (WireIntegrityError on a checksum format whose image fails). The
+result is bitwise the roundtrip of each payload; at n = 1 it is that
+roundtrip and the context is not touched. A context made for another
+format or dtype raises. `ll_all_gather_op` and its fallback ladder are
+not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from triton_dist_tpu_torch import wire
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.runtime.device import resolve_device
 from triton_dist_tpu_torch.runtime.symm_mem import (
@@ -56,21 +65,17 @@ _SIGNATURES = {
 }
 
 
-def _native_only(wire_format) -> None:
-    if wire_format is not None and wire_format != "native":
-        raise NotImplementedError(
-            f"wire_format={wire_format!r}: quantized wire formats belong "
-            "to the wire/ slice of the port; only the native wire is "
-            "ported")
-
-
 def create_ll_ag_buffer(x_shape: Sequence[int], dtype: torch.dtype, n: int,
                         wire_format=None, device=None) -> SymmetricContext:
     """A fresh LL context for payloads of x_shape (one rank's shape) on
-    a world of n: data (n, 2, n, *x_shape) and flags (n, 2 n + 1), both
+    a world of n: data (n, 2, n, *x_shape) (a quantized wire_format: (n,
+    2, n, rows, wire_cols) int8 images) and flags (n, 2 n + 1), both
     zero (the FastAllGatherContext analog). Thread it through calls."""
-    _native_only(wire_format)
+    fmt = wire.resolve(wire_format)
     world = VirtualWorld(n, resolve_device(device))
+    if not wire.is_native(fmt):
+        kw = wire.wire_cols(math.prod(x_shape[1:]), fmt)
+        return world.context((2, n, x_shape[0], kw), torch.int8, 2 * n + 1)
     return world.context((2, n, *x_shape), dtype, 2 * n + 1)
 
 
@@ -110,17 +115,37 @@ def ll_all_gather(x: torch.Tensor, ctx: SymmetricContext, call_count: int,
     plain version on a CPU tensor. call_count is the 0-based call index
     on ctx; call 0 barriers. ctx is updated in place and returned, as
     the JAX function returns its donated context. At n = 1 the result
-    is x[:, None], as the JAX function returns x[None] per rank."""
-    _native_only(wire_format)
+    is x[:, None], as the JAX function returns x[None] per rank. A
+    quantized wire_format moves the packed images (module docstring)."""
     if x.dim() < 2:
         raise ValueError(f"x must be rank-stacked (n, ...), got "
                          f"{tuple(x.shape)}")
+    fmt = wire.resolve(wire_format)
+    if not wire.is_native(fmt):
+        return _wire_ll(x, ctx, call_count, fmt), ctx
     if x.shape[0] == 1:
         _check(x, ctx, call_count)
         return x[:, None].clone(), ctx
     if x.device.type == "cpu":
         return ll_all_gather_plain(x, ctx, call_count), ctx
     return _launch(x, ctx, int(call_count)), ctx
+
+
+def _wire_ll(x: torch.Tensor, ctx: SymmetricContext, call_count: int,
+             fmt: wire.WireFormat) -> torch.Tensor:
+    n = x.shape[0]
+    xw = wire.pack(x.reshape(n * x.shape[1], *x.shape[2:]), fmt).reshape(
+        n, x.shape[1], -1)
+    _check(xw, ctx, call_count)
+    if n == 1:
+        return wire.roundtrip(x[0], fmt)[None, None]
+    if x.device.type == "cpu":
+        slots = ll_all_gather_plain(xw, ctx, call_count)
+    else:
+        slots = _launch(xw, ctx, int(call_count))
+    out = wire.unpack(slots.reshape(-1, xw.shape[-1]), x.shape[2:], fmt,
+                      x.dtype)
+    return out.reshape(n, n, *x.shape[1:])
 
 
 def _launch(x: torch.Tensor, ctx: SymmetricContext,

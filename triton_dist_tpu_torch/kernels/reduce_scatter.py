@@ -1,7 +1,7 @@
 """Ring ReduceScatter — port of triton_dist_tpu.kernels.reduce_scatter
-(`ReduceScatterMethod`, `ring_reduce_scatter`: the Pallas kernel
-`_ring_rs_kernel`, and `reduce_scatter` with its method routing), native
-wire.
+(`ReduceScatterMethod`, `ring_reduce_scatter`: the Pallas kernels
+`_ring_rs_kernel` and, on a quantized wire, `_ring_rs_wire_kernel`; and
+`reduce_scatter` with its method routing).
 
 Rank-stacked: x (n, n*m, ...) holds every rank's contribution over the
 virtual world (runtime/symm_mem.py); the result (n, m, ...) holds rank
@@ -29,18 +29,41 @@ JAX function returns it; with `force_kernel` the kernel runs with no
 ring step. `reduce_scatter(method=Auto)` takes the ring when a chunk is
 at most 4 MiB (the JAX rule, reduce_scatter.py:513-520) and the `XLA`
 method above it; `method=None` takes the ring, as the JAX function does
-for anything but `XLA`. `reduce_scatter_op(arr)` is the host entry
-(the world is arr's leading dim). Quantized wire formats
-(`_ring_rs_wire_kernel`) belong to the wire/ slice and raise.
+for anything but `XLA`. `reduce_scatter_op(arr)` is the host entry (the
+world is arr's leading dim).
+
+The quantized wire (`wire_format` "fp8", "int8" or a `wire.WireFormat`;
+the JAX `_ring_rs_quantized`): the same ring, its travelling slots
+holding the block-scaled wire image (wire/codec.py) instead of rows.
+The send edge encodes the f32 stage; each consume edge decodes, adds
+its own contribution in f32 and re-encodes, except the final arrival,
+which is stored in the output dtype without a re-encode. Two
+implementations:
+
+  ring_reduce_scatter_wire — the CUDA kernel `ring_rs_wire_kernel`
+      (csrc/reduce_scatter.cu), tiled by whole rows (a row's scale
+      needs the amax of the whole row or block); on a CPU tensor the
+      plain version.
+  ring_reduce_scatter_wire_plain — the torch replay of the JAX
+      `_wire_rs_xla` in the same fold order on the codec's
+      encode_rows / decode_rows: bitwise `wire.simulate_ring_rs`.
+
+The kernel encodes with the codec's arithmetic (IEEE division, round
+half to even, no fused multiply-add), so the two agree bitwise. The
+wire route skips the Auto rule (the XLA arm cannot requantize a hop);
+an `accum_dtype` other than f32 with a quantized wire raises, as in
+JAX; at n = 1 the input comes back unless `force_kernel`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import enum
+from typing import Optional, Tuple
 
 import torch
 
+from triton_dist_tpu_torch import wire
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (
     reduce_scatter_plain,
@@ -59,20 +82,24 @@ RING_CHUNK_LIMIT = 4 * (1 << 20)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # elements a tile: each tile runs its own ring (one block a rank)
 _TILE = 8192
+# the wire kernel's rings a rank at most: a tile holds whole rows, at
+# least one, m / _WIRE_TILES of them (rounded up)
+_WIRE_TILES = 32
+# the wire kernel stages one f32 row in shared memory
+_WIRE_MAX_COLS = 48 * 1024
 _SIGNATURES = {
     "rs_launch": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
     "rs_tile_count": (ctypes.c_int, [ctypes.c_longlong, ctypes.c_int]),
+    "rs_wire_launch": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 12 + [ctypes.c_longlong, ctypes.c_void_p,
+                              ctypes.c_void_p]),
     "rs_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
 
-def _check(x: torch.Tensor, wire_format) -> None:
-    if wire_format not in (None, "native"):
-        raise NotImplementedError(
-            f"wire_format={wire_format!r}: quantized wire images "
-            "(_ring_rs_wire_kernel) come with the wire/ slice")
+def _check(x: torch.Tensor) -> None:
     if x.dim() < 2:
         raise ValueError(f"reduce_scatter needs rank-stacked (n, n*m, ...) "
                          f"contributions, got shape {tuple(x.shape)}")
@@ -86,6 +113,19 @@ def _check_ring(x: torch.Tensor) -> None:
     meets the condition a card run would."""
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
+
+
+def _wire_check(x: torch.Tensor, fmt: wire.WireFormat, accum_dtype) -> None:
+    """The JAX quantized-wire refusals (reduce_scatter.py:331-341)."""
+    if accum_dtype is not None and accum_dtype != torch.float32:
+        raise ValueError(
+            "quantized wire accumulates in f32 at the consume edge by "
+            "construction; accum_dtype is the NATIVE wire's ring "
+            f"accumulation knob — got accum_dtype={accum_dtype!r} with "
+            f"wire_format={fmt}")
+    if x.dim() < 3:
+        raise ValueError(f"quantized wire needs >=2D per-device arrays, "
+                         f"got {tuple(x.shape[1:])}")
 
 
 def ring_reduce_scatter_plain(x: torch.Tensor,
@@ -102,14 +142,44 @@ def ring_reduce_scatter_plain(x: torch.Tensor,
     return acc.to(x.dtype)
 
 
+def ring_reduce_scatter_wire_plain(x: torch.Tensor, wire_format,
+                                   out_dtype=None) -> torch.Tensor:
+    """The quantized ring's fold (the JAX `_wire_rs_xla`): rank me
+    starts from its f32 contribution to chunk me - 1; at step s it
+    encodes its value, the image moves one rank right, and the receiver
+    decodes it and adds its own contribution to chunk me - s - 2 in f32.
+    The last sum is rounded once to out_dtype (default x.dtype)."""
+    fmt = wire.resolve(wire_format)
+    n, rows = x.shape[:2]
+    m = rows // n
+    xf = x.reshape(n, n, m, -1).float()  # [rank][chunk][row][k]
+    k = xf.shape[-1]
+    me = torch.arange(n, device=x.device)
+    val = xf[me, (me - 1) % n]
+    for s in range(n - 1):
+        w = wire.encode_rows(val.reshape(n * m, k), fmt)
+        w = torch.roll(w.reshape(n, m, -1), 1, 0)  # from the left
+        val = wire.decode_rows(w.reshape(n * m, -1), k, fmt,
+                               torch.float32).reshape(n, m, k) \
+            + xf[me, (me - s - 2) % n]
+    return val.to(out_dtype or x.dtype).reshape(n, m, *x.shape[2:])
+
+
 @_build.counted("ring_reduce_scatter")
 def ring_reduce_scatter(x: torch.Tensor, accum_dtype=None,
                         force_kernel: bool = False,
                         wire_format=None) -> torch.Tensor:
     """x (n, n*m, ...) rank-stacked -> (n, m, ...): the CUDA kernel on a
     CUDA tensor (launched or raising, never replaced), the plain version
-    on a CPU tensor; at n = 1 the input unless force_kernel."""
-    _check(x, wire_format)
+    on a CPU tensor; at n = 1 the input unless force_kernel. A quantized
+    wire_format takes the wire kernel (ring_reduce_scatter_wire)."""
+    _check(x)
+    fmt = wire.resolve(wire_format)
+    if not wire.is_native(fmt):
+        _wire_check(x, fmt, accum_dtype)
+        if x.shape[0] == 1 and not force_kernel:
+            return x
+        return ring_reduce_scatter_wire(x, fmt)
     if x.shape[0] == 1 and not force_kernel:
         return x
     _check_ring(x)
@@ -118,12 +188,39 @@ def ring_reduce_scatter(x: torch.Tensor, accum_dtype=None,
     return _launch(x, accum_dtype or x.dtype)
 
 
+@_build.counted("ring_rs_wire")
+def ring_reduce_scatter_wire(x: torch.Tensor, wire_format, out_dtype=None,
+                             straggler: Optional[Tuple[int, int]] = None
+                             ) -> torch.Tensor:
+    """The quantized ring: x (n, n*m, ...) float32 or bfloat16 -> (n, m,
+    ...) in out_dtype (default x.dtype), the kernel on a CUDA tensor
+    (launched or raising), the plain version on a CPU tensor, at every
+    n (n = 1: x through f32). straggler: (rank, nanos), that rank's
+    blocks stall on entry (the card only; the result is the same)."""
+    fmt = wire.resolve(wire_format)
+    if wire.is_native(fmt):
+        raise ValueError("the wire ring takes a quantized wire format")
+    _check(x)
+    _wire_check(x, fmt, None)
+    _check_ring(x)
+    out_dtype = out_dtype or x.dtype
+    k = x[0, 0].numel()
+    wire.wire_cols(k, fmt)  # a block that does not divide k raises
+    if x.device.type == "cpu":
+        return ring_reduce_scatter_wire_plain(x, fmt, out_dtype)
+    return _launch_wire(x, fmt, out_dtype, straggler)
+
+
 def reduce_scatter(x: torch.Tensor, method=ReduceScatterMethod.Auto,
                    accum_dtype=None, wire_format=None) -> torch.Tensor:
     """x (n, n*m, ...) -> (n, m, ...) by `method`: Auto picks the ring
     for chunks of at most RING_CHUNK_LIMIT bytes, else XLA (here the
-    rank-order f32 fold that stands for `lax.psum_scatter`)."""
-    _check(x, wire_format)
+    rank-order f32 fold that stands for `lax.psum_scatter`). A
+    quantized wire_format takes the wire ring whatever the method."""
+    _check(x)
+    if not wire.is_native(wire_format):
+        return ring_reduce_scatter(x, accum_dtype=accum_dtype,
+                                   wire_format=wire_format)
     n = x.shape[0]
     if method == ReduceScatterMethod.Auto:
         chunk_bytes = x[0].numel() // n * x.element_size()
@@ -173,4 +270,48 @@ def _launch(x: torch.Tensor, acc_dtype: torch.dtype) -> torch.Tensor:
                             grid.ptr(), stream)
     _build.check("ring_reduce_scatter", err, lib.rs_error_string, grid)
     _build.count_launch("ring_reduce_scatter")
+    return out
+
+
+def _launch_wire(x: torch.Tensor, fmt: wire.WireFormat, out_dtype,
+                 straggler) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"the wire reduce-scatter kernel needs a CUDA "
+                         f"tensor, got {x.device}")
+    if x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"dtypes {x.dtype} -> {out_dtype}: the kernel "
+                         "takes float32 or bfloat16")
+    world = VirtualWorld.of(x)
+    n = x.shape[0]
+    m = x.shape[1] // n
+    k = x[0, 0].numel()
+    if k > _WIRE_MAX_COLS:
+        raise ValueError(f"rows of {k} elements: the wire kernel stages "
+                         f"a row of at most {_WIRE_MAX_COLS} in shared "
+                         "memory")
+    rank, nanos = straggler if straggler is not None else (-1, 0)
+    if straggler is not None and not (0 <= rank < n and nanos >= 0):
+        raise ValueError(f"straggler {straggler}: (rank in [0, {n}), "
+                         "nanos >= 0)")
+    out = torch.empty((n, m, *x.shape[2:]), dtype=out_dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    kw = wire.wire_cols(k, fmt)
+    nb = wire.n_blocks(k, fmt)
+    rows = max(1, -(-m // _WIRE_TILES))  # whole rows a ring
+    tiles = -(-m // rows)
+    lib = _build.load("reduce_scatter", _SIGNATURES)
+    slots = world.heap((2, m, kw), torch.int8)  # [rank][slot] wire images
+    flags = world.flags(3 * tiles)
+    grid = _build.GridInfo()
+    with torch.cuda.device(x.device):
+        err = lib.rs_wire_launch(
+            x.data_ptr(), slots.data_ptr(), out.data_ptr(),
+            flags.data_ptr(), n, m, k, int(fmt.kind == "fp8"), k // nb,
+            nb, int(fmt.checksum), kw, rows, _DTYPE_CODE[x.dtype],
+            _DTYPE_CODE[out_dtype], rank, nanos, grid.ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check("ring_rs_wire", err, lib.rs_error_string, grid)
+    _build.count_launch("ring_rs_wire")
     return out
