@@ -18,7 +18,9 @@ outside a checkout of the repository. Phases, each fatal on failure:
      return_gathered, m = 1, 64, 128 and ragged, N not a tile multiple;
      gemm_rs with A in arrival order at n = 2 and 4; f32 and bf16; the
      ring ReduceScatter bitwise at n = 1 (force_kernel), 2 and 4 in f32,
-     bf16 and bf16 with f32 accumulation; the grouped ag_gemm (silu_pair,
+     bf16 and bf16 with f32 accumulation, every tile forced, each rank
+     delayed, and 50 calls back to back with the wire ring that leave
+     its persistent flag pools at zero; the grouped ag_gemm (silu_pair,
      gate and up as views of one stack) at n = 2 and 4, cap 16, 64 and
      256, both orders; grouped_gemm's card route (torch._grouped_mm) at
      the Qwen3-30B-A3B shapes, with empty groups and trailing rows; the
@@ -76,7 +78,9 @@ outside a checkout of the repository. Phases, each fatal on failure:
      all_reduce by OneShot, TwoShot, XLA and Auto, reduce_scatter_op and
      the three *_op wrappers; launches pinned; each bitwise its plain
      fold, AllReduce methods against the XLA fold by the epsilon band;
-     full mesh against ring AG times, and the one-shot / two-shot
+     full mesh against ring AG times, the ring RS's rows (call ms,
+     device us, host us by part, library ms and device us, the bound's
+     share), and the one-shot / two-shot
      AllReduce sweep (4 KiB to 256 KiB a rank, n = 2 and 4) that sets
      the library's Auto crossover;
   4w. the tenth path, no weights: the quantized wire at Qwen3-8B
@@ -91,7 +95,8 @@ outside a checkout of the repository. Phases, each fatal on failure:
      bitwise the plain fold of its own partials and in the band's cosine
      end to end, ag_gemm in the bf16 band; every drift against the
      native fold at most DEFAULT_ERROR_BUDGET; each call's ms, device
-     us and bound beside the native kernel's ms;
+     us and bound beside the native kernel's ms (the RS rows also the
+     wrapper's host us by part and the native sum's ms and device us);
   5. every kernel against its plain version on the inputs recorded in
      phase 4, and its timing there (flash prefill also at two synthetic
      Qwen3-8B shapes), beside its bound over the work of all ranks, its
@@ -108,7 +113,10 @@ outside a checkout of the repository. Phases, each fatal on failure:
      and `fused`;
   5b. the ring ReduceScatter (bitwise), the grouped ag_gemm and
      grouped_gemm against their plain versions on the inputs recorded in
-     4b (the other kernels too), and the kernels' timing there;
+     4b (the other kernels too), and the kernels' timing there; the ring
+     RS at the dist prefill, scheduler step and fused prefill shapes with
+     the host us by part and the library's device us, its tile sweep
+     (2048, 4096, 8192 elements) and the bytes its persistent pools hold;
   4e. the seventh path, after 5b, on layer 0 of the same Qwen3-30B-A3B
      draw re-laid for EP (32 whole experts a rank): ep_moe_fwd at world
      4 over the MoE all-to-all kernels, 128 tokens a rank sequential and
@@ -538,31 +546,79 @@ def check_ag_gemm(kernels):
     return worst
 
 
+# (rows, width) a chunk of the ring RS card checks: a 3-element chunk, a
+# ragged one of several tiles, the Qwen3-30B-A3B path's scheduler step
+# and prefill chunks, one decode row
+RING_RS_CHUNKS = ((1, 3), (40, 1000), (64, 2048), (128, 2048), (1, 2048))
+
+
 def check_ring_rs(kernels):
     """The ring ReduceScatter against its plain version on the card:
     bitwise, at n = 1 (force_kernel: no ring step), 2 and 4, in f32, bf16
-    and bf16 with f32 accumulation; a 3-element chunk, a ragged one of
-    several tiles, and the Qwen3-30B-A3B main-path chunks (64 and 128
-    rows of 2048)."""
+    and bf16 with f32 accumulation; a 3-element chunk (the element-wise
+    path), a ragged one of several tiles, the Qwen3-30B-A3B main-path
+    chunks (64 and 128 rows of 2048) and a decode step's one row. Then at
+    n = 2 and 4 (bf16): every tile the plan may take, forced; each rank
+    in turn delayed 5 ms (the native launcher's _straggler, the wire
+    ring's straggler); 50 calls on one stream alternating two shapes and
+    the native ring with the fp8 wire ring, each bitwise, after which the
+    persistent flag pools read all zeros and no call past the first of
+    each configuration made a pool."""
     import torch
+
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    def same(label, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            err = (got.float() - want.float()).abs().max().item()
+            raise AssertionError(f"{label}: not bitwise (max abs err {err})")
 
     for n in (1, 2, 4):
         for dtype, acc in ((torch.float32, None), (torch.bfloat16, None),
                            (torch.bfloat16, torch.float32)):
-            for m, w in ((1, 3), (40, 1000), (64, 2048), (128, 2048)):
+            for m, w in RING_RS_CHUNKS:
                 x = rand((n, n * m, w), dtype, n + m + w, 1.0)
-                got = kernels.ring_reduce_scatter(x, accum_dtype=acc,
-                                                  force_kernel=n == 1)
-                want = kernels.ring_reduce_scatter_plain(x, acc)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    err = (got.float() - want.float()).abs().max().item()
-                    raise AssertionError(
-                        f"ring_reduce_scatter n={n} m={m} W={w} {dtype} "
-                        f"accum {acc}: not bitwise (max abs err {err})")
+                same(f"ring_reduce_scatter n={n} m={m} W={w} {dtype} "
+                     f"accum {acc}",
+                     kernels.ring_reduce_scatter(x, accum_dtype=acc,
+                                                 force_kernel=n == 1),
+                     kernels.ring_reduce_scatter_plain(x, acc))
             log(f"  ring_reduce_scatter n={n} {str(dtype)[6:]} accum "
-                f"{str(acc)[6:] if acc else 'input dtype'}: m x W in (1, 3), "
-                "(40, 1000), (64, 2048), (128, 2048): bitwise")
+                f"{str(acc)[6:] if acc else 'input dtype'}: m x W in "
+                f"{RING_RS_CHUNKS}: bitwise")
+    for n in (2, 4):
+        x = rand((n, n * 64, 2048), torch.bfloat16, 90 + n)
+        want = kernels.ring_reduce_scatter_plain(x)
+        want_wire = kernels.ring_reduce_scatter_wire_plain(x, "int8")
+        for tile in rs._TILES:
+            same(f"ring_reduce_scatter n={n} tile {tile}",
+                 rs._launch(x, x.dtype, tile=tile), want)
+        for rank in range(n):
+            same(f"ring_reduce_scatter n={n} rank {rank} delayed",
+                 rs._launch(x, x.dtype, _straggler=(rank, 5_000_000)), want)
+            same(f"ring_rs_wire n={n} rank {rank} delayed",
+                 kernels.ring_reduce_scatter_wire(
+                     x, "int8", straggler=(rank, 5_000_000)), want_wire)
+        xs = [x, rand((n, n * 37, 4096), torch.bfloat16, 95 + n)]
+        wants = [(kernels.ring_reduce_scatter_plain(y),
+                  kernels.ring_reduce_scatter_wire_plain(y, "fp8"))
+                 for y in xs]
+        for i in range(50):
+            y, (native, wired) = xs[i % 2], wants[i % 2]
+            if i // 2 % 2:
+                got, want = kernels.ring_reduce_scatter_wire(y, "fp8"), wired
+            else:
+                got, want = kernels.ring_reduce_scatter(y), native
+            same(f"back-to-back call {i} n={n}", got, want)
+            if i == 3:
+                made = rs._POOLS.made
+        assert rs._POOLS.made == made, "a warm call made a pool"
+        assert all(not bool(f.any()) for _, f in rs._POOLS.entries.values()), \
+            "a ring left a flag set"
+        log(f"  ring RS n={n}: tiles {rs._TILES} forced, each rank delayed "
+            f"(native and int8 wire), 50 calls back to back (native and fp8 "
+            f"wire, two shapes): bitwise; pools at zero, none made warm")
 
 
 def check_grouped_ag_gemm(kernels):
@@ -1286,10 +1342,149 @@ def device_us(fn, key, reps=10, tries=3):
     return None
 
 
+def device_us_total(fn, reps=10):
+    """Device µs a call of fn: every kernel's time in a torch.profiler
+    trace of `reps` calls, over reps (for a call of one library kernel
+    whose name we do not pin). None when the trace holds no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(float(getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0)))
+                for e in prof.key_averages())
+    return total / reps if total > 0 else None
+
+
+def host_parts(call, checks, buffers, launch, calls=100):
+    """A ring RS wrapper's host µs a call, time.perf_counter around
+    `calls` unsynchronised calls of each: the whole call, and its parts:
+    checks (the wrapper's Python checks), buffers (the output's allocation
+    and the persistent pool's lookup), ctypes (the C entry called with
+    n = 0, which returns before any CUDA call), launch (the C entry less
+    that: launch_world's device, attribute and occupancy queries and the
+    cooperative launch), rest (the wrapper's other Python: library
+    lookup, device guard, error check, count). Asserts that no warm call
+    made a pool."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return dt
+
+    made = rs._POOLS.made
+    parts = dict(call=per_call(call), checks=per_call(checks),
+                 buffers=per_call(buffers),
+                 ctypes=per_call(lambda: launch(0)),
+                 launch=per_call(lambda: launch(None)))
+    parts["launch"] -= parts["ctypes"]
+    parts["rest"] = parts["call"] - sum(
+        parts[k] for k in ("checks", "buffers", "ctypes", "launch"))
+    assert rs._POOLS.made == made, "a warm ring RS call made a pool"
+    return parts
+
+
+def rs_host_parts(kernels, x):
+    """host_parts of the native ring's wrapper on x (its own dtype)."""
+    from triton_dist_tpu_torch import wire
+    from triton_dist_tpu_torch.kernels import _build
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    lib = _build.load("reduce_scatter", rs._SIGNATURES)
+    out, acc, flags, tile, stream = rs._ring_buffers(x, x.dtype)
+    grid = _build.GridInfo()
+    code = rs._DTYPE_CODE[x.dtype]
+
+    def launch(n):
+        err = lib.rs_launch(x.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                            flags.data_ptr(), x.shape[0] if n is None else n,
+                            out[0].numel(), tile, code, code, -1, 0,
+                            grid.ptr(), stream)
+        assert (err == 0) == (n is None), err
+
+    return host_parts(
+        lambda: kernels.ring_reduce_scatter(x),
+        lambda: (rs._check(x), wire.resolve(None), rs._check_ring(x)),
+        lambda: rs._ring_buffers(x, x.dtype), launch)
+
+
+def rs_wire_host_parts(kernels, x, fmt):
+    """host_parts of the wire ring's wrapper on x in format fmt."""
+    from triton_dist_tpu_torch import wire
+    from triton_dist_tpu_torch.kernels import _build
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    lib = _build.load("reduce_scatter", rs._SIGNATURES)
+    out, slots, flags, warps, rows, stream = rs._wire_buffers(x, fmt,
+                                                               x.dtype)
+    grid = _build.GridInfo()
+    k = x[0, 0].numel()
+    nb = wire.n_blocks(k, fmt)
+    code = rs._DTYPE_CODE[x.dtype]
+
+    def launch(n):
+        err = lib.rs_wire_launch(
+            x.data_ptr(), slots.data_ptr(), out.data_ptr(),
+            flags.data_ptr(), x.shape[0] if n is None else n, out.shape[1],
+            k, int(fmt.kind == "fp8"), k // nb, nb, int(fmt.checksum),
+            slots.shape[-1], warps, rows, code, code, -1, 0, grid.ptr(),
+            stream)
+        assert (err == 0) == (n is None), err
+
+    return host_parts(
+        lambda: kernels.ring_reduce_scatter_wire(x, fmt),
+        lambda: (wire.resolve(fmt), rs._check(x), rs._wire_check(x, fmt, None),
+                 rs._check_ring(x), wire.wire_cols(k, fmt)),
+        lambda: rs._wire_buffers(x, fmt, x.dtype), launch)
+
+
+def rs_extras(label, row, x, host, wire_row=False):
+    """Completes a ring RS row (time_collective's, the library one sum
+    over the rank dim of the chunked input): for a wire row that sum in ms
+    and device µs as a yardstick only, kept as sum_ms / sum_us (it does
+    not requantize); the wrapper's host µs by part, and the share of the
+    bound that the kernel's device time reaches; logs them."""
+    n, nm = x.shape[:2]
+
+    def library():
+        return x.view(n, n, nm // n, -1).sum(0)
+
+    ms_key, us_key = ("sum_ms", "sum_us") if wire_row else (
+        "library_ms", "library_us")
+    if wire_row:
+        row[ms_key] = time_ms(library)
+        row[us_key] = device_us_total(library)
+    row["host_us"] = host
+    dev = row.get("device_us")
+    row["bound_share"] = None if not dev else row["bound_ms"] * 1e3 / dev
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in host.items() if k != "call")
+    log(f"  {label}: call {row['ms']:.4f} ms, device {dev} us, host "
+        f"{host['call']:.1f} us a call ({parts}), "
+        f"{'sum' if wire_row else 'library'} {row[ms_key]:.4f} ms / "
+        f"{row[us_key]} us device, bound {row['bound_ms']:.4f} ms, share "
+        f"{row['bound_share']}")
+    return row
+
+
 def time_collective(label, fn, plain, library, ops, nbytes, dtype,
                     kernel_key=None):
     """Kernel, plain and library times of one call, beside the bound;
-    with kernel_key, the kernel's device time from the profiler too.
+    with kernel_key, the kernel's device time from the profiler too; the
+    library call's device time beside its call time (device_us_total).
     library None: timed by the caller."""
     bnd, by = bound_ms(ops, nbytes, str(dtype)[6:])
     row = dict(ms=time_ms(fn), plain_ms=time_ms(plain), bound_ms=bnd,
@@ -1298,11 +1493,14 @@ def time_collective(label, fn, plain, library, ops, nbytes, dtype,
                gflop=ops / 1e9, mbytes=nbytes / 1e6)
     if kernel_key is not None:
         row["device_us"] = device_us(fn, kernel_key)
+    if library is not None:
+        row["library_us"] = device_us_total(library)
     dev = ("" if kernel_key is None else
            f", device {row['device_us']} us" if row["device_us"] is None else
            f", device {row['device_us']:.1f} us")
     lib = ("" if library is None else
-           f", library {row['library_ms']:.4f} ms")
+           f", library {row['library_ms']:.4f} ms / {row['library_us']} us "
+           "device")
     log(f"  {label}: kernel {row['ms']:.4f} ms{dev}, plain "
         f"{row['plain_ms']:.4f} ms{lib}, bound {bnd:.4f} ms ({by}; "
         f"{row['gflop']:.3f} GFLOP, {row['mbytes']:.2f} MB)")
@@ -3058,7 +3256,23 @@ def run_coll(kernels):
             lambda x=x: kernels.ring_all_gather(x),
             lambda x=x: kernels.ring_all_gather_plain(x), None, 0, nbytes,
             x.dtype, kernel_key="ring_ag_kernel")
-        ring_rows[label]["library_ms"] = fm_rows[label]["library_ms"]
+        for key in ("library_ms", "library_us"):
+            ring_rows[label][key] = fm_rows[label][key]
+    rs_rows = {}
+    for label, x in xs.items():
+        rows, w = x.shape[1:]
+        if rows % n:
+            continue
+        m = rows // n
+        rs_rows[label] = rs_extras(
+            f"ring_reduce_scatter {label}", time_collective(
+                f"ring_reduce_scatter {label}",
+                lambda x=x: kernels.ring_reduce_scatter(x),
+                lambda x=x: kernels.ring_reduce_scatter_plain(x),
+                lambda x=x, m=m: x.view(n, n, m, -1).sum(0),
+                n * (n - 1) * m * w, (n * rows * w + n * m * w)
+                * x.element_size(), torch.float32,
+                kernel_key="ring_rs_kernel"), x, rs_host_parts(kernels, x))
     sweep = {}
     for nn in (2, 4):
         for b in AR_SWEEP_BYTES:
@@ -3094,7 +3308,8 @@ def run_coll(kernels):
                        full_mesh_us=fm_rows[k]["device_us"],
                        ring_ms=ring_rows[k]["ms"],
                        ring_us=ring_rows[k]["device_us"])
-                       for k in fm_rows})
+                       for k in fm_rows},
+                   ring_rs=rs_rows)
     return launched, fm_rows, labels[1], max(fm_errs), numbers
 
 
@@ -3327,13 +3542,18 @@ def run_wire(kernels):
             ins, out = n * rows_n * w * 2, n * m * w * 2
             hops = wire_hop_bytes(n, m, w, f)
             label = f"({rows_n}, {w}) bf16 a rank, {what}, {fl}"
-            rows["ring_rs_wire"][f"reduce_scatter_op {label}"] = wire_row(
-                f"reduce_scatter_op {label}",
-                lambda x=x, f=f: kernels.reduce_scatter_op(x, wire_format=f),
-                lambda x=x, f=f: kernels.ring_reduce_scatter_wire_plain(x, f),
-                lambda x=x: kernels.reduce_scatter_op(x), n * (n - 1) * m * w,
-                ins + out + hops, ["ring_rs_wire_kernel"],
-                drift[("reduce_scatter_op", rows_n, fl)])
+            rows["ring_rs_wire"][f"reduce_scatter_op {label}"] = rs_extras(
+                f"reduce_scatter_op {label}", wire_row(
+                    f"reduce_scatter_op {label}",
+                    lambda x=x, f=f: kernels.reduce_scatter_op(
+                        x, wire_format=f),
+                    lambda x=x, f=f: kernels.ring_reduce_scatter_wire_plain(
+                        x, f),
+                    lambda x=x: kernels.reduce_scatter_op(x),
+                    n * (n - 1) * m * w, ins + out + hops,
+                    ["ring_rs_wire_kernel"],
+                    drift[("reduce_scatter_op", rows_n, fl)]),
+                x, rs_wire_host_parts(kernels, x, f), wire_row=True)
             timings[f"all_reduce_op {label}"] = wire_row(
                 f"all_reduce_op {label}",
                 lambda x=x, f=f: kernels.all_reduce_op(x, wire_format=f),
@@ -3499,36 +3719,64 @@ def check_recorded_grouped_gemm(records):
 
 
 def time_moe(kernels, records):
-    """The ring ReduceScatter at the `dist` prefill's (4, 512, 2048) and a
-    `dist` scheduler step's (4, 256, 2048), and the grouped ag_gemm at the
-    fused prefill's shapes, on inputs the MoE path gave them. RS bound:
-    n chunks read and one written a rank (its adds at the f32 rate);
-    library: one sum over the rank dim of the chunked input. Grouped
+    """The ring ReduceScatter at the `dist` prefill's (4, 512, 2048), a
+    `dist` scheduler step's (4, 256, 2048) and the fused prefill's (4,
+    4 x FUSED_LEN, 2048), and the grouped ag_gemm at the fused prefill's
+    shapes, on inputs the MoE path gave them. RS bound: n chunks read and
+    one written a rank (its adds at the f32 rate); library: one sum over
+    the rank dim of the chunked input, in ms and device µs; the
+    wrapper's host µs by part (rs_extras). Then the ring's tile sweep at
+    the first two: each of its tiles forced, bitwise, call ms and device
+    µs. Grouped
     ag_gemm bound: the work this run's routing needs, the live (token,
     choice) rows times the gate and up slices of the experts they reach
     (2 x 2 x rows x K x I_loc operations a rank; those experts' B, the
     live A rows and C rows read or written once), not the capacity
     padding the kernel computes; library: one batched matmul of the
     gathered packed blocks against [w_gate | w_up]. Returns {label: row}
-    for each and their main labels."""
+    for each, their main labels and the RS tile sweep."""
     import torch
 
-    rs_rows, ag_rows = {}, {}
-    for rows, when in ((512, "dist prefill"), (256, "dist scheduler step")):
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    rs_rows, ag_rows, sweep, plan = {}, {}, {}, {}
+    for rows, when in ((512, "dist prefill"), (256, "dist scheduler step"),
+                       (4 * FUSED_LEN, f"fused prefill 4x{FUSED_LEN}")):
         rec = next(r for r in records["ring_reduce_scatter"]
                    if r["x"].shape[1] == rows)
         x = rec["x"]
         n, nm, w = x.shape
         m = nm // n
         label = f"{when} x {tuple(x.shape)} bf16"
-        rs_rows[label] = time_collective(
-            f"ring_reduce_scatter {label}",
-            lambda x=x: kernels.ring_reduce_scatter(x),
-            lambda x=x: kernels.ring_reduce_scatter_plain(x),
-            lambda x=x, n=n, m=m, w=w: x.view(n, n, m, w).sum(0),
-            n * (n - 1) * m * w,
-            (n * nm * w + n * m * w) * x.element_size(), torch.float32,
-            kernel_key="ring_rs_kernel")
+        rs_rows[label] = rs_extras(
+            f"ring_reduce_scatter {label}", time_collective(
+                f"ring_reduce_scatter {label}",
+                lambda x=x: kernels.ring_reduce_scatter(x),
+                lambda x=x: kernels.ring_reduce_scatter_plain(x),
+                lambda x=x, n=n, m=m, w=w: x.view(n, n, m, w).sum(0),
+                n * (n - 1) * m * w,
+                (n * nm * w + n * m * w) * x.element_size(), torch.float32,
+                kernel_key="ring_rs_kernel"), x, rs_host_parts(kernels, x))
+        if rows == 4 * FUSED_LEN:
+            continue
+        want = kernels.ring_reduce_scatter_plain(x)
+        for tile in rs._TILES:
+            def fn(x=x, tile=tile):
+                return rs._launch(x, x.dtype, tile=tile)
+            assert torch.equal(fn(), want), (tuple(x.shape), tile)
+            sweep[f"{tuple(x.shape)} tile {tile}"] = dict(
+                ms=time_ms(fn), device_us=device_us(fn, "ring_rs_kernel"),
+                tiles=rs._ring_plan(m * w, 2, n, tile=tile)[1])
+        plan[str(tuple(x.shape))] = rs._ring_plan(m * w, 2, n)[0]
+    log("  ring_reduce_scatter tile sweep (bf16, bitwise; call ms / device "
+        "us / tiles a rank): " + "; ".join(
+            f"{k}: {v['ms']:.4f} / {v['device_us']} / {v['tiles']}"
+            for k, v in sweep.items()) + f"; the plan takes {plan}")
+    held = {f"{k[0]} n={k[3]} size {k[4]} {str(k[5])[6:]} tiles {k[6]}":
+            sum(t.numel() * t.element_size() for t in v)
+            for k, v in rs._POOLS.entries.items()}
+    log(f"  ring RS persistent pools (slots + flags, bytes; {len(held)} of "
+        f"{rs._POOLS.size} entries, {rs._POOLS.made} made): {held}")
     rec = next(r for r in records["ag_gemm"]
                if isinstance(r["b"], tuple) and r["b"][0].dim() == 4)
     a, (wg, wu) = rec["a"], rec["b"]
@@ -3553,7 +3801,7 @@ def time_moe(kernels, records):
         2 * 2 * n * live_rows * k * i_loc,
         (live_rows * k + n * live_e * k * 2 * i_loc + n * live_rows * i_loc)
         * a.element_size(), a.dtype, kernel_key="ag_gemm_kernel")
-    return rs_rows, ag_rows, next(iter(rs_rows)), label
+    return rs_rows, ag_rows, next(iter(rs_rows)), label, sweep
 
 
 def entry(name, launches, by_path, err, rows, main_label, **extra):
@@ -3704,7 +3952,8 @@ def main() -> int:
     err_rs = check_recorded_rs(kernels, recm["ring_reduce_scatter"])
     modelm["grouped_gemm_max_abs_err"] = check_recorded_grouped_gemm(
         recm["grouped_gemm"])
-    moe_rs_rows, moe_ag_rows, rs_main, grouped_main = time_moe(kernels, recm)
+    moe_rs_rows, moe_ag_rows, rs_main, grouped_main, rs_sweep = time_moe(
+        kernels, recm)
     del recm
     torch.cuda.empty_cache()
     log("== 4e. the seventh path: EP MoE (ep_moe_fwd) on layer 0 of the "
@@ -3750,7 +3999,8 @@ def main() -> int:
                                     atol_ratio_synthetic=grouped_ratio)))
     lines.append(entry("ring_reduce_scatter", total("ring_reduce_scatter"),
                        by_path("ring_reduce_scatter"), err_rs, moe_rs_rows,
-                       rs_main))
+                       rs_main, device_us=moe_rs_rows[rs_main]["device_us"],
+                       tile_sweep=rs_sweep))
     mega_rows = {"world 1, batch 4, Qwen3-8B decode step": mega1,
                  "world 4, batch 4, Qwen3-8B decode step": mega4}
     lines.append(entry("mega", total("mega"), by_path("mega"),

@@ -47,6 +47,7 @@ from triton_dist_tpu_torch.kernels import (
 from triton_dist_tpu_torch.kernels import allgather as ag
 from triton_dist_tpu_torch.kernels import allreduce as ar
 from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
+from triton_dist_tpu_torch.kernels import reduce_scatter as rsr
 from triton_dist_tpu_torch.runtime import VirtualWorld
 from triton_dist_tpu_torch.wire import WireFormat
 
@@ -255,3 +256,84 @@ def test_library_name_hashes_every_header(tmp_path, monkeypatch):
     third = _build._lib_path("k")
     (tmp_path / "k.cu").write_text('#include "shmem.cuh"\n// edit\n')
     assert len({first, second, third, _build._lib_path("k")}) == 4
+
+
+# chunks (elements a rank) of the native ring: the Qwen3-30B-A3B path's
+# prefill, scheduler step, fused prefill and one decode row (rows of
+# 2048); the collective library's (512 | 128 | 4, 4096) bf16 and (64,
+# 4096) f32 shards over 4 ranks; the card tests' chunks; one element;
+# a prime width
+_RING_CHUNKS = [(128 * 2048, 2), (64 * 2048, 2), (32 * 2048, 2), (2048, 2),
+                (128 * 4096, 2), (32 * 4096, 2), (4096, 2), (16 * 4096, 4),
+                (40 * 1000, 2), (37 * 4096, 2), (3, 4), (1, 2), (1009, 4)]
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("chunk,itemsize", _RING_CHUNKS)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_ring_plan_covers_the_chunk_within_residency(n, chunk, itemsize,
+                                                     sms):
+    """The native ring's tiles: every element in exactly one tile, each
+    tile a whole number of 16-byte words (so tiles start aligned where the
+    chunk does), a thread's share of the slot within its register budget,
+    and the tiles of all n ranks resident at once (_RING_PER_SM blocks an
+    SM of `sms`)."""
+    tile, tiles = rsr._ring_plan(chunk, itemsize, n, sms)
+    assert tile in rsr._TILES and tile * itemsize % 16 == 0
+    assert (tiles - 1) * tile < chunk <= tiles * tile
+    cover = torch.zeros(tiles * tile, dtype=torch.int32)
+    for t in range(tiles):
+        cover[t * tile:(t + 1) * tile] += 1
+    assert bool((cover[:chunk] == 1).all())
+    assert tile // rsr._TILES[0] * 8 * itemsize <= rsr._THREAD_SHARE
+    assert tiles * n <= rsr._RING_PER_SM * sms
+    if tile > rsr._TILE:  # grown only because the smaller did not fit
+        assert -(-chunk // (tile // 2)) * n > rsr._RING_PER_SM * sms
+
+
+def test_ring_plan_forced_tiles():
+    """The sweep's forced tiles: any of _TILES within a thread's share,
+    nothing else."""
+    assert rsr._ring_plan(128 * 2048, 2, 4, tile=8192) == (8192, 32)
+    assert rsr._ring_plan(3, 4, 2, tile=4096) == (4096, 1)
+    for tile, itemsize in ((8192, 4), (1024, 2), (3000, 2)):
+        with pytest.raises(ValueError, match="tile"):
+            rsr._ring_plan(4096, itemsize, 2, tile=tile)
+
+
+def test_ring_pool_cache_keys_and_evicts_least_recently_used():
+    """The persistent slots and flags: one entry a (kernel, device,
+    stream, n, size, dtype, tiles), made once and then handed back; two
+    streams, worlds, sizes, dtypes, tile counts or kernels never share
+    one; past `size` entries the least recently used goes. Buffers
+    stubbed by CPU tensors."""
+    x = torch.zeros(4, 8)
+    key = functools.partial(rsr._pool_key, "ring_reduce_scatter", x)
+    base = key(7, 16, torch.bfloat16, 1)
+    others = [key(8, 16, torch.bfloat16, 1), key(7, 32, torch.bfloat16, 1),
+              key(7, 16, torch.float32, 1), key(7, 16, torch.bfloat16, 2),
+              rsr._pool_key("ring_rs_wire", x, 7, 16, torch.bfloat16, 1),
+              rsr._pool_key("ring_reduce_scatter", torch.zeros(2, 8), 7, 16,
+                            torch.bfloat16, 1)]
+    assert len({base, *others}) == len(others) + 1
+    cache = rsr._PoolCache(size=3)
+    made = []
+
+    def make(tag):
+        def fn():
+            made.append(tag)
+            return torch.empty(4, 2, 16), torch.zeros(4, 3, dtype=torch.int32)
+        return fn
+
+    first = cache.get(base, make("a"))
+    assert cache.get(base, make("again")) is first and made == ["a"]
+    for tag, k in zip("bcd", others):
+        cache.get(k, make(tag))
+    # a was the least recently used: d evicted it
+    assert list(cache.entries) == others[:3] and cache.made == 4
+    cache.get(others[0], make("b again"))  # b is now the most recent
+    cache.get(base, make("a again"))  # made anew; c goes
+    assert list(cache.entries) == [others[2], others[0], base]
+    assert made == ["a", "b", "c", "d", "a again"] and cache.made == 5
+    assert rsr._POOLS.size == 8
+

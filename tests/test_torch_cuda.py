@@ -222,12 +222,14 @@ def test_ring_reduce_scatter_kernel_matches_plain_bitwise(cuda, n, dtype,
                                                           accum):
     """The credit-flow ring against its plain version: bitwise (the same
     fold order, each add rounded to the accumulation dtype), at chunks of
-    several tiles with a ragged last one, and one of 3 elements; n = 1
-    with force_kernel runs no ring step."""
+    several tiles with a ragged last one, one of 3 elements (the
+    element-wise path), the Qwen3-30B-A3B path chunks (64 and 128 rows
+    of 2048) and a decode step's one row; n = 1 with force_kernel runs
+    no ring step."""
     rng = np.random.default_rng(30 + n)
     reset_launches()
     calls = 0
-    for m, w in ((40, 1000), (1, 3), (64, 2048)):
+    for m, w in ((40, 1000), (1, 3), (64, 2048), (128, 2048), (1, 2048)):
         x = torch.from_numpy(rng.standard_normal((n, n * m, w))).to(
             "cuda", dtype)
         got = ring_reduce_scatter(x, accum_dtype=accum, force_kernel=True)
@@ -239,6 +241,93 @@ def test_ring_reduce_scatter_kernel_matches_plain_bitwise(cuda, n, dtype,
         if dtype == torch.bfloat16:
             band(want, got, "ring_reduce_scatter")
     assert launches()["ring_reduce_scatter"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype,accum", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)], ids=["f32", "bf16", "bf16-acc-f32"])
+def test_ring_reduce_scatter_every_tile_bitwise(cuda, n, dtype, accum):
+    """Each tile the plan may take (2048, 4096, 8192 elements, as far as
+    a thread's share of the slot allows), forced through the launcher,
+    bitwise the plain version: a ragged chunk, a misaligned one (3
+    elements) and a path chunk."""
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    rng = np.random.default_rng(60 + n)
+    tiles = [t for t in rs._TILES if t // rs._TILES[0] * 8 * accum.itemsize
+             <= rs._THREAD_SHARE]
+    for m, w in ((40, 1000), (1, 3), (64, 2048)):
+        x = torch.from_numpy(rng.standard_normal((n, n * m, w))).to(
+            "cuda", dtype)
+        want = ring_reduce_scatter_plain(x, accum)
+        for tile in tiles:
+            got = rs._launch(x, accum, tile=tile)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (m, w, tile)
+
+
+def _pools_at_zero():
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    return all(not bool(flags.any())
+               for _, flags in rs._POOLS.entries.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_reduce_scatter_back_to_back_leaves_flags_at_zero(cuda, n):
+    """50 calls on one stream, alternating two shapes and the native ring
+    (row 10) with the fp8 wire ring (row 11), each bitwise its plain
+    version: every launch finds its persistent flags at zero, which the
+    previous one left there. After them, the pools read all zeros and no
+    call past the first of each configuration made a pool."""
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    rng = np.random.default_rng(70 + n)
+    shapes = ((64, 2048), (37, 4096))
+    xs = [torch.from_numpy(rng.standard_normal((n, n * m, w))).to(
+        "cuda", torch.bfloat16) for m, w in shapes]
+    native = [ring_reduce_scatter_plain(x) for x in xs]
+    wired = [rs.ring_reduce_scatter_wire_plain(x, "fp8") for x in xs]
+    made = None
+    for i in range(50):
+        x = xs[i % 2]
+        if i // 2 % 2:
+            got, want = rs.ring_reduce_scatter_wire(x, "fp8"), wired[i % 2]
+        else:
+            got, want = ring_reduce_scatter(x), native[i % 2]
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), i
+        if i == 3:
+            made = rs._POOLS.made
+    assert rs._POOLS.made == made
+    assert _pools_at_zero()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_reduce_scatter_delayed_rank_bitwise(cuda, n):
+    """Each rank in turn stalls 5 ms on entry (the native launcher's
+    _straggler, the wire ring's straggler): the fold does not follow
+    arrival, so both rings stay bitwise their plain versions, and the
+    flags come back to zero."""
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    rng = np.random.default_rng(80 + n)
+    x = torch.from_numpy(rng.standard_normal((n, n * 64, 2048))).to(
+        "cuda", torch.bfloat16)
+    want = ring_reduce_scatter_plain(x)
+    want_wire = rs.ring_reduce_scatter_wire_plain(x, "int8")
+    for rank in range(n):
+        got = rs._launch(x, x.dtype, _straggler=(rank, 5_000_000))
+        got_wire = rs.ring_reduce_scatter_wire(
+            x, "int8", straggler=(rank, 5_000_000))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), rank
+        assert torch.equal(got_wire, want_wire), rank
+    assert _pools_at_zero()
 
 
 def _grouped_atol(full, ws, want):
@@ -434,11 +523,11 @@ n, E = 4, 4096
 x = torch.ones((n, n * E), device="cuda", dtype=torch.bfloat16)
 acc = torch.empty((n, 2, E), device="cuda", dtype=torch.bfloat16)
 out = torch.empty((n, E), device="cuda", dtype=torch.bfloat16)
-flags = torch.full((n, 3 * lib.rs_tile_count(E, 1024)), -1000,
-                   device="cuda", dtype=torch.int32)
+tile, tiles = rs._ring_plan(E, 2, n)
+flags = torch.full((n, 3 * tiles), -1000, device="cuda", dtype=torch.int32)
 grid = _build.GridInfo()
 err = lib.rs_launch(x.data_ptr(), acc.data_ptr(), out.data_ptr(),
-                    flags.data_ptr(), n, E, 1024, 1, 1, grid.ptr(),
+                    flags.data_ptr(), n, E, tile, 1, 1, -1, 0, grid.ptr(),
                     torch.cuda.current_stream().cuda_stream)
 assert err == 0, err
 try:
@@ -1433,11 +1522,12 @@ n, m, K, kw = 4, 8, 1024, 1152
 x = torch.ones((n, n * m, K), device="cuda", dtype=torch.bfloat16)
 slots = torch.empty((n, 2, m, kw), device="cuda", dtype=torch.int8)
 out = torch.empty((n, m, K), device="cuda", dtype=torch.bfloat16)
-flags = torch.full((n, 3 * 4), -1000, device="cuda", dtype=torch.int32)
+warps, rows, tiles = rs._wire_plan(m, K, K, n)
+flags = torch.full((n, 3 * tiles), -1000, device="cuda", dtype=torch.int32)
 grid = _build.GridInfo()
 err = lib.rs_wire_launch(x.data_ptr(), slots.data_ptr(), out.data_ptr(),
-                         flags.data_ptr(), n, m, K, 1, K, 1, 0, kw, 2, 1, 1,
-                         -1, 0, grid.ptr(),
+                         flags.data_ptr(), n, m, K, 1, K, 1, 0, kw, warps,
+                         rows, 1, 1, -1, 0, grid.ptr(),
                          torch.cuda.current_stream().cuda_stream)
 assert err == 0, err
 try:

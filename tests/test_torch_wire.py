@@ -808,3 +808,36 @@ def test_jax_wire_module_names_are_ported():
     """Every public name of triton_dist_tpu.wire has its counterpart."""
     names = {n for n in dir(jw) if not n.startswith("_")}
     assert names - {"annotations"} <= {n for n in dir(wire)}
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("m,k,blk", [
+    (128, 4096, 4096), (1, 4096, 4096), (128, 4096, 128), (1, 4096, 128),
+    (16, 4096, 4096), (37, 4096, 4096), (4, 384, 384), (8, 1024, 1024),
+    (32, 4096, 32), (1, 1, 1), (3, 1009, 1009), (2, 48 * 1024, 48 * 1024),
+    (5, 8192, 16), (4, 4104, 4104)])
+def test_wire_ring_plan_covers_the_rows_within_residency(n, m, k, blk):
+    """The wire ring's row plan: every row in exactly one tile; in the
+    register form (k and the scale block multiples of 16, 16-byte row
+    starts) one row a group of 1, 2, 4 or 8 warps, a thread's share at
+    most _WIRE_UNITS units, and the tiles of all n ranks resident
+    (_WIRE_PER_SM blocks an SM of 132); else the staged form, as many
+    tiles as one block an SM keeps resident. The path shapes (the 4c and
+    4w (512 | 4, 4096) and the 30B (128, 2048) rows a rank) take the
+    register form."""
+    from triton_dist_tpu_torch.kernels import reduce_scatter as rsr
+
+    warps, rows, tiles = rsr._wire_plan(m, k, blk, n)
+    assert (tiles - 1) * rows < m <= tiles * rows
+    unit = rsr._WIRE_UNIT
+    if warps:
+        assert k % unit == 0 and blk % unit == 0 and k * 2 % 16 == 0
+        assert warps in (1, 2, 4, 8) and rows == 8 // warps
+        assert -(-k // unit) <= rsr._WIRE_UNITS * 32 * warps
+        assert tiles * n <= rsr._WIRE_PER_SM * rsr._SMS
+    else:
+        assert k % unit or blk % unit or k > unit * rsr._WIRE_UNITS * 256
+        assert tiles * n <= rsr._SMS
+    if k in (2048, 4096) and blk % unit == 0:
+        assert warps
+

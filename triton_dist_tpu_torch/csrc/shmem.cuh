@@ -19,7 +19,9 @@
 // and the release store / release add of the flag; a reader does one
 // acquire load of the flag (one thread), then __syncthreads(), then
 // reads the data with ld.global.cg (__ldcg, past L1, which is not
-// coherent across SMs).
+// coherent across SMs). The ring ReduceScatter's hops leave out the
+// __threadfence: the release add is cumulative over the barrier
+// (reduce_scatter.cu ring_signal).
 //
 // Every spin is bounded: past kWaitBoundNs the waiting thread prints
 // (kernel, rank, flag index, value) and executes __trap(). The launch
@@ -97,11 +99,12 @@ __device__ __forceinline__ void signal_add(int* flag, int v) {
 }
 
 // One thread's bounded acquire spin until `*flag cmp v`, backing off
-// with __nanosleep: past kWaitBoundNs it prints (kernel, rank, flag
-// index, value) and traps.
+// with __nanosleep from 32 ns, doubling up to max_sleep_ns: past
+// kWaitBoundNs it prints (kernel, rank, flag index, value) and traps.
 __device__ __forceinline__ void spin_until(const int* flag, Cmp cmp, int v,
                                            const char* kernel, int rank,
-                                           int index) {
+                                           int index,
+                                           unsigned max_sleep_ns = 1024) {
   const unsigned long long t0 = globaltimer();
   unsigned ns = 32;
   for (;;) {
@@ -114,7 +117,7 @@ __device__ __forceinline__ void spin_until(const int* flag, Cmp cmp, int v,
       __trap();
     }
     __nanosleep(ns);
-    if (ns < 1024) ns *= 2;
+    if (ns < max_sleep_ns) ns *= 2;
   }
 }
 
@@ -123,10 +126,11 @@ __device__ __forceinline__ void spin_until(const int* flag, Cmp cmp, int v,
 // persistent flag by value that the low-latency AllGather's parity
 // protocol uses: a context flag that call k sets to k + 1 (st.release,
 // signal_set) and that is never reset between calls.
-__device__ __forceinline__ void signal_wait_until(const int* flag, Cmp cmp,
-                                                  int v, const char* kernel,
-                                                  int rank, int index) {
-  if (threadIdx.x == 0) spin_until(flag, cmp, v, kernel, rank, index);
+__device__ __forceinline__ void signal_wait_until(
+    const int* flag, Cmp cmp, int v, const char* kernel, int rank, int index,
+    unsigned max_sleep_ns = 1024) {
+  if (threadIdx.x == 0)
+    spin_until(flag, cmp, v, kernel, rank, index, max_sleep_ns);
   __syncthreads();
 }
 

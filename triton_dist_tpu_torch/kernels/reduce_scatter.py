@@ -53,12 +53,24 @@ half to even, no fused multiply-add), so the two agree bitwise. The
 wire route skips the Auto rule (the XLA arm cannot requantize a hop);
 an `accum_dtype` other than f32 with a quantized wire raises, as in
 JAX; at n = 1 the input comes back unless `force_kernel`.
+
+On the card both kernels take their slots and flag pools from `_POOLS`,
+a cache of at most 8 entries keyed by (kernel, device, stream, n, slot
+size, dtype, tiles): made once (the flags zeroed once), then reused,
+since every slot is written before it is read in a call and each rank
+leaves its flags at zero after its last wait (csrc/reduce_scatter.cu).
+A call allocates only its output. `_ring_plan` and `_wire_plan` cut a
+chunk into the rings that run side by side; `_launch(x, acc_dtype,
+tile=, _straggler=(rank, nanos))` is the native launcher with a forced
+tile and a delayed rank, for the sweep and the tests.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import enum
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -80,23 +92,125 @@ class ReduceScatterMethod(enum.Enum):
 # the JAX Auto rule: the ring for chunks up to this many bytes
 RING_CHUNK_LIMIT = 4 * (1 << 20)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# elements a tile: each tile runs its own ring (one block a rank)
-_TILE = 8192
-# the wire kernel's rings a rank at most: a tile holds whole rows, at
-# least one, m / _WIRE_TILES of them (rounded up)
-_WIRE_TILES = 32
-# the wire kernel stages one f32 row in shared memory
+# The native ring's tiles (csrc/reduce_scatter.cu): 256 threads x 8
+# elements x U, U = 1, 2, 4; each tile runs its own ring (one block a
+# rank). _TILE is the default (the sweep of chip_smoke.py phase 5b); a
+# thread's share of the accumulation slot stays within _THREAD_SHARE
+# bytes (registers), and the kernel keeps _RING_PER_SM blocks an SM
+# resident at that share (its __launch_bounds__).
+_TILES = (2048, 4096, 8192)
+_TILE = 2048
+_THREAD_SHARE = 64
+_RING_PER_SM = 4
+# the H100's SMs: the plans' default, the card's own count on the card
+_SMS = 132
+# The wire kernel: a row in registers on a group of 1, 2, 4 or 8 warps,
+# each thread holding at most _WIRE_UNITS units of 16 elements (a tile is
+# one row a group); other rows are staged in shared memory, a block a
+# row, at most _WIRE_MAX_COLS elements. _WIRE_PER_SM blocks an SM stay
+# resident in the register form (its __launch_bounds__); the staged form
+# plans for one.
+_WIRE_UNIT = 16
+_WIRE_UNITS = 2
+_WIRE_PER_SM = 2
 _WIRE_MAX_COLS = 48 * 1024
+# persistent slots and flag pools a (kernel, device, stream, n, size,
+# dtype, tiles); the least recently used goes past this many
+_POOL_ENTRIES = 8
 _SIGNATURES = {
     "rs_launch": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
-    "rs_tile_count": (ctypes.c_int, [ctypes.c_longlong, ctypes.c_int]),
+        ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4 + [
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]),
     "rs_wire_launch": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 12 + [ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_int] * 13 + [ctypes.c_longlong, ctypes.c_void_p,
                               ctypes.c_void_p]),
     "rs_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+
+
+def _ring_plan(chunk: int, itemsize: int, n: int, sms: int = _SMS,
+               tile: Optional[int] = None) -> Tuple[int, int]:
+    """(tile, tiles) of the native ring for a chunk of `chunk` elements
+    whose accumulation slot has `itemsize`-byte elements, at world n:
+    _TILE, doubled while the tiles of all n ranks exceed what stays
+    resident (_RING_PER_SM blocks an SM) and a thread's share of the slot
+    stays within _THREAD_SHARE bytes. Every tile is a whole number of
+    16-byte words, so tiles start aligned wherever the chunk does. `tile`
+    forces one of _TILES (the sweep)."""
+    top = max(t for t in _TILES if t // _TILES[0] * 8 * itemsize
+              <= _THREAD_SHARE)
+    if tile is None:
+        cap = max(1, _RING_PER_SM * sms // n)
+        tile = _TILE
+        while -(-chunk // tile) > cap and tile < top:
+            tile *= 2
+    elif tile not in _TILES or tile > top:
+        raise ValueError(f"tile {tile}: one of {_TILES}, at most {top} for "
+                         f"{itemsize}-byte accumulation")
+    return tile, -(-chunk // tile)
+
+
+def _wire_plan(m: int, k: int, blk: int, n: int,
+               sms: int = _SMS) -> Tuple[int, int, int]:
+    """(warps a row, rows a tile, tiles) of the wire ring for chunks of m
+    rows of k elements, scale blocks of blk, at world n. In registers
+    (k and blk multiples of 16, k <= 16 x _WIRE_UNITS x 256): the fewest
+    warps that hold a row, widened while the tiles of all n ranks (one
+    row a group, 8 / warps a tile) stay resident; else staged (warps 0),
+    whole rows a tile, as many tiles as one block an SM keeps resident."""
+    if (k % _WIRE_UNIT == 0 and blk % _WIRE_UNIT == 0
+            and k <= _WIRE_UNIT * _WIRE_UNITS * 32 * 8):
+        cap = max(1, _WIRE_PER_SM * sms // n)
+        warps = 1
+        while -(-k // _WIRE_UNIT) > _WIRE_UNITS * 32 * warps:
+            warps *= 2
+        while warps < 8 and -(-m // (4 // warps)) <= cap:
+            warps *= 2
+        rows = 8 // warps
+        return warps, rows, -(-m // rows)
+    rows = -(-m // max(1, sms // n))
+    return 0, rows, -(-m // rows)
+
+
+class _PoolCache:
+    """The rings' persistent buffers: an entry a call configuration (the
+    accumulation or image slots, uninitialised, and the flag pool, zeroed
+    once when made; the kernels leave the flags at zero). At most `size`
+    entries, the least recently used evicted first; an evicted buffer goes
+    back to the caching allocator, which orders its reuse by the stream
+    it was made on. `made` counts the entries made."""
+
+    def __init__(self, size: int = _POOL_ENTRIES):
+        self.size = size
+        self.entries: "collections.OrderedDict" = collections.OrderedDict()
+        self.made = 0
+
+    def get(self, key, make):
+        entry = self.entries.get(key)
+        if entry is None:
+            entry = make()
+            self.made += 1
+        self.entries[key] = entry
+        self.entries.move_to_end(key)
+        while len(self.entries) > self.size:
+            self.entries.popitem(last=False)
+        return entry
+
+
+_POOLS = _PoolCache()
+
+
+def _pool_key(kernel: str, x: torch.Tensor, stream: int, size, dtype,
+              tiles: int) -> tuple:
+    """A pool's key: two calls share buffers only on one device and one
+    stream (launches on a stream run one after another), at one world
+    size, slot size and dtype, and tile count."""
+    return (kernel, x.device, stream, x.shape[0], size, dtype, tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(x: torch.Tensor) -> None:
@@ -244,33 +358,89 @@ def reduce_scatter_op(arr: torch.Tensor, method=ReduceScatterMethod.Auto,
     return out.reshape(-1, *out.shape[2:])
 
 
-def _launch(x: torch.Tensor, acc_dtype: torch.dtype) -> torch.Tensor:
+def _ring_buffers(x: torch.Tensor, acc_dtype: torch.dtype,
+                  tile: Optional[int] = None):
+    """A native ring call's output, its persistent slots and flags, its
+    tile and the stream: everything the launch needs but the launch."""
+    n = x.shape[0]
+    out = torch.empty((n, x.shape[1] // n, *x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    chunk = out[0].numel()
+    tile, tiles = _ring_plan(chunk, acc_dtype.itemsize, n,
+                             _card_sms(x.device), tile)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def make():
+        world = VirtualWorld.of(x)
+        return (world.heap((2, chunk), acc_dtype),  # [rank][slot]
+                world.flags(3 * tiles))
+
+    acc, flags = _POOLS.get(_pool_key("ring_reduce_scatter", x, stream, chunk,
+                                      acc_dtype, tiles), make)
+    return out, acc, flags, tile, stream
+
+
+def _launch(x: torch.Tensor, acc_dtype: torch.dtype,
+            tile: Optional[int] = None,
+            _straggler: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The native ring kernel on x. tile: one of _TILES instead of the
+    plan's; _straggler (rank, nanos): that rank's blocks stall on entry
+    (a test hook; the result is the same)."""
     if x.device.type != "cuda":
         raise ValueError(f"the reduce-scatter kernel needs a CUDA tensor, "
                          f"got {x.device}")
     if x.dtype not in _DTYPE_CODE or acc_dtype not in _DTYPE_CODE:
         raise ValueError(f"dtypes {x.dtype} / accum {acc_dtype}: the kernel "
                          "takes float32 or bfloat16")
-    world = VirtualWorld.of(x)
     n = x.shape[0]
-    m = x.shape[1] // n
-    out = torch.empty((n, m, *x.shape[2:]), dtype=x.dtype, device=x.device)
-    chunk = out[0].numel()
-    if chunk == 0:
-        return out
+    rank, nanos = _straggler_args(_straggler, n)
+    if x.numel() == 0:
+        return torch.empty((n, x.shape[1] // n, *x.shape[2:]),
+                           dtype=x.dtype, device=x.device)
     lib = _build.load("reduce_scatter", _SIGNATURES)
-    acc = world.heap((2, chunk), acc_dtype)  # [rank][slot]
-    flags = world.flags(3 * lib.rs_tile_count(chunk, _TILE))
+    out, acc, flags, tile, stream = _ring_buffers(x, acc_dtype, tile)
     grid = _build.GridInfo()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.rs_launch(x.data_ptr(), acc.data_ptr(), out.data_ptr(),
-                            flags.data_ptr(), n, chunk, _TILE,
+                            flags.data_ptr(), n, out[0].numel(), tile,
                             _DTYPE_CODE[x.dtype], _DTYPE_CODE[acc_dtype],
-                            grid.ptr(), stream)
+                            rank, nanos, grid.ptr(), stream)
     _build.check("ring_reduce_scatter", err, lib.rs_error_string, grid)
     _build.count_launch("ring_reduce_scatter")
     return out
+
+
+def _straggler_args(straggler, n: int) -> Tuple[int, int]:
+    if straggler is None:
+        return -1, 0
+    rank, nanos = straggler
+    if not (0 <= rank < n and nanos >= 0):
+        raise ValueError(f"straggler {straggler}: (rank in [0, {n}), "
+                         "nanos >= 0)")
+    return rank, nanos
+
+
+def _wire_buffers(x: torch.Tensor, fmt: wire.WireFormat, out_dtype):
+    """A wire ring call's output, its persistent image slots and flags,
+    its plan (warps a row, rows a tile) and the stream."""
+    n = x.shape[0]
+    m = x.shape[1] // n
+    k = x[0, 0].numel()
+    out = torch.empty((n, m, *x.shape[2:]), dtype=out_dtype,
+                      device=x.device)
+    kw = wire.wire_cols(k, fmt)
+    warps, rows, tiles = _wire_plan(m, k, k // wire.n_blocks(k, fmt), n,
+                                    _card_sms(x.device))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def make():
+        world = VirtualWorld.of(x)
+        return (world.heap((2, m, kw), torch.int8),  # [rank][slot] images
+                world.flags(3 * tiles))
+
+    slots, flags = _POOLS.get(_pool_key("ring_rs_wire", x, stream, (m, kw),
+                                        torch.int8, tiles), make)
+    return out, slots, flags, warps, rows, stream
 
 
 def _launch_wire(x: torch.Tensor, fmt: wire.WireFormat, out_dtype,
@@ -281,37 +451,27 @@ def _launch_wire(x: torch.Tensor, fmt: wire.WireFormat, out_dtype,
     if x.dtype not in _DTYPE_CODE or out_dtype not in _DTYPE_CODE:
         raise ValueError(f"dtypes {x.dtype} -> {out_dtype}: the kernel "
                          "takes float32 or bfloat16")
-    world = VirtualWorld.of(x)
     n = x.shape[0]
-    m = x.shape[1] // n
     k = x[0, 0].numel()
     if k > _WIRE_MAX_COLS:
         raise ValueError(f"rows of {k} elements: the wire kernel stages "
                          f"a row of at most {_WIRE_MAX_COLS} in shared "
                          "memory")
-    rank, nanos = straggler if straggler is not None else (-1, 0)
-    if straggler is not None and not (0 <= rank < n and nanos >= 0):
-        raise ValueError(f"straggler {straggler}: (rank in [0, {n}), "
-                         "nanos >= 0)")
-    out = torch.empty((n, m, *x.shape[2:]), dtype=out_dtype,
-                      device=x.device)
-    if out.numel() == 0:
-        return out
-    kw = wire.wire_cols(k, fmt)
-    nb = wire.n_blocks(k, fmt)
-    rows = max(1, -(-m // _WIRE_TILES))  # whole rows a ring
-    tiles = -(-m // rows)
+    rank, nanos = _straggler_args(straggler, n)
+    if x.numel() == 0:
+        return torch.empty((n, x.shape[1] // n, *x.shape[2:]),
+                           dtype=out_dtype, device=x.device)
     lib = _build.load("reduce_scatter", _SIGNATURES)
-    slots = world.heap((2, m, kw), torch.int8)  # [rank][slot] wire images
-    flags = world.flags(3 * tiles)
+    out, slots, flags, warps, rows, stream = _wire_buffers(x, fmt, out_dtype)
+    nb = wire.n_blocks(k, fmt)
     grid = _build.GridInfo()
     with torch.cuda.device(x.device):
         err = lib.rs_wire_launch(
             x.data_ptr(), slots.data_ptr(), out.data_ptr(),
-            flags.data_ptr(), n, m, k, int(fmt.kind == "fp8"), k // nb,
-            nb, int(fmt.checksum), kw, rows, _DTYPE_CODE[x.dtype],
-            _DTYPE_CODE[out_dtype], rank, nanos, grid.ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            flags.data_ptr(), n, out.shape[1], k, int(fmt.kind == "fp8"),
+            k // nb, nb, int(fmt.checksum), slots.shape[-1], warps, rows,
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], rank, nanos,
+            grid.ptr(), stream)
     _build.check("ring_rs_wire", err, lib.rs_error_string, grid)
     _build.count_launch("ring_rs_wire")
     return out

@@ -12,7 +12,10 @@ card, the same way: a rank is an index, not a process.
   flags(count)        an int32 (n, count) pool of signal flags, zeroed on
                       the current stream (stream-ordered), so every
                       kernel launch starts from fresh flags, as the TPU
-                      kernels' semaphores are kernel-local.
+                      kernels' semaphores are kernel-local. The ring
+                      ReduceScatter keeps its pools across calls instead:
+                      its ranks leave them at zero (kernels/
+                      reduce_scatter.py).
   context(shape, dtype, flag_words)
                       a persistent allocation threaded through calls: a
                       symmetric data array (n, *shape) and an int32
