@@ -13,9 +13,12 @@ outside a checkout of the repository. Phases, each fatal on failure:
      prefill at edge cases, the Qwen3-8B engine-prefill and serve-step
      shapes and a long prefill; one-shot AllReduce, ring AllGather and
      gemm_rs at n = 2 and 4 (gemm_rs also n = 1, force_kernel), ragged
-     sizes, M = 1 and the world-4 main-path shapes; ag_gemm at n = 1
+     sizes, M = 1 and the world-4 main-path shapes (the AllReduce also
+     with every tile of its sweep forced); ag_gemm at n = 1
      (force_kernel), 2 and 4, both C orders, plain and silu_pair,
-     return_gathered, m = 1, 64, 128 and ragged, N not a tile multiple;
+     return_gathered, m = 1, 64, 128 and ragged, N not a tile multiple,
+     and its wgmma body at the world-4 dist path's Qwen3-8B shapes (QKV,
+     gate|up; m 128 and 64), bf16 and f32 out, every tile width forced;
      gemm_rs with A in arrival order at n = 2 and 4; f32 and bf16; the
      ring ReduceScatter bitwise at n = 1 (force_kernel), 2 and 4 in f32,
      bf16 and bf16 with f32 accumulation, every tile forced, each rank
@@ -33,7 +36,8 @@ outside a checkout of the repository. Phases, each fatal on failure:
      the `ar` mode; then at world 4 with the Engine's default modes (a
      `dist` prefill, an `ar` decode) and a `dist` Scheduler; each
      through Engine.serve and the continuous-batching Scheduler, with
-     every kernel's launch count read around it and the inputs of each
+     every kernel's launch count read around it (ag_gemm's by body:
+     every dense `dist` call on the wgmma body) and the inputs of each
      kernel's first- and last-layer calls recorded; then the kernel
      path's logits against the plain versions' (and, for `dist`, the
      `xla` prefill's), and a small f32 model on the card against the CPU
@@ -100,8 +104,12 @@ outside a checkout of the repository. Phases, each fatal on failure:
   5. every kernel against its plain version on the inputs recorded in
      phase 4, and its timing there (flash prefill also at two synthetic
      Qwen3-8B shapes), beside its bound over the work of all ranks, its
-     plain version and one PyTorch library call (a yardstick only); the
-     device time of the virtual-world kernels from torch.profiler;
+     plain version and one PyTorch library call (a yardstick only, its
+     device time too); the device time of the virtual-world kernels from
+     torch.profiler; the one-shot AllReduce 50 calls back to back on the
+     recorded decode and scheduler inputs (bitwise, every pool flag left
+     at zero, no pool made by a warm call, the pools' bytes) and its tile
+     sweep;
   4b. the fourth path, after the Qwen3-8B weights are freed: Qwen3-30B-
      A3B (TP-MoE, 128 experts, top-8) at full width and depth, bf16,
      random weights drawn on the card at world 4 (one copy, ~61 GB), with
@@ -338,12 +346,13 @@ def time_flash_prefill(fp, extra=()):
             plain_ms=time_ms(lambda: fp.flash_prefill_plain(**inp)),
             bound_ms=bnd, bound_by=by,
             library_ms=time_ms(sdpa_call(inp)),
+            library_us=device_us_total(sdpa_call(inp)),
             gflop=ops / 1e9, mbytes=nbytes / 1e6)
         log(f"  flash_prefill {label}: kernel {row['ms']:.4f} ms, device "
             f"{row['device_us']} us, plain "
-            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, "
-            f"bound {bnd:.4f} ms ({by}; {row['gflop']:.2f} GFLOP, "
-            f"{row['mbytes']:.2f} MB)")
+            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms / "
+            f"{row['library_us']} us device, bound {bnd:.4f} ms ({by}; "
+            f"{row['gflop']:.2f} GFLOP, {row['mbytes']:.2f} MB)")
         rows[label] = row
     return rows
 
@@ -422,8 +431,11 @@ def check_collectives(kernels):
     """Each collective kernel against its plain version on the card at
     n = 2 and 4 (gemm_rs also at n = 1 with force_kernel), f32 and bf16:
     ragged sizes, M = 1, sizes whose rows are not 16-byte multiples, and
-    the Qwen3-8B main-path shapes at world 4."""
+    the Qwen3-8B main-path shapes at world 4; the AllReduce also with
+    every tile of its sweep forced."""
     import torch
+
+    from triton_dist_tpu_torch.kernels import allreduce as ar
 
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -432,9 +444,17 @@ def check_collectives(kernels):
             for m, w in ((1, 4096), (3, 1000), (5, 7), (4, 4096),
                          (256, 4096)):
                 check_ar(kernels, rand((n, m, w), dtype, m + w, 0.5))
+            for m in (4, 256):  # every tile of the sweep, forced
+                x = rand((n, m, 4096), dtype, m + n, 0.5)
+                want = kernels.one_shot_all_reduce_plain(x)
+                for tile in ar._AR_TILES:
+                    if tile * x.element_size() <= ar._AR_TILE_BYTES:
+                        assert torch.equal(ar._launch(x, tile), want), (
+                            n, m, dn, tile)
             log(f"  one_shot_all_reduce n={n} {dn}: M x N in (1, 4096), "
-                "(3, 1000), (5, 7), (4, 4096), (256, 4096): bitwise, "
-                "every rank's copy alike")
+                "(3, 1000), (5, 7), (4, 4096), (256, 4096), and every tile "
+                "forced at (4 | 256, 4096): bitwise, every rank's copy "
+                "alike")
             for m, w in ((1, 4096), (3, 1000), (5, 7), (128, 4096)):
                 check_ag(kernels, rand((n, m, w), dtype, m * w, 0.5))
             log(f"  ring_all_gather n={n} {dn}: m x W in (1, 4096), "
@@ -543,6 +563,50 @@ def check_ag_gemm(kernels):
                 worst = max(worst, ratio)
                 log(f"  gemm_rs a_order=arrival n={n} M={M} K={K} N={N} "
                     f"{dn}: at most {ratio:.3f} of its atol")
+    return max(worst, check_wgmma_main_shapes(kernels))
+
+
+def check_wgmma_main_shapes(kernels):
+    """ag_gemm's wgmma body at the world-4 dist path's Qwen3-8B shapes
+    (QKV N 1536 in rank order, gate|up 2 x 3072 silu_pair in arrival
+    order; m 128, a prefill, and 64, a scheduler step), bf16 and f32 out,
+    every tile width of its sweep forced, against ag_gemm_plain within
+    ag_gemm_atol and the bf16 band; each launch took the wgmma body.
+    Returns the largest share of an atol."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+
+    worst = 0.0
+    before = dict(agm.launches_by_body)
+    calls = 0
+    for m in (128, 64):
+        a = rand((4, m, 4096), torch.bfloat16, m, 1.0)
+        for nn, pair in ((1536, False), (3072, True)):
+            ws = tuple(rand((4, 4096, nn), torch.bfloat16, m + nn + h, 0.02)
+                       for h in range(1 + pair))
+            kw = (dict(epilogue="silu_pair", c_order="arrival") if pair
+                  else dict(c_order="rank"))
+            b = ws if pair else ws[0]
+            for out in (torch.bfloat16, torch.float32):
+                _, r = check_ag_gemm_call(kernels, a, b, out_dtype=out, **kw)
+                worst, calls = max(worst, r), calls + 1
+            want = kernels.ag_gemm_plain(a, b, **kw)
+            for bn in agm._WGMMA_BN_PAIR if pair else agm._WGMMA_BN:
+                got = agm._launch(a, ws, pair, False, bn=bn)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                atol = ag_gemm_atol(a, b, want)
+                if not err <= atol:
+                    raise AssertionError(f"ag_gemm wgmma bn {bn} m {m} N "
+                                         f"{nn}: err {err}, atol {atol}")
+                band(want, got, "ag_gemm")
+                worst, calls = max(worst, err / atol), calls + 1
+            log(f"  ag_gemm wgmma body n=4 m={m} K=4096 N={nn} "
+                f"{'silu_pair arrival' if pair else 'rank'}: bf16 and f32 "
+                f"out, every tile width forced, within the atol and band")
+    got = {k: v - before[k] for k, v in agm.launches_by_body.items()}
+    assert got == {"mma": 0, "wgmma": calls}, got
     return worst
 
 
@@ -1031,6 +1095,7 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
     import numpy as np
     import torch
 
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
     from triton_dist_tpu_torch.kernels import flash_prefill as fp
     from triton_dist_tpu_torch.models import Engine
     from triton_dist_tpu_torch.serve import Scheduler
@@ -1067,6 +1132,7 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
     kind = "moe" if moe else "dense"
     wrappers = {name: Recorder(name, L, kind) for name in main_path_kernels()}
     grouped = GroupedRecorder(L)
+    bodies0 = dict(agm.launches_by_body)
     with Swapped(wrappers), grouped:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
@@ -1084,6 +1150,7 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
         torch.cuda.synchronize()
         sched_s = time.perf_counter() - t0
         main_n = kernels.launches()
+    bodies = {k: v - bodies0[k] for k, v in agm.launches_by_body.items()}
     steps = sch.worker.n_steps
     records = {name: w.records for name, w in wrappers.items()}
     if moe:
@@ -1100,7 +1167,11 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
                                            sched_mode, gen, steps, moe)
     assert serve_n == want_serve, (serve_n, want_serve)
     assert sched_n == want_sched, (sched_n, want_sched)
-    model = {}
+    # every dense ag_gemm of a dist forward has m = 128 (the prefill) or
+    # 64 (a scheduler step) rows a rank: all of them took the wgmma body
+    assert bodies == {"mma": 0, "wgmma": main_n["ag_gemm"]}, bodies
+    model = {"ag_gemm_by_body": bodies}
+    log(f"  ag_gemm launches by body (Engine.serve and Scheduler): {bodies}")
 
     # the kernel path's logits against the plain versions', swapped in
     # only for these comparisons; the bound is calibrated in the same run
@@ -1586,7 +1657,66 @@ def time_collectives(kernels, records):
     main = {"one_shot_all_reduce": next(iter(rows["one_shot_all_reduce"])),
             "ring_all_gather": next(iter(rows["ring_all_gather"])),
             "gemm_rs": next(iter(rows["gemm_rs"]))}
-    return rows, main
+    pools = check_ar_pools(kernels, (ar_sched, ar_dec))
+    sweep, plan = ar_tile_sweep((ar_dec, ar_sched))
+    return rows, main, dict(pool_bytes=pools, tile_sweep=sweep, plan=plan)
+
+
+def check_ar_pools(kernels, xs, calls=50):
+    """Row 7's persistent pools: `calls` back-to-back calls on one
+    stream over the inputs xs (the recorded decode and scheduler steps'),
+    in turn, each bitwise its plain version; then every flag of every
+    pool reads zero, no call past the first of each input made a pool,
+    and the bytes the pools hold are logged. Returns {pool: bytes}."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import allreduce as ar
+
+    wants = [kernels.one_shot_all_reduce_plain(x) for x in xs]
+    made = None
+    for i in range(calls):
+        got = kernels.one_shot_all_reduce(xs[i % len(xs)])
+        torch.cuda.synchronize()
+        assert torch.equal(got, wants[i % len(xs)]), i
+        if i == len(xs) - 1:
+            made = ar._POOLS.made
+    assert ar._POOLS.made == made, "a warm one_shot_all_reduce made a pool"
+    zero = all(not bool(f.any()) for _, f in ar._POOLS.entries.values())
+    assert zero, "one_shot_all_reduce left a flag set"
+    held = {f"n={k[2]} E={k[3]} {str(k[4])[6:]} tile {k[5]} blocks {k[6]}":
+            sum(t.numel() * t.element_size() for t in v)
+            for k, v in ar._POOLS.entries.items()}
+    log(f"  one_shot_all_reduce: {calls} calls back to back over "
+        f"{[tuple(x.shape) for x in xs]}, bitwise; every pool flag at zero; "
+        f"{ar._POOLS.made} pools made, none by a warm call; pool bytes "
+        f"(workspace + flags) {held}")
+    return held
+
+
+def ar_tile_sweep(xs):
+    """Row 7 with each tile of its sweep forced, at each input of xs:
+    bitwise, device µs a call; and the plan's pick. Returns {label: µs}
+    and {shape: (tile, blocks, flags)}."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import allreduce as ar
+
+    sweep, plan = {}, {}
+    for x in xs:
+        want = ar.one_shot_all_reduce_plain(x)
+        for tile in ar._AR_TILES:
+            def fn(x=x, tile=tile):
+                return ar._launch(x, tile)
+            assert torch.equal(fn(), want), (tuple(x.shape), tile)
+            sweep[f"{tuple(x.shape)} tile {tile}"] = device_us(
+                fn, "one_shot_ar_kernel")
+        plan[str(tuple(x.shape))] = ar._ar_plan(
+            x[0].numel(), x.shape[0], x.element_size(),
+            torch.cuda.get_device_properties(0).multi_processor_count)
+    log("  one_shot_all_reduce tile sweep (bf16, bitwise; device us): "
+        + "; ".join(f"{k}: {v}" for k, v in sweep.items())
+        + f"; the plan (tile, blocks, flags) takes {plan}")
+    return sweep, plan
 
 
 def check_recorded_dist(kernels, records):
@@ -1656,7 +1786,7 @@ def time_dist(kernels, records):
                                                           full, wcat),
                 2 * n * (n * m) * K * N * len(ws),
                 (n * m * K + len(ws) * n * K * N + n * n * m * N)
-                * a.element_size(), a.dtype, kernel_key="ag_gemm_kernel")
+                * a.element_size(), a.dtype, kernel_key="ag_gemm")
     rec = pick("gemm_rs", lambda r: r.get("a_order") == "arrival"
                and r["a"].shape[1] == 512)
     a, b = rec["a"], rec["b"]
@@ -2243,8 +2373,8 @@ def sp_sdpa(q, k, v, kv_len):
 def sp_decode_library(q, k, v, valid):
     """One torch call computing the decode partial (a yardstick): the
     efficient-attention op with its log-sum-exp, kv heads repeated, a
-    -inf bias past each row's valid length. None where the op refuses
-    the shapes (logged)."""
+    -inf bias past each row's valid length. Returns its (call ms, device
+    µs); (None, None) where the op refuses the shapes (logged)."""
     import torch
 
     r, hq, d = q.shape
@@ -2256,11 +2386,14 @@ def sp_decode_library(q, k, v, valid):
     bias = torch.where(kpos[None] < valid[:, None], 0.0, float("-inf")).to(
         q.dtype)[:, None, None].expand(r, hq, 1, t).contiguous()
     efficient = torch.ops.aten._scaled_dot_product_efficient_attention
+    def call():
+        return efficient(qq, kk, vv, bias, True)
+
     try:
-        return time_ms(lambda: efficient(qq, kk, vv, bias, True))
+        return time_ms(call), device_us_total(call)
     except RuntimeError as e:  # a yardstick only: the port never calls it
         log(f"  decode partial library call refused: {e}")
-        return None
+        return None, None
 
 
 def run_sp(kernels, cfg, params):
@@ -2467,9 +2600,11 @@ def run_sp(kernels, cfg, params):
         None, 4 * hq * d * valid,
         valid * 2 * hkv * d * 2 + qi.numel() * 2 + n * b * hq * (d + 1) * 4,
         torch.bfloat16, kernel_key="fd_partial_kernel")}
-    fd_rows[lab_dec]["library_ms"] = sp_decode_library(qi, kf, vf, local)
+    fd_rows[lab_dec]["library_ms"], fd_rows[lab_dec]["library_us"] = (
+        sp_decode_library(qi, kf, vf, local))
     log(f"  flash_decode_partial library (efficient attention with lse): "
-        f"{fd_rows[lab_dec]['library_ms']} ms")
+        f"{fd_rows[lab_dec]['library_ms']} ms / "
+        f"{fd_rows[lab_dec]['library_us']} us device")
 
     xp = rec_ll[-1]["x"]
     cc = [2 * SP_STEPS - 1]  # the context's next call
@@ -2893,6 +3028,11 @@ COLL_SHAPES = (
 # the one-shot / two-shot AllReduce sweep: bytes a rank, rows of 512 bf16
 AR_SWEEP_BYTES = tuple(4096 << i for i in range(7))  # 4 KiB .. 256 KiB
 AR_SWEEP_WIDTH = 512
+# each point is the median of this many rounds of 10 calls, one-shot and
+# two-shot in turn: the calls are host-bound, and a host stall during one
+# block of calls must not decide a point (one 20-call block read a
+# one-shot call at 0.1309 ms against its usual 0.05-0.10; PERF.md)
+AR_SWEEP_ROUNDS = 5
 
 
 def payload(shape, dtype, seed):
@@ -3278,8 +3418,13 @@ def run_coll(kernels):
         for b in AR_SWEEP_BYTES:
             rows = b // (2 * AR_SWEEP_WIDTH)
             x = rand((nn, rows, AR_SWEEP_WIDTH), torch.bfloat16, b + nn)
-            one = time_ms(lambda x=x: kernels.one_shot_all_reduce(x))
-            two = time_ms(lambda x=x: kernels.two_shot_all_reduce(x))
+            ones, twos = [], []
+            for _ in range(AR_SWEEP_ROUNDS):
+                ones.append(time_ms(lambda x=x: kernels.one_shot_all_reduce(
+                    x), iters=10))
+                twos.append(time_ms(lambda x=x: kernels.two_shot_all_reduce(
+                    x), iters=10))
+            one, two = statistics.median(ones), statistics.median(twos)
             sweep[f"n={nn} {b // 1024} KiB"] = dict(n=nn, bytes=b,
                                                     one_shot_ms=one,
                                                     two_shot_ms=two)
@@ -3920,7 +4065,7 @@ def main() -> int:
             f"Hkv=2 a rank, kv_len {busy_inp['kv_len'][:4].tolist()}")
     del rec1
     fp_rows = time_flash_prefill(fp, [(busy, busy_inp)])
-    coll_rows, coll_main = time_collectives(kernels, rec4)
+    coll_rows, coll_main, ar_extra = time_collectives(kernels, rec4)
     del rec4
     ag_rows, rs_dist_rows, ag_main = time_dist(kernels, recd)
     del recd
@@ -3985,11 +4130,16 @@ def main() -> int:
                    max_abs_err_synthetic=fp_err)]
     for name in ("one_shot_all_reduce", "ring_all_gather", "gemm_rs"):
         lines.append(entry(name, total(name), by_path(name), errs[name],
-                           coll_rows[name], coll_main[name]))
+                           coll_rows[name], coll_main[name],
+                           **(ar_extra if name == "one_shot_all_reduce"
+                              else {})))
     lines[-1]["atol_ratio_synthetic"] = rs_ratio
     lines.append(entry("ag_gemm", total("ag_gemm"), by_path("ag_gemm"),
                        max(errs_dist["ag_gemm"], errs_md["ag_gemm"]),
                        ag_rows, ag_main, atol_ratio_synthetic=ag_ratio,
+                       launches_by_body={
+                           "world4_dist": modeld["ag_gemm_by_body"],
+                           "world4_moe": modelm["ag_gemm_by_body"]},
                        grouped=dict(launches=modelm["grouped_launches"],
                                     shape=grouped_main,
                                     **{k: ag_rows[grouped_main][k] for k in (

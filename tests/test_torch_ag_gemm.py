@@ -34,6 +34,7 @@ from triton_dist_tpu_torch.kernels import (
     launches,
     reset_launches,
 )
+from triton_dist_tpu_torch import wire
 from triton_dist_tpu_torch.kernels import allgather_gemm as ag
 
 ATOL = 1e-5
@@ -220,3 +221,83 @@ def test_ag_gemm_refusals_and_cpu_launcher():
     assert launches()["ag_gemm"] == 0
     with pytest.raises(ValueError, match="CUDA"):
         ag._launch(a, (b,), False, False)
+
+
+def _bf16(*shape):
+    return torch.zeros(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("case,body", [
+    # the main path's form: dense, native wire, bf16, m % 64 == 0
+    ((4, 128, 4096, 1536, 1, None, None), "wgmma"),  # prefill QKV
+    ((4, 128, 4096, 3072, 2, None, None), "wgmma"),  # prefill gate|up
+    ((4, 64, 4096, 1536, 1, None, None), "wgmma"),  # scheduler step QKV
+    ((4, 64, 4096, 3072, 2, None, None), "wgmma"),  # scheduler gate|up
+    ((1, 256, 1000, 1000, 1, None, None), "wgmma"),  # K, N ragged
+    ((4, 128, 2048, 1280, 1, None, None), "wgmma"),  # Qwen3-30B-A3B QKV
+    # every other call keeps the mma.sync body
+    ((4, 1, 4096, 1536, 1, None, None), "mma"),  # a dist decode step
+    ((4, 37, 4096, 1536, 1, None, None), "mma"),  # ragged m
+    ((4, 96, 4096, 1536, 1, None, None), "mma"),  # m not a box multiple
+    ((4, 128, 4096, 1536, 1, None, "f32"), "mma"),
+    ((4, 128, 4096, 1536, 1, 8, None), "mma"),  # grouped
+    ((4, 128, 4096, 1536, 1, None, "fp8"), "mma"),  # the wire
+    ((4, 128, 32, 1536, 1, None, None), "mma"),  # K under one box
+    ((4, 128, 4096, 40, 1, None, None), "mma"),  # N under one box
+])
+def test_body_for_routes_the_main_path_to_wgmma(case, body):
+    """_body_for: the wgmma body serves the dense bf16 native-wire form
+    at m a multiple of 64 (a prefill's 128 rows a rank, a scheduler
+    step's 64), K and N at least one 64-wide box; grouped, wire, f32 and
+    ragged or small m keep the mma.sync body."""
+    n, m, k, nn, halves, experts, kind = case
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    a = torch.zeros(n, m, k, dtype=dtype)
+    shape = (n, experts, k, nn) if experts else (n, k, nn)
+    bs = tuple(torch.zeros(*shape, dtype=dtype) for _ in range(halves))
+    fmt = wire.resolve("fp8" if kind == "fp8" else None)
+    assert ag._body_for(a, bs, fmt, experts is not None) == body
+
+
+@pytest.mark.parametrize("M,N,n,pair,want", [
+    (512, 1536, 4, False, 192),  # prefill QKV: 128 tiles, one wave
+    (512, 3072, 4, True, 128),  # prefill gate|up
+    (256, 1536, 4, False, 128),  # scheduler step QKV
+    (256, 3072, 4, True, 128),  # scheduler step gate|up
+    (512, 1280, 4, False, 192),  # Qwen3-30B-A3B QKV: 28 tiles a rank
+])
+def test_wgmma_bn_minds_wave_quantisation(M, N, n, pair, want):
+    """_wgmma_bn: of the candidates, the one whose waves over each rank's
+    sms // n blocks times a tile's time (its accumulator columns plus
+    _WGMMA_FIXED_COLS) are the fewest, the widest on a tie; the main
+    path's picks pinned (the fastest of the sweep at each)."""
+    got = ag._wgmma_bn(M, N, n, pair)
+    assert got == want
+    per = 132 // n
+
+    def cost(bn):
+        tiles = -(-M // 128) * -(-N // bn)
+        return -(-tiles // per) * (bn * (2 if pair else 1)
+                                   + ag._WGMMA_FIXED_COLS)
+
+    cands = ag._WGMMA_BN_PAIR if pair else ag._WGMMA_BN
+    assert got in cands and cost(got) == min(cost(b) for b in cands)
+    assert got == max(b for b in cands if cost(b) == cost(got))
+
+
+def test_ag_gemm_straggler_on_the_cpu_route():
+    """straggler=(rank, nanos) (the JAX config's straggler_rank /
+    straggler_ns) changes nothing on the CPU route; a rank outside the
+    world or a negative delay raises as all_to_all's do, and so does a
+    straggler on the wire form, whose ring takes none."""
+    a = torch.from_numpy(_rand(90, 4, 8, 16))
+    b = torch.from_numpy(_rand(91, 4, 16, 24))
+    want = ag_gemm(a, b)
+    for rank in range(4):
+        assert torch.equal(ag_gemm(a, b, straggler=(rank, 5_000_000)), want)
+    for bad in ((4, 10), (-1, 10), (0, -1)):
+        with pytest.raises(ValueError, match="straggler"):
+            ag_gemm(a, b, straggler=bad)
+    with pytest.raises(ValueError, match="straggler"):
+        ag_gemm(torch.zeros(2, 4, 128), torch.zeros(2, 128, 8),
+                wire_format="fp8", straggler=(0, 10))

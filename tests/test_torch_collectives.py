@@ -337,3 +337,86 @@ def test_ring_pool_cache_keys_and_evicts_least_recently_used():
     assert made == ["a", "b", "c", "d", "a again"] and cache.made == 5
     assert rsr._POOLS.size == 8
 
+
+
+# elements a rank of the one-shot AllReduce: a decode step's and a
+# scheduler step's (4 | 256, 4096), the library's 256 KiB cap in bf16 and
+# f32, the card tests' ragged sizes, one element
+_AR_SIZES = [(4 * 4096, 2), (256 * 4096, 2), (128 * 1024, 2), (64 * 1024, 4),
+             (256 * 4096, 4), (33 * 264, 2), (5 * 7, 4), (3 * 1000, 2),
+             (1, 2), (4096 * 4096, 2)]
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("e,itemsize", _AR_SIZES)
+@pytest.mark.parametrize("sms", [132, 114])
+def test_ar_plan_tiles_cover_within_residency(n, e, itemsize, sms):
+    """The one-shot AllReduce's plan: every element in exactly one tile,
+    each tile a power of two of 16-byte units within a thread block's
+    register share, one block a tile up to the resident blocks a rank
+    (the grid co-resident: _AR_PER_SM an SM over n ranks), the tile
+    grown past the default only while the tiles did not fit, and a flag
+    a tile plus an entry barrier a block."""
+    tile, blocks, flags = ar._ar_plan(e, n, itemsize, sms)
+    units = tile * itemsize // 16
+    assert tile in ar._AR_TILES and tile * itemsize % 16 == 0
+    assert units & (units - 1) == 0
+    assert tile * itemsize <= ar._AR_TILE_BYTES
+    tiles = -(-e // tile)
+    assert (tiles - 1) * tile < e <= tiles * tile
+    cap = ar._AR_PER_SM * sms // n
+    assert 1 <= blocks <= min(tiles, cap) and n * blocks <= ar._AR_PER_SM * sms
+    assert blocks == min(tiles, cap)
+    assert flags == tiles + blocks
+    if tile > ar._AR_TILE:  # grown only because the smaller did not fit
+        assert -(-e // (tile // 2)) > cap
+
+
+def test_ar_plan_main_path_shapes_and_forced_tiles():
+    """The picks the sweep chose (tools/profile_allreduce.py): a decode
+    step's (4, 4, 4096) bf16 in 2048-element tiles, one block each (8 a
+    rank); a scheduler step's (4, 256, 4096) in 8192, 128 blocks a rank,
+    all resident on 132 SMs. Forced tiles: any of _AR_TILES within the
+    register share, nothing else."""
+    assert ar._ar_plan(4 * 4096, 4, 2) == (2048, 8, 16)
+    assert ar._ar_plan(256 * 4096, 4, 2) == (8192, 128, 256)
+    assert ar._ar_plan(256 * 4096, 4, 2, tile=256) == (256, 132, 4096 + 132)
+    assert ar._ar_plan(35, 2, 4, tile=4096) == (4096, 1, 2)
+    for tile, itemsize in ((8192, 4), (128, 2), (3000, 2)):
+        with pytest.raises(ValueError, match="tile"):
+            ar._ar_plan(4096, 2, itemsize, tile=tile)
+
+
+def test_ar_pool_cache_keys_and_evicts_least_recently_used():
+    """The AllReduce's persistent workspace and flags: its own cache
+    (not the rings'), at most reduce_scatter._POOL_ENTRIES entries, one
+    a (device, stream, n, E, dtype, tile, blocks); two streams, worlds,
+    sizes, dtypes or plans never share one; past the size the least
+    recently used goes. Buffers stubbed by CPU tensors."""
+    assert ar._POOLS is not rsr._POOLS
+    assert ar._POOLS.size == rsr._POOL_ENTRIES
+    x = torch.zeros(4, 4, 16, dtype=torch.bfloat16)
+    base = ar._ar_pool_key(x, 7, 2048, 8)
+    others = [ar._ar_pool_key(x, 8, 2048, 8),
+              ar._ar_pool_key(x, 7, 1024, 8),
+              ar._ar_pool_key(x, 7, 2048, 4),
+              ar._ar_pool_key(x.float(), 7, 2048, 8),
+              ar._ar_pool_key(torch.zeros(2, 8, 16), 7, 2048, 8),
+              ar._ar_pool_key(torch.zeros(4, 4, 17), 7, 2048, 8)]
+    assert len({base, *others}) == len(others) + 1
+    cache = rsr._PoolCache(size=2)
+    made = []
+
+    def make(tag):
+        def fn():
+            made.append(tag)
+            return torch.empty(4, 4, 64), torch.zeros(4, 16, dtype=torch.int32)
+        return fn
+
+    first = cache.get(base, make("a"))
+    assert cache.get(base, make("again")) is first and cache.made == 1
+    cache.get(others[0], make("b"))
+    cache.get(others[1], make("c"))  # a, the least recently used, goes
+    assert list(cache.entries) == others[:2] and made == ["a", "b", "c"]
+    cache.get(base, make("a again"))
+    assert cache.made == 4 and list(cache.entries) == [others[1], base]

@@ -213,6 +213,149 @@ def test_gemm_rs_arrival_kernel_matches_plain(cuda, n):
     assert not torch.equal(want, gemm_rs_plain(a, b))
 
 
+# (M, N) a rank of the one-shot AllReduce card checks: E ragged (not a
+# multiple of 16 bytes), under one tile, a ragged multi-tile size, and a
+# decode step's and a scheduler step's Qwen3-8B shapes
+_AR_SHAPES = ((5, 7), (1, 100), (33, 263), (4, 4096), (256, 4096))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_one_shot_all_reduce_every_tile_bitwise(cuda, n, dtype):
+    """The one-shot AllReduce against its plain version, bitwise (the JAX
+    body's rank-order fold, each add rounded to x.dtype), every rank's
+    copy alike: the plan's tile and every tile of the sweep forced
+    (allreduce._launch(x, tile)), on ragged sizes, one under a tile and
+    the main path's (4, 4096) and (256, 4096)."""
+    from triton_dist_tpu_torch.kernels import allreduce as ar
+
+    rng = np.random.default_rng(90 + n)
+    tiles = [None] + [t for t in ar._AR_TILES
+                      if t * dtype.itemsize <= ar._AR_TILE_BYTES]
+    for m, w in _AR_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((n, m, w))).to("cuda",
+                                                                dtype)
+        want = one_shot_all_reduce_plain(x)
+        for tile in tiles:
+            got = ar._launch(x, tile)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (m, w, tile)
+            assert torch.equal(got, got[:1].expand_as(got))
+        if dtype == torch.bfloat16 and m == 256:
+            band(want, got, "one_shot_all_reduce")
+
+
+def _ar_pools_at_zero():
+    from triton_dist_tpu_torch.kernels import allreduce as ar
+
+    return all(not bool(flags.any()) for _, flags in ar._POOLS.entries.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_one_shot_all_reduce_back_to_back_leaves_pool_at_zero(cuda, n):
+    """50 calls on one stream, alternating a decode step's and a
+    scheduler step's shape and f32 / bf16, each bitwise its plain
+    version: every launch finds its persistent flags at zero, which the
+    previous one left there (each wait subtracts what it waited for).
+    After them the pools read all zeros, and no call past the first of
+    each configuration made a pool: a warm call allocates only its
+    output."""
+    from triton_dist_tpu_torch.kernels import allreduce as ar
+
+    rng = np.random.default_rng(95 + n)
+    xs = [torch.from_numpy(rng.standard_normal((n, m, 4096))).to("cuda", dt)
+          for m in (4, 256) for dt in (torch.bfloat16, torch.float32)]
+    wants = [one_shot_all_reduce_plain(x) for x in xs]
+    made = None
+    for i in range(50):
+        got = one_shot_all_reduce(xs[i % 4])
+        torch.cuda.synchronize()
+        assert torch.equal(got, wants[i % 4]), i
+        if i == 3:
+            made = ar._POOLS.made
+    assert ar._POOLS.made == made
+    assert _ar_pools_at_zero()
+
+
+# (m, K, N) of the wgmma body's card checks: a scheduler step's 64 rows a
+# rank, a prefill's 128, and 256; Qwen3-8B QKV and gate|up widths, an N
+# that no tile width divides, a K that is not a multiple of 64
+_WGMMA_CASES = ((4096, 1536), (4096, 3072), (4096, 1000), (1000, 1536))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("m", [64, 128, 256])
+def test_ag_gemm_wgmma_body_matches_plain(cuda, n, m):
+    """The TMA + wgmma body (the dense bf16 form at m % 64 == 0) against
+    ag_gemm_plain within _ag_gemm_atol and the epsilon band: K 4096 and
+    1000, N 1536, 3072 and 1000, both C orders, plain and silu_pair,
+    bf16 and f32 out, and return_gathered (the gathered A bitwise); every
+    launch took the wgmma body."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as ag
+
+    rng = np.random.default_rng(100 + n + m)
+    before = dict(ag.launches_by_body)
+    calls = 0
+    for k, nn in _WGMMA_CASES:
+        a = torch.from_numpy(rng.standard_normal((n, m, k))).to(
+            "cuda", torch.bfloat16)
+        bs = tuple((torch.from_numpy(rng.standard_normal((n, k, nn)))
+                    * 0.02).to("cuda", torch.bfloat16) for _ in range(2))
+        for epilogue, b in ((None, bs[0]), ("silu_pair", bs)):
+            for c_order in ("rank", "arrival"):
+                for out in (torch.bfloat16, torch.float32):
+                    got = ag_gemm(a, b, epilogue=epilogue, c_order=c_order,
+                                  out_dtype=out)
+                    want = ag_gemm_plain(a, b, epilogue, c_order,
+                                         out_dtype=out)
+                    calls += 1
+                    torch.cuda.synchronize()
+                    atol = _ag_gemm_atol(a, bs[:1 + (epilogue is not None)],
+                                         want)
+                    torch.testing.assert_close(got.float(), want.float(),
+                                               rtol=0, atol=atol)
+                    if out == torch.bfloat16:
+                        band(want, got, "ag_gemm")
+        c, full = ag_gemm(a, bs[0], return_gathered=True)
+        calls += 1
+        assert torch.equal(full, ag_gemm_plain(a, bs[0],
+                                               return_gathered=True)[1])
+    assert ag.launches_by_body["wgmma"] - before["wgmma"] == calls
+    assert ag.launches_by_body["mma"] == before["mma"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_ag_gemm_delayed_rank_matches_plain(cuda, n):
+    """Each rank in turn stalls 5 ms at its ring producers' entry
+    (straggler, the JAX config's straggler_rank / straggler_ns): the
+    other ranks' TMA loads of its chunks wait on the arrival counters and
+    the async-proxy fence, so every result stays within the atol and the
+    band of the plain version, QKV (rank order) and gate|up (silu_pair,
+    arrival order) on the wgmma body, and a ragged m on the mma.sync
+    body."""
+    rng = np.random.default_rng(110 + n)
+    for m, k, nn in ((128, 4096, 1536), (37, 512, 264)):
+        a = torch.from_numpy(rng.standard_normal((n, m, k))).to(
+            "cuda", torch.bfloat16)
+        bs = tuple((torch.from_numpy(rng.standard_normal((n, k, nn)))
+                    * 0.02).to("cuda", torch.bfloat16) for _ in range(2))
+        for epilogue, b, c_order in ((None, bs[0], "rank"),
+                                     ("silu_pair", bs, "arrival")):
+            want = ag_gemm_plain(a, b, epilogue, c_order)
+            atol = _ag_gemm_atol(a, bs[:1 + (epilogue is not None)], want)
+            for rank in range(n):
+                got = ag_gemm(a, b, epilogue=epilogue, c_order=c_order,
+                              straggler=(rank, 5_000_000))
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=0, atol=atol)
+                band(want, got, "ag_gemm")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 2, 4])
 @pytest.mark.parametrize("dtype,accum", [
@@ -484,24 +627,60 @@ sys.exit(0)
 """
 
 # ag_gemm over a flag pool that was not zeroed: no arrival counter can
-# equal the producer count, so the ring's step-1 wait must trap
+# equal the producer count, so the ring's step-1 wait must trap; argv[1]:
+# the body (0 mma.sync, m 16; 1 wgmma, m 64, its tile counter at zero and
+# the arrival counters far below it, so its producer thread's wait for a
+# delivered step traps too)
 _AG_FAULT = r"""
 import sys, torch
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels import allgather_gemm as ag
 lib = _build.load("allgather_gemm", ag._SIGNATURES)
-n, m, K, N = 4, 16, 64, 64
+body = int(sys.argv[1])
+n, m, K, N = 4, 64 if body else 16, 64, 64
 a = torch.ones((n, m, K), device="cuda", dtype=torch.bfloat16)
 b = torch.ones((n, K, N), device="cuda", dtype=torch.bfloat16)
 ws = torch.empty((n, n * m, K), device="cuda", dtype=torch.bfloat16)
 c = torch.empty((n, n * m, N), device="cuda", dtype=torch.bfloat16)
 flags = torch.full((n, lib.ag_gemm_flag_count(n)), 7, device="cuda",
                    dtype=torch.int32)
+if body:
+    flags[:, 0] = 0
+    flags[:, 1:] = -1000
 grid = _build.GridInfo()
 err = lib.ag_gemm_launch(a.data_ptr(), b.data_ptr(), b.data_ptr(),
                          ws.data_ptr(), c.data_ptr(), flags.data_ptr(), n, m,
-                         K, N, 1, 1, 0, 0, grid.ptr(),
-                         torch.cuda.current_stream().cuda_stream)
+                         K, N, 1, 1, 0, 0, body, 128 if body else 0, -1, 0,
+                         grid.ptr(), torch.cuda.current_stream().cuda_stream)
+assert err == 0, err
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(3)
+sys.exit(0)
+"""
+
+
+# a one-shot AllReduce whose pool was left with a tile's arrival counter
+# set (as a trapped launch leaves it): the wait is for exactly n - 1
+# arrivals, so that tile's wait must trap
+_AR_FAULT = r"""
+import sys, torch
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels import allreduce as ar
+lib = _build.load("allreduce", ar._SIGNATURES)
+n, E = 4, 4 * 4096
+x = torch.ones((n, E), device="cuda", dtype=torch.bfloat16)
+ws = torch.empty((n, n, E), device="cuda", dtype=torch.bfloat16)
+out = torch.empty_like(x)
+tile, blocks, nf = ar._ar_plan(E, n, 2)
+flags = torch.zeros((n, nf), device="cuda", dtype=torch.int32)
+flags[1, 0] = 7
+grid = _build.GridInfo()
+err = lib.ar_launch(x.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                    flags.data_ptr(), n, E, tile, blocks, nf, 1, grid.ptr(),
+                    torch.cuda.current_stream().cuda_stream)
 assert err == 0, err
 try:
     torch.cuda.synchronize()
@@ -623,12 +802,17 @@ sys.exit(0)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,script", [
-    ("gemm_rs", _FAULT), ("ag_gemm", _AG_FAULT),
-    ("ring_reduce_scatter", _RS_FAULT), ("ll_all_gather", _LL_FAULT),
-    ("sp_flash_prefill", _SP_FAULT), ("all_to_all", _A2A_FAULT),
-    ("all_to_all_chunked", _A2A_FAULT)])
-def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script):
+@pytest.mark.parametrize("kernel,script,args", [
+    ("gemm_rs", _FAULT, []), ("ag_gemm", _AG_FAULT, ["0"]),
+    ("ag_gemm", _AG_FAULT, ["1"]),
+    ("one_shot_all_reduce", _AR_FAULT, []),
+    ("ring_reduce_scatter", _RS_FAULT, []), ("ll_all_gather", _LL_FAULT, []),
+    ("sp_flash_prefill", _SP_FAULT, []), ("all_to_all", _A2A_FAULT, ["0"]),
+    ("all_to_all_chunked", _A2A_FAULT, ["1"])],
+    ids=["gemm_rs", "ag_gemm-mma", "ag_gemm-wgmma", "one_shot_all_reduce",
+         "ring_reduce_scatter", "ll_all_gather", "sp_flash_prefill",
+         "all_to_all", "all_to_all_chunked"])
+def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script, args):
     """A wait that can never be satisfied (flags left non-zero) ends in
     the bounded spin's printf and __trap(): the launch fails and the
     next synchronisation raises, within the spin bound, instead of
@@ -639,8 +823,6 @@ def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script):
     import sys
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    args = [str(int(kernel == "all_to_all_chunked"))] if (
-        script is _A2A_FAULT) else []
     proc = subprocess.run([sys.executable, "-c", script, *args], cwd=repo,
                           capture_output=True, text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": repo})

@@ -11,9 +11,9 @@
 // contribution in rank p's partition, output (n, E). The tensor is cut
 // into tiles of `tile` elements, each with its own arrival counter, so a
 // tile is summed as soon as its n-1 copies have landed. All n ranks run
-// in one cooperative launch (grid (blocks per rank, n)); each block puts
-// all its tiles before it waits on any, so no wait can depend on a
-// block that is itself waiting.
+// in one cooperative launch (grid (blocks per rank, n)); block b of
+// every rank takes tiles b, b + blocks, ..., puts all of them, then
+// folds them, so no wait can depend on a block that is itself waiting.
 //
 // Fold order: the JAX body's, `acc = acc + ws[r]` over ranks 0..n-1 in
 // that order with the accumulator in x.dtype: each add is done in f32 and
@@ -21,11 +21,47 @@
 // bits (the replicated residual streams cannot drift apart), and the
 // result is the JAX kernel's, bitwise, in f32 and in bf16.
 //
-// What bounds it on an H100: bytes. Each rank reads its tensor, writes
-// n-1 copies, reads n-1 and writes its sum; the least traffic for the
-// function is n inputs read and n outputs written. The copies exist so
-// the port keeps the reference's put protocol; on one card a rank could
-// read its peers' inputs directly (a later PR's choice).
+// Persistent flags, left at zero. The wrapper keeps the workspace and
+// the flag pool across calls (zeroed once when made). A rank's pool is
+// [tile arrivals (tiles), entry barriers (one per block index)], `stride`
+// ints apart. The entry barrier is per block index: block b of every rank
+// adds one to barrier flag b of each peer and waits for n-1. Block b's
+// puts land only in tiles that block b of the peer folds, so block b of a
+// peer that has passed this barrier has finished the previous call's
+// folds of those tiles, and its slots are free. Each wait (thread 0,
+// by value, == n-1) then takes back what it waited for with an atomic
+// subtract, not a store of 0, so an arrival of a later call could never
+// be lost; after the last fold every flag of the pool reads zero, and
+// the next launch on the stream finds them so. A flag left set (a
+// trapped launch) makes the next wait trap: the wait is for exactly n-1.
+//
+// Publication: a block's stores, the block barrier, then thread 0's
+// red.release.gpu adds, with no __threadfence. The barrier orders every
+// thread's stores before thread 0's release, and a release is cumulative
+// over what the barrier ordered before it, so the reader's acquire sees
+// them (the ring ReduceScatter's `ring_signal`, reduce_scatter.cu). Waits
+// back off to at most kSleepNs, keeping the 5 s bound and trap of
+// shmem::spin_until.
+//
+// The data path. Thread i owns units i, i + threads, ... (U of them) of
+// 16 bytes of each of its block's tiles, the same at every rank. It
+// loads its units of x once (U loads in flight), stores them into slot
+// `me` of each peer, and keeps them in registers for its own term of
+// the fold. Right after a tile's acquire it issues its loads of the
+// peers' delivered words, up to 8 words in flight, and folds them in
+// rank order in registers. A block with several tiles keeps only the
+// last one's units: it folds that tile first and reloads the others'.
+// Where E is not a multiple of 16 bytes' worth of elements, the same
+// kernel moves each unit one element at a time, with the same roundings
+// and the same bits.
+//
+// What bounds it on an H100: bytes and latency. The least traffic for
+// the function is n inputs read and n outputs written. The push protocol
+// moves more (x read, n-1 copies written and read, out written: ~4.5 E
+// words a rank at n = 4); at a decode step's 32 KiB a rank, the two
+// synchronisation round trips (entry barrier, arrival) set the time.
+// The copies exist so the port keeps the reference's put protocol; on
+// one card a rank could read its peers' inputs directly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,119 +71,232 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 128;
+// blocks an SM kept resident (the wrapper's _AR_PER_SM)
+constexpr int kPerSM = 4;
+// the waits are a round trip apart: poll often
+constexpr unsigned kSleepNs = 64;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(unsigned short x) {
-  return __bfloat162float(__ushort_as_bfloat16(x));
-}
-__device__ __forceinline__ void from_f32(float v, float& o) { o = v; }
-__device__ __forceinline__ void from_f32(float v, unsigned short& o) {
-  o = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-// v rounded to the storage type S and widened back
-template <typename S>
-__device__ __forceinline__ float rounded(float v) {
-  S s;
-  from_f32(v, s);
-  return to_f32(s);
+template <class S>
+struct Elem;
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float get(float v) { return v; }
+  static __device__ __forceinline__ float put(float v) { return v; }
+};
+template <>
+struct Elem<unsigned short> {  // bf16 bits
+  static __device__ __forceinline__ float get(unsigned short v) {
+    return __uint_as_float(uint32_t(v) << 16);
+  }
+  static __device__ __forceinline__ unsigned short put(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+};
+
+// 16 bytes of storage type S
+template <class S>
+union Unit {
+  static constexpr int kPer = 16 / sizeof(S);
+  S e[kPer];
+  uint4 w;
+};
+
+// The unit at p into r: one 16-byte word when vec, else element by
+// element, those at or past `left` as zero. CG: past L1 (data another
+// rank delivered); else the read-only path.
+template <bool CG, class S>
+__device__ __forceinline__ void load_unit(Unit<S>& r, const S* p, bool vec,
+                                          long long left) {
+  if (vec) {
+    const uint4* q = reinterpret_cast<const uint4*>(p);
+    r.w = CG ? __ldcg(q) : __ldg(q);
+  } else {
+#pragma unroll
+    for (int e = 0; e < Unit<S>::kPer; ++e)
+      r.e[e] = e < left ? (CG ? __ldcg(p + e) : __ldg(p + e)) : S(0);
+  }
 }
 
-// S: the element's storage type (float, or unsigned short for bf16);
-// W: the word one thread moves at a time (uint4 = 16 bytes when every
-// tile edge is 16-byte aligned, else S itself). E and tile count S's.
-template <typename S, typename W>
-__global__ void __launch_bounds__(kThreads)
+template <class S>
+__device__ __forceinline__ void store_unit(S* p, const Unit<S>& r, bool vec,
+                                           long long left) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(p) = r.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < Unit<S>::kPer; ++e)
+      if (e < left) p[e] = r.e[e];
+  }
+}
+
+// Thread 0 waits until *flag == v, then takes v back (relaxed: the
+// acquire already ordered the reads that follow); the block then syncs.
+__device__ __forceinline__ void take(int* flag, int v, int rank, int index) {
+  if (threadIdx.x == 0) {
+    shmem::spin_until(flag, shmem::kEq, v, "one_shot_all_reduce", rank,
+                      index, kSleepNs);
+    atomicSub(flag, v);
+  }
+  __syncthreads();
+}
+
+// U: units of 16 bytes a thread a tile (tile = blockDim.x * U units).
+template <class S, int U>
+__global__ void __launch_bounds__(kMaxThreads, kPerSM)
 one_shot_ar_kernel(const S* x, S* ws, S* out, int* flags, long long E,
-                   int tile, int n_tiles) {
-  constexpr int kPer = sizeof(W) / sizeof(S);  // elements per word
-  const int n = gridDim.y, me = blockIdx.y;
-  const int nf = 1 + n_tiles;  // flag pool of a rank: [barrier, tiles...]
-  const long long ew = E / kPer;
-  const W* xw = reinterpret_cast<const W*>(x);
-  W* wsw = reinterpret_cast<W*>(ws);
+                   int tile, int n_tiles, int stride, int vec) {
+  typedef Elem<S> X;
+  constexpr int kPer = Unit<S>::kPer;
+  // peers' words in flight at once in the fold: at most 8 words
+  constexpr int P = U >= 8 ? 1 : 8 / U;
+  const int n = gridDim.y, me = blockIdx.y, G = gridDim.x;
+  const int b = blockIdx.x;
+  const S* xm = x + size_t(me) * E;
+  int* mine = flags + size_t(me) * stride;
 
-  // entry barrier, as the TPU kernel's shmem.barrier_all (a persistent
-  // multi-card workspace needs it; here the launch already brings every
-  // rank in, and the barrier keeps the reference protocol)
-  shmem::barrier_all(flags, nf, 0, me, n, "one_shot_all_reduce");
+  // first element of this thread's unit j in tile t, and what is left
+  auto at = [&](int t, int j) {
+    return static_cast<long long>(t) * tile +
+           (static_cast<long long>(threadIdx.x) + j * blockDim.x) * kPer;
+  };
 
-  // put my tiles into slot `me` of every peer, signalling each
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const long long lo = (long long)t * tile / kPer;
-    const long long cnt = min((long long)tile / kPer, ew - lo);
+  // the entry barrier of block index b
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 1; i < n; ++i)
+      shmem::atom_add_release(flags + size_t((me + i) % n) * stride +
+                                  n_tiles + b, 1);
+  take(mine + n_tiles + b, n - 1, me, n_tiles + b);
+
+  // put every tile of the block into slot `me` of every peer
+  Unit<S> own[U];
+  int last = -1;
+  for (int t = b; t < n_tiles; t += G) {
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      if (at(t, j) < E) load_unit<false>(own[j], xm + at(t, j), vec,
+                                         E - at(t, j));
     for (int i = 1; i < n; ++i) {
-      const int p = (me + i) % n;
-      shmem::putmem_block(wsw + (size_t(p) * n + me) * ew + lo,
-                          xw + size_t(me) * ew + lo, cnt);
-      shmem::signal_add(flags + size_t(p) * nf + 1 + t, 1);
+      S* slot = ws + (size_t((me + i) % n) * n + me) * E;
+#pragma unroll
+      for (int j = 0; j < U; ++j)
+        if (at(t, j) < E) store_unit(slot + at(t, j), own[j], vec,
+                                     E - at(t, j));
     }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int i = 1; i < n; ++i)
+        shmem::atom_add_release(flags + size_t((me + i) % n) * stride + t, 1);
+    last = t;
   }
 
-  // wait for each tile's n-1 arrivals, sum slots 0..n-1 in order
-  W* ow = reinterpret_cast<W*>(out) + size_t(me) * ew;
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    shmem::signal_wait_until(flags + size_t(me) * nf + 1 + t, shmem::kGe,
-                             n - 1, "one_shot_all_reduce", me, 1 + t);
-    const long long lo = (long long)t * tile / kPer;
-    const long long hi = min(lo + tile / kPer, ew);
-    for (long long w = lo + threadIdx.x; w < hi; w += blockDim.x) {
-      float acc[kPer];
-      for (int r = 0; r < n; ++r) {
-        // own slot from x; peers' slots delivered by them: __ldcg after
-        // the acquire (rule of shmem.cuh)
-        W v = r == me ? xw[size_t(me) * ew + w]
-                      : __ldcg(wsw + (size_t(me) * n + r) * ew + w);
-        const S* e = reinterpret_cast<const S*>(&v);
+  // fold each tile once its n-1 copies have landed: the last one put
+  // first, its units still in registers, then the others, reloaded
+  S* om = out + size_t(me) * E;
+  for (int t = last; t >= b; t -= G) {
+    if (t != last) {
 #pragma unroll
-        for (int j = 0; j < kPer; ++j)
-          acc[j] = r == 0 ? to_f32(e[j]) : rounded<S>(acc[j] + to_f32(e[j]));
-      }
-      W o;
-      S* oe = reinterpret_cast<S*>(&o);
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) from_f32(acc[j], oe[j]);
-      ow[w] = o;
+      for (int j = 0; j < U; ++j)
+        if (at(t, j) < E) load_unit<false>(own[j], xm + at(t, j), vec,
+                                           E - at(t, j));
     }
+    take(mine + t, n - 1, me, t);
+    Unit<S> acc[U];
+    for (int r0 = 0; r0 < n; r0 += P) {
+      Unit<S> v[P][U];
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const int r = r0 + q;
+        if (r >= n || r == me) continue;
+        const S* slot = ws + (size_t(me) * n + r) * E;
+#pragma unroll
+        for (int j = 0; j < U; ++j)
+          if (at(t, j) < E) load_unit<true>(v[q][j], slot + at(t, j), vec,
+                                            E - at(t, j));
+      }
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const int r = r0 + q;
+        if (r >= n) continue;
+#pragma unroll
+        for (int j = 0; j < U; ++j) {
+          const Unit<S>& s = r == me ? own[j] : v[q][j];
+#pragma unroll
+          for (int e = 0; e < kPer; ++e)
+            acc[j].e[e] = r == 0 ? s.e[e]
+                                 : X::put(X::get(acc[j].e[e]) + X::get(s.e[e]));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      if (at(t, j) < E) store_unit(om + at(t, j), acc[j], vec, E - at(t, j));
   }
 }
 
-template <typename S>
-cudaError_t launch(const void* x, void* ws, void* out, int* flags, int n,
-                   long long E, int tile, int* info, cudaStream_t st) {
+template <class S, int U>
+cudaError_t launch_u(const void* x, void* ws, void* out, int* flags, int n,
+                     long long E, int tile, int blocks, int stride,
+                     int* info, cudaStream_t st) {
   const int n_tiles = int((E + tile - 1) / tile);
-  const bool vec = (E * sizeof(S)) % 16 == 0 && (tile * sizeof(S)) % 16 == 0;
-  if (vec)
-    return shmem::launch_world(one_shot_ar_kernel<S, uint4>, n, n_tiles,
-                               kThreads, 0, st, info,
-                               static_cast<const S*>(x), static_cast<S*>(ws),
-                               static_cast<S*>(out), flags, E, tile, n_tiles);
-  return shmem::launch_world(one_shot_ar_kernel<S, S>, n, n_tiles, kThreads,
-                             0, st, info, static_cast<const S*>(x),
+  const int threads = int(tile * sizeof(S) / 16 / U);
+  const int vec = (E * sizeof(S)) % 16 == 0;
+  return shmem::launch_world(one_shot_ar_kernel<S, U>, n, blocks, threads, 0,
+                             st, info, static_cast<const S*>(x),
                              static_cast<S*>(ws), static_cast<S*>(out), flags,
-                             E, tile, n_tiles);
+                             E, tile, n_tiles, stride, vec);
+}
+
+template <class S>
+cudaError_t launch(const void* x, void* ws, void* out, int* flags, int n,
+                   long long E, int tile, int blocks, int stride, int* info,
+                   cudaStream_t st) {
+  const long long units = tile * (long long)sizeof(S) / 16;
+  const long long threads = units < kMaxThreads ? units : kMaxThreads;
+  switch (units / threads) {
+    case 1:
+      return launch_u<S, 1>(x, ws, out, flags, n, E, tile, blocks, stride,
+                            info, st);
+    case 2:
+      return launch_u<S, 2>(x, ws, out, flags, n, E, tile, blocks, stride,
+                            info, st);
+    case 4:
+      return launch_u<S, 4>(x, ws, out, flags, n, E, tile, blocks, stride,
+                            info, st);
+    case 8:
+      return launch_u<S, 8>(x, ws, out, flags, n, E, tile, blocks, stride,
+                            info, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Flags the launch needs per rank for E elements cut into `tile`s.
-extern "C" int ar_flag_count(long long E, int tile) {
-  return 1 + int((E + tile - 1) / tile);
-}
-
-// x (n, E), ws (n, n, E), out (n, E); flags (n, ar_flag_count) zeroed.
-// dtype: 0 = float32, 1 = bfloat16. info: 3 ints (see launch_world).
-// Returns a cudaError_t (0 = launched).
+// x (n, E), ws (n, n, E), out (n, E); flags (n, stride) of a persistent
+// pool left at zero, stride >= tiles + blocks (the wrapper's _ar_plan:
+// tile elements a tile, a power of two of 16-byte units, at most 8
+// units a thread of 128; blocks per rank). dtype: 0 = float32, 1 =
+// bfloat16. info: 3 ints (see launch_world). Returns a cudaError_t (0 =
+// launched).
 extern "C" int ar_launch(const void* x, void* ws, void* out, void* flags,
-                         int n, long long E, int tile, int dtype, void* info,
-                         void* stream) {
-  if (n < 1 || E < 1 || tile < 8 || tile % 8) return int(cudaErrorInvalidValue);
+                         int n, long long E, int tile, int blocks, int stride,
+                         int dtype, void* info, void* stream) {
+  const int size = dtype == 0 ? 4 : 2;
+  const long long units = tile * (long long)size / 16;
+  if (n < 1 || E < 1 || tile < 1 || tile * (long long)size % 16 ||
+      units & (units - 1) || units > 8 * kMaxThreads || blocks < 1 ||
+      stride < (E + tile - 1) / tile + blocks)
+    return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* fl = static_cast<int*>(flags);
   int* inf = static_cast<int*>(info);
-  if (dtype == 0) return int(launch<float>(x, ws, out, fl, n, E, tile, inf, st));
+  if (dtype == 0)
+    return int(launch<float>(x, ws, out, fl, n, E, tile, blocks, stride, inf,
+                             st));
   if (dtype == 1)
-    return int(launch<unsigned short>(x, ws, out, fl, n, E, tile, inf, st));
+    return int(launch<unsigned short>(x, ws, out, fl, n, E, tile, blocks,
+                                      stride, inf, st));
   return int(cudaErrorInvalidValue);
 }
 

@@ -18,12 +18,13 @@ version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -147,6 +148,50 @@ def check(kernel: str, err: int, error_string, grid: GridInfo = None) -> None:
         msg += (f" (n ranks need co-resident blocks: {grid.per_sm} blocks "
                 f"per SM x {grid.sms} SMs gave {grid.per_rank} per rank)")
     raise RuntimeError(msg)
+
+
+def ptxas_summary(name: str, kernel: str) -> Dict[str, str]:
+    """From the last build of csrc/<name>.cu in this process (empty when
+    it was loaded ready-built): each entry function whose mangled name
+    holds `kernel`, by its mangled template arguments, -> "<registers>
+    registers, <spill stores> / <spill loads> bytes spilled", as ptxas
+    -v printed them."""
+    out, cur, spill = {}, None, ""
+    for line in build_log.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            cur = (fn.split(kernel, 1)[1].split("EEv")[0] if kernel in fn
+                   else None)
+        elif cur is not None and "spill stores" in line:
+            parts = line.replace(",", "").split()
+            spill = f"{parts[parts.index('spill') - 2]} / " \
+                    f"{parts[parts.index('loads') - 3]}"
+        elif cur is not None and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split()[0]
+            out[cur] = f"{regs} registers, {spill} bytes spilled"
+            cur, spill = None, ""
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def card_sms(device) -> int:
+    """The SMs of a CUDA device (the launch plans' residency)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def straggler_args(straggler, n: int) -> Tuple[int, int]:
+    """A launch's (rank, nanos) of a `straggler=(rank, nanos)` option:
+    (-1, 0) for None; raises on a rank outside the world of n or a
+    negative delay."""
+    if straggler is None:
+        return -1, 0
+    rank, nanos = straggler
+    if not (0 <= rank < n and nanos >= 0):
+        raise ValueError(f"straggler {straggler}: (rank in [0, {n}), "
+                         "nanos >= 0)")
+    return rank, nanos
 
 
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:

@@ -31,6 +31,15 @@ implementations of one contract:
       A times b[r] in f32, rounded once to the dtype, row blocks then
       permuted for "arrival".
 
+The kernel has two tile bodies. The main path's form (dense, native
+wire, bf16 inputs, m a multiple of 64: a `dist` prefill's 128 rows a
+rank and a scheduler step's 64) takes the TMA + wgmma body, every other
+call (grouped, wire, f32, a decode step's m = 1) the mma.sync body;
+`_body_for` is the rule, `_wgmma_bn` the wgmma body's tile width, and
+`launches_by_body` counts each body's launches. `straggler=(rank,
+nanos)` (the JAX config's straggler_rank / straggler_ns) stalls that
+rank's ring producers on entry, on the card; the result is the same.
+
 At n = 1 without `force_kernel` the call is a local product (plus
 silu_mul for the pair), as the JAX function short-circuits to XLA; with
 `force_kernel` the kernel runs with n = 1. The TPU's VMEM-budget and
@@ -54,6 +63,7 @@ to it.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -62,17 +72,71 @@ from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the tile bodies of the native kernel (csrc/allgather_gemm.cu): 0 the
+# mma.sync body (every form), 1 the TMA + wgmma body (the main path's
+# form; _body_for)
+_BODY_CODE = {"mma": 0, "wgmma": 1}
+# the wgmma body's rows a TMA box (a step segment): m a multiple of it
+_WGMMA_ROWS = 64
+# C columns a wgmma tile (of each of gate and up with silu_pair): the
+# candidates _wgmma_bn weighs, and the sweep's
+_WGMMA_BN = (128, 192, 256)
+_WGMMA_BN_PAIR = (64, 128)
+# A tile's time grows as its accumulator columns plus this many: fitted
+# to the BN sweep of tools/profile_ag_gemm.py at the main path's shapes
+# (NVIDIA H100 80GB HBM3; PERF.md), where a wider tile costs less per
+# column; with it the plan picks the sweep's fastest width at each
+_WGMMA_FIXED_COLS = 128
+# one 128-row tile a block, one block an SM: the H100's SMs (the plan's
+# default; the card's own count on the card)
+_SMS = 132
+# launches of the native kernel by body (ag_gemm.launches counts both):
+# a run reads it around a path to show which body served it
+launches_by_body = {"mma": 0, "wgmma": 0}
 _SIGNATURES = {
     "ag_gemm_launch": (ctypes.c_int, [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_int] * 11 + [ctypes.c_longlong, ctypes.c_void_p,
+                              ctypes.c_void_p]),
+    "ag_gemm_encode_maps": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 5),
     "ag_gemm_grouped_launch": (ctypes.c_int, [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 10 + [ctypes.c_longlong] * 2 + [
-        ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]),
     "ag_gemm_wire_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 9 + [ctypes.c_void_p, ctypes.c_void_p]),
     "ag_gemm_flag_count": (ctypes.c_int, [ctypes.c_int]),
     "ag_gemm_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+
+
+def _body_for(a: torch.Tensor, bs, fmt, grouped: bool) -> str:
+    """The tile body of a native-kernel call: "wgmma" (TMA + wgmma) for
+    the main path's form, dense, native wire, bf16 inputs, m a multiple
+    of _WGMMA_ROWS, K and N at least 64; "mma" (mma.sync) for every
+    other call (grouped, wire, f32, ragged or small m such as a decode
+    step's m = 1)."""
+    n, m, k = a.shape
+    if (grouped or not wire.is_native(fmt) or a.dtype != torch.bfloat16
+            or m % _WGMMA_ROWS or k < 64 or bs[0].shape[-1] < 64):
+        return "mma"
+    return "wgmma"
+
+
+def _wgmma_bn(M: int, N: int, n: int, pair: bool, sms: int = _SMS) -> int:
+    """C columns a wgmma tile for M rows a rank (n*m), N columns, at world
+    n: the candidate whose waves (each rank's tiles over its sms // n
+    blocks) times a tile's time are the fewest, the widest on a tie. A
+    tile's time is taken as its accumulator columns plus
+    _WGMMA_FIXED_COLS (wave quantisation: QKV at 4 x 128 rows, N 1536 is
+    128 tiles of 192 on 132 SMs, one wave, against 192 tiles of 128)."""
+    per = max(1, sms // n)
+
+    def cost(bn):
+        tiles = -(-M // 128) * -(-N // bn)
+        return (-(-tiles // per) * (bn * (2 if pair else 1)
+                                    + _WGMMA_FIXED_COLS), -bn)
+
+    return min(_WGMMA_BN_PAIR if pair else _WGMMA_BN, key=cost)
 
 
 def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -200,16 +264,23 @@ def _local(a, bs, return_gathered, out_dtype, fmt):
 @_build.counted("ag_gemm")
 def ag_gemm(a: torch.Tensor, b, return_gathered: bool = False,
             out_dtype=None, force_kernel: bool = False, epilogue=None,
-            c_order: str = "rank", wire_format=None):
+            c_order: str = "rank", wire_format=None,
+            straggler: Optional[Tuple[int, int]] = None):
     """a (n, m, K), b (n, K, N), grouped (n, E, K, N), or a pair
     (w_gate, w_up) of either, rank-stacked -> C (n, n*m, N) in out_dtype
     (default a.dtype) (and the gathered A (n, n*m, K) with
     return_gathered): the CUDA kernel on CUDA tensors (launched or
     raising, never replaced), the plain version on CPU tensors; at n = 1
     a local product unless force_kernel. A quantized wire_format takes
-    ag_gemm_wire."""
+    ag_gemm_wire. straggler: (rank, nanos), that rank's ring producers
+    stall on entry (the JAX config's straggler_rank / straggler_ns; the
+    card only, native wire; the result is the same)."""
     fmt = wire.resolve(wire_format)
     bs = _check(a, b, epilogue, c_order, return_gathered, fmt)
+    _build.straggler_args(straggler, a.shape[0])
+    if straggler is not None and not wire.is_native(fmt):
+        raise ValueError("straggler delays the native ring; the wire form "
+                         "takes none")
     out_dtype = out_dtype or a.dtype
     if a.shape[0] == 1 and not force_kernel:
         return _local(a, bs, return_gathered, out_dtype, fmt)
@@ -219,7 +290,8 @@ def ag_gemm(a: torch.Tensor, b, return_gathered: bool = False,
     if a.device.type == "cpu":
         return ag_gemm_plain(a, b, epilogue, c_order, return_gathered,
                              out_dtype)
-    return _launch(a, bs, c_order == "arrival", return_gathered, out_dtype)
+    return _launch(a, bs, c_order == "arrival", return_gathered, out_dtype,
+                   straggler=straggler)
 
 
 @_build.counted("ag_gemm_wire")
@@ -309,7 +381,9 @@ def _launch_wire(a: torch.Tensor, b: torch.Tensor, fmt, arrival: bool,
 
 
 def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool,
-            out_dtype=None):
+            out_dtype=None, straggler=None, bn: Optional[int] = None):
+    """The native kernel; the body by _body_for, its tile width by
+    _wgmma_bn unless `bn` forces one (the sweep)."""
     out_dtype = out_dtype or a.dtype
     _check_launch(a, bs, out_dtype)
     n, m, K = a.shape
@@ -325,6 +399,16 @@ def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool,
                              "aligned")
     if grouped:
         strides = _grouped_strides(bs, per)
+    rank, nanos = _build.straggler_args(straggler, n)
+    body = _body_for(a, bs, None, grouped)
+    if body == "wgmma":
+        pair = len(bs) == 2
+        bn = bn or _wgmma_bn(n * m, N, n, pair, _build.card_sms(a.device))
+        if bn not in (_WGMMA_BN_PAIR if pair else _WGMMA_BN):
+            raise ValueError(f"bn={bn}: the wgmma body takes "
+                             f"{_WGMMA_BN_PAIR if pair else _WGMMA_BN}")
+    elif bn is not None:
+        raise ValueError(f"bn={bn}: only the wgmma body takes a tile width")
     world = VirtualWorld.of(a)
     c = torch.empty((n, n * m, N), dtype=out_dtype, device=a.device)
     ws = world.heap((n * m, K), a.dtype)  # [rank][chunk c's rows]
@@ -341,9 +425,12 @@ def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool,
         stream = torch.cuda.current_stream().cuda_stream
         if grouped:
             err = lib.ag_gemm_grouped_launch(
-                *ptrs, bs[0].shape[1], *strides, grid.ptr(), stream)
+                *ptrs, bs[0].shape[1], *strides, rank, nanos, grid.ptr(),
+                stream)
         else:
-            err = lib.ag_gemm_launch(*ptrs, grid.ptr(), stream)
+            err = lib.ag_gemm_launch(*ptrs, _BODY_CODE[body], bn or 0, rank,
+                                     nanos, grid.ptr(), stream)
     _build.check("ag_gemm", err, lib.ag_gemm_error_string, grid)
     _build.count_launch("ag_gemm")
+    launches_by_body[body] += 1
     return (c, ws) if return_gathered else c

@@ -18,6 +18,12 @@ every rank's copy of the sum. Two implementations of one contract:
       two and the JAX kernel agree bitwise, in f32 and in bf16, and
       every rank's copy has the same bits.
 
+On the card the kernel takes its workspace and flag pool from `_POOLS`
+(a reduce_scatter._PoolCache: made once, the flags zeroed once, then
+reused; the kernel leaves every flag at zero), so a warm call allocates
+only its output. `_ar_plan` cuts the tensor into tiles; `_launch(x,
+tile=)` forces a tile (the sweep and the tests).
+
 At n = 1 both return x,
 as the JAX function does. The TPU's VMEM-budget fallback to lax.psum
 is a rule of the TPU and does not carry over: on the card the kernel
@@ -51,6 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import enum
+from typing import Optional, Tuple
 
 import torch
 
@@ -80,15 +87,55 @@ _ONE_SHOT_MAX_BYTES = 256 << 10
 # has a perf model (ROADMAP item 7).
 _ONE_SHOT_CROSSOVER_BYTES = 256 << 10
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# elements per tile: each tile has its own arrival counter
-_TILE = 8192
+# The kernel's tiles (csrc/allreduce.cu): each tile has its own arrival
+# counter, and is a power of two of 16-byte units on at most 128 threads,
+# at most 8 units a thread (_AR_TILE_BYTES). _AR_TILE is the default:
+# the fastest of the sweep at a decode step's (4, 4, 4096) bf16, 8
+# blocks a rank (tools/profile_allreduce.py, NVIDIA H100 80GB HBM3: 6.3
+# us against 6.8-7.0 for the smaller tiles that put a block on every SM
+# and 7.3-9.1 for the larger; PERF.md). _ar_plan doubles it while a
+# rank's tiles exceed what stays resident (_AR_PER_SM blocks an SM, the
+# kernel's __launch_bounds__), which gives 8192 at a scheduler step's
+# (4, 256, 4096), the fastest there too.
+_AR_TILES = (256, 512, 1024, 2048, 4096, 8192)
+_AR_TILE = 2048
+_AR_TILE_BYTES = 16 * 8 * 128
+_AR_PER_SM = 4
+# the H100's SMs: the plan's default, the card's own count on the card
+_SMS = 132
+# persistent workspaces and flag pools (csrc/allreduce.cu leaves the
+# flags at zero): at most reduce_scatter._POOL_ENTRIES, the least
+# recently used evicted
+_POOLS = _rsr._PoolCache()
 _SIGNATURES = {
     "ar_launch": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4 + [
         ctypes.c_void_p, ctypes.c_void_p]),
-    "ar_flag_count": (ctypes.c_int, [ctypes.c_longlong, ctypes.c_int]),
     "ar_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+
+
+def _ar_plan(E: int, n: int, itemsize: int, sms: int = _SMS,
+             tile: Optional[int] = None) -> Tuple[int, int, int]:
+    """(tile, blocks per rank, flags per rank) of the kernel for E
+    elements a rank of `itemsize` bytes at world n. The tile: _AR_TILE
+    (within _AR_TILE_BYTES), doubled while a rank's tiles exceed the
+    resident blocks a rank (_AR_PER_SM an SM over n ranks); `tile`
+    forces one of _AR_TILES (the sweep). Blocks: one a tile, at most the
+    resident ones (the grid stays co-resident). Flags: an arrival counter
+    a tile and an entry barrier a block index."""
+    top = max(t for t in _AR_TILES if t * itemsize <= _AR_TILE_BYTES)
+    cap = max(1, _AR_PER_SM * sms // n)
+    if tile is None:
+        tile = min(_AR_TILE, top)
+        while -(-E // tile) > cap and tile < top:
+            tile *= 2
+    elif tile not in _AR_TILES or tile > top:
+        raise ValueError(f"tile {tile}: one of {_AR_TILES}, at most {top} "
+                         f"for {itemsize}-byte elements")
+    tiles = -(-E // tile)
+    blocks = min(tiles, cap)
+    return tile, blocks, tiles + blocks
 
 
 def one_shot_all_reduce_plain(x: torch.Tensor) -> torch.Tensor:
@@ -200,7 +247,36 @@ def one_shot_all_reduce(x: torch.Tensor) -> torch.Tensor:
     return _launch(x)
 
 
-def _launch(x: torch.Tensor) -> torch.Tensor:
+def _ar_pool_key(x: torch.Tensor, stream: int, tile: int,
+                 blocks: int) -> tuple:
+    """A pool's key: two calls share a workspace and flags only on one
+    device and one stream (launches on a stream run one after another),
+    at one world size, size a rank and dtype, and one plan."""
+    return (x.device, stream, x.shape[0], x[0].numel(), x.dtype, tile,
+            blocks)
+
+
+def _ar_buffers(x: torch.Tensor, tile: Optional[int] = None):
+    """A call's output, its persistent workspace and flag pool, its plan
+    (tile, blocks) and the stream: everything the launch needs but the
+    launch."""
+    n, e = x.shape[0], x[0].numel()
+    out = torch.empty_like(x)
+    tile, blocks, nf = _ar_plan(e, n, x.element_size(),
+                                _build.card_sms(x.device), tile)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def make():
+        world = VirtualWorld.of(x)
+        return world.heap((n, e), x.dtype), world.flags(nf)
+
+    ws, flags = _POOLS.get(_ar_pool_key(x, stream, tile, blocks), make)
+    return out, ws, flags, tile, blocks, stream
+
+
+def _launch(x: torch.Tensor, tile: Optional[int] = None) -> torch.Tensor:
+    """The kernel on x; tile: one of _AR_TILES instead of the plan's (the
+    sweep and the tests)."""
     if x.device.type != "cuda":
         raise ValueError(f"the all-reduce kernel needs a CUDA tensor, got "
                          f"{x.device}")
@@ -209,22 +285,19 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
                          "bfloat16")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous and 16-byte aligned")
-    world = VirtualWorld.of(x)
-    if world.n == 1:
+    n, e = x.shape[0], x[0].numel()
+    if n == 1:
         return x
-    e = x[0].numel()
     if e == 0:
         return x.clone()
     lib = _build.load("allreduce", _SIGNATURES)
-    ws = world.heap((world.n, e), x.dtype)
-    out = torch.empty_like(x)
-    flags = world.flags(lib.ar_flag_count(e, _TILE))
+    out, ws, flags, tile, blocks, stream = _ar_buffers(x, tile)
     grid = _build.GridInfo()
     with torch.cuda.device(x.device):
         err = lib.ar_launch(x.data_ptr(), ws.data_ptr(), out.data_ptr(),
-                            flags.data_ptr(), world.n, e, _TILE,
-                            _DTYPE_CODE[x.dtype], grid.ptr(),
-                            torch.cuda.current_stream().cuda_stream)
+                            flags.data_ptr(), n, e, tile, blocks,
+                            flags.shape[1], _DTYPE_CODE[x.dtype], grid.ptr(),
+                            stream)
     _build.check("one_shot_all_reduce", err, lib.ar_error_string, grid)
     _build.count_launch("one_shot_all_reduce")
     return out

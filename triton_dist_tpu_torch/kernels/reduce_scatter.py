@@ -70,7 +70,6 @@ from __future__ import annotations
 import collections
 import ctypes
 import enum
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -206,11 +205,6 @@ def _pool_key(kernel: str, x: torch.Tensor, stream: int, size, dtype,
     stream (launches on a stream run one after another), at one world
     size, slot size and dtype, and tile count."""
     return (kernel, x.device, stream, x.shape[0], size, dtype, tiles)
-
-
-@functools.lru_cache(maxsize=None)
-def _card_sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(x: torch.Tensor) -> None:
@@ -367,7 +361,7 @@ def _ring_buffers(x: torch.Tensor, acc_dtype: torch.dtype,
                       device=x.device)
     chunk = out[0].numel()
     tile, tiles = _ring_plan(chunk, acc_dtype.itemsize, n,
-                             _card_sms(x.device), tile)
+                             _build.card_sms(x.device), tile)
     stream = torch.cuda.current_stream(x.device).cuda_stream
 
     def make():
@@ -393,7 +387,7 @@ def _launch(x: torch.Tensor, acc_dtype: torch.dtype,
         raise ValueError(f"dtypes {x.dtype} / accum {acc_dtype}: the kernel "
                          "takes float32 or bfloat16")
     n = x.shape[0]
-    rank, nanos = _straggler_args(_straggler, n)
+    rank, nanos = _build.straggler_args(_straggler, n)
     if x.numel() == 0:
         return torch.empty((n, x.shape[1] // n, *x.shape[2:]),
                            dtype=x.dtype, device=x.device)
@@ -410,16 +404,6 @@ def _launch(x: torch.Tensor, acc_dtype: torch.dtype,
     return out
 
 
-def _straggler_args(straggler, n: int) -> Tuple[int, int]:
-    if straggler is None:
-        return -1, 0
-    rank, nanos = straggler
-    if not (0 <= rank < n and nanos >= 0):
-        raise ValueError(f"straggler {straggler}: (rank in [0, {n}), "
-                         "nanos >= 0)")
-    return rank, nanos
-
-
 def _wire_buffers(x: torch.Tensor, fmt: wire.WireFormat, out_dtype):
     """A wire ring call's output, its persistent image slots and flags,
     its plan (warps a row, rows a tile) and the stream."""
@@ -430,7 +414,7 @@ def _wire_buffers(x: torch.Tensor, fmt: wire.WireFormat, out_dtype):
                       device=x.device)
     kw = wire.wire_cols(k, fmt)
     warps, rows, tiles = _wire_plan(m, k, k // wire.n_blocks(k, fmt), n,
-                                    _card_sms(x.device))
+                                    _build.card_sms(x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream
 
     def make():
@@ -457,7 +441,7 @@ def _launch_wire(x: torch.Tensor, fmt: wire.WireFormat, out_dtype,
         raise ValueError(f"rows of {k} elements: the wire kernel stages "
                          f"a row of at most {_WIRE_MAX_COLS} in shared "
                          "memory")
-    rank, nanos = _straggler_args(straggler, n)
+    rank, nanos = _build.straggler_args(straggler, n)
     if x.numel() == 0:
         return torch.empty((n, x.shape[1] // n, *x.shape[2:]),
                            dtype=out_dtype, device=x.device)
