@@ -11,7 +11,10 @@ outside a checkout of the repository. Phases, each fatal on failure:
   2. build every kernel of the port from csrc/ with nvcc (in parallel);
   3. each kernel against its plain PyTorch version on the card: flash
      prefill at edge cases, the Qwen3-8B engine-prefill and serve-step
-     shapes and a long prefill; one-shot AllReduce, ring AllGather and
+     shapes and a long prefill, and its wgmma fold at the serve step, the
+     long prefill and the world-4 recorded step with every split count
+     forced, a NaN cache tail past kv_len and a one-hot V; one-shot
+     AllReduce, ring AllGather and
      gemm_rs at n = 2 and 4 (gemm_rs also n = 1, force_kernel), ragged
      sizes, M = 1 and the world-4 main-path shapes (the AllReduce also
      with every tile of its sweep forced); ag_gemm at n = 1
@@ -19,7 +22,10 @@ outside a checkout of the repository. Phases, each fatal on failure:
      return_gathered, m = 1, 64, 128 and ragged, N not a tile multiple,
      and its wgmma body at the world-4 dist path's Qwen3-8B shapes (QKV,
      gate|up; m 128 and 64), bf16 and f32 out, every tile width forced;
-     gemm_rs with A in arrival order at n = 2 and 4; f32 and bf16; the
+     gemm_rs with A in arrival order at n = 2 and 4, and its wgmma body
+     at the dist path's O and down shapes (m 128 and 64), every tile
+     width forced, each rank delayed, 50 calls leaving its persistent
+     counters at zero; f32 and bf16; the
      ring ReduceScatter bitwise at n = 1 (force_kernel), 2 and 4 in f32,
      bf16 and bf16 with f32 accumulation, every tile forced, each rank
      delayed, and 50 calls back to back with the wire ring that leave
@@ -36,8 +42,9 @@ outside a checkout of the repository. Phases, each fatal on failure:
      the `ar` mode; then at world 4 with the Engine's default modes (a
      `dist` prefill, an `ar` decode) and a `dist` Scheduler; each
      through Engine.serve and the continuous-batching Scheduler, with
-     every kernel's launch count read around it (ag_gemm's by body:
-     every dense `dist` call on the wgmma body) and the inputs of each
+     every kernel's launch count read around it (ag_gemm's, gemm_rs's
+     and the flash kernel's by body: every call of the serve and the
+     Scheduler on the wgmma body) and the inputs of each
      kernel's first- and last-layer calls recorded; then the kernel
      path's logits against the plain versions' (and, for `dist`, the
      `xla` prefill's), and a small f32 model on the card against the CPU
@@ -324,6 +331,75 @@ def check_flash_prefill(fp):
     return main_err
 
 
+# the wgmma fold's split counts the card checks force (and the sweep)
+FP_SPLITS = (1, 2, 3, 4)
+# a shape whose row tiles leave most SMs idle, where the plan splits:
+# one request's 64-token step against a 1k cache (the sweep's fourth)
+FP_ONE_REQUEST = ("one-request step", 1, 64, MAX_LEN, 32, 8, 128, [960])
+# the world-4 recorded scheduler step's rank rows (B 4 x 4 ranks, Hq 8,
+# Hkv 2 a rank): kv_len 178-375 (PERF.md)
+FP_RECORDED = (16, 64, MAX_LEN, 8, 2, 128, [114, 311, 193, 262] * 4)
+
+
+def fp_main_shapes():
+    """(label, b, s, t, hq, hkv, d, starts) of the local flash kernel's
+    main-path shapes: Qwen3-8B's world-1 serve step and long prefill, and
+    the world-4 recorded scheduler step."""
+    return [("serve step", 4, 64, MAX_LEN, 32, 8, 128, [960, 600, 200, 0]),
+            ("long prefill", 1, 2048, 2048, 32, 8, 128, [0]),
+            ("world-4 recorded step", *FP_RECORDED)]
+
+
+def check_flash_wgmma(fp):
+    """The wgmma fold at the main-path shapes (fp_main_shapes), every
+    split count of FP_SPLITS forced, against flash_prefill_plain within
+    bf16_atol and the epsilon band; then with the cache's K and V past
+    kv_len set to NaN (a recycled page: the fold must not read them) and
+    with a one-hot V (v[t, h, d] = 1 where d = (t + h) mod 128: the
+    register layout of P as the P.V product's A operand); every launch
+    on the wgmma fold."""
+    import torch
+
+    before = dict(fp.launches_by_body)
+    calls = 0
+    for label, b, s, t, hq, hkv, d, starts in fp_main_shapes():
+        inp = fp_inputs(b, s, t, hq, hkv, d, starts, torch.bfloat16,
+                        seed=b + s)
+        atol = bf16_atol(inp)
+        want = fp.flash_prefill_plain(**inp)
+        k_nan, v_nan = inp["k"].clone(), inp["v"].clone()
+        for i in range(b):
+            k_nan[i, int(inp["kv_len"][i]):] = float("nan")
+            v_nan[i, int(inp["kv_len"][i]):] = float("nan")
+        tt = torch.arange(t, device="cuda")[:, None, None]
+        hh = torch.arange(hkv, device="cuda")[None, :, None]
+        dd = torch.arange(d, device="cuda")[None, None, :]
+        onehot = (dd == (tt + hh) % d).to(torch.bfloat16).expand(
+            b, t, hkv, d).contiguous()
+        runs = [(f"splits {sp}", inp, want, sp) for sp in FP_SPLITS]
+        runs += [("NaN past kv_len", dict(inp, k=k_nan, v=v_nan), want,
+                  None),
+                 ("one-hot V", dict(inp, v=onehot),
+                  fp.flash_prefill_plain(**dict(inp, v=onehot)), None)]
+        for what, x, ref, sp in runs:
+            got = fp._launch(x["q"], x["k"], x["v"], x["q_positions"], 0,
+                             x["kv_len"], True, None, body="wgmma",
+                             splits=sp)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            if not bool(torch.isfinite(got).all()) or not err <= atol:
+                raise AssertionError(f"flash_prefill wgmma {label} {what}: "
+                                     f"err {err}, atol {atol}")
+            band(ref, got, "flash_prefill")
+            calls += 1
+        log(f"  flash_prefill wgmma fold {label} (B {b}, S {s}, T {t}, Hq "
+            f"{hq}, Hkv {hkv}): splits {FP_SPLITS} forced, NaN past kv_len,"
+            f" one-hot V: within {atol:.3g} and the band (plan "
+            f"{fp._fp_plan(b, s, t, hq, hkv, d, torch.bfloat16)})")
+    got = {k: v - before[k] for k, v in fp.launches_by_body.items()}
+    assert got == {"mma": 0, "wgmma": calls}, got
+
+
 def time_flash_prefill(fp, extra=()):
     """Kernel, plain and SDPA times at the two synthetic Qwen3-8B shapes
     and at each (label, inputs) pair of `extra`."""
@@ -342,12 +418,16 @@ def time_flash_prefill(fp, extra=()):
         row = dict(
             ms=time_ms(lambda: fp.flash_prefill_local(**inp)),
             device_us=device_us(lambda: fp.flash_prefill_local(**inp),
-                                "fp_local_kernel"),
+                                "fp_local"),
             plain_ms=time_ms(lambda: fp.flash_prefill_plain(**inp)),
             bound_ms=bnd, bound_by=by,
             library_ms=time_ms(sdpa_call(inp)),
             library_us=device_us_total(sdpa_call(inp)),
             gflop=ops / 1e9, mbytes=nbytes / 1e6)
+        if hasattr(fp, "_fp_plan"):  # the fold and split count it took
+            b, s, hq, d = inp["q"].shape
+            row["plan"] = fp._fp_plan(b, s, inp["k"].shape[1], hq,
+                                      inp["k"].shape[2], d, inp["q"].dtype)
         log(f"  flash_prefill {label}: kernel {row['ms']:.4f} ms, device "
             f"{row['device_us']} us, plain "
             f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms / "
@@ -563,7 +643,83 @@ def check_ag_gemm(kernels):
                 worst = max(worst, ratio)
                 log(f"  gemm_rs a_order=arrival n={n} M={M} K={K} N={N} "
                     f"{dn}: at most {ratio:.3f} of its atol")
-    return max(worst, check_wgmma_main_shapes(kernels))
+    return max(worst, check_wgmma_main_shapes(kernels),
+               check_gemm_rs_main_shapes(kernels))
+
+
+def band_cos(want, got, kernel):
+    """The epsilon band's cosine of `kernel` at want's dtype; raises
+    outside it. Returns (cos, ulp): gemm_rs's ulp leg does not hold by
+    construction (each rank's partial is rounded to bf16 before the f32
+    fold, so one ulp of a partial is many ulps of an output that
+    cancels; its mma.sync body shows the same ulp), so it is reported,
+    not held."""
+    rep = torch_parity().check_epsilon(want.float().cpu().numpy(),
+                                     got.float().cpu().numpy(), kernel,
+                                     want.dtype)
+    if not rep["cos"] <= rep["band_cos"]:
+        raise AssertionError(f"{kernel} outside its band's cosine: {rep}")
+    return rep["cos"], rep["ulp"]
+
+
+# gemm_rs straggler delay a rank (ns) in the card checks
+RS_STRAGGLE_NS = 2_000_000
+
+
+def check_gemm_rs_main_shapes(kernels, calls=50):
+    """gemm_rs's wgmma body at the world-4 dist path's Qwen3-8B shapes (O
+    K 1024 in rank order, down K 3072 in arrival order, N 4096; m 128, a
+    prefill, and 64, a scheduler step), every tile width of its sweep
+    forced and each rank in turn delayed RS_STRAGGLE_NS, against
+    gemm_rs_plain within gemm_rs_atol and the band's cosine; each launch
+    took the wgmma body. Then `calls` back-to-back calls leave every
+    counter of its persistent pools at zero and make no pool (a warm
+    call launches no memset). Returns the largest share of an atol."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
+    worst, launched = 0.0, 0
+    before = dict(grs.launches_by_body)
+    for m in (128, 64):
+        for k, order in ((1024, "rank"), (3072, "arrival")):
+            a = rand((4, 4 * m, k), torch.bfloat16, m + k, 1.0)
+            b = rand((4, k, 4096), torch.bfloat16, k + 1, 0.02)
+            want = kernels.gemm_rs_plain(a, b, order)
+            atol = gemm_rs_atol(a, b, want)
+            runs = [(f"bn {bn}", lambda bn=bn: grs._launch(
+                a, b, order == "arrival", bn=bn)) for bn in grs._WGMMA_BN]
+            runs += [(f"rank {r} delayed", lambda r=r: kernels.gemm_rs(
+                a, b, a_order=order, straggler=(r, RS_STRAGGLE_NS)))
+                for r in range(4)]
+            ulps = []
+            for what, fn in runs:
+                got = fn()
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                if not bool(torch.isfinite(got).all()) or not err <= atol:
+                    raise AssertionError(f"gemm_rs wgmma m {m} K {k} {what}:"
+                                         f" err {err}, atol {atol}")
+                ulps.append(band_cos(want, got, "gemm_rs")[1])
+                worst, launched = max(worst, err / atol), launched + 1
+            log(f"  gemm_rs wgmma body n=4 m={m} K={k} N=4096 {order}: "
+                f"every tile width forced, each rank delayed "
+                f"{RS_STRAGGLE_NS} ns: within the atol and the band's "
+                f"cosine (ulp {min(ulps)}-{max(ulps)}, reported)")
+    got = {k: v - before[k] for k, v in grs.launches_by_body.items()}
+    assert got == {"mma": 0, "wgmma": launched}, got
+    made = grs._POOLS.made
+    for _ in range(calls):
+        out = kernels.gemm_rs(a, b, a_order=order)
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernels.gemm_rs(a, b, a_order=order))
+    nonzero = sum(int(f.count_nonzero()) for _, f in
+                  grs._POOLS.entries.values())
+    assert nonzero == 0 and grs._POOLS.made == made, (nonzero, made)
+    log(f"  gemm_rs {calls} back-to-back calls: every counter of "
+        f"{len(grs._POOLS.entries)} persistent pools at zero, no pool "
+        "made by a warm call")
+    return worst
 
 
 def check_wgmma_main_shapes(kernels):
@@ -1097,6 +1253,7 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
 
     from triton_dist_tpu_torch.kernels import allgather_gemm as agm
     from triton_dist_tpu_torch.kernels import flash_prefill as fp
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
     from triton_dist_tpu_torch.models import Engine
     from triton_dist_tpu_torch.serve import Scheduler
 
@@ -1132,7 +1289,8 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
     kind = "moe" if moe else "dense"
     wrappers = {name: Recorder(name, L, kind) for name in main_path_kernels()}
     grouped = GroupedRecorder(L)
-    bodies0 = dict(agm.launches_by_body)
+    by_body = {"ag_gemm": agm, "gemm_rs": grs, "flash_prefill_local": fp}
+    bodies0 = {k: dict(mod.launches_by_body) for k, mod in by_body.items()}
     with Swapped(wrappers), grouped:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
@@ -1150,7 +1308,9 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
         torch.cuda.synchronize()
         sched_s = time.perf_counter() - t0
         main_n = kernels.launches()
-    bodies = {k: v - bodies0[k] for k, v in agm.launches_by_body.items()}
+    bodies = {name: {k: v - bodies0[name][k]
+                     for k, v in mod.launches_by_body.items()}
+              for name, mod in by_body.items()}
     steps = sch.worker.n_steps
     records = {name: w.records for name, w in wrappers.items()}
     if moe:
@@ -1167,11 +1327,17 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
                                            sched_mode, gen, steps, moe)
     assert serve_n == want_serve, (serve_n, want_serve)
     assert sched_n == want_sched, (sched_n, want_sched)
-    # every dense ag_gemm of a dist forward has m = 128 (the prefill) or
-    # 64 (a scheduler step) rows a rank: all of them took the wgmma body
-    assert bodies == {"mma": 0, "wgmma": main_n["ag_gemm"]}, bodies
-    model = {"ag_gemm_by_body": bodies}
-    log(f"  ag_gemm launches by body (Engine.serve and Scheduler): {bodies}")
+    # every dense ag_gemm and every gemm_rs of a dist forward (gemm_rs of
+    # an ar prefill too) has m = 128 (the prefill) or 64 (a scheduler
+    # step) rows a rank, and every flash call is bf16 with D = 128 and
+    # G = 4: all of them took the wgmma body or fold
+    for name, got in bodies.items():
+        assert got == {"mma": 0, "wgmma": main_n[name]}, (name, got)
+        log(f"  {name} launches by body (Engine.serve and Scheduler): "
+            f"{got}")
+    model = {"ag_gemm_by_body": bodies["ag_gemm"],
+             "gemm_rs_by_body": bodies["gemm_rs"],
+             "flash_prefill_by_body": bodies["flash_prefill_local"]}
 
     # the kernel path's logits against the plain versions', swapped in
     # only for these comparisons; the bound is calibrated in the same run
@@ -1636,7 +1802,7 @@ def time_collectives(kernels, records):
             lambda a=a, b=b: torch.einsum("rmk,rkn->mn", a, b),
             2 * n * M * K * N,
             (n * (M * K + K * N) + n * (M // n) * N) * a.element_size(),
-            a.dtype, kernel_key="gemm_rs_kernel")
+            a.dtype, kernel_key="gemm_rs")
     # the same kernel at n = 1 (force_kernel; the JAX _local_mm_kernel's
     # place): the world-1 down projection, these ranks' K blocks joined
     a, b = rs_down["a"], rs_down["b"]
@@ -1653,7 +1819,7 @@ def time_collectives(kernels, records):
         lambda: kernels.gemm_rs_plain(a1, b1),
         lambda: torch.matmul(a1, b1), 2 * M * n * K * N,
         (M * n * K + n * K * N + M * N) * a1.element_size(), a1.dtype,
-        kernel_key="gemm_rs_kernel")
+        kernel_key="gemm_rs")
     main = {"one_shot_all_reduce": next(iter(rows["one_shot_all_reduce"])),
             "ring_all_gather": next(iter(rows["ring_all_gather"])),
             "gemm_rs": next(iter(rows["gemm_rs"]))}
@@ -1800,7 +1966,7 @@ def time_dist(kernels, records):
         lambda: kernels.gemm_rs_plain(a, b, "arrival"),
         lambda: torch.einsum("rmk,rkn->mn", a, b), 2 * n * M * K * N,
         (n * (M * K + K * N) + n * (M // n) * N) * a.element_size(), a.dtype,
-        kernel_key="gemm_rs_kernel")
+        kernel_key="gemm_rs")
     main = next(k for k in ag_rows if k.startswith("prefill gate|up"))
     return ag_rows, rs_rows, main
 
@@ -4001,11 +4167,13 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s")
     for name, text in _build.build_log.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            # C7510 / C7518: ptxas serialized a kernel's wgmma
+            if "registers" in line or "spill" in line or "C75" in line:
                 log(f"  {name}: {line.strip()}")
 
     log("== 3. kernels against their plain versions")
     fp_err = check_flash_prefill(fp)
+    check_flash_wgmma(fp)
     rs_ratio = check_collectives(kernels)
     check_p2p_kernels(kernels)
     ag_ratio = check_ag_gemm(kernels)
@@ -4124,16 +4292,22 @@ def main() -> int:
     def total(name):
         return sum(by_path(name).values())
 
+    def by_body(key):  # each path's serve and Scheduler launches by body
+        return {"world1": model1[key], "world4_ar": model4[key],
+                "world4_dist": modeld[key], "world4_moe": modelm[key]}
+
     lines = [entry("flash_prefill_local", total("flash_prefill_local"),
                    by_path("flash_prefill_local"),
                    max(err1, err4, errd, errm), fp_rows, busy,
-                   max_abs_err_synthetic=fp_err)]
+                   max_abs_err_synthetic=fp_err,
+                   launches_by_body=by_body("flash_prefill_by_body"))]
     for name in ("one_shot_all_reduce", "ring_all_gather", "gemm_rs"):
         lines.append(entry(name, total(name), by_path(name), errs[name],
                            coll_rows[name], coll_main[name],
                            **(ar_extra if name == "one_shot_all_reduce"
                               else {})))
     lines[-1]["atol_ratio_synthetic"] = rs_ratio
+    lines[-1]["launches_by_body"] = by_body("gemm_rs_by_body")
     lines.append(entry("ag_gemm", total("ag_gemm"), by_path("ag_gemm"),
                        max(errs_dist["ag_gemm"], errs_md["ag_gemm"]),
                        ag_rows, ag_main, atol_ratio_synthetic=ag_ratio,

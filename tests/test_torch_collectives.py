@@ -44,6 +44,7 @@ from triton_dist_tpu_torch.kernels import (
     reset_launches,
     ring_all_gather,
 )
+from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels import allgather as ag
 from triton_dist_tpu_torch.kernels import allreduce as ar
 from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
@@ -316,7 +317,7 @@ def test_ring_pool_cache_keys_and_evicts_least_recently_used():
               rsr._pool_key("ring_reduce_scatter", torch.zeros(2, 8), 7, 16,
                             torch.bfloat16, 1)]
     assert len({base, *others}) == len(others) + 1
-    cache = rsr._PoolCache(size=3)
+    cache = _build.PoolCache(size=3)
     made = []
 
     def make(tag):
@@ -389,12 +390,12 @@ def test_ar_plan_main_path_shapes_and_forced_tiles():
 
 def test_ar_pool_cache_keys_and_evicts_least_recently_used():
     """The AllReduce's persistent workspace and flags: its own cache
-    (not the rings'), at most reduce_scatter._POOL_ENTRIES entries, one
+    (not the rings'), at most _build.POOL_ENTRIES entries, one
     a (device, stream, n, E, dtype, tile, blocks); two streams, worlds,
     sizes, dtypes or plans never share one; past the size the least
     recently used goes. Buffers stubbed by CPU tensors."""
     assert ar._POOLS is not rsr._POOLS
-    assert ar._POOLS.size == rsr._POOL_ENTRIES
+    assert ar._POOLS.size == _build.POOL_ENTRIES
     x = torch.zeros(4, 4, 16, dtype=torch.bfloat16)
     base = ar._ar_pool_key(x, 7, 2048, 8)
     others = [ar._ar_pool_key(x, 8, 2048, 8),
@@ -404,7 +405,7 @@ def test_ar_pool_cache_keys_and_evicts_least_recently_used():
               ar._ar_pool_key(torch.zeros(2, 8, 16), 7, 2048, 8),
               ar._ar_pool_key(torch.zeros(4, 4, 17), 7, 2048, 8)]
     assert len({base, *others}) == len(others) + 1
-    cache = rsr._PoolCache(size=2)
+    cache = _build.PoolCache(size=2)
     made = []
 
     def make(tag):

@@ -356,6 +356,235 @@ def test_ag_gemm_delayed_rank_matches_plain(cuda, n):
                 band(want, got, "ag_gemm")
 
 
+def _gemm_rs_atol(a, b, want):
+    """Kernel and plain both round each rank's partial to bf16 and fold in
+    rank order in f32; their f32 products differ in the order of the K
+    sums: one bf16 ulp of every partial and of the output."""
+    part = torch.matmul(a.float(), b.float()).abs().max().item()
+    return 2.0 ** -7 * (a.shape[0] * part + want.float().abs().max().item())
+
+
+def _band_cos(want, got, kernel):
+    """The band's cosine; the ulp leg is reported, not held: each rank's
+    partial is rounded to bf16 before the f32 fold, so one ulp of a
+    partial is many ulps of an output that cancels (gemm_rs's mma.sync
+    body shows the same ulp at these shapes)."""
+    rep = torch_parity.check_epsilon(want.float().cpu().numpy(),
+                                     got.float().cpu().numpy(), kernel,
+                                     want.dtype)
+    print(f"band {kernel} (cosine held) {tuple(want.shape)}: "
+          f"cos={rep['cos']:.3e} ulp={rep['ulp']}")
+    assert rep["cos"] <= rep["band_cos"], rep
+
+
+# (K, N) of the gemm_rs wgmma body's card checks: Qwen3-8B's O and down
+# projections a rank, Qwen3-30B-A3B's O, a K and an N that no tile divides
+_RS_WGMMA_CASES = ((1024, 4096), (3072, 4096), (1024, 2048), (1000, 1000))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("m", [64, 128, 256])
+def test_gemm_rs_wgmma_body_matches_plain(cuda, n, m):
+    """The TMA + wgmma body (bf16 in and out at m % 64 == 0) against
+    gemm_rs_plain within _gemm_rs_atol and the band's cosine: both A
+    orders, every tile width forced; every launch took the wgmma body,
+    and a forced mma.sync body still agrees."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
+
+    rng = np.random.default_rng(200 + n + m)
+    before = dict(rs.launches_by_body)
+    calls = 0
+    for k, nn in _RS_WGMMA_CASES:
+        a = torch.from_numpy(rng.standard_normal((n, n * m, k))).to(
+            "cuda", torch.bfloat16)
+        b = (torch.from_numpy(rng.standard_normal((n, k, nn))) * 0.02).to(
+            "cuda", torch.bfloat16)
+        for a_order in ("rank", "arrival"):
+            want = gemm_rs_plain(a, b, a_order)
+            atol = _gemm_rs_atol(a, b, want)
+            for bn in (None, *rs._WGMMA_BN):
+                got = rs._launch(a, b, a_order == "arrival", bn=bn)
+                calls += 1
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=0, atol=atol)
+                _band_cos(want, got, "gemm_rs")
+            got = rs._launch(a, b, a_order == "arrival", body="mma")
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=atol)
+    assert rs.launches_by_body["wgmma"] - before["wgmma"] == calls
+    assert rs.launches_by_body["mma"] - before["mma"] == 2 * len(
+        _RS_WGMMA_CASES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_gemm_rs_delayed_rank_matches_plain(cuda, n):
+    """Each rank in turn stalls 5 ms on entry (straggler, the JAX config's
+    straggler_rank / straggler_ns): the owners' folds wait on its partials,
+    so every result stays within the atol and the band's cosine of the
+    plain version, O (rank order) and down (arrival order) on the wgmma
+    body, and a ragged m on the mma.sync body."""
+    rng = np.random.default_rng(210 + n)
+    for m, k, a_order in ((128, 1024, "rank"), (128, 3072, "arrival"),
+                          (24, 136, "arrival")):
+        a = torch.from_numpy(rng.standard_normal((n, n * m, k))).to(
+            "cuda", torch.bfloat16)
+        b = (torch.from_numpy(rng.standard_normal((n, k, 4096))) * 0.02).to(
+            "cuda", torch.bfloat16)
+        want = gemm_rs_plain(a, b, a_order)
+        atol = _gemm_rs_atol(a, b, want)
+        for rank in range(n):
+            got = gemm_rs(a, b, a_order=a_order, straggler=(rank, 5_000_000))
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=atol)
+            _band_cos(want, got, "gemm_rs")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_gemm_rs_back_to_back_leaves_counters_at_zero(cuda, n):
+    """50 calls back to back on each body: every counter of the persistent
+    pools reads zero after them, each result equals the first, and a warm
+    call makes no pool (no memset, no allocation but its output)."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
+
+    rng = np.random.default_rng(220 + n)
+    for m in (64, 24):  # the wgmma body, then the mma.sync body
+        a = torch.from_numpy(rng.standard_normal((n, n * m, 1024))).to(
+            "cuda", torch.bfloat16)
+        b = (torch.from_numpy(rng.standard_normal((n, 1024, 4096)))
+             * 0.02).to("cuda", torch.bfloat16)
+        first = gemm_rs(a, b)
+        made = rs._POOLS.made
+        for _ in range(50):
+            got = gemm_rs(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, first)
+        assert rs._POOLS.made == made
+        assert all(int(f.count_nonzero()) == 0
+                   for _, f in rs._POOLS.entries.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_gemm_rs_bf16_and_f32_inputs_keep_their_own_pools(cuda, n):
+    """bf16 in with f32 out, then f32 in with f32 out, at one shape on one
+    stream, each twice: the mma body's tiles (so its counters) differ by
+    input dtype (128 x 128 bf16, 64 x 64 f32), so each call takes a pool
+    of its own, sized by gemm_rs_flag_count for its input dtype; every
+    result is within 1e-5 relative of the plain version and every counter
+    reads zero after."""
+    from triton_dist_tpu_torch.kernels import _build
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
+
+    m, k, nn = 128, 256, 1024
+    rng = np.random.default_rng(230 + n)
+    a16 = torch.from_numpy(rng.standard_normal((n, n * m, k))).to(
+        "cuda", torch.bfloat16)
+    b16 = (torch.from_numpy(rng.standard_normal((n, k, nn))) * 0.05).to(
+        "cuda", torch.bfloat16)
+    lib = _build.load("gemm_reduce_scatter", rs._SIGNATURES)
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(2):
+        for a, b in ((a16, b16), (a16.float(), b16.float())):
+            got = gemm_rs(a, b, out_dtype=torch.float32)
+            want = gemm_rs_plain(a, b, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            part = torch.matmul(a.float(), b.float()).abs().max().item()
+            atol = 1e-5 * (n * part + want.abs().max().item())
+            torch.testing.assert_close(got, want, rtol=0, atol=atol)
+            key = rs._pool_key(a, stream, m, nn, torch.float32, "mma", 0)
+            _, flags = rs._POOLS.entries[key]
+            assert flags.shape == (n, lib.gemm_rs_flag_count(
+                m, nn, rs._DTYPE_CODE[a.dtype], 0))
+    sizes = {rs._POOLS.entries[rs._pool_key(
+        a, stream, m, nn, torch.float32, "mma", 0)][1].shape[1]
+        for a in (a16, a16.float())}
+    assert len(sizes) == 2
+    assert all(int(f.count_nonzero()) == 0
+               for _, f in rs._POOLS.entries.values())
+
+
+# the local flash kernel's main-path shapes (label, B, S, T, Hq, Hkv,
+# query starts): Qwen3-8B's world-1 serve step and engine prefill, the
+# world-4 recorded scheduler step's rank rows, a long prefill cut to 1024
+_FP_SHAPES = [("serve step", 4, 64, 1024, 32, 8, [960, 600, 200, 0]),
+              ("engine prefill", 4, 128, 1024, 32, 8, [0, 0, 0, 0]),
+              ("recorded step", 16, 64, 1024, 8, 2,
+               [114, 311, 193, 262] * 4),
+              ("long prefill", 1, 1024, 1024, 32, 8, [0]),
+              ("G=1 ragged", 2, 33, 95, 3, 3, [50, 0])]
+
+
+def _fp_case(seed, b, s, t, hq, hkv, starts):
+    q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
+               for x in _inputs(seed, b, s, t, hq, hkv, 128))
+    st = torch.tensor(starts, device="cuda", dtype=torch.int32)
+    qpos = (st[:, None] + torch.arange(s, device="cuda",
+                                       dtype=torch.int32)).contiguous()
+    return q, k, v, qpos, (st + s).clamp(max=t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _FP_SHAPES, ids=[c[0] for c in _FP_SHAPES])
+def test_flash_prefill_wgmma_fold_matches_plain(cuda, case):
+    """The TMA + wgmma fold (bf16, D = 128) against flash_prefill_plain
+    at the main path's shapes and a ragged one, every split count forced
+    (split-KV combined in the launch), within 2e-2 and the epsilon band;
+    the plan's own pick too, and every launch on the wgmma fold."""
+    label, b, s, t, hq, hkv, starts = case
+    q, k, v, qpos, kv_len = _fp_case(300 + s, b, s, t, hq, hkv, starts)
+    want = flash_prefill_plain(q, k, v, q_positions=qpos, kv_len=kv_len)
+    before = dict(fp.launches_by_body)
+    for splits in (None, 1, 2, 3, 4):
+        got = fp._launch(q, k, v, qpos, 0, kv_len, True, None,
+                         body="wgmma", splits=splits)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=2e-2)
+        band(want, got, "flash_prefill")
+    assert fp.launches_by_body["wgmma"] - before["wgmma"] == 5
+    assert fp.launches_by_body["mma"] == before["mma"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 3])
+def test_flash_prefill_wgmma_nan_tail_and_one_hot_v(cuda, splits):
+    """Keys past kv_len hold NaN (a recycled cache page): TMA loads them,
+    and the fold must neither let them into the scores nor into P V, so
+    the result equals the finite cache's. A one-hot V (v[t, h, d] = 1
+    where d = (t + h) mod 128) makes the output the softmax weights
+    themselves, which pins the register layout of P as P V's A operand."""
+    b, s, t, hq, hkv = 4, 64, 1024, 32, 8
+    q, k, v, qpos, kv_len = _fp_case(310, b, s, t, hq, hkv,
+                                     [960, 600, 200, 0])
+    want = flash_prefill_plain(q, k, v, q_positions=qpos, kv_len=kv_len)
+    k_nan, v_nan = k.clone(), v.clone()
+    for i in range(b):
+        k_nan[i, int(kv_len[i]):] = float("nan")
+        v_nan[i, int(kv_len[i]):] = float("nan")
+    got = fp._launch(q, k_nan, v_nan, qpos, 0, kv_len, True, None,
+                     body="wgmma", splits=splits)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+    tt = torch.arange(t, device="cuda")[:, None, None]
+    hh = torch.arange(hkv, device="cuda")[None, :, None]
+    dd = torch.arange(128, device="cuda")[None, None, :]
+    onehot = (dd == (tt + hh) % 128).to(torch.bfloat16).expand(
+        b, t, hkv, 128).contiguous()
+    want = flash_prefill_plain(q, k, onehot, q_positions=qpos,
+                               kv_len=kv_len)
+    got = fp._launch(q, k, onehot, qpos, 0, kv_len, True, None,
+                     body="wgmma", splits=splits)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+    band(want, got, "flash_prefill")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 2, 4])
 @pytest.mark.parametrize("dtype,accum", [
@@ -599,23 +828,29 @@ def test_grouped_gemm_f32_out_skewed_routing_bounded_memory(cuda):
     band(want, got, "grouped_gemm")
 
 
+# gemm_rs over a counter pool that was not zeroed: no tile counter can
+# reach n, so the fold's bounded wait must trap; argv[1]: the body (0
+# mma.sync, M 16; 1 wgmma, m 64, whose fold waits run on its producer
+# warp)
 _FAULT = r"""
 import ctypes, sys, torch
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
 lib = _build.load("gemm_reduce_scatter", rs._SIGNATURES)
-n, M, K, N = 2, 16, 64, 64
+body = int(sys.argv[1])
+n, M, K, N = 2, 128 if body else 16, 64, 128
+bn = 128 if body else 0
 a = torch.ones((n, M, K), device="cuda", dtype=torch.bfloat16)
 b = torch.ones((n, K, N), device="cuda", dtype=torch.bfloat16)
 heap = torch.empty((n, n, M // n, N), device="cuda", dtype=torch.bfloat16)
 out = torch.empty((n, M // n, N), device="cuda", dtype=torch.bfloat16)
 # a flag pool that was not zeroed: no tile counter can reach n
-flags = torch.full((n, lib.gemm_rs_flag_count(M // n, N, 1)), 7,
+flags = torch.full((n, lib.gemm_rs_flag_count(M // n, N, 1, bn)), 7,
                    device="cuda", dtype=torch.int32)
 grid = _build.GridInfo()
 err = lib.gemm_rs_launch(a.data_ptr(), b.data_ptr(), heap.data_ptr(),
                          out.data_ptr(), flags.data_ptr(), n, M, K, N, 1, 1,
-                         0, 0, grid.ptr(),
+                         0, 0, body, bn, -1, 0, grid.ptr(),
                          torch.cuda.current_stream().cuda_stream)
 assert err == 0, err
 try:
@@ -803,7 +1038,7 @@ sys.exit(0)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,script,args", [
-    ("gemm_rs", _FAULT, []), ("ag_gemm", _AG_FAULT, ["0"]),
+    ("gemm_rs", _FAULT, ["0"]), ("ag_gemm", _AG_FAULT, ["0"]),
     ("ag_gemm", _AG_FAULT, ["1"]),
     ("one_shot_all_reduce", _AR_FAULT, []),
     ("ring_reduce_scatter", _RS_FAULT, []), ("ll_all_gather", _LL_FAULT, []),
@@ -829,6 +1064,25 @@ def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script, args):
     assert proc.returncode == 3, (proc.returncode, proc.stdout, proc.stderr)
     assert "raised:" in proc.stdout
     assert f"shmem wait timed out: kernel {kernel}, rank" in proc.stdout
+
+
+@pytest.mark.cuda
+def test_gemm_rs_wgmma_protocol_fault_traps_without_a_word(cuda):
+    """The wgmma body over counters that were not zeroed: its fold's
+    bounded spin traps and the next synchronisation raises, within the
+    spin bound. It prints nothing: a call (printf) anywhere in a kernel
+    that issues wgmma makes ptxas serialize its wgmma (C7510). Run in a
+    child process, since the trap leaves its CUDA context unusable."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _FAULT, "1"], cwd=repo,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": repo})
+    assert proc.returncode == 3, (proc.returncode, proc.stdout, proc.stderr)
+    assert "raised:" in proc.stdout
 
 
 def _mega_branch_inputs(cm, world, B, H, I, hq, hkv, D, s_max, page, pos,

@@ -104,3 +104,52 @@ def test_supported_shapes():
     assert not supports_flash_prefill(32, 8, 96)
     assert not supports_flash_prefill(6, 4, 128)
     assert fit_block(1000) == 64 == fit_block(7)
+
+
+@pytest.mark.parametrize("shape,fold,splits", [
+    # the main path's shapes: bf16, D = 128, G = 4
+    ((4, 64, 1024, 32, 8, 128), "wgmma", 2),  # world-1 serve step: 64 tiles
+    ((1, 2048, 2048, 32, 8, 128), "wgmma", 1),  # long prefill: 512 tiles
+    ((16, 64, 1024, 8, 2, 128), "wgmma", 2),  # world-4 scheduler step rows
+    ((4, 128, 1024, 32, 8, 128), "wgmma", 1),  # engine prefill: 128 tiles
+    ((1, 64, 1024, 32, 8, 128), "wgmma", 4),  # one request's step: the cap
+    ((2, 33, 95, 3, 3, 128), "wgmma", 2),  # G = 1, ragged: T's 2 tiles
+    ((1, 8, 16, 128, 1, 128), "wgmma", 1),  # G = 128, T's one tile
+    # every other call keeps the mma.sync fold
+    ((4, 64, 1024, 32, 8, 64), "mma", 1),  # D = 64
+    ((3, 16, 64, 6, 2, 128), "mma", 1),  # G = 3 does not divide 128
+    ((1, 8, 16, 256, 1, 128), "mma", 1),  # G = 256: past one box
+])
+def test_fp_plan_routes_and_splits(shape, fold, splits):
+    """_fp_plan: the wgmma fold for bf16 at D = 128 with a GQA group
+    dividing 128, the mma.sync fold otherwise (and for f32); the split
+    count keeps one work item (row tile x split) an SM of 132, within
+    _MAX_SPLITS and T's key tiles."""
+    b, s, t, hq, hkv, d = shape
+    assert fp._fp_plan(b, s, t, hq, hkv, d, torch.bfloat16) == (fold,
+                                                                 splits)
+    assert fp._fp_plan(b, s, t, hq, hkv, d, torch.float32) == ("mma", 1)
+    if fold == "wgmma":
+        tiles = b * hkv * -(-s * (hq // hkv) // fp._WGMMA_ROWS)
+        assert tiles * splits <= max(132, tiles)
+        assert splits == fp._MAX_SPLITS or (splits + 1) * tiles > 132 \
+            or splits == -(-t // fp._WGMMA_KEYS)
+
+
+def test_positions_pass_int32_through_untouched():
+    """The launcher's positions and lengths: int32 ones from the caller
+    go to the kernel as they are (no torch op: the model makes them once
+    a step); missing ones are made int32 (positions q_offset + [0, S),
+    lengths T), and int64 ones converted."""
+    q, k, _ = (torch.from_numpy(a) for a in _inputs(5, 2, 4, 9, 4, 2, 16))
+    qpos = (torch.arange(4, dtype=torch.int32)[None] + 3).repeat(2, 1)
+    kv_len = torch.tensor([9, 5], dtype=torch.int32)
+    p32, l32 = fp._positions(q, k, qpos, 0, kv_len)
+    assert p32.data_ptr() == qpos.data_ptr() and p32.dtype == torch.int32
+    assert l32.data_ptr() == kv_len.data_ptr() and l32.dtype == torch.int32
+    p, n = fp._positions(q, k, None, 5, None)
+    assert p.dtype == n.dtype == torch.int32
+    assert p.tolist() == [[5, 6, 7, 8]] * 2 and n.tolist() == [9, 9]
+    p, n = fp._positions(q, k, qpos.long(), 0, kv_len.long())
+    assert torch.equal(p, qpos) and torch.equal(n, kv_len)
+    assert p.dtype == n.dtype == torch.int32

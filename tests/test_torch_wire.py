@@ -825,6 +825,7 @@ def test_wire_ring_plan_covers_the_rows_within_residency(n, m, k, blk):
     tiles as one block an SM keeps resident. The path shapes (the 4c and
     4w (512 | 4, 4096) and the 30B (128, 2048) rows a rank) take the
     register form."""
+    from triton_dist_tpu_torch.kernels import _build
     from triton_dist_tpu_torch.kernels import reduce_scatter as rsr
 
     warps, rows, tiles = rsr._wire_plan(m, k, blk, n)
@@ -834,10 +835,10 @@ def test_wire_ring_plan_covers_the_rows_within_residency(n, m, k, blk):
         assert k % unit == 0 and blk % unit == 0 and k * 2 % 16 == 0
         assert warps in (1, 2, 4, 8) and rows == 8 // warps
         assert -(-k // unit) <= rsr._WIRE_UNITS * 32 * warps
-        assert tiles * n <= rsr._WIRE_PER_SM * rsr._SMS
+        assert tiles * n <= rsr._WIRE_PER_SM * _build.SMS
     else:
         assert k % unit or blk % unit or k > unit * rsr._WIRE_UNITS * 256
-        assert tiles * n <= rsr._SMS
+        assert tiles * n <= _build.SMS
     if k in (2048, 4096) and blk % unit == 0:
         assert warps
 

@@ -87,7 +87,6 @@
 // granularity than one counter per step; an asynchronous A load on the
 // wire.
 
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder is looked up
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
@@ -814,50 +813,16 @@ ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA
-// runtime's entry point query: no -lcuda at link time
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A bf16 tensor of `depth` matrices of `rows` rows of `cols` elements,
 // rows ld elements apart, matrices `dstride` apart, as a map of `dims`
 // dimensions (2: one matrix; 3: the kernel issues 3-D loads, whatever
 // the depth) in 64 x 64 boxes (x 1), 128-byte swizzle, zero fill.
 bool encode(CUtensorMap* map, const void* p, int dims_n, uint64_t cols,
             uint64_t rows, uint64_t depth, uint64_t ld, uint64_t dstride) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {cols, rows, depth};
-  const cuuint64_t strides[2] = {ld * 2, dstride * 2};
-  const cuuint32_t box[3] = {64, 64, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dims_n,
-            const_cast<void*>(p), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const uint64_t dims[3] = {cols, rows, depth};
+  const uint64_t strides[2] = {ld * 2, dstride * 2};
+  const uint32_t box[3] = {64, 64, 1};
+  return hopper::encode_bf16(map, p, dims_n, dims, strides, box);
 }
 
 // the four maps of a call: a (n*m, K), ws (n*n*m, K), b0 and b1 (n, K, N)

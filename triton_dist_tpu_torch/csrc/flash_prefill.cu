@@ -15,10 +15,10 @@
 // outputs 0. Keys past min(kv_len[b], 1 + the largest q position of the
 // tile) are never read (the TPU kernels' dead-page skip).
 //
-// The fold (TcFold, FmaFold). A query row is a (position, head-of-the-
-// group) pair; a block of 4 warps takes a tile of rows of one (batch
-// row, kv head), so the G query heads sharing a kv head sit in one block
-// and each K/V tile is read once per group. Softmax state and
+// The mma.sync folds (TcFold, FmaFold). A query row is a (position,
+// head-of-the-group) pair; a block of 4 warps takes a tile of rows of
+// one (batch row, kv head), so the G query heads sharing a kv head sit
+// in one block and each K/V tile is read once per group. Softmax state and
 // accumulation are f32; a fully masked tile leaves m unchanged, so
 // alpha = 1 and p = 0 and it folds as a bitwise no-op, as in the TPU
 // kernels. A fold walks one key range (a segment), so the SP kernel
@@ -67,12 +67,15 @@
 // (the SP path at 32k positions: 2.75e13 operations, 27.8 ms at 989
 // TFLOP/s). The SP kernel's segment push moves (n-1) shards a rank
 // (1.5 GB at 32k, ~1 ms of HBM time), overlapped with the local folds.
-// Not done yet: wgmma, TMA, warp specialisation, 128-row tiles.
+// The local kernel's bf16, D = 128 form runs the TMA + wgmma fold below
+// (fp_local_wgmma_kernel); the SP kernel, f32 and D = 64 keep TcFold and
+// FmaFold.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "shmem.cuh"
 #include "tile.cuh"
 
@@ -495,6 +498,551 @@ cudaError_t launch_local(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- the wgmma fold: TMA + wgmma, warp-specialised (bf16, D = 128) -------
+//
+// The local kernel's main-path form (bf16, D = 128, 128 % G == 0): the
+// same function and softmax as TcFold, on Hopper's units.
+//   - persistent: one block an SM claims work items from a counter, a
+//     work item being (row tile of 128 rows, split) of a (batch row, kv
+//     head), the last row tiles (the most live keys under the causal
+//     mask) first; a block pays its set-up once and never waits for a
+//     wave;
+//   - 384 threads: warpgroup 0's first warp the producer (it claims the
+//     items and hands them to the consumers through a two-slot ring
+//     whose slot goes back once every consumer warp has read it; lane 0
+//     issues TMA; setmaxnreg 40), warpgroups 1 and 2 the
+//     consumers (setmaxnreg 232), 64 of an item's 128 query rows each;
+//   - Q by TMA into one of two buffers, so an item's Q loads while the
+//     last item folds: a 4-D map over (B, S, Hq, D) whose box is (128 / G
+//     positions, G heads, 64 columns), so the GQA row interleave (row r =
+//     position r / G, head h G + r % G) is the box's own row order; two
+//     boxes for D = 128, 128-byte swizzle. K and V by TMA in 64-key tiles
+//     (4-D maps over (B, T, Hkv, D), two boxes each), a ring of kWfStages
+//     stages with a full barrier for K, one for V and an empty barrier
+//     (one arrive a consumer warpgroup);
+//   - ping-pong (FlashAttention-3's schedule): the two consumer
+//     warpgroups take turns issuing their products, one turn a P V and
+//     the next tile's S, through named barriers, so one's softmax runs
+//     while the other's wgmma do;
+//   - S = Q K^T: wgmma m64n64k16 from shared memory, K the K-major B
+//     operand (hopper::wgmma_n64_kb); the masks and the online softmax
+//     in registers (f32, log2 domain), as TcFold's; then O += P V as the
+//     register-A wgmma m64n128k16 (hopper::wgmma_n128_rs), V the MN-major
+//     B operand, once with hi = bf16(p) and once with lo = bf16(p - hi):
+//     the scores' accumulator packs into the A fragments two 8-key groups
+//     at a time;
+//   - keys past the end. A TMA box is clipped only at the tensor's
+//     bound, so a tile that reaches past kv_len holds whatever the cache
+//     has there (a recycled page may hold NaN). The scores there are
+//     masked by a select, but 0 x NaN would poison P V: the consumers
+//     zero those V rows in shared memory (both warpgroups write the same
+//     zeros; the stage goes back only after both) and fence the async
+//     proxy before their P V;
+//   - split-KV: `splits` items share a row tile's key tiles, each its
+//     contiguous share. splits = 1: the item is normalised and stored.
+//     Otherwise each item's (m, l, unnormalised O) goes to the workspace
+//     in f32 and counts on the tile's counter (fence, atomic add); the
+//     item that counts last combines the splits in split order (m = max,
+//     weights exp2(m_s - m), l and O summed, O / l, 0 when l = 0; a
+//     warp a row at a time, its lanes a float4 each, so a split's row is
+//     one coalesced 512-byte read: with a thread reading its own 256
+//     bytes, lanes 256 bytes apart, the combine cost 13 µs a split level
+//     at the serve step) and sets the counter back
+//     to zero. No block waits on another, so no residency is needed. The
+//     fold order differs from the one-pass fold: held to the same atol
+//     and band, not bitwise. The producer that claims last sets the claim
+//     counters back to zero, so the counters and the workspace persist
+//     across calls;
+//   - nothing that makes ptxas serialize the wgmma (hopper.cuh,
+//     mbar_wait_quiet): no call anywhere in the kernel (1 / l is
+//     __fdividef's: the IEEE division calls a slow path) and no control
+//     flow it cannot prove warp-uniform between them (the waits keep
+//     their loops in PTX and trap without a message; one thread's
+//     arrives, signals and stores are predicated PTX; an item and its key
+//     tile range are broadcast with __shfl_sync). The next tile's S is
+//     issued only after P V is done: issued behind it, while P V's
+//     accumulator is rescaled, it made ptxas serialize every wgmma.
+
+constexpr int kWfRows = 128;                 // query rows a work item
+constexpr int kWfKeys = 64;                  // keys a K / V tile
+constexpr int kWfStages = 4;
+constexpr int kWfMaxSplits = 4;              // split-KV items a row tile
+constexpr int kWfBox = 64 * 128;             // 64 rows of 128 bytes
+constexpr int kWfQBox = kWfRows * 128;       // 128 rows of 128 bytes
+constexpr int kWfQBytes = 2 * kWfQBox;       // a Q buffer: two halves
+constexpr int kWfStageBytes = 4 * kWfBox;    // K and V, two halves each
+constexpr size_t kWfSmem =
+    size_t(2 * kWfQBytes) + size_t(kWfStages) * kWfStageBytes + 1024;
+
+struct WfArgs {
+  const int* qpos;    // (B, S)
+  const int* kv_len;  // (B,)
+  bf16* out;          // (B, S, Hq, D)
+  float* ws;          // split-KV: (tiles, splits, 128, 128) O, then
+                      // (tiles, splits, 128, 2) (m, l)
+  int* ctr;           // (tiles + 2,) zero: a tile's split count, then the
+                      // claim and the finished-producer counters
+  int B, S, T, Hq, Hkv, causal, splits;
+  float scale;
+};
+
+// a work item: (row tile, split) of a (batch row b, kv head h), the last
+// row tiles first
+struct WfItem {
+  int sp, b, h, tile, r0;
+  __device__ WfItem(const WfArgs& a, int TQ, int i) {
+    const int bh = a.B * a.Hkv, per = a.splits * bh;
+    const int qt = TQ - 1 - i / per;
+    sp = i % per / bh;
+    b = i % bh / a.Hkv;
+    h = i % a.Hkv;
+    tile = (b * a.Hkv + h) * TQ + qt;
+    r0 = qt * kWfRows;
+  }
+};
+
+// An item's key tiles [x, y) and its batch row's clamped kv_len (z), alike
+// in every lane of the calling warp: the keys end at min(kv_len, 1 + the
+// largest position of its rows) under the causal mask, at kv_len without
+// it. Branch-free: each lane folds 4 positions (128 / G at most).
+__device__ __forceinline__ int3 wf_key_tiles(const WfArgs& a,
+                                             const WfItem& w, int G,
+                                             int n_rows) {
+  const int lane = threadIdx.x % 32;
+  const int len = max(min(a.kv_len[w.b], a.T), 0);
+  const int* qp = a.qpos + size_t(w.b) * a.S;
+  const int s0 = w.r0 / G, s1 = min(w.r0 + kWfRows, n_rows) / G;
+  int mx = -1;
+#pragma unroll
+  for (int k = 0; k < kWfRows / 32; ++k)
+    mx = max(mx, qp[min(s0 + lane + 32 * k, s1 - 1)]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  const int hi = max(a.causal ? min(len, mx + 1) : len, 0);
+  const int nt = __shfl_sync(0xffffffffu, (hi + kWfKeys - 1) / kWfKeys, 0);
+  return make_int3(nt * w.sp / a.splits, nt * (w.sp + 1) / a.splits,
+                   __shfl_sync(0xffffffffu, len, 0));
+}
+
+// a bf16 pair to global memory by the threads whose `pred` is set
+__device__ __forceinline__ void st_bf16x2_if(bf16* p, float x, float y,
+                                             bool pred) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p st.global.b32 [%0], %1;\n"
+      "}\n" ::"l"(p),
+      "r"(*reinterpret_cast<const uint32_t*>(&v)), "r"(int(pred))
+      : "memory");
+}
+
+// v to shared address `addr` by the threads whose `pred` is set
+__device__ __forceinline__ void st_shared_if(uint32_t addr, int v,
+                                             bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p st.shared.b32 [%0], %1;\n"
+      "}\n" ::"r"(addr),
+      "r"(v), "r"(int(pred))
+      : "memory");
+}
+
+// the thread whose `pred` is set: a gpu-scope fence, an atomic add of 1
+// to *ctr, and (when it was the last of `n`) another fence and a reset of
+// *ctr to 0; returns whether it was the last (false elsewhere)
+__device__ __forceinline__ bool count_last_if(int* ctr, int n, bool pred) {
+  int last;
+  asm volatile(
+      "{\n"
+      ".reg .pred p, q;\n"
+      ".reg .s32 old;\n"
+      "setp.ne.b32 p, %3, 0;\n"
+      "mov.b32 %0, 0;\n"
+      "@!p bra DONE;\n"
+      "fence.acq_rel.gpu;\n"
+      "atom.relaxed.gpu.global.add.s32 old, [%1], 1;\n"
+      "setp.eq.s32 q, old, %2;\n"
+      "@!q bra DONE;\n"
+      "fence.acq_rel.gpu;\n"
+      "st.relaxed.gpu.global.s32 [%1], 0;\n"
+      "mov.b32 %0, 1;\n"
+      "DONE:\n"
+      "}\n"
+      : "=r"(last)
+      : "l"(ctr), "r"(n - 1), "r"(int(pred))
+      : "memory");
+  return last != 0;
+}
+
+__global__ void __launch_bounds__(384, 1)
+fp_local_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const WfArgs a) {
+  constexpr int D = 128, S_ = kWfStages;
+  extern __shared__ uint8_t wf_smem[];
+  __shared__ __align__(8) uint64_t fullk[S_], fullv[S_], empty[S_];
+  __shared__ __align__(8) uint64_t q_full[2], q_empty[2];
+  __shared__ __align__(8) uint64_t item_full[2], item_empty[2];
+  __shared__ int item_q[2], last_sh;
+  const int G = a.Hq / a.Hkv, n_rows = a.S * G;
+  const int TQ = (n_rows + kWfRows - 1) / kWfRows;
+  const int tiles = a.B * a.Hkv * TQ, total = tiles * a.splits;
+  const uint32_t base = (hopper::smem_addr(wf_smem) + 1023) & ~1023u;
+  const uint32_t kv0 = base + 2 * kWfQBytes;  // the K / V ring
+  auto bar = [](uint64_t& b) { return hopper::smem_addr(&b); };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S_; ++i) {
+      hopper::mbar_init(bar(fullk[i]), 1);
+      hopper::mbar_init(bar(fullv[i]), 1);
+      hopper::mbar_init(bar(empty[i]), 2);
+    }
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(bar(q_full[i]), 1);
+      hopper::mbar_init(bar(q_empty[i]), 2);
+      hopper::mbar_init(bar(item_full[i]), 1);
+      hopper::mbar_init(bar(item_empty[i]), 8);  // a consumer warp each
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  // the warpgroup, warp-uniform to the compiler (a wgmma in a path it
+  // cannot prove uniform is serialized: ptxas C7518)
+  const int wg = __shfl_sync(0xffffffffu, int(threadIdx.x) / 128, 0);
+  const int lane = threadIdx.x % 32;
+
+  if (wg == 0) {  // the producer: warp 0 claims, lane 0 loads
+    hopper::regs_dec<40>();
+    if (threadIdx.x >= 32) return;
+    const bool l0 = lane == 0;
+    int stage = 0, qslot = 0;
+    uint32_t phase = 0, qphase = 0;
+    for (int k = 0;; ++k) {
+      const int islot = k & 1;
+      int item = 0;
+      if (l0) {
+        hopper::mbar_wait_quiet(bar(item_empty[islot]), ((k >> 1) & 1) ^ 1);
+        item = atomicAdd(a.ctr + tiles, 1);
+        item_q[islot] = item;
+        hopper::mbar_arrive(bar(item_full[islot]));  // release: item_q
+      }
+      item = __shfl_sync(0xffffffffu, item, 0);
+      if (item >= total) break;
+      const WfItem w(a, TQ, item);
+      const int3 jr = wf_key_tiles(a, w, G, n_rows);
+      if (jr.x >= jr.y) continue;  // no live key: no loads
+      if (l0) {
+        const uint32_t qs = base + qslot * kWfQBytes;
+        hopper::mbar_wait_quiet(bar(q_empty[qslot]), qphase ^ 1);
+        hopper::mbar_expect_tx(bar(q_full[qslot]), kWfQBytes);
+        for (int hf = 0; hf < 2; ++hf)
+          hopper::tma_load_4d(qs + hf * kWfQBox, &map_q, bar(q_full[qslot]),
+                              64 * hf, w.h * G, w.r0 / G, w.b);
+        for (int j = jr.x; j < jr.y; ++j) {
+          hopper::mbar_wait_quiet(bar(empty[stage]), phase ^ 1);
+          const uint32_t st = kv0 + stage * kWfStageBytes;
+          hopper::mbar_expect_tx(bar(fullk[stage]), 2 * kWfBox);
+          for (int hf = 0; hf < 2; ++hf)
+            hopper::tma_load_4d(st + hf * kWfBox, &map_k, bar(fullk[stage]),
+                                64 * hf, w.h, j * kWfKeys, w.b);
+          hopper::mbar_expect_tx(bar(fullv[stage]), 2 * kWfBox);
+          for (int hf = 0; hf < 2; ++hf)
+            hopper::tma_load_4d(st + (2 + hf) * kWfBox, &map_v,
+                                bar(fullv[stage]), 64 * hf, w.h,
+                                j * kWfKeys, w.b);
+          if (++stage == S_) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      __syncwarp();
+      if (++qslot == 2) {
+        qslot = 0;
+        qphase ^= 1;
+      }
+    }
+    // the producer that claims last sets the claim counters back to 0
+    if (l0 && atomicAdd(a.ctr + tiles + 1, 1) == int(gridDim.x) - 1) {
+      a.ctr[tiles] = 0;
+      a.ctr[tiles + 1] = 0;
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows 64 w .. 64 w + 63 of each item
+  hopper::regs_inc<232>();
+  const int w = wg - 1, ct = threadIdx.x - 128;
+  const int warp = threadIdx.x / 32 % 4;
+  const int rl = 64 * w + 16 * warp + lane / 4;  // my rows: rl, rl + 8
+  const bool leader = ct % 128 == 0;             // of my warpgroup
+  const float sl2 = a.scale * kLog2e;
+  int stage = 0, qslot = 0;
+  uint32_t phase = 0, qphase = 0;
+  // ping-pong: the warpgroups take turns issuing their products (named
+  // barrier 4 + w: my turn), so one's softmax overlaps the other's
+  // wgmma; warpgroup 0 goes first
+  auto turn = [&] { hopper::named_sync(4 + w, 256); };
+  auto pass = [&] { hopper::named_arrive(5 - w, 256); };
+  if (w == 1) hopper::named_arrive(4, 256);
+  for (int k = 0;; ++k) {
+    const int islot = k & 1;
+    hopper::mbar_wait_quiet(bar(item_full[islot]), (k >> 1) & 1);
+    // lane 0's read is the warp's: then the slot goes back, a warp at a
+    // time (a warpgroup's leader alone could free it before its other
+    // warps have read it)
+    const int item = __shfl_sync(0xffffffffu, item_q[islot], 0);
+    hopper::mbar_arrive_if(bar(item_empty[islot]), lane == 0);
+    if (item >= total) {
+      if (w == 0) turn();  // warpgroup 1's last pass
+      break;
+    }
+    const WfItem wi(a, TQ, item);
+    const int3 jr = wf_key_tiles(a, wi, G, n_rows);
+    const int len = jr.z;
+    const int* qp = a.qpos + size_t(wi.b) * a.S;
+    int pos[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // -1: a row past the end, no live key
+      const int gr = wi.r0 + rl + 8 * r;
+      pos[r] = gr < n_rows ? qp[min(gr, n_rows - 1) / G] : -1;
+    }
+    const uint32_t qs = base + qslot * kWfQBytes;
+    float o[64], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float s[32];
+    // S = Q K^T of the tile in `stg`, issued and committed
+    auto issue_s = [&](int stg, uint32_t ph) {
+      hopper::mbar_wait_quiet(bar(fullk[stg]), ph);
+      const uint32_t st = kv0 + stg * kWfStageBytes;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_n64_kb(
+            s,
+            hopper::desc_sw128(qs + (kk / 4) * kWfQBox + w * 64 * 128 +
+                                   (kk % 4) * 32,
+                               16, 1024),
+            hopper::desc_sw128(st + (kk / 4) * kWfBox + (kk % 4) * 32, 16,
+                               1024),
+            kk > 0);
+      hopper::wgmma_commit();
+    };
+    if (jr.x < jr.y) {
+      hopper::mbar_wait_quiet(bar(q_full[qslot]), qphase);
+      turn();
+      issue_s(stage, phase);
+      pass();
+    }
+    for (int j = jr.x; j < jr.y; ++j) {
+      const uint32_t st = kv0 + stage * kWfStageBytes;
+      const int k0 = j * kWfKeys;
+      hopper::wgmma_wait<0>();  // this tile's S
+      hopper::fence_regs(s);
+
+      // mask, online softmax (f32, log2 domain): TcFold's. The logits go
+      // to x: the accumulator s is written by wgmma alone (ptxas
+      // serializes a wgmma whose accumulator other instructions define,
+      // C7515)
+      float x[32], mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = k0 + 8 * i + 2 * (lane % 4) + (e & 1);
+          const bool live = t < len && (!a.causal || t <= pos[e >> 1]);
+          x[4 * i + e] = live ? s[4 * i + e] * sl2 : kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x[4 * i + e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+      uint32_t phi[4][4], plo[4][4];  // P's A fragments, 16 keys each
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const float x0 = x[4 * i + e], x1 = x[4 * i + e + 1];
+          const float p0 = x0 == kNegInf ? 0.f : exp2f(x0 - m[e >> 1]);
+          const float p1 = x1 == kNegInf ? 0.f : exp2f(x1 - m[e >> 1]);
+          l[e >> 1] += p0 + p1;  // a lane's partial; the quad sums last
+          const __nv_bfloat162 hv = __floats2bfloat162_rn(p0, p1);
+          const float2 hf = __bfloat1622float2(hv);
+          // fragment i / 2, register (e / 2) + 2 (i % 2)
+          phi[i / 2][e / 2 + 2 * (i % 2)] =
+              *reinterpret_cast<const uint32_t*>(&hv);
+          plo[i / 2][e / 2 + 2 * (i % 2)] = pack_bf16(p0 - hf.x, p1 - hf.y);
+        }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        o[4 * i] *= alpha[0];
+        o[4 * i + 1] *= alpha[0];
+        o[4 * i + 2] *= alpha[1];
+        o[4 * i + 3] *= alpha[1];
+      }
+
+      hopper::mbar_wait_quiet(bar(fullv[stage]), phase);
+      if (k0 + kWfKeys > len) {  // V rows past kv_len: zeros, not the cache's
+        // both halves' 64 rows of 8 16-byte words, 8 a thread, predicated
+#pragma unroll
+        for (int i = 0; i < 2 * kWfKeys * 8 / 128; ++i) {
+          const int word = ct % 128 + 128 * i;  // half, row, word
+          hopper::st_zero16_if(st + 2 * kWfBox + word * 16,
+                               word / 8 % kWfKeys >= len - k0);
+        }
+        hopper::fence_proxy_async_shared();
+        hopper::named_sync(1 + w, 128);
+      }
+      turn();
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWfKeys / 16; ++kk) {
+        const uint64_t dv =
+            hopper::desc_sw128(st + 2 * kWfBox + kk * 2048, kWfBox, 1024);
+        hopper::wgmma_n128_rs(o, phi[kk], dv, 1);
+        hopper::wgmma_n128_rs(o, plo[kk], dv, 1);
+      }
+      hopper::wgmma_commit();
+      // P V done before the next S is issued: issued behind it, while its
+      // accumulator is rescaled, ptxas serializes every wgmma (C7515)
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      hopper::mbar_arrive_if(bar(empty[stage]), leader);
+      if (++stage == S_) {
+        stage = 0;
+        phase ^= 1;
+      }
+      if (j + 1 < jr.y) issue_s(stage, phase);
+      pass();
+    }
+    if (jr.x < jr.y) {  // this item's Q buffer goes back
+      hopper::mbar_arrive_if(bar(q_empty[qslot]), leader);
+      if (++qslot == 2) {
+        qslot = 0;
+        qphase ^= 1;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+    // row r of the tile: position (r0 + r) / G, head h G + (r0 + r) % G
+    auto out_row = [&](int r) {
+      const int gr = min(wi.r0 + r, n_rows - 1);
+      return a.out +
+             ((size_t(wi.b) * a.S + gr / G) * a.Hq + wi.h * G + gr % G) * D;
+    };
+    if (a.splits == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        bf16* orow = out_row(rl + 8 * r);
+        const bool valid = wi.r0 + rl + 8 * r < n_rows;
+        const float inv = l[r] > 0.f ? __fdividef(1.f, l[r]) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          st_bf16x2_if(orow + 8 * i + 2 * (lane % 4), o[4 * i + 2 * r] * inv,
+                       o[4 * i + 2 * r + 1] * inv, valid);
+      }
+      continue;
+    }
+
+    // split-KV: my partial into the workspace, then the last one combines
+    const size_t part = size_t(total);  // partials
+    float* wo = a.ws + (size_t(wi.tile) * a.splits + wi.sp) * kWfRows * D;
+    float* wml = a.ws + part * kWfRows * D +
+                 (size_t(wi.tile) * a.splits + wi.sp) * kWfRows * 2;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rl + 8 * r;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        *reinterpret_cast<float2*>(wo + row * D + 8 * i + 2 * (lane % 4)) =
+            make_float2(o[4 * i + 2 * r], o[4 * i + 2 * r + 1]);
+      // the quad's four lanes store the same (m, l)
+      *reinterpret_cast<float2*>(wml + row * 2) = make_float2(m[r], l[r]);
+    }
+    hopper::named_sync(3, 256);
+    const bool last = count_last_if(a.ctr + wi.tile, a.splits, ct == 0);
+    st_shared_if(hopper::smem_addr(&last_sh), last, ct == 0);
+    hopper::named_sync(3, 256);
+    if (!__shfl_sync(0xffffffffu, last_sh, 0)) continue;
+    const float* t_o = a.ws + size_t(wi.tile) * a.splits * kWfRows * D;
+    const float* t_ml = a.ws + part * kWfRows * D +
+                        size_t(wi.tile) * a.splits * kWfRows * 2;
+    // a warp 16 rows, 2 at a time, a lane a float4 of each (a split's
+    // row is 512 coalesced bytes): every split's (m, l) and rows in flight
+#pragma unroll 1
+    for (int k2 = 0; k2 < 8; ++k2) {
+      const int r0 = ct / 32 * 16 + 2 * k2;
+      float2 ml[2][kWfMaxSplits];
+      float4 v[2][kWfMaxSplits];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int q = 0; q < kWfMaxSplits; ++q)
+          if (q < a.splits) {
+            const size_t at = size_t(q) * kWfRows + r0 + u;
+            ml[u][q] = __ldcg(reinterpret_cast<const float2*>(t_ml + at * 2));
+            v[u][q] = __ldcg(reinterpret_cast<const float4*>(t_o + at * D) +
+                             lane);
+          }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float mt = kNegInf;
+#pragma unroll
+        for (int q = 0; q < kWfMaxSplits; ++q)
+          if (q < a.splits) mt = fmaxf(mt, ml[u][q].x);
+        float lt = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int q = 0; q < kWfMaxSplits; ++q)
+          if (q < a.splits) {
+            const float wq = exp2f(ml[u][q].x - mt);
+            lt += ml[u][q].y * wq;
+            acc[0] += v[u][q].x * wq;
+            acc[1] += v[u][q].y * wq;
+            acc[2] += v[u][q].z * wq;
+            acc[3] += v[u][q].w * wq;
+          }
+        const float inv = lt > 0.f ? __fdividef(1.f, lt) : 0.f;
+        bf16* orow = out_row(r0 + u) + 4 * lane;
+        const bool valid = wi.r0 + r0 + u < n_rows;
+        st_bf16x2_if(orow, acc[0] * inv, acc[1] * inv, valid);
+        st_bf16x2_if(orow + 2, acc[2] * inv, acc[3] * inv, valid);
+      }
+    }
+  }
+}
+
+// the three maps of a call: q (B, S, Hq, 128), k and v (B, T, Hkv, 128)
+bool encode_wf_maps(CUtensorMap (&maps)[3], const void* q, const void* k,
+                    const void* v, int B, int S, int T, int Hq, int Hkv) {
+  const int G = Hq / Hkv;
+  const uint64_t dq[4] = {128, uint64_t(Hq), uint64_t(S), uint64_t(B)};
+  const uint64_t sq[3] = {256, uint64_t(Hq) * 256, uint64_t(S) * Hq * 256};
+  const uint32_t bq[4] = {64, uint32_t(G), uint32_t(kWfRows / G), 1};
+  const uint64_t dk[4] = {128, uint64_t(Hkv), uint64_t(T), uint64_t(B)};
+  const uint64_t sk[3] = {256, uint64_t(Hkv) * 256,
+                          uint64_t(T) * Hkv * 256};
+  const uint32_t bk[4] = {64, 1, kWfKeys, 1};
+  return hopper::encode_bf16(&maps[0], q, 4, dq, sq, bq) &&
+         hopper::encode_bf16(&maps[1], k, 4, dk, sk, bk) &&
+         hopper::encode_bf16(&maps[2], v, 4, dk, sk, bk);
+}
+
 // ---- the SP kernel ---------------------------------------------------------
 
 // Flag words a rank: delivery flags [tensor][offset - 1][b], then the
@@ -637,6 +1185,61 @@ extern "C" int fp_local_launch(const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 64)
     return int(launch_local<TcFold<64>>(q, k, v, qpos, kv_len, out, B, S, T_len, Hq, Hkv, causal, scale, st));
   return int(cudaErrorInvalidValue);
+}
+
+// The wgmma fold (bf16, D = 128, 128 % (Hq / Hkv) == 0): q, k, v, qpos,
+// kv_len, out as fp_local_launch; splits >= 1 items a row tile (split-
+// KV); ctr (fp_wgmma_counters ints) zero, and each call leaves it at
+// zero; splits > 1 also needs ws (fp_wgmma_ws_floats floats). Launches
+// one block an SM (at most one a work item). Returns a cudaError_t (0 =
+// launched).
+extern "C" int fp_wgmma_tiles(int B, int S, int Hq, int Hkv) {
+  return B * Hkv * ((S * (Hq / Hkv) + kWfRows - 1) / kWfRows);
+}
+
+extern "C" int fp_wgmma_counters(int B, int S, int Hq, int Hkv) {
+  return fp_wgmma_tiles(B, S, Hq, Hkv) + 2;
+}
+
+extern "C" long long fp_wgmma_ws_floats(int B, int S, int Hq, int Hkv,
+                                        int splits) {
+  return (long long)fp_wgmma_tiles(B, S, Hq, Hkv) * splits * kWfRows *
+         (128 + 2);
+}
+
+extern "C" int fp_local_wgmma_launch(const void* q, const void* k,
+                                     const void* v, const void* qpos,
+                                     const void* kv_len, void* out, int B,
+                                     int S, int T_len, int Hq, int Hkv,
+                                     int causal, float scale, int splits,
+                                     void* ws, void* ctr, void* stream) {
+  if (B < 1 || S < 1 || T_len < 1 || Hkv <= 0 || Hq % Hkv != 0 ||
+      kWfRows % (Hq / Hkv) != 0 || splits < 1 || splits > kWfMaxSplits ||
+      ctr == nullptr || (splits > 1 && ws == nullptr))
+    return int(cudaErrorInvalidValue);
+  CUtensorMap maps[3];
+  if (!encode_wf_maps(maps, q, k, v, B, S, T_len, Hq, Hkv))
+    return int(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fp_local_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(kWfSmem));
+  if (e != cudaSuccess) return int(e);
+  const WfArgs a{static_cast<const int*>(qpos),
+                 static_cast<const int*>(kv_len),
+                 static_cast<bf16*>(out),
+                 static_cast<float*>(ws),
+                 static_cast<int*>(ctr),
+                 B, S, T_len, Hq, Hkv, causal, splits, scale};
+  const int items = fp_wgmma_tiles(B, S, Hq, Hkv) * splits;
+  fp_local_wgmma_kernel<<<items < sms ? items : sms, 384, kWfSmem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      maps[0], maps[1], maps[2], a);
+  return int(cudaGetLastError());
 }
 
 extern "C" int fp_sp_flag_words(int n, int B) { return sp_flag_words(n, B); }

@@ -28,18 +28,27 @@
 // at once. All n ranks run in one cooperative launch; producer tiles
 // never wait, so the consumer waits cannot form a cycle.
 //
-// Tile bodies. bf16 (the model's path): 128 x 128 output tiles, 8 warps
-// of 64 x 32, mma.sync m16n8k16 with f32 accumulation, the A and B tiles
-// staged in shared memory with cp.async in a three-stage ring, rows
-// padded by 16 bytes so ldmatrix is free of bank conflicts (the fragment
-// code of flash_prefill.cu, tile.cuh). f32: 64 x 64 tiles on the CUDA
-// cores with FMA, so the kernel can be held to a tight tolerance.
+// Tile bodies. The main path's form (native wire, bf16 in and out, m a
+// multiple of 64, 2 <= n <= 8) runs gemm_rs_wgmma_kernel below: TMA,
+// wgmma, warp specialisation and a persistent schedule whose folds
+// overlap the last producer tiles. Every other call (a decode step's
+// m = 1, f32, f32 out, the partials mode, n = 1) runs gemm_rs_kernel with
+// one of two bodies. bf16: 128 x 128 output tiles, 8 warps of 64 x 32,
+// mma.sync m16n8k16 with f32 accumulation, the A and B tiles staged in
+// shared memory with cp.async in a three-stage ring, rows padded by 16
+// bytes so ldmatrix is free of bank conflicts (the fragment code of
+// flash_prefill.cu, tile.cuh). f32: 64 x 64 tiles on the CUDA cores with
+// FMA, so the kernel can be held to a tight tolerance. Both leave every
+// tile counter at zero (the owner resets it once its wait is met), so
+// the wrapper keeps counters and slots across calls.
 //
 // What bounds it on an H100: operations, 2 * n * M * K * N at the
 // model's shapes (the bf16 tensor-core peak), against n * (M*K + K*N)
-// inputs read and n * m * N written. Not done yet: wgmma, TMA and warp
-// specialisation, which that peak needs; overlap of a rank's consumer
-// folds with its producer tiles.
+// inputs read and n * m * N written. The wgmma body, like ag_gemm's
+// (PERF.md), is held back by the bytes its tiles load into the SMs.
+// `straggle_rank` stalls one rank's blocks on entry (the JAX
+// straggler_rank / straggler_ns): its partials arrive late, and the
+// owners' folds wait for them.
 //
 // The output dtype O may differ from the input's (bf16 in, f32 out: the
 // JAX out_dtype, which on the native wire is also the accumulation
@@ -58,6 +67,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "shmem.cuh"
 #include "tile.cuh"
 
@@ -247,7 +257,7 @@ template <class Body, typename O, bool PARTIALS>
 __global__ void __launch_bounds__(Body::kThreads, 2)
 gemm_rs_kernel(const typename Body::S* a, const typename Body::S* b,
                O* heap, O* out, int* flags, int M, int K, int N,
-               int arrival) {
+               int arrival, int straggle_rank, long long straggle_ns) {
   typedef typename Body::S S;
   constexpr int BM = Body::BM, BN = Body::BN;
   constexpr int kPer = 16 / sizeof(O);  // elements of a 16-byte word
@@ -257,6 +267,7 @@ gemm_rs_kernel(const typename Body::S* a, const typename Body::S* b,
   const int per_chunk = tm * tn;
   const S* a_me = a + size_t(me) * M * K;
   const S* b_me = b + size_t(me) * K * N;
+  shmem::straggler_delay(straggle_rank, me, straggle_ns);
 
   // producer: my partial of every tile of every chunk, into slot `me` of
   // the owner's partition, one counter add per tile
@@ -278,6 +289,8 @@ gemm_rs_kernel(const typename Body::S* a, const typename Body::S* b,
   for (int t = blockIdx.x; t < per_chunk; t += gridDim.x) {
     shmem::signal_wait_until(flags + size_t(me) * per_chunk + t, shmem::kEq,
                              n, "gemm_rs", me, t);
+    // every add of this call has landed: back to zero for the next call
+    if (threadIdx.x == 0) flags[size_t(me) * per_chunk + t] = 0;
     const int i = t / tn, j = t % tn;
     const int rows = min(BM, m - i * BM), vpr = min(BN, N - j * BN) / kPer;
     for (int v = threadIdx.x; v < rows * vpr; v += blockDim.x) {
@@ -309,34 +322,318 @@ int tiles_per_chunk(int m, int N) {
 template <class Body, typename O, bool PARTIALS>
 cudaError_t launch(const void* a, const void* b, void* heap, void* out,
                    int* flags, int n, int M, int K, int N, int arrival,
-                   int* info, cudaStream_t st) {
+                   int sr, long long sns, int* info, cudaStream_t st) {
   typedef typename Body::S S;
   return shmem::launch_world(
       gemm_rs_kernel<Body, O, PARTIALS>, n,
       n * tiles_per_chunk<Body>(M / n, N), Body::kThreads, Body::kSmem, st,
       info, static_cast<const S*>(a), static_cast<const S*>(b),
-      static_cast<O*>(heap), static_cast<O*>(out), flags, M, K, N, arrival);
+      static_cast<O*>(heap), static_cast<O*>(out), flags, M, K, N, arrival,
+      sr, sns);
+}
+
+// ---- the wgmma body: TMA + wgmma, warp-specialised (bf16 -> bf16) --------
+//
+// The main path's form (native wire, bf16 in and out, m = M / n a
+// multiple of 64, n >= 2, K and N at least 64): the same function, slots,
+// roundings and rank-order f32 fold as gemm_rs_kernel, with Hopper's tile
+// body and a persistent schedule:
+//   - 384 threads: warpgroup 0 the producer (one thread issues TMA, the
+//     warpgroup gives its registers away: setmaxnreg 40), warpgroups 1
+//     and 2 the consumers (setmaxnreg 232), each wgmma.mma_async on 64 of
+//     a 128 x BN tile's rows, f32 accumulators in registers; a ring of
+//     kStages stages, BK = 64, full (TMA bytes) and empty (one arrive a
+//     consumer warpgroup) mbarriers: ag_gemm_wgmma_kernel's body;
+//   - A from a 2-D map over the rank-stacked (n * M, K): a box is one
+//     64-row segment of an output chunk c (m % 64 == 0), read from row
+//     block src = (me - c) mod n in arrival order, c in rank order (the
+//     `_src_slot` remap); B MN-major from a 3-D map over (n, K, N); K and
+//     N edges by TMA's zero fill, stores masked per column;
+//   - the epilogue rounds a warpgroup's 64 rows to bf16 into slot `me` of
+//     chunk c's owner, then (a warpgroup barrier, one thread's fence and
+//     release add) counts them on the segment's counter;
+//   - persistent blocks, one an SM: a rank's work items are its producer
+//     tiles, column by column (each column's row tiles together, so they
+//     read B from L2 and every owner's column completes early), then its
+//     fold items, (column, 64-row segment) of its own chunk in the same
+//     order; block b takes items b, b + blocks, ... So a block that has
+//     no producer tile left folds while others still produce, and a fold
+//     item waits only on producer tiles, which never wait: with every
+//     block of every rank resident (one cooperative launch), the waits
+//     cannot form a cycle. The consumers fold (the producer warpgroup
+//     sits them out): one thread's acquire spin for the counter to reach
+//     exactly n, a consumer barrier, the n slots read with __ldcg in rank
+//     order, two 16-byte words a thread in flight, summed in f32 and
+//     rounded once to bf16;
+//   - nothing that makes ptxas serialize the wgmma (hopper.cuh,
+//     mbar_wait_quiet): no call anywhere in the kernel, and no control
+//     flow it cannot prove warp-uniform between them. The bounded waits
+//     keep their loops in PTX and trap without a message, one thread's
+//     arrives and signals are predicated PTX, and a block's fold items
+//     come in a loop of their own after its producer tiles.
+// The owner stores 0 to a counter once its wait is met (every add of the
+// call has landed), so the counters, like the slots, persist across
+// calls in the wrapper's pool (gemm_reduce_scatter._POOLS).
+
+constexpr int kWgThreads = 384;  // a producer warpgroup, two consumers
+constexpr int kBK = 64;
+constexpr int kBox = 64 * 64 * 2;  // bytes of a 64 x 64 bf16 TMA box
+constexpr int kWgSmem = 200 * 1024;  // the stages fill at most this
+constexpr int kFoldWords = 2;  // a fold thread's 16-byte outputs in flight
+
+template <int BN>
+struct WgCfg {
+  static constexpr int kNB = BN / 64;  // B boxes a stage
+  static constexpr int kStageBytes = (2 + kNB) * kBox;
+  static constexpr int kStages =
+      kWgSmem / kStageBytes < 6 ? kWgSmem / kStageBytes : 6;
+  static constexpr size_t kSmem = size_t(kStages) * kStageBytes + 1024;
+  static_assert(BN % 64 == 0 && BN <= 256, "accumulators a thread");
+};
+
+// work of a rank: producer tiles (128 x BN) and fold items (64 x BN)
+struct WgWork {
+  int RT, NT, segs, P, F;  // row tiles, column tiles, segments a chunk
+  __host__ __device__ WgWork(int n, int M, int N, int BN)
+      : RT((M + 127) / 128), NT((N + BN - 1) / BN), segs(M / n / 64),
+        P(RT * NT), F(M / n / 64 * NT) {}
+};
+
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+gemm_rs_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b,
+                     unsigned short* heap, unsigned short* out, int* flags,
+                     int M, int K, int N, int arrival, int straggle_rank,
+                     long long straggle_ns) {
+  typedef WgCfg<BN> Cfg;
+  constexpr int S = Cfg::kStages, NB = Cfg::kNB;
+  extern __shared__ uint8_t wg_smem[];
+  __shared__ __align__(8) uint64_t full_bar[S], empty_bar[S];
+  const int n = gridDim.y, me = blockIdx.y, m = M / n;
+  const WgWork wk(n, M, N, BN);
+  const int KT = (K + kBK - 1) / kBK;
+  const uint32_t base = (hopper::smem_addr(wg_smem) + 1023) & ~1023u;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      hopper::mbar_init(hopper::smem_addr(&full_bar[i]), 1);
+      hopper::mbar_init(hopper::smem_addr(&empty_bar[i]), 2);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  shmem::straggler_delay(straggle_rank, me, straggle_ns);
+
+  // the warpgroup, warp-uniform to the compiler (a wgmma in a path it
+  // cannot prove uniform is serialized: ptxas C7518)
+  const int wg = __shfl_sync(0xffffffffu, int(threadIdx.x) / 128, 0);
+  if (wg == 0) {  // the producer warpgroup
+    hopper::regs_dec<40>();
+    if (threadIdx.x == 0) {  // the TMA loads of my producer tiles
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < wk.P; t += gridDim.x) {
+        const int R0 = t % wk.RT * 128, j0 = t / wk.RT * BN;
+        const int segs = min(128, M - R0) / 64;
+        for (int kt = 0; kt < KT; ++kt) {
+          const uint32_t fb = hopper::smem_addr(&full_bar[stage]);
+          hopper::mbar_wait_quiet(hopper::smem_addr(&empty_bar[stage]),
+                                  phase ^ 1);
+          hopper::mbar_expect_tx(fb, (segs + NB) * kBox);
+          const uint32_t st = base + stage * Cfg::kStageBytes;
+          for (int g = 0; g < segs; ++g) {
+            const int R = R0 + 64 * g, c = R / m;
+            const int src = arrival ? (me - c + n) % n : c;
+            hopper::tma_load_2d(st + g * kBox, &map_a, fb, kt * kBK,
+                                me * M + src * m + R - c * m);
+          }
+#pragma unroll
+          for (int j = 0; j < NB; ++j)
+            hopper::tma_load_3d(st + (2 + j) * kBox, &map_b, fb, j0 + 64 * j,
+                                kt * kBK, me);
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows 64 w .. 64 w + 63 of a producer tile
+  hopper::regs_inc<232>();
+  const int w = wg - 1, ct = threadIdx.x - 128;
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
+  int stage = 0;
+  uint32_t phase = 0;
+  auto advance = [&]() {
+    if (++stage == S) {
+      stage = 0;
+      phase ^= 1;
+    }
+  };
+  const bool leader = threadIdx.x % 128 == 0;  // of my warpgroup
+  auto release = [&](int s) {
+    hopper::mbar_arrive_if(hopper::smem_addr(&empty_bar[s]), leader);
+  };
+  // my producer tiles: items b, b + blocks, ... below P
+  int it = blockIdx.x;
+  for (; it < wk.P; it += gridDim.x) {
+    const int R0 = it % wk.RT * 128, j0 = it / wk.RT * BN;
+    const int cols = min(BN, N - j0);
+    const bool live = 64 * w < M - R0;  // this warpgroup has rows
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    hopper::fence_regs(acc);
+    int prev = 0;
+    for (int kt = 0; kt < KT; ++kt) {
+      hopper::mbar_wait_quiet(hopper::smem_addr(&full_bar[stage]), phase);
+      if (live) {
+        const uint32_t st = base + stage * Cfg::kStageBytes;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          hopper::wgmma<BN>(
+              acc, hopper::desc_sw128(st + w * kBox + kk * 32, 16, 1024),
+              hopper::desc_sw128(st + 2 * kBox + kk * 2048, kBox, 1024),
+              1);
+        hopper::wgmma_commit();
+        // the group of kt - 1 is done: its stage goes back
+        hopper::wgmma_wait<1>();
+        if (kt > 0) release(prev);
+      } else {
+        release(stage);
+      }
+      prev = stage;
+      advance();
+    }
+    if (!live) continue;
+    hopper::wgmma_wait<0>();
+    release(prev);
+    hopper::fence_regs(acc);
+    // my partial of the segment into slot `me` of chunk c's owner
+    const int R = R0 + 64 * w, c = R / m, lr = R - c * m;
+    unsigned short* D = heap + ((size_t(c) * n + me) * m + lr) * N + j0;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = 16 * warp + lane / 4 + 8 * hr;
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+        const int col = 8 * i + 2 * (lane % 4);
+        if (col < cols)
+          put_pair(acc[4 * i + 2 * hr], acc[4 * i + 2 * hr + 1],
+                   D + size_t(row) * N + col);
+      }
+    }
+    hopper::named_sync(1 + w, 128);
+    hopper::signal_add_if(
+        flags + size_t(c) * wk.F + j0 / BN * wk.segs + lr / 64, 1, leader);
+  }
+  // then my fold items: no wgmma follows
+  for (; it < wk.P + wk.F; it += gridDim.x) {
+    // fold item f of my chunk: (column tile, 64-row segment)
+    const int f = it - wk.P, j0 = f / wk.segs * BN, r0 = f % wk.segs * 64;
+    // every add of this call has landed: the counter goes back to 0
+    hopper::wait_eq_reset_if(flags + size_t(me) * wk.F + f, n, ct == 0);
+    hopper::named_sync(3, 256);
+    const int vpr = min(BN, N - j0) / 8;  // 16-byte words a row
+    const unsigned short* slots =
+        heap + (size_t(me) * n * m + r0) * N + j0;
+    unsigned short* dst = out + (size_t(me) * m + r0) * N + j0;
+    // kFoldWords words a thread in flight: every slot of each
+    for (int v0 = ct; v0 < 64 * vpr; v0 += kFoldWords * 256) {
+      uint4 wds[kFoldWords][8];
+#pragma unroll
+      for (int u = 0; u < kFoldWords; ++u) {
+        const int v = v0 + u * 256;
+        if (v >= 64 * vpr) break;
+        const size_t off = size_t(v / vpr) * N + (v % vpr) * 8;
+        // delivered by rank r: __ldcg after the acquire (shmem.cuh)
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          if (r < n)
+            wds[u][r] = __ldcg(reinterpret_cast<const uint4*>(
+                slots + size_t(r) * m * N + off));
+      }
+#pragma unroll
+      for (int u = 0; u < kFoldWords; ++u) {
+        const int v = v0 + u * 256;
+        if (v >= 64 * vpr) break;
+        const size_t off = size_t(v / vpr) * N + (v % vpr) * 8;
+        float sum[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          if (r >= n) break;
+          const unsigned short* e =
+              reinterpret_cast<const unsigned short*>(&wds[u][r]);
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            sum[q] = r == 0 ? to_f32(e[q]) : sum[q] + to_f32(e[q]);
+        }
+        uint4 o;
+        unsigned short* oe = reinterpret_cast<unsigned short*>(&o);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) from_f32(sum[q], oe[q]);
+        *reinterpret_cast<uint4*>(dst + off) = o;
+      }
+    }
+  }
+}
+
+// the two maps of a call: a (n * M, K) 2-D, b (n, K, N) 3-D
+bool encode_maps(CUtensorMap (&maps)[2], const void* a, const void* b,
+                 int n, int M, int K, int N) {
+  const uint64_t da[2] = {uint64_t(K), uint64_t(n) * M};
+  const uint64_t sa[1] = {uint64_t(K) * 2};
+  const uint64_t db[3] = {uint64_t(N), uint64_t(K), uint64_t(n)};
+  const uint64_t sb[2] = {uint64_t(N) * 2, uint64_t(K) * N * 2};
+  const uint32_t box[3] = {64, 64, 1};
+  return hopper::encode_bf16(&maps[0], a, 2, da, sa, box) &&
+         hopper::encode_bf16(&maps[1], b, 3, db, sb, box);
+}
+
+template <int BN>
+cudaError_t launch_wgmma(const void* a, const void* b, void* heap, void* out,
+                         int* flags, int n, int M, int K, int N, int arrival,
+                         int sr, long long sns, int* info, cudaStream_t st) {
+  CUtensorMap maps[2];
+  if (!encode_maps(maps, a, b, n, M, K, N)) return cudaErrorInvalidValue;
+  const WgWork wk(n, M, N, BN);
+  return shmem::launch_world(
+      gemm_rs_wgmma_kernel<BN>, n, wk.P + wk.F, kWgThreads, WgCfg<BN>::kSmem,
+      st, info, maps[0], maps[1], static_cast<unsigned short*>(heap),
+      static_cast<unsigned short*>(out), flags, M, K, N, arrival, sr, sns);
 }
 
 }  // namespace
 
-// Flags (tile counters) a rank needs: the output tiles of its chunk.
-extern "C" int gemm_rs_flag_count(int m, int N, int dtype) {
+// Flags (tile counters) a rank needs: the output tiles of its chunk
+// (the wgmma body, bn > 0: its fold items, 64-row segments x BN columns).
+extern "C" int gemm_rs_flag_count(int m, int N, int dtype, int bn) {
+  if (bn > 0) return m / 64 * ((N + bn - 1) / bn);
   return dtype == 1 ? tiles_per_chunk<Bf16Body>(m, N)
                     : tiles_per_chunk<F32Body>(m, N);
 }
 
 // a (n, M, K), b (n, K, N) of dtype; heap (n, n, M/n, N) and out (n,
 // M/n, N) of out_dtype (partials: heap (n, M, N) f32, out unused and no
-// flags); flags (n, gemm_rs_flag_count) zeroed. M % n == 0; K and N
-// multiples of 16 bytes' worth of elements. dtype, out_dtype: 0 =
-// float32, 1 = bfloat16 (f32 inputs: f32 out). arrival: a's row blocks
-// in ring-arrival order. info: 3 ints (see launch_world). Returns a
+// flags); flags (n, gemm_rs_flag_count) zero (each call leaves them at
+// zero). M % n == 0; K and N multiples of 16 bytes' worth of elements.
+// dtype, out_dtype: 0 = float32, 1 = bfloat16 (f32 inputs: f32 out).
+// arrival: a's row blocks in ring-arrival order. body: 0 the mma.sync or
+// FMA body; 1 the wgmma body (bf16 in and out, no partials, 2 <= n <= 8, m a
+// multiple of 64, K and N at least 64; bn: 128, 192 or 256 columns a
+// tile). straggle_rank / straggle_ns: that rank's blocks stall on entry
+// (-1 / 0: none). info: 3 ints (see launch_world). Returns a
 // cudaError_t.
 extern "C" int gemm_rs_launch(const void* a, const void* b, void* heap,
                               void* out, void* flags, int n, int M, int K,
                               int N, int dtype, int out_dtype, int partials,
-                              int arrival, void* info, void* stream) {
+                              int arrival, int body, int bn, int sr,
+                              long long sns, void* info, void* stream) {
   const int per = dtype == 1 ? 8 : 4;
   if (n < 1 || M < n || M % n || K < 1 || N < 1 || K % per || N % per ||
       (partials && out_dtype != 0))
@@ -344,23 +641,40 @@ extern "C" int gemm_rs_launch(const void* a, const void* b, void* heap,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* fl = static_cast<int*>(flags);
   int* inf = static_cast<int*>(info);
+  if (body == 1) {
+    if (dtype != 1 || out_dtype != 1 || partials || n < 2 || n > 8 ||
+        (M / n) % 64 ||
+        K < 64 || N < 64)
+      return int(cudaErrorInvalidValue);
+    if (bn == 128)
+      return int(launch_wgmma<128>(a, b, heap, out, fl, n, M, K, N, arrival,
+                                   sr, sns, inf, st));
+    if (bn == 192)
+      return int(launch_wgmma<192>(a, b, heap, out, fl, n, M, K, N, arrival,
+                                   sr, sns, inf, st));
+    if (bn == 256)
+      return int(launch_wgmma<256>(a, b, heap, out, fl, n, M, K, N, arrival,
+                                   sr, sns, inf, st));
+    return int(cudaErrorInvalidValue);
+  }
+  if (body != 0) return int(cudaErrorInvalidValue);
   if (dtype == 0 && out_dtype == 0)
     return int(partials ? launch<F32Body, float, true>(
-                              a, b, heap, out, fl, n, M, K, N, arrival, inf,
-                              st)
+                              a, b, heap, out, fl, n, M, K, N, arrival, sr,
+                              sns, inf, st)
                         : launch<F32Body, float, false>(
-                              a, b, heap, out, fl, n, M, K, N, arrival, inf,
-                              st));
+                              a, b, heap, out, fl, n, M, K, N, arrival, sr,
+                              sns, inf, st));
   if (dtype == 1 && out_dtype == 0)
     return int(partials ? launch<Bf16Body, float, true>(
-                              a, b, heap, out, fl, n, M, K, N, arrival, inf,
-                              st)
+                              a, b, heap, out, fl, n, M, K, N, arrival, sr,
+                              sns, inf, st)
                         : launch<Bf16Body, float, false>(
-                              a, b, heap, out, fl, n, M, K, N, arrival, inf,
-                              st));
+                              a, b, heap, out, fl, n, M, K, N, arrival, sr,
+                              sns, inf, st));
   if (dtype == 1 && out_dtype == 1)
     return int(launch<Bf16Body, unsigned short, false>(
-        a, b, heap, out, fl, n, M, K, N, arrival, inf, st));
+        a, b, heap, out, fl, n, M, K, N, arrival, sr, sns, inf, st));
   return int(cudaErrorInvalidValue);
 }
 

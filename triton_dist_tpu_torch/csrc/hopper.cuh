@@ -14,10 +14,13 @@
 // stride of 8-row K groups), a k16 slice at +16 rows (2048 bytes).
 //
 // Every wait is bounded like shmem.cuh's spins: past kWaitBoundNs the
-// thread prints what it waited for and traps.
+// thread prints what it waited for and traps (mbar_wait_quiet and
+// wait_eq_reset_if, for a kernel that issues wgmma, trap without the
+// message: see there).
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is looked up
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <stdio.h>
@@ -25,6 +28,58 @@
 #include "shmem.cuh"
 
 namespace hopper {
+
+// ---- tensor maps (host) ---------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up at run time through the CUDA
+// runtime's entry point query: no -lcuda at link time
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor of `rank` dimensions (sizes innermost first; strides of
+// dimensions 1.. in bytes) as a map of `box`-sized boxes, 128-byte
+// swizzle (box[0] must be 64: one 128-byte row), zero fill past every
+// bound. False when the encoder is missing or refuses the map.
+inline bool encode_bf16(CUtensorMap* map, const void* p, int rank,
+                        const uint64_t* dims, const uint64_t* strides,
+                        const uint32_t* box) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (fn == nullptr || rank < 1 || rank > 5) return false;
+  cuuint64_t d[5], s[4];
+  cuuint32_t b[5], e[5];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    e[i] = 1;
+    if (i + 1 < rank) s[i] = strides[i];
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p),
+            d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -88,6 +143,107 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity,
   }
 }
 
+// The waits and signals of a kernel that issues wgmma. ptxas serializes
+// every wgmma of a function that makes any call (warning C7510), printf
+// included, in whatever branch, and every wgmma when it has to place its
+// warpgroup dependencies in control flow it cannot prove warp-uniform
+// (C7518): a C++ wait loop, or an `if` that one thread takes. So these
+// keep their loops and their single-thread predicates inside the PTX,
+// as CUTLASS's barriers do, and trap without a message past
+// kWaitBoundNs; such a kernel divides with __fdividef (the IEEE division
+// calls a slow-path subroutine).
+__device__ __forceinline__ void mbar_wait_quiet(uint32_t bar,
+                                                uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u64 t0, t1;\n"
+      "mov.u64 t0, %%globaltimer;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%globaltimer;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, %2;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity), "l"(shmem::kWaitBoundNs)
+      : "memory");
+}
+
+// an arrive on `bar` by the threads whose `pred` is set
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar),
+      "r"(int(pred))
+      : "memory");
+}
+
+// the threads whose `pred` is set: a gpu-scope fence, then a release add
+// of v to *flag (shmem.cuh's signal order: stores, a barrier, one
+// thread's fence and release)
+__device__ __forceinline__ void signal_add_if(int* flag, int v, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@p fence.acq_rel.gpu;\n"
+      "@p red.release.gpu.global.add.s32 [%0], %1;\n"
+      "}\n" ::"l"(flag),
+      "r"(v), "r"(int(pred))
+      : "memory");
+}
+
+// the threads whose `pred` is set wait (acquire spin) until *flag == v,
+// then store 0 to it: the owner's wait for exactly v arrivals, which
+// leaves the counter at zero for the next call
+__device__ __forceinline__ void wait_eq_reset_if(int* flag, int v,
+                                                 bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p, q;\n"
+      ".reg .s32 x;\n"
+      ".reg .u64 t0, t1;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@!p bra DONE;\n"
+      "mov.u64 t0, %%globaltimer;\n"
+      "SPIN:\n"
+      "ld.acquire.gpu.global.s32 x, [%0];\n"
+      "setp.eq.s32 q, x, %1;\n"
+      "@q bra HIT;\n"
+      "nanosleep.u32 64;\n"
+      "mov.u64 t1, %%globaltimer;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 q, t1, %3;\n"
+      "@q trap;\n"
+      "bra SPIN;\n"
+      "HIT:\n"
+      "st.relaxed.gpu.global.s32 [%0], 0;\n"
+      "DONE:\n"
+      "}\n" ::"l"(flag),
+      "r"(v), "r"(int(pred)), "l"(shmem::kWaitBoundNs)
+      : "memory");
+}
+
+// 16 zero bytes to shared address `addr` by the threads whose `pred` is
+// set
+__device__ __forceinline__ void st_zero16_if(uint32_t addr, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p st.shared.v4.u32 [%0], {%2, %2, %2, %2};\n"
+      "}\n" ::"r"(addr),
+      "r"(int(pred)), "r"(0)
+      : "memory");
+}
+
 // ---- TMA ----------------------------------------------------------------
 
 // Order this thread's earlier generic-proxy accesses (and what its
@@ -107,6 +263,34 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Order this thread's generic-proxy writes of shared memory before later
+// async-proxy reads of it (a wgmma operand written with ordinary stores)
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// a barrier of `threads` threads (whole warps) under id 1..15 (0 is
+// __syncthreads'): one warpgroup, or the consumers of a block
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// arrive at named barrier `id` of `threads` threads without waiting
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
@@ -321,6 +505,76 @@ __device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db,
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) = D * (scale_d != 0) + A (64 x 16, K-major)
+// * B (16 x 64, K-major: the 64 columns stored as rows of K, as a K/V
+// tile's keys are; imm-trans-b 0). Its descriptor is an A operand's:
+// SBO = 1024, a k16 slice at +32 bytes of a 128-byte row.
+__device__ __forceinline__ void wgmma_n64_kb(float* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31"
+      "},"
+      " %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 128, f32) = D * (scale_d != 0) + A (64 x 16, bf16 pairs in
+// registers) * B (16 x 128, MN-major). A's registers are laid out as
+// mma.sync's m16n8k16 A fragment a warp (warp w: rows 16 w ..): a[0]
+// (row l / 4, columns 2 (l % 4) + {0, 1}), a[1] (row + 8), a[2] (columns
+// + 8), a[3] (both), so the accumulator of an earlier product (d[4 i +
+// 2 h + c] above) packs into it two 8-column groups at a time.
+__device__ __forceinline__ void wgmma_n128_rs(float* d, const uint32_t* a,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63"
+      "},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
 }
 
 // D (64 x N) += A (64 x 16) B (16 x N) for N in {64, 128, 192, 256}

@@ -17,6 +17,7 @@ version.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -171,6 +172,38 @@ def ptxas_summary(name: str, kernel: str) -> Dict[str, str]:
             out[cur] = f"{regs} registers, {spill} bytes spilled"
             cur, spill = None, ""
     return out
+
+
+# the H100's SMs: the launch plans' default (card_sms on the card)
+SMS = 132
+# a PoolCache's entries by default: past this many the least recently
+# used is evicted
+POOL_ENTRIES = 8
+
+
+class PoolCache:
+    """A kernel's persistent buffers: an entry a call configuration (slots,
+    uninitialised, and flag or counter pools, zeroed once when made; the
+    kernels leave them at zero). At most `size` entries, the least
+    recently used evicted first; an evicted buffer goes back to the
+    caching allocator, which orders its reuse by the stream it was made
+    on. `made` counts the entries made."""
+
+    def __init__(self, size: int = POOL_ENTRIES):
+        self.size = size
+        self.entries: "collections.OrderedDict" = collections.OrderedDict()
+        self.made = 0
+
+    def get(self, key, make):
+        entry = self.entries.get(key)
+        if entry is None:
+            entry = make()
+            self.made += 1
+        self.entries[key] = entry
+        self.entries.move_to_end(key)
+        while len(self.entries) > self.size:
+            self.entries.popitem(last=False)
+        return entry
 
 
 @functools.lru_cache(maxsize=None)

@@ -87,9 +87,6 @@ _WGMMA_BN_PAIR = (64, 128)
 # (NVIDIA H100 80GB HBM3; PERF.md), where a wider tile costs less per
 # column; with it the plan picks the sweep's fastest width at each
 _WGMMA_FIXED_COLS = 128
-# one 128-row tile a block, one block an SM: the H100's SMs (the plan's
-# default; the card's own count on the card)
-_SMS = 132
 # launches of the native kernel by body (ag_gemm.launches counts both):
 # a run reads it around a path to show which body served it
 launches_by_body = {"mma": 0, "wgmma": 0}
@@ -122,7 +119,7 @@ def _body_for(a: torch.Tensor, bs, fmt, grouped: bool) -> str:
     return "wgmma"
 
 
-def _wgmma_bn(M: int, N: int, n: int, pair: bool, sms: int = _SMS) -> int:
+def _wgmma_bn(M: int, N: int, n: int, pair: bool, sms: int = _build.SMS) -> int:
     """C columns a wgmma tile for M rows a rank (n*m), N columns, at world
     n: the candidate whose waves (each rank's tiles over its sms // n
     blocks) times a tile's time are the fewest, the widest on a tie. A

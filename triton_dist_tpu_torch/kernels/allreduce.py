@@ -19,7 +19,7 @@ every rank's copy of the sum. Two implementations of one contract:
       every rank's copy has the same bits.
 
 On the card the kernel takes its workspace and flag pool from `_POOLS`
-(a reduce_scatter._PoolCache: made once, the flags zeroed once, then
+(a _build.PoolCache: made once, the flags zeroed once, then
 reused; the kernel leaves every flag at zero), so a warm call allocates
 only its output. `_ar_plan` cuts the tensor into tiles; `_launch(x,
 tile=)` forces a tile (the sweep and the tests).
@@ -101,12 +101,10 @@ _AR_TILES = (256, 512, 1024, 2048, 4096, 8192)
 _AR_TILE = 2048
 _AR_TILE_BYTES = 16 * 8 * 128
 _AR_PER_SM = 4
-# the H100's SMs: the plan's default, the card's own count on the card
-_SMS = 132
 # persistent workspaces and flag pools (csrc/allreduce.cu leaves the
-# flags at zero): at most reduce_scatter._POOL_ENTRIES, the least
-# recently used evicted
-_POOLS = _rsr._PoolCache()
+# flags at zero): at most _build.POOL_ENTRIES, the least recently used
+# evicted
+_POOLS = _build.PoolCache()
 _SIGNATURES = {
     "ar_launch": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4 + [
@@ -115,7 +113,7 @@ _SIGNATURES = {
 }
 
 
-def _ar_plan(E: int, n: int, itemsize: int, sms: int = _SMS,
+def _ar_plan(E: int, n: int, itemsize: int, sms: int = _build.SMS,
              tile: Optional[int] = None) -> Tuple[int, int, int]:
     """(tile, blocks per rank, flags per rank) of the kernel for E
     elements a rank of `itemsize` bytes at world n. The tile: _AR_TILE

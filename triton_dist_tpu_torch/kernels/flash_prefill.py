@@ -18,6 +18,21 @@ kv_len[b] and, if causal, t <= q_positions[b, s].
       key set to 0: the reference the kernel is held to, and the CPU
       path the tests run.
 
+The local kernel has two folds. The main path's form (bf16, D = 128, a
+GQA group G dividing 128) takes the TMA + wgmma fold
+(`fp_local_wgmma_kernel`: two consumer warpgroups of 64 query rows, K/V
+by TMA, P V as a register-A wgmma with P = hi + lo; one persistent
+block an SM claiming work items), its key range split over several
+items when the row tiles alone leave SMs idle (split-KV, combined in
+the same launch); every other call (f32, D = 64, G not dividing 128)
+the mma.sync fold. `_fp_plan` is the rule (fold and split count, from
+the shapes alone), `launches_by_body` counts each fold's launches, and
+the claim counters and split-KV workspace persist across calls
+(`_POOLS`: the kernel leaves its counters at zero). The wrapper makes
+no torch op of its own when the caller passes int32 q_positions and
+kv_len (the model builds them once a step); kv_len is clamped to T in
+the kernel.
+
 SP: the sequence sharded over the n ranks of the virtual world, rank r
 holding query and KV rows [r*S, (r+1)*S) of every batch row; the tensors
 are rank-stacked, q (n, B, S, Hq, D), k/v (n, B, S, Hkv, D), kv_len (B,)
@@ -59,10 +74,30 @@ NEG_INF = -1e30
 
 _SUPPORTED_D = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the wgmma fold's query rows a block (two warpgroups of 64) and keys a
+# K/V tile (csrc/flash_prefill.cu kWfRows, kWfKeys)
+_WGMMA_ROWS = 128
+_WGMMA_KEYS = 64
+# split-KV: at most this many work items share a row tile's keys (the
+# kernel's combine holds them in registers)
+_MAX_SPLITS = 4
+# launches of the local kernel by fold (flash_prefill_local.launches
+# counts both): a run reads it around a path to show which fold served it
+launches_by_body = {"mma": 0, "wgmma": 0}
+# the wgmma fold's persistent buffers: (f32 split-KV partials, int32
+# claim and split counters) a (device, stream, row tiles, splits)
+_POOLS = _build.PoolCache()
 _SIGNATURES = {
     "fp_local_launch": (ctypes.c_int, [ctypes.c_void_p] * 6
                         + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                 ctypes.c_void_p]),
+    "fp_local_wgmma_launch": (ctypes.c_int, [ctypes.c_void_p] * 6
+                              + [ctypes.c_int] * 6
+                              + [ctypes.c_float, ctypes.c_int]
+                              + [ctypes.c_void_p] * 3),
+    "fp_wgmma_tiles": (ctypes.c_int, [ctypes.c_int] * 4),
+    "fp_wgmma_counters": (ctypes.c_int, [ctypes.c_int] * 4),
+    "fp_wgmma_ws_floats": (ctypes.c_longlong, [ctypes.c_int] * 5),
     "fp_sp_launch": (ctypes.c_int, [ctypes.c_void_p] * 8
                      + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                              ctypes.c_int, ctypes.c_longlong,
@@ -88,6 +123,32 @@ def fit_block(t: int) -> int:
     itself, so unlike the TPU kernel's page fitting the tile does not
     depend on T."""
     return 64
+
+
+def _wgmma_fold_takes(hq: int, hkv: int, d: int, dtype) -> bool:
+    """The wgmma fold's shapes: bf16, D = 128, a GQA group G = Hq / Hkv
+    dividing _WGMMA_ROWS (Q's TMA box holds 128 / G positions of G
+    heads)."""
+    g = hq // hkv if hkv > 0 and hq % hkv == 0 else 0
+    return (dtype == torch.bfloat16 and d == 128 and g >= 1
+            and _WGMMA_ROWS % g == 0)
+
+
+def _fp_plan(b: int, s: int, t: int, hq: int, hkv: int, d: int, dtype,
+             sms: int = _build.SMS) -> Tuple[str, int]:
+    """(fold, splits) of a local call from its shapes alone: "wgmma" for
+    bf16 with D = 128 and a GQA group G dividing _WGMMA_ROWS (the TMA
+    box of Q holds 128 / G positions of G heads), its key range split
+    into as many work items a row tile (B * Hkv * ceil(S G / 128) row
+    tiles) as keep one item an SM of `sms`, at most _MAX_SPLITS and T's
+    key tiles: a split adds a 64 KB f32 partial written and read back,
+    which a second wave of items never repaid in the sweep
+    (tools/profile_flash.py). ("mma", 1) for every other call."""
+    if not _wgmma_fold_takes(hq, hkv, d, dtype):
+        return "mma", 1
+    tiles = b * hkv * -(-s * (hq // hkv) // _WGMMA_ROWS)
+    return "wgmma", max(1, min(_MAX_SPLITS, sms // tiles,
+                               -(-t // _WGMMA_KEYS)))
 
 
 def _normalize(q, k, q_positions, q_offset, kv_len):
@@ -166,21 +227,47 @@ def flash_prefill_local(q, k, v, q_positions=None, q_offset=0, kv_len=None,
     return _launch(q, k, v, q_positions, q_offset, kv_len, causal, scale)
 
 
-def _launch(q, k, v, q_positions, q_offset, kv_len, causal,
-            scale) -> torch.Tensor:
-    """Launch csrc/flash_prefill.cu on the current stream. Raises on a
-    tensor that is not on a CUDA device and on any shape, dtype or
-    layout the kernel does not take."""
+def _positions(q, k, q_positions, q_offset, kv_len):
+    """The kernel's int32 positions (B, S) and lengths (B,), made only
+    when the caller did not pass them so (kv_len is clamped to T in the
+    kernel)."""
+    b, s = q.shape[:2]
+    if q_positions is None:
+        q_positions = (torch.arange(s, device=q.device, dtype=torch.int32)
+                       [None, :] + q_offset).expand(b, s)
+    if kv_len is None:
+        kv_len = torch.full((b,), k.shape[1], device=q.device,
+                            dtype=torch.int32)
+    return (q_positions.to(torch.int32).contiguous(),
+            kv_len.reshape(-1).to(torch.int32).contiguous())
+
+
+def _launch(q, k, v, q_positions, q_offset, kv_len, causal, scale,
+            body: Optional[str] = None,
+            splits: Optional[int] = None) -> torch.Tensor:
+    """Launch csrc/flash_prefill.cu on the current stream: the fold and
+    split count of _fp_plan unless `body` ("mma", or "wgmma" where the
+    fold takes the shapes) or `splits` (the wgmma fold's, the sweep)
+    force them. Raises on a tensor that is not on a CUDA device and on
+    any shape, dtype or layout the kernel does not take."""
     if q.device.type != "cuda":
         raise ValueError(f"the flash prefill kernel needs CUDA tensors, "
                          f"got {q.device}")
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    q_positions, kv_len = _normalize(q, k, q_positions, q_offset, kv_len)
-    # the kernel ABI takes int32 positions and lengths
-    q_positions = q_positions.to(torch.int32).contiguous()
-    kv_len = kv_len.to(torch.int32).contiguous()
+    q_positions, kv_len = _positions(q, k, q_positions, q_offset, kv_len)
     _check(q, k, v, q_positions, kv_len)
+    rule, plan_splits = _fp_plan(b, s, t, hq, hkv, d, q.dtype,
+                                 _build.card_sms(q.device))
+    if body not in (None, "mma", "wgmma") or (
+            body == "wgmma" and not _wgmma_fold_takes(hq, hkv, d, q.dtype)):
+        raise ValueError(f"body={body!r}: this call takes 'mma'"
+                         + (" or 'wgmma'" if rule == "wgmma" else ""))
+    body = body or rule
+    if splits is not None and (body != "wgmma" or not
+                               1 <= splits <= _MAX_SPLITS):
+        raise ValueError(f"splits={splits}: the wgmma fold takes 1 to "
+                         f"{_MAX_SPLITS}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -188,14 +275,36 @@ def _launch(q, k, v, q_positions, q_offset, kv_len, causal,
     scale = float(scale if scale is not None else d ** -0.5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fp_local_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), q_positions.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(), b, s, t, hq, hkv, d,
-            _DTYPE_CODE[q.dtype], int(causal), scale, stream)
+        if body == "wgmma":
+            splits = splits or plan_splits
+            # the claim and split counters (zeroed once: the kernel leaves
+            # them at zero) and, split over the keys, the f32 partials
+            ws, ctr = _POOLS.get(
+                (q.device, stream, lib.fp_wgmma_tiles(b, s, hq, hkv),
+                 splits),
+                lambda: (torch.empty(
+                    lib.fp_wgmma_ws_floats(b, s, hq, hkv, splits)
+                    if splits > 1 else 0, dtype=torch.float32,
+                    device=q.device), torch.zeros(
+                    lib.fp_wgmma_counters(b, s, hq, hkv),
+                    dtype=torch.int32, device=q.device)))
+            err = lib.fp_local_wgmma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                q_positions.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+                b, s, t, hq, hkv, int(causal), scale, splits,
+                ws.data_ptr() if splits > 1 else None, ctr.data_ptr(),
+                stream)
+        else:
+            err = lib.fp_local_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                q_positions.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+                b, s, t, hq, hkv, d, _DTYPE_CODE[q.dtype], int(causal),
+                scale, stream)
     if err != 0:
         raise RuntimeError("flash_prefill_local launch failed: "
                            + lib.fp_error_string(err).decode())
     _build.count_launch("flash_prefill_local")
+    launches_by_body[body] += 1
     return out
 
 

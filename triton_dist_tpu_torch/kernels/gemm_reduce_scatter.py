@@ -27,6 +27,20 @@ leaves it to XLA; with `force_kernel` the kernel runs with n = 1. The
 TPU's VMEM-budget and interpret-mode fallbacks do not carry over: on the
 card the kernel always runs.
 
+The kernel has two tile bodies. The main path's form (native wire,
+bf16 in and out, m = M / n a multiple of 64 at 2 <= n <= 8: a `dist`
+prefill's 128 rows a rank and a scheduler step's 64) takes the TMA +
+wgmma body with a persistent schedule, every other call (a decode step's
+m = 1, f32, f32 out, the wire's partials, force_kernel at n = 1) the
+mma.sync or FMA body; `_body_for` is the rule, `_wgmma_bn` the wgmma
+body's tile width, and `launches_by_body` counts each body's launches.
+Both leave their tile counters at zero, so the slots and counters of a
+call configuration persist in `_POOLS` (a _build.PoolCache keyed by
+(device, stream, n, m, N, dtype, out_dtype, body, tile width)): a warm
+call allocates only its output and launches no memset. `straggler=
+(rank, nanos)` (the JAX config's straggler_rank / straggler_ns) stalls
+that rank's blocks on entry, on the card; the result is the same.
+
 `out_dtype` (default a.dtype) is also the native wire's accumulation
 dtype, as in JAX: the partials are rounded to it, folded in f32 and
 rounded to it once (float32 out of bf16 inputs: the f32-accumulation
@@ -47,6 +61,7 @@ without `force_kernel` the call is the plain product.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -56,12 +71,73 @@ from triton_dist_tpu_torch.kernels.allgather_gemm import arrival_to_rank_order
 from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the tile bodies of the native kernel (csrc/gemm_reduce_scatter.cu): 0
+# the mma.sync / FMA body (every form), 1 the TMA + wgmma body (the main
+# path's form; _body_for)
+_BODY_CODE = {"mma": 0, "wgmma": 1}
+# the wgmma body's rows a TMA box and a fold item: m a multiple of it
+_WGMMA_ROWS = 64
+# the ranks the wgmma body's fold holds in registers
+_WGMMA_MAX_WORLD = 8
+# output columns a wgmma tile: the candidates _wgmma_bn weighs, and the
+# sweep's (tools/profile_gemm_rs.py)
+_WGMMA_BN = (128, 192, 256)
+# a tile's time grows as its columns plus this many (ag_gemm's fit,
+# allgather_gemm._WGMMA_FIXED_COLS)
+_WGMMA_FIXED_COLS = 128
+# launches of the native kernel by body (gemm_rs.launches and
+# gemm_rs_wire.launches count both): a run reads it around a path to show
+# which body served it
+launches_by_body = {"mma": 0, "wgmma": 0}
 _SIGNATURES = {
     "gemm_rs_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_void_p]),
-    "gemm_rs_flag_count": (ctypes.c_int, [ctypes.c_int] * 3),
+        ctypes.c_int] * 11 + [ctypes.c_longlong, ctypes.c_void_p,
+                              ctypes.c_void_p]),
+    "gemm_rs_flag_count": (ctypes.c_int, [ctypes.c_int] * 4),
     "gemm_rs_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+# the native kernel's persistent slots and counters a call configuration
+# (_pool_key)
+_POOLS = _build.PoolCache()
+
+
+def _body_for(n: int, m: int, k: int, nn: int, dtype, out_dtype,
+              partials: bool = False) -> str:
+    """The tile body of a native-kernel call with m rows a rank: "wgmma"
+    (TMA + wgmma) for the main path's form, bf16 in and out, no partials,
+    2 <= n <= _WGMMA_MAX_WORLD, m a multiple of _WGMMA_ROWS, K and N at
+    least 64; "mma" for every other call (a decode step's m = 1, f32, f32
+    out, the wire's partials, force_kernel at n = 1)."""
+    if (partials or dtype != torch.bfloat16 or out_dtype != torch.bfloat16
+            or not 2 <= n <= _WGMMA_MAX_WORLD or m % _WGMMA_ROWS
+            or k < 64 or nn < 64):
+        return "mma"
+    return "wgmma"
+
+
+def _wgmma_bn(M: int, N: int, n: int, sms: int = _build.SMS) -> int:
+    """Output columns a wgmma tile for M rows a rank (n*m), N columns, at
+    world n: the candidate whose waves (each rank's 128 x BN producer
+    tiles over its sms // n blocks) times a tile's time (its columns
+    plus _WGMMA_FIXED_COLS) are the fewest, the widest on a tie."""
+    per = max(1, sms // n)
+
+    def cost(bn):
+        tiles = -(-M // 128) * -(-N // bn)
+        return (-(-tiles // per) * (bn + _WGMMA_FIXED_COLS), -bn)
+
+    return min(_WGMMA_BN, key=cost)
+
+
+def _pool_key(a: torch.Tensor, stream: int, m: int, nn: int, out_dtype,
+              body: str, bn: int) -> tuple:
+    """A pool's key: two calls share slots and counters only on one
+    device and one stream (launches on a stream run one after another),
+    at one world size, chunk shape, input and output dtype, body and tile
+    width (the mma body's tiles, so its counters, depend on the input
+    dtype: gemm_rs_flag_count)."""
+    return (a.device, stream, a.shape[0], m, nn, a.dtype, out_dtype, body,
+            bn)
 
 
 def _check(a, b, a_order):
@@ -135,13 +211,20 @@ def gemm_rs_wire_plain(a: torch.Tensor, b: torch.Tensor, wire_format,
 @_build.counted("gemm_rs")
 def gemm_rs(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
             force_kernel: bool = False, a_order: str = "rank",
-            wire_format=None) -> torch.Tensor:
+            wire_format=None,
+            straggler: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """a (n, M, K), b (n, K, N) rank-stacked -> (n, M/n, N) in out_dtype
     (default a.dtype): the CUDA kernel on CUDA tensors (launched or
     raising, never replaced), the plain version on CPU tensors; at n = 1
     a local product unless force_kernel. A quantized wire_format takes
-    gemm_rs_wire."""
+    gemm_rs_wire. straggler: (rank, nanos), that rank's blocks stall on
+    entry (the JAX config's straggler_rank / straggler_ns; the card only,
+    native wire; the result is the same)."""
     _check(a, b, a_order)
+    _build.straggler_args(straggler, a.shape[0])
+    if straggler is not None and not wire.is_native(wire_format):
+        raise ValueError("straggler delays the native kernel; the wire "
+                         "form takes none")
     out_dtype = out_dtype or a.dtype
     if a.shape[0] == 1 and not force_kernel:
         return local_product(a, b, out_dtype)
@@ -149,7 +232,8 @@ def gemm_rs(a: torch.Tensor, b: torch.Tensor, out_dtype=None,
         return gemm_rs_wire(a, b, wire_format, out_dtype, a_order)
     if a.device.type == "cpu":
         return gemm_rs_plain(a, b, a_order, out_dtype)
-    return _launch(a, b, a_order == "arrival", out_dtype)
+    return _launch(a, b, a_order == "arrival", out_dtype,
+                   straggler=straggler)
 
 
 @_build.counted("gemm_rs_wire")
@@ -176,7 +260,12 @@ def gemm_rs_wire(a: torch.Tensor, b: torch.Tensor, wire_format,
 
 
 def _launch(a: torch.Tensor, b: torch.Tensor, arrival: bool = False,
-            out_dtype=None, partials: bool = False) -> torch.Tensor:
+            out_dtype=None, partials: bool = False, straggler=None,
+            bn: Optional[int] = None,
+            body: Optional[str] = None) -> torch.Tensor:
+    """The native kernel; the body by _body_for unless `body` forces
+    "mma" (the comparison of the two bodies in one run), its tile width
+    by _wgmma_bn unless `bn` forces one (the sweep)."""
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"the gemm_rs kernel needs CUDA tensors on one "
                          f"device, got {a.device} and {b.device}")
@@ -199,28 +288,48 @@ def _launch(a: torch.Tensor, b: torch.Tensor, arrival: bool = False,
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              "aligned")
-    world = VirtualWorld.of(a)
+    rank, nanos = _build.straggler_args(straggler, n)
     m = M // n
+    rule = _body_for(n, m, K, N, a.dtype, out_dtype, partials)
+    if body not in (None, "mma", rule):
+        raise ValueError(f"body={body!r}: this call takes {rule!r} or "
+                         "'mma'")
+    body = body or rule
+    if body == "wgmma":
+        bn = bn or _wgmma_bn(M, N, n, _build.card_sms(a.device))
+        if bn not in _WGMMA_BN:
+            raise ValueError(f"bn={bn}: the wgmma body takes {_WGMMA_BN}")
+    elif bn is not None:
+        raise ValueError(f"bn={bn}: only the wgmma body takes a tile width")
     name = "gemm_rs_wire" if partials else "gemm_rs"
     if partials:  # every rank's f32 partial, no fold
         out = heap = torch.empty((n, M, N), dtype=torch.float32,
                                  device=a.device)
     else:
         out = torch.empty((n, m, N), dtype=out_dtype, device=a.device)
-        heap = world.heap((n, m, N), out_dtype)  # [owner c][producer r]
     if out.numel() == 0:
         return out
     lib = _build.load("gemm_reduce_scatter", _SIGNATURES)
     code = _DTYPE_CODE[a.dtype]
-    flags = world.flags(0 if partials else
-                        lib.gemm_rs_flag_count(m, N, code))
     grid = _build.GridInfo()
     with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        flags_ptr = 0  # the partials mode signals nothing
+        if not partials:
+            world = VirtualWorld.of(a)
+            count = lib.gemm_rs_flag_count(m, N, code, bn or 0)
+            # [owner c][producer r] slots, (n, count) counters
+            heap, flags = _POOLS.get(
+                _pool_key(a, stream, m, N, out_dtype, body, bn or 0),
+                lambda: (world.heap((n, m, N), out_dtype),
+                         world.flags(count)))
+            flags_ptr = flags.data_ptr()
         err = lib.gemm_rs_launch(
             a.data_ptr(), b.data_ptr(), heap.data_ptr(), out.data_ptr(),
-            flags.data_ptr(), n, M, K, N, code, _DTYPE_CODE[out_dtype],
-            int(partials), int(arrival), grid.ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            flags_ptr, n, M, K, N, code, _DTYPE_CODE[out_dtype],
+            int(partials), int(arrival), _BODY_CODE[body], bn or 0, rank,
+            nanos, grid.ptr(), stream)
     _build.check(name, err, lib.gemm_rs_error_string, grid)
     _build.count_launch(name)
+    launches_by_body[body] += 1
     return out

@@ -67,7 +67,6 @@ tile and a delayed rank, for the sweep and the tests.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import enum
 from typing import Optional, Tuple
@@ -101,8 +100,6 @@ _TILES = (2048, 4096, 8192)
 _TILE = 2048
 _THREAD_SHARE = 64
 _RING_PER_SM = 4
-# the H100's SMs: the plans' default, the card's own count on the card
-_SMS = 132
 # The wire kernel: a row in registers on a group of 1, 2, 4 or 8 warps,
 # each thread holding at most _WIRE_UNITS units of 16 elements (a tile is
 # one row a group); other rows are staged in shared memory, a block a
@@ -113,9 +110,6 @@ _WIRE_UNIT = 16
 _WIRE_UNITS = 2
 _WIRE_PER_SM = 2
 _WIRE_MAX_COLS = 48 * 1024
-# persistent slots and flag pools a (kernel, device, stream, n, size,
-# dtype, tiles); the least recently used goes past this many
-_POOL_ENTRIES = 8
 _SIGNATURES = {
     "rs_launch": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 4 + [
@@ -127,7 +121,7 @@ _SIGNATURES = {
 }
 
 
-def _ring_plan(chunk: int, itemsize: int, n: int, sms: int = _SMS,
+def _ring_plan(chunk: int, itemsize: int, n: int, sms: int = _build.SMS,
                tile: Optional[int] = None) -> Tuple[int, int]:
     """(tile, tiles) of the native ring for a chunk of `chunk` elements
     whose accumulation slot has `itemsize`-byte elements, at world n:
@@ -150,7 +144,7 @@ def _ring_plan(chunk: int, itemsize: int, n: int, sms: int = _SMS,
 
 
 def _wire_plan(m: int, k: int, blk: int, n: int,
-               sms: int = _SMS) -> Tuple[int, int, int]:
+               sms: int = _build.SMS) -> Tuple[int, int, int]:
     """(warps a row, rows a tile, tiles) of the wire ring for chunks of m
     rows of k elements, scale blocks of blk, at world n. In registers
     (k and blk multiples of 16, k <= 16 x _WIRE_UNITS x 256): the fewest
@@ -171,32 +165,9 @@ def _wire_plan(m: int, k: int, blk: int, n: int,
     return 0, rows, -(-m // rows)
 
 
-class _PoolCache:
-    """The rings' persistent buffers: an entry a call configuration (the
-    accumulation or image slots, uninitialised, and the flag pool, zeroed
-    once when made; the kernels leave the flags at zero). At most `size`
-    entries, the least recently used evicted first; an evicted buffer goes
-    back to the caching allocator, which orders its reuse by the stream
-    it was made on. `made` counts the entries made."""
-
-    def __init__(self, size: int = _POOL_ENTRIES):
-        self.size = size
-        self.entries: "collections.OrderedDict" = collections.OrderedDict()
-        self.made = 0
-
-    def get(self, key, make):
-        entry = self.entries.get(key)
-        if entry is None:
-            entry = make()
-            self.made += 1
-        self.entries[key] = entry
-        self.entries.move_to_end(key)
-        while len(self.entries) > self.size:
-            self.entries.popitem(last=False)
-        return entry
-
-
-_POOLS = _PoolCache()
+# persistent slots and flag pools a (kernel, device, stream, n, size,
+# dtype, tiles)
+_POOLS = _build.PoolCache()
 
 
 def _pool_key(kernel: str, x: torch.Tensor, stream: int, size, dtype,

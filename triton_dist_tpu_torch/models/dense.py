@@ -369,6 +369,10 @@ def forward(cfg: ModelConfig, params: DenseLLMParams, tokens: torch.Tensor,
     # the ranks are extra batch rows of the attention: row r * B + b
     rank_pos, rank_len = positions.repeat(n, 1), kv_len.repeat(n)
     write = KVWrite.at(rank_pos, cache.k.shape[2])
+    # the flash kernel's int32 positions and lengths, made once a step
+    # rather than by its wrapper in every layer
+    rank_pos = rank_pos.to(torch.int32)
+    rank_len = rank_len.to(torch.int32)
 
     if n == 1:
         mode = "ar"  # one computation at world 1

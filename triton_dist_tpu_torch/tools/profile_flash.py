@@ -1,17 +1,28 @@
 """The local flash prefill kernel's times at the Qwen3-8B head shapes.
 
-    python -m triton_dist_tpu_torch.tools.profile_flash
+    python -m triton_dist_tpu_torch.tools.profile_flash [--host]
 
-bf16, through chip_smoke.py's `time_flash_prefill` (the one timing path
+bf16. First the wrapper's host µs a call at a world-4 scheduler step's
+rank rows (B 16, Hq 8, Hkv 2 a rank, kv_len 178-375), with int64 and
+with int32 positions and lengths (200 unsynchronised calls; --host stops
+there). Then, through chip_smoke.py's `time_flash_prefill` (the one timing path
 of the flash kernels): its serve step (B 4, S 64, T 1024) and long
 prefill (B 1, S = T = 2048), plus a world-4 scheduler step's rank rows
-(B 16, Hq 8, Hkv 2 a rank, kv_len 178-375). Prints one JSON line a case:
-ms a call (CUDA events), the kernel's device µs (torch.profiler), plain
-and SDPA ms, and the bound. chip_smoke.py is loaded from this file's
-checkout and the kernels from whichever `triton_dist_tpu_torch` is
-imported first, so two versions of the kernel compare in one run by
-pointing PYTHONPATH at each checkout in turn and running this file by
-its path. Needs a CUDA card.
+(B 16, Hq 8, Hkv 2 a rank, kv_len 178-375), once with int64 positions
+and lengths (which the wrapper converts) and once with int32 ones (as
+the model passes them). Prints one JSON line a case: ms a call (CUDA
+events), the kernel's device µs (torch.profiler), plain and SDPA ms, and
+the bound. Where the package has the wgmma fold
+(`flash_prefill._fp_plan`), each case also names the fold and split
+count the plan picks (chip_smoke.time_flash_prefill), and a last line holds
+the sweep at the three main-path shapes (chip_smoke.fp_main_shapes) and
+one request's step (chip_smoke.FP_ONE_REQUEST): device µs of the
+mma.sync fold forced and of the wgmma fold at each split count of
+chip_smoke.FP_SPLITS. chip_smoke.py is loaded from this file's checkout
+and the kernels from whichever `triton_dist_tpu_torch` is imported
+first, so two versions of the kernel compare in one run by pointing
+PYTHONPATH at each checkout in turn and running this file by its path.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -19,6 +30,8 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+import sys
+import time
 
 import torch
 
@@ -35,15 +48,65 @@ def _chip_smoke():
     return mod
 
 
+def _sweep(cs):
+    """{shape label: {fold/splits: device µs}} at the main-path shapes and
+    one request's step (chip_smoke.FP_ONE_REQUEST, where the plan
+    splits)."""
+    out = {}
+    for label, b, s, t, hq, hkv, d, starts in (*cs.fp_main_shapes(),
+                                              cs.FP_ONE_REQUEST):
+        inp = cs.fp_inputs(b, s, t, hq, hkv, d, starts, torch.bfloat16,
+                           seed=1)
+        args = (inp["q"], inp["k"], inp["v"],
+                inp["q_positions"].to(torch.int32),
+                0, inp["kv_len"].to(torch.int32), True, None)
+        row = {"plan": fp._fp_plan(b, s, t, hq, hkv, d, torch.bfloat16),
+               "mma": cs.device_us(lambda: fp._launch(*args, body="mma"),
+                                   "fp_local")}
+        for sp in cs.FP_SPLITS:
+            row[f"wgmma/{sp}"] = cs.device_us(
+                lambda sp=sp: fp._launch(*args, body="wgmma", splits=sp),
+                "fp_local")
+        out[label] = row
+    return out
+
+
+def _host_us(inp, calls=200) -> float:
+    """The wrapper's host µs a call: time.perf_counter around `calls`
+    unsynchronised calls (the launches queue; the host cost is the
+    wrapper's Python, its torch ops and the launch)."""
+    fp.flash_prefill_local(**inp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fp.flash_prefill_local(**inp)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def main() -> None:
     cs = _chip_smoke()
     rows = cs.fp_inputs(16, 64, cs.MAX_LEN, 8, 2, 128,
                         [114, 311, 193, 262] * 4, torch.bfloat16, seed=1)
+    rows32 = dict(rows, q_positions=rows["q_positions"].to(torch.int32),
+                  kv_len=rows["kv_len"].to(torch.int32))
+    label = "world-4 step rows B=16 S=64 T=1024 Hq=8 Hkv=2"
+    card = cs.card_line()
+    host = {"int64 positions": _host_us(rows),
+            "int32 positions": _host_us(rows32)}
+    print(json.dumps({"case": label, "host_us_a_call": host, "card": card}),
+          flush=True)
+    if "--host" in sys.argv[1:]:
+        return
     times = cs.time_flash_prefill(
-        fp, extra=[("world-4 step rows B=16 S=64 T=1024 Hq=8 Hkv=2", rows)])
-    card = torch.cuda.get_device_name(0)
-    for label, row in times.items():
-        print(json.dumps({"case": label, **row, "card": card}), flush=True)
+        fp, extra=[(f"{label}, int64 positions", rows),
+                   (f"{label}, int32 positions", rows32)])
+    for name, row in times.items():
+        print(json.dumps({"case": name, **row, "card": card}), flush=True)
+    if hasattr(fp, "_fp_plan"):
+        print(json.dumps({"split_sweep_device_us": _sweep(cs),
+                          "card": card}), flush=True)
 
 
 if __name__ == "__main__":

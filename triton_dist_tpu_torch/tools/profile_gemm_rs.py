@@ -1,0 +1,143 @@
+"""The gemm_rs kernel's device times at the main path's shapes.
+
+    python -m triton_dist_tpu_torch.tools.profile_gemm_rs
+
+bf16, world 4, Qwen3-8B widths, inputs from chip_smoke.py's `rand` (A
+scale 1, weights 0.02): gemm_rs (csrc/gemm_reduce_scatter.cu) on the O
+projection (a (4, 4m, 1024), b (4, 1024, 4096), rank order) and the down
+projection (a (4, 4m, 3072), b (4, 3072, 4096), arrival order), each at
+a prefill's m = 128 rows a rank and a scheduler step's m = 64: the
+`dist` path's four calls. Each case is first held against gemm_rs_plain
+within chip_smoke.gemm_rs_atol (20 calls); then its device µs a call
+(torch.profiler, chip_smoke.device_us on the kernels named gemm_rs*),
+its call ms (CUDA events), the least time (chip_smoke.bound_ms: 2 n M K
+N operations at the bf16 peak against n (M K + K N) read and n m N
+written) and the library's one einsum over ranks and K (a yardstick the
+port never calls), ms and device µs, read in three traces, with each
+kernel's µs a call in the last (`library_kernels_us`) and the device µs
+of that einsum's product alone (`gemm_us`: one matmul of A laid out as
+(M, n K) beforehand by B as (n K, N)). Where the package has the wgmma
+body (`gemm_reduce_scatter._body_for`): which body each case takes, the
+mma.sync body forced on the same call, the BN sweep (each tile width
+forced through `gemm_reduce_scatter._launch(..., bn=)`, within the atol),
+the plan's pick, and each wgmma instantiation's registers and spills
+from ptxas when this run built the library. Prints one JSON line.
+chip_smoke.py is loaded from this file's checkout and the kernel from
+whichever `triton_dist_tpu_torch` is imported first, so two versions
+compare in one run by pointing PYTHONPATH at each checkout in turn and
+running this file by its path (old, new, new, old). Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import torch
+
+import triton_dist_tpu_torch
+from triton_dist_tpu_torch import kernels
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
+from triton_dist_tpu_torch.tools.profile_ring_rs import _chip_smoke
+
+N_WORLD, N = 4, 4096
+KEY = "gemm_rs"
+
+
+def _cases(cs):
+    for m, when in ((128, "prefill"), (64, "scheduler step")):
+        for k, proj, order in ((1024, "O", "rank"), (3072, "down",
+                                                     "arrival")):
+            a = cs.rand((N_WORLD, N_WORLD * m, k), torch.bfloat16, m + k)
+            b = cs.rand((N_WORLD, k, N), torch.bfloat16, k + 1, 0.02)
+            yield f"{when} {proj} ({order})", a, b, order
+
+
+def _within(cs, fn, a, b, want, label):
+    atol = cs.gemm_rs_atol(a, b, want)
+    for _ in range(20):
+        err = (fn().float() - want.float()).abs().max().item()
+        if not err <= atol:
+            raise AssertionError(f"{label}: err {err} above atol {atol}")
+    return err / atol
+
+
+def _kernels_us(fn, reps=10):
+    """Each kernel's device µs a call of fn (name -> µs), from one
+    torch.profiler trace of `reps` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)))
+        if us > 0:
+            out[e.key[:100]] = us / reps
+    return out
+
+
+def main() -> None:
+    cs = _chip_smoke()
+    rows, sweep, plan, bodies = {}, {}, {}, {}
+    wgmma = hasattr(rs, "_body_for")
+    for label, a, b, order in _cases(cs):
+        n, M, k = a.shape
+        want = kernels.gemm_rs_plain(a, b, order)
+
+        def call(a=a, b=b, order=order):
+            return kernels.gemm_rs(a, b, a_order=order)
+
+        def library(a=a, b=b):
+            return torch.einsum("rmk,rkn->mn", a, b)
+
+        share = _within(cs, call, a, b, want, label)
+        bound, by = cs.bound_ms(
+            2 * n * M * k * N,
+            (n * (M * k + k * N) + n * (M // n) * N) * a.element_size(),
+            "bfloat16")
+        rows[label] = dict(
+            device_us=cs.device_us(call, KEY), ms=cs.time_ms(call),
+            bound_us=bound * 1e3, bound_by=by, atol_share=share,
+            library_us=cs.device_us_total(library),
+            library_ms=cs.time_ms(library),
+            library_us_reads=[cs.device_us_total(library)
+                              for _ in range(3)],
+            library_kernels_us=_kernels_us(library))
+        a_cat = a.permute(1, 0, 2).reshape(M, n * k).contiguous()
+        b_cat = b.reshape(n * k, N)
+        rows[label]["gemm_us"] = cs.device_us_total(
+            lambda: torch.matmul(a_cat, b_cat))
+        if not wgmma:
+            continue
+        arrival = order == "arrival"
+        bodies[label] = rs._body_for(n, M // n, k, N, a.dtype, a.dtype)
+        plan[label] = rs._wgmma_bn(M, N, n, _build.card_sms(a.device))
+
+        def mma(a=a, b=b, arrival=arrival):
+            return rs._launch(a, b, arrival, body="mma")
+
+        _within(cs, mma, a, b, want, f"{label} mma")
+        rows[label]["mma_device_us"] = cs.device_us(mma, KEY)
+        for bn in rs._WGMMA_BN:
+            def fn(a=a, b=b, arrival=arrival, bn=bn):
+                return rs._launch(a, b, arrival, bn=bn)
+            _within(cs, fn, a, b, want, f"{label} bn {bn}")
+            sweep[f"{label} bn {bn}"] = cs.device_us(fn, KEY)
+    out = {"package": os.path.dirname(triton_dist_tpu_torch.__file__),
+           "card": cs.card_line(), "rows": rows}
+    if wgmma:
+        out.update(bodies=bodies, plan=plan, bn_sweep_device_us=sweep,
+                   ptxas=_build.ptxas_summary("gemm_reduce_scatter",
+                                              "gemm_rs_wgmma_kernel"))
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -35,9 +35,10 @@ from triton_dist_tpu_torch.serve import Scheduler
 
 REPS = 2  # traced repetitions of each step
 TOP = 12  # kernels listed per step
-# name fragments of the port's hand-written kernels (csrc/*.cu)
-OWN = ("fp_local", "one_shot_ar_kernel", "ring_ag_kernel", "gemm_rs_kernel",
-       "ag_gemm_kernel", "ring_rs_kernel")
+# name fragments of the port's hand-written kernels (csrc/*.cu; both
+# bodies of gemm_rs, ag_gemm and the local flash kernel)
+OWN = ("fp_local", "one_shot_ar_kernel", "ring_ag_kernel", "gemm_rs",
+       "ag_gemm", "ring_rs_kernel")
 MODELS = {"qwen3-8b": ModelConfig.qwen3_8b,
           "qwen3-30b-a3b": ModelConfig.qwen3_30b_a3b}
 
