@@ -762,7 +762,7 @@ def check_wgmma_main_shapes(kernels):
                 f"{'silu_pair arrival' if pair else 'rank'}: bf16 and f32 "
                 f"out, every tile width forced, within the atol and band")
     got = {k: v - before[k] for k, v in agm.launches_by_body.items()}
-    assert got == {"mma": 0, "wgmma": calls}, got
+    assert got == {"mma": 0, "wgmma": calls, "grouped": 0}, got
     return worst
 
 
@@ -844,27 +844,68 @@ def check_ring_rs(kernels):
 def check_grouped_ag_gemm(kernels):
     """The grouped ag_gemm (bf16, silu_pair; w_gate / w_up views of one
     [gate | up] stack, rows 2N apart) against its plain version at n = 2
-    and 4, cap 16, 64 and 256 rows an expert block, both C orders, within
-    ag_gemm_atol. Returns the largest share of an atol."""
+    and 4, cap 16, 48, 64 and 256 rows an expert block, both C orders,
+    within ag_gemm_atol and the bf16 band: every row live (no counts),
+    and with counts of live rows a (rank, expert) block drawn from [0,
+    cap], 0 and cap included, the rows past them non-zero in A (so the
+    kernel is seen to leave them out) and their C rows exactly zero.
+    Every call with counts took the expert-major grouped kernel and made
+    no host sync, every call without took the mma.sync body (the rule of
+    allgather_gemm._body_for). Returns the largest share of an atol."""
     import torch
 
-    worst = 0.0
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
+
+    worst, calls = 0.0, [0, 0]  # with counts, every row live
+    before = dict(agm.launches_by_body)
     e, k, i_loc = 8, 512, 192
     for n in (2, 4):
-        for cap in (16, 64, 256):
+        for cap in (16, 48, 64, 256):
             a = rand((n, e * cap, k), torch.bfloat16, n + cap, 1.0)
             gu = rand((n, e, k, 2 * i_loc), torch.bfloat16, n + cap + 1, 0.05)
             ws = (gu[..., :i_loc], gu[..., i_loc:])
+            g = torch.Generator().manual_seed(n * cap)
+            counts = torch.randint(0, cap + 1, (n, e), generator=g).to(
+                torch.int32)
+            counts[0, 0], counts[-1, -1], counts[0, -1] = 0, cap, cap // 2
+            counts = counts.cuda()
             ratio = 0.0
             for order in ("rank", "arrival"):
-                _, r = check_ag_gemm_call(kernels, a, ws,
-                                          epilogue="silu_pair",
-                                          c_order=order)
-                ratio = max(ratio, r)
+                for cnt in (None, counts):
+                    kw = dict(epilogue="silu_pair", c_order=order,
+                              counts=cnt)
+                    if cnt is not None:
+                        torch.cuda.synchronize()
+                        torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        got = kernels.ag_gemm(a, ws, **kw)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    want = kernels.ag_gemm_plain(a, ws, **kw)
+                    torch.cuda.synchronize()
+                    err = (got.float() - want.float()).abs().max().item()
+                    atol = ag_gemm_atol(a, ws, want)
+                    if not bool(torch.isfinite(got).all()) or not err <= atol:
+                        raise AssertionError(
+                            f"ag_gemm grouped n={n} cap={cap} {order} counts "
+                            f"{cnt is not None}: err {err}, atol {atol}")
+                    band(want, got, "ag_gemm")
+                    if cnt is not None:
+                        dead = agm._zero_dead_rows(
+                            torch.ones_like(got[..., :1]), cnt,
+                            order == "arrival") == 0
+                        assert not bool(got[dead.expand_as(got)].any()), \
+                            "a row past counts is not zero"
+                    ratio = max(ratio, err / atol)
+                    calls[cnt is None] += 1
             worst = max(worst, ratio)
-            log(f"  ag_gemm grouped n={n} E={e} cap={cap} K={k} "
-                f"I={i_loc} bf16 silu_pair, both orders: at most "
-                f"{ratio:.3f} of its atol")
+            log(f"  ag_gemm grouped n={n} E={e} cap={cap} K={k} I={i_loc} "
+                f"bf16 silu_pair, both orders, every row live and counts "
+                f"{counts.tolist()[0][:4]}..., rows past them non-zero: at "
+                f"most {ratio:.3f} of its atol, in the band, those C rows "
+                "zero, no host sync")
+    got = {key: v - before[key] for key, v in agm.launches_by_body.items()}
+    assert got == {"mma": calls[1], "wgmma": 0, "grouped": calls[0]}, got
     return worst
 
 
@@ -1332,7 +1373,8 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
     # step) rows a rank, and every flash call is bf16 with D = 128 and
     # G = 4: all of them took the wgmma body or fold
     for name, got in bodies.items():
-        assert got == {"mma": 0, "wgmma": main_n[name]}, (name, got)
+        assert got == {**dict.fromkeys(got, 0), "wgmma": main_n[name]}, (
+            name, got)
         log(f"  {name} launches by body (Engine.serve and Scheduler): "
             f"{got}")
     model = {"ag_gemm_by_body": bodies["ag_gemm"],
@@ -1384,17 +1426,25 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
         fused_prompts = rng.integers(0, cfg.vocab_size, (4, FUSED_LEN))
         fwrap = {name: Recorder(name, L, "fused")
                  for name in main_path_kernels()}
+        fused0 = dict(agm.launches_by_body)
         with Swapped(fwrap):
             kernels.reset_launches()
             torch.cuda.synchronize()
             fused_logits, _ = fused.prefill(fused_prompts)
             torch.cuda.synchronize()
             fused_n = kernels.launches()
+        fused_bodies = {k: v - fused0[k]
+                        for k, v in agm.launches_by_body.items()}
         want_fused = {name: 0 for name in kernel_names()}
         want_fused.update(flash_prefill_local=L, ag_gemm=2 * L, gemm_rs=L,
                           ring_reduce_scatter=L)
         assert fused_n == want_fused, (fused_n, want_fused)
         assert fwrap["ag_gemm"].grouped == L, fwrap["ag_gemm"].grouped
+        # QKV (m 32 a rank) on the mma.sync body, every grouped gate|up
+        # on the expert-major grouped kernel
+        assert fused_bodies == {"mma": L, "wgmma": 0, "grouped": L}, \
+            fused_bodies
+        model["fused_ag_gemm_by_body"] = fused_bodies
         assert bool(torch.isfinite(fused_logits).all()), "fused logits"
         assert fused_logits.shape == (4, cfg.vocab_size)
         for name, w in fwrap.items():
@@ -1402,7 +1452,8 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
         main_n = {k: main_n[k] + fused_n[k] for k in main_n}
         model["grouped_launches"] = fwrap["ag_gemm"].grouped
         log(f"  fused prefill 4x{FUSED_LEN}: launches {fused_n}, grouped "
-            f"ag_gemm {fwrap['ag_gemm'].grouped}")
+            f"ag_gemm {fwrap['ag_gemm'].grouped}, ag_gemm launches by body "
+            f"{fused_bodies}")
         model["fused_prefill_ms"] = time_ms(
             lambda: fused.prefill(fused_prompts), iters=3, warmup=1)
         f_rel, f_floor, f_agree, f_agree_floor, _ = against_plain(
@@ -1599,19 +1650,21 @@ def device_us_total(fn, reps=10):
     return total / reps if total > 0 else None
 
 
-def host_parts(call, checks, buffers, launch, calls=100):
-    """A ring RS wrapper's host µs a call, time.perf_counter around
-    `calls` unsynchronised calls of each: the whole call, and its parts:
-    checks (the wrapper's Python checks), buffers (the output's allocation
-    and the persistent pool's lookup), ctypes (the C entry called with
-    n = 0, which returns before any CUDA call), launch (the C entry less
-    that: launch_world's device, attribute and occupancy queries and the
-    cooperative launch), rest (the wrapper's other Python: library
-    lookup, device guard, error check, count). Asserts that no warm call
-    made a pool."""
+def host_parts(call, checks, buffers, launch, calls=100, pools=None):
+    """A ring wrapper's host µs a call, time.perf_counter around `calls`
+    unsynchronised calls of each: the whole call, and its parts: checks
+    (the wrapper's Python checks), buffers (the output's allocation and
+    the persistent pool's lookup), ctypes (the C entry called with n = 0,
+    which returns before any CUDA call), launch (the C entry less that:
+    launch_world's device query, its cached grid and the cooperative
+    launch), rest (the wrapper's other Python: library lookup, device
+    guard, error check, count). Asserts that no warm call made a pool
+    (`pools`: the wrapper's PoolCache, the ring RS's by default)."""
     import torch
 
     from triton_dist_tpu_torch.kernels import reduce_scatter as rs
+
+    pools = pools or rs._POOLS
 
     def per_call(fn):
         fn()
@@ -1623,7 +1676,7 @@ def host_parts(call, checks, buffers, launch, calls=100):
         torch.cuda.synchronize()
         return dt
 
-    made = rs._POOLS.made
+    made = pools.made
     parts = dict(call=per_call(call), checks=per_call(checks),
                  buffers=per_call(buffers),
                  ctypes=per_call(lambda: launch(0)),
@@ -1631,8 +1684,60 @@ def host_parts(call, checks, buffers, launch, calls=100):
     parts["launch"] -= parts["ctypes"]
     parts["rest"] = parts["call"] - sum(
         parts[k] for k in ("checks", "buffers", "ctypes", "launch"))
-    assert rs._POOLS.made == made, "a warm ring RS call made a pool"
+    assert pools.made == made, "a warm ring call made a pool"
     return parts
+
+
+def ag_host_parts(kernels, x):
+    """host_parts of the ring AllGather's wrapper on x."""
+    from triton_dist_tpu_torch import wire
+    from triton_dist_tpu_torch.kernels import _build
+    from triton_dist_tpu_torch.kernels import allgather as agr
+
+    lib = _build.load("allgather", agr._SIGNATURES)
+    out, flags, stream = agr._ring_buffers(x)
+    grid = _build.GridInfo()
+    chunk = x[0].numel() * x.element_size()
+
+    def launch(n):
+        err = lib.ag_launch(x.data_ptr(), out.data_ptr(), flags.data_ptr(),
+                            x.shape[0] if n is None else n, chunk,
+                            grid.ptr(), stream)
+        assert (err == 0) == (n is None), err
+
+    return host_parts(
+        lambda: kernels.ring_all_gather(x),
+        lambda: (wire.resolve(None), agr._check_launch(x)),
+        lambda: agr._ring_buffers(x), launch, pools=agr._POOLS)
+
+
+def check_ag_pools(kernels, xs, calls=50):
+    """The ring AllGather's persistent flag pools: `calls` back-to-back
+    calls on one stream over the inputs xs in turn, each bitwise its
+    plain version; then every flag of every pool reads zero and no call
+    past the first of each input made a pool. Returns {pool: bytes}."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import allgather as agr
+
+    wants = [kernels.ring_all_gather_plain(x) for x in xs]
+    made = None
+    for i in range(calls):
+        got = kernels.ring_all_gather(xs[i % len(xs)])
+        torch.cuda.synchronize()
+        assert torch.equal(got, wants[i % len(xs)]), i
+        if i == len(xs) - 1:
+            made = agr._POOLS.made
+    assert agr._POOLS.made == made, "a warm ring_all_gather made a pool"
+    zero = all(not bool(f.any()) for f in agr._POOLS.entries.values())
+    assert zero, "ring_all_gather left a flag set"
+    held = {f"n={k[2]} chunk {k[3]} B, {k[4]} tiles": f.numel() * 4
+            for k, f in agr._POOLS.entries.items()}
+    log(f"  ring_all_gather: {calls} calls back to back over "
+        f"{[tuple(x.shape) for x in xs]}, bitwise; every pool flag at zero; "
+        f"{agr._POOLS.made} pools made, none by a warm call; pool bytes "
+        f"{held}")
+    return held
 
 
 def rs_host_parts(kernels, x):
@@ -1784,13 +1889,21 @@ def time_collectives(kernels, records):
                       device=ag_x.device)
     label = f"prefill x {tuple(ag_x.shape)} bf16"
     chunk = ag_x[0].numel() * ag_x.element_size()
-    rows["ring_all_gather"][label] = time_collective(
+    row = time_collective(
         f"ring_all_gather {label}", lambda: kernels.ring_all_gather(ag_x),
         lambda: kernels.ring_all_gather_plain(ag_x),
         lambda: out.copy_(ag_x.reshape(1, n * m, *ag_x.shape[2:])
                           .expand(out.shape)),
         0, n * chunk + n * n * chunk, ag_x.dtype,
         kernel_key="ring_ag_kernel")
+    row["host_us"] = ag_host_parts(kernels, ag_x)
+    row["bound_share"] = (None if not row["device_us"]
+                          else row["bound_ms"] * 1e3 / row["device_us"])
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in row["host_us"].items()
+                      if k != "call")
+    log(f"  ring_all_gather {label}: host {row['host_us']['call']:.1f} us a "
+        f"call ({parts}); bound share {row['bound_share']}")
+    rows["ring_all_gather"][label] = row
     for rec, proj in ((rs_down, "down"), (rs_o, "O")):
         a, b = rec["a"], rec["b"]
         n, M, K = a.shape
@@ -1825,7 +1938,10 @@ def time_collectives(kernels, records):
             "gemm_rs": next(iter(rows["gemm_rs"]))}
     pools = check_ar_pools(kernels, (ar_sched, ar_dec))
     sweep, plan = ar_tile_sweep((ar_dec, ar_sched))
-    return rows, main, dict(pool_bytes=pools, tile_sweep=sweep, plan=plan)
+    ag_pools = check_ag_pools(kernels, (ag_x, rand((4, 37, 1000),
+                                                   torch.bfloat16, 37)))
+    return rows, main, dict(pool_bytes=pools, tile_sweep=sweep, plan=plan,
+                            ag_pool_bytes=ag_pools)
 
 
 def check_ar_pools(kernels, xs, calls=50):
@@ -1892,7 +2008,8 @@ def check_recorded_dist(kernels, records):
     Returns name -> max abs error."""
     errs = {}
     for name, check, opts in (
-            ("ag_gemm", check_ag_gemm_call, ("epilogue", "c_order")),
+            ("ag_gemm", check_ag_gemm_call, ("epilogue", "c_order",
+                                             "counts")),
             ("gemm_rs", check_rs, ("a_order",))):
         err_max, ratio_max = 0.0, 0.0
         for rec in records[name]:
@@ -1903,7 +2020,9 @@ def check_recorded_dist(kernels, records):
         shapes = sorted({(tuple(r["a"].shape),
                           tuple(r["b"][0].shape if isinstance(r["b"], tuple)
                                 else r["b"].shape),
-                          tuple(sorted((k, r[k]) for k in opts if k in r)))
+                          tuple(sorted((k, "live rows" if k == "counts"
+                                        else r[k])
+                                       for k in opts if k in r)))
                          for r in records[name]})
         log(f"  {name} on {len(records[name])} recorded dist-path calls, "
             f"(a, b, options) {shapes}: max_abs_err={err_max:.3e}, at most "
@@ -4091,26 +4210,47 @@ def time_moe(kernels, records):
     rec = next(r for r in records["ag_gemm"]
                if isinstance(r["b"], tuple) and r["b"][0].dim() == 4)
     a, (wg, wu) = rec["a"], rec["b"]
-    kw = {k: rec[k] for k in ("epilogue", "c_order") if k in rec}
+    kw = {k: rec[k] for k in ("epilogue", "c_order", "counts") if k in rec}
+    counts = kw["counts"]  # the fused path passes its packs' counts
     n, m, k = a.shape
     e, i_loc = wg.shape[1], wg.shape[3]
     cap = m // e
     blocks = a.reshape(n, e, cap, k)
+    # the live rows: the packs' counts, and the non-zero rows of A agree
     live = blocks.abs().amax(-1) > 0  # (n source ranks, E, cap)
     live_rows = int(live.sum())
-    live_e = int(live.any(2).any(0).sum())
+    assert live_rows == int(counts.sum()), (live_rows, counts.sum())
+    live_e = int((counts > 0).any(0).sum())
     gu = wg.as_strided((n, e, k, 2 * i_loc), wg.stride())  # [gate | up]
     xe = blocks.permute(1, 0, 2, 3).reshape(e, n * cap, k).contiguous()
     label = (f"fused prefill 4x{FUSED_LEN} a {tuple(a.shape)} b 2 x "
              f"{tuple(wg.shape)} (E {e}, cap {cap}; {live_rows} live rows, "
-             f"{live_e} experts reached) bf16")
+             f"{live_e} experts reached) bf16, counts")
+    # bound: each rank's B slices of the experts reached, the live A rows
+    # and C, its zero rows included (the function writes them), once
     ag_rows[label] = time_collective(
         f"ag_gemm grouped {label}",
         lambda: kernels.ag_gemm(a, (wg, wu), **kw),
         lambda: kernels.ag_gemm_plain(a, (wg, wu), **kw),
         lambda: torch.matmul(xe[None], gu),
         2 * 2 * n * live_rows * k * i_loc,
-        (live_rows * k + n * live_e * k * 2 * i_loc + n * live_rows * i_loc)
+        (live_rows * k + n * live_e * k * 2 * i_loc + n * n * m * i_loc)
+        * a.element_size(), a.dtype,
+        kernel_key="ag_gemm_grouped_wgmma_kernel")
+    nocount = {key: v for key, v in kw.items() if key != "counts"}
+    # the recorded input with every row live (the mma.sync body) is
+    # within the atol too; with counts check_recorded_dist held it
+    _, ratio = check_ag_gemm_call(kernels, a, (wg, wu), **nocount)
+    log(f"  ag_gemm grouped on the recorded fused-prefill input, every row "
+        f"live: at most {ratio:.3f} of its atol")
+    # without counts every padded row is live: the mma.sync body's call
+    ag_rows[label[:-len(", counts")] + ", every row live"] = time_collective(
+        f"ag_gemm grouped {label[:-len(', counts')]}, every row live",
+        lambda: kernels.ag_gemm(a, (wg, wu), **nocount),
+        lambda: kernels.ag_gemm_plain(a, (wg, wu), **nocount),
+        lambda: torch.matmul(xe[None], gu),
+        2 * 2 * n * n * m * k * i_loc,
+        (n * m * k + n * e * k * 2 * i_loc + n * n * m * i_loc)
         * a.element_size(), a.dtype, kernel_key="ag_gemm_kernel")
     return rs_rows, ag_rows, next(iter(rs_rows)), label, sweep
 
@@ -4170,6 +4310,13 @@ def main() -> int:
             # C7510 / C7518: ptxas serialized a kernel's wgmma
             if "registers" in line or "spill" in line or "C75" in line:
                 log(f"  {name}: {line.strip()}")
+    # ag_gemm's wgmma bodies (dense and grouped) issue no serialized wgmma
+    serial = [line.strip() for line in _build.build_log.get(
+        "allgather_gemm", "").splitlines()
+        if any(w in line for w in ("C7510", "C7515", "C7518"))]
+    assert not serial, f"ptxas serialized ag_gemm's wgmma: {serial}"
+    if "allgather_gemm" in _build.build_log:
+        log("  allgather_gemm: no C7510 / C7515 / C7518 from ptxas")
 
     log("== 3. kernels against their plain versions")
     fp_err = check_flash_prefill(fp)
@@ -4301,11 +4448,15 @@ def main() -> int:
                    max(err1, err4, errd, errm), fp_rows, busy,
                    max_abs_err_synthetic=fp_err,
                    launches_by_body=by_body("flash_prefill_by_body"))]
+    extras = {"one_shot_all_reduce": ar_extra,
+              "ring_all_gather": dict(
+                  pool_bytes=ar_extra.pop("ag_pool_bytes"),
+                  device_us=coll_rows["ring_all_gather"][
+                      coll_main["ring_all_gather"]]["device_us"])}
     for name in ("one_shot_all_reduce", "ring_all_gather", "gemm_rs"):
         lines.append(entry(name, total(name), by_path(name), errs[name],
                            coll_rows[name], coll_main[name],
-                           **(ar_extra if name == "one_shot_all_reduce"
-                              else {})))
+                           **extras.get(name, {})))
     lines[-1]["atol_ratio_synthetic"] = rs_ratio
     lines[-1]["launches_by_body"] = by_body("gemm_rs_by_body")
     lines.append(entry("ag_gemm", total("ag_gemm"), by_path("ag_gemm"),
@@ -4313,7 +4464,9 @@ def main() -> int:
                        ag_rows, ag_main, atol_ratio_synthetic=ag_ratio,
                        launches_by_body={
                            "world4_dist": modeld["ag_gemm_by_body"],
-                           "world4_moe": modelm["ag_gemm_by_body"]},
+                           "world4_moe": modelm["ag_gemm_by_body"],
+                           "world4_moe_fused":
+                               modelm["fused_ag_gemm_by_body"]},
                        grouped=dict(launches=modelm["grouped_launches"],
                                     shape=grouped_main,
                                     **{k: ag_rows[grouped_main][k] for k in (

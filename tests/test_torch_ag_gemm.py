@@ -240,23 +240,35 @@ def _bf16(*shape):
     ((4, 37, 4096, 1536, 1, None, None), "mma"),  # ragged m
     ((4, 96, 4096, 1536, 1, None, None), "mma"),  # m not a box multiple
     ((4, 128, 4096, 1536, 1, None, "f32"), "mma"),
-    ((4, 128, 4096, 1536, 1, 8, None), "mma"),  # grouped
+    ((4, 128, 4096, 1536, 1, 8, "f32"), "mma"),  # grouped f32 (FMA)
     ((4, 128, 4096, 1536, 1, None, "fp8"), "mma"),  # the wire
     ((4, 128, 32, 1536, 1, None, None), "mma"),  # K under one box
     ((4, 128, 4096, 40, 1, None, None), "mma"),  # N under one box
+    # the grouped form in bf16 with counts ("live") takes the
+    # expert-major kernel, any cap; without counts the mma.sync body
+    ((4, 128, 4096, 1536, 1, 8, "live"), "grouped"),  # cap 16
+    ((4, 4 * 48, 256, 192, 2, 4, "live"), "grouped"),  # silu_pair, cap 48
+    ((2, 3 * 256, 128, 64, 2, 3, "live"), "grouped"),  # cap 256, N one box
+    ((4, 4 * 48, 256, 192, 2, 4, None), "mma"),  # every row live
+    ((9, 64, 128, 192, 2, 4, "live"), "mma"),  # past 8 ranks
+    ((4, 64, 32, 192, 2, 4, "live"), "mma"),  # K under one box
+    ((4, 64, 128, 40, 2, 4, "live"), "mma"),  # N under one box
 ])
 def test_body_for_routes_the_main_path_to_wgmma(case, body):
     """_body_for: the wgmma body serves the dense bf16 native-wire form
     at m a multiple of 64 (a prefill's 128 rows a rank, a scheduler
-    step's 64), K and N at least one 64-wide box; grouped, wire, f32 and
-    ragged or small m keep the mma.sync body."""
+    step's 64), K and N at least one 64-wide box; the grouped bf16 form
+    with counts (the fused MoE up-projection) the expert-major kernel at
+    n <= 8, K and N at least one box; wire, f32, ragged or small m, and
+    the grouped form without counts keep the mma.sync (or FMA) body."""
     n, m, k, nn, halves, experts, kind = case
     dtype = torch.float32 if kind == "f32" else torch.bfloat16
     a = torch.zeros(n, m, k, dtype=dtype)
     shape = (n, experts, k, nn) if experts else (n, k, nn)
     bs = tuple(torch.zeros(*shape, dtype=dtype) for _ in range(halves))
     fmt = wire.resolve("fp8" if kind == "fp8" else None)
-    assert ag._body_for(a, bs, fmt, experts is not None) == body
+    assert ag._body_for(a, bs, fmt, experts is not None,
+                        kind == "live") == body
 
 
 @pytest.mark.parametrize("M,N,n,pair,want", [

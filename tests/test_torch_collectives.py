@@ -121,6 +121,30 @@ def test_ring_all_gather_matches_jax_bitwise(n):
     np.testing.assert_array_equal(got.numpy().reshape(n * n * m, w), want)
 
 
+@pytest.mark.parametrize("chunk,tiles", [
+    (2, 1), (16384, 1), (16386, 2), (33 * 264 * 4, 3),
+    (128 * 4096 * 2, 64),  # the prefill's (4, 128, 4096) bf16 shard
+    (512 * 2048 * 2, 128)])  # the Qwen3-30B-A3B dist prefill's
+def test_ring_all_gather_tiles_and_pool_key(chunk, tiles):
+    """The ring AllGather's pure plan and pool key: tiles of 16 KiB (a
+    flag each a step but the last), the last one short; the flag pool a
+    (device, stream, n, chunk, tiles), and two streams, worlds or shard
+    sizes never share one. A CPU call runs the plain version and makes
+    no pool."""
+    assert ag._ring_tiles(chunk) == tiles
+    assert (tiles - 1) * ag._TILE_BYTES < chunk <= tiles * ag._TILE_BYTES
+    x = torch.zeros(4, chunk // 2, dtype=torch.bfloat16)
+    base = ag._pool_key(x, 7, chunk)
+    assert base == (x.device, 7, 4, chunk, tiles)
+    others = {ag._pool_key(x, 8, chunk), ag._pool_key(x[:2], 7, chunk),
+              ag._pool_key(x, 7, chunk + 16 * ag._TILE_BYTES)}
+    assert base not in others and len(others) == 3
+    made = ag._POOLS.made
+    y = torch.arange(4 * 3 * 5, dtype=torch.float32).reshape(4, 3, 5)
+    assert torch.equal(ag.ring_all_gather(y), ag.ring_all_gather_plain(y))
+    assert ag._POOLS.made == made and isinstance(ag._POOLS, _build.PoolCache)
+
+
 def _jax_gemm_rs(a, b, n):
     """a (n, M, K), b (n, K, N) rank-stacked -> JAX gemm_rs (n, M/n, N)."""
     _, m, k = a.shape

@@ -640,6 +640,58 @@ def test_ring_reduce_scatter_every_tile_bitwise(cuda, n, dtype, accum):
             assert torch.equal(got, want), (m, w, tile)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_ring_all_gather_kernel_matches_plain_bitwise(cuda, n, dtype):
+    """The ring AllGather bitwise its plain version over 16-byte, 4-byte
+    and 2-byte words (shards of 16k, 4k + 4 and 4k + 2 bytes), ragged and
+    multi-tile sizes and the main path's (128, 4096) and (512, 2048); the
+    C entry's tile count is the wrapper's plan."""
+    from triton_dist_tpu_torch.kernels import _build
+    from triton_dist_tpu_torch.kernels import allgather as agr
+
+    rng = np.random.default_rng(90 + n)
+    for m, w in ((1, 4096), (3, 1000), (5, 7), (128, 4096), (512, 2048),
+                 (1, 3), (33, 264)):
+        if dtype == torch.int8 and (m * w) % 2:
+            continue
+        x = torch.from_numpy(rng.standard_normal((n, m, w)) * 8).to(
+            "cuda", dtype)
+        got = ring_all_gather(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ring_all_gather_plain(x)), (m, w)
+    lib = _build.load("allgather", agr._SIGNATURES)
+    for chunk in (2, 16384, 16386, 1 << 20):
+        assert lib.ag_tile_count(chunk) == agr._ring_tiles(chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_all_gather_back_to_back_leaves_flags_at_zero(cuda, n):
+    """50 ring AllGather calls on one stream, alternating two shapes,
+    each bitwise its plain version: every launch finds its persistent
+    flags at zero, which the previous one left there. After them the
+    pools read all zeros and no call past the first of each shape made
+    a pool."""
+    from triton_dist_tpu_torch.kernels import allgather as agr
+
+    rng = np.random.default_rng(95 + n)
+    xs = [torch.from_numpy(rng.standard_normal((n, m, w))).to(
+        "cuda", torch.bfloat16) for m, w in ((128, 4096), (37, 1000))]
+    wants = [ring_all_gather_plain(x) for x in xs]
+    made = None
+    for i in range(50):
+        got = ring_all_gather(xs[i % 2])
+        torch.cuda.synchronize()
+        assert torch.equal(got, wants[i % 2]), i
+        if i == 1:
+            made = agr._POOLS.made
+    assert agr._POOLS.made == made
+    assert all(not bool(f.any()) for f in agr._POOLS.entries.values())
+
+
 def _pools_at_zero():
     from triton_dist_tpu_torch.kernels import reduce_scatter as rs
 
@@ -704,11 +756,13 @@ def test_ring_reduce_scatter_delayed_rank_bitwise(cuda, n):
 
 def _grouped_atol(full, ws, want):
     """ag_gemm's band for the grouped form: one bf16 ulp of the largest
-    output plus 1e-5 of max|gate| x max|up| over every expert block."""
+    output plus 1e-5 of max|gate| x max|up| (of the product, without the
+    pair) over every expert block."""
     prods = [torch.einsum("sepk,rekn->rsepn", full.float(),
                           w.float()).abs().max().item() for w in ws]
     ulp = 2.0 ** -7 * want.float().abs().max().item()
-    return ulp + 1e-5 * max(1.0, prods[0]) * max(1.0, prods[1])
+    return ulp + 1e-5 * max(1.0, prods[0]) * max(1.0, prods[-1] if len(
+        ws) == 2 else 1.0)
 
 
 @pytest.mark.cuda
@@ -736,6 +790,95 @@ def test_grouped_ag_gemm_kernel_matches_plain(cuda, n, cap):
                                    atol=_grouped_atol(full, ws, want))
         band(want, got, "ag_gemm")
     assert launches()["ag_gemm"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("cap", [16, 48, 64, 256])
+def test_grouped_ag_gemm_counts_kernel_matches_plain(cuda, n, cap):
+    """The expert-major grouped kernel with counts (the live rows of each
+    (rank, expert) block, 0 and cap included) against the plain version
+    with the same counts, both C orders, plain and silu_pair, bf16 and
+    f32 out: within the atol and the band; the rows past counts are
+    non-zero in A, and their C rows come out exactly zero. Every call
+    took the grouped kernel."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as ag
+
+    rng = np.random.default_rng(60 + n + cap)
+    e, k, i_loc = 6, 256, 192
+    a = torch.from_numpy(rng.standard_normal((n, e * cap, k))).to(
+        "cuda", torch.bfloat16)
+    gu = (torch.from_numpy(rng.standard_normal((n, e, k, 2 * i_loc)))
+          * 0.05).to("cuda", torch.bfloat16)
+    ws = (gu[..., :i_loc], gu[..., i_loc:])
+    counts = torch.from_numpy(rng.integers(0, cap + 1, (n, e))).to(
+        "cuda", torch.int32)
+    counts[0, 0], counts[-1, -1] = 0, cap
+    full = a.reshape(n, e, cap, k)
+    before = dict(ag.launches_by_body)
+    calls = 0
+    for b, ep in ((ws[0], None), (ws, "silu_pair")):
+        for c_order in ("arrival", "rank"):
+            for out in (torch.bfloat16, torch.float32):
+                kw = dict(epilogue=ep, c_order=c_order, counts=counts,
+                          out_dtype=out)
+                got = ag_gemm(a, b, **kw)
+                want = ag_gemm_plain(a, b, **kw)
+                calls += 1
+                torch.cuda.synchronize()
+                atol = _grouped_atol(full, ws if ep else ws[:1], want)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=0, atol=atol)
+                dead = ag._zero_dead_rows(torch.ones_like(got[..., :1]),
+                                          counts, c_order == "arrival") == 0
+                assert not bool(got[dead.expand_as(got)].any())
+                if out == torch.bfloat16:
+                    band(want, got, "ag_gemm")
+    got_bodies = {k2: v - before[k2] for k2, v in ag.launches_by_body.items()}
+    assert got_bodies == {"mma": 0, "wgmma": 0, "grouped": calls}
+
+
+@pytest.mark.cuda
+def test_grouped_ag_gemm_fused_prefill_like_inputs(cuda):
+    """pack_by_expert's inputs at a cut of the fused prefill (n 4, E 32,
+    cap 64 from 8 tokens a rank at top 8, K 512, I_loc 192): the kernel
+    with the packs' counts, without them, and the old mma.sync body all
+    within the atol of the plain version, in the band; with counts the
+    call makes no host sync."""
+    from triton_dist_tpu_torch.kernels import allgather_gemm as ag
+    from triton_dist_tpu_torch.kernels import moe_utils as mu
+
+    rng = np.random.default_rng(77)
+    n, e, k, i_loc, m_tok, top = 4, 32, 512, 192, 8, 8
+    packs = []
+    for r in range(n):
+        x = torch.from_numpy(rng.standard_normal((m_tok, k))).to(
+            "cuda", torch.bfloat16)
+        ids = torch.from_numpy(np.stack([rng.choice(e, top, replace=False)
+                                         for _ in range(m_tok)])).to(
+            "cuda", torch.int32)
+        packs.append(mu.pack_by_expert(x, ids, e, m_tok * top))
+    a = torch.stack([p.x for p in packs])
+    counts = torch.stack([p.counts for p in packs])
+    gu = (torch.from_numpy(rng.standard_normal((n, e, k, 2 * i_loc)))
+          * 0.05).to("cuda", torch.bfloat16)
+    ws = (gu[..., :i_loc], gu[..., i_loc:])
+    want = ag_gemm_plain(a, ws, "silu_pair", "arrival")
+    atol = _grouped_atol(a.reshape(n, e, -1, k), ws, want)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ag_gemm(a, ws, epilogue="silu_pair", c_order="arrival",
+                      counts=counts)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for c in (got, ag_gemm(a, ws, epilogue="silu_pair", c_order="arrival"),
+              ag._launch(a, ws, True, False, body="mma"),
+              ag._launch(a, ws, True, False, counts=counts, body="mma")):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(c.float(), want.float(), rtol=0,
+                                   atol=atol)
+        band(want, c, "ag_gemm")
 
 
 @pytest.mark.cuda
@@ -865,7 +1008,7 @@ sys.exit(0)
 # equal the producer count, so the ring's step-1 wait must trap; argv[1]:
 # the body (0 mma.sync, m 16; 1 wgmma, m 64, its tile counter at zero and
 # the arrival counters far below it, so its producer thread's wait for a
-# delivered step traps too)
+# delivered step traps too; 2 the grouped kernel, E 2, cap 32, counts 5)
 _AG_FAULT = r"""
 import sys, torch
 from triton_dist_tpu_torch.kernels import _build
@@ -883,10 +1026,45 @@ if body:
     flags[:, 0] = 0
     flags[:, 1:] = -1000
 grid = _build.GridInfo()
-err = lib.ag_gemm_launch(a.data_ptr(), b.data_ptr(), b.data_ptr(),
-                         ws.data_ptr(), c.data_ptr(), flags.data_ptr(), n, m,
-                         K, N, 1, 1, 0, 0, body, 128 if body else 0, -1, 0,
-                         grid.ptr(), torch.cuda.current_stream().cuda_stream)
+stream = torch.cuda.current_stream().cuda_stream
+if body == 2:
+    counts = torch.full((n, 2), 5, device="cuda", dtype=torch.int32)
+    err = lib.ag_gemm_grouped_launch(
+        a.data_ptr(), b.data_ptr(), b.data_ptr(), ws.data_ptr(),
+        c.data_ptr(), flags.data_ptr(), counts.data_ptr(), n, m, K, N, 1, 1,
+        0, 0, 2, N, K * N // 2, K * N, 1, 64, -1, 0, grid.ptr(), stream)
+else:
+    err = lib.ag_gemm_launch(a.data_ptr(), b.data_ptr(), b.data_ptr(),
+                             ws.data_ptr(), c.data_ptr(), flags.data_ptr(),
+                             n, m, K, N, 1, 1, 0, 0, body,
+                             128 if body else 0, -1, 0, grid.ptr(), stream)
+assert err == 0, err
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(3)
+sys.exit(0)
+"""
+
+
+# a ring AllGather whose persistent pool was left with a flag far below
+# zero: rank 1 waits for exactly one arrival on it, which can never show,
+# so its wait must trap
+_RING_AG_FAULT = r"""
+import sys, torch
+from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels import allgather as agr
+lib = _build.load("allgather", agr._SIGNATURES)
+n, chunk = 4, 1 << 16
+x = torch.ones((n, chunk // 2), device="cuda", dtype=torch.bfloat16)
+out = torch.empty((n, n, chunk // 2), device="cuda", dtype=torch.bfloat16)
+flags = torch.zeros((n, (n - 2) * lib.ag_tile_count(chunk)), device="cuda",
+                    dtype=torch.int32)
+flags[1, 0] = -1000
+grid = _build.GridInfo()
+err = lib.ag_launch(x.data_ptr(), out.data_ptr(), flags.data_ptr(), n, chunk,
+                    grid.ptr(), torch.cuda.current_stream().cuda_stream)
 assert err == 0, err
 try:
     torch.cuda.synchronize()
@@ -1039,12 +1217,12 @@ sys.exit(0)
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,script,args", [
     ("gemm_rs", _FAULT, ["0"]), ("ag_gemm", _AG_FAULT, ["0"]),
-    ("ag_gemm", _AG_FAULT, ["1"]),
+    ("ring_all_gather", _RING_AG_FAULT, []),
     ("one_shot_all_reduce", _AR_FAULT, []),
     ("ring_reduce_scatter", _RS_FAULT, []), ("ll_all_gather", _LL_FAULT, []),
     ("sp_flash_prefill", _SP_FAULT, []), ("all_to_all", _A2A_FAULT, ["0"]),
     ("all_to_all_chunked", _A2A_FAULT, ["1"])],
-    ids=["gemm_rs", "ag_gemm-mma", "ag_gemm-wgmma", "one_shot_all_reduce",
+    ids=["gemm_rs", "ag_gemm-mma", "ring_all_gather", "one_shot_all_reduce",
          "ring_reduce_scatter", "ll_all_gather", "sp_flash_prefill",
          "all_to_all", "all_to_all_chunked"])
 def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script, args):
@@ -1067,22 +1245,28 @@ def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script, args):
 
 
 @pytest.mark.cuda
-def test_gemm_rs_wgmma_protocol_fault_traps_without_a_word(cuda):
-    """The wgmma body over counters that were not zeroed: its fold's
-    bounded spin traps and the next synchronisation raises, within the
-    spin bound. It prints nothing: a call (printf) anywhere in a kernel
-    that issues wgmma makes ptxas serialize its wgmma (C7510). Run in a
-    child process, since the trap leaves its CUDA context unusable."""
+@pytest.mark.parametrize("script,arg", [(_FAULT, "1"), (_AG_FAULT, "1"),
+                                        (_AG_FAULT, "2")],
+                         ids=["gemm_rs", "ag_gemm-wgmma", "ag_gemm-grouped"])
+def test_gemm_rs_wgmma_protocol_fault_traps_without_a_word(cuda, script,
+                                                           arg):
+    """The wgmma bodies (gemm_rs's; ag_gemm's dense and grouped) over
+    counters that were not zeroed: a bounded spin traps and the next
+    synchronisation raises, within the spin bound. They print nothing: a
+    call (printf) anywhere in a kernel that issues wgmma makes ptxas
+    serialize its wgmma (C7510). Run in a child process, since the trap
+    leaves its CUDA context unusable."""
     import os
     import subprocess
     import sys
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    proc = subprocess.run([sys.executable, "-c", _FAULT, "1"], cwd=repo,
+    proc = subprocess.run([sys.executable, "-c", script, arg], cwd=repo,
                           capture_output=True, text=True, timeout=120,
                           env={**os.environ, "PYTHONPATH": repo})
     assert proc.returncode == 3, (proc.returncode, proc.stdout, proc.stderr)
     assert "raised:" in proc.stdout
+    assert "timed out" not in proc.stdout
 
 
 def _mega_branch_inputs(cm, world, B, H, I, hq, hkv, D, s_max, page, pos,

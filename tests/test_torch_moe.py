@@ -47,6 +47,7 @@ from triton_dist_tpu_torch.kernels import (
     ring_reduce_scatter,
     ring_reduce_scatter_plain,
 )
+from triton_dist_tpu_torch.kernels import allgather_gemm as ag
 from triton_dist_tpu_torch.kernels import grouped_gemm as gg
 from triton_dist_tpu_torch.kernels import moe_utils as mu
 from triton_dist_tpu_torch.kernels import reduce_scatter as rs
@@ -402,6 +403,142 @@ def test_grouped_ag_gemm_refusals():
         ag_gemm(a, torch.zeros(2, 4, 8, 8))
     with pytest.raises(ValueError, match="expected"):
         ag_gemm(a, torch.zeros(2, 4, 7, 8))
+
+
+def _packed(n, m_tok, k, e, h, seed, capacity=None):
+    """Every rank's tokens packed by expert (pack_by_expert), as the
+    fused up-projection packs them: a (n, E * cap, H) and the packs'
+    counts (n, E) int32."""
+    x = _rand(seed, n, m_tok, h)
+    ids = np.stack([_ids(seed + 1 + r, m_tok, k, e) for r in range(n)])
+    cap = capacity_rows(m_tok, k, torch.float32, capacity)
+    packs = [mu.pack_by_expert(torch.from_numpy(x[r]),
+                               torch.from_numpy(ids[r]), e, cap)
+             for r in range(n)]
+    return (torch.stack([p.x for p in packs]),
+            torch.stack([p.counts for p in packs]), cap)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("c_order", ["arrival", "rank"])
+def test_grouped_ag_gemm_counts_on_packed_inputs_match_jax(n, c_order):
+    """On pack_by_expert's inputs the rows past counts are zero rows, so
+    ag_gemm (and ag_gemm_plain) with counts equals the call without
+    bitwise, and both the JAX grouped kernel (interpret mode) within
+    1e-5: the live-row contract leaves the function unchanged."""
+    a, counts, cap = _packed(n, 6, 2, E, K, seed=70 + n)
+    assert int(counts.min()) == 0  # an expert no token reached
+    gu = torch.from_numpy(_rand(71 + n, n, E, K, 2 * I_LOC, scale=0.15))
+    ws = (gu[..., :I_LOC], gu[..., I_LOC:])
+    kw = dict(epilogue="silu_pair", c_order=c_order)
+    got = ag_gemm(a, ws, counts=counts, **kw)
+    assert torch.equal(got, ag_gemm(a, ws, **kw))
+    assert torch.equal(ag_gemm_plain(a, ws, counts=counts, **kw), got)
+
+    def fn(a_s, g_s, u_s):
+        return jax_ag_gemm(a_s, (g_s[0], u_s[0]), axis="tp",
+                           epilogue="silu_pair", c_order=c_order,
+                           force_kernel=True)
+
+    want = _jax(fn, n, a.numpy().reshape(n * E * cap, K),
+                ws[0].contiguous().numpy(), ws[1].contiguous().numpy(),
+                in_specs=(P("tp"),) * 3)
+    np.testing.assert_allclose(got.numpy(), want.reshape(got.shape), rtol=0,
+                               atol=GEMM_ATOL)
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("c_order", ["arrival", "rank"])
+def test_grouped_ag_gemm_counts_zero_the_rows_past_them(pair, c_order):
+    """Rows past counts (here non-zero in A) are taken as zero: their C
+    rows come out zero, in either C order, while every live row equals
+    the call without counts bitwise; counts of 0 and of cap included.
+    The mma.sync body's zeroing (_zero_dead_rows in arrival order) is
+    the rank-order zeroing seen through the arrival permutation."""
+    n, e, cap = 4, 3, 16
+    a = torch.from_numpy(_rand(80, n, e * cap, K)) + 1.0
+    w = tuple(torch.from_numpy(_rand(81 + h, n, e, K, I_LOC, scale=0.15))
+              for h in range(2))
+    b = w if pair else w[0]
+    counts = torch.tensor([[0, 16, 5], [16, 0, 1], [7, 7, 0], [16, 16, 16]],
+                          dtype=torch.int32)
+    kw = dict(epilogue="silu_pair" if pair else None, c_order=c_order)
+    got = ag_gemm(a, b, counts=counts, **kw)
+    full = ag_gemm(a, b, **kw)
+    rank = ag._zero_dead_rows(torch.ones(n, n * e * cap, 1), counts)
+    live = rank if c_order == "rank" else ag.arrival_to_rank_order(rank)
+    assert torch.equal(ag._zero_dead_rows(torch.ones_like(rank), counts,
+                                          c_order == "arrival"), live)
+    assert int(live.sum()) == n * int(counts.sum())
+    assert torch.equal(got, torch.where(live.bool(), full, 0.0))
+    assert not bool(full[~live.bool().expand_as(full)].eq(0).all())
+    one = ag_gemm(a[:1], tuple(x[:1] for x in w) if pair else w[0][:1],
+                  counts=counts[:1], **kw)  # n = 1: the local product
+    assert torch.equal(one, ag_gemm_plain(a[:1], tuple(x[:1] for x in w)
+                                          if pair else w[0][:1],
+                                          counts=counts[:1], **kw))
+
+
+def test_grouped_ag_gemm_counts_refusals():
+    """counts: the grouped form only, not with return_gathered, an int32
+    (n, E) tensor on a's device, within [0, cap] (checked on the CPU; on
+    the card the kernel clamps, reading nothing back)."""
+    n, e, cap = 2, 3, 8
+    a = torch.zeros(n, e * cap, K)
+    w = torch.zeros(n, e, K, 16)
+    good = torch.full((n, e), 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="grouped form"):
+        ag_gemm(a, torch.zeros(n, K, 16), counts=good)
+    with pytest.raises(ValueError, match="return_gathered"):
+        ag_gemm(a, w, counts=good, return_gathered=True)
+    for bad in (good.long(), good[:, :2], good.float(), [[4] * e] * n):
+        with pytest.raises(ValueError, match="int32 tensor"):
+            ag_gemm(a, w, counts=bad)
+    for bad in (cap + 1, -1):
+        with pytest.raises(ValueError, match="outside"):
+            ag_gemm(a, w, counts=torch.full((n, e), bad, dtype=torch.int32))
+        with pytest.raises(ValueError, match="outside"):
+            ag_gemm_plain(a, w, counts=torch.full((n, e), bad,
+                                                   dtype=torch.int32))
+    with pytest.raises(ValueError, match="dense ag_gemm form only"):
+        ag_gemm(a, w, counts=good, wire_format="fp8")
+    assert ag_gemm(a, w, counts=good).shape == (n, n * e * cap, 16)
+
+
+def test_grouped_bn_and_the_fused_path_passes_counts(monkeypatch):
+    """_grouped_bn: of 64 and 128, the width whose tiles a row times
+    (columns + _WGMMA_FIXED_COLS) are the fewest, the widest on a tie
+    (the fused prefill's I_loc 192 takes 128). And fused_ag_moe_up hands
+    the grouped ag_gemm its packs' counts (the rows of each block that
+    are live)."""
+    assert [ag._grouped_bn(nn) for nn in (64, 128, 192, 256, 200, 40)] == [
+        64, 128, 128, 128, 128, 64]
+    for nn in (64, 192, 320, 1000):
+        cost = {bn: -(-nn // bn) * (bn + ag._WGMMA_FIXED_COLS)
+                for bn in ag._GROUPED_BN}
+        assert cost[ag._grouped_bn(nn)] == min(cost.values())
+    from triton_dist_tpu_torch.kernels import allgather_group_gemm as agg
+
+    seen = []
+    real = ag.ag_gemm
+
+    def spy(*args, **kw):
+        seen.append(kw.get("counts"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(agg._ag, "ag_gemm", spy)
+    n, m_tok, k = 2, 5, 2
+    x = torch.from_numpy(_rand(90, n, m_tok, K))
+    ids = torch.from_numpy(np.stack([_ids(91 + r, m_tok, k, E)
+                                     for r in range(n)]))
+    gu = torch.from_numpy(_rand(92, n, E, K, 2 * I_LOC, scale=0.15))
+    act, meta = agg.fused_ag_moe_up(x, ids, torch.ones(n, m_tok, k),
+                                    gu[..., :I_LOC], gu[..., I_LOC:])
+    cap = capacity_rows(m_tok, k, torch.float32)
+    want = torch.stack([mu.pack_by_expert(x[r], ids[r], E, cap).counts
+                        for r in range(n)])
+    assert len(seen) == 1 and torch.equal(seen[0], want)
+    assert act.shape == (n, n, E, cap, I_LOC)
 
 
 # ---------- the TP-MoE block, all four lowerings ----------

@@ -16,11 +16,13 @@
 // gathered chunk multiplies b[r][e]. B is read through strides (a row
 // stride ldb >= N, an expert and a rank stride), so the gate and up
 // halves are views of one [w_gate | w_up] stack (ldb = 2N) and no
-// weight is copied. Row tiles are cut per block of cap rows, so a tile
-// never spans two experts (nor two ring steps): a block of cap < 128 rows
-// is one tile with its rows past cap predicated off, and the tile's
-// expert e = block % E picks its B. The dense form is the grouped form
-// with E = 1 and cap = n*m, the same tiles and the same addresses.
+// weight is copied. In ag_gemm_kernel, row tiles are cut per block of
+// cap rows, so a tile never spans two experts (nor two ring steps): a
+// block of cap < 128 rows is one tile with its rows past cap predicated
+// off, and the tile's expert e = block % E picks its B. The dense form is
+// the grouped form with E = 1 and cap = n*m, the same tiles and the same
+// addresses. With counts (the live rows of each block), the grouped form
+// runs ag_gemm_grouped_wgmma_kernel (its own section below).
 //
 // The gather. Each rank's gathered A lives in the workspace, heap((n*m,
 // K)) of every rank: partition [r], row block c = chunk c. It travels
@@ -53,10 +55,11 @@
 // consumer. All n ranks run in one cooperative launch (shmem.cuh), so
 // every block is resident; every spin is bounded and traps.
 //
-// Tile bodies. The main path's form (dense, native wire, bf16 in, m a
+// Tile bodies. The main path's dense form (native wire, bf16 in, m a
 // multiple of 64) runs ag_gemm_wgmma_kernel below: TMA, wgmma and warp
-// specialisation. Every other call runs ag_gemm_kernel with one of two
-// bodies. bf16: 128 x 128 output tiles (128 x 64 per half with silu_pair,
+// specialisation; the grouped form with counts (bf16 in, n <= 8) runs
+// ag_gemm_grouped_wgmma_kernel. Every other call runs ag_gemm_kernel
+// with one of two bodies. bf16: 128 x 128 output tiles (128 x 64 per half with silu_pair,
 // two accumulators, the same 64 f32 registers a thread as one 128 x 128
 // tile), 8 warps, mma.sync m16n8k16 with f32 accumulation, A and B staged
 // with cp.async in a three-stage ring, the fragment code of
@@ -82,10 +85,10 @@
 // that with silu_pair) at the bf16 tensor-core peak, at the prefill
 // shapes; bytes (B, n * K * N, read at least once) at a serve step's.
 // The TPU kernel's VMEM strip cache, grid-step restructuring and tile
-// fitting are TPU concerns and are not carried over. Not done yet: the
-// wgmma body for the grouped, wire and f32 forms; a finer arrival
-// granularity than one counter per step; an asynchronous A load on the
-// wire.
+// fitting are TPU concerns and are not carried over. The grouped kernel
+// over the live rows is bound by bytes (its own section). Not done yet:
+// the wgmma body for the wire and f32 forms; a finer arrival granularity
+// than one counter per step; an asynchronous A load on the wire.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -104,6 +107,14 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ float silu_mul(float g, float u) {
   return g * (1.f / (1.f + expf(-g))) * u;
+}
+
+// silu_mul in a kernel that issues wgmma: the IEEE division calls a
+// slow-path subroutine, and any call makes ptxas serialize the kernel's
+// wgmma (hopper.cuh), so the reciprocal is __fdividef's (2 ulp in f32;
+// 1 / inf = 0 as before)
+__device__ __forceinline__ float silu_mul_wg(float g, float u) {
+  return g * __fdividef(1.f, 1.f + expf(-g)) * u;
 }
 
 // outputs: one element, or two adjacent ones (8-byte aligned for f32)
@@ -429,6 +440,9 @@ __device__ __forceinline__ void copy_words(uint4* dst, const uint4* src,
 // the counter of step s - 1 shows every producer's share of it arrived.
 // flags of a rank: [0] the tile counter, [1 + s] arrivals of step s.
 // The straggling rank's producers stall straggle_ns on entry first.
+// Quiet: the wait of a kernel that issues wgmma (hopper::wait_eq_if,
+// which traps past the bound without printf's call).
+template <bool Quiet>
 __device__ __forceinline__ void ring_forward(const char* a, char* ws,
                                              int* flags, size_t chunk,
                                              int producers, int straggle_rank,
@@ -444,9 +458,15 @@ __device__ __forceinline__ void ring_forward(const char* a, char* ws,
              own, lo, hi);
   for (int s = 0; s < n - 1; ++s) {
     const int ch = (me - s + n) % n;  // the chunk this step forwards
-    if (s > 0)  // chunk ch arrived from the left at step s - 1
-      shmem::signal_wait_until(mine + s, shmem::kEq, producers, "ag_gemm",
-                               me, s);
+    if (s > 0) {  // chunk ch arrived from the left at step s - 1
+      if constexpr (Quiet) {
+        hopper::wait_eq_if(mine + s, producers, threadIdx.x == 0);
+        __syncthreads();
+      } else {
+        shmem::signal_wait_until(mine + s, shmem::kEq, producers, "ag_gemm",
+                                 me, s);
+      }
+    }
     const uint4* src =
         s == 0 ? own
                : reinterpret_cast<const uint4*>(ws + (size_t(me) * n + ch) *
@@ -483,7 +503,8 @@ ag_gemm_kernel(const char* a, const typename Body::S* b0,
   int* mine = flags + size_t(me) * n;
 
   if (int(blockIdx.x) < producers)
-    ring_forward(a, ws, flags, chunk, producers, straggle_rank, straggle_ns);
+    ring_forward<false>(a, ws, flags, chunk, producers, straggle_rank,
+                        straggle_ns);
 
   const Gathered<O> g{a + me * chunk, ws + size_t(me) * n * chunk,
                       c + size_t(me) * n * m * N, n, me, m, K, N, arrival,
@@ -618,7 +639,13 @@ int launch_any(const void* a, const void* b0, const void* b1, void* ws,
 //     counter before that step's loads, then orders the ring producers'
 //     ordinary stores (made visible by its acquire) before its TMA reads
 //     with fence.proxy.async.global;
-//   - one block an SM, under the same cooperative launch_world.
+//   - one block an SM, under the same cooperative launch_world;
+//   - nothing that makes ptxas serialize the wgmma (hopper.cuh): the ring
+//     producers' and the TMA thread's waits and the stage waits are the
+//     quiet ones (PTX loops that trap without printf's call), a
+//     consumer's release is a predicated arrive, the roles come from a
+//     __shfl_sync-broadcast warpgroup index, and silu_mul divides with
+//     __fdividef (silu_mul_wg).
 // The tile is handed out by the counter and broadcast to the three
 // warpgroups through a double-buffered shared slot, one block barrier a
 // tile. Tiles go column by column, each column's row tiles in arrival
@@ -673,7 +700,8 @@ ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   }
   __syncthreads();
   if (int(blockIdx.x) < producers)
-    ring_forward(a, ws, flags, chunk, producers, straggle_rank, straggle_ns);
+    ring_forward<true>(a, ws, flags, chunk, producers, straggle_rank,
+                       straggle_ns);
 
   // tiles column by column, each column's row tiles in arrival order:
   // the row tiles that share a column's B run at once, so B comes from
@@ -686,7 +714,10 @@ ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     __syncthreads();
     return next_tile[it & 1];
   };
-  if (threadIdx.x < 128) {  // the producer warpgroup
+  // the warpgroup, warp-uniform to the compiler (a wgmma in a path it
+  // cannot prove uniform is serialized: ptxas C7518)
+  const int wg = __shfl_sync(0xffffffffu, int(threadIdx.x) / 128, 0);
+  if (wg == 0) {  // the producer warpgroup
     hopper::regs_dec<40>();
     int stage = 0, ready = 0;
     uint32_t phase = 0;
@@ -701,15 +732,14 @@ ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       const int last = (R0 + 64 * segs - 1) / m;
       if (last > ready) {
         for (int s = ready + 1; s <= last; ++s)
-          shmem::spin_until(mine + s, shmem::kEq, producers, "ag_gemm", me,
-                            s, 256);
+          hopper::wait_eq_if(mine + s, producers, true);
         ready = last;
         hopper::fence_proxy_async_global();
       }
       for (int kt = 0; kt < KT; ++kt) {
         const uint32_t fb = hopper::smem_addr(&full_bar[stage]);
-        hopper::mbar_wait(hopper::smem_addr(&empty_bar[stage]), phase ^ 1,
-                          "ag_gemm", "empty", stage);
+        hopper::mbar_wait_quiet(hopper::smem_addr(&empty_bar[stage]),
+                                phase ^ 1);
         hopper::mbar_expect_tx(fb, (segs + H * NB) * kBox);
         const uint32_t st = base + stage * Cfg::kStageBytes;
         for (int g = 0; g < segs; ++g) {
@@ -736,7 +766,7 @@ ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     }
   } else {  // a consumer warpgroup: rows 64 w .. 64 w + 63 of the tile
     hopper::regs_inc<232>();
-    const int w = threadIdx.x / 128 - 1;
+    const int w = wg - 1;
     const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
     const bool signals = threadIdx.x % 128 == 0;
     const Gathered<O> g{a, ws, c + size_t(me) * M * N, n, me, m, K, N,
@@ -745,10 +775,11 @@ ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     uint32_t phase = 0;
     // a stage goes back to the producer
     auto release = [&](int s) {
-      if (signals) hopper::mbar_arrive(hopper::smem_addr(&empty_bar[s]));
+      hopper::mbar_arrive_if(hopper::smem_addr(&empty_bar[s]), signals);
     };
     for (int it = 0;; ++it) {
-      const int t = next(it);
+      // the tile, warp-uniform to the compiler (it bounds the wgmma loop)
+      const int t = __shfl_sync(0xffffffffu, next(it), 0);
       if (t >= total) break;
       const int R0 = t % rt * 128, j0 = t / rt * BN;
       const int rows = min(128, M - R0), cols = min(BN, N - j0);
@@ -761,8 +792,7 @@ ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       for (int h = 0; h < H; ++h) hopper::fence_regs(acc[h]);
       int prev = 0;
       for (int kt = 0; kt < KT; ++kt) {
-        hopper::mbar_wait(hopper::smem_addr(&full_bar[stage]), phase,
-                          "ag_gemm", "full", stage);
+        hopper::mbar_wait_quiet(hopper::smem_addr(&full_bar[stage]), phase);
         const uint32_t st = base + stage * Cfg::kStageBytes;
         hopper::wgmma_fence();
 #pragma unroll
@@ -803,8 +833,8 @@ ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
           if (col >= cols) continue;
           float v0 = acc[0][4 * i + 2 * hr], v1 = acc[0][4 * i + 2 * hr + 1];
           if (H == 2) {
-            v0 = silu_mul(v0, acc[H - 1][4 * i + 2 * hr]);
-            v1 = silu_mul(v1, acc[H - 1][4 * i + 2 * hr + 1]);
+            v0 = silu_mul_wg(v0, acc[H - 1][4 * i + 2 * hr]);
+            v1 = silu_mul_wg(v1, acc[H - 1][4 * i + 2 * hr + 1]);
           }
           put_pair(v0, v1, D + col);
         }
@@ -871,6 +901,472 @@ cudaError_t launch_wgmma_bn(int bn, int pair, const void* a, const void* b0,
   if (!pair && bn == 256)
     return launch_wgmma<256, 1, O>(a, b0, b1, ws, c, flags, n, m, K, N,
                                    arrival, sr, sns, info, st);
+  return cudaErrorInvalidValue;
+}
+
+// ---- the grouped wgmma kernel: expert-major over the live rows ----------
+//
+// The grouped form (bf16 in, bf16 or f32 out, plain or silu_pair, K and N
+// at least 64, n <= 8): the fused MoE up-projection. Each rank's m rows
+// are E blocks of cap rows, and of block e of rank c's pack only the
+// first counts[c][e] rows are live (moe_utils.pack_by_expert: the rest
+// are zero rows, which the function maps to zero C rows: silu(0) * 0 = 0,
+// 0 * B = 0). counts is (n, E) int32 on the card, clamped to [0, cap], or
+// null: every row live. The kernel:
+//   - the ring (the first kProducers blocks, whole blocks, before their
+//     items) forwards only each block's live rows: at step s chunk (me -
+//     s) mod n, its live rows in expert order as one flat list (a prefix
+//     over counts in shared memory), a warp a row, 16-byte words, a
+//     row's loads in flight; the same per-step arrival counters and the
+//     same deadlock argument as ring_forward. Dead workspace rows are
+//     never written;
+//   - expert-major work items: item (e, j) is expert e times column
+//     slice j of B (BN columns of gate, and of up). Its A rows are the
+//     live rows of block e of every chunk, packed into 64-row wgmma M
+//     tiles of 8-row atoms: chunk c's live run fills ceil(counts / 8)
+//     atoms, each one TMA box of 8 rows (the 128-byte swizzle repeats
+//     every 8 rows, so an 8-row box lands in its slot of the tile as a
+//     64-row box would put it there). Rows of an atom past the live run,
+//     and atom slots left empty, hold whatever the box or an earlier
+//     stage brought: a row of C depends on its row of A alone, and those
+//     rows are never stored. So B[e]'s slice streams once for each 64
+//     live rows of the expert (once a rank at the fused prefill's ~8),
+//     not once a chunk, and an expert that no row reached is skipped;
+//   - 256 threads, one block an SM, items b, b + blocks, ... of each
+//     rank (every item streams the same B bytes): warp 0's first thread
+//     issues the TMA loads into a ring of stages (full / empty
+//     mbarriers); warpgroup 1 runs wgmma on 64 x BN tiles (H = 2: gate
+//     and up, f32 accumulators, silu_mul on them before one rounding)
+//     and stores each live row to its arrival- or rank-order row (the
+//     Gathered::c_row rule); warps 1-3 zero-fill the dead rows of each of
+//     the block's items' column slices with 16-byte stores, so C needs
+//     no memset;
+//   - B through a 4-D map over the strided [gate | up] stack (N, K, E, n;
+//     ldb, b_es, b_rs), K and N edges by TMA's zero fill. It needs no
+//     arrival, so the TMA thread issues the first stages' B at launch
+//     and waits for the ring's steps only before their A rows;
+//   - nothing that makes ptxas serialize the wgmma: hopper.cuh's quiet
+//     waits, one thread's arrives predicated, and the counts that bound
+//     the consumer's loops broadcast by __shfl_sync.
+// What bounds it on an H100: bytes, each rank's B slices of the experts
+// its rows reach, read once, and C with its zero rows, written once.
+
+constexpr int kGThreads = 256;  // a producer warpgroup, one consumer
+constexpr int kGMaxN = 8;       // ranks an item's chunk table holds
+constexpr int kAtomRows = 8;    // rows of an A box: one swizzle atom
+constexpr int kAtomBytes = kAtomRows * 128;
+
+template <int BN, int H>
+struct GroupedCfg {
+  static constexpr int kNB = BN / 64;  // B boxes a half
+  static constexpr int kStageBytes = (1 + H * kNB) * kBox;  // A: 8 atoms
+  static constexpr int kStages =
+      kWgSmem / kStageBytes < 8 ? kWgSmem / kStageBytes : 8;
+  static constexpr size_t kSmem = size_t(kStages) * kStageBytes + 1024;
+  static_assert(BN == 64 || BN == 128, "tile widths");
+};
+
+// The live rows of block e of every chunk c < n: cnt[c] = counts[c][e]
+// clamped to [0, cap] (cap when counts is null); at[c] the 8-row atoms of
+// the chunks before c. Bcast: read by a whole warp and broadcast from
+// lane 0, so the compiler sees warp-uniform loop bounds.
+template <bool Bcast>
+__device__ __forceinline__ void item_rows(const int* counts, int n, int E,
+                                          int cap, int e, int (&cnt)[kGMaxN],
+                                          int (&at)[kGMaxN + 1]) {
+  at[0] = 0;
+#pragma unroll
+  for (int c = 0; c < kGMaxN; ++c) {
+    int v = 0;
+    if (c < n)
+      v = counts == nullptr ? cap
+                            : min(max(__ldg(counts + c * E + e), 0), cap);
+    if (Bcast) v = __shfl_sync(0xffffffffu, v, 0);
+    cnt[c] = v;
+    at[c + 1] = at[c] + (v + kAtomRows - 1) / kAtomRows;
+  }
+}
+
+// atom q of an item (q < at[kGMaxN]): its chunk, its first row in the
+// chunk's block, and that block's live rows
+struct Atom {
+  int c, row0, live;
+};
+
+__device__ __forceinline__ Atom atom_of(const int (&cnt)[kGMaxN],
+                                        const int (&at)[kGMaxN + 1], int q) {
+  Atom r{0, 0, 0};
+#pragma unroll
+  for (int c = 0; c < kGMaxN; ++c)
+    if (q >= at[c] && q < at[c + 1])
+      r = Atom{c, (q - at[c]) * kAtomRows, cnt[c]};
+  return r;
+}
+
+// pre[0..E] (shared): pre[e] the live rows of the blocks before e of
+// chunk ch, so the chunk's live rows are one flat list in expert order
+__device__ __forceinline__ void live_prefix(const int* counts, int ch, int E,
+                                            int cap, int* pre) {
+  for (int e = threadIdx.x; e < E; e += blockDim.x)
+    pre[e + 1] = counts == nullptr
+                     ? cap
+                     : min(max(__ldg(counts + size_t(ch) * E + e), 0), cap);
+  __syncthreads();
+  if (threadIdx.x < 32) {  // warp 0 scans, 32 blocks at a time
+    const int lane = threadIdx.x;
+    int carry = 0;
+    for (int b = 0; b < E; b += 32) {
+      int v = b + lane < E ? pre[b + lane + 1] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += y;
+      }
+      if (b + lane < E) pre[b + lane + 1] = carry + v;
+      carry += __shfl_sync(0xffffffffu, v, 31);
+    }
+    if (lane == 0) pre[0] = 0;
+  }
+  __syncthreads();
+}
+
+// one row of `words` 16-byte words by a warp, 8 loads a lane in flight;
+// src may be data another rank delivered (__ldcg)
+__device__ __forceinline__ void copy_row(uint4* dst, const uint4* src,
+                                         int words, int lane) {
+  constexpr int U = 8;
+  for (int w0 = lane; w0 < words; w0 += 32 * U) {
+    uint4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (w0 + 32 * u < words) v[u] = __ldcg(src + w0 + 32 * u);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (w0 + 32 * u < words) dst[w0 + 32 * u] = v[u];
+  }
+}
+
+// The grouped ring, run by the first `producers` blocks of rank me (whole
+// blocks; bf16 rows of K): ring_forward's protocol over the live rows
+// only. Without counts every row is live, and the own shard is also
+// published into the own partition (return_gathered); with counts it is
+// not (the wrapper refuses return_gathered with counts). pre: E + 1 ints
+// of shared memory.
+__device__ __forceinline__ void ring_forward_live(
+    const char* a, char* ws, int* flags, const int* counts, int m, int K,
+    int cap, int E, int producers, int straggle_rank, long long straggle_ns,
+    int* pre) {
+  const int n = gridDim.y, me = blockIdx.y, right = (me + 1) % n;
+  int* mine = flags + size_t(me) * n;
+  shmem::straggler_delay(straggle_rank, me, straggle_ns);
+  const size_t row_bytes = size_t(K) * 2, chunk = size_t(m) * row_bytes;
+  const int words = K / 8;  // 16-byte words a row
+  const int warps = blockDim.x / 32, lane = threadIdx.x % 32;
+  const int gw = blockIdx.x * warps + threadIdx.x / 32;
+  if (counts == nullptr) {
+    const long long all = (long long)(chunk / 16);
+    copy_words(reinterpret_cast<uint4*>(ws + (size_t(me) * n + me) * chunk),
+               reinterpret_cast<const uint4*>(a + me * chunk),
+               all * blockIdx.x / producers,
+               all * (blockIdx.x + 1) / producers);
+  }
+  for (int s = 0; s < n - 1; ++s) {
+    const int ch = (me - s + n) % n;  // the chunk this step forwards
+    if (s > 0)  // chunk ch arrived from the left at step s - 1
+      hopper::wait_eq_if(mine + s, producers, threadIdx.x == 0);
+    // (its barriers also order that acquire before the reads below)
+    live_prefix(counts, ch, E, cap, pre);
+    const char* src =
+        s == 0 ? a + me * chunk : ws + (size_t(me) * n + ch) * chunk;
+    char* dst = ws + (size_t(right) * n + ch) * chunk;
+    for (int r = gw; r < pre[E]; r += producers * warps) {
+      int lo = 0, hi = E;  // the block e with pre[e] <= r < pre[e + 1]
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) / 2;
+        if (pre[mid] <= r)
+          lo = mid;
+        else
+          hi = mid;
+      }
+      const size_t off = (size_t(lo) * cap + (r - pre[lo])) * row_bytes;
+      copy_row(reinterpret_cast<uint4*>(dst + off),
+               reinterpret_cast<const uint4*>(src + off), words, lane);
+    }
+    shmem::signal_add(flags + size_t(right) * n + 1 + s, 1);
+  }
+}
+
+template <int BN, int H, typename O>
+__global__ void __launch_bounds__(kGThreads, 1)
+ag_gemm_grouped_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                             const __grid_constant__ CUtensorMap map_ws,
+                             const __grid_constant__ CUtensorMap map_b0,
+                             const __grid_constant__ CUtensorMap map_b1,
+                             const char* a, char* ws, O* c, int* flags,
+                             const int* counts, int m, int K, int N, int E,
+                             int arrival, int straggle_rank,
+                             long long straggle_ns) {
+  typedef GroupedCfg<BN, H> Cfg;
+  constexpr int S = Cfg::kStages, NB = Cfg::kNB;
+  extern __shared__ uint8_t wg_smem[];
+  __shared__ __align__(8) uint64_t full_bar[S], empty_bar[S];
+  const int n = gridDim.y, me = blockIdx.y, cap = m / E;
+  const int producers = min(kProducers, int(gridDim.x));
+  const int NT = (N + BN - 1) / BN, items = E * NT;
+  const int KT = (K + kBK - 1) / kBK;
+  int* mine = flags + size_t(me) * n;
+  const uint32_t base = (hopper::smem_addr(wg_smem) + 1023) & ~1023u;
+  O* C = c + size_t(me) * n * m * N;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      hopper::mbar_init(hopper::smem_addr(&full_bar[i]), 1);
+      hopper::mbar_init(hopper::smem_addr(&empty_bar[i]), 1);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (int(blockIdx.x) < producers) {
+    // the ring first; its prefix table sits where the stages will
+    ring_forward_live(
+        a, ws, flags, counts, m, K, cap, E, producers, straggle_rank,
+        straggle_ns,
+        reinterpret_cast<int*>(wg_smem + (base - hopper::smem_addr(wg_smem))));
+    __syncthreads();
+  }
+
+  // the warp, warp-uniform to the compiler (a wgmma in a path it cannot
+  // prove uniform is serialized: ptxas C7518)
+  const int warp = __shfl_sync(0xffffffffu, int(threadIdx.x) / 32, 0);
+  if (warp == 0) {
+    if (threadIdx.x != 0) return;
+    // the TMA thread: my items' stages
+    int stage = 0, deferred = 0;
+    uint32_t phase = 0;
+    bool ready = false;  // every step of the ring has arrived
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int e = it / NT, j0 = it % NT * BN;
+      int cnt[kGMaxN], at[kGMaxN + 1];
+      item_rows<false>(counts, n, E, cap, e, cnt, at);
+      const int atoms = at[kGMaxN];
+      // the A atoms of M tile mt at K step kt into stage memory st
+      auto load_a = [&](uint32_t st, uint32_t fb, int mt, int kt) {
+        for (int g = 0; g < 8 && 8 * mt + g < atoms; ++g) {
+          const Atom t = atom_of(cnt, at, 8 * mt + g);
+          const int row = e * cap + t.row0;
+          if (t.c == me)
+            hopper::tma_load_2d(st + g * kAtomBytes, &map_a, fb, kt * kBK,
+                                me * m + row);
+          else
+            hopper::tma_load_2d(st + g * kAtomBytes, &map_ws, fb, kt * kBK,
+                                (me * n + t.c) * m + row);
+        }
+      };
+      for (int mt = 0; 8 * mt < atoms; ++mt) {
+        const int used = min(8, atoms - 8 * mt);
+        for (int kt = 0; kt < KT; ++kt) {
+          const uint32_t fb = hopper::smem_addr(&full_bar[stage]);
+          hopper::mbar_wait_quiet(hopper::smem_addr(&empty_bar[stage]),
+                                  phase ^ 1);
+          hopper::mbar_expect_tx(fb, used * kAtomBytes + H * NB * kBox);
+          const uint32_t st = base + stage * Cfg::kStageBytes;
+#pragma unroll
+          for (int h = 0; h < H; ++h)
+#pragma unroll
+            for (int j = 0; j < NB; ++j)
+              hopper::tma_load_4d(st + (1 + h * NB + j) * kBox,
+                                  h ? &map_b1 : &map_b0, fb, j0 + 64 * j,
+                                  kt * kBK, e, me);
+          if (ready) {
+            load_a(st, fb, mt, kt);
+          } else if (++deferred == S || kt == KT - 1) {
+            // B of the first `deferred` stages (stages 0.., K steps 0..
+            // of this first tile) went out without waiting; their A rows
+            // need every step of the ring: wait for the arrivals, then
+            // order the ring producers' stores before TMA's reads
+            for (int s = 1; s < n; ++s)
+              hopper::wait_eq_if(mine + s, producers, true);
+            hopper::fence_proxy_async_global();
+            for (int d = 0; d < deferred; ++d)
+              load_a(base + d * Cfg::kStageBytes,
+                     hopper::smem_addr(&full_bar[d]), mt, d);
+            ready = true;
+          }
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  if (warp < 4) {  // warps 1-3: my items' dead rows, zeroed
+    if (counts == nullptr) return;
+    const int t = threadIdx.x - 32;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    constexpr int per = 16 / int(sizeof(O));  // outputs a 16-byte word
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int e = it / NT, j0 = it % NT * BN;
+      const int wpr = min(BN, N - j0) / per;  // 16-byte words a row
+      int cnt[kGMaxN], at[kGMaxN + 1];
+      item_rows<false>(counts, n, E, cap, e, cnt, at);
+#pragma unroll
+      for (int ch = 0; ch < kGMaxN; ++ch) {
+        if (ch >= n) break;
+        const int s = (me - ch + n) % n;
+        O* D = C + (size_t(arrival ? s : ch) * m + size_t(e) * cap) * N + j0;
+        for (int w = t; w < (cap - cnt[ch]) * wpr; w += 96)
+          *reinterpret_cast<uint4*>(D + size_t(cnt[ch] + w / wpr) * N +
+                                    w % wpr * per) = zero;
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup (warps 4-7): 64 x BN tiles of my items
+  const int wq = warp - 4, lane = threadIdx.x % 32;
+  const bool leader = threadIdx.x == 128;
+  int stage = 0;
+  uint32_t phase = 0;
+  auto release = [&](int s) {
+    hopper::mbar_arrive_if(hopper::smem_addr(&empty_bar[s]), leader);
+  };
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int e = it / NT, j0 = it % NT * BN, cols = min(BN, N - j0);
+    int cnt[kGMaxN], at[kGMaxN + 1];
+    item_rows<true>(counts, n, E, cap, e, cnt, at);
+    const int atoms = at[kGMaxN];
+    for (int mt = 0; 8 * mt < atoms; ++mt) {
+      float acc[H][BN / 2];
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[h][i] = 0.f;
+#pragma unroll
+      for (int h = 0; h < H; ++h) hopper::fence_regs(acc[h]);
+      int prev = 0;
+      for (int kt = 0; kt < KT; ++kt) {
+        hopper::mbar_wait_quiet(hopper::smem_addr(&full_bar[stage]), phase);
+        const uint32_t st = base + stage * Cfg::kStageBytes;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          const uint64_t da = hopper::desc_sw128(st + kk * 32, 16, 1024);
+#pragma unroll
+          for (int h = 0; h < H; ++h)
+            hopper::wgmma<BN>(
+                acc[h], da,
+                hopper::desc_sw128(st + (1 + h * NB) * kBox + kk * 2048,
+                                   kBox, 1024),
+                1);
+        }
+        hopper::wgmma_commit();
+        // the group of kt - 1 is done: its stage goes back
+        hopper::wgmma_wait<1>();
+        if (kt > 0) release(prev);
+        prev = stage;
+        if (++stage == S) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      release(prev);
+#pragma unroll
+      for (int h = 0; h < H; ++h) hopper::fence_regs(acc[h]);
+      // each live row to its C row (arrival or rank order)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = 16 * wq + lane / 4 + 8 * hr;  // of the 64-row tile
+        const int q = 8 * mt + row / kAtomRows;
+        const Atom t = atom_of(cnt, at, q);
+        const int lr = t.row0 + row % kAtomRows;
+        if (q >= atoms || lr >= t.live) continue;
+        const int s = (me - t.c + n) % n;
+        O* D = C + (size_t(arrival ? s : t.c) * m + size_t(e) * cap + lr) * N +
+               j0;
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          const int col = 8 * i + 2 * (lane % 4);
+          if (col >= cols) continue;
+          float v0 = acc[0][4 * i + 2 * hr], v1 = acc[0][4 * i + 2 * hr + 1];
+          if (H == 2) {
+            v0 = silu_mul_wg(v0, acc[H - 1][4 * i + 2 * hr]);
+            v1 = silu_mul_wg(v1, acc[H - 1][4 * i + 2 * hr + 1]);
+          }
+          put_pair(v0, v1, D + col);
+        }
+      }
+    }
+  }
+}
+
+// the four maps of a grouped call: a (n*m, K) and ws (n*n*m, K) in boxes
+// of one 8-row atom; b0 and b1 (N, K, E, n) through B's strides. L2 lines
+// of 128 bytes: a box row is 128 bytes, and at the [gate | up] stack's
+// 768-byte rows a 256-byte promotion fetches the neighbouring item's
+// bytes too (fused prefill 433-453 -> 409-415 µs, NVIDIA H100 80GB HBM3;
+// PERF.md)
+bool encode_grouped_maps(CUtensorMap (&maps)[4], const void* a,
+                         const void* ws, const void* b0, const void* b1,
+                         int n, int m, int K, int N, int E, int ldb,
+                         long long b_es, long long b_rs) {
+  const uint64_t da[2] = {uint64_t(K), uint64_t(n) * m};
+  const uint64_t dw[2] = {uint64_t(K), uint64_t(n) * n * m};
+  const uint64_t sa[1] = {uint64_t(K) * 2};
+  const uint32_t abox[2] = {64, kAtomRows};
+  const uint64_t db[4] = {uint64_t(N), uint64_t(K), uint64_t(E),
+                          uint64_t(n)};
+  const uint64_t sb[3] = {uint64_t(ldb) * 2, uint64_t(b_es) * 2,
+                          uint64_t(b_rs) * 2};
+  const uint32_t bbox[4] = {64, 64, 1, 1};
+  constexpr CUtensorMapL2promotion kL2 = CU_TENSOR_MAP_L2_PROMOTION_L2_128B;
+  return hopper::encode_bf16(&maps[0], a, 2, da, sa, abox, kL2) &&
+         hopper::encode_bf16(&maps[1], ws, 2, dw, sa, abox, kL2) &&
+         hopper::encode_bf16(&maps[2], b0, 4, db, sb, bbox, kL2) &&
+         hopper::encode_bf16(&maps[3], b1, 4, db, sb, bbox, kL2);
+}
+
+template <int BN, int H, typename O>
+cudaError_t launch_grouped(const void* a, const void* b0, const void* b1,
+                           void* ws, void* c, int* flags, const int* counts,
+                           int n, int m, int K, int N, int E, int ldb,
+                           long long b_es, long long b_rs, int arrival,
+                           int sr, long long sns, int* info,
+                           cudaStream_t st) {
+  typedef GroupedCfg<BN, H> Cfg;
+  // the ring's prefix table borrows the stages' shared memory
+  if (size_t(E + 1) * sizeof(int) > size_t(Cfg::kStages) * Cfg::kStageBytes)
+    return cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  if (!encode_grouped_maps(maps, a, ws, b0, b1, n, m, K, N, E, ldb, b_es,
+                           b_rs))
+    return cudaErrorInvalidValue;
+  const int items = E * ((N + BN - 1) / BN);
+  return shmem::launch_world(
+      ag_gemm_grouped_wgmma_kernel<BN, H, O>, n,
+      items > kProducers ? items : kProducers, kGThreads, Cfg::kSmem, st,
+      info, maps[0], maps[1], maps[2], maps[3], static_cast<const char*>(a),
+      static_cast<char*>(ws), static_cast<O*>(c), flags, counts, m, K, N, E,
+      arrival, sr, sns);
+}
+
+template <typename O>
+cudaError_t launch_grouped_bn(int bn, int pair, const void* a,
+                              const void* b0, const void* b1, void* ws,
+                              void* c, int* flags, const int* counts, int n,
+                              int m, int K, int N, int E, int ldb,
+                              long long b_es, long long b_rs, int arrival,
+                              int sr, long long sns, int* info,
+                              cudaStream_t st) {
+#define AGG_LAUNCH(BN, H)                                                  \
+  launch_grouped<BN, H, O>(a, b0, b1, ws, c, flags, counts, n, m, K, N, E, \
+                           ldb, b_es, b_rs, arrival, sr, sns, info, st)
+  if (bn == 64) return pair ? AGG_LAUNCH(64, 2) : AGG_LAUNCH(64, 1);
+  if (bn == 128) return pair ? AGG_LAUNCH(128, 2) : AGG_LAUNCH(128, 1);
+#undef AGG_LAUNCH
   return cudaErrorInvalidValue;
 }
 
@@ -960,18 +1456,41 @@ extern "C" int ag_gemm_wire_launch(const void* aw, const void* b, void* ws,
 // expert block); b0, b1 of rank r and expert e at b + r * b_rs + e * b_es,
 // K rows ldb elements apart (N <= ldb); c (n, n*m, N). ldb, b_es, b_rs
 // and both B base addresses multiples of 16 bytes' worth of elements.
-extern "C" int ag_gemm_grouped_launch(const void* a, const void* b0,
-                                      const void* b1, void* ws, void* c,
-                                      void* flags, int n, int m, int K, int N,
-                                      int dtype, int out_dtype, int pair,
-                                      int arrival, int E, int ldb,
-                                      long long b_es, long long b_rs,
-                                      int straggle_rank, long long straggle_ns,
-                                      void* info, void* stream) {
+// body 0: the mma.sync / FMA body (every row live; counts must be null).
+// body 1: ag_gemm_grouped_wgmma_kernel (bf16 in, n <= 8, K and N at least
+// 64; bn: 64 or 128 columns a tile, of each half with pair), with counts
+// null (every row live) or (n, E) int32 on the card: the live rows of each
+// (chunk, block), clamped to [0, cap]; the rows past them are taken as
+// zero and their C rows are zero.
+extern "C" int ag_gemm_grouped_launch(
+    const void* a, const void* b0, const void* b1, void* ws, void* c,
+    void* flags, const void* counts, int n, int m, int K, int N, int dtype,
+    int out_dtype, int pair, int arrival, int E, int ldb, long long b_es,
+    long long b_rs, int body, int bn, int straggle_rank,
+    long long straggle_ns, void* info, void* stream) {
   const int per = dtype == 1 ? 8 : 4;
   if (n < 1 || m < 1 || K < 1 || N < 1 || K % per || N % per || E < 1 ||
       m % E || ldb < N || ldb % per || b_es % per || b_rs % per)
     return int(cudaErrorInvalidValue);
+  if (body == 1) {
+    if (dtype != 1 || n > kGMaxN || K < 64 || N < 64)
+      return int(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int* fl = static_cast<int*>(flags);
+    int* inf = static_cast<int*>(info);
+    const int* cn = static_cast<const int*>(counts);
+    if (out_dtype == 0)
+      return int(launch_grouped_bn<float>(bn, pair, a, b0, b1, ws, c, fl, cn,
+                                          n, m, K, N, E, ldb, b_es, b_rs,
+                                          arrival, straggle_rank, straggle_ns,
+                                          inf, st));
+    if (out_dtype == 1)
+      return int(launch_grouped_bn<unsigned short>(
+          bn, pair, a, b0, b1, ws, c, fl, cn, n, m, K, N, E, ldb, b_es, b_rs,
+          arrival, straggle_rank, straggle_ns, inf, st));
+    return int(cudaErrorInvalidValue);
+  }
+  if (body != 0 || counts != nullptr) return int(cudaErrorInvalidValue);
   const int esize = dtype == 1 ? 2 : 4;
   const Geometry grouped{m / E, E, ldb, K * esize, b_es, b_rs,
                          straggle_rank, straggle_ns};

@@ -1,5 +1,6 @@
 // Hopper building blocks for the port's warp-specialised kernels
-// (allgather_gemm.cu's wgmma body): mbarriers, TMA tensor loads, the
+// (the wgmma bodies of allgather_gemm.cu, gemm_reduce_scatter.cu and
+// flash_prefill.cu): mbarriers, TMA tensor loads, the
 // async-proxy fence, wgmma on shared-memory descriptors and register
 // rebalancing. Written by hand from the PTX ISA (sm_90a); no CUTLASS
 // collective is instantiated.
@@ -13,17 +14,16 @@
 // rows) by LBO = the stride of the 64-column boxes and SBO = 1024 (the
 // stride of 8-row K groups), a k16 slice at +16 rows (2048 bytes).
 //
-// Every wait is bounded like shmem.cuh's spins: past kWaitBoundNs the
-// thread prints what it waited for and traps (mbar_wait_quiet and
-// wait_eq_reset_if, for a kernel that issues wgmma, trap without the
-// message: see there).
+// Every wait is bounded like shmem.cuh's spins, but traps past
+// kWaitBoundNs without printing what it waited for: these are the waits
+// of kernels that issue wgmma, where a call (printf) would make ptxas
+// serialize every wgmma (see mbar_wait_quiet).
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is looked up
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <stdio.h>
 
 #include "shmem.cuh"
 
@@ -61,10 +61,12 @@ inline EncodeTiled tensor_map_encoder() {
 // A bf16 tensor of `rank` dimensions (sizes innermost first; strides of
 // dimensions 1.. in bytes) as a map of `box`-sized boxes, 128-byte
 // swizzle (box[0] must be 64: one 128-byte row), zero fill past every
-// bound. False when the encoder is missing or refuses the map.
-inline bool encode_bf16(CUtensorMap* map, const void* p, int rank,
-                        const uint64_t* dims, const uint64_t* strides,
-                        const uint32_t* box) {
+// bound, L2 lines promoted to `promo` on a fetch. False when the encoder
+// is missing or refuses the map.
+inline bool encode_bf16(
+    CUtensorMap* map, const void* p, int rank, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box,
+    CUtensorMapL2promotion promo = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
   const EncodeTiled fn = tensor_map_encoder();
   if (fn == nullptr || rank < 1 || rank > 5) return false;
   cuuint64_t d[5], s[4];
@@ -77,7 +79,7 @@ inline bool encode_bf16(CUtensorMap* map, const void* p, int rank,
   }
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p),
             d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_SWIZZLE_128B, promo,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -123,24 +125,6 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
       : "r"(bar), "r"(parity)
       : "memory");
   return done != 0;
-}
-
-// Wait until the barrier's phase of parity `parity` has completed (a
-// fresh barrier counts the phase before it, parity 1, as completed).
-// Bounded: prints (kernel, what, stage) and traps past kWaitBoundNs.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity,
-                                          const char* kernel,
-                                          const char* what, int stage) {
-  if (mbar_try_wait(bar, parity)) return;
-  const unsigned long long t0 = shmem::globaltimer();
-  while (!mbar_try_wait(bar, parity)) {
-    if (shmem::globaltimer() - t0 > shmem::kWaitBoundNs) {
-      printf("mbarrier wait timed out: kernel %s, %s barrier of stage %d, "
-             "parity %u\n",
-             kernel, what, stage, parity);
-      __trap();
-    }
-  }
 }
 
 // The waits and signals of a kernel that issues wgmma. ptxas serializes
@@ -225,6 +209,35 @@ __device__ __forceinline__ void wait_eq_reset_if(int* flag, int v,
       "bra SPIN;\n"
       "HIT:\n"
       "st.relaxed.gpu.global.s32 [%0], 0;\n"
+      "DONE:\n"
+      "}\n" ::"l"(flag),
+      "r"(v), "r"(int(pred)), "l"(shmem::kWaitBoundNs)
+      : "memory");
+}
+
+// the threads whose `pred` is set wait (acquire spin) until *flag == v,
+// leaving it as it is: a counter that several waiters read (the ring
+// arrivals of allgather_gemm.cu, which a fresh pool brings at zero)
+__device__ __forceinline__ void wait_eq_if(const int* flag, int v,
+                                           bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p, q;\n"
+      ".reg .s32 x;\n"
+      ".reg .u64 t0, t1;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "@!p bra DONE;\n"
+      "mov.u64 t0, %%globaltimer;\n"
+      "SPIN:\n"
+      "ld.acquire.gpu.global.s32 x, [%0];\n"
+      "setp.eq.s32 q, x, %1;\n"
+      "@q bra DONE;\n"
+      "nanosleep.u32 64;\n"
+      "mov.u64 t1, %%globaltimer;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 q, t1, %3;\n"
+      "@q trap;\n"
+      "bra SPIN;\n"
       "DONE:\n"
       "}\n" ::"l"(flag),
       "r"(v), "r"(int(pred)), "l"(shmem::kWaitBoundNs)

@@ -34,6 +34,8 @@
 #include <stdint.h>
 #include <stdio.h>
 
+#include <mutex>
+
 namespace shmem {
 
 // far above any correct wait (the longest is one GEMM tile's worth of
@@ -66,17 +68,6 @@ __device__ __forceinline__ void st_release(int* p, int v) {
 __device__ __forceinline__ void atom_add_release(int* p, int v) {
   asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v)
                : "memory");
-}
-
-// Block-wide put of `count` words from src to dst (a peer partition, or
-// any heap slot). src is read with __ldcg: it may be data another rank
-// delivered (a ring forward), which L1 could hold stale. The caller
-// signals after it.
-template <typename W>
-__device__ __forceinline__ void putmem_block(W* dst, const W* src,
-                                             long long count) {
-  for (long long i = threadIdx.x; i < count; i += blockDim.x)
-    dst[i] = __ldcg(src + i);
 }
 
 // signal_set / signal_add: publish this block's stores, then set / add
@@ -300,30 +291,70 @@ __device__ __forceinline__ void straggler_delay(int rank, int me,
 // resident at once: cudaLaunchCooperativeKernel, with the blocks per
 // rank capped at want_per_rank and at what the card holds
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs, split over n
-// ranks). info[0..2] receives (blocks per SM, SMs, blocks per rank) so
-// the caller can raise with the numbers; cudaErrorCooperativeLaunchTooLarge
-// when not one block per rank fits. Returns cudaGetLastError() after the
-// launch, so a refused launch is reported here and not at the next sync.
+// ranks; grid_of keeps them). info[0..2] receives (blocks per SM, SMs,
+// blocks per rank) so the caller can raise with the numbers;
+// cudaErrorCooperativeLaunchTooLarge when not one block per rank fits.
+// Returns cudaGetLastError() after the launch, so a refused launch is
+// reported here and not at the next sync.
 template <typename T>
 struct same {  // keeps the arguments out of template deduction
   typedef T type;
 };
 
+// The SMs of the current device and a kernel's resident blocks an SM at
+// (threads, smem), with its dynamic shared memory allowed: queried once
+// a (kernel, device, threads, smem) and kept (a loaded kernel does not
+// change), so a launch makes no attribute or occupancy query after the
+// first of its configuration.
+struct GridEntry {
+  const void* fn;
+  int dev, threads;
+  size_t smem;
+  int per_sm, sms;
+};
+
+inline cudaError_t grid_of(const void* fn, int threads, size_t smem,
+                           int* per_sm, int* sms) {
+  constexpr int kEntries = 64;  // configurations a library keeps
+  static std::mutex mu;
+  static GridEntry cache[kEntries];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < used; ++i) {
+      const GridEntry& g = cache[i];
+      if (g.fn == fn && g.dev == dev && g.threads == threads &&
+          g.smem == smem) {
+        *per_sm = g.per_sm;
+        *sms = g.sms;
+        return cudaSuccess;
+      }
+    }
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(smem));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, threads,
+                                                      smem);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  if (used < kEntries) cache[used++] = GridEntry{fn, dev, threads, smem,
+                                                 *per_sm, *sms};
+  return cudaSuccess;
+}
+
 template <typename... Args>
 cudaError_t launch_world(void (*kernel)(Args...), int n, int want_per_rank,
                          int threads, size_t smem, cudaStream_t stream,
                          int* info, typename same<Args>::type... args) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem));
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, smem);
+  int sms = 0, per_sm = 0;
+  cudaError_t e = grid_of(reinterpret_cast<const void*>(kernel), threads,
+                          smem, &per_sm, &sms);
   if (e != cudaSuccess) return e;
   int per_rank = per_sm * sms / n;
   if (want_per_rank < per_rank) per_rank = want_per_rank;

@@ -63,21 +63,40 @@ class AllGatherMethod(enum.Enum):
 # the JAX Auto rule (allgather.py:62-68): a rank's shard of at most this
 # many bytes goes full mesh (one put a peer), a larger one the ring
 _FULL_MESH_MAX_BYTES = 1 << 20
-# bytes per tile: each (step, tile) pair has its own flag
+# bytes per tile of the ring (csrc/allgather.cu kTileBytes): each (step,
+# tile) pair has its own flag
 _TILE_BYTES = 16384
 # bytes a block of the full-mesh launch copies at least
 _FM_BLOCK_BYTES = 32 << 10
 _SIGNATURES = {
     "ag_launch": (ctypes.c_int, [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p]),
-    "ag_tile_count": (ctypes.c_int, [ctypes.c_longlong, ctypes.c_int]),
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]),
+    "ag_tile_count": (ctypes.c_int, [ctypes.c_longlong]),
     "fm_ag_launch": (ctypes.c_int, [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
     "fm_ag_flag_words": (ctypes.c_int, [ctypes.c_int]),
     "ag_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+
+
+# the ring's persistent flag pools, an entry a (device, stream, n, chunk
+# bytes, tiles): (n - 2) x tiles flags a rank (the last step is not
+# signalled), which its ranks leave at zero
+_POOLS = _build.PoolCache()
+
+
+def _ring_tiles(chunk: int) -> int:
+    """Tiles of the ring for a shard of `chunk` bytes (each with its own
+    flag a step): _TILE_BYTES each, the last one short."""
+    return -(-chunk // _TILE_BYTES)
+
+
+def _pool_key(x: torch.Tensor, stream: int, chunk: int) -> tuple:
+    """A ring pool's key: two calls share flags only on one device and
+    one stream (launches on a stream run one after another), at one world
+    size and one tile count."""
+    return (x.device, stream, x.shape[0], chunk, _ring_tiles(chunk))
 
 
 def choose_allgather_method(nbytes_per_rank: int) -> AllGatherMethod:
@@ -230,27 +249,37 @@ def _launch_fm(x: torch.Tensor, straggler) -> torch.Tensor:
     return out
 
 
-def _launch(x: torch.Tensor) -> torch.Tensor:
-    _check_launch(x)
-    world = VirtualWorld.of(x)
+def _ring_buffers(x: torch.Tensor):
+    """A ring call's output, its persistent flag pool and the stream:
+    everything the launch needs but the launch."""
     n, m = x.shape[:2]
-    if n == 1:
-        return x
     out = torch.empty((n, n * m, *x.shape[2:]), dtype=x.dtype,
                       device=x.device)
-    chunk = x[0].numel() * x.element_size()
+    chunk = x.numel() // n * x.element_size()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    flags = _POOLS.get(_pool_key(x, stream, chunk), lambda: VirtualWorld.of(
+        x).flags((n - 2) * _ring_tiles(chunk)))
+    return out, flags, stream
+
+
+def _launch(x: torch.Tensor) -> torch.Tensor:
+    _check_launch(x)
+    n = x.shape[0]
+    if n == 1:
+        return x
+    chunk = x.numel() // n * x.element_size()
     if chunk == 0:
-        return out
+        return torch.empty((n, n * x.shape[1], *x.shape[2:]), dtype=x.dtype,
+                           device=x.device)
     if chunk % 2:
         raise ValueError(f"shard of {chunk} bytes: the kernel moves words "
                          "of at least 2 bytes")
     lib = _build.load("allgather", _SIGNATURES)
-    flags = world.flags((n - 1) * lib.ag_tile_count(chunk, _TILE_BYTES))
+    out, flags, stream = _ring_buffers(x)
     grid = _build.GridInfo()
     with torch.cuda.device(x.device):
         err = lib.ag_launch(x.data_ptr(), out.data_ptr(), flags.data_ptr(),
-                            n, chunk, _TILE_BYTES, grid.ptr(),
-                            torch.cuda.current_stream().cuda_stream)
+                            n, chunk, grid.ptr(), stream)
     _build.check("ring_all_gather", err, lib.ag_error_string, grid)
     _build.count_launch("ring_all_gather")
     return out

@@ -31,12 +31,27 @@ implementations of one contract:
       A times b[r] in f32, rounded once to the dtype, row blocks then
       permuted for "arrival".
 
-The kernel has two tile bodies. The main path's form (dense, native
-wire, bf16 inputs, m a multiple of 64: a `dist` prefill's 128 rows a
-rank and a scheduler step's 64) takes the TMA + wgmma body, every other
-call (grouped, wire, f32, a decode step's m = 1) the mma.sync body;
-`_body_for` is the rule, `_wgmma_bn` the wgmma body's tile width, and
-`launches_by_body` counts each body's launches. `straggler=(rank,
+The kernel has three bodies. The dense main-path form (native wire,
+bf16 inputs, m a multiple of 64: a `dist` prefill's 128 rows a rank and
+a scheduler step's 64) takes the TMA + wgmma body; the grouped form in
+bf16 with `counts` (the `fused` MoE up-projection) the expert-major TMA
++ wgmma kernel; every other call (wire, f32, a decode step's m = 1, the
+grouped form without counts) the mma.sync body. `_body_for` is the
+rule, `_wgmma_bn` / `_grouped_bn` the wgmma bodies' tile widths, and
+`launches_by_body` counts each body's launches.
+
+The grouped form's live rows: `counts` (n, E) int32, on a's device,
+gives the rows of each (rank, expert) block that are live, as
+pack_by_expert's `counts` does; the rows past them are taken as zero,
+so their C rows are zero. For pack_by_expert's inputs those rows are
+zero in A anyway, so the function is the JAX function's. The grouped
+kernel then forwards and multiplies only the live rows and zero-fills
+the others' C rows; the plain version (and the mma.sync body, where a
+call with counts takes it, after its launch) zeroes those C rows.
+counts is never read on the host on the card (values outside [0, cap]
+are clamped there; on the CPU they raise). It is refused on the dense
+form, with return_gathered and on a quantized wire. Without counts
+every row is live. `straggler=(rank,
 nanos)` (the JAX config's straggler_rank / straggler_ns) stalls that
 rank's ring producers on entry, on the card; the result is the same.
 
@@ -73,9 +88,10 @@ from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the tile bodies of the native kernel (csrc/allgather_gemm.cu): 0 the
-# mma.sync body (every form), 1 the TMA + wgmma body (the main path's
-# form; _body_for)
-_BODY_CODE = {"mma": 0, "wgmma": 1}
+# mma.sync body (every form), 1 the TMA + wgmma body (the dense main
+# path's form; ag_gemm_launch) or, through ag_gemm_grouped_launch, the
+# expert-major grouped kernel (_body_for)
+_BODY_CODE = {"mma": 0, "wgmma": 1, "grouped": 1}
 # the wgmma body's rows a TMA box (a step segment): m a multiple of it
 _WGMMA_ROWS = 64
 # C columns a wgmma tile (of each of gate and up with silu_pair): the
@@ -87,18 +103,22 @@ _WGMMA_BN_PAIR = (64, 128)
 # (NVIDIA H100 80GB HBM3; PERF.md), where a wider tile costs less per
 # column; with it the plan picks the sweep's fastest width at each
 _WGMMA_FIXED_COLS = 128
-# launches of the native kernel by body (ag_gemm.launches counts both):
+# the grouped kernel's C columns a tile (of each of gate and up), and the
+# ranks its chunk table holds
+_GROUPED_BN = (64, 128)
+_GROUPED_MAX_N = 8
+# launches of the native kernel by body (ag_gemm.launches counts all):
 # a run reads it around a path to show which body served it
-launches_by_body = {"mma": 0, "wgmma": 0}
+launches_by_body = {"mma": 0, "wgmma": 0, "grouped": 0}
 _SIGNATURES = {
     "ag_gemm_launch": (ctypes.c_int, [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 11 + [ctypes.c_longlong, ctypes.c_void_p,
                               ctypes.c_void_p]),
     "ag_gemm_encode_maps": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
         ctypes.c_int] * 5),
-    "ag_gemm_grouped_launch": (ctypes.c_int, [ctypes.c_void_p] * 6 + [
-        ctypes.c_int] * 10 + [ctypes.c_longlong] * 2 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]),
+    "ag_gemm_grouped_launch": (ctypes.c_int, [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 10 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]),
     "ag_gemm_wire_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + [
         ctypes.c_int] * 9 + [ctypes.c_void_p, ctypes.c_void_p]),
     "ag_gemm_flag_count": (ctypes.c_int, [ctypes.c_int]),
@@ -106,17 +126,38 @@ _SIGNATURES = {
 }
 
 
-def _body_for(a: torch.Tensor, bs, fmt, grouped: bool) -> str:
-    """The tile body of a native-kernel call: "wgmma" (TMA + wgmma) for
-    the main path's form, dense, native wire, bf16 inputs, m a multiple
-    of _WGMMA_ROWS, K and N at least 64; "mma" (mma.sync) for every
-    other call (grouped, wire, f32, ragged or small m such as a decode
-    step's m = 1)."""
+def _body_for(a: torch.Tensor, bs, fmt, grouped: bool,
+              live: bool = False) -> str:
+    """The body of a native-kernel call, for bf16 inputs on the native
+    wire with K and N at least one 64-wide box: "grouped" (the
+    expert-major TMA + wgmma kernel) for the grouped form with `counts`
+    (live) at n <= _GROUPED_MAX_N, whatever its cap; "wgmma" (TMA +
+    wgmma) for the dense form at m a multiple of _WGMMA_ROWS. "mma"
+    (mma.sync, or FMA for f32) for every other call: wire, f32, ragged
+    or small m such as a decode step's m = 1, a world above 8 ranks, and
+    the grouped form without counts, whose every padded row the grouped
+    kernel's 64-row tiles, one consumer warpgroup an SM, compute at half
+    the mma.sync body's rate (PERF.md)."""
     n, m, k = a.shape
-    if (grouped or not wire.is_native(fmt) or a.dtype != torch.bfloat16
-            or m % _WGMMA_ROWS or k < 64 or bs[0].shape[-1] < 64):
+    if (not wire.is_native(fmt) or a.dtype != torch.bfloat16 or k < 64
+            or bs[0].shape[-1] < 64):
         return "mma"
-    return "wgmma"
+    if grouped:
+        return "grouped" if live and n <= _GROUPED_MAX_N else "mma"
+    return "mma" if m % _WGMMA_ROWS else "wgmma"
+
+
+def _grouped_bn(N: int) -> int:
+    """C columns a grouped tile for N columns (of each half): the width
+    of _GROUPED_BN whose tiles a row (each streaming its B columns, the
+    edge's zero fill costing no bytes) times a tile's time, taken as its
+    columns plus _WGMMA_FIXED_COLS as for the dense body, are the fewest,
+    the widest on a tie: the fused prefill's I_loc 192 takes 128 (its
+    sweep: 418-422 against 449-457 µs at 64, PERF.md)."""
+    def cost(bn):
+        return (-(-N // bn) * (bn + _WGMMA_FIXED_COLS), -bn)
+
+    return min(_GROUPED_BN, key=cost)
 
 
 def _wgmma_bn(M: int, N: int, n: int, pair: bool, sms: int = _build.SMS) -> int:
@@ -153,7 +194,7 @@ def arrival_to_rank_order(c: torch.Tensor) -> torch.Tensor:
     return blocks[r, (r - s) % n].reshape(c.shape)
 
 
-def _check(a, b, epilogue, c_order, return_gathered, fmt):
+def _check(a, b, epilogue, c_order, return_gathered, fmt, counts=None):
     """Raise on what is not a valid call; returns the weights as a tuple
     (one, or the silu_pair's two)."""
     if epilogue not in (None, "silu_pair"):
@@ -192,7 +233,51 @@ def _check(a, b, epilogue, c_order, return_gathered, fmt):
         if a.shape[2] % wire.LANE:
             raise ValueError(
                 f"ag_gemm wire needs lane-aligned K (got {a.shape[2]})")
+    if counts is not None:
+        _check_counts(a, w, counts, return_gathered, fmt)
     return bs
+
+
+def _check_counts(a, w, counts, return_gathered, fmt) -> None:
+    """Raise unless `counts` fits the grouped call: (n, E) int32 on a's
+    device, native wire, no return_gathered. Values are checked (within
+    [0, cap]) only on the CPU: on the card that would read them back on
+    the host."""
+    if w.dim() != 4:
+        raise ValueError("counts takes the grouped form (b of (n, E, K, N))")
+    if return_gathered:
+        raise ValueError("counts leaves the rows past it out of the gather: "
+                         "no return_gathered")
+    if not wire.is_native(fmt):
+        raise ValueError("counts takes the native wire")
+    n, e = w.shape[:2]
+    if (not isinstance(counts, torch.Tensor) or counts.dtype != torch.int32
+            or tuple(counts.shape) != (n, e)):
+        raise ValueError(f"counts must be an int32 tensor of shape ({n}, "
+                         f"{e}), got {getattr(counts, 'dtype', type(counts))}"
+                         f" {tuple(getattr(counts, 'shape', ()))}")
+    if counts.device != a.device:
+        raise ValueError(f"counts on {counts.device}, a on {a.device}")
+    cap = a.shape[1] // e
+    if counts.device.type == "cpu" and not bool(
+            ((counts >= 0) & (counts <= cap)).all()):
+        raise ValueError(f"counts outside [0, cap={cap}]: "
+                         f"{counts.tolist()}")
+
+
+def _zero_dead_rows(c: torch.Tensor, counts: torch.Tensor,
+                    arrival: bool = False) -> torch.Tensor:
+    """C (n, n*m, N), its rows past `counts` (n, E) of each (chunk,
+    expert) block set to zero, the row blocks in rank or arrival order;
+    torch ops, no host read."""
+    n, e = counts.shape
+    cap = c.shape[1] // (n * e)
+    row = torch.arange(cap, device=c.device)
+    dead = row[None, None, :] >= counts.to(c.device, torch.long)[..., None]
+    dead = dead.reshape(1, -1, 1).expand(c.shape[0], -1, 1)
+    if arrival:
+        dead = arrival_to_rank_order(dead)
+    return c.masked_fill(dead, 0)
 
 
 def _product(full: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -214,10 +299,14 @@ def _roundtrip(a: torch.Tensor, fmt) -> torch.Tensor:
 
 def ag_gemm_plain(a: torch.Tensor, b, epilogue=None, c_order: str = "rank",
                   return_gathered: bool = False, out_dtype=None,
-                  wire_format=None):
+                  wire_format=None, counts=None):
     """Every rank's gathered A (through the codec on a quantized wire)
-    times its b in f32, one rounding to out_dtype (default a.dtype); row
-    blocks permuted for c_order="arrival"."""
+    times its b in f32, one rounding to out_dtype (default a.dtype); the
+    rows past `counts` (grouped form) zero; row blocks permuted for
+    c_order="arrival"."""
+    if counts is not None:
+        _check_counts(a, (b[0] if epilogue == "silu_pair" else b), counts,
+                      return_gathered, wire.resolve(wire_format))
     out_dtype = out_dtype or a.dtype
     if not wire.is_native(wire_format):
         a = _roundtrip(a, wire_format)
@@ -228,6 +317,8 @@ def ag_gemm_plain(a: torch.Tensor, b, epilogue=None, c_order: str = "rank",
         c = silu_mul(g, u).to(out_dtype)
     else:
         c = _product(full, b).to(out_dtype)
+    if counts is not None:
+        c = _zero_dead_rows(c, counts)
     if c_order == "arrival":
         c = arrival_to_rank_order(c)
     if return_gathered:
@@ -235,18 +326,19 @@ def ag_gemm_plain(a: torch.Tensor, b, epilogue=None, c_order: str = "rank",
     return c
 
 
-def _local(a, bs, return_gathered, out_dtype, fmt):
+def _local(a, bs, return_gathered, out_dtype, fmt, counts=None):
     """n = 1: the local product (of A's roundtrip on a quantized wire),
     f32 accumulation rounded once to out_dtype; for the pair, gate and
     up kept in f32 through silu_mul. The grouped form is the plain
-    per-expert product (torch, as the JAX function leaves it to XLA)."""
+    per-expert product (torch, as the JAX function leaves it to XLA),
+    its rows past counts zero."""
     from triton_dist_tpu_torch.layers.linear import dot_f32
 
     if bs[0].dim() == 4:
         return ag_gemm_plain(a, bs if len(bs) == 2 else bs[0],
                              "silu_pair" if len(bs) == 2 else None,
                              return_gathered=return_gathered,
-                             out_dtype=out_dtype)
+                             out_dtype=out_dtype, counts=counts)
     if not wire.is_native(fmt):
         a = _roundtrip(a, fmt)
     if len(bs) == 2:
@@ -262,7 +354,7 @@ def _local(a, bs, return_gathered, out_dtype, fmt):
 def ag_gemm(a: torch.Tensor, b, return_gathered: bool = False,
             out_dtype=None, force_kernel: bool = False, epilogue=None,
             c_order: str = "rank", wire_format=None,
-            straggler: Optional[Tuple[int, int]] = None):
+            straggler: Optional[Tuple[int, int]] = None, counts=None):
     """a (n, m, K), b (n, K, N), grouped (n, E, K, N), or a pair
     (w_gate, w_up) of either, rank-stacked -> C (n, n*m, N) in out_dtype
     (default a.dtype) (and the gathered A (n, n*m, K) with
@@ -271,24 +363,26 @@ def ag_gemm(a: torch.Tensor, b, return_gathered: bool = False,
     a local product unless force_kernel. A quantized wire_format takes
     ag_gemm_wire. straggler: (rank, nanos), that rank's ring producers
     stall on entry (the JAX config's straggler_rank / straggler_ns; the
-    card only, native wire; the result is the same)."""
+    card only, native wire; the result is the same). counts: the grouped
+    form's live rows a (rank, expert) block, (n, E) int32 (module
+    docstring)."""
     fmt = wire.resolve(wire_format)
-    bs = _check(a, b, epilogue, c_order, return_gathered, fmt)
+    bs = _check(a, b, epilogue, c_order, return_gathered, fmt, counts)
     _build.straggler_args(straggler, a.shape[0])
     if straggler is not None and not wire.is_native(fmt):
         raise ValueError("straggler delays the native ring; the wire form "
                          "takes none")
     out_dtype = out_dtype or a.dtype
     if a.shape[0] == 1 and not force_kernel:
-        return _local(a, bs, return_gathered, out_dtype, fmt)
+        return _local(a, bs, return_gathered, out_dtype, fmt, counts)
     if not wire.is_native(fmt):
         return ag_gemm_wire(a, bs[0], fmt, return_gathered, out_dtype,
                             c_order)
     if a.device.type == "cpu":
         return ag_gemm_plain(a, b, epilogue, c_order, return_gathered,
-                             out_dtype)
+                             out_dtype, counts=counts)
     return _launch(a, bs, c_order == "arrival", return_gathered, out_dtype,
-                   straggler=straggler)
+                   straggler=straggler, counts=counts)
 
 
 @_build.counted("ag_gemm_wire")
@@ -378,9 +472,11 @@ def _launch_wire(a: torch.Tensor, b: torch.Tensor, fmt, arrival: bool,
 
 
 def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool,
-            out_dtype=None, straggler=None, bn: Optional[int] = None):
-    """The native kernel; the body by _body_for, its tile width by
-    _wgmma_bn unless `bn` forces one (the sweep)."""
+            out_dtype=None, straggler=None, bn: Optional[int] = None,
+            counts=None, body: Optional[str] = None):
+    """The native kernel; the body by _body_for unless `body` forces
+    "mma" (the A/B tools' old body), its tile width by _wgmma_bn /
+    _grouped_bn unless `bn` forces one (the sweeps)."""
     out_dtype = out_dtype or a.dtype
     _check_launch(a, bs, out_dtype)
     n, m, K = a.shape
@@ -396,16 +492,23 @@ def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool,
                              "aligned")
     if grouped:
         strides = _grouped_strides(bs, per)
+    if counts is not None and not counts.is_contiguous():
+        raise ValueError("counts must be contiguous")
     rank, nanos = _build.straggler_args(straggler, n)
-    body = _body_for(a, bs, None, grouped)
+    pair = len(bs) == 2
+    planned = _body_for(a, bs, None, grouped, counts is not None)
+    body = body or planned
+    if body not in ("mma", planned):
+        raise ValueError(f"body={body!r}: this call takes {planned!r} or "
+                         "'mma'")
+    widths = {"wgmma": _WGMMA_BN_PAIR if pair else _WGMMA_BN,
+              "grouped": _GROUPED_BN}.get(body)
     if body == "wgmma":
-        pair = len(bs) == 2
         bn = bn or _wgmma_bn(n * m, N, n, pair, _build.card_sms(a.device))
-        if bn not in (_WGMMA_BN_PAIR if pair else _WGMMA_BN):
-            raise ValueError(f"bn={bn}: the wgmma body takes "
-                             f"{_WGMMA_BN_PAIR if pair else _WGMMA_BN}")
-    elif bn is not None:
-        raise ValueError(f"bn={bn}: only the wgmma body takes a tile width")
+    elif body == "grouped":
+        bn = bn or _grouped_bn(N)
+    if bn is not None and (widths is None or bn not in widths):
+        raise ValueError(f"bn={bn}: the {body} body takes {widths}")
     world = VirtualWorld.of(a)
     c = torch.empty((n, n * m, N), dtype=out_dtype, device=a.device)
     ws = world.heap((n * m, K), a.dtype)  # [rank][chunk c's rows]
@@ -415,19 +518,25 @@ def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool,
     flags = world.flags(lib.ag_gemm_flag_count(n))
     grid = _build.GridInfo()
     ptrs = (a.data_ptr(), bs[0].data_ptr(), bs[-1].data_ptr(),
-            ws.data_ptr(), c.data_ptr(), flags.data_ptr(), n, m, K, N,
-            _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype], int(len(bs) == 2),
-            int(arrival))
+            ws.data_ptr(), c.data_ptr(), flags.data_ptr())
+    dims = (n, m, K, N, _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype],
+            int(pair), int(arrival))
+    # the grouped kernel takes counts; the mma.sync body computes every
+    # row, and the rows past counts are zeroed after it
+    live = counts.data_ptr() if counts is not None and body == "grouped" \
+        else None
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         if grouped:
             err = lib.ag_gemm_grouped_launch(
-                *ptrs, bs[0].shape[1], *strides, rank, nanos, grid.ptr(),
-                stream)
+                *ptrs, live, *dims, bs[0].shape[1], *strides,
+                _BODY_CODE[body], bn or 0, rank, nanos, grid.ptr(), stream)
         else:
-            err = lib.ag_gemm_launch(*ptrs, _BODY_CODE[body], bn or 0, rank,
-                                     nanos, grid.ptr(), stream)
+            err = lib.ag_gemm_launch(*ptrs, *dims, _BODY_CODE[body], bn or 0,
+                                     rank, nanos, grid.ptr(), stream)
     _build.check("ag_gemm", err, lib.ag_gemm_error_string, grid)
     _build.count_launch("ag_gemm")
     launches_by_body[body] += 1
+    if counts is not None and body != "grouped":
+        c = _zero_dead_rows(c, counts, arrival)
     return (c, ws) if return_gathered else c

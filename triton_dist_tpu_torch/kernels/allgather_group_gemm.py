@@ -109,7 +109,10 @@ def fused_ag_moe_up(x_shard: torch.Tensor, topk_ids: torch.Tensor,
                     w_up: torch.Tensor, capacity: Optional[int] = None):
     """Pack each rank's tokens into E blocks of cap rows, then one grouped
     ag_gemm (silu_pair, arrival order) gathers the blocks over the ring
-    and multiplies block e by expert e's gate and up slices. x_shard
+    and multiplies block e by expert e's gate and up slices; the packs'
+    counts tell it which rows of each block are live (the rest are zero
+    rows, whose C rows are zero), so the card forwards and multiplies
+    only those, with no host read of them. x_shard
     (n, m_tok, H), topk_ids / topk_weights (n, m_tok, k) (local routing),
     w_gate / w_up (n, E, H, I_loc) (views of one stack). Returns
     (act (n, n, E, cap, I_loc) [rank][arrival step][expert][row] in
@@ -121,7 +124,8 @@ def fused_ag_moe_up(x_shard: torch.Tensor, topk_ids: torch.Tensor,
     packs = [pack_by_expert(x_shard[r], topk_ids[r], e, cap)
              for r in range(n)]
     act = _ag.ag_gemm(torch.stack([p.x for p in packs]), (w_gate, w_up),
-                      epilogue="silu_pair", c_order="arrival")
+                      epilogue="silu_pair", c_order="arrival",
+                      counts=torch.stack([p.counts for p in packs]))
     meta = MoEFusedMeta(slot_of=torch.stack([p.slot_of for p in packs]),
                         weights=topk_weights.float(),
                         drops=torch.stack([p.drops for p in packs]))

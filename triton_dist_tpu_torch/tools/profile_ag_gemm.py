@@ -1,4 +1,4 @@
-"""The dense ag_gemm kernel's device times at the main path's shapes.
+"""The ag_gemm kernel's device times at the main paths' shapes.
 
     python -m triton_dist_tpu_torch.tools.profile_ag_gemm
 
@@ -19,7 +19,17 @@ case takes, the BN sweep (each tile width forced through
 `allgather_gemm._launch(..., bn=)`, within the atol), the plan's pick,
 the host µs the four tensor maps' encoding adds a call (1000 encodings),
 and each wgmma instantiation's registers and spills from ptxas when this
-run built the library. Prints one JSON line. chip_smoke.py is loaded
+run built the library. Then the grouped form at the Qwen3-30B-A3B
+`fused` 4 x 32 prefill's shape (pack_by_expert of 32 tokens a rank, top
+8 of 128 experts, cap 256; K 2048, gate and up 192 columns, views of one
+[gate | up] stack; silu_pair, arrival order): held against
+ag_gemm_plain within the atol once, then device µs and call ms with the
+packs' counts (where the package takes `counts`, as the fused path
+calls it), with every row live, and with the old mma.sync body forced
+(where `_launch` takes `body=`), and the grouped kernel's BN sweep;
+bound: each rank's B slices of the experts reached and the live A rows
+read once, C written once; library: one batched matmul of the gathered
+padded blocks with [gate | up]. Prints one JSON line. chip_smoke.py is loaded
 from this file's checkout and the kernel from whichever
 `triton_dist_tpu_torch` is imported first, so two versions compare in
 one run by pointing PYTHONPATH at each checkout in turn and running this
@@ -28,6 +38,7 @@ file by its path (old, new, new, old). Needs a CUDA card.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import time
@@ -55,13 +66,77 @@ def _cases(cs):
                dict(epilogue="silu_pair", c_order="arrival"))
 
 
-def _within(cs, fn, a, b, want, label):
+def _within(cs, fn, a, b, want, label, reps=20):
     atol = cs.ag_gemm_atol(a, b, want)
-    for _ in range(20):
+    for _ in range(reps):
         err = (fn().float() - want.float()).abs().max().item()
         if not err <= atol:
             raise AssertionError(f"{label}: err {err} above atol {atol}")
     return err / atol
+
+
+def _grouped(cs):
+    """The fused prefill's grouped call: rows {label: numbers}, the BN
+    sweep, and the body each label took (where the package counts)."""
+    from triton_dist_tpu_torch.kernels import moe_utils as mu
+
+    n, e, k, i_loc, m_tok, top, cap = 4, 128, 2048, 192, 32, 8, 256
+    g = torch.Generator().manual_seed(3)
+    packs = []
+    for _ in range(n):
+        x = (torch.randn((m_tok, k), generator=g) * 0.5).to(torch.bfloat16)
+        ids = torch.randn((m_tok, e), generator=g).topk(top, -1).indices
+        packs.append(mu.pack_by_expert(x.cuda(), ids.to(torch.int32).cuda(),
+                                       e, cap))
+    a = torch.stack([p.x for p in packs])
+    counts = torch.stack([p.counts for p in packs])
+    gu = cs.rand((n, e, k, 2 * i_loc), torch.bfloat16, 9, 0.02)
+    ws = (gu[..., :i_loc], gu[..., i_loc:])
+    kw = dict(epilogue="silu_pair", c_order="arrival")
+    live = int(counts.sum())
+    reached = int((counts > 0).any(0).sum())
+    bound, by = cs.bound_ms(
+        2 * 2 * n * live * k * i_loc,
+        (live * k + n * reached * k * 2 * i_loc + n * n * e * cap * i_loc)
+        * a.element_size(), "bfloat16")
+    xe = a.reshape(n, e, cap, k).permute(1, 0, 2, 3).reshape(
+        e, n * cap, k).contiguous()
+
+    def library():
+        return torch.matmul(xe[None], gu)
+
+    want = kernels.ag_gemm_plain(a, ws, **kw)
+    takes_counts = "counts" in inspect.signature(kernels.ag_gemm).parameters
+    takes_body = "body" in inspect.signature(ag._launch).parameters
+    calls = {"fused grouped, every row live":
+             lambda: kernels.ag_gemm(a, ws, **kw)}
+    if takes_counts:
+        calls["fused grouped, counts"] = lambda: kernels.ag_gemm(
+            a, ws, counts=counts, **kw)
+    if takes_body:
+        calls["fused grouped, mma.sync body forced"] = lambda: ag._launch(
+            a, ws, True, False, body="mma")
+    rows, bodies, sweep = {}, {}, {}
+    lib_us = cs.device_us_total(library)
+    lib_ms = cs.time_ms(library, iters=5)
+    for label, fn in calls.items():
+        by_body = dict(getattr(ag, "launches_by_body", {}))
+        share = _within(cs, fn, a, ws, want, label, reps=1)
+        bodies[label] = {b: v - by_body[b] for b, v in
+                         getattr(ag, "launches_by_body", {}).items()
+                         if v != by_body[b]}
+        rows[label] = dict(
+            device_us=cs.device_us(fn, KEY, reps=5),
+            ms=cs.time_ms(fn, iters=10), bound_us=bound * 1e3, bound_by=by,
+            atol_share=share, live_rows=live, experts_reached=reached,
+            library_us=lib_us, library_ms=lib_ms)
+    for bn in getattr(ag, "_GROUPED_BN", ()):
+        def fn(bn=bn):
+            return ag._launch(a, ws, True, False, counts=counts, bn=bn)
+        _within(cs, fn, a, ws, want, f"grouped bn {bn}", reps=1)
+        sweep[f"fused grouped, counts, bn {bn}"] = cs.device_us(fn, KEY,
+                                                                reps=5)
+    return rows, bodies, sweep
 
 
 def main() -> None:
@@ -122,6 +197,11 @@ def main() -> None:
                    encode_us_a_call=encode_us,
                    ptxas=_build.ptxas_summary("allgather_gemm",
                                               "ag_gemm_wgmma_kernel"))
+    grows, gbodies, gsweep = _grouped(cs)
+    out.update(grouped=grows, grouped_bodies=gbodies,
+               grouped_bn_sweep_device_us=gsweep,
+               ptxas_grouped=_build.ptxas_summary(
+                   "allgather_gemm", "ag_gemm_grouped_wgmma_kernel"))
     print(json.dumps(out), flush=True)
 
 
