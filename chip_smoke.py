@@ -1650,16 +1650,18 @@ def device_us_total(fn, reps=10):
     return total / reps if total > 0 else None
 
 
-def host_parts(call, checks, buffers, launch, calls=100, pools=None):
+def host_parts(call, checks, buffers, launch, calls=100, pools=None,
+               more=None):
     """A ring wrapper's host µs a call, time.perf_counter around `calls`
     unsynchronised calls of each: the whole call, and its parts: checks
     (the wrapper's Python checks), buffers (the output's allocation and
     the persistent pool's lookup), ctypes (the C entry called with n = 0,
     which returns before any CUDA call), launch (the C entry less that:
     launch_world's device query, its cached grid and the cooperative
-    launch), rest (the wrapper's other Python: library lookup, device
-    guard, error check, count). Asserts that no warm call made a pool
-    (`pools`: the wrapper's PoolCache, the ring RS's by default)."""
+    launch), the parts of `more` ({name: fn}), rest (the wrapper's other
+    Python: library lookup, device guard, error check, count). Asserts
+    that no warm call made a pool (`pools`: the wrapper's PoolCache, the
+    ring RS's by default)."""
     import torch
 
     from triton_dist_tpu_torch.kernels import reduce_scatter as rs
@@ -1681,9 +1683,10 @@ def host_parts(call, checks, buffers, launch, calls=100, pools=None):
                  buffers=per_call(buffers),
                  ctypes=per_call(lambda: launch(0)),
                  launch=per_call(lambda: launch(None)))
+    parts.update({k: per_call(fn) for k, fn in (more or {}).items()})
     parts["launch"] -= parts["ctypes"]
     parts["rest"] = parts["call"] - sum(
-        parts[k] for k in ("checks", "buffers", "ctypes", "launch"))
+        v for k, v in parts.items() if k != "call")
     assert pools.made == made, "a warm ring call made a pool"
     return parts
 
@@ -1709,6 +1712,75 @@ def ag_host_parts(kernels, x):
         lambda: kernels.ring_all_gather(x),
         lambda: (wire.resolve(None), agr._check_launch(x)),
         lambda: agr._ring_buffers(x), launch, pools=agr._POOLS)
+
+
+def a2a_host_parts(kernels, x, sp, q=None):
+    """host_parts of an A2A wrapper on (x, sp): the single-shot kernel,
+    or with q the chunked one; its splits conversion timed apart from
+    checks and buffers."""
+    from triton_dist_tpu_torch.kernels import _build
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+
+    lib = _build.load("all_to_all", a2a._SIGNATURES)
+    seg, _, _ = a2a._check_launch(x, None)
+    n, qq = x.shape[0], q or 1
+    aligned = x.data_ptr() % 16 == 0
+    body = a2a._body_for(n, seg, qq, aligned)
+    word = a2a._word(seg, qq, aligned, body)
+    spc = a2a._splits(x, sp)
+    out, out_sp, flags, stream = a2a._buffers(x, spc, qq)
+    grid = _build.GridInfo()
+
+    def launch(m):
+        err = lib.a2a_launch(
+            x.data_ptr(), out.data_ptr(), spc.data_ptr(), out_sp.data_ptr(),
+            flags.data_ptr(), n if m is None else m, seg // word,
+            spc.numel() // (n * n), qq, word, int(q is not None),
+            int(body == "bulk"), -1, 0, 0, grid.ptr(), stream)
+        assert (err == 0) == (m is None), err
+
+    if q is None:
+        call = lambda: a2a.all_to_all(x, sp)  # noqa: E731
+    else:
+        call = lambda: a2a.all_to_all_chunked(x, sp, n_chunks=q)  # noqa
+    return host_parts(
+        call, lambda: (a2a._check(x, sp), a2a._check_launch(x, None)),
+        lambda: a2a._buffers(x, spc, qq), launch, pools=a2a._POOLS,
+        more=dict(splits=lambda: a2a._splits(x, sp)))
+
+
+def check_a2a_pools(kernels, cases, calls=50):
+    """The A2A kernels' persistent flag pools: `calls` back-to-back calls
+    on one stream, in turn over cases ((x, splits, q): q None for the
+    single-shot kernel, else the chunked one at q), so the two kernels,
+    the chunk counts and the shapes alternate; each bitwise its plain
+    version. Then every flag of every pool reads zero and no call past
+    the first round made a pool. Returns {pool: bytes}."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+
+    wants = [kernels.all_to_all_plain(x, sp) for x, sp, _ in cases]
+    made = None
+    for i in range(calls):
+        x, sp, q = cases[i % len(cases)]
+        got = (a2a.all_to_all(x, sp) if q is None else
+               a2a.all_to_all_chunked(x, sp, n_chunks=q))
+        torch.cuda.synchronize()
+        want, want_sp = wants[i % len(cases)]
+        assert torch.equal(got[0], want) and torch.equal(got[1], want_sp), i
+        if i == len(cases) - 1:
+            made = a2a._POOLS.made
+    assert a2a._POOLS.made == made, "a warm all-to-all made a pool"
+    zero = all(not bool(f.any()) for f in a2a._POOLS.entries.values())
+    assert zero, "an all-to-all left a flag set"
+    held = {f"n={k[2]} q={k[3]}": f.numel() * 4
+            for k, f in a2a._POOLS.entries.items()}
+    log(f"  all_to_all: {calls} calls back to back, single-shot and "
+        f"chunked in turn over {[(tuple(x.shape), q) for x, _, q in cases]}"
+        f", bitwise; every pool flag at zero; {a2a._POOLS.made} pools made, "
+        f"none by a warm call; pool bytes {held}")
+    return held
 
 
 def check_ag_pools(kernels, xs, calls=50):
@@ -3033,12 +3105,20 @@ def ep_a2a_row(kernels, label, x, sp, chunked, q=1):
     else:
         fn = lambda: all_to_all(x, sp)  # noqa: E731
     nbytes = 2 * (x.numel() * x.element_size() + sp.numel() * 4)
-    return time_collective(
+    row = time_collective(
         label, fn, lambda: kernels.all_to_all_plain(x, sp),
         lambda: (x.transpose(0, 1).contiguous(),
                  sp.transpose(0, 1).contiguous()),
         0, nbytes, torch.bfloat16,
         kernel_key="a2a_chunked_kernel" if chunked else "a2a_kernel")
+    host = a2a_host_parts(kernels, x, sp, q if chunked else None)
+    row["host_us"] = host
+    dev = row["device_us"]
+    row["bound_share"] = None if not dev else row["bound_ms"] * 1e3 / dev
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in host.items() if k != "call")
+    log(f"  {label}: host {host['call']:.1f} us a call ({parts}); bound "
+        f"share {row['bound_share']}")
+    return row
 
 
 def run_ep(kernels, cfg, params, device="cuda"):
@@ -3058,9 +3138,12 @@ def run_ep(kernels, cfg, params, device="cuda"):
     and tokens (f32 judged by the f32 band; the bf16 EP output against
     the f32 TP output judged by the band's cosine, its ulp measured; bf16
     against bf16 measured); the chunked kernel with rank 0, then rank 3,
-    delayed 5 ms, bitwise.
-    Timing: the layer's ms (first run and warm), rows 12 and 13, host
-    syncs a call, peak GB. Returns (launches, errs, numbers)."""
+    delayed 5 ms, bitwise; 50 back-to-back calls over every recorded
+    (kernel, q, shape, dtype) in turn, bitwise, leaving the flag pools
+    at zero with no pool made by a warm call (check_a2a_pools).
+    Timing: the layer's ms (first run and warm), rows 12 and 13 (with
+    the wrappers' host µs by part), host syncs a call, peak GB. Returns
+    (launches, errs, numbers)."""
     import numpy as np
     import torch
 
@@ -3252,6 +3335,17 @@ def run_ep(kernels, cfg, params, device="cuda"):
         f"0, then rank {n - 1}, delayed {EP_STRAGGLE_NS / 1e6:.0f} ms: "
         "bitwise")
 
+    # the persistent flag pools: both kernels, every q and shape in turn
+    cases, seen = [], set()
+    for r in rec.records:
+        q = r["kw"].get("n_chunks") if r["name"] == "all_to_all_chunked" \
+            else None
+        key = (q, tuple(r["x"].shape), r["x"].dtype)
+        if key not in seen:
+            seen.add(key)
+            cases.append((r["x"], r["splits"], q))
+    pool_bytes = check_a2a_pools(kernels, cases)
+
     # timing: the layer, host syncs, the two kernels
     warm_ms = {label: time_ms(lambda kw=kw: layer(kw), iters=5, warmup=1)
                for label, kw in runs.items()}
@@ -3284,7 +3378,8 @@ def run_ep(kernels, cfg, params, device="cuda"):
                    peak_gb_beyond_weights=peak, bands_seq_overlap=bands,
                    ep_vs_tp_dist=tp_band,
                    drops_tight=drops_tight.tolist(), fp8_drift=fp8_drift,
-                   max_abs_err=a2a_err, ffn_max_abs_err=ffn_err)
+                   max_abs_err=a2a_err, ffn_max_abs_err=ffn_err,
+                   a2a_pool_bytes=pool_bytes)
     errs = dict(all_to_all=(a2a_rows, main, a2a_err["all_to_all"]),
                 all_to_all_chunked=(chunk_rows, f"{main} q4",
                                     a2a_err["all_to_all_chunked"]))

@@ -1185,24 +1185,25 @@ sys.exit(0)
 
 # an all-to-all whose delivery flags start far below zero: no segment
 # ever counts every block of its source, so the first delivery wait must
-# trap (the entry barrier's word 0 is left at zero)
+# trap (argv: chunked, bulk body)
 _A2A_FAULT = r"""
 import sys, torch
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels import all_to_all as a2a
-chunked = int(sys.argv[1])
+chunked, bulk = int(sys.argv[1]), int(sys.argv[2])
 n, q = 4, 2 if chunked else 1
 lib = _build.load("all_to_all", a2a._SIGNATURES)
 x = torch.ones((n, n, 8, 256), device="cuda", dtype=torch.bfloat16)
 sp = torch.ones((n, n), device="cuda", dtype=torch.int32)
 out, osp = torch.empty_like(x), torch.empty_like(sp)
-flags = torch.full((n, lib.a2a_flag_words(n, q)), -1000, device="cuda",
+seg = 8 * 256 * 2
+word = a2a._word(seg, q, True, "bulk" if bulk else "reg")
+flags = torch.full((n, a2a._flag_words(n, q)), -1000, device="cuda",
                    dtype=torch.int32)
-flags[:, 0] = 0
 grid = _build.GridInfo()
 err = lib.a2a_launch(x.data_ptr(), out.data_ptr(), sp.data_ptr(),
-                     osp.data_ptr(), flags.data_ptr(), n, 8 * 256 * 2, 4, q,
-                     chunked, -1, 0, 2, grid.ptr(),
+                     osp.data_ptr(), flags.data_ptr(), n, seg // word, 1,
+                     q, word, chunked, bulk, -1, 0, 2, grid.ptr(),
                      torch.cuda.current_stream().cuda_stream)
 assert err == 0, err
 try:
@@ -1220,11 +1221,15 @@ sys.exit(0)
     ("ring_all_gather", _RING_AG_FAULT, []),
     ("one_shot_all_reduce", _AR_FAULT, []),
     ("ring_reduce_scatter", _RS_FAULT, []), ("ll_all_gather", _LL_FAULT, []),
-    ("sp_flash_prefill", _SP_FAULT, []), ("all_to_all", _A2A_FAULT, ["0"]),
-    ("all_to_all_chunked", _A2A_FAULT, ["1"])],
+    ("sp_flash_prefill", _SP_FAULT, []),
+    ("all_to_all", _A2A_FAULT, ["0", "0"]),
+    ("all_to_all_chunked", _A2A_FAULT, ["1", "0"]),
+    ("all_to_all", _A2A_FAULT, ["0", "1"]),
+    ("all_to_all_chunked", _A2A_FAULT, ["1", "1"])],
     ids=["gemm_rs", "ag_gemm-mma", "ring_all_gather", "one_shot_all_reduce",
          "ring_reduce_scatter", "ll_all_gather", "sp_flash_prefill",
-         "all_to_all", "all_to_all_chunked"])
+         "all_to_all", "all_to_all_chunked", "all_to_all-bulk",
+         "all_to_all_chunked-bulk"])
 def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script, args):
     """A wait that can never be satisfied (flags left non-zero) ends in
     the bounded spin's printf and __trap(): the launch fails and the
@@ -1553,7 +1558,9 @@ def test_a2a_kernels_match_plain_bitwise(cuda, n, dtype, width,
     splits: the EP dispatch width (2176 bf16), the combine's f32, rows
     of 6 bytes (no 16-byte words) and int8 (the kernel moves bytes); the
     chunked kernel at q = 1, 2, 4 and with rank 0, then rank n - 1,
-    delayed 5 ms; one launch a call."""
+    delayed 5 ms; both kernels with each body forced and on one block a
+    rank; one launch a call, and the flag pools at zero after them."""
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
     from triton_dist_tpu_torch.kernels.all_to_all import (
         all_to_all,
         all_to_all_chunked,
@@ -1574,14 +1581,65 @@ def test_a2a_kernels_match_plain_bitwise(cuda, n, dtype, width,
     runs += [all_to_all_chunked(x, sp, n_chunks=q) for q in (1, 2, 4)]
     runs += [all_to_all_chunked(x, sp, n_chunks=2, straggler=(r, 5_000_000))
              for r in (0, n - 1)]
+    # each body forced (the bulk one where a q = 4 chunk takes 16-byte
+    # words), one block a rank
+    forced = [dict(body="reg"), dict(blocks=1)]
+    if c * width * x.element_size() % 64 == 0:
+        forced.append(dict(body="bulk"))
+    for kw in forced:
+        runs.append(a2a._launch("all_to_all", x, sp, 1, False, None, **kw))
+        runs.append(a2a._launch("all_to_all_chunked", x, sp, 4, True,
+                                (n - 1, 1_000_000), **kw))
     torch.cuda.synchronize()
     for got, got_sp in runs:
         assert torch.equal(got, want) and torch.equal(got_sp, want_sp)
         assert got_sp.shape == sp.shape
-    assert launches()["all_to_all"] == 1
-    assert launches()["all_to_all_chunked"] == 5
+    assert launches()["all_to_all"] == 1 + len(forced)
+    assert launches()["all_to_all_chunked"] == 5 + len(forced)
     with pytest.raises(ValueError, match="divide"):
         all_to_all_chunked(x, sp, n_chunks=3)
+    assert not any(bool(f.any()) for f in a2a._POOLS.entries.values())
+
+
+@pytest.mark.cuda
+def test_a2a_pools_persist_back_to_back(cuda):
+    """Both A2A kernels on one stream, 50 calls back to back, alternating
+    the single-shot and the chunked kernel, q 1, 2, 4, four shapes (the
+    EP dispatch and combine widths, a ragged bf16 row, 16-byte segments)
+    and a straggler: each bitwise its plain version, every pool flag at
+    zero after them, and no call past the first round made a pool."""
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+
+    rng = np.random.default_rng(7)
+
+    def case(n, c, width, dtype, s):
+        x = torch.from_numpy(rng.standard_normal((n, n, c, width))).to(
+            "cuda", dtype)
+        shape = (n, n) if s is None else (n, n, s)
+        return x, torch.from_numpy(rng.integers(0, c + 1, shape)).to(
+            "cuda", torch.int32)
+
+    shapes = [case(4, 8, 2176, torch.bfloat16, None),
+              case(4, 16, 2048, torch.float32, 33),
+              case(2, 8, 3, torch.bfloat16, 5), case(4, 4, 4, torch.int8, None)]
+    calls = [(i, q) for i in range(len(shapes)) for q in (None, 1, 2, 4)]
+    wants = [a2a.all_to_all_plain(x, sp) for x, sp in shapes]
+    made = None
+    for k in range(50):
+        i, q = calls[k % len(calls)]
+        x, sp = shapes[i]
+        if q is None:
+            got = a2a.all_to_all(x, sp)
+        else:
+            late = (k % x.shape[0], 200_000) if k % 3 == 0 else None
+            got = a2a.all_to_all_chunked(x, sp, n_chunks=q, straggler=late)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], wants[i][0]), (k, i, q)
+        assert torch.equal(got[1], wants[i][1]), (k, i, q)
+        if k == len(calls) - 1:
+            made = a2a._POOLS.made
+    assert a2a._POOLS.made == made
+    assert not any(bool(f.any()) for f in a2a._POOLS.entries.values())
 
 
 def _ep_case(n, m, h, e, inter, dtype, seed=0):

@@ -155,6 +155,75 @@ def test_all_to_all_world_one_returns_input():
         assert out_sp.tolist() == [[3]]
 
 
+@pytest.mark.parametrize("n,seg,q,aligned,body,word", [
+    (4, 8 * 4352, 1, True, "reg", 16),  # M 1 dispatch
+    (4, 8 * 8192, 1, True, "reg", 16),  # M 1 combine
+    (4, 1024 * 4352, 1, True, "bulk", 16),  # M 128
+    (4, 1024 * 4352, 4, True, "bulk", 16),
+    (4, 1024 * 8192, 1, True, "bulk", 16),
+    (4, 1024 * 2176, 2, True, "bulk", 16),  # fp8 wire, q 2
+    (2, 48, 4, True, "reg", 1),  # rows of 6 bytes, q 4
+    (4, 8 * 4352, 1, False, "reg", 1),  # unaligned x
+    (4, 16, 1, True, "reg", 16)])  # the protocol's floor
+def test_a2a_plan_flag_words_and_pool_key(n, seg, q, aligned, body, word):
+    """The A2A launch plan, pure: 16-byte words when the chunk and the
+    pointers allow them, else bytes, for either body that takes them;
+    the bulk body from 1 MiB a rank's chunk in 16-byte words (the EP
+    prefill's), the register body below (its decode). The flag pool: n *
+    q words a rank, keyed by (device, stream, n, q), so two streams,
+    worlds or chunk counts never share one. A CPU call runs the plain
+    version and makes no pool."""
+    from triton_dist_tpu_torch.kernels import _build
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+
+    assert a2a._body_for(n, seg, q, aligned) == body
+    assert a2a._word(seg, q, aligned, body) == word
+    assert a2a._word(seg, q, aligned) == word
+    chunk_bytes = seg // q
+    assert body == ("bulk" if aligned and chunk_bytes % 16 == 0
+                    and n * chunk_bytes >= 1 << 20 else "reg")
+    assert a2a._flag_words(n, q) == n * q
+    x = torch.zeros(n, n, 2, 8)
+    key = a2a._pool_key(x, 7, q)
+    assert key == (x.device, 7, n, q)
+    assert key not in {a2a._pool_key(x, 8, q), a2a._pool_key(x, 7, q + 1),
+                       a2a._pool_key(torch.zeros(n + 1, n + 1, 2), 7, q)}
+    assert isinstance(a2a._POOLS, _build.PoolCache)
+    made = a2a._POOLS.made
+    sp = torch.ones(n, n, dtype=torch.int64)
+    for out in (all_to_all(x, sp), all_to_all_chunked(x, sp, n_chunks=2)):
+        assert torch.equal(out[0], all_to_all_plain(x, sp)[0])
+    assert a2a._POOLS.made == made
+
+
+def test_a2a_wrapper_refusals():
+    """What the wrappers refuse, on the CPU: shapes that are not (n, n,
+    C, ...) and splits that are not (n, n[, S]); a q that does not divide
+    C; the kernel launch on a CPU tensor; a straggler outside the world;
+    the bulk body on a chunk that takes no 16-byte words, and a body the
+    kernel does not have."""
+    from triton_dist_tpu_torch.kernels import all_to_all as a2a
+
+    x = torch.zeros(4, 4, 6, 3)
+    sp = torch.zeros(4, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="rank-stacked"):
+        all_to_all(torch.zeros(4, 3, 6, 3), sp)
+    with pytest.raises(ValueError, match="splits"):
+        all_to_all(x, torch.zeros(4, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="splits"):
+        all_to_all_chunked(x, torch.zeros(4, 4, 2, 2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="divide"):
+        all_to_all_chunked(x, sp, n_chunks=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        a2a._launch("all_to_all", x, sp, 1, False, None)
+    with pytest.raises(ValueError, match="straggler"):
+        a2a._build.straggler_args((4, 0), 4)
+    with pytest.raises(ValueError, match="bulk"):
+        a2a._word(72, 1, True, "bulk")
+    with pytest.raises(ValueError, match="body"):
+        a2a._word(64, 1, True, "tma")
+
+
 def test_chunk_group_sizes_matches_jax():
     """Every chunk's (..., E+1) sizes equal the JAX function's, with a
     leading rank dim on the port's side."""

@@ -21,7 +21,8 @@
 // reads the data with ld.global.cg (__ldcg, past L1, which is not
 // coherent across SMs). The ring ReduceScatter's hops leave out the
 // __threadfence: the release add is cumulative over the barrier
-// (reduce_scatter.cu ring_signal).
+// (reduce_scatter.cu ring_signal). The all-to-all publishes n flags at
+// once with one fence.acq_rel.gpu and relaxed adds (all_to_all.cu).
 //
 // Every spin is bounded: past kWaitBoundNs the waiting thread prints
 // (kernel, rank, flag index, value) and executes __trap(). The launch
