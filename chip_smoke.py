@@ -69,7 +69,8 @@ outside a checkout of the repository. Phases, each fatal on failure:
      steps threading one low-latency AllGather context; launches pinned
      (1 sp_flash_prefill, 16 flash_decode_partial, 16 ll_all_gather).
      The decode partial against its plain version on every step's inputs
-     (epsilon band), the LL AllGather bitwise over all 16 calls, each
+     (epsilon band), the LL AllGather bitwise over all 16 calls (and
+     its context's slots and parity flags a plain twin's after each), each
      step bitwise the same step with the partials gathered by a torch
      copy; SP prefill against its plain version on sampled rows and
      whole at 4 x 4096 (band), and bitwise itself with rank 0, then rank
@@ -81,7 +82,9 @@ outside a checkout of the repository. Phases, each fatal on failure:
      send_backward, a p2p_send (stage 3 -> 0) and a p2p_read; launches
      pinned; the output bitwise each microbatch alone through the 36
      layers, every ring_shift / p2p_send launch bitwise its plain
-     version; ms a schedule, the two kernels' times;
+     version; p2p_send 50 calls back to back (ragged, 4 MiB and 8 MiB a
+     rank, each rank delayed in turn) leaving its delivery pool at zero,
+     no pool made by a warm call; ms a schedule, the two kernels' times;
   4c. the ninth path, no weights: the collective library's entry points
      at Qwen3-8B widths, world 4, on shards of (4, 4096), (128, 4096)
      (1 MiB: Auto's full mesh), (129, 4096) (Auto's ring), (512, 4096)
@@ -99,7 +102,8 @@ outside a checkout of the repository. Phases, each fatal on failure:
      reduce_scatter_op and all_reduce_op on per-rank (512, 4096) and
      (4, 4096) (ring_rs_wire_kernel), all_gather ring and full mesh on
      (128, 4096) and three ll_all_gather calls on (4, 4096) (the images
-     through the native kernels), ag_gemm at QKV and gate|up (fp8, int8)
+     through the native kernels; the context's slots and parity flags
+     a plain twin's after each call), ag_gemm at QKV and gate|up (fp8, int8)
      and gemm_rs at down and O (the partial GEMM, then the wire ring);
      launches pinned; RS bitwise its plain version, AR bitwise
      wire.simulate_allreduce, the gathers bitwise the roundtrip, gemm_rs
@@ -1600,11 +1604,14 @@ def _launch_total() -> int:
     return sum(kernels.launches().values())
 
 
-def device_us(fn, key, reps=10, tries=3):
+def device_us(fn, key, reps=10, tries=5):
     """Mean device time in µs of the kernels whose name holds `key` over
     `reps` calls of fn traced by torch.profiler. A trace that holds no
     such kernel time is logged with the kernel names it did hold and
-    taken again, up to `tries` traces; None when every one missed."""
+    taken again after half a second, up to `tries` traces; None when
+    every one missed. (On an H100 three traces in a row of one
+    cooperative kernel once held its launches but no kernel record,
+    while the next call's trace held its kernels.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1627,6 +1634,7 @@ def device_us(fn, key, reps=10, tries=3):
         log(f"  device_us: trace {attempt} of {tries} holds no {key} time "
             f"({len(hits)} matching keys, {calls} calls; keys "
             f"{sorted(e.key[:60] for e in events)[:12]})")
+        time.sleep(0.5)
     return None
 
 
@@ -1660,13 +1668,9 @@ def host_parts(call, checks, buffers, launch, calls=100, pools=None,
     launch_world's device query, its cached grid and the cooperative
     launch), the parts of `more` ({name: fn}), rest (the wrapper's other
     Python: library lookup, device guard, error check, count). Asserts
-    that no warm call made a pool (`pools`: the wrapper's PoolCache, the
-    ring RS's by default)."""
+    that no warm call made a pool (`pools`: the wrapper's PoolCache; None
+    for a wrapper that keeps none)."""
     import torch
-
-    from triton_dist_tpu_torch.kernels import reduce_scatter as rs
-
-    pools = pools or rs._POOLS
 
     def per_call(fn):
         fn()
@@ -1678,7 +1682,7 @@ def host_parts(call, checks, buffers, launch, calls=100, pools=None,
         torch.cuda.synchronize()
         return dt
 
-    made = pools.made
+    made = None if pools is None else pools.made
     parts = dict(call=per_call(call), checks=per_call(checks),
                  buffers=per_call(buffers),
                  ctypes=per_call(lambda: launch(0)),
@@ -1687,7 +1691,7 @@ def host_parts(call, checks, buffers, launch, calls=100, pools=None,
     parts["launch"] -= parts["ctypes"]
     parts["rest"] = parts["call"] - sum(
         v for k, v in parts.items() if k != "call")
-    assert pools.made == made, "a warm ring call made a pool"
+    assert pools is None or pools.made == made, "a warm call made a pool"
     return parts
 
 
@@ -1833,7 +1837,7 @@ def rs_host_parts(kernels, x):
     return host_parts(
         lambda: kernels.ring_reduce_scatter(x),
         lambda: (rs._check(x), wire.resolve(None), rs._check_ring(x)),
-        lambda: rs._ring_buffers(x, x.dtype), launch)
+        lambda: rs._ring_buffers(x, x.dtype), launch, pools=rs._POOLS)
 
 
 def rs_wire_host_parts(kernels, x, fmt):
@@ -1863,7 +1867,7 @@ def rs_wire_host_parts(kernels, x, fmt):
         lambda: kernels.ring_reduce_scatter_wire(x, fmt),
         lambda: (wire.resolve(fmt), rs._check(x), rs._wire_check(x, fmt, None),
                  rs._check_ring(x), wire.wire_cols(k, fmt)),
-        lambda: rs._wire_buffers(x, fmt, x.dtype), launch)
+        lambda: rs._wire_buffers(x, fmt, x.dtype), launch, pools=rs._POOLS)
 
 
 def rs_extras(label, row, x, host, wire_row=False):
@@ -2796,7 +2800,9 @@ def run_sp(kernels, cfg, params):
 
     def ll(xp, ctx, cc, **kw):
         got, ctx = real_ll(xp, ctx, cc, **kw)
-        rec_ll.append(dict(x=xp.clone(), cc=cc, out=got.clone()))
+        rec_ll.append(dict(x=xp.clone(), cc=cc, out=got.clone(),
+                           data=ctx.data.clone(),
+                           flags=ctx.flags[:, :2 * n].clone()))
         return got, ctx
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -2866,6 +2872,11 @@ def run_sp(kernels, cfg, params):
         want_ll = llag.ll_all_gather_plain(rl["x"], twin, rl["cc"])
         if not torch.equal(rl["out"], want_ll):
             raise AssertionError(f"ll_all_gather call {i}: not bitwise")
+        if not (torch.equal(rl["data"], twin.data)
+                and torch.equal(rl["flags"], twin.flags[:, :2 * n])):
+            raise AssertionError(f"ll_all_gather call {i}: the context's "
+                                 "slots or parity flags differ from the "
+                                 "plain twin's")
         gathered = fd.sp_flash_decode(rd["q"], *cache, rd["kv_len"])
         if not torch.equal(rd["out"], gathered):
             raise AssertionError(f"SP decode step {i}: the LL exchange is "
@@ -2873,7 +2884,9 @@ def run_sp(kernels, cfg, params):
     log(f"  flash_decode_partial on the {SP_STEPS} recorded steps: max_abs_"
         f"err {fd_err:.3e} (atol {F32_ATOL:g}), band worst cos {fd_cos:.3e} "
         f"ulp {fd_ulp}; ll_all_gather {len(rec_ll)} calls bitwise its plain "
-        f"version; every step bitwise the torch-gathered exchange")
+        f"version, the context's slots and parity flags bitwise a plain "
+        f"twin's after each; every step bitwise the torch-gathered "
+        f"exchange")
 
     # row 2: sampled rows, straggler bitwise, whole at 4 x 4096
     fp_err, fp_cos, fp_ulp = sp_check_prefill(
@@ -3485,6 +3498,48 @@ def check_p2p_kernels(kernels):
             f"{P2P_STRAGGLE_NS / 1e6:g} ms: bitwise")
 
 
+def check_p2p_pools(kernels, act, calls=50):
+    """p2p_send's persistent delivery pool: `calls` back-to-back calls on
+    one stream, with no synchronisation between them, in turn over a
+    ragged payload (70 bytes a rank), the PP handoff act (4 MiB a rank:
+    the largest grid) and twice its rows (8 MiB, the grid capped), every
+    (src, dst) pair in turn, every fifth call with one rank delayed
+    P2P_STRAGGLE_NS (each rank in turn); then each result bitwise its
+    plain version, every word of every pool at zero, and no call past the
+    first made a pool. Returns {pool: bytes}."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import p2p
+
+    n = act.shape[0]
+    xs = [payload((n, 5, 7), torch.bfloat16, 300), act,
+          torch.cat([act, act], 1)]
+    pairs = [(src, dst) for src in range(n) for dst in range(n)]
+    runs, made = [], None
+    for i in range(calls):
+        x = xs[i % len(xs)]
+        src, dst = pairs[i % len(pairs)]
+        late = (i // 5 % n, P2P_STRAGGLE_NS) if i % 5 == 4 else None
+        runs.append((i, x, src, dst, late,
+                     kernels.p2p_send(x, src, dst, straggler=late)))
+        if i == 0:
+            made = p2p._POOLS.made
+    for i, x, src, dst, late, got in runs:
+        check_bitwise(f"p2p_send call {i} {tuple(x.shape)} {src}->{dst} "
+                      f"straggler {late}", got,
+                      kernels.p2p_send_plain(x, src, dst))
+    assert p2p._POOLS.made == made, "a warm p2p_send made a pool"
+    zero = all(not bool(f.any()) for f in p2p._POOLS.entries.values())
+    assert zero, "p2p_send left a delivery word set"
+    held = {f"n={k[2]}": f.numel() * 4 for k, f in p2p._POOLS.entries.items()}
+    log(f"  p2p_send: {calls} calls back to back over "
+        f"{[tuple(x.shape) for x in xs]}, every (src, dst), a straggler "
+        f"every fifth call, bitwise; every pool word at zero; "
+        f"{p2p._POOLS.made} pools made, none by a warm call; pool bytes "
+        f"{held}")
+    return held
+
+
 class P2PRecorder:
     """Within the block, every ring_shift and p2p_send call made through
     kernels/p2p.py (the PP layer's route, and p2p_read's) is recorded
@@ -3576,6 +3631,7 @@ def run_pp(kernels, cfg, params, device="cuda"):
     log(f"  {len(rec.records)} ring_shift / p2p_send launches on the PP "
         "path: bitwise their plain versions; send_backward and p2p_send "
         "(3 -> 0), p2p_read: as expected")
+    pool_bytes = check_p2p_pools(kernels, act)
     seq_ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     seq_ev[0].record()
     alone = [layers_fwd(cfg, params, x[i], range(L)) for i in range(nmb)]
@@ -3591,7 +3647,8 @@ def run_pp(kernels, cfg, params, device="cuda"):
     numbers = dict(stages=n, microbatches=nmb, tokens=s,
                    schedule_ms_first=first_ms, schedule_ms_warm=warm_ms,
                    sequential_ms=seq_ev[0].elapsed_time(seq_ev[1]),
-                   ring_shift_launches=nmb + n - 1)
+                   ring_shift_launches=nmb + n - 1,
+                   p2p_pool_bytes=pool_bytes)
     log(f"  PP schedule, {n} stages x {L // n} layers, {nmb} x 1 x {s} "
         f"tokens: bitwise the sequential {L} layers; {first_ms:.3f} ms "
         f"(warm {warm_ms:.3f}), the {nmb} microbatches alone "
@@ -3943,6 +4000,7 @@ def run_wire(kernels):
     ll_ctx = {wire_label(f): llag.create_ll_ag_buffer(
         WIRE_LL_SHAPE[:2], bf, n, wire_format=f, device=dev) for f in fmts}
     outs, want = {}, {name: 0 for name in kernel_names()}
+    ll_snaps = {}  # (call, format): the context's slots, parity flags
 
     def expect(name, k=1):
         want[name] += k
@@ -3965,6 +4023,8 @@ def run_wire(kernels):
         for i, x in enumerate(ll_x):
             outs[("ll", i, fl)], _ = kernels.ll_all_gather(
                 x, ll_ctx[fl], i, wire_format=f)
+            ll_snaps[(i, fl)] = (ll_ctx[fl].data.clone(),
+                                 ll_ctx[fl].flags[:, :2 * n].clone())
             expect("ll_all_gather")
         for name, (a, b) in grs_in.items():
             outs[("gemm_rs", name, fl)] = kernels.gemm_rs(a, b,
@@ -4013,11 +4073,21 @@ def run_wire(kernels):
             drift[("all_gather", meth.value, fl)] = wire_drift(
                 f"all_gather {meth.value} {fl}", got,
                 ag_x.reshape(1, -1, ag_x.shape[2]).expand(got.shape))
+        twin = llag.create_ll_ag_buffer(WIRE_LL_SHAPE[:2], bf, n,
+                                        wire_format=f, device=dev)
         for i, x in enumerate(ll_x):
             rt = wire.roundtrip(x.reshape(-1, x.shape[2]), f).reshape(
                 x.shape)
             check_bitwise(f"ll_all_gather {fl} call {i}",
                           outs[("ll", i, fl)], rt[None].expand(n, *x.shape))
+            xw = wire.pack(x.reshape(-1, x.shape[2]), f).reshape(
+                n, x.shape[1], -1)
+            llag.ll_all_gather_plain(xw, twin, i)
+            data, flags = ll_snaps[(i, fl)]
+            check_bitwise(f"ll_all_gather {fl} call {i}: context slots",
+                          data, twin.data)
+            check_bitwise(f"ll_all_gather {fl} call {i}: parity flags",
+                          flags, twin.flags[:, :2 * n])
         drift[("ll_all_gather", fl)] = wire_drift(
             f"ll_all_gather {fl}", outs[("ll", 0, fl)],
             ll_x[0][None].expand(n, *ll_x[0].shape))

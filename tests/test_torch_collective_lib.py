@@ -315,6 +315,56 @@ def test_p2p_world_one_returns_the_input():
         kernels.p2p_send(torch.ones(4, 3), 0, 4)
 
 
+def test_p2p_send_pool_key_is_device_stream_and_world():
+    """p2p_send's delivery pool is shared by calls on one device, stream
+    and world size, whatever their payload, dtype or ranks: every pool
+    has the same _MAX_BLOCKS words a rank."""
+    from triton_dist_tpu_torch.kernels import p2p
+
+    a, b = torch.zeros(4, 5, 7), torch.zeros(4, 512, 4096,
+                                             dtype=torch.bfloat16)
+    assert p2p._pool_key(a, 7) == (torch.device("cpu"), 7, 4)
+    assert p2p._pool_key(a, 7) == p2p._pool_key(b, 7)
+    assert p2p._pool_key(a, 7) != p2p._pool_key(a, 8)
+    assert p2p._pool_key(a, 7) != p2p._pool_key(torch.zeros(2, 5, 7), 7)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_p2p_send_flag_words_one_a_dst_block(n):
+    """Word _flag_word(dst, b) is the one word that src's block b adds
+    to and dst's block b waits on: distinct for every (dst, block), in
+    row dst of the (n, _MAX_BLOCKS) pool, and no grid _blocks_for gives
+    reaches past the row."""
+    from triton_dist_tpu_torch.kernels import p2p
+
+    words = {p2p._flag_word(d, b) for d in range(n)
+             for b in range(p2p._MAX_BLOCKS)}
+    assert words == set(range(n * p2p._MAX_BLOCKS))
+    for d in range(n):
+        assert p2p._flag_word(d, 0) // p2p._MAX_BLOCKS == d
+        assert p2p._flag_word(d, p2p._MAX_BLOCKS - 1) // p2p._MAX_BLOCKS == d
+    for nbytes in (1, 70, 32 << 10, (32 << 10) + 1, 4 << 20, 8 << 20,
+                   1 << 30):
+        assert 1 <= p2p._blocks_for(nbytes) <= p2p._MAX_BLOCKS
+
+
+def test_p2p_send_blocks_and_body_by_bytes():
+    """A block a _BLOCK_BYTES, rounded up and capped: the PP handoff's 4
+    MiB a rank takes every pool word; the bulk body wherever the bytes
+    and pointers are 16-byte aligned, the register body else."""
+    from triton_dist_tpu_torch.kernels import p2p
+
+    assert p2p._blocks_for(70) == 1
+    assert p2p._blocks_for(p2p._BLOCK_BYTES + 1) == 2
+    assert p2p._blocks_for(512 * 4096 * 2) == p2p._MAX_BLOCKS == 128
+    assert p2p._blocks_for(1 << 30) == p2p._MAX_BLOCKS
+    for nbytes in (16, 32 << 10, 512 * 4096 * 2):
+        assert p2p._body_for(nbytes, True) == "bulk"
+        assert p2p._body_for(nbytes, False) == "reg"
+        assert p2p._body_for(nbytes + 8, True) == "reg"
+    assert p2p._body_for(70, True) == "reg"
+
+
 # -- out of scope -----------------------------------------------------------
 
 

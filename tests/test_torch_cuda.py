@@ -1504,6 +1504,44 @@ def test_ll_all_gather_kernel_matches_plain_bitwise(cuda, n, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("fmt", [None, "fp8", "int8", ("int8", 128, False)],
+                         ids=["native", "fp8", "int8", "int8-block128"])
+def test_ll_all_gather_keeps_the_context_bitwise(cuda, n, fmt):
+    """Ten calls on one context through the kernel at the wrapper's grid
+    (a block a peer): every gathered copy bitwise x gathered, the
+    context's slots and parity flags bitwise a plain twin's after each
+    call. On a quantized wire the calls move the int8 images of the SP
+    decode payload (the wrapper's pack) through the same kernel; the
+    wrapper's own wire call then matches the roundtrip."""
+    from triton_dist_tpu_torch import wire
+
+    rng = np.random.default_rng(40 + n)
+    shape = (4, 4224)
+    f = None if fmt is None else _wire_fmt(fmt)
+    ctx = llag.create_ll_ag_buffer(shape, torch.float32, n, wire_format=f,
+                                   device="cuda")
+    twin = llag.create_ll_ag_buffer(shape, torch.float32, n, wire_format=f,
+                                    device="cuda")
+    for call in range(10):
+        x = _payload(rng, n, shape, torch.float32)
+        if f is not None:
+            x = wire.pack(x.reshape(-1, shape[-1]), f).reshape(
+                n, shape[0], -1)
+        got = llag._launch(x, ctx, call)
+        llag.ll_all_gather_plain(x, twin, call)
+        torch.cuda.synchronize()
+        assert torch.equal(got, x[None].expand(n, *x.shape)), call
+        assert torch.equal(ctx.data, twin.data), call
+        assert torch.equal(ctx.flags[:, :2 * n], twin.flags[:, :2 * n]), call
+    if f is not None:
+        x = _payload(rng, n, shape, torch.float32)
+        got, _ = llag.ll_all_gather(x, ctx, 10, wire_format=f)
+        rt = wire.roundtrip(x.reshape(-1, shape[-1]), f).reshape(x.shape)
+        assert torch.equal(got, rt[None].expand(n, *x.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("heads", SP_HEADS, ids=["tiny", "qwen3-8b"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_sp_flash_prefill_kernel_matches_plain(cuda, n, heads, dtype):
@@ -1828,6 +1866,50 @@ def test_p2p_send_kernel_matches_plain_bitwise(cuda, n, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("body", [None, "reg", "bulk"],
+                         ids=["wrapper", "reg", "bulk"])
+def test_p2p_send_back_to_back_leaves_the_pool_at_zero(cuda, n, body):
+    """p2p_send's persistent delivery pool: every (src, dst) pair, each
+    with no rank and then each rank delayed 2 ms, over a payload that is
+    not a multiple of 16 bytes (register body only), the 4 MiB PP
+    handoff and 8 MiB a rank (the largest grid, capped at the pool's
+    words), all launched back to back with no synchronisation between
+    them; then every result bitwise its plain version, every pool word
+    at zero and no pool made after the first call."""
+    from triton_dist_tpu_torch.kernels import _build, p2p
+
+    rng = np.random.default_rng(30 + n)
+    shapes = [(512, 4096), (1024, 4096)]
+    if body != "bulk":
+        shapes.insert(0, (5, 7))
+    runs, made = [], None
+    for shape in shapes:
+        x = _payload(rng, n, shape, torch.bfloat16)
+        grid = _build.GridInfo()
+        for src in range(n):
+            for dst in range(n):
+                for late in [None, *range(n)]:
+                    straggler = None if late is None else (late, 2_000_000)
+                    got = p2p._launch_p2p(x, src, dst, straggler, body=body,
+                                          grid=grid)
+                    runs.append((x, src, dst, late, got))
+                    if made is None:
+                        made = p2p._POOLS.made
+        if shape[0] >= 512:  # 4 MiB a rank and more take every pool word
+            assert p2p._blocks_for(x[0].numel() * 2) == p2p._MAX_BLOCKS
+        assert 1 <= grid.per_rank <= p2p._MAX_BLOCKS
+    torch.cuda.synchronize()
+    for x, src, dst, late, got in runs:
+        assert torch.equal(got, p2p.p2p_send_plain(x, src, dst)), (
+            tuple(x.shape), src, dst, late)
+    assert p2p._POOLS.made == made
+    for flags in p2p._POOLS.entries.values():
+        assert flags.shape[1] == p2p._MAX_BLOCKS
+        assert not bool(flags.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.uint8])
 def test_ring_shift_kernel_matches_plain_bitwise(cuda, n, dtype):
@@ -1886,8 +1968,9 @@ def test_pp_schedule_on_the_card_matches_sequential_layers(cuda):
 
 
 # flags of the PP and collective-library kernels that no put ever
-# satisfies: the delivery words start far below zero (the barrier word
-# at zero), so the first wait for an arrival must trap
+# satisfies: the delivery words start far below zero (a barrier word at
+# zero; p2p_send's pool has no barrier word, one delivery word a block),
+# so the first wait for an arrival must trap
 _P2P_FAULT = r"""
 import sys, torch
 from triton_dist_tpu_torch.kernels import _build
@@ -1909,13 +1992,16 @@ if kernel == "full_mesh_all_gather":
 else:
     lib = _build.load("p2p", p2p._SIGNATURES)
     out = torch.empty_like(x)
-    flags = torch.full((n, lib.p2p_flag_words()), -1000, device="cuda",
-                       dtype=torch.int32)
-    flags[:, 0] = 0
     if kernel == "p2p_send":
+        flags = torch.full((n, p2p._MAX_BLOCKS), -1000, device="cuda",
+                           dtype=torch.int32)
         err = lib.p2p_launch(x.data_ptr(), out.data_ptr(), flags.data_ptr(),
-                             n, nbytes, 0, 3, -1, 0, 2, grid.ptr(), st)
+                             p2p._MAX_BLOCKS, n, nbytes, 0, 3, -1, 0, 2, 0,
+                             grid.ptr(), st)
     else:
+        flags = torch.full((n, lib.p2p_flag_words()), -1000, device="cuda",
+                           dtype=torch.int32)
+        flags[:, 0] = 0
         err = lib.ring_shift_launch(x.data_ptr(), out.data_ptr(),
                                     flags.data_ptr(), n, nbytes, 1, -1, 0, 2,
                                     grid.ptr(), st)

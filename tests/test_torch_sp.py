@@ -184,6 +184,31 @@ def test_ll_all_gather_matches_jax_bitwise(n):
         llag.ll_all_gather(x, ctx, 3, wire_format="fp8")
 
 
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_ll_all_gather_context_after_each_of_eight_calls(n):
+    """The protocol's state, which the kernel is held to on the card:
+    after call k on one context, parity k % 2's slots hold call k's
+    payloads in every rank's partition and its flags read k + 1, the
+    other parity still holds call k - 1's (zero before any), and the
+    barrier's word is untouched; a negative call index is refused."""
+    rows, cols = 3, 5
+    ctx = llag.create_ll_ag_buffer((rows, cols), torch.float32, n,
+                                   device="cpu")
+    xs = [_t(_rand(30 + k, n, rows, cols)) for k in range(8)]
+    for k, x in enumerate(xs):
+        got, ctx = llag.ll_all_gather(x, ctx, k)
+        assert torch.equal(got, x[None].expand(n, *x.shape))
+        p, q = k % 2, 1 - k % 2
+        assert torch.equal(ctx.data[:, p], x[None].expand(n, *x.shape))
+        assert ctx.flags[:, p * n:(p + 1) * n].eq(k + 1).all()
+        before = xs[k - 1] if k else torch.zeros_like(x)
+        assert torch.equal(ctx.data[:, q], before[None].expand(n, *x.shape))
+        assert ctx.flags[:, q * n:(q + 1) * n].eq(k).all()
+        assert ctx.flags[:, 2 * n].eq(0).all()
+    with pytest.raises(ValueError, match="call_count"):
+        llag.ll_all_gather(xs[0], ctx, -1)
+
+
 # -- sp_flash_decode and the SP decode layer --------------------------------
 
 

@@ -104,10 +104,7 @@ namespace {
 
 constexpr int kThreads = 512;  // register body
 constexpr int kUnits = 8;      // words a thread has in flight a tile
-constexpr int kBulkThreads = 128;
-constexpr int kStages = 4;
-constexpr int kStageBytes = 16384;
-constexpr unsigned kSleepNs = 64;
+constexpr int kBulkThreads = 128;  // bulk body: thread 0 streams
 
 struct A2A {
   const void* x;
@@ -129,42 +126,16 @@ struct Plan {
 
 Plan plan(long long chunk, bool bulk) {
   const long long cap =
-      bulk ? kStageBytes / 16 : (long long)kThreads * kUnits;
+      bulk ? hopper::kBulkStageBytes / 16 : (long long)kThreads * kUnits;
   const long long parts = (chunk + cap - 1) / cap;
   return {int(parts), (chunk + parts - 1) / parts};
 }
 
-// One fence, then relaxed adds: a release pattern (the PTX memory
-// model's fence.acq_rel followed by strong writes) that costs one fence
-// for n flags, where n red.release adds cost n.
-__device__ __forceinline__ void fence_acq_rel() {
-  asm volatile("fence.acq_rel.gpu;" ::: "memory");
-}
-
-__device__ __forceinline__ void red_add_relaxed(int* p, int v) {
-  asm volatile("red.relaxed.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// the waiter's reset: no release needed, the next launch on the stream
-// starts after this one ends
-__device__ __forceinline__ void st_relaxed(int* p, int v) {
-  asm volatile("st.relaxed.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-// read-only data: the non-coherent path, no L1 allocation
-__device__ __forceinline__ uint4 ld_nc(const uint4* p) {
-  uint4 v;
-  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-      : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ unsigned char ld_nc(const unsigned char* p) {
-  return __ldg(p);
-}
+// The fence-once publication (fence_acq_rel, red_add_relaxed,
+// st_relaxed) is shmem.cuh's.
+using shmem::fence_acq_rel;
+using shmem::red_add_relaxed;
+using shmem::st_relaxed;
 
 // tile k of chunk c at rank me: its source, destination and words
 template <typename W>
@@ -181,58 +152,36 @@ __device__ __forceinline__ long long tile_at(const A2A& a, int me, int n,
 }
 
 // the register body's copy of one tile (cnt <= kThreads * kUnits
-// words): all loads, then all stores, each at a constant offset from the
-// thread's first word
+// words): shmem.cuh's copy_pass, to one end
 template <typename W>
 __device__ __forceinline__ void copy_tile(W* dst, const W* src, int cnt) {
-  const W* s = src + threadIdx.x;
-  W* d = dst + threadIdx.x;
-  const int left = cnt - int(threadIdx.x);
-  W v[kUnits];
-#pragma unroll
-  for (int u = 0; u < kUnits; ++u)
-    if (u * kThreads < left) v[u] = ld_nc(s + u * kThreads);
-#pragma unroll
-  for (int u = 0; u < kUnits; ++u)
-    if (u * kThreads < left) d[u * kThreads] = v[u];
+  shmem::copy_pass<kThreads, kUnits>(dst, static_cast<W*>(nullptr), src,
+                                     cnt);
 }
 
 // The bulk body's chunk c: thread 0 streams this block's tiles through
-// the stages (the load of tile j + kStages - 1 waits until the store of
-// tile j - 1 has read its stage), then waits for every store and fences
-// the async proxy before the generic-proxy release that publishes them.
-// `phase` keeps each stage's mbarrier parity across chunks.
+// the stages (hopper.cuh bulk_stream), which ends with every store
+// complete and the async proxy fenced, before the generic-proxy release
+// that publishes them. `phase` keeps each stage's mbarrier parity across
+// chunks.
 __device__ __forceinline__ void bulk_chunk(const A2A& a, int me, int n, int c,
                                            uint32_t stages, uint32_t bars,
                                            uint32_t* phase) {
   const int G = gridDim.x, tiles = n * a.parts;
   const int mine = blockIdx.x < tiles ? (tiles - blockIdx.x + G - 1) / G : 0;
-  auto load = [&](int j) {
-    const uint4* src;
-    uint4* dst;
-    const long long cnt = tile_at(a, me, n, c, blockIdx.x + j * G, &src, &dst);
-    const int s = j % kStages;
-    hopper::mbar_expect_tx(bars + 8 * s, uint32_t(cnt * 16));
-    hopper::bulk_load(stages + s * kStageBytes, src, uint32_t(cnt * 16),
-                      bars + 8 * s);
-  };
-  for (int j = 0; j < min(kStages, mine); ++j) load(j);
-  for (int j = 0; j < mine; ++j) {
-    const int s = j % kStages;
-    hopper::mbar_wait_quiet(bars + 8 * s, (*phase >> s) & 1u);
-    *phase ^= 1u << s;
-    const uint4* src;
-    uint4* dst;
-    const long long cnt = tile_at(a, me, n, c, blockIdx.x + j * G, &src, &dst);
-    hopper::bulk_store(dst, stages + s * kStageBytes, uint32_t(cnt * 16));
-    hopper::bulk_commit();
-    if (j >= 1 && j - 1 + kStages < mine) {
-      hopper::bulk_wait_read<1>();
-      load(j - 1 + kStages);
-    }
-  }
-  hopper::bulk_wait_all();
-  hopper::fence_proxy_async_global();
+  hopper::bulk_stream(
+      mine,
+      [&](int j, const void** src, void** d0, void** d1) {
+        const uint4* s;
+        uint4* d;
+        const long long cnt =
+            tile_at(a, me, n, c, blockIdx.x + j * G, &s, &d);
+        *src = s;
+        *d0 = d;
+        *d1 = nullptr;
+        return uint32_t(cnt * 16);
+      },
+      stages, bars, phase);
 }
 
 // this block's stores of chunk c (and block 0's splits rows), ordered by
@@ -269,11 +218,12 @@ __device__ __forceinline__ void a2a_body(const A2A& a, const char* name) {
   uint32_t stages = 0, bars = 0, phase = 0;
   if constexpr (kBulk) {
     extern __shared__ __align__(128) unsigned char smem[];
-    __shared__ __align__(8) uint64_t bar[kStages];
+    __shared__ __align__(8) uint64_t bar[hopper::kBulkStages];
     stages = hopper::smem_addr(smem);
     bars = hopper::smem_addr(bar);
     if (threadIdx.x == 0) {
-      for (int s = 0; s < kStages; ++s) hopper::mbar_init(bars + 8 * s, 1);
+      for (int s = 0; s < hopper::kBulkStages; ++s)
+        hopper::mbar_init(bars + 8 * s, 1);
       hopper::mbar_init_fence();
     }
   }
@@ -298,7 +248,7 @@ __device__ __forceinline__ void a2a_body(const A2A& a, const char* name) {
       const int c = k / n, i = k - c * n;
       const int slot = kChunked ? i * a.q + c : (me - i + n) % n;
       shmem::spin_until(mine + slot, shmem::kEq, G, name, me, slot,
-                        kSleepNs);
+                        shmem::kPollNs);
       st_relaxed(mine + slot, 0);
     }
 }
@@ -322,7 +272,8 @@ template <typename W, bool kBulk>
 cudaError_t launch(bool chunked, const A2A& a, int n, int blocks, int* info,
                    cudaStream_t st) {
   const int threads = kBulk ? kBulkThreads : kThreads;
-  const size_t smem = kBulk ? size_t(kStages) * kStageBytes : 0;
+  const size_t smem =
+      kBulk ? size_t(hopper::kBulkStages) * hopper::kBulkStageBytes : 0;
   return chunked ? shmem::launch_world(a2a_chunked_kernel<W, kBulk>, n,
                                        blocks, threads, smem, st, info, a)
                  : shmem::launch_world(a2a_kernel<W, kBulk>, n, blocks,

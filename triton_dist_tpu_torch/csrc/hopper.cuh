@@ -1,6 +1,7 @@
 // Hopper building blocks for the port's warp-specialised kernels
 // (the wgmma bodies of allgather_gemm.cu, gemm_reduce_scatter.cu and
-// flash_prefill.cu): mbarriers, TMA tensor loads, the
+// flash_prefill.cu) and the bulk bodies of all_to_all.cu and p2p.cu:
+// mbarriers, TMA tensor loads, bulk copies (bulk_stream), the
 // async-proxy fence, wgmma on shared-memory descriptors and register
 // rebalancing. Written by hand from the PTX ISA (sm_90a); no CUTLASS
 // collective is instantiated.
@@ -328,6 +329,57 @@ __device__ __forceinline__ void bulk_wait_read() {
 // writes performed)
 __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// The staged bulk copy of the data-movement kernels (the all-to-all's
+// and p2p_send's bulk bodies): one thread streams tiles of at most
+// kBulkStageBytes through kBulkStages shared-memory stages at `stages`
+// (a block's dynamic shared memory, kBulkStages * kBulkStageBytes), each
+// on its mbarrier at bars + 8 s (initialised with count 1).
+constexpr int kBulkStages = 4;
+constexpr int kBulkStageBytes = 16384;
+
+// tile(j, &src, &dst0, &dst1) gives tile j's source, its end and a
+// second end or nullptr, and returns its bytes (a multiple of 16, at
+// most kBulkStageBytes; 16-byte-aligned addresses). Tile j is loaded
+// global -> shared on its stage's mbarrier, then stored shared -> global
+// to each end in a bulk group; the load of tile j + kBulkStages - 1 is
+// issued once the stores of tile j - 1 have read its stage. At the end
+// every store has completed and the async proxy is fenced, so the
+// caller's generic-proxy publication may follow. `phase` keeps each
+// stage's mbarrier parity across calls on the same stages.
+template <typename Tile>
+__device__ __forceinline__ void bulk_stream(int tiles, Tile tile,
+                                            uint32_t stages, uint32_t bars,
+                                            uint32_t* phase) {
+  auto load = [&](int j) {
+    const void* src;
+    void* d0;
+    void* d1;
+    const uint32_t bytes = tile(j, &src, &d0, &d1);
+    const int s = j % kBulkStages;
+    mbar_expect_tx(bars + 8 * s, bytes);
+    bulk_load(stages + s * kBulkStageBytes, src, bytes, bars + 8 * s);
+  };
+  for (int j = 0; j < min(kBulkStages, tiles); ++j) load(j);
+  for (int j = 0; j < tiles; ++j) {
+    const int s = j % kBulkStages;
+    mbar_wait_quiet(bars + 8 * s, (*phase >> s) & 1u);
+    *phase ^= 1u << s;
+    const void* src;
+    void* d0;
+    void* d1;
+    const uint32_t bytes = tile(j, &src, &d0, &d1);
+    bulk_store(d0, stages + s * kBulkStageBytes, bytes);
+    if (d1) bulk_store(d1, stages + s * kBulkStageBytes, bytes);
+    bulk_commit();
+    if (j >= 1 && j - 1 + kBulkStages < tiles) {
+      bulk_wait_read<1>();
+      load(j - 1 + kBulkStages);
+    }
+  }
+  bulk_wait_all();
+  fence_proxy_async_global();
 }
 
 // Order this thread's generic-proxy writes of shared memory before later

@@ -14,26 +14,44 @@
 //   flags (n ranks, 2 n + 1) int32: word parity * n + s of rank r is the
 //         delivery flag of slot (parity, s), the last word the entry
 //         barrier's counter.
-// Call k: block j of rank me puts x[me] into slot (k % 2, me) of peer
-// (me + j) mod n (the own slot at j = 0) and sets that slot's flag to
-// k + 1 with release; then it waits, by value, until the flag of its own
-// slot (k % 2, (me - j) mod n) reads k + 1, and copies that slot into
-// out[me]. No flag is ever reset: a flag that reads k + 1 can only have
-// been set by call k. The result is copied out, not aliased: call k + 2
-// rewrites the same parity's slots. Only the first call on a fresh
-// context barriers (the peers must be inside the kernel before the
-// first puts land; afterwards the flags order everything).
+// Call k: for each of its peers (me + j) mod n (the own rank at j = 0),
+// a block of rank me reads x[me] once and stores it both into slot
+// (k % 2, me) of the peer's partition and straight into the peer's
+// result out[peer, me]. Then it publishes all its puts at once (the
+// fence-once rule of shmem.cuh): one block barrier, thread 0's one
+// fence.acq_rel.gpu and a relaxed store of k + 1 to each of those slots'
+// flags. Then thread 0 waits, by value, until the flag of each slot it
+// owns, (k % 2, (me - j) mod n), reads k + 1, polling with a 64 ns
+// backoff cap. No flag is ever reset: a flag that reads k + 1 can only
+// have been set by call k. Only the first call on a fresh context
+// barriers (the peers must be inside the kernel before the first puts
+// land; afterwards the flags order everything).
 //
-// Why call k + 2 cannot overwrite a slot that call k is still reading:
-// the JAX argument (a peer's call k + 2 waits on our call k + 1 put,
-// which follows our call k reads in program order) holds, and on one
-// card consecutive launches on a stream are ordered besides.
+// The data moves once: the sender writes out itself (a fresh output
+// that the wrapper allocates each call, partitioned by rank, as the
+// all-to-all's), so no copy of a slot into out sits behind the flag, and
+// the wait only orders completion. The slots still receive what the
+// plain version writes there, so a context holds the same bytes whichever
+// version ran. Call k + 2 rewriting a
+// slot of call k cannot race a reader: nothing reads the slots in the
+// launch, and consecutive launches on a stream are ordered.
+//
+// The grid: a block a peer, n blocks a rank. On an H100 one block a
+// rank was 2.7x slower at the SP decode payload, 2.1-2.3x at phase 4w's
+// and at 16 bytes, where its puts' loads wait one after another, and two
+// blocks 1.35-1.55x (PERF.md). Block j takes the peers j, j + gridDim.x,
+// ...: its puts first, then its waits, so a block holding several peers
+// (launch_world caps the grid where the card holds fewer blocks) cannot
+// deadlock. The launch is cooperative (shmem.cuh
+// launch_world), so every spin can only wait on a block that is
+// running, and every spin is bounded and traps.
 //
 // What bounds it: latency, not bytes. A flash-decode exchange moves
 // n (n - 1) payloads of 67,584 bytes at world 4: 0.8 MB, 0.24 us of
-// HBM time. Each block does one put and one wait; all n ranks run in one
-// cooperative launch (shmem.cuh launch_world), so every spin can only
-// wait on a block that is running, and every spin is bounded and traps.
+// HBM time. On an H100 the same launch on 16 bytes a rank takes 2.5 us
+// (the cooperative launch of 16 blocks and one flag round trip), and a
+// block's two stores of 67,584 bytes another 2.6: one SM's store rate
+// (tools/profile_p2p_ll.py, PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,7 +60,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// kUnits 16-byte loads in flight a thread. On an H100 the SP decode
+// payload took 5.1-5.3 us at 512 x 8 and 256 x 16 alike, 5.4 at 512 x
+// 16 (128 registers, spilling) and 6.1 at 1024 x 8 (spilling), whose
+// 16-byte floor also rose from 2.5 to 2.9 us (tools/profile_p2p_ll.py,
+// rebuilt at each shape)
+constexpr int kThreads = 512;
+constexpr int kUnits = 8;
 
 __global__ void __launch_bounds__(kThreads)
 ll_ag_kernel(const char* __restrict__ x, char* data, int* flags, char* out,
@@ -51,24 +75,24 @@ ll_ag_kernel(const char* __restrict__ x, char* data, int* flags, char* out,
   const int words = 2 * n + 1;  // flag words a rank
   if (first)
     shmem::barrier_all(flags, words, 2 * n, me, n, "ll_all_gather");
-  auto slot = [&](int rank, int s) {
-    return data + ((size_t(rank) * 2 + parity) * n + s) * bytes;
-  };
-  // the puts first, then the waits: a put never waits, so a block
-  // holding several peers (a grid smaller than n) cannot deadlock
+  const char* mine = x + size_t(me) * bytes;
   for (int j = blockIdx.x; j < n; j += gridDim.x) {
     const int peer = (me + j) % n;
-    shmem::put_slot(slot(peer, me), x + size_t(me) * bytes, bytes,
-                    flags + size_t(peer) * words + parity * n + me, value,
-                    false);
+    shmem::copy_nc<kThreads, kUnits>(
+        data + ((size_t(peer) * 2 + parity) * n + me) * bytes,
+        out + (size_t(peer) * n + me) * bytes, mine, bytes);
   }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  shmem::fence_acq_rel();
+  for (int j = blockIdx.x; j < n; j += gridDim.x)
+    shmem::st_relaxed(
+        flags + size_t((me + j) % n) * words + parity * n + me, value);
   for (int j = blockIdx.x; j < n; j += gridDim.x) {
     const int src = (me - j + n) % n;
-    shmem::signal_wait_until(flags + size_t(me) * words + parity * n + src,
-                             shmem::kEq, value, "ll_all_gather", me,
-                             parity * n + src);
-    shmem::copy_block(out + (size_t(me) * n + src) * bytes, slot(me, src),
-                      bytes);
+    shmem::spin_until(flags + size_t(me) * words + parity * n + src,
+                      shmem::kEq, value, "ll_all_gather", me,
+                      parity * n + src, shmem::kPollNs);
   }
 }
 
@@ -76,7 +100,8 @@ ll_ag_kernel(const char* __restrict__ x, char* data, int* flags, char* out,
 
 // One call on the context (data, flags): parity = call_count % 2,
 // value = call_count + 1, first = 1 on a fresh context. info receives
-// the grid (shmem.cuh launch_world). Returns a cudaError_t (0 = launched).
+// the grid (shmem.cuh launch_world). Returns a cudaError_t (0 =
+// launched).
 extern "C" int ll_ag_launch(const void* x, void* data, void* flags,
                             void* out, int n, long long bytes,
                             int call_count, int first, int* info,

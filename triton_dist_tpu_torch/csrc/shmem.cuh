@@ -14,15 +14,36 @@
 // it a cooperative launch, so every block is resident and a spin can
 // only wait on blocks that are running.
 //
-// Memory order, the one rule every kernel here follows: a writer does
-// all its stores, then __syncthreads(), then one thread __threadfence()
-// and the release store / release add of the flag; a reader does one
-// acquire load of the flag (one thread), then __syncthreads(), then
-// reads the data with ld.global.cg (__ldcg, past L1, which is not
-// coherent across SMs). The ring ReduceScatter's hops leave out the
-// __threadfence: the release add is cumulative over the barrier
-// (reduce_scatter.cu ring_signal). The all-to-all publishes n flags at
-// once with one fence.acq_rel.gpu and relaxed adds (all_to_all.cu).
+// Memory order: two publication rules.
+//
+// The release rule (put_slot, signal_set / signal_add, barrier_all,
+// neighbor_barrier): a writer does all its stores, then __syncthreads(),
+// then one thread __threadfence() and the release store / release add of
+// the flag; a reader does one acquire load of the flag (one thread),
+// then __syncthreads(), then reads the data with ld.global.cg (__ldcg,
+// past L1, which is not coherent across SMs). A release add is a fence
+// of its own, so a thread that signals k flags this way pays k fences.
+// The kernels that still publish through put_slot: the SP flash
+// prefill's segment push (segment_collect_start, flash_prefill.cu), the
+// full-mesh AllGather (fcollect, allgather.cu fm_ag_kernel) and
+// ring_shift (p2p.cu ring_shift_kernel). The ring ReduceScatter's hops
+// leave out the __threadfence: the release add is cumulative over the
+// barrier (reduce_scatter.cu ring_signal).
+//
+// The fence-once rule (the all-to-all, the low-latency AllGather,
+// p2p_send): a block's stores, one __syncthreads(), then thread 0's one
+// fence_acq_rel() and relaxed flag writes (red_add_relaxed, st_relaxed)
+// for every flag the block publishes. The barrier orders every thread's
+// stores before thread 0's fence, and a fence.acq_rel followed by strong
+// writes is a release pattern, cumulative over what the barrier ordered:
+// one fence for any number of flags. The reader's acquire spin
+// (spin_until) waits with a kPollNs backoff cap. A pooled delivery flag
+// (one that persists across launches) has a single waiter, which clears
+// it (st_relaxed 0) after its wait: no later add of the launch reaches
+// it, and the next launch on the stream starts after this one ended, so
+// every launch finds and leaves the pool at zero. A data path that reads
+// a launch's input (nothing writes it during the launch) reads it
+// through ld_nc, the non-coherent path.
 //
 // Every spin is bounded: past kWaitBoundNs the waiting thread prints
 // (kernel, rank, flag index, value) and executes __trap(). The launch
@@ -70,6 +91,47 @@ __device__ __forceinline__ void atom_add_release(int* p, int v) {
   asm volatile("red.release.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v)
                : "memory");
 }
+
+// ---- the fence-once rule (header comment) ------------------------------
+
+// the waits' backoff cap of the fence-once kernels: a 1024 ns cap can
+// overshoot an arrival by up to ~1 us
+constexpr unsigned kPollNs = 64;
+
+// One fence, then relaxed writes: a release pattern (the PTX memory
+// model's fence.acq_rel followed by strong writes) that costs one fence
+// for any number of flags, where k red.release adds cost k.
+__device__ __forceinline__ void fence_acq_rel() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+__device__ __forceinline__ void red_add_relaxed(int* p, int v) {
+  asm volatile("red.relaxed.gpu.global.add.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// a relaxed flag write: a value published behind fence_acq_rel, or the
+// single waiter's reset (no release needed: the next launch on the
+// stream starts after this one ends)
+__device__ __forceinline__ void st_relaxed(int* p, int v) {
+  asm volatile("st.relaxed.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// read-only data: the non-coherent path, no L1 allocation
+__device__ __forceinline__ uint4 ld_nc(const uint4* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ unsigned char ld_nc(const unsigned char* p) {
+  return __ldg(p);
+}
+
+// ---- the release rule (header comment) -----------------------------------
 
 // signal_set / signal_add: publish this block's stores, then set / add
 // the flag. Memory-order rule of the header: stores, __syncthreads(),
@@ -188,6 +250,56 @@ __device__ __forceinline__ void copy_block(void* dst, const void* src,
   }
   for (long long i = head + threadIdx.x; i < bytes; i += blockDim.x)
     d[i] = __ldcg(s + i);
+}
+
+// One pass of a block of T threads over cnt <= T * U words of a
+// launch's input src (read once through ld_nc: nothing may write it
+// during the launch) into dst0 and, unless it is null, dst1: each thread
+// issues its U loads, then its stores, each at a constant offset from
+// its first word. W: uint4 (16-byte-aligned addresses) or unsigned char.
+template <int T, int U, typename W>
+__device__ __forceinline__ void copy_pass(W* dst0, W* dst1, const W* src,
+                                          int cnt) {
+  const W* s = src + threadIdx.x;
+  const int left = cnt - int(threadIdx.x);
+  W v[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (u * T < left) v[u] = ld_nc(s + u * T);
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (u * T < left) {
+      dst0[threadIdx.x + u * T] = v[u];
+      if (dst1) dst1[threadIdx.x + u * T] = v[u];
+    }
+}
+
+// Block-wide copy of `bytes` bytes of a launch's input src into dst0
+// and, unless it is null, dst1, by a block of T threads: copy_pass over
+// 16-byte words where all addresses are 16-byte aligned, else (and for
+// the tail) over bytes.
+template <int T, int U>
+__device__ __forceinline__ void copy_nc(char* dst0, char* dst1,
+                                        const char* src, long long bytes) {
+  long long head = 0;
+  if (((reinterpret_cast<uintptr_t>(dst0) | reinterpret_cast<uintptr_t>(src) |
+        reinterpret_cast<uintptr_t>(dst1)) & 15) == 0) {
+    const long long words = bytes / 16;
+    uint4* d0 = reinterpret_cast<uint4*>(dst0);
+    uint4* d1 = reinterpret_cast<uint4*>(dst1);
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    for (long long p = 0; p < words; p += T * U)
+      copy_pass<T, U>(d0 + p, d1 ? d1 + p : nullptr, s + p,
+                      int(min(words - p, (long long)T * U)));
+    head = words * 16;
+  }
+  unsigned char* d0 = reinterpret_cast<unsigned char*>(dst0) + head;
+  unsigned char* d1 =
+      dst1 ? reinterpret_cast<unsigned char*>(dst1) + head : nullptr;
+  const unsigned char* s = reinterpret_cast<const unsigned char*>(src) + head;
+  for (long long p = 0; p < bytes - head; p += T)
+    copy_pass<T, 1>(d0 + p, d1 ? d1 + p : nullptr, s + p,
+                    int(min(bytes - head - p, (long long)T)));
 }
 
 // The share [lo, hi) of `bytes` that block `block` of `blocks` moves:

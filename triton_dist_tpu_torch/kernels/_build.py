@@ -18,6 +18,7 @@ version.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -212,6 +213,25 @@ def card_sms(device) -> int:
     import torch
 
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def raw_stream(device) -> int:
+    """The current stream of a CUDA device as its raw handle, what a C
+    entry takes: a `torch.cuda.Stream` object costs microseconds a call,
+    the handle does not."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def on_device(device):
+    """A device guard for a launch on `device`, entered only where it is
+    not the current device (entering one costs microseconds a call)."""
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def straggler_args(straggler, n: int) -> Tuple[int, int]:

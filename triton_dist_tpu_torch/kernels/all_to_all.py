@@ -38,7 +38,6 @@ share (csrc/all_to_all.cu `plan`).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Optional, Tuple
 
@@ -197,8 +196,7 @@ def _splits(x: torch.Tensor, splits: torch.Tensor) -> torch.Tensor:
 def _buffers(x: torch.Tensor, sp: torch.Tensor, q: int):
     """A call's outputs, its flag pool and the stream: everything the
     launch needs but the launch."""
-    # the raw handle: a Stream object costs microseconds a call
-    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
+    stream = _build.raw_stream(x.device)
     flags = _POOLS.get(_pool_key(x, stream, q), lambda: VirtualWorld.of(
         x).flags(_flag_words(x.shape[0], q)))
     return torch.empty_like(x), torch.empty_like(sp), flags, stream
@@ -221,10 +219,7 @@ def _launch(name: str, x: torch.Tensor, splits: torch.Tensor, q: int,
     out, out_sp, flags, stream = _buffers(x, sp, q)
     lib = _build.load("all_to_all", _SIGNATURES)
     grid = _build.GridInfo() if grid is None else grid
-    # a device guard only where x is not on the current device
-    with (contextlib.nullcontext()
-          if x.device.index == torch.cuda.current_device()
-          else torch.cuda.device(x.device)):
+    with _build.on_device(x.device):
         err = lib.a2a_launch(x.data_ptr(), out.data_ptr(), sp.data_ptr(),
                              out_sp.data_ptr(), flags.data_ptr(), n,
                              seg // word, sp.numel() // (n * n), q, word,

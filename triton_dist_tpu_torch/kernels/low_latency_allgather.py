@@ -15,9 +15,12 @@ result (n, n, ...) holds at [r] rank r's copy of all n payloads in rank
 order. Two implementations of one contract:
 
   ll_all_gather — the hand-written CUDA kernel
-      (csrc/low_latency_allgather.cu). Launches on a CUDA tensor, or
-      raises; on a CPU tensor it runs the plain version (no kernel
-      exists there).
+      (csrc/low_latency_allgather.cu): each rank stores its payload into
+      its slot of every peer's context and straight into every peer's
+      result, publishes with one fence a block, and waits on its flags by
+      value, a block a peer. Launches on a CUDA tensor, or raises; on a
+      CPU tensor it runs the plain version (no kernel exists there). A
+      warm call allocates only its output.
   ll_all_gather_plain — the same protocol's effect in plain torch: the
       slots and flags of the context written as the kernel writes them,
       and the gathered copy read back.
@@ -163,11 +166,11 @@ def _launch(x: torch.Tensor, ctx: SymmetricContext,
         return out
     lib = _build.load("low_latency_allgather", _SIGNATURES)
     grid = _build.GridInfo()
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.device):
         err = lib.ll_ag_launch(
             x.data_ptr(), ctx.data.data_ptr(), ctx.flags.data_ptr(),
             out.data_ptr(), n, nbytes, call_count, int(call_count == 0),
-            grid.ptr(), torch.cuda.current_stream().cuda_stream)
+            grid.ptr(), _build.raw_stream(x.device))
     _build.check("ll_all_gather", err, lib.ll_ag_error_string, grid)
     _build.count_launch("ll_all_gather")
     return out
