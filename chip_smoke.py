@@ -1638,24 +1638,39 @@ def device_us(fn, key, reps=10, tries=5):
     return None
 
 
-def device_us_total(fn, reps=10):
-    """Device µs a call of fn: every kernel's time in a torch.profiler
-    trace of `reps` calls, over reps (for a call of one library kernel
-    whose name we do not pin). None when the trace holds no device
-    time."""
+def device_us_total(fn, reps=10, tries=5):
+    """Device µs a call of fn (for a library call whose kernels we do not
+    pin), from a torch.profiler trace of `reps` calls. A trace on an H100
+    may lose records (most often the last kernel's), so each kernel name
+    gives its mean time over the records the trace holds, times its
+    records a call (its count over reps, rounded up), and the call is
+    their sum. A trace with no device record is logged and taken again
+    after half a second, up to `tries` traces; None when every one
+    missed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(float(getattr(e, "self_device_time_total",
-                              getattr(e, "self_cuda_time_total", 0.0)))
-                for e in prof.key_averages())
-    return total / reps if total > 0 else None
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, records = 0.0, 0
+        for e in prof.key_averages():
+            total = float(getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0.0)))
+            if total > 0 and e.count:
+                us += total / e.count * -(-e.count // reps)
+                records += e.count
+        if records:
+            return us
+        log(f"  device_us_total: trace {attempt} of {tries} holds no "
+            "device record")
+        time.sleep(0.5)
+    return None
 
 
 def host_parts(call, checks, buffers, launch, calls=100, pools=None,
@@ -1813,6 +1828,44 @@ def check_ag_pools(kernels, xs, calls=50):
         f"{[tuple(x.shape) for x in xs]}, bitwise; every pool flag at zero; "
         f"{agr._POOLS.made} pools made, none by a warm call; pool bytes "
         f"{held}")
+    return held
+
+
+def check_fm_pools(kernels, xs, calls=50):
+    """The full mesh's persistent delivery pool: `calls` back-to-back
+    calls on one stream, with no synchronisation between them, in turn
+    over a ragged payload (70 bytes a rank: not a multiple of 16 bytes)
+    and the inputs xs, every fifth call with one rank delayed
+    P2P_STRAGGLE_NS (each rank in turn); then each result bitwise its
+    plain version, every word of every pool at zero, and no call past the
+    first made a pool. Returns {pool: bytes}."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import allgather as agr
+
+    n = xs[0].shape[0]
+    xs = [payload((n, 5, 7), torch.bfloat16, 301), *xs]
+    runs, made = [], None
+    for i in range(calls):
+        x = xs[i % len(xs)]
+        late = (i // 5 % n, P2P_STRAGGLE_NS) if i % 5 == 4 else None
+        runs.append((i, x, late,
+                     kernels.full_mesh_all_gather(x, straggler=late)))
+        if i == 0:
+            made = agr._FM_POOLS.made
+    for i, x, late, got in runs:
+        check_bitwise(f"full_mesh_all_gather call {i} {tuple(x.shape)} "
+                      f"straggler {late}", got,
+                      kernels.full_mesh_all_gather_plain(x))
+    assert agr._FM_POOLS.made == made, "a warm full mesh made a pool"
+    zero = all(not bool(f.any()) for f in agr._FM_POOLS.entries.values())
+    assert zero, "full_mesh_all_gather left a delivery word set"
+    held = {f"n={k[2]}": f.numel() * 4
+            for k, f in agr._FM_POOLS.entries.items()}
+    log(f"  full_mesh_all_gather: {calls} calls back to back over "
+        f"{[tuple(x.shape) for x in xs]}, a straggler every fifth call, "
+        f"bitwise; every pool word at zero; {agr._FM_POOLS.made} pools "
+        f"made, none by a warm call; pool bytes {held}")
     return held
 
 
@@ -2731,6 +2784,53 @@ def sp_sdpa(q, k, v, kv_len):
                                                   attn_mask=mask)
 
 
+def sp_causal_sdpa(q, k, v):
+    """Row 2's library time at the main path (a yardstick the port never
+    calls): one scaled_dot_product_attention(is_causal=True) on the flash
+    backend over the gathered (B, Hq, n S, D) queries, keys and values,
+    each kv head repeated for its query heads. It attends every position
+    causally and ignores kv_len, so its operation count (4 D a (query
+    head, key) pair of the causal triangle) is given beside it. Returns
+    library_ms (CUDA events), library_us (profiler, every kernel),
+    library_gflop."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    n, b, s, hq, d = q.shape
+    g, t = hq // k.shape[3], n * s
+
+    def gathered(x, rep):
+        x = x.permute(1, 0, 2, 3, 4).reshape(b, t, x.shape[3], d)
+        return x.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+
+    qq, kk, vv = gathered(q, 1), gathered(k, g), gathered(v, g)
+
+    def call():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+
+    out = dict(library_ms=time_ms(call, iters=3, warmup=1),
+               library_us=device_us_total(call, reps=2),
+               library_gflop=4 * d * hq * b * t * (t + 1) / 2 / 1e9)
+    del qq, kk, vv
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_sp_pool(fp):
+    """The SP kernel's persistent flag pools read zero after the phase's
+    calls, and hold _sp_flag_words words a rank."""
+    import torch
+
+    torch.cuda.synchronize()
+    for key, flags in fp._SP_POOLS.entries.items():
+        assert flags.shape == (key[2], fp._sp_flag_words(key[2], key[3]))
+        assert not bool(flags.any()), f"SP pool {key[2:]} left a flag set"
+    log(f"  sp_flash_prefill: {fp._SP_POOLS.made} flag pools made, every "
+        f"word at zero after the phase")
+
+
 def sp_decode_library(q, k, v, valid):
     """One torch call computing the decode partial (a yardstick): the
     efficient-attention op with its log-sum-exp, kv heads repeated, a
@@ -2789,6 +2889,9 @@ def run_sp(kernels, cfg, params):
     x = rand((n, b, s, h), torch.bfloat16, 61)  # a rank's rows of each row
     xd = rand((SP_STEPS, b, h), torch.bfloat16, 62)
     kv_len = torch.tensor(SP_KV_LEN, device="cuda")
+    # the prefill's kv_len as the kernel takes it (int32, made once, as
+    # the model makes its positions once a step)
+    kv32 = kv_len.to(torch.int32)
     rec_dec, rec_ll = [], []
     real_dec, real_ll = spl.sp_flash_decode, fd.ll_all_gather
 
@@ -2807,12 +2910,13 @@ def run_sp(kernels, cfg, params):
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     spl.sp_flash_decode, fd.ll_all_gather = dec, ll
+    forms = dict(fp.sp_launches_by_body)
     try:
         kernels.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev[0].record()
-        y, q, k, v, att = sp_prefill_layer(fp, x, sp, cos, sin, kv_len, hq,
+        y, q, k, v, att = sp_prefill_layer(fp, x, sp, cos, sin, kv32, hq,
                                            hkv, d)
         ev[1].record()
         torch.cuda.synchronize()
@@ -2834,6 +2938,10 @@ def run_sp(kernels, cfg, params):
     want.update(sp_flash_prefill=1, flash_decode_partial=SP_STEPS,
                 ll_all_gather=SP_STEPS)
     assert launched == want, (launched, want)
+    # the main path's SP prefill ran the TMA + wgmma form
+    assert fp.sp_launches_by_body["wgmma"] - forms["wgmma"] == 1 and \
+        fp.sp_launches_by_body["mma"] == forms["mma"], (
+            forms, fp.sp_launches_by_body)
     assert y.shape == (n, b, s, h) and bool(torch.isfinite(y).all())
     yd = torch.stack(ys)
     assert yd.shape == (SP_STEPS, n, b, h) and bool(torch.isfinite(yd).all())
@@ -2892,7 +3000,7 @@ def run_sp(kernels, cfg, params):
     fp_err, fp_cos, fp_ulp = sp_check_prefill(
         fp, q, k, v, att, SP_KV_LEN, f"4 x {t_max}, sampled rows")
     for rank in (0, n - 1):
-        late = fp.sp_flash_prefill(q, k, v, kv_len=kv_len,
+        late = fp.sp_flash_prefill(q, k, v, kv_len=kv32,
                                    straggler=(rank, SP_STRAGGLE_NS))
         torch.cuda.synchronize()
         if not torch.equal(late, att):
@@ -2904,7 +3012,8 @@ def run_sp(kernels, cfg, params):
     ss = SP_SMALL_S_LOC
     qs_, ks_, vs_ = (rand((n, b, ss, hh, d), torch.bfloat16, 63 + i, 0.5)
                      for i, hh in enumerate((hq, hkv, hkv)))
-    kls = torch.tensor(SP_SMALL_KV_LEN, device="cuda")
+    kls = torch.tensor(SP_SMALL_KV_LEN, device="cuda", dtype=torch.int32)
+    assert fp._sp_plan(ss, hq, hkv, d, torch.bfloat16) == "wgmma"
     small = fp.sp_flash_prefill(qs_, ks_, vs_, kv_len=kls)
     e2, c2, u2 = sp_check_prefill(fp, qs_, ks_, vs_, small, SP_SMALL_KV_LEN,
                                   f"4 x {n * ss}, whole")
@@ -2915,7 +3024,7 @@ def run_sp(kernels, cfg, params):
     # values, the LL context goes on from call SP_STEPS
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ev[0].record()
-    sp_prefill_layer(fp, x, sp, cos, sin, kv_len, hq, hkv, d)
+    sp_prefill_layer(fp, x, sp, cos, sin, kv32, hq, hkv, d)
     ev[1].record()
     for i in range(SP_STEPS):
         spl.sp_decode_attn_fwd(xd[i].expand(n, b, h), sp, spec, cos, sin,
@@ -2938,22 +3047,27 @@ def run_sp(kernels, cfg, params):
         lambda: fp.sp_flash_prefill(qs_, ks_, vs_, kv_len=kls),
         lambda: fp.flash_prefill_ref(qs_, ks_, vs_, kv_len=kls),
         sp_sdpa(qs_, ks_, vs_, SP_SMALL_KV_LEN), ops, nbytes, torch.bfloat16,
-        kernel_key="fp_sp_kernel")
+        kernel_key="fp_sp_")
     ops, nbytes = sp_prefill_work(SP_KV_LEN, n, s, hq, hkv, d)
     bnd, by = bound_ms(ops, nbytes, "bfloat16")
-    fn = lambda: fp.sp_flash_prefill(q, k, v, kv_len=kv_len)  # noqa: E731
+    fn = lambda: fp.sp_flash_prefill(q, k, v, kv_len=kv32)  # noqa: E731
     big = dict(ms=time_ms(fn, iters=5, warmup=1),
-               device_us=device_us(fn, "fp_sp_kernel", reps=3),
-               plain_ms=None, library_ms=None, bound_ms=bnd, bound_by=by,
+               device_us=device_us(fn, "fp_sp_", reps=3),
+               plain_ms=None, bound_ms=bnd, bound_by=by,
                gflop=ops / 1e9, mbytes=nbytes / 1e6)
+    big.update(sp_causal_sdpa(q, k, v))
     lab_big = (f"main path: 4 x {t_max} (S_loc {s} a rank), B {b}, kv_len "
-               f"{list(SP_KV_LEN)}, bf16 (plain and library: not measured, "
-               "the dense logits do not fit)")
+               f"{list(SP_KV_LEN)}, bf16 (plain: not measured, the dense "
+               "logits do not fit; library: causal flash SDPA over every "
+               "position, kv_len ignored)")
     rows[lab_big] = big
     log(f"  sp_flash_prefill {lab_big}: kernel {big['ms']:.4f} ms, device "
         f"{big['device_us']} us, bound {bnd:.4f} ms ({by}; "
         f"{ops / 1e12:.2f} TFLOP, {nbytes / 1e9:.3f} GB), share "
-        f"{None if not big['device_us'] else bnd / (big['device_us'] / 1e3)}")
+        f"{None if not big['device_us'] else bnd / (big['device_us'] / 1e3)}"
+        f"; library {big['library_ms']} ms / {big['library_us']} us device "
+        f"over {big['library_gflop'] / 1e3:.2f} TFLOP")
+    check_sp_pool(fp)
 
     rd = rec_dec[-1]
     local = (rd["kv_len"][None] - torch.arange(n, device="cuda")[:, None]
@@ -3883,8 +3997,10 @@ def run_coll(kernels):
         assert below >= lib_cross, (
             f"n={nn}: one-shot slower than two-shot at or below the "
             f"library's crossover {lib_cross} (measured {below})")
+    fm_pool = check_fm_pools(kernels, [xs[labels[0]], xs[labels[1]],
+                                       xs[labels[3]]])
     numbers = dict(routes=routes, bands=bands, ar_sweep=sweep,
-                   ar_crossover=crossover,
+                   ar_crossover=crossover, full_mesh_pool_bytes=fm_pool,
                    full_mesh_vs_ring={k: dict(
                        full_mesh_ms=fm_rows[k]["ms"],
                        full_mesh_us=fm_rows[k]["device_us"],

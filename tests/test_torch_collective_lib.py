@@ -365,6 +365,52 @@ def test_p2p_send_blocks_and_body_by_bytes():
     assert p2p._body_for(70, True) == "reg"
 
 
+def test_full_mesh_pool_key_is_device_stream_and_world():
+    """The full mesh's delivery pool is shared by calls on one device,
+    stream and world size, whatever their chunk or dtype: every pool has
+    n x _FM_MAX_BLOCKS words a rank."""
+    from triton_dist_tpu_torch.kernels import allgather as ag
+
+    a, b = torch.zeros(4, 5, 7), torch.zeros(4, 128, 4096,
+                                             dtype=torch.bfloat16)
+    assert ag._fm_pool_key(a, 7) == (torch.device("cpu"), 7, 4)
+    assert ag._fm_pool_key(a, 7) == ag._fm_pool_key(b, 7)
+    assert ag._fm_pool_key(a, 7) != ag._fm_pool_key(a, 8)
+    assert ag._fm_pool_key(a, 7) != ag._fm_pool_key(torch.zeros(2, 5, 7), 7)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_full_mesh_flag_words_one_a_source_block(n):
+    """Word _fm_flag_word(src, b) of a destination's row is the one word
+    that src's block b adds to and the destination's block b waits on:
+    distinct for every (src, block), inside the row of n x _FM_MAX_BLOCKS,
+    and no grid _fm_blocks_for gives reaches past a source's words."""
+    from triton_dist_tpu_torch.kernels import allgather as ag
+
+    words = {ag._fm_flag_word(src, b) for src in range(n)
+             for b in range(ag._FM_MAX_BLOCKS)}
+    assert words == set(range(n * ag._FM_MAX_BLOCKS))
+    for src in range(n):
+        assert ag._fm_flag_word(src, 0) // ag._FM_MAX_BLOCKS == src
+        assert ag._fm_flag_word(src, ag._FM_MAX_BLOCKS - 1) \
+            // ag._FM_MAX_BLOCKS == src
+    for chunk in (1, 70, 32 << 10, 1 << 20, 4 << 20, 1 << 30):
+        assert 1 <= ag._fm_blocks_for(n, chunk) <= ag._FM_MAX_BLOCKS
+
+
+def test_full_mesh_blocks_by_bytes():
+    """A block a _FM_BLOCK_BYTES of the n copies, rounded up and capped:
+    phase 4c's 1 MiB a rank at n = 4 takes 128 blocks, 4 MiB every pool
+    word."""
+    from triton_dist_tpu_torch.kernels import allgather as ag
+
+    assert ag._fm_blocks_for(4, 70) == 1
+    assert ag._fm_blocks_for(4, 32 << 10) == 4
+    assert ag._fm_blocks_for(4, 1 << 20) == 128
+    assert ag._fm_blocks_for(4, 4 << 20) == ag._FM_MAX_BLOCKS == 256
+    assert ag._fm_blocks_for(2, 1 << 30) == ag._FM_MAX_BLOCKS
+
+
 # -- out of scope -----------------------------------------------------------
 
 

@@ -1151,12 +1151,15 @@ sys.exit(0)
 
 # SP flash prefill whose segment delivery flags start far below zero: no
 # remote segment ever counts every pushing block, so rank 1's first
-# remote fold must trap
+# remote fold must trap (argv: "0" the mma.sync form at D = 64, which
+# prints the wait; "1" the wgmma form at D = 128, which traps without a
+# word)
 _SP_FAULT = r"""
 import sys, torch
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels import flash_prefill as fp
-n, B, S, Hq, Hkv, D = 2, 1, 64, 4, 2, 64
+wgmma = int(sys.argv[1])
+n, B, S, Hq, Hkv, D = 2, 1, 64, 4, 2, 128 if wgmma else 64
 lib = _build.load("flash_prefill", fp._SIGNATURES)
 q = torch.ones((n, B, S, Hq, D), device="cuda", dtype=torch.bfloat16)
 k = torch.ones((n, B, S, Hkv, D), device="cuda", dtype=torch.bfloat16)
@@ -1164,15 +1167,15 @@ kv_len = torch.full((B,), n * S, device="cuda", dtype=torch.int32)
 out = torch.empty_like(q)
 kbuf = torch.empty((n, n - 1, B, S, Hkv, D), device="cuda",
                    dtype=torch.bfloat16)
-flags = torch.zeros((n, lib.fp_sp_flag_words(n, B)), device="cuda",
+flags = torch.zeros((n, fp._sp_flag_words(n, B)), device="cuda",
                     dtype=torch.int32)
 flags[:, :2 * (n - 1) * B] = -1000
 grid = _build.GridInfo()
 err = lib.fp_sp_launch(q.data_ptr(), k.data_ptr(), k.data_ptr(),
                        kv_len.data_ptr(), out.data_ptr(), kbuf.data_ptr(),
-                       kbuf.data_ptr(), flags.data_ptr(), n, B, S, Hq, Hkv,
-                       D, 1, 1, 0.125, 8, -1, 0, grid.ptr(),
-                       torch.cuda.current_stream().cuda_stream)
+                       kbuf.data_ptr(), flags.data_ptr(), flags.shape[1], n,
+                       B, S, Hq, Hkv, D, 1, 1, 0.125, wgmma, -1, 0,
+                       grid.ptr(), torch.cuda.current_stream().cuda_stream)
 assert err == 0, err
 try:
     torch.cuda.synchronize()
@@ -1221,7 +1224,7 @@ sys.exit(0)
     ("ring_all_gather", _RING_AG_FAULT, []),
     ("one_shot_all_reduce", _AR_FAULT, []),
     ("ring_reduce_scatter", _RS_FAULT, []), ("ll_all_gather", _LL_FAULT, []),
-    ("sp_flash_prefill", _SP_FAULT, []),
+    ("sp_flash_prefill", _SP_FAULT, ["0"]),
     ("all_to_all", _A2A_FAULT, ["0", "0"]),
     ("all_to_all_chunked", _A2A_FAULT, ["1", "0"]),
     ("all_to_all", _A2A_FAULT, ["0", "1"]),
@@ -1251,11 +1254,13 @@ def test_protocol_fault_traps_instead_of_hanging(cuda, kernel, script, args):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("script,arg", [(_FAULT, "1"), (_AG_FAULT, "1"),
-                                        (_AG_FAULT, "2")],
-                         ids=["gemm_rs", "ag_gemm-wgmma", "ag_gemm-grouped"])
+                                        (_AG_FAULT, "2"), (_SP_FAULT, "1")],
+                         ids=["gemm_rs", "ag_gemm-wgmma", "ag_gemm-grouped",
+                              "sp_flash_prefill-wgmma"])
 def test_gemm_rs_wgmma_protocol_fault_traps_without_a_word(cuda, script,
                                                            arg):
-    """The wgmma bodies (gemm_rs's; ag_gemm's dense and grouped) over
+    """The wgmma bodies (gemm_rs's; ag_gemm's dense and grouped; the SP
+    flash prefill's, whose segment flags start far below zero) over
     counters that were not zeroed: a bounded spin traps and the next
     synchronisation raises, within the spin bound. They print nothing: a
     call (printf) anywhere in a kernel that issues wgmma makes ptxas
@@ -1580,6 +1585,121 @@ def test_sp_flash_prefill_kernel_matches_plain(cuda, n, heads, dtype):
     assert launches()["sp_flash_prefill"] == 2 + n
 
 
+def _sp_case(seed, n, b, s, hq, hkv, d, dtype=torch.bfloat16):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((n, b, s, hq, d))).to(
+        "cuda", dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((n, b, s, hkv, d))).to(
+        "cuda", dtype) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_sp_flash_prefill_wgmma_form_matches_plain(cuda, n, causal):
+    """The SP kernel's TMA + wgmma form (bf16, D = 128, Qwen3-8B's GQA
+    group of 4, S a multiple of 64) against flash_prefill_ref: a ragged
+    batch whose first row's kv_len ends inside a key tile of the last
+    rank's segment, one row ending at a shard boundary, one empty. Keys
+    past kv_len hold NaN (never live: neither in the scores nor in P V).
+    Within two bf16 ulps of the largest output and inside the
+    flash_prefill band; then bitwise itself with each rank's pushers
+    delayed 2 ms in turn (the fold order does not follow arrival). Every
+    launch takes the wgmma form."""
+    hq, hkv, d, b, s = 32, 8, 128, 3, 128
+    q, k, v = _sp_case(40 + n, n, b, s, hq, hkv, d)
+    kv_len = torch.tensor([n * s - 37, s, 0], device="cuda",
+                          dtype=torch.int32)
+    assert fp._sp_plan(s, hq, hkv, d, q.dtype) == "wgmma"
+    want = fp.flash_prefill_ref(q, k, v, causal=causal, kv_len=kv_len)
+    pos = torch.arange(n * s, device="cuda").reshape(n, 1, s)
+    dead = (pos >= kv_len.long()[None, :, None]).expand(n, b, s)
+    k_nan, v_nan = k.clone(), v.clone()
+    k_nan[dead] = float("nan")
+    v_nan[dead] = float("nan")
+    before = dict(fp.sp_launches_by_body)
+    got = fp.sp_flash_prefill(q, k_nan, v_nan, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    atol = 2 * 2.0 ** -7 * want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    band(want, got, "flash_prefill")
+    assert torch.all(got[:, 2] == 0)
+    for rank in range(n):
+        late = fp.sp_flash_prefill(q, k_nan, v_nan, causal=causal,
+                                   kv_len=kv_len, straggler=(rank, 2_000_000))
+        torch.cuda.synchronize()
+        assert torch.equal(late, got), rank
+    assert fp.sp_launches_by_body["wgmma"] - before["wgmma"] == 1 + n
+    assert fp.sp_launches_by_body["mma"] == before["mma"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_sp_flash_prefill_pool_stays_zero_back_to_back(cuda, n):
+    """Both SP forms over one persistent flag pool a (device, stream, n,
+    B): the wgmma form (bf16, D = 128, S = 128), and the mma.sync form at
+    a ragged S (100) and at D = 64, causal and not, one rank's pushers
+    delayed every third call, 24 calls launched back to back with no
+    synchronisation. Each result is bitwise its case's first run (the
+    first runs held to flash_prefill_ref in the band); then every pool
+    word reads zero, no call past the first made a pool, each launch took
+    the form `_sp_plan` names, and the kernel refuses a pool row shorter
+    than `_sp_flag_words`."""
+    from triton_dist_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_prefill", fp._SIGNATURES)
+    b = 2
+    cases = []
+    for i, (s, (hq, hkv, d)) in enumerate([(128, (32, 8, 128)),
+                                          (100, (32, 8, 128)),
+                                          (128, (4, 2, 64))]):
+        q, k, v = _sp_case(60 + i, n, b, s, hq, hkv, d)
+        kv_len = torch.tensor([n * s - 5, s + 3], device="cuda",
+                              dtype=torch.int32)
+        for causal in (True, False):
+            first = fp.sp_flash_prefill(q, k, v, causal=causal,
+                                        kv_len=kv_len)
+            want = fp.flash_prefill_ref(q, k, v, causal=causal,
+                                        kv_len=kv_len)
+            torch.cuda.synchronize()
+            band(want, first, "flash_prefill")
+            cases.append((q, k, v, kv_len, causal, first,
+                          fp._sp_plan(s, hq, hkv, d, q.dtype)))
+    assert [c[-1] for c in cases] == ["wgmma"] * 2 + ["mma"] * 4
+    made = fp._SP_POOLS.made
+    before = dict(fp.sp_launches_by_body)
+    runs = []
+    for i in range(24):
+        q, k, v, kv_len, causal, first, form = cases[i % len(cases)]
+        late = (i // 3 % n, 1_000_000) if i % 3 == 2 else None
+        runs.append((i, first, fp.sp_flash_prefill(
+            q, k, v, causal=causal, kv_len=kv_len, straggler=late)))
+    torch.cuda.synchronize()
+    for i, first, got in runs:
+        assert torch.equal(got, first), i
+    assert fp._SP_POOLS.made == made
+    for key, flags in fp._SP_POOLS.entries.items():
+        assert flags.shape == (key[2], fp._sp_flag_words(key[2], key[3]))
+        assert int(flags.count_nonzero()) == 0, key
+    assert fp.sp_launches_by_body["wgmma"] - before["wgmma"] == 8
+    assert fp.sp_launches_by_body["mma"] - before["mma"] == 16
+    # a pool row one word short of _sp_flag_words is refused, not launched
+    q, k, v, kv_len, causal, first, _ = cases[0]
+    words = fp._sp_flag_words(n, b) - 1
+    short = torch.zeros((n, words), device="cuda", dtype=torch.int32)
+    out = torch.empty_like(q)
+    s, hq, hkv, d = q.shape[2], q.shape[3], k.shape[3], q.shape[4]
+    for wgmma in (1, 0):
+        err = lib.fp_sp_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+            out.data_ptr(), out.data_ptr(), out.data_ptr(), short.data_ptr(),
+            words, n, b, s, hq, hkv, d, 1, 1, 0.125, wgmma, -1, 0,
+            _build.GridInfo().ptr(), _build.raw_stream(q.device))
+        assert err != 0, wgmma
+
+
 # -- the MoE all-to-all and the EP layer (PERF.md rows 12-13) ---------------
 
 
@@ -1829,6 +1949,43 @@ def test_full_mesh_all_gather_kernel_matches_plain_bitwise(cuda, n, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_full_mesh_all_gather_back_to_back_leaves_the_pool_at_zero(cuda, n):
+    """The full mesh's persistent delivery pool: 50 calls launched back to
+    back with no synchronisation, in turn over a chunk that is not a
+    multiple of 16 bytes (70 bytes), 1 MiB of bf16 a rank and 4 MiB (the largest grid: every pool word of a source), every
+    fifth call with one rank delayed 2 ms (each rank in turn); then every
+    result bitwise its plain version, every pool word at zero and no pool
+    made after the first call."""
+    from triton_dist_tpu_torch.kernels import _build
+    from triton_dist_tpu_torch.kernels import allgather as ag
+
+    rng = np.random.default_rng(40 + n)
+    shapes = [(5, 7), (128, 4096), (512, 4096)]
+    xs = [_payload(rng, n, shape, torch.bfloat16) for shape in shapes]
+    assert ag._fm_blocks_for(n, 512 * 4096 * 2) == ag._FM_MAX_BLOCKS \
+        or n < 4
+    runs, made, grids = [], None, []
+    for i in range(50):
+        x = xs[i % len(xs)]
+        late = (i // 5 % n, 2_000_000) if i % 5 == 4 else None
+        grid = _build.GridInfo()
+        runs.append((i, x, late, ag._launch_fm(x, late, grid=grid)))
+        grids.append(grid.per_rank)
+        if made is None:
+            made = ag._FM_POOLS.made
+    torch.cuda.synchronize()
+    for i, x, late, got in runs:
+        assert torch.equal(got, ag.full_mesh_all_gather_plain(x)), (
+            i, tuple(x.shape), late)
+    assert all(1 <= g <= ag._FM_MAX_BLOCKS for g in grids)
+    assert ag._FM_POOLS.made == made
+    for key, flags in ag._FM_POOLS.entries.items():
+        assert flags.shape == (key[2], key[2] * ag._FM_MAX_BLOCKS)
+        assert not bool(flags.any())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.uint8])
@@ -1968,9 +2125,10 @@ def test_pp_schedule_on_the_card_matches_sequential_layers(cuda):
 
 
 # flags of the PP and collective-library kernels that no put ever
-# satisfies: the delivery words start far below zero (a barrier word at
-# zero; p2p_send's pool has no barrier word, one delivery word a block),
-# so the first wait for an arrival must trap
+# satisfies: the delivery words start far below zero (ring_shift's
+# barrier word at zero; the pools of p2p_send and the full mesh have no
+# barrier word, one delivery word a (source,) block), so the first wait
+# for an arrival must trap
 _P2P_FAULT = r"""
 import sys, torch
 from triton_dist_tpu_torch.kernels import _build
@@ -1984,11 +2142,11 @@ st = torch.cuda.current_stream().cuda_stream
 if kernel == "full_mesh_all_gather":
     lib = _build.load("allgather", ag._SIGNATURES)
     out = torch.empty((n, n * 8, 256), device="cuda", dtype=torch.bfloat16)
-    flags = torch.full((n, lib.fm_ag_flag_words(n)), -1000, device="cuda",
+    flags = torch.full((n, n * ag._FM_MAX_BLOCKS), -1000, device="cuda",
                        dtype=torch.int32)
-    flags[:, 0] = 0
     err = lib.fm_ag_launch(x.data_ptr(), out.data_ptr(), flags.data_ptr(),
-                           n, nbytes, -1, 0, 2, grid.ptr(), st)
+                           ag._FM_MAX_BLOCKS, n, nbytes, -1, 0, 2,
+                           grid.ptr(), st)
 else:
     lib = _build.load("p2p", p2p._SIGNATURES)
     out = torch.empty_like(x)

@@ -153,3 +153,55 @@ def test_positions_pass_int32_through_untouched():
     p, n = fp._positions(q, k, qpos.long(), 0, kv_len.long())
     assert torch.equal(p, qpos) and torch.equal(n, kv_len)
     assert p.dtype == n.dtype == torch.int32
+
+
+@pytest.mark.parametrize("shape,form", [
+    # the SP main path: Qwen3-8B heads, 8192 and 1024 positions a rank
+    ((8192, 32, 8, 128), "wgmma"), ((1024, 32, 8, 128), "wgmma"),
+    ((64, 4, 4, 128), "wgmma"),  # G = 1, one key tile a rank
+    # every other call keeps the mma.sync form
+    ((100, 32, 8, 128), "mma"),  # S not a multiple of the 64-key tile
+    ((8192, 32, 8, 64), "mma"),  # D = 64
+    ((128, 6, 2, 128), "mma"),  # G = 3 does not divide 128
+])
+def test_sp_plan_routes_by_shape(shape, form):
+    """_sp_plan: the TMA + wgmma form for bf16 at D = 128 with a GQA
+    group dividing 128 and S a multiple of 64 (a key tile never
+    straddles two ranks' segments); the mma.sync form otherwise, and
+    always for f32."""
+    s, hq, hkv, d = shape
+    assert fp._sp_plan(s, hq, hkv, d, torch.bfloat16) == form
+    assert fp._sp_plan(s, hq, hkv, d, torch.float32) == "mma"
+
+
+@pytest.mark.parametrize("n,b,words", [(2, 1, 4), (2, 3, 8), (4, 4, 26),
+                                       (8, 2, 30)])
+def test_sp_flag_words_and_pool_key(n, b, words):
+    """The SP pool: a delivery flag a (tensor, offset 1..n-1, row), then
+    the claim and finished-block counters, a rank; one pool a (device,
+    stream, n, B), shared by both forms whatever S, the heads and the
+    dtype."""
+    assert fp._sp_flag_words(n, b) == words == 2 * (n - 1) * b + 2
+    a = torch.zeros(n, b, 128, 32, 128, dtype=torch.bfloat16)
+    c = torch.zeros(n, b, 100, 4, 64)
+    assert fp._sp_pool_key(a, 7) == (torch.device("cpu"), 7, n, b)
+    assert fp._sp_pool_key(a, 7) == fp._sp_pool_key(c, 7)
+    assert fp._sp_pool_key(a, 7) != fp._sp_pool_key(a, 8)
+    assert fp._sp_pool_key(a, 7) != fp._sp_pool_key(
+        torch.zeros(n, b + 1, 128, 32, 128), 7)
+
+
+def test_build_starts_one_compiler_a_library(monkeypatch):
+    """_build.build over chip_smoke.py's list (kernels.SOURCES, where one
+    library serves several wrappers) starts one nvcc a library: two
+    would write the same temporary file and race on its rename."""
+    from triton_dist_tpu_torch import kernels
+    from triton_dist_tpu_torch.kernels import _build
+
+    started = []
+    monkeypatch.setattr(_build, "_start_build",
+                        lambda name: started.append(name))
+    monkeypatch.setattr(_build, "_lib_path", lambda name: name)
+    paths = _build.build(kernels.SOURCES.values())
+    assert sorted(started) == sorted(set(kernels.SOURCES.values()))
+    assert paths == started

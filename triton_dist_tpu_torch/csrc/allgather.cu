@@ -49,16 +49,42 @@
 // round trip each).
 //
 // fm_ag_kernel replaces `_full_mesh_ag_kernel` (allgather.py:116, reached
-// through `full_mesh_all_gather`): barrier_all, then the body of the JAX
-// kernel, shmem::fcollect. Each block of rank me copies its 16-byte share
-// of me's chunk into its own slot and into slot me of every peer, adding
-// one to that peer's arrival flag of source me; then it waits until every
-// peer's flag counts all of that peer's blocks. One put a peer instead of
-// n - 1 ring steps: the latency form for small shards. Same output, same
-// bytes moved as the ring minus the forwards' re-reads. Flags a rank:
-// [0] the barrier, [1 + j] the arrivals from source j. `straggle_rank`
-// stalls that rank's blocks for `straggle_ns` after the barrier
-// (shmem::straggler_delay), so its peers' waits really wait.
+// through `full_mesh_all_gather`): the JAX kernel's fcollect, one put a
+// peer instead of n - 1 ring steps, the latency form for small shards.
+// Block j of rank me owns the j-th 16-byte-aligned share of me's chunk.
+// It reads its share of x once (ld.global.nc: nothing writes x during
+// the launch) and stores it into slot me of every rank's output, its own
+// included; then it publishes by the fence-once rule of shmem.cuh: one
+// block barrier, thread 0's fence.acq_rel.gpu and a relaxed add of one
+// to word (me, j) of every peer's pool. Then thread 0 waits until its
+// own words (src, j) read exactly 1 for every peer src, polling with a
+// 64 ns backoff cap, and clears each: block j of the destination is each
+// word's one waiter.
+//
+// Persistent words. The pool (the wrapper's allgather._FM_POOLS, zeroed
+// once when made) holds n x `words` int32 a rank, a word a (source,
+// block); `words` is the largest grid a rank the wrapper launches. Each
+// word gets one add and has one waiter, which resets it, so every launch
+// finds the pool at zero and leaves it so, and a warm call makes no pool
+// and no memset.
+//
+// No entry barrier. The JAX kernel barriers so that no put lands while a
+// peer is still in an earlier kernel on these buffers. Here all n ranks
+// run in one cooperative launch on one stream: the previous launch has
+// ended on every rank, its words are back at zero, and every call writes
+// an `out` it allocated itself, so nothing a peer still reads can be
+// overwritten. `straggle_rank` stalls that rank's blocks for
+// `straggle_ns` before their copies (shmem::straggler_delay), so the
+// peers' waits really wait; the bytes are the same.
+//
+// The body: 256 threads, each with 8 16-byte loads in flight before its
+// n stores (shmem::copy_nc_ends; bytes where the chunk or a pointer is
+// not 16-byte aligned), so one body moves every chunk, ragged ones
+// included. A bulk body (thread 0 streaming the share through 4
+// shared-memory stages of 16 KiB, one cp.async.bulk load a tile and n
+// bulk stores) was timed beside it at phase 4c's payloads and did not
+// clearly win any of them (PERF.md, row 8b), so it went. Same output,
+// same bytes moved as the ring minus the forwards' re-reads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -157,37 +183,63 @@ cudaError_t launch(const void* x, void* out, int* flags, int n,
                              static_cast<W*>(out), flags, words, n_tiles);
 }
 
-__global__ void __launch_bounds__(kThreads)
-fm_ag_kernel(const char* __restrict__ x, char* out, int* flags,
-             long long chunk, int straggle_rank, long long straggle_ns) {
-  const int n = gridDim.y, me = blockIdx.y;
-  shmem::barrier_all(flags, 1 + n, 0, me, n, "full_mesh_all_gather");
-  shmem::straggler_delay(straggle_rank, me, straggle_ns);
-  shmem::fcollect(out, x + size_t(me) * chunk, chunk, flags, 1 + n, 1, me, n,
-                  "full_mesh_all_gather");
+constexpr int kFmUnits = 8;  // each thread's loads in flight
+
+struct FM {
+  const char* x;  // (n, chunk)
+  char* out;      // (n, n, chunk)
+  int* flags;     // (n, n, words): word (source, block) of each rank
+  int words, straggle_rank;
+  long long chunk, straggle_ns;
+};
+
+__global__ void __launch_bounds__(kThreads) fm_ag_kernel(FM a) {
+  const int n = gridDim.y, me = blockIdx.y, j = blockIdx.x;
+  shmem::straggler_delay(a.straggle_rank, me, a.straggle_ns);
+  long long lo, hi;
+  shmem::block_share(a.chunk, gridDim.x, j, &lo, &hi);
+  const char* from = a.x + size_t(me) * a.chunk + lo;
+  // end e: slot me of rank e's output
+  auto end = [&](int e) {
+    return a.out + (size_t(e) * n + me) * a.chunk + lo;
+  };
+  shmem::copy_nc_ends<kThreads, kFmUnits>(threadIdx.x, n, end, from, hi - lo);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const size_t pool = size_t(n) * a.words;  // words a rank
+  shmem::fence_acq_rel();
+  for (int i = 1; i < n; ++i)
+    shmem::red_add_relaxed(
+        a.flags + size_t((me + i) % n) * pool + size_t(me) * a.words + j, 1);
+  for (int i = 1; i < n; ++i) {
+    const int src = (me - i + n) % n;
+    const int index = src * a.words + j;
+    int* word = a.flags + size_t(me) * pool + index;
+    shmem::spin_until(word, shmem::kEq, 1, "full_mesh_all_gather", me, index,
+                      shmem::kPollNs);
+    shmem::st_relaxed(word, 0);
+  }
 }
 
 }  // namespace
 
-// Flag words a rank of the full-mesh launch: the barrier, one a source.
-extern "C" int fm_ag_flag_words(int n) { return 1 + n; }
-
-// x (n, chunk_bytes), out (n, n, chunk_bytes); flags (n,
-// fm_ag_flag_words(n)) zeroed. Any dtype and any byte count: whole
-// 16-byte words where both ends allow, bytes else. straggle_rank < 0
-// for none; want_blocks caps the blocks a rank. Returns a cudaError_t
+// x (n, chunk_bytes), out (n, n, chunk_bytes); flags (n, n * words) int32
+// at zero, left at zero; blocks a rank, 1..words, capped by what the
+// card holds (info receives the grid, shmem.cuh launch_world);
+// straggle_rank < 0 for none. Any dtype and any byte count: whole
+// 16-byte words where both ends allow, bytes else. Returns a cudaError_t
 // (0 = launched).
-extern "C" int fm_ag_launch(const void* x, void* out, void* flags, int n,
-                            long long chunk_bytes, int straggle_rank,
-                            long long straggle_ns, int want_blocks,
-                            void* info, void* stream) {
-  if (n < 2 || chunk_bytes < 1 || want_blocks < 1)
+extern "C" int fm_ag_launch(const void* x, void* out, void* flags, int words,
+                            int n, long long chunk_bytes, int straggle_rank,
+                            long long straggle_ns, int blocks, int* info,
+                            void* stream) {
+  if (n < 2 || chunk_bytes < 1 || blocks < 1 || blocks > words)
     return int(cudaErrorInvalidValue);
-  return int(shmem::launch_world(
-      fm_ag_kernel, n, want_blocks, kThreads, 0,
-      static_cast<cudaStream_t>(stream), static_cast<int*>(info),
-      static_cast<const char*>(x), static_cast<char*>(out),
-      static_cast<int*>(flags), chunk_bytes, straggle_rank, straggle_ns));
+  const FM a{static_cast<const char*>(x), static_cast<char*>(out),
+             static_cast<int*>(flags), words, straggle_rank, chunk_bytes,
+             straggle_ns};
+  return int(shmem::launch_world(fm_ag_kernel, n, blocks, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream), info, a));
 }
 
 // Tiles of a chunk; the launch needs (n - 2) * ag_tile_count flags a rank.

@@ -37,39 +37,67 @@
 //   f32, so the kernels can be held to a tight tolerance.
 //
 // The SP kernel. All n ranks run in one cooperative launch
-// (shmem::launch_world: grid = blocks a rank x n, every block resident).
-// Every block first meets the others (barrier_all: the peers must be in
-// the kernel before the first puts land). The first P blocks of each rank
-// then push its K and V shards to every peer (shmem::
-// segment_collect_start, the JAX package's): for each batch row b,
-// offset i = 1..n-1 and tensor (K, V), a 1/P share of the (S, Hkv, D)
-// segment into slot i-1 of peer (me + i) mod n's receive buffer, then
-// add one to that slot's delivery flag; a segment has arrived when its
-// flag counts P. Then every block, producers included, claims query tiles
-// from one counter shared by all ranks (one card: rank r's causal
-// queries see ~r + 1 segments, so the work is pooled, not split by rank),
-// each (batch row, kv head) in turn, the latest positions first. A tile
-// of rank r folds its segments in the TPU kernel's swizzle order: its own
-// (no wait) first, then chunk (r - i) mod n for i = 1..n-1, waiting on
+// (shmem::launch_world: grid = blocks a rank x n, every block resident),
+// with no entry barrier: the launches on the stream are ordered, the
+// flags of the last one are back at zero and the receive slots are this
+// call's, so nothing a peer still reads can be overwritten (the JAX
+// kernel barriers against a peer still in an earlier kernel). The push
+// (sp_push) follows the fence-once rule of shmem.cuh: for each batch row
+// b, a pushing block reads its 16-byte-aligned share of rank me's K and
+// V rows [0, min(S, kv_len - me S)) once (ld.global.nc) and stores it
+// into slot i - 1 of every peer (me + i) mod n that folds it (under the
+// causal mask a peer below me folds none of my chunk, and a key past
+// kv_len is never live, so neither is pushed); then one barrier, one
+// fence.acq_rel.gpu and a relaxed add of one to each of the 2 (n - 1) B
+// delivery flags (tensor, offset, row) at its peers. A segment has
+// arrived when its flag counts every pushing block of its source. Every
+// block claims query tiles from one counter shared by all ranks (one
+// card: rank r's causal queries see ~r + 1 segments, so the work is
+// pooled, not split by rank), the latest positions first. A tile of rank
+// r folds its segments in the TPU kernel's swizzle order: its own (no
+// wait) first, then chunk (r - i) mod n for i = 1..n-1, waiting on
 // exactly that segment's K and V flags of row b; a segment wholly past
 // the tile's last live key is skipped (a no-op fold). The fold order is
 // fixed by the tile, not by arrival, so the result is bitwise the same
-// whatever the timing: `straggler` (shmem::straggler_delay on one rank's
-// producers) checks that. No deadlock: producers wait on nothing after
-// the barrier; a tile waits only on producers, which never wait on a
-// tile; every spin is bounded and traps.
-//
+// whatever the timing: `straggler` (one rank's pushing threads stall)
+// checks that. The flags persist (the wrapper's flash_prefill._SP_POOLS,
+// zeroed once when made): many tiles wait on one flag, so no waiter can
+// clear it; instead every block counts itself on a finished-block word
+// once its claims, waits and adds are done, and the last one sets every
+// delivery flag and the claim counter back to zero. No deadlock: pushers
+// wait on nothing; a tile waits only on pushers, which never wait on a
+// tile; every spin is bounded and traps. Two forms:
+//   - wgmma (bf16, D = 128, 128 % G == 0, S % 64 == 0, so a 64-key tile
+//     never straddles two segments): the local kernel's TMA + wgmma fold
+//     (wf_body, below) over a list of segments, one persistent block of
+//     384 threads an SM (33 a rank at world 4); warps 1-3 of warpgroup 0,
+//     idle in the local kernel, push in every block (96 threads, the
+//     rest of the block folding meanwhile). The producer's lane 0 waits
+//     on a remote segment's K and V flags (an acquire spin in PTX, 64 ns
+//     backoff, trapping without a message: a printf would serialize the
+//     wgmma) and then fences the async proxy (the slot was written by
+//     other SMs' generic stores, and TMA reads it) before its first load;
+//     the own segment comes from a map over the rank-stacked k / v (n B
+//     as the batch dimension), the remote ones from maps over kbuf / vbuf
+//     (n (n - 1) B), each tile's first key and live end handed to the
+//     consumers beside it in the ring;
+//   - mma.sync (every other call: f32, D = 64, ragged S, G not dividing
+//     128): TcFold / FmaFold, 128 threads a block, the first kSpMmaPushers
+//     blocks of each rank pushing before they fold; its waits print.
+
 // What bounds them on an H100. The work is 4*D operations a live (query
 // head, key) pair against S*Hq*D + 2*T*Hkv*D input elements. A 64-token
 // serve chunk against a 1k cache does ~160 operations a byte read: below
 // the card's ~295 bf16 operations a byte, so device memory bounds it. A
 // long causal prefill does thousands: the tensor cores' rate bounds it
 // (the SP path at 32k positions: 2.75e13 operations, 27.8 ms at 989
-// TFLOP/s). The SP kernel's segment push moves (n-1) shards a rank
-// (1.5 GB at 32k, ~1 ms of HBM time), overlapped with the local folds.
-// The local kernel's bf16, D = 128 form runs the TMA + wgmma fold below
-// (fp_local_wgmma_kernel); the SP kernel, f32 and D = 64 keep TcFold and
-// FmaFold.
+// TFLOP/s). The SP kernel's segment push reads each live K/V row once
+// and writes it to every peer that folds it (phase 4s's 32k causal
+// prefill: 0.30 GB read, 0.67 GB written, ~0.3 ms of HBM time),
+// overlapped with the local folds.
+// The bf16, D = 128 forms of both kernels run the TMA + wgmma fold below
+// (fp_local_wgmma_kernel, fp_sp_wgmma_kernel); f32 and D = 64 keep TcFold
+// and FmaFold.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -500,8 +528,11 @@ cudaError_t launch_local(const void* q, const void* k, const void* v,
 
 // ---- the wgmma fold: TMA + wgmma, warp-specialised (bf16, D = 128) -------
 //
-// The local kernel's main-path form (bf16, D = 128, 128 % G == 0): the
-// same function and softmax as TcFold, on Hopper's units.
+// The main-path form of both kernels (bf16, D = 128, 128 % G == 0; SP:
+// S % 64 == 0), one body (wf_body): the same function and softmax as
+// TcFold, on Hopper's units. The SP kernel's items, segments, waits and
+// push are in the SP comment above; what follows is the local kernel's
+// and the common body.
 //   - persistent: one block an SM claims work items from a counter, a
 //     work item being (row tile of 128 rows, split) of a (batch row, kv
 //     head), the last row tiles (the most live keys under the causal
@@ -533,11 +564,13 @@ cudaError_t launch_local(const void* q, const void* k, const void* v,
 //     at a time;
 //   - keys past the end. A TMA box is clipped only at the tensor's
 //     bound, so a tile that reaches past kv_len holds whatever the cache
-//     has there (a recycled page may hold NaN). The scores there are
-//     masked by a select, but 0 x NaN would poison P V: the consumers
-//     zero those V rows in shared memory (both warpgroups write the same
-//     zeros; the stage goes back only after both) and fence the async
-//     proxy before their P V;
+//     has there (a recycled page may hold NaN; an SP slot, rows no peer
+//     pushed). The scores there are masked by a select, but 0 x NaN
+//     would poison P V: the consumers zero the V rows past the tile's
+//     live end (kv_len, or the end of its segment's rows: the producer
+//     hands it over with the tile) in shared memory (both warpgroups
+//     write the same zeros; the stage goes back only after both) and
+//     fence the async proxy before their P V;
 //   - split-KV: `splits` items share a row tile's key tiles, each its
 //     contiguous share. splits = 1: the item is normalised and stored.
 //     Otherwise each item's (m, l, unnormalised O) goes to the workspace
@@ -550,9 +583,9 @@ cudaError_t launch_local(const void* q, const void* k, const void* v,
 //     at the serve step) and sets the counter back
 //     to zero. No block waits on another, so no residency is needed. The
 //     fold order differs from the one-pass fold: held to the same atol
-//     and band, not bitwise. The producer that claims last sets the claim
-//     counters back to zero, so the counters and the workspace persist
-//     across calls;
+//     and band, not bitwise. The last block to finish (counted on a
+//     finished-block word) sets the claim counter back to zero, so the
+//     counters and the workspace persist across calls;
 //   - nothing that makes ptxas serialize the wgmma (hopper.cuh,
 //     mbar_wait_quiet): no call anywhere in the kernel (1 / l is
 //     __fdividef's: the IEEE division calls a slow path) and no control
@@ -573,42 +606,90 @@ constexpr int kWfQBytes = 2 * kWfQBox;       // a Q buffer: two halves
 constexpr int kWfStageBytes = 4 * kWfBox;    // K and V, two halves each
 constexpr size_t kWfSmem =
     size_t(2 * kWfQBytes) + size_t(kWfStages) * kWfStageBytes + 1024;
+constexpr int kWfPushers = 96;  // the SP push: warps 1-3 of warpgroup 0
 
 struct WfArgs {
-  const int* qpos;    // (B, S)
+  const int* qpos;    // local: (B, S); SP: none (rank r's rows sit at r S)
   const int* kv_len;  // (B,)
-  bf16* out;          // (B, S, Hq, D)
+  void* out;          // (B, S, Hq, D); SP: rank-stacked (n, B, S, Hq, D)
   float* ws;          // split-KV: (tiles, splits, 128, 128) O, then
                       // (tiles, splits, 128, 2) (m, l)
-  int* ctr;           // (tiles + 2,) zero: a tile's split count, then the
-                      // claim and the finished-producer counters
+  int* ctr;           // local: (tiles + 2,) zero: a tile's split count,
+                      // then the claim and the finished-block counters
   int B, S, T, Hq, Hkv, causal, splits;
   float scale;
+  // SP: n ranks (0 for the local kernel), the push's sources and slots,
+  // the flag pool and the straggler
+  int n;
+  const void* q;      // (n, B, S, Hq, D): the mma.sync form's queries
+  const void* k;      // (n, B, S, Hkv, D)
+  const void* v;
+  void* kbuf;         // (n, n - 1, B, S, Hkv, D): slot i-1 = chunk (r - i) mod n
+  void* vbuf;
+  int* flags;         // (n, words), zero; left at zero: a rank's
+                      // delivery flags [tensor][offset - 1][b] first;
+                      // rank 0's last two words are the tile claim and
+                      // the finished-block counters
+  int words;          // flag words a rank, at least 2 (n - 1) B + 2
+  int strag_rank;
+  long long strag_ns;
 };
 
-// a work item: (row tile, split) of a (batch row b, kv head h), the last
-// row tiles first
+// a work item: (row tile, split) of a (batch row b, kv head h) of rank
+// `rank`'s queries (SP; 0 for the local kernel), the last row tiles
+// first (SP: the last of every rank, so the causal work is pooled); qb
+// is the query batch index (SP: rank B + b)
+template <bool kSp>
 struct WfItem {
-  int sp, b, h, tile, r0;
+  int sp, b, qb, h, tile, r0, rank;
   __device__ WfItem(const WfArgs& a, int TQ, int i) {
-    const int bh = a.B * a.Hkv, per = a.splits * bh;
-    const int qt = TQ - 1 - i / per;
-    sp = i % per / bh;
+    const int bh = a.B * a.Hkv;
     b = i % bh / a.Hkv;
     h = i % a.Hkv;
-    tile = (b * a.Hkv + h) * TQ + qt;
+    int qt;
+    if (kSp) {
+      const int late = a.n * TQ - 1 - i / bh;
+      rank = late / TQ;
+      qt = late % TQ;
+      sp = 0;
+    } else {
+      const int per = a.splits * bh;
+      qt = TQ - 1 - i / per;
+      sp = i % per / bh;
+      rank = 0;
+    }
+    qb = rank * a.B + b;
+    tile = (qb * a.Hkv + h) * TQ + qt;
     r0 = qt * kWfRows;
   }
 };
 
-// An item's key tiles [x, y) and its batch row's clamped kv_len (z), alike
-// in every lane of the calling warp: the keys end at min(kv_len, 1 + the
-// largest position of its rows) under the causal mask, at kv_len without
-// it. Branch-free: each lane folds 4 positions (128 / G at most).
-__device__ __forceinline__ int3 wf_key_tiles(const WfArgs& a,
-                                             const WfItem& w, int G,
-                                             int n_rows) {
+// An item's keys, alike in every lane of the calling warp: (its first key
+// tile, its key tiles, its batch row's clamped kv_len, the keys' live end
+// hi). The keys end at hi = min(kv_len, 1 + the largest position of its
+// rows) under the causal mask, at kv_len without it. Local: the tiles of
+// [0, hi) of its split, branch-free (each lane folds 4 positions, 128 / G
+// at most). SP: the tiles of every segment it folds, chunk (rank - i)
+// mod n for i = 0..n-1, each [chunk S, min(chunk S + S, hi)).
+template <bool kSp>
+__device__ __forceinline__ int4 wf_keys(const WfArgs& a,
+                                        const WfItem<kSp>& w, int G,
+                                        int n_rows) {
   const int lane = threadIdx.x % 32;
+  if (kSp) {
+    const int len = max(min(a.kv_len[w.b], a.n * a.S), 0);
+    const int last = w.rank * a.S + (min(w.r0 + kWfRows, n_rows) - 1) / G;
+    const int hi = max(a.causal ? min(len, last + 1) : len, 0);
+    int nt = 0;
+    for (int i = 0; i < a.n; ++i) {
+      const int begin = (w.rank - i + a.n) % a.n * a.S;
+      const int end = min(begin + a.S, hi);
+      nt += end > begin ? (end - begin + kWfKeys - 1) / kWfKeys : 0;
+    }
+    return make_int4(0, __shfl_sync(0xffffffffu, nt, 0),
+                     __shfl_sync(0xffffffffu, len, 0),
+                     __shfl_sync(0xffffffffu, hi, 0));
+  }
   const int len = max(min(a.kv_len[w.b], a.T), 0);
   const int* qp = a.qpos + size_t(w.b) * a.S;
   const int s0 = w.r0 / G, s1 = min(w.r0 + kWfRows, n_rows) / G;
@@ -621,8 +702,9 @@ __device__ __forceinline__ int3 wf_key_tiles(const WfArgs& a,
     mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
   const int hi = max(a.causal ? min(len, mx + 1) : len, 0);
   const int nt = __shfl_sync(0xffffffffu, (hi + kWfKeys - 1) / kWfKeys, 0);
-  return make_int3(nt * w.sp / a.splits, nt * (w.sp + 1) / a.splits,
-                   __shfl_sync(0xffffffffu, len, 0));
+  const int x = nt * w.sp / a.splits, y = nt * (w.sp + 1) / a.splits;
+  return make_int4(x, y - x, __shfl_sync(0xffffffffu, len, 0),
+                   __shfl_sync(0xffffffffu, hi, 0));
 }
 
 // a bf16 pair to global memory by the threads whose `pred` is set
@@ -679,20 +761,90 @@ __device__ __forceinline__ bool count_last_if(int* ctr, int n, bool pred) {
   return last != 0;
 }
 
-__global__ void __launch_bounds__(384, 1)
-fp_local_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
-                      const __grid_constant__ CUtensorMap map_k,
-                      const __grid_constant__ CUtensorMap map_v,
-                      const WfArgs a) {
+// The SP segment push of rank me (the fence-once rule of shmem.cuh):
+// block `block` of the rank's `blocks` pushing blocks, T threads of
+// which this is `tid`; a key row is row_bytes (Hkv x D elements). For
+// each row b, its 16-byte-aligned share of the
+// K and V rows [0, rows) of the segment, rows = min(S, kv_len - me S)
+// (a key past kv_len is never live), is read once (ld.global.nc) and
+// stored into slot i - 1 of every peer (me + i) mod n that folds it (a
+// causal peer below me folds nothing of me's chunk). Then sync() orders
+// every pushing thread's stores before thread 0's one fence.acq_rel and
+// a relaxed add of one to each of the rank's 2 (n - 1) B delivery flags
+// at its peer: a segment has arrived when its flag counts `blocks`. A
+// straggler rank's pushing threads first stall strag_ns.
+template <int T, typename Sync>
+__device__ __forceinline__ void sp_push(const WfArgs& a, int me, int block,
+                                        int blocks, int tid,
+                                        long long row_bytes, Sync sync) {
+  const int n = a.n, B = a.B, words = a.words;
+  if (me == a.strag_rank && a.strag_ns > 0) shmem::stall(a.strag_ns);
+  const long long seg_bytes = row_bytes * a.S;  // a (rank, row) segment
+  for (int b = 0; b < B; ++b) {
+    const int len = max(min(a.kv_len[b], n * a.S), 0);
+    const long long rows = min(max(len - me * a.S, 0), a.S);
+    long long lo, hi;
+    shmem::block_share(rows * row_bytes, blocks, block, &lo, &hi);
+    for (int t = 0; t < 2; ++t) {
+      const char* src = static_cast<const char*>(t ? a.v : a.k) +
+                        (size_t(me) * B + b) * seg_bytes + lo;
+      char* slots = static_cast<char*>(t ? a.vbuf : a.kbuf);
+      shmem::copy_nc_ends<T, 4>(
+          tid, n - 1,
+          [&](int e) -> char* {
+            const int i = e + 1, peer = (me + i) % n;
+            if (a.causal && peer < me) return nullptr;
+            return slots + ((size_t(peer) * (n - 1) + i - 1) * B + b) *
+                               seg_bytes + lo;
+          },
+          src, hi - lo);
+    }
+  }
+  sync();
+  if (tid != 0) return;
+  shmem::fence_acq_rel();
+  for (int i = 1; i < n; ++i) {
+    int* peer = a.flags + size_t((me + i) % n) * words;
+    for (int t = 0; t < 2; ++t)
+      for (int b = 0; b < B; ++b)
+        shmem::red_add_relaxed(peer + (t * (n - 1) + i - 1) * B + b, 1);
+  }
+}
+
+// The last block of an SP launch (counted on the finished-block word,
+// which count_last_if clears): every delivery flag of every rank and the
+// claim counter back to zero for the next launch on the stream.
+__device__ __forceinline__ void sp_reset(const WfArgs& a) {
+  for (int r = 0; r < a.n; ++r)
+    for (int w = 0; w < 2 * (a.n - 1) * a.B; ++w)
+      shmem::st_relaxed(a.flags + size_t(r) * a.words + w, 0);
+  shmem::st_relaxed(a.flags + a.words - 2, 0);
+}
+
+// The TMA + wgmma fold of both kernels (the header comment above): the
+// local kernel (kSp false: maps q, k, v) and the SP kernel (kSp true:
+// q, the rank-stacked k and v as the own segments, and kbuf / vbuf as
+// the remote ones).
+template <bool kSp>
+__device__ __forceinline__ void wf_body(const CUtensorMap* map_q,
+                                        const CUtensorMap* map_k,
+                                        const CUtensorMap* map_v,
+                                        const CUtensorMap* map_kb,
+                                        const CUtensorMap* map_vb,
+                                        const WfArgs& a) {
   constexpr int D = 128, S_ = kWfStages;
   extern __shared__ uint8_t wf_smem[];
   __shared__ __align__(8) uint64_t fullk[S_], fullv[S_], empty[S_];
   __shared__ __align__(8) uint64_t q_full[2], q_empty[2];
   __shared__ __align__(8) uint64_t item_full[2], item_empty[2];
   __shared__ int item_q[2], last_sh;
+  __shared__ int2 stage_keys[S_];  // a stage's (first key, live end)
   const int G = a.Hq / a.Hkv, n_rows = a.S * G;
   const int TQ = (n_rows + kWfRows - 1) / kWfRows;
-  const int tiles = a.B * a.Hkv * TQ, total = tiles * a.splits;
+  const int tiles = a.B * a.Hkv * TQ;
+  const int total = kSp ? a.n * tiles : tiles * a.splits;
+  // the claim and finished-block counters
+  int* claim = kSp ? a.flags + a.words - 2 : a.ctr + tiles;
   const uint32_t base = (hopper::smem_addr(wf_smem) + 1023) & ~1023u;
   const uint32_t kv0 = base + 2 * kWfQBytes;  // the K / V ring
   auto bar = [](uint64_t& b) { return hopper::smem_addr(&b); };
@@ -717,61 +869,113 @@ fp_local_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   const int wg = __shfl_sync(0xffffffffu, int(threadIdx.x) / 128, 0);
   const int lane = threadIdx.x % 32;
 
-  if (wg == 0) {  // the producer: warp 0 claims, lane 0 loads
+  // SP: every block of a rank pushes, so a segment is whole when its
+  // flag counts them all (8 pushing blocks a rank, tried, left the folds
+  // waiting longer: PERF.md)
+  const int pushers = gridDim.x;
+  if (wg == 0) {  // warp 0 the producer (lane 0 loads); SP: warps 1-3 push
     hopper::regs_dec<40>();
-    if (threadIdx.x >= 32) return;
-    const bool l0 = lane == 0;
-    int stage = 0, qslot = 0;
-    uint32_t phase = 0, qphase = 0;
-    for (int k = 0;; ++k) {
-      const int islot = k & 1;
-      int item = 0;
-      if (l0) {
-        hopper::mbar_wait_quiet(bar(item_empty[islot]), ((k >> 1) & 1) ^ 1);
-        item = atomicAdd(a.ctr + tiles, 1);
-        item_q[islot] = item;
-        hopper::mbar_arrive(bar(item_full[islot]));  // release: item_q
-      }
-      item = __shfl_sync(0xffffffffu, item, 0);
-      if (item >= total) break;
-      const WfItem w(a, TQ, item);
-      const int3 jr = wf_key_tiles(a, w, G, n_rows);
-      if (jr.x >= jr.y) continue;  // no live key: no loads
-      if (l0) {
-        const uint32_t qs = base + qslot * kWfQBytes;
-        hopper::mbar_wait_quiet(bar(q_empty[qslot]), qphase ^ 1);
-        hopper::mbar_expect_tx(bar(q_full[qslot]), kWfQBytes);
-        for (int hf = 0; hf < 2; ++hf)
-          hopper::tma_load_4d(qs + hf * kWfQBox, &map_q, bar(q_full[qslot]),
-                              64 * hf, w.h * G, w.r0 / G, w.b);
-        for (int j = jr.x; j < jr.y; ++j) {
-          hopper::mbar_wait_quiet(bar(empty[stage]), phase ^ 1);
-          const uint32_t st = kv0 + stage * kWfStageBytes;
-          hopper::mbar_expect_tx(bar(fullk[stage]), 2 * kWfBox);
+    if (threadIdx.x >= 32) {
+      if (kSp)
+        sp_push<kWfPushers>(
+            a, blockIdx.y, blockIdx.x, pushers, threadIdx.x - 32,
+            (long long)a.Hkv * D * 2,
+            [] { hopper::named_sync(7, kWfPushers); });
+    } else {
+      const bool l0 = lane == 0;
+      int stage = 0, qslot = 0;
+      uint32_t phase = 0, qphase = 0;
+      for (int k = 0;; ++k) {
+        const int islot = k & 1;
+        int item = 0;
+        if (l0) {
+          hopper::mbar_wait_quiet(bar(item_empty[islot]),
+                                  ((k >> 1) & 1) ^ 1);
+          item = atomicAdd(claim, 1);
+          item_q[islot] = item;
+          hopper::mbar_arrive(bar(item_full[islot]));  // release: item_q
+        }
+        item = __shfl_sync(0xffffffffu, item, 0);
+        if (item >= total) break;
+        const WfItem<kSp> w(a, TQ, item);
+        const int4 jr = wf_keys<kSp>(a, w, G, n_rows);
+        if (jr.y == 0) continue;  // no live key: no loads
+        if (l0) {
+          const uint32_t qs = base + qslot * kWfQBytes;
+          hopper::mbar_wait_quiet(bar(q_empty[qslot]), qphase ^ 1);
+          hopper::mbar_expect_tx(bar(q_full[qslot]), kWfQBytes);
           for (int hf = 0; hf < 2; ++hf)
-            hopper::tma_load_4d(st + hf * kWfBox, &map_k, bar(fullk[stage]),
-                                64 * hf, w.h, j * kWfKeys, w.b);
-          hopper::mbar_expect_tx(bar(fullv[stage]), 2 * kWfBox);
-          for (int hf = 0; hf < 2; ++hf)
-            hopper::tma_load_4d(st + (2 + hf) * kWfBox, &map_v,
-                                bar(fullv[stage]), 64 * hf, w.h,
-                                j * kWfKeys, w.b);
-          if (++stage == S_) {
-            stage = 0;
-            phase ^= 1;
+            hopper::tma_load_4d(qs + hf * kWfQBox, map_q, bar(q_full[qslot]),
+                                64 * hf, w.h * G, w.r0 / G, w.qb);
+          // key tile (c2, c3) of maps mk, mv: keys [k0, k0 + 64), live
+          // below vend
+          auto load = [&](const CUtensorMap* mk, const CUtensorMap* mv,
+                          int c2, int c3, int k0, int vend) {
+            hopper::mbar_wait_quiet(bar(empty[stage]), phase ^ 1);
+            const uint32_t st = kv0 + stage * kWfStageBytes;
+            stage_keys[stage] = make_int2(k0, vend);
+            hopper::mbar_expect_tx(bar(fullk[stage]), 2 * kWfBox);
+            for (int hf = 0; hf < 2; ++hf)
+              hopper::tma_load_4d(st + hf * kWfBox, mk, bar(fullk[stage]),
+                                  64 * hf, w.h, c2, c3);
+            hopper::mbar_expect_tx(bar(fullv[stage]), 2 * kWfBox);
+            for (int hf = 0; hf < 2; ++hf)
+              hopper::tma_load_4d(st + (2 + hf) * kWfBox, mv,
+                                  bar(fullv[stage]), 64 * hf, w.h, c2, c3);
+            if (++stage == S_) {
+              stage = 0;
+              phase ^= 1;
+            }
+          };
+          if (kSp) {
+            // segment i: chunk (rank - i) mod n, the own one from the
+            // rank-stacked k / v, a remote one from its receive slot once
+            // its K and V flags count every pushing block (acquire), then
+            // the async-proxy fence: the slot was written by other SMs'
+            // generic stores and TMA reads it
+            const int n = a.n, words = a.words;
+            for (int i = 0; i < n; ++i) {
+              const int begin = (w.rank - i + n) % n * a.S;
+              const int end = min(begin + a.S, jr.w);
+              if (end <= begin) continue;
+              const int vend = min(begin + a.S, jr.z);
+              const CUtensorMap* mk = map_k;
+              const CUtensorMap* mv = map_v;
+              int c3 = w.qb;
+              if (i > 0) {
+                const int* f = a.flags + size_t(w.rank) * words +
+                               (i - 1) * a.B + w.b;
+                hopper::wait_eq_if(f, pushers, true);
+                hopper::wait_eq_if(f + (n - 1) * a.B, pushers, true);
+                hopper::fence_proxy_async_global();
+                mk = map_kb;
+                mv = map_vb;
+                c3 = (w.rank * (n - 1) + i - 1) * a.B + w.b;
+              }
+              for (int k0 = begin; k0 < end; k0 += kWfKeys)
+                load(mk, mv, k0 - begin, c3, k0, vend);
+            }
+          } else {
+            for (int j = jr.x; j < jr.x + jr.y; ++j)
+              load(map_k, map_v, j * kWfKeys, w.b, j * kWfKeys, jr.z);
           }
         }
-      }
-      __syncwarp();
-      if (++qslot == 2) {
-        qslot = 0;
-        qphase ^= 1;
+        __syncwarp();
+        if (++qslot == 2) {
+          qslot = 0;
+          qphase ^= 1;
+        }
       }
     }
-    // the producer that claims last sets the claim counters back to 0
-    if (l0 && atomicAdd(a.ctr + tiles + 1, 1) == int(gridDim.x) - 1) {
-      a.ctr[tiles] = 0;
-      a.ctr[tiles + 1] = 0;
+    // the last block to finish (its claims, waits and adds all done) sets
+    // the claim counter (SP: every delivery flag too) back to 0
+    hopper::named_sync(6, 128);
+    if (count_last_if(claim + 1, int(gridDim.x * gridDim.y),
+                      threadIdx.x == 0)) {
+      if (kSp)
+        sp_reset(a);
+      else
+        shmem::st_relaxed(claim, 0);
     }
     return;
   }
@@ -803,15 +1007,17 @@ fp_local_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       if (w == 0) turn();  // warpgroup 1's last pass
       break;
     }
-    const WfItem wi(a, TQ, item);
-    const int3 jr = wf_key_tiles(a, wi, G, n_rows);
+    const WfItem<kSp> wi(a, TQ, item);
+    const int4 jr = wf_keys<kSp>(a, wi, G, n_rows);
     const int len = jr.z;
-    const int* qp = a.qpos + size_t(wi.b) * a.S;
     int pos[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {  // -1: a row past the end, no live key
       const int gr = wi.r0 + rl + 8 * r;
-      pos[r] = gr < n_rows ? qp[min(gr, n_rows - 1) / G] : -1;
+      pos[r] = gr >= n_rows ? -1
+               : kSp       ? wi.rank * a.S + gr / G
+                           : a.qpos[size_t(wi.b) * a.S +
+                                    min(gr, n_rows - 1) / G];
     }
     const uint32_t qs = base + qslot * kWfQBytes;
     float o[64], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -835,15 +1041,19 @@ fp_local_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
             kk > 0);
       hopper::wgmma_commit();
     };
-    if (jr.x < jr.y) {
+    if (jr.y > 0) {
       hopper::mbar_wait_quiet(bar(q_full[qslot]), qphase);
       turn();
       issue_s(stage, phase);
       pass();
     }
-    for (int j = jr.x; j < jr.y; ++j) {
+    for (int j = 0; j < jr.y; ++j) {
       const uint32_t st = kv0 + stage * kWfStageBytes;
-      const int k0 = j * kWfKeys;
+      // the tile's first key and the end of its live rows, as the
+      // producer loaded it (read after the tile's full barrier)
+      const int2 tk = stage_keys[stage];
+      const int k0 = __shfl_sync(0xffffffffu, tk.x, 0);
+      const int vend = __shfl_sync(0xffffffffu, tk.y, 0);
       hopper::wgmma_wait<0>();  // this tile's S
       hopper::fence_regs(s);
 
@@ -895,13 +1105,14 @@ fp_local_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
 
       hopper::mbar_wait_quiet(bar(fullv[stage]), phase);
-      if (k0 + kWfKeys > len) {  // V rows past kv_len: zeros, not the cache's
+      if (k0 + kWfKeys > vend) {  // V rows past the live end: zeros, not
+                                  // whatever the cache or slot holds
         // both halves' 64 rows of 8 16-byte words, 8 a thread, predicated
 #pragma unroll
         for (int i = 0; i < 2 * kWfKeys * 8 / 128; ++i) {
           const int word = ct % 128 + 128 * i;  // half, row, word
           hopper::st_zero16_if(st + 2 * kWfBox + word * 16,
-                               word / 8 % kWfKeys >= len - k0);
+                               word / 8 % kWfKeys >= vend - k0);
         }
         hopper::fence_proxy_async_shared();
         hopper::named_sync(1 + w, 128);
@@ -928,7 +1139,7 @@ fp_local_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       if (j + 1 < jr.y) issue_s(stage, phase);
       pass();
     }
-    if (jr.x < jr.y) {  // this item's Q buffer goes back
+    if (jr.y > 0) {  // this item's Q buffer goes back
       hopper::mbar_arrive_if(bar(q_empty[qslot]), leader);
       if (++qslot == 2) {
         qslot = 0;
@@ -943,10 +1154,10 @@ fp_local_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     // row r of the tile: position (r0 + r) / G, head h G + (r0 + r) % G
     auto out_row = [&](int r) {
       const int gr = min(wi.r0 + r, n_rows - 1);
-      return a.out +
-             ((size_t(wi.b) * a.S + gr / G) * a.Hq + wi.h * G + gr % G) * D;
+      return static_cast<bf16*>(a.out) +
+             ((size_t(wi.qb) * a.S + gr / G) * a.Hq + wi.h * G + gr % G) * D;
     };
-    if (a.splits == 1) {
+    if (kSp || a.splits == 1) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         bf16* orow = out_row(rl + 8 * r);
@@ -1027,47 +1238,51 @@ fp_local_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// the three maps of a call: q (B, S, Hq, 128), k and v (B, T, Hkv, 128)
-bool encode_wf_maps(CUtensorMap (&maps)[3], const void* q, const void* k,
-                    const void* v, int B, int S, int T, int Hq, int Hkv) {
-  const int G = Hq / Hkv;
-  const uint64_t dq[4] = {128, uint64_t(Hq), uint64_t(S), uint64_t(B)};
-  const uint64_t sq[3] = {256, uint64_t(Hq) * 256, uint64_t(S) * Hq * 256};
-  const uint32_t bq[4] = {64, uint32_t(G), uint32_t(kWfRows / G), 1};
-  const uint64_t dk[4] = {128, uint64_t(Hkv), uint64_t(T), uint64_t(B)};
-  const uint64_t sk[3] = {256, uint64_t(Hkv) * 256,
-                          uint64_t(T) * Hkv * 256};
-  const uint32_t bk[4] = {64, 1, kWfKeys, 1};
-  return hopper::encode_bf16(&maps[0], q, 4, dq, sq, bq) &&
-         hopper::encode_bf16(&maps[1], k, 4, dk, sk, bk) &&
-         hopper::encode_bf16(&maps[2], v, 4, dk, sk, bk);
+__global__ void __launch_bounds__(384, 1)
+fp_local_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const WfArgs a) {
+  wf_body<false>(&map_q, &map_k, &map_v, nullptr, nullptr, a);
 }
 
-// ---- the SP kernel ---------------------------------------------------------
-
-// Flag words a rank: delivery flags [tensor][offset - 1][b], then the
-// barrier counter, then (rank 0's) tile claim counter.
-__host__ __device__ __forceinline__ int sp_flag_words(int n, int B) {
-  return 2 * (n - 1) * B + 2;
+__global__ void __launch_bounds__(384, 1)
+fp_sp_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_kb,
+                   const __grid_constant__ CUtensorMap map_vb,
+                   const WfArgs a) {
+  wf_body<true>(&map_q, &map_k, &map_v, &map_kb, &map_vb, a);
 }
 
-struct SpArgs {
-  const void* q;    // (n, B, S, Hq, D)
-  const void* k;    // (n, B, S, Hkv, D)
-  const void* v;
-  const int* kv_len;  // (B,) global
-  void* out;        // (n, B, S, Hq, D)
-  void* kbuf;       // (n, n - 1, B, S, Hkv, D): slot i-1 = chunk (r - i) mod n
-  void* vbuf;
-  int* flags;       // (n, sp_flag_words), zeroed
-  int n, B, S, Hq, Hkv, causal, producers;
-  float scale;
-  int strag_rank;
-  long long strag_ns;
-};
+// a 4-D map of q (B, S, Hq, 128): boxes of 128 / G positions of G heads,
+// 64 columns; of k or v (B, T, Hkv, 128): boxes of 64 keys of one head
+bool encode_q_map(CUtensorMap* map, const void* q, int B, int S, int Hq,
+                  int Hkv) {
+  const uint64_t d[4] = {128, uint64_t(Hq), uint64_t(S), uint64_t(B)};
+  const uint64_t s[3] = {256, uint64_t(Hq) * 256, uint64_t(S) * Hq * 256};
+  const uint32_t b[4] = {64, uint32_t(Hq / Hkv), uint32_t(kWfRows / (Hq / Hkv)),
+                         1};
+  return hopper::encode_bf16(map, q, 4, d, s, b);
+}
+
+bool encode_kv_map(CUtensorMap* map, const void* k, int B, int T, int Hkv) {
+  const uint64_t d[4] = {128, uint64_t(Hkv), uint64_t(T), uint64_t(B)};
+  const uint64_t s[3] = {256, uint64_t(Hkv) * 256, uint64_t(T) * Hkv * 256};
+  const uint32_t b[4] = {64, 1, kWfKeys, 1};
+  return hopper::encode_bf16(map, k, 4, d, s, b);
+}
+
+// ---- the SP kernel's mma.sync form ---------------------------------------
+
+// every other SP call (f32, D = 64, S % 64 != 0, G not dividing 128): the
+// mma.sync / FMA fold, 128 threads a block; the first kSpMmaPushers
+// blocks of each rank push (sp_push), then every block claims tiles
+constexpr int kSpMmaPushers = 8;
 
 template <typename F>
-__global__ void __launch_bounds__(128) fp_sp_kernel(SpArgs a) {
+__global__ void __launch_bounds__(128) fp_sp_kernel(WfArgs a) {
   typedef typename F::T T;
   constexpr int D = F::kD;
   extern __shared__ float4 fp_smem4[];
@@ -1075,43 +1290,26 @@ __global__ void __launch_bounds__(128) fp_sp_kernel(SpArgs a) {
   __shared__ int claim_sh;
   const int n = a.n, B = a.B, S = a.S, Hq = a.Hq, Hkv = a.Hkv;
   // a segment is whole when each of the P pushing blocks added its share
-  const int me = blockIdx.y, G = Hq / Hkv, P = min(a.producers, int(gridDim.x));
-  const int words = sp_flag_words(n, B);
+  const int me = blockIdx.y, G = Hq / Hkv;
+  const int P = min(kSpMmaPushers, int(gridDim.x));
+  const int words = a.words;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
-  T* kbuf = static_cast<T*>(a.kbuf);
-  T* vbuf = static_cast<T*>(a.vbuf);
+  const T* kbuf = static_cast<const T*>(a.kbuf);
+  const T* vbuf = static_cast<const T*>(a.vbuf);
   T* out = static_cast<T*>(a.out);
   const size_t seg = size_t(S) * Hkv * D;  // elements of one (row, rank) segment
-  auto flag = [&](int rank, int t, int i, int b) {
-    return a.flags + size_t(rank) * words + (t * (n - 1) + i - 1) * B + b;
-  };
 
-  shmem::barrier_all(a.flags, words, words - 2, me, n, "sp_flash_prefill");
-
-  // producers: the segment push, then they consume too
-  if (int(blockIdx.x) < P) {
-    shmem::straggler_delay(a.strag_rank, me, a.strag_ns);
-    shmem::segment_collect_start(
-        me, n, B, 2, (long long)seg * sizeof(T), blockIdx.x, P,
-        [&](int t, int b) {
-          return static_cast<const void*>((t ? v : k) +
-                                          (size_t(me) * B + b) * seg);
-        },
-        [&](int t, int i, int peer, int b) {
-          return static_cast<void*>(
-              (t ? vbuf : kbuf) +
-              ((size_t(peer) * (n - 1) + i - 1) * B + b) * seg);
-        },
-        [&](int t, int i, int peer, int b) { return flag(peer, t, i, b); });
-  }
+  if (int(blockIdx.x) < P)
+    sp_push<128>(a, me, blockIdx.x, P, threadIdx.x,
+                 (long long)Hkv * D * sizeof(T), [] { __syncthreads(); });
 
   // consumers: every block claims tiles of every rank
   const int n_rows = S * G;
   const int TQ = (n_rows + F::kRows - 1) / F::kRows;  // row tiles a (rank, b, h)
   const int total = n * TQ * B * Hkv;
-  int* claim = a.flags + words - 1;
+  int* claim = a.flags + words - 2;
   for (;;) {
     __syncthreads();  // claim_sh and the previous tile's smem are free
     if (threadIdx.x == 0) claim_sh = atomicAdd(claim, 1);
@@ -1143,10 +1341,12 @@ __global__ void __launch_bounds__(128) fp_sp_kernel(SpArgs a) {
         kb = k + (size_t(r) * B + b) * seg;
         vb = v + (size_t(r) * B + b) * seg;
       } else {
-        shmem::signal_wait_until(flag(r, 0, i, b), shmem::kGe, P,
-                                 "sp_flash_prefill", r, 0);
-        shmem::signal_wait_until(flag(r, 1, i, b), shmem::kGe, P,
-                                 "sp_flash_prefill", r, 1);
+        const int f0 = (i - 1) * B + b;  // K's flag; V's (n - 1) B on
+        shmem::signal_wait_until(a.flags + size_t(r) * words + f0, shmem::kEq,
+                                 P, "sp_flash_prefill", r, f0, shmem::kPollNs);
+        shmem::signal_wait_until(
+            a.flags + size_t(r) * words + f0 + (n - 1) * B, shmem::kEq, P,
+            "sp_flash_prefill", r, f0 + (n - 1) * B, shmem::kPollNs);
         const size_t slot = ((size_t(r) * (n - 1) + i - 1) * B + b) * seg;
         kb = kbuf + slot;
         vb = vbuf + slot;
@@ -1158,12 +1358,10 @@ __global__ void __launch_bounds__(128) fp_sp_kernel(SpArgs a) {
     cp_async_wait<0>();  // the Q copy, when no segment was folded
     f.store([&](int rr) { return row_at(out, rr); });
   }
-}
-
-template <typename F>
-cudaError_t launch_sp(const SpArgs& a, int* info, cudaStream_t stream) {
-  return shmem::launch_world(fp_sp_kernel<F>, a.n, 1 << 20, 128, F::kSmem,
-                             stream, info, a);
+  // the last block to finish resets the pool
+  __syncthreads();
+  if (count_last_if(claim + 1, int(gridDim.x * gridDim.y), threadIdx.x == 0))
+    sp_reset(a);
 }
 
 }  // namespace
@@ -1218,7 +1416,9 @@ extern "C" int fp_local_wgmma_launch(const void* q, const void* k,
       ctr == nullptr || (splits > 1 && ws == nullptr))
     return int(cudaErrorInvalidValue);
   CUtensorMap maps[3];
-  if (!encode_wf_maps(maps, q, k, v, B, S, T_len, Hq, Hkv))
+  if (!encode_q_map(&maps[0], q, B, S, Hq, Hkv) ||
+      !encode_kv_map(&maps[1], k, B, T_len, Hkv) ||
+      !encode_kv_map(&maps[2], v, B, T_len, Hkv))
     return int(cudaErrorInvalidValue);
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1229,12 +1429,20 @@ extern "C" int fp_local_wgmma_launch(const void* q, const void* k,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(kWfSmem));
   if (e != cudaSuccess) return int(e);
-  const WfArgs a{static_cast<const int*>(qpos),
-                 static_cast<const int*>(kv_len),
-                 static_cast<bf16*>(out),
-                 static_cast<float*>(ws),
-                 static_cast<int*>(ctr),
-                 B, S, T_len, Hq, Hkv, causal, splits, scale};
+  WfArgs a{};
+  a.qpos = static_cast<const int*>(qpos);
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.out = out;
+  a.ws = static_cast<float*>(ws);
+  a.ctr = static_cast<int*>(ctr);
+  a.B = B;
+  a.S = S;
+  a.T = T_len;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.causal = causal;
+  a.splits = splits;
+  a.scale = scale;
   const int items = fp_wgmma_tiles(B, S, Hq, Hkv) * splits;
   fp_local_wgmma_kernel<<<items < sms ? items : sms, 384, kWfSmem,
                           static_cast<cudaStream_t>(stream)>>>(
@@ -1242,28 +1450,73 @@ extern "C" int fp_local_wgmma_launch(const void* q, const void* k,
   return int(cudaGetLastError());
 }
 
-extern "C" int fp_sp_flag_words(int n, int B) { return sp_flag_words(n, B); }
-
-// The SP kernel over n ranks: q, k, v, out rank-stacked; kbuf/vbuf the
-// receive slots, flags (n, fp_sp_flag_words) zeroed; producers: pushing
-// blocks a rank; straggler: rank strag_rank's producers wait strag_ns ns
-// first (rank < 0: none). info receives the grid (shmem.cuh).
+// The SP kernel over n ranks: q, k, v, out rank-stacked (n, B, S, H, D);
+// kbuf/vbuf the receive slots (n, n - 1, B, S, Hkv, D); flags (n, words)
+// int32 at zero, words at least 2 (n - 1) B + 2 (WfArgs::flags), and
+// each launch leaves them at zero;
+// straggler: rank strag_rank's pushing threads wait strag_ns ns first
+// (rank < 0: none). wgmma = 1 takes the TMA + wgmma form (bf16, D = 128,
+// 128 % (Hq / Hkv) == 0, S % 64 == 0), else the mma.sync / FMA form.
+// info receives the grid (shmem.cuh).
 extern "C" int fp_sp_launch(const void* q, const void* k, const void* v,
                             const void* kv_len, void* out, void* kbuf,
-                            void* vbuf, void* flags, int n, int B, int S,
+                            void* vbuf, void* flags, int words, int n,
+                            int B, int S,
                             int Hq, int Hkv, int D, int dtype, int causal,
-                            float scale, int producers, int strag_rank,
+                            float scale, int wgmma, int strag_rank,
                             long long strag_ns, int* info, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n < 2 || Hkv <= 0 || Hq % Hkv != 0 || producers < 1 || S < 1 || B < 1)
+  if (n < 2 || Hkv <= 0 || Hq % Hkv != 0 || S < 1 || B < 1 ||
+      flags == nullptr || words < 2 * (n - 1) * B + 2)
     return int(cudaErrorInvalidValue);
-  SpArgs a{q, k, v, static_cast<const int*>(kv_len), out, kbuf, vbuf,
-           static_cast<int*>(flags), n, B, S, Hq, Hkv, causal, producers,
-           scale, strag_rank, strag_ns};
-  if (dtype == 0 && D == 128) return int(launch_sp<FmaFold<128>>(a, info, st));
-  if (dtype == 0 && D == 64) return int(launch_sp<FmaFold<64>>(a, info, st));
-  if (dtype == 1 && D == 128) return int(launch_sp<TcFold<128>>(a, info, st));
-  if (dtype == 1 && D == 64) return int(launch_sp<TcFold<64>>(a, info, st));
+  WfArgs a{};
+  a.kv_len = static_cast<const int*>(kv_len);
+  a.out = out;
+  a.B = B;
+  a.S = S;
+  a.T = S;
+  a.Hq = Hq;
+  a.Hkv = Hkv;
+  a.causal = causal;
+  a.splits = 1;
+  a.scale = scale;
+  a.n = n;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.kbuf = kbuf;
+  a.vbuf = vbuf;
+  a.flags = static_cast<int*>(flags);
+  a.words = words;
+  a.strag_rank = strag_rank;
+  a.strag_ns = strag_ns;
+  if (wgmma) {
+    if (dtype != 1 || D != 128 || kWfRows % (Hq / Hkv) != 0 ||
+        S % kWfKeys != 0)
+      return int(cudaErrorInvalidValue);
+    CUtensorMap maps[5];
+    if (!encode_q_map(&maps[0], q, n * B, S, Hq, Hkv) ||
+        !encode_kv_map(&maps[1], k, n * B, S, Hkv) ||
+        !encode_kv_map(&maps[2], v, n * B, S, Hkv) ||
+        !encode_kv_map(&maps[3], kbuf, n * (n - 1) * B, S, Hkv) ||
+        !encode_kv_map(&maps[4], vbuf, n * (n - 1) * B, S, Hkv))
+      return int(cudaErrorInvalidValue);
+    return int(shmem::launch_world(fp_sp_wgmma_kernel, n, 1 << 20, 384,
+                                   kWfSmem, st, info, maps[0], maps[1],
+                                   maps[2], maps[3], maps[4], a));
+  }
+  if (dtype == 0 && D == 128)
+    return int(shmem::launch_world(fp_sp_kernel<FmaFold<128>>, n, 1 << 20,
+                                   128, FmaFold<128>::kSmem, st, info, a));
+  if (dtype == 0 && D == 64)
+    return int(shmem::launch_world(fp_sp_kernel<FmaFold<64>>, n, 1 << 20,
+                                   128, FmaFold<64>::kSmem, st, info, a));
+  if (dtype == 1 && D == 128)
+    return int(shmem::launch_world(fp_sp_kernel<TcFold<128>>, n, 1 << 20,
+                                   128, TcFold<128>::kSmem, st, info, a));
+  if (dtype == 1 && D == 64)
+    return int(shmem::launch_world(fp_sp_kernel<TcFold<64>>, n, 1 << 20,
+                                   128, TcFold<64>::kSmem, st, info, a));
   return int(cudaErrorInvalidValue);
 }
 

@@ -218,7 +218,9 @@ __device__ __forceinline__ void wait_eq_reset_if(int* flag, int v,
 
 // the threads whose `pred` is set wait (acquire spin) until *flag == v,
 // leaving it as it is: a counter that several waiters read (the ring
-// arrivals of allgather_gemm.cu, which a fresh pool brings at zero)
+// arrivals of allgather_gemm.cu, which a fresh pool brings at zero; the
+// SP flash prefill's segment flags, which the launch's last block
+// clears)
 __device__ __forceinline__ void wait_eq_if(const int* flag, int v,
                                            bool pred) {
   asm volatile(

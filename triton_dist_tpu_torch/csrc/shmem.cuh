@@ -1,8 +1,10 @@
 // Device-side shmem over the virtual world of one card — the port's
 // counterpart of triton_dist_tpu/lang/shmem.py (putmem_nbi, signal,
 // signal_wait_until, barrier_all, neighbor_barrier, fcollect_slots,
-// fcollect, straggler_delay) and
-// of kernels/low_latency_allgather.py's segment_collect_start.
+// straggler_delay). fcollect (lang/shmem.py:661) and
+// kernels/low_latency_allgather.py's segment_collect_start have their
+// fence-once forms in their only callers: allgather.cu fm_ag_kernel and
+// flash_prefill.cu's segment push.
 //
 // The virtual world (runtime/symm_mem.py): n ranks live on one GPU. The
 // symmetric heap is one allocation with a leading rank dimension, so
@@ -23,15 +25,14 @@
 // then __syncthreads(), then reads the data with ld.global.cg (__ldcg,
 // past L1, which is not coherent across SMs). A release add is a fence
 // of its own, so a thread that signals k flags this way pays k fences.
-// The kernels that still publish through put_slot: the SP flash
-// prefill's segment push (segment_collect_start, flash_prefill.cu), the
-// full-mesh AllGather (fcollect, allgather.cu fm_ag_kernel) and
-// ring_shift (p2p.cu ring_shift_kernel). The ring ReduceScatter's hops
-// leave out the __threadfence: the release add is cumulative over the
-// barrier (reduce_scatter.cu ring_signal).
+// Only ring_shift (p2p.cu ring_shift_kernel) still publishes through
+// put_slot. The ring ReduceScatter's hops leave out the __threadfence:
+// the release add is cumulative over the barrier (reduce_scatter.cu
+// ring_signal).
 //
 // The fence-once rule (the all-to-all, the low-latency AllGather,
-// p2p_send): a block's stores, one __syncthreads(), then thread 0's one
+// p2p_send, the full-mesh AllGather, the SP flash prefill's segment
+// push): a block's stores, one __syncthreads(), then thread 0's one
 // fence_acq_rel() and relaxed flag writes (red_add_relaxed, st_relaxed)
 // for every flag the block publishes. The barrier orders every thread's
 // stores before thread 0's fence, and a fence.acq_rel followed by strong
@@ -41,7 +42,10 @@
 // (one that persists across launches) has a single waiter, which clears
 // it (st_relaxed 0) after its wait: no later add of the launch reaches
 // it, and the next launch on the stream starts after this one ended, so
-// every launch finds and leaves the pool at zero. A data path that reads
+// every launch finds and leaves the pool at zero. A flag with many
+// waiters (the SP prefill's segment flags) is cleared instead by the
+// launch's last block to finish, counted on a finished-block word:
+// every wait and every add of the launch is behind it. A data path that reads
 // a launch's input (nothing writes it during the launch) reads it
 // through ld_nc, the non-coherent path.
 //
@@ -302,6 +306,53 @@ __device__ __forceinline__ void copy_nc(char* dst0, char* dst1,
                     int(min(bytes - head - p, (long long)T)));
 }
 
+// Copy `bytes` bytes of a launch's input src (read once through ld_nc)
+// into each of `ends` ends, end e at dst_of(e) (nullptr: no copy to that
+// end), by T threads of which this is thread `tid`: each thread issues
+// its U 16-byte loads, then stores them to every end, where src and
+// every end are 16-byte aligned; bytes else (and for the tail). Nothing
+// is read when no end takes a copy. The full mesh's n ends and the SP
+// prefill push's n - 1; copy_nc above keeps its own two-end code (the
+// LL AllGather and p2p_send).
+template <int T, int U, typename DstOf>
+__device__ __forceinline__ void copy_nc_ends(int tid, int ends, DstOf dst_of,
+                                             const char* src,
+                                             long long bytes) {
+  bool aligned = (reinterpret_cast<uintptr_t>(src) & 15) == 0, any = false;
+  for (int e = 0; e < ends; ++e) {
+    aligned = aligned && (reinterpret_cast<uintptr_t>(dst_of(e)) & 15) == 0;
+    any = any || dst_of(e) != nullptr;
+  }
+  if (!any) return;
+  long long head = 0;
+  if (aligned) {
+    const long long words = bytes / 16;
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    for (long long p = tid; p < words; p += (long long)T * U) {
+      uint4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (p + u * T < words) v[u] = ld_nc(s + p + u * T);
+      for (int e = 0; e < ends; ++e) {
+        uint4* d = reinterpret_cast<uint4*>(dst_of(e));
+        if (d == nullptr) continue;
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (p + u * T < words) d[p + u * T] = v[u];
+      }
+    }
+    head = words * 16;
+  }
+  const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
+  for (long long p = head + tid; p < bytes; p += T) {
+    const unsigned char v = ld_nc(s + p);
+    for (int e = 0; e < ends; ++e) {
+      unsigned char* d = reinterpret_cast<unsigned char*>(dst_of(e));
+      if (d != nullptr) d[p] = v;
+    }
+  }
+}
+
 // The share [lo, hi) of `bytes` that block `block` of `blocks` moves:
 // equal 16-byte-aligned parts (the last ones short or empty).
 __device__ __forceinline__ void block_share(long long bytes, int blocks,
@@ -317,9 +368,8 @@ __device__ __forceinline__ void block_share(long long bytes, int blocks,
 // partition, or this block's share of it), then publishes them on the
 // slot's flag: set to `value` (a persistent flag waited on by value) or,
 // with add, adds `value` (several blocks share one slot; the reader
-// waits for their count). A full-mesh collect is one such put per peer
-// (the caller spreads the peers over its blocks); the reader waits on
-// the flag of each slot it reads.
+// waits for their count); the reader waits on the flag of each slot it
+// reads. ring_shift's put.
 __device__ __forceinline__ void put_slot(void* dst, const void* src,
                                          long long bytes, int* flag,
                                          int value, bool add) {
@@ -330,73 +380,21 @@ __device__ __forceinline__ void put_slot(void* dst, const void* src,
     signal_set(flag, value);
 }
 
-// fcollect (lang/shmem.py:661): the flat full-mesh collect. Rank me's
-// `bytes` of src go to slot me of every rank's partition of out (rank
-// p's partition holds n slots: out + (p * n + j) * bytes is its slot j).
-// This block copies its 16-byte-aligned share into its own slot, then
-// into the slot of each peer (me + i) mod n, adding one to the peer's
-// arrival flag of source me (flags + p * stride + first + me); then it
-// waits until each of its own flags from the n - 1 peers counts every
-// block of that peer. A caller barriers the team before (the JAX
-// precondition) and reads its n slots after.
-__device__ __forceinline__ void fcollect(char* out, const char* src,
-                                         long long bytes, int* flags,
-                                         int stride, int first, int me, int n,
-                                         const char* kernel) {
-  long long lo, hi;
-  block_share(bytes, gridDim.x, blockIdx.x, &lo, &hi);
-  copy_block(out + (size_t(me) * n + me) * bytes + lo, src + lo, hi - lo);
-  for (int i = 1; i < n; ++i) {
-    const int peer = (me + i) % n;
-    put_slot(out + (size_t(peer) * n + me) * bytes + lo, src + lo, hi - lo,
-             flags + size_t(peer) * stride + first + me, 1, true);
-  }
-  for (int i = 1; i < n; ++i) {
-    const int j = (me + i) % n;
-    signal_wait_until(flags + size_t(me) * stride + first + j, kGe,
-                      int(gridDim.x), kernel, me, first + j);
-  }
-}
-
-// segment_collect_start (kernels/low_latency_allgather.py:376): the
-// full-mesh push of a rank's segments with a delivery flag per
-// (tensor, offset, row), so a consumer can gate on exactly one segment
-// while later ones are in flight. For each row b < rows, offset i =
-// 1..n-1 and tensor t < tensors, this block (`block` of the `blocks`
-// pushing blocks of rank me) copies its 16-byte-aligned share of the
-// `bytes` of src_of(t, b) into dst_of(t, i, peer, b), the slot of offset
-// i in peer (me + i) mod n's partition, and adds one to flag_of(t, i,
-// peer, b). The segment has arrived when that flag counts `blocks`.
-// Rows go first, offset 1 first within a row: the order in which SP
-// prefill's consumers read them.
-template <typename SrcOf, typename DstOf, typename FlagOf>
-__device__ __forceinline__ void segment_collect_start(
-    int me, int n, int rows, int tensors, long long bytes, int block,
-    int blocks, SrcOf src_of, DstOf dst_of, FlagOf flag_of) {
-  long long lo, hi;
-  block_share(bytes, blocks, block, &lo, &hi);
-  for (int b = 0; b < rows; ++b)
-    for (int i = 1; i < n; ++i) {
-      const int peer = (me + i) % n;
-      for (int t = 0; t < tensors; ++t)
-        put_slot(static_cast<char*>(dst_of(t, i, peer, b)) + lo,
-                 static_cast<const char*>(src_of(t, b)) + lo, hi - lo,
-                 flag_of(t, i, peer, b), 1, true);
-    }
-}
-
 // straggler_delay (lang/shmem.py:431): the blocks of rank `rank` stall
-// `nanos` ns on the global timer before going on; other ranks and
+// `nanos` ns on the global timer (stall: the calling thread) before
+// going on; other ranks and
 // rank < 0 or nanos <= 0 pass through. A race provocation: a protocol
 // that is right only when ranks run in step shows it under this delay.
+__device__ __forceinline__ void stall(long long nanos) {
+  const unsigned long long t0 = globaltimer();
+  while (globaltimer() - t0 < static_cast<unsigned long long>(nanos))
+    __nanosleep(1000);
+}
+
 __device__ __forceinline__ void straggler_delay(int rank, int me,
                                                 long long nanos) {
   if (rank != me || nanos <= 0) return;
-  if (threadIdx.x == 0) {
-    const unsigned long long t0 = globaltimer();
-    while (globaltimer() - t0 < static_cast<unsigned long long>(nanos))
-      __nanosleep(1000);
-  }
+  if (threadIdx.x == 0) stall(nanos);
   __syncthreads();
 }
 

@@ -106,10 +106,11 @@ def _start_build(name: str):
 
 
 def build(names: Iterable[str]) -> List[str]:
-    """Compile the named kernels, one nvcc each, all started together.
-    Raises with the compiler's output when one fails. Returns the
-    library paths."""
-    names = list(names)
+    """Compile the named kernels, one nvcc each, all started together; a
+    name given twice is built once (two compilers would write one
+    temporary file). Raises with the compiler's output when one fails.
+    Returns the library paths."""
+    names = list(dict.fromkeys(names))
     started = {n: _start_build(n) for n in names}
     errors = []
     for n, job in started.items():

@@ -10,15 +10,23 @@ gathered copy, chunk c from rank c. Each kernel has two implementations
 of one contract:
 
   ring_all_gather, full_mesh_all_gather — the hand-written CUDA kernels
-      (csrc/allgather.cu: the ring, and the full-mesh push of
-      shmem::fcollect, one put a peer). Each launches on a CUDA tensor,
-      or raises; on a CPU tensor it computes the plain version (no
-      kernel exists there).
+      (csrc/allgather.cu: the ring, and the full-mesh push, one put a
+      peer). Each launches on a CUDA tensor, or raises; on a CPU tensor
+      it computes the plain version (no kernel exists there).
   ring_all_gather_plain, full_mesh_all_gather_plain — the same
       concatenation in plain torch.
 
 Data movement only: all agree bitwise, with each other and with the JAX
 functions. At n = 1 each returns x, as the JAX functions do.
+
+On the card both keep their flags across calls: the ring's in `_POOLS`,
+a pool a (device, stream, n, chunk, tiles); the full mesh's in
+`_FM_POOLS` (a `_build.PoolCache` keyed by (device, stream, n),
+n x _FM_MAX_BLOCKS words a rank, zeroed once when made): word
+`_fm_flag_word(src, b)` of a destination gets one add from src's block
+b and is cleared by the destination's block b, its only waiter, so each
+launch leaves the pool at zero and a warm call allocates only its
+output. `_fm_blocks_for` sets the full mesh's blocks a rank.
 
 `all_gather(x, method)` routes as the JAX function does for one axis:
 `Auto` takes the full mesh for a rank's shard of at most 1 MiB and the
@@ -66,16 +74,19 @@ _FULL_MESH_MAX_BYTES = 1 << 20
 # bytes per tile of the ring (csrc/allgather.cu kTileBytes): each (step,
 # tile) pair has its own flag
 _TILE_BYTES = 16384
-# bytes a block of the full-mesh launch copies at least
+# bytes a block of the full-mesh launch moves at least (its share of the
+# chunk times the n ends)
 _FM_BLOCK_BYTES = 32 << 10
+# the full mesh's blocks a rank at most, and so its words a (rank,
+# source): 4 MiB a rank at n = 4 takes all of them
+_FM_MAX_BLOCKS = 256
 _SIGNATURES = {
     "ag_launch": (ctypes.c_int, [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]),
     "ag_tile_count": (ctypes.c_int, [ctypes.c_longlong]),
     "fm_ag_launch": (ctypes.c_int, [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
-    "fm_ag_flag_words": (ctypes.c_int, [ctypes.c_int]),
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]),
     "ag_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -84,6 +95,33 @@ _SIGNATURES = {
 # bytes, tiles): (n - 2) x tiles flags a rank (the last step is not
 # signalled), which its ranks leave at zero
 _POOLS = _build.PoolCache()
+
+
+# the full mesh's persistent delivery words, an entry a (device, stream,
+# n): every launch leaves them at zero
+_FM_POOLS = _build.PoolCache()
+
+
+def _fm_blocks_for(n: int, chunk: int) -> int:
+    """The full mesh's blocks a rank for a chunk of `chunk` bytes: one a
+    _FM_BLOCK_BYTES of the n copies of it, at most _FM_MAX_BLOCKS
+    (launch_world may cap them further at what the card holds)."""
+    return min(_FM_MAX_BLOCKS, max(1, -(-n * chunk // _FM_BLOCK_BYTES)))
+
+
+def _fm_pool_key(x: torch.Tensor, stream: int) -> tuple:
+    """The full mesh's pool key: two calls share words only on one device
+    and one stream (launches on a stream run one after another), at one
+    world size. Every pool has n x _FM_MAX_BLOCKS words a rank, whatever
+    the chunk, so no warm call makes one."""
+    return (x.device, stream, x.shape[0])
+
+
+def _fm_flag_word(src: int, block: int) -> int:
+    """The word (flat within a destination's row of n x _FM_MAX_BLOCKS)
+    that src's block `block` adds to and the destination's block `block`
+    waits on and clears."""
+    return src * _FM_MAX_BLOCKS + block
 
 
 def _ring_tiles(chunk: int) -> int:
@@ -161,7 +199,7 @@ def full_mesh_all_gather(x: torch.Tensor,
     """x (n, m, ...) rank-stacked -> (n, n*m, ...) by the full-mesh push:
     the CUDA kernel on a CUDA tensor (launched or raising, never
     replaced), the plain version on a CPU tensor. straggler: (rank,
-    nanos), that rank's blocks stall after the barrier (the card only;
+    nanos), that rank's blocks stall before their copies (the card only;
     the result is the same). A quantized wire_format moves the packed
     images."""
     fmt = wire.resolve(wire_format)
@@ -220,30 +258,38 @@ def _check_launch(x: torch.Tensor) -> None:
         raise ValueError("x must be contiguous and 16-byte aligned")
 
 
-def _launch_fm(x: torch.Tensor, straggler) -> torch.Tensor:
-    _check_launch(x)
-    world = VirtualWorld.of(x)
+def _fm_buffers(x: torch.Tensor):
+    """A full-mesh call's output, its delivery pool and the stream:
+    everything the launch needs but the launch."""
     n, m = x.shape[:2]
-    rank, nanos = straggler if straggler is not None else (-1, 0)
-    if straggler is not None and not (0 <= rank < n and nanos >= 0):
-        raise ValueError(f"straggler {straggler}: (rank in [0, {n}), "
-                         "nanos >= 0)")
+    stream = _build.raw_stream(x.device)
+    flags = _FM_POOLS.get(_fm_pool_key(x, stream), lambda: VirtualWorld.of(
+        x).flags(n * _FM_MAX_BLOCKS))
+    return (torch.empty((n, n * m, *x.shape[2:]), dtype=x.dtype,
+                        device=x.device), flags, stream)
+
+
+def _launch_fm(x: torch.Tensor, straggler,
+               grid: Optional[_build.GridInfo] = None) -> torch.Tensor:
+    """Launch fm_ag_kernel. Test and measurement hook: grid receives the
+    grid launched."""
+    _check_launch(x)
+    n, m = x.shape[:2]
+    rank, nanos = _build.straggler_args(straggler, n)
     if n == 1:
         return x
-    out = torch.empty((n, n * m, *x.shape[2:]), dtype=x.dtype,
-                      device=x.device)
     chunk = x[0].numel() * x.element_size()
     if chunk == 0:
-        return out
+        return torch.empty((n, n * m, *x.shape[2:]), dtype=x.dtype,
+                           device=x.device)
+    out, flags, stream = _fm_buffers(x)
     lib = _build.load("allgather", _SIGNATURES)
-    flags = world.flags(lib.fm_ag_flag_words(n))
-    want = max(1, -(-n * chunk // _FM_BLOCK_BYTES))
-    grid = _build.GridInfo()
-    with torch.cuda.device(x.device):
+    grid = _build.GridInfo() if grid is None else grid
+    with _build.on_device(x.device):
         err = lib.fm_ag_launch(x.data_ptr(), out.data_ptr(),
-                               flags.data_ptr(), n, chunk, rank, nanos, want,
-                               grid.ptr(),
-                               torch.cuda.current_stream().cuda_stream)
+                               flags.data_ptr(), _FM_MAX_BLOCKS, n, chunk,
+                               rank, nanos, _fm_blocks_for(n, chunk),
+                               grid.ptr(), stream)
     _build.check("full_mesh_all_gather", err, lib.ag_error_string, grid)
     _build.count_launch("full_mesh_all_gather")
     return out

@@ -46,7 +46,17 @@ attended over the whole sequence.
       each remote one once its flags count every pushing block, in the
       JAX kernel's swizzle order. Bitwise the same whatever the arrival
       timing (`straggler`). At n = 1 it is flash_prefill_local, as the
-      JAX function dispatches.
+      JAX function dispatches. Two forms, picked by `_sp_plan` from the
+      shapes alone: "wgmma" (bf16, D = 128, a GQA group dividing 128,
+      S % 64 == 0: the local kernel's TMA + wgmma fold over a list of
+      segments, warps 1-3 of every block pushing) and "mma" (every other
+      call: the mma.sync / FMA fold, the first blocks of each rank
+      pushing); `sp_launches_by_body` counts each. Both take their flags
+      from `_SP_POOLS` (a `_build.PoolCache` keyed by (device, stream,
+      n, B), `_sp_flag_words(n, B)` words a rank, zeroed once when made):
+      the launch's last block sets them back to zero, so a warm call
+      allocates only its output and the two receive slots (and an int32
+      copy of kv_len when it is passed in another dtype).
   flash_prefill_ref — the plain version: the gathered K/V folded page by
       page in the same swizzle order with the JAX kernel's block update,
       in f32. The JAX kernel is bitwise its flash_prefill_ref; the CUDA
@@ -99,16 +109,18 @@ _SIGNATURES = {
     "fp_wgmma_counters": (ctypes.c_int, [ctypes.c_int] * 4),
     "fp_wgmma_ws_floats": (ctypes.c_longlong, [ctypes.c_int] * 5),
     "fp_sp_launch": (ctypes.c_int, [ctypes.c_void_p] * 8
-                     + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
+                     + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_int,
                                              ctypes.c_int, ctypes.c_longlong,
                                              ctypes.c_void_p,
                                              ctypes.c_void_p]),
-    "fp_sp_flag_words": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
     "fp_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
-# pushing blocks a rank in the SP kernel: enough to keep the segment
-# copies near the card's copy rate while the rest fold local work
-_SP_PRODUCERS = 8
+# launches of the SP kernel by form (sp_flash_prefill.launches counts
+# both): a run reads it around a path to show which form served it
+sp_launches_by_body = {"mma": 0, "wgmma": 0}
+# the SP kernel's persistent flag pools, an entry a (device, stream, n,
+# B): (n, _sp_flag_words(n, B)) int32, which every launch leaves at zero
+_SP_POOLS = _build.PoolCache()
 
 
 def supports_flash_prefill(hq: int, hkv: int, d: int) -> bool:
@@ -204,13 +216,17 @@ def _check(q, k, v, q_positions, kv_len):
                          "kernel takes float32 or bfloat16, all alike")
     for name, x in (("q", q), ("k", k), ("v", v),
                     ("q_positions", q_positions), ("kv_len", kv_len)):
+        if x is None:  # the SP kernel's positions: its rank's rows
+            continue
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
         if x.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned (cp.async)")
-    if q_positions.shape != (b, s) or kv_len.shape != (b,):
+            raise ValueError(f"{name} is not 16-byte aligned (cp.async, "
+                             "TMA)")
+    if q_positions is not None and q_positions.shape != (b, s) \
+            or kv_len.shape != (b,):
         raise ValueError("q_positions must be (B, S) and kv_len (B,)")
 
 
@@ -320,6 +336,31 @@ def _page(t: int, block: Optional[int] = None) -> int:
     return cands[-1] if cands else t
 
 
+def _sp_plan(s: int, hq: int, hkv: int, d: int, dtype) -> str:
+    """The SP kernel's form from the shapes alone: "wgmma" where the
+    wgmma fold takes the heads (bf16, D = 128, a GQA group dividing
+    _WGMMA_ROWS) and S is a multiple of _WGMMA_KEYS (a 64-key tile never
+    straddles two ranks' segments), "mma" for every other call."""
+    return ("wgmma" if _wgmma_fold_takes(hq, hkv, d, dtype)
+            and s % _WGMMA_KEYS == 0 else "mma")
+
+
+def _sp_flag_words(n: int, b: int) -> int:
+    """Flag words a rank of the SP kernel, which fp_sp_launch takes as
+    the pool's row length (csrc/flash_prefill.cu WfArgs::flags): a
+    delivery flag a (tensor, offset 1..n-1, row), then the tile claim
+    counter and the finished-block counter (rank 0's)."""
+    return 2 * (n - 1) * b + 2
+
+
+def _sp_pool_key(q: torch.Tensor, stream: int) -> tuple:
+    """An SP flag pool's key: two calls share flags only on one device
+    and one stream (launches on a stream run one after another), at one
+    world size and one batch (the flag count); both forms, any S, heads
+    and dtype."""
+    return (q.device, stream, q.shape[0], q.shape[1])
+
+
 def _check_sp(q, k, v, kv_len):
     if q.dim() != 5 or k.dim() != 5 or k.shape != v.shape \
             or k.shape[:3] != q.shape[:3] or k.shape[4] != q.shape[4]:
@@ -422,35 +463,41 @@ def _launch_sp(q, k, v, causal, scale, kv_len, straggler) -> torch.Tensor:
     n, b, s, hq, d = q.shape
     hkv = k.shape[3]
     if kv_len is None:
-        kv_len = torch.full((b,), n * s, device=q.device)
-    kv_len = kv_len.reshape(-1).to(q.device, torch.int32).contiguous()
+        kv_len = torch.full((b,), n * s, device=q.device, dtype=torch.int32)
+    elif kv_len.dtype != torch.int32 or kv_len.device != q.device:
+        kv_len = kv_len.to(q.device, torch.int32)
+    kv_len = kv_len.reshape(-1).contiguous()
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    _check(q[0], k[0], v[0], torch.zeros((b, s), dtype=torch.int32,
-                                         device=q.device), kv_len)
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    world = VirtualWorld.of(q)
-    lib = _build.load("flash_prefill", _SIGNATURES)
-    kbuf = world.heap((n - 1, b, s, hkv, d), k.dtype)
-    vbuf = world.heap((n - 1, b, s, hkv, d), v.dtype)
-    flags = world.flags(lib.fp_sp_flag_words(n, b))
+    _check(q[0], k[0], v[0], None, kv_len)
     rank, nanos = straggler if straggler is not None else (-1, 0)
     if not -1 <= int(rank) < n or int(nanos) < 0:
         raise ValueError(f"straggler {straggler}: (rank in [0, n), nanos "
                          ">= 0)")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    form = _sp_plan(s, hq, hkv, d, q.dtype)
+    world = VirtualWorld.of(q)
+    lib = _build.load("flash_prefill", _SIGNATURES)
+    stream = _build.raw_stream(q.device)
+    flags = _SP_POOLS.get(_sp_pool_key(q, stream),
+                          lambda: world.flags(_sp_flag_words(n, b)))
+    kbuf = world.heap((n - 1, b, s, hkv, d), k.dtype)
+    vbuf = world.heap((n - 1, b, s, hkv, d), v.dtype)
     scale = float(scale if scale is not None else d ** -0.5)
     grid = _build.GridInfo()
-    with torch.cuda.device(q.device):
+    with _build.on_device(q.device):
         err = lib.fp_sp_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
             out.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(),
-            flags.data_ptr(), n, b, s, hq, hkv, d, _DTYPE_CODE[q.dtype],
-            int(causal), scale, _SP_PRODUCERS, int(rank), int(nanos),
-            grid.ptr(), torch.cuda.current_stream().cuda_stream)
+            flags.data_ptr(), flags.shape[1], n, b, s, hq, hkv, d,
+            _DTYPE_CODE[q.dtype],
+            int(causal), scale, int(form == "wgmma"), int(rank), int(nanos),
+            grid.ptr(), stream)
     _build.check("sp_flash_prefill", err, lib.fp_error_string, grid)
     _build.count_launch("sp_flash_prefill")
+    sp_launches_by_body[form] += 1
     return out
 
 

@@ -1,6 +1,19 @@
-"""The local flash prefill kernel's times at the Qwen3-8B head shapes.
+"""The flash prefill kernels' times at the Qwen3-8B head shapes.
 
-    python -m triton_dist_tpu_torch.tools.profile_flash [--host]
+    python -m triton_dist_tpu_torch.tools.profile_flash [--host | --sp]
+
+--sp times only the SP kernel (`sp_flash_prefill`, PERF.md row 2) at
+world 4: phase 4s's main path (4 rows x 32768 positions, 8192 a rank,
+kv_len chip_smoke.SP_KV_LEN) and its whole check (4 x 4096,
+chip_smoke.SP_SMALL_KV_LEN), int32 kv_len as the path passes it. A line
+a case: the form the package picks (`flash_prefill._sp_plan`; a package
+without it has only the mma.sync form) and who pushes the segments, call
+ms (CUDA events), the kernel's device µs (torch.profiler), the wrapper's
+host µs a call (unsynchronised calls), the caching allocator's
+allocations a warm call, the bound, and the library's one call (4 x
+4096: masked SDPA over every pair, chip_smoke.sp_sdpa; 32k: causal flash
+SDPA over every position, chip_smoke.sp_causal_sdpa); the 4 x 4096 case
+is also held to flash_prefill_ref in the epsilon band.
 
 bf16. First the wrapper's host µs a call at a world-4 scheduler step's
 rank rows (B 16, Hq 8, Hkv 2 a rank, kv_len 178-375), with int64 and
@@ -71,30 +84,97 @@ def _sweep(cs):
     return out
 
 
-def _host_us(inp, calls=200) -> float:
-    """The wrapper's host µs a call: time.perf_counter around `calls`
-    unsynchronised calls (the launches queue; the host cost is the
+def _host_us(fn, calls=200) -> float:
+    """A wrapper's host µs a call: time.perf_counter around `calls`
+    unsynchronised calls of fn (the launches queue; the host cost is the
     wrapper's Python, its torch ops and the launch)."""
-    fp.flash_prefill_local(**inp)
+    fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
-        fp.flash_prefill_local(**inp)
+        fn()
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / calls * 1e6
 
 
+def _sp_case(cs, s, kv_len, seed):
+    n, b, hq, hkv, d = cs.SP_WORLD, cs.SP_BATCH, 32, 8, 128
+    q, k, v = (cs.rand((n, b, s, hh, d), torch.bfloat16, seed + i, 0.5)
+               for i, hh in enumerate((hq, hkv, hkv)))
+    return q, k, v, torch.tensor(kv_len, device="cuda", dtype=torch.int32)
+
+
+def _allocs(fn, calls=3):
+    """The caching allocator's allocations a warm call of fn."""
+    fn()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_stats()["allocation.all.allocated"]
+            - before) / calls
+
+
+def sp_rows(cs):
+    """{case: row} of the SP kernel at phase 4s's two shapes."""
+    n, b, hq, hkv, d = cs.SP_WORLD, cs.SP_BATCH, 32, 8, 128
+    form = (fp._sp_plan(cs.SP_S_LOC, hq, hkv, d, torch.bfloat16)
+            if hasattr(fp, "_sp_plan") else "mma")
+    pushers = ("warps 1-3 of every block" if form == "wgmma"
+               else "the first 8 blocks of each rank")
+    rows = {}
+    for label, s, kv_len, iters, big in (
+            ("4 x 4096", cs.SP_SMALL_S_LOC, cs.SP_SMALL_KV_LEN, 20, False),
+            ("main path 4 x 32768", cs.SP_S_LOC, cs.SP_KV_LEN, 3, True)):
+        q, k, v, kl = _sp_case(cs, s, kv_len, 63 if not big else 70)
+
+        def fn():
+            return fp.sp_flash_prefill(q, k, v, kv_len=kl)
+
+        ops, nbytes = cs.sp_prefill_work(kv_len, n, s, hq, hkv, d)
+        bound, by = cs.bound_ms(ops, nbytes, "bfloat16")
+        row = dict(form=form, pushers=pushers,
+                   ms=cs.time_ms(fn, iters=iters, warmup=1),
+                   device_us=cs.device_us(fn, "fp_sp_", reps=2 if big
+                                          else 10),
+                   host_us_a_call=_host_us(fn, 4 if big else 50),
+                   allocs_per_call=_allocs(fn), bound_ms=bound,
+                   bound_by=by)
+        if big:
+            row.update(cs.sp_causal_sdpa(q, k, v))
+        else:
+            _, row["band_cos"], row["band_ulp"] = cs.sp_check_prefill(
+                fp, q, k, v, fn(), kv_len, "4 x 4096, whole")
+            lib = cs.sp_sdpa(q, k, v, kv_len)
+            row.update(library_ms=cs.time_ms(lib, iters=5, warmup=1),
+                       library_us=cs.device_us_total(lib, reps=3))
+        rows[label] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     cs = _chip_smoke()
+    if "--sp" in sys.argv[1:]:
+        card = cs.card_line()
+        for name, row in sp_rows(cs).items():
+            print(json.dumps({"sp_case": name, **row, "card": card,
+                              "package": os.path.dirname(os.path.dirname(
+                                  fp.__file__))}), flush=True)
+        return
     rows = cs.fp_inputs(16, 64, cs.MAX_LEN, 8, 2, 128,
                         [114, 311, 193, 262] * 4, torch.bfloat16, seed=1)
     rows32 = dict(rows, q_positions=rows["q_positions"].to(torch.int32),
                   kv_len=rows["kv_len"].to(torch.int32))
     label = "world-4 step rows B=16 S=64 T=1024 Hq=8 Hkv=2"
     card = cs.card_line()
-    host = {"int64 positions": _host_us(rows),
-            "int32 positions": _host_us(rows32)}
+    host = {"int64 positions": _host_us(
+                lambda: fp.flash_prefill_local(**rows)),
+            "int32 positions": _host_us(
+                lambda: fp.flash_prefill_local(**rows32))}
     print(json.dumps({"case": label, "host_us_a_call": host, "card": card}),
           flush=True)
     if "--host" in sys.argv[1:]:

@@ -1,5 +1,6 @@
-"""The low-latency AllGather's and p2p_send's times at their paths'
-shapes, with ring_shift and the full-mesh AllGather as controls.
+"""The low-latency AllGather's, p2p_send's and the full-mesh
+AllGather's times at their paths' shapes, with ring_shift as the
+control.
 
     python -m triton_dist_tpu_torch.tools.profile_p2p_ll
 
@@ -11,9 +12,10 @@ World 4, payloads from chip_smoke.py's `rand`. Rows (PERF.md §6):
       through the same kernel);
   row 14, p2p_send (csrc/p2p.cu p2p_kernel): the PP handoff (512, 4096)
       bf16 a rank, stage 3 -> 0;
-  row 15, ring_shift (ring_shift_kernel) at the PP handoff, shift 1, and
   row 8b, full_mesh_all_gather (csrc/allgather.cu fm_ag_kernel) on
-      (128, 4096) bf16 a rank: controls.
+      (128, 4096) bf16 a rank, phase 4c's Auto route;
+  row 15, ring_shift (ring_shift_kernel) at the PP handoff, shift 1: the
+      control.
 Each case is first called 20 times on one stream, each result held
 bitwise against its plain version (an LL context's slots and parity
 flags against a plain twin's); then its call ms (CUDA events), device µs
@@ -22,12 +24,15 @@ call (time.perf_counter around 100 unsynchronised calls), the caching
 allocator's allocations a warm call, the bound (each input read once,
 each output written once) and the library's one call (ms and device µs:
 a yardstick the port never calls). Rows 9 and 14 also give the
-protocol's floor: the same kernel and grid on a 16-byte payload a rank.
-Where the package has the redesigned wrappers also: the host µs by part
-(ll_host_parts, p2p_host_parts, through chip_smoke.host_parts), the
-pools a warm call made, and row 14's device µs and floor at each body
-forced (register and bulk copy), and each body at 4 KiB to 1 MiB a rank
-(P2P_SWEEP). Prints one JSON line a row and one at the end.
+protocol's floor: the same kernel and grid on a 16-byte payload a rank
+(row 8b: its wrapper's grid for 16 bytes). Where the package has the
+redesigned wrappers also: the host µs by part (ll_host_parts,
+p2p_host_parts, fm_host_parts, through chip_smoke.host_parts), the pools
+a warm call made, the device µs and floor at each body forced
+(register and bulk copy) of row 14, at 4 KiB to 1 MiB a rank
+(P2P_SWEEP), and row 8b's device µs at phase 4c's bf16 payloads
+(FM_SWEEP).
+Prints one JSON line a row and one at the end.
 chip_smoke.py is loaded from this file's checkout and the kernels
 from whichever `triton_dist_tpu_torch` is imported first, so two
 versions compare in one run by pointing PYTHONPATH at each checkout in
@@ -48,6 +53,7 @@ import torch
 import triton_dist_tpu_torch
 from triton_dist_tpu_torch import kernels, wire
 from triton_dist_tpu_torch.kernels import _build
+from triton_dist_tpu_torch.kernels import allgather as ag
 from triton_dist_tpu_torch.kernels import low_latency_allgather as llag
 from triton_dist_tpu_torch.kernels import p2p
 from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
@@ -62,6 +68,8 @@ PP_SHAPE, PP_SRC, PP_DST = (512, 4096), N - 1, 0
 # bytes a rank of the body sweep (bf16 rows)
 P2P_SWEEP = (4 << 10, 32 << 10, 256 << 10, 1 << 20)
 FM_SHAPE = (128, 4096)
+# phase 4c's bf16 payloads a rank: 32 KiB, 1 MiB, 4 MiB
+FM_SWEEP = ((4, 4096), (128, 4096), (512, 4096))
 CHECK_CALLS = 20
 
 
@@ -305,23 +313,78 @@ def p2p_row(cs, seed, redesigned):
     return row
 
 
+def _fm_us(cs, x):
+    """Device µs of fm_ag_kernel on x, each launch held bitwise first."""
+    want = kernels.full_mesh_all_gather_plain(x)
+    for _ in range(3):
+        if not torch.equal(kernels.full_mesh_all_gather(x), want):
+            raise AssertionError("fm_ag_kernel: not bitwise")
+    return cs.device_us(lambda: kernels.full_mesh_all_gather(x),
+                        "fm_ag_kernel")
+
+
+def fm_host_parts(cs, x):
+    """chip_smoke.host_parts of the full mesh's wrapper on x."""
+    lib = _build.load("allgather", ag._SIGNATURES)
+    n = x.shape[0]
+    chunk = x[0].numel() * x.element_size()
+    out, flags, stream = ag._fm_buffers(x)
+    grid = _build.GridInfo()
+
+    def launch(m):
+        err = lib.fm_ag_launch(
+            x.data_ptr(), out.data_ptr(), flags.data_ptr(), ag._FM_MAX_BLOCKS,
+            n if m is None else m, chunk, -1, 0, ag._fm_blocks_for(n, chunk),
+            grid.ptr(), stream)
+        assert (err == 0) == (m is None), err
+
+    return cs.host_parts(
+        lambda: kernels.full_mesh_all_gather(x),
+        lambda: (wire.resolve(None), ag._check_launch(x),
+                 _build.straggler_args(None, n)),
+        lambda: ag._fm_buffers(x), launch, pools=ag._FM_POOLS)
+
+
+def fm_row(cs, seed, redesigned):
+    y = cs.rand((N, *FM_SHAPE), torch.bfloat16, seed)
+    want = kernels.full_mesh_all_gather_plain(y)
+    for _ in range(CHECK_CALLS):
+        if not torch.equal(kernels.full_mesh_all_gather(y), want):
+            raise AssertionError("full_mesh_all_gather: not bitwise its "
+                                 "plain version")
+    shard = y[0].numel() * y.element_size()
+    made = ag._FM_POOLS.made if redesigned else None
+    row = _timed(cs, lambda: kernels.full_mesh_all_gather(y), "fm_ag_kernel",
+                 lambda: y.reshape(1, -1, FM_SHAPE[1]).expand(
+                     N, N * FM_SHAPE[0], FM_SHAPE[1]).contiguous(),
+                 (N + N * N) * shard)
+    row.update(shape=[N, *FM_SHAPE], dtype="bfloat16")
+    tiny = torch.ones((N, 1, 8), dtype=torch.bfloat16, device="cuda")
+    if not redesigned:
+        row["floor_us"] = _fm_us(cs, tiny)
+        return row
+    grid = _build.GridInfo()
+    ag._launch_fm(y, None, grid=grid)
+    row.update(blocks=grid.per_rank, host_parts_us=fm_host_parts(cs, y),
+               floor_us=_fm_us(cs, tiny))
+    sweep = {}
+    for i, shape in enumerate(FM_SWEEP):
+        x = cs.rand((N, *shape), torch.bfloat16, seed + 1 + i)
+        sweep[str(shape[0] * shape[1] * 2)] = _fm_us(cs, x)
+    row["sweep_us"] = sweep
+    row["pools_made_warm"] = ag._FM_POOLS.made - made
+    row["pool_words_zero"] = all(not bool(f.any())
+                                 for f in ag._FM_POOLS.entries.values())
+    return row
+
+
 def controls(cs, seed):
     x = cs.rand((N, *PP_SHAPE), torch.bfloat16, seed)
     assert torch.equal(kernels.ring_shift(x, 1), torch.roll(x, 1, 0))
     nbytes = x[0].numel() * x.element_size()
-    rows = {"row 15 ring_shift PP handoff": _timed(
+    return {"row 15 ring_shift PP handoff": _timed(
         cs, lambda: kernels.ring_shift(x, 1), "ring_shift_kernel",
         lambda: torch.roll(x, 1, 0), 2 * N * nbytes)}
-    y = cs.rand((N, *FM_SHAPE), torch.bfloat16, seed + 1)
-    want = kernels.full_mesh_all_gather_plain(y)
-    assert torch.equal(kernels.full_mesh_all_gather(y), want)
-    shard = y[0].numel() * y.element_size()
-    rows["row 8b full_mesh_all_gather (128, 4096)"] = _timed(
-        cs, lambda: kernels.full_mesh_all_gather(y), "fm_ag_kernel",
-        lambda: y.reshape(1, -1, FM_SHAPE[1]).expand(
-            N, N * FM_SHAPE[0], FM_SHAPE[1]).contiguous(),
-        (N + N * N) * shard)
-    return rows
 
 
 def main() -> None:
@@ -337,6 +400,10 @@ def main() -> None:
     rows["row 14 p2p_send PP handoff"] = p2p_row(cs, 10, redesigned)
     print(json.dumps({"row 14": rows["row 14 p2p_send PP handoff"]}),
           flush=True)
+    rows["row 8b full_mesh_all_gather (128, 4096)"] = fm_row(
+        cs, 21, hasattr(ag, "_FM_POOLS"))
+    print(json.dumps({"row 8b": rows[
+        "row 8b full_mesh_all_gather (128, 4096)"]}), flush=True)
     for k, v in controls(cs, 20).items():
         rows[k] = v
         print(json.dumps({k: v}), flush=True)
