@@ -1993,6 +1993,8 @@ def time_collectives(kernels, records):
     label."""
     import torch
 
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
+
     def biggest(name, key, pick):
         return max(records[name], key=lambda r: pick(r[key].shape))
 
@@ -2052,8 +2054,13 @@ def time_collectives(kernels, records):
     a1 = a.permute(1, 0, 2).reshape(1, M, n * K).contiguous()
     b1 = b.reshape(1, n * K, -1)
     N = b1.shape[2]
-    label = f"n = 1 force_kernel a {tuple(a1.shape)} b {tuple(b1.shape)} bf16"
+    body = grs._body_for(1, M, n * K, N, a1.dtype, a1.dtype)
+    label = (f"n = 1 force_kernel a {tuple(a1.shape)} b {tuple(b1.shape)} "
+             f"bf16, {body} body")
+    before = dict(grs.launches_by_body)
     _, ratio = check_rs(kernels, a1, b1, force_kernel=True)
+    assert grs.launches_by_body[body] - before[body] == 1, (
+        before, grs.launches_by_body)
     log(f"  gemm_rs {label}: at most {ratio:.3f} of its atol")
     rows["gemm_rs"][label] = time_collective(
         f"gemm_rs {label}",
@@ -2911,6 +2918,7 @@ def run_sp(kernels, cfg, params):
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     spl.sp_flash_decode, fd.ll_all_gather = dec, ll
     forms = dict(fp.sp_launches_by_body)
+    fd_bodies = dict(fd.launches_by_body)
     try:
         kernels.reset_launches()
         torch.cuda.synchronize()
@@ -2938,10 +2946,14 @@ def run_sp(kernels, cfg, params):
     want.update(sp_flash_prefill=1, flash_decode_partial=SP_STEPS,
                 ll_all_gather=SP_STEPS)
     assert launched == want, (launched, want)
-    # the main path's SP prefill ran the TMA + wgmma form
+    # the main path's SP prefill ran the TMA + wgmma form, its decode
+    # partial the Hopper (TMA + mma.sync) body
     assert fp.sp_launches_by_body["wgmma"] - forms["wgmma"] == 1 and \
         fp.sp_launches_by_body["mma"] == forms["mma"], (
             forms, fp.sp_launches_by_body)
+    fd_body = fd._body_for(torch.bfloat16, d, hq // hkv)
+    assert {k: v - fd_bodies[k] for k, v in fd.launches_by_body.items()} \
+        == {"fma": 0, "mma": 0, fd_body: SP_STEPS}, fd.launches_by_body
     assert y.shape == (n, b, s, h) and bool(torch.isfinite(y).all())
     yd = torch.stack(ys)
     assert yd.shape == (SP_STEPS, n, b, h) and bool(torch.isfinite(yd).all())
@@ -2954,7 +2966,8 @@ def run_sp(kernels, cfg, params):
         f"{(t1 - t0) * 1e3:.3f} ms host; {SP_STEPS} SP decode steps (LL "
         f"context): {decode_ms:.3f} ms/step (CUDA events), "
         f"{(t2 - t1) * 1e3 / SP_STEPS:.3f} ms/step host; launches "
-        f"{ {k: v for k, v in launched.items() if v} }")
+        f"{ {k: v for k, v in launched.items() if v} }; decode partial "
+        f"body {fd_body}")
 
     # row 3 on every step's inputs; row 9 bitwise on every call; the
     # LL-exchanged step bitwise the torch-gathered one
@@ -3076,14 +3089,16 @@ def run_sp(kernels, cfg, params):
     kf, vf = (c.reshape(n * b, s, hkv, d) for c in cache)
     valid = int(local.sum())
     lab_dec = (f"decode step {SP_STEPS - 1}: q {tuple(qi.shape)}, shards "
-               f"{tuple(kf.shape)}, {valid} valid rows, bf16")
+               f"{tuple(kf.shape)}, {valid} valid rows, bf16, {fd_body} "
+               "body")
     fd_rows = {lab_dec: time_collective(
         f"flash_decode_partial {lab_dec}",
         lambda: fd.flash_decode_partial_cuda(qi, kf, vf, local),
         lambda: fd.flash_decode_partial(qi, kf, vf, local),
         None, 4 * hq * d * valid,
         valid * 2 * hkv * d * 2 + qi.numel() * 2 + n * b * hq * (d + 1) * 4,
-        torch.bfloat16, kernel_key="fd_partial_kernel")}
+        torch.bfloat16, kernel_key="fd_")}
+    fd_rows[lab_dec]["body"] = fd_body
     fd_rows[lab_dec]["library_ms"], fd_rows[lab_dec]["library_us"] = (
         sp_decode_library(qi, kf, vf, local))
     log(f"  flash_decode_partial library (efficient attention with lse): "

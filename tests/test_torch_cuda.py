@@ -146,6 +146,42 @@ def test_gemm_rs_kernel_at_world_one(cuda):
     assert launches()["gemm_rs"] == 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 12288, 4096), (64, 1000, 1000)],
+                         ids=["row-6", "ragged"])
+def test_gemm_rs_world_one_takes_the_wgmma_body(cuda, shape):
+    """force_kernel at n = 1 with m a multiple of 64 (row 6: the JAX
+    _local_mm_kernel's place) runs the TMA + wgmma body, its tiles stored
+    straight to the output: within _gemm_rs_atol and the band's cosine
+    of gemm_rs_plain, at the plan's tile width and each one forced; no
+    pool made; the mma.sync body forced still agrees."""
+    from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
+
+    m, k, nn = shape
+    rng = np.random.default_rng(m + k)
+    a = torch.from_numpy(rng.standard_normal((1, m, k))).to("cuda",
+                                                            torch.bfloat16)
+    b = (torch.from_numpy(rng.standard_normal((1, k, nn))) * 0.02).to(
+        "cuda", torch.bfloat16)
+    want = gemm_rs_plain(a, b)
+    atol = _gemm_rs_atol(a, b, want)
+    before, made = dict(rs.launches_by_body), rs._POOLS.made
+    reset_launches()
+    runs = [lambda: gemm_rs(a, b, force_kernel=True)]
+    runs += [lambda bn=bn: rs._launch(a, b, bn=bn) for bn in rs._WGMMA_BN]
+    for fn in runs:
+        got = fn()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=atol)
+        _band_cos(want, got, "gemm_rs")
+    assert launches()["gemm_rs"] == len(runs)
+    assert rs.launches_by_body["wgmma"] - before["wgmma"] == len(runs)
+    assert rs._POOLS.made == made
+    got = rs._launch(a, b, body="mma")
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+
+
 def _ag_gemm_atol(a, bs, want):
     """Kernel and plain both accumulate in f32 and round once; the f32
     sums run in another order. bf16: one ulp (2^-7 relative) of the
@@ -1457,6 +1493,116 @@ def test_flash_decode_partial_kernel_matches_plain(cuda, heads, dtype):
     band(want_o, o, "flash_decode_partial")
     band(want_lse[1:], lse[1:], "flash_decode_partial")
     assert launches()["flash_decode_partial"] == 1
+
+
+# phase 4s's valid lengths a (rank, row) at its last decode step: world
+# 4, batch 4, T_loc 8192, kv_len (32752, 24570, 16380, 8190) + 16
+_SP_STEP_LENS = (8192, 8192, 8192, 8192, 8192, 8192, 8192, 14,
+                 8192, 8192, 12, 0, 8192, 10, 0, 0)
+
+
+def _decode_inputs(seed, b, t, heads, dtype=torch.bfloat16):
+    hq, hkv, d = heads
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to("cuda", dtype)
+            for shape in ((b, hq, d), (b, t, hkv, d), (b, t, hkv, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens,t", [
+    ((0, 1, 37, 300, 700, 1100, 129, 16), 1100),
+    (_SP_STEP_LENS, 8192),
+    ((5, 0, 130, 1), 300),  # fewer live tiles than persistent groups
+], ids=["ragged", "phase-4s", "short"])
+def test_flash_decode_mma_body_matches_plain(cuda, lens, t):
+    """The Hopper body (bf16, D = 128) at Qwen3-8B's heads: valid lengths
+    0, 1, inside a tile, across tiles and splits, a full shard, T not a
+    multiple of a tile (1100 keys); phase 4s's 16 (rank, row) lengths
+    over 8192-key shards; fewer live tiles than groups. o and lse within
+    1e-5 of the plain version and in the f32 epsilon band, an empty row
+    o = 0 and lse = NEG_INF, a second call bitwise the first (the splits
+    merge in split order, whoever finishes last), one "mma" launch a
+    call."""
+    before = dict(fd.launches_by_body)
+    q, k, v = _decode_inputs(30 + len(lens), len(lens), t, (32, 8, 128))
+    valid = torch.tensor(lens, device="cuda", dtype=torch.int32)
+    o, lse = fd.flash_decode_partial_cuda(q, k, v, valid)
+    want_o, want_lse = fd.flash_decode_partial(q, k, v, valid)
+    again = fd.flash_decode_partial_cuda(q, k, v, valid)
+    torch.cuda.synchronize()
+    live = valid > 0
+    torch.testing.assert_close(o, want_o, rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse[live], want_lse[live], rtol=0, atol=1e-5)
+    assert torch.all(o[~live] == 0)
+    assert torch.all(lse[~live] == fd.NEG_INF)
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    band(want_o, o, "flash_decode_partial")
+    band(want_lse[live], lse[live], "flash_decode_partial")
+    assert fd.launches_by_body["mma"] - before["mma"] == 2
+    assert fd.launches_by_body["fma"] == before["fma"]
+
+
+@pytest.mark.cuda
+def test_flash_decode_bodies_by_form(cuda):
+    """launches_by_body: bf16 at D = 128 takes the Hopper body, f32 and
+    D = 64 the FMA body; the main path's wrapper call counts one launch
+    either way."""
+    before = dict(fd.launches_by_body)
+    reset_launches()
+    for heads, dtype in (((32, 8, 128), torch.bfloat16),
+                         ((32, 8, 128), torch.float32),
+                         ((4, 2, 64), torch.bfloat16)):
+        q, k, v = _decode_inputs(7, 2, 100, heads, dtype)
+        fd.flash_decode_partial_cuda(q, k, v, torch.tensor([50, 100]))
+    torch.cuda.synchronize()
+    got = {b: fd.launches_by_body[b] - before[b] for b in before}
+    assert got == {"mma": 1, "fma": 2}, got
+    assert launches()["flash_decode_partial"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,dtype", [((32, 8, 128), torch.bfloat16),
+                                         ((4, 2, 64), torch.float32)],
+                         ids=["mma", "fma"])
+def test_flash_decode_warm_calls_allocate_only_outputs(cuda, heads, dtype):
+    """A warm call with int32 lengths on the card allocates o and lse and
+    nothing else (the merge slots and counters persist in fd._POOLS, no
+    memset); after 20 back-to-back calls every counter of every pool
+    reads zero, no warm call made a pool, and the result is bitwise the
+    first call's."""
+    lens = (8192, 9, 0, 4000) if dtype == torch.bfloat16 else (9, 0, 400)
+    t = max(lens)
+    q, k, v = _decode_inputs(11, len(lens), t, heads, dtype)
+    valid = torch.tensor(lens, device="cuda", dtype=torch.int32)
+    first = fd.flash_decode_partial_cuda(q, k, v, valid)
+    torch.cuda.synchronize()
+    made = fd._POOLS.made
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for _ in range(20):
+        got = fd.flash_decode_partial_cuda(q, k, v, valid)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    assert allocs == 2 * 20, allocs
+    assert fd._POOLS.made == made
+    assert all(int(c.count_nonzero()) == 0
+               for _, c in fd._POOLS.entries.values())
+    assert torch.equal(got[0], first[0]) and torch.equal(got[1], first[1])
+
+
+@pytest.mark.cuda
+def test_flash_decode_slots_match_the_work_plan(cuda):
+    """The kernel's merge slots (fd_tc_part_floats) are the host plan's
+    (work_plan) times a state's floats, on this card's SMs."""
+    from triton_dist_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_decode", fd._SIGNATURES)
+    hq, hkv, d, g = 32, 8, 128, 4
+    sms = _build.card_sms(torch.device("cuda"))
+    for lens, t in ((_SP_STEP_LENS, 8192), ((0, 1, 1100), 1100)):
+        plan, slots = fd.work_plan(lens, t, hkv, sms)
+        got = lib.fd_tc_part_floats(len(lens), hq, hkv, fd._groups(hkv, sms))
+        assert got == slots * (g * d + 2 * g), (got, slots)
 
 
 @pytest.mark.cuda

@@ -149,6 +149,150 @@ def test_flash_decode_combine_matches_jax():
     assert fd.partials_buf_shape(b, HQ, D) == (b, 128)
 
 
+# -- the decode partial's Hopper body: its rule, work plan and pools --------
+
+# phase 4s's 16 (rank, row) valid lengths at its last decode step, and a
+# ragged set: empty, 1, inside a tile, across tiles, T not a multiple
+_DECODE_LENS = [((8192,) * 7 + (14, 8192, 8192, 12, 0, 8192, 10, 0, 0),
+                 8192),
+                ((0, 1, 37, 300, 700, 1100, 129, 16), 1100)]
+
+
+@pytest.mark.parametrize("dtype,d,g,body", [
+    (torch.bfloat16, 128, 4, "mma"),  # Qwen3-8B: the main path's form
+    (torch.bfloat16, 128, 8, "mma"),  # the widest group, G * D = 1024
+    (torch.bfloat16, 128, 1, "mma"),
+    (torch.float32, 128, 4, "fma"),  # f32 keeps the CUDA-core body
+    (torch.bfloat16, 64, 2, "fma"),  # D = 64 too
+    (torch.float32, 64, 2, "fma"),
+])
+def test_decode_body_for_routes_bf16_d128_to_mma(dtype, d, g, body):
+    """_body_for: the TMA + tensor-core body serves bf16 at D = 128 (G <=
+    8); f32 and D = 64 keep the FMA body, as the prefill kernels route."""
+    assert fd._body_for(dtype, d, g) == body
+
+
+@pytest.mark.parametrize("lens,t", _DECODE_LENS, ids=["phase-4s", "ragged"])
+@pytest.mark.parametrize("hkv,sms", [(8, 132), (2, 132), (8, 8)],
+                         ids=["qwen3-8b", "hkv-2", "one-group"])
+def test_decode_work_plan_covers_each_live_key_once(lens, t, hkv, sms):
+    """work_plan: each (row, kv head)'s pieces cover the row's live keys
+    [0, len) exactly once, split j after split j - 1 in key order and in
+    group order, every piece agrees on the split count, slots are
+    distinct and below the plan's count, and a dead row has no piece."""
+    plan, slots = fd.work_plan(lens, t, hkv, sms)
+    assert len(plan) == sms // hkv * hkv
+    by_seg = {}
+    for block, pieces in enumerate(plan):
+        for p in pieces:
+            assert block % hkv == p.head
+            by_seg.setdefault((p.row, p.head), []).append((block, p))
+    for b in range(len(lens)):
+        live = min(max(lens[b], 0), t)
+        for h in range(hkv):
+            got = sorted(by_seg.get((b, h), []), key=lambda bp: bp[1].split)
+            assert [p.split for _, p in got] == list(range(len(got)))
+            assert all(p.splits == len(got) for _, p in got)
+            assert [bl for bl, _ in got] == sorted(bl for bl, _ in got)
+            edges = [0] + [p.k1 for _, p in got]
+            assert [p.k0 for _, p in got] == edges[:-1]
+            assert edges[-1] == live and all(p.k0 < p.k1 for _, p in got)
+    every = [p.slot for ps in plan for p in ps]
+    assert len(set(every)) == len(every) and max(every) < slots
+
+
+def test_decode_work_plan_balances_the_groups():
+    """At phase 4s's lengths: 128 blocks in 16 groups of 8 (a block a kv
+    head) whose shares of the live tiles differ by at most one 128-key
+    tile; a row spans at most 3 groups, so a merge reads at most 3
+    slots."""
+    lens, t = _DECODE_LENS[0]
+    plan, slots = fd.work_plan(lens, t, 8, 132)
+    assert len(plan) == 128 and slots == (16 + 16) * 8
+    tiles = [sum(-(-(p.k1 - p.k0) // 128) for p in ps) for ps in plan]
+    assert max(tiles) - min(tiles) <= 1
+    assert max(p.splits for ps in plan for p in ps) <= 3
+
+
+@pytest.mark.parametrize("lens,t", _DECODE_LENS, ids=["phase-4s", "ragged"])
+def test_decode_plan_merge_matches_the_partial(lens, t):
+    """The kernel's arithmetic on the host, in f32: each piece's
+    unnormalised (acc, m, l) over its keys, merged in split order as the
+    last block merges them, gives flash_decode_partial's o and lse
+    (1e-5); an empty row o = 0, lse = NEG_INF."""
+    hq, hkv, d = 32, 8, 16
+    g = hq // hkv
+    rows = len(lens)
+    q, k, v = (_t(_rand(60 + i, *shape)) for i, shape in enumerate(
+        ((rows, hq, d), (rows, t, hkv, d), (rows, t, hkv, d))))
+    want_o, want_lse = fd.flash_decode_partial(q, k, v, torch.tensor(lens))
+    plan, _ = fd.work_plan(lens, t, hkv, 132)
+    parts = {}
+    for p in (p for pieces in plan for p in pieces):
+        qq = q[p.row, p.head * g:(p.head + 1) * g] * d ** -0.5
+        sc = qq @ k[p.row, p.k0:p.k1, p.head].T  # (G, keys)
+        m = sc.amax(-1)
+        e = torch.exp(sc - m[:, None])
+        parts.setdefault((p.row, p.head), []).append(
+            (p.split, e @ v[p.row, p.k0:p.k1, p.head], m, e.sum(-1)))
+    o = torch.zeros(rows, hq, d)
+    lse = torch.full((rows, hq), fd.NEG_INF)
+    for (b, h), ps in parts.items():
+        ps.sort(key=lambda x: x[0])
+        big_m = torch.stack([m for _, _, m, _ in ps]).amax(0)
+        acc, den = 0.0, 0.0
+        for _, a, m, l_ in ps:
+            f = torch.exp(m - big_m)
+            acc, den = acc + a * f[:, None], den + l_ * f
+        o[b, h * g:(h + 1) * g] = acc / den[:, None]
+        lse[b, h * g:(h + 1) * g] = big_m + torch.log(den)
+    _close(o, want_o)
+    _close(lse, want_lse)
+
+
+def test_decode_pool_keys_part_every_call_configuration():
+    """The merge slots and counters: one pool entry a (device, stream,
+    shape, dtype, body); calls that differ in any never share one, the
+    same call maps to the same key, and the pools are a
+    _build.PoolCache."""
+    from triton_dist_tpu_torch.kernels import _build
+
+    q = torch.zeros(16, 32, 128, dtype=torch.bfloat16)
+    base = fd._pool_key(q, 7, 8192, 8, "mma")
+    assert base == fd._pool_key(q.clone(), 7, 8192, 8, "mma")
+    others = [fd._pool_key(q, 8, 8192, 8, "mma"),
+              fd._pool_key(q[:8], 7, 8192, 8, "mma"),
+              fd._pool_key(q[:, :16], 7, 8192, 8, "mma"),
+              fd._pool_key(q.float(), 7, 8192, 8, "mma"),
+              fd._pool_key(q, 7, 4096, 8, "mma"),
+              fd._pool_key(q, 7, 8192, 4, "mma"),
+              fd._pool_key(q, 7, 8192, 8, "fma")]
+    assert len({base, *others}) == len(others) + 1
+    assert isinstance(fd._POOLS, _build.PoolCache)
+
+
+def test_flash_decode_partial_at_qwen3_heads_matches_jax():
+    """At Qwen3-8B's heads (32, 8, 128) and ragged lengths (0, 1, inside
+    a chunk, across chunks, full; T = 48, three of the JAX kernel's
+    16-key chunks and under one of the Hopper body's 128-key tiles): the
+    port's wrapper (its plain version on the CPU) against the JAX Pallas
+    partial in interpret mode and the XLA one."""
+    b, t, hq, hkv, d = 5, 48, 32, 8, 128
+    q, k, v = (_rand(21, b, hq, d), _rand(22, b, t, hkv, d),
+               _rand(23, b, t, hkv, d))
+    valid = np.array([0, 1, 9, 33, 48], np.int32)
+    o_x, lse_x = jax.jit(jax_partial)(q, k, v, valid)
+    before = pallas_call_count()
+    o_p, lse_p = jax.jit(functools.partial(jax_partial_pallas, chunk=16))(
+        q, k, v, valid)
+    assert pallas_call_count() > before
+    o, lse = fd.flash_decode_partial_cuda(_t(q), _t(k), _t(v), _t(valid))
+    for want_o, want_lse in ((o_p, lse_p), (o_x, lse_x)):
+        _close(o, want_o)
+        _close(lse[1:], want_lse[1:])
+    assert torch.all(o[0] == 0) and torch.all(lse[0] == fd.NEG_INF)
+
+
 # -- the low-latency AllGather -----------------------------------------------
 
 

@@ -29,18 +29,21 @@
 // never wait, so the consumer waits cannot form a cycle.
 //
 // Tile bodies. The main path's form (native wire, bf16 in and out, m a
-// multiple of 64, 2 <= n <= 8) runs gemm_rs_wgmma_kernel below: TMA,
+// multiple of 64, 1 <= n <= 8) runs gemm_rs_wgmma_kernel below: TMA,
 // wgmma, warp specialisation and a persistent schedule whose folds
-// overlap the last producer tiles. Every other call (a decode step's
-// m = 1, f32, f32 out, the partials mode, n = 1) runs gemm_rs_kernel with
-// one of two bodies. bf16: 128 x 128 output tiles, 8 warps of 64 x 32,
-// mma.sync m16n8k16 with f32 accumulation, the A and B tiles staged in
-// shared memory with cp.async in a three-stage ring, rows padded by 16
-// bytes so ldmatrix is free of bank conflicts (the fragment code of
-// flash_prefill.cu, tile.cuh). f32: 64 x 64 tiles on the CUDA cores with
-// FMA, so the kernel can be held to a tight tolerance. Both leave every
-// tile counter at zero (the owner resets it once its wait is met), so
-// the wrapper keeps counters and slots across calls.
+// overlap the last producer tiles; at n = 1 (force_kernel, the JAX
+// `_local_mm_kernel`'s place) its epilogue stores each rounded tile
+// straight to the output, with no slot, counter or fold. Every other
+// call (a decode step's m = 1, f32, f32 out, the partials mode) runs
+// gemm_rs_kernel with one of two bodies. bf16: 128 x 128 output tiles,
+// 8 warps of 64 x 32, mma.sync m16n8k16 with f32 accumulation, the A
+// and B tiles staged in shared memory with cp.async in a three-stage
+// ring, rows padded by 16 bytes so ldmatrix is free of bank conflicts
+// (the fragment code of flash_prefill.cu, tile.cuh). f32: 64 x 64
+// tiles on the CUDA cores with FMA, so the kernel can be held to a tight
+// tolerance. Both leave every tile counter at zero (the owner resets it
+// once its wait is met), so the wrapper keeps counters and slots across
+// calls.
 //
 // What bounds it on an H100: operations, 2 * n * M * K * N at the
 // model's shapes (the bf16 tensor-core peak), against n * (M*K + K*N)
@@ -335,9 +338,9 @@ cudaError_t launch(const void* a, const void* b, void* heap, void* out,
 // ---- the wgmma body: TMA + wgmma, warp-specialised (bf16 -> bf16) --------
 //
 // The main path's form (native wire, bf16 in and out, m = M / n a
-// multiple of 64, n >= 2, K and N at least 64): the same function, slots,
-// roundings and rank-order f32 fold as gemm_rs_kernel, with Hopper's tile
-// body and a persistent schedule:
+// multiple of 64, 1 <= n <= 8, K and N at least 64): the same function,
+// slots, roundings and rank-order f32 fold as gemm_rs_kernel, with
+// Hopper's tile body and a persistent schedule:
 //   - 384 threads: warpgroup 0 the producer (one thread issues TMA, the
 //     warpgroup gives its registers away: setmaxnreg 40), warpgroups 1
 //     and 2 the consumers (setmaxnreg 232), each wgmma.mma_async on 64 of
@@ -351,7 +354,8 @@ cudaError_t launch(const void* a, const void* b, void* heap, void* out,
 //     N edges by TMA's zero fill, stores masked per column;
 //   - the epilogue rounds a warpgroup's 64 rows to bf16 into slot `me` of
 //     chunk c's owner, then (a warpgroup barrier, one thread's fence and
-//     release add) counts them on the segment's counter;
+//     release add) counts them on the segment's counter; at n = 1 it
+//     rounds them into the output itself, and a rank has no fold items;
 //   - persistent blocks, one an SM: a rank's work items are its producer
 //     tiles, column by column (each column's row tiles together, so they
 //     read B from L2 and every owner's column completes early), then its
@@ -391,12 +395,13 @@ struct WgCfg {
   static_assert(BN % 64 == 0 && BN <= 256, "accumulators a thread");
 };
 
-// work of a rank: producer tiles (128 x BN) and fold items (64 x BN)
+// work of a rank: producer tiles (128 x BN) and fold items (64 x BN;
+// none at n = 1, whose producer tiles are the output's)
 struct WgWork {
   int RT, NT, segs, P, F;  // row tiles, column tiles, segments a chunk
   __host__ __device__ WgWork(int n, int M, int N, int BN)
       : RT((M + 127) / 128), NT((N + BN - 1) / BN), segs(M / n / 64),
-        P(RT * NT), F(M / n / 64 * NT) {}
+        P(RT * NT), F(n > 1 ? M / n / 64 * NT : 0) {}
 };
 
 template <int BN>
@@ -514,9 +519,12 @@ gemm_rs_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     hopper::wgmma_wait<0>();
     release(prev);
     hopper::fence_regs(acc);
-    // my partial of the segment into slot `me` of chunk c's owner
+    // my partial of the segment into slot `me` of chunk c's owner; at
+    // n = 1 the rows are the output's
     const int R = R0 + 64 * w, c = R / m, lr = R - c * m;
-    unsigned short* D = heap + ((size_t(c) * n + me) * m + lr) * N + j0;
+    unsigned short* D =
+        n == 1 ? out + size_t(R) * N + j0
+               : heap + ((size_t(c) * n + me) * m + lr) * N + j0;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int row = 16 * warp + lane / 4 + 8 * hr;
@@ -530,7 +538,8 @@ gemm_rs_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     }
     hopper::named_sync(1 + w, 128);
     hopper::signal_add_if(
-        flags + size_t(c) * wk.F + j0 / BN * wk.segs + lr / 64, 1, leader);
+        flags + size_t(c) * wk.F + j0 / BN * wk.segs + lr / 64, 1,
+        leader && n > 1);
   }
   // then my fold items: no wgmma follows
   for (; it < wk.P + wk.F; it += gridDim.x) {
@@ -611,7 +620,8 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* heap, void* out,
 }  // namespace
 
 // Flags (tile counters) a rank needs: the output tiles of its chunk
-// (the wgmma body, bn > 0: its fold items, 64-row segments x BN columns).
+// (the wgmma body, bn > 0: its fold items, 64-row segments x BN columns;
+// at n = 1 it uses none).
 extern "C" int gemm_rs_flag_count(int m, int N, int dtype, int bn) {
   if (bn > 0) return m / 64 * ((N + bn - 1) / bn);
   return dtype == 1 ? tiles_per_chunk<Bf16Body>(m, N)
@@ -624,11 +634,11 @@ extern "C" int gemm_rs_flag_count(int m, int N, int dtype, int bn) {
 // zero). M % n == 0; K and N multiples of 16 bytes' worth of elements.
 // dtype, out_dtype: 0 = float32, 1 = bfloat16 (f32 inputs: f32 out).
 // arrival: a's row blocks in ring-arrival order. body: 0 the mma.sync or
-// FMA body; 1 the wgmma body (bf16 in and out, no partials, 2 <= n <= 8, m a
-// multiple of 64, K and N at least 64; bn: 128, 192 or 256 columns a
-// tile). straggle_rank / straggle_ns: that rank's blocks stall on entry
-// (-1 / 0: none). info: 3 ints (see launch_world). Returns a
-// cudaError_t.
+// FMA body; 1 the wgmma body (bf16 in and out, no partials, 1 <= n <= 8,
+// m a multiple of 64, K and N at least 64; bn: 128, 192 or 256 columns
+// a tile; at n = 1 heap and flags are not read). straggle_rank /
+// straggle_ns: that rank's blocks stall on entry (-1 / 0: none). info:
+// 3 ints (see launch_world). Returns a cudaError_t.
 extern "C" int gemm_rs_launch(const void* a, const void* b, void* heap,
                               void* out, void* flags, int n, int M, int K,
                               int N, int dtype, int out_dtype, int partials,
@@ -642,7 +652,7 @@ extern "C" int gemm_rs_launch(const void* a, const void* b, void* heap,
   int* fl = static_cast<int*>(flags);
   int* inf = static_cast<int*>(info);
   if (body == 1) {
-    if (dtype != 1 || out_dtype != 1 || partials || n < 2 || n > 8 ||
+    if (dtype != 1 || out_dtype != 1 || partials || n < 1 || n > 8 ||
         (M / n) % 64 ||
         K < 64 || N < 64)
       return int(cudaErrorInvalidValue);

@@ -17,6 +17,15 @@ online-softmax combine.
       (csrc/flash_decode.cu), counted as "flash_decode_partial": split-KV
       over blocks and merged in the kernel. Launches on a CUDA tensor,
       or raises; on a CPU tensor it computes the plain version.
+      Two bodies, `_body_for` the rule and `launches_by_body` the count:
+      "mma" (bf16, D = 128, G = Hq / Hkv <= 8, the main path's form): a
+      TMA ring of K/V tiles folded on the tensor cores (mma.sync, P as
+      hi + lo bf16), its work sized on the device to the live keys
+      (`work_plan`); "fma" (f32, D = 64): f32 on the CUDA cores. Both
+      keep their merge slots and counters in `_POOLS` (a
+      _build.PoolCache keyed by `_pool_key`; the merging block resets
+      its counter), so a warm call allocates only o and lse and launches
+      no memset.
   flash_decode_combine — the cross-rank merge in torch (XLA code in the
       JAX package), the ranks added one by one in rank order, so two
       callers with the same bytes get the same bits.
@@ -28,8 +37,9 @@ cache shards (n, B, T_loc, Hkv, D), kv_len (B,) global; partials
 
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,21 +54,101 @@ NEG_INF = -1e30
 
 _SUPPORTED_D = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# keys a block folds: 8 tiles of 64; a 8192-key shard is 16 blocks a
-# (row, kv head), 2048 blocks at batch 4 on 4 ranks with 8 kv heads
+# the FMA body's keys a block: 8 tiles of 64; a 8192-key shard is 16
+# blocks a (row, kv head)
 _SPLIT_KEYS = 512
 _MAX_GROUP_WIDTH = 1024  # G * D: the kernel's outputs a block (128 x 8)
+# the Hopper ("mma") body's keys a unit (one stage of its ring)
+_MMA_TILE = 128
+# launches by body (flash_decode_partial_cuda.launches counts both)
+launches_by_body = {"fma": 0, "mma": 0}
 _SIGNATURES = {
     "fd_partial_launch": (ctypes.c_int, [ctypes.c_void_p] * 8
                           + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                   ctypes.c_void_p]),
     "fd_part_floats": (ctypes.c_longlong, [ctypes.c_int] * 6),
+    "fd_tc_launch": (ctypes.c_int, [ctypes.c_void_p] * 8
+                     + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                             ctypes.c_void_p]),
+    "fd_tc_part_floats": (ctypes.c_longlong, [ctypes.c_int] * 4),
     "fd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+# the merge slots and counters a call configuration (_pool_key)
+_POOLS = _build.PoolCache()
 
 
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _body_for(dtype, d: int, g: int) -> str:
+    """The kernel body of a call: "mma" (the TMA + tensor-core body) for
+    bf16 at D = 128 and G = Hq / Hkv <= 8, the main path's form; "fma"
+    (f32 on the CUDA cores) for f32 and D = 64, as the prefill kernels
+    route (csrc/flash_prefill.cu)."""
+    if dtype == torch.bfloat16 and d == 128 and g * d <= _MAX_GROUP_WIDTH:
+        return "mma"
+    return "fma"
+
+
+Piece = collections.namedtuple("Piece", "row head split splits slot k0 k1")
+
+
+def _groups(hkv: int, sms: int) -> int:
+    """The "mma" body's persistent groups: Hkv blocks each (a block a kv
+    head), one block an SM."""
+    return max(1, sms // hkv)
+
+
+def work_plan(lens: Sequence[int], t: int, hkv: int,
+              sms: int = _build.SMS) -> Tuple[List[List[Piece]], int]:
+    """The "mma" body's work plan (csrc/flash_decode.cu tc::Plan and
+    Walk, which walk it on the device from the valid lengths): a list a
+    launched block of its pieces, and the merge slots the launch uses. A
+    row's units are the _MMA_TILE-key tiles of its valid prefix, rows in
+    order, U in all. Blocks come in groups of Hkv, block i folding kv
+    head i % Hkv for group i // Hkv; group g of P = min(groups, U) takes
+    units [U g / P, U (g + 1) / P), at least one each, so a (row, kv
+    head)'s splits are the groups whose shares meet its row, in group
+    order. A piece folds keys [k0, k1) of (row, head) as split `split` of
+    `splits` into slot `slot`."""
+    launched = _groups(hkv, sms)
+    live = [min(max(int(n), 0), t) for n in lens]
+    tiles = [-(-n // _MMA_TILE) for n in live]
+    pre = [sum(tiles[:b]) for b in range(len(lens))]
+    total = sum(tiles)
+    groups = min(launched, total)
+
+    def group_of(u):
+        return ((u + 1) * groups + total - 1) // total - 1
+
+    plan = []
+    for i in range(launched * hkv):
+        g, h = divmod(i, hkv)
+        pieces = []
+        plan.append(pieces)
+        if g >= groups:
+            continue
+        u0, u1 = total * g // groups, total * (g + 1) // groups
+        for b in range(len(lens)):
+            a, z = max(u0, pre[b]), min(u1, pre[b] + tiles[b])
+            if a < z:
+                first = group_of(pre[b])
+                last = group_of(pre[b] + tiles[b] - 1)
+                pieces.append(Piece(
+                    b, h, g - first, last - first + 1, (b + g) * hkv + h,
+                    (a - pre[b]) * _MMA_TILE,
+                    min((z - pre[b]) * _MMA_TILE, live[b])))
+    return plan, (len(lens) + launched) * hkv
+
+
+def _pool_key(q: torch.Tensor, stream: int, t: int, hkv: int,
+              body: str) -> tuple:
+    """A pool's key: two calls share merge slots and counters only on one
+    device and one stream (launches on a stream run one after another),
+    at one shape (rows, Hq, D, T, Hkv), dtype and body: each sizes the
+    slots (the "mma" body's also by the device's SMs)."""
+    return (q.device, stream, *q.shape, t, hkv, q.dtype, body)
 
 
 def flash_decode_partial(q, k_loc, v_loc, valid_len,
@@ -127,6 +217,7 @@ def _launch(q, k, v, valid_len, scale):
                 or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned "
                              f"and on {q.device}")
+    body = _body_for(q.dtype, d, hq // hkv)
     o = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, hq), dtype=torch.float32, device=q.device)
     if b == 0 or t == 0:
@@ -134,18 +225,30 @@ def _launch(q, k, v, valid_len, scale):
         lse.fill_(NEG_INF)
         return o, lse
     lib = _build.load("flash_decode", _SIGNATURES)
-    part = torch.empty((lib.fd_part_floats(b, t, hq, hkv, d, _SPLIT_KEYS),),
-                       dtype=torch.float32, device=q.device)
-    count = torch.zeros((b * hkv,), dtype=torch.int32, device=q.device)
+    stream = _build.raw_stream(q.device)
     scale = float(scale if scale is not None else d ** -0.5)
-    with torch.cuda.device(q.device):
-        err = lib.fd_partial_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            part.data_ptr(), count.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, t, hq, hkv, d, _DTYPE_CODE[q.dtype], _SPLIT_KEYS, scale,
-            torch.cuda.current_stream().cuda_stream)
+    groups = _groups(hkv, _build.card_sms(q.device))
+    # the merge slots, and a zeroed counter a (row, kv head)
+    part, count = _POOLS.get(
+        _pool_key(q, stream, t, hkv, body),
+        lambda: (torch.empty(
+            (lib.fd_tc_part_floats(b, hq, hkv, groups) if body == "mma"
+             else lib.fd_part_floats(b, t, hq, hkv, d, _SPLIT_KEYS),),
+            dtype=torch.float32, device=q.device),
+            torch.zeros((b * hkv,), dtype=torch.int32, device=q.device)))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+            part.data_ptr(), count.data_ptr(), o.data_ptr(), lse.data_ptr())
+    with _build.on_device(q.device):
+        if body == "mma":
+            err = lib.fd_tc_launch(*ptrs, b, t, hq, hkv, groups, scale,
+                                   stream)
+        else:
+            err = lib.fd_partial_launch(*ptrs, b, t, hq, hkv, d,
+                                        _DTYPE_CODE[q.dtype], _SPLIT_KEYS,
+                                        scale, stream)
     _build.check("flash_decode_partial", err, lib.fd_error_string)
     _build.count_launch("flash_decode_partial")
+    launches_by_body[body] += 1
     return o, lse
 
 
@@ -219,9 +322,10 @@ def sp_flash_decode(q: torch.Tensor, k_shard: torch.Tensor,
     einsum, only when asked for."""
     n, b, hq, d = q.shape
     t_loc = k_shard.shape[2]
-    ranks = torch.arange(n, device=q.device)[:, None]
-    local_len = (kv_len.to(q.device)[None, :] - ranks * t_loc).clamp(
-        0, t_loc)
+    # int32, as the kernel reads them: its wrapper converts nothing
+    ranks = torch.arange(n, device=q.device, dtype=torch.int32)[:, None]
+    local_len = (kv_len.to(q.device, torch.int32)[None, :]
+                 - ranks * t_loc).clamp(0, t_loc)
     o, lse = _partials(q, k_shard, v_shard, local_len, scale, partial_impl)
     wp = partials_buf_shape(b, hq, d)[1]
     payload = torch.nn.functional.pad(

@@ -28,12 +28,13 @@ TPU's VMEM-budget and interpret-mode fallbacks do not carry over: on the
 card the kernel always runs.
 
 The kernel has two tile bodies. The main path's form (native wire,
-bf16 in and out, m = M / n a multiple of 64 at 2 <= n <= 8: a `dist`
-prefill's 128 rows a rank and a scheduler step's 64) takes the TMA +
-wgmma body with a persistent schedule, every other call (a decode step's
-m = 1, f32, f32 out, the wire's partials, force_kernel at n = 1) the
-mma.sync or FMA body; `_body_for` is the rule, `_wgmma_bn` the wgmma
-body's tile width, and `launches_by_body` counts each body's launches.
+bf16 in and out, m = M / n a multiple of 64 at 1 <= n <= 8: a `dist`
+prefill's 128 rows a rank, a scheduler step's 64, force_kernel at n = 1,
+where the tiles go straight to the output) takes the TMA + wgmma body
+with a persistent schedule, every other call (a decode step's m = 1,
+f32, f32 out, the wire's partials) the mma.sync or FMA body;
+`_body_for` is the rule, `_wgmma_bn` the wgmma body's tile width, and
+`launches_by_body` counts each body's launches.
 Both leave their tile counters at zero, so the slots and counters of a
 call configuration persist in `_POOLS` (a _build.PoolCache keyed by
 (device, stream, n, m, N, dtype, out_dtype, body, tile width)): a warm
@@ -105,11 +106,11 @@ def _body_for(n: int, m: int, k: int, nn: int, dtype, out_dtype,
               partials: bool = False) -> str:
     """The tile body of a native-kernel call with m rows a rank: "wgmma"
     (TMA + wgmma) for the main path's form, bf16 in and out, no partials,
-    2 <= n <= _WGMMA_MAX_WORLD, m a multiple of _WGMMA_ROWS, K and N at
-    least 64; "mma" for every other call (a decode step's m = 1, f32, f32
-    out, the wire's partials, force_kernel at n = 1)."""
+    1 <= n <= _WGMMA_MAX_WORLD (n = 1: force_kernel's local product), m a
+    multiple of _WGMMA_ROWS, K and N at least 64; "mma" for every other
+    call (a decode step's m = 1, f32, f32 out, the wire's partials)."""
     if (partials or dtype != torch.bfloat16 or out_dtype != torch.bfloat16
-            or not 2 <= n <= _WGMMA_MAX_WORLD or m % _WGMMA_ROWS
+            or not 1 <= n <= _WGMMA_MAX_WORLD or m % _WGMMA_ROWS
             or k < 64 or nn < 64):
         return "mma"
     return "wgmma"
@@ -305,8 +306,9 @@ def _launch(a: torch.Tensor, b: torch.Tensor, arrival: bool = False,
     if partials:  # every rank's f32 partial, no fold
         out = heap = torch.empty((n, M, N), dtype=torch.float32,
                                  device=a.device)
-    else:
-        out = torch.empty((n, m, N), dtype=out_dtype, device=a.device)
+    else:  # heap: the pool's below, unread by the wgmma body at n = 1
+        out = heap = torch.empty((n, m, N), dtype=out_dtype,
+                                 device=a.device)
     if out.numel() == 0:
         return out
     lib = _build.load("gemm_reduce_scatter", _SIGNATURES)
@@ -314,8 +316,8 @@ def _launch(a: torch.Tensor, b: torch.Tensor, arrival: bool = False,
     grid = _build.GridInfo()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        flags_ptr = 0  # the partials mode signals nothing
-        if not partials:
+        flags_ptr = 0  # the partials mode, n = 1's wgmma body: no signal
+        if not partials and not (body == "wgmma" and n == 1):
             world = VirtualWorld.of(a)
             count = lib.gemm_rs_flag_count(m, N, code, bn or 0)
             # [owner c][producer r] slots, (n, count) counters

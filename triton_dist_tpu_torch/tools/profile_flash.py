@@ -1,6 +1,20 @@
-"""The flash prefill kernels' times at the Qwen3-8B head shapes.
+"""The flash kernels' times at the Qwen3-8B head shapes.
 
-    python -m triton_dist_tpu_torch.tools.profile_flash [--host | --sp]
+    python -m triton_dist_tpu_torch.tools.profile_flash [--host | --sp |
+                                                         --decode]
+
+--decode times only the SP decode partial (`flash_decode_partial_cuda`,
+PERF.md row 3) on phase 4s's last decode step: q (16, 32, 128) and the
+(16, 8192, 8, 128) bf16 cache shards of world 4 x batch 4 (chip_smoke's
+`rand`), the 16 (rank, row) valid lengths of kv_len chip_smoke.SP_KV_LEN
++ SP_STEPS as int32 on the card, as sp_flash_decode passes them. One
+line: the body the package picks (`flash_decode._body_for`; a package
+without it has only the FMA body), call ms (CUDA events), the kernel's
+device µs (torch.profiler), the wrapper's host µs a call
+(unsynchronised calls), the caching allocator's allocations a warm call,
+the bound (chip_smoke.bound_ms over the valid K/V, q and the outputs)
+and the library's one call (efficient attention with its lse,
+chip_smoke.sp_decode_library).
 
 --sp times only the SP kernel (`sp_flash_prefill`, PERF.md row 2) at
 world 4: phase 4s's main path (4 rows x 32768 positions, 8192 a rank,
@@ -48,6 +62,7 @@ import time
 
 import torch
 
+from triton_dist_tpu_torch.kernels import flash_decode as fd
 from triton_dist_tpu_torch.kernels import flash_prefill as fp
 
 
@@ -156,8 +171,44 @@ def sp_rows(cs):
     return rows
 
 
+def decode_row(cs):
+    """Row 3 on phase 4s's last decode step (see --decode)."""
+    n, b, s = cs.SP_WORLD, cs.SP_BATCH, cs.SP_S_LOC
+    hq, hkv, d = 32, 8, 128
+    kv_len = torch.tensor(cs.SP_KV_LEN, device="cuda") + cs.SP_STEPS
+    local = (kv_len[None] - torch.arange(n, device="cuda")[:, None] * s
+             ).clamp(0, s).reshape(-1).to(torch.int32)
+    q = cs.rand((n * b, hq, d), torch.bfloat16, 71)
+    k, v = (cs.rand((n * b, s, hkv, d), torch.bfloat16, 72 + i)
+            for i in range(2))
+
+    def fn():
+        return fd.flash_decode_partial_cuda(q, k, v, local)
+
+    valid = int(local.sum())
+    bound, by = cs.bound_ms(
+        4 * hq * d * valid,
+        valid * 2 * hkv * d * 2 + q.numel() * 2 + n * b * hq * (d + 1) * 4,
+        "bfloat16")
+    body = (fd._body_for(q.dtype, d, hq // hkv)
+            if hasattr(fd, "_body_for") else "fma")
+    row = dict(lens=local.tolist(), body=body, ms=cs.time_ms(fn),
+               device_us=cs.device_us(fn, "fd_"),
+               host_us_a_call=_host_us(fn), allocs_per_call=_allocs(fn),
+               bound_ms=bound, bound_by=by)
+    row["library_ms"], row["library_us"] = cs.sp_decode_library(q, k, v,
+                                                                local)
+    return row
+
+
 def main() -> None:
     cs = _chip_smoke()
+    if "--decode" in sys.argv[1:]:
+        print(json.dumps({"decode_case": "phase 4s last step",
+                          **decode_row(cs), "card": cs.card_line(),
+                          "package": os.path.dirname(os.path.dirname(
+                              fd.__file__))}), flush=True)
+        return
     if "--sp" in sys.argv[1:]:
         card = cs.card_line()
         for name, row in sp_rows(cs).items():

@@ -7,8 +7,11 @@ scale 1, weights 0.02): gemm_rs (csrc/gemm_reduce_scatter.cu) on the O
 projection (a (4, 4m, 1024), b (4, 1024, 4096), rank order) and the down
 projection (a (4, 4m, 3072), b (4, 3072, 4096), arrival order), each at
 a prefill's m = 128 rows a rank and a scheduler step's m = 64: the
-`dist` path's four calls. Each case is first held against gemm_rs_plain
-within chip_smoke.gemm_rs_atol (20 calls); then its device µs a call
+`dist` path's four calls; then the n = 1 form (force_kernel, PERF.md
+row 6: chip_smoke's world-1 down projection, a (1, 512, 12288), b (1,
+12288, 4096)), whose library call is one torch.matmul. Each case is
+first held against gemm_rs_plain within chip_smoke.gemm_rs_atol (20
+calls); then its device µs a call
 (torch.profiler, chip_smoke.device_us on the kernels named gemm_rs*),
 its call ms (CUDA events), the least time (chip_smoke.bound_ms: 2 n M K
 N operations at the bf16 peak against n (M K + K N) read and n m N
@@ -18,8 +21,9 @@ kernel's µs a call in the last (`library_kernels_us`) and the device µs
 of that einsum's product alone (`gemm_us`: one matmul of A laid out as
 (M, n K) beforehand by B as (n K, N)). Where the package has the wgmma
 body (`gemm_reduce_scatter._body_for`): which body each case takes, the
-mma.sync body forced on the same call, the BN sweep (each tile width
-forced through `gemm_reduce_scatter._launch(..., bn=)`, within the atol),
+mma.sync body forced on the same call, where the case takes the wgmma
+body the BN sweep (each tile width forced through
+`gemm_reduce_scatter._launch(..., bn=)`, within the atol),
 the plan's pick, and each wgmma instantiation's registers and spills
 from ptxas when this run built the library. Prints one JSON line.
 chip_smoke.py is loaded from this file's checkout and the kernel from
@@ -52,6 +56,9 @@ def _cases(cs):
             a = cs.rand((N_WORLD, N_WORLD * m, k), torch.bfloat16, m + k)
             b = cs.rand((N_WORLD, k, N), torch.bfloat16, k + 1, 0.02)
             yield f"{when} {proj} ({order})", a, b, order
+    a = cs.rand((1, 512, 12288), torch.bfloat16, 5)
+    b = cs.rand((1, 12288, N), torch.bfloat16, 6, 0.02)
+    yield "n = 1 force_kernel (row 6)", a, b, "rank"
 
 
 def _within(cs, fn, a, b, want, label):
@@ -92,9 +99,11 @@ def main() -> None:
         want = kernels.gemm_rs_plain(a, b, order)
 
         def call(a=a, b=b, order=order):
-            return kernels.gemm_rs(a, b, a_order=order)
+            return kernels.gemm_rs(a, b, a_order=order, force_kernel=True)
 
         def library(a=a, b=b):
+            if a.shape[0] == 1:
+                return torch.matmul(a, b)
             return torch.einsum("rmk,rkn->mn", a, b)
 
         share = _within(cs, call, a, b, want, label)
@@ -125,6 +134,8 @@ def main() -> None:
 
         _within(cs, mma, a, b, want, f"{label} mma")
         rows[label]["mma_device_us"] = cs.device_us(mma, KEY)
+        if bodies[label] != "wgmma":
+            continue
         for bn in rs._WGMMA_BN:
             def fn(a=a, b=b, arrival=arrival, bn=bn):
                 return rs._launch(a, b, arrival, bn=bn)
