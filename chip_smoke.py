@@ -4079,6 +4079,7 @@ def wire_row(label, fn, plain, native, ops, nbytes, keys, drift):
                           torch.bfloat16)
     us = [device_us(fn, key) for key in keys]
     row["device_us"] = None if None in us else sum(us)
+    row["device_us_by_kernel"] = dict(zip(keys, us))
     row["native_ms"] = time_ms(native)
     row["drift_cos"], row["drift_ulp"] = drift
     dev = ("None" if row["device_us"] is None
@@ -4102,12 +4103,15 @@ def run_wire(kernels):
     kernel's own f32 partials (teacher-forced) and within the bf16 band's
     cosine of the end-to-end plain version; ag_gemm within the bf16 band
     of its plain version; every result's drift against the native fold
-    at most DEFAULT_ERROR_BUDGET. Then each call's timing beside the
-    native kernel's. Returns (launches, {kernel: (rows, main label, max
-    abs err)}, numbers)."""
+    at most DEFAULT_ERROR_BUDGET. The body each ag_gemm and partial-GEMM
+    launch took (launches_by_body) is held to its module's _body_for
+    rule. Then each call's timing beside the native kernel's, the
+    partial GEMM's and the ring's device µs apart. Returns (launches,
+    {kernel: (rows, main label, max abs err)}, numbers)."""
     import torch
 
     from triton_dist_tpu_torch import wire
+    from triton_dist_tpu_torch.kernels import allgather_gemm as agm
     from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as grs
     from triton_dist_tpu_torch.kernels import low_latency_allgather as llag
 
@@ -4136,6 +4140,19 @@ def run_wire(kernels):
     def expect(name, k=1):
         want[name] += k
 
+    # the body each ag_gemm and partial-GEMM launch takes, by the rules
+    want_bodies = {"ag_gemm_wire": {}, "gemm_rs_wire": {}}
+    for a, b in agg.values():
+        body = agm._body_for(a, (b,), per_row[0], False)
+        want_bodies["ag_gemm_wire"][body] = want_bodies["ag_gemm_wire"].get(
+            body, 0) + len(per_row)
+    for a, b in grs_in.values():
+        body = grs._body_for(n, a.shape[1] // n, a.shape[2], b.shape[2], bf,
+                             torch.float32, partials=True)
+        want_bodies["gemm_rs_wire"][body] = want_bodies["gemm_rs_wire"].get(
+            body, 0) + len(fmts)
+    bodies0 = {"ag_gemm_wire": dict(agm.launches_by_body),
+               "gemm_rs_wire": dict(grs.launches_by_body)}
     kernels.reset_launches()
     torch.cuda.synchronize()
     for f in fmts:
@@ -4170,6 +4187,12 @@ def run_wire(kernels):
     torch.cuda.synchronize()
     launched = kernels.launches()
     assert launched == want, (launched, want)
+    bodies = {name: {k: v - bodies0[name][k] for k, v in by.items()
+                     if v != bodies0[name][k]}
+              for name, by in (("ag_gemm_wire", agm.launches_by_body),
+                               ("gemm_rs_wire", grs.launches_by_body))}
+    assert bodies == want_bodies, (bodies, want_bodies)
+    log(f"  wire launches by body: {bodies} (the rules' {want_bodies})")
     for key, y in outs.items():
         assert bool(torch.isfinite(y.float()).all()), key
 
@@ -4336,7 +4359,7 @@ def run_wire(kernels):
                 lambda a=a, b=b: kernels.gemm_rs(a, b), 2 * n * mm * k * nn,
                 (n * mm * k + n * k * nn + n * (mm // n) * nn) * 2
                 + wire_hop_bytes(n, mm // n, nn, f),
-                ["gemm_rs_kernel", "ring_rs_wire_kernel"],
+                ["gemm_rs", "ring_rs_wire_kernel"],
                 drift[("gemm_rs", name, fl)])
         if f.block is not None:
             continue
@@ -4352,14 +4375,14 @@ def run_wire(kernels):
                 lambda a=a, b=b: kernels.ag_gemm(a, b),
                 2 * n * n * m * k * nn,
                 (n * m * k + n * k * nn + n * n * m * nn) * 2
-                + wire_hop_bytes(n, m, k, f), ["ag_gemm_kernel"],
+                + wire_hop_bytes(n, m, k, f), ["ag_gemm"],
                 drift[("ag_gemm", name, fl)])
     mains = {"ring_rs_wire": next(iter(rows["ring_rs_wire"])),
              "gemm_rs_wire": next(iter(rows["gemm_rs_wire"])),
              "ag_gemm_wire": next(iter(rows["ag_gemm_wire"]))}
     numbers = dict(drift={" ".join(map(str, k)): v for k, v in
                           drift.items()},
-                   timings=timings)
+                   timings=timings, bodies=bodies)
     return launched, {name: (rows[name], mains[name], errs[name])
                       for name in WIRE_KERNELS}, numbers
 
@@ -4606,13 +4629,15 @@ def main() -> int:
             # C7510 / C7518: ptxas serialized a kernel's wgmma
             if "registers" in line or "spill" in line or "C75" in line:
                 log(f"  {name}: {line.strip()}")
-    # ag_gemm's wgmma bodies (dense and grouped) issue no serialized wgmma
-    serial = [line.strip() for line in _build.build_log.get(
-        "allgather_gemm", "").splitlines()
-        if any(w in line for w in ("C7510", "C7515", "C7518"))]
-    assert not serial, f"ptxas serialized ag_gemm's wgmma: {serial}"
-    if "allgather_gemm" in _build.build_log:
-        log("  allgather_gemm: no C7510 / C7515 / C7518 from ptxas")
+    # ag_gemm's wgmma bodies (dense, wire and grouped) and gemm_rs's
+    # (native and partials) issue no serialized wgmma
+    for name in ("allgather_gemm", "gemm_reduce_scatter"):
+        serial = [line.strip() for line in _build.build_log.get(
+            name, "").splitlines()
+            if any(w in line for w in ("C7510", "C7515", "C7518"))]
+        assert not serial, f"ptxas serialized {name}'s wgmma: {serial}"
+        if name in _build.build_log:
+            log(f"  {name}: no C7510 / C7515 / C7518 from ptxas")
 
     log("== 3. kernels against their plain versions")
     fp_err = check_flash_prefill(fp)
@@ -4803,7 +4828,10 @@ def main() -> int:
         lines.append(entry(name, total(name), by_path(name), err, rows,
                            main_label,
                            device_us=rows[main_label]["device_us"],
-                           native_ms=rows[main_label]["native_ms"]))
+                           native_ms=rows[main_label]["native_ms"],
+                           **({"launches_by_body": wire_numbers["bodies"][
+                               name]} if name in wire_numbers["bodies"]
+                              else {})))
     missing = set(kernels.KERNELS) - {e["name"] for e in lines}
     assert not missing, f"kernels without a line: {missing}"
     assert all(e["launches"] > 0 for e in lines), "a kernel never launched"

@@ -241,7 +241,8 @@ def _bf16(*shape):
     ((4, 96, 4096, 1536, 1, None, None), "mma"),  # m not a box multiple
     ((4, 128, 4096, 1536, 1, None, "f32"), "mma"),
     ((4, 128, 4096, 1536, 1, 8, "f32"), "mma"),  # grouped f32 (FMA)
-    ((4, 128, 4096, 1536, 1, None, "fp8"), "mma"),  # the wire
+    # the wire: the dequantizing wgmma body (phase 4w's QKV)
+    ((4, 128, 4096, 1536, 1, None, "fp8"), "wgmma"),
     ((4, 128, 32, 1536, 1, None, None), "mma"),  # K under one box
     ((4, 128, 4096, 40, 1, None, None), "mma"),  # N under one box
     # the grouped form in bf16 with counts ("live") takes the
@@ -253,22 +254,67 @@ def _bf16(*shape):
     ((9, 64, 128, 192, 2, 4, "live"), "mma"),  # past 8 ranks
     ((4, 64, 32, 192, 2, 4, "live"), "mma"),  # K under one box
     ((4, 64, 128, 40, 2, 4, "live"), "mma"),  # N under one box
+    # the dense form on a quantized wire: the wgmma body (its A
+    # dequantized in the pipeline) at the main form's shapes
+    ((4, 128, 4096, 6144, 1, None, "int8"), "wgmma"),  # phase 4w's gate|up
+    ((4, 64, 4096, 1536, 1, None, "int8"), "wgmma"),  # scheduler step
+    ((1, 128, 1024, 384, 1, None, "fp8"), "wgmma"),  # force_kernel, n = 1
+    ((4, 128, 4096, 1536, 1, None, "f32 fp8"), "mma"),  # f32 in
+    ((4, 37, 4096, 1536, 1, None, "fp8"), "mma"),  # ragged m
+    ((4, 1, 512, 256, 1, None, "int8"), "mma"),  # a decode step's m = 1
+    ((4, 128, 4096, 40, 1, None, "fp8"), "mma"),  # N under one box
 ])
 def test_body_for_routes_the_main_path_to_wgmma(case, body):
-    """_body_for: the wgmma body serves the dense bf16 native-wire form
-    at m a multiple of 64 (a prefill's 128 rows a rank, a scheduler
-    step's 64), K and N at least one 64-wide box; the grouped bf16 form
-    with counts (the fused MoE up-projection) the expert-major kernel at
-    n <= 8, K and N at least one box; wire, f32, ragged or small m, and
-    the grouped form without counts keep the mma.sync (or FMA) body."""
+    """_body_for: the wgmma body serves the dense bf16 form at m a
+    multiple of 64 (a prefill's 128 rows a rank, a scheduler step's 64),
+    K and N at least one 64-wide box, on the native wire or a quantized
+    one; the grouped bf16 form with counts (the fused MoE up-projection)
+    the expert-major kernel at n <= 8, K and N at least one box; f32,
+    ragged or small m, and the grouped form without counts keep the
+    mma.sync (or FMA) body."""
     n, m, k, nn, halves, experts, kind = case
-    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    dtype = torch.float32 if kind in ("f32", "f32 fp8") else torch.bfloat16
     a = torch.zeros(n, m, k, dtype=dtype)
     shape = (n, experts, k, nn) if experts else (n, k, nn)
     bs = tuple(torch.zeros(*shape, dtype=dtype) for _ in range(halves))
-    fmt = wire.resolve("fp8" if kind == "fp8" else None)
+    quantized = kind in ("fp8", "int8", "f32 fp8")
+    fmt = wire.resolve(kind.split()[-1] if quantized else None)
     assert ag._body_for(a, bs, fmt, experts is not None,
                         kind == "live") == body
+
+
+@pytest.mark.parametrize("kind", ["fp8", "int8"])
+@pytest.mark.parametrize("k", [128, 1024, 4096])
+def test_wire_maps_geometry_matches_the_image(kind, k):
+    """_wire_maps, the wire body's byte maps: rows wire.wire_cols(K)
+    apart (a multiple of 16 bytes, as TMA's strides must be); the payload
+    read in whole 64-byte boxes, K / 64 a row, never past K; the scale box
+    at column K (16-byte aligned), inside the row, and holding the f32
+    scale where the codec puts it."""
+    g = ag._wire_maps(k, kind)
+    kw = wire.wire_cols(k, kind)
+    assert g["row_bytes"] == kw and kw % 16 == 0
+    pay, sc = g["payload_box"], g["scale_box"]
+    assert pay == (64, 64) and g["steps"] * pay[0] == k
+    assert g["scale_col"] == k and k % 16 == 0 and sc[0] % 16 == 0
+    assert k + wire.SCALE_BYTES <= k + sc[0] <= kw
+    # the scale where the box reads it: bytes K..K+3 of each image row
+    x = torch.linspace(-3, 5, 2 * k).reshape(2, k)
+    img = wire.pack(x, kind)
+    assert img.shape == (2, kw)
+    scale = img[:, g["scale_col"]:g["scale_col"] + 4].contiguous().view(
+        torch.float32)[:, 0]
+    torch.testing.assert_close(scale, x.abs().amax(1) / (
+        wire.FP8_MAX if kind == "fp8" else wire.INT8_MAX))
+
+
+def test_wire_maps_refuse_what_the_body_cannot_read():
+    """Block scales (more than one scale a row) and K that is no whole
+    number of payload boxes are refused."""
+    with pytest.raises(ValueError, match="one f32 scale"):
+        ag._wire_maps(1024, wire.WireFormat("int8", 128))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        ag._wire_maps(96, "fp8")
 
 
 @pytest.mark.parametrize("M,N,n,pair,want", [

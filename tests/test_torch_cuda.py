@@ -2450,12 +2450,14 @@ def test_wire_checksum_trips_on_the_card(cuda):
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
 def test_gemm_rs_wire_kernels_match_plain(cuda, n, out):
     """gemm_rs on the wire: the partial-GEMM launch, then the wire ring.
-    Teacher-forced, the ring's result is bitwise the plain fold of the
-    kernel's own f32 partials; end to end it is within the epsilon band's
-    cosine of the plain version (the partial GEMM's order may flip a
-    quantization step at a hop: that element moves by one step, beyond
-    the band's ulp bound, which is printed); the native
-    out_dtype=float32 within 1e-5 relative. Arrival order too."""
+    The partials come from the wgmma body (launches_by_body), within
+    1e-5 of torch.matmul in f32; teacher-forced, the ring's result is
+    bitwise the plain fold of the kernel's own f32 partials; end to end
+    it is within the epsilon band's cosine of the plain version (the
+    partial GEMM's order may flip a quantization step at a hop: that
+    element moves by one step, beyond the band's ulp bound, which is
+    printed); the native out_dtype=float32 within 1e-5 relative. Arrival
+    order too."""
     from triton_dist_tpu_torch import wire
     from triton_dist_tpu_torch.kernels import (
         arrival_to_rank_order,
@@ -2470,6 +2472,7 @@ def test_gemm_rs_wire_kernels_match_plain(cuda, n, out):
     b = (torch.from_numpy(rng.standard_normal((n, 1024, 512))) * 0.05).to(
         "cuda", torch.bfloat16)
     reset_launches()
+    before = dict(grs.launches_by_body)
     for spec in ("fp8", "int8", ("int8", 128, False)):
         fmt = _wire_fmt(spec)
         for order in ("rank", "arrival"):
@@ -2495,6 +2498,10 @@ def test_gemm_rs_wire_kernels_match_plain(cuda, n, out):
             assert rep["cos"] <= rep["band_cos"]
     assert launches()["gemm_rs_wire"] == 2 * 6
     assert launches()["ring_rs_wire"] == 6
+    # every partial GEMM (m = 64 a rank, K 1024, N 512) took the wgmma body
+    took = {k2: v - before[k2] for k2, v in grs.launches_by_body.items()
+            if v != before[k2]}
+    assert took == {"wgmma": 2 * 6}, took
     got = gemm_rs(a, b, out_dtype=torch.float32)
     want = grs.gemm_rs_plain(a, b, out_dtype=torch.float32)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -2508,33 +2515,50 @@ def test_ag_gemm_wire_kernel_matches_plain(cuda, n, kind):
     band of the plain version (A's dequantized tiles are bitwise the
     codec's roundtrip; the products differ in order), both orders, bf16
     and f32 out; return_gathered bitwise the roundtrip of A; m = 1 and a
-    ragged row count; the native out_dtype=float32 too."""
+    ragged row count; the native out_dtype=float32 too. m 128 and m 64
+    at K 4096, N 1536 (phase 4w's QKV widths, more than one tile of BN)
+    take the dequantizing wgmma body, m 1 and 37 the mma.sync body
+    (launches_by_body); the mma.sync body forced on the wgmma cases'
+    inputs is held to the same plain version."""
     from triton_dist_tpu_torch import wire
+    from triton_dist_tpu_torch.kernels import allgather_gemm as ag
 
     rng = np.random.default_rng(170 + n)
     reset_launches()
     calls = 0
-    for m, k, nn in ((128, 1024, 384), (1, 512, 256), (37, 256, 128)):
+    for m, k, nn in ((128, 1024, 384), (64, 4096, 1536), (1, 512, 256),
+                     (37, 256, 128)):
         a = (torch.from_numpy(rng.standard_normal((n, m, k))) * 0.1).to(
             "cuda", torch.bfloat16)
         b = (torch.from_numpy(rng.standard_normal((n, k, nn))) * 0.05).to(
             "cuda", torch.bfloat16)
+        body = "mma" if m % 64 else "wgmma"
         for order in ("rank", "arrival"):
             for out in (torch.bfloat16, torch.float32):
-                got, full = ag_gemm(a, b, return_gathered=True,
-                                    force_kernel=True, c_order=order,
-                                    out_dtype=out, wire_format=kind)
-                calls += 1
                 want = ag_gemm_plain(a, b, None, order, out_dtype=out,
                                      wire_format=kind)
-                torch.cuda.synchronize()
                 rt = wire.roundtrip(a.reshape(n * m, k), kind)
-                assert torch.equal(full, rt.expand(n, n * m, k))
-                if out == torch.bfloat16:
-                    band(want, got, "ag_gemm")
-                else:
-                    torch.testing.assert_close(got, want, rtol=1e-5,
-                                               atol=1e-5)
+                runs = [lambda: ag_gemm(a, b, return_gathered=True,
+                                        force_kernel=True, c_order=order,
+                                        out_dtype=out, wire_format=kind)]
+                if body == "wgmma":
+                    runs.append(lambda: ag._launch_wire(
+                        a, b, wire.resolve(kind), order == "arrival", True,
+                        out, body="mma"))
+                for i, run in enumerate(runs):
+                    before = dict(ag.launches_by_body)
+                    got, full = run()
+                    calls += 1
+                    torch.cuda.synchronize()
+                    took = {k2: v - before[k2] for k2, v in
+                            ag.launches_by_body.items() if v != before[k2]}
+                    assert took == {body if i == 0 else "mma": 1}, (m, took)
+                    assert torch.equal(full, rt.expand(n, n * m, k))
+                    if out == torch.bfloat16:
+                        band(want, got, "ag_gemm")
+                    else:
+                        torch.testing.assert_close(got, want, rtol=1e-5,
+                                                   atol=1e-5)
         got = ag_gemm(a, b, out_dtype=torch.float32, force_kernel=True)
         torch.testing.assert_close(got, ag_gemm_plain(
             a, b, out_dtype=torch.float32), rtol=1e-5, atol=1e-5)

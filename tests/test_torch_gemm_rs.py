@@ -44,7 +44,7 @@ BF, F32 = torch.bfloat16, torch.float32
     ((4, 96, 1024, 4096, BF, BF, False), "mma"),  # m not a box multiple
     ((4, 128, 1024, 4096, F32, F32, False), "mma"),
     ((4, 128, 1024, 4096, BF, F32, False), "mma"),  # f32 out
-    ((4, 128, 1024, 4096, BF, F32, True), "mma"),  # the wire's partials
+    ((4, 128, 1024, 4096, BF, F32, True), "wgmma"),  # the wire's partials
     ((1, 500, 12288, 4096, BF, BF, False), "mma"),  # n = 1, m % 64 != 0
     ((16, 64, 1024, 4096, BF, BF, False), "mma"),  # past the fold's ranks
     ((4, 128, 32, 4096, BF, BF, False), "mma"),  # K under one box
@@ -52,13 +52,23 @@ BF, F32 = torch.bfloat16, torch.float32
     # force_kernel at n = 1 (row 6): the local product on the wgmma body
     ((1, 512, 12288, 4096, BF, BF, False), "wgmma"),
     ((1, 64, 1000, 1000, BF, BF, False), "wgmma"),  # K, N ragged
+    # the wire's f32 partials: the wgmma body at the main form's shapes
+    ((4, 128, 3072, 4096, BF, F32, True), "wgmma"),  # phase 4w's down
+    ((2, 64, 1024, 512, BF, F32, True), "wgmma"),
+    ((1, 512, 3072, 4096, BF, F32, True), "wgmma"),  # force_kernel, n = 1
+    ((4, 1, 3072, 4096, BF, F32, True), "mma"),  # m = 1
+    ((4, 37, 1024, 4096, BF, F32, True), "mma"),  # ragged m
+    ((4, 128, 1024, 4096, F32, F32, True), "mma"),  # f32 in
+    ((16, 64, 1024, 4096, BF, F32, True), "mma"),  # past 8 ranks
+    ((4, 128, 1024, 40, BF, F32, True), "mma"),  # N under one box
 ])
 def test_body_for_routes_the_main_path_to_wgmma(case, body):
     """_body_for: the wgmma body serves bf16 in and out at m a multiple
     of 64 (a prefill's 128 rows a rank, a scheduler step's 64,
     force_kernel's 512 rows at n = 1), K and N at least one 64-wide box,
-    1 to 8 ranks; decode, the fused prefill's 32 rows, f32, f32 out and
-    the wire's partials keep the mma.sync / FMA body."""
+    1 to 8 ranks, and the wire's f32 partials of bf16 inputs under the
+    same shape rule; decode, the fused prefill's 32 rows, f32 in and the
+    native fold's f32 out keep the mma.sync / FMA body."""
     n, m, k, nn, dtype, out, partials = case
     assert rs._body_for(n, m, k, nn, dtype, out, partials) == body
 

@@ -56,8 +56,10 @@
 // every block is resident; every spin is bounded and traps.
 //
 // Tile bodies. The main path's dense form (native wire, bf16 in, m a
-// multiple of 64) runs ag_gemm_wgmma_kernel below: TMA, wgmma and warp
-// specialisation; the grouped form with counts (bf16 in, n <= 8) runs
+// multiple of 64) and the dense form on a quantized wire at the same
+// shapes run ag_gemm_wgmma_kernel below: TMA, wgmma and warp
+// specialisation (on the wire, transform warps dequantize A in the
+// pipeline); the grouped form with counts (bf16 in, n <= 8) runs
 // ag_gemm_grouped_wgmma_kernel. Every other call runs ag_gemm_kernel
 // with one of two bodies. bf16: 128 x 128 output tiles (128 x 64 per half with silu_pair,
 // two accumulators, the same 64 f32 registers a thread as one 128 x 128
@@ -74,12 +76,13 @@
 // at byte K, padded to kw bytes; per-row scales, K a multiple of 128).
 // The ring forwards (m, kw) image rows on the same protocol, and the
 // workspace is heap((n*m, kw)) int8. Each A tile is dequantized right
-// before its product: the thread that would cp.async 8 elements of a row
-// loads its 8 bytes, multiplies each decoded byte by the row's scale in
-// f32 (__fmul_rn) and rounds to the input dtype, and stores them into
-// the shared tile ldmatrix reads: every row goes through the codec, the
-// own shard included, so A is bitwise the codec's roundtrip (wire.
-// unpack). B keeps its cp.async.
+// before its product, every row through the codec, the own shard
+// included, so A is bitwise the codec's roundtrip (wire.unpack): in the
+// wgmma body by its transform warps (its section below); in the mma.sync
+// body the thread that would cp.async 8 elements of a row loads its 8
+// bytes, multiplies each decoded byte by the row's scale in f32
+// (__fmul_rn) and rounds to the input dtype, and stores them into the
+// shared tile ldmatrix reads (B keeps its cp.async).
 //
 // What bounds it on an H100: operations, 2 * n * (n*m) * K * N (twice
 // that with silu_pair) at the bf16 tensor-core peak, at the prefill
@@ -87,8 +90,8 @@
 // The TPU kernel's VMEM strip cache, grid-step restructuring and tile
 // fitting are TPU concerns and are not carried over. The grouped kernel
 // over the live rows is bound by bytes (its own section). Not done yet:
-// the wgmma body for the wire and f32 forms; a finer arrival granularity
-// than one counter per step; an asynchronous A load on the wire.
+// the wgmma body for the f32 form; a finer arrival granularity than one
+// counter per step.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -653,49 +656,180 @@ int launch_any(const void* a, const void* b0, const void* b1, void* ws,
 // tile loads (its A rows and B columns, for every K step), and the row
 // tiles that share a column's B then read it from L2 together, not
 // from HBM one after another.
+//
+// The quantized wire on this body (W = 1 e4m3, 2 int8; dense, plain
+// epilogue, bf16 in, per-row scales, m a multiple of 64, K and N at least
+// 64): the ring forwards the (m, kw) image rows, and A is dequantized
+// inside the pipeline:
+//   - two byte maps over the own images (n*m, kw) and the workspace's
+//     (n*n*m, kw), unswizzled: a stage's payload is a box of 64 bytes x
+//     64 rows a segment (the K step's 64 codes of each row), and a tile's
+//     row scales come once, as a box of 16 bytes x 64 rows a segment at
+//     column K (the f32 scale and 12 bytes of padding: kw >= K + 128), on
+//     a tile mbarrier of their own. The TMA thread keeps its arrival
+//     waits and fence.proxy.async.global before every read of delivered
+//     rows, scales included: no thread reads a remote row with a
+//     generic load;
+//   - warps 1-3 of the producer warpgroup are transform warps (setmaxnreg
+//     72 there, 216 for the consumers): each reads its rows' scales once
+//     a tile into registers, then for every stage turns the payload into
+//     the two bf16 64 x 64 A boxes, 128-byte swizzled where the native
+//     body's TMA would have put them (16 payload bytes a thread, two
+//     16-byte swizzled stores, bank-conflict free), fences the generic
+//     stores for the async proxy (fence.proxy.async.shared::cta) and
+//     arrives once a warp on the stage's "converted" mbarrier; the
+//     consumers wait for it after "full" and run the native body's wgmma;
+//   - each element is float(q) (e4m3 two at a time by cvt.rn.f16x2.e4m3x2
+//     through f16, exact; int8 by a byte permute into 2^23 + q + 128, then
+//     one subtraction, exact) times the row's scale with __fmul_rn,
+//     rounded to nearest bf16: wire.unpack's arithmetic, so A is bitwise
+//     the codec's roundtrip;
+//   - the one block barrier a tile (the tile slot) also orders the
+//     transform warps' reads of one tile's scales before the next tile's
+//     scale load, so the scale slot needs no "empty" barrier.
+// What bounds it: as the native form, operations at the bf16 peak; A
+// arrives at half the native bytes and costs a decode a byte in the SM.
 
 constexpr int kWgThreads = 384;  // a producer warpgroup, two consumers
 constexpr int kBK = 64;
 constexpr int kBox = 64 * 64 * 2;  // bytes of a 64 x 64 bf16 TMA box
 constexpr int kWgSmem = 200 * 1024;  // the stages fill at most this
+// the wire's byte maps: a payload box of kWirePay bytes x 64 rows a
+// stage segment, a scale box of kWireScale bytes x 64 rows a tile
+// segment at column K (wire/codec.py's image: K codes, the f32 scale)
+constexpr int kWirePay = kBK;
+constexpr int kWireScale = 16;
+constexpr int kPayBox = 64 * kWirePay;
+constexpr int kScaleBox = 64 * kWireScale;
+constexpr int kTransformThreads = 96;  // warps 1-3 of warpgroup 0
+// the transform's 16-byte payload units a stage (128 rows x 4), and the
+// most a transform thread takes
+constexpr int kWireUnits = 128 * kWirePay / 16;
+constexpr int kUnitsPer =
+    (kWireUnits + kTransformThreads - 1) / kTransformThreads;
 
 // BN: C columns a tile (silu_pair: of each of gate and up); H = 2 for
-// silu_pair
-template <int BN, int H>
+// silu_pair; W: A's wire format (0 native, 1 e4m3, 2 int8)
+template <int BN, int H, int W>
 struct WgCfg {
   static constexpr int kNB = BN / 64;  // B boxes a half
-  static constexpr int kStageBytes = (2 + H * kNB) * kBox;
+  // A (two boxes: TMA's, or the transform's on the wire), B, and on the
+  // wire the payload boxes
+  static constexpr int kStageBytes =
+      (2 + H * kNB) * kBox + (W ? 2 * kPayBox : 0);
+  // a tile's scales, then the wire's mbarriers (at most 16)
+  static constexpr int kScaleBytes = W ? 2 * kScaleBox + 128 : 0;
   static constexpr int kStages =
-      kWgSmem / kStageBytes < 6 ? kWgSmem / kStageBytes : 6;
-  static constexpr size_t kSmem = size_t(kStages) * kStageBytes + 1024;
+      (kWgSmem - kScaleBytes) / kStageBytes < 6
+          ? (kWgSmem - kScaleBytes) / kStageBytes
+          : 6;
+  static constexpr size_t kSmem =
+      size_t(kStages) * kStageBytes + kScaleBytes + 1024;
   static_assert(BN % 64 == 0 && H * BN <= 256, "accumulators a thread");
+  static_assert(W == 0 || H == 1, "the wire takes the plain epilogue");
 };
 
-template <int BN, int H, typename O>
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t addr, uint32_t a,
+                                            uint32_t b, uint32_t c,
+                                            uint32_t d) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+// four codes of a 32-bit word (byte i: element i) decoded to f32, exact
+template <int W>
+__device__ __forceinline__ void decode4(uint32_t x, float (&v)[4]) {
+  if (W == 1) {  // e4m3, two at a time through f16
+    uint32_t h01, h23;
+    asm("{\n"
+        ".reg .b16 lo, hi;\n"
+        "mov.b32 {lo, hi}, %2;\n"
+        "cvt.rn.f16x2.e4m3x2 %0, lo;\n"
+        "cvt.rn.f16x2.e4m3x2 %1, hi;\n"
+        "}"
+        : "=r"(h01), "=r"(h23)
+        : "r"(x));
+    const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&h01));
+    const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&h23));
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+  } else {  // int8: the float 2^23 + (q + 128), less 2^23 + 128
+    const uint32_t y = x ^ 0x80808080u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      v[k] = __uint_as_float(__byte_perm(y, 0x4B000000u, 0x7440 + k)) -
+             8388736.f;
+  }
+}
+
+// 16 payload bytes of a row -> 16 bf16 in 8 words: float(q) * scale in
+// f32 (__fmul_rn), rounded to nearest (wire.unpack's arithmetic)
+template <int W>
+__device__ __forceinline__ void decode16(uint4 q, float s, uint32_t (&o)[8]) {
+  const uint32_t in[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float v[4];
+    decode4<W>(in[i], v);
+    o[2 * i] = pack_bf16(__fmul_rn(v[0], s), __fmul_rn(v[1], s));
+    o[2 * i + 1] = pack_bf16(__fmul_rn(v[2], s), __fmul_rn(v[3], s));
+  }
+}
+
+template <int BN, int H, typename O, int W>
 __global__ void __launch_bounds__(kWgThreads, 1)
 ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_ws,
                      const __grid_constant__ CUtensorMap map_b0,
                      const __grid_constant__ CUtensorMap map_b1,
+                     const __grid_constant__ CUtensorMap map_sa,
+                     const __grid_constant__ CUtensorMap map_sws,
                      const char* a, char* ws, O* c, int* flags, int m, int K,
-                     int N, int arrival, int straggle_rank,
+                     int N, int row_bytes, int arrival, int straggle_rank,
                      long long straggle_ns) {
-  typedef WgCfg<BN, H> Cfg;
+  typedef WgCfg<BN, H, W> Cfg;
   constexpr int S = Cfg::kStages, NB = Cfg::kNB;
   extern __shared__ uint8_t wg_smem[];
   __shared__ __align__(8) uint64_t full_bar[S], empty_bar[S];
   __shared__ int next_tile[2];
   const int n = gridDim.y, me = blockIdx.y;
   const int producers = min(kProducers, int(gridDim.x));
-  const size_t chunk = size_t(m) * K * 2;
+  const size_t chunk = size_t(m) * row_bytes;
   int* mine = flags + size_t(me) * n;
   const uint32_t base = (hopper::smem_addr(wg_smem) + 1023) & ~1023u;
+  // the wire's row scales of the current tile, after the stages, then
+  // its barriers: "converted" a stage, and the scales' (dynamic shared
+  // memory, so the native form's layout is its own)
+  const uint32_t scales = base + S * Cfg::kStageBytes;
+  const uint32_t conv_bar = scales + 2 * kScaleBox;
+  const uint32_t scale_bar = conv_bar + 8 * S;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < S; ++i) {
       hopper::mbar_init(hopper::smem_addr(&full_bar[i]), 1);
       hopper::mbar_init(hopper::smem_addr(&empty_bar[i]), 2);
+      if (W != 0)
+        hopper::mbar_init(conv_bar + 8 * i, kTransformThreads / 32);
     }
+    if (W != 0) hopper::mbar_init(scale_bar, 1);
     hopper::mbar_init_fence();
   }
   __syncthreads();
@@ -714,19 +848,65 @@ ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     __syncthreads();
     return next_tile[it & 1];
   };
-  // the warpgroup, warp-uniform to the compiler (a wgmma in a path it
-  // cannot prove uniform is serialized: ptxas C7518)
+  // the warpgroup and warp, warp-uniform to the compiler (a wgmma in a
+  // path it cannot prove uniform is serialized: ptxas C7518)
   const int wg = __shfl_sync(0xffffffffu, int(threadIdx.x) / 128, 0);
   if (wg == 0) {  // the producer warpgroup
-    hopper::regs_dec<40>();
+    hopper::regs_dec<W ? 72 : 40>();
     int stage = 0, ready = 0;
     uint32_t phase = 0;
     for (int it = 0;; ++it) {
       const int t = next(it);
       if (t >= total) break;
-      if (threadIdx.x != 0) continue;
       const int R0 = t % rt * 128, j0 = t / rt * BN;
       const int segs = min(128, M - R0) / 64;  // 64-row step segments
+      if (W != 0 &&
+          __shfl_sync(0xffffffffu, int(threadIdx.x) / 32, 0) > 0) {
+        // a transform warp: units u, u + 96, ... of each stage (16
+        // payload bytes of row u / 4 at 16 (u % 4)), my rows' scales
+        // read once
+        const int u0 = threadIdx.x - 32;
+        hopper::mbar_wait_quiet(scale_bar, it & 1);
+        float sc[kUnitsPer];
+#pragma unroll
+        for (int i = 0; i < kUnitsPer; ++i) {
+          const int u = u0 + kTransformThreads * i;
+          sc[i] = u < 256 * segs
+                      ? ld_shared_f32(scales + (u >> 2) * kWireScale)
+                      : 0.f;
+        }
+        for (int kt = 0; kt < KT; ++kt) {
+          hopper::mbar_wait_quiet(hopper::smem_addr(&full_bar[stage]),
+                                  phase);
+          const uint32_t st = base + stage * Cfg::kStageBytes;
+          const uint32_t pay = st + (2 + NB) * kBox;
+#pragma unroll
+          for (int i = 0; i < kUnitsPer; ++i) {
+            const int u = u0 + kTransformThreads * i;
+            if (u >= 256 * segs) break;
+            const int row = u >> 2, j = u & 3;
+            uint32_t o[8];
+            decode16<W>(ld_shared16(pay + row * kWirePay + 16 * j), sc[i],
+                        o);
+            // chunks 2j, 2j + 1 of the row in the 128-byte swizzle
+            const uint32_t dst = st + (row >> 6) * kBox + (row & 63) * 128;
+            st_shared16(dst + (((2 * j) ^ (row & 7)) << 4), o[0], o[1],
+                        o[2], o[3]);
+            st_shared16(dst + (((2 * j + 1) ^ (row & 7)) << 4), o[4], o[5],
+                        o[6], o[7]);
+          }
+          hopper::fence_proxy_async_shared();
+          __syncwarp();
+          hopper::mbar_arrive_if(conv_bar + 8 * stage,
+                                 threadIdx.x % 32 == 0);
+          if (++stage == S) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        continue;
+      }
+      if (threadIdx.x != 0) continue;
       // the steps this tile reads, each once a block: wait for the ring
       // producers' arrivals, then order their stores before TMA's reads
       const int last = (R0 + 64 * segs - 1) / m;
@@ -736,19 +916,36 @@ ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
         ready = last;
         hopper::fence_proxy_async_global();
       }
+      // a segment's rows: those of step s of the own shard or of the
+      // workspace's chunk (me - s) mod n
+      if (W != 0) {  // the tile's row scales, at column K
+        hopper::mbar_expect_tx(scale_bar, segs * kScaleBox);
+        for (int g = 0; g < segs; ++g) {
+          const int R = R0 + 64 * g, s = R / m, lr = R - s * m;
+          if (s == 0)
+            hopper::tma_load_2d(scales + g * kScaleBox, &map_sa, scale_bar,
+                                K, me * m + lr);
+          else
+            hopper::tma_load_2d(scales + g * kScaleBox, &map_sws, scale_bar,
+                                K, ((me * n) + (me - s + n) % n) * m + lr);
+        }
+      }
+      constexpr int kABox = W ? kPayBox : kBox;
+      constexpr int kAOff = W ? (2 + NB) * kBox : 0;
       for (int kt = 0; kt < KT; ++kt) {
         const uint32_t fb = hopper::smem_addr(&full_bar[stage]);
         hopper::mbar_wait_quiet(hopper::smem_addr(&empty_bar[stage]),
                                 phase ^ 1);
-        hopper::mbar_expect_tx(fb, (segs + H * NB) * kBox);
+        hopper::mbar_expect_tx(fb, segs * kABox + H * NB * kBox);
         const uint32_t st = base + stage * Cfg::kStageBytes;
         for (int g = 0; g < segs; ++g) {
           const int R = R0 + 64 * g, s = R / m, lr = R - s * m;
           if (s == 0)
-            hopper::tma_load_2d(st + g * kBox, &map_a, fb, kt * kBK,
+            hopper::tma_load_2d(st + kAOff + g * kABox, &map_a, fb, kt * kBK,
                                 me * m + lr);
           else
-            hopper::tma_load_2d(st + g * kBox, &map_ws, fb, kt * kBK,
+            hopper::tma_load_2d(st + kAOff + g * kABox, &map_ws, fb,
+                                kt * kBK,
                                 ((me * n) + (me - s + n) % n) * m + lr);
         }
 #pragma unroll
@@ -765,12 +962,12 @@ ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
   } else {  // a consumer warpgroup: rows 64 w .. 64 w + 63 of the tile
-    hopper::regs_inc<232>();
+    hopper::regs_inc<W ? 216 : 232>();
     const int w = wg - 1;
     const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
     const bool signals = threadIdx.x % 128 == 0;
     const Gathered<O> g{a, ws, c + size_t(me) * M * N, n, me, m, K, N,
-                        arrival, N, K * 2};
+                        arrival, N, row_bytes};
     int stage = 0;
     uint32_t phase = 0;
     // a stage goes back to the producer
@@ -793,6 +990,8 @@ ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       int prev = 0;
       for (int kt = 0; kt < KT; ++kt) {
         hopper::mbar_wait_quiet(hopper::smem_addr(&full_bar[stage]), phase);
+        if (W != 0)  // and A, converted
+          hopper::mbar_wait_quiet(conv_bar + 8 * stage, phase);
         const uint32_t st = base + stage * Cfg::kStageBytes;
         hopper::wgmma_fence();
 #pragma unroll
@@ -855,52 +1054,89 @@ bool encode(CUtensorMap* map, const void* p, int dims_n, uint64_t cols,
   return hopper::encode_bf16(map, p, dims_n, dims, strides, box);
 }
 
-// the four maps of a call: a (n*m, K), ws (n*n*m, K), b0 and b1 (n, K, N)
-bool encode_maps(CUtensorMap (&maps)[4], const void* a, const void* ws,
+// the maps of a native call: a (n*m, K), ws (n*n*m, K), b0 and b1 (n, K,
+// N); the scale maps (unread) repeat a's and ws's
+bool encode_maps(CUtensorMap (&maps)[6], const void* a, const void* ws,
                  const void* b0, const void* b1, int n, int m, int K, int N) {
-  return encode(&maps[0], a, 2, K, uint64_t(n) * m, 1, K, 0) &&
-         encode(&maps[1], ws, 2, K, uint64_t(n) * n * m, 1, K, 0) &&
-         encode(&maps[2], b0, 3, N, K, n, N, uint64_t(K) * N) &&
-         encode(&maps[3], b1, 3, N, K, n, N, uint64_t(K) * N);
+  if (!(encode(&maps[0], a, 2, K, uint64_t(n) * m, 1, K, 0) &&
+        encode(&maps[1], ws, 2, K, uint64_t(n) * n * m, 1, K, 0) &&
+        encode(&maps[2], b0, 3, N, K, n, N, uint64_t(K) * N) &&
+        encode(&maps[3], b1, 3, N, K, n, N, uint64_t(K) * N)))
+    return false;
+  maps[4] = maps[0];
+  maps[5] = maps[1];
+  return true;
 }
 
-template <int BN, int H, typename O>
-cudaError_t launch_wgmma(const void* a, const void* b0, const void* b1,
+// The byte maps of a wire call over images of kw bytes a row (K codes,
+// the row's f32 scale at byte K), rows kw apart: the payload of aw (n*m
+// rows) and ws (n*n*m rows) as a (K, rows) byte tensor in boxes of
+// kWirePay bytes x 64 rows, and their scale columns as a (kw, rows) byte
+// tensor in boxes of kWireScale bytes x 64 rows read at column K;
+// allgather_gemm._wire_maps is the same geometry. maps: payload aw, ws,
+// b, b, scales aw, ws.
+bool encode_wire_maps(CUtensorMap (&maps)[6], const void* aw, const void* ws,
+                      const void* b, int n, int m, int K, int N, int kw) {
+  if (K % kWirePay || K % 16 || K + kWireScale > kw || kw % 16 ||
+      reinterpret_cast<uintptr_t>(aw) % 16 ||
+      reinterpret_cast<uintptr_t>(ws) % 16)
+    return false;
+  const uint64_t rows[2] = {uint64_t(n) * m, uint64_t(n) * n * m};
+  const uint64_t stride[1] = {uint64_t(kw)};
+  const uint32_t pay[2] = {kWirePay, 64}, sc[2] = {kWireScale, 64};
+  const void* img[2] = {aw, ws};
+  for (int i = 0; i < 2; ++i) {
+    const uint64_t dp[2] = {uint64_t(K), rows[i]};
+    const uint64_t ds[2] = {uint64_t(kw), rows[i]};
+    if (!hopper::encode_bytes(&maps[i], img[i], 2, dp, stride, pay) ||
+        !hopper::encode_bytes(&maps[4 + i], img[i], 2, ds, stride, sc))
+      return false;
+  }
+  return encode(&maps[2], b, 3, N, K, n, N, uint64_t(K) * N) &&
+         encode(&maps[3], b, 3, N, K, n, N, uint64_t(K) * N);
+}
+
+template <int BN, int H, typename O, int W>
+cudaError_t launch_wgmma(const CUtensorMap (&maps)[6], const void* a,
                          void* ws, void* c, int* flags, int n, int m, int K,
-                         int N, int arrival, int straggle_rank,
+                         int N, int row_bytes, int arrival, int straggle_rank,
                          long long straggle_ns, int* info, cudaStream_t st) {
-  CUtensorMap maps[4];
-  if (!encode_maps(maps, a, ws, b0, b1, n, m, K, N))
-    return cudaErrorInvalidValue;
   const int tiles = (n * m + 127) / 128 * ((N + BN - 1) / BN);
   return shmem::launch_world(
-      ag_gemm_wgmma_kernel<BN, H, O>, n,
+      ag_gemm_wgmma_kernel<BN, H, O, W>, n,
       tiles > kProducers ? tiles : kProducers, kWgThreads,
-      WgCfg<BN, H>::kSmem, st, info, maps[0], maps[1], maps[2], maps[3],
-      static_cast<const char*>(a), static_cast<char*>(ws), static_cast<O*>(c),
-      flags, m, K, N, arrival, straggle_rank, straggle_ns);
+      WgCfg<BN, H, W>::kSmem, st, info, maps[0], maps[1], maps[2], maps[3],
+      maps[4], maps[5], static_cast<const char*>(a), static_cast<char*>(ws),
+      static_cast<O*>(c), flags, m, K, N, row_bytes, arrival, straggle_rank,
+      straggle_ns);
 }
 
+// the native body by tile width and epilogue (pair), or the wire's (W
+// 1 or 2: the plain epilogue)
 template <typename O>
-cudaError_t launch_wgmma_bn(int bn, int pair, const void* a, const void* b0,
-                            const void* b1, void* ws, void* c, int* flags,
-                            int n, int m, int K, int N, int arrival, int sr,
+cudaError_t launch_wgmma_bn(int bn, int pair, int W,
+                            const CUtensorMap (&maps)[6], const void* a,
+                            void* ws, void* c, int* flags, int n, int m,
+                            int K, int N, int row_bytes, int arrival, int sr,
                             long long sns, int* info, cudaStream_t st) {
-  if (pair && bn == 64)
-    return launch_wgmma<64, 2, O>(a, b0, b1, ws, c, flags, n, m, K, N,
-                                  arrival, sr, sns, info, st);
-  if (pair && bn == 128)
-    return launch_wgmma<128, 2, O>(a, b0, b1, ws, c, flags, n, m, K, N,
-                                   arrival, sr, sns, info, st);
-  if (!pair && bn == 128)
-    return launch_wgmma<128, 1, O>(a, b0, b1, ws, c, flags, n, m, K, N,
-                                   arrival, sr, sns, info, st);
-  if (!pair && bn == 192)
-    return launch_wgmma<192, 1, O>(a, b0, b1, ws, c, flags, n, m, K, N,
-                                   arrival, sr, sns, info, st);
-  if (!pair && bn == 256)
-    return launch_wgmma<256, 1, O>(a, b0, b1, ws, c, flags, n, m, K, N,
-                                   arrival, sr, sns, info, st);
+#define AGW_LAUNCH(BN, H, W)                                                \
+  launch_wgmma<BN, H, O, W>(maps, a, ws, c, flags, n, m, K, N, row_bytes,   \
+                            arrival, sr, sns, info, st)
+  if (W == 0) {
+    if (pair && bn == 64) return AGW_LAUNCH(64, 2, 0);
+    if (pair && bn == 128) return AGW_LAUNCH(128, 2, 0);
+    if (!pair && bn == 128) return AGW_LAUNCH(128, 1, 0);
+    if (!pair && bn == 192) return AGW_LAUNCH(192, 1, 0);
+    if (!pair && bn == 256) return AGW_LAUNCH(256, 1, 0);
+  } else if (!pair) {
+    if (W == 1 && bn == 128) return AGW_LAUNCH(128, 1, 1);
+    if (W == 1 && bn == 192) return AGW_LAUNCH(192, 1, 1);
+    if (W == 1 && bn == 256) return AGW_LAUNCH(256, 1, 1);
+    if (W == 2 && bn == 128) return AGW_LAUNCH(128, 1, 2);
+    if (W == 2 && bn == 192) return AGW_LAUNCH(192, 1, 2);
+    if (W == 2 && bn == 256) return AGW_LAUNCH(256, 1, 2);
+  }
+#undef AGW_LAUNCH
   return cudaErrorInvalidValue;
 }
 
@@ -1399,17 +1635,20 @@ extern "C" int ag_gemm_launch(const void* a, const void* b0, const void* b1,
   if (body == 1) {
     if (dtype != 1 || m % 64 || K < 64 || N < 64)
       return int(cudaErrorInvalidValue);
+    CUtensorMap maps[6];
+    if (!encode_maps(maps, a, ws, b0, b1, n, m, K, N))
+      return int(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int* fl = static_cast<int*>(flags);
     int* inf = static_cast<int*>(info);
     if (out_dtype == 0)
-      return int(launch_wgmma_bn<float>(bn, pair, a, b0, b1, ws, c, fl, n, m,
-                                        K, N, arrival, straggle_rank,
-                                        straggle_ns, inf, st));
+      return int(launch_wgmma_bn<float>(bn, pair, 0, maps, a, ws, c, fl, n,
+                                        m, K, N, K * 2, arrival,
+                                        straggle_rank, straggle_ns, inf, st));
     if (out_dtype == 1)
       return int(launch_wgmma_bn<unsigned short>(
-          bn, pair, a, b0, b1, ws, c, fl, n, m, K, N, arrival, straggle_rank,
-          straggle_ns, inf, st));
+          bn, pair, 0, maps, a, ws, c, fl, n, m, K, N, K * 2, arrival,
+          straggle_rank, straggle_ns, inf, st));
     return int(cudaErrorInvalidValue);
   }
   if (body != 0) return int(cudaErrorInvalidValue);
@@ -1426,7 +1665,7 @@ extern "C" int ag_gemm_launch(const void* a, const void* b0, const void* b1,
 extern "C" int ag_gemm_encode_maps(const void* a, const void* b0,
                                    const void* b1, const void* ws, int n,
                                    int m, int K, int N, int reps) {
-  CUtensorMap maps[4];
+  CUtensorMap maps[6];
   for (int i = 0; i < reps; ++i)
     if (!encode_maps(maps, a, ws, b0, b1, n, m, K, N))
       return int(cudaErrorInvalidValue);
@@ -1437,16 +1676,38 @@ extern "C" int ag_gemm_encode_maps(const void* a, const void* b0,
 // (K payload bytes, e4m3 when fp8 else int8, the row's f32 scale at byte
 // K; K a multiple of 128, kw a multiple of 16); ws (n, n*m, kw) int8; b
 // (n, K, N) of dtype; c (n, n*m, N) of out_dtype; the rest as
-// ag_gemm_launch. A is dequantized to dtype right before its product.
+// ag_gemm_launch. A is dequantized to dtype right before its product:
+// body 0 in the mma.sync / FMA body's A load, body 1 (bf16 in, m a
+// multiple of 64, K and N at least 64; bn 128, 192 or 256) by the wgmma
+// body's transform warps.
 extern "C" int ag_gemm_wire_launch(const void* aw, const void* b, void* ws,
                                    void* c, void* flags, int n, int m, int K,
                                    int N, int kw, int dtype, int out_dtype,
-                                   int fp8, int arrival, void* info,
-                                   void* stream) {
+                                   int fp8, int arrival, int body, int bn,
+                                   void* info, void* stream) {
   const int per = dtype == 1 ? 8 : 4;
   if (n < 1 || m < 1 || K < 1 || N < 1 || K % 128 || N % per || kw % 16 ||
       kw < K + 4)
     return int(cudaErrorInvalidValue);
+  if (body == 1) {
+    CUtensorMap maps[6];
+    if (dtype != 1 || m % 64 || K < 64 || N < 64 ||
+        !encode_wire_maps(maps, aw, ws, b, n, m, K, N, kw))
+      return int(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int* fl = static_cast<int*>(flags);
+    int* inf = static_cast<int*>(info);
+    const int W = fp8 ? 1 : 2;
+    if (out_dtype == 0)
+      return int(launch_wgmma_bn<float>(bn, 0, W, maps, aw, ws, c, fl, n, m,
+                                        K, N, kw, arrival, -1, 0, inf, st));
+    if (out_dtype == 1)
+      return int(launch_wgmma_bn<unsigned short>(bn, 0, W, maps, aw, ws, c,
+                                                 fl, n, m, K, N, kw, arrival,
+                                                 -1, 0, inf, st));
+    return int(cudaErrorInvalidValue);
+  }
+  if (body != 0) return int(cudaErrorInvalidValue);
   const Geometry dense{n * m, 1, N, kw, 0, (long long)K * N, -1, 0};
   return launch_any(aw, b, b, ws, c, flags, n, m, K, N, dtype, out_dtype,
                     fp8 ? 1 : 2, 0, arrival, dense, info, stream);

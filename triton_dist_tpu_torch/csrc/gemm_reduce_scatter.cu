@@ -33,8 +33,10 @@
 // wgmma, warp specialisation and a persistent schedule whose folds
 // overlap the last producer tiles; at n = 1 (force_kernel, the JAX
 // `_local_mm_kernel`'s place) its epilogue stores each rounded tile
-// straight to the output, with no slot, counter or fold. Every other
-// call (a decode step's m = 1, f32, f32 out, the partials mode) runs
+// straight to the output, with no slot, counter or fold; the wire's
+// partials mode (below) at the same shapes stores each f32 tile the same
+// way into its rank's partial. Every other call (a decode step's m = 1,
+// f32, f32 out, the partials of f32 inputs or of ragged m) runs
 // gemm_rs_kernel with one of two bodies. bf16: 128 x 128 output tiles,
 // 8 warps of 64 x 32, mma.sync m16n8k16 with f32 accumulation, the A
 // and B tiles staged in shared memory with cp.async in a three-stage
@@ -58,13 +60,15 @@
 // dtype): the slots hold partials rounded to O, the fold is f32, the
 // output O. The quantized wire (JAX `_rs_ring` with a wire format) is
 // two launches, JAX's own fallback structure (`_wire_rs_xla(partial)`):
-// this kernel in its partials mode, every rank's f32 partial of every
-// chunk written to a plain (n, M, N) buffer with no flags and no fold,
-// then the wire ring of csrc/reduce_scatter.cu (`ring_rs_wire_kernel`)
-// on those partials. The ring order with per-hop requantization is a
-// different function from this kernel's all-slots rank-order fold, so
-// the wire form cannot reuse the fold; fusing the two launches is later
-// work.
+// this kernel in its partials mode (the wgmma body at the main form's
+// shapes, else gemm_rs_kernel), every rank's f32 partial of every chunk
+// written to a plain (n, M, N) buffer with no flags and no fold, then the
+// wire ring of csrc/reduce_scatter.cu (`ring_rs_wire_kernel`) on those
+// partials. The ring order with per-hop requantization is a different
+// function from this kernel's all-slots rank-order fold, so the wire
+// form cannot reuse the fold; fusing the two launches is later work (a
+// per-row scale spans a row's N columns, so a hop needs a whole row band
+// of the partial, not a tile).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -335,7 +339,7 @@ cudaError_t launch(const void* a, const void* b, void* heap, void* out,
       sr, sns);
 }
 
-// ---- the wgmma body: TMA + wgmma, warp-specialised (bf16 -> bf16) --------
+// ---- the wgmma body: TMA + wgmma, warp-specialised (bf16 in) -------------
 //
 // The main path's form (native wire, bf16 in and out, m = M / n a
 // multiple of 64, 1 <= n <= 8, K and N at least 64): the same function,
@@ -356,6 +360,10 @@ cudaError_t launch(const void* a, const void* b, void* heap, void* out,
 //     chunk c's owner, then (a warpgroup barrier, one thread's fence and
 //     release add) counts them on the segment's counter; at n = 1 it
 //     rounds them into the output itself, and a rank has no fold items;
+//     in the partials mode (bf16 in, f32 out: the wire's partial GEMM)
+//     it stores them in f32, a float2 a thread (a quad's 32-byte
+//     sector), into its rank's partial, with no slot, counter or fold
+//     item, at any 1 <= n <= 8;
 //   - persistent blocks, one an SM: a rank's work items are its producer
 //     tiles, column by column (each column's row tiles together, so they
 //     read B from L2 and every owner's column completes early), then its
@@ -396,27 +404,32 @@ struct WgCfg {
 };
 
 // work of a rank: producer tiles (128 x BN) and fold items (64 x BN;
-// none at n = 1, whose producer tiles are the output's)
+// none at n = 1, whose producer tiles are the output's, nor in the
+// partials mode)
 struct WgWork {
   int RT, NT, segs, P, F;  // row tiles, column tiles, segments a chunk
-  __host__ __device__ WgWork(int n, int M, int N, int BN)
+  __host__ __device__ WgWork(int n, int M, int N, int BN, bool partials)
       : RT((M + 127) / 128), NT((N + BN - 1) / BN), segs(M / n / 64),
-        P(RT * NT), F(n > 1 ? M / n / 64 * NT : 0) {}
+        P(RT * NT), F(n > 1 && !partials ? M / n / 64 * NT : 0) {}
 };
 
-template <int BN>
+// O: the output's element (bf16 bits; f32 in the partials mode).
+// PARTIALS: heap is a plain (n, M, N) f32 buffer (gemm_rs_kernel's),
+// rank me's partial of chunk c at rows [c * m, (c + 1) * m) of [me], each
+// tile stored straight there as the n = 1 form stores it into out; no
+// slot, counter or fold item, and out and flags are not read
+template <int BN, typename O, bool PARTIALS>
 __global__ void __launch_bounds__(kWgThreads, 1)
 gemm_rs_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
-                     const __grid_constant__ CUtensorMap map_b,
-                     unsigned short* heap, unsigned short* out, int* flags,
-                     int M, int K, int N, int arrival, int straggle_rank,
-                     long long straggle_ns) {
+                     const __grid_constant__ CUtensorMap map_b, O* heap,
+                     O* out, int* flags, int M, int K, int N, int arrival,
+                     int straggle_rank, long long straggle_ns) {
   typedef WgCfg<BN> Cfg;
   constexpr int S = Cfg::kStages, NB = Cfg::kNB;
   extern __shared__ uint8_t wg_smem[];
   __shared__ __align__(8) uint64_t full_bar[S], empty_bar[S];
   const int n = gridDim.y, me = blockIdx.y, m = M / n;
-  const WgWork wk(n, M, N, BN);
+  const WgWork wk(n, M, N, BN, PARTIALS);
   const int KT = (K + kBK - 1) / kBK;
   const uint32_t base = (hopper::smem_addr(wg_smem) + 1023) & ~1023u;
 
@@ -520,11 +533,12 @@ gemm_rs_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     release(prev);
     hopper::fence_regs(acc);
     // my partial of the segment into slot `me` of chunk c's owner; at
-    // n = 1 the rows are the output's
+    // n = 1 the rows are the output's, in the partials mode my rank's
+    // rows of the partial (chunks in rank order)
     const int R = R0 + 64 * w, c = R / m, lr = R - c * m;
-    unsigned short* D =
-        n == 1 ? out + size_t(R) * N + j0
-               : heap + ((size_t(c) * n + me) * m + lr) * N + j0;
+    O* D = PARTIALS ? heap + (size_t(me) * M + R) * N + j0
+           : n == 1 ? out + size_t(R) * N + j0
+                    : heap + ((size_t(c) * n + me) * m + lr) * N + j0;
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int row = 16 * warp + lane / 4 + 8 * hr;
@@ -536,12 +550,15 @@ gemm_rs_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                    D + size_t(row) * N + col);
       }
     }
+    if (PARTIALS) continue;
     hopper::named_sync(1 + w, 128);
     hopper::signal_add_if(
         flags + size_t(c) * wk.F + j0 / BN * wk.segs + lr / 64, 1,
         leader && n > 1);
   }
-  // then my fold items: no wgmma follows
+  // then my fold items (bf16 slots; none in the partials mode): no
+  // wgmma follows
+  if (PARTIALS) return;
   for (; it < wk.P + wk.F; it += gridDim.x) {
     // fold item f of my chunk: (column tile, 64-row segment)
     const int f = it - wk.P, j0 = f / wk.segs * BN, r0 = f % wk.segs * 64;
@@ -550,8 +567,11 @@ gemm_rs_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     hopper::named_sync(3, 256);
     const int vpr = min(BN, N - j0) / 8;  // 16-byte words a row
     const unsigned short* slots =
-        heap + (size_t(me) * n * m + r0) * N + j0;
-    unsigned short* dst = out + (size_t(me) * m + r0) * N + j0;
+        reinterpret_cast<const unsigned short*>(heap) +
+        (size_t(me) * n * m + r0) * N + j0;
+    unsigned short* dst =
+        reinterpret_cast<unsigned short*>(out) + (size_t(me) * m + r0) * N +
+        j0;
     // kFoldWords words a thread in flight: every slot of each
     for (int v0 = ct; v0 < 64 * vpr; v0 += kFoldWords * 256) {
       uint4 wds[kFoldWords][8];
@@ -604,17 +624,33 @@ bool encode_maps(CUtensorMap (&maps)[2], const void* a, const void* b,
          hopper::encode_bf16(&maps[1], b, 3, db, sb, box);
 }
 
-template <int BN>
+template <int BN, typename O, bool PARTIALS>
 cudaError_t launch_wgmma(const void* a, const void* b, void* heap, void* out,
                          int* flags, int n, int M, int K, int N, int arrival,
                          int sr, long long sns, int* info, cudaStream_t st) {
   CUtensorMap maps[2];
   if (!encode_maps(maps, a, b, n, M, K, N)) return cudaErrorInvalidValue;
-  const WgWork wk(n, M, N, BN);
+  const WgWork wk(n, M, N, BN, PARTIALS);
   return shmem::launch_world(
-      gemm_rs_wgmma_kernel<BN>, n, wk.P + wk.F, kWgThreads, WgCfg<BN>::kSmem,
-      st, info, maps[0], maps[1], static_cast<unsigned short*>(heap),
-      static_cast<unsigned short*>(out), flags, M, K, N, arrival, sr, sns);
+      gemm_rs_wgmma_kernel<BN, O, PARTIALS>, n, wk.P + wk.F, kWgThreads,
+      WgCfg<BN>::kSmem, st, info, maps[0], maps[1], static_cast<O*>(heap),
+      static_cast<O*>(out), flags, M, K, N, arrival, sr, sns);
+}
+
+// the native body (bf16 out) or the partials mode (f32 out) by tile width
+template <typename O, bool PARTIALS>
+cudaError_t launch_wgmma_bn(int bn, const void* a, const void* b, void* heap,
+                            void* out, int* flags, int n, int M, int K,
+                            int N, int arrival, int sr, long long sns,
+                            int* info, cudaStream_t st) {
+#define GRS_LAUNCH(BN)                                                      \
+  launch_wgmma<BN, O, PARTIALS>(a, b, heap, out, flags, n, M, K, N, arrival, \
+                                sr, sns, info, st)
+  if (bn == 128) return GRS_LAUNCH(128);
+  if (bn == 192) return GRS_LAUNCH(192);
+  if (bn == 256) return GRS_LAUNCH(256);
+#undef GRS_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -634,11 +670,11 @@ extern "C" int gemm_rs_flag_count(int m, int N, int dtype, int bn) {
 // zero). M % n == 0; K and N multiples of 16 bytes' worth of elements.
 // dtype, out_dtype: 0 = float32, 1 = bfloat16 (f32 inputs: f32 out).
 // arrival: a's row blocks in ring-arrival order. body: 0 the mma.sync or
-// FMA body; 1 the wgmma body (bf16 in and out, no partials, 1 <= n <= 8,
-// m a multiple of 64, K and N at least 64; bn: 128, 192 or 256 columns
-// a tile; at n = 1 heap and flags are not read). straggle_rank /
-// straggle_ns: that rank's blocks stall on entry (-1 / 0: none). info:
-// 3 ints (see launch_world). Returns a cudaError_t.
+// FMA body; 1 the wgmma body (bf16 in, bf16 out or, in the partials mode,
+// f32; 1 <= n <= 8, m a multiple of 64, K and N at least 64; bn: 128,
+// 192 or 256 columns a tile; at n = 1 heap and flags are not read).
+// straggle_rank / straggle_ns: that rank's blocks stall on entry (-1 /
+// 0: none). info: 3 ints (see launch_world). Returns a cudaError_t.
 extern "C" int gemm_rs_launch(const void* a, const void* b, void* heap,
                               void* out, void* flags, int n, int M, int K,
                               int N, int dtype, int out_dtype, int partials,
@@ -652,20 +688,15 @@ extern "C" int gemm_rs_launch(const void* a, const void* b, void* heap,
   int* fl = static_cast<int*>(flags);
   int* inf = static_cast<int*>(info);
   if (body == 1) {
-    if (dtype != 1 || out_dtype != 1 || partials || n < 1 || n > 8 ||
-        (M / n) % 64 ||
-        K < 64 || N < 64)
+    if (dtype != 1 || out_dtype != (partials ? 0 : 1) || n > 8 ||
+        (M / n) % 64 || K < 64 || N < 64)
       return int(cudaErrorInvalidValue);
-    if (bn == 128)
-      return int(launch_wgmma<128>(a, b, heap, out, fl, n, M, K, N, arrival,
-                                   sr, sns, inf, st));
-    if (bn == 192)
-      return int(launch_wgmma<192>(a, b, heap, out, fl, n, M, K, N, arrival,
-                                   sr, sns, inf, st));
-    if (bn == 256)
-      return int(launch_wgmma<256>(a, b, heap, out, fl, n, M, K, N, arrival,
-                                   sr, sns, inf, st));
-    return int(cudaErrorInvalidValue);
+    if (partials)
+      return int(launch_wgmma_bn<float, true>(bn, a, b, heap, out, fl, n, M,
+                                              K, N, arrival, sr, sns, inf,
+                                              st));
+    return int(launch_wgmma_bn<unsigned short, false>(
+        bn, a, b, heap, out, fl, n, M, K, N, arrival, sr, sns, inf, st));
   }
   if (body != 0) return int(cudaErrorInvalidValue);
   if (dtype == 0 && out_dtype == 0)

@@ -59,15 +59,15 @@ inline EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dimensions (sizes innermost first; strides of
-// dimensions 1.. in bytes) as a map of `box`-sized boxes, 128-byte
-// swizzle (box[0] must be 64: one 128-byte row), zero fill past every
-// bound, L2 lines promoted to `promo` on a fetch. False when the encoder
-// is missing or refuses the map.
-inline bool encode_bf16(
-    CUtensorMap* map, const void* p, int rank, const uint64_t* dims,
-    const uint64_t* strides, const uint32_t* box,
-    CUtensorMapL2promotion promo = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
+// A tensor of `rank` dimensions (sizes innermost first; strides of
+// dimensions 1.. in bytes) as a map of `box`-sized boxes of `type`, zero
+// fill past every bound, L2 lines promoted to `promo` on a fetch. False
+// when the encoder is missing or refuses the map. encode_bf16: bf16,
+// 128-byte swizzle (box[0] must be 64: one 128-byte row).
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                       CUtensorMapSwizzle swizzle, const void* p, int rank,
+                       const uint64_t* dims, const uint64_t* strides,
+                       const uint32_t* box, CUtensorMapL2promotion promo) {
   const EncodeTiled fn = tensor_map_encoder();
   if (fn == nullptr || rank < 1 || rank > 5) return false;
   cuuint64_t d[5], s[4];
@@ -78,10 +78,29 @@ inline bool encode_bf16(
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(p),
-            d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, promo,
+  return fn(map, type, rank, const_cast<void*>(p), d, s, b, e,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, promo,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool encode_bf16(
+    CUtensorMap* map, const void* p, int rank, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box,
+    CUtensorMapL2promotion promo = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    CU_TENSOR_MAP_SWIZZLE_128B, p, rank, dims, strides, box,
+                    promo);
+}
+
+// The byte variant: a tensor of bytes (a wire image), boxes landing
+// unswizzled (box[0] a multiple of 16 bytes), zero fill past every bound
+inline bool encode_bytes(
+    CUtensorMap* map, const void* p, int rank, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box,
+    CUtensorMapL2promotion promo = CU_TENSOR_MAP_L2_PROMOTION_L2_128B) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                    CU_TENSOR_MAP_SWIZZLE_NONE, p, rank, dims, strides, box,
+                    promo);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -31,14 +31,15 @@ implementations of one contract:
       A times b[r] in f32, rounded once to the dtype, row blocks then
       permuted for "arrival".
 
-The kernel has three bodies. The dense main-path form (native wire,
-bf16 inputs, m a multiple of 64: a `dist` prefill's 128 rows a rank and
-a scheduler step's 64) takes the TMA + wgmma body; the grouped form in
-bf16 with `counts` (the `fused` MoE up-projection) the expert-major TMA
-+ wgmma kernel; every other call (wire, f32, a decode step's m = 1, the
-grouped form without counts) the mma.sync body. `_body_for` is the
-rule, `_wgmma_bn` / `_grouped_bn` the wgmma bodies' tile widths, and
-`launches_by_body` counts each body's launches.
+The kernel has three bodies. The dense form with bf16 inputs at m a
+multiple of 64 (a `dist` prefill's 128 rows a rank and a scheduler
+step's 64), on the native wire or a quantized one, takes the TMA +
+wgmma body; the grouped form in bf16 with `counts` (the `fused` MoE
+up-projection) the expert-major TMA + wgmma kernel; every other call
+(f32, a decode step's m = 1, ragged m, the grouped form without counts)
+the mma.sync body. `_body_for` is the rule, `_wgmma_bn` / `_grouped_bn`
+the wgmma bodies' tile widths, and `launches_by_body` counts each
+body's launches, the wire's included.
 
 The grouped form's live rows: `counts` (n, E) int32, on a's device,
 gives the rows of each (rank, expert) block that are live, as
@@ -67,7 +68,9 @@ A quantized `wire_format` (dense form only; per-row scales; K a multiple
 of 128; the JAX checks, allgather_gemm.py:586-601): each rank's A shard
 is packed once (wire.pack), the ring forwards the (m, wire_cols) int8
 image rows, and each A tile is dequantized right before its product
-(float(q) * scale in f32, rounded to a.dtype: `a_dequant`). Every row
+(float(q) * scale in f32, rounded to a.dtype: `a_dequant`): on the
+wgmma body by transform warps between the TMA loads of the image bytes
+(`_wire_maps` is the geometry of its byte maps) and the products. Every row
 goes through the codec, the own shard included, so the product is that
 of the roundtrip of A; return_gathered returns the decoded A. At n = 1
 without `force_kernel` the call is the local product of the roundtrip.
@@ -92,6 +95,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # path's form; ag_gemm_launch) or, through ag_gemm_grouped_launch, the
 # expert-major grouped kernel (_body_for)
 _BODY_CODE = {"mma": 0, "wgmma": 1, "grouped": 1}
+# the wire body's byte maps (csrc/allgather_gemm.cu encode_wire_maps):
+# (bytes, rows) of a stage's payload box (the 64 codes of a K step) and
+# of a tile's scale box, read once a tile at column K
+_WIRE_PAYLOAD_BOX = (64, 64)
+_WIRE_SCALE_BOX = (16, 64)
 # the wgmma body's rows a TMA box (a step segment): m a multiple of it
 _WGMMA_ROWS = 64
 # C columns a wgmma tile (of each of gate and up with silu_pair): the
@@ -107,8 +115,9 @@ _WGMMA_FIXED_COLS = 128
 # ranks its chunk table holds
 _GROUPED_BN = (64, 128)
 _GROUPED_MAX_N = 8
-# launches of the native kernel by body (ag_gemm.launches counts all):
-# a run reads it around a path to show which body served it
+# launches of the kernel by body (ag_gemm.launches and
+# ag_gemm_wire.launches count them all): a run reads it around a path to
+# show which body served it
 launches_by_body = {"mma": 0, "wgmma": 0, "grouped": 0}
 _SIGNATURES = {
     "ag_gemm_launch": (ctypes.c_int, [ctypes.c_void_p] * 6 + [
@@ -120,7 +129,7 @@ _SIGNATURES = {
         ctypes.c_int] * 10 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [
         ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]),
     "ag_gemm_wire_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 9 + [ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_int] * 11 + [ctypes.c_void_p, ctypes.c_void_p]),
     "ag_gemm_flag_count": (ctypes.c_int, [ctypes.c_int]),
     "ag_gemm_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -128,23 +137,46 @@ _SIGNATURES = {
 
 def _body_for(a: torch.Tensor, bs, fmt, grouped: bool,
               live: bool = False) -> str:
-    """The body of a native-kernel call, for bf16 inputs on the native
-    wire with K and N at least one 64-wide box: "grouped" (the
-    expert-major TMA + wgmma kernel) for the grouped form with `counts`
-    (live) at n <= _GROUPED_MAX_N, whatever its cap; "wgmma" (TMA +
-    wgmma) for the dense form at m a multiple of _WGMMA_ROWS. "mma"
-    (mma.sync, or FMA for f32) for every other call: wire, f32, ragged
-    or small m such as a decode step's m = 1, a world above 8 ranks, and
-    the grouped form without counts, whose every padded row the grouped
-    kernel's 64-row tiles, one consumer warpgroup an SM, compute at half
-    the mma.sync body's rate (PERF.md)."""
+    """The body of a kernel call, for bf16 inputs with K and N at least
+    one 64-wide box: "grouped" (the expert-major TMA + wgmma kernel) for
+    the grouped form on the native wire with `counts` (live) at n <=
+    _GROUPED_MAX_N, whatever its cap; "wgmma" (TMA + wgmma) for the
+    dense form at m a multiple of _WGMMA_ROWS, on the native wire or a
+    quantized one (its A dequantized in the pipeline). "mma" (mma.sync,
+    or FMA for f32) for every other call: f32, ragged or small m such as
+    a decode step's m = 1, a world above 8 ranks, and the grouped form
+    without counts, whose every padded row the grouped kernel's 64-row
+    tiles, one consumer warpgroup an SM, compute at half the mma.sync
+    body's rate (PERF.md)."""
     n, m, k = a.shape
-    if (not wire.is_native(fmt) or a.dtype != torch.bfloat16 or k < 64
-            or bs[0].shape[-1] < 64):
+    if a.dtype != torch.bfloat16 or k < 64 or bs[0].shape[-1] < 64:
         return "mma"
     if grouped:
+        live = live and wire.is_native(fmt)
         return "grouped" if live and n <= _GROUPED_MAX_N else "mma"
     return "mma" if m % _WGMMA_ROWS else "wgmma"
+
+
+def _wire_maps(k: int, fmt) -> dict:
+    """The wire body's byte maps over images of a K-element row (the
+    geometry csrc/allgather_gemm.cu's encode_wire_maps encodes): each
+    image row `row_bytes` = wire.wire_cols(K) apart; the payload a (K,
+    rows) byte tensor read in `payload_box` boxes (bytes, rows), `steps`
+    of them a row; the scales a (row_bytes, rows) byte tensor read in
+    `scale_box` boxes at column `scale_col` = K, where the row's f32
+    scale lies. Raises where TMA cannot take it (16-byte strides and
+    columns, whole payload boxes, the scale box inside the row)."""
+    fmt = wire.resolve(fmt)
+    if fmt.block is not None:
+        raise ValueError("the wire body reads one f32 scale a row")
+    kw = wire.wire_cols(k, fmt)
+    pay, sc = _WIRE_PAYLOAD_BOX, _WIRE_SCALE_BOX
+    if k % pay[0] or k % 16 or kw % 16 or k + sc[0] > kw:
+        raise ValueError(f"K={k}, wire_cols={kw}: the wire body needs K a "
+                         f"multiple of {pay[0]} and the scale box inside "
+                         "the row")
+    return dict(row_bytes=kw, payload_box=pay, steps=k // pay[0],
+                scale_col=k, scale_box=sc)
 
 
 def _grouped_bn(N: int) -> int:
@@ -439,7 +471,11 @@ def _check_launch(a: torch.Tensor, bs, out_dtype) -> None:
 
 
 def _launch_wire(a: torch.Tensor, b: torch.Tensor, fmt, arrival: bool,
-                 return_gathered: bool, out_dtype):
+                 return_gathered: bool, out_dtype,
+                 body: Optional[str] = None, bn: Optional[int] = None):
+    """The wire form's kernel; the body by _body_for unless `body` forces
+    "mma" (the comparison of the two bodies in one run), its tile width
+    by _wgmma_bn unless `bn` forces one."""
     _check_launch(a, (b,), out_dtype)
     n, m, K = a.shape
     N = b.shape[-1]
@@ -449,6 +485,16 @@ def _launch_wire(a: torch.Tensor, b: torch.Tensor, fmt, arrival: bool,
                          "moves 16-byte rows")
     if not b.is_contiguous() or b.data_ptr() % 16:
         raise ValueError("b must be contiguous and 16-byte aligned")
+    planned = _body_for(a, (b,), fmt, False)
+    body = body or planned
+    if body not in ("mma", planned):
+        raise ValueError(f"body={body!r}: this call takes {planned!r} or "
+                         "'mma'")
+    if body == "wgmma":
+        _wire_maps(K, fmt)
+        bn = bn or _wgmma_bn(n * m, N, n, False, _build.card_sms(a.device))
+    if bn is not None and (body != "wgmma" or bn not in _WGMMA_BN):
+        raise ValueError(f"bn={bn}: the wgmma body takes {_WGMMA_BN}")
     aw = wire.pack(a.reshape(n * m, K), fmt).reshape(n, m, -1)
     kw = aw.shape[-1]
     world = VirtualWorld.of(a)
@@ -457,14 +503,16 @@ def _launch_wire(a: torch.Tensor, b: torch.Tensor, fmt, arrival: bool,
     lib = _build.load("allgather_gemm", _SIGNATURES)
     flags = world.flags(lib.ag_gemm_flag_count(n))
     grid = _build.GridInfo()
-    with torch.cuda.device(a.device):
+    stream = _build.raw_stream(a.device)
+    with _build.on_device(a.device):
         err = lib.ag_gemm_wire_launch(
             aw.data_ptr(), b.data_ptr(), ws.data_ptr(), c.data_ptr(),
             flags.data_ptr(), n, m, K, N, kw, _DTYPE_CODE[a.dtype],
             _DTYPE_CODE[out_dtype], int(fmt.kind == "fp8"), int(arrival),
-            grid.ptr(), torch.cuda.current_stream().cuda_stream)
+            _BODY_CODE[body], bn or 0, grid.ptr(), stream)
     _build.check("ag_gemm_wire", err, lib.ag_gemm_error_string, grid)
     _build.count_launch("ag_gemm_wire")
+    launches_by_body[body] += 1
     if return_gathered:
         full = wire.unpack(ws.reshape(n * n * m, kw), (K,), fmt, a.dtype)
         return c, full.reshape(n, n * m, K)
@@ -525,8 +573,8 @@ def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool,
     # row, and the rows past counts are zeroed after it
     live = counts.data_ptr() if counts is not None and body == "grouped" \
         else None
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    stream = _build.raw_stream(a.device)
+    with _build.on_device(a.device):
         if grouped:
             err = lib.ag_gemm_grouped_launch(
                 *ptrs, live, *dims, bs[0].shape[1], *strides,

@@ -30,9 +30,10 @@ card the kernel always runs.
 The kernel has two tile bodies. The main path's form (native wire,
 bf16 in and out, m = M / n a multiple of 64 at 1 <= n <= 8: a `dist`
 prefill's 128 rows a rank, a scheduler step's 64, force_kernel at n = 1,
-where the tiles go straight to the output) takes the TMA + wgmma body
-with a persistent schedule, every other call (a decode step's m = 1,
-f32, f32 out, the wire's partials) the mma.sync or FMA body;
+where the tiles go straight to the output) and the wire's f32 partials
+at the same shapes take the TMA + wgmma body with a persistent
+schedule, every other call (a decode step's m = 1, f32, f32 out, the
+partials of f32 inputs or ragged m) the mma.sync or FMA body;
 `_body_for` is the rule, `_wgmma_bn` the wgmma body's tile width, and
 `launches_by_body` counts each body's launches.
 Both leave their tile counters at zero, so the slots and counters of a
@@ -86,9 +87,9 @@ _WGMMA_BN = (128, 192, 256)
 # a tile's time grows as its columns plus this many (ag_gemm's fit,
 # allgather_gemm._WGMMA_FIXED_COLS)
 _WGMMA_FIXED_COLS = 128
-# launches of the native kernel by body (gemm_rs.launches and
-# gemm_rs_wire.launches count both): a run reads it around a path to show
-# which body served it
+# launches of the kernel by body (gemm_rs.launches and
+# gemm_rs_wire.launches count both; the wire's partial GEMM included): a
+# run reads it around a path to show which body served it
 launches_by_body = {"mma": 0, "wgmma": 0}
 _SIGNATURES = {
     "gemm_rs_launch": (ctypes.c_int, [ctypes.c_void_p] * 5 + [
@@ -104,16 +105,17 @@ _POOLS = _build.PoolCache()
 
 def _body_for(n: int, m: int, k: int, nn: int, dtype, out_dtype,
               partials: bool = False) -> str:
-    """The tile body of a native-kernel call with m rows a rank: "wgmma"
-    (TMA + wgmma) for the main path's form, bf16 in and out, no partials,
-    1 <= n <= _WGMMA_MAX_WORLD (n = 1: force_kernel's local product), m a
-    multiple of _WGMMA_ROWS, K and N at least 64; "mma" for every other
-    call (a decode step's m = 1, f32, f32 out, the wire's partials)."""
-    if (partials or dtype != torch.bfloat16 or out_dtype != torch.bfloat16
-            or not 1 <= n <= _WGMMA_MAX_WORLD or m % _WGMMA_ROWS
-            or k < 64 or nn < 64):
+    """The tile body of a kernel call with m rows a rank: "wgmma" (TMA +
+    wgmma) for bf16 in, 1 <= n <= _WGMMA_MAX_WORLD (n = 1: force_kernel's
+    local product), m a multiple of _WGMMA_ROWS, K and N at least 64,
+    with bf16 out (the main path's form) or, for the wire's partials, f32
+    out; "mma" for every other call (a decode step's m = 1, f32 in, f32
+    out of the native fold, ragged m)."""
+    if (dtype != torch.bfloat16 or not 1 <= n <= _WGMMA_MAX_WORLD
+            or m % _WGMMA_ROWS or k < 64 or nn < 64):
         return "mma"
-    return "wgmma"
+    want = torch.float32 if partials else torch.bfloat16
+    return "wgmma" if out_dtype == want else "mma"
 
 
 def _wgmma_bn(M: int, N: int, n: int, sms: int = _build.SMS) -> int:
@@ -314,8 +316,8 @@ def _launch(a: torch.Tensor, b: torch.Tensor, arrival: bool = False,
     lib = _build.load("gemm_reduce_scatter", _SIGNATURES)
     code = _DTYPE_CODE[a.dtype]
     grid = _build.GridInfo()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    stream = _build.raw_stream(a.device)
+    with _build.on_device(a.device):
         flags_ptr = 0  # the partials mode, n = 1's wgmma body: no signal
         if not partials and not (body == "wgmma" and n == 1):
             world = VirtualWorld.of(a)

@@ -1,6 +1,6 @@
 """The ag_gemm kernel's device times at the main paths' shapes.
 
-    python -m triton_dist_tpu_torch.tools.profile_ag_gemm
+    python -m triton_dist_tpu_torch.tools.profile_ag_gemm [--wire]
 
 bf16, world 4, Qwen3-8B widths, inputs from chip_smoke.py's `rand` (A
 scale 1, weights 0.02): ag_gemm (csrc/allgather_gemm.cu) on QKV (b (4,
@@ -34,6 +34,21 @@ from this file's checkout and the kernel from whichever
 `triton_dist_tpu_torch` is imported first, so two versions compare in
 one run by pointing PYTHONPATH at each checkout in turn and running this
 file by its path (old, new, new, old). Needs a CUDA card.
+
+--wire times only the quantized-wire form (`ag_gemm_wire`) at phase
+4w's shapes (chip_smoke.WIRE_AG_GEMM: QKV and gate|up, m 128 a rank, K
+4096, world 4, chip_smoke's inputs), fp8 and int8: each case held within
+ag_gemm_atol of ag_gemm_plain (its gathered A bitwise the codec's
+roundtrip), then its device µs a call (the kernels named ag_gemm*),
+call ms, host µs a call (unsynchronised calls, the pack included),
+the caching allocator's allocations a call, the bound (chip_smoke's:
+the operations at the bf16 peak against A, B and C once plus the ring's
+images), the native kernel's device µs at the same shape, the body the
+call took (`launches_by_body`; empty where it does not count the wire)
+and, where `_launch_wire` takes `body=`, the mma.sync body forced on
+the same inputs, the plan's tile width and each width forced (within
+the atol); ptxas's registers and spills of the wgmma instantiations
+when this run built the library.
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ from __future__ import annotations
 import inspect
 import json
 import os
+import sys
 import time
 
 import torch
@@ -49,6 +65,7 @@ import triton_dist_tpu_torch
 from triton_dist_tpu_torch import kernels
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels import allgather_gemm as ag
+from triton_dist_tpu_torch.tools.profile_flash import _allocs, _host_us
 from triton_dist_tpu_torch.tools.profile_ring_rs import _chip_smoke
 
 N_WORLD, K, N_QKV, N_FFN = 4, 4096, 1536, 3072
@@ -139,8 +156,74 @@ def _grouped(cs):
     return rows, bodies, sweep
 
 
+def _wire(cs):
+    """Phase 4w's ag_gemm calls on the wire: {label: numbers}."""
+    from triton_dist_tpu_torch import wire
+
+    n, bf = cs.WIRE_WORLD, torch.bfloat16
+    takes_body = "body" in inspect.signature(ag._launch_wire).parameters
+    rows = {}
+    for i, (name, m, k, nn) in enumerate(cs.WIRE_AG_GEMM):
+        a = cs.rand((n, m, k), bf, 20 + i, 0.1)
+        b = cs.rand((n, k, nn), bf, 30 + i, 0.05)
+        native = cs.device_us(lambda a=a, b=b: kernels.ag_gemm(a, b), KEY)
+        for kind in ("fp8", "int8"):
+            f = wire.WireFormat(kind)
+            label = f"{name} ({m}, {k}) @ ({k}, {nn}) {kind}"
+            want, full = kernels.ag_gemm_plain(a, b, wire_format=f,
+                                               return_gathered=True)
+            got = kernels.ag_gemm(a, b, wire_format=f, return_gathered=True)
+            if not torch.equal(got[1], full):
+                raise AssertionError(f"{label}: the gathered A is not "
+                                     "bitwise the roundtrip")
+
+            def call(a=a, b=b, f=f):
+                return kernels.ag_gemm(a, b, wire_format=f)
+
+            before = dict(ag.launches_by_body)
+            share = _within(cs, call, a, b, want, label)
+            body = {k2: v - before[k2] for k2, v in
+                    ag.launches_by_body.items() if v != before[k2]}
+            bound, by = cs.bound_ms(
+                2 * n * n * m * k * nn,
+                (n * m * k + n * k * nn + n * n * m * nn) * 2
+                + cs.wire_hop_bytes(n, m, k, f), "bfloat16")
+            rows[label] = dict(
+                device_us=cs.device_us(call, KEY), ms=cs.time_ms(call),
+                host_us_a_call=_host_us(call, 50),
+                allocs_per_call=_allocs(call), bound_us=bound * 1e3,
+                bound_by=by, atol_share=share, native_device_us=native,
+                bodies=body)
+            if not takes_body:
+                continue
+
+            def mma(a=a, b=b, f=f):
+                return ag._launch_wire(a, b, f, False, False, bf,
+                                       body="mma")
+            _within(cs, mma, a, b, want, f"{label} mma")
+            rows[label]["mma_device_us"] = cs.device_us(mma, KEY)
+            rows[label]["plan_bn"] = ag._wgmma_bn(
+                n * m, nn, n, False, _build.card_sms(a.device))
+            for bn in ag._WGMMA_BN:
+                def fn(a=a, b=b, f=f, bn=bn):
+                    return ag._launch_wire(a, b, f, False, False, bf,
+                                           bn=bn)
+                _within(cs, fn, a, b, want, f"{label} bn {bn}", reps=3)
+                rows[label][f"bn {bn} device_us"] = cs.device_us(fn, KEY)
+    return rows
+
+
 def main() -> None:
     cs = _chip_smoke()
+    if "--wire" in sys.argv[1:]:
+        rows = _wire(cs)
+        print(json.dumps({
+            "package": os.path.dirname(triton_dist_tpu_torch.__file__),
+            "card": cs.card_line(), "wire": rows,
+            "ptxas": _build.ptxas_summary("allgather_gemm",
+                                          "ag_gemm_wgmma_kernel")}),
+              flush=True)
+        return
     rows, sweep, plan, bodies = {}, {}, {}, {}
     wgmma = hasattr(ag, "_body_for")
     for label, a, b, kw in _cases(cs):

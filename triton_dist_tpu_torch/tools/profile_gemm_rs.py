@@ -1,6 +1,6 @@
 """The gemm_rs kernel's device times at the main path's shapes.
 
-    python -m triton_dist_tpu_torch.tools.profile_gemm_rs
+    python -m triton_dist_tpu_torch.tools.profile_gemm_rs [--wire]
 
 bf16, world 4, Qwen3-8B widths, inputs from chip_smoke.py's `rand` (A
 scale 1, weights 0.02): gemm_rs (csrc/gemm_reduce_scatter.cu) on the O
@@ -30,12 +30,30 @@ chip_smoke.py is loaded from this file's checkout and the kernel from
 whichever `triton_dist_tpu_torch` is imported first, so two versions
 compare in one run by pointing PYTHONPATH at each checkout in turn and
 running this file by its path (old, new, new, old). Needs a CUDA card.
+
+--wire times only the quantized-wire form at phase 4w's shapes
+(chip_smoke.WIRE_GEMM_RS: down, a (4, 512, 3072), and O, a (4, 512,
+1024), b (4, K, 4096), rank order, chip_smoke's inputs), fp8, int8 and
+int8 block 128: each case's partials (`_launch(..., partials=True)`)
+held within 1e-5 of torch.matmul in f32 and its result bitwise the
+plain wire fold of those partials (20 calls); then the device µs a call
+of its two launches apart (the partial GEMM: the kernels named
+gemm_rs*; the ring: ring_rs_wire_kernel), call ms, host µs a call
+(unsynchronised calls), the caching allocator's allocations a call,
+the bound (chip_smoke's: the operations at the bf16 peak against A, B
+and the output once plus the ring's images), the native kernel's device
+µs at the same shape, the body the partial GEMM took
+(`launches_by_body`), the mma.sync body forced on the same partials
+and, on the wgmma body, the plan's tile width and each width forced
+(within 1e-5); ptxas's registers and spills of the wgmma
+instantiations when this run built the library.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 
 import torch
 
@@ -43,6 +61,7 @@ import triton_dist_tpu_torch
 from triton_dist_tpu_torch import kernels
 from triton_dist_tpu_torch.kernels import _build
 from triton_dist_tpu_torch.kernels import gemm_reduce_scatter as rs
+from triton_dist_tpu_torch.tools.profile_flash import _allocs, _host_us
 from triton_dist_tpu_torch.tools.profile_ring_rs import _chip_smoke
 
 N_WORLD, N = 4, 4096
@@ -90,8 +109,76 @@ def _kernels_us(fn, reps=10):
     return out
 
 
+def _wire(cs):
+    """Phase 4w's gemm_rs calls on the wire: {label: numbers}."""
+    from triton_dist_tpu_torch import wire
+
+    n, bf, f32 = cs.WIRE_WORLD, torch.bfloat16, torch.float32
+    rows = {}
+    for i, (name, mm, k, nn) in enumerate(cs.WIRE_GEMM_RS):
+        a = cs.rand((n, mm, k), bf, 40 + i, 0.1)
+        b = cs.rand((n, k, nn), bf, 50 + i, 0.05)
+        exact = torch.matmul(a.float(), b.float())
+        native = cs.device_us(lambda a=a, b=b: kernels.gemm_rs(a, b), KEY)
+        for kind, block in cs.WIRE_FORMATS:
+            f = wire.WireFormat(kind, block)
+            label = f"{name} ({mm}, {k}) @ ({k}, {nn}) {cs.wire_label(f)}"
+
+            def call(a=a, b=b, f=f):
+                return kernels.gemm_rs(a, b, wire_format=f)
+
+            def partial(a=a, b=b, body=None):
+                return rs._launch(a, b, False, f32, partials=True,
+                                  **({} if body is None else
+                                     {"body": body}))
+
+            before = dict(rs.launches_by_body)
+            for _ in range(20):
+                p = partial()
+                torch.testing.assert_close(p, exact, rtol=1e-5, atol=1e-5)
+                if not torch.equal(call(), kernels.
+                                   ring_reduce_scatter_wire_plain(p, f, bf)):
+                    raise AssertionError(f"{label}: not bitwise the plain "
+                                         "fold of its own partials")
+            body = {k2: (v - before[k2]) // 40 for k2, v in
+                    rs.launches_by_body.items() if v != before[k2]}
+            torch.testing.assert_close(partial(body="mma"), exact,
+                                       rtol=1e-5, atol=1e-5)
+            bound, by = cs.bound_ms(
+                2 * n * mm * k * nn,
+                (n * mm * k + n * k * nn + n * (mm // n) * nn) * 2
+                + cs.wire_hop_bytes(n, mm // n, nn, f), "bfloat16")
+            rows[label] = dict(
+                gemm_device_us=cs.device_us(call, KEY),
+                ring_device_us=cs.device_us(call, "ring_rs_wire_kernel"),
+                ms=cs.time_ms(call), host_us_a_call=_host_us(call, 50),
+                allocs_per_call=_allocs(call), bound_us=bound * 1e3,
+                bound_by=by, native_device_us=native, bodies=body,
+                mma_gemm_device_us=cs.device_us(
+                    lambda: partial(body="mma"), KEY))
+            if body != {"wgmma": 1}:
+                continue
+            rows[label]["plan_bn"] = rs._wgmma_bn(
+                mm, nn, n, _build.card_sms(a.device))
+            for bn in rs._WGMMA_BN:
+                def fn(a=a, b=b, bn=bn):
+                    return rs._launch(a, b, False, f32, partials=True, bn=bn)
+                torch.testing.assert_close(fn(), exact, rtol=1e-5, atol=1e-5)
+                rows[label][f"bn {bn} gemm_device_us"] = cs.device_us(fn, KEY)
+    return rows
+
+
 def main() -> None:
     cs = _chip_smoke()
+    if "--wire" in sys.argv[1:]:
+        rows = _wire(cs)
+        print(json.dumps({
+            "package": os.path.dirname(triton_dist_tpu_torch.__file__),
+            "card": cs.card_line(), "wire": rows,
+            "ptxas": _build.ptxas_summary("gemm_reduce_scatter",
+                                          "gemm_rs_wgmma_kernel")}),
+              flush=True)
+        return
     rows, sweep, plan, bodies = {}, {}, {}, {}
     wgmma = hasattr(rs, "_body_for")
     for label, a, b, order in _cases(cs):
