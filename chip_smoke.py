@@ -33,6 +33,8 @@ outside a checkout of the repository. Phases, each fatal on failure:
      gate and up as views of one stack) at n = 2 and 4, cap 16, 64 and
      256, both orders; grouped_gemm's card route (torch._grouped_mm) at
      the Qwen3-30B-A3B shapes, with empty groups and trailing rows; the
+     grouped_gemm's f32 route (the grouped_gemm_f32 kernel) and its host
+     sizes route at the same shapes, a skewed routing too; the
      full-mesh AllGather, p2p_send / p2p_read and ring_shift bitwise at
      n = 2 and 4, f32 / bf16 / uint8, ragged and odd sizes, src = dst,
      shift in {1, -1, 3, n + 1}, and with rank 0 delayed;
@@ -49,6 +51,18 @@ outside a checkout of the repository. Phases, each fatal on failure:
      path's logits against the plain versions' (and, for `dist`, the
      `xla` prefill's), and a small f32 model on the card against the CPU
      at world 1 and 4 (`ar` and `dist`);
+  4g. inside each model path (4, 4m, 4b): the captured steps against
+     the eager ones. The Engine and MegaQwen3 replay CUDA graphs of their
+     decode and serve steps on the card by default, so the main path's
+     serve, Scheduler and megakernel steps above are replays (a replay
+     counts the launches its capture recorded; each capture runs the
+     step once eagerly first, counted too). For the `ar` decode (and the
+     Scheduler's mode where it is another), the serve step and the
+     megakernel step: the replay's logits, tokens and cache (or pools)
+     bitwise the eager step's from the same state (greedy and seeded
+     sampling; a Scheduler each way on the same 6 requests), eager and
+     replayed ms/token (tokens/s for the Scheduler), capture s, the
+     graph's pool bytes, device kernels a step each way, peak GB;
   4m. the fifth path, between the world-1 and world-4 Qwen3-8B runs of
      phase 4, on the same weights: the decode megakernel. The Engine's
      4 x 128 prefill, then 16 greedy steps of MegaQwen3, one `mega`
@@ -132,7 +146,9 @@ outside a checkout of the repository. Phases, each fatal on failure:
      and `fused`;
   5b. the ring ReduceScatter (bitwise), the grouped ag_gemm and
      grouped_gemm against their plain versions on the inputs recorded in
-     4b (the other kernels too), and the kernels' timing there; the ring
+     4b (the other kernels too), and the kernels' timing there (the
+     grouped f32 down product at a decode step's, a scheduler step's and
+     the prefill's inputs, beside one bmm over the padded blocks); the ring
      RS at the dist prefill, scheduler step and fused prefill shapes with
      the host us by part and the library's device us, its tile sweep
      (2048, 4096, 8192 elements) and the bytes its persistent pools hold;
@@ -914,26 +930,25 @@ def check_grouped_ag_gemm(kernels):
 
 
 def grouped_gemm_atol(want) -> float:
-    """The card route rounds every product to bf16 (for an f32 out_dtype
-    too) after an f32 sum in another order: one bf16 ulp (2^-7 relative)
-    of the largest output, plus 1e-5 of it."""
+    """The bf16 card route rounds every product to bf16 after an f32 sum
+    in another order: one bf16 ulp (2^-7 relative) of the largest output,
+    plus 1e-5 of it (the f32 kernel, which does not round, is held to the
+    same)."""
     top = want.float().abs().max().item()
     return 2.0 ** -7 * top + 1e-5 * max(1.0, top)
 
 
-def check_grouped_gemm_call(x, w, sizes, out_dtype, label,
-                            host_sizes=None):
+def check_grouped_gemm_call(x, w, sizes, out_dtype, label):
     """grouped_gemm's card route (torch._grouped_mm, the rank dim folded
-    into the groups; or _expert_rows for an f32 out_dtype) against its
-    loop over experts, within grouped_gemm_atol; rows past each rank's
-    last group exactly zero. sizes (E,) shared or (n, E) a rank;
-    host_sizes as the caller handed them. Returns the max abs error."""
+    into the groups; for an f32 out_dtype the grouped_gemm_f32 kernel)
+    against its loop over experts, within grouped_gemm_atol; rows past
+    each rank's last group exactly zero. sizes (E,) shared or (n, E) a
+    rank. Returns the max abs error."""
     import torch
 
     from triton_dist_tpu_torch.kernels import grouped_gemm as gg
 
-    got = gg.grouped_gemm(x, w, sizes, out_dtype=out_dtype,
-                          host_sizes=host_sizes)
+    got = gg.grouped_gemm(x, w, sizes, out_dtype=out_dtype)
     want = gg.grouped_gemm_plain(x, w, sizes, out_dtype=out_dtype)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -953,7 +968,8 @@ def check_grouped_gemm_call(x, w, sizes, out_dtype, label,
 def check_grouped_gemm():
     """grouped_gemm's card route at the Qwen3-30B-A3B world-4 shapes
     (E 128; gate|up K 2048 N 384, down K 192 N 2048): routed group sizes
-    with empty groups, and the same with 100 rows past the last group;
+    with empty groups, the same with 100 rows past the last group, and a
+    skewed routing (three experts, one holding 900 of 1024 rows);
     x shared by the ranks and one per rank; bf16 and f32 out; an
     unstacked weight."""
     import torch
@@ -981,7 +997,10 @@ def check_grouped_gemm():
         ids = torch.randint(0, e // 2, (rows,), generator=g) * 2
         return torch.bincount(ids, minlength=e).to(torch.int32).cuda()
 
-    cases = (("routed", routed(t)), ("100 trailing rows", routed(t - 100)))
+    skew = torch.zeros(e, dtype=torch.int32)
+    skew[[5, 77, 126]] = torch.tensor([900, 3, 21], dtype=torch.int32)
+    cases = (("routed", routed(t)), ("100 trailing rows", routed(t - 100)),
+             ("skewed, 125 empty experts, 100 trailing rows", skew.cuda()))
     for k, nn in ((2048, 384), (192, 2048)):
         w = rand((4, e, k, nn), torch.bfloat16, k + nn, 0.05)
         for kind, x in (("shared x", rand((t, k), torch.bfloat16, k)),
@@ -997,16 +1016,14 @@ def check_grouped_gemm():
         check_grouped_gemm_call(x1, w[0], cases[1][1], torch.float32,
                                 f"unstacked K={k} N={nn}")
         # sizes a rank (EP: every rank receives other tokens), the last
-        # rank's rows ending 100 early, with and without host sizes
+        # rank's rows ending 100 early
         gs = torch.stack([routed(t), routed(t), routed(t), routed(t - 100)])
         xr = rand((4, t, k), torch.bfloat16, k + 3)
         err = max(check_grouped_gemm_call(
-            xr, w, gs, od, f"sizes a rank K={k} N={nn} {od} host {hs}",
-            host_sizes=gs.tolist() if hs else None)
-            for od in (torch.bfloat16, torch.float32) for hs in (0, 1))
+            xr, w, gs, od, f"sizes a rank K={k} N={nn} {od}")
+            for od in (torch.bfloat16, torch.float32))
         log(f"  grouped_gemm n=4 E={e} T={t} K={k} N={nn}, (n, E) sizes a "
-            f"rank, bf16 and f32 out, host sizes or none: "
-            f"max_abs_err={err:.3e}")
+            f"rank, bf16 and f32 out: max_abs_err={err:.3e}")
     log("  grouped_gemm unstacked (T, K) x (E, K, N), 100 trailing rows: "
         "within its atol")
 
@@ -1037,6 +1054,9 @@ def main_path_kernels():
 
 
 SP_KERNELS = ("sp_flash_prefill", "flash_decode_partial", "ll_all_gather")
+# the hand kernel for code the JAX package leaves to XLA: the TP-MoE down
+# product (its `lax.ragged_dot`), on the MoE model's path
+MOE_KERNELS = ("grouped_gemm_f32",)
 
 
 def kernel_names():
@@ -1045,9 +1065,9 @@ def kernel_names():
     SP path's three (the sixth path calls them through its layer), the
     EP path's two (the seventh, through kernels/ep_a2a.py), the PP
     transport's two (4p), the full-mesh AllGather (4c) and the quantized
-    wire's three (4w)."""
+    wire's three (4w), and the MoE model's grouped f32 down product."""
     return [*main_path_kernels(), "mega", *SP_KERNELS, *EP_KERNELS,
-            *PP_KERNELS, *COLL_KERNELS, *WIRE_KERNELS]
+            *PP_KERNELS, *COLL_KERNELS, *WIRE_KERNELS, *MOE_KERNELS]
 
 
 def plain_versions():
@@ -1248,38 +1268,253 @@ def check_recorded_collectives(kernels, records):
     return errs
 
 
-def want_launches(L, world, prefill_mode, sched_mode, gen, steps,
-                  moe=False):
+def want_launches(L, world, prefill_mode, sched_mode, dec_steps,
+                  sched_steps, moe=False):
     """The launch counts the main path must show: Engine.serve runs one
-    multi-token forward (the prefill, M = 512 rows) and gen - 1 `ar`
-    decode steps (M = 4: local product + one-shot AR); every scheduler
-    step is a (slots, chunk) forward of M = 256 rows. At world > 1 an
+    multi-token forward (the prefill, M = 512 rows) and dec_steps `ar`
+    decode steps (M = 4: local product + one-shot AR); the Scheduler
+    sched_steps (slots, chunk) forwards of M = 256 rows. On the card a
+    step is a replay of its captured graph, which counts the launches its
+    capture recorded, and each capture runs the step once eagerly before
+    (its warm-up): so dec_steps is gen - 1 plus the decode captures,
+    sched_steps the Scheduler's steps plus its captures. At world > 1 an
     `ar` prefill takes gemm_rs + ring AG on O and down (M > 256), an `ar`
     scheduler step the one-shot AR; a `dist` forward takes ag_gemm on
     QKV and gate|up and gemm_rs on O and down, and no AR or AG. The MoE
     model (world 4, `dist` prefill and scheduler) keeps ag_gemm on QKV
     and gemm_rs on O, and its MoE block takes the ring AG and the ring
-    RS once a layer; its `ar` decode the one-shot AR on O only."""
+    RS once a layer; its `ar` decode the one-shot AR on O only; every
+    one of its forwards the grouped f32 down product once a layer."""
     serve = {name: 0 for name in kernel_names()}
-    sched = dict(serve, flash_prefill_local=L * steps)
+    sched = dict(serve, flash_prefill_local=L * sched_steps)
     serve["flash_prefill_local"] = L
     if moe:
         per = dict(ag_gemm=L, gemm_rs=L, ring_all_gather=L,
-                   ring_reduce_scatter=L)
-        serve.update(per, one_shot_all_reduce=L * (gen - 1))
-        sched.update({k: v * steps for k, v in per.items()})
+                   ring_reduce_scatter=L, grouped_gemm_f32=L)
+        serve.update(per, one_shot_all_reduce=L * dec_steps,
+                     grouped_gemm_f32=L * (1 + dec_steps))
+        sched.update({k: v * sched_steps for k, v in per.items()})
         return serve, sched
     if world > 1:
         if prefill_mode == "dist":
             serve.update(ag_gemm=2 * L, gemm_rs=2 * L)
         else:
             serve.update(gemm_rs=2 * L, ring_all_gather=2 * L)
-        serve["one_shot_all_reduce"] = 2 * L * (gen - 1)
+        serve["one_shot_all_reduce"] = 2 * L * dec_steps
         if sched_mode == "dist":
-            sched.update(ag_gemm=2 * L * steps, gemm_rs=2 * L * steps)
+            sched.update(ag_gemm=2 * L * sched_steps,
+                         gemm_rs=2 * L * sched_steps)
         else:
-            sched.update(one_shot_all_reduce=2 * L * steps)
+            sched.update(one_shot_all_reduce=2 * L * sched_steps)
     return serve, sched
+
+
+# -- phase 4g: the captured steps against the eager ones --------------------
+
+G_STEPS = 15  # decode steps timed a path (the serve's gen - 1)
+
+
+def _cache_tensors(c):
+    """A cache's tensors: the KVCache dataclass's fields, or a mega
+    cache's (a named tuple)."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(c):
+        return [getattr(c, f.name) for f in dataclasses.fields(c)]
+    return list(c)
+
+
+def _clone_cache(c):
+    return type(c)(*(t.clone() for t in _cache_tensors(c)))
+
+
+def kernels_a_call(fn) -> int:
+    """Device kernels (and memsets / copies) one call of fn runs, from a
+    torch.profiler trace of one call (after one untraced call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if float(getattr(e, "self_device_time_total", getattr(
+                   e, "self_cuda_time_total", 0.0))) > 0)
+
+
+def graph_row(g) -> dict:
+    """What a captured step costs to hold: capture s, the graph's private
+    pool bytes, the hand kernels' launches a replay."""
+    return dict(capture_s=g.capture_s, pool_bytes=g.pool_bytes,
+                kernel_launches_a_replay=dict(g.launches))
+
+
+def check_graph_decode(eng, prompts, label, steps=G_STEPS):
+    """The Engine's captured decode step against its eager step from one
+    prefill state: decode_step's logits, then `steps` greedy tokens of
+    generate, then 4 seeded sampled ones, and the cache (rows and length)
+    bitwise; ms/token eager and replayed (host clock, the replay after
+    its capture), device kernels a step each way, capture s, pool bytes,
+    peak GB. Then two Engine.serve calls of steps + 1 tokens, each on a
+    fresh prefill cache: their wall s, and no capture in either (the
+    graphs are kept by shape)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    logits, c0 = eng.prefill(prompts)
+    tok = logits.argmax(-1)
+    caches = {}
+    out = {}
+    for graphed in (False, True):
+        eng.cuda_graph = graphed
+        c = _clone_cache(c0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, c = eng.decode_step(tok, c)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ids, c = eng.generate(first.argmax(-1), c, steps)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        gen = torch.Generator(device=eng.device).manual_seed(3)
+        sampled, c = eng.generate(ids[:, -1], c, 4, temperature=0.8,
+                                  generator=gen)
+        torch.cuda.synchronize()
+        caches[graphed] = c
+        out[graphed] = (first, ids, sampled, ms, first_s)
+    eng.cuda_graph = True
+    (fe, ie, se, eager_ms, _), (fg, ig, sg, replay_ms, first_s) = (
+        out[False], out[True])
+    ok = (torch.equal(fe, fg) and torch.equal(ie, ig) and torch.equal(se, sg)
+          and all(torch.equal(a, b) for a, b in zip(
+              _cache_tensors(caches[False]), _cache_tensors(caches[True]))))
+    if not ok:
+        raise AssertionError(f"{label}: the replayed decode differs from the "
+                             "eager step")
+    g = eng._decode_graph(caches[True], tok)  # the greedy one, made above
+    c1 = _clone_cache(caches[True])
+    eng.cuda_graph = False
+    eager_k = kernels_a_call(lambda: eng.decode_step(tok, c1))
+    eng.cuda_graph = True
+    replay_k = kernels_a_call(lambda: g.replay())
+    made, serve_s = eng.decode_graphs.made, []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve(prompts, steps + 1)
+        torch.cuda.synchronize()
+        serve_s.append(time.perf_counter() - t0)
+    if eng.decode_graphs.made != made:
+        raise AssertionError(f"{label}: Engine.serve on a fresh prefill "
+                             "cache captured its step again")
+    row = dict(eager_ms=eager_ms, replay_ms=replay_ms,
+               first_call_s=first_s, device_kernels_eager=eager_k,
+               device_kernels_replay=replay_k, serve_repeat_s=serve_s,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               **graph_row(g))
+    log(f"  4g {label} decode: eager {eager_ms:.3f} ms/token, replay "
+        f"{replay_ms:.3f} ms/token; capture {g.capture_s:.3f} s (first "
+        f"call on a fresh cache {first_s:.3f} s), graph pool "
+        f"{g.pool_bytes / 1e6:.1f} MB, device kernels a step {eager_k} "
+        f"eager / {replay_k} replayed, hand kernels a replay {g.launches}; "
+        f"peak {row['peak_gb']:.2f} GB; logits, {steps} greedy and 4 sampled "
+        f"tokens and the cache bitwise the eager step's; Engine.serve "
+        f"({steps + 1} tokens) twice on fresh prefill caches: "
+        f"{serve_s[0]:.3f} s, {serve_s[1]:.3f} s, no capture")
+    del c0, caches, c1
+    return row
+
+
+def check_graph_serve(eng, prompts, gen, label):
+    """The Engine's captured serve step against its eager step: one step
+    from the same pool state (its last logits, tokens and the pools past
+    the null page bitwise), then a Scheduler each way on the same
+    requests (greedy and sampled; every request's tokens bitwise), the
+    replaying one on a fresh pool with no capture (the graph is kept by
+    geometry); tokens/s each way, capture s, pool bytes, device kernels
+    a step."""
+    import numpy as np
+    import torch
+
+    from triton_dist_tpu_torch.serve import Scheduler
+    from triton_dist_tpu_torch.serve.kv_pool import KVPool
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = eng.cfg
+    pool = KVPool(eng, slots=4, page=64)
+    rng = np.random.default_rng(4)
+    dev = eng.device
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 64)),
+                             device=dev)
+    table = torch.arange(1, 1 + 4 * pool.max_pages, device=dev).reshape(4, -1)
+    lengths = torch.tensor([0, 64, 0, 200], device=dev)
+    n_valid = torch.tensor([64, 30, 64, 1], device=dev)
+    temps, seeds = np.array([0.0, 0.7, 0.0, 0.0]), np.arange(4)
+    res = {}
+    for graphed in (False, True):
+        eng.cuda_graph = graphed
+        fn = eng.make_serve_step(4, 64, 64, pool.max_pages)
+        pk, pv = pool.k.clone(), pool.v.clone()
+        tok, last = fn(tokens, pk, pv, table, lengths, n_valid, temps, seeds)
+        res[graphed] = (tok, last.clone(), pk, pv, fn)
+    eng.cuda_graph = True
+    # the pools past the null page 0 (the padding columns' sink, whose
+    # duplicate writes land in no fixed order)
+    if not (all(torch.equal(a, b) for a, b in zip(res[False][:2],
+                                                   res[True][:2]))
+            and all(torch.equal(a[:, :, 1:], b[:, :, 1:])
+                    for a, b in zip(res[False][2:4], res[True][2:4]))):
+        raise AssertionError(f"{label}: the replayed serve step differs "
+                             "from the eager step")
+    g = next(reversed(eng.serve_graphs.graphs.values()))  # just captured
+    args = (tokens, res[True][2], res[True][3], table, lengths, n_valid,
+            temps, seeds)
+    eager_k = kernels_a_call(lambda: res[False][4](*args))
+    replay_k = kernels_a_call(lambda: g.replay())
+    del res, pool
+    runs = {}
+    for graphed in (False, True):
+        eng.cuda_graph = graphed
+        made = eng.serve_graphs.made
+        sch = Scheduler(eng, slots=4, chunk=64, page=64)
+        reqs = [sch.submit(p, gen, temperature=0.7 if i % 3 == 2 else 0.0,
+                           seed=i) for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sch.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if eng.serve_graphs.made != made:
+            raise AssertionError(f"{label}: a Scheduler's fresh pool "
+                                 "captured the serve step again")
+        n_out = sum(len(r.out_tokens) for r in reqs)
+        runs[graphed] = ([r.out_tokens for r in reqs], wall,
+                         n_out / wall, sch.worker.n_steps)
+        del sch
+    eng.cuda_graph = True
+    if runs[False][0] != runs[True][0]:
+        raise AssertionError(f"{label}: the replayed Scheduler's tokens "
+                             "differ from the eager one's")
+    row = dict(eager_tokens_per_s=runs[False][2],
+               replay_tokens_per_s=runs[True][2],
+               eager_wall_s=runs[False][1], replay_wall_s=runs[True][1],
+               steps=runs[True][3], device_kernels_eager=eager_k,
+               device_kernels_replay=replay_k,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               **graph_row(g))
+    log(f"  4g {label} serve step ({eng.decode_mode}): one step's last "
+        f"logits, tokens and pools bitwise the eager step's; Scheduler "
+        f"(6 requests, 2 sampled, {row['steps']} steps) tokens bitwise: "
+        f"eager {runs[False][2]:.2f} tokens/s ({runs[False][1]:.3f} s), "
+        f"replayed {runs[True][2]:.2f} tokens/s ({runs[True][1]:.3f} s, "
+        f"a fresh pool, no capture); graph pool "
+        f"{g.pool_bytes / 1e6:.1f} MB, device kernels a step {eager_k} "
+        f"eager / {replay_k} replayed, hand kernels a replay {g.launches}; "
+        f"peak {row['peak_gb']:.2f} GB")
+    return row
 
 
 def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
@@ -1287,9 +1522,12 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
     """The main path at `world`: Engine.serve of 4 x 128 prompts (a
     `prefill_mode` prefill, `ar` decode steps) and a Scheduler with 6
     requests whose steps run `sched_mode`, over `params`, every kernel's
-    launches read around each, the kernels' inputs recorded; for an MoE
-    config also a `fused` prefill of 4 x FUSED_LEN; then the timed
-    prefill and decode, and the kernel path's logits against the plain
+    launches read around each, the kernels' inputs recorded (the decode
+    and serve steps replay their captured graphs, as on every card run);
+    for an MoE config also a `fused` prefill of 4 x FUSED_LEN; then the
+    timed prefill, phase 4g (each captured step against the eager step:
+    the `ar` decode, the `sched_mode` decode where it differs, the
+    serve step), and the kernel path's logits against the plain
     versions' (and, for a sequence-sharded prefill, against the `xla`
     prefill's). Returns (launches of the whole path, records, model
     numbers)."""
@@ -1368,8 +1606,11 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
                for r in reqs), "a scheduler request was not answered"
     assert all(finite), "non-finite serve-step logits"
     sched_n = {k: main_n[k] - serve_n[k] for k in main_n}
-    want_serve, want_sched = want_launches(L, world, prefill_mode,
-                                           sched_mode, gen, steps, moe)
+    # one capture each: the serve's decode step, the Scheduler's step
+    assert (eng.decode_graphs.made, sched_eng.serve_graphs.made) == (1, 1)
+    want_serve, want_sched = want_launches(
+        L, world, prefill_mode, sched_mode, gen - 1 + eng.decode_graphs.made,
+        steps + sched_eng.serve_graphs.made, moe)
     assert serve_n == want_serve, (serve_n, want_serve)
     assert sched_n == want_sched, (sched_n, want_sched)
     # every dense ag_gemm and every gemm_rs of a dist forward (gemm_rs of
@@ -1493,21 +1734,28 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
         f"{m['ttft_p50_us'] / 1e3:.1f} ms, evicted {m['evicted']}")
     log(f"  launches: Engine.serve {serve_n}, Scheduler {sched_n}")
 
-    # timed prefill and decode, outside the counted window
+    # timed prefill, outside the counted window; then phase 4g: each step
+    # replayed against the eager step, and its ms/token both ways
     def prefill():
         return eng.prefill(prompts)
 
     pre_ms = time_ms(prefill, iters=5, warmup=1)
     logits, cache = prefill()
-    tok = logits.argmax(-1)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.generate(tok, cache, gen - 1)
-    torch.cuda.synchronize()
-    decode_ms = (time.perf_counter() - t0) * 1e3 / (gen - 1)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_main = torch.cuda.max_memory_allocated() / 1e9
+    path = f"{'Qwen3-30B-A3B' if moe else 'Qwen3-8B'} world {world}"
+    graphs = {"decode ar": check_graph_decode(eng, prompts, f"{path} ar")}
+    if sched_mode != "ar":
+        graphs[f"decode {sched_mode}"] = check_graph_decode(
+            sched_eng, prompts, f"{path} {sched_mode}")
+    graphs[f"serve step {sched_mode}"] = check_graph_serve(
+        sched_eng, sched_prompts, gen, path)
+    decode_ms = graphs["decode ar"]["replay_ms"]
+    model["graphs"] = graphs
+    peak_gb = max(peak_main, *(g["peak_gb"] for g in graphs.values()))
     log(f"  prefill 4x128: {pre_ms:.3f} ms; decode: {decode_ms:.3f} "
-        f"ms/token (batch 4, host clock); peak memory {peak_gb:.2f} GB")
+        f"ms/token replayed ({graphs['decode ar']['eager_ms']:.3f} eager; "
+        f"batch 4, host clock); peak memory {peak_gb:.2f} GB")
 
     assert torch.isfinite(logits).all(), "non-finite prefill logits"
     k_rel, k_floor, k_agree, k_agree_floor, plain_logits = against_plain(
@@ -1526,6 +1774,7 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
                  world=world, prefill_mode=prefill_mode,
                  sched_mode=sched_mode, prefill_ms=pre_ms,
                  decode_ms=decode_ms,
+                 eager_decode_ms=graphs["decode ar"]["eager_ms"],
                  tokens_per_s=m["tokens_per_s"], peak_gb=peak_gb,
                  logits_rel_l2=k_rel, logits_rel_l2_ulp=k_floor,
                  argmax_agree=k_agree, argmax_agree_ulp=k_agree_floor)
@@ -2415,13 +2664,16 @@ def mega_work(mega, pos):
     return nbytes, ops, around
 
 
-def mega_decode_timing(mega, tok, cache_fn, steps=MEGA_STEPS):
-    """ms a token of `steps` greedy decode steps from cache_fn(), on CUDA
-    events and on the host clock (the second of two runs)."""
+def mega_decode_timing(mega, tok, cache, length0, steps=MEGA_STEPS):
+    """ms a token of `steps` greedy decode steps from `cache` with its
+    length reset in place to length0 (so a captured step is replayed,
+    not captured again), on CUDA events and on the host clock (the
+    second of two runs)."""
     import torch
 
     for _ in range(2):
-        tok_, cache = tok, cache_fn()
+        tok_ = tok
+        cache.length.copy_(length0)
         torch.cuda.synchronize()
         a = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
@@ -2433,8 +2685,54 @@ def mega_decode_timing(mega, tok, cache_fn, steps=MEGA_STEPS):
         e.record()
         torch.cuda.synchronize()
         host = (time.perf_counter() - t0) * 1e3 / steps
-        del cache
     return a.elapsed_time(e) / steps, host
+
+
+def check_graph_mega(mega, tok, start, label, steps=G_STEPS):
+    """MegaQwen3's captured step against its eager step from one cache:
+    decode_step's logits, `steps` tokens of decode_resident and the
+    cache bitwise; ms/token each way (host clock; the replay after its
+    capture), capture s, pool bytes, device kernels a step."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    res = {}
+    for graphed in (False, True):
+        mega.cuda_graph = graphed
+        c = _clone_cache(start)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first, c = mega.decode_step(tok, c)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ids, c = mega.decode_resident(first.argmax(-1), c, steps)
+        torch.cuda.synchronize()
+        res[graphed] = (first, ids, c, (time.perf_counter() - t0) * 1e3
+                        / steps, first_s)
+    mega.cuda_graph = True
+    (fe, ie, ce, eager_ms, _), (fg, ig, cg, replay_ms, first_s) = (
+        res[False], res[True])
+    if not (torch.equal(fe, fg) and torch.equal(ie, ig)
+            and all(torch.equal(a, b) for a, b in zip(ce, cg))):
+        raise AssertionError(f"{label}: the replayed megakernel step differs "
+                             "from the eager step")
+    g = mega._graph(cg, tok)
+    mega.cuda_graph = False
+    eager_k = kernels_a_call(lambda: mega.decode_step(tok, ce))
+    mega.cuda_graph = True
+    replay_k = kernels_a_call(lambda: g.replay())
+    row = dict(eager_ms=eager_ms, replay_ms=replay_ms, first_call_s=first_s,
+               device_kernels_eager=eager_k, device_kernels_replay=replay_k,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               **graph_row(g))
+    log(f"  4g {label}: eager {eager_ms:.3f} ms/token, replay "
+        f"{replay_ms:.3f} ms/token (decode_resident); capture "
+        f"{g.capture_s:.3f} s, graph pool {g.pool_bytes / 1e6:.1f} MB, device "
+        f"kernels a step {eager_k} eager / {replay_k} replayed; peak "
+        f"{row['peak_gb']:.2f} GB; logits, {steps} tokens and the cache "
+        "bitwise the eager step's")
+    return row
 
 
 def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
@@ -2484,7 +2782,10 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
     launched = kernels.launches()
     mega.cm.run = real
     want = {name: 0 for name in kernel_names()}
-    want.update(flash_prefill_local=L, mega=MEGA_STEPS)
+    # the steps replay one captured graph: MEGA_STEPS launches, and one
+    # more in the capture's warm-up
+    assert mega.graphs.made == 1
+    want.update(flash_prefill_local=L, mega=MEGA_STEPS + mega.graphs.made)
     if world > 1 and prefill_mode == "dist":
         want.update(ag_gemm=2 * L, gemm_rs=2 * L)
     elif world > 1:
@@ -2496,6 +2797,7 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
     assert int(mega_toks.min()) >= 0 and int(mega_toks.max()) < cfg.vocab_size
 
     # the eager Engine's greedy decode of the same prefill
+    eng.cuda_graph = False
     e_toks, e_first, tok = [], None, tok0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2565,9 +2867,10 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
 
     # timing: the step, the launch, its bound, the plain walk
     start = MegaKVCache.from_dense(cache, s_max=MAX_LEN)
+    graphs = check_graph_mega(mega, tok0, start,
+                              f"mega world {world}, batch 4")
     length0 = start.length.clone()
-    ev_ms, host_ms = mega_decode_timing(
-        mega, tok0, lambda: start._replace(length=length0.clone()))
+    ev_ms, host_ms = mega_decode_timing(mega, tok0, start, length0)
     call = lambda: real(pos, table, ws, weights, norms, rope, kp, vp)  # noqa: E731
     call_ms = time_ms(call)
     dev_us = device_us(call, "mega_kernel")
@@ -2595,6 +2898,7 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
                rows_band_worst=row_band, rows_band_outside=row_out,
                workspace_max=mag, logits_rel_l2=rel, logits_rel_l2_ulp=floor,
                eager_rel_l2=rel_eager, eager_token_agree=agree,
+               graphs=graphs,
                tile_cols={k[1]: v for k, v in mega.cm.mm_tiles.items()},
                blocks_per_rank=mega.cm.blocks)
     del eng, mega, cache, mc, start, rec, ws_k, ws_p, ws_f
@@ -2618,8 +2922,8 @@ def mega_batch1(cfg, params, context=512, device="cuda"):
     cache.v.normal_(generator=g)
     cache.length.fill_(context)
     tok = torch.tensor([7], device=device)
-    ev_ms, host_ms = mega_decode_timing(mega, tok, lambda: cache._replace(
-        length=torch.full_like(cache.length, context)))
+    ev_ms, host_ms = mega_decode_timing(mega, tok, cache,
+                                        torch.full_like(cache.length, context))
     nbytes, ops, _ = mega_work(mega, cache.length)
     bnd, _ = bound_ms(ops, nbytes, "bfloat16")
     log(f"  mega world 1, batch 1, context {context}: {ev_ms:.3f} ms/token "
@@ -3199,10 +3503,10 @@ class FfnRecorder:
         self.mod, self.fn = gg, gg.grouped_gemm
         self.records = []
 
-    def __call__(self, x, w, sizes, out_dtype=None, host_sizes=None):
+    def __call__(self, x, w, sizes, out_dtype=None):
         self.records.append(dict(x=x.clone(), w=w, sizes=sizes.clone(),
-                                 out_dtype=out_dtype, host_sizes=host_sizes))
-        return self.fn(x, w, sizes, out_dtype, host_sizes)
+                                 out_dtype=out_dtype))
+        return self.fn(x, w, sizes, out_dtype)
 
     def __enter__(self):
         self.mod.grouped_gemm = self
@@ -3214,7 +3518,8 @@ class FfnRecorder:
 
 def host_syncs(fn) -> int:
     """Host syncs of one call of fn: the synchronizing CUDA operations
-    that torch.cuda's sync debug mode reports."""
+    that torch.cuda's sync debug mode reports (not its once-a-process
+    notice that the mode is a prototype)."""
     import warnings
 
     import torch
@@ -3228,7 +3533,7 @@ def host_syncs(fn) -> int:
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("called a synchronizing" in str(w.message) for w in caught)
 
 
 def ep_a2a_row(kernels, label, x, sp, chunked, q=1):
@@ -3344,9 +3649,15 @@ def run_ep(kernels, cfg, params, device="cuda"):
     launched = kernels.launches()
     seq = [lab for lab, kw in runs.items() if not kw.get("overlap")]
     want = {name: 0 for name in kernel_names()}
+    # the expert FFN: gate|up and down, once a sequential run, once a
+    # (chunk, source rank) of a chunked one
+    ffn_calls = sum(2 * kw["n_chunks"] * n if kw.get("overlap") else 2
+                    for kw in runs.values())
     want.update(all_to_all=2 * len(seq),
-                all_to_all_chunked=2 * (len(runs) - len(seq)))
+                all_to_all_chunked=2 * (len(runs) - len(seq)),
+                grouped_gemm_f32=ffn_calls)
     assert launched == want, (launched, want)
+    assert len(ffn.records) == ffn_calls, (len(ffn.records), ffn_calls)
     for label, (y, drops) in outs.items():
         x_in = runs[label]["x"]
         assert y.shape == x_in.shape and y.dtype == x_in.dtype, label
@@ -3369,16 +3680,16 @@ def run_ep(kernels, cfg, params, device="cuda"):
     log(f"  ep: {len(rec.records)} recorded A2A launches bitwise their "
         f"plain version (max abs err {a2a_err}): {shapes}")
 
-    # each product of the expert FFN against the loop over experts
-    ffn_err = max(check_grouped_gemm_call(
-        r["x"], r["w"], r["sizes"], r["out_dtype"],
-        f"ep FFN x {tuple(r['x'].shape)} sizes {tuple(r['sizes'].shape)}",
-        host_sizes=r["host_sizes"]) for r in ffn.records)
+    # each product of the expert FFN (grouped_gemm_f32) against the loop
+    # over experts, and each shape's timing beside the padded bmm
+    ffn_rows, _, ffn_err = time_grouped_f32(ffn.records, prefix="ep ",
+                                            main_rows=None)
     shapes = sorted({(tuple(r["x"].shape), tuple(r["w"].shape),
                       str(r["out_dtype"])) for r in ffn.records})
     log(f"  ep: {len(ffn.records)} recorded expert-FFN grouped_gemm calls "
-        f"(sizes a rank) within grouped_gemm_atol of grouped_gemm_plain: "
-        f"max_abs_err={ffn_err:.3e}; (x, w, out dtype) {shapes}")
+        f"(sizes a rank, each a grouped_gemm_f32 launch) within "
+        f"grouped_gemm_atol of grouped_gemm_plain: max_abs_err="
+        f"{ffn_err:.3e}; (x, w, out dtype) {shapes}")
     del ffn
 
     # (a) the same layer over the plain transports, bitwise
@@ -3521,7 +3832,7 @@ def run_ep(kernels, cfg, params, device="cuda"):
                    ep_vs_tp_dist=tp_band,
                    drops_tight=drops_tight.tolist(), fp8_drift=fp8_drift,
                    max_abs_err=a2a_err, ffn_max_abs_err=ffn_err,
-                   a2a_pool_bytes=pool_bytes)
+                   a2a_pool_bytes=pool_bytes, grouped_f32_rows=ffn_rows)
     errs = dict(all_to_all=(a2a_rows, main, a2a_err["all_to_all"]),
                 all_to_all_chunked=(chunk_rows, f"{main} q4",
                                     a2a_err["all_to_all_chunked"]))
@@ -4424,6 +4735,8 @@ SOURCES = {
                      "triton_dist_tpu/kernels/gemm_reduce_scatter.py:152"),
     "ag_gemm_wire": ("triton_dist_tpu_torch/csrc/allgather_gemm.cu",
                      "triton_dist_tpu/kernels/allgather_gemm.py:116"),
+    "grouped_gemm_f32": ("triton_dist_tpu_torch/csrc/grouped_gemm.cu",
+                         "triton_dist_tpu/kernels/grouped_gemm.py:26"),
 }
 
 
@@ -4572,6 +4885,62 @@ def time_moe(kernels, records):
         (n * m * k + n * e * k * 2 * i_loc + n * n * m * i_loc)
         * a.element_size(), a.dtype, kernel_key="ag_gemm_kernel")
     return rs_rows, ag_rows, next(iter(rs_rows)), label, sweep
+
+
+def time_grouped_f32(records, prefix="", main_rows=32):
+    """The grouped f32 product (grouped_gemm_f32) on the inputs a MoE path
+    gave it: every recorded f32 call against its plain version
+    (grouped_gemm_atol, tail rows zero), then one call of each (rows, K,
+    N) timed (the TP-MoE down product: an `ar` decode step's 32 rows a
+    rank, a `dist` scheduler step's, the `dist` prefill's; the EP FFN's
+    gate|up and down products of every run). Bound: the reached (rank,
+    expert) weights, the routed rows of x and all of y once; 2 x rows x K
+    x N operations at the bf16 rate. Library: one `torch.bmm(out_dtype=
+    float32)` over the padded (rank, expert) blocks, every expert's rows
+    padded to the widest group (the product of the port's route before
+    the kernel, its gather done before the timing). Labels start with
+    `prefix`. Returns ({label: row}, the label of main_rows rows (else
+    the first), max abs error)."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import grouped_gemm as gg
+
+    recs = [r for r in records if r["out_dtype"] == torch.float32]
+    err = max(check_grouped_gemm_call(
+        r["x"], r["w"], r["sizes"], torch.float32,
+        f"{prefix}f32 recorded x {tuple(r['x'].shape)}") for r in recs)
+    picks = {}
+    for r in recs:
+        picks.setdefault((r["x"].shape[-2], *r["w"].shape[-2:]), r)
+    rows, main = {}, None
+    for (t, _, _), r in sorted(picks.items()):
+        x, w, sizes = r["x"], r["w"], r["sizes"]
+        n, e, k, nn = w.shape
+        xs = x.expand(n, *x.shape) if x.dim() == 2 else x
+        sz = sizes.to(torch.long).expand(n, e)
+        cap = max(int(sz.max()), 1)
+        live, reached = int(sz.sum()), int((sz > 0).sum())
+        j = torch.arange(cap, device=x.device)
+        idx = (torch.cumsum(sz, -1) - sz)[..., None] + j
+        idx = torch.where(j < sz[..., None], idx, 0)
+        ranks = torch.arange(n, device=x.device)[:, None, None]
+        xe = xs[ranks, idx].reshape(n * e, cap, k)
+        wb = w.reshape(n * e, k, nn)
+        label = (f"{prefix}x {tuple(xs.shape)} w {tuple(w.shape)}, {live} "
+                 f"routed rows, {reached} (rank, expert) pairs reached, "
+                 f"widest group {cap}")
+        rows[label] = time_collective(
+            f"grouped_gemm_f32 {label}",
+            lambda x=x, w=w, sizes=sizes: gg.grouped_gemm_f32(x, w, sizes),
+            lambda x=x, w=w, sizes=sizes: gg.grouped_gemm_f32_plain(
+                x, w, sizes),
+            lambda xe=xe, wb=wb: torch.bmm(xe, wb, out_dtype=torch.float32),
+            2 * live * k * nn,
+            reached * k * nn * 2 + live * k * 2 + n * t * nn * 4,
+            torch.bfloat16, kernel_key="grouped_f32_kernel")
+        if t == main_rows:
+            main = label
+    return rows, main or next(iter(rows)), err
 
 
 def entry(name, launches, by_path, err, rows, main_label, **extra):
@@ -4733,6 +5102,7 @@ def main() -> int:
     err_rs = check_recorded_rs(kernels, recm["ring_reduce_scatter"])
     modelm["grouped_gemm_max_abs_err"] = check_recorded_grouped_gemm(
         recm["grouped_gemm"])
+    gf32_rows, gf32_main, gf32_err = time_grouped_f32(recm["grouped_gemm"])
     moe_rs_rows, moe_ag_rows, rs_main, grouped_main, rs_sweep = time_moe(
         kernels, recm)
     del recm
@@ -4807,6 +5177,15 @@ def main() -> int:
                        device_us=mega1["device_us"],
                        max_abs_err_branches=mega_branch_err,
                        batch1_context512=mega_b1))
+    gf32_rows.update(ep_numbers.pop("grouped_f32_rows"))
+    lines.append(entry("grouped_gemm_f32", total("grouped_gemm_f32"),
+                       by_path("grouped_gemm_f32"),
+                       max(gf32_err, ep_numbers["ffn_max_abs_err"]),
+                       gf32_rows,
+                       gf32_main, device_us=gf32_rows[gf32_main]["device_us"],
+                       replaces_note="none: XLA's lax.ragged_dot (no Pallas "
+                       "kernel); a hand kernel for code the JAX package "
+                       "leaves to XLA"))
     for name in SP_KERNELS:
         err, cos, ulp, main_label, rows = sp_errs[name]
         lines.append(entry(name, total(name), by_path(name), err, rows,
@@ -4835,6 +5214,16 @@ def main() -> int:
     missing = set(kernels.KERNELS) - {e["name"] for e in lines}
     assert not missing, f"kernels without a line: {missing}"
     assert all(e["launches"] > 0 for e in lines), "a kernel never launched"
+    graphs = {f"{m['model']} world {m['world']} {key}": row
+              for m in (model1, model4, modeld, modelm)
+              for key, row in m["graphs"].items()}
+    graphs.update({f"mega world {w}": row["graphs"]
+                   for w, row in ((1, mega1), (4, mega4))})
+    keep = ("eager_ms", "replay_ms", "eager_tokens_per_s",
+            "replay_tokens_per_s", "capture_s", "pool_bytes",
+            "device_kernels_eager", "device_kernels_replay", "peak_gb")
+    log("  4g captured steps: " + json.dumps(
+        {k: {f: v[f] for f in keep if f in v} for k, v in graphs.items()}))
     log("== 6. summary")
     log(f"  wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"model": [model1, model4, modeld, modelm],

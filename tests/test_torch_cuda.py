@@ -926,11 +926,10 @@ def test_grouped_gemm_card_route_matches_plain(cuda, gs, out_dtype):
     the loop over experts: empty groups, one group, and rows past the
     last group (exactly zero on every rank, the last one included); x
     shared by the ranks, one per rank, and an unstacked weight; and
-    (n, E) sizes, one row a rank (EP), with and without the sizes handed
-    over on the host. Band: one bf16 ulp of the largest output plus 1e-5
-    of it, and the epsilon band of the out dtype (an f32 out_dtype takes
-    each expert's rows in f32: `_grouped_mm`'s bf16 result widened fell
-    outside the f32 band)."""
+    (n, E) sizes, one row a rank (EP). Band: one bf16 ulp of the largest
+    output plus 1e-5 of it, and the epsilon band of the out dtype (an f32
+    out_dtype takes the grouped_gemm_f32 kernel: `_grouped_mm`'s bf16
+    result widened fell outside the f32 band)."""
     rng = np.random.default_rng(50 + sum(gs[:2]))
     n, t, k, nn = 4, 16, 64, 48
     sizes = torch.tensor(gs, dtype=torch.int32, device="cuda")
@@ -955,18 +954,16 @@ def test_grouped_gemm_card_route_matches_plain(cuda, gs, out_dtype):
     per = torch.tensor([gs, gs[::-1], [0] * 4, gs[1:] + gs[:1]],
                        dtype=torch.int32, device="cuda")
     want = gg.grouped_gemm_plain(per_rank, w, per, out_dtype=out_dtype)
-    for host in (None, per.tolist()):
-        got = gg.grouped_gemm(per_rank, w, per, out_dtype=out_dtype,
-                              host_sizes=host)
-        torch.cuda.synchronize()
-        assert got.shape == want.shape and got.dtype == out_dtype
-        top = want.float().abs().max().item()
-        torch.testing.assert_close(
-            got.float(), want.float(), rtol=0,
-            atol=2.0 ** -7 * top + 1e-5 * max(1.0, top))
-        band(want, got, "grouped_gemm")
-        for r, used in enumerate(per.sum(-1).tolist()):
-            assert not got[r, used:].any()
+    got = gg.grouped_gemm(per_rank, w, per, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == out_dtype
+    top = want.float().abs().max().item()
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=0,
+        atol=2.0 ** -7 * top + 1e-5 * max(1.0, top))
+    band(want, got, "grouped_gemm")
+    for r, used in enumerate(per.sum(-1).tolist()):
+        assert not got[r, used:].any()
 
 
 @pytest.mark.cuda
@@ -976,8 +973,9 @@ def test_grouped_gemm_f32_out_skewed_routing_bounded_memory(cuda):
     one expert taking 90% of the rows: against the loop over experts
     (one bf16 ulp of the largest output plus 1e-5 of it, and the f32
     band), and the memory the call allocates beyond its inputs within
-    the output, _SCRATCH_BYTES and 32 MiB of indices (blocks padded to
-    the hot expert for every expert would need 15.5 GB)."""
+    the output and 2 MiB (the grouped_gemm_f32 kernel walks the groups
+    in place; blocks padded to the hot expert for every expert would
+    need 15.5 GB)."""
     n, e, k, nn, t, hot = 4, 128, 192, 2048, 4096, 37
     rng = np.random.default_rng(77)
     rest = rng.multinomial(t - 3686, [1 / (e - 1)] * (e - 1))
@@ -993,12 +991,11 @@ def test_grouped_gemm_f32_out_skewed_routing_bounded_memory(cuda):
     got = gg.grouped_gemm(x, w, sizes, out_dtype=torch.float32)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    out_bytes = n * (t + 1) * nn * 4
+    out_bytes = n * t * nn * 4
     print(f"grouped_gemm f32 out, hot expert 3686 of {t} rows: peak "
           f"{peak / 2**20:.1f} MiB beyond the inputs (output "
-          f"{out_bytes / 2**20:.1f} MiB, budget "
-          f"{gg._SCRATCH_BYTES / 2**20:.0f} MiB)")
-    assert peak <= out_bytes + gg._SCRATCH_BYTES + (32 << 20), peak
+          f"{out_bytes / 2**20:.1f} MiB)")
+    assert peak <= out_bytes + (2 << 20), peak
     want = gg.grouped_gemm_plain(x, w, sizes, out_dtype=torch.float32)
     torch.cuda.synchronize()
     top = want.abs().max().item()
@@ -1417,14 +1414,16 @@ def test_mega_decode_step_matches_plain(cuda, world):
     happens-before plan) on the card, against run_plain on the recorded
     step inputs (every workspace slot within two bf16 ulps of its largest
     value), and one mega launch a step for decode_step and for each step
-    of decode_resident."""
+    of decode_resident, run eagerly (`cuda_graph=False`; the captured
+    step is test_mega_replay_bitwise_eager's)."""
     from triton_dist_tpu_torch.mega import MegaQwen3
 
     from triton_dist_tpu_torch.models import ModelConfig
 
     cfg = ModelConfig.tiny(dtype="bfloat16", max_positions=64,
                            head_dim=64, num_q_heads=8, num_kv_heads=4)
-    mega = MegaQwen3(cfg, world=world, batch=4, s_max=64, device="cuda")
+    mega = MegaQwen3(cfg, world=world, batch=4, s_max=64, device="cuda",
+                     cuda_graph=False)
     cache = mega.new_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
     cache.k.normal_(generator=gen)
@@ -2645,3 +2644,283 @@ def test_ring_rs_wire_protocol_fault_traps_instead_of_hanging(cuda):
                           env={**os.environ, "PYTHONPATH": repo})
     assert proc.returncode == 3, (proc.returncode, proc.stdout, proc.stderr)
     assert "shmem wait timed out: kernel ring_rs_wire, rank" in proc.stdout
+
+
+# -- CUDA graphs of the steps (runtime/graphs.py) ---------------------------
+
+
+def _graph_of(fn):
+    from triton_dist_tpu_torch.runtime.graphs import StepGraph
+
+    return StepGraph(lambda commit: fn(), "cuda")
+
+
+@pytest.mark.cuda
+def test_cooperative_launch_under_capture(cuda):
+    """The world-4 collective kernels (cooperative launches, every block
+    co-resident) and the GEMM kernels with flag pools, persistent or
+    fresh a call, captured in one CUDA graph: each replay on new inputs
+    copied into the static ones is bitwise the eager calls on them, and
+    a replay counts the launches its capture recorded."""
+    rng = np.random.default_rng(3)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape) * scale).to(
+            "cuda", torch.bfloat16)
+
+    x, shard, big = rand(4, 4, 4096), rand(4, 128, 2048), rand(4, 512, 2048)
+    a, w_qkv = rand(4, 64, 4096), rand(4, 4096, 1536, scale=0.02)
+    o, w_o = rand(4, 256, 1024), rand(4, 1024, 4096, scale=0.02)
+
+    def calls():
+        return (one_shot_all_reduce(x), ring_all_gather(shard),
+                ring_reduce_scatter(big), ag_gemm(a, w_qkv), gemm_rs(o, w_o))
+
+    g = _graph_of(calls)
+    for _ in range(3):
+        for t in (x, shard, big, a, o):
+            t.copy_(rand(*t.shape))
+        reset_launches()
+        got = g.replay()
+        assert launches()["one_shot_all_reduce"] == 1
+        assert launches()["ag_gemm"] == 1 and launches()["gemm_rs"] == 1
+        want = calls()
+        torch.cuda.synchronize()
+        for gt, wt in zip(got, want):
+            assert torch.equal(gt, wt)
+        assert torch.equal(got[0], one_shot_all_reduce_plain(x))
+
+
+@pytest.mark.cuda
+def test_graph_outlives_pool_eviction(cuda):
+    """A graph keeps the pool entries its capture took: after more than
+    POOL_ENTRIES other one-shot AllReduce configurations evict its entry
+    from the cache, its replays stay bitwise the plain fold."""
+    from triton_dist_tpu_torch.kernels import _build
+    from triton_dist_tpu_torch.kernels import allreduce as ar
+
+    x = torch.randn(4, 4, 4096, device="cuda").bfloat16()
+    g = _graph_of(lambda: one_shot_all_reduce(x))
+    for m in range(1, _build.POOL_ENTRIES + 3):
+        one_shot_all_reduce(torch.randn(4, m, 512, device="cuda").bfloat16())
+    assert len(ar._POOLS.entries) == _build.POOL_ENTRIES
+    for _ in range(3):
+        x.copy_(torch.randn_like(x, dtype=torch.float32))
+        got = g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, one_shot_all_reduce_plain(x))
+
+
+def _tiny_bf16(moe=False):
+    from triton_dist_tpu_torch.models import ModelConfig
+
+    preset = ModelConfig.tiny_moe if moe else ModelConfig.tiny
+    return preset(dtype="bfloat16", head_dim=128, num_q_heads=8,
+                  num_kv_heads=4, max_positions=128)
+
+
+def _engines(world, moe=False, **kw):
+    """The same weights on a graph-replaying and an eager Engine."""
+    from triton_dist_tpu_torch.models import Engine
+    from triton_dist_tpu_torch.models.dense import init_params
+
+    cfg = _tiny_bf16(moe)
+    params = init_params(cfg, device="cuda", seed=4, world=world)
+    return (Engine(cfg, device="cuda", params=params, world=world, **kw),
+            Engine(cfg, device="cuda", params=params, world=world,
+                   cuda_graph=False, **kw))
+
+
+def _clone_cache(c):
+    from triton_dist_tpu_torch.models import KVCache
+
+    return KVCache(c.k.clone(), c.v.clone(), c.length.clone())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,moe,mode", [
+    (1, False, "ar"), (4, False, "ar"), (4, False, "dist"),
+    (4, True, "ar"), (4, True, "dist")],
+    ids=["dense-w1", "dense-w4-ar", "dense-w4-dist", "moe-w4-ar",
+         "moe-w4-dist"])
+def test_decode_replay_bitwise_eager(cuda, world, moe, mode):
+    """decode_step and generate (greedy, then seeded sampling) replayed
+    from a captured step against the eager Engine from the same state:
+    logits, tokens, the cache and the generator's state after bitwise;
+    the cache's length advanced in place. Then a fresh cache of the same
+    shape replays the same graphs (no capture), and the first cache,
+    taken up again after it, goes on bitwise the eager one."""
+    graph, eager = _engines(world, moe, decode_mode=mode)
+    ids = torch.randint(0, 256, (4, 9), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(1))
+    logits, c0 = eager.prefill(ids)
+    tok = logits.argmax(-1)
+    ca, cb = _clone_cache(c0), _clone_cache(c0)
+    la, ca = graph.decode_step(tok, ca)
+    lb, cb = eager.decode_step(tok, cb)
+    assert torch.equal(la, lb) and ca.length.tolist() == [10] * 4
+    ta, ca = graph.generate(la.argmax(-1), ca, 5)
+    tb, cb = eager.generate(lb.argmax(-1), cb, 5)
+    assert torch.equal(ta, tb)
+    ga = torch.Generator("cuda").manual_seed(9)
+    gb = torch.Generator("cuda").manual_seed(9)
+    ta, ca = graph.generate(ta[:, -1], ca, 4, temperature=0.8, generator=ga)
+    tb, cb = eager.generate(tb[:, -1], cb, 4, temperature=0.8, generator=gb)
+    assert torch.equal(ta, tb)
+    assert torch.equal(ga.get_state(), gb.get_state())
+    for x, y in ((ca.k, cb.k), (ca.v, cb.v), (ca.length, cb.length)):
+        assert torch.equal(x, y)
+    assert graph.decode_graphs.made == 2  # greedy, sampled
+    cc, cd = _clone_cache(c0), _clone_cache(c0)
+    tc, cc = graph.generate(tok, cc, 3)
+    td, cd = eager.generate(tok, cd, 3)
+    ta, ca = graph.generate(ta[:, -1], ca, 2)
+    tb, cb = eager.generate(tb[:, -1], cb, 2)
+    assert torch.equal(tc, td) and torch.equal(ta, tb)
+    for x, y in ((ca.k, cb.k), (ca.v, cb.v), (ca.length, cb.length),
+                 (cc.k, cd.k), (cc.v, cd.v), (cc.length, cd.length)):
+        assert torch.equal(x, y)
+    assert graph.decode_graphs.made == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,moe,mode", [
+    (1, False, "ar"), (4, False, "dist"), (4, True, "dist")],
+    ids=["dense-w1", "dense-w4-dist", "moe-w4-dist"])
+def test_serve_step_replay_bitwise_eager(cuda, world, moe, mode):
+    """A Scheduler on the graph-replaying Engine and one on the eager
+    Engine, the same requests (greedy and sampled): every request's
+    tokens bitwise; a second Scheduler on the graph-replaying Engine (a
+    fresh pool) the same tokens again, one capture for both runs."""
+    from triton_dist_tpu_torch.serve import Scheduler
+
+    graph, eager = _engines(world, moe, decode_mode=mode)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (20, 45, 9, 33)]
+    outs = []
+    for eng in (graph, eager, graph):
+        sch = Scheduler(eng, slots=4, chunk=16, page=16)
+        reqs = [sch.submit(p, 6, temperature=0.7 if i % 2 else 0.0, seed=i)
+                for i, p in enumerate(prompts)]
+        sch.run()
+        outs.append([r.out_tokens for r in reqs])
+    assert outs[0] == outs[1] == outs[2]
+    assert graph.serve_graphs.made == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,paged", [(1, False), (4, False), (1, True)])
+def test_mega_replay_bitwise_eager(cuda, world, paged):
+    """MegaQwen3.decode_step and decode_resident replayed from the
+    captured step against the eager step from the same cache (dense, and
+    paged with pages claimed on the way): logits, tokens and the cache
+    (its length and allocator head advanced in place) bitwise; a fresh
+    cache of the same shape replays the same graph, bitwise too."""
+    from triton_dist_tpu_torch.mega import MegaQwen3
+    from triton_dist_tpu_torch.models import ModelConfig
+    from triton_dist_tpu_torch.models.dense import init_params
+
+    cfg = ModelConfig.tiny(dtype="bfloat16", max_positions=64,
+                           head_dim=64, num_q_heads=8, num_kv_heads=4)
+    params = init_params(cfg, device="cuda", seed=5, world=world)
+    kw = dict(world=world, batch=4, s_max=64, params=params, device="cuda")
+    if paged:
+        kw.update(paged=True, page_size=16)
+    graph, eager = MegaQwen3(cfg, **kw), MegaQwen3(cfg, cuda_graph=False, **kw)
+    cache = graph.new_paged_cache() if paged else graph.new_cache()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cache.k.normal_(generator=g)
+    cache.v.normal_(generator=g)
+    if paged:
+        cache.table.copy_(torch.arange(16, device="cuda").reshape(4, 4))
+        cache.next_free.fill_(16)
+        cache = cache._replace(k=torch.cat([cache.k, cache.k], 2),
+                               v=torch.cat([cache.v, cache.v], 2))
+    cache.length.copy_(torch.tensor([5, 0, 16, 31]))
+    ca = type(cache)(*(t.clone() for t in cache))
+    cb = type(cache)(*(t.clone() for t in cache))
+    tok = torch.tensor([3, 7, 11, 200], device="cuda")
+    la, ca = graph.decode_step(tok, ca)
+    lb, cb = eager.decode_step(tok, cb)
+    assert torch.equal(la, lb)
+    ia, ca = graph.decode_resident(la.argmax(-1), ca, 4)
+    ib, cb = eager.decode_resident(lb.argmax(-1), cb, 4)
+    assert torch.equal(ia, ib)
+    for x, y in zip(ca, cb):
+        assert torch.equal(x, y)
+    assert ca.length.tolist() == [10, 5, 21, 36]
+    cc = type(cache)(*(t.clone() for t in cache))
+    cd = type(cache)(*(t.clone() for t in cache))
+    ic, cc = graph.decode_resident(tok, cc, 3)
+    id_, cd = eager.decode_resident(tok, cd, 3)
+    assert torch.equal(ic, id_)
+    for x, y in zip(cc, cd):
+        assert torch.equal(x, y)
+    assert graph.graphs.made == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["decode", "skew", "sizes-a-rank",
+                                  "shared-x"])
+def test_grouped_gemm_f32_kernel_matches_plain(cuda, case):
+    """The hand grouped f32 kernel at the Qwen3-30B-A3B down product
+    (E 128, K 192 a rank at world 4, N 2048): a decode step's 32 rows a
+    rank (batch 4, top-8), a skewed routing with empty experts and rows
+    past the last group, (n, E) sizes, one x for every rank; against the
+    loop over experts within one bf16 ulp of the largest output plus
+    1e-5 of it, and the f32 epsilon band; the tail rows zero; one launch,
+    no host read (the sizes stay on the card)."""
+    rng = np.random.default_rng(
+        ["decode", "skew", "sizes-a-rank", "shared-x"].index(case))
+    n, e, k, nn = 4, 128, 192, 2048
+    t = 32 if case == "decode" else 700
+    if case == "decode":
+        sizes = np.bincount(rng.choice(e, t), minlength=e)
+    elif case == "skew":
+        sizes = np.zeros(e, np.int64)
+        sizes[[3, 64, 127]] = [500, 1, 130]  # 631 of 700 rows
+    else:
+        sizes = np.stack([np.bincount(rng.choice(e, t - 17 * r), minlength=e)
+                          for r in range(n)])
+    sz = torch.from_numpy(sizes).to("cuda", torch.int32)
+    x = torch.from_numpy(rng.standard_normal(
+        (t, k) if case == "shared-x" else (n, t, k))).to("cuda",
+                                                         torch.bfloat16)
+    w = (torch.randn((n, e, k, nn), device="cuda") * 0.05).bfloat16()
+    reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = gg.grouped_gemm_f32(x, w, sz)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = gg.grouped_gemm_plain(x, w, sz, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert launches()["grouped_gemm_f32"] == 1
+    top = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=2.0 ** -7 * top + 1e-5 * max(1.0, top))
+    band(want, got, "grouped_gemm")
+    used = np.broadcast_to(sizes, (n, e)).sum(-1)
+    for r in range(n):
+        assert not got[r, int(used[r]):].any()
+
+
+@pytest.mark.cuda
+def test_moe_replay_makes_no_host_sync(cuda):
+    """A replay of the MoE decode step (world 4, `ar` and `dist`) under
+    torch.cuda.set_sync_debug_mode("error"): no host sync anywhere on the
+    step, the grouped f32 down product included."""
+    for mode in ("ar", "dist"):
+        graph, _ = _engines(4, moe=True, decode_mode=mode)
+        ids = torch.randint(0, 256, (4, 8), device="cuda")
+        logits, cache = graph.prefill(ids)
+        tok = logits.argmax(-1)
+        graph.generate(tok, cache, 1)  # the capture
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, cache = graph.generate(tok, cache, 3)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert out.shape == (4, 3)

@@ -545,13 +545,11 @@ def test_ep_slice_whole_matches_jax():
 # -- grouped_gemm with group sizes a rank (the EP FFN's) ---------------------
 
 
-def test_grouped_gemm_sizes_a_rank(monkeypatch):
+def test_grouped_gemm_sizes_a_rank():
     """grouped_gemm with (n, E) group sizes, one row a rank: the plain
     loop against each rank's own (E,) call, bitwise; the f32-out card
-    route (`_expert_rows`, on the CPU with the f32 product standing in
-    for `torch.bmm(out_dtype=float32)`) within 1e-5 of the loop, with
-    and without the sizes handed over on the host; rows past a rank's
-    last group zero."""
+    route (`grouped_gemm_f32`, its plain loop on the CPU) within 1e-5 of
+    the loop; rows past a rank's last group zero."""
     from triton_dist_tpu_torch.kernels import grouped_gemm as gg
 
     n, t, k, nn = 3, 40, 32, 24
@@ -563,9 +561,46 @@ def test_grouped_gemm_sizes_a_rank(monkeypatch):
         assert torch.equal(want[r], gg.grouped_gemm_plain(
             x[r], w[r], sizes[r], out_dtype=torch.float32))
     assert not want[0, 28:].any() and not want[1].any()
-    bmm = torch.bmm
-    monkeypatch.setattr(torch, "bmm", lambda a, b, out_dtype=None: bmm(
-        a.float(), b.float()))
-    for host in (None, sizes.tolist()):
-        got = gg._expert_rows(x, w, sizes, torch.float32, host_sizes=host)
-        torch.testing.assert_close(got, want, rtol=0, atol=GEMM_ATOL)
+    got = gg.grouped_gemm_f32(x, w, sizes)
+    torch.testing.assert_close(got, want, rtol=0, atol=GEMM_ATOL)
+
+
+_HOST_READS = ("nonzero", "item", "tolist", "cpu", "numpy", "__bool__",
+               "__int__", "__float__")
+
+
+@pytest.mark.parametrize("n,q", [(2, 0), (4, 0), (4, 1), (4, 2), (4, 4)],
+                         ids=["sequential-n2", "sequential-n4", "chunked-q1",
+                              "chunked-q2", "chunked-q4"])
+def test_ep_ffns_make_no_host_read(monkeypatch, n, q):
+    """ep_expert_ffn (q 0) and ep_expert_ffn_chunked at q chunks with
+    Tensor.nonzero / item / tolist / cpu / numpy and the bool / int /
+    float conversions made to raise: the group sizes of every grouped
+    product, and each chunk's, stay on the device (the f32-out card
+    route, `grouped_gemm_f32`, takes them there). The results are the
+    ones the same FFN gives with host reads allowed."""
+    e, cap = 8, 8
+    x = jnp.asarray(_rand(60 + n, n * M, H))
+    ids, w = _routing(n, e, 61 + q)
+    xt, it, wt = _port_inputs(n, x, ids, w)
+    gu = _t(_rand(62, n, e // n, H, 2 * INTER, scale=0.2))
+    dn = _t(_rand(63, n, e // n, INTER, H, scale=0.2))
+    if q:
+        disp = ep_a2a.ep_dispatch_chunked(xt, it, wt, e, cap, n_chunks=q)
+
+        def ffn():
+            return ep_a2a.ep_expert_ffn_chunked(disp, gu, dn, n_chunks=q)
+    else:
+        disp = ep_a2a.ep_dispatch(xt, it, wt, e, cap)
+
+        def ffn():
+            return ep_a2a.ep_expert_ffn(disp, gu, dn)
+    want = ffn()
+    for name in _HOST_READS:
+        def refuse(*a, _name=name, **kw):
+            raise AssertionError(f"host read in the FFN: Tensor.{_name}")
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    got = ffn()
+    monkeypatch.undo()
+    assert torch.equal(got, want)
+    assert got.shape == (n, n, cap, H) and got.dtype == torch.float32

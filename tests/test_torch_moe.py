@@ -186,54 +186,6 @@ def test_grouped_gemm_plain_matches_jax(gs):
     assert torch.equal(both[0], got) and torch.equal(both[1], -got)
 
 
-def test_expert_chunks_stay_under_the_scratch_budget(monkeypatch):
-    """The f32-out card route's expert ranges: consecutive, each padded
-    to its own largest group and under the budget, a hot expert alone,
-    ranges without rows left out."""
-    monkeypatch.setattr(gg, "_SCRATCH_BYTES", 100)
-    chunks = gg._expert_chunks([1, 2, 0, 40, 3, 3, 0, 0], row_bytes=2)
-    assert chunks == [(0, 3, 2), (3, 4, 40), (4, 8, 3)]
-    assert gg._expert_chunks([0, 0, 0], row_bytes=2) == []
-    assert gg._expert_chunks([], row_bytes=2) == []
-
-
-@pytest.mark.parametrize("budget_rows,calls", [
-    (60, [2, 2, 1, 1, 3, 3]),  # chunks (0-1, 2, 3-5), a rank at a time
-    (1000, [12])],             # one chunk: all ranks in one product
-    ids=["three-chunks", "one-chunk"])
-@pytest.mark.parametrize("shared", [True, False], ids=["shared-x",
-                                                        "per-rank-x"])
-def test_expert_rows_matches_plain_under_skew(monkeypatch, shared,
-                                              budget_rows, calls):
-    """The f32-out card route's gather, chunking and scatter, on the CPU:
-    one expert takes most rows, a budget that splits the experts into
-    three chunks or keeps them in one, rows past the last group zero;
-    within 1e-5 of the loop over experts. `torch.bmm(out_dtype=float32)`
-    has no CPU kernel, so the test stands in for it with the f32 product
-    of the widened operands (the same values, f32 accumulation)."""
-    n, t, k, nn = 2, 60, 32, 24
-    sizes = torch.tensor([1, 0, 50, 2, 3, 0])
-    x = torch.from_numpy(_rand(12, *((t, k) if shared else (n, t, k))))
-    w = torch.from_numpy(_rand(13, n, 6, k, nn, scale=0.2))
-    x, w = x.bfloat16(), w.bfloat16()
-    bmm, seen = torch.bmm, []
-
-    def bmm_f32(a, b, out_dtype=None):
-        assert out_dtype == torch.float32
-        seen.append(a.shape[0])
-        return bmm(a.float(), b.float())
-
-    monkeypatch.setattr(torch, "bmm", bmm_f32)
-    monkeypatch.setattr(gg, "_SCRATCH_BYTES",
-                        budget_rows * n * (k * 2 + nn * 4))
-    got = gg._expert_rows(x, w, sizes, torch.float32)
-    want = gg.grouped_gemm_plain(x, w, sizes, out_dtype=torch.float32)
-    assert got.dtype == torch.float32 and got.shape == (n, t, nn)
-    torch.testing.assert_close(got, want, rtol=0, atol=GEMM_ATOL)
-    assert not got[:, 56:].any()
-    assert seen == calls
-
-
 # ---------- the ring ReduceScatter (PERF.md row 10) ----------
 
 

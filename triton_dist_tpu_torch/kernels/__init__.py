@@ -3,9 +3,9 @@
 `KERNELS` maps every kernel's name to its counted wrapper;
 `reset_launches()` / `launches()` read and clear the launch counts.
 
-`all_to_all` is a submodule and a function of it: the function is not
-re-exported here, so `from triton_dist_tpu_torch.kernels import
-all_to_all` is the module (import the function from
+`all_to_all` and `grouped_gemm` are submodules and functions of them:
+the functions are not re-exported here, so `from triton_dist_tpu_torch.
+kernels import all_to_all` is the module (import the function from
 `triton_dist_tpu_torch.kernels.all_to_all`).
 """
 
@@ -84,6 +84,10 @@ from triton_dist_tpu_torch.kernels.gemm_reduce_scatter import (  # noqa: F401
     gemm_rs_wire,
     gemm_rs_wire_plain,
 )
+from triton_dist_tpu_torch.kernels.grouped_gemm import (  # noqa: F401
+    grouped_gemm_f32,
+    grouped_gemm_f32_plain,
+)
 from triton_dist_tpu_torch.kernels.low_latency_allgather import (  # noqa: F401
     create_ll_ag_buffer,
     ll_all_gather,
@@ -126,4 +130,5 @@ SOURCES = {
     "ring_rs_wire": "reduce_scatter",
     "gemm_rs_wire": "gemm_reduce_scatter",
     "ag_gemm_wire": "allgather_gemm",
+    "grouped_gemm_f32": "grouped_gemm",
 }

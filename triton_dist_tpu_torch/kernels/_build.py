@@ -12,7 +12,10 @@ every module, and the CPU path never needs nvcc.
 Each wrapper counts its own launches (`wrapper.launches`, incremented
 where the kernel is launched and nowhere else), so a run can prove the
 main path went through the kernel and was not swapped for its plain
-version.
+version. Under a CUDA-graph capture (runtime/graphs.py) a launch is
+recorded into the graph rather than run: the capture keeps its own
+count, and every replay of the graph adds it to the wrappers' counts,
+so a count is the kernel's launches on the card, eager or replayed.
 """
 
 from __future__ import annotations
@@ -53,10 +56,60 @@ def counted(name: str):
     return deco
 
 
+class Capture:
+    """What a CUDA-graph capture recorded (runtime/graphs.py): the
+    kernels' launches by name, the by-body counters' increments
+    ((counter, key) pairs, `count_body`) and the pool entries handed out
+    (kept alive as long as the graph)."""
+
+    def __init__(self):
+        self.launches: Dict[str, int] = {}
+        self.bodies: List[tuple] = []
+        self.held: list = []
+
+    def replayed(self) -> None:
+        """Count one replay: every recorded launch, on the card now."""
+        for name, k in self.launches.items():
+            KERNELS[name].launches += k
+        for counter, key in self.bodies:
+            counter[key] += 1
+
+
+# the captures under way, the innermost last
+_captures: List[Capture] = []
+
+
 def count_launch(name: str) -> None:
     """Add one launch to the registered wrapper `name`; called by the
-    launcher right after its kernel was queued, and nowhere else."""
-    KERNELS[name].launches += 1
+    launcher right after its kernel was queued, and nowhere else. Under a
+    capture the launch goes to the capture's count instead (the graph's
+    replays add it)."""
+    if _captures:
+        got = _captures[-1].launches
+        got[name] = got.get(name, 0) + 1
+    else:
+        KERNELS[name].launches += 1
+
+
+def count_body(counter: Dict[str, int], key: str) -> None:
+    """Add one launch to a module's by-body counter (`launches_by_body`),
+    or, under a capture, to what each replay adds."""
+    if _captures:
+        _captures[-1].bodies.append((counter, key))
+    else:
+        counter[key] += 1
+
+
+@contextlib.contextmanager
+def capturing():
+    """Within the block the kernels' launches are recorded into a graph:
+    yields the Capture, which the graph keeps."""
+    cap = Capture()
+    _captures.append(cap)
+    try:
+        yield cap
+    finally:
+        _captures.pop()
 
 
 def reset_launches() -> None:
@@ -189,7 +242,9 @@ class PoolCache:
     kernels leave them at zero). At most `size` entries, the least
     recently used evicted first; an evicted buffer goes back to the
     caching allocator, which orders its reuse by the stream it was made
-    on. `made` counts the entries made."""
+    on, unless a CUDA graph captured with it still holds it (`capturing`:
+    the graph writes to the buffer at every replay). `made` counts the
+    entries made."""
 
     def __init__(self, size: int = POOL_ENTRIES):
         self.size = size
@@ -203,6 +258,8 @@ class PoolCache:
             self.made += 1
         self.entries[key] = entry
         self.entries.move_to_end(key)
+        for cap in _captures:
+            cap.held.append(entry)
         while len(self.entries) > self.size:
             self.entries.popitem(last=False)
         return entry

@@ -512,7 +512,7 @@ def _launch_wire(a: torch.Tensor, b: torch.Tensor, fmt, arrival: bool,
             _BODY_CODE[body], bn or 0, grid.ptr(), stream)
     _build.check("ag_gemm_wire", err, lib.ag_gemm_error_string, grid)
     _build.count_launch("ag_gemm_wire")
-    launches_by_body[body] += 1
+    _build.count_body(launches_by_body, body)
     if return_gathered:
         full = wire.unpack(ws.reshape(n * n * m, kw), (K,), fmt, a.dtype)
         return c, full.reshape(n, n * m, K)
@@ -584,7 +584,7 @@ def _launch(a: torch.Tensor, bs, arrival: bool, return_gathered: bool,
                                      rank, nanos, grid.ptr(), stream)
     _build.check("ag_gemm", err, lib.ag_gemm_error_string, grid)
     _build.count_launch("ag_gemm")
-    launches_by_body[body] += 1
+    _build.count_body(launches_by_body, body)
     if counts is not None and body != "grouped":
         c = _zero_dead_rows(c, counts, arrival)
     return (c, ws) if return_gathered else c

@@ -29,13 +29,12 @@ Where the port differs, the result the same:
     rows to 0 after; here those rows are left out of the products and
     are 0 from the start, the same function bit for bit. At M = 128 a
     rank and the lossless capacity the null group is ~3/4 of the 4096
-    received slots, and `grouped_gemm`'s card route pads every expert
-    to its largest group; so `_extended_stacks` has no counterpart;
-  - host syncs: the card route of an f32-out `grouped_gemm` needs its
-    group sizes on the host. The sequential FFN reads them once for
-    both products, the chunked FFN reads the received expert counts
-    once and derives every chunk's sizes on the host (`chunk_group_
-    sizes` is arithmetic): one sync an FFN, none a product;
+    received slots, whose products this saves; so `_extended_stacks`
+    has no counterpart;
+  - host syncs: none in the FFNs. The f32-out grouped products take
+    their group sizes on the device (`grouped_gemm_f32`), and the
+    chunked FFN derives every chunk's sizes on the device
+    (`chunk_group_sizes` is arithmetic);
   - the combine's scatter-add: JAX's `out.at[rows].add` on the CPU adds
     a row's contributions in ascending slot order. `index_add_` on the
     card uses atomics, whose order changes from run to run; the port
@@ -261,13 +260,11 @@ def ep_expert_ffn(disp: EPDispatch, w_gate_up: torch.Tensor,
     order = torch.sort(exp, dim=1, stable=True).indices
     inv = torch.sort(order, dim=1, stable=True).indices
     sizes = _bins(exp, e_loc + 1)[:, :e_loc]
-    host = sizes.tolist()  # the FFN's one host sync
     x_sorted = torch.gather(x_flat, 1, order[..., None].expand(n, t, h))
     hh = _gg.grouped_gemm(x_sorted, w_gate_up, sizes,
-                          out_dtype=torch.float32, host_sizes=host)
+                          out_dtype=torch.float32)
     act = silu_mul(hh).to(disp.x.dtype)
-    y_sorted = _gg.grouped_gemm(act, w_down, sizes, out_dtype=torch.float32,
-                                host_sizes=host)
+    y_sorted = _gg.grouped_gemm(act, w_down, sizes, out_dtype=torch.float32)
     y = torch.gather(y_sorted, 1, inv[..., None].expand(n, t, h))
     return torch.where(disp.valid[..., None], y.reshape(n, n_src, c, h), 0.0)
 
@@ -404,36 +401,30 @@ def ep_expert_ffn_chunked(disp: EPChunkDispatch, w_gate_up: torch.Tensor,
                           n_chunks: int = 1) -> torch.Tensor:
     """Every rank's experts chunk by chunk over its expert-sorted received
     tokens -> (n, n, C, H) f32 in slot order. Chunk c's group sizes are
-    chunk_group_sizes of the travelled counts, derived on the host from
-    one read of them; each (chunk, source segment) runs the grouped
+    chunk_group_sizes of the travelled counts, derived on the device;
+    each (chunk, source segment) runs the grouped
     gate|up and down products for all ranks at once. Invalid rows are 0
     (module docstring: the null group is not computed)."""
     n, n_src, c, h = disp.x.shape
     if c % n_chunks:
         raise ValueError(f"n_chunks={n_chunks} must divide capacity {c}")
     e_loc = w_gate_up.shape[1]
-    counts = disp.expert_counts.cpu()  # the FFN's one host sync
     rows = c // n_chunks
-    # every chunk's sizes (q, n, n_src, E_loc) on the host, and one copy
-    # of them to the device that waits on nothing
-    host = torch.stack([chunk_group_sizes(counts, c, ci * rows, rows)
-                        for ci in range(n_chunks)])[..., :e_loc]
-    dev = host.to(disp.x.device, non_blocking=True)
-    host = host.tolist()
+    # every chunk's sizes (q, n, n_src, E_loc)
+    sizes = torch.stack([chunk_group_sizes(disp.expert_counts, c, ci * rows,
+                                           rows)
+                         for ci in range(n_chunks)])[..., :e_loc]
     ys = []
     for ci in range(n_chunks):
         lo = ci * rows
         yseg = []
         for j in range(n_src):
-            sizes = dev[ci, :, j]
-            hs = [row[j] for row in host[ci]]
             xc = disp.x[:, j, lo:lo + rows]
-            hh = _gg.grouped_gemm(xc, w_gate_up, sizes,
-                                  out_dtype=torch.float32, host_sizes=hs)
+            hh = _gg.grouped_gemm(xc, w_gate_up, sizes[ci, :, j],
+                                  out_dtype=torch.float32)
             act = silu_mul(hh).to(disp.x.dtype)
-            yseg.append(_gg.grouped_gemm(act, w_down, sizes,
-                                         out_dtype=torch.float32,
-                                         host_sizes=hs))
+            yseg.append(_gg.grouped_gemm(act, w_down, sizes[ci, :, j],
+                                         out_dtype=torch.float32))
         ys.append(torch.stack(yseg, 1))  # (n, n_src, rows, H)
     y = torch.cat(ys, 2) if len(ys) > 1 else ys[0]
     return torch.where(disp.valid[..., None], y, 0.0)

@@ -248,7 +248,7 @@ def _launch(q, k, v, valid_len, scale):
                                         scale, stream)
     _build.check("flash_decode_partial", err, lib.fd_error_string)
     _build.count_launch("flash_decode_partial")
-    launches_by_body[body] += 1
+    _build.count_body(launches_by_body, body)
     return o, lse
 
 

@@ -320,7 +320,7 @@ def _launch(q, k, v, q_positions, q_offset, kv_len, causal, scale,
         raise RuntimeError("flash_prefill_local launch failed: "
                            + lib.fp_error_string(err).decode())
     _build.count_launch("flash_prefill_local")
-    launches_by_body[body] += 1
+    _build.count_body(launches_by_body, body)
     return out
 
 
@@ -497,7 +497,7 @@ def _launch_sp(q, k, v, causal, scale, kv_len, straggler) -> torch.Tensor:
             grid.ptr(), stream)
     _build.check("sp_flash_prefill", err, lib.fp_error_string, grid)
     _build.count_launch("sp_flash_prefill")
-    sp_launches_by_body[form] += 1
+    _build.count_body(sp_launches_by_body, form)
     return out
 
 

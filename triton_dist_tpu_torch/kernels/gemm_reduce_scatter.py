@@ -335,5 +335,5 @@ def _launch(a: torch.Tensor, b: torch.Tensor, arrival: bool = False,
             nanos, grid.ptr(), stream)
     _build.check(name, err, lib.gemm_rs_error_string, grid)
     _build.count_launch(name)
-    launches_by_body[body] += 1
+    _build.count_body(launches_by_body, body)
     return out

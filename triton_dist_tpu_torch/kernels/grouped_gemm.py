@@ -4,7 +4,8 @@ grouped_gemm (`grouped_gemm`, `grouped_gemm_ref`).
 The JAX function is XLA's `lax.ragged_dot` with an f32 accumulator,
 rounded to `out_dtype`: rows of sorted segment e multiply expert e's
 weight, rows past the last segment are zero. It is not a Pallas kernel,
-so the port computes it with torch ops, and with the rank dim of the
+so the port computes it with torch ops, but for its f32-out card route,
+a hand kernel (no library call serves it), and with the rank dim of the
 virtual world kept: x (T, K) shared by every rank or (n, T, K) one per
 rank, w (n, E, K, N), group sizes (E,) shared (the TP ranks route
 alike) or (n, E) one row a rank (EP: every rank receives other tokens),
@@ -22,23 +23,16 @@ Routes, by device and dtype (stated, not a silent fallback):
       past the last group (sum(group_sizes) < T) fall, once the ranks are
       folded, into the next rank's first group, or past the last offset:
       they are zeroed after the call.
-  CUDA, an f32 `out_dtype` (the MoE down product) — `_expert_rows`:
-      the experts in consecutive chunks, each expert's rows in a block
-      padded to its chunk's largest group, one batched product with an
-      f32 output a chunk (a chunk and rank unless the chunk holds every
-      expert), after one host sync for the group sizes, or none when the
-      caller holds them on the host (`host_sizes`: the EP FFN reads its
-      sizes once for both products, or once for every chunk). An expert
-      is padded to its largest group over the ranks. A chunk's blocks
-      stay under _SCRATCH_BYTES (an expert whose rows alone exceed it is
-      a chunk of its own), so a skewed routing costs more products, not
-      memory beyond the output and that budget.
-      `_grouped_mm` refuses an f32 `out_dtype` for bf16 operands,
-      and its bf16 result widened rounds once more than `ragged_dot`'s
-      f32 output: on the card that fell outside the f32 epsilon band
-      (cosine drift 1.3-1.4e-6 against 1e-6, PERF.md's parity table).
-      The loop over every row for every expert (`grouped_gemm_plain`)
-      took the Qwen3-30B-A3B 4 x 128 prefill from 0.2 to 2.8 s.
+  CUDA, bfloat16 in, an f32 `out_dtype` (the TP-MoE down product, both
+      products of the EP FFN) —
+      `grouped_gemm_f32`, the hand-written kernel of csrc/grouped_gemm.cu
+      (counted "grouped_gemm_f32"): mma.sync over row tiles of one group
+      each, the tile list derived on the card from the group sizes, f32
+      accumulation and output, rows past the last group zeroed; no host
+      read, so a CUDA graph captures it. `torch._grouped_mm` has no f32
+      output for bf16 operands, and its bf16 result widened fell outside
+      the f32 epsilon band (cosine drift 1.3-1.4e-6 against 1e-6,
+      PERF.md's parity table), so no library call serves.
   anything else (the CPU, float32 on the card) — `grouped_gemm_plain`,
       a loop over the experts: every row times expert e's weight in f32,
       kept where the row lies in segment e (the JAX `grouped_gemm_ref`),
@@ -47,11 +41,11 @@ Routes, by device and dtype (stated, not a silent fallback):
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-# bytes of one chunk of _expert_rows: its gathered rows and f32 products
-# for every rank
-_SCRATCH_BYTES = 512 << 20
+from triton_dist_tpu_torch.kernels import _build
 
 
 def _stacked(x: torch.Tensor, w: torch.Tensor):
@@ -83,78 +77,95 @@ def grouped_gemm_plain(x_sorted: torch.Tensor, w_stack: torch.Tensor,
     return acc if w_stack.dim() == 4 else acc[0]
 
 
-def _expert_chunks(sizes, row_bytes: int):
-    """Consecutive expert ranges (lo, hi, cap), cap the range's largest
-    group, greedily as long as (hi - lo) * cap * row_bytes fits in
-    _SCRATCH_BYTES (a range holds one expert at least); ranges with no
-    rows are left out."""
-    chunks, lo, cap = [], 0, 0
-    for e, size in enumerate(sizes):
-        wide = max(cap, size)
-        if e > lo and (e + 1 - lo) * wide * row_bytes > _SCRATCH_BYTES:
-            chunks.append((lo, e, cap))
-            lo, wide = e, size
-        cap = wide
-    chunks.append((lo, len(sizes), cap))
-    return [c for c in chunks if c[2] > 0]
+# the f32-out kernel's row tile and N tile (csrc/grouped_gemm.cu BM, BN)
+_BM, _BN = 64, 128
+_SIGNATURES = {
+    "grouped_f32_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
+    "grouped_f32_max_experts": (ctypes.c_int, []),
+    "grouped_f32_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
 
 
-def _expert_rows(x_sorted: torch.Tensor, w_stack: torch.Tensor,
-                 group_sizes: torch.Tensor, out_dtype,
-                 host_sizes=None) -> torch.Tensor:
-    """Each expert's rows times its weight with an f32 output: for each
-    chunk of _expert_chunks (an expert padded to its largest group over
-    the ranks), the sorted rows gathered into (E_chunk, cap, K) blocks a
-    rank, `torch.bmm(out_dtype=f32)` (f32 accumulation, no rounding to
-    bf16) over all ranks at once when the chunk holds every expert (the
-    weight stack is then an (n*E, K, N) view), else a rank at a time,
-    and the rows scattered back; rows past the last group are 0. One
-    host sync (the group sizes), none with host_sizes (the same sizes as
-    nested lists)."""
+def _plan(t: int, e: int, nn: int, n: int, sms: int = _build.SMS) -> int:
+    """The kernel's walkers a (rank, N tile): enough blocks for about 8 a
+    SM over the grid, and no more than a rank's row tiles can be (every
+    group's tiles, ceil(T / 64) + E at most)."""
+    per = -(-nn // _BN) * n
+    return max(1, min(-(-t // _BM) + e, -(-8 * sms // per)))
+
+
+def grouped_gemm_f32_plain(x_sorted: torch.Tensor, w_stack: torch.Tensor,
+                           group_sizes: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version: the loop over experts in f32."""
+    return grouped_gemm_plain(x_sorted, w_stack, group_sizes, torch.float32)
+
+
+@_build.counted("grouped_gemm_f32")
+def grouped_gemm_f32(x_sorted: torch.Tensor, w_stack: torch.Tensor,
+                     group_sizes: torch.Tensor) -> torch.Tensor:
+    """y[r, i] = x[r, i] @ w_stack[r, expert_of_segment(r, i)] in f32,
+    the group sizes (E,) or (n, E) read on the device: the CUDA kernel on
+    a CUDA tensor (bf16 operands, or a raise), the plain loop on a CPU
+    tensor. Shapes as `grouped_gemm`."""
+    if x_sorted.device.type == "cpu":
+        return grouped_gemm_f32_plain(x_sorted, w_stack, group_sizes)
+    return _launch_f32(x_sorted, w_stack, group_sizes)
+
+
+def _launch_f32(x_sorted: torch.Tensor, w_stack: torch.Tensor,
+                group_sizes: torch.Tensor) -> torch.Tensor:
     x, w = _stacked(x_sorted, w_stack)
     n, e, k, nn = w.shape
     t = x.shape[-2]
-    sizes = group_sizes.to(x.device, torch.long).expand(n, e)
-    host = group_sizes.tolist() if host_sizes is None else host_sizes
-    widest = ([max(col) for col in zip(*host)] if group_sizes.dim() == 2
-              else host)
-    starts = torch.cumsum(sizes, -1) - sizes
-    out = torch.zeros((n, t + 1, nn), dtype=torch.float32, device=x.device)
-    ranks = torch.arange(n, device=x.device)
-    row_bytes = n * (k * x.element_size() + nn * 4)
-    for lo, hi, cap in _expert_chunks(widest, row_bytes):
-        j = torch.arange(cap, device=x.device)
-        rows = starts[:, lo:hi, None] + j  # (n, hi - lo, cap)
-        live = j < sizes[:, lo:hi, None]
-        xe = x[ranks[:, None, None], torch.where(live, rows, 0)]
-        # a padding row lands on the spare row t, sliced off below
-        dst = torch.where(live, rows, t).reshape(n, -1)
-        if hi - lo == e:
-            ye = torch.bmm(xe.reshape(n * e, cap, k), w.reshape(n * e, k, nn),
-                           out_dtype=torch.float32)
-            out[ranks[:, None], dst] = ye.reshape(n, e * cap, nn)
-            continue
-        for r in range(n):
-            out[r, dst[r]] = torch.bmm(xe[r], w[r, lo:hi],
-                                       out_dtype=torch.float32).reshape(-1, nn)
-    out = out[:, :t].to(out_dtype)
-    return out if w_stack.dim() == 4 else out[0]
+    dev = x.device
+    if not (x.dtype == w.dtype == torch.bfloat16):
+        raise ValueError(f"grouped_gemm_f32 takes bf16 operands, got "
+                         f"{x.dtype} and {w.dtype}")
+    if w.device != dev or group_sizes.device != dev:
+        raise ValueError("grouped_gemm_f32: x, w and the group sizes on one "
+                         "device")
+    if tuple(x.shape) != (n, t, k) or k % 8 or nn % 8:
+        raise ValueError(f"grouped_gemm_f32: x {tuple(x.shape)} against w "
+                         f"{tuple(w.shape)}; K and N multiples of 8")
+    if tuple(group_sizes.shape) not in ((e,), (n, e)):
+        raise ValueError(f"group sizes {tuple(group_sizes.shape)}: ({e},) "
+                         f"or ({n}, {e})")
+    if not w.is_contiguous():
+        raise ValueError("grouped_gemm_f32: w must be contiguous")
+    if x.stride(2) != 1 or x.stride(1) != k:
+        x = x.contiguous()
+    sizes = group_sizes.to(torch.int32).contiguous()
+    lib = _build.load("grouped_gemm", _SIGNATURES)
+    if e > lib.grouped_f32_max_experts():
+        raise ValueError(f"grouped_gemm_f32: {e} experts, at most "
+                         f"{lib.grouped_f32_max_experts()}")
+    y = torch.empty((n, t, nn), dtype=torch.float32, device=dev)
+    walkers = _plan(t, e, nn, n, _build.card_sms(dev))
+    with _build.on_device(dev):
+        err = lib.grouped_f32_launch(
+            x.data_ptr(), x.stride(0), w.data_ptr(), y.data_ptr(),
+            sizes.data_ptr(), e if sizes.dim() == 2 else 0, n, t, k, nn, e,
+            walkers, _build.raw_stream(dev))
+    _build.check("grouped_gemm_f32", err, lib.grouped_f32_error_string)
+    _build.count_launch("grouped_gemm_f32")
+    return y if w_stack.dim() == 4 else y[0]
 
 
 def grouped_gemm(x_sorted: torch.Tensor, w_stack: torch.Tensor,
-                 group_sizes: torch.Tensor, out_dtype=None,
-                 host_sizes=None) -> torch.Tensor:
+                 group_sizes: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """y[r, i] = x[r, i] @ w_stack[r, expert_of_segment(r, i)]; the route
-    per device and dtype is the module docstring's. host_sizes: the
-    group sizes as nested lists, when the caller holds them on the host
-    (the f32-out card route then needs no sync)."""
+    per device and dtype is the module docstring's."""
     out_dtype = out_dtype or x_sorted.dtype
     if not (x_sorted.device.type == "cuda"
             and x_sorted.dtype == w_stack.dtype == torch.bfloat16):
         return grouped_gemm_plain(x_sorted, w_stack, group_sizes, out_dtype)
     if out_dtype != torch.bfloat16:
-        return _expert_rows(x_sorted, w_stack, group_sizes, out_dtype,
-                            host_sizes)
+        y = grouped_gemm_f32(x_sorted, w_stack, group_sizes)
+        return y if out_dtype == torch.float32 else y.to(out_dtype)
     x, w = _stacked(x_sorted, w_stack)
     n, e, k, nn = w.shape
     t = x.shape[1]

@@ -63,21 +63,32 @@ class TPAttnSpec(NamedTuple):
 
 class KVWrite(NamedTuple):
     """Where a step's K/V rows land in a (R, T, Hkv, D) cache layer (R
-    rank rows): `rows` selects rows of the flattened (R*S) step, `dst`
-    their flat (R*T) cache rows. Rows whose position lies past T are
-    left out, as the JAX scatter drops out-of-bounds updates (a serve
-    chunk's padding columns near the horizon)."""
+    rank rows), at a fixed shape: every row of the flattened (R*S) step
+    has a flat (R*T) destination `dst`, and `keep` says whether it is
+    written. Rows whose position lies past T are dropped, as the JAX
+    scatter drops out-of-bounds updates (a serve chunk's padding columns
+    near the horizon): such a row goes to cache row `position % T` of its
+    rank row and writes back what that cell holds, so the cache is left
+    bitwise as it was there. Those cells are free this step: a rank row
+    writes the contiguous positions [p0, p0 + S), so its dropped rows
+    (positions past T) map onto S distinct cells below p0, which no kept
+    row writes, as long as S <= T. No row's destination decides another's
+    write, and no host read or data-dependent shape is needed (a CUDA
+    graph captures it)."""
 
-    rows: torch.Tensor
     dst: torch.Tensor
+    keep: torch.Tensor
 
     @staticmethod
     def at(positions: torch.Tensor, t: int) -> "KVWrite":
-        b = positions.shape[0]
+        """positions (R, S): each rank row's S contiguous positions."""
+        b, s = positions.shape
+        if s > t:
+            raise ValueError(f"a step of {s} positions exceeds the cache "
+                             f"horizon {t}")
         bidx = torch.arange(b, device=positions.device)[:, None]
-        flat = (bidx * t + positions).reshape(-1)
-        rows = (positions < t).reshape(-1).nonzero().squeeze(1)
-        return KVWrite(rows, flat[rows])
+        flat = (bidx * t + positions % t).reshape(-1)
+        return KVWrite(flat, (positions < t).reshape(-1))
 
 
 def _split_qkv(h, spec: TPAttnSpec, batch: int):
@@ -100,10 +111,15 @@ def _qk_norm_rope(q, k, params: TPAttnParams, cos, sin, positions):
 
 def _scatter_kv(cache: torch.Tensor, kv: torch.Tensor,
                 write: KVWrite) -> None:
-    """cache (R, T, H, D) <- kv (R, S, H, D) at write's rows, in place."""
+    """cache (R, T, H, D) <- kv (R, S, H, D) at write's kept rows, in
+    place; a dropped row rewrites its destination's own value, read
+    before the write."""
     b, t, h, d = cache.shape
-    src = kv.reshape(-1, h, d).index_select(0, write.rows)
-    cache.view(b * t, h, d).index_copy_(0, write.dst, src.to(cache.dtype))
+    flat = cache.view(b * t, h, d)
+    src = torch.where(write.keep[:, None, None],
+                      kv.reshape(-1, h, d).to(cache.dtype),
+                      flat.index_select(0, write.dst))
+    flat.index_copy_(0, write.dst, src)
 
 
 def _attn_core(qkv, params, spec, rows, cos, sin, positions, kv_cache,

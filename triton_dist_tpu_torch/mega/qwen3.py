@@ -19,8 +19,20 @@ Caches keep the JAX layouts, the kv heads global with rank r's at
 (B, MAXP) page table and a bump allocator. The dense cache walks an
 identity page table over its own page grid, so one kernel path serves
 both. Unlike the JAX caches, which are donated through each jit'd step,
-a step writes its k/v rows into the cache tensors in place and returns
-the cache with the new length.
+a step writes its k/v rows into the cache tensors and advances its
+`length` (a paged cache also its table and `next_free`) in place, and
+returns the cache it was given.
+
+On the card the step (embed, launch, `logits_from`, KV scatter, the
+greedy token) is captured once a cache layout and shape as a CUDA graph
+(runtime/graphs.py; at most 8 graphs) that owns its cache: the cache a
+call brings is bound to the graph's (`Resident`: copied in the first
+time, then views of the graph's memory), so a fresh cache replays the
+same graph. `decode_step` and `decode_resident` replay it, the token
+copied into the graph's static buffer or, in `decode_resident`, fed back
+on the card: the JAX package jits the same step.
+`MegaQwen3(cuda_graph=False)` runs the same step function eagerly (A/B
+runs, tests); the CPU is always eager.
 
 Dropped from the JAX class: the head_dim % 128 check (Mosaic's), and
 `straggler`, `num_cores` and the trace build (test and TPU knobs; see
@@ -54,6 +66,12 @@ from triton_dist_tpu_torch.models.dense import (
     init_params,
 )
 from triton_dist_tpu_torch.runtime.device import resolve_device
+from triton_dist_tpu_torch.runtime.graphs import (
+    GraphCache,
+    Resident,
+    StepGraph,
+    shape_key,
+)
 
 
 class MegaKVCache(NamedTuple):
@@ -223,13 +241,16 @@ class MegaQwen3:
     device: "cuda" by default, where every step is one `mega` launch;
     "cpu" runs the kernel's plain version (kernel.run_plain). world: the
     tensor-parallel size n, run as n ranks of one launch on the one card.
+    cuda_graph: on the card, replay the step as a captured CUDA graph;
+    False runs it eagerly.
     """
 
     def __init__(self, cfg: ModelConfig, world: int = 1, batch: int = 1,
                  s_max: Optional[int] = None,
                  params: Optional[DenseLLMParams] = None, device=None,
                  paged: bool = False, page_size: Optional[int] = None,
-                 total_pages: Optional[int] = None, seed: int = 0):
+                 total_pages: Optional[int] = None, seed: int = 0,
+                 cuda_graph: bool = True):
         if cfg.is_moe:
             raise ValueError("the megakernel covers the dense decode graph")
         check_world(cfg, world)
@@ -292,6 +313,8 @@ class MegaQwen3:
         self._ident_table = torch.arange(
             batch * nch, dtype=torch.int32,
             device=self.device).reshape(batch, nch)
+        self.cuda_graph = cuda_graph and self.device.type == "cuda"
+        self.graphs = GraphCache(8)
 
     def _stack_norms(self) -> torch.Tensor:
         """(4L+1, NW) f32 in the row layout of build_qwen3_graph."""
@@ -312,7 +335,11 @@ class MegaQwen3:
         return torch.as_tensor(np.array(tokens), dtype=torch.int64,
                                device=self.device)
 
-    def _step(self, tokens: torch.Tensor, cache):
+    def _step(self, tokens: torch.Tensor, cache, commit: bool = True):
+        """One step over `cache`, in place: the logits (B, V) f32. With
+        commit=False (a graph's warm-up) the same rows are written but
+        the length and the allocator head stay (the table entries a step
+        claims are rewritten alike by the next call)."""
         cfg = self.cfg
         L, H, D = cfg.num_layers, cfg.hidden_size, cfg.head_dim
         B, n = self.batch, self.world
@@ -352,16 +379,66 @@ class MegaQwen3:
             cur = cache.table[bidx, pidx]
             cache.table[bidx, pidx] = torch.where(need, new_ids.to(
                 torch.int32), cur)
-            next_free = cache.next_free + needi.sum().to(torch.int32)
             slots = cache.table[bidx, pidx].long()
             offs = length % self.page
             cache.k[:, :, slots, offs] = kn
             cache.v[:, :, slots, offs] = vn
-            return logits, PagedMegaKVCache(cache.k, cache.v, cache.table,
-                                            cache.length + 1, next_free)
+            if commit:
+                cache.next_free.add_(needi.sum().to(torch.int32))
+                cache.length.add_(1)
+            return logits
         cache.k[:, :, bidx, length] = kn
         cache.v[:, :, bidx, length] = vn
-        return logits, MegaKVCache(cache.k, cache.v, cache.length + 1)
+        if commit:
+            cache.length.add_(1)
+        return logits
+
+    def _step_fn(self, cache, tok: torch.Tensor):
+        """The step, step(commit) -> (logits, tok): the token in `tok`
+        (B,) through `_step`, then the greedy token, fed back into `tok`
+        with commit. A graph captures it; the eager routes call it."""
+
+        def step(commit: bool):
+            logits = self._step(tok, cache, commit)
+            nxt = torch.argmax(logits, dim=-1)
+            if commit:
+                tok.copy_(nxt)
+            return logits, tok
+
+        return step
+
+    def _graph(self, cache, tok: torch.Tensor) -> StepGraph:
+        """The captured step for caches of `cache`'s layout and shapes:
+        reads the static token `.tok` (B,), updates its own cache
+        `.state` and feeds the greedy token back into `.tok`; outputs
+        (logits, tok). A new graph binds `cache` and warms up on `tok`,
+        the step's own state."""
+        key = (type(cache).__name__, shape_key(*cache))
+
+        def make():
+            state = Resident(cache)
+            state.bind(cache)
+            static = tok.clone()
+            g = StepGraph(self._step_fn(type(cache)(*state.tensors), static),
+                          self.device)
+            g.state, g.tok = state, static
+            return g
+
+        return self.graphs.get(key, make)
+
+    def _replayed(self, cache, tok: torch.Tensor, steps: int,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`steps` replays of the captured step from token `tok` over
+        `cache`, bound to the graph's; out[:, i] gets the i-th token.
+        Returns the last logits (the graph's buffer)."""
+        g = self._graph(cache, tok)
+        g.state.bind(cache)
+        g.tok.copy_(tok)
+        for i in range(steps):
+            logits, nxt = g.replay()
+            if out is not None:
+                out[:, i] = nxt
+        return logits
 
     # -- public API ----------------------------------------------------------
 
@@ -391,8 +468,12 @@ class MegaQwen3:
                                            self.total_pages, self.max_pages)
 
     def decode_step(self, tokens, cache):
-        """tokens (B,) -> (logits (B, V) f32, cache)."""
-        return self._step(self._tokens(tokens), cache)
+        """tokens (B,) -> (logits (B, V) f32, cache), the cache advanced in
+        place and returned. On the card a replay of the captured step."""
+        tok = self._tokens(tokens)
+        if not self.cuda_graph:
+            return self._step_fn(cache, tok.clone())(True)[0], cache
+        return self._replayed(cache, tok, 1).clone(), cache
 
     def decode_resident(self, tokens, cache, steps: int):
         """`steps` decode steps with the greedy token fed back on the
@@ -404,8 +485,10 @@ class MegaQwen3:
         tok = self._tokens(tokens)
         out = torch.empty((self.batch, steps), dtype=torch.int32,
                           device=self.device)
+        if self.cuda_graph:
+            self._replayed(cache, tok, steps, out)
+            return out, cache
+        step = self._step_fn(cache, tok.clone())
         for i in range(steps):
-            logits, cache = self._step(tok, cache)
-            tok = torch.argmax(logits, dim=-1)
-            out[:, i] = tok
+            out[:, i] = step(True)[1]
         return out, cache

@@ -16,9 +16,11 @@ torch.profiler: one scheduler step of the (slots=4, chunk=64) serve
 geometry with every slot prefilling and one batch-4 decode step (both
 in the decode mode; a sequence-sharded decode mode needs N to divide
 the batch of 4; its history a prefill of the prompt length below), and
-one 4 x 128 prefill (the prefill mode; 4 x 32 in `fused`). For each it prints the host wall time, the device time summed
-over kernels, the device busy share, and the kernels that took the
-most device time. Needs a CUDA card.
+one 4 x 128 prefill (the prefill mode; 4 x 32 in `fused`). The
+scheduler and decode steps replay their captured CUDA graphs (the
+warm-up step captures them). For each it prints the host wall time, the
+device time summed over kernels, the device busy share, and the kernels
+that took the most device time. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ def main() -> None:
                  decode_mode=args.decode_mode)
     rng = np.random.default_rng(0)
     print(f"{args.model}, world {world}, prefill mode {args.prefill_mode}, "
-          f"decode mode {args.decode_mode}")
+          f"decode mode {args.decode_mode}, captured steps")
     L = cfg.num_layers
 
     # a scheduler step with all four slots prefilling 64-token chunks
