@@ -63,6 +63,22 @@ outside a checkout of the repository. Phases, each fatal on failure:
      sampling; a Scheduler each way on the same 6 requests), eager and
      replayed ms/token (tokens/s for the Scheduler), capture s, the
      graph's pool bytes, device kernels a step each way, peak GB;
+  4r. the resident serving loop, after phase 4w, on phase 4's world-1
+     weights: phase 4's six Scheduler requests (two sampled) through
+     the host loop and through Scheduler(resident=True, window=16) on one
+     Engine (Qwen3-8B, 36 layers, world 1), then at world 4 `ar` and
+     `dist` on a 4-layer draw of Qwen3-8B's widths; the resident tokens
+     bitwise the host loop's, greedy and sampled; the timed run's
+     launches pinned (a window of W steps, W <= 16 as the Scheduler sizes
+     it: W forwards, W sample_slots, W ring_emit, W + 1 ring_boundary)
+     and its host syncs counted (one a window, its read); tokens/s both
+     ways, windows and their lengths, live and dead steps, an all-dead
+     window's ms, capture s and pool bytes of each window length's
+     graph, peak GB; ring_boundary / ring_emit bitwise their plain
+     versions on the recorded window inputs and 200 random states,
+     sample_slots tokens equal and its keys and random bits bitwise at
+     the vocabulary; each timed beside its bound and plain version
+     (sample_slots also beside torch.multinomial);
   4m. the fifth path, between the world-1 and world-4 Qwen3-8B runs of
      phase 4, on the same weights: the decode megakernel. The Engine's
      4 x 128 prefill, then 16 greedy steps of MegaQwen3, one `mega`
@@ -172,6 +188,7 @@ outside a checkout of the repository. Phases, each fatal on failure:
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -1065,9 +1082,12 @@ def kernel_names():
     SP path's three (the sixth path calls them through its layer), the
     EP path's two (the seventh, through kernels/ep_a2a.py), the PP
     transport's two (4p), the full-mesh AllGather (4c) and the quantized
-    wire's three (4w), and the MoE model's grouped f32 down product."""
+    wire's three (4w), the MoE model's grouped f32 down product, and the
+    serve step's sampler with the resident loop's two ring kernels
+    (phase 4r)."""
     return [*main_path_kernels(), "mega", *SP_KERNELS, *EP_KERNELS,
-            *PP_KERNELS, *COLL_KERNELS, *WIRE_KERNELS, *MOE_KERNELS]
+            *PP_KERNELS, *COLL_KERNELS, *WIRE_KERNELS, *MOE_KERNELS,
+            *RESIDENT_KERNELS]
 
 
 def plain_versions():
@@ -1284,9 +1304,12 @@ def want_launches(L, world, prefill_mode, sched_mode, dec_steps,
     model (world 4, `dist` prefill and scheduler) keeps ag_gemm on QKV
     and gemm_rs on O, and its MoE block takes the ring AG and the ring
     RS once a layer; its `ar` decode the one-shot AR on O only; every
-    one of its forwards the grouped f32 down product once a layer."""
+    one of its forwards the grouped f32 down product once a layer. Every
+    Scheduler step samples its slots with one sample_slots launch (the
+    greedy Engine.serve takes the argmax)."""
     serve = {name: 0 for name in kernel_names()}
-    sched = dict(serve, flash_prefill_local=L * sched_steps)
+    sched = dict(serve, flash_prefill_local=L * sched_steps,
+                 sample_slots=sched_steps)
     serve["flash_prefill_local"] = L
     if moe:
         per = dict(ag_gemm=L, gemm_rs=L, ring_all_gather=L,
@@ -1328,6 +1351,14 @@ def _clone_cache(c):
     return type(c)(*(t.clone() for t in _cache_tensors(c)))
 
 
+# every profiler trace of the run, kept to the end: a finalized trace's
+# profiler objects (they sit in reference cycles, so the collector frees
+# them at any moment) can leave the trace running then without its
+# kernel records (measured on an H100: 3-4 of 120 traces after a forced
+# collection, none with the traces kept)
+_TRACES: list = []
+
+
 def kernels_a_call(fn) -> int:
     """Device kernels (and memsets / copies) one call of fn runs, from a
     torch.profiler trace of one call (after one untraced call)."""
@@ -1339,6 +1370,7 @@ def kernels_a_call(fn) -> int:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    _TRACES.append(prof)
     return sum(e.count for e in prof.key_averages()
                if float(getattr(e, "self_device_time_total", getattr(
                    e, "self_cuda_time_total", 0.0))) > 0)
@@ -1354,13 +1386,16 @@ def graph_row(g) -> dict:
 def check_graph_decode(eng, prompts, label, steps=G_STEPS):
     """The Engine's captured decode step against its eager step from one
     prefill state: decode_step's logits, then `steps` greedy tokens of
-    generate, then 4 seeded sampled ones, and the cache (rows and length)
+    generate, then 4 sampled ones (the JAX chain from PRNGKey(3)), and
+    the cache (rows and length)
     bitwise; ms/token eager and replayed (host clock, the replay after
     its capture), device kernels a step each way, capture s, pool bytes,
     peak GB. Then two Engine.serve calls of steps + 1 tokens, each on a
     fresh prefill cache: their wall s, and no capture in either (the
     graphs are kept by shape)."""
     import torch
+
+    from triton_dist_tpu_torch.kernels.sample import seed_key
 
     torch.cuda.reset_peak_memory_stats()
     logits, c0 = eng.prefill(prompts)
@@ -1379,9 +1414,8 @@ def check_graph_decode(eng, prompts, label, steps=G_STEPS):
         ids, c = eng.generate(first.argmax(-1), c, steps)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / steps
-        gen = torch.Generator(device=eng.device).manual_seed(3)
         sampled, c = eng.generate(ids[:, -1], c, 4, temperature=0.8,
-                                  generator=gen)
+                                  key=seed_key(3))
         torch.cuda.synchronize()
         caches[graphed] = c
         out[graphed] = (first, ids, sampled, ms, first_s)
@@ -1439,7 +1473,7 @@ def check_graph_serve(eng, prompts, gen, label):
     import numpy as np
     import torch
 
-    from triton_dist_tpu_torch.serve import Scheduler
+    from triton_dist_tpu_torch.serve import Scheduler, sampling_key
     from triton_dist_tpu_torch.serve.kv_pool import KVPool
 
     torch.cuda.reset_peak_memory_stats()
@@ -1452,13 +1486,14 @@ def check_graph_serve(eng, prompts, gen, label):
     table = torch.arange(1, 1 + 4 * pool.max_pages, device=dev).reshape(4, -1)
     lengths = torch.tensor([0, 64, 0, 200], device=dev)
     n_valid = torch.tensor([64, 30, 64, 1], device=dev)
-    temps, seeds = np.array([0.0, 0.7, 0.0, 0.0]), np.arange(4)
+    temps = np.array([0.0, 0.7, 0.0, 0.0], np.float32)
+    keys = np.stack([sampling_key(i, 0) for i in range(4)])
     res = {}
     for graphed in (False, True):
         eng.cuda_graph = graphed
         fn = eng.make_serve_step(4, 64, 64, pool.max_pages)
         pk, pv = pool.k.clone(), pool.v.clone()
-        tok, last = fn(tokens, pk, pv, table, lengths, n_valid, temps, seeds)
+        tok, last = fn(tokens, pk, pv, table, lengths, n_valid, temps, keys)
         res[graphed] = (tok, last.clone(), pk, pv, fn)
     eng.cuda_graph = True
     # the pools past the null page 0 (the padding columns' sink, whose
@@ -1471,7 +1506,7 @@ def check_graph_serve(eng, prompts, gen, label):
                              "from the eager step")
     g = next(reversed(eng.serve_graphs.graphs.values()))  # just captured
     args = (tokens, res[True][2], res[True][3], table, lengths, n_valid,
-            temps, seeds)
+            temps, keys)
     eager_k = kernels_a_call(lambda: res[False][4](*args))
     replay_k = kernels_a_call(lambda: g.replay())
     del res, pool
@@ -1872,6 +1907,7 @@ def device_us(fn, key, reps=10, tries=5):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        _TRACES.append(prof)
         events = prof.key_averages()
         hits = [e for e in events if key in e.key]
         calls = sum(e.count for e in hits)
@@ -1880,9 +1916,12 @@ def device_us(fn, key, reps=10, tries=5):
                     for e in hits)
         if calls and total > 0:
             return total / calls
+        free, total = torch.cuda.mem_get_info()
         log(f"  device_us: trace {attempt} of {tries} holds no {key} time "
             f"({len(hits)} matching keys, {calls} calls; keys "
-            f"{sorted(e.key[:60] for e in events)[:12]})")
+            f"{sorted(e.key[:60] for e in events)[:12]}; {free / 1e9:.2f} "
+            f"GB free of {total / 1e9:.2f}, "
+            f"{torch.cuda.memory_reserved() / 1e9:.2f} GB held by torch)")
         time.sleep(0.5)
     return None
 
@@ -1907,6 +1946,7 @@ def device_us_total(fn, reps=10, tries=5):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+        _TRACES.append(prof)
         us, records = 0.0, 0
         for e in prof.key_averages():
             total = float(getattr(e, "self_device_time_total",
@@ -4698,6 +4738,583 @@ def run_wire(kernels):
                       for name in WIRE_KERNELS}, numbers
 
 
+# -- phase 4r: the resident serving loop --------------------------------------
+
+RESIDENT_KERNELS = ("sample_slots", "ring_boundary", "ring_emit")
+RES_WINDOW = 16         # steps a window (the JAX ResidentWorker's default)
+RES_GEO = dict(slots=4, chunk=64, page=64)
+RES_GEN = 16
+RES_SMALL_LAYERS = 4    # the world-4 windows' depth
+# the eos traffic: request i stops at the token its no-eos stream emits at
+# index EOS_AT[i] (or at an earlier emission of that token)
+EOS_AT = (2, 5, 4, 3, 8, 6)
+RING_CASES = 200        # random states a ring-kernel check
+
+
+def sched_prompts(cfg):
+    """Phase 4's six Scheduler prompts (100-300 tokens), drawn as
+    run_model draws them."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    rng.integers(0, cfg.vocab_size, (4, 128))
+    return [rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in (100, 300, 180, 250, 120, 211)]
+
+
+def ring_case(rng, geo, cap, rw):
+    """A random window state the loop can meet: a ring of admissions,
+    retirements (matching and stale), no-ops and torn records under
+    at_step gates, and a state block (header counters, slot states with
+    prefill positions inside their prompts, table, lengths, some output
+    records). Returns (ring (cap, rw), block (words,)) int32 numpy."""
+    import numpy as np
+
+    from triton_dist_tpu_torch.kernels import ring as kring
+    from triton_dist_tpu_torch.mega import ring as mring
+
+    K, C, maxp = geo.slots, geo.chunk, geo.max_pages
+    prompt_cap = rw - mring.IR_HEADER - maxp - C
+    ring = np.zeros((cap, rw), np.int32)
+    consumed = int(rng.integers(0, 40))
+    published = consumed + int(rng.integers(0, cap + 1))
+    for i in range(max(0, consumed - cap), published):
+        r = ring[i % cap]
+        r[:] = rng.integers(-50, 5000, rw)
+        r[mring.IR_SEQ] = 0 if (i >= consumed and rng.random() < 0.1) \
+            else i + 1
+        r[mring.IR_KIND] = rng.choice([0, 1, 1, 1, 2, 2, 3])
+        r[mring.IR_SLOT] = rng.integers(0, K)
+        r[mring.IR_AT_STEP] = rng.integers(0, 12)
+        r[mring.IR_PROMPT_LEN] = rng.integers(1, prompt_cap + 1)
+        r[mring.IR_MAX_NEW] = rng.integers(1, 20)
+        r[mring.IR_TEMP_BITS] = np.float32(rng.choice([0.0, 0.7, 1.3])).view(
+            np.int32)
+        r[mring.IR_EOS] = rng.integers(0, 3)
+        r[mring.IR_PREFIX] = 0
+        r[mring.IR_REQID] = rng.integers(0, 8)
+        r[mring.IR_NOUT] = rng.integers(0, 20)
+        r[mring.IR_SPEC_K] = rng.integers(1, 4)
+    blk = np.zeros((geo.words,), np.int32)
+    hdr = blk[:kring.HEADER_WORDS]
+    hdr[kring.H_PUBLISHED] = published
+    hdr[kring.H_CONSUMED] = consumed
+    hdr[kring.H_STEP0] = rng.integers(0, 1000)
+    hdr[kring.H_EXECUTED] = rng.integers(0, geo.window + 1)
+    hdr[kring.H_IDLE] = rng.integers(0, geo.poll_budget + 1)
+    hdr[kring.H_LIVE] = rng.random() < 0.9
+    hdr[kring.H_STEP_LIVE] = rng.random() < 0.8
+    hdr[kring.H_OUT_COUNT] = rng.integers(0, geo.out_cap // 2)
+    ss = blk[geo.ss_at:geo.table_at].reshape(K, mring.SS_WIDTH)
+    for s in range(K):
+        plen = int(rng.integers(1, prompt_cap + 1))
+        ss[s, mring.SS_ACTIVE] = rng.random() < 0.7
+        ss[s, mring.SS_PHASE] = rng.integers(0, 2)
+        ss[s, mring.SS_PROMPT_LEN] = plen
+        ss[s, mring.SS_POS] = (plen if ss[s, mring.SS_PHASE]
+                               else rng.integers(0, plen))
+        ss[s, mring.SS_MAX_NEW] = rng.integers(1, 20)
+        ss[s, mring.SS_N_OUT] = rng.integers(0, 19)
+        ss[s, mring.SS_TEMP_BITS] = np.float32(
+            rng.choice([0.0, 0.7])).view(np.int32)
+        ss[s, mring.SS_SEED] = rng.integers(-2**31, 2**31 - 1)
+        ss[s, mring.SS_EOS] = rng.integers(0, 3)
+        ss[s, mring.SS_LAST_TOK] = rng.integers(0, 5000)
+        ss[s, mring.SS_REC] = rng.integers(0, cap)
+        ss[s, mring.SS_REQID] = rng.integers(0, 8)
+    blk[geo.table_at:geo.lengths_at] = rng.integers(0, 64, K * maxp)
+    blk[geo.lengths_at:geo.out_at] = rng.integers(0, 900, K)
+    return ring, blk
+
+
+def check_ring_case(ring, blk, geo, tok, label):
+    """ring_boundary (step form, then final form) and ring_emit on the card
+    against their plain versions on the same state, tok the step's
+    tokens: the state block and every step buffer bitwise after each.
+    Raises on a difference."""
+    import torch
+
+    from triton_dist_tpu_torch.kernels import ring as kring
+
+    ring_d = torch.as_tensor(ring, device="cuda")
+    ring_h = torch.as_tensor(ring)
+    states = {}
+    for dev in ("cuda", "cpu"):
+        b = torch.as_tensor(blk.copy(), device=dev)
+        bufs = kring.StepBuffers.create(geo, dev)
+        r = ring_d if dev == "cuda" else ring_h
+        kring.ring_boundary(r, b, geo, bufs)
+        after_b = [b.cpu().clone()] + [x.cpu().clone() for x in bufs]
+        kring.ring_emit(torch.as_tensor(tok, device=dev), b, geo, bufs)
+        after_e = b.cpu().clone()
+        kring.ring_boundary(r, b, geo, bufs, final=True)
+        states[dev] = after_b + [after_e, b.cpu().clone()]
+    torch.cuda.synchronize()
+    names = ["block after boundary", *kring.StepBuffers._fields,
+             "block after emit", "block after the final boundary"]
+    for name, g, w in zip(names, states["cuda"], states["cpu"]):
+        if not torch.equal(g, w):
+            bad = torch.nonzero(g.reshape(-1) != w.reshape(-1)).flatten()
+            raise AssertionError(
+                f"{label}: ring kernels differ from their plain versions in "
+                f"the {name} at {bad[:8].tolist()}: "
+                f"{g.reshape(-1)[bad[:8]].tolist()} vs "
+                f"{w.reshape(-1)[bad[:8]].tolist()}")
+
+
+def check_ring_kernels(recorded, geo, cap, rw, vocab, n_random=RING_CASES):
+    """The ring kernels bitwise their plain versions on the window inputs
+    a resident run recorded (each window's first boundary) and on
+    n_random random states; the step's tokens random, a third of them
+    each slot's eos. Returns the cases checked."""
+    import numpy as np
+
+    from triton_dist_tpu_torch.mega import ring as mring
+
+    rng = np.random.default_rng(5)
+    cases = [(r, b, f"recorded window {i}") for i, (r, b) in
+             enumerate(recorded)]
+    cases += [(*ring_case(rng, geo, cap, rw), f"random state {i}")
+              for i in range(n_random)]
+    for ring, blk, label in cases:
+        tok = rng.integers(0, vocab, geo.slots)
+        ss = blk[geo.ss_at:geo.table_at].reshape(geo.slots, mring.SS_WIDTH)
+        eos = ss[:, mring.SS_EOS]
+        tok = np.where((rng.random(geo.slots) < 0.3) & (eos > 0), eos - 1,
+                       tok).astype(np.int64)
+        check_ring_case(ring, blk, geo, tok, label)
+    log(f"  ring_boundary / ring_emit: bitwise their plain versions on "
+        f"{len(recorded)} recorded window inputs and {n_random} random "
+        "states (boundary, emit, final boundary)")
+    return len(cases)
+
+
+def check_sample_kernel(V, R=4, trials=3):
+    """sample_slots on the card against its plain version at R x V:
+    greedy and sampled rows, a row per key and one flat draw, with and
+    without the split: tokens equal, the next keys and every sampled
+    row's random bits bitwise (the kernel's bits hook). Returns the
+    number of rows checked."""
+    import numpy as np
+    import torch
+
+    from triton_dist_tpu_torch.kernels import sample as ks
+    from triton_dist_tpu_torch.serve import sampling_key
+
+    rows = 0
+    for t in range(trials):
+        logits = rand((R, V), torch.float32, 900 + t, scale=3.0)
+        keys = torch.as_tensor(ks.as_int32(np.stack(
+            [sampling_key(t * 7 + r, 3 + r) for r in range(R)])),
+            device="cuda")
+        temps = torch.tensor([0.7, 0.0, 1.3, 0.9][:R] + [0.8] * (R - 4),
+                             device="cuda")
+        for flat in (False, True):
+            for split in (False, True):
+                nxt_k = torch.zeros((R, 2), dtype=torch.int32, device="cuda")
+                nxt_p = torch.zeros_like(nxt_k)
+                bits = torch.zeros((R, V), dtype=torch.int32, device="cuda")
+                got = ks._launch(logits, keys, temps, flat,
+                                 nxt_k if split else None, bits)
+                want = ks.sample_slots_plain(logits, keys, temps, flat,
+                                             nxt_p if split else None)
+                sub = ks._split_words(keys)[1] if split else keys
+                base = (torch.arange(R, device="cuda") * V if flat else 0)
+                wbits = ks.random_bits(sub, V, base)
+                hot = temps > 0
+                if not (torch.equal(got, want) and torch.equal(nxt_k, nxt_p)
+                        and torch.equal(bits[hot].long() & ks.MASK,
+                                        wbits[hot])):
+                    raise AssertionError(
+                        f"sample_slots differs from its plain version "
+                        f"(trial {t}, flat {flat}, split {split}): tokens "
+                        f"{got.tolist()} vs {want.tolist()}")
+                rows += R
+    torch.cuda.synchronize()
+    log(f"  sample_slots: tokens equal and keys / random bits bitwise its "
+        f"plain version on {rows} rows of {V} (greedy and sampled, a key a "
+        "row and flat, split and not)")
+    return rows
+
+
+def resident_bytes(geo, rw, consumed):
+    """Bytes a step's ring_boundary and ring_emit must move: the block
+    read and written, the records consumed and the slots' prompt chunks
+    read, the step's buffers written; the emit the block and the step's
+    n_valid, emits and tokens."""
+    K, C = geo.slots, geo.chunk
+    blk = geo.words * 4
+    bufs = K * C * 8 + K * 8 * 2 + K * geo.max_pages * 8 + K * (4 + 8 + 4)
+    return (2 * blk + consumed * rw * 4 + K * C * 4 + bufs,
+            2 * blk + K * (8 + 8 + 4))
+
+
+def time_resident_kernels(recorded, geo, rw, vocab):
+    """The three kernels timed at phase 4r's shapes: sample_slots on a
+    step's (4, V) logits with two sampled rows (bound: the logits read
+    once; library: torch.multinomial over the softmax of logits / T),
+    ring_boundary on the busiest recorded window input (the most records
+    consumed at its first boundary) and ring_emit after it (bound: the
+    block and the step's buffers once; no library call); each call puts
+    the block back first (a copy on the card, in the call ms, not in the
+    kernel's device µs); their plain versions run on the host. Returns
+    ({name: {label: row}}, {name: label})."""
+    import numpy as np
+    import torch
+
+    from triton_dist_tpu_torch.kernels import ring as kring
+    from triton_dist_tpu_torch.kernels import sample as ks
+    from triton_dist_tpu_torch.serve import sampling_key
+
+    R, V = geo.slots, vocab
+    logits = rand((R, V), torch.float32, 77, scale=3.0)
+    keys = torch.as_tensor(ks.as_int32(np.stack(
+        [sampling_key(r, 5) for r in range(R)])), device="cuda")
+    temps = torch.tensor([0.7, 0.0, 0.0, 0.9], device="cuda")
+    hot = int((temps > 0).sum())
+    slabel = (f"a serve step's ({R}, {V}) f32 logits, {hot} sampled rows "
+              f"(T 0.7, 0.9), {R - hot} greedy")
+    probs_t = torch.clamp_min(temps, 1e-6)[:, None]
+    rows = {"sample_slots": {slabel: time_collective(
+        f"sample_slots {slabel}",
+        lambda: ks.sample_slots(logits, keys, temps),
+        lambda: ks.sample_slots_plain(logits, keys, temps),
+        lambda: torch.multinomial(torch.softmax(logits / probs_t, -1), 1),
+        hot * V * 10 + R * V, R * V * 4 + R * 12 + R * 8, torch.float32,
+        kernel_key="sample_kernel")}}
+    best = max(recorded, key=lambda rb: int(rb[1][kring.H_PUBLISHED])
+               - int(rb[1][kring.H_CONSUMED]))
+    ring, blk0 = best
+    pending = int(blk0[kring.H_PUBLISHED]) - int(blk0[kring.H_CONSUMED])
+    ring_d = torch.as_tensor(ring, device="cuda")
+    blk0_d = torch.as_tensor(blk0, device="cuda")
+    blk = blk0_d.clone()
+    bufs = kring.StepBuffers.create(geo, "cuda")
+    ring_h, blk_h = torch.as_tensor(ring), torch.as_tensor(blk0.copy())
+    bufs_h = kring.StepBuffers.create(geo, "cpu")
+    blabel = (f"a recorded window's first boundary: {pending} records "
+              f"pending, K {geo.slots}, C {geo.chunk}, record width {rw}")
+    b_bytes, e_bytes = resident_bytes(geo, rw, pending)
+
+    def boundary():
+        blk.copy_(blk0_d)
+        kring.ring_boundary(ring_d, blk, geo, bufs)
+
+    def boundary_plain():
+        blk_h.copy_(torch.as_tensor(blk0))
+        kring.ring_boundary_plain(ring_h, blk_h, geo, bufs_h)
+
+    boundary()
+    after = blk.clone()
+    tok = torch.arange(geo.slots, device="cuda", dtype=torch.int64)
+
+    def emit():
+        blk.copy_(after)
+        kring.ring_emit(tok, blk, geo, bufs)
+
+    after_h = after.cpu()
+    tok_h = tok.cpu()
+
+    def emit_plain():
+        blk_h.copy_(after_h)
+        kring.ring_emit_plain(tok_h, blk_h, geo, bufs_h)
+
+    rows["ring_boundary"] = {blabel: time_collective(
+        f"ring_boundary {blabel}", boundary, boundary_plain, None, 0,
+        b_bytes, torch.float32, kernel_key="ring_boundary_kernel")}
+    elabel = f"the step after it, K {geo.slots}"
+    rows["ring_emit"] = {elabel: time_collective(
+        f"ring_emit {elabel}", emit, emit_plain, None, 0, e_bytes,
+        torch.float32, kernel_key="ring_emit_kernel")}
+    return rows, {"sample_slots": slabel, "ring_boundary": blabel,
+                  "ring_emit": elabel}
+
+
+def stop_at_eos(tokens, eos):
+    """A request's tokens as its run with eos_id `eos` must give them: up
+    to and including the first eos (the stream does not depend on
+    where the run stops)."""
+    return tokens[:tokens.index(eos) + 1] if eos in tokens else tokens
+
+
+def resident_window_launches(cfg, world, mode, steps):
+    """The launches of one window of `steps` steps, worked out apart from
+    the graph: `steps` times a Scheduler step's (want_launches: L
+    flash_prefill_local and one sample_slots a step; at world > 1 2L
+    one-shot AR in `ar`, 2L ag_gemm and 2L gemm_rs in `dist`), `steps`
+    ring_emit and steps + 1 ring_boundary (the final one)."""
+    per = want_launches(cfg.num_layers, world, "dist", mode, 0, 1)[1]
+    got = {k: v * steps for k, v in per.items() if v}
+    got.update(ring_emit=steps, ring_boundary=steps + 1)
+    return got
+
+
+def run_resident(kernels, cfg, params, world, mode, label,
+                 window=RES_WINDOW, record=False, device="cuda"):
+    """The resident path at `world` in `mode`: phase 4's six Scheduler
+    requests (two sampled) through the host loop (replayed steps) and
+    through Scheduler(resident=True, window) on the same Engine; the
+    resident tokens bitwise the host loop's, greedy and sampled. Each way
+    a first run (its capture) and a timed run; the resident timed run
+    counts its launches from 0, held against the windows it ran
+    (`resident_window_launches`, each window's length the Scheduler's
+    pick, `_resident_steps`), as is every window graph's own count, and
+    a third run counts its host syncs (one a window: the window's read).
+    Then the same requests with an eos each, a token its no-eos stream
+    emits early (EOS_AT), both ways: tokens bitwise, each the no-eos
+    stream cut at its first eos; the windows run past the last
+    retirement are the dead steps the sizing cannot foresee. An all-dead
+    window of the full length times what a dead step costs.
+    Returns (launches of the timed resident run, recorded window inputs
+    (ring, block) when `record`, numbers)."""
+    import numpy as np
+    import torch
+
+    from triton_dist_tpu_torch.models import Engine
+    from triton_dist_tpu_torch.serve import Scheduler
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, device=device, params=params, max_len=MAX_LEN,
+                 world=world, decode_mode=mode)
+    prompts = sched_prompts(cfg)
+
+    def scheduler(resident, eos=None):
+        sch = Scheduler(eng, **RES_GEO, resident=resident,
+                        **({"window": window} if resident else {}))
+        reqs = [sch.submit(p, RES_GEN, temperature=0.7 if i % 3 == 2
+                           else 0.0, seed=i,
+                           eos_id=None if eos is None else eos[i])
+                for i, p in enumerate(prompts)]
+        return sch, reqs
+
+    def timed(resident, wrap=None, eos=None):
+        sch, reqs = scheduler(resident, eos)
+        if wrap is not None:
+            sch.worker._fn = wrap(sch.worker._fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sch.run()
+        torch.cuda.synchronize()
+        return sch, [r.out_tokens for r in reqs], time.perf_counter() - t0
+
+    def held(w, n, what):
+        """The launches n of a resident run against its windows, and each
+        window graph's own count, worked out apart from the graphs."""
+        for steps, g in loop.graphs.items():
+            want_g = resident_window_launches(cfg, world, mode, steps)
+            if {k: v for k, v in g.launches.items() if v} != want_g:
+                raise AssertionError(f"{label}: the window graph of {steps} "
+                                     f"steps launches {dict(g.launches)}, "
+                                     f"want {want_g}")
+        want = {name: 0 for name in kernel_names()}
+        for steps, runs in w.windows_by_steps.items():
+            for k, v in resident_window_launches(cfg, world, mode,
+                                                 steps).items():
+                want[k] += v * runs
+        if n != want:
+            raise AssertionError(f"{label}: {what} launches {n}, want {want}")
+
+    timed(False)  # the host loop's capture
+    host, host_toks, host_wall = timed(False)
+    recorder = None
+    if record:
+        def recorder(loop):
+            rec = RecordingLoop(loop)
+            recorded.append(rec)
+            return rec
+    recorded = []
+    t0 = time.perf_counter()
+    first, first_toks, _ = timed(True, recorder)  # the window's capture
+    first_s = time.perf_counter() - t0
+    loop = eng.resident_loops[next(iter(eng.resident_loops))]
+    kernels.reset_launches()
+    sch, res_toks, res_wall = timed(True)
+    n = kernels.launches()
+    counted, _ = scheduler(True)
+    syncs = host_syncs(counted.run)
+    w = sch.worker
+    windows, live = w.n_windows, w.n_steps
+    unrolled = sum(k * v for k, v in w.windows_by_steps.items())
+    dead = unrolled - live
+    if not (res_toks == host_toks == first_toks
+            and all(len(t) == RES_GEN for t in res_toks)):
+        raise AssertionError(f"{label}: the resident tokens differ from the "
+                             "host loop's")
+    held(w, n, "resident")
+    if syncs != counted.worker.n_windows or counted.worker.n_reads != \
+            counted.worker.n_windows:
+        raise AssertionError(f"{label}: {syncs} host syncs over "
+                             f"{counted.worker.n_windows} windows")
+    one = resident_window_launches(cfg, world, mode, 1)
+    # the eos traffic: each request stops at a token its stream emits
+    # early, which the window sizing cannot foresee
+    eos = [host_toks[i][j] for i, j in enumerate(EOS_AT)]
+    want_eos = [stop_at_eos(t, e) for t, e in zip(host_toks, eos)]
+    timed(True, eos=eos)  # window lengths this traffic picks first
+    eos_host, eos_host_toks, eos_host_wall = timed(False, eos=eos)
+    kernels.reset_launches()
+    eos_sch, eos_toks, eos_wall = timed(True, eos=eos)
+    held(eos_sch.worker, kernels.launches(), "eos resident")
+    if not eos_toks == eos_host_toks == want_eos:
+        raise AssertionError(f"{label}: with eos the resident tokens "
+                             f"{eos_toks}, the host loop's {eos_host_toks}, "
+                             f"want {want_eos}")
+    ew = eos_sch.worker
+    eos_unrolled = sum(k * v for k, v in ew.windows_by_steps.items())
+    # an all-dead window of the loop's full length: nothing active,
+    # nothing pending
+    ss = np.zeros_like(w.slot_state)
+    dead_ms = time_ms(lambda: loop(loop.ring, 0, 0, 0, ss, w._table,
+                                   w._lengths, sch.pool.k, sch.pool.v,
+                                   steps=window), iters=3, warmup=1)
+    graphs = {steps: dict(capture_s=g.capture_s, pool_bytes=g.pool_bytes,
+                          launches=dict(g.launches))
+              for steps, g in sorted(loop.graphs.items())}
+    sizes = {k: (round(g["capture_s"], 3), round(g["pool_bytes"] / 1e6, 1))
+             for k, g in graphs.items()}
+    tokens = sum(len(t) for t in res_toks)
+    eos_tokens = sum(len(t) for t in eos_toks)
+    eos_dead = eos_unrolled - ew.n_steps
+    eos_row = dict(
+        eos=eos, tokens=eos_tokens,
+        host_tokens_per_s=eos_tokens / eos_host_wall,
+        resident_tokens_per_s=eos_tokens / eos_wall,
+        host_wall_s=eos_host_wall, resident_wall_s=eos_wall,
+        host_steps=eos_host.worker.n_steps, windows=ew.n_windows,
+        windows_by_steps=dict(ew.windows_by_steps), live_steps=ew.n_steps,
+        dead_steps=eos_dead, dead_steps_ms=eos_dead * dead_ms / window)
+    row = dict(
+        world=world, mode=mode, window=window, layers=cfg.num_layers,
+        host_tokens_per_s=tokens / host_wall,
+        resident_tokens_per_s=tokens / res_wall, host_wall_s=host_wall,
+        resident_wall_s=res_wall, host_steps=host.worker.n_steps,
+        windows=windows, windows_by_steps=dict(w.windows_by_steps),
+        live_steps=live, dead_steps=dead, syncs=syncs,
+        reads_per_live_step=windows / max(live, 1),
+        reads_per_step=syncs / sum(
+            k * v for k, v in counted.worker.windows_by_steps.items()),
+        dead_window_ms=dead_ms, dead_step_ms=dead_ms / window,
+        dead_steps_ms=dead * dead_ms / window, first_run_s=first_s,
+        capture_s=sum(g["capture_s"] for g in graphs.values()),
+        pool_bytes=sum(g["pool_bytes"] for g in graphs.values()),
+        graphs=graphs, launches_a_one_step_window=one, eos_traffic=eos_row,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"  4r {label}: resident, windows of at most {window}: tokens "
+        f"bitwise the host loop's (6 requests, 2 sampled); "
+        f"{row['resident_tokens_per_s']:.2f} tokens/s ({res_wall:.3f} s) "
+        f"against the host loop's {row['host_tokens_per_s']:.2f} "
+        f"({host_wall:.3f} s, {host.worker.n_steps} steps); {windows} "
+        f"windows (steps: runs {w.windows_by_steps}), {live} live and "
+        f"{dead} dead; "
+        f"host syncs {syncs} ({syncs / max(live, 1):.3f} a live step, "
+        f"{row['reads_per_step']:.4f} a step); an all-dead window of "
+        f"{window} {dead_ms:.3f} ms ({dead_ms / window:.3f} a step); first "
+        f"run (its captures) {first_s:.3f} s; window graphs by length "
+        f"(capture s, pool MB): {sizes}, {row['pool_bytes'] / 1e6:.1f} MB "
+        f"in all (one shared pool); launches a window of "
+        f"{max(loop.graphs)} {graphs[max(loop.graphs)]['launches']}, each "
+        f"window's held against a one-step window's {one} (W times, "
+        f"ring_boundary W + 1); with eos {eos}: "
+        f"{eos_tokens} tokens bitwise the host loop's and each no-eos "
+        f"stream cut at its eos, {eos_row['resident_tokens_per_s']:.2f} "
+        f"tokens/s ({eos_wall:.3f} s) against the host loop's "
+        f"{eos_row['host_tokens_per_s']:.2f} ({eos_host_wall:.3f} s, "
+        f"{eos_row['host_steps']} steps), {ew.n_windows} windows (steps: "
+        f"runs {ew.windows_by_steps}), {ew.n_steps} live and {eos_dead} "
+        f"dead (about {eos_row['dead_steps_ms']:.1f} ms); peak "
+        f"{row['peak_gb']:.2f} GB; {card_line()}")
+    inputs = recorded[0].inputs if recorded else []
+    # the loop's graphs and pools are released before the next phase
+    del eng, sch, first, counted, host, loop, w, recorded, eos_sch, ew
+    del eos_host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n, inputs, row
+
+
+class RecordingLoop:
+    """A resident loop that keeps each window's inputs, (ring, state
+    block) as numpy, before it runs the window (a read of the ring: for
+    a run whose syncs are not counted)."""
+
+    def __init__(self, loop):
+        self.loop = loop
+        self.inputs = []
+
+    def __getattr__(self, name):
+        return getattr(self.loop, name)
+
+    def __call__(self, ring, published, consumed, step0, ss, tb, ln, *a,
+                 **kw):
+        import numpy as np
+
+        from triton_dist_tpu_torch.kernels import ring as kring
+
+        g = self.loop.geo
+        blk = np.zeros((g.words,), np.int32)
+        blk[kring.H_PUBLISHED] = published
+        blk[kring.H_CONSUMED] = consumed
+        blk[kring.H_STEP0] = step0
+        blk[kring.H_LIVE] = 1
+        blk[g.ss_at:g.table_at] = np.asarray(ss).ravel()
+        blk[g.table_at:g.lengths_at] = np.asarray(tb).ravel()
+        blk[g.lengths_at:g.out_at] = np.asarray(ln).ravel()
+        self.inputs.append((ring.cpu().numpy().copy(), blk))
+        return self.loop(ring, published, consumed, step0, ss, tb, ln, *a,
+                         **kw)
+
+
+def run_resident_phase(kernels, cfg, params):
+    """Phase 4r: Qwen3-8B world 1 at full depth (the main resident path,
+    recorded), then world 4 `ar` and `dist` at RES_SMALL_LAYERS layers of
+    a fresh draw (the collectives' pools inside one W-step capture); then
+    the three kernels against their plain versions (recorded and random
+    window states; sample_slots at the vocabulary) and timed. Returns
+    ({path: launches}, {kernel: (rows, main label, err)}, numbers)."""
+    import dataclasses
+
+    import torch
+
+    from triton_dist_tpu_torch.kernels import ring as kring
+    from triton_dist_tpu_torch.mega import ring as mring
+    from triton_dist_tpu_torch.models.dense import init_params
+
+    n1, recorded, row1 = run_resident(kernels, cfg, params, 1, "ar",
+                                      "Qwen3-8B world 1", record=True)
+    small = dataclasses.replace(cfg, num_layers=RES_SMALL_LAYERS)
+    p4 = init_params(small, device="cuda", seed=1, world=4)
+    runs = {"resident_world1": n1}
+    rows = {"world 1": row1}
+    for mode in ("ar", "dist"):
+        runs[f"resident_world4_{mode}"], _, rows[f"world 4 {mode}"] = \
+            run_resident(kernels, small, p4, 4, mode,
+                         f"Qwen3-8B widths, {RES_SMALL_LAYERS} layers, world "
+                         f"4 {mode}")
+    del p4
+    torch.cuda.empty_cache()
+    max_pages = MAX_LEN // RES_GEO["page"]
+    cap = max(4 * RES_GEO["slots"], 16)
+    geo = kring.WindowGeometry(RES_GEO["slots"], RES_GEO["chunk"], max_pages,
+                               RES_WINDOW * RES_GEO["slots"] + cap,
+                               RES_WINDOW, 8)
+    rw = mring.ring_width(max_pages, MAX_LEN, RES_GEO["chunk"])
+    cases = check_ring_kernels(recorded, geo, cap, rw, cfg.vocab_size)
+    sampled = check_sample_kernel(cfg.vocab_size)
+    timing, mains = time_resident_kernels(recorded, geo, rw, cfg.vocab_size)
+    errs = {name: (timing[name], mains[name], 0.0)
+            for name in RESIDENT_KERNELS}
+    numbers = dict(paths=rows, ring_cases=cases, sample_rows=sampled,
+                   conditional_node=hasattr(torch.cuda.CUDAGraph,
+                                            "begin_capture_to_if_node"))
+    log("  4r resident paths: " + json.dumps(rows))
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"  after 4r: {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved by torch")
+    return runs, errs, numbers
+
+
 SOURCES = {
     "mega": ("triton_dist_tpu_torch/csrc/mega.cu",
              "triton_dist_tpu/mega/kernel.py:1192"),
@@ -4737,6 +5354,12 @@ SOURCES = {
                      "triton_dist_tpu/kernels/allgather_gemm.py:116"),
     "grouped_gemm_f32": ("triton_dist_tpu_torch/csrc/grouped_gemm.cu",
                          "triton_dist_tpu/kernels/grouped_gemm.py:26"),
+    "sample_slots": ("triton_dist_tpu_torch/csrc/sample.cu",
+                     "triton_dist_tpu/models/engine.py:84"),
+    "ring_boundary": ("triton_dist_tpu_torch/csrc/ring.cu",
+                      "triton_dist_tpu/mega/ring.py:387"),
+    "ring_emit": ("triton_dist_tpu_torch/csrc/ring.cu",
+                  "triton_dist_tpu/models/engine.py:662"),
 }
 
 
@@ -5042,6 +5665,11 @@ def main() -> int:
     log("== 4w. the tenth path: the quantized wire at Qwen3-8B widths, world "
         "4 (no weights): fp8, int8, int8 block 128")
     nwire, wire_errs, wire_numbers = run_wire(kernels)
+    log("== 4r. the resident serving loop: Qwen3-8B world 1 at full depth, "
+        f"windows of {RES_WINDOW} against the host loop; world 4 ar and dist "
+        f"at {RES_SMALL_LAYERS} layers; the ring kernels and the sampler "
+        "against their plain versions")
+    nres, res_errs, res_numbers = run_resident_phase(kernels, cfg, params)
     # the same weights laid out for 4 ranks; the world-1 engine is gone
     params = shard_params(params, 4)
     torch.cuda.empty_cache()
@@ -5122,7 +5750,7 @@ def main() -> int:
     paths = {"world1": n1, "world4_ar": n4, "world4_dist": nd,
              "world4_moe": nm, "mega_world1": nm1, "mega_world4": nm4,
              "sp_world4": nsp, "ep_world4": nep, "pp_world4": npp,
-             "coll_world4": ncoll, "wire_world4": nwire}
+             "coll_world4": ncoll, "wire_world4": nwire, **nres}
 
     def by_path(name):
         return {k: v[name] for k, v in paths.items()}
@@ -5211,6 +5839,21 @@ def main() -> int:
                            **({"launches_by_body": wire_numbers["bodies"][
                                name]} if name in wire_numbers["bodies"]
                               else {})))
+    notes = {"sample_slots": "none: XLA's jax.random.categorical under "
+             "fold_in(PRNGKey(seed), n_out) keys (no Pallas kernel); a hand "
+             "kernel for code the JAX package leaves to XLA",
+             "ring_boundary": "none: XLA code of the resident while_loop "
+             "(its cond, device_consume, slot_plan); a hand kernel for code "
+             "the JAX package leaves to XLA",
+             "ring_emit": "none: XLA code of the resident loop body's "
+             "epilogue (run_step, spec_k = 0); a hand kernel for code the "
+             "JAX package leaves to XLA"}
+    for name in RESIDENT_KERNELS:
+        rows, main_label, err = res_errs[name]
+        lines.append(entry(name, total(name), by_path(name), err, rows,
+                           main_label,
+                           device_us=rows[main_label]["device_us"],
+                           replaces_note=notes[name]))
     missing = set(kernels.KERNELS) - {e["name"] for e in lines}
     assert not missing, f"kernels without a line: {missing}"
     assert all(e["launches"] > 0 for e in lines), "a kernel never launched"
@@ -5229,7 +5872,8 @@ def main() -> int:
     log(json.dumps({"model": [model1, model4, modeld, modelm],
                     "mega": dict(mega_rows, batch1=mega_b1),
                     "sp": sp_numbers, "ep": ep_numbers, "pp": pp_numbers,
-                    "coll": coll_numbers, "wire": wire_numbers}))
+                    "coll": coll_numbers, "wire": wire_numbers,
+                    "resident": res_numbers}))
     print(json.dumps({"kernels": lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

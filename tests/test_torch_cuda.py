@@ -34,6 +34,7 @@ from triton_dist_tpu_torch.kernels import flash_decode as fd
 from triton_dist_tpu_torch.kernels import flash_prefill as fp
 from triton_dist_tpu_torch.kernels import grouped_gemm as gg
 from triton_dist_tpu_torch.kernels import low_latency_allgather as llag
+from triton_dist_tpu_torch.kernels.sample import seed_key
 
 
 def _inputs(seed, b, s, t, hq, hkv, d, scale=0.5):
@@ -2744,9 +2745,9 @@ def _clone_cache(c):
     ids=["dense-w1", "dense-w4-ar", "dense-w4-dist", "moe-w4-ar",
          "moe-w4-dist"])
 def test_decode_replay_bitwise_eager(cuda, world, moe, mode):
-    """decode_step and generate (greedy, then seeded sampling) replayed
-    from a captured step against the eager Engine from the same state:
-    logits, tokens, the cache and the generator's state after bitwise;
+    """decode_step and generate (greedy, then sampled by the JAX key
+    chain) replayed from a captured step against the eager Engine from
+    the same state: logits, tokens and the cache after bitwise;
     the cache's length advanced in place. Then a fresh cache of the same
     shape replays the same graphs (no capture), and the first cache,
     taken up again after it, goes on bitwise the eager one."""
@@ -2762,12 +2763,11 @@ def test_decode_replay_bitwise_eager(cuda, world, moe, mode):
     ta, ca = graph.generate(la.argmax(-1), ca, 5)
     tb, cb = eager.generate(lb.argmax(-1), cb, 5)
     assert torch.equal(ta, tb)
-    ga = torch.Generator("cuda").manual_seed(9)
-    gb = torch.Generator("cuda").manual_seed(9)
-    ta, ca = graph.generate(ta[:, -1], ca, 4, temperature=0.8, generator=ga)
-    tb, cb = eager.generate(tb[:, -1], cb, 4, temperature=0.8, generator=gb)
+    ta, ca = graph.generate(ta[:, -1], ca, 4, temperature=0.8,
+                            key=seed_key(9))
+    tb, cb = eager.generate(tb[:, -1], cb, 4, temperature=0.8,
+                            key=seed_key(9))
     assert torch.equal(ta, tb)
-    assert torch.equal(ga.get_state(), gb.get_state())
     for x, y in ((ca.k, cb.k), (ca.v, cb.v), (ca.length, cb.length)):
         assert torch.equal(x, y)
     assert graph.decode_graphs.made == 2  # greedy, sampled
@@ -2924,3 +2924,125 @@ def test_moe_replay_makes_no_host_sync(cuda):
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         assert out.shape == (4, 3)
+
+
+# ---------- the resident loop's kernels and window ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V,R", [(151936, 4), (1000, 6), (151936, 1),
+                                 (300, 3), (7, 2), (5000, 200)])
+def test_sample_slots_kernel_matches_plain(cuda, V, R):
+    """sample_slots (csrc/sample.cu) against its plain version: tokens
+    equal, the split's next keys and every sampled row's random bits
+    bitwise (chip_smoke.check_sample_kernel: greedy and sampled rows, a
+    key a row and one flat draw, split and not), rows split over 1 to
+    264 blocks."""
+    import chip_smoke
+
+    assert chip_smoke.check_sample_kernel(V, R=R) == 3 * 4 * R
+
+
+@pytest.mark.cuda
+def test_sample_slots_ties_take_the_lowest_index(cuda):
+    """Greedy rows whose largest value repeats across the blocks a row is
+    split over: the lowest index wins, as the plain version's argmax."""
+    from triton_dist_tpu_torch.kernels import sample as ks
+
+    R, V = 4, 151936
+    logits = torch.zeros((R, V), device="cuda")
+    for r, at in enumerate(([0, V - 1], [5000, 90000, 140000],
+                            [V - 2, V - 1], [77])):
+        logits[r, at] = 2.0
+    keys = torch.zeros((R, 2), dtype=torch.int32, device="cuda")
+    temps = torch.zeros((R,), device="cuda")
+    got = ks.sample_slots(logits, keys, temps)
+    assert got.tolist() == [0, 5000, V - 2, 77]
+    assert torch.equal(got.cpu(), ks.sample_slots_plain(
+        logits.cpu(), keys.cpu(), temps.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,C,maxp", [(3, 4, 8), (4, 64, 16), (64, 2, 2)])
+def test_ring_kernels_match_plain(cuda, K, C, maxp):
+    """ring_boundary and ring_emit (csrc/ring.cu) bitwise their plain
+    versions on 300 random window states (chip_smoke.check_ring_kernels:
+    the boundary, the emit after it, the final boundary; the block and
+    every step buffer), 64 slots included."""
+    import chip_smoke
+    from triton_dist_tpu_torch.kernels import ring as kring
+    from triton_dist_tpu_torch.mega import ring as mring
+
+    cap, prompt_cap, window = 16, 24, 6
+    geo = kring.WindowGeometry(K, C, maxp, window * K + cap, window, 4)
+    rw = mring.ring_width(maxp, prompt_cap, C)
+    assert chip_smoke.check_ring_kernels([], geo, cap, rw, 256,
+                                         n_random=300) == 300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,mode", [(1, "ar"), (4, "ar"), (4, "dist")])
+def test_resident_window_bitwise_host_loop(cuda, world, mode):
+    """Scheduler(resident=True) on the graph-replaying Engine (a window of
+    up to 4 steps a replay) and on the eager Engine (the same steps run
+    eagerly), against the host loop: every request's tokens bitwise,
+    greedy and sampled; one loop for two resident runs; one read a
+    window."""
+    from triton_dist_tpu_torch.serve import Scheduler
+
+    graph, eager = _engines(world, decode_mode=mode)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (20, 45, 9, 33, 12)]
+    outs = []
+    for eng, resident in ((eager, False), (graph, True), (eager, True),
+                          (graph, True)):
+        sch = Scheduler(eng, slots=4, chunk=16, page=16, resident=resident,
+                        **({"window": 4} if resident else {}))
+        reqs = [sch.submit(p, 6, temperature=0.7 if i % 2 else 0.0, seed=i)
+                for i, p in enumerate(prompts)]
+        sch.run()
+        outs.append([r.out_tokens for r in reqs])
+        if resident:
+            assert sch.worker.n_reads == sch.worker.n_windows
+    assert outs[0] == outs[1] == outs[2] == outs[3]
+    loops = list(graph.resident_loops.values())
+    assert len(loops) == 1 and loops[0].graphs
+
+
+@pytest.mark.cuda
+def test_donate_cache_false_replay_leaves_the_cache(cuda):
+    """Fault 3.7 on the card: a graph-replaying Engine with
+    donate_cache=False steps a copy, so one cache stepped twice from its
+    state gives bitwise the same logits, and stays bitwise as it was
+    (never a view of the graph's state)."""
+    from triton_dist_tpu_torch.models import Engine
+
+    graph, _ = _engines(1)
+    keep = Engine(graph.cfg, device="cuda", params=graph.params,
+                  donate_cache=False)
+    ids = torch.randint(0, 256, (4, 9), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(3))
+    logits, cache = keep.prefill(ids)
+    tok = logits.argmax(-1)
+    snap = _clone_cache(cache)
+    la, ca = keep.decode_step(tok, cache)
+    lb, cb = keep.decode_step(tok, cache)
+    assert torch.equal(la, lb) and keep.decode_graphs.made == 1
+    for x, y in ((snap.k, cache.k), (snap.v, cache.v),
+                 (snap.length, cache.length)):
+        assert torch.equal(x, y)
+    assert ca.length.tolist() == [10] * 4 and cb is not cache
+
+
+@pytest.mark.cuda
+def test_serve_key_chain_replay_bitwise_eager(cuda):
+    """Engine.serve sampled by the JAX key chain (the decode graph splits
+    the key on the card) against the eager Engine: tokens bitwise, two
+    seeds."""
+    graph, eager = _engines(1)
+    ids = torch.randint(0, 256, (4, 9), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(5))
+    for seed in (0, 7):
+        a = graph.serve(ids, 6, temperature=0.8, seed=seed)
+        b = eager.serve(ids, 6, temperature=0.8, seed=seed)
+        assert torch.equal(a, b)

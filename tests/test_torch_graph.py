@@ -28,6 +28,7 @@ from triton_dist_tpu_torch.layers.tp_attn import KVWrite, _scatter_kv
 from triton_dist_tpu_torch.mega import qwen3 as mega_qwen3
 from triton_dist_tpu_torch.models import Engine, ModelConfig, params_from_jax
 from triton_dist_tpu_torch.models.dense import init_params
+from triton_dist_tpu_torch.kernels.sample import sample_slots
 from triton_dist_tpu_torch.models.engine import _serve_forward
 from triton_dist_tpu_torch.runtime.graphs import Resident
 from triton_dist_tpu_torch.serve.kv_pool import KVPool
@@ -89,8 +90,9 @@ def _forbid_host_reads(monkeypatch):
          "moe-w4-dist"])
 def test_steps_make_no_host_read(monkeypatch, moe, world, mode):
     """One decode step (the Engine's, and the capturable step function a
-    graph records) and one serve-step forward (dense view, forward, last
-    logits, argmax, pool scatter) with Tensor.nonzero / item / tolist /
+    graph records) and one serve step (dense view, forward, last logits,
+    pool scatter, then `sample_slots`, greedy and keyed rows) with
+    Tensor.nonzero / item / tolist /
     cpu / numpy and the bool / int / float conversions made to raise: a
     CUDA graph can hold the step only if nothing on it reads the card."""
     cfg = (ModelConfig.tiny_moe(max_positions=64) if moe
@@ -112,10 +114,14 @@ def test_steps_make_no_host_read(monkeypatch, moe, world, mode):
     eng.decode_step(tok, cache)
     step(False)
     step(True)
-    out, last = _serve_forward(cfg, mode, 4, 4, 8, 32, eng.params, tokens,
-                               pool.k, pool.v, table, lengths, n_valid)
+    keys = torch.tensor([[0, 0], [3, -7], [0, 0], [11, 12]],
+                        dtype=torch.int32)
+    temps = torch.tensor([0.0, 0.8, 0.0, 1.1])
+    last = _serve_forward(cfg, mode, 4, 4, 8, 32, eng.params, tokens,
+                          pool.k, pool.v, table, lengths, n_valid)
+    tok = sample_slots(last, keys, temps)
     monkeypatch.undo()
-    assert out.shape == (4,) and last.shape == (4, cfg.vocab_size)
+    assert last.shape == (4, cfg.vocab_size) and tok.shape == (4,)
     assert torch.isfinite(last).all()
 
 

@@ -135,8 +135,8 @@ def test_serve_greedy_tokens_match_jax(engines, prompts):
 
 
 def test_serve_sampled_is_seeded(engines, prompts):
-    """Temperature sampling draws from a seeded generator: the same seed
-    gives the same tokens, the tokens are valid ids."""
+    """Temperature sampling draws by the seed's JAX key chain: the same
+    seed gives the same tokens, the tokens are valid ids."""
     _, eng, _ = engines
     a = eng.serve(prompts, 4, temperature=0.8, seed=5)
     b = eng.serve(prompts, 4, temperature=0.8, seed=5)

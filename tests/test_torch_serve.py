@@ -24,7 +24,7 @@ from triton_dist_tpu_torch.serve import (
     RequestState,
     Scheduler,
     pages_for,
-    sampling_seed,
+    sampling_key,
 )
 
 CFG = dict(num_q_heads=4, num_kv_heads=2, max_positions=64)
@@ -136,9 +136,10 @@ def test_eviction_keeps_tokens(engines, prompts):
 
 
 def test_sampled_tokens_invariant_to_slot_placement(engines, prompts):
-    """Temperature > 0: each token's generator is seeded from (request
-    seed, token index), so a request samples the same tokens alone in
-    slot 0 and behind other requests in another slot."""
+    """Temperature > 0: each token is drawn under the key of (request
+    seed, token index), fold_in(PRNGKey(seed), index), so a request
+    samples the same tokens alone in slot 0 and behind other requests in
+    another slot."""
     _, eng = engines
     target = prompts[2]
     alone = Scheduler(eng, **GEO)
@@ -151,7 +152,7 @@ def test_sampled_tokens_invariant_to_slot_placement(engines, prompts):
     r1 = crowded.submit(target, GEN, temperature=0.9, seed=11)
     crowded.run()
     assert r1.slot == -1 and r0.out_tokens == r1.out_tokens
-    assert sampling_seed(11, 0) != sampling_seed(11, 1)
+    assert sampling_key(11, 0).tolist() != sampling_key(11, 1).tolist()
 
 
 def test_pool_allocator(engines):

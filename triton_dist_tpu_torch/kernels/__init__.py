@@ -1,7 +1,10 @@
 """Hand-written CUDA kernels of the port, each beside its plain version.
 
 `KERNELS` maps every kernel's name to its counted wrapper;
-`reset_launches()` / `launches()` read and clear the launch counts.
+`reset_launches()` / `launches()` read and clear the launch counts. The
+resident loop's `ring_boundary` and `ring_emit` (kernels/ring.py) are
+registered when that module is imported (models/engine.py imports it):
+it reads mega/ring.py's layouts, whose package imports the model.
 
 `all_to_all` and `grouped_gemm` are submodules and functions of them:
 the functions are not re-exported here, so `from triton_dist_tpu_torch.
@@ -131,4 +134,11 @@ SOURCES = {
     "gemm_rs_wire": "gemm_reduce_scatter",
     "ag_gemm_wire": "allgather_gemm",
     "grouped_gemm_f32": "grouped_gemm",
+    "sample_slots": "sample",
+    "ring_boundary": "ring",
+    "ring_emit": "ring",
 }
+from triton_dist_tpu_torch.kernels.sample import (  # noqa: F401,E402
+    sample_slots,
+    sample_slots_plain,
+)

@@ -242,7 +242,9 @@ class MegaQwen3:
     "cpu" runs the kernel's plain version (kernel.run_plain). world: the
     tensor-parallel size n, run as n ranks of one launch on the one card.
     cuda_graph: on the card, replay the step as a captured CUDA graph;
-    False runs it eagerly.
+    False runs it eagerly. donate_cache: step the caller's cache in place
+    (True, the JAX default) or a copy of it, leaving the caller's as it
+    was (on the card the graph then binds the copy).
     """
 
     def __init__(self, cfg: ModelConfig, world: int = 1, batch: int = 1,
@@ -250,7 +252,7 @@ class MegaQwen3:
                  params: Optional[DenseLLMParams] = None, device=None,
                  paged: bool = False, page_size: Optional[int] = None,
                  total_pages: Optional[int] = None, seed: int = 0,
-                 cuda_graph: bool = True):
+                 cuda_graph: bool = True, donate_cache: bool = True):
         if cfg.is_moe:
             raise ValueError("the megakernel covers the dense decode graph")
         check_world(cfg, world)
@@ -314,6 +316,7 @@ class MegaQwen3:
             batch * nch, dtype=torch.int32,
             device=self.device).reshape(batch, nch)
         self.cuda_graph = cuda_graph and self.device.type == "cuda"
+        self.donate_cache = donate_cache
         self.graphs = GraphCache(8)
 
     def _stack_norms(self) -> torch.Tensor:
@@ -467,10 +470,19 @@ class MegaQwen3:
         return PagedMegaKVCache.from_dense(cache, self.page,
                                            self.total_pages, self.max_pages)
 
+    def _stepped(self, cache):
+        """The cache a step advances: the caller's, or with
+        donate_cache=False a copy of it."""
+        if self.donate_cache:
+            return cache
+        return type(cache)(*(t.clone() for t in cache))
+
     def decode_step(self, tokens, cache):
-        """tokens (B,) -> (logits (B, V) f32, cache), the cache advanced in
-        place and returned. On the card a replay of the captured step."""
+        """tokens (B,) -> (logits (B, V) f32, cache), the cache returned
+        advanced (the one given, or its copy with donate_cache=False). On
+        the card a replay of the captured step."""
         tok = self._tokens(tokens)
+        cache = self._stepped(cache)
         if not self.cuda_graph:
             return self._step_fn(cache, tok.clone())(True)[0], cache
         return self._replayed(cache, tok, 1).clone(), cache
@@ -483,6 +495,7 @@ class MegaQwen3:
         if steps < 1:
             raise ValueError("steps must be at least 1")
         tok = self._tokens(tokens)
+        cache = self._stepped(cache)
         out = torch.empty((self.batch, steps), dtype=torch.int32,
                           device=self.device)
         if self.cuda_graph:

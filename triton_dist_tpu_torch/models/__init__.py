@@ -13,7 +13,7 @@ from triton_dist_tpu_torch.models.dense import (  # noqa: F401
     pp_stage_fn,
     shard_params,
 )
-from triton_dist_tpu_torch.models.engine import Engine, sample_token  # noqa: F401
+from triton_dist_tpu_torch.models.engine import Engine  # noqa: F401
 from triton_dist_tpu_torch.models.qwen_moe import (  # noqa: F401
     auto_engine,
     qwen3_moe_engine,

@@ -29,32 +29,57 @@ or a pair of pools, and the cache or pools a call brings are bound to it
 (runtime/graphs.py `Resident`: copied in the first time, then views of
 the graph's memory), so every cache of one shape, a fresh prefill's too,
 replays the same graph. Inputs are copied into the graph's static
-buffers before each replay. A sampled `generate` draws inside the graph
-from the graph's own generator, registered with it
-(`CUDAGraph.register_generator_state`), which takes the caller's
-generator's state before the replays and hands it back after, so the
-draws are bitwise the eager ones. `prefill` stays eager.
+buffers before each replay. A sampled `generate` splits its JAX key on
+the card each step, so the draws are bitwise the eager ones. `prefill`
+stays eager.
 `Engine(cuda_graph=False)` runs every step eagerly on the card, for A/B
 runs and tests, through the same step functions; the CPU is always
-eager. Either way `decode_step` and `generate` write the step's K/V rows
-and advance `cache.length` in place and return the cache they were
-given.
+eager.
+
+The cache: with `donate_cache=True` (the default, as the JAX Engine's)
+`decode_step` and `generate` write the step's K/V rows and advance
+`cache.length` in the cache given and return it; on the card that cache
+becomes a view of its graph's state. With `donate_cache=False` they step
+a copy and return it, and the cache passed in keeps its value, bitwise:
+the eager route clones it, and a graph binds the clone.
 
 Sampling: greedy is argmax. With temperature > 0 a token is drawn by the
-Gumbel-max rule from a `torch.Generator`: in `generate`, one generator
-for the batch; in the serve step, one per slot, seeded from (request
-seed, output token index) so a request's sampled tokens do not depend on
-scheduling, as the JAX key stream does (engine.py:299-303). The bits
-differ from the JAX package's: the two draw different random numbers.
+Gumbel-max rule on the JAX package's threefry key stream, by the
+`sample_slots` kernel (kernels/sample.py): the serve step samples each
+slot under the key the caller derives from (request seed, output token
+index) (`serve.worker.sampling_key`, as the JAX Worker), so a request's
+sampled tokens do not depend on scheduling and equal the JAX package's;
+`serve` and `generate` follow the JAX `PRNGKey(seed)` / `split` chain.
+
+The resident loop (`make_resident_loop`, JAX engine.py:371): a window of
+up to W serve steps in one call, the work injected through the ring of
+mega/ring.py and consumed on the card at each step boundary. On the card
+the window is one CUDA graph of W unrolled steps, each `ring_boundary`
+(kernels/ring.py) -> the serve forward -> `sample_slots` -> `ring_emit`,
+then a final `ring_boundary`; the loop's exit is a device word, so the
+steps after it run dead (no live row; their KV writes land on the null
+page 0). The host writes the window's inputs once and reads its state
+block back once. On the CPU the window is a Python loop over the same
+functions' plain versions, stopping at the exit.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import weakref
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from triton_dist_tpu_torch.kernels import ring as kring
+from triton_dist_tpu_torch.kernels.sample import (
+    as_int32,
+    key_words,
+    sample_slots,
+    seed_key,
+    split,
+)
+from triton_dist_tpu_torch.mega import ring as mring
 from triton_dist_tpu_torch.models.config import ModelConfig
 from triton_dist_tpu_torch.models.dense import (
     SEQ_SHARDED_MODES,
@@ -73,30 +98,22 @@ from triton_dist_tpu_torch.runtime.graphs import (
 from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
 
-def sample_token(logits: torch.Tensor,
-                 generator: Optional[torch.Generator] = None,
-                 temperature: float = 0.0) -> torch.Tensor:
-    """logits (B, V) f32 -> (B,) int64: argmax at temperature <= 0 (or
-    with no generator), else argmax(logits / T + Gumbel noise), a draw
-    from softmax(logits / T)."""
-    if temperature <= 0.0 or generator is None:
-        return torch.argmax(logits, dim=-1)
-    e = torch.empty_like(logits, dtype=torch.float32).exponential_(
-        generator=generator)
-    return torch.argmax(logits.float() / temperature - torch.log(e), dim=-1)
+def _key_rows(key, rows: int, device) -> torch.Tensor:
+    """A JAX key's words as the (rows, 2) int32 of one shared draw."""
+    w = torch.as_tensor(as_int32(key_words(key)), device=device)
+    return w.expand(rows, 2).contiguous()
 
 
 def _serve_forward(cfg: ModelConfig, mode: str, slots: int, chunk: int,
                    page: int, t_pool: int, params: DenseLLMParams, tokens,
                    pool_k, pool_v, table, lengths, n_valid):
     """One fixed-geometry (slots, chunk) forward over the paged pool's
-    dense view, the greedy token at column n_valid - 1, and the KV
-    scatter back into the pool with padding columns routed to the null
-    page 0: everything of the serve step that runs on the card, with no
-    host read (a CUDA graph captures it). tokens (K, C), table (K, MAXP),
-    lengths (K,), n_valid (K,) are int64 tensors on the pool's device;
-    pool_k / pool_v are updated in place. Returns (argmax (K,),
-    last_logits (K, V) f32)."""
+    dense view, the logits at column n_valid - 1, and the KV scatter back
+    into the pool with padding columns routed to the null page 0:
+    everything of the serve step before the sampling, with no host read
+    (a CUDA graph captures it). tokens (K, C), table (K, MAXP), lengths
+    (K,), n_valid (K,) are int64 tensors on the pool's device; pool_k /
+    pool_v are updated in place. Returns last_logits (K, V) f32."""
     dev = tokens.device
     n = params.world_size
     cache = KVCache.dense_view(pool_k, pool_v, table, lengths, n)
@@ -104,7 +121,6 @@ def _serve_forward(cfg: ModelConfig, mode: str, slots: int, chunk: int,
                                 return_full_logits=True)  # (K, C, V)
     bidx = torch.arange(slots, device=dev)
     last = logits[bidx, (n_valid - 1).clamp(min=0)]  # (K, V)
-    tok = torch.argmax(last, dim=-1)
 
     # this step's K/V rows back into the pool: valid columns land on
     # their table pages; padding columns go to the null page 0 (their
@@ -122,20 +138,178 @@ def _serve_forward(cfg: ModelConfig, mode: str, slots: int, chunk: int,
         rows = rows.permute(0, 1, 4, 2, 3, 5).reshape(L, n * h, slots,
                                                        chunk, d)
         pool[:, :, pg, off] = rows.to(pool.dtype)
-    return tok, last
+    return last
 
 
-def _sample_slots(tok: torch.Tensor, last: torch.Tensor, temps: np.ndarray,
-                  seeds: np.ndarray) -> torch.Tensor:
-    """The step's next tokens: a copy of the greedy `tok`, each slot with
-    temperature > 0 drawn from its logits row by its own generator
-    (seeded from its seed); temps / seeds (K,) are host arrays."""
-    tok = tok.clone()
-    for slot in np.flatnonzero(np.asarray(temps) > 0.0):
-        gen = torch.Generator(device=tok.device).manual_seed(int(seeds[slot]))
-        tok[slot] = sample_token(last[slot:slot + 1], gen,
-                                 float(temps[slot]))[0]
-    return tok
+class WindowResult(NamedTuple):
+    """A resident window's outputs (the JAX loop's contract), host side:
+    the ring's consumed count, the live steps executed, the slot state
+    (K, 16), table (K, MAXP) and lengths (K,) int32, the output ring's
+    first out_count records (out_count, 8) int32, out_count, and whether
+    the head record was found abandoned."""
+
+    consumed: int
+    executed: int
+    slot_state: np.ndarray
+    table: np.ndarray
+    lengths: np.ndarray
+    out_ring: np.ndarray
+    out_count: int
+    starved: bool
+
+
+class ResidentLoop:
+    """The resident serving loop of one geometry (`Engine.
+    make_resident_loop`), callable once a window:
+
+      loop(ring (cap, RW) int32 on the engine's device, published,
+           consumed, step0, slot_state (K, 16), table (K, MAXP),
+           lengths (K,) (host int32 arrays), pool_k, pool_v,
+           steps=None) -> WindowResult
+
+    `steps` (default the loop's `window`, at most it) is this window's
+    length W: the loop's exit rule is `executed < W`. The window's state
+    is one int32 block on the device (kernels/ring.py `WindowGeometry`):
+    the call writes its inputs (the counters, the slot state, the table
+    and the lengths) with one copy, runs up to W steps, and reads the
+    block back with one copy, `reads` counting the reads. The pools are
+    updated in place. On the card a window of W steps is the replay of
+    one captured graph of W unrolled steps (`graphs[W]`, captured at the
+    first window of that length); the graphs share one `Resident` state,
+    which owns the pools the call's are bound to, as the serve step's
+    does, and one graph memory pool (`graph_pool`): they replay one at a
+    time, and their state (the block, the step buffers, the ring, the
+    pools) lives outside it. `ring` is the loop's ring buffer, which a caller may fill
+    (`upload_ring`) and pass (else the call copies the ring given into
+    it). The inputs go through pinned staging, so a window's one
+    synchronisation is its read."""
+
+    def __init__(self, engine: "Engine", slots: int, chunk: int, page: int,
+                 max_pages: int, window: int, ring_cap: int,
+                 prompt_cap: int, poll_budget: int):
+        if window < 1 or ring_cap < 2 or poll_budget < 1:
+            raise ValueError("a resident loop needs window >= 1, ring_cap "
+                             ">= 2 and poll_budget >= 1")
+        if not 1 <= slots <= kring.MAX_SLOTS:
+            raise ValueError(f"{slots} slots: the resident loop takes 1 to "
+                             f"{kring.MAX_SLOTS}")
+        # the engine holds its loops: a weak reference back, so a dropped
+        # engine frees its loops' graphs at once, not at a collection
+        self._engine = weakref.ref(engine)
+        self.page = page
+        self.t_pool = max_pages * page
+        # every step may emit on every slot, plus one token-less record
+        # per host retirement the ring can carry
+        self.geo = kring.WindowGeometry(slots, chunk, max_pages,
+                                        window * slots + ring_cap, window,
+                                        poll_budget)
+        dev = engine.device
+        self.ring = torch.zeros(
+            (ring_cap, mring.ring_width(max_pages, prompt_cap, chunk)),
+            dtype=torch.int32, device=dev)
+        self.blk = self.geo.new_block(dev)
+        self.bufs = kring.StepBuffers.create(self.geo, dev)
+        # host staging of the window's inputs and of the ring: pinned on
+        # the card, so their copies are queued on the stream and sync
+        # nothing (the window's read comes after them)
+        pin = dev.type == "cuda"
+        self._inputs = torch.zeros((self.geo.out_at,), dtype=torch.int32,
+                                   pin_memory=pin)
+        self._ring_host = torch.zeros(self.ring.shape, dtype=torch.int32,
+                                      pin_memory=pin)
+        self.graphs: dict = {}  # window length -> StepGraph
+        self.graph_pool = None  # the graphs' one memory pool, on the card
+        self.state: Optional[Resident] = None
+        self.reads = 0
+
+    @property
+    def engine(self) -> "Engine":
+        return self._engine()
+
+    def upload_ring(self, buf: np.ndarray) -> None:
+        """The host ring `buf` (cap, RW) int32 into the loop's ring buffer,
+        queued on the current stream."""
+        self._ring_host.numpy()[...] = buf
+        self.ring.copy_(self._ring_host, non_blocking=True)
+
+    def _window(self, pool_k, pool_v, steps: int, stop_early: bool) -> None:
+        """A window's steps over the state block: `steps` unrolled steps
+        (or, with stop_early, until the loop's exit, read on the host),
+        then the final boundary."""
+        eng, bufs = self.engine, self.bufs
+        geo = self.geo._replace(window=steps)
+        for _ in range(steps):
+            kring.ring_boundary(self.ring, self.blk, geo, bufs)
+            if stop_early and not int(self.blk[kring.H_STEP_LIVE]):
+                break
+            last = _serve_forward(eng.cfg, eng.decode_mode, geo.slots,
+                                  geo.chunk, self.page, self.t_pool,
+                                  eng.params, bufs.tokens, pool_k, pool_v,
+                                  bufs.table, bufs.lengths, bufs.n_valid)
+            tok = sample_slots(last, bufs.keys, bufs.temps)
+            kring.ring_emit(tok, self.blk, geo, bufs)
+        kring.ring_boundary(self.ring, self.blk, geo, bufs, final=True)
+
+    def _capture(self, pool_k, pool_v, steps: int) -> StepGraph:
+        """A window of `steps` steps as one graph; its warm-up runs the
+        window eagerly on the call's state and puts the block back (the
+        pools' rows it wrote are the ones the first replay rewrites)."""
+        if self.state is None:
+            self.state = Resident((pool_k, pool_v))
+        self.state.bind((pool_k, pool_v))
+
+        def fn(commit: bool):
+            if not commit:
+                saved = self.blk.clone()
+            self._window(*self.state.tensors, steps, stop_early=False)
+            if not commit:
+                self.blk.copy_(saved)
+
+        if self.graph_pool is None:
+            self.graph_pool = torch.cuda.graph_pool_handle()
+        return StepGraph(fn, self.engine.device, pool=self.graph_pool)
+
+    def __call__(self, ring, published: int, consumed: int, step0: int,
+                 slot_state, table, lengths, pool_k, pool_v,
+                 steps: Optional[int] = None) -> WindowResult:
+        geo = self.geo
+        steps = geo.window if steps is None else steps
+        if not 1 <= steps <= geo.window:
+            raise ValueError(f"a window of {steps} steps: the loop takes 1 "
+                             f"to {geo.window}")
+        if ring.data_ptr() != self.ring.data_ptr():
+            self.ring.copy_(ring)
+        inputs = self._inputs.numpy()
+        inputs[:kring.HEADER_WORDS] = 0
+        inputs[kring.H_PUBLISHED] = published
+        inputs[kring.H_CONSUMED] = consumed
+        inputs[kring.H_STEP0] = step0
+        inputs[kring.H_LIVE] = 1
+        for at, x in ((geo.ss_at, slot_state), (geo.table_at, table),
+                      (geo.lengths_at, lengths)):
+            x = np.asarray(x, np.int32).ravel()
+            inputs[at:at + x.size] = x
+        self.blk[:geo.out_at].copy_(self._inputs, non_blocking=True)
+        eng = self.engine
+        if not eng.cuda_graph:
+            self._window(pool_k, pool_v, steps,
+                         stop_early=eng.device.type == "cpu")
+        else:
+            g = self.graphs.get(steps)
+            if g is None:
+                g = self.graphs[steps] = self._capture(pool_k, pool_v, steps)
+            self.state.bind((pool_k, pool_v))
+            g.replay()
+        blk = self.blk.cpu().numpy()  # the window's one read
+        self.reads += 1
+        hdr, ss, tb, ln, out = geo.views(torch.from_numpy(blk))
+        count = int(hdr[kring.H_OUT_COUNT])
+        return WindowResult(
+            consumed=int(hdr[kring.H_CONSUMED]),
+            executed=int(hdr[kring.H_EXECUTED]), slot_state=ss.numpy(),
+            table=tb.numpy(), lengths=ln.numpy(),
+            out_ring=out[:count].numpy(), out_count=count,
+            starved=bool(hdr[kring.H_STARVED]))
 
 
 class Engine:
@@ -147,13 +321,14 @@ class Engine:
     strings, "dist", "xla" or "ar" (an MoE config also "fused"), with its
     defaults. Dense and MoE configs share the Engine. cuda_graph: on the
     card, replay each decode and serve step as a captured CUDA graph (the
-    module docstring); False runs them eagerly."""
+    module docstring); False runs them eagerly. donate_cache: step the
+    caller's cache in place (True, the JAX default) or a copy of it."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  params: Optional[DenseLLMParams] = None, seed: int = 0,
                  max_len: Optional[int] = None, world: int = 1,
                  prefill_mode: str = "dist", decode_mode: str = "ar",
-                 cuda_graph: bool = True):
+                 cuda_graph: bool = True, donate_cache: bool = True):
         check_modes(prefill_mode, decode_mode, cfg.is_moe)
         self.cfg = cfg
         self.prefill_mode = prefill_mode
@@ -172,8 +347,10 @@ class Engine:
                              f"{self.params.world_size} ranks, the engine "
                              f"runs {world}: see dense.shard_params")
         self.cuda_graph = cuda_graph and self.device.type == "cuda"
+        self.donate_cache = donate_cache
         self.decode_graphs = GraphCache(8)
         self.serve_graphs = GraphCache(2)
+        self.resident_loops: dict = {}
 
     def _ids(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -195,11 +372,18 @@ class Engine:
         return forward(self.cfg, self.params, ids, cache,
                        mode=self.prefill_mode)
 
+    def _stepped(self, cache: KVCache) -> KVCache:
+        """The cache a step advances: the caller's, or with
+        donate_cache=False a copy of it."""
+        return cache if self.donate_cache else cache.clone()
+
     def decode_step(self, tokens, cache: KVCache):
         """tokens (B,) -> (logits (B, V) f32, cache): the step's K/V rows
-        written and cache.length advanced in place, the cache given
-        returned. On the card a replay of the captured step."""
+        written and the length advanced in the cache returned (the one
+        given, or its copy with donate_cache=False). On the card a replay
+        of the captured step."""
         tok = self._ids(tokens)
+        cache = self._stepped(cache)
         if not self.cuda_graph:
             logits, _ = self._decode_fn(cache, tok.clone())(True)
             return logits, cache
@@ -207,96 +391,119 @@ class Engine:
         return self._replayed(g, cache, tok, 1).clone(), cache
 
     def generate(self, tokens, cache: KVCache, steps: int,
-                 temperature: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
-        """Decode `steps` tokens after `tokens` (B,), one forward each, the
-        cache advanced in place. Returns (ids (B, steps) int64, cache). On
-        the card each step is a replay of the captured step, which samples
-        and feeds the token back on the card."""
+                 temperature: float = 0.0, key=None):
+        """Decode `steps` tokens after `tokens` (B,), one forward each.
+        Returns (ids (B, steps) int64, cache) as `decode_step`. Greedy at
+        temperature <= 0 or with no key, as the JAX Engine.generate; else
+        by its chain from the JAX key `key` ((2,) words): each step
+        `key, sub = split(key)`, then categorical(sub) over the (B, V)
+        logits / T. On the card each step is a replay of the captured
+        step, which samples and feeds the token back on the card."""
         tok = self._ids(tokens)
+        cache = self._stepped(cache)
+        key_buf = None
+        if key is not None and temperature > 0.0:
+            key_buf = _key_rows(key, 1, self.device)
         if not self.cuda_graph:
-            step = self._decode_fn(cache, tok.clone(), temperature, generator)
+            step = self._decode_fn(cache, tok.clone(), temperature, key_buf)
             out = [step(True)[1].clone() for _ in range(steps)]
             return torch.stack(out, dim=1), cache
-        g = self._decode_graph(cache, tok, temperature, generator)
+        g = self._decode_graph(cache, tok, temperature, key_buf is not None)
         out = torch.empty((tok.shape[0], steps), dtype=torch.int64,
                           device=self.device)
-        self._replayed(g, cache, tok, steps, generator, out)
+        if key_buf is not None:
+            g.key.copy_(key_buf)
+        self._replayed(g, cache, tok, steps, out)
         return out, cache
 
     def _decode_fn(self, cache: KVCache, tok: torch.Tensor,
                    temperature: float = 0.0,
-                   generator: Optional[torch.Generator] = None):
+                   key: Optional[torch.Tensor] = None):
         """The decode step, step(commit) -> (logits, tok): the forward of
-        the token in `tok` (B,) over `cache`, then the sampled token
-        (argmax, or the draw from `generator`); with commit it advances
-        cache.length and feeds the token back into `tok`, without it it
-        leaves both (a graph's warm-up). A graph captures it; the eager
-        routes call it."""
+        the token in `tok` (B,) over `cache`, then the next token (the
+        argmax, or with `key` (1, 2) int32 the JAX chain's draw at
+        `temperature` under split(key)[1]); with commit it
+        advances cache.length, feeds the token back into `tok` and
+        advances `key` to split(key)[0], without it it leaves them (a
+        graph's warm-up). A graph captures it; the eager routes call
+        it."""
+        keyed = key is not None
+        if keyed:
+            b = tok.shape[0]
+            temps = torch.full((b,), float(temperature), dtype=torch.float32,
+                               device=tok.device)
+            key_next = torch.zeros((b, 2), dtype=torch.int32,
+                                   device=tok.device)
 
         def step(commit: bool):
             logits, new = forward(self.cfg, self.params, tok[:, None],
                                   cache, mode=self.decode_mode)
-            nxt = sample_token(logits, generator, temperature)
+            if keyed:
+                nxt = sample_slots(logits, key.expand(b, 2).contiguous(),
+                                   temps, flat=True, key_next=key_next)
+            else:
+                nxt = torch.argmax(logits, dim=-1)
             if commit:
                 cache.length.copy_(new.length)
                 tok.copy_(nxt)
+                if keyed:
+                    key.copy_(key_next[:1])
             return logits, tok
 
+        # a graph of the step reads and writes these: its owner keeps them
+        step.buffers = (temps, key_next) if keyed else ()
         return step
 
     def _decode_graph(self, cache: KVCache, tok: torch.Tensor,
                       temperature: float = 0.0,
-                      generator: Optional[torch.Generator] = None
-                      ) -> StepGraph:
+                      keyed: bool = False) -> StepGraph:
         """The captured decode step for caches shaped as `cache`, greedy
-        or sampled at `temperature`: it reads the static token `.tok`
-        (B,), writes the step's K/V rows into its own cache `.state`,
-        advances its length, samples (argmax, or the Gumbel draw from its
-        own generator `.generator`) and feeds the token back into `.tok`;
-        outputs (logits, tok). A new graph binds `cache` and warms up on
-        `tok`, the step's own state."""
-        sampled = temperature > 0.0 and generator is not None
+        or, `keyed`, sampled at `temperature` by a JAX key: it reads the
+        static token `.tok` (B,), writes the step's K/V rows into its own
+        cache `.state`, advances its length, takes the next token (the
+        argmax, or the draw under its static key `.key`, which it splits)
+        and feeds it back into `.tok`; outputs (logits, tok). A new graph
+        binds `cache` and warms up on `tok`, the step's own state."""
         key = (shape_key(cache.k, cache.v, cache.length),
-               float(temperature) if sampled else None)
+               float(temperature) if keyed else None)
 
         def make():
             state = Resident((cache.k, cache.v, cache.length))
             state.bind((cache.k, cache.v, cache.length))
             static = tok.clone()
-            gen = torch.Generator(device=self.device) if sampled else None
-            g = StepGraph(self._decode_fn(KVCache(*state.tensors), static,
-                                          temperature, gen),
-                          self.device, [gen] if sampled else [])
-            g.state, g.tok, g.generator = state, static, gen
+            kbuf = (torch.zeros((1, 2), dtype=torch.int32,
+                                device=self.device) if keyed else None)
+            fn = self._decode_fn(KVCache(*state.tensors), static,
+                                 temperature, kbuf)
+            g = StepGraph(fn, self.device)
+            g.state, g.tok, g.key = state, static, kbuf
+            g.buffers = fn.buffers
             return g
 
         return self.decode_graphs.get(key, make)
 
     @staticmethod
     def _replayed(g: StepGraph, cache: KVCache, tok: torch.Tensor,
-                  steps: int, generator: Optional[torch.Generator] = None,
-                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  steps: int, out: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
         """`steps` replays of the decode graph `g` from token `tok` over
-        `cache`, bound to the graph's state; a sampled graph draws from
-        `generator`'s state, which it takes back after. out[:, i] gets
-        the i-th token. Returns the last logits (the graph's buffer)."""
+        `cache`, bound to the graph's state. out[:, i] gets the i-th
+        token. Returns the last logits (the graph's buffer)."""
         g.state.bind((cache.k, cache.v, cache.length))
         g.tok.copy_(tok)
-        if g.generator is not None:
-            g.generator.set_state(generator.get_state())
         for i in range(steps):
             logits, nxt = g.replay()
             if out is not None:
                 out[:, i].copy_(nxt)
-        if g.generator is not None:
-            generator.set_state(g.generator.get_state())
         return logits
 
     def serve(self, input_ids, gen_len: int, temperature: float = 0.0,
               seed: int = 0, slots: Optional[int] = None,
               chunk: Optional[int] = None, page: Optional[int] = None):
         """Prefill + gen_len decode steps. Returns ids (B, gen_len) int64.
+        Sampled by the JAX Engine.serve's key chain: key = PRNGKey(seed);
+        key, sub = split(key) draws the first token, key, sub =
+        split(key) seeds `generate`'s chain.
 
         With `slots` set, the rows instead go through a fresh
         continuous-batching Scheduler at the (slots, chunk, page) serve
@@ -314,14 +521,21 @@ class Engine:
             sch.run()
             return torch.tensor([r.out_tokens for r in reqs],
                                 dtype=torch.int64, device=self.device)
-        gen = None
-        if temperature > 0.0:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
+        key, sub = split(seed_key(seed))
         logits, cache = self.prefill(input_ids)
-        tok = sample_token(logits, gen, temperature)
+        b = logits.shape[0]
+        if temperature > 0.0:
+            tok = sample_slots(logits, _key_rows(sub, b, self.device),
+                               torch.full((b,), float(temperature),
+                                          dtype=torch.float32,
+                                          device=self.device), flat=True)
+        else:
+            tok = torch.argmax(logits, dim=-1)
         if gen_len == 1:
             return tok[:, None]
-        rest, _ = self.generate(tok, cache, gen_len - 1, temperature, gen)
+        key, sub = split(key)
+        rest, _ = self.generate(tok, cache, gen_len - 1, temperature,
+                                key=sub)
         return torch.cat([tok[:, None], rest], dim=1)
 
     # -- serve step (the Scheduler's batch-of-sequence-states contract) --
@@ -332,14 +546,16 @@ class Engine:
 
           fn(tokens (K, C), pool_k, pool_v (L, Hkv, P, page, D) with
              rank r's heads at [r*Hkv/n, (r+1)*Hkv/n),
-             table (K, MAXP), lengths (K,), n_valid (K,), temps (K,),
-             seeds (K,)) -> (next_token (K,), last_logits (K, V) f32)
+             table (K, MAXP), lengths (K,), n_valid (K,), temps (K,) f32,
+             keys (K, 2) (JAX key words)) -> (next_token (K,) int64,
+             last_logits (K, V) f32)
 
-        On the card the function replays the captured `_serve_forward`
-        (dense view, forward, last logits, argmax, pool scatter) after
-        binding the pools to the graph's and copying the step's tensors
-        into its static buffers; the sampled slots are then drawn from
-        the replay's last logits, as the eager step draws them. The last
+        next_token is the argmax where temps <= 0, else the categorical
+        draw on logits / max(T, 1e-6) under the slot's key (the JAX
+        serve step's rule; `sample_slots`). On the card the function
+        replays the captured step (dense view, forward, last logits,
+        pool scatter, sampling) after binding the pools to the graph's
+        and copying the step's tensors into its static buffers. The last
         logits returned are the graph's own buffer, valid until the next
         step.
 
@@ -352,21 +568,38 @@ class Engine:
         self._check_serve_geometry(slots, chunk, page, max_pages)
         t_pool = max_pages * page
         cfg, params, mode = self.cfg, self.params, self.decode_mode
+        dev = self.device
+
+        def args(tokens, table, lengths, n_valid, temps, keys):
+            def ids(x):
+                return torch.as_tensor(x, device=dev).to(torch.int64)
+
+            return (ids(tokens), ids(table), ids(lengths), ids(n_valid),
+                    torch.as_tensor(temps, device=dev).to(torch.float32),
+                    torch.as_tensor(as_int32(np.asarray(keys))
+                                    if not isinstance(keys, torch.Tensor)
+                                    else keys, device=dev).to(torch.int32))
+
+        def run(tokens, pool_k, pool_v, table, lengths, n_valid, temps,
+                keys):
+            last = _serve_forward(cfg, mode, slots, chunk, page, t_pool,
+                                  params, tokens, pool_k, pool_v, table,
+                                  lengths, n_valid)
+            return sample_slots(last, keys, temps), last
 
         if not self.cuda_graph:
             def step(tokens, pool_k, pool_v, table, lengths, n_valid, temps,
-                     seeds):
-                tok, last = _serve_forward(cfg, mode, slots, chunk, page,
-                                           t_pool, params, tokens, pool_k,
-                                           pool_v, table, lengths, n_valid)
-                return _sample_slots(tok, last, temps, seeds), last
+                     keys):
+                t, tb, ln, nv, tp, ks = args(tokens, table, lengths, n_valid,
+                                             temps, keys)
+                return run(t, pool_k, pool_v, tb, ln, nv, tp, ks)
 
             return step
 
         def step(tokens, pool_k, pool_v, table, lengths, n_valid, temps,
-                 seeds):
+                 keys):
             key = (slots, chunk, page, max_pages, shape_key(pool_k, pool_v))
-            inputs = (tokens, table, lengths, n_valid)
+            inputs = args(tokens, table, lengths, n_valid, temps, keys)
 
             def make():
                 state = Resident((pool_k, pool_v))
@@ -374,9 +607,8 @@ class Engine:
                 static = [x.clone() for x in inputs]
 
                 def fwd(commit: bool):
-                    return _serve_forward(cfg, mode, slots, chunk, page,
-                                          t_pool, params, static[0],
-                                          *state.tensors, *static[1:])
+                    t, tb, ln, nv, tp, ks = static
+                    return run(t, *state.tensors, tb, ln, nv, tp, ks)
 
                 g = StepGraph(fwd, self.device)
                 g.state, g.static = state, static
@@ -386,10 +618,39 @@ class Engine:
             g.state.bind((pool_k, pool_v))
             for dst, src in zip(g.static, inputs):
                 dst.copy_(src)
-            tok, last = g.replay()
-            return _sample_slots(tok, last, temps, seeds), last
+            return g.replay()
 
         return step
+
+    def make_resident_loop(self, slots: int, chunk: int, page: int,
+                           max_pages: int, window: int, ring_cap: int = 64,
+                           prompt_cap: Optional[int] = None,
+                           poll_budget: int = 8) -> ResidentLoop:
+        """The resident serving loop (JAX engine.py:371, spec_k = 0): up to
+        `window` serve steps a call, each consuming the injection ring's
+        visible records at its boundary, running the serve step's forward
+        and sampling, self-feeding decode tokens and streaming emitted
+        tokens and retirements into the output ring. A call returns the
+        JAX contract's outputs (`WindowResult`: consumed, executed,
+        slot_state, table, lengths, out_ring, out_count, starved). The
+        loop exits when `window` steps executed, or nothing is active and
+        the pending records' poll budget is spent; `starved` is set when
+        a published head record was never committed (an abandoned ring).
+        Tokens are bitwise the host-loop Scheduler's: both run
+        `_serve_forward` and `sample_slots`, and the boundary builds the
+        host Scheduler's step inputs field for field. One loop is kept
+        per geometry (the JAX executable cache)."""
+        self._check_serve_geometry(slots, chunk, page, max_pages)
+        prompt_cap = prompt_cap if prompt_cap is not None \
+            else max_pages * page
+        key = (slots, chunk, page, max_pages, window, ring_cap, prompt_cap,
+               poll_budget)
+        loop = self.resident_loops.get(key)
+        if loop is None:
+            loop = self.resident_loops[key] = ResidentLoop(
+                self, slots, chunk, page, max_pages, window, ring_cap,
+                prompt_cap, poll_budget)
+        return loop
 
     def _check_serve_geometry(self, slots: int, chunk: int, page: int,
                               max_pages: int) -> None:

@@ -45,6 +45,10 @@ class KVCache:
             length=torch.zeros((batch,), dtype=torch.int64, device=device),
         )
 
+    def clone(self) -> "KVCache":
+        """A copy of every tensor (a step on it leaves this one as is)."""
+        return KVCache(self.k.clone(), self.v.clone(), self.length.clone())
+
     def jax_layout(self):
         """(k, v) in the JAX package's global layout (L, B, T, Hkv, D),
         rank r's heads at [r*Hkv/n, (r+1)*Hkv/n)."""

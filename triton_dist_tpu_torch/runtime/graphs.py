@@ -46,6 +46,7 @@ kernel, `_build.check`); nothing falls back to an eager step.
 
 from __future__ import annotations
 
+import gc
 import time
 import weakref
 from typing import Callable, Dict, Sequence
@@ -73,12 +74,15 @@ class StepGraph:
     """One captured call of `fn` (see the module docstring). `outputs` are
     the captured call's results, rewritten by every replay; `launches`
     the kernels' launches a replay makes; `capture_s` the wall time of
-    the warm-up and the capture; `pool_bytes` the memory the graph's
-    private pool reserved. `generators` are registered with the graph:
-    a replay draws from their states as they stand."""
+    the warm-up and the capture; `pool_bytes` the memory the capture
+    added to the graph's pool. `pool` (`torch.cuda.graph_pool_handle()`)
+    is a memory pool the graph shares with the other graphs captured
+    into it, for graphs replayed one at a time whose capture leaves no
+    memory of the pool holding a value from one replay to the next
+    (their state lives outside it); by default the graph's pool is its
+    own."""
 
-    def __init__(self, fn: Callable[[bool], object], device,
-                 generators: Sequence[torch.Generator] = ()):
+    def __init__(self, fn: Callable[[bool], object], device, pool=None):
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {dev}")
@@ -88,16 +92,25 @@ class StepGraph:
         with torch.cuda.stream(stream):
             fn(False)
         self.graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            self.graph.register_generator_state(g)
+        # no garbage collection inside the capture: collecting another
+        # graph (held in a reference cycle) destroys it, which a capture
+        # does not permit, and the capture is lost
+        gc.collect()
         torch.cuda.synchronize(dev)
         reserved = torch.cuda.memory_reserved(dev)
-        with _build.capturing() as self.capture, torch.cuda.stream(stream):
-            self.graph.capture_begin()
-            try:
-                self.outputs = fn(True)
-            finally:
-                self.graph.capture_end()
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with _build.capturing() as self.capture, \
+                    torch.cuda.stream(stream):
+                self.graph.capture_begin(pool=pool)
+                try:
+                    self.outputs = fn(True)
+                finally:
+                    self.graph.capture_end()
+        finally:
+            if gc_was_on:
+                gc.enable()
         torch.cuda.synchronize(dev)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.launches = self.capture.launches

@@ -1,6 +1,8 @@
-"""Continuous-batching serving plane (host loop): a priority queue, a
-Scheduler that packs prefill chunks and decode tokens into one
-fixed-geometry step, a Worker that runs the step, and a paged KV pool.
+"""Continuous-batching serving plane: a priority queue, a Scheduler that
+packs prefill chunks and decode tokens into one fixed-geometry step, a
+Worker that runs the step, a paged KV pool, and the resident form
+(`Scheduler(resident=True)`: a ResidentWorker feeding windows of the
+Engine's resident loop through an injection ring).
 
     sch = Scheduler(engine, slots=4, chunk=64, page=64)
     req = sch.submit(prompt_ids, max_new_tokens=32)
@@ -21,4 +23,8 @@ from triton_dist_tpu_torch.serve.request import (  # noqa: F401
     summarize,
 )
 from triton_dist_tpu_torch.serve.scheduler import Scheduler  # noqa: F401
-from triton_dist_tpu_torch.serve.worker import Worker, sampling_seed  # noqa: F401
+from triton_dist_tpu_torch.serve.worker import (  # noqa: F401
+    ResidentWorker,
+    Worker,
+    sampling_key,
+)

@@ -11,8 +11,9 @@ it and the serve step routes padding-column KV writes to it, so a
 garbage write never lands on another sequence's page. The allocator
 hands out pages [1, P); `capacity` excludes page 0. Pages carry
 refcounts (1 while a slot holds them, 0 on the free list); the JAX
-version's sharing, copy-on-write and export paths belong to the prefix
-and migration planes, which are not ported.
+version's sharing, copy-on-write and page export paths belong to the
+prefix and migration planes, which are not ported. `as_mega_cache`
+hands the pool to the megakernel's paged decode.
 
 Bookkeeping (free list, page lists, table, lengths) is host numpy, read
 by the scheduler every step.
@@ -155,3 +156,22 @@ class KVPool:
         self._pages[slot] = None
         self.table[slot] = 0
         self.lengths[slot] = 0
+
+    def as_mega_cache(self):
+        """The pool as a mega.qwen3.PagedMegaKVCache (JAX kv_pool.py:378):
+        the layouts are the same, so the megakernel's paged decode runs
+        over serve-plane state. k / v are the pool's own tensors; the
+        table and lengths are int32 copies on the pool's device; the
+        megakernel's bump allocator resumes past the highest page held
+        (it does not see pages freed back to this pool: an export is a
+        decode handoff, not shared ownership)."""
+        from triton_dist_tpu_torch.mega.qwen3 import PagedMegaKVCache
+
+        dev = self.k.device
+        high = max((max(ps) for ps in self._pages if ps), default=0)
+        return PagedMegaKVCache(
+            k=self.k, v=self.v,
+            table=torch.as_tensor(self.table.astype(np.int32), device=dev),
+            length=torch.as_tensor(self.lengths.astype(np.int32),
+                                   device=dev),
+            next_free=torch.tensor(high + 1, dtype=torch.int32, device=dev))

@@ -20,11 +20,24 @@ running batch to drain. Policies, as in the JAX version:
 `chunk` and `page` are plain arguments (the JAX version prices the
 chunk with its perf model). Every step runs in the engine's
 `decode_mode`, as the JAX serve step does: in "dist" or "xla" the world
-must divide slots * chunk (`Engine.make_serve_step` checks). Not ported: the resident loop, speculative
-decoding, the prefix cache, disaggregated roles and migration, the
-retry/quarantine ladder (a failed step raises), cancellation and the
-background serving thread, the obs registry, the flight recorder and
-trace spans.
+must divide slots * chunk (`Engine.make_serve_step` checks).
+
+`resident=True` runs the resident form (JAX scheduler.py:210-257,
+`_resident_pump`): a round injects admissions as ring records and runs
+one window of up to `window` steps (default 16) on the device
+(serve.worker.ResidentWorker), then drains the window's output records
+into the requests. An admission takes a free slot and every page the
+request can touch (prompt + max_new_tokens) at once, and a resident
+batch never evicts. A window is as long as the live steps the host can
+foresee (`_resident_steps`), so that a step after every slot has retired
+is rare: on the card each step of a window runs its forward whether a
+slot is live or not. `resident="auto"` (the perf model's pick) and the
+window's auto-sizing wait for the planner (ROADMAP item 7).
+
+Not ported: speculative decoding, the prefix cache, disaggregated roles
+and migration, the retry/quarantine ladder (a failed step raises),
+cancellation and the background serving thread, the obs registry, the
+flight recorder and trace spans.
 """
 
 from __future__ import annotations
@@ -41,7 +54,9 @@ from triton_dist_tpu_torch.serve.request import (
     TokenStream,
     summarize,
 )
-from triton_dist_tpu_torch.serve.worker import Worker, sampling_seed
+from triton_dist_tpu_torch.faults.errors import DeadlineExceeded
+from triton_dist_tpu_torch.mega import ring as mring
+from triton_dist_tpu_torch.serve.worker import ResidentWorker, Worker
 
 DEFAULT_CHUNK = 64
 
@@ -56,13 +71,30 @@ def _default_page(max_len: int) -> int:
 class Scheduler:
     def __init__(self, engine, slots: int = 2, chunk: Optional[int] = None,
                  page: Optional[int] = None,
-                 total_pages: Optional[int] = None):
+                 total_pages: Optional[int] = None, resident=False,
+                 window: Optional[int] = None,
+                 ring_cap: Optional[int] = None):
         """total_pages: allocatable pool pages (default: every slot can
-        hold a full-horizon sequence); a smaller pool evicts."""
+        hold a full-horizon sequence); a smaller pool evicts. resident:
+        run windows of the resident loop (the module docstring); window
+        and ring_cap configure it."""
+        if resident == "auto":
+            raise NotImplementedError(
+                'resident="auto" needs the perf model\'s serve-mode pick '
+                "(ROADMAP item 7): pass resident=True or False")
+        if not resident and (window is not None or ring_cap is not None):
+            raise ValueError("window / ring_cap configure the resident mode:"
+                             " pass resident=True")
         page = page or _default_page(engine.max_len)
         self.pool = KVPool(engine, slots, page, total_pages=total_pages)
         self.chunk = max(1, min(chunk or DEFAULT_CHUNK, self.pool.t_max))
-        self.worker = Worker(engine, self.pool, self.chunk)
+        self.resident = bool(resident)
+        if self.resident:
+            self.worker = ResidentWorker(engine, self.pool, self.chunk,
+                                         window=window or 16,
+                                         ring_cap=ring_cap)
+        else:
+            self.worker = Worker(engine, self.pool, self.chunk)
         self.queue = RequestQueue()
         self.active: dict = {}  # slot -> Request
         self.requests: List[Request] = []
@@ -108,9 +140,12 @@ class Scheduler:
     # -- the step -------------------------------------------------------
 
     def step(self) -> bool:
-        """One scheduling round: admit, assemble the (slots, chunk) block,
-        run one device step, emit. Returns False when there was nothing
-        to do."""
+        """One scheduling round. Host loop: admit, assemble the (slots,
+        chunk) block, run one device step, emit. Resident: inject
+        admissions as ring records, run one window, drain its records.
+        Returns False when there was nothing to do."""
+        if self.resident:
+            return self._resident_pump()
         self._admit()
         if not self.active:
             return False
@@ -119,7 +154,7 @@ class Scheduler:
         tokens = np.zeros((K, C), np.int64)
         n_valid = np.zeros((K,), np.int64)
         temps = np.zeros((K,), np.float32)
-        seeds = np.zeros((K,), np.int64)
+        keys = np.zeros((K, 2), np.uint32)
         plans = []  # (slot, req, n, emits)
 
         for slot in sorted(self.active):
@@ -142,7 +177,8 @@ class Scheduler:
             n_valid[slot] = n
             if emits:
                 temps[slot] = req.temperature
-                seeds[slot] = sampling_seed(req.seed, len(req.out_tokens))
+                keys[slot] = self.worker.key_for(req.seed,
+                                                 len(req.out_tokens))
             plans.append((slot, req, n, emits))
 
         # a later slot's page demand may have evicted an earlier,
@@ -162,7 +198,7 @@ class Scheduler:
             self.counters["steps"] += 1
             return True
 
-        toks = self.worker.step(tokens, n_valid, temps, seeds)
+        toks = self.worker.step(tokens, n_valid, temps, keys)
         for slot, req, n, emits in plans:
             req.last_active_step = self.worker.n_steps
             if req.state is RequestState.PREFILL:
@@ -187,11 +223,131 @@ class Scheduler:
         policy counters and the pool's pressure."""
         out = summarize(self.requests)
         out.update(self.counters)
+        if self.resident:
+            out["resident_windows"] = self.worker.n_windows
+            out["resident_steps"] = self.worker.n_steps
+            out["ring_depth"] = self.worker.pending_records()
         out["queue_depth"] = len(self.queue)
         out["active_slots"] = len(self.active)
         out["pool_free_pages"] = self.pool.free_pages()
         out["pool_used_pages"] = self.pool.used_pages()
         return out
+
+    # -- resident mode (JAX scheduler.py:625-1000) -----------------------
+
+    def _resident_pump(self) -> bool:
+        """One resident round: inject admissions, run a window, drain its
+        completions. The Scheduler never assembles a step: its decisions
+        travel as ring records and the device feeds decode itself."""
+        self._admit_resident()
+        if not self.active and self.worker.pending_records() == 0:
+            return False
+        steps0 = self.worker.n_steps
+        try:
+            records = self.worker.run_window(self._resident_steps())
+        except DeadlineExceeded as err:
+            # the window ran before the watchdog fired: its emissions are
+            # folded in before the trip propagates
+            self._drain_records(err.out_records)
+            raise
+        self._drain_records(records)
+        self.counters["steps"] += self.worker.n_steps - steps0
+        return True
+
+    def _resident_steps(self) -> int:
+        """The next window's length: the live steps the host can foresee
+        before it has work for the device again (to the earliest
+        retirement while a request waits in the queue, else to the last
+        active request's end, by each one's prefill chunks and token
+        budget), rounded down to the worker's window or a halving of it
+        (a graph each on the card), at least 1. A request that stops at
+        its eos retires sooner, and the steps after the loop's exit run
+        dead."""
+        C = self.chunk
+        ss = self.worker.slot_state
+        left = []
+        for slot, req in self.active.items():
+            row = ss[slot]
+            if (row[mring.SS_ACTIVE] > 0
+                    and row[mring.SS_REQID] == req.request_id):
+                n = int(row[mring.SS_MAX_NEW] - row[mring.SS_N_OUT])
+                if row[mring.SS_PHASE] == 0:
+                    n += -(-int(row[mring.SS_PROMPT_LEN]
+                               - row[mring.SS_POS]) // C) - 1
+            else:  # its admission record is not consumed yet
+                n = -(-len(req.history()) // C) + req.max_new_tokens - 1
+            left.append(n)
+        w = self.worker.window
+        if not left:
+            return w
+        need = min(left) if self.queue.peek() is not None else max(left)
+        while w > 1 and w > need:
+            w //= 2
+        return w
+
+    def _admit_resident(self) -> None:
+        """Admission, resident form: a free slot and the request's whole
+        lifetime of pages (prompt + max_new_tokens) up front, so a window
+        never waits on pages; the admission travels as a ring record with
+        the page-table row and the prompt. No preemption or eviction."""
+        while len(self.active) < self.pool.slots:
+            req = self.queue.peek()
+            if req is None or not self.worker.can_inject():
+                return
+            slot = self.pool.free_slot()
+            total = len(req.history()) + req.max_new_tokens
+            need = pages_for(total, self.pool.page)
+            if slot is None or self.pool.free_pages() < need:
+                return
+            self.queue.pop()
+            self.pool.admit(slot, len(req.history()))
+            if not self.pool.ensure(slot, total):
+                raise AssertionError("free_pages said yes, ensure said no")
+            req.slot = slot
+            req.pos = 0
+            req.state = RequestState.PREFILL
+            req.admit_seq = self._admit_seq
+            self._admit_seq += 1
+            self.active[slot] = req
+            self.counters["admitted"] += 1
+            self.worker.admit(slot, req.history(), req.max_new_tokens,
+                              req.temperature, req.seed, req.eos_id,
+                              req.request_id)
+
+    def _drain_records(self, records) -> None:
+        """Fold a window's output records into the requests, in device
+        seq order: emissions stream out as the host loop's do, and a
+        retirement frees the slot and its pages. The device's eos and
+        length decisions are held against the host's."""
+        for rec in records:
+            if rec.emitted or rec.retired:
+                # prefill done or retired: the device no longer reads
+                # the admission row
+                self.worker.unpin(rec.req_id)
+            req = self.active.get(rec.slot)
+            if req is None or req.request_id != rec.req_id:
+                continue  # a stale record of a slot already turned over
+            if rec.emitted and not req.done:
+                if req.state is RequestState.PREFILL:
+                    req.state = RequestState.DECODE
+                    req.pos = len(req.history())
+                req.last_active_step = self.worker.n_steps
+                req._emit(rec.token, None)
+                self.counters["tokens_out"] += 1
+                would_retire = (
+                    (req.eos_id is not None and rec.token == req.eos_id)
+                    or len(req.out_tokens) >= req.max_new_tokens)
+                if would_retire != rec.retired:
+                    raise AssertionError(
+                        "device retirement decision diverged from the "
+                        f"host's on request {req.request_id}: {rec}")
+            if rec.retired:
+                reason = {mring.REASON_EOS: "eos",
+                          mring.REASON_LENGTH: "length"}.get(rec.reason)
+                if reason is not None:
+                    self._retire(req, reason, RequestState.FINISHED)
+                else:  # REASON_HOST: an injected retirement came back
+                    self._retire(req, "cancelled", RequestState.CANCELLED)
 
     # -- internals ------------------------------------------------------
 

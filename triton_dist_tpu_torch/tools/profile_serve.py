@@ -2,7 +2,7 @@
 
     python -m triton_dist_tpu_torch.tools.profile_serve [--world N]
         [--prefill-mode M] [--decode-mode M]
-        [--model qwen3-8b|qwen3-30b-a3b]
+        [--model qwen3-8b|qwen3-30b-a3b] [--resident W]
 
 Builds the model (default Qwen3-8B; qwen3-30b-a3b is the TP-MoE
 Qwen3-30B-A3B, whose ~61 GB of bf16 weights are drawn straight at world
@@ -20,7 +20,12 @@ one 4 x 128 prefill (the prefill mode; 4 x 32 in `fused`). The
 scheduler and decode steps replay their captured CUDA graphs (the
 warm-up step captures them). For each it prints the host wall time, the
 device time summed over kernels, the device busy share, and the kernels
-that took the most device time. Needs a CUDA card.
+that took the most device time. With --resident W it also traces
+windows of the resident loop (Scheduler(resident=True, window=W), one
+captured graph of W steps a window): two windows with all four slots
+decoding (every step live), then an all-dead window (no slot active:
+every step's forward runs with no live row), each per window and per
+step. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -94,6 +99,8 @@ def main() -> None:
     ap.add_argument("--decode-mode", default="ar",
                     choices=("ar", "dist", "xla"),
                     help="the Engine's decode_mode (decode and serve steps)")
+    ap.add_argument("--resident", type=int, default=0, metavar="W",
+                    help="also trace windows of W resident steps")
     args = ap.parse_args()
     world = args.world
     if not torch.cuda.is_available():
@@ -139,6 +146,38 @@ def main() -> None:
     eng.prefill(ids)  # warm-up
     prof, wall = _traced(lambda: eng.prefill(ids))
     _report(f"prefill (4 x {plen} tokens, {L} layers)", prof, wall)
+
+    if args.resident:
+        _resident(eng, args.resident, rng)
+
+
+def _resident(eng: Engine, window: int, rng) -> None:
+    """REPS windows of `window` live steps (four slots decoding), then an
+    all-dead window, traced."""
+    cfg = eng.cfg
+    sch = Scheduler(eng, slots=4, chunk=64, page=64, resident=True,
+                    window=window)
+    for n in (60, 50, 40, 30):
+        sch.submit(rng.integers(0, cfg.vocab_size, n).tolist(),
+                   (REPS + 2) * window)
+    w, loop = sch.worker, sch.worker._fn
+    sch._admit_resident()
+    w.run_window()  # the one-chunk prefills, the capture (full windows)
+    steps0 = w.n_steps
+    prof, wall = _traced(w.run_window)
+    live = w.n_steps - steps0
+    _report(f"resident window ({window} steps, 4 slots decoding; "
+            f"{live} live steps over {REPS} windows; per step: wall "
+            f"{wall / (REPS * window):.3f} ms)", prof, wall)
+    idle = np.zeros_like(w.slot_state)
+    prof, wall = _traced(lambda: loop(loop.ring, 0, 0, 0, idle, w._table,
+                                      w._lengths, sch.pool.k, sch.pool.v))
+    _report(f"all-dead window ({window} dead steps; per step: wall "
+            f"{wall / (REPS * window):.3f} ms)", prof, wall)
+    for steps, g in sorted(loop.graphs.items()):
+        print(f"  window graph of {steps} steps: capture {g.capture_s:.3f} "
+              f"s, pool {g.pool_bytes / 1e6:.1f} MB, launches a replay "
+              f"{g.launches}")
 
 
 if __name__ == "__main__":
