@@ -51,18 +51,27 @@ outside a checkout of the repository. Phases, each fatal on failure:
      path's logits against the plain versions' (and, for `dist`, the
      `xla` prefill's), and a small f32 model on the card against the CPU
      at world 1 and 4 (`ar` and `dist`);
-  4g. inside each model path (4, 4m, 4b): the captured steps against
-     the eager ones. The Engine and MegaQwen3 replay CUDA graphs of their
-     decode and serve steps on the card by default, so the main path's
-     serve, Scheduler and megakernel steps above are replays (a replay
-     counts the launches its capture recorded; each capture runs the
-     step once eagerly first, counted too). For the `ar` decode (and the
-     Scheduler's mode where it is another), the serve step and the
-     megakernel step: the replay's logits, tokens and cache (or pools)
-     bitwise the eager step's from the same state (greedy and seeded
-     sampling; a Scheduler each way on the same 6 requests), eager and
-     replayed ms/token (tokens/s for the Scheduler), capture s, the
-     graph's pool bytes, device kernels a step each way, peak GB;
+  4g. inside each model path (4, 4m, 4b) and in 4s, 4e and 4p: the
+     captured steps against the eager ones. The Engine and MegaQwen3
+     replay CUDA graphs of their prefill, decode and serve steps on the
+     card by default, so the main path's serve, Scheduler and megakernel
+     steps above are replays (a replay counts the launches its capture
+     recorded; a decode or serve capture runs the step once eagerly
+     first, counted too; a prefill's first call of a shape is that
+     warm-up, its result the call's). For the prefill (the path's mode,
+     and 30B `fused`), the `ar` decode (and the Scheduler's mode where
+     it is another), the serve step and the megakernel step: the
+     replay's logits, tokens and cache (or pools) bitwise the eager
+     step's from the same state (greedy and seeded sampling; a Scheduler
+     each way on the same 6 requests), eager and replayed ms (ms/token,
+     tokens/s for the Scheduler), capture s, the graph's pool bytes,
+     device kernels (and a prefill's memsets) a step each way, peak GB,
+     and no capture on a fresh cache of a known shape; in 4s the SP
+     decode step (its LL call count a device word), in 4e the EP layer
+     (M 128 sequential and overlap q 4, M 1 sequential and overlap q 1)
+     and in 4p the whole PP schedule, each captured through
+     `runtime.graphs.compiled` and replayed bitwise its eager run, with
+     ms both ways, capture s and pool bytes;
   4r. the resident serving loop, after phase 4w, on phase 4's world-1
      weights: phase 4's six Scheduler requests (two sampled) through
      the host loop and through Scheduler(resident=True, window=16) on one
@@ -96,15 +105,20 @@ outside a checkout of the repository. Phases, each fatal on failure:
      a rank, a ragged kv_len with one row just under each shard
      boundary: QKV product, q/k-norm, rope, sp_flash_prefill, O
      product), whose K/V segments are the cache shards, then 16 SP decode
-     steps threading one low-latency AllGather context; launches pinned
-     (1 sp_flash_prefill, 16 flash_decode_partial, 16 ll_all_gather).
+     steps threading one low-latency AllGather context, its call count a
+     device word that the step advances: 16 replays of the step captured
+     (on a scratch state) before the counted window; launches pinned
+     (1 sp_flash_prefill, 16 flash_decode_partial, 16 ll_all_gather);
+     the replays bitwise the same 16 steps eager, whose kernel calls are
+     recorded for the checks below.
      The decode partial against its plain version on every step's inputs
      (epsilon band), the LL AllGather bitwise over all 16 calls (and
      its context's slots and parity flags a plain twin's after each), each
      step bitwise the same step with the partials gathered by a torch
      copy; SP prefill against its plain version on sampled rows and
      whole at 4 x 4096 (band), and bitwise itself with rank 0, then rank
-     3, delayed; prefill ms and decode ms/step, and each kernel's time;
+     3, delayed; prefill ms and decode ms/step (eager and replayed), and
+     each kernel's time (the LL AllGather with a host and a device count);
   4p. the eighth path, after 4s, on the same world-1 draw: PP at full
      width, 4 virtual stages of 9 of the 36 layers (models.pp_stage_fn,
      no KV cache) over 4 microbatches of 1 x 512 tokens embedded by the
@@ -1172,7 +1186,7 @@ class GroupedRecorder:
     layer in every `dist`, `ar` and `xla` forward: gate|up and down)
     runs as before; the first call of each (layer, shape, out dtype) at
     the first and the last layer keeps a copy of its inputs (the weight
-    by reference)."""
+    by reference). Calls under a capture are left out, as Recorder's."""
 
     def __init__(self, num_layers):
         from triton_dist_tpu_torch.kernels import grouped_gemm as gg
@@ -1183,6 +1197,10 @@ class GroupedRecorder:
         self.records = {}
 
     def __call__(self, x, w, sizes, out_dtype=None):
+        from triton_dist_tpu_torch.kernels import _build
+
+        if _build.under_capture():  # records, runs nothing: not counted
+            return self.fn(x, w, sizes, out_dtype)
         layer = self.calls % (2 * self.layers) // 2
         key = (layer, tuple(x.shape), out_dtype)
         if layer in (0, self.layers - 1) and key not in self.records:
@@ -1203,7 +1221,10 @@ class Recorder:
     """Wraps a kernel's wrapper so that the calls at the first and the
     last layer of each forward that reaches the kernel keep a copy of
     their inputs (PER_LAYER calls a layer, by the model's kind). Calls
-    the kernel's wrapper, which counts the launch."""
+    the kernel's wrapper, which counts the launch. A call under a CUDA
+    graph's capture (which records the launch and runs nothing) is
+    neither counted nor recorded: `forward` numbers the eager forwards
+    and the captures' warm-ups."""
 
     def __init__(self, name, num_layers, kind="dense"):
         mod, attr = main_path_kernels()[name]
@@ -1216,6 +1237,10 @@ class Recorder:
         self.records = []
 
     def __call__(self, *a, **kw):
+        from triton_dist_tpu_torch.kernels import _build
+
+        if _build.under_capture():  # records, runs nothing: not counted
+            return self.fn(*a, **kw)
         b = a[1] if len(a) > 1 else kw.get("b")
         if isinstance(b, tuple) and b[0].dim() == 4:
             self.grouped += 1
@@ -1359,6 +1384,46 @@ def _clone_cache(c):
 _TRACES: list = []
 
 
+# whether the last profiler trace of a row lost its records: the next
+# row then tries one trace before graph_device_us (the losses come in
+# runs of rows)
+_LOSING = [False]
+
+
+def graph_device_us(fn, reps=10):
+    """Device µs a call of fn where the profiler keeps losing its kernel
+    records (on an H100 in PR 22's chip calls, the parent commit's run
+    too, traces of the Qwen3-30B-A3B phases came back without any kernel
+    record, five in a row, for most rows): `reps` calls of fn captured as
+    one CUDA graph, one replay timed by CUDA events (no host time between
+    the launches, so the time is the device's, gaps between kernels
+    included). None, logged, if fn cannot be captured."""
+    import torch
+
+    from triton_dist_tpu_torch.runtime.graphs import StepGraph
+
+    _LOSING[0] = True
+    try:
+        g = StepGraph(lambda commit: [fn() for _ in range(reps)], "cuda")
+    except RuntimeError as e:
+        log(f"  graph_device_us: the calls cannot be captured ({e})")
+        return None
+    g.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    us = a.elapsed_time(b) * 1e3 / reps
+    del g  # its pool holds every call's outputs
+    torch.cuda.empty_cache()
+    log(f"  graph_device_us: {us:.1f} us a call (CUDA events over a graph of "
+        f"{reps} calls, the profiler's records lost)")
+    return us
+
+
 def kernels_a_call(fn) -> int:
     """Device kernels (and memsets / copies) one call of fn runs, from a
     torch.profiler trace of one call (after one untraced call)."""
@@ -1374,6 +1439,33 @@ def kernels_a_call(fn) -> int:
     return sum(e.count for e in prof.key_averages()
                if float(getattr(e, "self_device_time_total", getattr(
                    e, "self_cuda_time_total", 0.0))) > 0)
+
+
+def trace_a_call(fn) -> dict:
+    """One call of fn traced (after one untraced call): its device
+    kernels (memsets and copies too), and its zero fills' count and
+    device µs (cudaMemset and torch's fill kernel: a fresh zeroed flag
+    pool, or a zeroed buffer of the step, costs one a call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    _TRACES.append(prof)
+    kernels, memsets, memset_us = 0, 0, 0.0
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)))
+        if us <= 0:
+            continue
+        kernels += e.count
+        if "memset" in e.key.lower() or "FillFunctor" in e.key:
+            memsets += e.count
+            memset_us += us
+    return dict(device_kernels=kernels, memsets=memsets, memset_us=memset_us)
 
 
 def graph_row(g) -> dict:
@@ -1459,6 +1551,60 @@ def check_graph_decode(eng, prompts, label, steps=G_STEPS):
         f"({steps + 1} tokens) twice on fresh prefill caches: "
         f"{serve_s[0]:.3f} s, {serve_s[1]:.3f} s, no capture")
     del c0, caches, c1
+    return row
+
+
+def check_graph_prefill(eng, prompts, label, iters=5):
+    """The Engine's captured prefill against its eager prefill of the
+    same prompts on fresh caches: logits and the cache (k, v, the new
+    length) bitwise; ms a call each way (CUDA events, a fresh cache
+    each call, `iters` calls after a warm-up), capture s (taken here
+    if the path has not captured this shape yet), the graph's pool
+    bytes, device kernels and zero fills of a replay (a fresh zeroed
+    flag pool is one), peak GB; every fresh cache after the first
+    replays the same graph. The MoE model's replay is not traced: after
+    traces of its 6-16 thousand kernels a call, the profiler lost every
+    kernel record of the traces after them (my chip call 4, PR 22)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    res, ms = {}, {}
+    for graphed in (False, True):
+        eng.cuda_graph = graphed
+        logits, cache = eng.prefill(prompts)
+        torch.cuda.synchronize()
+        res[graphed] = (logits, _clone_cache(cache))
+        del cache
+        made = eng.prefill_graphs.made
+        ms[graphed] = time_ms(lambda: eng.prefill(prompts), iters=iters,
+                              warmup=1)
+        if eng.prefill_graphs.made != made:
+            raise AssertionError(f"{label}: a fresh cache of a known shape "
+                                 "captured the prefill again")
+    (le, ce), (lg, cg) = res[False], res[True]
+    if not (torch.equal(le, lg) and all(torch.equal(a, b) for a, b in zip(
+            _cache_tensors(ce), _cache_tensors(cg)))):
+        raise AssertionError(f"{label}: the replayed prefill differs from "
+                             "the eager one")
+    del res, le, ce, lg, cg
+    g = next(reversed(eng.prefill_graphs.graphs.values()))  # this shape
+    traced = {} if eng.cfg.is_moe else trace_a_call(
+        lambda: eng.prefill(prompts))
+    row = dict(eager_ms=ms[False], replay_ms=ms[True],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               **{f"{k}_replay": v for k, v in traced.items()},
+               **graph_row(g))
+    what = ("not traced" if not traced else
+            f"device kernels a replay {traced['device_kernels']} "
+            f"({traced['memsets']} zero fills, {traced['memset_us']:.1f} "
+            "us)")
+    log(f"  4g {label} prefill {tuple(prompts.shape)} "
+        f"({eng.prefill_mode}): logits and cache bitwise the eager "
+        f"prefill's; eager {ms[False]:.3f} ms, replayed {ms[True]:.3f} ms "
+        f"a call (CUDA events, fresh caches, no capture); capture "
+        f"{g.capture_s:.3f} s, graph pool {g.pool_bytes / 1e6:.1f} MB, "
+        f"{what}, hand kernels a replay {g.launches}; peak "
+        f"{row['peak_gb']:.2f} GB")
     return row
 
 
@@ -1641,8 +1787,10 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
                for r in reqs), "a scheduler request was not answered"
     assert all(finite), "non-finite serve-step logits"
     sched_n = {k: main_n[k] - serve_n[k] for k in main_n}
-    # one capture each: the serve's decode step, the Scheduler's step
-    assert (eng.decode_graphs.made, sched_eng.serve_graphs.made) == (1, 1)
+    # one capture each: the serve's prefill (its first call, run eagerly,
+    # is the capture's warm-up) and decode step, the Scheduler's step
+    assert (eng.prefill_graphs.made, eng.decode_graphs.made,
+            sched_eng.serve_graphs.made) == (1, 1, 1)
     want_serve, want_sched = want_launches(
         L, world, prefill_mode, sched_mode, gen - 1 + eng.decode_graphs.made,
         steps + sched_eng.serve_graphs.made, moe)
@@ -1683,13 +1831,17 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
 
         return {**plain, "flash_prefill_local": perturbed_plain}
 
-    def against_plain(logits, run, seed):
+    def against_plain(logits, run, seed, engine):
         """(relative L2 of logits and of the one-ulp perturbed plain run
-        against the plain run, argmax agreement of each, plain logits)."""
+        against the plain run, argmax agreement of each, plain logits).
+        The plain runs are eager: a replay would run the kernels its
+        graph captured."""
+        engine.cuda_graph = False
         with Swapped(plain):
             base, _ = run()
         with Swapped(perturbed(seed)):
             floor, _ = run()
+        engine.cuda_graph = True
         torch.cuda.synchronize()
 
         def rel(a):
@@ -1719,6 +1871,7 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
         want_fused.update(flash_prefill_local=L, ag_gemm=2 * L, gemm_rs=L,
                           ring_reduce_scatter=L)
         assert fused_n == want_fused, (fused_n, want_fused)
+        assert fused.prefill_graphs.made == 1  # its first call, captured
         assert fwrap["ag_gemm"].grouped == L, fwrap["ag_gemm"].grouped
         # QKV (m 32 a rank) on the mma.sync body, every grouped gate|up
         # on the expert-major grouped kernel
@@ -1734,10 +1887,17 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
         log(f"  fused prefill 4x{FUSED_LEN}: launches {fused_n}, grouped "
             f"ag_gemm {fwrap['ag_gemm'].grouped}, ag_gemm launches by body "
             f"{fused_bodies}")
-        model["fused_prefill_ms"] = time_ms(
-            lambda: fused.prefill(fused_prompts), iters=3, warmup=1)
+        model["fused_prefill_graph"] = check_graph_prefill(
+            fused, fused_prompts, f"Qwen3-30B-A3B world {world} fused",
+            iters=3)
+        model["fused_prefill_ms"] = model["fused_prefill_graph"]["replay_ms"]
+        # the fused graph's pool (its capacity-padded transients) goes
+        # before the plain runs, which need the room for their own
+        fused.prefill_graphs.graphs.clear()
+        torch.cuda.empty_cache()
         f_rel, f_floor, f_agree, f_agree_floor, _ = against_plain(
-            fused_logits, lambda: fused.prefill(fused_prompts), seed=2)
+            fused_logits, lambda: fused.prefill(fused_prompts), seed=2,
+            engine=fused)
         model.update(fused_logits_rel_l2=f_rel,
                      fused_logits_rel_l2_ulp=f_floor,
                      fused_argmax_agree=f_agree,
@@ -1779,7 +1939,9 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
     torch.cuda.synchronize()
     peak_main = torch.cuda.max_memory_allocated() / 1e9
     path = f"{'Qwen3-30B-A3B' if moe else 'Qwen3-8B'} world {world}"
-    graphs = {"decode ar": check_graph_decode(eng, prompts, f"{path} ar")}
+    graphs = {f"prefill {prefill_mode}": check_graph_prefill(
+        eng, prompts, path)}
+    graphs["decode ar"] = check_graph_decode(eng, prompts, f"{path} ar")
     if sched_mode != "ar":
         graphs[f"decode {sched_mode}"] = check_graph_decode(
             sched_eng, prompts, f"{path} {sched_mode}")
@@ -1788,13 +1950,15 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
     decode_ms = graphs["decode ar"]["replay_ms"]
     model["graphs"] = graphs
     peak_gb = max(peak_main, *(g["peak_gb"] for g in graphs.values()))
-    log(f"  prefill 4x128: {pre_ms:.3f} ms; decode: {decode_ms:.3f} "
+    log(f"  prefill 4x128: {pre_ms:.3f} ms replayed ("
+        f"{graphs[f'prefill {prefill_mode}']['eager_ms']:.3f} eager); "
+        f"decode: {decode_ms:.3f} "
         f"ms/token replayed ({graphs['decode ar']['eager_ms']:.3f} eager; "
         f"batch 4, host clock); peak memory {peak_gb:.2f} GB")
 
     assert torch.isfinite(logits).all(), "non-finite prefill logits"
     k_rel, k_floor, k_agree, k_agree_floor, plain_logits = against_plain(
-        logits, prefill, seed=1)
+        logits, prefill, seed=1, engine=eng)
     diff = (logits - plain_logits).abs().max().item()
     top2 = plain_logits.float().topk(2, dim=-1).values
     gap = (top2[:, 0] - top2[:, 1]).tolist()
@@ -1808,6 +1972,8 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
     model.update(model=("qwen3-30b-a3b" if moe else "qwen3-8b"),
                  world=world, prefill_mode=prefill_mode,
                  sched_mode=sched_mode, prefill_ms=pre_ms,
+                 eager_prefill_ms=graphs[f"prefill {prefill_mode}"][
+                     "eager_ms"],
                  decode_ms=decode_ms,
                  eager_decode_ms=graphs["decode ar"]["eager_ms"],
                  tokens_per_s=m["tokens_per_s"], peak_gb=peak_gb,
@@ -1820,7 +1986,7 @@ def run_model(kernels, cfg, params, world: int, prefill_mode="ar",
         # the xla prefill on the same weights, torch ops only: its
         # collectives and dots are torch's, its attention the plain one
         xla = Engine(cfg, device=device, params=params, max_len=MAX_LEN,
-                     world=world, prefill_mode="xla")
+                     world=world, prefill_mode="xla", cuda_graph=False)
         with Swapped(plain):
             xla_logits, _ = xla.prefill(prompts)
         torch.cuda.synchronize()
@@ -1892,8 +2058,9 @@ def device_us(fn, key, reps=10, tries=5):
     """Mean device time in µs of the kernels whose name holds `key` over
     `reps` calls of fn traced by torch.profiler. A trace that holds no
     such kernel time is logged with the kernel names it did hold and
-    taken again after half a second, up to `tries` traces; None when
-    every one missed. (On an H100 three traces in a row of one
+    taken again after half a second, up to `tries` traces (one where the
+    last row's traces all missed); when every one missed, the time of a
+    call in a CUDA graph of `reps` calls (graph_device_us). (On an H100 three traces in a row of one
     cooperative kernel once held its launches but no kernel record,
     while the next call's trace held its kernels.)"""
     import torch
@@ -1901,6 +2068,7 @@ def device_us(fn, key, reps=10, tries=5):
 
     fn()
     torch.cuda.synchronize()
+    tries = 1 if _LOSING[0] else tries
     for attempt in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CUDA],
                      acc_events=True) as prof:
@@ -1915,6 +2083,7 @@ def device_us(fn, key, reps=10, tries=5):
                                   getattr(e, "self_cuda_time_total", 0.0)))
                     for e in hits)
         if calls and total > 0:
+            _LOSING[0] = False
             return total / calls
         free, total = torch.cuda.mem_get_info()
         log(f"  device_us: trace {attempt} of {tries} holds no {key} time "
@@ -1923,7 +2092,7 @@ def device_us(fn, key, reps=10, tries=5):
             f"GB free of {total / 1e9:.2f}, "
             f"{torch.cuda.memory_reserved() / 1e9:.2f} GB held by torch)")
         time.sleep(0.5)
-    return None
+    return graph_device_us(fn, reps)
 
 
 def device_us_total(fn, reps=10, tries=5):
@@ -1933,13 +2102,14 @@ def device_us_total(fn, reps=10, tries=5):
     gives its mean time over the records the trace holds, times its
     records a call (its count over reps, rounded up), and the call is
     their sum. A trace with no device record is logged and taken again
-    after half a second, up to `tries` traces; None when every one
-    missed."""
+    after half a second, up to `tries` traces; when every one missed,
+    graph_device_us."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    tries = 1 if _LOSING[0] else tries
     for attempt in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CUDA],
                      acc_events=True) as prof:
@@ -1955,11 +2125,12 @@ def device_us_total(fn, reps=10, tries=5):
                 us += total / e.count * -(-e.count // reps)
                 records += e.count
         if records:
+            _LOSING[0] = False
             return us
         log(f"  device_us_total: trace {attempt} of {tries} holds no "
             "device record")
         time.sleep(0.5)
-    return None
+    return graph_device_us(fn, reps)
 
 
 def host_parts(call, checks, buffers, launch, calls=100, pools=None,
@@ -3254,50 +3425,88 @@ def run_sp(kernels, cfg, params):
 
     def ll(xp, ctx, cc, **kw):
         got, ctx = real_ll(xp, ctx, cc, **kw)
-        rec_ll.append(dict(x=xp.clone(), cc=cc, out=got.clone(),
+        rec_ll.append(dict(x=xp.clone(), cc=cc.clone(), out=got.clone(),
                            data=ctx.data.clone(),
                            flags=ctx.flags[:, :2 * n].clone()))
         return got, ctx
 
+    def sp_state(cache, lens):
+        """A decode state: the cache shards, kv_len, a fresh LL context and
+        its call count 0, on the card."""
+        return (cache, lens, fd.create_sp_decode_buf(b, hq, d, n,
+                                                     device="cuda"),
+                torch.zeros(1, dtype=torch.int32, device="cuda"))
+
+    # the decode step captured before the counted window, on a scratch
+    # state of the path's shapes (its first call is eager): the path's 16
+    # steps are replays, bound to the path's own state
+    step = spl.compiled_sp_decode_step()
+    shard = (n, b, s, hkv, d)
+    scratch = sp_state(tuple(torch.zeros(shard, dtype=torch.bfloat16,
+                                         device="cuda") for _ in range(2)),
+                       kv_len.clone())
+    step(xd[0].expand(n, b, h), sp, spec, cos, sin, *scratch)
+    torch.cuda.synchronize()
+    g_sp = next(iter(step.graphs.graphs.values()))
+    del scratch
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    spl.sp_flash_decode, fd.ll_all_gather = dec, ll
     forms = dict(fp.sp_launches_by_body)
     fd_bodies = dict(fd.launches_by_body)
-    try:
-        kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ev[0].record()
-        y, q, k, v, att = sp_prefill_layer(fp, x, sp, cos, sin, kv32, hq,
-                                           hkv, d)
-        ev[1].record()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ctx = fd.create_sp_decode_buf(b, hq, d, n, device="cuda")
-        cache, ys = (k, v), []
-        for i in range(SP_STEPS):
-            yd, cache, ctx = spl.sp_decode_attn_fwd(
-                xd[i].expand(n, b, h), sp, spec, cos, sin, cache,
-                kv_len + i, ll_buf=ctx, call_count=i)
-            ys.append(yd)
-        ev[2].record()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        launched = kernels.launches()
-    finally:
-        spl.sp_flash_decode, fd.ll_all_gather = real_dec, real_ll
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    y, q, k, v, att = sp_prefill_layer(fp, x, sp, cos, sin, kv32, hq,
+                                       hkv, d)
+    ev[1].record()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    k0, v0 = k.clone(), v.clone()  # the eager twin's start
+    cache, lens, ctx, count = sp_state((k, v), kv_len.clone())
+    ys = [step(xd[i].expand(n, b, h), sp, spec, cos, sin, cache, lens, ctx,
+               count) for i in range(SP_STEPS)]
+    ev[2].record()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launched = kernels.launches()
+    fd_window = {k_: v_ - fd_bodies[k_]
+                 for k_, v_ in fd.launches_by_body.items()}
     want = {name: 0 for name in kernel_names()}
     want.update(sp_flash_prefill=1, flash_decode_partial=SP_STEPS,
                 ll_all_gather=SP_STEPS)
     assert launched == want, (launched, want)
+    assert step.graphs.made == 1, "the path's state captured the step again"
+    assert count.item() == SP_STEPS and torch.equal(lens, kv_len + SP_STEPS)
+    # the same steps eager from the same state, each kernel call recorded:
+    # bitwise the replays (outputs, cache, kv_len, count, LL context)
+    spl.sp_flash_decode, fd.ll_all_gather = dec, ll
+    try:
+        e_cache, e_lens, e_ctx, e_count = sp_state((k0, v0), kv_len.clone())
+        torch.cuda.synchronize()
+        ev_e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev_e[0].record()
+        ys_eager = [spl.sp_decode_step(xd[i].expand(n, b, h), sp, spec, cos,
+                                       sin, e_cache, e_lens, e_ctx, e_count)
+                    for i in range(SP_STEPS)]
+        ev_e[1].record()
+        torch.cuda.synchronize()
+    finally:
+        spl.sp_flash_decode, fd.ll_all_gather = real_dec, real_ll
+    if not (all(torch.equal(a, b_) for a, b_ in zip(ys, ys_eager))
+            and all(torch.equal(a, b_) for a, b_ in zip(
+                (*cache, lens, count, ctx.data, ctx.flags),
+                (*e_cache, e_lens, e_count, e_ctx.data, e_ctx.flags)))):
+        raise AssertionError("SP decode: the replayed steps differ from the "
+                             "eager steps")
+    eager_ms = ev_e[0].elapsed_time(ev_e[1]) / SP_STEPS
+    del e_cache, k0, v0
     # the main path's SP prefill ran the TMA + wgmma form, its decode
     # partial the Hopper (TMA + mma.sync) body
     assert fp.sp_launches_by_body["wgmma"] - forms["wgmma"] == 1 and \
         fp.sp_launches_by_body["mma"] == forms["mma"], (
             forms, fp.sp_launches_by_body)
     fd_body = fd._body_for(torch.bfloat16, d, hq // hkv)
-    assert {k: v - fd_bodies[k] for k, v in fd.launches_by_body.items()} \
-        == {"fma": 0, "mma": 0, fd_body: SP_STEPS}, fd.launches_by_body
+    assert fd_window == {"fma": 0, "mma": 0, fd_body: SP_STEPS}, fd_window
     assert y.shape == (n, b, s, h) and bool(torch.isfinite(y).all())
     yd = torch.stack(ys)
     assert yd.shape == (SP_STEPS, n, b, h) and bool(torch.isfinite(yd).all())
@@ -3308,10 +3517,17 @@ def run_sp(kernels, cfg, params):
     log(f"  SP prefill layer (QKV, q/k-norm, rope, sp_flash_prefill, O) "
         f"4 x {t_max}: {prefill_ms:.3f} ms (CUDA events), "
         f"{(t1 - t0) * 1e3:.3f} ms host; {SP_STEPS} SP decode steps (LL "
-        f"context): {decode_ms:.3f} ms/step (CUDA events), "
+        f"context, the call count a device word), replays of the captured "
+        f"step: {decode_ms:.3f} ms/step (CUDA events), "
         f"{(t2 - t1) * 1e3 / SP_STEPS:.3f} ms/step host; launches "
         f"{ {k: v for k, v in launched.items() if v} }; decode partial "
         f"body {fd_body}")
+    log(f"  4g SP decode step: the {SP_STEPS} replays bitwise the same steps "
+        f"eager (outputs, cache, kv_len, call count, LL context): eager "
+        f"{eager_ms:.3f} ms/step, replayed {decode_ms:.3f} ms/step (CUDA "
+        f"events, first run); capture {g_sp.capture_s:.3f} s, graph pool "
+        f"{g_sp.pool_bytes / 1e6:.1f} MB, hand kernels a replay "
+        f"{g_sp.launches}")
 
     # row 3 on every step's inputs; row 9 bitwise on every call; the
     # LL-exchanged step bitwise the torch-gathered one
@@ -3378,21 +3594,30 @@ def run_sp(kernels, cfg, params):
 
     # the path again, warm (the first run pays the lazy loading of every
     # kernel it meets); the decode rewrites the same rows with the same
-    # values, the LL context goes on from call SP_STEPS
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    # values, eager on the eager twin's context (call count host ints
+    # from SP_STEPS), then replayed on the path's (its device count goes
+    # on from SP_STEPS)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
     sp_prefill_layer(fp, x, sp, cos, sin, kv32, hq, hkv, d)
     ev[1].record()
     for i in range(SP_STEPS):
         spl.sp_decode_attn_fwd(xd[i].expand(n, b, h), sp, spec, cos, sin,
-                               cache, kv_len + i, ll_buf=ctx,
+                               cache, kv_len + i, ll_buf=e_ctx,
                                call_count=SP_STEPS + i)
     ev[2].record()
+    lens.copy_(kv_len)
+    for i in range(SP_STEPS):
+        step(xd[i].expand(n, b, h), sp, spec, cos, sin, cache, lens, ctx,
+             count)
+    ev[3].record()
     torch.cuda.synchronize()
     prefill_warm = ev[0].elapsed_time(ev[1])
     decode_warm = ev[1].elapsed_time(ev[2]) / SP_STEPS
+    replay_warm = (ev[2].elapsed_time(ev[3])) / SP_STEPS
     log(f"  warm: SP prefill layer {prefill_warm:.3f} ms, SP decode "
-        f"{decode_warm:.3f} ms/step (CUDA events)")
+        f"{decode_warm:.3f} ms/step eager, {replay_warm:.3f} ms/step "
+        f"replayed (CUDA events)")
 
     # timing
     rows = {}
@@ -3450,17 +3675,22 @@ def run_sp(kernels, cfg, params):
         f"{fd_rows[lab_dec]['library_us']} us device")
 
     xp = rec_ll[-1]["x"]
-    cc = [2 * SP_STEPS - 1]  # the context's next call
+    cc = [2 * SP_STEPS - 1]  # the eager twin's context's next call
 
     def ll_call():
         cc[0] += 1
-        return llag.ll_all_gather(xp, ctx, cc[0])
+        return llag.ll_all_gather(xp, e_ctx, cc[0])
 
     twin_cc = [SP_STEPS]
 
     def ll_plain():
         twin_cc[0] += 1
         return llag.ll_all_gather_plain(xp, twin, twin_cc[0])
+
+    def ll_device_count():  # the path's context, its count a device word
+        got = llag.ll_all_gather(xp, ctx, count)
+        count.add_(1)
+        return got
 
     lab_ll = (f"payload {tuple(xp.shape)} f32 ({xp[0].numel() * 4} bytes a "
               "rank), one context, calls past 16")
@@ -3469,12 +3699,21 @@ def run_sp(kernels, cfg, params):
         lambda: xp[None].expand(n, *xp.shape).contiguous(), 0,
         (n + n * n) * xp[0].numel() * 4, torch.float32,
         kernel_key="ll_ag_kernel")}
+    lab_dev = f"{lab_ll}, the call count a device word"
+    ll_rows[lab_dev] = time_collective(
+        f"ll_all_gather {lab_dev}", ll_device_count, ll_plain,
+        lambda: xp[None].expand(n, *xp.shape).contiguous(), 0,
+        (n + n * n) * xp[0].numel() * 4, torch.float32,
+        kernel_key="ll_ag_kernel")
     numbers = dict(prefill_ms_events=prefill_ms,
                    prefill_ms_host=(t1 - t0) * 1e3,
                    decode_ms_per_step_events=decode_ms,
                    decode_ms_per_step_host=(t2 - t1) * 1e3 / SP_STEPS,
                    prefill_ms_warm=prefill_warm,
                    decode_ms_per_step_warm=decode_warm,
+                   decode_ms_per_step_eager_first=eager_ms,
+                   decode_ms_per_step_replayed_warm=replay_warm,
+                   graph=graph_row(g_sp),
                    context=t_max, batch=b, kv_len=list(SP_KV_LEN),
                    steps=SP_STEPS)
     # the line's numbers: the shape where the plain version and the
@@ -3484,6 +3723,7 @@ def run_sp(kernels, cfg, params):
                                       fd_rows),
                 ll_all_gather=(0.0, 0.0, 0, lab_ll, ll_rows))
     del x, y, q, k, v, att, cache, ctx, twin, rec_dec, rec_ll, qs_, ks_, vs_
+    del step, g_sp, e_ctx, lens, count
     torch.cuda.empty_cache()
     return launched, errs, numbers
 
@@ -3554,6 +3794,51 @@ class FfnRecorder:
 
     def __exit__(self, *exc):
         self.mod.grouped_gemm = self.fn
+
+
+EP_GRAPHED = ("M128 sequential", "M128 overlap q4", "M1 sequential",
+              "M1 overlap q1")
+
+
+def check_graph_ep(ep, k, runs, outs, warm_ms):
+    """Phase 4g for EP: ep_moe_fwd through graphs.compiled (weights
+    static) at each of EP_GRAPHED's runs: its first call and a replay
+    bitwise the eager layer's output and drops; ms a call replayed (CUDA
+    events) beside the eager warm ms, capture s, pool bytes."""
+    import torch
+
+    from triton_dist_tpu_torch.layers.ep_moe import ep_moe_fwd
+    from triton_dist_tpu_torch.runtime.graphs import compiled
+
+    layer = compiled(ep_moe_fwd, static=("params",), size=len(EP_GRAPHED))
+    rows = {}
+    for label in EP_GRAPHED:
+        kw = dict(runs[label])
+        x = kw.pop("x")
+
+        def call():
+            return layer(x, ep, k, return_drops=True, **kw)
+
+        got = [call() for _ in range(2)]
+        torch.cuda.synchronize()
+        y, drops = outs[label]
+        if not all(torch.equal(a, y) and torch.equal(d, drops)
+                   for a, d in got):
+            raise AssertionError(f"ep {label}: the replayed layer differs "
+                                 "from the eager one")
+        g = next(reversed(layer.graphs.graphs.values()))
+        rows[label] = dict(eager_ms=warm_ms[label],
+                           replay_ms=time_ms(call, iters=5, warmup=1),
+                           **graph_row(g))
+        log(f"  4g ep layer {label} as one graph: bitwise the eager layer; "
+            f"eager {warm_ms[label]:.3f} ms, replayed "
+            f"{rows[label]['replay_ms']:.3f} ms (CUDA events, warm); "
+            f"capture {g.capture_s:.3f} s, graph pool "
+            f"{g.pool_bytes / 1e6:.1f} MB, hand kernels a replay "
+            f"{g.launches}")
+    assert layer.graphs.made == len(EP_GRAPHED)
+    del layer
+    return rows
 
 
 def host_syncs(fn) -> int:
@@ -3842,6 +4127,7 @@ def run_ep(kernels, cfg, params, device="cuda"):
     # timing: the layer, host syncs, the two kernels
     warm_ms = {label: time_ms(lambda kw=kw: layer(kw), iters=5, warmup=1)
                for label, kw in runs.items()}
+    ep_graphs = check_graph_ep(ep, k, runs, outs, warm_ms)
     syncs = {label: host_syncs(lambda kw=runs[label]: layer(kw))
              for label in ("M128 sequential", "M128 overlap q4",
                            "M1 sequential", "M1 overlap q1")}
@@ -3868,6 +4154,7 @@ def run_ep(kernels, cfg, params, device="cuda"):
         f"(the EP weights {ep_gb:.2f} GB)")
     main = next(iter(a2a_rows))  # the first launch: M128's dispatch
     numbers = dict(first_ms=first_ms, warm_ms=warm_ms, host_syncs=syncs,
+                   graphs=ep_graphs,
                    peak_gb_beyond_weights=peak, bands_seq_overlap=bands,
                    ep_vs_tp_dist=tp_band,
                    drops_tight=drops_tight.tolist(), fp8_drift=fp8_drift,
@@ -4133,6 +4420,9 @@ def run_pp(kernels, cfg, params, device="cuda"):
         f"tokens: bitwise the sequential {L} layers; {first_ms:.3f} ms "
         f"(warm {warm_ms:.3f}), the {nmb} microbatches alone "
         f"{numbers['sequential_ms']:.3f} ms")
+    numbers["graph"] = check_graph_pp(cfg, params, comm, stage_fn,
+                                      x.expand(n, *x.shape), nmb, out,
+                                      warm_ms, alone)
     nbytes = act[0].numel() * act.element_size()
     label = f"PP handoff {tuple(act.shape)} bf16"
     rows = {"ring_shift": {label: time_collective(
@@ -4149,6 +4439,72 @@ def run_pp(kernels, cfg, params, device="cuda"):
     torch.cuda.empty_cache()
     return launched, (rows, label, {k: max(v) for k, v in errs.items()}), \
         numbers
+
+
+def check_graph_pp(cfg, params, comm, stage_fn, x, nmb, eager_out,
+                   eager_ms, alone):
+    """Phase 4g for PP: the whole schedule (every tick's stages and
+    ring_shift) captured as one graph through graphs.compiled (comm and
+    the stage function static); its first call and a replay bitwise the
+    eager schedule's output; ms a schedule replayed (CUDA events) beside
+    the eager one's, and against the microbatches alone through the same
+    layers, eager and as one graph (bitwise `alone`), capture s, pool
+    bytes, device kernels and zero fills of a replay (each ring_shift
+    takes a fresh zeroed flag pool: its fill is recorded and
+    replayed)."""
+    import torch
+
+    from triton_dist_tpu_torch.layers import pp_schedule_fwd
+    from triton_dist_tpu_torch.models import layers_fwd
+    from triton_dist_tpu_torch.runtime.graphs import compiled
+
+    def microbatches_alone(weights, mbs):
+        return [layers_fwd(cfg, weights, mbs[i], range(cfg.num_layers))
+                for i in range(nmb)]
+
+    one_by_one = compiled(microbatches_alone, static=("weights",))
+    mbs = x[0]
+    got = [one_by_one(params, mbs) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for run in got for a, b in zip(run, alone)):
+        raise AssertionError("PP: the microbatches alone as one graph "
+                             "differ from their eager run")
+    del got
+    alone_eager_ms = time_ms(lambda: microbatches_alone(params, mbs),
+                             iters=3, warmup=1)
+    alone_ms = time_ms(lambda: one_by_one(params, mbs), iters=3, warmup=1)
+    del one_by_one
+    sched = compiled(pp_schedule_fwd, static=("comm", "stage_fn"))
+    outs = [sched(comm, stage_fn, x, nmb) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(o, eager_out) for o in outs):
+        raise AssertionError("PP: the replayed schedule differs from the "
+                             "eager one")
+    assert sched.graphs.made == 1
+    g = next(iter(sched.graphs.graphs.values()))
+    del outs
+    replay_ms = time_ms(lambda: sched(comm, stage_fn, x, nmb), iters=3,
+                        warmup=1)
+    replay_t = trace_a_call(lambda: sched(comm, stage_fn, x, nmb))
+    row = dict(eager_ms=eager_ms, replay_ms=replay_ms,
+               alone_eager_ms=alone_eager_ms, alone_replay_ms=alone_ms,
+               ratio_eager=eager_ms / alone_eager_ms,
+               ratio_replay=replay_ms / alone_ms,
+               device_kernels_replay=replay_t["device_kernels"],
+               memsets_replay=replay_t["memsets"],
+               memset_us_replay=replay_t["memset_us"], **graph_row(g))
+    log(f"  4g PP schedule as one graph: bitwise the eager schedule; eager "
+        f"{eager_ms:.3f} ms, replayed {replay_ms:.3f} ms (CUDA events, "
+        f"warm); the microbatches alone {alone_eager_ms:.3f} ms eager, "
+        f"{alone_ms:.3f} ms as one graph (bitwise); schedule over alone "
+        f"{row['ratio_eager']:.3f} eager, {row['ratio_replay']:.3f} "
+        f"replayed; capture {g.capture_s:.3f} s, graph pool "
+        f"{g.pool_bytes / 1e6:.1f} MB, device kernels a replay "
+        f"{replay_t['device_kernels']} ({replay_t['memsets']} zero fills, "
+        f"{replay_t['memset_us']:.1f} us), hand kernels a replay "
+        f"{g.launches}")
+    del sched, g
+    return row
 
 
 def coll_inputs():

@@ -3046,3 +3046,225 @@ def test_serve_key_chain_replay_bitwise_eager(cuda):
         a = graph.serve(ids, 6, temperature=0.8, seed=seed)
         b = eager.serve(ids, 6, temperature=0.8, seed=seed)
         assert torch.equal(a, b)
+
+
+# -- the steps captured through graphs.compiled -----------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,moe,mode", [
+    (1, False, "ar"), (4, False, "ar"), (4, False, "dist"),
+    (4, True, "dist"), (4, True, "fused")],
+    ids=["dense-w1", "dense-w4-ar", "dense-w4-dist", "moe-w4-dist",
+         "moe-w4-fused"])
+def test_prefill_replay_bitwise_eager(cuda, world, moe, mode):
+    """Engine.prefill captured (its first call of a shape) and replayed
+    against the eager Engine on the same prompts: logits and the cache
+    (k, v, the new length) bitwise, on a fresh cache and as a second
+    chunk onto a filled one; a second fresh cache of a known shape
+    captures nothing (one graph a (batch, prompt length, cache shape));
+    the prefill's cache goes on into generate bitwise the eager one, the
+    prefill and decode graphs on one shared state."""
+    graph, eager = _engines(world, moe, prefill_mode=mode)
+    g = torch.Generator("cuda").manual_seed(6)
+    ids = torch.randint(0, 256, (4, 16), device="cuda", generator=g)
+    more = torch.randint(0, 256, (4, 8), device="cuda", generator=g)
+    for round_ in range(3):  # capture, replay, replay on a fresh cache
+        la, ca = graph.prefill(ids)
+        lb, cb = eager.prefill(ids)
+        assert torch.equal(la, lb), round_
+        for x, y in ((ca.k, cb.k), (ca.v, cb.v), (ca.length, cb.length)):
+            assert torch.equal(x, y), round_
+        la, ca = graph.prefill(more, ca)
+        lb, cb = eager.prefill(more, cb)
+        assert torch.equal(la, lb) and torch.equal(ca.k, cb.k), round_
+        assert ca.length.tolist() == [24] * 4
+    assert graph.prefill_graphs.made == 2  # 4 x 16, then 4 x 8
+    ta, ca = graph.generate(la.argmax(-1), ca, 4)
+    tb, cb = eager.generate(lb.argmax(-1), cb, 4)
+    assert torch.equal(ta, tb) and torch.equal(ca.v, cb.v)
+    assert len(graph.cache_states) == 1
+
+
+@pytest.mark.cuda
+def test_prefill_donate_cache_false_replay_leaves_the_cache(cuda):
+    """Fault 3.8 on the card: a graph-replaying Engine with
+    donate_cache=False prefills a copy; prefill A on cache C, prefill B on
+    C, decode on A's cache: C bitwise as it was, the decode's logits
+    bitwise the eager Engine's on the same sequence."""
+    from triton_dist_tpu_torch.models import Engine
+
+    graph, eager = _engines(1)
+    keep = Engine(graph.cfg, device="cuda", params=graph.params,
+                  donate_cache=False)
+    g = torch.Generator("cuda").manual_seed(8)
+    a, b = (torch.randint(0, 256, (4, 9), device="cuda", generator=g)
+            for _ in range(2))
+    c = keep.new_cache(4)
+    snap = _clone_cache(c)
+    la, c1 = keep.prefill(a, c)
+    keep.prefill(b, c)
+    keep.prefill(b, c)  # the replay
+    for x, y in ((snap.k, c.k), (snap.v, c.v), (snap.length, c.length)):
+        assert torch.equal(x, y)
+    got, _ = keep.decode_step(la.argmax(-1), c1)
+    lb, cb = eager.prefill(a)
+    want, _ = eager.decode_step(lb.argmax(-1), cb)
+    assert torch.equal(got, want) and keep.prefill_graphs.made == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_ll_all_gather_device_count_bitwise_plain(cuda, n):
+    """The LL kernel with its call count an int32 device word, calls 0-5
+    on one context: each gathered copy, the context's slots and flag
+    words bitwise a plain twin fed the same tensor; the count is read,
+    not changed; an int-count context in step with it bitwise too."""
+    rows, cols = 4, 4224
+    ctx, twin, ints = (llag.create_ll_ag_buffer((rows, cols), torch.float32,
+                                                n, device="cuda")
+                       for _ in range(3))
+    count = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for k in range(6):
+        x = torch.randn(n, rows, cols, device="cuda")
+        reset_launches()
+        got, _ = llag.ll_all_gather(x, ctx, count)
+        assert launches()["ll_all_gather"] == 1
+        want = llag.ll_all_gather_plain(x, twin, count)
+        by_int, _ = llag.ll_all_gather(x, ints, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got, by_int), k
+        assert torch.equal(ctx.data, twin.data), k
+        assert torch.equal(ctx.flags[:, :2 * n], twin.flags[:, :2 * n]), k
+        assert torch.equal(ctx.flags, ints.flags), k
+        assert count.item() == k
+        count.add_(1)
+
+
+def _sp_case(n=4, b=2, t_loc=512, h=256, heads=(8, 2, 128)):
+    from triton_dist_tpu_torch.layers import rope_table
+    from triton_dist_tpu_torch.layers.sp_flash_decode import (
+        SpDecodeParams,
+        SpDecodeSpec,
+    )
+
+    hq, hkv, d = heads
+    g = torch.Generator("cuda").manual_seed(11)
+
+    def t(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=g)
+                * scale).bfloat16()
+
+    params = SpDecodeParams(t(h, (hq + 2 * hkv) * d, scale=0.05),
+                            t(hq * d, h, scale=0.05))
+    cos, sin = rope_table(d, n * t_loc + 32, device="cuda")
+    cache = (t(n, b, t_loc, hkv, d), t(n, b, t_loc, hkv, d))
+    xs = t(12, b, h)
+    return params, SpDecodeSpec(hq, hkv, d), cos, sin, cache, xs
+
+
+@pytest.mark.cuda
+def test_sp_decode_replay_bitwise_eager(cuda):
+    """compiled_sp_decode_step: its first call eager (and captured), then
+    replays, against the eager step on a copy of the same state, 12 steps
+    at n = 4 (a kv_len near a shard's end, one mid-shard): every output,
+    the cache, kv_len, the count and the LL context bitwise; after each
+    replay the count reads step + 1 and the context's flags of that
+    step's parity read the count (its call + 1). A second state of the
+    same shape (a fresh context, count 0) replays the same graph."""
+    from triton_dist_tpu_torch.kernels.flash_decode import (
+        create_sp_decode_buf,
+    )
+    from triton_dist_tpu_torch.layers.sp_flash_decode import (
+        compiled_sp_decode_step,
+        sp_decode_step,
+    )
+
+    n = 4
+    params, spec, cos, sin, cache, xs = _sp_case(n)
+    b, hq, d = xs.shape[1], spec.num_q_heads, spec.head_dim
+
+    def state():
+        return ([c.clone() for c in cache],
+                torch.tensor([509, 1300], device="cuda"),
+                create_sp_decode_buf(b, hq, d, n, device="cuda"),
+                torch.zeros(1, dtype=torch.int32, device="cuda"))
+
+    step = compiled_sp_decode_step()
+    for trial in range(2):
+        (ka, va), la, xa, ca = state()
+        (kb, vb), lb, xb, cb = state()
+        for i in range(xs.shape[0]):
+            x = xs[i].expand(n, *xs[i].shape)
+            ya = step(x, params, spec, cos, sin, (ka, va), la, xa, ca)
+            yb = sp_decode_step(x, params, spec, cos, sin, (kb, vb), lb, xb,
+                                cb)
+            torch.cuda.synchronize()
+            assert torch.equal(ya, yb), (trial, i)
+            assert ca.item() == i + 1 and cb.item() == i + 1
+            p = i % 2
+            assert bool(xa.flags[:, p * n:(p + 1) * n].eq(i + 1).all()), i
+        for x, y in ((ka, kb), (va, vb), (la, lb), (xa.data, xb.data),
+                     (xa.flags, xb.flags)):
+            assert torch.equal(x, y), trial
+    assert step.graphs.made == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True], ids=["seq", "overlap"])
+def test_ep_layer_replay_bitwise_eager(cuda, overlap):
+    """ep_moe_fwd through graphs.compiled (weights static), its first call
+    eager and captured, then replays on new tokens copied into the
+    graph's: output and drops bitwise the eager layer's, a tight
+    capacity dropping pairs; a replay counts the A2A launches its capture
+    recorded."""
+    from triton_dist_tpu_torch.layers.ep_moe import ep_moe_fwd
+    from triton_dist_tpu_torch.runtime.graphs import compiled
+
+    x, p = _ep_case(4, 32, 256, 16, 64, torch.bfloat16)
+    kw = dict(capacity=24, return_drops=True)
+    if overlap:
+        kw.update(overlap=True, n_chunks=2)
+    layer = compiled(ep_moe_fwd, static=("params",))
+    name = "all_to_all_chunked" if overlap else "all_to_all"
+    for i in range(3):
+        xi = x if i == 0 else torch.randn_like(x)
+        reset_launches()
+        got, drops = layer(xi, p, 4, **kw)
+        assert launches()[name] == 2
+        want, want_d = ep_moe_fwd(xi, p, 4, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(drops, want_d), i
+        assert int(drops.sum()) > 0
+    assert layer.graphs.made == 1
+
+
+@pytest.mark.cuda
+def test_pp_schedule_replay_bitwise_eager(cuda):
+    """pp_schedule_fwd through graphs.compiled (comm and stage function
+    static): the 7-tick schedule over a tiny bf16 model's 4 stages as one
+    graph, its replays on new microbatches bitwise the eager schedule,
+    seven ring_shift launches a replay (each with its fresh flag pool's
+    memset recorded)."""
+    from triton_dist_tpu_torch.layers import PPCommOp, pp_schedule_fwd
+    from triton_dist_tpu_torch.models import ModelConfig, pp_stage_fn
+    from triton_dist_tpu_torch.models.dense import init_params
+    from triton_dist_tpu_torch.runtime.graphs import compiled
+
+    cfg = ModelConfig.tiny(num_layers=4, dtype="bfloat16", head_dim=64)
+    params = init_params(cfg, device="cuda", seed=0)
+    comm, fn = PPCommOp(4), pp_stage_fn(cfg, params, 4)
+    sched = compiled(pp_schedule_fwd, static=("comm", "stage_fn"))
+    g = torch.Generator("cuda").manual_seed(2)
+    for i in range(3):
+        ids = torch.randint(0, cfg.vocab_size, (4, 32), device="cuda",
+                            generator=g)
+        mbs = params.embed[ids]
+        x = mbs.expand(4, *mbs.shape)
+        reset_launches()
+        got = sched(comm, fn, x, 4)
+        assert launches()["ring_shift"] == 7
+        want = pp_schedule_fwd(comm, fn, x, 4)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), i
+    assert sched.graphs.made == 1

@@ -1,11 +1,14 @@
 """What the port's captured steps rest on, held on the CPU against the JAX
-package: the fixed-shape KV write against the JAX scatter, the decode
-and serve steps free of host reads (dense at world 1 and 4, MoE at world
-4), the capturable decode step run eagerly against the JAX Engine's
+package: the fixed-shape KV write against the JAX scatter, the prefill,
+decode and serve steps free of host reads (dense at world 1 and 4, MoE
+at world 4), and the SP decode step with a device call count, the EP
+layer and the PP schedule likewise, the capturable decode step run
+eagerly against the JAX Engine's
 `generate` (its `lax.fori_loop`), the megakernel step's warm-up call,
 the grouped f32 product on device group sizes against the JAX
-`grouped_gemm` (`lax.ragged_dot`), and the binding of a caller's state
-to a graph's (`Resident`).
+`grouped_gemm` (`lax.ragged_dot`), the binding of a caller's state
+to a graph's (`Resident`), and `graphs.compiled` (the CPU calls the step
+function; a replay's outputs: the caller's state, copies of the rest).
 
 Tiny f32 configs; the JAX side as the existing tests run it (world n on
 the virtual CPU mesh, interpret-mode Pallas). On the card the same
@@ -30,6 +33,13 @@ from triton_dist_tpu_torch.models import Engine, ModelConfig, params_from_jax
 from triton_dist_tpu_torch.models.dense import init_params
 from triton_dist_tpu_torch.kernels.sample import sample_slots
 from triton_dist_tpu_torch.models.engine import _serve_forward
+from triton_dist_tpu_torch.layers import PPCommOp, pp_schedule_fwd
+from triton_dist_tpu_torch.layers import sp_flash_decode as spl
+from triton_dist_tpu_torch.layers.ep_moe import EPMoEParams, ep_moe_fwd
+from triton_dist_tpu_torch.kernels.flash_decode import create_sp_decode_buf
+from triton_dist_tpu_torch.layers.rope import rope_table
+from triton_dist_tpu_torch.models.dense import pp_stage_fn
+from triton_dist_tpu_torch.runtime import graphs
 from triton_dist_tpu_torch.runtime.graphs import Resident
 from triton_dist_tpu_torch.serve.kv_pool import KVPool
 
@@ -89,19 +99,25 @@ def _forbid_host_reads(monkeypatch):
     ids=["dense-w1", "dense-w4-ar", "dense-w4-dist", "moe-w4-ar",
          "moe-w4-dist"])
 def test_steps_make_no_host_read(monkeypatch, moe, world, mode):
-    """One decode step (the Engine's, and the capturable step function a
-    graph records) and one serve step (dense view, forward, last logits,
-    pool scatter, then `sample_slots`, greedy and keyed rows) with
-    Tensor.nonzero / item / tolist /
+    """A prefill (the Engine's, in `mode`: a fresh cache, then a second
+    chunk on it), one decode step (the Engine's, and the capturable step
+    function a graph records) and one serve step (dense view, forward,
+    last logits, pool scatter, then `sample_slots`, greedy and keyed
+    rows) with Tensor.nonzero / item / tolist /
     cpu / numpy and the bool / int / float conversions made to raise: a
     CUDA graph can hold the step only if nothing on it reads the card."""
     cfg = (ModelConfig.tiny_moe(max_positions=64) if moe
            else ModelConfig.tiny(**CFG4))
     eng = Engine(cfg, device="cpu", world=world, max_len=32,
-                 decode_mode=mode,
+                 prefill_mode=mode, decode_mode=mode,
                  params=init_params(cfg, "cpu", seed=3, world=world))
-    ids = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 5))
+    ids = torch.as_tensor(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 5)))
+    _forbid_host_reads(monkeypatch)
     logits, cache = eng.prefill(ids)
+    _, chunked = eng.prefill(ids[:, :4], eng.prefill(ids[:, :1])[1])
+    monkeypatch.undo()
+    assert chunked.length.tolist() == [5] * 4
     tok = logits.argmax(-1)
     pool = KVPool(eng, slots=4, page=8)
     table = torch.as_tensor(np.arange(1, 17).reshape(4, 4))
@@ -123,6 +139,67 @@ def test_steps_make_no_host_read(monkeypatch, moe, world, mode):
     monkeypatch.undo()
     assert last.shape == (4, cfg.vocab_size) and tok.shape == (4,)
     assert torch.isfinite(last).all()
+
+
+def _sp_step_case():
+    """The SP decode step's arguments, world 4, a device call count."""
+    n, b, h, hq, hkv, d, t_loc = 4, 2, 32, 4, 2, 16, 8
+    g = torch.Generator().manual_seed(5)
+    params = spl.SpDecodeParams(
+        torch.randn(h, (hq + 2 * hkv) * d, generator=g) * 0.1,
+        torch.randn(hq * d, h, generator=g) * 0.1)
+    cos, sin = rope_table(d, n * t_loc + 4, device="cpu")
+    cache = tuple(torch.randn(n, b, t_loc, hkv, d, generator=g)
+                  for _ in range(2))
+    return (torch.randn(n, b, h, generator=g), params,
+            spl.SpDecodeSpec(hq, hkv, d), cos, sin, cache,
+            torch.tensor([9, 30]), create_sp_decode_buf(b, hq, d, n, "cpu"),
+            torch.zeros(1, dtype=torch.int32))
+
+
+def _ep_case(overlap):
+    n, m, h, e, inter, k = 4, 6, 16, 8, 8, 2
+    g = torch.Generator().manual_seed(7)
+    params = EPMoEParams(torch.randn(h, e, generator=g),
+                         torch.randn(n, e // n, h, 2 * inter, generator=g),
+                         torch.randn(n, e // n, inter, h, generator=g))
+    x = torch.randn(n, m, h, generator=g)
+    kw = dict(overlap=True, n_chunks=2) if overlap else {}
+    return lambda: ep_moe_fwd(x, params, k, return_drops=True, **kw)
+
+
+@pytest.mark.parametrize("step", ["sp-decode", "ep-sequential",
+                                  "ep-overlap", "pp-schedule"])
+def test_sp_ep_pp_steps_make_no_host_read(monkeypatch, step):
+    """The other steps a graph captures, with the host reads of
+    test_steps_make_no_host_read made to raise: the SP decode step with
+    its LL call count a device tensor (two steps; the count and kv_len
+    advanced on the device), `ep_moe_fwd` sequential and overlap (q 2),
+    and `pp_schedule_fwd` over a tiny model's layers at 4 stages. Each
+    gives what it gives with host reads allowed."""
+    if step == "sp-decode":
+        def run():
+            a = _sp_step_case()
+            ys = [spl.sp_decode_step(*a) for _ in range(2)]
+            return ys, a[6], a[8], a[7].flags
+    elif step.startswith("ep"):
+        run = _ep_case(step == "ep-overlap")
+    else:
+        cfg = ModelConfig.tiny(num_layers=4, max_positions=64)
+        params = init_params(cfg, "cpu", seed=4)
+        fn = pp_stage_fn(cfg, params, 4)
+        x = torch.randn(1, 3, 5, cfg.hidden_size).expand(4, 3, 5, -1)
+
+        def run():
+            return pp_schedule_fwd(PPCommOp(4), fn, x, 3)
+    want = run()
+    _forbid_host_reads(monkeypatch)
+    got = run()
+    monkeypatch.undo()
+    for a, b in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
+        assert torch.equal(a, b)
+    if step == "sp-decode":
+        assert got[1].tolist() == [11, 32] and got[2].tolist() == [2]
 
 
 # ---------- (c) the capturable step against the JAX fori_loop ----------
@@ -315,3 +392,75 @@ def test_resident_refuses_another_shape():
         r.bind([torch.zeros(3, 2)])
     with pytest.raises(ValueError, match="state 0"):
         r.bind([torch.zeros(2, 3, dtype=torch.float64)])
+
+
+# ---------- (f) graphs.compiled ----------
+
+
+def _toy_step(x, state, scale, table):
+    """A step of all three kinds of argument: it adds x * scale to its
+    state in place and returns (a state tensor, a fresh one)."""
+    acc, count = state
+    acc.add_(x * scale + table)
+    count.add_(1)
+    return acc, acc.sum(), [count]
+
+
+def test_compiled_calls_the_step_on_the_cpu():
+    """On the CPU (and with cuda_graph False) a compiled step is its
+    function: the same results, the state updated in place, no graph."""
+    step = graphs.compiled(_toy_step, state=("state",), static=("table",))
+    acc, count = torch.zeros(3), torch.zeros(1, dtype=torch.int32)
+    table = torch.ones(3)
+    for i in range(3):
+        a, total, (c,) = step(torch.arange(3.0), (acc, count), 2.0, table)
+        assert a is acc and c is count
+    assert acc.tolist() == [3.0, 9.0, 15.0] and count.tolist() == [3]
+    assert total.item() == 27.0 and step.graphs.made == 0
+    off = graphs.compiled(_toy_step, state=("state",), static=("table",),
+                          cuda_graph=False)
+    off(torch.ones(3), (acc, count), 1.0, table=table)
+    assert count.tolist() == [4] and off.graphs.made == 0
+
+
+def test_compiled_refuses_what_it_cannot_key():
+    """A name that is not an argument raises at once; an input that is
+    neither a tensor nor hashable raises before any call (name it
+    static); a state argument must hold tensors."""
+    with pytest.raises(ValueError, match="not arguments"):
+        graphs.compiled(_toy_step, state=("cache",))
+    step = graphs.compiled(_toy_step, state=("state",))
+    acc, count = torch.zeros(3), torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(TypeError, match="table"):
+        step(torch.ones(3), (acc, count), 1.0, {"not": "hashable"})
+    step = graphs.compiled(_toy_step, state=("state", "scale"))
+    with pytest.raises(TypeError, match="scale"):
+        step(torch.ones(3), (acc, count), 1.0, torch.ones(3))
+    assert count.tolist() == [0]
+
+
+def test_compiled_replay_returns_the_callers_state_and_copies():
+    """What a replay hands back (`graphs._returned`): an output that is
+    one of the graph's state tensors comes back as the caller's tensor
+    bound to it, through tuples, lists, named tuples and dataclasses (an
+    LL context); any other tensor as a copy that the next replay does
+    not touch; other values as they are."""
+    state = [torch.zeros(4), torch.ones(2)]
+    mine = [torch.zeros(4), torch.ones(2)]
+    other = torch.arange(3.0)
+    ctx = create_sp_decode_buf(1, 1, 8, 2, "cpu")
+    ctx2 = create_sp_decode_buf(1, 1, 8, 2, "cpu")
+    st = [state[0], state[1], ctx.data, ctx.flags]
+    ours = [mine[0], mine[1], ctx2.data, ctx2.flags]
+    out = graphs._returned(
+        (state[0], [other, 7], spl.SpDecodeSpec(1, 2, 3), ctx, state[1][:1]),
+        st, ours)
+    assert out[0] is mine[0] and out[3].data is ctx2.data
+    assert out[3].flags is ctx2.flags and out[2] == (1, 2, 3)
+    copied = out[1][0]
+    assert torch.equal(copied, other) and copied.data_ptr() != \
+        other.data_ptr() and out[1][1] == 7
+    other.add_(1)  # the next replay rewrites the graph's buffer
+    assert copied.tolist() == [0.0, 1.0, 2.0]
+    # a view of a state tensor that is not the tensor itself: a copy
+    assert out[4].data_ptr() != state[1].data_ptr()

@@ -1,6 +1,7 @@
 """The port's resident serving loop (Engine.make_resident_loop, the
 injection ring, ResidentWorker, Scheduler(resident=True)), its sampling by
-the JAX key stream (kernels/sample.py) and fault 3.7's donate_cache,
+the JAX key stream (kernels/sample.py), fault 3.7's donate_cache and
+fault 3.8's (the prefill's),
 against the JAX package on the CPU.
 
 Tiny f32 config (tests/test_serve_resident.py's: 4 q / 2 kv heads, 64
@@ -711,6 +712,39 @@ def test_donate_cache_false_steps_a_copy_like_jax(engines, prompts):
     donate = Engine(eng.cfg, device="cpu", max_len=64, params=eng.params)
     _, c2 = donate.decode_step(tok, cache)
     assert c2 is cache and cache.length.tolist() == [10, 10]
+
+
+def test_prefill_donate_cache_false_keeps_the_cache_like_jax(engines,
+                                                             prompts):
+    """Fault 3.8: Engine(donate_cache=False).prefill writes a copy of the
+    cache passed in, as the JAX Engine(donate_cache=False) returns a new
+    cache. Prefill prompt A on cache C (giving C1), prefill prompt B on C,
+    then decode one step on C1: C stays bitwise as it was, and the step's
+    logits are within LOGIT_ATOL of the JAX Engine's on the same
+    sequence. With donate_cache=True the prefill writes into C."""
+    jeng, eng = engines
+    keep = Engine(eng.cfg, device="cpu", max_len=64, params=eng.params,
+                  donate_cache=False)
+    ids_a = np.asarray([prompts[0][:6], prompts[1][:6]], np.int32)
+    ids_b = np.asarray([prompts[2][:6], prompts[0][3:9]], np.int32)
+    jc = jeng.new_cache(2)
+    jla, jc1 = jeng.prefill(jnp.asarray(ids_a), jc)
+    jeng.prefill(jnp.asarray(ids_b), jc)
+    c = keep.new_cache(2)
+    snap = [t.clone() for t in (c.k, c.v, c.length)]
+    la, c1 = keep.prefill(ids_a, c)
+    keep.prefill(ids_b, c)
+    for x, y in zip(snap, (c.k, c.v, c.length)):
+        assert torch.equal(x, y)
+    np.testing.assert_allclose(la.numpy(), np.asarray(jla), atol=LOGIT_ATOL)
+    tok = la.argmax(-1)
+    jl, _ = jeng.decode_step(jnp.asarray(tok.numpy().astype(np.int32)), jc1)
+    lg, c2 = keep.decode_step(tok, c1)
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jl), atol=LOGIT_ATOL)
+    assert c1.length.tolist() == [6, 6] and c2.length.tolist() == [7, 7]
+    donate = Engine(eng.cfg, device="cpu", max_len=64, params=eng.params)
+    _, c3 = donate.prefill(ids_a, c)
+    assert c3.k is c.k and not torch.equal(c.k, snap[0])
 
 
 def test_mega_donate_cache_false_like_jax(engines):

@@ -1,7 +1,9 @@
 """The port's sequence-parallel attention path against the JAX package's:
 the decode partial and combine (kernels/flash_decode.py), the
-low-latency AllGather (kernels/low_latency_allgather.py), the SP decode
-layer (layers/sp_flash_decode.py), ring attention (kernels/
+low-latency AllGather (kernels/low_latency_allgather.py; its call count
+an int or a device tensor), the SP decode layer (layers/sp_flash_decode.py;
+its self-advancing step against the JAX layer under jit with a traced
+count), ring attention (kernels/
 sp_attention.py), SP flash prefill (kernels/flash_prefill.py), the
 weights' carry-over, and the slice whole: SP prefill -> cache -> decode.
 
@@ -351,6 +353,95 @@ def test_ll_all_gather_context_after_each_of_eight_calls(n):
         assert ctx.flags[:, 2 * n].eq(0).all()
     with pytest.raises(ValueError, match="call_count"):
         llag.ll_all_gather(xs[0], ctx, -1)
+
+
+@pytest.mark.parametrize("wire_format", [None, "fp8"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_ll_all_gather_device_count_is_bitwise_the_int_form(n, wire_format):
+    """The call count as an int32 tensor of one element (JAX's traced
+    call_count), calls 0-5 on one context: every gathered copy, the
+    context's slots and every flag word bitwise the same calls with an
+    int count on a twin context, on the native and the fp8 wire. A
+    count tensor of another dtype, size or device is refused."""
+    rows, cols = 3, 8
+    twins = [llag.create_ll_ag_buffer((rows, cols), torch.float32, n,
+                                      wire_format=wire_format, device="cpu")
+             for _ in range(2)]
+    for k in range(6):
+        x = _t(_rand(70 + k, n, rows, cols))
+        want, _ = llag.ll_all_gather(x, twins[0], k, wire_format=wire_format)
+        count = torch.tensor([k], dtype=torch.int32)
+        got, _ = llag.ll_all_gather(x, twins[1], count,
+                                    wire_format=wire_format)
+        assert torch.equal(got, want), k
+        assert torch.equal(twins[1].data, twins[0].data), k
+        assert torch.equal(twins[1].flags, twins[0].flags), k
+        assert count.tolist() == [k]
+    for bad in (torch.tensor([0]), torch.zeros(2, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="call_count"):
+            llag.ll_all_gather(x, twins[1], bad, wire_format=wire_format)
+
+
+def test_sp_decode_step_device_count_matches_jax_fori_loop():
+    """sp_decode_step over 5 steps at n = 4, its LL call count an int32
+    device tensor that the step advances with kv_len (through
+    `compiled_sp_decode_step`, which on the CPU calls the step), against
+    the JAX layer under jax.jit with call_count traced through a
+    `lax.fori_loop` (interpret-mode kernels): every step's output and
+    every rank's cache shard within 2e-5, the count ending at 5 and
+    kv_len at its start + 5, the context bitwise the int-count layer's
+    after the same steps."""
+    n, b, h, t_max, steps = 4, 2, 32, 16, 5
+    start = np.array([9, 2], np.int32)
+    jp = _sp_params(40, h)
+    xs = _rand(44, steps, b, h, scale=0.5)
+    cos, sin = jax_rope_table(D, t_max + 1)
+    spec = spl.SpDecodeSpec(HQ, HKV, D)
+
+    def per_device(x_all, kc, vc):
+        def body(i, carry):
+            cache, buf, outs = carry
+            y, cache, buf = jax_sp_decode(
+                x_all[i], jp, spec, cos, sin, cache, start + i, axis="tp",
+                ll_buf=buf, call_count=i)
+            return cache, buf, outs.at[i].set(y)
+
+        carry = ((kc, vc), jax_create_sp_decode_buf(b, HQ, D, n),
+                 jnp.zeros((steps, b, h), jnp.float32))
+        (k_out, v_out), _, outs = jax.lax.fori_loop(0, steps, body, carry)
+        return outs, k_out, v_out
+
+    kc0 = _rand(45, b, t_max, HKV, D)
+    vc0 = _rand(46, b, t_max, HKV, D)
+    want, want_k, want_v = _jax(
+        per_device, n, xs, kc0, vc0,
+        in_specs=(P(), P(None, "tp"), P(None, "tp")),
+        out_specs=(P(), P(None, "tp"), P(None, "tp")))
+    params = spl.sp_params_from_jax(jp, device="cpu")
+    tcos, tsin = rope_table(D, t_max + 1, device="cpu")
+    step = spl.compiled_sp_decode_step()
+    cache = (_t(_stack(kc0, n)), _t(_stack(vc0, n)))
+    twin = tuple(c.clone() for c in cache)
+    ctx = fd.create_sp_decode_buf(b, HQ, D, n, device="cpu")
+    ctx_int = fd.create_sp_decode_buf(b, HQ, D, n, device="cpu")
+    kv_len = _t(start).long()
+    count = torch.zeros(1, dtype=torch.int32)
+    for i in range(steps):
+        x = _t(np.broadcast_to(xs[i], (n, b, h)))
+        y = step(x, params, spec, tcos, tsin, cache, kv_len, ctx, count)
+        y_int, twin, ctx_int = spl.sp_decode_attn_fwd(
+            x, params, spec, tcos, tsin, twin, _t(start + i),
+            ll_buf=ctx_int, call_count=i)
+        assert torch.equal(y, y_int), i
+        for r in range(n):
+            _close(y[r], want[i])
+    assert count.tolist() == [steps]
+    assert kv_len.tolist() == (start + steps).tolist()
+    _close(cache[0], _stack(want_k, n))
+    _close(cache[1], _stack(want_v, n))
+    assert torch.equal(ctx.data, ctx_int.data)
+    assert torch.equal(ctx.flags, ctx_int.flags)
+    assert step.graphs.made == 0
 
 
 # -- sp_flash_decode and the SP decode layer --------------------------------

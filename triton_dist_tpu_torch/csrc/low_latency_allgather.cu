@@ -25,7 +25,11 @@
 // backoff cap. No flag is ever reset: a flag that reads k + 1 can only
 // have been set by call k. Only the first call on a fresh context
 // barriers (the peers must be inside the kernel before the first puts
-// land; afterwards the flags order everything).
+// land; afterwards the flags order everything). The call count k comes
+// from the host, or from an int32 word in device memory that every block
+// reads at entry (the SP decode step's count, which the step advances on
+// the card, so a captured step replays as call 0, 1, 2, ...: JAX's traced
+// call_count); a negative word traps.
 //
 // The data moves once: the sender writes out itself (a fresh output
 // that the wrapper allocates each call, partitioned by rank, as the
@@ -70,9 +74,21 @@ constexpr int kUnits = 8;
 
 __global__ void __launch_bounds__(kThreads)
 ll_ag_kernel(const char* __restrict__ x, char* data, int* flags, char* out,
-             int n, long long bytes, int parity, int value, int first) {
+             int n, long long bytes, int parity, int value, int first,
+             const int* __restrict__ count) {
   const int me = blockIdx.y;
   const int words = 2 * n + 1;  // flag words a rank
+  if (count != nullptr) {  // the call count in device memory
+    const int k = *count;
+    if (k < 0) {
+      if (threadIdx.x == 0 && blockIdx.x == 0 && me == 0)
+        printf("ll_all_gather: call count %d in device memory is < 0\n", k);
+      __trap();
+    }
+    parity = k & 1;
+    value = k + 1;
+    first = k == 0;
+  }
   if (first)
     shmem::barrier_all(flags, words, 2 * n, me, n, "ll_all_gather");
   const char* mine = x + size_t(me) * bytes;
@@ -99,19 +115,20 @@ ll_ag_kernel(const char* __restrict__ x, char* data, int* flags, char* out,
 }  // namespace
 
 // One call on the context (data, flags): parity = call_count % 2,
-// value = call_count + 1, first = 1 on a fresh context. info receives
-// the grid (shmem.cuh launch_world). Returns a cudaError_t (0 =
-// launched).
+// value = call_count + 1, first = 1 on a fresh context; with count
+// non-null the kernel takes them from the int32 word *count instead
+// (call_count and first unused). info receives the grid (shmem.cuh
+// launch_world). Returns a cudaError_t (0 = launched).
 extern "C" int ll_ag_launch(const void* x, void* data, void* flags,
                             void* out, int n, long long bytes,
-                            int call_count, int first, int* info,
-                            void* stream) {
+                            int call_count, int first, const void* count,
+                            int* info, void* stream) {
   if (n < 1 || bytes < 1 || call_count < 0) return int(cudaErrorInvalidValue);
   return int(shmem::launch_world(
       ll_ag_kernel, n, n, kThreads, 0, static_cast<cudaStream_t>(stream),
       info, static_cast<const char*>(x), static_cast<char*>(data),
       static_cast<int*>(flags), static_cast<char*>(out), n, bytes,
-      call_count % 2, call_count + 1, first));
+      call_count % 2, call_count + 1, first, static_cast<const int*>(count)));
 }
 
 extern "C" const char* ll_ag_error_string(int err) {

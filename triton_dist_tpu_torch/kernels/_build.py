@@ -112,6 +112,11 @@ def capturing():
         _captures.pop()
 
 
+def under_capture() -> bool:
+    """Whether a CUDA-graph capture is recording the launches now."""
+    return bool(_captures)
+
+
 def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0

@@ -306,14 +306,16 @@ def sp_flash_decode(q: torch.Tensor, k_shard: torch.Tensor,
                     v_shard: torch.Tensor, kv_len: torch.Tensor,
                     scale: Optional[float] = None,
                     ll_buf: Optional[SymmetricContext] = None,
-                    call_count: int = 0, partial_impl: str = "auto"):
+                    call_count=0, partial_impl: str = "auto"):
     """Decode over a sequence-sharded cache: q (n, B, Hq, D), shards
     (n, B, T_loc, Hkv, D), kv_len (B,) the GLOBAL valid length; returns
     (n, B, Hq, D) in q.dtype, every rank's copy alike.
 
     ll_buf: an LL context from create_sp_decode_buf; the packed (o, lse)
     partials then ride one ll_all_gather (call_count: the 0-based step on
-    that context) and the call returns (out, ll_buf). Without it the
+    that context, an int or an int32 device tensor of one element that
+    the gather reads on the card, JAX's traced count) and the call
+    returns (out, ll_buf). Without it the
     packed partials are gathered by a torch copy; either way the same
     combine runs on the same bytes.
     partial_impl: "auto" or "pallas" (the JAX name): the kernel's

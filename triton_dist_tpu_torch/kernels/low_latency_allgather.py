@@ -33,6 +33,14 @@ of the same full-mesh push, is the device helper of that name in
 csrc/shmem.cuh, which SP flash prefill's kernel calls
 (csrc/flash_prefill.cu).
 
+The call count is a host `int` or, as JAX's traced `call_count`, an
+int32 tensor of one element on x's device (the SP decode step's device
+word, which the step advances, so a captured step replays as call 0, 1,
+2, ...): the kernel then reads it from device memory, parity = count %
+2, value = count + 1, first = (count == 0), and neither version reads it
+on the host; the plain version computes its parity on the tensor and is
+bitwise its `int` form.
+
 A quantized `wire_format`: the context made with it holds int8 slots of
 the packed image, (n, 2, n, rows, wire_cols) (`create_ll_ag_buffer(...,
 wire_format=)`); each call packs every rank's payload once, pushes the
@@ -63,7 +71,7 @@ from triton_dist_tpu_torch.runtime.symm_mem import (
 _SIGNATURES = {
     "ll_ag_launch": (ctypes.c_int, [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p]),
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
     "ll_ag_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -82,7 +90,7 @@ def create_ll_ag_buffer(x_shape: Sequence[int], dtype: torch.dtype, n: int,
     return world.context((2, n, *x_shape), dtype, 2 * n + 1)
 
 
-def _check(x: torch.Tensor, ctx: SymmetricContext, call_count: int) -> None:
+def _check(x: torch.Tensor, ctx: SymmetricContext, call_count) -> None:
     n = x.shape[0]
     if ctx.data.shape != (n, 2, n, *x.shape[1:]) or \
             ctx.data.dtype != x.dtype or \
@@ -92,31 +100,56 @@ def _check(x: torch.Tensor, ctx: SymmetricContext, call_count: int) -> None:
                          f"{tuple(x.shape)} {x.dtype}")
     if ctx.data.device != x.device or ctx.flags.device != x.device:
         raise ValueError(f"context on {ctx.data.device}, x on {x.device}")
-    if int(call_count) < 0:
+    if isinstance(call_count, torch.Tensor):
+        # a device word: checked by its form only, never read here
+        if call_count.dtype != torch.int32 or call_count.numel() != 1 \
+                or call_count.device != x.device:
+            raise ValueError(f"call_count tensor {call_count.dtype} "
+                             f"{tuple(call_count.shape)} on "
+                             f"{call_count.device}: one int32 element on "
+                             f"{x.device}")
+    elif int(call_count) < 0:
         raise ValueError(f"call_count {call_count} must be >= 0")
 
 
 def ll_all_gather_plain(x: torch.Tensor, ctx: SymmetricContext,
-                        call_count: int) -> torch.Tensor:
+                        call_count) -> torch.Tensor:
     """The kernel's effect in torch: every rank's payload into slot
     (call_count % 2, rank) of every rank's partition, those slots' flags
     set to call_count + 1; returns a copy of each rank's gathered slots,
-    (n, n, ...)."""
+    (n, n, ...). call_count: an int, or an int32 tensor of one element,
+    whose parity is then taken on the tensor (no host read)."""
     _check(x, ctx, call_count)
-    parity = int(call_count) % 2
     n = x.shape[0]
-    ctx.data[:, parity] = x.unsqueeze(0).expand(n, *x.shape)
-    ctx.flags[:, parity * n:(parity + 1) * n] = int(call_count) + 1
-    return ctx.data[:, parity].clone()
+    if not isinstance(call_count, torch.Tensor):
+        parity = int(call_count) % 2
+        ctx.data[:, parity] = x.unsqueeze(0).expand(n, *x.shape)
+        ctx.flags[:, parity * n:(parity + 1) * n] = int(call_count) + 1
+        return ctx.data[:, parity].clone()
+    count = call_count.reshape(())
+    parity = count % 2
+    dev = ctx.data.device
+    # slot parity of every partition, selected on the device
+    pick = (torch.arange(2, device=dev) == parity).reshape(
+        1, 2, *([1] * (ctx.data.dim() - 2)))
+    ctx.data.copy_(torch.where(pick, x.unsqueeze(0).unsqueeze(0).expand(
+        n, 2, *x.shape), ctx.data))
+    col = torch.arange(ctx.flags.shape[1], device=dev)
+    mine = (col >= parity * n) & (col < (parity + 1) * n)
+    ctx.flags.copy_(torch.where(mine, (count + 1).to(ctx.flags.dtype),
+                                ctx.flags))
+    return ctx.data.index_select(1, parity.reshape(1).long()).squeeze(1)
 
 
 @_build.counted("ll_all_gather")
-def ll_all_gather(x: torch.Tensor, ctx: SymmetricContext, call_count: int,
+def ll_all_gather(x: torch.Tensor, ctx: SymmetricContext, call_count,
                   wire_format=None) -> Tuple[torch.Tensor, SymmetricContext]:
     """x (n, ...) rank-stacked -> (gathered (n, n, ...), ctx): the CUDA
     kernel on a CUDA tensor (launched or raising, never replaced), the
     plain version on a CPU tensor. call_count is the 0-based call index
-    on ctx; call 0 barriers. ctx is updated in place and returned, as
+    on ctx, an int or an int32 tensor of one element on x's device (read
+    on the device; module docstring); call 0 barriers. ctx is updated in
+    place and returned, as
     the JAX function returns its donated context. At n = 1 the result
     is x[:, None], as the JAX function returns x[None] per rank. A
     quantized wire_format moves the packed images (module docstring)."""
@@ -131,10 +164,10 @@ def ll_all_gather(x: torch.Tensor, ctx: SymmetricContext, call_count: int,
         return x[:, None].clone(), ctx
     if x.device.type == "cpu":
         return ll_all_gather_plain(x, ctx, call_count), ctx
-    return _launch(x, ctx, int(call_count)), ctx
+    return _launch(x, ctx, call_count), ctx
 
 
-def _wire_ll(x: torch.Tensor, ctx: SymmetricContext, call_count: int,
+def _wire_ll(x: torch.Tensor, ctx: SymmetricContext, call_count,
              fmt: wire.WireFormat) -> torch.Tensor:
     n = x.shape[0]
     xw = wire.pack(x.reshape(n * x.shape[1], *x.shape[2:]), fmt).reshape(
@@ -145,14 +178,14 @@ def _wire_ll(x: torch.Tensor, ctx: SymmetricContext, call_count: int,
     if x.device.type == "cpu":
         slots = ll_all_gather_plain(xw, ctx, call_count)
     else:
-        slots = _launch(xw, ctx, int(call_count))
+        slots = _launch(xw, ctx, call_count)
     out = wire.unpack(slots.reshape(-1, xw.shape[-1]), x.shape[2:], fmt,
                       x.dtype)
     return out.reshape(n, n, *x.shape[1:])
 
 
 def _launch(x: torch.Tensor, ctx: SymmetricContext,
-            call_count: int) -> torch.Tensor:
+            call_count) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"the LL all-gather kernel needs a CUDA tensor, "
                          f"got {x.device}")
@@ -164,12 +197,16 @@ def _launch(x: torch.Tensor, ctx: SymmetricContext,
     nbytes = math.prod(x.shape[1:]) * x.element_size()
     if nbytes == 0:
         return out
+    if isinstance(call_count, torch.Tensor):  # read by the kernel
+        count, first, count_ptr = 0, 0, call_count.data_ptr()
+    else:
+        count, first, count_ptr = call_count, int(call_count == 0), None
     lib = _build.load("low_latency_allgather", _SIGNATURES)
     grid = _build.GridInfo()
     with _build.on_device(x.device):
         err = lib.ll_ag_launch(
             x.data_ptr(), ctx.data.data_ptr(), ctx.flags.data_ptr(),
-            out.data_ptr(), n, nbytes, call_count, int(call_count == 0),
+            out.data_ptr(), n, nbytes, count, first, count_ptr,
             grid.ptr(), _build.raw_stream(x.device))
     _build.check("ll_all_gather", err, lib.ll_ag_error_string, grid)
     _build.count_launch("ll_all_gather")

@@ -18,7 +18,9 @@ from triton_dist_tpu_torch.layers.rope import apply_rope, rope_table  # noqa: F4
 from triton_dist_tpu_torch.layers.sp_flash_decode import (  # noqa: F401
     SpDecodeParams,
     SpDecodeSpec,
+    compiled_sp_decode_step,
     sp_decode_attn_fwd,
+    sp_decode_step,
 )
 from triton_dist_tpu_torch.layers.tp_attn import (  # noqa: F401
     TPAttnParams,

@@ -11,6 +11,12 @@ Rank-stacked: x (n, B, H) (every rank's copy of the replicated token
 rows), cache shards (n, B, T_loc, Hkv, D), kv_len (B,) global. The cache
 is written in place (the JAX function returns a new array; at 32k
 positions a copy a step would move the whole cache) and returned.
+
+The step as JAX compiles it (call_count and the fresh-context flag as
+traced arguments, one program every step): `sp_decode_step` takes the
+LL call count as an int32 device word and advances it and kv_len on the
+card after the gather, so `compiled_sp_decode_step()` (runtime/graphs.py
+`compiled`) captures one step and replays it as step 0, 1, 2, ....
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from triton_dist_tpu_torch.kernels.flash_decode import sp_flash_decode
 from triton_dist_tpu_torch.layers.norm import rms_norm
 from triton_dist_tpu_torch.layers.rope import apply_rope
+from triton_dist_tpu_torch.runtime.graphs import Compiled, compiled
 
 
 class SpDecodeParams(NamedTuple):
@@ -88,11 +95,12 @@ def sp_decode_attn_fwd(x: torch.Tensor, params: SpDecodeParams,
                        sin: torch.Tensor,
                        kv_cache: Tuple[torch.Tensor, torch.Tensor],
                        kv_len: torch.Tensor, ll_buf=None,
-                       call_count: int = 0, partial_impl: str = "auto"):
+                       call_count=0, partial_impl: str = "auto"):
     """One decode step: x (n, B, H), kv_len (B,) the global length before
     this token. Returns (y (n, B, H), (k, v) cache), plus the LL context
     when ll_buf is given (thread it through steps with call_count 0, 1,
-    ...)."""
+    ...: an int, or an int32 device tensor of one element, read on the
+    card)."""
     n, b, h = x.shape
     hq, hkv, d = spec.num_q_heads, spec.num_kv_heads, spec.head_dim
     qkv = torch.matmul(x, params.w_qkv)  # f32 accumulation, x.dtype out
@@ -119,3 +127,32 @@ def sp_decode_attn_fwd(x: torch.Tensor, params: SpDecodeParams,
     if ll_buf is not None:
         return y, (k_cache, v_cache), new_buf
     return y, (k_cache, v_cache)
+
+
+def sp_decode_step(x: torch.Tensor, params: SpDecodeParams,
+                   spec: SpDecodeSpec, cos: torch.Tensor, sin: torch.Tensor,
+                   kv_cache: Tuple[torch.Tensor, torch.Tensor],
+                   kv_len: torch.Tensor, ll_buf, call_count: torch.Tensor,
+                   partial_impl: str = "auto") -> torch.Tensor:
+    """One SP decode step that advances its own state: sp_decode_attn_fwd
+    at kv_len with the LL call count `call_count` (an int32 tensor of one
+    element on x's device), then kv_len and call_count each advanced by
+    one in place, on the device, with no host read. Returns y (n, B, H);
+    the cache and the context are updated in place."""
+    y, _, _ = sp_decode_attn_fwd(x, params, spec, cos, sin, kv_cache,
+                                 kv_len, ll_buf=ll_buf,
+                                 call_count=call_count,
+                                 partial_impl=partial_impl)
+    kv_len.add_(1)
+    call_count.add_(1)
+    return y
+
+
+def compiled_sp_decode_step() -> Compiled:
+    """`sp_decode_step` captured per signature (runtime/graphs.py
+    `compiled`): its state the cache, kv_len, the LL context and the
+    call count, bound to the graph's; weights and rope tables held by
+    reference. A call on the card after the first replays the step."""
+    return compiled(sp_decode_step,
+                    state=("kv_cache", "kv_len", "ll_buf", "call_count"),
+                    static=("params", "cos", "sin"))

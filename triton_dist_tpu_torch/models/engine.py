@@ -31,17 +31,26 @@ the graph's memory), so every cache of one shape, a fresh prefill's too,
 replays the same graph. Inputs are copied into the graph's static
 buffers before each replay. A sampled `generate` splits its JAX key on
 the card each step, so the draws are bitwise the eager ones. `prefill`
-stays eager.
+is captured too, as the JAX Engine jits it (`prefill_fn`, `wrap`): one
+graph per (batch, prompt length, cache shape), at most 8
+(runtime/graphs.py `compiled`; `Engine.prefill_graphs`), its first call
+of a shape run eagerly and captured, later calls replayed. The prefill
+and decode graphs of one cache shape share one `Resident` state
+(`cache_states`), so a prefill's cache goes on into `generate` with no
+copy.
 `Engine(cuda_graph=False)` runs every step eagerly on the card, for A/B
 runs and tests, through the same step functions; the CPU is always
 eager.
 
 The cache: with `donate_cache=True` (the default, as the JAX Engine's)
-`decode_step` and `generate` write the step's K/V rows and advance
-`cache.length` in the cache given and return it; on the card that cache
-becomes a view of its graph's state. With `donate_cache=False` they step
-a copy and return it, and the cache passed in keeps its value, bitwise:
-the eager route clones it, and a graph binds the clone.
+`prefill` writes the prompt's K/V rows into the cache given (its length
+left, the returned cache's the new one), and `decode_step` and
+`generate` write the step's K/V rows and advance `cache.length` in the
+cache given and return it; on the card that cache becomes a view of its
+graph's state. With `donate_cache=False` each of them steps a copy and
+returns it, and the cache passed in keeps its value, bitwise: the eager
+route clones it, and a graph binds the clone (a prefill with no cache
+needs no copy).
 
 Sampling: greedy is argmax. With temperature > 0 a token is drawn by the
 Gumbel-max rule on the JAX package's threefry key stream, by the
@@ -93,6 +102,7 @@ from triton_dist_tpu_torch.runtime.graphs import (
     GraphCache,
     Resident,
     StepGraph,
+    compiled,
     shape_key,
 )
 from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
@@ -139,6 +149,19 @@ def _serve_forward(cfg: ModelConfig, mode: str, slots: int, chunk: int,
                                                        chunk, d)
         pool[:, :, pg, off] = rows.to(pool.dtype)
     return last
+
+
+def _prefill_step(cfg: ModelConfig):
+    """The prefill as a step function of its state: step(ids (B, S),
+    cache (k, v, length), params, mode) -> (last-token logits (B, V)
+    f32, the new length (B,)); the prompt's K/V rows are written into k
+    and v in place, length is left."""
+
+    def step(ids, cache, params, mode):
+        logits, new = forward(cfg, params, ids, KVCache(*cache), mode=mode)
+        return logits, new.length
+
+    return step
 
 
 class WindowResult(NamedTuple):
@@ -320,9 +343,10 @@ class Engine:
     the one device. prefill_mode / decode_mode: the JAX package's mode
     strings, "dist", "xla" or "ar" (an MoE config also "fused"), with its
     defaults. Dense and MoE configs share the Engine. cuda_graph: on the
-    card, replay each decode and serve step as a captured CUDA graph (the
-    module docstring); False runs them eagerly. donate_cache: step the
-    caller's cache in place (True, the JAX default) or a copy of it."""
+    card, replay each prefill, decode and serve step as a captured CUDA
+    graph (the module docstring); False runs them eagerly. donate_cache:
+    step the caller's cache in place (True, the JAX default) or a copy
+    of it."""
 
     def __init__(self, cfg: ModelConfig, device=None,
                  params: Optional[DenseLLMParams] = None, seed: int = 0,
@@ -351,6 +375,13 @@ class Engine:
         self.decode_graphs = GraphCache(8)
         self.serve_graphs = GraphCache(2)
         self.resident_loops: dict = {}
+        # the graphs' cache state, one a cache shape, shared by the
+        # prefill and decode graphs of that shape (held by the graphs)
+        self.cache_states = weakref.WeakValueDictionary()
+        self._prefill = compiled(_prefill_step(cfg), state=("cache",),
+                                 static=("params",),
+                                 states=self.cache_states)
+        self.prefill_graphs = self._prefill.graphs
 
     def _ids(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -365,12 +396,28 @@ class Engine:
                               cfg.torch_dtype, self.device, self.world.n)
 
     def prefill(self, input_ids, cache: Optional[KVCache] = None):
-        """input_ids (B, S) -> (last-token logits (B, V) f32, cache)."""
+        """input_ids (B, S) -> (last-token logits (B, V) f32, cache): the
+        prompt's K/V rows written into the cache given (or a fresh one),
+        or with donate_cache=False into a copy of it, the returned cache
+        holding the new length. On the card a replay of the captured
+        prefill of that shape (the first call of a shape captures)."""
         ids = self._ids(input_ids)
-        if cache is None:
-            cache = self.new_cache(ids.shape[0])
-        return forward(self.cfg, self.params, ids, cache,
-                       mode=self.prefill_mode)
+        cache = (self.new_cache(ids.shape[0]) if cache is None
+                 else self._stepped(cache))
+        step = self._prefill if self.cuda_graph else self._prefill.fn
+        logits, length = step(ids, (cache.k, cache.v, cache.length),
+                              self.params, self.prefill_mode)
+        return logits, KVCache(cache.k, cache.v, length)
+
+    def _cache_state(self, cache: KVCache) -> Resident:
+        """The graphs' state for caches shaped as `cache` (made on first
+        use), which the prefill and decode graphs of that shape share."""
+        key = shape_key(cache.k, cache.v, cache.length)
+        state = self.cache_states.get(key)
+        if state is None:
+            state = self.cache_states[key] = Resident(
+                (cache.k, cache.v, cache.length))
+        return state
 
     def _stepped(self, cache: KVCache) -> KVCache:
         """The cache a step advances: the caller's, or with
@@ -468,7 +515,7 @@ class Engine:
                float(temperature) if keyed else None)
 
         def make():
-            state = Resident((cache.k, cache.v, cache.length))
+            state = self._cache_state(cache)
             state.bind((cache.k, cache.v, cache.length))
             static = tok.clone()
             kbuf = (torch.zeros((1, 2), dtype=torch.int32,

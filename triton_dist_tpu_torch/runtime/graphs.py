@@ -42,14 +42,24 @@ state and token first, so the warm-up runs on the step's own inputs.
 A replay runs on the current stream and adds the captured launches to
 the wrappers' counts. A failed capture raises (a refused launch names its
 kernel, `_build.check`); nothing falls back to an eager step.
+
+`compiled(fn, state=..., static=...)` is the counterpart of `jax.jit` for
+a step function that takes its state as arguments (the prefill, the SP
+decode step, the EP layer, the PP schedule): a `Compiled`, whose first
+call of a new signature runs `fn` eagerly on the capture stream (the
+graph's warm-up, its result the call's) and captures it, and whose later
+calls of that signature copy their inputs into the graph's static buffers,
+bind their state and replay (module docstring of `Compiled`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
+import inspect
 import time
 import weakref
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -80,9 +90,12 @@ class StepGraph:
     into it, for graphs replayed one at a time whose capture leaves no
     memory of the pool holding a value from one replay to the next
     (their state lives outside it); by default the graph's pool is its
-    own."""
+    own. With `first_call`, `first` keeps the warm-up's result: the
+    warm-up is then a step's real first call, fn's commit flag unused
+    (`Compiled`)."""
 
-    def __init__(self, fn: Callable[[bool], object], device, pool=None):
+    def __init__(self, fn: Callable[[bool], object], device, pool=None,
+                 first_call: bool = False):
         dev = torch.device(device)
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, got {dev}")
@@ -90,7 +103,9 @@ class StepGraph:
         stream = capture_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            fn(False)
+            warm = fn(False)
+        self.first = warm if first_call else None
+        del warm
         self.graph = torch.cuda.CUDAGraph()
         # no garbage collection inside the capture: collecting another
         # graph (held in a reference cycle) destroys it, which a capture
@@ -175,3 +190,200 @@ class GraphCache:
 def shape_key(*tensors: torch.Tensor) -> tuple:
     """The shapes and dtypes of the state a graph is made for."""
     return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
+
+def _state_leaves(x, name: str) -> list:
+    """The tensors of a state argument, in order: a tensor, a tuple or
+    list of them, or a dataclass of them (an LL context); None holds
+    none."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if x is None:
+        return []
+    if isinstance(x, (tuple, list)):
+        return [t for item in x for t in _state_leaves(item, name)]
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return [t for f in dataclasses.fields(x)
+                for t in _state_leaves(getattr(x, f.name), name)]
+    raise TypeError(f"state argument {name!r}: a {type(x).__name__} is not "
+                    "a tensor, a tuple or list, or a dataclass of tensors")
+
+
+def _input_key(x, name: str, tensors: list):
+    """An input argument's part of a signature: each tensor's shape,
+    dtype and device (the tensor appended to `tensors`), tuples and lists
+    by their items, any other value by itself (it must hash)."""
+    if isinstance(x, torch.Tensor):
+        tensors.append(x)
+        return (tuple(x.shape), x.dtype, x.device)
+    if isinstance(x, (tuple, list)):
+        return (type(x), tuple(_input_key(i, name, tensors) for i in x))
+    try:
+        hash(x)
+    except TypeError:
+        raise TypeError(f"argument {name!r}: a {type(x).__name__} is neither "
+                        "a tensor nor hashable; name it in static= or "
+                        "state=") from None
+    return (type(x), x)
+
+
+def _tree_map(x, fn, into_dataclasses: bool):
+    """x with fn applied to each of its tensors, through tuples, lists,
+    named tuples and, with into_dataclasses, dataclasses (an LL context);
+    other values as they are. Walks `_input_key`'s order (without
+    dataclasses) and `_state_leaves`' (with)."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_tree_map(i, fn, into_dataclasses) for i in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree_map(i, fn, into_dataclasses) for i in x)
+    if into_dataclasses and dataclasses.is_dataclass(x) \
+            and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _tree_map(getattr(x, f.name), fn, True)
+            for f in dataclasses.fields(x)})
+    return x
+
+
+def _returned(x, state: Sequence[torch.Tensor],
+              leaves: Sequence[torch.Tensor]):
+    """A replay's outputs as the call returns them: a tensor that is a
+    state tensor of the graph comes back as the caller's tensor bound to
+    it, any other tensor as a copy (the next replay rewrites the graph's);
+    tuples, lists and dataclasses item by item."""
+    def one(t):
+        for s, mine in zip(state, leaves):
+            if (t.data_ptr() == s.data_ptr() and t.shape == s.shape
+                    and t.stride() == s.stride()):
+                return mine
+        return t.clone()
+
+    return _tree_map(x, one, True)
+
+
+class Compiled:
+    """A step function captured per signature, `jax.jit`'s counterpart
+    (`compiled`). Its arguments are of three kinds, by name:
+
+      state   updated in place by the step (a KV cache, an LL context, a
+              device call count, a kv length): tensors, or tuples, lists
+              or dataclasses of them. They are bound to the graph's
+              `Resident` (one per shape of all of them, taken from
+              `states`, which an owner may share with its other graphs),
+              so every caller's state of that shape replays one graph,
+              and after the call the caller's tensors hold the new state;
+      static  held by reference: weights, tables, callables, geometry;
+              the graph reads them at the addresses it captured, so a
+              different object (by identity) is a new signature, and the
+              graph keeps the objects it was made with;
+      inputs  every other argument: tensors (in tuples and lists too),
+              copied into the graph's static buffers before each replay,
+              and hashable values.
+
+    The signature is the inputs' shapes, dtypes and devices and their
+    values, the state's shapes and dtypes, the statics' identities. The
+    first call of a signature runs `fn` eagerly on the device's capture
+    stream and returns its result (the graph's warm-up), then captures
+    it; a later call replays. What a replay returns is the captured
+    outputs with every state tensor replaced by the caller's and every
+    other tensor copied, as a jitted function returns new arrays. At
+    most `size` graphs, the least recently used dropped (`graphs`, a
+    GraphCache; `graphs.made` counts captures); they share one memory
+    pool, since each replay's outputs are copied out before the next. On
+    the CPU, with no tensor argument, or with `cuda_graph` False (the A/B
+    switch, settable) a call runs `fn`. A capture that fails raises."""
+
+    def __init__(self, fn: Callable, state: Sequence[str] = (),
+                 static: Sequence[str] = (), size: int = 8,
+                 cuda_graph: bool = True,
+                 states: Optional["weakref.WeakValueDictionary"] = None):
+        self._sig = inspect.signature(fn)
+        unknown = [a for a in (*state, *static)
+                   if a not in self._sig.parameters]
+        if unknown:
+            raise ValueError(f"{unknown}: not arguments of {fn.__name__}")
+        self.fn = fn
+        self.state, self.static = tuple(state), tuple(static)
+        self.cuda_graph = cuda_graph
+        self.graphs = GraphCache(size)
+        self.states = (weakref.WeakValueDictionary() if states is None
+                       else states)
+        self.pool = None
+
+    def __call__(self, *args, **kwargs):
+        call = self._sig.bind(*args, **kwargs)
+        call.apply_defaults()
+        leaves, inputs, key = [], [], []
+        for name, value in call.arguments.items():
+            if name in self.state:
+                got = _state_leaves(value, name)
+                leaves += got
+                key.append(shape_key(*got))
+            elif name in self.static:
+                key.append(id(value))
+            else:
+                key.append(_input_key(value, name, inputs))
+        dev = next((t.device for t in (*leaves, *inputs)), None)
+        if self._eager(dev):
+            return self.fn(*args, **kwargs)
+        made = []
+
+        def make():
+            made.append(self._capture(call, leaves, inputs, dev))
+            return made[0]
+
+        g = self.graphs.get(tuple(key), make)
+        if made:
+            out, g.first = g.first, None
+            return out
+        if g.state is not None:
+            g.state.bind(leaves)
+        for buf, x in zip(g.inputs, inputs):
+            buf.copy_(x)
+        return _returned(g.replay(), g.state.tensors if g.state else (),
+                         leaves)
+
+    def _eager(self, dev) -> bool:
+        """Whether a call on `dev` runs fn: off the card, or switched off."""
+        return not self.cuda_graph or dev is None or dev.type != "cuda"
+
+    def _capture(self, call, leaves, inputs, dev) -> StepGraph:
+        """A new signature's graph: the state bound, the static input
+        buffers made, the first call run eagerly on the caller's own
+        arguments, then the step captured on the buffers and the graph's
+        state tensors (so the graph holds no caller's object)."""
+        state = None
+        if leaves:
+            skey = shape_key(*leaves)
+            state = self.states.get(skey)
+            if state is None:
+                state = self.states[skey] = Resident(leaves)
+            state.bind(leaves)
+        bufs = [x.clone() for x in inputs]
+        it, own = iter(bufs), iter(state.tensors if state else ())
+        on_bufs = {n: (_tree_map(v, lambda _: next(own), True)
+                       if n in self.state else v if n in self.static
+                       else _tree_map(v, lambda _: next(it), False))
+                   for n, v in call.arguments.items()}
+        calls = [call, inspect.BoundArguments(self._sig, on_bufs)]
+
+        def step(commit: bool):  # the caller's arguments, then the buffers
+            c = calls.pop(0) if len(calls) > 1 else calls[0]
+            return self.fn(*c.args, **c.kwargs)
+
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        g = StepGraph(step, dev, pool=self.pool, first_call=True)
+        g.state, g.inputs = state, bufs
+        g.statics = [call.arguments[n] for n in self.static]
+        return g
+
+
+def compiled(fn: Callable, state: Sequence[str] = (),
+             static: Sequence[str] = (), size: int = 8,
+             cuda_graph: bool = True, states=None) -> Compiled:
+    """`fn` captured per signature as a CUDA graph on the card: the
+    counterpart of `jax.jit(fn)` (with its state donated). See
+    `Compiled`."""
+    return Compiled(fn, state, static, size, cuda_graph, states)

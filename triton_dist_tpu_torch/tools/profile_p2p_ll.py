@@ -156,12 +156,15 @@ def ll_host_parts(cs, x, c):
     out = torch.empty((n, n, *x.shape[1:]), dtype=x.dtype, device=x.device)
     grid = _build.GridInfo()
     stream = _build.raw_stream(x.device)
+    # a package whose entry takes a device count pointer gets none
+    count = (None,) if len(llag._SIGNATURES["ll_ag_launch"][1]) > 10 else ()
 
     def launch(m):
         err = lib.ll_ag_launch(
             x.data_ptr(), c.ctx.data.data_ptr(), c.ctx.flags.data_ptr(),
             out.data_ptr(), n if m is None else m, nbytes,
-            c.next() if m is None else c.calls, 0, grid.ptr(), stream)
+            c.next() if m is None else c.calls, 0, *count, grid.ptr(),
+            stream)
         assert (err == 0) == (m is None), err
 
     return cs.host_parts(

@@ -16,9 +16,10 @@ torch.profiler: one scheduler step of the (slots=4, chunk=64) serve
 geometry with every slot prefilling and one batch-4 decode step (both
 in the decode mode; a sequence-sharded decode mode needs N to divide
 the batch of 4; its history a prefill of the prompt length below), and
-one 4 x 128 prefill (the prefill mode; 4 x 32 in `fused`). The
-scheduler and decode steps replay their captured CUDA graphs (the
-warm-up step captures them). For each it prints the host wall time, the
+one 4 x 128 prefill (the prefill mode; 4 x 32 in `fused`), eager and
+then replayed. The scheduler and decode steps and the second prefill
+replay their captured CUDA graphs (the warm-up step captures them). For
+each it prints the host wall time, the
 device time summed over kernels, the device busy share, and the kernels
 that took the most device time. With --resident W it also traces
 windows of the resident loop (Scheduler(resident=True, window=W), one
@@ -143,9 +144,12 @@ def main() -> None:
     _report(f"decode step (batch 4, {L} layers)", prof, wall)
 
     ids = rng.integers(0, cfg.vocab_size, (4, plen))
-    eng.prefill(ids)  # warm-up
-    prof, wall = _traced(lambda: eng.prefill(ids))
-    _report(f"prefill (4 x {plen} tokens, {L} layers)", prof, wall)
+    for graphed in (False, True):
+        eng.cuda_graph = graphed
+        eng.prefill(ids)  # warm-up
+        prof, wall = _traced(lambda: eng.prefill(ids))
+        _report(f"prefill (4 x {plen} tokens, {L} layers), "
+                f"{'replayed' if graphed else 'eager'}", prof, wall)
 
     if args.resident:
         _resident(eng, args.resident, rng)
