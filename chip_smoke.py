@@ -92,13 +92,16 @@ outside a checkout of the repository. Phases, each fatal on failure:
      phase 4, on the same weights: the decode megakernel. The Engine's
      4 x 128 prefill, then 16 greedy steps of MegaQwen3, one `mega`
      launch each, at world 1 and at world 4 (a `dist` prefill), launch
-     counts pinned; the kernel against run_plain on the first step's
-     recorded inputs (logits within twice the one-ulp band), the eager
-     Engine's decode of the same prefill beside it; ms a token on CUDA
-     events and the host clock, the launch's device time against its
-     bound; a batch-1, context-512 figure at world 1. (Phase 3 also
-     holds every megakernel branch against run_plain at the Qwen3-8B
-     widths of world 1 and 4, dense and paged KV.)
+     counts pinned, the weight pipeline's arena depth and its fed and
+     cold matmul rows printed and held to the prefetch plan's; the
+     kernel against run_plain on the first step's recorded inputs
+     (logits within twice the one-ulp band), the eager Engine's decode
+     of the same prefill beside it; ms a token on CUDA events and the
+     host clock, the launch's device time against its bound; a batch-1,
+     context-512 figure at world 1. (Phase 3 also holds every
+     megakernel branch against run_plain at the Qwen3-8B widths of
+     world 1 and 4, dense and paged KV, at arena depths 1, 2 and auto,
+     its fed and cold rows the plan's.)
   4s. the sixth path, after 4m at world 1, on layer 0's attention
      weights of the same Qwen3-8B draw: SP long-context attention on the
      virtual world of 4. An SP prefill of 4 rows x 32768 positions (8192
@@ -2735,7 +2738,7 @@ def check_mega_rows(cm, pos, table, ws, weights, norms, rope, kp, vp):
 
     import torch
 
-    from triton_dist_tpu_torch.mega.kernel import _PLAIN, OPS
+    from triton_dist_tpu_torch.mega.kernel import _PLAIN, HINT, OPS
 
     parity = torch_parity()
     ws = ws.clone()
@@ -2744,6 +2747,7 @@ def check_mega_rows(cm, pos, table, ws, weights, norms, rope, kp, vp):
     for i, row in enumerate(cm.queue):
         alone = row.copy()
         alone[17] = 0
+        alone[HINT] = 0  # no issuer in a queue of one row: cold
         one = dataclasses.replace(cm, queue=alone[None], _dev_queue={})
         got = one.run(pos, table, ws.clone(), weights, norms, rope, kp, vp)
         _PLAIN[OPS[row[0]]](cm, row, pos, table, ws, weights, norms, rope, kp,
@@ -2779,21 +2783,27 @@ def check_mega_rows(cm, pos, table, ws, weights, norms, rope, kp, vp):
     return err_max, worst, worst_op, band_worst, len(outside)
 
 
-def check_mega_branches(world, paged, device="cuda"):
+def check_mega_branches(world, paged, depth=None, device="cuda"):
     """Every branch of the megakernel against run_plain at the Qwen3-8B
     widths a rank sees at `world` (hidden 4096, intermediate 12288 / n,
     32 / n q and 8 / n kv heads of 128, s_max MAX_LEN, batch 4; positions
     0, 127, 512 and 1023; a dense pool or 64-token pages through a
-    shuffled table), bf16, one launch; each branch's output within two
-    bf16 ulps of its largest value (the two round the same values at the
-    same points after f32 sums in another order). Returns the max abs
-    error."""
+    shuffled table), bf16, one launch of the prefetching kernel at arena
+    depth `depth` (None: auto), the gate|up weights tile-major as
+    MegaQwen3 lays them out; each branch's output within two bf16 ulps of
+    its largest value (the two round the same values at the same points
+    after f32 sums in another order), and the kernel's fed / cold matmul
+    rows the plan's. Returns the max abs error."""
     import numpy as np
     import torch
 
     from triton_dist_tpu_torch import kernels
     from triton_dist_tpu_torch.mega.builder import branch_graph
-    from triton_dist_tpu_torch.mega.kernel import blocks_per_rank, compile_graph
+    from triton_dist_tpu_torch.mega.kernel import (
+        blocks_per_rank,
+        compile_graph,
+        tile_weight_major,
+    )
     from triton_dist_tpu_torch.mega.scheduler import (
         schedule_graph,
         validate_schedule,
@@ -2804,10 +2814,12 @@ def check_mega_branches(world, paged, device="cuda"):
     page = 64 if paged else s_max
     g = branch_graph(world, b, h, inter, hq, hkv, d, s_max,
                      page if paged else 0)
-    sched = schedule_graph(g)
+    blocks = blocks_per_rank(device, world)
+    sched = schedule_graph(g, pf_depth=depth, blocks=blocks)
     validate_schedule(g, sched)
-    cm = compile_graph(g, sched, torch.bfloat16,
-                       blocks=blocks_per_rank(device, world), world=world)
+    tiled = ("w_gu", "w_gu2")
+    cm = compile_graph(g, sched, torch.bfloat16, blocks=blocks, world=world,
+                       tiled_weights=tiled)
     bf = torch.bfloat16
     shapes = {"w_gu": (h, 2 * inter), "w_dn": (inter, h),
               "w_qkv": (h, (hq + 2 * hkv) * d), "w_o": (hq * d, h),
@@ -2826,13 +2838,22 @@ def check_mega_branches(world, paged, device="cuda"):
                             device=device)
     pos = torch.tensor([0, 127, s_max // 2, s_max - 1], dtype=torch.int32,
                        device=device)
+    weights = {k: (tile_weight_major(w, cm.tile_cols(k)) if k in tiled
+                   else w) for k, w in weights.items()}
     ws = cm.workspace(device)
     ws[:, int(sched.buf_slot[0]), :, :h] = rand((b, h), bf, 64)
     want = cm.run_plain(pos, table, ws.clone(), weights, norms, rope, kp, vp)
     before = kernels.launches()["mega"]
+    stats = cm.stats_on(device).clone()
     got = cm.run(pos, table, ws, weights, norms, rope, kp, vp)
     torch.cuda.synchronize()
     assert kernels.launches()["mega"] == before + 1
+    fed, cold = (cm.stats_on(device) - stats).tolist()
+    if (fed, cold) != cm.plan_counts():
+        raise AssertionError(f"mega branches (world {world}, depth "
+                             f"{cm.pf_depth}): the kernel fed {fed} and "
+                             f"opened {cold} cold, the plan "
+                             f"{cm.plan_counts()}")
     err_max, worst = 0.0, {}
     for buf in g.buffers:
         sl = int(sched.buf_slot[buf.id])
@@ -2847,7 +2868,8 @@ def check_mega_branches(world, paged, device="cuda"):
         err_max = max(err_max, err)
         worst[buf.name] = round(err / atol, 3)
     log(f"  mega branches, Qwen3-8B widths at world {world}, "
-        f"{'paged 64' if paged else 'dense'} KV, bf16: max_abs_err="
+        f"{'paged 64' if paged else 'dense'} KV, bf16, arena depth "
+        f"{cm.pf_depth} ({fed} fed, {cold} cold, as planned): max_abs_err="
         f"{err_max:.3e}; err / atol per output {worst}")
     return err_max
 
@@ -2957,6 +2979,7 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
     import numpy as np
     import torch
 
+    from triton_dist_tpu_torch.kernels import mega as mk_launch
     from triton_dist_tpu_torch.mega import kernel as mk
     from triton_dist_tpu_torch.models import Engine, MegaKVCache, MegaQwen3
 
@@ -2976,6 +2999,7 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
         return real(*a)
 
     mega.cm.run = record
+    stats = mega.cm.stats_on(device).clone()
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3002,6 +3026,20 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
     elif world > 1:
         want.update(gemm_rs=2 * L, ring_all_gather=2 * L)
     assert launched == want, (launched, want)
+    # the prefetching kernel's fed / cold matmul rows, each launch the plan's
+    fed, cold = (mega.cm.stats_on(device) - stats).tolist()
+    plan_fed, plan_cold = mega.cm.plan_counts()
+    n_mega = launched["mega"]
+    on_card = torch.device(device).type == "cuda"  # run_plain counts none
+    if on_card and (fed, cold) != (n_mega * plan_fed, n_mega * plan_cold):
+        raise AssertionError(f"mega world {world}: {n_mega} launches fed "
+                             f"{fed} and opened {cold} matmul rows cold; the "
+                             f"plan feeds {plan_fed} and opens {plan_cold} a "
+                             "step")
+    log(f"  mega world {world}: arena depth {mega.cm.pf_depth}, gate|up "
+        f"tile-major at {mega.cm.tiled['w_gate_up']} columns; each of "
+        f"{n_mega} launches fed {plan_fed} matmul rows from the arena and "
+        f"opened {plan_cold} cold, as planned")
     mega_toks = torch.stack(toks, 1)
     assert bool(torch.isfinite(first).all()) and first.shape == (
         4, cfg.vocab_size)
@@ -3111,7 +3149,9 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
                eager_rel_l2=rel_eager, eager_token_agree=agree,
                graphs=graphs,
                tile_cols={k[1]: v for k, v in mega.cm.mm_tiles.items()},
-               blocks_per_rank=mega.cm.blocks)
+               blocks_per_rank=mega.cm.blocks, pf_depth=mega.cm.pf_depth,
+               pf_fed=plan_fed, pf_cold=plan_cold,
+               row_copy=mk_launch.ROW_COPY)
     del eng, mega, cache, mc, start, rec, ws_k, ws_p, ws_f
     torch.cuda.empty_cache()
     return launched, row
@@ -5996,8 +6036,9 @@ def main() -> int:
     check_ring_rs(kernels)
     grouped_ratio = check_grouped_ag_gemm(kernels)
     check_grouped_gemm()
-    mega_branch_err = max(check_mega_branches(world, paged)
-                          for world in (1, 4) for paged in (False, True))
+    mega_branch_err = max(check_mega_branches(world, paged, depth)
+                          for world in (1, 4) for paged in (False, True)
+                          for depth in (1, 2, None))
 
     log("== 4. main path: Qwen3-8B, Engine.serve and Scheduler, world 1, "
         "world 4 (ar), world 4 (default modes: dist prefill, ar decode; "

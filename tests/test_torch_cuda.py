@@ -1378,7 +1378,7 @@ def test_mega_branches_match_plain(cuda, world, dtype, ulps, batch, paged,
     H, I, hq, hkv, s_max, page = 256, 512, 4, 2, 64, 16
     g = branch_graph(world, batch, H, I, hq, hkv, D, s_max,
                            page if paged else 0)
-    sched = schedule_graph(g)
+    sched = schedule_graph(g, blocks=132 // world)
     validate_schedule(g, sched)
     cm = compile_graph(g, sched, dtype, blocks=132 // world, world=world)
     pos = [0, 7, 16, 63, 31, 1, 48, 15, 33][:batch]
@@ -1459,6 +1459,171 @@ def test_mega_decode_step_matches_plain(cuda, world):
     ids, _ = mega.decode_resident(logits.argmax(-1), cache, 3)
     torch.cuda.synchronize()
     assert launches()["mega"] == 3 and ids.shape == (4, 3)
+
+
+def _drop_hints(sched, tids):
+    """The schedule with consumers `tids` made cold: their issuers' hint
+    columns cleared, each listed in the plan's `cold`."""
+    plan = sched.prefetch
+    for tid in tids:
+        issuer = sched.order[int(sched.pos[tid]) - 1]
+        plan.issue_code[issuer] = plan.issue_layer[issuer] = 0
+        plan.issue_slot[issuer] = plan.consume[tid] = 0
+        plan.cold.append(tid)
+    return sched
+
+
+def _mega_case(g, world, dtype, depth, tiled, row_copy, cold=0, seed=0,
+               blocks=None):
+    """Compile g at `depth` for `blocks` blocks a rank (an H100's share by
+    default) with the gate|up-like weights tile-major (or not), `cold` of
+    its fed consumers made cold, launch it once with ROW_COPY `row_copy`
+    against run_plain on the same inputs; each output slot within 1e-4
+    (f32) or two bf16 ulps of its largest value, and the kernel's fed /
+    cold count the plan's. Returns the compiled queue."""
+    from triton_dist_tpu_torch.kernels import mega as kmega
+    from triton_dist_tpu_torch.mega.kernel import (
+        compile_graph,
+        tile_weight_major,
+    )
+    from triton_dist_tpu_torch.mega.scheduler import (
+        schedule_graph,
+        validate_schedule,
+    )
+
+    blocks = blocks or 132 // world
+    sched = schedule_graph(g, pf_depth=depth, blocks=blocks)
+    _drop_hints(sched, sched.prefetch.fed()[:cold])
+    validate_schedule(g, sched)
+    names = sorted({t.branch_key[1] for t in g.tasks if t.op == "matmul"})
+    tiles = [n for n in names if "gu" in n] if tiled else []
+    cm = compile_graph(g, sched, dtype, blocks=blocks, world=world,
+                       tiled_weights=tuple(tiles))
+    rowmajor = compile_graph(g, sched, dtype, blocks=blocks, world=world)
+    rng = np.random.default_rng(seed)
+    weights, plain_w = {}, {}
+    for name in names:
+        K, N = cm.w_geom[name][:2]
+        w = torch.from_numpy(rng.standard_normal(
+            (2, world, K, N)).astype(np.float32) * 0.05).to("cuda", dtype)
+        plain_w[name] = w
+        weights[name] = (tile_weight_major(w, cm.tile_cols(name))
+                         if name in tiles else w)
+    H = g.buffers[0].width
+    norms = 1.0 + torch.from_numpy(rng.standard_normal(
+        (7, cm.norm_width)).astype(np.float32) * 0.1).cuda()
+    D, s_max = 64, 64
+    rope = torch.from_numpy(rng.standard_normal((s_max + 1, D)).astype(
+        np.float32) * 0.7).cuda()
+    pool = torch.from_numpy(rng.standard_normal(
+        (2, world * 2, cm.pb, s_max, D)).astype(np.float32) * 0.5).to(
+        "cuda", dtype)
+    table = torch.arange(cm.pb, dtype=torch.int32, device="cuda")[:, None]
+    pos = torch.tensor([0, 7, 33, 63][:cm.pb], dtype=torch.int32,
+                       device="cuda")
+    ws = cm.workspace("cuda")
+    ws[:, 0, :, :H] = torch.from_numpy(rng.standard_normal(
+        (cm.pb, H)).astype(np.float32)).to("cuda", dtype)
+    args = (pos, table, ws, weights, norms, rope, pool, pool)
+    want = rowmajor.run_plain(pos, table, ws.clone(), plain_w, *args[4:])
+    assert torch.equal(want, cm.run_plain(pos, table, ws.clone(), weights,
+                                          *args[4:]))
+    old = kmega.ROW_COPY
+    kmega.ROW_COPY = row_copy
+    try:
+        before = cm.stats_on("cuda").clone()
+        got = cm.run(*args)
+        torch.cuda.synchronize()
+    finally:
+        kmega.ROW_COPY = old
+    fed, cold_n = (cm.stats_on("cuda") - before).tolist()
+    assert (fed, cold_n) == cm.plan_counts(), ((fed, cold_n),
+                                               cm.plan_counts())
+    for s in range(got.shape[1]):
+        w = want[:, s].float()
+        err = (got[:, s].float() - w).abs().max().item()
+        atol = (1e-4 if dtype == torch.float32
+                else 2 * 2.0 ** -7 * w.abs().max().item() + 1e-6)
+        assert err <= atol, (s, err, atol)
+    return cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 4])
+@pytest.mark.parametrize("depth", [1, 2, None])
+@pytest.mark.parametrize("tiled", [False, True])
+@pytest.mark.parametrize("row_copy", ["bulk", "tma"])
+def test_mega_prefetch_branches_match_plain(cuda, world, depth, tiled,
+                                            row_copy):
+    """branch_graph (every branch, a matmul after each kind of row) on
+    the prefetching kernel at arena depth 1, 2 and auto, gate|up weights
+    tile-major or row-major, row-major stages as bulk rows or TMA boxes,
+    two of its consumers made cold, the rest fed: bf16 within two ulps
+    of run_plain, and the kernel's fed / cold counts the plan's."""
+    from triton_dist_tpu_torch.mega.builder import branch_graph
+
+    g = branch_graph(world, 4, 256, 512, 4, 2, 64, 64)
+    cm = _mega_case(g, world, torch.bfloat16, depth, tiled, row_copy,
+                    cold=2, seed=world)
+    fed, cold = cm.plan_counts()
+    assert fed >= 3 and cold == 2
+
+
+def _matmul_chain(layers, world, h=2048, inter=4096):
+    """2 * layers matmuls in one chain of edges, the first of them queue
+    row 0 at world 1: rms + w_gu of x, then silu + w_dn of that, then
+    the next layer's rms + w_gu of x again (an edge, not data, orders it
+    after), each output in a slot of its own, so no rounding carries
+    further than one product into the next. At these widths a tile
+    streams 8 to 32 stages, past the ring's 6."""
+    from triton_dist_tpu_torch.mega.builder import ModelBuilder
+
+    mb = ModelBuilder(4, world=world)
+    x = mb.buffer(h, "x", pinned=True)
+    for layer in range(layers):
+        gu = mb.make_rms_matmul("w_gu", layer % 2, x, h, 2 * inter,
+                                layer % 2, 1e-6)
+        mb.make_act_matmul("w_dn", layer % 2, gu, inter, h)
+    g = mb.graph
+    for a, b in zip(g.tasks, g.tasks[1:]):
+        g._edge(a.id, b.id)
+    for buf in g.buffers:
+        g.pinned[buf.id] = True
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth", [1, 2, None])
+@pytest.mark.parametrize("tiled", [False, True])
+@pytest.mark.parametrize("row_copy", ["bulk", "tma"])
+def test_mega_prefetch_chain_reuses_every_slot(cuda, dtype, depth, tiled,
+                                               row_copy):
+    """Ten matmuls back to back: the first opens cold (queue row 0), the
+    others are fed, and every arena slot is filled and read again; at
+    depth 1 each matmul reads the one slot and then refills it for the
+    next (the issue after the row's own read)."""
+    g = _matmul_chain(5, 1)
+    cm = _mega_case(g, 1, dtype, depth, tiled, row_copy)
+    plan = cm.prefetch
+    fed = plan.fed()
+    assert plan.cold == [g.tasks[0].id] and len(fed) == 9
+    slots = [int(plan.consume[t]) - 1 for t in fed]
+    assert all(slots.count(s) >= 2 for s in range(plan.depth))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, None])
+@pytest.mark.parametrize("tiled", [False, True])
+def test_mega_prefetch_many_tiles_a_block(cuda, depth, tiled):
+    """The chain on 5 blocks a rank, so each block takes several tiles of
+    a matmul row: only its first is fed from the arena, the next tile's
+    stages stream into the ring behind the current one's (the same row's
+    next tile, then the next row's first), bf16 within two ulps of
+    run_plain and the fed / cold rows the plan's."""
+    g = _matmul_chain(5, 1, h=1024, inter=2048)
+    cm = _mega_case(g, 1, torch.bfloat16, depth, tiled, "tma", blocks=5)
+    assert all(int(r[7]) > 2 * cm.blocks for r in cm.queue)
 
 
 # -- the SP path: the decode partial, the LL AllGather, SP flash prefill ----

@@ -26,6 +26,7 @@ from triton_dist_tpu.mega import builder as jax_builder
 from triton_dist_tpu.mega import core as jax_core
 from triton_dist_tpu.mega import scheduler as jax_scheduler
 from triton_dist_tpu.mega.kernel import compile_graph as jax_compile_graph
+from triton_dist_tpu.mega.kernel import tile_weight_major as jax_tile_major
 from triton_dist_tpu.mega.qwen3 import MegaKVCache as JaxMegaKVCache
 from triton_dist_tpu.mega.qwen3 import MegaQwen3 as JaxMegaQwen3
 from triton_dist_tpu.mega.qwen3 import build_qwen3_graph as jax_build_graph
@@ -33,7 +34,11 @@ from triton_dist_tpu.models import Engine as JaxEngine
 from triton_dist_tpu.models import ModelConfig as JaxModelConfig
 from triton_dist_tpu.runtime import make_mesh
 from triton_dist_tpu_torch.mega import builder, core, scheduler
-from triton_dist_tpu_torch.mega.kernel import compile_graph
+from triton_dist_tpu_torch.mega.kernel import (
+    HINT,
+    compile_graph,
+    tile_weight_major,
+)
 from triton_dist_tpu_torch.mega.qwen3 import (
     MegaKVCache,
     MegaQwen3,
@@ -203,6 +208,238 @@ def test_slot_plan_keeps_unordered_buffers_apart():
     with pytest.raises(AssertionError, match="live at once"):
         scheduler.validate_schedule(g, scheduler.Schedule(
             sched.order, sched.pos, np.asarray(linear), 3))
+
+
+# -- the weight-prefetch plan and the tile-major layout ----------------------
+
+
+def _chain_graph(mod, layers=3):
+    """The JAX tests' MLP chain (test_mega_core.py:182): norm -> gate_up
+    -> silu -> down -> add, repeated."""
+    mb = mod.ModelBuilder(batch=2, world=1)
+    x = mb.buffer(128, "x", pinned=True)
+    h = x
+    for layer in range(layers):
+        h1 = mb.make_rms_norm(layer, h, 128, 1e-6)
+        gu = mb.make_matmul("w_gate_up", layer, h1, 128, 512)
+        act = mb.make_silu_mul(gu, 256)
+        dn = mb.make_matmul("w_down", layer, act, 256, 128)
+        h = mb.make_add(dn, h, 128)
+    mb.graph.pinned[h.id] = True
+    return mb.graph
+
+
+def _matmuls_back_to_back(mod, layers=3):
+    """Matmuls with no row between them: each one's issuer is the matmul
+    before it, the case the planner's single-tile rule decides."""
+    mb = mod.ModelBuilder(batch=2, world=1)
+    h = mb.buffer(128, "x", pinned=True)
+    for layer in range(layers):
+        gu = mb.make_matmul("w_up", layer, h, 128, 512)
+        h = mb.make_matmul("w_dn", layer, gu, 512, 128)
+    mb.graph.pinned[h.id] = True
+    return mb.graph
+
+
+def _plan_graphs(which):
+    if which == "mlp":
+        return _chain_graph(jax_builder), _chain_graph(builder)
+    if which == "back_to_back":
+        return (_matmuls_back_to_back(jax_builder),
+                _matmuls_back_to_back(builder))
+    world = int(which[-1])
+    return (jax_build_graph(JaxModelConfig.tiny(max_positions=S_MAX), B,
+                            world, S_MAX)[0].graph,
+            build_qwen3_graph(ModelConfig.tiny(max_positions=S_MAX), B,
+                              world, S_MAX)[0].graph)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("which", ["qwen3_w1", "qwen3_w4", "mlp",
+                                   "back_to_back"])
+def test_prefetch_plan_matches_jax(which, depth):
+    """Given the JAX tile map (as (TN, 1)) and the JAX order, the port's
+    plan_prefetch gives the JAX PrefetchPlan array for array: issue code,
+    issue layer, issue slot, consume, and the cold list; and it passes
+    the port's validator (the CUDA kernel's same-row order)."""
+    jg, tg = _plan_graphs(which)
+    js = jax_scheduler.schedule_graph(jg, num_cores=1, use_native=False,
+                                      pf_depth=depth)
+    ts = scheduler.schedule_graph(tg, pf_depth=depth)
+    assert ts.order == list(js.order)
+    jmap = jax_core.plan_mm_tiles([t.branch_key for t in jg.tasks
+                                   if t.op == "matmul"])
+    plan = scheduler.plan_prefetch(tg, ts, {k: (tn, 1)
+                                            for k, tn in jmap.items()},
+                                   depth=depth)
+    want = js.prefetch
+    for field in ("issue_code", "issue_layer", "issue_slot", "consume"):
+        np.testing.assert_array_equal(getattr(plan, field),
+                                      getattr(want, field), err_msg=field)
+    assert plan.cold == list(want.cold)
+    assert [s[:3] for s in plan.specs] == list(want.specs)
+    assert plan.depth == want.depth == depth
+    ts.prefetch = plan
+    scheduler.validate_schedule(tg, ts)
+
+
+@pytest.mark.parametrize("which", ["qwen3_w1", "qwen3_w4", "mlp",
+                                   "back_to_back"])
+def test_prefetch_deeper_arena_never_adds_a_cold_consumer(which):
+    """As JAX test_mega_core.py:225: a deeper arena only turns cold opens
+    into fed ones, on the port's own tile map; every prefetchable matmul
+    is fed or cold, never both."""
+    _, g = _plan_graphs(which)
+    cold = []
+    for depth in (1, 2, 3, 4):
+        plan = scheduler.schedule_graph(g, pf_depth=depth).prefetch
+        cold.append(set(plan.cold))
+        fed = set(plan.fed())
+        mm = {t.id for t in g.tasks if t.op == "matmul"}
+        assert fed | cold[-1] == mm and not fed & cold[-1]
+    assert cold[1] <= cold[0] and cold[2] <= cold[1] and cold[3] <= cold[2]
+
+
+def test_prefetch_plan_tamper_detected():
+    """validate_schedule replays the arena, as JAX
+    test_prefetch_plan_tamper_detected (test_mega_core.py:239): a fed
+    consumer un-flagged, a hint whose stage nobody reads, issues into
+    slots never read, a read of an empty slot, a slot refilled before its
+    read, or a consumer of the wrong layer all raise."""
+    g = _chain_graph(builder)
+
+    def fresh():
+        s = scheduler.schedule_graph(g, pf_depth=2)
+        scheduler.validate_schedule(g, s)
+        return s, s.prefetch, s.prefetch.fed()
+
+    s, plan, fed = fresh()
+    assert fed
+    plan.consume[fed[0]] = 0  # neither fed nor cold
+    with pytest.raises(AssertionError):
+        scheduler.validate_schedule(g, s)
+
+    s, plan, fed = fresh()
+    plan.consume[fed[-1]] = 0  # the last stage issued is never read
+    plan.cold.append(fed[-1])
+    with pytest.raises(AssertionError, match="in flight"):
+        scheduler.validate_schedule(g, s)
+
+    s, plan, fed = fresh()
+    plan.consume[:] = 0  # no stage read: the third issue finds a full slot
+    plan.cold = [t.id for t in g.tasks if t.op == "matmul"]
+    with pytest.raises(AssertionError, match="unread"):
+        scheduler.validate_schedule(g, s)
+
+    s, plan, fed = fresh()
+    issuer = s.order[int(s.pos[fed[0]]) - 1]
+    plan.issue_code[issuer] = 0  # a read with nothing issued
+    with pytest.raises(AssertionError, match="no prefetch"):
+        scheduler.validate_schedule(g, s)
+
+    s, plan, fed = fresh()
+    issuer = s.order[int(s.pos[fed[2]]) - 1]
+    before = s.order[int(s.pos[fed[2]]) - 2]  # issues the same stage first
+    for a in (plan.issue_code, plan.issue_layer, plan.issue_slot):
+        a[before] = a[issuer]
+    with pytest.raises(AssertionError, match="unread"):
+        scheduler.validate_schedule(g, s)
+
+    s, plan, fed = fresh()
+    plan.issue_layer[s.order[int(s.pos[fed[0]]) - 1]] += 1  # wrong layer
+    with pytest.raises(AssertionError, match="holds"):
+        scheduler.validate_schedule(g, s)
+
+
+def test_compile_graph_writes_the_plan_into_the_queue():
+    """The queue's hint columns are the plan's; a schedule without a plan
+    gets one at compile time (as JAX's compile_graph); a plan made for
+    another block count is refused."""
+    g = build_qwen3_graph(ModelConfig.tiny(max_positions=S_MAX), B, 4,
+                          S_MAX)[0].graph
+    s = scheduler.schedule_graph(g, blocks=33)
+    cm = compile_graph(g, s, torch.float32, blocks=33, world=4,
+                       tiled_weights=("w_gate_up",))
+    plan = s.prefetch
+    want = np.stack([plan.issue_code, plan.issue_layer, plan.issue_slot,
+                     plan.consume], 1)[s.order]
+    np.testing.assert_array_equal(cm.queue[:, HINT], want)
+    assert cm.plan_counts() == (len(plan.fed()), len(plan.cold))
+    assert cm.tiled == {"w_gate_up": cm.tile_cols("w_gate_up")}
+    bare = scheduler.Schedule(s.order, s.pos, s.buf_slot, s.n_slots)
+    again = compile_graph(g, bare, torch.float32, blocks=33, world=4)
+    np.testing.assert_array_equal(again.queue, cm.queue)
+    with pytest.raises(ValueError, match="tile map"):
+        compile_graph(g, s, torch.float32, blocks=1, world=4)
+    with pytest.raises(ValueError, match="tiled_weights"):
+        compile_graph(g, s, torch.float32, blocks=33, world=4,
+                      tiled_weights=("w_gate",))
+
+
+@pytest.mark.parametrize("tn", [8, 64, 128])
+def test_tile_weight_major_matches_jax(tn):
+    """tile_weight_major is the JAX function bitwise: (L, n, K, N) ->
+    (L, n, N // tn, K, tn), block [..., j] the column slice j."""
+    w = np.random.default_rng(tn).standard_normal((2, 3, 16, 256)).astype(
+        np.float32)
+    got = tile_weight_major(torch.from_numpy(w), tn)
+    want = np.asarray(jax_tile_major(jnp.asarray(w), tn))
+    assert got.is_contiguous() and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError):
+        tile_weight_major(torch.from_numpy(w), 96)
+
+
+@pytest.mark.parametrize("which,world", [("branches", 1),
+                                         ("allreduce_add", 4)])
+def test_run_plain_tiled_equals_row_major(which, world):
+    """run_plain with the gate|up-like weights tile-major (read through
+    w_tile_src) is bitwise run_plain with them row-major; a weight in the
+    other layout raises."""
+    ins = _branch_inputs(which, world)
+    g = _branch_graph(builder, which, world)
+    sched = scheduler.schedule_graph(g)
+    names = sorted({t.branch_key[1] for t in g.tasks if t.op == "matmul"})
+    tiled = tuple(n for n in names if "gu" in n)
+    rm = compile_graph(g, sched, torch.float32, world=world)
+    tl = compile_graph(g, sched, torch.float32, world=world,
+                       tiled_weights=tiled)
+    t = torch.from_numpy
+    w_rm = {k: t(v) for k, v in ins["weights"].items()}
+    w_tl = {k: (tile_weight_major(v, tl.tile_cols(k)) if k in tiled else v)
+            for k, v in w_rm.items()}
+    ws = rm.workspace("cpu")
+    ws[:, 0, :, :H] = t(ins["x"][..., :H])
+    norms = t(ins["norms"][:, :rm.norm_width]).contiguous()
+    rest = (norms, t(ins["rope"]), t(ins["k"]), t(ins["v"]))
+    consts = (t(ins["pos"]), t(ins["table"]))
+    want = rm.run_plain(*consts, ws.clone(), w_rm, *rest)
+    got = tl.run_plain(*consts, ws.clone(), w_tl, *rest)
+    assert torch.equal(got, want)
+    if tiled:
+        with pytest.raises(ValueError, match="tile-major"):
+            tl.run_plain(*consts, ws.clone(), w_rm, *rest)
+        with pytest.raises(ValueError, match="row-major"):
+            rm.run_plain(*consts, ws.clone(), w_tl, *rest)
+
+
+def test_mega_qwen3_strips_split_weights_not_the_callers():
+    """MegaQwen3 lays [gate|up] out tile-major at the kernel's tile width
+    and drops w_gate / w_up from its own params; the params object the
+    caller passed keeps them (an Engine shares it)."""
+    cfg = ModelConfig.tiny(max_positions=S_MAX)
+    from triton_dist_tpu_torch.models import init_params
+
+    params = init_params(cfg, "cpu", seed=3)
+    mega = MegaQwen3(cfg, batch=B, s_max=S_MAX, params=params, device="cpu")
+    assert params.layers.w_gate is not None and params.layers.w_up is not None
+    assert mega.params.layers.w_gate is None and mega.params.layers.w_up is None
+    tn = mega.cm.tile_cols("w_gate_up")
+    gu = mega._weights["w_gate_up"]
+    assert mega.cm.tiled == {"w_gate_up": tn}
+    assert gu.dim() == 5 and gu.shape[-1] == tn
+    fused = torch.cat([params.layers.w_gate, params.layers.w_up], -1)
+    assert torch.equal(gu, tile_weight_major(fused, tn))
 
 
 # -- (d): each branch against a JAX standalone graph ------------------------
@@ -455,6 +692,7 @@ def test_mega_decode_step_matches_jax(world, jax_w1, jax_w4):
     equal, and the k/v rows each step writes within 1e-5."""
     run = jax_w1 if world == 1 else jax_w4
     _, mega, _, cache = _port(run, world)
+    assert mega._weights["w_gate_up"].dim() == 5  # tile-major
     mc = MegaKVCache.from_dense(cache, s_max=S_MAX)
     assert mc.k.shape == run.k[0].shape
     for step in range(3):

@@ -56,15 +56,39 @@
 //
 // What bounds it on an H100: bytes. A decode step reads every weight of
 // the layer stack once (Qwen3-8B: 13.89 GB at world 1) plus the KV prefix;
-// at B <= 16 the products are far below the ridge. The design streams
-// each weight row-major with 16-byte loads (__ldcs: read once, evicted
-// first), two batches of 4-8 loads in flight a thread (the next batch
-// issued before this one's FMAs), one block a SM; the host cuts each
-// matmul so its tiles fill the blocks in one wave with runs of at least
-// 128 columns of a weight row (mega/core.py mm_tiling: shorter runs
-// streamed at 1.3-1.4 TB/s). cp.async/TMA weight prefetch across task
-// boundaries, wgmma and a multi-queue schedule are later work.
-//
+// at B <= 16 the products are far below the ridge. The host cuts each
+// matmul so its tiles fill the blocks in one wave (mega/core.py
+// mm_tiling), and the matmul branch streams its tile's weight rows
+// through a ring of kRingStages stages of kStageBytes in shared memory,
+// filled by async copies on mbarriers (hopper.cuh) while the block's
+// warps compute from the stages that have landed (the JAX branch's
+// double-buffered weight DMA, kernel.py:286-405):
+//   - a tile-major weight (mega/kernel.py tile_weight_major: (L, n, N/TN,
+//     K, TN), the JAX layout) goes as one 1-D bulk copy a stage, each
+//     stage a contiguous run of its tile;
+//   - a row-major weight (L, n, K, N) as one bulk copy a weight row of
+//     the stage, issued by the lanes of warp 0 (row_copy 0), or one TMA
+//     box of (rows, cols) a stage through a 3-D tensor map (row_copy 1);
+//     kernels/mega.py ROW_COPY picks one, by tools/profile_mega.py.
+// The ring is one FIFO over the block's whole weight stream (Stream): a
+// tile's stages are issued before its producer spin (weights are
+// constant through a launch), the slots its last stages free take the
+// block's next tile's first stages, and a row of another branch starts
+// the next row's tile streaming, so a task boundary finds its stages in
+// flight. Across tasks the queue's prefetch hint (mega/scheduler.py
+// plan_prefetch, JAX scheduler.py:407) starts the next matmul's first
+// stage one row early: at the issuer row each block that owns a tile of
+// the consumer issues that tile's first stage into arena slot s (past
+// every branch's scratch and the ring, so no branch overwrites a copy in
+// flight), at the row's start, or after the row's own read of slot s
+// where the row reads it too; the consumer's tile takes its first stage
+// from the slot, a cold one loads it itself. Every mbarrier is set up at
+// kernel start (a graph replay carries nothing over), its parity kept in
+// a bitmask that every thread advances alike, and every copy issued is
+// waited for before the launch ends (the plan's validator holds the
+// arena to it). A slot that generic loads read is refilled only after a
+// __syncthreads() and the issuer's fence.proxy.async.shared::cta.
+
 // Memory order (shmem.cuh's rule): a tile's stores, __syncthreads(),
 // thread 0 __threadfence() + release add; a reader's thread 0 acquire
 // spin, __syncthreads(), then __ldcg for every workspace and mailbox read
@@ -75,13 +99,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "shmem.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRow = 26;        // queue row (mega/kernel.py ROW)
+constexpr int kRow = 30;        // queue row (mega/kernel.py ROW)
+// the prefetch hint's queue columns: issue code (1 + index into pf_w, 0:
+// none), the consumer's layer, the arena slot it fills, and the slot a
+// matmul row reads its first stage from (slot + 1, 0: cold)
+constexpr int kIssueCode = 26, kIssueLayer = 27, kIssueSlot = 28,
+              kConsume = 29;
+// shared memory (mega/core.py mirrors these): the branches' scratch, then
+// 128-byte aligned the ring, the arena (depth stages), the mbarriers
+constexpr int kScratchBytes = 66560;
+constexpr int kStageBytes = 32768;
+constexpr int kRingStages = 3;
+constexpr int kMaxDepth = 4;     // mbarriers reserved; the budget may allow fewer
+constexpr int kSmemMax = 232448;  // a block's opt-in maximum on an H100
+constexpr int kMaxStageRows = 256;  // a TMA box's most rows
 constexpr int kMaxW = 8;        // weight tensors (kernels/mega.py)
 constexpr int kChunk = 128;     // cached positions an attention pass
 constexpr int kAccPer = 4;      // attention outputs a thread: g*D <= 1024
@@ -104,13 +142,22 @@ enum Arg {
   A_QUEUE = 0, A_NROWS, A_POS, A_TABLE, A_MAXP, A_WS, A_WS_RANK, A_WS_SLOT,
   A_WMAX, A_BATCH, A_NORMS, A_NORM_W, A_ROPE, A_KPOOL, A_VPOOL, A_HKV_TOT,
   A_NPAGES, A_PAGE, A_MBOX, A_MB_RANK, A_MB_TASK, A_MB_SRC, A_MB_W, A_FLAGS,
-  A_FLAG_STRIDE, A_BARRIER_FLAG, A_PARTIAL, A_PARTIAL_STRIDE, A_NW, A_W0,
+  A_FLAG_STRIDE, A_BARRIER_FLAG, A_PARTIAL, A_PARTIAL_STRIDE, A_NW,
+  A_DEPTH, A_ROW_COPY, A_NSPEC, A_PF_STATS, A_W0,
   A_WLAYER0 = A_W0 + kMaxW,
   A_WRANK0 = A_WLAYER0 + kMaxW,
-  A_COUNT = A_WRANK0 + kMaxW
+  A_WTILED0 = A_WRANK0 + kMaxW,
+  A_WK0 = A_WTILED0 + kMaxW,
+  A_WN0 = A_WK0 + kMaxW,
+  A_WTN0 = A_WN0 + kMaxW,
+  A_WSPLIT0 = A_WTN0 + kMaxW,
+  A_WPLANES0 = A_WSPLIT0 + kMaxW,
+  A_PFW0 = A_WPLANES0 + kMaxW,
+  A_COUNT = A_PFW0 + kMaxW
 };
 
 struct Params {
+  CUtensorMap maps[kMaxW];  // row_copy 1: weight i as (planes, K, N) boxes
   const int* queue;
   int n_rows;
   const int* pos;
@@ -134,6 +181,14 @@ struct Params {
   long long partial_stride;
   const void* w[kMaxW];
   long long w_layer[kMaxW], w_rank[kMaxW];
+  // weight i: tile-major, K, N, and the one (TN, splits) of its matmuls
+  // (0 where they differ: then it is never prefetched)
+  int w_tiled[kMaxW], w_k[kMaxW], w_n[kMaxW], w_tn[kMaxW], w_split[kMaxW];
+  int depth;     // arena slots
+  int row_copy;  // 0: a bulk copy a row, 1: TMA boxes
+  int n_spec;    // prefetch codes 1..n_spec name weights pf_w[code - 1]
+  int pf_w[kMaxW];
+  int* pf_stats;  // [fed, cold] matmul rows, counted by block (0, 0)
 };
 
 // S: the storage type, float or unsigned short (bf16 bits)
@@ -195,27 +250,202 @@ __device__ __forceinline__ S* slot(const Params& p, int rank, int s) {
   return static_cast<S*>(p.ws) + rank * p.ws_rank + s * p.ws_slot;
 }
 
-// rows of `a` staged a pass: 64 KB of f32
+// rows of `a` staged a pass: 64 KB of f32, so a tile of K <= 4096 rows
+// at B <= 4 stages its `a` once, before its first weight stage
 template <int BP>
-__host__ __device__ constexpr int stage_rows() {
+__host__ __device__ constexpr int a_rows() {
   return 16384 / BP;
 }
 
+// a matmul's scratch: the staged rows of `a`, the rms factors, a reduction
 template <int BP>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return (stage_rows<BP>() * BP + BP + kWarps * BP) * sizeof(float);
+__host__ __device__ constexpr size_t scratch_bytes() {
+  return (a_rows<BP>() * BP + BP + kWarps * BP) * sizeof(float);
+}
+static_assert(scratch_bytes<4>() <= kScratchBytes &&
+                  scratch_bytes<16>() <= kScratchBytes,
+              "a matmul's scratch runs into the ring");
+// the attention's scratch at its widest (g * D <= 1024, D >= 32: q, k / v
+// new, logits of kChunk positions, 3 g softmax terms, kWarps P.V
+// partials): the ring's stages may be in flight during an attention row
+static_assert((1024 + 2 * 256 + 32 * kChunk + 96 + kWarps * 1024) * 4 <=
+                  kScratchBytes,
+              "the attention's scratch runs into the ring");
+
+// the launch's dynamic shared memory at `depth` arena slots
+__host__ __device__ constexpr size_t smem_bytes(int depth) {
+  return kScratchBytes + 128 + size_t(kRingStages + depth) * (kStageBytes + 8);
 }
 
-// U 16-byte weight vectors, rows ks + (r + u) * KS of the pass (zero past
-// `rows`): read once, so streamed past L1 and evicted first (__ldcs)
-template <int U, typename S>
-__device__ __forceinline__ void load_rows(uint4 (&v)[U], const S* wp, int ks,
-                                          int KS, int r, int rows, int N) {
-#pragma unroll
-  for (int u = 0; u < U; ++u)
-    v[u] = r + u < rows ? __ldcs(reinterpret_cast<const uint4*>(
-                              wp + size_t(ks + (r + u) * KS) * N))
-                        : make_uint4(0, 0, 0, 0);
+// weight rows of one stage of a tile tn columns wide: a multiple of 8
+// (a pass of `a` and its 16-byte loads stay aligned), at most a TMA box's
+// 256 (mega/core.py stage_rows; tiles are at most 512 columns)
+__host__ __device__ inline int stage_rows(int tn, int isz) {
+  const int r = kStageBytes / (tn * isz) / 8 * 8;
+  return r < 8 ? 8 : (r > kMaxStageRows ? kMaxStageRows : r);
+}
+
+// columns of a TMA box: the tile's, or the widest multiple of 8 up to
+// 256 that divides them
+__host__ __device__ inline int box_cols(int tn) {
+  if (tn <= 256) return tn;
+  for (int b = 256; b > 8; b -= 8)
+    if (tn % b == 0) return b;
+  return 8;
+}
+
+// One matmul tile: column block `col` of W[layer] (TN columns) over its
+// rows [kb, kb + KR), in n_st stages of SR rows. A stage lands as TN / TB
+// boxes of (SR, TB), one after the other (TB = TN but for TMA boxes).
+template <typename S>
+struct MmTile {
+  const S* w;  // tile-major: the tile's (K, TN) block; row-major: W[0][c0]
+  int wi, layer, tiled, N, TN, KR, kb, c0, SR, TB, n_st;
+};
+
+template <typename S>
+__device__ __forceinline__ MmTile<S> mm_tile(const Params& p, int wi,
+                                             int layer, int K, int N, int TN,
+                                             int split, int tile, int me) {
+  MmTile<S> t;
+  const int col = tile / split;
+  t.wi = wi;
+  t.layer = layer;
+  t.tiled = p.w_tiled[wi];
+  t.N = N;
+  t.TN = TN;
+  t.KR = K / split;
+  t.kb = (tile % split) * t.KR;
+  t.c0 = col * TN;
+  t.SR = stage_rows(TN, sizeof(S));
+  t.TB = (t.tiled || p.row_copy == 0) ? TN : box_cols(TN);
+  t.n_st = (t.KR + t.SR - 1) / t.SR;
+  // tile-major (L, n, N / TN, K, TN), mega/kernel.py w_tile_src
+  const S* W = static_cast<const S*>(p.w[wi]) + layer * p.w_layer[wi] +
+               me * p.w_rank[wi];
+  t.w = t.tiled ? W + size_t(col) * K * TN : W + t.c0;
+  return t;
+}
+
+// Stage j of tile t into shared memory at dst, completing mbarrier bar;
+// called by every lane of warp 0 alike. Each issuer first orders the
+// generic reads of dst before it (a __syncthreads() ordered every
+// thread's) ahead of its async writes.
+template <typename S>
+__device__ __forceinline__ void issue_stage(const Params& p,
+                                            const MmTile<S>& t, int j,
+                                            int me, uint32_t dst,
+                                            uint32_t bar) {
+  const int lane = threadIdx.x % 32;
+  const int r0 = j * t.SR, rows = min(t.SR, t.KR - r0);
+  const uint32_t row_bytes = t.TN * sizeof(S);
+  hopper::fence_proxy_async_shared();
+  if (t.tiled) {  // one contiguous run of the tile
+    if (lane == 0) {
+      hopper::mbar_expect_tx(bar, rows * row_bytes);
+      hopper::bulk_load(dst, t.w + size_t(t.kb + r0) * t.TN,
+                        rows * row_bytes, bar);
+    }
+  } else if (p.row_copy == 1) {  // whole boxes: rows past KR land unused
+    if (lane == 0) {
+      hopper::mbar_expect_tx(bar, t.SR * row_bytes);
+      for (int b = 0; b < t.TN / t.TB; ++b)
+        hopper::tma_load_3d(dst + b * t.SR * t.TB * sizeof(S), &p.maps[t.wi],
+                            bar, t.c0 + b * t.TB, t.kb + r0,
+                            t.layer * gridDim.y + me);
+    }
+  } else {  // a bulk copy a row, the rows over the warp's lanes
+    if (lane == 0) hopper::mbar_expect_tx(bar, rows * row_bytes);
+    __syncwarp();
+    for (int r = lane; r < rows; r += 32)
+      hopper::bulk_load(dst + r * row_bytes,
+                        t.w + size_t(t.kb + r0 + r) * t.N, row_bytes, bar);
+  }
+}
+
+// A block's weight stream: the stages of its matmul tiles in queue order
+// (stage 0 of a fed tile from the arena instead) through the ring as a
+// FIFO: the n-th stage issued goes to ring slot n % kRingStages and is
+// the n-th read, at mbarrier parity (n / kRingStages) & 1. Every thread
+// keeps the counters alike (the issue decisions are block-uniform, warp
+// 0 issues). Stages of the block's next tile are issued ahead, into
+// the slots its current tile no longer needs, and during the non-matmul
+// row before it: (la_row, la_tile) is that tile, la_n its ring stages
+// already issued.
+struct Stream {
+  uint32_t issued, consumed;
+  int la_row, la_tile, la_n;
+};
+
+template <typename S>
+__device__ __forceinline__ MmTile<S> row_tile(const Params& p, const int* q,
+                                              int tile, int me) {
+  return mm_tile<S>(p, q[12], q[1], q[9], q[10], q[8], q[15], tile, me);
+}
+
+// 1 when the arena holds stage 0 of matmul row q's tile (the row's first)
+__device__ __forceinline__ int arena_stages(const int* q, int tile) {
+  return q[kConsume] && tile == int(blockIdx.x);
+}
+
+// tile t's stages from `from` into the ring while it has room; returns
+// the first stage not issued
+template <typename S>
+__device__ __forceinline__ int top_up(const Params& p, Stream& st,
+                                      const MmTile<S>& t, int from, int me,
+                                      uint32_t ring, uint32_t bars) {
+  for (; from < t.n_st && st.issued - st.consumed < kRingStages; ++from) {
+    const int s = st.issued % kRingStages;
+    if (threadIdx.x < 32)
+      issue_stage<S>(p, t, from, me, ring + s * kStageBytes, bars + 8 * s);
+    ++st.issued;
+  }
+  return from;
+}
+
+// The block's next matmul tile after (row, tile), the row's next or the
+// first of the next row where that row is a matmul, gets its stages
+// issued ahead while the ring has room.
+template <typename S>
+__device__ void look_ahead(const Params& p, Stream& st, int row, int tile,
+                           int me, uint32_t ring, uint32_t bars) {
+  if (st.issued - st.consumed >= kRingStages) return;
+  const int* q = p.queue + row * kRow;
+  int nrow = row, ntile = tile + gridDim.x;
+  if (q[0] != kMatmul || ntile >= q[7]) {
+    nrow = row + 1;
+    ntile = blockIdx.x;
+    if (nrow >= p.n_rows || q[kRow] != kMatmul || ntile >= q[kRow + 7])
+      return;
+  }
+  if (st.la_row != nrow || st.la_tile != ntile) {
+    st.la_row = nrow;
+    st.la_tile = ntile;
+    st.la_n = 0;
+  }
+  const int* nq = p.queue + nrow * kRow;
+  const int f = arena_stages(nq, ntile);
+  st.la_n = top_up<S>(p, st, row_tile<S>(p, nq, ntile, me), f + st.la_n, me,
+                      ring, bars) - f;
+}
+
+// the queue row's prefetch hint: this block's tile of the consumer (its
+// first, blockIdx.x) has its stage 0 issued into arena slot q[kIssueSlot]
+template <typename S>
+__device__ void issue_hint(const Params& p, const int* q, int me,
+                           uint32_t arena, uint32_t bars) {
+  const int wi = p.pf_w[q[kIssueCode] - 1];
+  const int split = p.w_split[wi];
+  if (blockIdx.x >= p.w_n[wi] / p.w_tn[wi] * split) return;  // no tile here
+  __syncthreads();  // the slot's last reads are done
+  if (threadIdx.x < 32) {
+    const MmTile<S> t = mm_tile<S>(p, wi, q[kIssueLayer], p.w_k[wi],
+                                   p.w_n[wi], p.w_tn[wi], split, blockIdx.x,
+                                   me);
+    const int s = q[kIssueSlot];
+    issue_stage<S>(p, t, 0, me, arena + s * kStageBytes,
+                   bars + 8 * (kRingStages + s));
+  }
 }
 
 // acc[b][j] += a[b] * W[row][j] for one 16-byte vector of the row
@@ -275,46 +505,142 @@ __device__ void split_combine(const Params& p, const int* q, int col,
   }
 }
 
-// One column tile [c0, c0 + TN) of y (B, N) = prologue(x) @ W (K, N).
-// Thread (ks, cg) owns column group cg (VEC columns) and the rows
-// k = ks, ks + KS, ...; the KS partial sums of a column are added in ks
-// order in shared memory and rounded once.
-template <typename S, int BP>
-__device__ void matmul_tile(const Params& p, const int* q, int tile, int me,
-                            float* sm) {
+// a_s[kk][b] = prologue(x)[b][k0 + kk] for kk < kc, rounded to S as the
+// JAX branch rounds before its product (PRO: 0 none, 1 rms with the
+// block's factors `scale`, 2 silu of the two halves), zero past the B
+// rows. A thread takes chunks of VEC rows kk, one 16-byte load a batch
+// row (and one of the up half), CU chunks of BG batch rows a round with
+// every load issued before any is used: a Qwen3-8B tile's `a` at B 4 in
+// one round (a load latency each round stalls the block while its ring
+// stages sit landed); the VEC rows go to a_s as float4s of 4 batch rows.
+template <typename S, int BP, int PRO>
+__device__ __forceinline__ void stage_a(const S* x, int K, int k0, int kc,
+                                        int B, int wmax, const float* scale,
+                                        const float* nw, float* a_s) {
   constexpr int VEC = 16 / sizeof(S);
-  constexpr int KC = stage_rows<BP>();
-  constexpr int U = BP <= 4 ? 8 : 4;  // weight vectors a batch a thread
-  const int layer = q[1], src = q[2], dst = q[3], nrow = q[4];
-  const int TN = q[8], K = q[9], N = q[10], pro = q[11], wi = q[12];
+  constexpr int CU = BP <= 4 ? 2 : 1;
+  constexpr int BG = BP <= 4 ? BP : 4;
+  constexpr int NU = PRO == 2 ? 1 : 0;  // up-half loads a batch row
+  const int nch = kc / VEC;
+  for (int c0 = threadIdx.x; c0 < nch; c0 += CU * kThreads)
+    for (int g = 0; g < BP; g += BG) {
+      uint4 xv[CU][BG], uv[CU][BG * NU + 1];
+      float4 wv[CU][VEC / 4];
+#pragma unroll
+      for (int u = 0; u < CU; ++u) {
+        const int c = c0 + u * kThreads, k = k0 + c * VEC;
+        const bool row = c < nch;
+#pragma unroll
+        for (int h = 0; h < VEC / 4; ++h)
+          wv[u][h] = row && PRO == 1
+                         ? *reinterpret_cast<const float4*>(nw + k + 4 * h)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int bb = 0; bb < BG; ++bb) {
+          const bool live = row && g + bb < B;
+          const S* xr = x + size_t(g + bb) * wmax + k;
+          xv[u][bb] = live ? __ldcg(reinterpret_cast<const uint4*>(xr))
+                           : make_uint4(0, 0, 0, 0);
+          if (NU)
+            uv[u][bb * NU] = live ? __ldcg(reinterpret_cast<const uint4*>(
+                                        xr + K))
+                                  : make_uint4(0, 0, 0, 0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < CU; ++u) {
+        const int c = c0 + u * kThreads;
+        if (c >= nch) break;
+        const float* we = reinterpret_cast<const float*>(wv[u]);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          float v[4];
+#pragma unroll
+          for (int bb = 0; bb < 4; ++bb) {
+            v[bb] = 0.f;
+            if (bb < BG) {
+              v[bb] = f32(reinterpret_cast<const S*>(&xv[u][bb])[e]);
+              if (PRO == 1)
+                v[bb] = rnd(v[bb] * scale[g + bb] * we[e], S());
+              else if (PRO == 2)
+                v[bb] = rnd(v[bb] * sigmoid(v[bb]) *
+                                f32(reinterpret_cast<const S*>(
+                                    &uv[u][bb * NU])[e]),
+                            S());
+            }
+          }
+          *reinterpret_cast<float4*>(a_s + (c * VEC + e) * BP + g) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+}
+
+// One column tile [c0, c0 + TN) of y (B, N) = prologue(x) @ W (K, N)
+// over the tile's rows of W, streamed through the ring (stage 0 from arena
+// slot `fs` when >= 0). Thread (ks, cg) owns column group cg (VEC
+// columns) and the tile rows g = ks (mod KS), each from the 16 bytes of
+// its stage in shared memory; the KS partial sums of a column are added
+// in ks order in shared memory and rounded once.
+template <typename S, int BP>
+__device__ void matmul_tile(const Params& p, int row, const MmTile<S>& t,
+                            int tile, int fs, int from, int me, float* sm,
+                            const unsigned char* ring_p,
+                            const unsigned char* arena_p, uint32_t ring,
+                            uint32_t bars, uint32_t& phase, Stream& st) {
+  const int* q = p.queue + row * kRow;
+  constexpr int VEC = 16 / sizeof(S);
+  constexpr int KC = a_rows<BP>();
+  const int src = q[2], dst = q[3], nrow = q[4];
+  const int K = q[9], pro = q[11];
   const float eps = __int_as_float(q[14]);
   const int split = q[15], col = tile / split, ks0 = tile % split;
-  const int KR = K / split;  // this tile's rows of W: [ks0 * KR, + KR)
+  const int TN = t.TN, KR = t.KR, SR = t.SR, TB = t.TB;
   const int B = p.batch, wmax = p.wmax;
   const S* x = slot<S>(p, me, src);
   S* y = slot<S>(p, me, dst);
-  const S* W = static_cast<const S*>(p.w[wi]) + layer * p.w_layer[wi] +
-               me * p.w_rank[wi];
-  const int c0 = col * TN;
+  const int c0 = t.c0;
   const int CG = TN / VEC, KS = kThreads / CG;
   const int cg = threadIdx.x % CG, ks = threadIdx.x / CG;
   float* a_s = sm;              // [KC][BP]
   float* scale = sm + KC * BP;  // [BP]
   float* red = scale + BP;      // [kWarps][BP]
   const float* nw = p.norms + size_t(nrow) * p.norm_w;
+  const int f = fs >= 0;              // stages taken from the arena
+  const int spp = max(1, KC / SR);      // stages a pass of `a`
+  // this thread's 16 bytes of a stage row: its box, then its column
+  const int cofs = (cg * VEC) / TB * SR * TB + (cg * VEC) % TB;
+
+  if (tile == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    bool pf = false;  // the weight has a prefetch code
+    for (int c = 0; c < p.n_spec; ++c) pf |= p.pf_w[c] == t.wi;
+    if (f) ++p.pf_stats[0];
+    else if (pf) ++p.pf_stats[1];
+  }
 
   if (pro == 1) {  // rms factors of the B rows, over all of K
     float ss[BP];
 #pragma unroll
     for (int b = 0; b < BP; ++b) ss[b] = 0.f;
-    for (int k = threadIdx.x * VEC; k < K; k += kThreads * VEC) {
+    constexpr int PU = BP <= 4 ? 2 : 1;  // K vectors loaded at once
+    for (int k0 = threadIdx.x * VEC; k0 < K; k0 += PU * kThreads * VEC) {
+      uint4 xv[PU][BP];  // every load of the round before any use
 #pragma unroll
-      for (int b = 0; b < BP; ++b)
-        if (b < B) {
-          float v[VEC];
-          ldws_vec(x + size_t(b) * wmax + k, v);
+      for (int u = 0; u < PU; ++u)
 #pragma unroll
-          for (int j = 0; j < VEC; ++j) ss[b] = fmaf(v[j], v[j], ss[b]);
+        for (int b = 0; b < BP; ++b) {
+          const int k = k0 + u * kThreads * VEC;
+          xv[u][b] = k < K && b < B ? __ldcg(reinterpret_cast<const uint4*>(
+                                          x + size_t(b) * wmax + k))
+                                    : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+      for (int u = 0; u < PU; ++u)
+#pragma unroll
+        for (int b = 0; b < BP; ++b) {
+          const S* e = reinterpret_cast<const S*>(&xv[u][b]);
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) ss[b] = fmaf(f32(e[j]), f32(e[j]), ss[b]);
         }
     }
 #pragma unroll
@@ -336,51 +662,52 @@ __device__ void matmul_tile(const Params& p, const int* q, int tile, int me,
 #pragma unroll
     for (int j = 0; j < VEC; ++j) acc[b][j] = 0.f;
 
-  for (int k0 = ks0 * KR; k0 < (ks0 + 1) * KR; k0 += KC) {
-    const int kc = min(KC, (ks0 + 1) * KR - k0);
-    __syncthreads();  // the last pass's readers of a_s are done
-    const int kcv = kc / VEC;  // 16-byte vectors of a row in this pass
-    for (int i = threadIdx.x; i < BP * kcv; i += kThreads) {
-      const int b = i / kcv, kk = (i - b * kcv) * VEC, k = k0 + kk;
-      float v[VEC];
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) v[j] = 0.f;
-      if (b < B) {
-        const S* xr = x + size_t(b) * wmax;
-        ldws_vec(xr + k, v);
-        if (pro == 1) {
-#pragma unroll
-          for (int j = 0; j < VEC; ++j)
-            v[j] = rnd(v[j] * scale[b] * nw[k + j], S());
-        } else if (pro == 2) {
-          float u[VEC];
-          ldws_vec(xr + K + k, u);
-#pragma unroll
-          for (int j = 0; j < VEC; ++j)
-            v[j] = rnd(v[j] * sigmoid(v[j]) * u[j], S());
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) a_s[(kk + j) * BP + b] = v[j];
+  int pass0 = 0;  // the tile row of a_s row 0
+  for (int j = 0; j < t.n_st; ++j) {
+    const int r0 = j * SR, rows = min(SR, KR - r0);
+    if (j % spp == 0) {  // stage a pass of `a`: tile rows [r0, r0 + kc)
+      const int kc = min(spp * SR, KR - r0), k0 = t.kb + r0;
+      pass0 = r0;
+      __syncthreads();  // the last pass's readers of a_s are done
+      if (pro == 1) stage_a<S, BP, 1>(x, K, k0, kc, B, wmax, scale, nw, a_s);
+      else if (pro == 2) stage_a<S, BP, 2>(x, K, k0, kc, B, wmax, scale, nw, a_s);
+      else stage_a<S, BP, 0>(x, K, k0, kc, B, wmax, scale, nw, a_s);
+      __syncthreads();
     }
-    __syncthreads();
+    // the stage: arena slot fs, or the stream's next ring slot
+    const unsigned char* buf;
+    if (j < f) {
+      const int bi = kRingStages + fs;
+      hopper::mbar_wait_quiet(bars + 8 * bi, (phase >> bi) & 1u);
+      phase ^= 1u << bi;
+      buf = arena_p + fs * kStageBytes;
+    } else {
+      const int rs = st.consumed % kRingStages;
+      hopper::mbar_wait_quiet(bars + 8 * rs, (st.consumed / kRingStages) & 1u);
+      buf = ring_p + rs * kStageBytes;
+    }
     if (ks < KS) {
-      // this thread's rows of the pass: kk = ks + r * KS < kc; U of them
-      // a batch, the next batch's loads issued before this one's FMAs
-      const S* wp = W + size_t(k0) * N + c0 + cg * VEC;
-      const int rows = (kc - ks + KS - 1) / KS;
-      uint4 cur[U], nxt[U];
-      load_rows<U>(cur, wp, ks, KS, 0, rows, N);
-      for (int r = 0; r < rows; r += U) {
-        if (r + U < rows) load_rows<U>(nxt, wp, ks, KS, r + U, rows, N);
+      const S* wp = reinterpret_cast<const S*>(buf) + cofs;
+      const float* ap = a_s + (r0 - pass0) * BP;
+      int r = (ks - r0 % KS + KS) % KS;  // the first r with r0 + r = ks
+      for (; r + 3 * KS < rows; r += 4 * KS) {
+        uint4 v[4];
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int kk = r + u < rows ? ks + (r + u) * KS : 0;
-          fma_row<S, BP, VEC>(acc, cur[u], a_s + kk * BP);
-        }
+        for (int u = 0; u < 4; ++u)
+          v[u] = *reinterpret_cast<const uint4*>(wp + (r + u * KS) * TB);
 #pragma unroll
-        for (int u = 0; u < U; ++u) cur[u] = nxt[u];
+        for (int u = 0; u < 4; ++u)
+          fma_row<S, BP, VEC>(acc, v[u], ap + (r + u * KS) * BP);
       }
+      for (; r < rows; r += KS)
+        fma_row<S, BP, VEC>(acc, *reinterpret_cast<const uint4*>(wp + r * TB),
+                            ap + r * BP);
+    }
+    __syncthreads();  // every thread is done with the stage
+    if (j >= f) {  // its ring slot takes the stream's next stage
+      ++st.consumed;
+      from = top_up<S>(p, st, t, from, me, ring, bars);
+      if (from == t.n_st) look_ahead<S>(p, st, row, tile, me, ring, bars);
     }
   }
 
@@ -398,8 +725,11 @@ __device__ void matmul_tile(const Params& p, const int* q, int tile, int me,
 #pragma unroll
       for (int bb = 0; bb < 4; ++bb)
 #pragma unroll
-        for (int j = 0; j < VEC; ++j)
-          part[(bb * KS + ks) * TN + cg * VEC + j] = acc[b0 + bb][j];
+        for (int j = 0; j < VEC; j += 4)
+          *reinterpret_cast<float4*>(part + (bb * KS + ks) * TN + cg * VEC +
+                                     j) =
+              make_float4(acc[b0 + bb][j], acc[b0 + bb][j + 1],
+                          acc[b0 + bb][j + 2], acc[b0 + bb][j + 3]);
     __syncthreads();
     const int nb = min(4, B - b0);
     for (int o = threadIdx.x; o < nb * TN; o += kThreads) {
@@ -680,14 +1010,47 @@ __device__ void attention_tile(const Params& p, const int* q, int tile,
 }
 
 template <typename S, int BP>
-__global__ void __launch_bounds__(kThreads, 1) mega_kernel(Params p) {
-  extern __shared__ __align__(16) float sm[];
+__global__ void __launch_bounds__(kThreads, 1)
+    mega_kernel(const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sm = reinterpret_cast<float*>(smem);  // the branches' scratch
   const int me = blockIdx.y;
   int* counters = p.flags + size_t(me) * p.flag_stride;
+  const uint32_t s0 = hopper::smem_addr(smem);
+  const uint32_t ring = (s0 + kScratchBytes + 127) & ~127u;
+  const uint32_t arena = ring + kRingStages * kStageBytes;
+  const uint32_t bars = arena + p.depth * kStageBytes;  // ring's, arena's
+  const unsigned char* ring_p = smem + (ring - s0);
+  const unsigned char* arena_p = smem + (arena - s0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kRingStages + p.depth; ++i)
+      hopper::mbar_init(bars + 8 * i, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  uint32_t phase = 0;  // bit kRingStages + s: arena slot s's next parity
+  Stream st = {0u, 0u, -1, -1, 0};
   for (int row = 0; row < p.n_rows; ++row) {
     const int* q = p.queue + row * kRow;
     const int op = q[0], nt = q[7];
+    const int code = q[kIssueCode], cons = q[kConsume];
+    // a row that reads the slot it fills issues after its own read
+    const bool late = code && cons && q[kIssueSlot] == cons - 1;
+    if (code && !late) issue_hint<S>(p, q, me, arena, bars);
+    // the ring is idle through a row of another branch: the next row's
+    // tile starts streaming
+    if (op != kMatmul) look_ahead<S>(p, st, row, 0, me, ring, bars);
     for (int tile = blockIdx.x; tile < nt; tile += gridDim.x) {
+      MmTile<S> t;
+      int fs = -1, from = 0;  // the arena slot of stage 0; its next stage
+      if (op == kMatmul) {
+        t = row_tile<S>(p, q, tile, me);
+        from = arena_stages(q, tile);
+        fs = from ? cons - 1 : -1;
+        if (st.la_row == row && st.la_tile == tile) from += st.la_n;
+        st.la_row = -1;
+        from = top_up<S>(p, st, t, from, me, ring, bars);
+      }
       if (threadIdx.x == 0)
         for (int i = 0; i < q[17]; ++i) {
           const int pr = q[18 + i];
@@ -697,7 +1060,8 @@ __global__ void __launch_bounds__(kThreads, 1) mega_kernel(Params p) {
       __syncthreads();
       switch (op) {
         case kMatmul:
-          matmul_tile<S, BP>(p, q, tile, me, sm);
+          matmul_tile<S, BP>(p, row, t, tile, fs, from, me, sm, ring_p,
+                             arena_p, ring, bars, phase, st);
           break;
         case kRmsNorm:
           rms_norm_tile<S>(p, q, tile, me, sm);
@@ -724,6 +1088,7 @@ __global__ void __launch_bounds__(kThreads, 1) mega_kernel(Params p) {
       }
       shmem::signal_add(counters + row, 1);
     }
+    if (code && late) issue_hint<S>(p, q, me, arena, bars);
   }
 }
 
@@ -731,7 +1096,7 @@ template <typename S, int BP>
 cudaError_t launch(const Params& prm, int n, int bpr, int* info,
                    cudaStream_t st) {
   void (*kern)(Params) = mega_kernel<S, BP>;
-  const size_t smem = smem_bytes<BP>();
+  const size_t smem = smem_bytes(prm.depth);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -751,6 +1116,31 @@ cudaError_t launch(const Params& prm, int n, int bpr, int* info,
   return shmem::launch_world(kern, n, bpr, kThreads, smem, st, info, prm);
 }
 
+// row_copy 1: each row-major weight as a 3-D tensor map (planes L * n,
+// K, N) of (stage rows, box cols, 1) boxes, zero fill past K
+template <typename S>
+bool encode_maps(Params& p, int nw, const long long* planes) {
+  for (int i = 0; i < nw; ++i) {
+    if (p.w_tiled[i]) continue;
+    const int tn = p.w_tn[i];
+    if (tn <= 0) return false;  // its matmuls tile it in more than one way
+    const uint64_t isz = sizeof(S);
+    const uint64_t dims[3] = {uint64_t(p.w_n[i]), uint64_t(p.w_k[i]),
+                              uint64_t(planes[i])};
+    const uint64_t strides[2] = {p.w_n[i] * isz,
+                                 uint64_t(p.w_k[i]) * p.w_n[i] * isz};
+    const uint32_t box[3] = {uint32_t(box_cols(tn)),
+                             uint32_t(stage_rows(tn, int(isz))), 1};
+    if (!hopper::encode_map(&p.maps[i],
+                            isz == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, p.w[i], 3, dims,
+                            strides, box, CU_TENSOR_MAP_L2_PROMOTION_L2_256B))
+      return false;
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" int mega_arg_count() { return A_COUNT; }
@@ -760,7 +1150,7 @@ extern "C" int mega_arg_count() { return A_COUNT; }
 // Returns a cudaError_t (0 = launched).
 extern "C" int mega_launch(const long long* a, int n, int bpr, int dtype,
                            void* info, void* stream) {
-  Params p;
+  Params p = {};
   p.queue = reinterpret_cast<const int*>(a[A_QUEUE]);
   p.n_rows = int(a[A_NROWS]);
   p.pos = reinterpret_cast<const int*>(a[A_POS]);
@@ -790,12 +1180,36 @@ extern "C" int mega_launch(const long long* a, int n, int bpr, int dtype,
   p.partial = reinterpret_cast<float*>(a[A_PARTIAL]);
   p.partial_stride = a[A_PARTIAL_STRIDE];
   const int nw = int(a[A_NW]);
+  p.depth = int(a[A_DEPTH]);
+  p.row_copy = int(a[A_ROW_COPY]);
+  p.n_spec = int(a[A_NSPEC]);
+  p.pf_stats = reinterpret_cast<int*>(a[A_PF_STATS]);
+  long long planes[kMaxW];
   for (int i = 0; i < kMaxW; ++i) {
     p.w[i] = i < nw ? reinterpret_cast<const void*>(a[A_W0 + i]) : nullptr;
     p.w_layer[i] = a[A_WLAYER0 + i];
     p.w_rank[i] = a[A_WRANK0 + i];
+    p.w_tiled[i] = int(a[A_WTILED0 + i]);
+    p.w_k[i] = int(a[A_WK0 + i]);
+    p.w_n[i] = int(a[A_WN0 + i]);
+    p.w_tn[i] = int(a[A_WTN0 + i]);
+    p.w_split[i] = int(a[A_WSPLIT0 + i]);
+    planes[i] = a[A_WPLANES0 + i];
+    p.pf_w[i] = int(a[A_PFW0 + i]);
   }
-  if (n < 1 || bpr < 1 || p.batch < 1 || p.batch > 16 || nw > kMaxW)
+  if (n < 1 || bpr < 1 || p.batch < 1 || p.batch > 16 || nw > kMaxW ||
+      p.depth < 1 || p.depth > kMaxDepth ||
+      smem_bytes(p.depth) > size_t(kSmemMax) || p.row_copy < 0 ||
+      p.row_copy > 1 || p.n_spec < 0 || p.n_spec > kMaxW || !p.pf_stats)
+    return int(cudaErrorInvalidValue);
+  for (int c = 0; c < p.n_spec; ++c) {  // a prefetched weight's one tiling
+    const int i = p.pf_w[c];
+    if (i < 0 || i >= nw || p.w_tn[i] <= 0 || p.w_split[i] <= 0)
+      return int(cudaErrorInvalidValue);
+  }
+  if (p.row_copy == 1 &&
+      !(dtype == 1 ? encode_maps<unsigned short>(p, nw, planes)
+                   : encode_maps<float>(p, nw, planes)))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* inf = static_cast<int*>(info);

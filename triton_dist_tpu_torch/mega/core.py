@@ -19,6 +19,27 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Hashable, List, Sequence, Tuple
 
+# blocks a rank plans for where no card says otherwise: one block on each
+# of an H100's 132 SMs
+H100_SMS = 132
+
+# The shared memory of a block of csrc/mega.cu (kThreads 256, one block a
+# SM), in the kernel's order: the branches' scratch (a matmul's staged
+# activations and epilogue, the attention's q / logits / P.V partials,
+# the norms' reductions), the ring of weight stages, the prefetch arena
+# (one stage a slot), the stages' mbarriers; the ring starts 128-byte
+# aligned (a TMA destination). Mirrored by kScratchBytes, kStageBytes,
+# kRingStages, kMaxDepth and kSmemMax there. Stages of 32 KB: smaller
+# ones streamed slower (PERF.md PR 23).
+SMEM_BYTES = 232448          # an H100 block's opt-in maximum (227 KB)
+SCRATCH_BYTES = 66560
+STAGE_BYTES = 32768
+RING_STAGES = 3
+ARENA_BYTES = (SMEM_BYTES - SCRATCH_BYTES - 128 - RING_STAGES * STAGE_BYTES
+               - 8 * (RING_STAGES + 4))
+MAX_PF_DEPTH = min(4, ARENA_BYTES // STAGE_BYTES)  # arena slots that fit
+assert MAX_PF_DEPTH >= 2, "the arena must hold auto_pf_depth's floor of 2"
+
 # columns of a matmul or elementwise tile are a multiple of this: one
 # 16-byte vector of bf16 (two of f32); at most MAX_TILE_COLS, one 16-byte
 # column group for each of a block's 256 threads in f32

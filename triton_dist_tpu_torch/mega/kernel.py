@@ -22,19 +22,29 @@ edges), and lays the queue out as int32 rows:
              bits); attention (hq_l, hkv_l, D, use_qk_norm, q-norm base
              row, k-norm base row, eps bits)
   col 17     producer count; cols 18-25 the producers' queue positions
+  cols 26-29 the weight-prefetch hint (scheduler.plan_prefetch, the JAX
+             row's pf_code, pf_layer, pf_slot, pf_in): issue code (1 +
+             index into the plan's specs, 0 = none), the consumer's
+             layer, the arena slot it fills, and the slot this matmul
+             reads its first stage from (slot + 1, 0 = cold)
 
 A matmul tile is a column block of the weight and, where N is too narrow
 to give every block a run of MIN_RUN_COLS columns, a range of K: the
 tiles of one column block write f32 partial sums, and the last to finish
 (an arrival flag) adds them in K order and rounds once.
 
-The JAX kernel's weight-DMA pipeline (prefetch arena, store/forward
-plan, tile-major weights, VMEM budgets, num_cores) is Mosaic's and does
-not carry over: the CUDA kernel reads row-major weights with 16-byte
-loads. The mailbox AllReduce gets one heap slot per AR task (the JAX
-kernel double-buffers by parity across steps): one launch never reuses
-a slot, and the next launch starts after this one ends, so neither the
-parity nor its flow control is needed.
+The weight pipeline is the JAX one in CUDA form: a matmul tile streams
+its weight rows through a ring of shared-memory stages filled by async
+copies, and the schedule's prefetch plan starts the next matmul's first
+stage one row early into an arena slot (csrc/mega.cu). A weight named in
+`tiled_weights` is laid out tile-major once (`tile_weight_major`, JAX
+kernel.py:123), so each tile is one contiguous block and each stage one
+bulk copy; `w_tile_src` is the one definition of where a tile lies, as
+JAX's `_w_tile_src`. Not carried over: the store/forward plan, VMEM
+budgets and num_cores (ROADMAP.md). The mailbox AllReduce gets one heap
+slot per AR task (the JAX kernel double-buffers by parity across steps):
+one launch never reuses a slot, and the next launch starts after this
+one ends, so neither the parity nor its flow control is needed.
 
 `run` launches the kernel on a CUDA tensor (kernels/mega.py, counted as
 `mega`) and never falls back; `run_plain` is the plain PyTorch version:
@@ -55,20 +65,25 @@ from triton_dist_tpu_torch.kernels import mega as _mk
 from triton_dist_tpu_torch.layers.linear import dot_f32
 from triton_dist_tpu_torch.mega.core import (
     COL_ALIGN,
+    H100_SMS,
+    MAX_PF_DEPTH,
+    STAGE_BYTES,
     Graph,
     mm_tile_cols,
     plan_mm_tiles,
 )
-from triton_dist_tpu_torch.mega.scheduler import Schedule
+from triton_dist_tpu_torch.mega.scheduler import (
+    PrefetchPlan,
+    Schedule,
+    plan_prefetch,
+)
 
 OPS = ("matmul", "rms_norm", "silu_mul", "add", "allreduce_add",
        "attention", "barrier", "noop")
-ROW = 26
+ROW = 30
+HINT = slice(26, 30)  # issue code, issue layer, issue slot, consume
 MAX_PRODUCERS = 8
 MAX_BATCH = 16
-# blocks a rank plans for where no card says otherwise: one block on each
-# of an H100's 132 SMs
-H100_SMS = 132
 PROLOGUES = {None: 0, "rms": 1, "silu": 2}
 
 
@@ -91,6 +106,30 @@ def _kv_chunk(smax: int, page: int = 0) -> int:
         return smax
     assert smax % 512 == 0, f"s_max {smax} must be a multiple of 512"
     return 512
+
+
+def tile_weight_major(w: torch.Tensor, tn: int) -> torch.Tensor:
+    """A stacked weight (..., K, N) laid out tile-major (..., N // tn, K,
+    tn), as JAX kernel.py:123: block [..., j] is then one contiguous run
+    of K * tn elements, which the kernel streams as bulk copies. Made once
+    at init (a copy), never a step."""
+    *lead, k, n = w.shape
+    nt = n // tn
+    if nt * tn != n:
+        raise ValueError(f"N={n} is not a multiple of the tile {tn}")
+    return w.reshape(*lead, k, nt, tn).movedim(-2, -3).contiguous()
+
+
+def w_tile_src(w: torch.Tensor, tiled: bool, layer: int, j: int,
+               tn: int) -> torch.Tensor:
+    """The (n, K, tn) source of column tile j of a weight's layer: a
+    tile-major weight (L, n, N // tn, K, tn) indexes one block, a
+    row-major (L, n, K, N) one a column slice. The one definition of the
+    two layouts (JAX kernel.py:205 `_w_tile_src`): csrc/mega.cu mm_tile
+    addresses the same block."""
+    if tiled:
+        return w[layer, :, j]
+    return w[layer, :, :, j * tn:(j + 1) * tn]
 
 
 def blocks_per_rank(device, world: int) -> int:
@@ -125,8 +164,57 @@ class CompiledMega:
     n_ar: int                  # allreduce_add tasks (mailbox slots)
     arw: int                   # mailbox width
     attn: Optional[Dict[str, int]]  # the one attention geometry, if any
+    prefetch: Optional[PrefetchPlan] = None  # the queue's hint columns
+    tiled: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # weight -> (K, N, tile cols, K splits) of its matmuls, None where
+    # they differ (such a weight is never prefetched)
+    w_geom: Dict[str, Any] = dataclasses.field(default_factory=dict)
     _dev_queue: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
+    _stats: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+    @property
+    def pf_depth(self) -> int:
+        return self.prefetch.depth if self.prefetch is not None else 1
+
+    def tile_cols(self, name: str) -> int:
+        """The one tile width of weight `name`'s matmuls (JAX
+        CompiledMega.tile_cols)."""
+        tns = {v[0] for k, v in self.mm_tiles.items() if k[1] == name}
+        if len(tns) != 1:
+            raise ValueError(f"weight {name} is tiled at {sorted(tns)}")
+        return tns.pop()
+
+    def weight_shape(self, name: str, layers: int) -> tuple:
+        """The layout the kernel takes weight `name` in: (L, n, N // tn,
+        K, tn) tile-major, else (L, n, K, N)."""
+        g = self.w_geom[name]
+        if name in self.tiled:
+            tn = self.tiled[name]
+            return (layers, self.world, g[1] // tn, g[0], tn)
+        return (layers, self.world, *(g[:2] if g else (None, None)))
+
+    def stats_on(self, device) -> torch.Tensor:
+        """(2,) int32 on `device`, [fed, cold]: the matmul rows whose first
+        stage the kernel took from an arena slot, and the prefetchable
+        ones it opened cold, as block 0 of rank 0 saw them, summed over
+        every launch of this queue on the device."""
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        key = str(dev)
+        t = self._stats.get(key)
+        if t is None:
+            t = torch.zeros(2, dtype=torch.int32, device=device)
+            self._stats[key] = t
+        return t
+
+    def plan_counts(self) -> tuple:
+        """(fed, cold) matmul rows of one step, by the plan."""
+        if self.prefetch is None:
+            return 0, 0
+        return len(self.prefetch.fed()), len(self.prefetch.cold)
 
     def workspace(self, device) -> torch.Tensor:
         """(n ranks, n_slots, pb, wmax): rank r's slot s is [r, s]."""
@@ -162,10 +250,14 @@ class CompiledMega:
 
 
 def compile_graph(graph: Graph, sched: Schedule, dtype,
-                  blocks: int = H100_SMS, world: int = 1) -> CompiledMega:
+                  blocks: int = H100_SMS, world: int = 1,
+                  tiled_weights: tuple = ()) -> CompiledMega:
     """Lower (graph, schedule) to the queue the CUDA kernel walks, for
     `world` ranks of `blocks` resident blocks each (blocks_per_rank),
-    activations and weights in `dtype`."""
+    activations and weights in `dtype`. The weights in `tiled_weights`
+    are taken tile-major (tile_weight_major at `tile_cols`). The
+    schedule's prefetch plan fills the hint columns; a schedule without
+    one gets one planned here at the auto depth (as JAX does)."""
     B = graph.batch
     if not 1 <= B <= MAX_BATCH:
         raise ValueError(f"batch {B}: the megakernel takes 1 to {MAX_BATCH} "
@@ -179,6 +271,34 @@ def compile_graph(graph: Graph, sched: Schedule, dtype,
     mm_keys = [k for k in branch_keys if k[0] == "matmul"]
     mm_tiles = plan_mm_tiles(mm_keys, blocks)
     weight_names = sorted({k[1] for k in mm_keys})
+    isz = torch.empty((), dtype=dtype).element_size()
+    for k, (tn, _) in mm_tiles.items():
+        if 8 * tn * isz > STAGE_BYTES:
+            raise ValueError(f"matmul {k}: tiles of {tn} columns leave a "
+                             "weight stage fewer than 8 rows")
+    geoms: Dict[str, set] = {}
+    for k in mm_keys:
+        geoms.setdefault(k[1], set()).add((k[2], k[3], *mm_tiles[k]))
+    w_geom = {n: (next(iter(g)) if len(g) == 1 else None)
+              for n, g in geoms.items()}
+    tiled_weights = tuple(tiled_weights)
+    if not set(tiled_weights) <= set(weight_names):
+        raise ValueError(f"tiled_weights {tiled_weights}: not all matmul "
+                         f"weights of the graph ({weight_names})")
+    plan = sched.prefetch
+    if plan is None:
+        plan = plan_prefetch(graph, sched, mm_tiles)
+    if plan.tiles != mm_tiles:
+        raise ValueError("the schedule's prefetch plan was made on another "
+                         "tile map: schedule_graph(..., blocks=) must get "
+                         f"compile_graph's {blocks}")
+    one = set(tiled_weights) | {spec[0] for spec in plan.specs}
+    if any(w_geom[name] is None for name in one):
+        raise ValueError("a tiled or prefetched weight needs one (K, N) "
+                         "and one tiling over its matmuls")
+    if not 1 <= plan.depth <= MAX_PF_DEPTH:
+        raise ValueError(f"prefetch depth {plan.depth}: the kernel's arena "
+                         f"holds 1 to {MAX_PF_DEPTH} slots")
     at_keys = [k for k in branch_keys if k[0] == "attention"]
     if len({k[1:] for k in at_keys}) > 1:
         raise ValueError("one attention geometry per megakernel graph")
@@ -246,6 +366,8 @@ def compile_graph(graph: Graph, sched: Schedule, dtype,
                              f"row holds {MAX_PRODUCERS}")
         row[17] = len(ps)
         row[18:18 + len(ps)] = ps
+        row[HINT] = [plan.issue_code[tid], plan.issue_layer[tid],
+                     plan.issue_slot[tid], plan.consume[tid]]
 
     wmax = max(b.width for b in graph.buffers)
     wmax = -(-wmax // COL_ALIGN) * COL_ALIGN
@@ -254,12 +376,14 @@ def compile_graph(graph: Graph, sched: Schedule, dtype,
     if any(k[6] for k in at_keys):
         norm_ws.append(at_keys[0][3])
     norm_width = max(norm_ws, default=COL_ALIGN)
-    return CompiledMega(
+    cm = CompiledMega(
         queue=queue, dtype=dtype, n_slots=sched.n_slots, pb=B, wmax=wmax,
         norm_width=norm_width, branch_keys=branch_keys,
         weight_names=weight_names, mm_tiles=mm_tiles, blocks=blocks,
         world=world, n_flags=flag + 1, n_partial=n_partial, n_ar=n_ar,
-        arw=arw, attn=attn)
+        arw=arw, attn=attn, prefetch=plan, w_geom=w_geom)
+    cm.tiled = {name: cm.tile_cols(name) for name in tiled_weights}
+    return cm
 
 
 # -- the plain version, one function per branch ---------------------------
@@ -282,10 +406,27 @@ def _slot(cm, ws, s, width):
     return ws[:, s, :cm.pb, :width]
 
 
+def _plain_weight(cm, weights, name, layer):
+    """(n, K, N) of weight `name` at `layer`, from the layout the queue
+    takes it in: a tile-major one through w_tile_src, tile by tile."""
+    w = weights[name]
+    if name not in cm.tiled:
+        if w.dim() != 4:
+            raise ValueError(f"weight {name} {tuple(w.shape)}: the queue "
+                             "takes it row-major (L, n, K, N)")
+        return w[layer]
+    tn = cm.tiled[name]
+    if w.dim() != 5 or w.shape[-1] != tn:
+        raise ValueError(f"weight {name} {tuple(w.shape)}: the queue takes "
+                         f"it tile-major (L, n, N // {tn}, K, {tn})")
+    return torch.cat([w_tile_src(w, True, layer, j, tn)
+                      for j in range(w.shape[2])], dim=-1)
+
+
 def _plain_matmul(cm, row, pos, table, ws, weights, norms, *_):
     layer, src, dst, nrow = (int(v) for v in row[1:5])
     K, N, pro = int(row[9]), int(row[10]), int(row[11])
-    w = weights[cm.weight_names[int(row[12])]][layer]  # (n, K, N)
+    w = _plain_weight(cm, weights, cm.weight_names[int(row[12])], layer)
     raw = _slot(cm, ws, src, 2 * K if pro == 2 else K)
     if pro == 1:
         a = _rms_f32(raw.float(), norms[nrow, :K], _bits_f32(row[14]))

@@ -11,7 +11,10 @@ package leaves the same four to XLA (qwen3.py:410-483).
 Weights are the port's `DenseLLMParams` with the rank dim, as
 `init_params`, `params_from_jax` and `shard_params` give them: no other
 weight-carrying function is needed. The fused [gate|up] copy is made once
-at init (row-major, not tile-major: the CUDA kernel reads rows).
+at init, tile-major at the kernel's gate|up tile width (JAX qwen3.py:
+276-300: each tile one contiguous block, streamed as bulk copies), and
+the model's own params drop the split w_gate / w_up (a `_replace` copy:
+the caller's params keep them, for an Engine that shares them).
 
 Caches keep the JAX layouts, the kv heads global with rank r's at
 [r*Hkv/n, (r+1)*Hkv/n): `MegaKVCache` (L, Hkv, B, S_max, D) and
@@ -54,6 +57,7 @@ from triton_dist_tpu_torch.mega.kernel import (
     _kv_chunk,
     blocks_per_rank,
     compile_graph,
+    tile_weight_major,
 )
 from triton_dist_tpu_torch.mega.scheduler import (
     schedule_graph,
@@ -285,17 +289,22 @@ class MegaQwen3:
             cfg, batch, world, self.s_max,
             page=self.page if paged else (page_size or 0))
         self.graph = mb.graph
-        self.sched = schedule_graph(self.graph)
+        blocks = blocks_per_rank(self.device, world)
+        self.sched = schedule_graph(self.graph, blocks=blocks)
         validate_schedule(self.graph, self.sched)
         self.cm: CompiledMega = compile_graph(
-            self.graph, self.sched, self.dtype,
-            blocks=blocks_per_rank(self.device, world), world=world)
+            self.graph, self.sched, self.dtype, blocks=blocks, world=world,
+            tiled_weights=("w_gate_up",))
         self._meta = meta
 
         lp = self.params.layers
         self._weights = {"w_qkv": lp.w_qkv, "w_o": lp.w_o,
-                         "w_gate_up": torch.cat([lp.w_gate, lp.w_up], -1),
+                         "w_gate_up": self._tiled_gate_up(lp),
                          "w_down": lp.w_down}
+        # the kernel never reads the split copies: the model's own params
+        # drop them (a caller's params object keeps its own)
+        self.params = self.params._replace(
+            layers=lp._replace(w_gate=None, w_up=None))
         cos, sin = rope_table(cfg.head_dim, cfg.max_positions,
                               cfg.rope_theta, device=self.device)
         self._rope_cs = torch.cat([cos, sin], dim=-1).contiguous()
@@ -318,6 +327,20 @@ class MegaQwen3:
         self.cuda_graph = cuda_graph and self.device.type == "cuda"
         self.donate_cache = donate_cache
         self.graphs = GraphCache(8)
+
+    def _tiled_gate_up(self, lp) -> torch.Tensor:
+        """[gate | up] (L, n, H, 2I/n) tile-major (L, n, 2I/n // tn, H, tn)
+        at the kernel's gate|up tile width, a layer at a time (no full
+        row-major copy is ever held)."""
+        tn = self.cm.tile_cols("w_gate_up")
+        g, u = lp.w_gate, lp.w_up
+        L, n, h, i = g.shape
+        out = torch.empty((L, n, 2 * i // tn, h, tn), dtype=g.dtype,
+                          device=g.device)
+        for layer in range(L):
+            out[layer] = tile_weight_major(
+                torch.cat([g[layer], u[layer]], -1), tn)
+        return out
 
     def _stack_norms(self) -> torch.Tensor:
         """(4L+1, NW) f32 in the row layout of build_qwen3_graph."""
