@@ -100,7 +100,7 @@ outside a checkout of the repository. Phases, each fatal on failure:
      host clock, the launch's device time against its bound; a batch-1,
      context-512 figure at world 1. (Phase 3 also holds every
      megakernel branch against run_plain at the Qwen3-8B widths of
-     world 1 and 4, dense and paged KV, at arena depths 1, 2 and auto,
+     world 1 and 4, dense and paged KV, at arena depths 1 and auto (2),
      its fed and cold rows the plan's.)
   4s. the sixth path, after 4m at world 1, on layer 0's attention
      weights of the same Qwen3-8B draw: SP long-context attention on the
@@ -2792,8 +2792,8 @@ def check_mega_branches(world, paged, depth=None, device="cuda"):
     depth `depth` (None: auto), the gate|up weights tile-major as
     MegaQwen3 lays them out; each branch's output within two bf16 ulps of
     its largest value (the two round the same values at the same points
-    after f32 sums in another order), and the kernel's fed / cold matmul
-    rows the plan's. Returns the max abs error."""
+    after f32 sums in another order), and the fed / cold matmul rows of
+    the queue the kernel read the plan's. Returns the max abs error."""
     import numpy as np
     import torch
 
@@ -2844,15 +2844,14 @@ def check_mega_branches(world, paged, depth=None, device="cuda"):
     ws[:, int(sched.buf_slot[0]), :, :h] = rand((b, h), bf, 64)
     want = cm.run_plain(pos, table, ws.clone(), weights, norms, rope, kp, vp)
     before = kernels.launches()["mega"]
-    stats = cm.stats_on(device).clone()
     got = cm.run(pos, table, ws, weights, norms, rope, kp, vp)
     torch.cuda.synchronize()
     assert kernels.launches()["mega"] == before + 1
-    fed, cold = (cm.stats_on(device) - stats).tolist()
+    fed, cold = cm.queue_counts(cm.queue_on(ws.device).cpu().numpy())
     if (fed, cold) != cm.plan_counts():
         raise AssertionError(f"mega branches (world {world}, depth "
-                             f"{cm.pf_depth}): the kernel fed {fed} and "
-                             f"opened {cold} cold, the plan "
+                             f"{cm.pf_depth}): the queue feeds {fed} and "
+                             f"opens {cold} cold, the plan "
                              f"{cm.plan_counts()}")
     err_max, worst = 0.0, {}
     for buf in g.buffers:
@@ -2979,7 +2978,6 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
     import numpy as np
     import torch
 
-    from triton_dist_tpu_torch.kernels import mega as mk_launch
     from triton_dist_tpu_torch.mega import kernel as mk
     from triton_dist_tpu_torch.models import Engine, MegaKVCache, MegaQwen3
 
@@ -2999,7 +2997,6 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
         return real(*a)
 
     mega.cm.run = record
-    stats = mega.cm.stats_on(device).clone()
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3026,16 +3023,15 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
     elif world > 1:
         want.update(gemm_rs=2 * L, ring_all_gather=2 * L)
     assert launched == want, (launched, want)
-    # the prefetching kernel's fed / cold matmul rows, each launch the plan's
-    fed, cold = (mega.cm.stats_on(device) - stats).tolist()
+    # the fed / cold matmul rows of the queue the kernel read: the plan's
+    fed, cold = mega.cm.queue_counts(
+        mega.cm.queue_on(mega.device).cpu().numpy())
     plan_fed, plan_cold = mega.cm.plan_counts()
     n_mega = launched["mega"]
-    on_card = torch.device(device).type == "cuda"  # run_plain counts none
-    if on_card and (fed, cold) != (n_mega * plan_fed, n_mega * plan_cold):
-        raise AssertionError(f"mega world {world}: {n_mega} launches fed "
-                             f"{fed} and opened {cold} matmul rows cold; the "
-                             f"plan feeds {plan_fed} and opens {plan_cold} a "
-                             "step")
+    if (fed, cold) != (plan_fed, plan_cold):
+        raise AssertionError(f"mega world {world}: the queue feeds {fed} "
+                             f"and opens {cold} matmul rows cold; the plan "
+                             f"feeds {plan_fed} and opens {plan_cold}")
     log(f"  mega world {world}: arena depth {mega.cm.pf_depth}, gate|up "
         f"tile-major at {mega.cm.tiled['w_gate_up']} columns; each of "
         f"{n_mega} launches fed {plan_fed} matmul rows from the arena and "
@@ -3150,8 +3146,7 @@ def run_mega(kernels, cfg, params, world, prefill_mode="ar", device="cuda"):
                graphs=graphs,
                tile_cols={k[1]: v for k, v in mega.cm.mm_tiles.items()},
                blocks_per_rank=mega.cm.blocks, pf_depth=mega.cm.pf_depth,
-               pf_fed=plan_fed, pf_cold=plan_cold,
-               row_copy=mk_launch.ROW_COPY)
+               pf_fed=plan_fed, pf_cold=plan_cold)
     del eng, mega, cache, mc, start, rec, ws_k, ws_p, ws_f
     torch.cuda.empty_cache()
     return launched, row
@@ -6038,7 +6033,7 @@ def main() -> int:
     check_grouped_gemm()
     mega_branch_err = max(check_mega_branches(world, paged, depth)
                           for world in (1, 4) for paged in (False, True)
-                          for depth in (1, 2, None))
+                          for depth in (1, None))
 
     log("== 4. main path: Qwen3-8B, Engine.serve and Scheduler, world 1, "
         "world 4 (ar), world 4 (default modes: dist prefill, ar decode; "

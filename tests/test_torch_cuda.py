@@ -1473,15 +1473,15 @@ def _drop_hints(sched, tids):
     return sched
 
 
-def _mega_case(g, world, dtype, depth, tiled, row_copy, cold=0, seed=0,
-               blocks=None):
-    """Compile g at `depth` for `blocks` blocks a rank (an H100's share by
-    default) with the gate|up-like weights tile-major (or not), `cold` of
-    its fed consumers made cold, launch it once with ROW_COPY `row_copy`
-    against run_plain on the same inputs; each output slot within 1e-4
-    (f32) or two bf16 ulps of its largest value, and the kernel's fed /
-    cold count the plan's. Returns the compiled queue."""
-    from triton_dist_tpu_torch.kernels import mega as kmega
+def _mega_case(g, world, dtype, depth, tiled, cold=0, seed=0, blocks=None):
+    """Compile g at `depth` (None: auto_pf_depth, the arena's 2 slots)
+    for `blocks` blocks a rank (an H100's share by default) with the
+    gate|up-like weights tile-major (or not), `cold` of its fed consumers
+    made cold, launch it once against run_plain on the same inputs; each
+    output slot within 1e-4 (f32) or two bf16 ulps of its largest value,
+    and the fed / cold rows of the queue the kernel read the plan's.
+    Returns the compiled queue."""
+    from triton_dist_tpu_torch.mega.core import MAX_PF_DEPTH
     from triton_dist_tpu_torch.mega.kernel import (
         compile_graph,
         tile_weight_major,
@@ -1499,6 +1499,7 @@ def _mega_case(g, world, dtype, depth, tiled, row_copy, cold=0, seed=0,
     tiles = [n for n in names if "gu" in n] if tiled else []
     cm = compile_graph(g, sched, dtype, blocks=blocks, world=world,
                        tiled_weights=tuple(tiles))
+    assert cm.pf_depth == (depth or MAX_PF_DEPTH)
     rowmajor = compile_graph(g, sched, dtype, blocks=blocks, world=world)
     rng = np.random.default_rng(seed)
     weights, plain_w = {}, {}
@@ -1528,17 +1529,10 @@ def _mega_case(g, world, dtype, depth, tiled, row_copy, cold=0, seed=0,
     want = rowmajor.run_plain(pos, table, ws.clone(), plain_w, *args[4:])
     assert torch.equal(want, cm.run_plain(pos, table, ws.clone(), weights,
                                           *args[4:]))
-    old = kmega.ROW_COPY
-    kmega.ROW_COPY = row_copy
-    try:
-        before = cm.stats_on("cuda").clone()
-        got = cm.run(*args)
-        torch.cuda.synchronize()
-    finally:
-        kmega.ROW_COPY = old
-    fed, cold_n = (cm.stats_on("cuda") - before).tolist()
-    assert (fed, cold_n) == cm.plan_counts(), ((fed, cold_n),
-                                               cm.plan_counts())
+    got = cm.run(*args)
+    torch.cuda.synchronize()
+    read = cm.queue_counts(cm.queue_on(ws.device).cpu().numpy())
+    assert read == cm.plan_counts(), (read, cm.plan_counts())
     for s in range(got.shape[1]):
         w = want[:, s].float()
         err = (got[:, s].float() - w).abs().max().item()
@@ -1550,21 +1544,18 @@ def _mega_case(g, world, dtype, depth, tiled, row_copy, cold=0, seed=0,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("world", [1, 4])
-@pytest.mark.parametrize("depth", [1, 2, None])
+@pytest.mark.parametrize("depth", [1, None])
 @pytest.mark.parametrize("tiled", [False, True])
-@pytest.mark.parametrize("row_copy", ["bulk", "tma"])
-def test_mega_prefetch_branches_match_plain(cuda, world, depth, tiled,
-                                            row_copy):
+def test_mega_prefetch_branches_match_plain(cuda, world, depth, tiled):
     """branch_graph (every branch, a matmul after each kind of row) on
-    the prefetching kernel at arena depth 1, 2 and auto, gate|up weights
-    tile-major or row-major, row-major stages as bulk rows or TMA boxes,
-    two of its consumers made cold, the rest fed: bf16 within two ulps
-    of run_plain, and the kernel's fed / cold counts the plan's."""
+    the prefetching kernel at arena depth 1 and auto (2), gate|up weights
+    tile-major or row-major, two of its consumers made cold, the rest fed:
+    bf16 within two ulps of run_plain, the fed / cold rows the plan's."""
     from triton_dist_tpu_torch.mega.builder import branch_graph
 
     g = branch_graph(world, 4, 256, 512, 4, 2, 64, 64)
-    cm = _mega_case(g, world, torch.bfloat16, depth, tiled, row_copy,
-                    cold=2, seed=world)
+    cm = _mega_case(g, world, torch.bfloat16, depth, tiled, cold=2,
+                    seed=world)
     fed, cold = cm.plan_counts()
     assert fed >= 3 and cold == 2
 
@@ -1594,17 +1585,15 @@ def _matmul_chain(layers, world, h=2048, inter=4096):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("depth", [1, 2, None])
+@pytest.mark.parametrize("depth", [1, None])
 @pytest.mark.parametrize("tiled", [False, True])
-@pytest.mark.parametrize("row_copy", ["bulk", "tma"])
-def test_mega_prefetch_chain_reuses_every_slot(cuda, dtype, depth, tiled,
-                                               row_copy):
+def test_mega_prefetch_chain_reuses_every_slot(cuda, dtype, depth, tiled):
     """Ten matmuls back to back: the first opens cold (queue row 0), the
     others are fed, and every arena slot is filled and read again; at
     depth 1 each matmul reads the one slot and then refills it for the
     next (the issue after the row's own read)."""
     g = _matmul_chain(5, 1)
-    cm = _mega_case(g, 1, dtype, depth, tiled, row_copy)
+    cm = _mega_case(g, 1, dtype, depth, tiled)
     plan = cm.prefetch
     fed = plan.fed()
     assert plan.cold == [g.tasks[0].id] and len(fed) == 9
@@ -1622,7 +1611,7 @@ def test_mega_prefetch_many_tiles_a_block(cuda, depth, tiled):
     next tile, then the next row's first), bf16 within two ulps of
     run_plain and the fed / cold rows the plan's."""
     g = _matmul_chain(5, 1, h=1024, inter=2048)
-    cm = _mega_case(g, 1, torch.bfloat16, depth, tiled, "tma", blocks=5)
+    cm = _mega_case(g, 1, torch.bfloat16, depth, tiled, blocks=5)
     assert all(int(r[7]) > 2 * cm.blocks for r in cm.queue)
 
 

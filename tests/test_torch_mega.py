@@ -365,6 +365,7 @@ def test_compile_graph_writes_the_plan_into_the_queue():
                      plan.consume], 1)[s.order]
     np.testing.assert_array_equal(cm.queue[:, HINT], want)
     assert cm.plan_counts() == (len(plan.fed()), len(plan.cold))
+    assert cm.queue_counts() == cm.plan_counts()
     assert cm.tiled == {"w_gate_up": cm.tile_cols("w_gate_up")}
     bare = scheduler.Schedule(s.order, s.pos, s.buf_slot, s.n_slots)
     again = compile_graph(g, bare, torch.float32, blocks=33, world=4)
@@ -374,6 +375,50 @@ def test_compile_graph_writes_the_plan_into_the_queue():
     with pytest.raises(ValueError, match="tiled_weights"):
         compile_graph(g, s, torch.float32, blocks=33, world=4,
                       tiled_weights=("w_gate",))
+
+
+@pytest.mark.parametrize("world", [1, 4])
+def test_queue_counts_follow_the_hint_columns(world):
+    """queue_counts reads (fed, cold) back from the queue's hint columns:
+    the plan's on the tiny Qwen3 graph, and with two consumers made cold
+    (their issuers' hints cleared) two fewer fed and two more cold, on the
+    queue as compiled and on a copy of it."""
+    g = build_qwen3_graph(ModelConfig.tiny(max_positions=S_MAX), B, world,
+                          S_MAX)[0].graph
+    s = scheduler.schedule_graph(g, blocks=33)
+    cm = compile_graph(g, s, torch.float32, blocks=33, world=world,
+                       tiled_weights=("w_gate_up",))
+    fed, cold = cm.queue_counts()
+    assert (fed, cold) == cm.plan_counts() and fed > 2
+    plan = s.prefetch
+    for tid in plan.fed()[:2]:
+        issuer = s.order[int(s.pos[tid]) - 1]
+        plan.issue_code[issuer] = plan.issue_layer[issuer] = 0
+        plan.issue_slot[issuer] = plan.consume[tid] = 0
+        plan.cold.append(tid)
+    scheduler.validate_schedule(g, s)
+    cm = compile_graph(g, s, torch.float32, blocks=33, world=world,
+                       tiled_weights=("w_gate_up",))
+    assert cm.queue_counts() == cm.plan_counts() == (fed - 2, cold + 2)
+    assert cm.queue_counts(cm.queue.copy()) == (fed - 2, cold + 2)
+
+
+@pytest.mark.parametrize("name,value", [
+    ("kScratchBytes", core.SCRATCH_BYTES), ("kStageBytes", core.STAGE_BYTES),
+    ("kRingStages", core.RING_STAGES), ("kSmemMax", core.SMEM_BYTES),
+    ("kMaxDepth", core.MAX_PF_DEPTH)])
+def test_core_mirrors_the_kernel_shared_memory(name, value):
+    """mega/core.py's shared-memory layout is csrc/mega.cu's, and the
+    arena's depth cap is what auto_pf_depth gives (2 slots of 32 KB past
+    the scratch and the ring)."""
+    import pathlib
+    import re
+
+    src = (pathlib.Path(core.__file__).parents[1] / "csrc" /
+           "mega.cu").read_text()
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert m and int(m.group(1)) == value, (name, m and m.group(1), value)
+    assert scheduler.auto_pf_depth([("w", 4096, 192)]) == core.MAX_PF_DEPTH
 
 
 @pytest.mark.parametrize("tn", [8, 64, 128])

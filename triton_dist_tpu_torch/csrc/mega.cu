@@ -66,10 +66,10 @@
 //   - a tile-major weight (mega/kernel.py tile_weight_major: (L, n, N/TN,
 //     K, TN), the JAX layout) goes as one 1-D bulk copy a stage, each
 //     stage a contiguous run of its tile;
-//   - a row-major weight (L, n, K, N) as one bulk copy a weight row of
-//     the stage, issued by the lanes of warp 0 (row_copy 0), or one TMA
-//     box of (rows, cols) a stage through a 3-D tensor map (row_copy 1);
-//     kernels/mega.py ROW_COPY picks one, by tools/profile_mega.py.
+//   - a row-major weight (L, n, K, N) as TMA boxes of (rows, cols)
+//     through a 3-D tensor map, one box a stage where the tile is at most
+//     256 columns (a bulk copy a weight row streamed 2-2.4x slower,
+//     tools/profile_mega.py; PERF.md).
 // The ring is one FIFO over the block's whole weight stream (Stream): a
 // tile's stages are issued before its producer spin (weights are
 // constant through a launch), the slots its last stages free take the
@@ -117,7 +117,7 @@ constexpr int kIssueCode = 26, kIssueLayer = 27, kIssueSlot = 28,
 constexpr int kScratchBytes = 66560;
 constexpr int kStageBytes = 32768;
 constexpr int kRingStages = 3;
-constexpr int kMaxDepth = 4;     // mbarriers reserved; the budget may allow fewer
+constexpr int kMaxDepth = 2;     // arena slots that fit (mega/core.py MAX_PF_DEPTH)
 constexpr int kSmemMax = 232448;  // a block's opt-in maximum on an H100
 constexpr int kMaxStageRows = 256;  // a TMA box's most rows
 constexpr int kMaxW = 8;        // weight tensors (kernels/mega.py)
@@ -143,7 +143,7 @@ enum Arg {
   A_WMAX, A_BATCH, A_NORMS, A_NORM_W, A_ROPE, A_KPOOL, A_VPOOL, A_HKV_TOT,
   A_NPAGES, A_PAGE, A_MBOX, A_MB_RANK, A_MB_TASK, A_MB_SRC, A_MB_W, A_FLAGS,
   A_FLAG_STRIDE, A_BARRIER_FLAG, A_PARTIAL, A_PARTIAL_STRIDE, A_NW,
-  A_DEPTH, A_ROW_COPY, A_NSPEC, A_PF_STATS, A_W0,
+  A_DEPTH, A_NSPEC, A_W0,
   A_WLAYER0 = A_W0 + kMaxW,
   A_WRANK0 = A_WLAYER0 + kMaxW,
   A_WTILED0 = A_WRANK0 + kMaxW,
@@ -157,7 +157,7 @@ enum Arg {
 };
 
 struct Params {
-  CUtensorMap maps[kMaxW];  // row_copy 1: weight i as (planes, K, N) boxes
+  CUtensorMap maps[kMaxW];  // row-major weight i as (planes, K, N) boxes
   const int* queue;
   int n_rows;
   const int* pos;
@@ -184,11 +184,9 @@ struct Params {
   // weight i: tile-major, K, N, and the one (TN, splits) of its matmuls
   // (0 where they differ: then it is never prefetched)
   int w_tiled[kMaxW], w_k[kMaxW], w_n[kMaxW], w_tn[kMaxW], w_split[kMaxW];
-  int depth;     // arena slots
-  int row_copy;  // 0: a bulk copy a row, 1: TMA boxes
-  int n_spec;    // prefetch codes 1..n_spec name weights pf_w[code - 1]
+  int depth;   // arena slots
+  int n_spec;  // prefetch codes 1..n_spec name weights pf_w[code - 1]
   int pf_w[kMaxW];
-  int* pf_stats;  // [fed, cold] matmul rows, counted by block (0, 0)
 };
 
 // S: the storage type, float or unsigned short (bf16 bits)
@@ -276,6 +274,9 @@ static_assert((1024 + 2 * 256 + 32 * kChunk + 96 + kWarps * 1024) * 4 <=
 __host__ __device__ constexpr size_t smem_bytes(int depth) {
   return kScratchBytes + 128 + size_t(kRingStages + depth) * (kStageBytes + 8);
 }
+static_assert(smem_bytes(kMaxDepth) <= kSmemMax &&
+                  smem_bytes(kMaxDepth + 1) > kSmemMax,
+              "kMaxDepth: the arena slots a block's shared memory holds");
 
 // weight rows of one stage of a tile tn columns wide: a multiple of 8
 // (a pass of `a` and its 16-byte loads stay aligned), at most a TMA box's
@@ -296,34 +297,33 @@ __host__ __device__ inline int box_cols(int tn) {
 
 // One matmul tile: column block `col` of W[layer] (TN columns) over its
 // rows [kb, kb + KR), in n_st stages of SR rows. A stage lands as TN / TB
-// boxes of (SR, TB), one after the other (TB = TN but for TMA boxes).
+// boxes of (SR, TB), one after the other (TB = TN when tile-major).
 template <typename S>
 struct MmTile {
-  const S* w;  // tile-major: the tile's (K, TN) block; row-major: W[0][c0]
-  int wi, layer, tiled, N, TN, KR, kb, c0, SR, TB, n_st;
+  const S* w;  // tile-major: the tile's (K, TN) block (row-major: unused)
+  int wi, layer, tiled, TN, KR, kb, c0, SR, TB, n_st;
 };
 
 template <typename S>
 __device__ __forceinline__ MmTile<S> mm_tile(const Params& p, int wi,
-                                             int layer, int K, int N, int TN,
+                                             int layer, int K, int TN,
                                              int split, int tile, int me) {
   MmTile<S> t;
   const int col = tile / split;
   t.wi = wi;
   t.layer = layer;
   t.tiled = p.w_tiled[wi];
-  t.N = N;
   t.TN = TN;
   t.KR = K / split;
   t.kb = (tile % split) * t.KR;
   t.c0 = col * TN;
   t.SR = stage_rows(TN, sizeof(S));
-  t.TB = (t.tiled || p.row_copy == 0) ? TN : box_cols(TN);
+  t.TB = t.tiled ? TN : box_cols(TN);
   t.n_st = (t.KR + t.SR - 1) / t.SR;
   // tile-major (L, n, N / TN, K, TN), mega/kernel.py w_tile_src
   const S* W = static_cast<const S*>(p.w[wi]) + layer * p.w_layer[wi] +
                me * p.w_rank[wi];
-  t.w = t.tiled ? W + size_t(col) * K * TN : W + t.c0;
+  t.w = W + size_t(col) * K * TN;
   return t;
 }
 
@@ -346,20 +346,12 @@ __device__ __forceinline__ void issue_stage(const Params& p,
       hopper::bulk_load(dst, t.w + size_t(t.kb + r0) * t.TN,
                         rows * row_bytes, bar);
     }
-  } else if (p.row_copy == 1) {  // whole boxes: rows past KR land unused
-    if (lane == 0) {
-      hopper::mbar_expect_tx(bar, t.SR * row_bytes);
-      for (int b = 0; b < t.TN / t.TB; ++b)
-        hopper::tma_load_3d(dst + b * t.SR * t.TB * sizeof(S), &p.maps[t.wi],
-                            bar, t.c0 + b * t.TB, t.kb + r0,
-                            t.layer * gridDim.y + me);
-    }
-  } else {  // a bulk copy a row, the rows over the warp's lanes
-    if (lane == 0) hopper::mbar_expect_tx(bar, rows * row_bytes);
-    __syncwarp();
-    for (int r = lane; r < rows; r += 32)
-      hopper::bulk_load(dst + r * row_bytes,
-                        t.w + size_t(t.kb + r0 + r) * t.N, row_bytes, bar);
+  } else if (lane == 0) {  // whole boxes: rows past KR land unused
+    hopper::mbar_expect_tx(bar, t.SR * row_bytes);
+    for (int b = 0; b < t.TN / t.TB; ++b)
+      hopper::tma_load_3d(dst + b * t.SR * t.TB * sizeof(S), &p.maps[t.wi],
+                          bar, t.c0 + b * t.TB, t.kb + r0,
+                          t.layer * gridDim.y + me);
   }
 }
 
@@ -380,7 +372,7 @@ struct Stream {
 template <typename S>
 __device__ __forceinline__ MmTile<S> row_tile(const Params& p, const int* q,
                                               int tile, int me) {
-  return mm_tile<S>(p, q[12], q[1], q[9], q[10], q[8], q[15], tile, me);
+  return mm_tile<S>(p, q[12], q[1], q[9], q[8], q[15], tile, me);
 }
 
 // 1 when the arena holds stage 0 of matmul row q's tile (the row's first)
@@ -440,8 +432,7 @@ __device__ void issue_hint(const Params& p, const int* q, int me,
   __syncthreads();  // the slot's last reads are done
   if (threadIdx.x < 32) {
     const MmTile<S> t = mm_tile<S>(p, wi, q[kIssueLayer], p.w_k[wi],
-                                   p.w_n[wi], p.w_tn[wi], split, blockIdx.x,
-                                   me);
+                                   p.w_tn[wi], split, blockIdx.x, me);
     const int s = q[kIssueSlot];
     issue_stage<S>(p, t, 0, me, arena + s * kStageBytes,
                    bars + 8 * (kRingStages + s));
@@ -610,13 +601,6 @@ __device__ void matmul_tile(const Params& p, int row, const MmTile<S>& t,
   const int spp = max(1, KC / SR);      // stages a pass of `a`
   // this thread's 16 bytes of a stage row: its box, then its column
   const int cofs = (cg * VEC) / TB * SR * TB + (cg * VEC) % TB;
-
-  if (tile == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
-    bool pf = false;  // the weight has a prefetch code
-    for (int c = 0; c < p.n_spec; ++c) pf |= p.pf_w[c] == t.wi;
-    if (f) ++p.pf_stats[0];
-    else if (pf) ++p.pf_stats[1];
-  }
 
   if (pro == 1) {  // rms factors of the B rows, over all of K
     float ss[BP];
@@ -1116,7 +1100,7 @@ cudaError_t launch(const Params& prm, int n, int bpr, int* info,
   return shmem::launch_world(kern, n, bpr, kThreads, smem, st, info, prm);
 }
 
-// row_copy 1: each row-major weight as a 3-D tensor map (planes L * n,
+// each row-major weight as a 3-D tensor map (planes L * n,
 // K, N) of (stage rows, box cols, 1) boxes, zero fill past K
 template <typename S>
 bool encode_maps(Params& p, int nw, const long long* planes) {
@@ -1181,9 +1165,7 @@ extern "C" int mega_launch(const long long* a, int n, int bpr, int dtype,
   p.partial_stride = a[A_PARTIAL_STRIDE];
   const int nw = int(a[A_NW]);
   p.depth = int(a[A_DEPTH]);
-  p.row_copy = int(a[A_ROW_COPY]);
   p.n_spec = int(a[A_NSPEC]);
-  p.pf_stats = reinterpret_cast<int*>(a[A_PF_STATS]);
   long long planes[kMaxW];
   for (int i = 0; i < kMaxW; ++i) {
     p.w[i] = i < nw ? reinterpret_cast<const void*>(a[A_W0 + i]) : nullptr;
@@ -1199,16 +1181,14 @@ extern "C" int mega_launch(const long long* a, int n, int bpr, int dtype,
   }
   if (n < 1 || bpr < 1 || p.batch < 1 || p.batch > 16 || nw > kMaxW ||
       p.depth < 1 || p.depth > kMaxDepth ||
-      smem_bytes(p.depth) > size_t(kSmemMax) || p.row_copy < 0 ||
-      p.row_copy > 1 || p.n_spec < 0 || p.n_spec > kMaxW || !p.pf_stats)
+      p.n_spec < 0 || p.n_spec > kMaxW)
     return int(cudaErrorInvalidValue);
   for (int c = 0; c < p.n_spec; ++c) {  // a prefetched weight's one tiling
     const int i = p.pf_w[c];
     if (i < 0 || i >= nw || p.w_tn[i] <= 0 || p.w_split[i] <= 0)
       return int(cudaErrorInvalidValue);
   }
-  if (p.row_copy == 1 &&
-      !(dtype == 1 ? encode_maps<unsigned short>(p, nw, planes)
+  if (!(dtype == 1 ? encode_maps<unsigned short>(p, nw, planes)
                    : encode_maps<float>(p, nw, planes)))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

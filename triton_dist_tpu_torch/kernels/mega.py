@@ -12,10 +12,8 @@ builds (kernel.py:980, launched at :1386).
 The kernel's arguments cross as one int64 array (`_ARGS` names the
 entries; csrc/mega.cu reads them by the same indices). A weight the
 queue takes tile-major (`cm.tiled`) must come as (L, n, N // tn, K, tn),
-every other as (L, n, K, N): any other layout raises, none is re-laid
-here. The kernel streams a row-major weight's stages as one bulk copy a
-row (ROW_COPY "bulk") or as TMA boxes ("tma"), both measured by
-tools/profile_mega.py.
+every other as (L, n, K, N), streamed as TMA boxes, so its matmuls must
+share one tiling: any other layout raises, none is re-laid here.
 """
 
 from __future__ import annotations
@@ -30,10 +28,6 @@ from triton_dist_tpu_torch.runtime.symm_mem import VirtualWorld
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WEIGHTS = 8
-ROW_COPIES = ("bulk", "tma")
-# TMA boxes: every row-major branch streamed 2-2.4x faster as boxes than
-# as a bulk copy a row (tools/profile_mega.py; PERF.md PR 23)
-ROW_COPY = "tma"
 _PER_WEIGHT = ("w", "w_layer", "w_rank", "w_tiled", "w_k", "w_n", "w_tn",
                "w_split", "w_planes", "pf_w")
 _ARGS = ("queue", "n_rows", "pos", "table", "maxp", "ws", "ws_rank",
@@ -41,7 +35,7 @@ _ARGS = ("queue", "n_rows", "pos", "table", "maxp", "ws", "ws_rank",
          "vpool", "hkv_tot", "n_pages", "page", "mbox", "mb_rank",
          "mb_task", "mb_src", "mb_w", "flags", "flag_stride",
          "barrier_flag", "partial", "partial_stride", "n_w", "depth",
-         "row_copy", "n_spec", "pf_stats",
+         "n_spec",
          *(f"{k}{i}" for k in _PER_WEIGHT for i in range(MAX_WEIGHTS)))
 _SIGNATURES = {
     "mega_launch": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_int,
@@ -78,8 +72,6 @@ def _launch(cm, pos, table, ws, weights, norms, rope_cs, k_pool, v_pool):
           and ws.is_contiguous(), f"workspace {tuple(ws.shape)}")
     names = cm.weight_names
     _need(len(names) <= MAX_WEIGHTS, f"{len(names)} weights")
-    _need(ROW_COPY in ROW_COPIES, f"ROW_COPY {ROW_COPY!r}: one of "
-          f"{ROW_COPIES}")
     for name in names:
         w = weights[name]
         want = cm.weight_shape(name, w.shape[0])
@@ -88,8 +80,7 @@ def _launch(cm, pos, table, ws, weights, norms, rope_cs, k_pool, v_pool):
               and w.dim() == len(want) and w.shape[1] == n,
               f"weight {name} {tuple(w.shape)} {w.dtype}: the queue takes "
               f"it as {want}")
-        _need(ROW_COPY != "tma" or name in cm.tiled
-              or cm.w_geom[name] is not None,
+        _need(name in cm.tiled or cm.w_geom[name] is not None,
               f"weight {name}: TMA boxes need one tiling of its matmuls")
     _need(norms.dtype == torch.float32 and norms.is_contiguous()
           and norms.shape[1] == cm.norm_width, "norms (rows, norm_width) f32")
@@ -131,9 +122,7 @@ def _launch(cm, pos, table, ws, weights, norms, rope_cs, k_pool, v_pool):
              flags=flags.data_ptr(), flag_stride=cm.n_flags,
              barrier_flag=cm.n_flags - 1, partial=partial.data_ptr(),
              partial_stride=partial.shape[1], n_w=len(names),
-             depth=cm.pf_depth, row_copy=ROW_COPIES.index(ROW_COPY),
-             n_spec=len(cm.prefetch.specs),
-             pf_stats=cm.stats_on(dev).data_ptr())
+             depth=cm.pf_depth, n_spec=len(cm.prefetch.specs))
     for i, name in enumerate(names):
         w = weights[name]
         geom = cm.w_geom[name] or (0, 0, 0, 0)

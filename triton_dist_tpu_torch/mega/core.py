@@ -35,9 +35,10 @@ SMEM_BYTES = 232448          # an H100 block's opt-in maximum (227 KB)
 SCRATCH_BYTES = 66560
 STAGE_BYTES = 32768
 RING_STAGES = 3
-ARENA_BYTES = (SMEM_BYTES - SCRATCH_BYTES - 128 - RING_STAGES * STAGE_BYTES
-               - 8 * (RING_STAGES + 4))
-MAX_PF_DEPTH = min(4, ARENA_BYTES // STAGE_BYTES)  # arena slots that fit
+# what the ring leaves: each stage brings its 8-byte mbarrier
+ARENA_BYTES = (SMEM_BYTES - SCRATCH_BYTES - 128
+               - RING_STAGES * (STAGE_BYTES + 8))
+MAX_PF_DEPTH = ARENA_BYTES // (STAGE_BYTES + 8)  # arena slots that fit: 2
 assert MAX_PF_DEPTH >= 2, "the arena must hold auto_pf_depth's floor of 2"
 
 # columns of a matmul or elementwise tile are a multiple of this: one

@@ -171,8 +171,6 @@ class CompiledMega:
     w_geom: Dict[str, Any] = dataclasses.field(default_factory=dict)
     _dev_queue: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
-    _stats: Dict[str, torch.Tensor] = dataclasses.field(
-        default_factory=dict, repr=False)
 
     @property
     def pf_depth(self) -> int:
@@ -195,26 +193,25 @@ class CompiledMega:
             return (layers, self.world, g[1] // tn, g[0], tn)
         return (layers, self.world, *(g[:2] if g else (None, None)))
 
-    def stats_on(self, device) -> torch.Tensor:
-        """(2,) int32 on `device`, [fed, cold]: the matmul rows whose first
-        stage the kernel took from an arena slot, and the prefetchable
-        ones it opened cold, as block 0 of rank 0 saw them, summed over
-        every launch of this queue on the device."""
-        dev = torch.device(device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        key = str(dev)
-        t = self._stats.get(key)
-        if t is None:
-            t = torch.zeros(2, dtype=torch.int32, device=device)
-            self._stats[key] = t
-        return t
-
     def plan_counts(self) -> tuple:
         """(fed, cold) matmul rows of one step, by the plan."""
         if self.prefetch is None:
             return 0, 0
         return len(self.prefetch.fed()), len(self.prefetch.cold)
+
+    def queue_counts(self, queue=None) -> tuple:
+        """(fed, cold) matmul rows of one step, as the hint columns of
+        `queue` (default this queue; a copy read back from a device to
+        check what the kernel reads) say: rows that take their first
+        stage from an arena slot, and rows of a prefetched weight that
+        open cold."""
+        q = self.queue if queue is None else np.asarray(queue)
+        mm = q[:, 0] == OPS.index("matmul")
+        fed = mm & (q[:, HINT.stop - 1] != 0)
+        specs = self.prefetch.specs if self.prefetch is not None else []
+        pf = [self.weight_names.index(s[0]) for s in specs]
+        cold = mm & ~fed & np.isin(q[:, 12], pf)
+        return int(fed.sum()), int(cold.sum())
 
     def workspace(self, device) -> torch.Tensor:
         """(n ranks, n_slots, pb, wmax): rank r's slot s is [r, s]."""

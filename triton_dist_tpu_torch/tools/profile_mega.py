@@ -2,9 +2,8 @@
 what the weight pipeline does to it.
 
     python -m triton_dist_tpu_torch.tools.profile_mega [--world N]
-        [--batch B] [--context T] [--depths 1,2,auto]
-        [--row-copy bulk,tma] [--kinds qkv,o,gate_up,down,attention,
-        allreduce_add] [--no-step] [--json PATH]
+        [--batch B] [--context T] [--depths 1,auto] [--kinds qkv,o,
+        gate_up,down,attention,allreduce_add] [--no-step] [--json PATH]
 
 At the Qwen3-8B widths a rank sees at world N (bf16, random inputs from
 seed 0), builds one graph a branch kind with one task a layer (36), each
@@ -16,14 +15,16 @@ positions a sequence, and the allreduce_add. Each kind runs twice: its
 the time is the branch's own rate) and chained (each task waits on the
 one before, as in the step: the difference over 36 is the hand-off cost
 a task). A matmul kind runs at each prefetch arena depth of --depths
-(`schedule_graph(pf_depth=)`; "auto" is auto_pf_depth), its row-major
-weight streamed as each --row-copy form (kernels/mega.py ROW_COPY: a bulk
-copy a row, or TMA boxes), and [gate|up] also tile-major
+(`schedule_graph(pf_depth=)`; "auto" is auto_pf_depth), its weight
+row-major (TMA boxes), and [gate|up] also tile-major
 (compile_graph(tiled_weights=), as MegaQwen3 lays it out). Then the
-whole MegaQwen3 step at the same batch and context, at each row-copy
-form. Prints device ms a launch (CUDA events over 10 launches, after one
-warm-up), the bytes each launch must move, the rate and the bound at
-3.35 TB/s; --json writes the same rows. Needs a CUDA card.
+whole MegaQwen3 step at the same batch and context, replayed, with its
+gate|up tile-major as MegaQwen3 lays it out and row-major (the queue
+recompiled with no tiled weight, the same weights untiled), in the
+order tile-major, row-major, row-major, tile-major. Prints device ms a
+launch (CUDA events over 10 launches, after one warm-up), the bytes
+each launch must move, the rate and the bound at 3.35 TB/s; --json
+writes the same rows. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ import json
 
 import torch
 
-from triton_dist_tpu_torch.kernels import mega as kmega
 from triton_dist_tpu_torch.mega.builder import ModelBuilder
 from triton_dist_tpu_torch.mega.kernel import (
     blocks_per_rank,
@@ -148,13 +148,13 @@ def _time(fn):
     return a.elapsed_time(b) / REPS
 
 
-def _variants(kind, depths, row_copies):
-    """(layout, row copy, depth) of each run of a kind."""
+def _variants(kind, depths):
+    """(layout, depth) of each run of a kind."""
     if kind not in MATMULS:
-        return [("-", "-", None)]
-    out = [("row-major", rc, d) for rc in row_copies for d in depths]
+        return [("-", None)]
+    out = [("row-major", d) for d in depths]
     if kind == "gate_up":
-        out += [("tiled", "-", d) for d in depths]
+        out += [("tiled", d) for d in depths]
     return out
 
 
@@ -163,7 +163,7 @@ def _run_kind(kind, cfg, args, dev, blocks, rows):
     weights = _weights(kind, cfg, w, dev)
     tiled_w = {}
     nbytes = _bytes(kind, weights, cfg, w, b, ctx)
-    for layout, rc, depth in _variants(kind, args.depths, args.row_copy):
+    for layout, depth in _variants(kind, args.depths):
         res = {}
         for chained in (False, True):
             g = _graph(kind, cfg, w, b, chained)
@@ -180,13 +180,12 @@ def _run_kind(kind, cfg, args, dev, blocks, rows):
                 ws_in[name] = tiled_w[name]
             pos, table, ws, norms, rope, kp, vp = _inputs(cm, cfg, w, b, ctx,
                                                           dev)
-            kmega.ROW_COPY = rc if rc != "-" else args.row_copy[0]
             res[chained] = _time(lambda: cm.run(pos, table, ws, ws_in,
                                                 norms, rope, kp, vp))
             del ws, kp, vp
         fed, cold = cm.plan_counts()
         ind, chn = res[False], res[True]
-        row = dict(kind=kind, layout=layout, row_copy=rc,
+        row = dict(kind=kind, layout=layout,
                    depth=cm.pf_depth if kind in MATMULS else None,
                    fed=fed, cold=cold, tiles=int(cm.queue[1, 7]),
                    tile=list(next(iter(cm.mm_tiles.values()), (0, 0))),
@@ -196,7 +195,7 @@ def _run_kind(kind, cfg, args, dev, blocks, rows):
                    tbps_chained=nbytes / (chn * 1e-3) / 1e12,
                    bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
         rows.append(row)
-        print(f"  {kind:13s} {layout:9s} {rc:4s} depth {row['depth']} "
+        print(f"  {kind:13s} {layout:9s} depth {row['depth']} "
               f"({fed} fed, {cold} cold), 36 tasks of {row['tiles']} tiles "
               f"{row['tile']}: independent {ind:.4f} ms, chained "
               f"{chn:.4f} ms (+{row['handoff_us']:.2f} us a task); "
@@ -207,13 +206,45 @@ def _run_kind(kind, cfg, args, dev, blocks, rows):
     torch.cuda.empty_cache()
 
 
+def _untile(w):
+    """(L, n, N // tn, K, tn) tile-major -> (L, n, K, N) row-major."""
+    L, n, nt, k, tn = w.shape
+    return w.permute(0, 1, 3, 2, 4).reshape(L, n, k, nt * tn).contiguous()
+
+
+def _time_steps(cfg, w, b, ctx, dev):
+    """The replayed MegaQwen3 step with gate|up tile-major (as the model
+    lays it out) and row-major, in the order tiled, row-major, row-major,
+    tiled; one row each."""
+    mega = MegaQwen3(cfg, world=w, batch=b, s_max=1024, device=dev)
+    tiled_cm, tiled_w = mega.cm, mega._weights["w_gate_up"]
+    row_cm = compile_graph(mega.graph, mega.sched, mega.dtype,
+                           blocks=tiled_cm.blocks, world=w)
+    row_w = _untile(tiled_w)
+    cache = mega.new_cache()
+    tok = torch.zeros(b, dtype=torch.int64, device=dev)
+    steps = []
+    for layout in ("tiled", "row-major", "row-major", "tiled"):
+        mega.cm, mega._weights["w_gate_up"] = (
+            (tiled_cm, tiled_w) if layout == "tiled" else (row_cm, row_w))
+        mega.graphs.graphs.clear()  # a capture holds its queue and weights
+        ms = _time(lambda: mega.decode_step(
+            tok, cache._replace(length=torch.full_like(cache.length, ctx))))
+        fed, cold = mega.cm.plan_counts()
+        steps.append(dict(gate_up=layout, step_ms=ms, depth=mega.cm.pf_depth,
+                          fed=fed, cold=cold))
+        print(f"  whole decode step (MegaQwen3, gate|up {layout}, depth "
+              f"{mega.cm.pf_depth}, {fed} fed, {cold} cold): {ms:.4f} ms",
+              flush=True)
+    return steps
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--world", type=int, default=1)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--context", type=int, default=136)
-    ap.add_argument("--depths", default="1,2,auto")
-    ap.add_argument("--row-copy", default=",".join(kmega.ROW_COPIES))
+    ap.add_argument("--depths", default="1,auto")
     ap.add_argument("--kinds", default="qkv,o,gate_up,down,attention,"
                     "allreduce_add")
     ap.add_argument("--no-step", action="store_true")
@@ -221,7 +252,6 @@ def main() -> None:
     args = ap.parse_args()
     args.depths = [None if d == "auto" else int(d)
                    for d in args.depths.split(",")]
-    args.row_copy = args.row_copy.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("profile_mega needs a CUDA card")
     dev = torch.device("cuda")
@@ -234,21 +264,7 @@ def main() -> None:
     for kind in args.kinds.split(","):
         _run_kind(kind, cfg, args, dev, blocks, rows)
     if not args.no_step:
-        mega = MegaQwen3(cfg, world=w, batch=b, s_max=1024, device=dev)
-        cache = mega.new_cache()
-        tok = torch.zeros(b, dtype=torch.int64, device=dev)
-        for rc in args.row_copy:
-            kmega.ROW_COPY = rc
-            mega.graphs.graphs.clear()  # a capture holds its arguments
-            ms = _time(lambda: mega.decode_step(
-                tok, cache._replace(length=torch.full_like(cache.length,
-                                                           ctx))))
-            fed, cold = mega.cm.plan_counts()
-            steps.append(dict(row_copy=rc, step_ms=ms,
-                              depth=mega.cm.pf_depth, fed=fed, cold=cold))
-            print(f"  whole decode step (MegaQwen3, {rc} rows, depth "
-                  f"{mega.cm.pf_depth}, {fed} fed, {cold} cold): {ms:.4f} ms",
-                  flush=True)
+        steps = _time_steps(cfg, w, b, ctx, dev)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=torch.cuda.get_device_name(0), world=w,
