@@ -84,10 +84,27 @@ outside a checkout of the repository. Phases, each fatal on failure:
      ways, windows and their lengths, live and dead steps, an all-dead
      window's ms, capture s and pool bytes of each window length's
      graph, peak GB; ring_boundary / ring_emit bitwise their plain
-     versions on the recorded window inputs and 200 random states,
-     sample_slots tokens equal and its keys and random bits bitwise at
-     the vocabulary; each timed beside its bound and plain version
+     versions on the recorded window inputs and 200 random states
+     (half their admissions with a prefix-cache hit), sample_slots
+     tokens equal and its keys and random bits bitwise at the
+     vocabulary; each timed beside its bound and plain version
      (sample_slots also beside torch.multinomial);
+  4h. the prefix cache, after 4r, on phase 4's world-1 weights: one
+     512-token system prompt drawn from the seed and 8 requests behind
+     it (suffixes of 32-160 tokens, 16 new tokens each, two sampled at
+     T 0.9), wave 1 request 0 alone, wave 2 the other 7 together, on
+     one Engine (Qwen3-8B, 36 layers, world 1; then world 4 `ar` on a
+     4-layer draw of its widths) three ways: the cache off (the
+     oracle), Scheduler(prefix_cache=True, prefix_block=64) in the host
+     loop, and the same with resident=True, window=16; each way a first
+     run (its captures) and a timed run whose launches are pinned; every
+     stream of the cached runs bitwise the oracle's, each wave-2 request
+     a hit of 512 tokens (7 hits, 1 miss), the pool's and the trie's
+     invariants after each run; wave 2's TTFT p50 / p99, serve steps,
+     prefill chunk steps, tokens/s, hits, misses, pages shared, free
+     pages and peak GB each way; ring_boundary / ring_emit bitwise their
+     plain versions on the resident run's recorded windows (the wave-2
+     admissions carry IR_PREFIX 512) and 50 random states;
   4m. the fifth path, between the world-1 and world-4 Qwen3-8B runs of
      phase 4, on the same weights: the decode megakernel. The Engine's
      4 x 128 prefill, then 16 greedy steps of MegaQwen3, one `mega`
@@ -5154,9 +5171,9 @@ def sched_prompts(cfg):
 
 
 def ring_case(rng, geo, cap, rw):
-    """A random window state the loop can meet: a ring of admissions,
-    retirements (matching and stale), no-ops and torn records under
-    at_step gates, and a state block (header counters, slot states with
+    """A random window state the loop can meet: a ring of admissions (half
+    of them with a prefix-cache hit), retirements (matching and stale),
+    no-ops and torn records under at_step gates, and a state block (header counters, slot states with
     prefill positions inside their prompts, table, lengths, some output
     records). Returns (ring (cap, rw), block (words,)) int32 numpy."""
     import numpy as np
@@ -5177,12 +5194,16 @@ def ring_case(rng, geo, cap, rw):
         r[mring.IR_KIND] = rng.choice([0, 1, 1, 1, 2, 2, 3])
         r[mring.IR_SLOT] = rng.integers(0, K)
         r[mring.IR_AT_STEP] = rng.integers(0, 12)
-        r[mring.IR_PROMPT_LEN] = rng.integers(1, prompt_cap + 1)
+        plen = int(rng.integers(1, prompt_cap + 1))
+        r[mring.IR_PROMPT_LEN] = plen
         r[mring.IR_MAX_NEW] = rng.integers(1, 20)
         r[mring.IR_TEMP_BITS] = np.float32(rng.choice([0.0, 0.7, 1.3])).view(
             np.int32)
         r[mring.IR_EOS] = rng.integers(0, 3)
-        r[mring.IR_PREFIX] = 0
+        # half the admissions a prefix-cache hit: a block (chunk) multiple
+        # below the prompt length
+        r[mring.IR_PREFIX] = (C * rng.integers(0, (plen - 1) // C + 1)
+                              if rng.random() < 0.5 else 0)
         r[mring.IR_REQID] = rng.integers(0, 8)
         r[mring.IR_NOUT] = rng.integers(0, 20)
         r[mring.IR_SPEC_K] = rng.integers(1, 4)
@@ -5706,6 +5727,266 @@ def run_resident_phase(kernels, cfg, params):
     return runs, errs, numbers
 
 
+# -- phase 4h: the prefix cache -----------------------------------------------
+
+PREFIX_LEN = 512        # the shared system prompt's tokens
+# each request's own suffix after it: request 0 is wave 1, the rest wave 2
+PREFIX_SUFFIXES = (32, 64, 96, 128, 160, 48, 80, 112)
+PREFIX_GEN = 16
+PREFIX_BLOCK = 64       # tokens a trie node: one page
+PREFIX_SAMPLED = {2: 1002, 5: 1005}  # request -> seed, at PREFIX_TEMP
+PREFIX_TEMP = 0.9
+# the runs' Scheduler arguments: the cache off (the oracle), the cache in
+# the host loop, the cache in windows of RES_WINDOW
+PREFIX_RUNS = {
+    "cold": {},
+    "host": dict(prefix_cache=True, prefix_block=PREFIX_BLOCK),
+    "resident": dict(prefix_cache=True, prefix_block=PREFIX_BLOCK,
+                     resident=True, window=RES_WINDOW)}
+
+
+def prefix_prompts(cfg):
+    """Phase 4h's traffic: one PREFIX_LEN-token system prompt drawn from
+    the seed, each request's distinct suffix after it."""
+    import numpy as np
+
+    rng = np.random.default_rng(24)
+    prefix = rng.integers(0, cfg.vocab_size, PREFIX_LEN).tolist()
+    return [prefix + rng.integers(0, cfg.vocab_size, n).tolist()
+            for n in PREFIX_SUFFIXES]
+
+
+def prefix_traffic(eng, prompts, run, wrap=None):
+    """Wave 1 (request 0 alone, run to its end), then wave 2 (the other
+    requests, submitted together) through one Scheduler on eng, two of
+    them sampled. Returns (scheduler, requests, numbers): walls, tokens/s,
+    wave 2's TTFT p50 / p99 (`summarize`), serve steps (wave 2's too),
+    each request's prefill chunk steps and prefix_len, the cache's
+    counters, free pages and peak GB."""
+    import torch
+
+    from triton_dist_tpu_torch.serve import Scheduler, summarize
+
+    sch = Scheduler(eng, **RES_GEO, **PREFIX_RUNS[run])
+    if wrap is not None:
+        sch.worker._fn = wrap(sch.worker._fn)
+
+    def submit(i):
+        seed = PREFIX_SAMPLED.get(i)
+        return sch.submit(prompts[i], PREFIX_GEN,
+                          temperature=0.0 if seed is None else PREFIX_TEMP,
+                          seed=seed or 0)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [submit(0)]
+    sch.run()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    steps1 = sch.counters["steps"]
+    reqs += [submit(i) for i in range(1, len(prompts))]
+    sch.run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    wave = summarize(reqs[1:])
+    m = sch.metrics()
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    row = dict(
+        wall_s=t2 - t0, wave2_wall_s=t2 - t1, tokens_per_s=tokens / (t2 - t0),
+        wave2_tokens_per_s=wave["tokens_per_s"],
+        wave2_ttft_p50_ms=wave["ttft_p50_us"] / 1e3,
+        wave2_ttft_p99_ms=wave["ttft_p99_us"] / 1e3,
+        steps=m["steps"], wave2_steps=m["steps"] - steps1,
+        prefill_chunks=[r.n_prefill_chunks for r in reqs],
+        wave2_prefill_chunk_steps=sum(r.n_prefill_chunks for r in reqs[1:]),
+        prefix_len=[r.prefix_len for r in reqs],
+        hits=m["prefix_hits"], misses=m["prefix_misses"],
+        pages_shared=m["prefix_pages_shared"], blocks=m["prefix_blocks"],
+        free_pages=m["pool_free_pages"],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if run == "resident":
+        w = sch.worker
+        row.update(windows=w.n_windows, windows_by_steps=dict(
+            w.windows_by_steps), dead_steps=sum(
+            k * v for k, v in w.windows_by_steps.items()) - w.n_steps)
+    return sch, reqs, row
+
+
+def check_prefix_run(sch, reqs, row, run, label):
+    """A phase-4h run's own checks: every request answered, the pool's and
+    the trie's invariants, and with the cache on, request 0 a miss and
+    every wave-2 request a hit of the whole system prompt."""
+    if not all(len(r.out_tokens) == PREFIX_GEN and r.finish_reason == "length"
+               for r in reqs):
+        raise AssertionError(f"{label} {run}: a request was not answered")
+    sch.pool.check()
+    if sch.prefix is not None:
+        sch.prefix.check()
+    want = ([0] * len(reqs) if run == "cold"
+            else [0] + [PREFIX_LEN] * (len(reqs) - 1))
+    if row["prefix_len"] != want:
+        raise AssertionError(f"{label} {run}: prefix_len {row['prefix_len']}"
+                             f", want {want}")
+    hits = (0, 0) if run == "cold" else (len(reqs) - 1, 1)
+    if (row["hits"], row["misses"]) != hits:
+        raise AssertionError(f"{label} {run}: {row['hits']} hits and "
+                             f"{row['misses']} misses, want {hits}")
+
+
+def run_prefix(kernels, cfg, params, world, mode, label, record=False,
+               device="cuda"):
+    """Phase 4h at `world` in `mode`: the shared-prompt traffic through
+    three Schedulers on one Engine, the cache off (the oracle), on in the
+    host loop (replayed steps) and on in the resident loop. Each run goes
+    once to capture the graphs its steps need (the resident one records
+    its window inputs when `record`), then once timed with every launch
+    counted from 0: the host loop's held to its steps, the resident
+    loop's to its windows, as phases 4 and 4r hold theirs. Every stream
+    of runs 2 and 3, greedy and sampled, is bitwise run 1's. Returns
+    ({path: launches}, recorded window inputs, {run: numbers})."""
+    from triton_dist_tpu_torch.models import Engine
+
+    eng = Engine(cfg, device=device, params=params, max_len=MAX_LEN,
+                 world=world, decode_mode=mode)
+    prompts = prefix_prompts(cfg)
+    recorded = []
+
+    def recorder(loop):
+        rec = RecordingLoop(loop)
+        recorded.append(rec)
+        return rec
+
+    rows, paths, streams = {}, {}, {}
+    tag = f"world{world}" + ("" if world == 1 else f"_{mode}")
+    for run in PREFIX_RUNS:
+        wrap = recorder if record and run == "resident" else None
+        sch, reqs, row0 = prefix_traffic(eng, prompts, run, wrap)
+        check_prefix_run(sch, reqs, row0, run, label)
+        warm = [r.out_tokens for r in reqs]
+        del sch, reqs
+        made = eng.serve_graphs.made
+        kernels.reset_launches()
+        sch, reqs, row = prefix_traffic(eng, prompts, run)
+        n = kernels.launches()
+        check_prefix_run(sch, reqs, row, run, label)
+        streams[run] = [r.out_tokens for r in reqs]
+        if streams[run] != warm or streams[run] != streams["cold"]:
+            bad = [i for i, (a, b) in enumerate(zip(streams[run],
+                                                    streams["cold"]))
+                   if a != b]
+            raise AssertionError(f"{label} {run}: the streams of requests "
+                                 f"{bad} differ from the cold run's (or "
+                                 "from their own first run)")
+        if run == "resident":
+            w = sch.worker
+            loop = eng.resident_loops[next(iter(eng.resident_loops))]
+            want = {name: 0 for name in kernel_names()}
+            for steps, runs in w.windows_by_steps.items():
+                if steps not in loop.graphs:
+                    raise AssertionError(f"{label}: a window of {steps} steps "
+                                         "was captured in the timed run")
+                for k, v in resident_window_launches(cfg, world, mode,
+                                                     steps).items():
+                    want[k] += v * runs
+        else:
+            if eng.serve_graphs.made != made:
+                raise AssertionError(f"{label} {run}: a serve step was "
+                                     "captured in the timed run")
+            want = want_launches(cfg.num_layers, world, "dist", mode, 0,
+                                 sch.worker.n_steps)[1]
+        if n != want:
+            raise AssertionError(f"{label} {run}: launches {n}, want {want}")
+        if run != "cold":
+            paths[f"prefix_{run}_{tag}"] = n
+        row["launches"] = {k: v for k, v in n.items() if v}
+        rows[run] = row
+        log(f"  4h {label} {run}: wave 2 TTFT p50 {row['wave2_ttft_p50_ms']:.1f}"
+            f" ms, p99 {row['wave2_ttft_p99_ms']:.1f} ms; wave 2 "
+            f"{row['wave2_steps']} serve steps, {row['wave2_prefill_chunk_steps']}"
+            f" prefill chunk steps ({row['prefill_chunks'][1:]}); all "
+            f"{row['steps']} steps, {row['tokens_per_s']:.2f} tokens/s "
+            f"({row['wall_s']:.3f} s); hits {row['hits']}, misses "
+            f"{row['misses']}, pages shared {row['pages_shared']}, blocks "
+            f"{row['blocks']}; free pages {row['free_pages']}; peak "
+            f"{row['peak_gb']:.2f} GB"
+            + (f"; {row['windows']} windows {row['windows_by_steps']}, "
+               f"{row['dead_steps']} dead steps" if run == "resident" else "")
+            + f"; launches {row['launches']}; {card_line()}")
+        del sch, reqs
+    log(f"  4h {label}: the host and resident streams bitwise the cold "
+        f"run's ({len(prompts)} requests, {len(PREFIX_SAMPLED)} sampled), "
+        f"each wave-2 request a hit of {PREFIX_LEN} tokens")
+    inputs = recorded[0].inputs if recorded else []
+    del eng, recorded
+    gc.collect()
+    return paths, inputs, rows
+
+
+def check_prefix_records(recorded):
+    """How many recorded window inputs hold a pending admission with a
+    prefix (IR_PREFIX > 0) at their first boundary."""
+    from triton_dist_tpu_torch.kernels import ring as kring
+    from triton_dist_tpu_torch.mega import ring as mring
+
+    hits = 0
+    for ring, blk in recorded:
+        cap = ring.shape[0]
+        for i in range(int(blk[kring.H_CONSUMED]),
+                       int(blk[kring.H_PUBLISHED])):
+            r = ring[i % cap]
+            hits += int(r[mring.IR_KIND] == mring.KIND_ADMIT
+                        and r[mring.IR_PREFIX] > 0)
+    return hits
+
+
+def run_prefix_phase(kernels, cfg, params):
+    """Phase 4h: the prefix cache at Qwen3-8B world 1, full depth (the
+    resident run's window inputs recorded), then world 4 `ar` on a
+    RES_SMALL_LAYERS-layer draw of the same widths; ring_boundary /
+    ring_emit against their plain versions on the recorded windows (the
+    wave-2 admissions carry IR_PREFIX = PREFIX_LEN) and on random states
+    whose admissions carry prefixes. Returns ({path: launches},
+    numbers)."""
+    import dataclasses
+
+    import torch
+
+    from triton_dist_tpu_torch.kernels import ring as kring
+    from triton_dist_tpu_torch.mega import ring as mring
+    from triton_dist_tpu_torch.models.dense import init_params
+
+    paths, recorded, rows1 = run_prefix(kernels, cfg, params, 1, "ar",
+                                        "Qwen3-8B world 1", record=True)
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(cfg, num_layers=RES_SMALL_LAYERS)
+    p4 = init_params(small, device="cuda", seed=1, world=4)
+    p, _, rows4 = run_prefix(kernels, small, p4, 4, "ar",
+                             f"Qwen3-8B widths, {RES_SMALL_LAYERS} layers, "
+                             "world 4 ar")
+    paths.update(p)
+    del p4
+    torch.cuda.empty_cache()
+    with_prefix = check_prefix_records(recorded)
+    if with_prefix == 0:
+        raise AssertionError("4h: no recorded window holds an admission with "
+                             "a prefix")
+    max_pages = MAX_LEN // RES_GEO["page"]
+    cap = max(4 * RES_GEO["slots"], 16)
+    geo = kring.WindowGeometry(RES_GEO["slots"], RES_GEO["chunk"], max_pages,
+                               RES_WINDOW * RES_GEO["slots"] + cap,
+                               RES_WINDOW, 8)
+    rw = mring.ring_width(max_pages, MAX_LEN, RES_GEO["chunk"])
+    cases = check_ring_kernels(recorded, geo, cap, rw, cfg.vocab_size,
+                               n_random=RING_CASES // 4)
+    numbers = {"world 1": rows1, "world 4 ar": rows4, "ring_cases": cases,
+               "recorded_prefix_admissions": with_prefix}
+    log("  4h prefix cache: " + json.dumps(numbers))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, numbers
+
+
 SOURCES = {
     "mega": ("triton_dist_tpu_torch/csrc/mega.cu",
              "triton_dist_tpu/mega/kernel.py:1192"),
@@ -6062,6 +6343,11 @@ def main() -> int:
         f"at {RES_SMALL_LAYERS} layers; the ring kernels and the sampler "
         "against their plain versions")
     nres, res_errs, res_numbers = run_resident_phase(kernels, cfg, params)
+    log("== 4h. the prefix cache: one shared 512-token system prompt, 8 "
+        "requests in two waves, the cache off, in the host loop and in the "
+        f"resident loop; Qwen3-8B world 1 at full depth, world 4 ar at "
+        f"{RES_SMALL_LAYERS} layers")
+    nprefix, prefix_numbers = run_prefix_phase(kernels, cfg, params)
     # the same weights laid out for 4 ranks; the world-1 engine is gone
     params = shard_params(params, 4)
     torch.cuda.empty_cache()
@@ -6142,7 +6428,7 @@ def main() -> int:
     paths = {"world1": n1, "world4_ar": n4, "world4_dist": nd,
              "world4_moe": nm, "mega_world1": nm1, "mega_world4": nm4,
              "sp_world4": nsp, "ep_world4": nep, "pp_world4": npp,
-             "coll_world4": ncoll, "wire_world4": nwire, **nres}
+             "coll_world4": ncoll, "wire_world4": nwire, **nres, **nprefix}
 
     def by_path(name):
         return {k: v[name] for k, v in paths.items()}
@@ -6265,7 +6551,7 @@ def main() -> int:
                     "mega": dict(mega_rows, batch1=mega_b1),
                     "sp": sp_numbers, "ep": ep_numbers, "pp": pp_numbers,
                     "coll": coll_numbers, "wire": wire_numbers,
-                    "resident": res_numbers}))
+                    "resident": res_numbers, "prefix": prefix_numbers}))
     print(json.dumps({"kernels": lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

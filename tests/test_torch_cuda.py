@@ -3164,6 +3164,41 @@ def test_resident_window_bitwise_host_loop(cuda, world, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("world,mode", [(1, "ar"), (4, "ar")])
+def test_prefix_hits_bitwise_cold_on_card(cuda, world, mode):
+    """The prefix cache on the card: a shared 32-token prefix, request 0
+    alone, then four more behind it (two sampled); the cache off on the
+    eager and the graph-replaying Engine, then on (block 16) in the
+    replayed host loop and in resident windows of 4: every stream bitwise
+    the eager cold run's, each later request a hit of 32 tokens, the pool
+    and trie invariants after each run."""
+    from triton_dist_tpu_torch.serve import Scheduler
+
+    graph, eager = _engines(world, decode_mode=mode)
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(0, 256, 32).tolist()
+    prompts = [prefix + rng.integers(0, 256, n).tolist()
+               for n in (5, 17, 9, 30, 1)]
+    cache = dict(prefix_cache=True, prefix_block=16)
+    outs = []
+    for eng, kw in ((eager, {}), (graph, {}), (graph, cache),
+                    (graph, dict(cache, resident=True, window=4))):
+        sch = Scheduler(eng, slots=4, chunk=16, page=16, **kw)
+        reqs = [sch.submit(prompts[0], 6)]
+        sch.run()
+        reqs += [sch.submit(p, 6, temperature=0.7 if i % 2 else 0.0, seed=i)
+                 for i, p in enumerate(prompts[1:], 1)]
+        sch.run()
+        outs.append([r.out_tokens for r in reqs])
+        sch.pool.check()
+        if kw:
+            sch.prefix.check()
+            assert [r.prefix_len for r in reqs] == [0, 32, 32, 32, 32]
+            assert sch.metrics()["prefix_hits"] == 4
+    assert outs[0] == outs[1] == outs[2] == outs[3]
+
+
+@pytest.mark.cuda
 def test_donate_cache_false_replay_leaves_the_cache(cuda):
     """Fault 3.7 on the card: a graph-replaying Engine with
     donate_cache=False steps a copy, so one cache stepped twice from its

@@ -289,9 +289,10 @@ def test_sample_kernel_splits_rows_over_the_sms(rows, v, parts):
 
 
 def _random_ring_state(rng, cap=6, K=3, maxp=4, prompt_cap=12, chunk=4):
-    """A ring with admissions, retirements (matching and stale), verify
-    records, a no-op, at_step gates and an uncommitted tail; and slot
-    states in the loop's own domain."""
+    """A ring with admissions (half of them a prefix-cache hit: IR_PREFIX
+    a multiple of the chunk below the prompt length), retirements
+    (matching and stale), verify records, a no-op, at_step gates and an
+    uncommitted tail; and slot states in the loop's own domain."""
     width = pring.ring_width(maxp, prompt_cap, chunk)
     ring = np.zeros((cap, width), np.int32)
     consumed = int(rng.integers(0, 20))
@@ -325,8 +326,10 @@ def _random_ring_state(rng, cap=6, K=3, maxp=4, prompt_cap=12, chunk=4):
         r[pring.IR_KIND] = rng.choice([0, 1, 1, 2, 2, 3])
         r[pring.IR_SLOT] = rng.integers(0, K)
         r[pring.IR_AT_STEP] = rng.integers(0, 6)
-        r[pring.IR_PROMPT_LEN] = rng.integers(1, prompt_cap + 1)
-        r[pring.IR_PREFIX] = 0
+        plen = int(rng.integers(1, prompt_cap + 1))
+        r[pring.IR_PROMPT_LEN] = plen
+        r[pring.IR_PREFIX] = (chunk * rng.integers(0, (plen - 1) // chunk + 1)
+                              if rng.random() < 0.5 else 0)
         r[pring.IR_REQID] = rng.integers(0, 6)
         r[pring.IR_NOUT] = rng.integers(0, 8)
         r[pring.IR_SPEC_K] = rng.integers(1, 3)
@@ -368,6 +371,53 @@ def test_device_consume_and_slot_plan_bitwise_jax(seed):
                 g, w = g.view(np.int32), w.view(np.int32)
             np.testing.assert_array_equal(g, w.astype(g.dtype),
                                           err_msg=name)
+
+
+def test_ring_boundary_plain_prefix_admissions_bitwise_jax():
+    """Admissions with a prefix (InjectionRing.admit(prefix=) at 0, 4 and
+    8 of 9-12 token prompts) through the plain ring_boundary: the slot
+    state, table and lengths it writes into the block, and the step's
+    tokens, n_valid, temps, keys and emits, bitwise JAX device_consume
+    then slot_plan on the same ring; each slot's position and length
+    start at its prefix and its first chunk is the prompt from there."""
+    C, maxp, K = 4, 4, 3
+    ring = pring.InjectionRing(8, maxp, 16, C)
+    jr = jring.InjectionRing(8, maxp, 16, C)
+    prompts = [list(range(10, 22)), list(range(30, 39)), list(range(50, 61))]
+    for slot, (p, prefix) in enumerate(zip(prompts, (8, 0, 4))):
+        for r in (ring, jr):
+            r.admit(slot, p, 3, 0.5 * slot, 40 + slot, None, req_id=slot + 1,
+                    table_row=np.arange(1, maxp + 1) + maxp * slot,
+                    prefix=prefix)
+    np.testing.assert_array_equal(ring.buf, jr.buf)
+    geo = kring.WindowGeometry(K, C, maxp, 16, 4, 8)
+    blk = geo.new_block("cpu")
+    blk[kring.H_PUBLISHED] = ring.published
+    blk[kring.H_LIVE] = 1
+    bufs = kring.StepBuffers.create(geo, "cpu")
+    kring.ring_boundary(torch.from_numpy(ring.buf), blk, geo, bufs)
+    _, ss, tb, ln, _ = geo.views(blk)
+    zero = jnp.zeros((K,), jnp.int32)
+    con, jss, jtb, jln, _ = jring.device_consume(
+        jnp.asarray(jr.buf), jnp.int32(jr.published), jnp.int32(0),
+        jnp.int32(0), jnp.zeros((K, pring.SS_WIDTH), jnp.int32),
+        jnp.zeros((K, maxp), jnp.int32), zero)
+    assert int(blk[kring.H_CONSUMED]) == int(con) == 3
+    for g, w in ((ss, jss), (tb, jtb), (ln, jln)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert ln.tolist() == [8, 0, 4]
+    assert ss[:, pring.SS_POS].tolist() == [8, 0, 4]
+    plan = jring.slot_plan(jnp.asarray(jr.buf), jss, C, maxp)
+    for name, g, w in zip(("tokens", "n_valid", "temps", "keys", "emits"),
+                          (bufs.tokens, bufs.n_valid, bufs.temps, bufs.keys,
+                           bufs.emits), plan):
+        w = np.asarray(w)
+        g = g.numpy()
+        if name == "temps":
+            g, w = g.view(np.int32), w.view(np.int32)
+        np.testing.assert_array_equal(g, w.astype(g.dtype), err_msg=name)
+    assert bufs.tokens[:, 0].tolist() == [18, 30, 54]
+    assert bufs.emits.tolist() == [1, 0, 0]  # 12 - 8 = one chunk: emits
 
 
 # ---------- the window against the JAX loop ----------

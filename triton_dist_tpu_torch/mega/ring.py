@@ -23,9 +23,10 @@ The record and slot-state layouts below are the JAX module's, copied
 host producer; `device_consume` and `slot_plan` are the step boundary's
 plain versions as torch ops, bitwise the JAX functions on the same
 int32 inputs (the CUDA kernels of kernels/ring.py take their place on
-the card). Not ported: `InjectionRing.verify` and `slot_plan_spec`
-(speculative decoding, ROADMAP item 5) and an admission prefix > 0
-(the prefix cache, item 4): `admit` refuses one.
+the card). An admission's `prefix` (a prefix-cache hit, serve/prefix.py)
+starts the slot's prefill cursor and length at the cached coverage. Not
+ported: `InjectionRing.verify` and `slot_plan_spec` (speculative
+decoding, ROADMAP item 5).
 """
 
 from __future__ import annotations
@@ -240,10 +241,9 @@ class InjectionRing:
         if not (prompt.ndim == 1 and 1 <= prompt.size <= self.prompt_cap):
             raise ValueError(f"prompt of {prompt.size} tokens vs cap "
                              f"{self.prompt_cap}")
-        if prefix:
-            raise NotImplementedError(
-                "an admission prefix > 0 needs the prefix cache "
-                "(ROADMAP item 4)")
+        if not 0 <= prefix < prompt.size:
+            raise ValueError(f"prefix {prefix} must leave >= 1 token of "
+                             f"{prompt.size} to prefill")
         table_row = np.asarray(table_row, np.int32)
         if table_row.shape != (self.max_pages,):
             raise ValueError(f"table row {table_row.shape} != "

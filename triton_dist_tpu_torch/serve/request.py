@@ -4,8 +4,9 @@ triton_dist_tpu.serve.request, cut to what the host loop uses.
 A Request is a unit of scheduling: it moves through queued -> prefill ->
 decode (back to queued when evicted) while the Scheduler interleaves it
 with other requests, and its tokens stream out through a callback or an
-iterator. The prefix, speculative-decoding, resident-loop and ledger
-fields of the JAX version are left out with those planes. `summarize`
+iterator. The prefix plane's `prefix_len` and the prefill chunk count
+are kept; the speculative-decoding, resident-window and ledger fields
+of the JAX version are left out with those planes. `summarize`
 takes its quantiles with numpy where the JAX version reads the obs
 registry's log-bucket histogram, which the port does not have.
 """
@@ -89,6 +90,9 @@ class Request:
     admit_seq: int = -1        # admission order (eviction victim order)
     last_active_step: int = -1
     n_evictions: int = 0
+    n_prefill_chunks: int = 0  # prefill chunk steps this request rode
+    prefix_len: int = 0        # prompt tokens served from the prefix
+    # cache at the last admission (its prefill started past them)
     finish_reason: Optional[str] = None  # "eos" | "length" | "cancelled"
 
     # -- metrics (perf_counter_ns) --------------------------------------

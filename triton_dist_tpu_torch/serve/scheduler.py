@@ -34,10 +34,20 @@ is rare: on the card each step of a window runs its forward whether a
 slot is live or not. `resident="auto"` (the perf model's pick) and the
 window's auto-sizing wait for the planner (ROADMAP item 7).
 
-Not ported: speculative decoding, the prefix cache, disaggregated roles
-and migration, the retry/quarantine ladder (a failed step raises),
-cancellation and the background serving thread, the obs registry, the
-flight recorder and trace spans.
+`prefix_cache=True, prefix_block=B` turns on the radix prefix cache
+(serve/prefix.py, JAX scheduler.py:181-208): admission matches the
+history against cached B-token blocks and, on a hit of m tokens, admits
+the slot over the cached pages (KVPool.share) with its prefill cursor at
+m (host loop) or its ring record's IR_PREFIX = m (resident); a completed
+prefill inserts its prompt's blocks; pool pressure reclaims unshared
+cached blocks before any eviction. A hit's tokens are bitwise its cold
+run's. The block is the caller's: the perf model's pick
+(`choose_prefix_block`) waits for the planner (ROADMAP item 7).
+
+Not ported: speculative decoding, disaggregated roles and migration,
+the retry/quarantine ladder (a failed step raises), cancellation and the
+background serving thread, the obs registry, the flight recorder and
+trace spans.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from typing import List, Optional
 import numpy as np
 
 from triton_dist_tpu_torch.serve.kv_pool import KVPool, PoolExhausted, pages_for
+from triton_dist_tpu_torch.serve.prefix import PrefixCache
 from triton_dist_tpu_torch.serve.queue import QueueFull, RequestQueue
 from triton_dist_tpu_torch.serve.request import (
     Request,
@@ -73,11 +84,24 @@ class Scheduler:
                  page: Optional[int] = None,
                  total_pages: Optional[int] = None, resident=False,
                  window: Optional[int] = None,
-                 ring_cap: Optional[int] = None):
+                 ring_cap: Optional[int] = None, prefix_cache=False,
+                 prefix_block: Optional[int] = None):
         """total_pages: allocatable pool pages (default: every slot can
         hold a full-horizon sequence); a smaller pool evicts. resident:
         run windows of the resident loop (the module docstring); window
-        and ring_cap configure it."""
+        and ring_cap configure it. prefix_cache / prefix_block: the radix
+        prefix cache over this Scheduler's pool, prefix_block tokens a
+        trie node (a multiple of the page)."""
+        if isinstance(prefix_cache, PrefixCache):
+            # a PrefixCache is bound to its pool, and this Scheduler's
+            # pool is built below: no caller-built cache can reference it
+            raise ValueError("pass prefix_cache=True (+ prefix_block) and "
+                             "let the scheduler build the cache over its "
+                             "own pool")
+        if prefix_cache and prefix_block is None:
+            raise NotImplementedError(
+                "prefix_block=None needs the perf model's "
+                "choose_prefix_block (ROADMAP item 7): pass prefix_block")
         if resident == "auto":
             raise NotImplementedError(
                 'resident="auto" needs the perf model\'s serve-mode pick '
@@ -88,6 +112,8 @@ class Scheduler:
         page = page or _default_page(engine.max_len)
         self.pool = KVPool(engine, slots, page, total_pages=total_pages)
         self.chunk = max(1, min(chunk or DEFAULT_CHUNK, self.pool.t_max))
+        self.prefix = (PrefixCache(self.pool, block=prefix_block)
+                       if prefix_cache else None)
         self.resident = bool(resident)
         if self.resident:
             self.worker = ResidentWorker(engine, self.pool, self.chunk,
@@ -100,7 +126,9 @@ class Scheduler:
         self.requests: List[Request] = []
         self._admit_seq = 0
         self.counters = dict(submitted=0, rejected=0, admitted=0,
-                             evicted=0, preempted=0, steps=0, tokens_out=0)
+                             evicted=0, preempted=0, steps=0, tokens_out=0,
+                             prefix_hits=0, prefix_misses=0,
+                             prefix_pages_shared=0)
 
     # -- client API -----------------------------------------------------
 
@@ -202,8 +230,11 @@ class Scheduler:
         for slot, req, n, emits in plans:
             req.last_active_step = self.worker.n_steps
             if req.state is RequestState.PREFILL:
+                req.n_prefill_chunks += 1
                 req.pos += n
                 if emits:
+                    if self.prefix is not None:
+                        self._prefix_insert(req, slot)
                     req.state = RequestState.DECODE
                     self._emit(req, int(toks[slot]))
             else:
@@ -231,6 +262,9 @@ class Scheduler:
         out["active_slots"] = len(self.active)
         out["pool_free_pages"] = self.pool.free_pages()
         out["pool_used_pages"] = self.pool.used_pages()
+        # the prefix plane's keys are always there (0 with the cache off)
+        out["prefix_blocks"] = (self.prefix.n_blocks()
+                                if self.prefix is not None else 0)
         return out
 
     # -- resident mode (JAX scheduler.py:625-1000) -----------------------
@@ -258,11 +292,11 @@ class Scheduler:
         """The next window's length: the live steps the host can foresee
         before it has work for the device again (to the earliest
         retirement while a request waits in the queue, else to the last
-        active request's end, by each one's prefill chunks and token
-        budget), rounded down to the worker's window or a halving of it
-        (a graph each on the card), at least 1. A request that stops at
-        its eos retires sooner, and the steps after the loop's exit run
-        dead."""
+        active request's end, by each one's prefill chunks past its
+        prefix-cache hit and token budget), rounded down to the worker's
+        window or a halving of it (a graph each on the card), at least 1.
+        A request that stops at its eos retires sooner, and the steps
+        after the loop's exit run dead."""
         C = self.chunk
         ss = self.worker.slot_state
         left = []
@@ -275,7 +309,8 @@ class Scheduler:
                     n += -(-int(row[mring.SS_PROMPT_LEN]
                                - row[mring.SS_POS]) // C) - 1
             else:  # its admission record is not consumed yet
-                n = -(-len(req.history()) // C) + req.max_new_tokens - 1
+                n = (-(-(len(req.history()) - req.prefix_len) // C)
+                     + req.max_new_tokens - 1)
             left.append(n)
         w = self.worker.window
         if not left:
@@ -295,24 +330,26 @@ class Scheduler:
             if req is None or not self.worker.can_inject():
                 return
             slot = self.pool.free_slot()
+            if slot is None:
+                return
             total = len(req.history()) + req.max_new_tokens
-            need = pages_for(total, self.pool.page)
-            if slot is None or self.pool.free_pages() < need:
+            # the prefix match and the cache's pressure valve; a resident
+            # batch never evicts, so the cache is the only valve
+            m, mpages, need = self._reclaim_and_rematch(req, total)
+            if self.pool.free_pages() < need:
                 return
             self.queue.pop()
-            self.pool.admit(slot, len(req.history()))
-            if not self.pool.ensure(slot, total):
-                raise AssertionError("free_pages said yes, ensure said no")
-            req.slot = slot
-            req.pos = 0
-            req.state = RequestState.PREFILL
-            req.admit_seq = self._admit_seq
-            self._admit_seq += 1
-            self.active[slot] = req
-            self.counters["admitted"] += 1
+            if m > 0:
+                self.pool.share(slot, mpages, total)
+            else:
+                self.pool.admit(slot, len(req.history()))
+                if not self.pool.ensure(slot, total):
+                    raise AssertionError("free_pages said yes, ensure said "
+                                         "no")
+            self._claim(req, slot, m, mpages)
             self.worker.admit(slot, req.history(), req.max_new_tokens,
                               req.temperature, req.seed, req.eos_id,
-                              req.request_id)
+                              req.request_id, prefix=m)
 
     def _drain_records(self, records) -> None:
         """Fold a window's output records into the requests, in device
@@ -329,6 +366,13 @@ class Scheduler:
                 continue  # a stale record of a slot already turned over
             if rec.emitted and not req.done:
                 if req.state is RequestState.PREFILL:
+                    if self.prefix is not None:
+                        self._prefix_insert(req, rec.slot)
+                    # the whole prefill ran on the device: its chunk steps
+                    # are the history past the prefix-cache hit (a
+                    # resident batch never evicts)
+                    req.n_prefill_chunks += -(
+                        -(len(req.history()) - req.prefix_len) // self.chunk)
                     req.state = RequestState.DECODE
                     req.pos = len(req.history())
                 req.last_active_step = self.worker.n_steps
@@ -354,6 +398,15 @@ class Scheduler:
     def _room(self, slot: int, req: Request, upto: int) -> bool:
         if self.pool.ensure(slot, upto):
             return True
+        if self.prefix is not None:
+            # pool pressure reclaims unshared cached blocks before any
+            # live request is evicted, only the deficit beyond the free
+            # list, so mild pressure never drains the whole cache
+            need = (pages_for(upto, self.pool.page)
+                    - self.pool.used_pages(slot) - self.pool.free_pages())
+            if self.prefix.reclaim(need) > 0 \
+                    and self.pool.ensure(slot, upto):
+                return True
         victim = self._pick_victim(req)
         while victim is not None:
             self._evict(victim, site="growth")
@@ -379,13 +432,71 @@ class Scheduler:
                           and a.admit_seq > requester.admit_seq))]
         return min(cands, key=self._victim_order) if cands else None
 
+    def _prefix_insert(self, req: Request, slot: int) -> None:
+        """Index a completed prefill's prompt blocks (PREFILL -> DECODE,
+        host loop and resident drain alike): the trie increfs the slot's
+        pages, no copy, so the next admission of that prefix shares
+        them."""
+        self.prefix.insert(req.prompt, self.pool.table[slot])
+
+    def _match_prefix(self, req: Request):
+        """(matched tokens, shared pages) of an admission, (0, []) without
+        a cache. The hit / miss is counted at the admission that uses
+        the match (a stalled admission retries the lookup every round)."""
+        if self.prefix is None:
+            return 0, []
+        return self.prefix.match(req.history())
+
+    def _reclaim_and_rematch(self, req: Request, total: int):
+        """The cache's pressure valve, shared by both admission paths:
+        match, and if the fresh-page need outruns the free list, reclaim
+        the deficit from unshared cached blocks and match again (the
+        reclaim may have dropped nodes of the matched path, whose pages
+        must not be shared). Returns (m, pages, fresh-page need) for a
+        `total`-token allocation."""
+        m, mpages = self._match_prefix(req)
+        need = max(pages_for(total, self.pool.page), 1) - len(mpages)
+        if self.prefix is not None and self.pool.free_pages() < need:
+            self.prefix.reclaim(need - self.pool.free_pages())
+            m, mpages = self._match_prefix(req)
+            need = max(pages_for(total, self.pool.page), 1) - len(mpages)
+        return m, mpages, need
+
+    def _claim(self, req: Request, slot: int, m: int, mpages) -> None:
+        """An admitted request takes its slot: its prefill starts past a
+        prefix-cache hit of m tokens (the shared pages hold positions
+        [0, m)), and the hit or miss is counted."""
+        req.slot = slot
+        req.pos = m
+        req.prefix_len = m
+        req.state = RequestState.PREFILL
+        req.admit_seq = self._admit_seq
+        self._admit_seq += 1
+        self.active[slot] = req
+        self.counters["admitted"] += 1
+        if self.prefix is None:
+            return
+        if m > 0:
+            self.prefix.hits += 1
+            self.prefix.tokens_reused += m
+            self.counters["prefix_hits"] += 1
+            self.counters["prefix_pages_shared"] += len(mpages)
+        else:
+            self.prefix.misses += 1
+            self.counters["prefix_misses"] += 1
+
     def _admit(self) -> None:
         while len(self.active) < self.pool.slots:
             req = self.queue.peek()
             if req is None:
                 return
             slot = self.pool.free_slot()
-            need = max(pages_for(len(req.history()), self.pool.page), 1)
+            m, mpages, need = 0, [], 1
+            if slot is not None:
+                # the prefix match and the cache's pressure valve (unshared
+                # blocks go before any live request)
+                m, mpages, need = self._reclaim_and_rematch(
+                    req, len(req.history()))
             if slot is None or self.pool.free_pages() < need:
                 # a strictly higher-priority arrival may preempt
                 cands = [a for a in self.active.values()
@@ -397,23 +508,21 @@ class Scheduler:
                 continue
             self.queue.pop()
             try:
-                self.pool.admit(slot, len(req.history()))
+                if m > 0:
+                    self.pool.share(slot, mpages, len(req.history()))
+                else:
+                    self.pool.admit(slot, len(req.history()))
             except PoolExhausted:
                 self.queue.requeue(req)
                 return
-            req.slot = slot
-            req.pos = 0
-            req.state = RequestState.PREFILL
-            req.admit_seq = self._admit_seq
-            self._admit_seq += 1
-            self.active[slot] = req
-            self.counters["admitted"] += 1
+            self._claim(req, slot, m, mpages)
 
     def _evict(self, req: Request, site: str = "growth") -> None:
         self.pool.release(req.slot)
         del self.active[req.slot]
         req.slot = -1
         req.pos = 0
+        req.prefix_len = 0  # the re-admission matches the trie again
         req.n_evictions += 1
         self.counters["evicted"] += 1
         if site == "preemption":

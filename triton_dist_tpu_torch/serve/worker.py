@@ -109,13 +109,15 @@ class ResidentWorker:
     key_for = staticmethod(sampling_key)
 
     def admit(self, slot: int, prompt, max_new: int, temperature: float,
-              seed: int, eos_id, req_id: int, at_step: int = 0) -> None:
+              seed: int, eos_id, req_id: int, at_step: int = 0,
+              prefix: int = 0) -> None:
         """The admission record: the slot's whole page-table row (the
-        request's lifetime of pages, allocated at admission) and the
-        prompt the device streams its prefill chunks from."""
+        request's lifetime of pages, allocated at admission; a prefix-cache
+        hit's leading pages shared) and the prompt the device streams its
+        prefill chunks from, from position `prefix` on."""
         self.ring.admit(slot, prompt, max_new, temperature, seed, eos_id,
                         req_id, self.pool.table[slot, :self.pool.max_pages],
-                        at_step=at_step)
+                        at_step=at_step, prefix=prefix)
 
     def retire(self, slot: int, req_id: int, at_step: int = 0) -> None:
         self.ring.retire(slot, req_id, at_step=at_step)
