@@ -5236,14 +5236,34 @@ def ring_case(rng, geo, cap, rw):
         ss[s, mring.SS_REQID] = rng.integers(0, 8)
     blk[geo.table_at:geo.lengths_at] = rng.integers(0, 64, K * maxp)
     blk[geo.lengths_at:geo.out_at] = rng.integers(0, 900, K)
+    if geo.spec_k:
+        # a staged verify record on each slot: fresh (its ring row a
+        # committed KIND_VERIFY of the slot's req_id at its n_out), or
+        # stale by its seq, n_out or req_id, or none staged
+        for s in range(K):
+            row = int(rng.integers(0, cap))
+            r = ring[row]
+            if rng.random() < 0.6:
+                r[mring.IR_KIND] = mring.KIND_VERIFY
+                r[mring.IR_SEQ] = r[mring.IR_SEQ] or row + 1
+                r[mring.IR_REQID] = ss[s, mring.SS_REQID]
+                r[mring.IR_NOUT] = ss[s, mring.SS_N_OUT]
+                r[mring.IR_SPEC_K] = rng.integers(1, geo.spec_k + 3)
+            ss[s, mring.SS_SPEC_REC] = row
+            ss[s, mring.SS_SPEC_SEQ] = r[mring.IR_SEQ] + (
+                cap if rng.random() < 0.1 else 0)
+            ss[s, mring.SS_SPEC_K] = r[mring.IR_SPEC_K] * (rng.random() < 0.9)
+            ss[s, mring.SS_N_OUT] += rng.random() < 0.1
+        blk[geo.ss_at:geo.table_at] = ss.ravel()
     return ring, blk
 
 
 def check_ring_case(ring, blk, geo, tok, label):
     """ring_boundary (step form, then final form) and ring_emit on the card
     against their plain versions on the same state, tok the step's
-    tokens: the state block and every step buffer bitwise after each.
-    Raises on a difference."""
+    tokens ((K,), or (K, C) with geo.spec_k; or a function of the plain
+    boundary's step buffers giving them): the state block and every step
+    buffer bitwise after each. Raises on a difference."""
     import torch
 
     from triton_dist_tpu_torch.kernels import ring as kring
@@ -5251,12 +5271,14 @@ def check_ring_case(ring, blk, geo, tok, label):
     ring_d = torch.as_tensor(ring, device="cuda")
     ring_h = torch.as_tensor(ring)
     states = {}
-    for dev in ("cuda", "cpu"):
+    for dev in ("cpu", "cuda"):
         b = torch.as_tensor(blk.copy(), device=dev)
         bufs = kring.StepBuffers.create(geo, dev)
         r = ring_d if dev == "cuda" else ring_h
         kring.ring_boundary(r, b, geo, bufs)
         after_b = [b.cpu().clone()] + [x.cpu().clone() for x in bufs]
+        if callable(tok):
+            tok = tok(bufs)
         kring.ring_emit(torch.as_tensor(tok, device=dev), b, geo, bufs)
         after_e = b.cpu().clone()
         kring.ring_boundary(r, b, geo, bufs, final=True)
@@ -5289,14 +5311,27 @@ def check_ring_kernels(recorded, geo, cap, rw, vocab, n_random=RING_CASES):
     cases += [(*ring_case(rng, geo, cap, rw), f"random state {i}")
               for i in range(n_random)]
     for ring, blk, label in cases:
-        tok = rng.integers(0, vocab, geo.slots)
         ss = blk[geo.ss_at:geo.table_at].reshape(geo.slots, mring.SS_WIDTH)
         eos = ss[:, mring.SS_EOS]
-        tok = np.where((rng.random(geo.slots) < 0.3) & (eos > 0), eos - 1,
-                       tok).astype(np.int64)
+        if geo.spec_k:
+            def tok(bufs, eos=eos):
+                # the fed tokens one column on (each draft accepted), a
+                # third of them replaced, a tenth by the slot's eos
+                t = np.roll(bufs.tokens.cpu().numpy(), -1, axis=1)
+                shape = t.shape
+                t = np.where(rng.random(shape) < 0.3,
+                             rng.integers(0, vocab, shape), t)
+                return np.where((rng.random(shape) < 0.1)
+                                & (eos[:, None] > 0), eos[:, None] - 1,
+                                t).astype(np.int64)
+        else:
+            tok = rng.integers(0, vocab, geo.slots)
+            tok = np.where((rng.random(geo.slots) < 0.3) & (eos > 0),
+                           eos - 1, tok).astype(np.int64)
         check_ring_case(ring, blk, geo, tok, label)
-    log(f"  ring_boundary / ring_emit: bitwise their plain versions on "
-        f"{len(recorded)} recorded window inputs and {n_random} random "
+    form = f"spec forms (spec_k {geo.spec_k})" if geo.spec_k else "step forms"
+    log(f"  ring_boundary / ring_emit {form}: bitwise their plain versions "
+        f"on {len(recorded)} recorded window inputs and {n_random} random "
         "states (boundary, emit, final boundary)")
     return len(cases)
 
@@ -5987,6 +6022,412 @@ def run_prefix_phase(kernels, cfg, params):
     return paths, numbers
 
 
+# -- phase 4v: speculative decoding -------------------------------------------
+
+SPEC_K = 4              # draft tokens a verify row at most
+SPEC_LENS = (64, 128)   # prompt lengths drawn from [64, 128]
+SPEC_REQS = 8
+SPEC_GEN = 48
+SPEC_SAMPLED = {2: 2002, 5: 2005}  # request -> seed, at SPEC_TEMP
+SPEC_TEMP = 0.8
+# the runs: spec off (the oracle), prompt-lookup drafts, and a scripted
+# draft that proposes the oracle's next tokens with the one at draft index
+# (request mod 5) wrong, so that every acceptance count 0..k occurs
+SPEC_DRAFTS = ("off", "ngram", "scripted")
+
+
+def spec_prompts(cfg):
+    """Phase 4v's traffic: SPEC_REQS random prompts of 64-128 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(25)
+    return [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+            for n in rng.integers(SPEC_LENS[0], SPEC_LENS[1] + 1, SPEC_REQS)]
+
+
+class ScriptedDraft:
+    """A `spec.Draft` that knows each request's spec-off stream: it
+    proposes the stream's next k tokens, the one at draft index (request
+    mod 5) replaced by another token, so request i's full-width verify
+    rows accept min(i mod 5, k) drafts. A request is told by its prompt,
+    the head of the history."""
+
+    def __init__(self, prompts, streams, vocab):
+        self.prompts = [list(p) for p in prompts]
+        self.streams = streams
+        self.vocab = vocab
+
+    def propose(self, history, k):
+        hist = list(history)
+        for i, p in enumerate(self.prompts):
+            if hist[:len(p)] == p:
+                n_out = len(hist) - len(p)
+                nxt = list(self.streams[i][n_out:n_out + k])
+                if i % 5 < len(nxt):
+                    nxt[i % 5] = (nxt[i % 5] + 1) % self.vocab
+                return nxt
+        raise AssertionError("a history of no phase-4v request")
+
+
+def spec_traffic(eng, prompts, draft, resident, oracle=None, wrap=None):
+    """One phase-4v run: the SPEC_REQS requests (two sampled) through a
+    Scheduler on eng, spec off or SpecConfig(SPEC_K) with `draft`
+    ("ngram" or "scripted", which proposes from `oracle`, the spec-off
+    streams), host loop or resident windows of RES_WINDOW. Returns
+    (scheduler, requests, numbers): wall, tokens/s, serve steps, verify
+    steps, proposed, accepted, rate, the accepted count of every verify
+    row ({count: rows}), host ms a step (the wall outside the worker's
+    device calls over the steps), dead steps, peak GB."""
+    import torch
+
+    from triton_dist_tpu_torch.serve import Scheduler
+    from triton_dist_tpu_torch.serve import scheduler as smod
+    from triton_dist_tpu_torch.spec import NgramDraft, SpecConfig
+
+    spec = None
+    if draft == "ngram":
+        spec = SpecConfig(k=SPEC_K, draft=NgramDraft())
+    elif draft == "scripted":
+        spec = SpecConfig(k=SPEC_K, draft=ScriptedDraft(
+            prompts, oracle, eng.cfg.vocab_size))
+    sch = Scheduler(eng, **RES_GEO, spec=spec, resident=resident,
+                    **({"window": RES_WINDOW} if resident else {}))
+    w = sch.worker
+    if wrap is not None:
+        w._fn = wrap(w._fn)
+    accepted, device_s = {}, [0.0]
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                device_s[0] += time.perf_counter() - t0
+        return call
+
+    if resident:
+        run_window = w.run_window
+
+        def window(*a, **kw):
+            recs = run_window(*a, **kw)
+            groups = {}
+            for r in recs:
+                if r.spec and r.emitted:
+                    g = groups.setdefault((r.slot, r.step), [0, -1])
+                    g[0] = g[0] or r.spec_k
+                    g[1] += 1
+            for kd, extra in groups.values():
+                if kd:
+                    accepted[extra] = accepted.get(extra, 0) + 1
+            return recs
+
+        w.run_window = timed(window)
+    else:
+        w._run = timed(w._run)
+    orig = smod.accept_tokens
+
+    def accept(proposed, row, eos_id=None, max_emit=None):
+        out = orig(proposed, row, eos_id, max_emit)
+        if proposed:
+            accepted[len(out) - 1] = accepted.get(len(out) - 1, 0) + 1
+        return out
+
+    reqs = [sch.submit(p, SPEC_GEN,
+                       temperature=SPEC_TEMP if i in SPEC_SAMPLED else 0.0,
+                       seed=SPEC_SAMPLED.get(i, 0))
+            for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    smod.accept_tokens = accept
+    try:
+        t0 = time.perf_counter()
+        sch.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        smod.accept_tokens = orig
+    m = sch.metrics()
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    row = dict(
+        draft=draft, resident=resident, wall_s=wall,
+        tokens_per_s=tokens / wall, steps=w.n_steps,
+        verify_steps=sum(r.n_spec_steps for r in reqs),
+        proposed=m["spec_proposed"], accepted=m["spec_accepted"],
+        accept_rate=m["spec_accept_rate"],
+        accepted_counts=dict(sorted(accepted.items())),
+        host_ms_a_step=(wall - device_s[0]) * 1e3 / max(w.n_steps, 1),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if resident:
+        row.update(windows=w.n_windows, windows_by_steps=dict(
+            w.windows_by_steps), dead_steps=sum(
+            k * v for k, v in w.windows_by_steps.items()) - w.n_steps)
+    return sch, reqs, row
+
+
+def run_spec(kernels, cfg, params, world, mode, label, record=False,
+             device="cuda"):
+    """Phase 4v at `world` in `mode`: the SPEC_REQS requests through six
+    Schedulers on one Engine, spec off, prompt-lookup drafts and the
+    scripted draft, each in the host loop (replayed steps) and in
+    resident windows of RES_WINDOW. Each run goes once to capture what it
+    needs (the scripted resident run records its window inputs when
+    `record`), then once timed with every launch counted from
+    0 and held to its steps (host) or windows (resident). Every stream is
+    bitwise the host loop's spec-off stream, greedy and sampled; the
+    scripted runs accept every count 0..SPEC_K; the pool's invariants
+    hold after each run. Returns ({path: launches}, recorded window
+    inputs, {run: numbers})."""
+    from triton_dist_tpu_torch.models import Engine
+
+    eng = Engine(cfg, device=device, params=params, max_len=MAX_LEN,
+                 world=world, decode_mode=mode)
+    prompts = spec_prompts(cfg)
+    recorded = []
+
+    def recorder(loop):
+        rec = RecordingLoop(loop)
+        recorded.append(rec)
+        return rec
+
+    rows, paths, oracle = {}, {}, None
+    tag = f"world{world}" + ("" if world == 1 else f"_{mode}")
+    for draft in SPEC_DRAFTS:
+        for resident in (False, True):
+            run = f"{draft} {'resident' if resident else 'host'}"
+            # the scripted run's windows: verify records in every one
+            wrap = (recorder if record and resident and draft == "scripted"
+                    else None)
+            sch, reqs, _ = spec_traffic(eng, prompts, draft, resident,
+                                        oracle, wrap)
+            warm = [r.out_tokens for r in reqs]
+            del sch, reqs
+            made = eng.serve_graphs.made
+            kernels.reset_launches()
+            sch, reqs, row = spec_traffic(eng, prompts, draft, resident,
+                                          oracle)
+            n = kernels.launches()
+            got = [r.out_tokens for r in reqs]
+            if oracle is None:
+                oracle = got
+            if got != warm or got != oracle or not all(
+                    len(t) == SPEC_GEN for t in got):
+                bad = [i for i, (a, b) in enumerate(zip(got, oracle))
+                       if a != b]
+                raise AssertionError(f"4v {label} {run}: the streams of "
+                                     f"requests {bad} differ from the "
+                                     "spec-off host loop's (or from their "
+                                     "own first run)")
+            sch.pool.check()
+            w = sch.worker
+            if resident:
+                loop = w._fn
+                want = {name: 0 for name in kernel_names()}
+                for steps, runs in w.windows_by_steps.items():
+                    if steps not in loop.graphs:
+                        raise AssertionError(f"4v {label} {run}: a window of "
+                                             f"{steps} steps was captured in "
+                                             "the timed run")
+                    for k, v in resident_window_launches(
+                            cfg, world, mode, steps).items():
+                        want[k] += v * runs
+            else:
+                if eng.serve_graphs.made != made:
+                    raise AssertionError(f"4v {label} {run}: a serve step "
+                                         "was captured in the timed run")
+                want = want_launches(cfg.num_layers, world, "dist", mode, 0,
+                                     w.n_steps)[1]
+            if n != want:
+                raise AssertionError(f"4v {label} {run}: launches {n}, want "
+                                     f"{want}")
+            if draft == "scripted" and set(row["accepted_counts"]) != set(
+                    range(SPEC_K + 1)):
+                raise AssertionError(f"4v {label} {run}: accepted counts "
+                                     f"{row['accepted_counts']}, want every "
+                                     f"count 0..{SPEC_K}")
+            if draft != "off":
+                paths[f"spec_{draft}_{'resident' if resident else 'host'}"
+                      f"_{tag}"] = n
+            row["launches"] = {k: v for k, v in n.items() if v}
+            rows[run] = row
+            log(f"  4v {label} {run}: {row['tokens_per_s']:.2f} tokens/s "
+                f"({row['wall_s']:.3f} s), {row['steps']} serve steps, "
+                f"{row['verify_steps']} verify steps; proposed "
+                f"{row['proposed']}, accepted {row['accepted']} (rate "
+                f"{row['accept_rate']}; rows by accepted count "
+                f"{row['accepted_counts']}); host {row['host_ms_a_step']:.3f}"
+                f" ms a step"
+                + (f"; {row['windows']} windows {row['windows_by_steps']}, "
+                   f"{row['dead_steps']} dead steps" if resident else "")
+                + f"; peak {row['peak_gb']:.2f} GB; launches "
+                f"{row['launches']}; {card_line()}")
+            del sch, reqs
+    log(f"  4v {label}: every stream bitwise the spec-off host loop's "
+        f"({SPEC_REQS} requests, {len(SPEC_SAMPLED)} sampled), host loop and "
+        "resident, prompt lookup and scripted drafts")
+    inputs = recorded[0].inputs if recorded else []
+    del eng, recorded
+    gc.collect()
+    return paths, inputs, rows
+
+
+def spec_geometry():
+    """The spec resident loop's window geometry and record width at
+    phase 4v's Scheduler (RES_GEO, horizon MAX_LEN, windows of
+    RES_WINDOW)."""
+    from triton_dist_tpu_torch.kernels import ring as kring
+    from triton_dist_tpu_torch.mega import ring as mring
+
+    max_pages = MAX_LEN // RES_GEO["page"]
+    cap = max(4 * RES_GEO["slots"], 16)
+    K = RES_GEO["slots"]
+    geo = kring.WindowGeometry(K, RES_GEO["chunk"], max_pages,
+                               RES_WINDOW * K * (1 + SPEC_K) + cap,
+                               RES_WINDOW, 8, SPEC_K)
+    return geo, cap, mring.ring_width(max_pages, MAX_LEN, RES_GEO["chunk"])
+
+
+def verify_records(ring_blk):
+    """Verify records pending at a recorded window input's first
+    boundary."""
+    from triton_dist_tpu_torch.kernels import ring as kring
+    from triton_dist_tpu_torch.mega import ring as mring
+
+    ring, blk = ring_blk
+    cap = ring.shape[0]
+    return sum(int(ring[i % cap][mring.IR_KIND] == mring.KIND_VERIFY)
+               for i in range(int(blk[kring.H_CONSUMED]),
+                              int(blk[kring.H_PUBLISHED])))
+
+
+def time_spec_kernels(recorded, geo, rw, vocab):
+    """The three kernels at phase 4v's shapes: sample_slots over a verify
+    step's K C rows of (V,) logits (two slots sampled, a key a column;
+    bound: the logits read once; library: torch.multinomial over the
+    softmax of logits / T), the spec ring_boundary on the recorded window
+    input with the most verify records pending and the spec ring_emit
+    after it on (K, C) tokens that accept every draft (bound: the block
+    and the step's buffers once; no library call). Returns ({name: {label:
+    row}}, {name: label})."""
+    import numpy as np
+    import torch
+
+    from triton_dist_tpu_torch.kernels import ring as kring
+    from triton_dist_tpu_torch.kernels import sample as ks
+    from triton_dist_tpu_torch.serve import sampling_key
+
+    K, C, V = geo.slots, geo.chunk, vocab
+    R = K * C
+    logits = rand((R, V), torch.float32, 78, scale=3.0)
+    keys = torch.as_tensor(ks.as_int32(np.stack(
+        [sampling_key(r // C, r % C) for r in range(R)])), device="cuda")
+    temps = torch.tensor([0.8, 0.0, 0.0, 0.8], device="cuda"
+                         ).repeat_interleave(C)
+    hot = int((temps > 0).sum())
+    slabel = (f"a verify step's ({K} x {C}, {V}) f32 logits, a key a column, "
+              f"{hot} sampled rows (T 0.8), {R - hot} greedy")
+    probs_t = torch.clamp_min(temps, 1e-6)[:, None]
+    rows = {"sample_slots": {slabel: time_collective(
+        f"sample_slots {slabel}",
+        lambda: ks.sample_slots(logits, keys, temps),
+        lambda: ks.sample_slots_plain(logits, keys, temps),
+        lambda: torch.multinomial(torch.softmax(logits / probs_t, -1), 1),
+        hot * V * 10 + R * V, R * V * 4 + R * 12 + R * 8, torch.float32,
+        kernel_key="sample_kernel")}}
+
+    ring, blk0 = max(recorded, key=verify_records)
+    pending = int(blk0[kring.H_PUBLISHED]) - int(blk0[kring.H_CONSUMED])
+    ring_d = torch.as_tensor(ring, device="cuda")
+    blk0_d = torch.as_tensor(blk0, device="cuda")
+    blk = blk0_d.clone()
+    bufs = kring.StepBuffers.create(geo, "cuda")
+    ring_h, blk_h = torch.as_tensor(ring), torch.as_tensor(blk0.copy())
+    bufs_h = kring.StepBuffers.create(geo, "cpu")
+    blabel = (f"a recorded spec window's first boundary: {pending} records "
+              f"pending ({verify_records((ring, blk0))} verify), K {K}, C {C}, "
+              f"spec_k {geo.spec_k}, record width {rw}")
+    b_bytes, e_bytes = resident_bytes(geo, rw, pending)
+    b_bytes += K * C * 4  # a key a column
+    e_bytes += K * C * 16  # the step's (K, C) tokens and the fed tokens
+
+    def boundary():
+        blk.copy_(blk0_d)
+        kring.ring_boundary(ring_d, blk, geo, bufs)
+
+    def boundary_plain():
+        blk_h.copy_(torch.as_tensor(blk0))
+        kring.ring_boundary_plain(ring_h, blk_h, geo, bufs_h)
+
+    boundary()
+    after = blk.clone()
+    tok = torch.roll(bufs.tokens, -1, 1).contiguous()  # every draft accepted
+
+    def emit():
+        blk.copy_(after)
+        kring.ring_emit(tok, blk, geo, bufs)
+
+    after_h, tok_h = after.cpu(), tok.cpu()
+    boundary_plain()
+
+    def emit_plain():
+        blk_h.copy_(after_h)
+        kring.ring_emit_plain(tok_h, blk_h, geo, bufs_h)
+
+    rows["ring_boundary"] = {blabel: time_collective(
+        f"ring_boundary {blabel}", boundary, boundary_plain, None, 0,
+        b_bytes, torch.float32, kernel_key="ring_boundary_kernel")}
+    elabel = (f"the verify step after it, K {K}, C {C}, spec_k "
+              f"{geo.spec_k}, every draft accepted")
+    rows["ring_emit"] = {elabel: time_collective(
+        f"ring_emit {elabel}", emit, emit_plain, None, 0, e_bytes,
+        torch.float32, kernel_key="ring_emit_kernel")}
+    return rows, {"sample_slots": slabel, "ring_boundary": blabel,
+                  "ring_emit": elabel}
+
+
+def run_spec_phase(kernels, cfg, params):
+    """Phase 4v: speculative decoding at Qwen3-8B world 1, full depth (the
+    scripted resident run's window inputs recorded), then world 4
+    `ar` on a RES_SMALL_LAYERS-layer draw of the same widths; the spec
+    forms of ring_boundary / ring_emit against their plain versions on
+    the recorded windows and RING_CASES random states with fresh and
+    stale verify records; sample_slots at a verify step's K C rows and at
+    K (SPEC_K + 1) rows against its plain version; the three timed at
+    4v's shapes. Returns ({path: launches}, {kernel: {label: row}},
+    numbers)."""
+    import dataclasses
+
+    import torch
+
+    from triton_dist_tpu_torch.models.dense import init_params
+
+    paths, recorded, rows1 = run_spec(kernels, cfg, params, 1, "ar",
+                                      "Qwen3-8B world 1", record=True)
+    torch.cuda.empty_cache()
+    small = dataclasses.replace(cfg, num_layers=RES_SMALL_LAYERS)
+    p4 = init_params(small, device="cuda", seed=1, world=4)
+    p, _, rows4 = run_spec(kernels, small, p4, 4, "ar",
+                           f"Qwen3-8B widths, {RES_SMALL_LAYERS} layers, "
+                           "world 4 ar")
+    paths.update(p)
+    del p4
+    torch.cuda.empty_cache()
+    if not any(verify_records(rb) for rb in recorded):
+        raise AssertionError("4v: no recorded window holds a verify record")
+    geo, cap, rw = spec_geometry()
+    cases = check_ring_kernels(recorded, geo, cap, rw, cfg.vocab_size)
+    K, C = RES_GEO["slots"], RES_GEO["chunk"]
+    sampled = (check_sample_kernel(cfg.vocab_size, R=K * C, trials=2)
+               + check_sample_kernel(cfg.vocab_size, R=K * (SPEC_K + 1)))
+    timing, mains = time_spec_kernels(recorded, geo, rw, cfg.vocab_size)
+    numbers = {"world 1": rows1, "world 4 ar": rows4, "ring_cases": cases,
+               "sample_rows": sampled, "timed": mains}
+    log("  4v speculative decoding: " + json.dumps(numbers))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, timing, numbers
+
+
 SOURCES = {
     "mega": ("triton_dist_tpu_torch/csrc/mega.cu",
              "triton_dist_tpu/mega/kernel.py:1192"),
@@ -6348,6 +6789,12 @@ def main() -> int:
         f"resident loop; Qwen3-8B world 1 at full depth, world 4 ar at "
         f"{RES_SMALL_LAYERS} layers")
     nprefix, prefix_numbers = run_prefix_phase(kernels, cfg, params)
+    log(f"== 4v. speculative decoding: {SPEC_REQS} requests of 64-128 tokens, "
+        f"{SPEC_GEN} new each, spec off, k {SPEC_K} with prompt-lookup "
+        "drafts and with a scripted draft, in the host loop and in the "
+        f"resident loop; Qwen3-8B world 1 at full depth, world 4 ar at "
+        f"{RES_SMALL_LAYERS} layers")
+    nspec, spec_timing, spec_numbers = run_spec_phase(kernels, cfg, params)
     # the same weights laid out for 4 ranks; the world-1 engine is gone
     params = shard_params(params, 4)
     torch.cuda.empty_cache()
@@ -6428,7 +6875,8 @@ def main() -> int:
     paths = {"world1": n1, "world4_ar": n4, "world4_dist": nd,
              "world4_moe": nm, "mega_world1": nm1, "mega_world4": nm4,
              "sp_world4": nsp, "ep_world4": nep, "pp_world4": npp,
-             "coll_world4": ncoll, "wire_world4": nwire, **nres, **nprefix}
+             "coll_world4": ncoll, "wire_world4": nwire, **nres, **nprefix,
+             **nspec}
 
     def by_path(name):
         return {k: v[name] for k, v in paths.items()}
@@ -6524,10 +6972,11 @@ def main() -> int:
              "(its cond, device_consume, slot_plan); a hand kernel for code "
              "the JAX package leaves to XLA",
              "ring_emit": "none: XLA code of the resident loop body's "
-             "epilogue (run_step, spec_k = 0); a hand kernel for code the "
-             "JAX package leaves to XLA"}
+             "epilogue (run_step; run_step_spec with spec_k > 0); a hand "
+             "kernel for code the JAX package leaves to XLA"}
     for name in RESIDENT_KERNELS:
         rows, main_label, err = res_errs[name]
+        rows = dict(rows, **spec_timing[name])
         lines.append(entry(name, total(name), by_path(name), err, rows,
                            main_label,
                            device_us=rows[main_label]["device_us"],
@@ -6551,7 +7000,8 @@ def main() -> int:
                     "mega": dict(mega_rows, batch1=mega_b1),
                     "sp": sp_numbers, "ep": ep_numbers, "pp": pp_numbers,
                     "coll": coll_numbers, "wire": wire_numbers,
-                    "resident": res_numbers, "prefix": prefix_numbers}))
+                    "resident": res_numbers, "prefix": prefix_numbers,
+                    "spec": spec_numbers}))
     print(json.dumps({"kernels": lines}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -588,6 +588,44 @@ def test_flash_prefill_wgmma_fold_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 2, 3, 4])
+def test_flash_wgmma_verify_column_bitwise_sequential(cuda, splits):
+    """Speculative decoding's bitwise property at the kernel: at Qwen3-8B's
+    world-1 serve-step shape (4 x 64 rows, T 1024, 32 / 8 heads), a verify
+    row's column j (positions p..p+63, kv_len p + 64) is bitwise column 0
+    of the sequential step at position p + j (positions p+j..p+j+63,
+    kv_len p + j + 64), its query and the keys the same, for j = 0..4 and
+    rows whose row tiles' live ends cross a key tile within j = 0..4
+    (their key-tile counts, and so the old contiguous split boundaries,
+    differ between the two calls), every split count forced and the
+    plan's. The split-KV items take their key tiles
+    strided, a tile's split a function of its index alone (the design
+    comment in csrc/flash_prefill.cu)."""
+    b, s, t, hq, hkv = 4, 64, 1024, 32, 8
+    q, k, v, _, _ = _fp_case(320, b, s, t, hq, hkv, [0] * b)
+    extra = torch.from_numpy(_inputs(321, b, 8, t, hq, hkv, 128)[0]).to(
+        "cuda", torch.bfloat16)
+    q_ext = torch.cat([q, extra], 1)  # columns past the verify row's 64
+    # a row tile holds 32 positions, so its live end is p + j + 32: for
+    # p = 286, 606 and 925 it crosses a 64-key tile within j = 0..4
+    start = torch.tensor([286, 606, 60, 925], device="cuda",
+                         dtype=torch.int32)
+    cols = torch.arange(s, device="cuda", dtype=torch.int32)
+
+    def call(qq, p):
+        return fp._launch(qq.contiguous(), k, v,
+                          (p[:, None] + cols).contiguous(), 0,
+                          (p + s).contiguous(), True, None, body="wgmma",
+                          splits=splits)
+
+    ver = call(q, start)
+    for j in range(5):
+        seq = call(q_ext[:, j:j + s], start + j)
+        torch.cuda.synchronize()
+        assert torch.equal(seq[:, 0], ver[:, j]), j
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("splits", [1, 3])
 def test_flash_prefill_wgmma_nan_tail_and_one_hot_v(cuda, splits):
     """Keys past kv_len hold NaN (a recycled cache page): TMA loads them,
@@ -3085,7 +3123,8 @@ def test_moe_replay_makes_no_host_sync(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("V,R", [(151936, 4), (1000, 6), (151936, 1),
-                                 (300, 3), (7, 2), (5000, 200)])
+                                 (300, 3), (7, 2), (5000, 200),
+                                 (151936, 256), (151936, 20)])
 def test_sample_slots_kernel_matches_plain(cuda, V, R):
     """sample_slots (csrc/sample.cu) against its plain version: tokens
     equal, the split's next keys and every sampled row's random bits
@@ -3132,6 +3171,59 @@ def test_ring_kernels_match_plain(cuda, K, C, maxp):
     rw = mring.ring_width(maxp, prompt_cap, C)
     assert chip_smoke.check_ring_kernels([], geo, cap, rw, 256,
                                          n_random=300) == 300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,C,maxp,spec_k", [(3, 6, 8, 4), (4, 64, 16, 4),
+                                             (64, 8, 2, 7), (2, 2, 4, 1)])
+def test_ring_kernels_spec_forms_match_plain(cuda, K, C, maxp, spec_k):
+    """The speculative-decoding forms of ring_boundary and ring_emit
+    (spec_k > 0: verify rows from staged records, a key a column, the
+    accept / eos / budget epilogue and its records j outer, slot inner)
+    bitwise their plain versions on 300 random window states whose slots
+    hold fresh and stale verify records (chip_smoke.check_ring_kernels;
+    the step's (K, C) tokens accept a draft where they echo the fed
+    tokens), 64 slots included."""
+    import chip_smoke
+    from triton_dist_tpu_torch.kernels import ring as kring
+    from triton_dist_tpu_torch.mega import ring as mring
+
+    cap, prompt_cap, window = 16, 24, 6
+    geo = kring.WindowGeometry(K, C, maxp, window * K * (1 + spec_k) + cap,
+                               window, 4, spec_k)
+    rw = mring.ring_width(maxp, prompt_cap, C)
+    assert chip_smoke.check_ring_kernels([], geo, cap, rw, 256,
+                                         n_random=300) == 300
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 4])
+def test_spec_scheduler_bitwise_spec_off_on_card(cuda, world):
+    """Scheduler(spec=SpecConfig(k=4)) on the card, host loop (the
+    per-position step replayed) and resident windows of 4 (the kernels'
+    spec forms in the window graph), against the eager spec-off host
+    loop: every stream bitwise, greedy and sampled, drafts proposed and
+    accepted, the pool whole; world 1 and 4 `ar`."""
+    from triton_dist_tpu_torch.serve import Scheduler
+    from triton_dist_tpu_torch.spec import SpecConfig
+
+    graph, eager = _engines(world, decode_mode="ar")
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, 8, n).tolist() for n in (20, 45, 9, 33, 12)]
+    outs = []
+    for eng, kw in ((eager, {}), (graph, dict(spec=SpecConfig(k=4))),
+                    (eager, dict(spec=SpecConfig(k=4))),
+                    (graph, dict(spec=SpecConfig(k=4), resident=True,
+                                 window=4))):
+        sch = Scheduler(eng, slots=4, chunk=16, page=16, **kw)
+        reqs = [sch.submit(p, 12, temperature=0.7 if i % 2 else 0.0, seed=i)
+                for i, p in enumerate(prompts)]
+        sch.run()
+        outs.append([r.out_tokens for r in reqs])
+        sch.pool.check()
+        if "spec" in kw:
+            assert sch.metrics()["spec_proposed"] > 0
+    assert outs[0] == outs[1] == outs[2] == outs[3]
 
 
 @pytest.mark.cuda
@@ -3330,7 +3422,7 @@ def test_ll_all_gather_device_count_bitwise_plain(cuda, n):
         count.add_(1)
 
 
-def _sp_case(n=4, b=2, t_loc=512, h=256, heads=(8, 2, 128)):
+def _sp_decode_case(n=4, b=2, t_loc=512, h=256, heads=(8, 2, 128)):
     from triton_dist_tpu_torch.layers import rope_table
     from triton_dist_tpu_torch.layers.sp_flash_decode import (
         SpDecodeParams,
@@ -3370,7 +3462,7 @@ def test_sp_decode_replay_bitwise_eager(cuda):
     )
 
     n = 4
-    params, spec, cos, sin, cache, xs = _sp_case(n)
+    params, spec, cos, sin, cache, xs = _sp_decode_case(n)
     b, hq, d = xs.shape[1], spec.num_q_heads, spec.head_dim
 
     def state():

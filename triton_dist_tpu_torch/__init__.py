@@ -29,7 +29,9 @@ module has an obvious counterpart:
             JAX wire image, byte for byte) and the drift harness; the
             collectives' wire_format= forms use it
   faults/   WireIntegrityError, which a checksummed image's unpack raises
-  serve/    the continuous-batching host loop (Scheduler, Worker, KVPool)
+  serve/    the continuous-batching host loop (Scheduler, Worker, KVPool),
+            the prefix cache and the resident loop's worker
+  spec/     speculative decoding: drafts, the accept rule, SpecConfig
   tools/    measurement scripts that run on a CUDA card
 
 Scope: one card; tensor parallelism at world n runs as a virtual world

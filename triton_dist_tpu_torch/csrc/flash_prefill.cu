@@ -571,8 +571,18 @@ cudaError_t launch_local(const void* q, const void* k, const void* v,
 //     hands it over with the tile) in shared memory (both warpgroups
 //     write the same zeros; the stage goes back only after both) and
 //     fence the async proxy before their P V;
-//   - split-KV: `splits` items share a row tile's key tiles, each its
-//     contiguous share. splits = 1: the item is normalised and stored.
+//   - split-KV: `splits` items share a row tile's key tiles, strided:
+//     split sp folds key tiles sp, sp + splits, sp + 2 splits, ... below
+//     the tile's live end. A key tile's split is thus a function of the
+//     tile's index and the split count alone, never of the live end
+//     (kv_len, or the largest position of the row tile), so a query row
+//     folds the same keys in the same splits and order wherever it sits
+//     in the chunk and whatever the other rows' positions: a verify row's
+//     column j is bitwise the sequential step's column 0 at the same
+//     position (speculative decoding). A tile past the row's own last
+//     key only adds masked scores, exact no-ops (alpha = exp2(0) = 1,
+//     p = 0, V past kv_len zeroed). splits = 1: the item is normalised
+//     and stored.
 //     Otherwise each item's (m, l, unnormalised O) goes to the workspace
 //     in f32 and counts on the tile's counter (fence, atomic add); the
 //     item that counts last combines the splits in split order (m = max,
@@ -668,9 +678,10 @@ struct WfItem {
 // tile, its key tiles, its batch row's clamped kv_len, the keys' live end
 // hi). The keys end at hi = min(kv_len, 1 + the largest position of its
 // rows) under the causal mask, at kv_len without it. Local: the tiles of
-// [0, hi) of its split, branch-free (each lane folds 4 positions, 128 / G
-// at most). SP: the tiles of every segment it folds, chunk (rank - i)
-// mod n for i = 0..n-1, each [chunk S, min(chunk S + S, hi)).
+// [0, hi) of its split, x, x + splits, ... (strided, the design comment),
+// branch-free (each lane folds 4 positions, 128 / G at most). SP: the
+// tiles of every segment it folds, chunk (rank - i) mod n for i =
+// 0..n-1, each [chunk S, min(chunk S + S, hi)).
 template <bool kSp>
 __device__ __forceinline__ int4 wf_keys(const WfArgs& a,
                                         const WfItem<kSp>& w, int G,
@@ -702,8 +713,8 @@ __device__ __forceinline__ int4 wf_keys(const WfArgs& a,
     mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
   const int hi = max(a.causal ? min(len, mx + 1) : len, 0);
   const int nt = __shfl_sync(0xffffffffu, (hi + kWfKeys - 1) / kWfKeys, 0);
-  const int x = nt * w.sp / a.splits, y = nt * (w.sp + 1) / a.splits;
-  return make_int4(x, y - x, __shfl_sync(0xffffffffu, len, 0),
+  const int cnt = nt > w.sp ? (nt - w.sp + a.splits - 1) / a.splits : 0;
+  return make_int4(w.sp, cnt, __shfl_sync(0xffffffffu, len, 0),
                    __shfl_sync(0xffffffffu, hi, 0));
 }
 
@@ -956,8 +967,10 @@ __device__ __forceinline__ void wf_body(const CUtensorMap* map_q,
                 load(mk, mv, k0 - begin, c3, k0, vend);
             }
           } else {
-            for (int j = jr.x; j < jr.x + jr.y; ++j)
+            for (int i = 0; i < jr.y; ++i) {  // split jr.x's tiles
+              const int j = jr.x + i * a.splits;
               load(map_k, map_v, j * kWfKeys, w.b, j * kWfKeys, jr.z);
+            }
           }
         }
         __syncwarp();

@@ -45,9 +45,27 @@
 // output record per emitting slot in slot order with a dense seq, and
 // executed += 1.
 //
+// The speculative-decoding forms (spec_k > 0, the JAX loop's
+// `run_step_spec` :551-660 over `slot_plan_spec` :508). The boundary: a
+// decoding slot whose staged verify record (SS_SPEC_*) is still fresh
+// against its ring row (seq, kind, req_id, n_out) carries kd = min(staged,
+// spec_k, C - 1, max_new - n_out - 1) drafts: its row is [last, d_1..d_kd]
+// from the record's prompt region, n_valid 1 + kd, and every column c of
+// an emitting row gets the key fold_in(PRNGKey(seed), max(n_out + c -
+// base, 0)), base = max(n_valid - 1 - kd, 0): K x C threefry keys spread
+// over the block's threads (keys (K, C, 2), kd (K,)). The emit, over the
+// step's (K, C) per-position tokens: a row's span o_j = tok[base + j],
+// j = 0..spec_k, the fed tokens d_j one column on; e = 1 + the leading
+// o_j == d_j with j < kd on an emitting row, cut after the first eos in
+// the span, then at max_new - n_out; lengths += n_valid on prefill rows,
+// e on the rest; last token o[e - 1]; SS_SPEC_K cleared on every row; the
+// records j outer, slot inner (the JAX scatter order): FLAG_EMIT, plus
+// FLAG_RETIRED on a finished row's last, plus FLAG_SPEC when kd > 0, and
+// kd in OR_SPEC_K of the first.
+//
 // What bounds them: latency. One block each; thread 0 runs the serial
 // record loop and the epilogue (K slots, a few records), the block fills
-// the step's buffers (K x C tokens, K x MAXP table words). A few
+// the step's buffers (K x C tokens and keys, K x MAXP table words). A few
 // microseconds a launch, against a serve step of tens of milliseconds.
 
 #include <cuda_runtime.h>
@@ -66,14 +84,15 @@ constexpr int IR_SEQ = 0, IR_KIND = 1, IR_SLOT = 2, IR_AT_STEP = 3,
               IR_SEED = 7, IR_EOS = 8, IR_REQID = 9, IR_NOUT = 10,
               IR_SPEC_K = 11, IR_PREFIX = 12, IR_HEADER = 16;
 constexpr int KIND_ADMIT = 1, KIND_RETIRE = 2, KIND_VERIFY = 3;
-constexpr int OR_WIDTH = 8, FLAG_EMIT = 1, FLAG_RETIRED = 2, REASON_EOS = 1,
-              REASON_LENGTH = 2, REASON_HOST = 3;
+constexpr int OR_WIDTH = 8, FLAG_EMIT = 1, FLAG_RETIRED = 2, FLAG_SPEC = 4,
+              REASON_EOS = 1, REASON_LENGTH = 2, REASON_HOST = 3;
 constexpr int SS_ACTIVE = 0, SS_PHASE = 1, SS_POS = 2, SS_PROMPT_LEN = 3,
               SS_MAX_NEW = 4, SS_N_OUT = 5, SS_TEMP_BITS = 6, SS_SEED = 7,
               SS_EOS = 8, SS_LAST_TOK = 9, SS_REC = 10, SS_REQID = 11,
               SS_SPEC_REC = 12, SS_SPEC_SEQ = 13, SS_SPEC_K = 14,
               SS_WIDTH = 16;
 constexpr int kThreads = 256;
+constexpr int kMaxSlots = 64;  // the launchers' bound on K
 
 struct Window {
   const int* ring;
@@ -111,7 +130,7 @@ __device__ bool any_active(const Window& w) {
 
 // one output record (the JAX scatter_out's row), at the next dense seq
 __device__ void put_out(const Window& w, int slot, int step, int token,
-                        int flags, int reason, int reqid) {
+                        int flags, int reason, int reqid, int spec_k = 0) {
   const int row = w.hdr[H_OUT_COUNT];
   if (row >= w.out_cap) return;  // out_cap covers every window by design
   int* o = w.out + row * OR_WIDTH;
@@ -122,7 +141,7 @@ __device__ void put_out(const Window& w, int slot, int step, int token,
   o[4] = flags;
   o[5] = reason;
   o[6] = reqid;
-  o[7] = 0;
+  o[7] = spec_k;
   w.hdr[H_OUT_COUNT] = row + 1;
 }
 
@@ -177,12 +196,28 @@ __device__ int consume(const Window& w, int step) {
   return consumed - c0;
 }
 
+// a row's drafts this step (slot_plan_spec's kd): 0 unless the slot
+// decodes and its staged verify record still matches its ring row
+__device__ int verify_kd(const Window& w, const int* row, int chunk,
+                         int spec_k) {
+  if (spec_k == 0 || row[SS_ACTIVE] <= 0 || row[SS_PHASE] == 0 ||
+      row[SS_SPEC_K] <= 0)
+    return 0;
+  const int rr = min(max(row[SS_SPEC_REC], 0), w.cap - 1);
+  const int* srec = w.ring + size_t(rr) * w.rw;
+  if (srec[IR_SEQ] != row[SS_SPEC_SEQ] || srec[IR_KIND] != KIND_VERIFY ||
+      srec[IR_REQID] != row[SS_REQID] || srec[IR_NOUT] != row[SS_N_OUT])
+    return 0;
+  return max(0, min(min(row[SS_SPEC_K], spec_k),
+                    min(chunk - 1, row[SS_MAX_NEW] - row[SS_N_OUT] - 1)));
+}
+
 __global__ void __launch_bounds__(kThreads)
     ring_boundary_kernel(const int* __restrict__ ring, int cap, int rw,
                          int* blk, int K, int maxp, int out_cap, int chunk,
-                         int window, int poll_budget, int final,
+                         int window, int poll_budget, int spec_k, int final,
                          long long* tokens, long long* n_valid, float* temps,
-                         int* keys, int* emits, long long* table64,
+                         int* keys, int* emits, int* kd, long long* table64,
                          long long* lengths64) {
   const Window w = window_of(ring, cap, rw, blk, K, maxp, out_cap);
   __shared__ int live;
@@ -220,6 +255,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (final) return;
+  __shared__ int kd_sh[kMaxSlots];
+  for (int s = tid; s < K; s += kThreads) {
+    const int v = live ? verify_kd(w, w.ss + s * SS_WIDTH, chunk, spec_k) : 0;
+    kd_sh[s] = v;
+    kd[s] = v;
+  }
+  __syncthreads();
   const int prompt_base = IR_HEADER + maxp;
   for (int i = tid; i < K * chunk; i += kThreads) {
     const int s = i / chunk, c = i % chunk;
@@ -236,9 +278,28 @@ __global__ void __launch_bounds__(kThreads)
         }
       } else if (c == 0) {
         t = row[SS_LAST_TOK];
+      } else if (c <= kd_sh[s]) {  // draft c of the staged verify row
+        const int rr = min(max(row[SS_SPEC_REC], 0), cap - 1);
+        t = ring[size_t(rr) * rw + prompt_base + c - 1];
       }
     }
     tokens[i] = t;
+    if (spec_k > 0) {  // a key a column: output index n_out + c - base
+      const bool prefill = row[SS_PHASE] == 0;
+      const int pos = row[SS_POS], plen = row[SS_PROMPT_LEN];
+      const int n_pref = min(chunk, plen - pos);
+      const bool emit = live && row[SS_ACTIVE] > 0 &&
+                        (!prefill || pos + n_pref >= plen);
+      uint32_t k0 = 0, k1 = 0;
+      if (emit) {
+        const int n = prefill ? n_pref : 1 + kd_sh[s];
+        const int base = max(n - 1 - kd_sh[s], 0);
+        k1 = uint32_t(row[SS_SEED]);
+        threefry::fold_in(k0, k1, uint32_t(max(row[SS_N_OUT] + c - base, 0)));
+      }
+      keys[2 * i] = int(k0);
+      keys[2 * i + 1] = int(k1);
+    }
   }
   for (int s = tid; s < K; s += kThreads) {
     const int* row = w.ss + s * SS_WIDTH;
@@ -246,31 +307,105 @@ __global__ void __launch_bounds__(kThreads)
     const bool prefill = row[SS_PHASE] == 0;
     const int pos = row[SS_POS], plen = row[SS_PROMPT_LEN];
     const int n_pref = min(chunk, plen - pos);
-    const int n = active ? (prefill ? n_pref : 1) : 0;
+    const int n = active ? (prefill ? n_pref : 1 + kd_sh[s]) : 0;
     const bool emit = active && (!prefill || pos + n_pref >= plen);
     n_valid[s] = n;
     emits[s] = emit;
     temps[s] = emit ? __int_as_float(row[SS_TEMP_BITS]) : 0.f;
-    uint32_t k0 = 0, k1 = 0;
-    if (emit) {
-      k1 = uint32_t(row[SS_SEED]);
-      threefry::fold_in(k0, k1, uint32_t(row[SS_N_OUT]));
+    if (spec_k == 0) {
+      uint32_t k0 = 0, k1 = 0;
+      if (emit) {
+        k1 = uint32_t(row[SS_SEED]);
+        threefry::fold_in(k0, k1, uint32_t(row[SS_N_OUT]));
+      }
+      keys[2 * s] = int(k0);
+      keys[2 * s + 1] = int(k1);
     }
-    keys[2 * s] = int(k0);
-    keys[2 * s + 1] = int(k1);
     if (live) lengths64[s] = w.lengths[s];
   }
   if (live)
     for (int i = tid; i < K * maxp; i += kThreads) table64[i] = w.table[i];
 }
 
+// the spec epilogue (thread 0): the slots' state first, then the records,
+// j outer and slot inner
+__device__ void emit_spec(const Window& w, int step, int chunk, int spec_k,
+                          const long long* tok, const long long* n_valid,
+                          const int* emits, const long long* tokens,
+                          const int* kd) {
+  int e_of[kMaxSlots], base_of[kMaxSlots], reason_of[kMaxSlots];
+  bool fin_of[kMaxSlots];
+  for (int s = 0; s < w.K; ++s) {
+    int* row = w.ss + s * SS_WIDTH;
+    const long long* ts = tok + size_t(s) * chunk;
+    const long long* fed = tokens + size_t(s) * chunk;
+    const int nv = int(n_valid[s]), k = kd[s];
+    const bool emit = emits[s] != 0;
+    const int base = max(nv - 1 - k, 0);
+    auto o = [&](int j) { return int(ts[min(max(base + j, 0), chunk - 1)]); };
+    int acc = 0;
+    while (acc < k && acc <= spec_k &&
+           o(acc) == int(fed[min(max(base + acc + 1, 0), chunk - 1)]))
+      ++acc;
+    int e = emit ? acc + 1 : 0;
+    const int eos = row[SS_EOS];
+    for (int j = 0; j <= spec_k && j < e; ++j)
+      if (eos > 0 && o(j) == eos - 1) {
+        e = j + 1;
+        break;
+      }
+    e = min(e, max(row[SS_MAX_NEW] - row[SS_N_OUT], 0));
+    bool hit_eos = false;
+    for (int j = 0; j <= spec_k && j < e; ++j)
+      hit_eos = hit_eos || (eos > 0 && o(j) == eos - 1);
+    const int n_out = row[SS_N_OUT] + e;
+    const bool hit_len = emit && e > 0 && !hit_eos && n_out >= row[SS_MAX_NEW];
+    const bool prefill = row[SS_PHASE] == 0;
+    w.lengths[s] += prefill ? nv : e;
+    const int new_pos = row[SS_POS] + (prefill ? nv : 0);
+    const bool completing =
+        prefill && new_pos >= row[SS_PROMPT_LEN] && row[SS_ACTIVE] > 0;
+    row[SS_POS] = new_pos;
+    if (completing) row[SS_PHASE] = 1;
+    row[SS_N_OUT] = n_out;
+    if (e > 0) row[SS_LAST_TOK] = o(e - 1);
+    if (hit_eos || hit_len) row[SS_ACTIVE] = 0;
+    row[SS_SPEC_K] = 0;  // a staged record is verified once
+    e_of[s] = e;
+    base_of[s] = base;
+    fin_of[s] = hit_eos || hit_len;
+    reason_of[s] = hit_eos ? REASON_EOS : (hit_len ? REASON_LENGTH : 0);
+  }
+  for (int j = 0; j <= spec_k; ++j)
+    for (int s = 0; s < w.K; ++s) {
+      const int e = e_of[s];
+      if (e <= j) continue;
+      const bool last = e - 1 == j;
+      const int k = kd[s];
+      const long long* ts = tok + size_t(s) * chunk;
+      put_out(w, s, step, int(ts[min(base_of[s] + j, chunk - 1)]),
+              FLAG_EMIT | (last && fin_of[s] ? FLAG_RETIRED : 0) |
+                  (k > 0 ? FLAG_SPEC : 0),
+              last ? reason_of[s] : 0, w.ss[s * SS_WIDTH + SS_REQID],
+              j == 0 ? k : 0);
+    }
+}
+
 __global__ void ring_emit_kernel(const long long* __restrict__ tok, int* blk,
-                                 int K, int maxp, int out_cap,
+                                 int K, int maxp, int out_cap, int chunk,
+                                 int spec_k,
                                  const long long* __restrict__ n_valid,
-                                 const int* __restrict__ emits) {
+                                 const int* __restrict__ emits,
+                                 const long long* __restrict__ tokens,
+                                 const int* __restrict__ kd) {
   const Window w = window_of(nullptr, 0, 0, blk, K, maxp, out_cap);
   if (threadIdx.x != 0 || !w.hdr[H_STEP_LIVE]) return;
   const int step = w.hdr[H_STEP0] + w.hdr[H_EXECUTED];
+  if (spec_k > 0) {
+    emit_spec(w, step, chunk, spec_k, tok, n_valid, emits, tokens, kd);
+    w.hdr[H_EXECUTED] += 1;
+    return;
+  }
   for (int s = 0; s < K; ++s) {
     int* row = w.ss + s * SS_WIDTH;
     const int nv = int(n_valid[s]);
@@ -304,31 +439,37 @@ __global__ void ring_emit_kernel(const long long* __restrict__ tok, int* blk,
 extern "C" int ring_boundary_launch(const void* ring, int cap, int rw,
                                     void* blk, int K, int maxp, int out_cap,
                                     int chunk, int window, int poll_budget,
-                                    int final, void* tokens, void* n_valid,
-                                    void* temps, void* keys, void* emits,
-                                    void* table64, void* lengths64,
-                                    void* stream) {
-  if (cap < 2 || K < 1 || K > 64 || maxp < 1 || chunk < 1 ||
-      rw < IR_HEADER + maxp + chunk || window < 1 || poll_budget < 1)
+                                    int spec_k, int final, void* tokens,
+                                    void* n_valid, void* temps, void* keys,
+                                    void* emits, void* kd, void* table64,
+                                    void* lengths64, void* stream) {
+  if (cap < 2 || K < 1 || K > kMaxSlots || maxp < 1 || chunk < 1 ||
+      rw < IR_HEADER + maxp + chunk || window < 1 || poll_budget < 1 ||
+      spec_k < 0 || spec_k >= chunk)
     return int(cudaErrorInvalidValue);
   ring_boundary_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ring), cap, rw, static_cast<int*>(blk), K, maxp,
-      out_cap, chunk, window, poll_budget, final,
+      out_cap, chunk, window, poll_budget, spec_k, final,
       static_cast<long long*>(tokens), static_cast<long long*>(n_valid),
       static_cast<float*>(temps), static_cast<int*>(keys),
-      static_cast<int*>(emits), static_cast<long long*>(table64),
-      static_cast<long long*>(lengths64));
+      static_cast<int*>(emits), static_cast<int*>(kd),
+      static_cast<long long*>(table64), static_cast<long long*>(lengths64));
   return int(cudaGetLastError());
 }
 
 extern "C" int ring_emit_launch(const void* tok, void* blk, int K, int maxp,
-                                int out_cap, const void* n_valid,
-                                const void* emits, void* stream) {
-  if (K < 1 || K > 64 || maxp < 1) return int(cudaErrorInvalidValue);
+                                int out_cap, int chunk, int spec_k,
+                                const void* n_valid, const void* emits,
+                                const void* tokens, const void* kd,
+                                void* stream) {
+  if (K < 1 || K > kMaxSlots || maxp < 1 || chunk < 1 || spec_k < 0 ||
+      spec_k >= chunk)
+    return int(cudaErrorInvalidValue);
   ring_emit_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(tok), static_cast<int*>(blk), K, maxp,
-      out_cap, static_cast<const long long*>(n_valid),
-      static_cast<const int*>(emits));
+      out_cap, chunk, spec_k, static_cast<const long long*>(n_valid),
+      static_cast<const int*>(emits), static_cast<const long long*>(tokens),
+      static_cast<const int*>(kd));
   return int(cudaGetLastError());
 }
 

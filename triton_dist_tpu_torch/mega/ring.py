@@ -20,13 +20,14 @@ step counter, so an admission can land inside a window.
 
 The record and slot-state layouts below are the JAX module's, copied
 (the port imports nothing of the JAX package). `InjectionRing` is the
-host producer; `device_consume` and `slot_plan` are the step boundary's
-plain versions as torch ops, bitwise the JAX functions on the same
-int32 inputs (the CUDA kernels of kernels/ring.py take their place on
-the card). An admission's `prefix` (a prefix-cache hit, serve/prefix.py)
-starts the slot's prefill cursor and length at the cached coverage. Not
-ported: `InjectionRing.verify` and `slot_plan_spec` (speculative
-decoding, ROADMAP item 5).
+host producer; `device_consume`, `slot_plan` and `slot_plan_spec` are
+the step boundary's plain versions as torch ops, bitwise the JAX
+functions on the same int32 inputs (the CUDA kernels of kernels/ring.py
+take their place on the card). An admission's `prefix` (a prefix-cache
+hit, serve/prefix.py) starts the slot's prefill cursor and length at the
+cached coverage. A verify record (`InjectionRing.verify`, speculative
+decoding) stages drafts on a decoding slot, which the spec-capable
+loop's next step verifies (`slot_plan_spec`).
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ IR_HEADER = 16     # header words reserved
 KIND_NOOP = 0      # consumed, no effect
 KIND_ADMIT = 1
 KIND_RETIRE = 2
-KIND_VERIFY = 3    # spec-verify records (staged on the slot, ROADMAP item 5)
+KIND_VERIFY = 3    # spec-verify records: drafts staged on a decoding slot
 
 # -- device-to-host output record (int32 fields) -----------------------------
 
@@ -69,7 +70,7 @@ OR_TOKEN = 3       # emitted token (-1 on a token-less retirement)
 OR_FLAGS = 4       # FLAG_* bits
 OR_REASON = 5      # REASON_* on retirement rows
 OR_REQID = 6
-OR_SPEC_K = 7      # spec-verify steps' proposed count (0 here)
+OR_SPEC_K = 7      # a verify step's proposed count, on its first record
 OR_WIDTH = 8
 
 FLAG_EMIT = 1      # the record carries a sampled token
@@ -199,7 +200,9 @@ class InjectionRing:
         self.published = 0
         self.consumed = 0
         self.version = 0
-        self._pins: dict = {}  # req_id -> admission record seq (1-based)
+        # req_id (an admission) or ("spec", seq) (a verify record) -> the
+        # record's seq (1-based)
+        self._pins: dict = {}
 
     def pending(self) -> int:
         return self.published - self.consumed
@@ -216,8 +219,9 @@ class InjectionRing:
         """Room for one more record (the producer's backpressure probe)."""
         return self.published - self._reclaimable() < self.cap
 
-    def unpin(self, req_id: int) -> None:
-        """Release an admission row: its prefill completed or it retired."""
+    def unpin(self, req_id) -> None:
+        """Release an admission row (its prefill completed or it retired)
+        or, by its pin key, a verify row."""
         self._pins.pop(req_id, None)
 
     def _claim_row(self) -> int:
@@ -266,6 +270,33 @@ class InjectionRing:
           IR_HEADER + self.max_pages + prompt.size] = prompt
         self._commit(row)
         self._pins[req_id] = self.published  # this record's seq
+
+    def verify(self, slot: int, req_id: int, n_out: int, drafts,
+               at_step: int = 0):
+        """A spec-verify record (KIND_VERIFY): the drafts ride in the
+        prompt region; the device verifies them at its next step iff the
+        slot still serves `req_id` at exactly `n_out` emitted tokens. The
+        step after the record's consumption reads its row, so it is pinned
+        like an admission row: returns the pin key, which the worker
+        unpins when the window that carried the record has returned."""
+        drafts = np.asarray(drafts, np.int32)
+        if not (drafts.ndim == 1 and 1 <= drafts.size <= self.prompt_cap):
+            raise ValueError(f"{drafts.size} drafts vs cap {self.prompt_cap}")
+        row = self._claim_row()
+        r = self.buf[row]
+        r[:] = 0
+        r[IR_KIND] = KIND_VERIFY
+        r[IR_SLOT] = slot
+        r[IR_AT_STEP] = at_step
+        r[IR_REQID] = req_id
+        r[IR_NOUT] = n_out
+        r[IR_SPEC_K] = drafts.size
+        r[IR_HEADER + self.max_pages:
+          IR_HEADER + self.max_pages + drafts.size] = drafts
+        self._commit(row)
+        pin = ("spec", self.published)
+        self._pins[pin] = self.published
+        return pin
 
     def retire(self, slot: int, req_id: int, at_step: int = 0) -> None:
         row = self._claim_row()
@@ -416,3 +447,62 @@ def slot_plan(ring: torch.Tensor, slot_state: torch.Tensor, chunk: int,
     keys = slot_keys(ss[:, SS_SEED], ss[:, SS_N_OUT])
     keys = torch.where(emits[:, None], keys, torch.zeros_like(keys))
     return (tokens.to(torch.int32), n.to(torch.int32), temps, keys, emits)
+
+
+def slot_plan_spec(ring: torch.Tensor, slot_state: torch.Tensor, chunk: int,
+                   max_pages: int, k_max: int):
+    """The spec-capable step's plan (the JAX function's rules): slot_plan,
+    and a decoding slot with a fresh staged verify record (SS_SPEC_*, set
+    by device_consume) becomes the verify row [last_tok, d_1..d_kd] with
+    n_valid = 1 + kd, kd = min(staged, k_max, chunk - 1, max_new - n_out
+    - 1) clamped at 0. The record is checked again against its ring row
+    (seq, kind, req_id, n_out), so a row the producer has overwritten or
+    a state the slot has decoded past degrades to the one-token decode
+    row. Every column carries its own key, fold_in(PRNGKey(seed), max(n_out
+    + c - base, 0)) with base = max(n_valid - 1 - kd, 0) (decode rows
+    sample from column 0, a completing prefill from column n_valid - 1),
+    zero on rows that do not emit.
+
+    Returns (tokens (K, C) int32, n_valid (K,) int32, temps (K,) f32, keys
+    (K, C, 2) int64 words, emits (K,) bool, kd (K,) int32)."""
+    ss = slot_state
+    dev = ss.device
+    prompt_base = IR_HEADER + max_pages
+    width = ring.shape[1]
+    active = ss[:, SS_ACTIVE] > 0
+    prefill = ss[:, SS_PHASE] == 0
+    pos = ss[:, SS_POS]
+    plen = ss[:, SS_PROMPT_LEN]
+    n_out = ss[:, SS_N_OUT]
+    n_pref = torch.minimum(torch.full_like(pos, chunk), plen - pos)
+    start = (prompt_base + pos.long()).clamp(0, width - chunk)
+    cols = torch.arange(chunk, device=dev)
+    recs = ring[ss[:, SS_REC].long()]  # (K, RW)
+    prow = torch.gather(recs, 1, start[:, None] + cols[None, :])
+    srec = ring[ss[:, SS_SPEC_REC].long()]  # the staged verify rows
+    fresh = (active & ~prefill & (ss[:, SS_SPEC_K] > 0)
+             & (srec[:, IR_SEQ] == ss[:, SS_SPEC_SEQ])
+             & (srec[:, IR_KIND] == KIND_VERIFY)
+             & (srec[:, IR_REQID] == ss[:, SS_REQID])
+             & (srec[:, IR_NOUT] == n_out))
+    cap = torch.minimum(ss[:, SS_SPEC_K].clamp(max=k_max),
+                        (ss[:, SS_MAX_NEW] - n_out - 1).clamp(max=chunk - 1))
+    kd = torch.where(fresh, cap, torch.zeros_like(cap)).clamp(min=0)
+    # [last, the record's drafts]: the row's prompt region from column 1
+    drow = torch.cat([ss[:, SS_LAST_TOK, None],
+                      srec[:, prompt_base:prompt_base + chunk - 1]], 1)
+    tokens = torch.where(prefill[:, None], prow, drow)
+    n = torch.where(prefill, n_pref, 1 + kd)
+    n = torch.where(active, n, torch.zeros_like(n))
+    tokens = torch.where(active[:, None] & (cols[None, :] < n[:, None]),
+                         tokens, torch.zeros_like(tokens))
+    emits = active & (~prefill | (pos + n_pref >= plen))
+    temps = torch.where(emits, ss[:, SS_TEMP_BITS].view(torch.float32),
+                        torch.zeros((), dtype=torch.float32, device=dev))
+    base = (n - 1 - kd).clamp(min=0)
+    idx = (n_out[:, None] + cols[None, :] - base[:, None]).clamp(min=0)
+    seed = ss[:, SS_SEED, None].expand(-1, chunk)
+    keys = slot_keys(seed.reshape(-1), idx.reshape(-1)).view(-1, chunk, 2)
+    keys = torch.where(emits[:, None, None], keys, torch.zeros_like(keys))
+    return (tokens.to(torch.int32), n.to(torch.int32), temps, keys, emits,
+            kd.to(torch.int32))

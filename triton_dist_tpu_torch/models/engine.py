@@ -22,12 +22,12 @@ models/engine.py:75-105), the sampled token fed back on the card; the
 serve step replays one captured (slots, chunk) forward. A graph is kept
 per Engine, keyed by the shapes that fix it: (batch, cache horizon,
 greedy or the sampling temperature) for decode, (slots, chunk, page,
-pages) for the serve step; at most 8 decode and 2 serve graphs, the
-least recently used dropped (the JAX `_gen_cache` is bounded by shape
-the same way). Each graph owns the state it updates in place, a cache
-or a pair of pools, and the cache or pools a call brings are bound to it
-(runtime/graphs.py `Resident`: copied in the first time, then views of
-the graph's memory), so every cache of one shape, a fresh prefill's too,
+pages, per-position) for the serve step; at most 8 decode and 2 serve
+graphs, the least recently used dropped (the JAX `_gen_cache` is bounded
+by shape the same way). Each graph owns the state it updates in place, a
+cache or a pair of pools, and the cache or pools a call brings are bound
+to it (runtime/graphs.py `Resident`: copied in the first time, then views
+of the graph's memory), so every cache of one shape, a fresh prefill's too,
 replays the same graph. Inputs are copied into the graph's static
 buffers before each replay. A sampled `generate` splits its JAX key on
 the card each step, so the draws are bitwise the eager ones. `prefill`
@@ -69,7 +69,9 @@ then a final `ring_boundary`; the loop's exit is a device word, so the
 steps after it run dead (no live row; their KV writes land on the null
 page 0). The host writes the window's inputs once and reads its state
 block back once. On the CPU the window is a Python loop over the same
-functions' plain versions, stopping at the exit.
+functions' plain versions, stopping at the exit. A loop with spec_k > 0
+verifies staged drafts (speculative decoding): the same chain with the
+per-position sampling and the kernels' spec forms.
 """
 
 from __future__ import annotations
@@ -116,14 +118,16 @@ def _key_rows(key, rows: int, device) -> torch.Tensor:
 
 def _serve_forward(cfg: ModelConfig, mode: str, slots: int, chunk: int,
                    page: int, t_pool: int, params: DenseLLMParams, tokens,
-                   pool_k, pool_v, table, lengths, n_valid):
+                   pool_k, pool_v, table, lengths, n_valid,
+                   full: bool = False):
     """One fixed-geometry (slots, chunk) forward over the paged pool's
     dense view, the logits at column n_valid - 1, and the KV scatter back
     into the pool with padding columns routed to the null page 0:
     everything of the serve step before the sampling, with no host read
     (a CUDA graph captures it). tokens (K, C), table (K, MAXP), lengths
     (K,), n_valid (K,) are int64 tensors on the pool's device; pool_k /
-    pool_v are updated in place. Returns last_logits (K, V) f32."""
+    pool_v are updated in place. Returns last_logits (K, V) f32, or with
+    `full` (the per-position step) (last_logits, logits (K, C, V) f32)."""
     dev = tokens.device
     n = params.world_size
     cache = KVCache.dense_view(pool_k, pool_v, table, lengths, n)
@@ -148,7 +152,20 @@ def _serve_forward(cfg: ModelConfig, mode: str, slots: int, chunk: int,
         rows = rows.permute(0, 1, 4, 2, 3, 5).reshape(L, n * h, slots,
                                                        chunk, d)
         pool[:, :, pg, off] = rows.to(pool.dtype)
-    return last
+    return (last, logits) if full else last
+
+
+def _sample_columns(logits: torch.Tensor, keys: torch.Tensor,
+                    temps: torch.Tensor) -> torch.Tensor:
+    """The per-position step's sampling (JAX `_serve_step_math`,
+    per_pos=True): every column of logits (K, C, V) drawn under its own
+    key of keys (K, C, 2) at its slot's temperature, as K * C rows of one
+    `sample_slots` launch (each row its own (V,) draw, the JAX
+    vmap(vmap(categorical))). Returns tokens (K, C) int64."""
+    k, c, v = logits.shape
+    tok = sample_slots(logits.reshape(k * c, v), keys.reshape(k * c, 2),
+                       temps.repeat_interleave(c))
+    return tok.view(k, c)
 
 
 def _prefill_step(cfg: ModelConfig):
@@ -209,7 +226,7 @@ class ResidentLoop:
 
     def __init__(self, engine: "Engine", slots: int, chunk: int, page: int,
                  max_pages: int, window: int, ring_cap: int,
-                 prompt_cap: int, poll_budget: int):
+                 prompt_cap: int, poll_budget: int, spec_k: int = 0):
         if window < 1 or ring_cap < 2 or poll_budget < 1:
             raise ValueError("a resident loop needs window >= 1, ring_cap "
                              ">= 2 and poll_budget >= 1")
@@ -221,11 +238,16 @@ class ResidentLoop:
         self._engine = weakref.ref(engine)
         self.page = page
         self.t_pool = max_pages * page
-        # every step may emit on every slot, plus one token-less record
-        # per host retirement the ring can carry
+        if not 0 <= spec_k < chunk:
+            raise ValueError(f"spec_k {spec_k}: a verify row needs spec_k + "
+                             f"1 <= chunk {chunk}")
+        # every step may emit on every slot (up to 1 + spec_k tokens a
+        # verify row), plus one token-less record per host retirement the
+        # ring can carry (JAX engine.py:480)
         self.geo = kring.WindowGeometry(slots, chunk, max_pages,
-                                        window * slots + ring_cap, window,
-                                        poll_budget)
+                                        window * slots * (1 + spec_k)
+                                        + ring_cap, window, poll_budget,
+                                        spec_k)
         dev = engine.device
         self.ring = torch.zeros(
             (ring_cap, mring.ring_width(max_pages, prompt_cap, chunk)),
@@ -265,11 +287,15 @@ class ResidentLoop:
             kring.ring_boundary(self.ring, self.blk, geo, bufs)
             if stop_early and not int(self.blk[kring.H_STEP_LIVE]):
                 break
-            last = _serve_forward(eng.cfg, eng.decode_mode, geo.slots,
-                                  geo.chunk, self.page, self.t_pool,
-                                  eng.params, bufs.tokens, pool_k, pool_v,
-                                  bufs.table, bufs.lengths, bufs.n_valid)
-            tok = sample_slots(last, bufs.keys, bufs.temps)
+            out = _serve_forward(eng.cfg, eng.decode_mode, geo.slots,
+                                 geo.chunk, self.page, self.t_pool,
+                                 eng.params, bufs.tokens, pool_k, pool_v,
+                                 bufs.table, bufs.lengths, bufs.n_valid,
+                                 full=bool(geo.spec_k))
+            if geo.spec_k:
+                tok = _sample_columns(out[1], bufs.keys, bufs.temps)
+            else:
+                tok = sample_slots(out, bufs.keys, bufs.temps)
             kring.ring_emit(tok, self.blk, geo, bufs)
         kring.ring_boundary(self.ring, self.blk, geo, bufs, final=True)
 
@@ -588,7 +614,7 @@ class Engine:
     # -- serve step (the Scheduler's batch-of-sequence-states contract) --
 
     def make_serve_step(self, slots: int, chunk: int, page: int,
-                        max_pages: int):
+                        max_pages: int, per_pos: bool = False):
         """The step function the serve Worker calls every step:
 
           fn(tokens (K, C), pool_k, pool_v (L, Hkv, P, page, D) with
@@ -611,7 +637,15 @@ class Engine:
         slot's row holds n_valid real tokens from its current length on,
         the rest is padding whose outputs are dropped and whose KV lands
         on the null page. The step runs `decode_mode`. The pools are
-        updated in place."""
+        updated in place.
+
+        per_pos=True is the speculative-decoding (verify) form of the same
+        step (JAX engine.py:268-321): keys (K, C, 2), one a column, and
+        next_token becomes the (K, C) per-position tokens, column j drawn
+        from the logits after tokens[:, :j + 1] under its own key
+        (`_sample_columns`: K * C rows of one `sample_slots` launch); the
+        caller advances the lengths by what it accepts
+        (spec/verify.py)."""
         self._check_serve_geometry(slots, chunk, page, max_pages)
         t_pool = max_pages * page
         cfg, params, mode = self.cfg, self.params, self.decode_mode
@@ -629,6 +663,11 @@ class Engine:
 
         def run(tokens, pool_k, pool_v, table, lengths, n_valid, temps,
                 keys):
+            if per_pos:
+                last, logits = _serve_forward(
+                    cfg, mode, slots, chunk, page, t_pool, params, tokens,
+                    pool_k, pool_v, table, lengths, n_valid, full=True)
+                return _sample_columns(logits, keys, temps), last
             last = _serve_forward(cfg, mode, slots, chunk, page, t_pool,
                                   params, tokens, pool_k, pool_v, table,
                                   lengths, n_valid)
@@ -645,7 +684,8 @@ class Engine:
 
         def step(tokens, pool_k, pool_v, table, lengths, n_valid, temps,
                  keys):
-            key = (slots, chunk, page, max_pages, shape_key(pool_k, pool_v))
+            key = (slots, chunk, page, max_pages, per_pos,
+                   shape_key(pool_k, pool_v))
             inputs = args(tokens, table, lengths, n_valid, temps, keys)
 
             def make():
@@ -672,8 +712,9 @@ class Engine:
     def make_resident_loop(self, slots: int, chunk: int, page: int,
                            max_pages: int, window: int, ring_cap: int = 64,
                            prompt_cap: Optional[int] = None,
-                           poll_budget: int = 8) -> ResidentLoop:
-        """The resident serving loop (JAX engine.py:371, spec_k = 0): up to
+                           poll_budget: int = 8,
+                           spec_k: int = 0) -> ResidentLoop:
+        """The resident serving loop (JAX engine.py:371): up to
         `window` serve steps a call, each consuming the injection ring's
         visible records at its boundary, running the serve step's forward
         and sampling, self-feeding decode tokens and streaming emitted
@@ -686,17 +727,25 @@ class Engine:
         Tokens are bitwise the host-loop Scheduler's: both run
         `_serve_forward` and `sample_slots`, and the boundary builds the
         host Scheduler's step inputs field for field. One loop is kept
-        per geometry (the JAX executable cache)."""
+        per geometry (the JAX executable cache).
+
+        spec_k > 0 is the spec-capable loop (JAX `run_step_spec`): a
+        KIND_VERIFY record stages up to spec_k drafts on a decoding slot,
+        the next step runs its verify row through the per-position step
+        (the boundary's and the emit's spec forms, `_sample_columns`
+        between them), and the accepted tokens stream out as FLAG_SPEC
+        records, up to spec_k + 1 a slot a step. spec_k = 0 is the plain
+        loop, unchanged."""
         self._check_serve_geometry(slots, chunk, page, max_pages)
         prompt_cap = prompt_cap if prompt_cap is not None \
             else max_pages * page
         key = (slots, chunk, page, max_pages, window, ring_cap, prompt_cap,
-               poll_budget)
+               poll_budget, spec_k)
         loop = self.resident_loops.get(key)
         if loop is None:
             loop = self.resident_loops[key] = ResidentLoop(
                 self, slots, chunk, page, max_pages, window, ring_cap,
-                prompt_cap, poll_budget)
+                prompt_cap, poll_budget, spec_k)
         return loop
 
     def _check_serve_geometry(self, slots: int, chunk: int, page: int,

@@ -4,9 +4,11 @@ triton_dist_tpu.serve.request, cut to what the host loop uses.
 A Request is a unit of scheduling: it moves through queued -> prefill ->
 decode (back to queued when evicted) while the Scheduler interleaves it
 with other requests, and its tokens stream out through a callback or an
-iterator. The prefix plane's `prefix_len` and the prefill chunk count
-are kept; the speculative-decoding, resident-window and ledger fields
-of the JAX version are left out with those planes. `summarize`
+iterator. The prefix plane's `prefix_len`, the prefill chunk count,
+the device steps a request rode and the speculative-decoding counts are
+kept; the resident-window and ledger fields of the JAX version (window
+counts, inject wait, verify wall share) are left out with the telemetry
+that reads them. `summarize`
 takes its quantiles with numpy where the JAX version reads the obs
 registry's log-bucket histogram, which the port does not have.
 """
@@ -91,6 +93,10 @@ class Request:
     last_active_step: int = -1
     n_evictions: int = 0
     n_prefill_chunks: int = 0  # prefill chunk steps this request rode
+    n_device_steps: int = 0    # serve steps this request rode
+    n_spec_steps: int = 0      # of them, steps that ran its verify row
+    _last_spec_step: int = -1  # the resident drain's last verify step:
+    # its further FLAG_SPEC records ride the same device step
     prefix_len: int = 0        # prompt tokens served from the prefix
     # cache at the last admission (its prefill started past them)
     finish_reason: Optional[str] = None  # "eos" | "length" | "cancelled"

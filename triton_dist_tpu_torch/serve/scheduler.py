@@ -44,10 +44,23 @@ cached blocks before any eviction. A hit's tokens are bitwise its cold
 run's. The block is the caller's: the perf model's pick
 (`choose_prefix_block`) waits for the planner (ROADMAP item 7).
 
-Not ported: speculative decoding, disaggregated roles and migration,
-the retry/quarantine ladder (a failed step raises), cancellation and the
-background serving thread, the obs registry, the flight recorder and
-trace spans.
+`spec=SpecConfig(k)` turns on speculative decoding (spec/, JAX
+scheduler.py:148-177): in the host loop a decoding slot's row carries
+the draft's proposals after its last token, the per-position step keys
+every emitting column (Worker(per_pos=True)), and the longest accepted
+prefix plus the model's next token is emitted, the lengths advanced by
+it; in the resident loop one verify record a decoding slot a window
+travels through the ring, drafted from the drained history. Every
+emitted token is bitwise the spec-off stream's. `metrics()` always
+carries spec_proposed, spec_accepted, spec_accept_rate and spec_k_live.
+The adaptive draft width (`SpecConfig(adaptive=True)`) waits for the
+perf model's choose_spec_k (ROADMAP item 7).
+
+Not ported: disaggregated roles and migration, the retry/quarantine
+ladder (a failed step raises, a failed verify step too: item 8),
+cancellation and the background serving thread, the obs registry (the
+acceptance histogram and the verify wall share: item 9), the flight
+recorder and trace spans.
 """
 
 from __future__ import annotations
@@ -68,6 +81,7 @@ from triton_dist_tpu_torch.serve.request import (
 from triton_dist_tpu_torch.faults.errors import DeadlineExceeded
 from triton_dist_tpu_torch.mega import ring as mring
 from triton_dist_tpu_torch.serve.worker import ResidentWorker, Worker
+from triton_dist_tpu_torch.spec.verify import accept_tokens, draft_cap
 
 DEFAULT_CHUNK = 64
 
@@ -85,13 +99,14 @@ class Scheduler:
                  total_pages: Optional[int] = None, resident=False,
                  window: Optional[int] = None,
                  ring_cap: Optional[int] = None, prefix_cache=False,
-                 prefix_block: Optional[int] = None):
+                 prefix_block: Optional[int] = None, spec=None):
         """total_pages: allocatable pool pages (default: every slot can
         hold a full-horizon sequence); a smaller pool evicts. resident:
         run windows of the resident loop (the module docstring); window
         and ring_cap configure it. prefix_cache / prefix_block: the radix
         prefix cache over this Scheduler's pool, prefix_block tokens a
-        trie node (a multiple of the page)."""
+        trie node (a multiple of the page). spec: a spec.SpecConfig
+        (speculative decoding; None or k = 0 is off)."""
         if isinstance(prefix_cache, PrefixCache):
             # a PrefixCache is bound to its pool, and this Scheduler's
             # pool is built below: no caller-built cache can reference it
@@ -109,18 +124,30 @@ class Scheduler:
         if not resident and (window is not None or ring_cap is not None):
             raise ValueError("window / ring_cap configure the resident mode:"
                              " pass resident=True")
+        if spec is not None and getattr(spec, "adaptive", False):
+            raise NotImplementedError(
+                "SpecConfig(adaptive=True) needs the perf model's "
+                "choose_spec_k (ROADMAP item 7): pass adaptive=False")
         page = page or _default_page(engine.max_len)
         self.pool = KVPool(engine, slots, page, total_pages=total_pages)
         self.chunk = max(1, min(chunk or DEFAULT_CHUNK, self.pool.t_max))
+        # speculative decoding: k = 0 (or spec=None) is off
+        self.spec = spec if spec is not None and spec.k > 0 else None
+        if self.spec is not None and self.spec.k + 1 > self.chunk:
+            raise AssertionError(
+                f"spec k={self.spec.k} needs k+1 <= chunk ({self.chunk}): "
+                "the verify row is [last, d_1..d_k]")
+        spec_k = self.spec.k if self.spec is not None else 0
         self.prefix = (PrefixCache(self.pool, block=prefix_block)
                        if prefix_cache else None)
         self.resident = bool(resident)
         if self.resident:
             self.worker = ResidentWorker(engine, self.pool, self.chunk,
                                          window=window or 16,
-                                         ring_cap=ring_cap)
+                                         ring_cap=ring_cap, spec_k=spec_k)
         else:
-            self.worker = Worker(engine, self.pool, self.chunk)
+            self.worker = Worker(engine, self.pool, self.chunk,
+                                 per_pos=self.spec is not None)
         self.queue = RequestQueue()
         self.active: dict = {}  # slot -> Request
         self.requests: List[Request] = []
@@ -128,7 +155,8 @@ class Scheduler:
         self.counters = dict(submitted=0, rejected=0, admitted=0,
                              evicted=0, preempted=0, steps=0, tokens_out=0,
                              prefix_hits=0, prefix_misses=0,
-                             prefix_pages_shared=0)
+                             prefix_pages_shared=0, spec_proposed=0,
+                             spec_accepted=0)
 
     # -- client API -----------------------------------------------------
 
@@ -178,36 +206,54 @@ class Scheduler:
         if not self.active:
             return False
 
+        spec_on = self.spec is not None
         K, C = self.pool.slots, self.chunk
         tokens = np.zeros((K, C), np.int64)
         n_valid = np.zeros((K,), np.int64)
         temps = np.zeros((K,), np.float32)
-        keys = np.zeros((K, 2), np.uint32)
-        plans = []  # (slot, req, n, emits)
+        keys = np.zeros((K, C, 2) if spec_on else (K, 2), np.uint32)
+        plans = []  # (slot, req, n, emits, drafts)
 
         for slot in sorted(self.active):
             req = self.active.get(slot)
             if req is None:  # evicted by an earlier slot's _room call
                 continue
             hist = req.history()
+            drafts: list = []
             if req.state is RequestState.PREFILL:
                 n = min(C, len(hist) - req.pos)
                 if not self._room(slot, req, req.pos + n):
                     continue  # stalled this step
                 tokens[slot, :n] = hist[req.pos:req.pos + n]
                 emits = req.pos + n == len(hist)
-            else:  # DECODE
-                n = 1
-                if not self._room(slot, req, len(hist) + 1):
+            else:  # DECODE, a verify row when the draft proposes
+                if spec_on:
+                    cap = draft_cap(self.spec.k, C, len(hist),
+                                    len(req.out_tokens), req.max_new_tokens,
+                                    self.pool.t_max)
+                    if cap > 0:
+                        drafts = [int(t) for t in
+                                  self.spec.draft.propose(hist, cap)][:cap]
+                n = 1 + len(drafts)
+                if not self._room(slot, req, len(hist) + n):
                     continue
                 tokens[slot, 0] = hist[-1]
+                tokens[slot, 1:n] = drafts
                 emits = True
             n_valid[slot] = n
             if emits:
                 temps[slot] = req.temperature
-                keys[slot] = self.worker.key_for(req.seed,
-                                                 len(req.out_tokens))
-            plans.append((slot, req, n, emits))
+                if spec_on:
+                    # column base + j emits output index n_out + j
+                    # (spec/verify.py verify_keys, inlined)
+                    base = n - 1 - len(drafts)
+                    for j in range(len(drafts) + 1):
+                        keys[slot, base + j] = self.worker.key_for(
+                            req.seed, len(req.out_tokens) + j)
+                else:
+                    keys[slot] = self.worker.key_for(req.seed,
+                                                     len(req.out_tokens))
+            plans.append((slot, req, n, emits, drafts))
 
         # a later slot's page demand may have evicted an earlier,
         # already planned request (_room): scrub its row from the step
@@ -226,9 +272,31 @@ class Scheduler:
             self.counters["steps"] += 1
             return True
 
-        toks = self.worker.step(tokens, n_valid, temps, keys)
-        for slot, req, n, emits in plans:
+        if not spec_on:
+            toks = self.worker.step(tokens, n_valid, temps, keys)
+        else:
+            toks = self.worker.step_spec(tokens, n_valid, temps, keys)
+            # the longest accepted prefix first, the lengths advanced by
+            # what each verify row emits (n_valid on prefill rows), then
+            # the emissions
+            advance = n_valid.copy()
+            emitted = {}
+            for slot, req, n, emits, drafts in plans:
+                if req.state is RequestState.PREFILL:
+                    continue
+                out = accept_tokens(
+                    drafts, toks[slot, :n], eos_id=req.eos_id,
+                    max_emit=req.max_new_tokens - len(req.out_tokens))
+                emitted[slot] = out
+                advance[slot] = len(out)
+                if drafts:
+                    req.n_spec_steps += 1
+                    self.counters["spec_proposed"] += len(drafts)
+                    self.counters["spec_accepted"] += max(len(out) - 1, 0)
+            self.worker.advance_lengths(advance)
+        for slot, req, n, emits, drafts in plans:
             req.last_active_step = self.worker.n_steps
+            req.n_device_steps += 1
             if req.state is RequestState.PREFILL:
                 req.n_prefill_chunks += 1
                 req.pos += n
@@ -236,7 +304,13 @@ class Scheduler:
                     if self.prefix is not None:
                         self._prefix_insert(req, slot)
                     req.state = RequestState.DECODE
-                    self._emit(req, int(toks[slot]))
+                    self._emit(req, int(toks[slot, n - 1] if spec_on
+                                        else toks[slot]))
+            elif spec_on:
+                for t in emitted[slot]:
+                    if req.done:
+                        break  # eos or length retired it mid-row
+                    self._emit(req, int(t))
             else:
                 self._emit(req, int(toks[slot]))
         self.counters["steps"] += 1
@@ -265,6 +339,10 @@ class Scheduler:
         # the prefix plane's keys are always there (0 with the cache off)
         out["prefix_blocks"] = (self.prefix.n_blocks()
                                 if self.prefix is not None else 0)
+        # the spec plane's keys are always there too (0 with it off)
+        prop, acc = out["spec_proposed"], out["spec_accepted"]
+        out["spec_accept_rate"] = round(acc / prop, 4) if prop else 0.0
+        out["spec_k_live"] = self.spec.k if self.spec is not None else 0
         return out
 
     # -- resident mode (JAX scheduler.py:625-1000) -----------------------
@@ -274,6 +352,8 @@ class Scheduler:
         completions. The Scheduler never assembles a step: its decisions
         travel as ring records and the device feeds decode itself."""
         self._admit_resident()
+        if self.spec is not None:
+            self._inject_spec_resident()
         if not self.active and self.worker.pending_records() == 0:
             return False
         steps0 = self.worker.n_steps
@@ -351,16 +431,48 @@ class Scheduler:
                               req.temperature, req.seed, req.eos_id,
                               req.request_id, prefix=m)
 
+    def _inject_spec_resident(self) -> None:
+        """Verify records, resident form (JAX scheduler.py:770-797): one a
+        decoding slot a window, drafted from the tokens drained so far.
+        The device verifies it at the window's first step, where the
+        slot's n_out still matches the record's, and decodes the rest of
+        the window one token a step (a stale record degrades to that)."""
+        for slot, req in self.active.items():
+            if req.done or req.state is not RequestState.DECODE:
+                continue
+            if not self.worker.can_inject():
+                return
+            hist = req.history()
+            cap = draft_cap(self.spec.k, self.chunk, len(hist),
+                            len(req.out_tokens), req.max_new_tokens,
+                            self.pool.t_max)
+            if cap <= 0:
+                continue
+            drafts = [int(t) for t in self.spec.draft.propose(hist, cap)
+                      ][:cap]
+            if drafts:
+                self.worker.inject_verify(slot, req.request_id,
+                                          len(req.out_tokens), drafts)
+
     def _drain_records(self, records) -> None:
         """Fold a window's output records into the requests, in device
         seq order: emissions stream out as the host loop's do, and a
         retirement frees the slot and its pages. The device's eos and
-        length decisions are held against the host's."""
+        length decisions are held against the host's. A verify step's
+        FLAG_SPEC records group by (slot, step): the first carries the
+        proposed count, the others are its accepted drafts and bonus
+        token; the group is one device step."""
+        spec_groups: dict = {}  # (slot, step) -> [proposed, accepted]
         for rec in records:
             if rec.emitted or rec.retired:
                 # prefill done or retired: the device no longer reads
                 # the admission row
                 self.worker.unpin(rec.req_id)
+            if rec.spec and rec.emitted:
+                g = spec_groups.setdefault((rec.slot, rec.step), [0, -1])
+                g[1] += 1
+                if rec.spec_k:
+                    g[0] = rec.spec_k
             req = self.active.get(rec.slot)
             if req is None or req.request_id != rec.req_id:
                 continue  # a stale record of a slot already turned over
@@ -371,10 +483,20 @@ class Scheduler:
                     # the whole prefill ran on the device: its chunk steps
                     # are the history past the prefix-cache hit (a
                     # resident batch never evicts)
-                    req.n_prefill_chunks += -(
-                        -(len(req.history()) - req.prefix_len) // self.chunk)
+                    chunks = -(-(len(req.history()) - req.prefix_len)
+                               // self.chunk)
+                    req.n_prefill_chunks += chunks
+                    req.n_device_steps += chunks
                     req.state = RequestState.DECODE
                     req.pos = len(req.history())
+                elif rec.spec and req.out_tokens \
+                        and rec.step == req._last_spec_step:
+                    pass  # the same verify step: one device step
+                else:
+                    req.n_device_steps += 1
+                    if rec.spec:
+                        req.n_spec_steps += 1
+                        req._last_spec_step = rec.step
                 req.last_active_step = self.worker.n_steps
                 req._emit(rec.token, None)
                 self.counters["tokens_out"] += 1
@@ -392,6 +514,10 @@ class Scheduler:
                     self._retire(req, reason, RequestState.FINISHED)
                 else:  # REASON_HOST: an injected retirement came back
                     self._retire(req, "cancelled", RequestState.CANCELLED)
+        for kd, extra in spec_groups.values():
+            if kd > 0:
+                self.counters["spec_proposed"] += kd
+                self.counters["spec_accepted"] += max(extra, 0)
 
     # -- internals ------------------------------------------------------
 

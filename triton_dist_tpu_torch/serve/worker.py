@@ -5,7 +5,10 @@ touches the device.
 
 `Worker` (the host loop): moves the step's arguments to the engine's
 device, calls the engine's serve step over the pool (which samples on
-the card) and advances the pool lengths.
+the card) and advances the pool lengths. A `per_pos` worker (speculative
+decoding) runs the per-position step instead (`step_spec`) and leaves
+the lengths to the Scheduler, which advances them by what it accepts
+(`advance_lengths`).
 
 `ResidentWorker` (the resident form): the Scheduler's decisions travel as
 injection-ring records (mega/ring.py) and the worker runs the engine's
@@ -41,12 +44,14 @@ def sampling_key(seed: int, token_index: int) -> np.ndarray:
 
 
 class Worker:
-    def __init__(self, engine, pool: KVPool, chunk: int):
+    def __init__(self, engine, pool: KVPool, chunk: int,
+                 per_pos: bool = False):
         self.engine = engine
         self.pool = pool
         self.chunk = chunk
+        self.per_pos = per_pos
         self._fn = engine.make_serve_step(pool.slots, chunk, pool.page,
-                                          pool.max_pages)
+                                          pool.max_pages, per_pos=per_pos)
         self.n_steps = 0
 
     key_for = staticmethod(sampling_key)
@@ -58,11 +63,35 @@ class Worker:
         n_valid and returns the per-slot next token (K,); only slots whose
         chunk completed (prefill tail or decode) carry a meaningful
         token."""
+        if self.per_pos:
+            raise AssertionError(
+                "a per-position (spec) worker runs step_spec + "
+                "advance_lengths: the Scheduler owns the accepted-count "
+                "advance")
+        tok = self._run(tokens, n_valid, temps, keys)
+        self.pool.lengths = self.pool.lengths + np.asarray(n_valid, np.int64)
+        return tok
+
+    def step_spec(self, tokens: np.ndarray, n_valid: np.ndarray,
+                  temps: np.ndarray, keys: np.ndarray) -> np.ndarray:
+        """The per-position step: keys (K, C, 2) uint32, a key a column;
+        returns the (K, C) per-position tokens. The pool lengths are not
+        advanced: a verify row's advance is what the Scheduler accepts
+        from the returned tokens (`advance_lengths`)."""
+        if not self.per_pos:
+            raise AssertionError("a worker built without per_pos runs step")
+        return self._run(tokens, n_valid, temps, keys)
+
+    def advance_lengths(self, advance: np.ndarray) -> None:
+        """A step_spec's length advance a slot: n_valid on prefill rows,
+        the emitted count (accepted + 1) on verify rows."""
+        self.pool.lengths = self.pool.lengths + np.asarray(advance, np.int64)
+
+    def _run(self, tokens, n_valid, temps, keys) -> np.ndarray:
         pool = self.pool
         tok, _last = self._fn(tokens, pool.k, pool.v, pool.table,
                               pool.lengths, n_valid,
                               np.asarray(temps, np.float32), keys)
-        pool.lengths = pool.lengths + np.asarray(n_valid, np.int64)
         self.n_steps += 1
         return tok.cpu().numpy()
 
@@ -78,19 +107,22 @@ class ResidentWorker:
 
     def __init__(self, engine, pool: KVPool, chunk: int, window: int = 16,
                  ring_cap: Optional[int] = None, poll_budget: int = 8,
-                 max_stuck_windows: int = 3):
+                 max_stuck_windows: int = 3, spec_k: int = 0):
         self.engine = engine
         self.pool = pool
         self.chunk = chunk
         self.window = window
         self.poll_budget = poll_budget
         self.max_stuck_windows = max_stuck_windows
+        self.spec_k = spec_k
         cap = ring_cap if ring_cap is not None else max(4 * pool.slots, 16)
         self.ring = mring.InjectionRing(cap, pool.max_pages, pool.t_max,
                                         chunk)
+        self._spec_pins: list = []  # verify rows the next window reads
         self._fn = engine.make_resident_loop(
             pool.slots, chunk, pool.page, pool.max_pages, window,
-            ring_cap=cap, prompt_cap=pool.t_max, poll_budget=poll_budget)
+            ring_cap=cap, prompt_cap=pool.t_max, poll_budget=poll_budget,
+            spec_k=spec_k)
         self.slot_state = np.zeros((pool.slots, mring.SS_WIDTH), np.int32)
         # the device's table and lengths, installed by record consumption:
         # kept apart from pool.table / pool.lengths (the allocator's view,
@@ -121,6 +153,19 @@ class ResidentWorker:
 
     def retire(self, slot: int, req_id: int, at_step: int = 0) -> None:
         self.ring.retire(slot, req_id, at_step=at_step)
+
+    def inject_verify(self, slot: int, req_id: int, n_out: int, drafts,
+                      at_step: int = 0) -> None:
+        """A KIND_VERIFY record: `drafts` proposed at exactly `n_out`
+        emitted tokens. Its row stays pinned until the window that carried
+        it returns (the verify step reads the drafts from the row)."""
+        if self.spec_k <= 0:
+            raise AssertionError("the loop was built without spec_k")
+        if not 1 <= len(drafts) <= self.spec_k:
+            raise ValueError(f"{len(drafts)} drafts: the loop verifies 1 to "
+                             f"{self.spec_k}")
+        self._spec_pins.append(self.ring.verify(slot, req_id, n_out, drafts,
+                                                at_step=at_step))
 
     def can_inject(self) -> bool:
         """Room in the ring for one more record (the backpressure probe)."""
@@ -154,6 +199,10 @@ class ResidentWorker:
                    self.slot_state, self._table, self._lengths, pool.k,
                    pool.v, steps=steps)
         self.n_reads += 1
+        # the window returned: the verify rows it carried are read no more
+        for pin in self._spec_pins:
+            self.ring.unpin(pin)
+        self._spec_pins.clear()
         self.windows_by_steps[steps] = self.windows_by_steps.get(steps,
                                                                  0) + 1
         self.slot_state = res.slot_state.copy()
